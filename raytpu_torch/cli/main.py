@@ -1,0 +1,118 @@
+"""raytpu-torch command-line interface (counterpart of raytpu/cli/main.py).
+
+  raytpu-torch render — raytrace the Cornell box to a BMP
+
+The render flags and their defaults are the JAX package's; ``--device``
+picks where the frame is rendered (default ``cuda``: a run with no GPU
+fails instead of carrying on on the CPU). Configurations outside the
+ported slice (STL scenes, AA, soft shadows, extra lights) raise
+NotImplementedError naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _render_flags(p: argparse.ArgumentParser):
+    p.add_argument("-o", "--output", default="screenshot.bmp",
+                   help="output BMP path (ref: SDL_SaveBMP on exit)")
+    p.add_argument("--width", type=int, default=500)
+    p.add_argument("--height", type=int, default=500)
+    p.add_argument("--mode", choices=["parity", "clean", "soft"],
+                   default="parity")
+    p.add_argument("--stl", default=None,
+                   help="render an ASCII STL model instead of the Cornell "
+                        "box (not ported yet)")
+    p.add_argument("--morton", action="store_true",
+                   help="Morton-sort STL triangles (with --stl)")
+    p.add_argument("--camera-pos", type=float, nargs=3, default=None)
+    p.add_argument("--yaw", type=float, default=0.0)
+    p.add_argument("--focal", type=float, default=None,
+                   help="focal length in pixels (ref: 250)")
+    p.add_argument("--light-pos", type=float, nargs=3,
+                   default=(0.0, -0.5, -0.7))
+    p.add_argument("--light-color", type=float, nargs=3,
+                   default=(1.0, 1.0, 1.0))
+    p.add_argument("--light-intensity", type=float, default=14.0)
+    p.add_argument("--add-light", action="append", nargs=7,
+                   type=float, metavar=("X", "Y", "Z", "R", "G", "B", "I"),
+                   default=None, help="extra light (repeatable; ref key 2)")
+    p.add_argument("--dof", action="store_true",
+                   help="depth-of-field blur (ref key 9)")
+    p.add_argument("--dof-kernel", type=int, default=8)
+    p.add_argument("--dof-focus", type=float, default=None,
+                   help="DoF focus distance (ref FOCAL_LENGTH, keys [ ])")
+    p.add_argument("--aa", type=int, default=1, metavar="N",
+                   help="NxN supersample AA (ref key 7, AA_SAMPLES=3)")
+    p.add_argument("--soft-shadows", type=int, default=1, metavar="S",
+                   help="soft-shadow samples (ref key 8, 16 samples)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda)")
+
+
+def _build_inputs(args):
+    import torch
+
+    from raytpu_torch.core.cornell import cornell_box
+    from raytpu_torch.core.types import Camera, Lights, RenderConfig
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("raytpu-torch: --device cuda but no CUDA device is "
+                         "available (pass --device cpu to render on the CPU)")
+    if args.stl:
+        raise NotImplementedError(
+            "--stl: STL scenes are ROADMAP.md port item 4 (STL scale)")
+    scene = cornell_box(device=device)
+    camera = Camera.make(
+        args.camera_pos or (0.0, 0.0, -2.0), yaw=args.yaw,
+        focal=args.focal if args.focal is not None else 250.0,
+        dof_focus=args.dof_focus if args.dof_focus is not None else 1.3,
+        device=device,
+    )
+    extra = args.add_light or []
+    soft_samples = max(args.soft_shadows, 1)
+    lights = Lights.single(
+        position=args.light_pos, color=args.light_color,
+        intensity=args.light_intensity, capacity=1 + len(extra),
+        soft_samples=soft_samples, device=device,
+    )
+    for i, l in enumerate(extra):
+        lights = lights.add(l[:3], l[3:6], l[6],
+                            generator=torch.Generator().manual_seed(i + 1))
+    cfg = RenderConfig(
+        width=args.width, height=args.height, mode=args.mode,
+        aa_samples=args.aa, soft_shadow_samples=args.soft_shadows,
+        dof_enabled=args.dof, dof_kernel_size=args.dof_kernel,
+    )
+    return scene, camera, lights, cfg
+
+
+def cmd_render(args):
+    from raytpu_torch.core.image import write_bmp
+    from raytpu_torch.render.raytrace import raytrace
+
+    scene, camera, lights, cfg = _build_inputs(args)
+    img = raytrace(scene, camera, lights, cfg).cpu().numpy()
+    write_bmp(args.output, img)
+    print(f"wrote {args.output} ({cfg.width}x{cfg.height}, {cfg.mode}, "
+          f"{scene.device})")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="raytpu-torch",
+        description="PyTorch/CUDA port of the raytpu raytracer",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("render", help="raytrace to a BMP")
+    _render_flags(p)
+    p.set_defaults(func=cmd_render)
+    args = parser.parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+The sources are raytpu_torch/csrc/*.cu, each with a plain C interface (no
+PyTorch headers, so a build takes seconds). At first use they are compiled
+with nvcc for Hopper (sm_90a) into one shared library under
+``build/raytpu_torch/`` beside the package, named by a hash of the sources
+and flags, and loaded with ctypes. Nothing is built at import. A missing
+nvcc or a failed build raises: there is no fallback.
+
+Rounding is pinned: ``-fmad=false`` forbids contracting a multiply and an
+add into one FMA, and division and sqrt stay IEEE round-to-nearest, so the
+kernels round exactly as PyTorch's op-by-op CUDA arithmetic does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The C interface of every kernel: name -> argument types. Each returns the
+# cudaError_t of its launch as an int.
+SIGNATURES = {
+    # dirs, table, params, C, R, ambient, parity, color, fd, idx, occ, stream
+    "raytpu_render_fused_fwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
+                                _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of raytpu_torch are compiled "
+        "from raytpu_torch/csrc at first use (CUDA toolkit required)"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"raytpu_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless it exists; returns its path. The
+    compiler's report (registers, shared memory, spills) is kept beside
+    it as a .log file."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: no process ever loads half a file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The built library with every function's argument types declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

@@ -1,0 +1,59 @@
+"""Triangle tables and parameters of the fused forward kernel.
+
+Counterpart of the helpers ``_tight_chunk`` and ``_blocked_constants`` in
+raytpu/kernels/intersect_pallas.py. The TPU kernel read its constants as
+chunk-blocked (4C, 3) scalar-prefetch arrays; the CUDA kernel reads one
+flat float32 table of TABLE_ROWS rows by C columns (row-major), which each
+thread block copies into shared memory:
+
+  rows  0..9   primary (camera-origin) constants  n xyz | c2 xyz | c3 xyz | k0
+  rows 10..19  shadow (light-origin) constants, same layout
+  rows 20..22  shading normal xyz
+  rows 23..25  albedo xyz
+
+where (n, c2, c3) are the rows of TriConstants.m. Invalid and padding
+triangles have zeroed constants: their denominator is 0, so they never
+hit. Columns T..C-1 are zero padding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+TABLE_ROWS = 26
+MAX_CHUNK = 128
+PRIMARY, SHADOW, NORMAL, ALBEDO = 0, 10, 20, 23
+PARAMS = 10  # cam xyz | light xyz | p_eff xyz | dof_focus
+
+
+def tight_chunk(T: int, tri_chunk: int) -> int:
+    """Triangles per chunk: T rounded up to 8, at most 128 and tri_chunk."""
+    return min(tri_chunk, MAX_CHUNK, max(8, -(-T // 8) * 8))
+
+
+def _constant_rows(m: torch.Tensor, k0: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """(10, T) rows [n | c2 | c3 | k0] with invalid triangles zeroed."""
+    m = m * valid[:, None, None]
+    k0 = k0 * valid
+    return torch.cat([m[:, 0, :].T, m[:, 1, :].T, m[:, 2, :].T, k0[None, :]])
+
+
+def pack_tables(m, k0, valid, m_l, k0_l, nrm, alb, C: int) -> torch.Tensor:
+    """The kernel's (TABLE_ROWS, C) table from the primary constants
+    (m, k0, valid), the shadow constants (m_l, k0_l), normals and albedo."""
+    T = m.shape[0]
+    if T > C:
+        raise ValueError(f"{T} triangles do not fit one chunk of {C}")
+    rows = torch.cat([
+        _constant_rows(m, k0, valid),
+        _constant_rows(m_l, k0_l, valid),
+        nrm.T,
+        alb.T,
+    ])
+    return torch.nn.functional.pad(rows, (0, C - T)).contiguous()
+
+
+def pack_params(cam_pos, light_pos, p_eff, dof_focus) -> torch.Tensor:
+    """The kernel's (PARAMS,) parameter vector."""
+    return torch.cat([cam_pos, light_pos, p_eff, dof_focus.reshape(1)])

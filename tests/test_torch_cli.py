@@ -1,0 +1,110 @@
+"""The port's request paths: the ``render`` CLI and the animate loop
+(raytpu_torch.cli.main, raytpu_torch.render.animate) against the JAX
+package's."""
+
+import numpy as np
+import pytest
+import torch
+
+from raytpu.core.cornell import cornell_box as jax_cornell_box
+from raytpu.core.image import quantize_u8
+from raytpu.core.types import Camera as JaxCamera
+from raytpu.core.types import Lights as JaxLights
+from raytpu.core.types import RenderConfig as JaxRenderConfig
+from raytpu.render import animate as jax_animate
+from raytpu.render.raytrace import raytrace as jax_raytrace
+
+from raytpu_torch import convert
+from raytpu_torch.cli.main import main
+from raytpu_torch.core.cornell import cornell_box
+from raytpu_torch.core.image import read_bmp
+from raytpu_torch.core.types import Camera, Lights, RenderConfig
+from raytpu_torch.kernels import render_fused
+from raytpu_torch.render import animate
+from raytpu_torch.render.raytrace import raytrace
+
+
+def leaves(value):
+    return {k: np.asarray(v) for k, v in vars(value).items()}
+
+
+@pytest.mark.parametrize("mode", ["parity", "clean"])
+def test_render_cli_writes_the_jax_frame(tmp_path, mode, capsys):
+    out = tmp_path / "frame.bmp"
+    main(["render", "--device", "cpu", "--width", "32", "--height", "32",
+          "--mode", mode, "-o", str(out)])
+    assert "wrote" in capsys.readouterr().out
+    got = read_bmp(str(out))
+    want = quantize_u8(np.asarray(jax_raytrace(
+        jax_cornell_box(), JaxCamera.raytracer_default(),
+        JaxLights.single(capacity=1),
+        JaxRenderConfig(width=32, height=32, mode=mode))))
+    assert got.shape == want.shape == (32, 32, 3)
+    close = np.abs(got.astype(int) - want.astype(int)).max(axis=-1) <= 1
+    assert close.mean() >= 0.999
+
+
+def test_render_cli_refuses_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as exc:
+        main(["render", "--width", "8", "--height", "8",
+              "-o", str(tmp_path / "x.bmp")])
+    assert exc.value.code != 0
+    assert not (tmp_path / "x.bmp").exists()
+
+
+def test_render_cli_refuses_unported_flags(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["render", "--device", "cpu", "--width", "8", "--height", "8",
+              "--aa", "3", "-o", str(tmp_path / "x.bmp")])
+
+
+def test_expand_script_matches_jax():
+    script = "left*2, up*2,w*2,a*2,none,d,s*3,down,right"
+    assert animate.expand_script(script) == jax_animate.expand_script(script)
+    with pytest.raises(ValueError):
+        animate.expand_script("jump")
+
+
+def test_key_transitions_match_jax():
+    jax_camera = JaxCamera.raytracer_default()
+    jax_lights = JaxLights.single(capacity=1, soft_samples=4)
+    camera = convert.camera_from_numpy(leaves(jax_camera), device="cpu")
+    lights = convert.lights_from_numpy(leaves(jax_lights), device="cpu")
+    for key in animate.expand_script("left*2,up*2,w*2,a*2,d,s,down,right"):
+        jax_camera, jax_lights = jax_animate.apply_key_raytracer(
+            jax_camera, jax_lights, key)
+        camera, lights = animate.apply_key_raytracer(camera, lights, key)
+        # The rotation's cos/sin may differ by an ulp (see
+        # test_torch_types), which the 0.1 steps carry along.
+        for got, want in ((camera, jax_camera), (lights, jax_lights)):
+            got = convert.to_numpy(got)
+            for name, value in leaves(want).items():
+                np.testing.assert_allclose(got[name], value, rtol=0,
+                                           atol=1e-6)
+
+
+def test_animate_renders_one_frame_per_key():
+    keys = animate.expand_script("left*2,up*2,w*2,a*2")
+    cfg = RenderConfig(width=24, height=24)
+    before = render_fused.LAUNCHES
+    res = animate.animate(cornell_box(pad_to=32, device="cpu"),
+                          Camera.raytracer_default(device="cpu"),
+                          Lights.single(capacity=1, device="cpu"), cfg, keys)
+    assert render_fused.LAUNCHES == before  # CPU tensors: plain version
+    assert res.n_frames == len(res.frames) == 8 and res.ms_per_frame > 0
+    for frame in res.frames:
+        assert bool(torch.isfinite(frame).all())
+        assert float(frame[1:-1, 1:-1].max()) > 0.3
+    # Frame 6 is the state after keys 0..6.
+    cam = Camera.raytracer_default(device="cpu")
+    lights = Lights.single(capacity=1, device="cpu")
+    for key in keys[:7]:
+        cam, lights = animate.apply_key_raytracer(cam, lights, key)
+    want = raytrace(cornell_box(pad_to=32, device="cpu"), cam, lights, cfg)
+    assert torch.equal(res.frames[6], want)
+    with pytest.raises(ValueError):
+        animate.animate(cornell_box(device="cpu"),
+                        Camera.raytracer_default(device="cpu"),
+                        Lights.single(capacity=1, device="cpu"), cfg, [])
