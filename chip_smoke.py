@@ -23,16 +23,35 @@ nonzero without printing a result:
   6. card numbers: the 512^2 clean forward frame and the kernel alone, each
      through the kernel and through the plain version, timed with CUDA
      events (median), beside the card's name and power limit.
+  7. the backward kernels (K2, the per-ray backward, and K3, the sums per
+     triangle) against their plain version on the card, at 512^2 clean,
+     500^2 parity and 1024^2 clean, with cotangents drawn from a numpy
+     seed: g_dirs, g_table and g_params within rtol 1e-4 / atol 1e-5 of the
+     plain version evaluated in float64, two kernel calls bit-identical,
+     all finite. (A per-triangle sum adds 10^3-10^5 terms; the float32
+     plain version's own rounding reaches 0.8 of that tolerance, so the
+     float64 evaluation is the reference and the float32 one is printed.)
+  8. the train path as a user writes it: 20 SGD steps (lr 1e-9, every
+     float leaf of scene and lights) of the MSE of the 512^2 clean render
+     to a fixed target, each step launching K1, K2 and K3 once; an albedo
+     fit (albedo + 0.1, lr 1.0) whose loss falls at every step to below
+     10% of its start; then card numbers: the train step through the
+     kernels and through the plain backward, K2 and K3 alone and the plain
+     backward alone, ``index_add_`` for K3's function, the device-busy
+     share of a step (torch.profiler), and the 1024^2 train step.
 
-Launch counts are zeroed just before phase 4 and read just after phase 5,
-so they count the main path only. The line before the last is one JSON
-object describing each kernel; the last line is
+Launch counts are zeroed just before each path and read just after it:
+before phase 4 and after phase 5 (serving: K1), before and after the 20
+steps of phase 8 (training: K1, K2, K3). Comparisons and timings launch
+outside those windows. The line before the last is one JSON object
+describing each kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Details (result.json, render.bmp) go to build/chip_smoke/.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import statistics
@@ -49,6 +68,22 @@ OUT = ROOT / "build" / "chip_smoke"
 ORACLE = ROOT / "raytpu" / "oracle" / "raytracer_oracle.py"
 # Image tolerances of tests/test_raytrace_parity.py::_assert_images_match.
 F32_ATOL, F32_RTOL, U8_FRAC, FLIP_FRAC = 2e-4, 1e-3, 0.999, 0.999
+# ROADMAP's gradient rule.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# The H100 SXM's published peaks at its 700 W limit: device memory
+# bytes/s and float32 operations/s outside the tensor cores. A kernel's bound is the larger of its bytes and its
+# operations over these.
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# Float operations the kernels do, counted from their sources (a divide or
+# a square root counts as one; compares and selects not at all): a plane
+# test (render_fused.cu::plane_test), the forward's shading of a hit ray,
+# and the backward's recompute, derivative and block sums of a hit ray
+# (render_fused_bwd.cu).
+FLOPS_PLANE_TEST, FLOPS_FWD_SHADE, FLOPS_BWD_HIT = 20, 50, 180
+# Cycles of torch.cuda._sleep that hold the stream while timed calls are
+# enqueued (about 100 ms at the H100's clocks). The calls held must also
+# stay within the stream's queue of about a thousand launches.
+HOLD_CYCLES = 200_000_000
 
 
 def say(msg: str) -> None:
@@ -87,17 +122,164 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def median_ms_in_turns(fns: dict, n: int, reps: int) -> dict:
-    """Median over ``reps`` of cuda_ms for each fn, alternating the order
-    (a, b, b, a, ...) so that drift hits both alike."""
+def held_ms(fn, n: int) -> float:
+    """Device time of ``n`` calls of fn, per call, in ms. A device-side
+    sleep holds the stream while the calls are enqueued, so the events time
+    the device's work back to back and not the host's dispatch."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    require(enqueue_ms < 0.5 * HOLD_CYCLES / 2e6,
+            f"{n} calls enqueued within the hold ({enqueue_ms:.1f} ms)")
+    return start.elapsed_time(end) / n
+
+
+def median_ms_in_turns(fns: dict, n: int, reps: int, timer=cuda_ms) -> dict:
+    """Median over ``reps`` of timer(fn, n) for each fn, alternating the
+    order (a, b, b, a, ...) so that drift hits both alike."""
     names = list(fns)
     for name in names:  # warm up
         cuda_ms(fns[name], 3)
     times = {name: [] for name in names}
     for rep in range(reps):
         for name in (names if rep % 2 == 0 else names[::-1]):
-            times[name].append(cuda_ms(fns[name], n))
+            times[name].append(timer(fns[name], n))
     return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take for work that moves ``nbytes``
+    and does ``flops`` float32 operations, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def shadow_tests(dirs, table, params) -> int:
+    """Plane tests K1's shadow sweep makes on these rays: each ray tests the
+    triangles in order up to its first blocker, or all C."""
+    from raytpu_torch.kernels.render_fused import _constants
+    from raytpu_torch.kernels.tables import PRIMARY, SHADOW
+    from raytpu_torch.ops.intersect import F32MAX, closest, plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
+    best_t, _ = closest(*plane_tests(dirs, *_constants(table, PRIMARY)))
+    tz = torch.where(best_t < F32MAX, best_t, 0.0)
+    delta = (params[0:3] + tz[:, None] * dirs) - params[3:6]
+    ts, oks = plane_tests(delta, *_constants(table, SHADOW))
+    blocked = oks & (ts < SHADOW_T)
+    first = blocked.float().argmax(dim=1) + 1  # the first True, 1-based
+    return int(torch.where(blocked.any(dim=1), first, table.shape[1]).sum())
+
+
+def bwd_args(args, kw, seed: int):
+    """The backward's inputs for a frame's fused_inputs: dirs, table, params,
+    the forward's idx and occ, and cotangents drawn with numpy from seed."""
+    from raytpu_torch.kernels import render_fused
+    table, params = render_fused.pack_inputs(*args[1:], kw["tri_chunk"])
+    dirs = args[0]
+    out = render_fused.fused_fwd_reference(dirs, table, params,
+                                           ambient=kw["ambient"],
+                                           parity=kw["parity"])
+    # Of one sign, as the gradient of an MSE where the render is brighter
+    # than its target everywhere: signed cotangents cancel in the sums
+    # until float32 rounding decides the small ones.
+    rng = np.random.default_rng(seed)
+    R = dirs.shape[0]
+    g_color = rng.uniform(0.5, 1.5, (R, 3)).astype(np.float32)
+    g_fd = rng.uniform(0.5, 1.5, R).astype(np.float32)
+    return ((dirs, table, params, out.idx, out.occ,
+             torch.tensor(g_color, device=dirs.device),
+             torch.tensor(g_fd, device=dirs.device)),
+            dict(ambient=kw["ambient"], parity=kw["parity"]))
+
+
+def train_step(dev, size: int, lr: float):
+    """bench.py's train step in the port: the MSE of the size^2 clean
+    render of the Cornell box (padded to 32) to the render of the starting
+    parameters, and one SGD step over every float leaf of scene and lights.
+    Returns a function that takes one step and returns its loss."""
+    from raytpu_torch import Camera, Lights, RenderConfig, cornell_box
+    from raytpu_torch.render.raytrace import raytrace
+    scene = cornell_box(pad_to=32, device=dev)
+    camera = Camera.raytracer_default(device=dev)
+    lights = Lights.single(capacity=1, device=dev)
+    cfg = RenderConfig(width=size, height=size, mode="clean")
+    with torch.no_grad():
+        target = raytrace(scene, camera, lights, cfg)
+    opt = torch.optim.SGD([t.requires_grad_(True) for value in (scene, lights)
+                           for t in vars(value).values()], lr=lr)
+
+    def step():
+        opt.zero_grad()
+        loss = torch.mean((raytrace(scene, camera, lights, cfg) - target)
+                          ** 2)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def fit_albedo(dev, size: int, lr: float, steps: int) -> list[float]:
+    """SGD on the albedo alone, from albedo + 0.1 toward the render of the
+    true scene (size^2 clean); the loss of every step."""
+    from raytpu_torch import Camera, Lights, RenderConfig, cornell_box
+    from raytpu_torch.render.raytrace import raytrace
+    scene = cornell_box(pad_to=32, device=dev)
+    camera = Camera.raytracer_default(device=dev)
+    lights = Lights.single(capacity=1, device=dev)
+    cfg = RenderConfig(width=size, height=size, mode="clean")
+    with torch.no_grad():
+        target = raytrace(scene, camera, lights, cfg)
+    color = (scene.color + 0.1).requires_grad_(True)
+    fit = dataclasses.replace(scene, color=color)
+    opt = torch.optim.SGD([color], lr=lr)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = torch.mean((raytrace(fit, camera, lights, cfg) - target) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return losses
+
+
+def device_busy(step, steps: int) -> dict:
+    """torch.profiler over ``steps`` calls of step: the device's busy time
+    (kernels, copies and sets) and the host clock's time a step, their
+    ratio, the device events a step and the busy time a step by name."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name, count = {}, 0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            ms = event.time_range.elapsed_us() / 1e3 / steps
+            by_name[event.name] = by_name.get(event.name, 0.0) + ms
+            count += 1
+    busy_ms = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # No device events means the profiler did not trace the card: the
+    # share is then not measured, not zero.
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms,
+                share=busy_ms / wall_ms if count else None,
+                kernels=count / steps,
+                by_name=[(name[:120], ms) for name, ms in ranked])
 
 
 def main() -> int:
@@ -120,7 +302,7 @@ def main() -> int:
     from raytpu_torch.core.cornell import cornell_box_numpy
     from raytpu_torch.core.image import quantize_u8, read_bmp
     from raytpu_torch.kernels import _build, render_fused
-    from raytpu_torch.kernels.tables import tight_chunk
+    from raytpu_torch.kernels.tables import GATHERED, PARAMS, tight_chunk
     from raytpu_torch.render.animate import animate, expand_script
     from raytpu_torch.render.raytrace import (
         fused_inputs, raytrace, raytrace_full)
@@ -227,12 +409,19 @@ def main() -> int:
     args, kw = frame_args(512, "clean", 32)
     table, params = render_fused.pack_inputs(*args[1:], kw["tri_chunk"])
     dirs = args[0]
-    kernel_ms = median_ms_in_turns({
-        "kernel": lambda: render_fused.fused_fwd(
-            dirs, table, params, ambient=kw["ambient"], parity=False),
-        "plain": lambda: render_fused.fused_fwd_reference(
-            dirs, table, params, ambient=kw["ambient"], parity=False),
-    }, n=50, reps=9)
+
+    def k1():
+        return render_fused.fused_fwd(dirs, table, params,
+                                      ambient=kw["ambient"], parity=False)
+
+    def k1_plain():
+        return render_fused.fused_fwd_reference(
+            dirs, table, params, ambient=kw["ambient"], parity=False)
+
+    kernel_ms = median_ms_in_turns({"kernel": k1, "plain": k1_plain},
+                                   n=50, reps=9)
+    k1_ms = median_ms_in_turns({"kernel": k1, "plain": k1_plain}, n=5,
+                               reps=9, timer=held_ms)
     scene = cornell_box(pad_to=32, device=dev)
     camera = Camera.raytracer_default(device=dev)
     lights = Lights.single(capacity=1, device=dev)
@@ -253,28 +442,190 @@ def main() -> int:
 
     frame_ms = median_ms_in_turns({"kernel": frame, "plain": plain_frame},
                                   n=1, reps=31)
+    # K1's work on this frame: 36 B a ray in and out plus the tables, and
+    # C plane tests a ray in the primary sweep, the shadow sweep's tests up
+    # to the first blocker, and the shading of each hit ray.
+    out = k1_plain()
+    R, C = dirs.shape[0], table.shape[1]
+    k1_bound = bound_ms(
+        R * 36 + (table.numel() + params.numel()) * 4,
+        FLOPS_PLANE_TEST * (R * C + shadow_tests(dirs, table, params))
+        + FLOPS_FWD_SHADE * int((out.idx >= 0).sum()))
     card = card_line()
-    say(f"kernel alone, 512^2 C={tight_chunk(32, 512)}: "
-        f"{kernel_ms['kernel']:.4f} ms kernel, {kernel_ms['plain']:.4f} ms "
-        f"plain ({card})")
+    say(f"K1 alone, 512^2 C={tight_chunk(32, 512)}: device time "
+        f"{k1_ms['kernel']:.4f} ms kernel, {k1_ms['plain']:.4f} ms plain; "
+        f"back to back (host included) {kernel_ms['kernel']:.4f} ms kernel, "
+        f"{kernel_ms['plain']:.4f} ms plain; bound {k1_bound[0]:.4f} ms "
+        f"({k1_bound[1]}) ({card})")
     say(f"forward frame 512^2 clean: {frame_ms['kernel']:.4f} ms through the "
         f"kernel, {frame_ms['plain']:.4f} ms through the plain version "
         f"({card})")
-    record.update(card=card, kernel_ms=kernel_ms, frame_ms=frame_ms,
+    record.update(card=card, kernel_ms=kernel_ms, k1_device_ms=k1_ms,
+                  k1_bound=k1_bound, frame_ms=frame_ms,
                   main_path_launches=launches, max_abs_err=max_err)
+
+    say("== phase 7: backward kernels against their plain version")
+    # K2's own output is g_dirs; g_table and g_params come out of K3.
+    bwd_err = {"rays": 0.0, "sums": 0.0}
+    for size, mode, pad_to in ((512, "clean", 32), (500, "parity", None),
+                               (1024, "clean", 32)):
+        bargs, bkw = bwd_args(*frame_args(size, mode, pad_to), seed=size)
+        got = render_fused.fused_bwd(*bargs, **bkw)
+        again = render_fused.fused_bwd(*bargs, **bkw)
+        plain = render_fused.fused_bwd_reference(*bargs, **bkw)
+        want = render_fused.fused_bwd_reference(
+            *(a.double() if a.is_floating_point() else a for a in bargs),
+            **bkw)
+        torch.cuda.synchronize()
+        line = []
+        for name, g, p, w in zip(("g_dirs", "g_table", "g_params"), got,
+                                 plain, want):
+            require(bool(torch.isfinite(g).all()), f"finite {name}")
+            tol = GRAD_ATOL + GRAD_RTOL * w.abs()
+            err = (g.double() - w).abs()
+            line.append(f"{name} max|d| {float(err.max()):.3g} (of tol "
+                        f"{float((err / tol).max()):.3f}; float32 plain "
+                        f"{float(((p.double() - w).abs() / tol).max()):.3f})")
+            require(bool((err <= tol).all()),
+                    f"{name} within rtol {GRAD_RTOL} / atol {GRAD_ATOL}")
+            key = "rays" if name == "g_dirs" else "sums"
+            bwd_err[key] = max(bwd_err[key], float(err.max()))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        say(f"{size}^2 {mode}: {', '.join(line)}; two calls bit-identical "
+            f"{same}")
+        require(same, "two kernel calls bit-identical")
+        record[f"bwd_compare_{size}_{mode}"] = line
+
+    say("== phase 8: the train path (512^2 clean, SGD on scene + lights)")
+    step512 = train_step(dev, 512, 1e-9)
+    for name in ("LAUNCHES", "LAUNCHES_BWD", "LAUNCHES_SCATTER"):
+        setattr(render_fused, name, 0)
+    losses = [step512() for _ in range(20)]
+    train_launches = {"render_fused_fwd": render_fused.LAUNCHES,
+                      "render_fused_bwd": render_fused.LAUNCHES_BWD,
+                      "render_fused_scatter": render_fused.LAUNCHES_SCATTER}
+    say(f"20 steps, loss {float(losses[0]):.6g} -> {float(losses[-1]):.6g}; "
+        f"train path launches: {train_launches}")
+    require(all(n == 20 for n in train_launches.values()),
+            "each step launches K1, K2 and K3 exactly once")
+    require(all(bool(torch.isfinite(x)) for x in losses), "finite losses")
+
+    fit_losses = fit_albedo(dev, 512, lr=1.0, steps=50)
+    say(f"albedo fit 512^2 (lr 1.0): loss {fit_losses[0]:.6g} -> "
+        f"{fit_losses[-1]:.6g} in {len(fit_losses)} steps")
+    require(all(b < a for a, b in zip(fit_losses, fit_losses[1:])),
+            "the fit's loss falls at every step")
+    require(fit_losses[-1] < 0.1 * fit_losses[0],
+            "the fit ends below 10% of its start loss")
+
+    def plain_bwd(fn):
+        def run():
+            # The step with the backward wrapper swapped for the plain
+            # version, for this measurement only.
+            launch = render_fused.fused_bwd
+            render_fused.fused_bwd = render_fused.fused_bwd_reference
+            try:
+                return fn()
+            finally:
+                render_fused.fused_bwd = launch
+        return run
+
+    step_ms = median_ms_in_turns({"kernels": step512,
+                                  "plain_bwd": plain_bwd(step512)},
+                                 n=1, reps=31)
+    bargs, bkw = bwd_args(*frame_args(512, "clean", 32), seed=0)
+    b_dirs, b_table, b_idx = bargs[0], bargs[1], bargs[3]
+    R, C = b_dirs.shape[0], b_table.shape[1]
+    blocks = -(-R // render_fused.BWD_RAYS_PER_BLOCK)
+    cols = len(GATHERED) * C + PARAMS
+    g_dirs = torch.empty((R, 3), device=dev)
+    partials = torch.empty((blocks, cols), device=dev)
+    g_table = torch.empty_like(b_table)
+    g_params = torch.empty((PARAMS,), device=dev)
+    render_fused.launch_bwd_kernel(*bargs, bkw["ambient"], bkw["parity"],
+                                   g_dirs, partials)
+    rays = render_fused.bwd_rays_reference(*bargs, **bkw)
+    win, g_rays = b_idx.clamp_min(0).long(), rays[1].T.contiguous()
+
+    def index_add():
+        # K3's function as one PyTorch call: the per-ray cotangents summed
+        # by winner (a miss adds its zeros to triangle 0).
+        return torch.zeros((len(GATHERED), C), device=dev).index_add_(
+            1, win, g_rays)
+
+    bwd_ms = median_ms_in_turns({
+        "kernels": lambda: render_fused.fused_bwd(*bargs, **bkw),
+        "plain": lambda: render_fused.fused_bwd_reference(*bargs, **bkw),
+    }, n=2, reps=9, timer=held_ms)
+    k2_ms = median_ms_in_turns({
+        "kernel": lambda: render_fused.launch_bwd_kernel(
+            *bargs, bkw["ambient"], bkw["parity"], g_dirs, partials),
+        "plain": lambda: render_fused.bwd_rays_reference(*bargs, **bkw),
+    }, n=2, reps=9, timer=held_ms)
+    k3_ms = median_ms_in_turns({
+        "kernel": lambda: render_fused.launch_scatter_kernel(
+            partials, g_table, g_params),
+        "plain": lambda: render_fused.scatter_reference(
+            b_idx, rays[1], rays[2], C),
+        "index_add_": index_add,
+    }, n=5, reps=9, timer=held_ms)
+    nhit = int((b_idx >= 0).sum())
+    k2_bound = bound_ms(R * (12 + 4 + 4 + 12 + 4 + 12)
+                        + (len(GATHERED) * C + PARAMS) * 4
+                        + blocks * cols * 4,
+                        FLOPS_BWD_HIT * nhit)
+    k3_bound = bound_ms(blocks * cols * 4 + (b_table.numel() + PARAMS) * 4,
+                        blocks * cols)
+    say(f"train step 512^2 clean (CUDA events, median of 31): "
+        f"{step_ms['kernels']:.4f} ms through K2/K3, "
+        f"{step_ms['plain_bwd']:.4f} ms through the plain backward ({card})")
+    say(f"backward alone, device time: K2+K3 {bwd_ms['kernels']:.4f} ms, "
+        f"plain {bwd_ms['plain']:.4f} ms; K2 {k2_ms['kernel']:.4f} ms "
+        f"(plain {k2_ms['plain']:.4f}, bound {k2_bound[0]:.4f} "
+        f"{k2_bound[1]}); K3 {k3_ms['kernel']:.4f} ms (plain "
+        f"{k3_ms['plain']:.4f}, index_add_ {k3_ms['index_add_']:.4f}, "
+        f"bound {k3_bound[0]:.5f} {k3_bound[1]}); {nhit} hit rays of {R} "
+        f"({card})")
+    busy = device_busy(step512, steps=10)
+    say(f"profile of 10 steps: device busy {busy['busy_ms']:.4f} ms a step "
+        f"in {busy['kernels']} device events; {busy['wall_ms']:.4f} ms a "
+        f"step on the host clock under the profiler (share "
+        f"{busy['share']}), {step_ms['kernels']:.4f} ms without it")
+    for name, ms in busy["by_name"][:8]:
+        say(f"  {ms:.5f} ms  {name[:100]}")
+    step1024 = train_step(dev, 1024, 1e-9)
+    step1024_ms = median_ms_in_turns({"kernels": step1024}, n=1, reps=31)
+    say(f"train step 1024^2 clean: {step1024_ms['kernels']:.4f} ms through "
+        f"K2/K3 ({card})")
+    record.update(train_launches=train_launches, fit_losses=fit_losses,
+                  step_ms=step_ms, bwd_ms=bwd_ms, k2_ms=k2_ms, k3_ms=k3_ms,
+                  k2_bound=k2_bound, k3_bound=k3_bound, profile=busy,
+                  step1024_ms=step1024_ms, bwd_max_abs_err=bwd_err)
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
     say(card)
-    print(json.dumps({"kernels": [{
-        "name": "render_fused_fwd",
-        "route": "cuda",
-        "source": "raytpu_torch/csrc/render_fused.cu",
-        "replaces": "raytpu/kernels/render_fused.py:228",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms["kernel"],
-        "plain_ms": kernel_ms["plain"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        dict(name="render_fused_fwd", route="cuda",
+             source="raytpu_torch/csrc/render_fused.cu",
+             replaces="raytpu/kernels/render_fused.py:228",
+             launches=launches, max_abs_err=max_err, ms=k1_ms["kernel"],
+             plain_ms=k1_ms["plain"], bound_ms=k1_bound[0],
+             bound_by=k1_bound[1], library_ms=None),
+        dict(name="render_fused_bwd", route="cuda",
+             source="raytpu_torch/csrc/render_fused_bwd.cu",
+             replaces="raytpu/kernels/render_fused.py:402",
+             launches=train_launches["render_fused_bwd"],
+             max_abs_err=bwd_err["rays"], ms=k2_ms["kernel"],
+             plain_ms=k2_ms["plain"], bound_ms=k2_bound[0],
+             bound_by=k2_bound[1], library_ms=None),
+        dict(name="render_fused_scatter", route="cuda",
+             source="raytpu_torch/csrc/render_fused_bwd.cu",
+             replaces="raytpu/kernels/render_fused.py:476",
+             launches=train_launches["render_fused_scatter"],
+             max_abs_err=bwd_err["sums"], ms=k3_ms["kernel"],
+             plain_ms=k3_ms["plain"], bound_ms=k3_bound[0],
+             bound_by=k3_bound[1], library_ms=k3_ms["index_add_"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

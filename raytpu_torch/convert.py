@@ -53,3 +53,15 @@ def to_numpy(value: Scene | Camera | Lights) -> dict[str, np.ndarray]:
         field.name: getattr(value, field.name).detach().cpu().numpy()
         for field in dataclasses.fields(value)
     }
+
+
+def grads_to_numpy(value: Scene | Camera | Lights) -> dict[str, np.ndarray]:
+    """The ``.grad`` of each leaf of a port value as host numpy arrays,
+    keyed by field; zeros where a leaf has no gradient (it took no part in
+    the loss), as ``jax.grad`` gives."""
+    out = {}
+    for field in dataclasses.fields(value):
+        leaf = getattr(value, field.name)
+        grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+        out[field.name] = grad.detach().cpu().numpy()
+    return out

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources are raytpu_torch/csrc/*.cu, each with a plain C interface (no
-PyTorch headers, so a build takes seconds). At first use they are compiled
-with nvcc for Hopper (sm_90a) into one shared library under
-``build/raytpu_torch/`` beside the package, named by a hash of the sources
-and flags, and loaded with ctypes. Nothing is built at import. A missing
-nvcc or a failed build raises: there is no fallback.
+PyTorch headers, so a build takes seconds). At first use each is compiled
+with nvcc for Hopper (sm_90a), all at once in parallel, and the objects are
+linked into one shared library under ``build/raytpu_torch/`` beside the
+package, named by a hash of the sources and flags, and loaded with ctypes.
+Nothing is built at import. A missing nvcc or a failed build raises: there
+is no fallback.
 
 Rounding is pinned: ``-fmad=false`` forbids contracting a multiply and an
 add into one FMA, and division and sqrt stay IEEE round-to-nearest, so the
@@ -26,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -36,6 +37,12 @@ SIGNATURES = {
     # dirs, table, params, C, R, ambient, parity, color, fd, idx, occ, stream
     "raytpu_render_fused_fwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
                                 _P],
+    # dirs, table, params, idx, occ, g_color, g_fd, C, R, ambient, parity,
+    # g_dirs, partials, blocks, stream
+    "raytpu_render_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
+                                _P, _P, _I, _P],
+    # partials, blocks, C, g_table, g_params, stream
+    "raytpu_render_fused_scatter": [_P, _I, _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -72,16 +79,33 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in _sources()]
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(_sources(), objs))
+    ]
+    # Wait for every compile before reading any result.
+    log = [f"$ {' '.join(cmd)}\n{proc.communicate()[0]}"
+           for cmd, proc in procs]
+    try:
+        for (_, proc), entry in zip(procs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {proc.returncode}:\n{entry}")
+        tmp = out.with_name(f"{tag}.tmp.so")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)  # atomic: no process ever loads half a file
     return out
 

@@ -13,7 +13,9 @@ thread block copies into shared memory:
 
 where (n, c2, c3) are the rows of TriConstants.m. Invalid and padding
 triangles have zeroed constants: their denominator is 0, so they never
-hit. Columns T..C-1 are zero padding.
+hit. Columns T..C-1 are zero padding. The backward reads and writes only
+the GATHERED rows, the values the forward takes from the winner; the
+table's gradient is zero in every other row.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ TABLE_ROWS = 26
 MAX_CHUNK = 128
 PRIMARY, SHADOW, NORMAL, ALBEDO = 0, 10, 20, 23
 PARAMS = 10  # cam xyz | light xyz | p_eff xyz | dof_focus
+# The winner's values the shading reads: n xyz, k0, normal xyz, albedo xyz.
+GATHERED = (PRIMARY, PRIMARY + 1, PRIMARY + 2, PRIMARY + 9,
+            NORMAL, NORMAL + 1, NORMAL + 2, ALBEDO, ALBEDO + 1, ALBEDO + 2)
 
 
 def tight_chunk(T: int, tri_chunk: int) -> int:
@@ -33,7 +38,9 @@ def tight_chunk(T: int, tri_chunk: int) -> int:
 
 def _constant_rows(m: torch.Tensor, k0: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
-    """(10, T) rows [n | c2 | c3 | k0] with invalid triangles zeroed."""
+    """(10, T) rows [n | c2 | c3 | k0] with invalid triangles zeroed. The
+    mask takes no part in the gradient, as in the JAX package's VJP."""
+    valid = valid.detach()
     m = m * valid[:, None, None]
     k0 = k0 * valid
     return torch.cat([m[:, 0, :].T, m[:, 1, :].T, m[:, 2, :].T, k0[None, :]])
@@ -57,3 +64,37 @@ def pack_tables(m, k0, valid, m_l, k0_l, nrm, alb, C: int) -> torch.Tensor:
 def pack_params(cam_pos, light_pos, p_eff, dof_focus) -> torch.Tensor:
     """The kernel's (PARAMS,) parameter vector."""
     return torch.cat([cam_pos, light_pos, p_eff, dof_focus.reshape(1)])
+
+
+def gathered_rows(table: torch.Tensor) -> torch.Tensor:
+    """The GATHERED rows of a table, (10, C), by slices (no index tensor,
+    so no host-to-device copy)."""
+    return torch.cat([table[PRIMARY:PRIMARY + 3],
+                      table[PRIMARY + 9:PRIMARY + 10],
+                      table[NORMAL:ALBEDO + 3]])
+
+
+def table_from_gathered(rows: torch.Tensor) -> torch.Tensor:
+    """The (TABLE_ROWS, C) table that holds ``rows`` (10, C) in its
+    GATHERED rows and zeros everywhere else."""
+    def zeros(n):
+        return rows.new_zeros((n, rows.shape[1]))
+
+    return torch.cat([rows[0:3], zeros(6), rows[3:4], zeros(NORMAL - 10),
+                      rows[4:10]])
+
+
+def unpack(table: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The rows of a (TABLE_ROWS, C) table, or of its gradient, by name:
+    ``n``, ``c2``, ``c3`` (3, C) and ``k0`` (C,) of the primary constants,
+    the same with a ``_l`` suffix for the shadow constants, ``normal`` and
+    ``albedo`` (3, C)."""
+    out = {}
+    for base, suffix in ((PRIMARY, ""), (SHADOW, "_l")):
+        out["n" + suffix] = table[base:base + 3]
+        out["c2" + suffix] = table[base + 3:base + 6]
+        out["c3" + suffix] = table[base + 6:base + 9]
+        out["k0" + suffix] = table[base + 9]
+    out["normal"] = table[NORMAL:NORMAL + 3]
+    out["albedo"] = table[ALBEDO:ALBEDO + 3]
+    return out

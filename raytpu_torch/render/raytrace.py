@@ -1,10 +1,15 @@
 """Public raytrace API (counterpart of raytpu/render/raytrace.py).
 
-This slice of the port renders the configuration of the JAX package's
-megakernel branch: one active light, hard shadows, one sub-ray per pixel,
-at most 128 triangles, mode 'parity' or 'clean'. The whole per-ray forward
-runs in the fused kernel (raytpu_torch.kernels.render_fused); the DoF
-stage follows as plain torch. Any other configuration raises
+This slice of the port renders and differentiates the configuration of
+the JAX package's megakernel branch: one active light, hard shadows, one
+sub-ray per pixel, at most 128 triangles, mode 'parity' or 'clean'. The
+whole per-ray forward runs in the fused kernel and its backward in the two
+backward kernels (raytpu_torch.kernels.render_fused); the DoF stage
+follows as plain torch. A loss on the image or the focal distances
+differentiates, through ``dof_apply``, the packed tables and parameters,
+``tri_constants`` and ``Scene.normals()``, to every leaf of the scene
+(``active`` excepted, as in the JAX package), to the light, and through
+``camera_ray_dirs`` to the camera. Any other configuration raises
 NotImplementedError naming the ROADMAP.md item that brings it, whatever
 the device.
 """

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on a card, against its plain PyTorch version.
+"""The port's CUDA kernels on a card, against their plain PyTorch versions.
 
 Every test here needs a CUDA device and nvcc; without a card each skips.
 The file imports no JAX, so it also runs where only the port is installed:
@@ -8,14 +8,16 @@ The file imports no JAX, so it also runs where only the port is installed:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX on the CPU.)
 """
 
+import numpy as np
 import pytest
 import torch
 
+from raytpu_torch import convert
 from raytpu_torch.core.cornell import cornell_box
 from raytpu_torch.core.types import Camera, Lights, RenderConfig
 from raytpu_torch.kernels import render_fused
-from raytpu_torch.kernels.tables import pack_params, pack_tables
-from raytpu_torch.render.raytrace import fused_inputs, raytrace_full
+from raytpu_torch.kernels.tables import GATHERED, pack_params, pack_tables
+from raytpu_torch.render.raytrace import fused_inputs, raytrace, raytrace_full
 
 pytestmark = pytest.mark.gpu
 
@@ -69,14 +71,107 @@ def test_slice_on_gpu_matches_cpu(cuda):
                   - want.focal_distances).abs().max()) <= 1e-6
 
 
-def test_kernel_refuses_inputs_that_need_grad(cuda):
-    args, kw = _inputs(cuda, 16, "clean")
-    args = list(args)
-    args[6] = args[6].clone().requires_grad_(True)  # normals
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        render_fused.render_hard_fused(*args, **kw)
+def _bwd_inputs(device, size, mode, pad_to=32, yaw=0.0, pos=(0.0, 0.0, -2.0),
+                seed=0):
+    """The backward's inputs at a frame's shapes: dirs, table, params, the
+    forward's idx and occ, and cotangents drawn with numpy from ``seed``."""
+    args, kw = _inputs(device, size, mode, pad_to, yaw, pos)
+    table, params = render_fused.pack_inputs(*args[1:], kw["tri_chunk"])
+    dirs = args[0]
+    out = render_fused.fused_fwd_reference(dirs, table, params,
+                                           ambient=kw["ambient"],
+                                           parity=kw["parity"])
+    # One-signed, as chip_smoke.py's: signed cotangents cancel in the sums
+    # until float32 rounding decides the small ones.
+    rng = np.random.default_rng(seed)
+    R = dirs.shape[0]
+    g_color = torch.tensor(rng.uniform(0.5, 1.5, (R, 3)).astype(np.float32),
+                           device=device)
+    g_fd = torch.tensor(rng.uniform(0.5, 1.5, R).astype(np.float32),
+                        device=device)
+    return ((dirs, table, params, out.idx, out.occ, g_color, g_fd),
+            dict(ambient=kw["ambient"], parity=kw["parity"]))
+
+
+@pytest.mark.parametrize("mode", ["clean", "parity"])
+@pytest.mark.parametrize("size,pad_to,yaw,pos", [
+    (512, 32, 0.0, (0.0, 0.0, -2.0)),
+    (257, None, 0.3, (0.2, -0.1, -1.8)),
+])
+def test_bwd_kernels_match_plain_version(cuda, mode, size, pad_to, yaw, pos):
+    args, kw = _bwd_inputs(cuda, size, mode, pad_to, yaw, pos)
+    before = (render_fused.LAUNCHES_BWD, render_fused.LAUNCHES_SCATTER)
+    got = render_fused.fused_bwd(*args, **kw)
+    assert (render_fused.LAUNCHES_BWD, render_fused.LAUNCHES_SCATTER) == (
+        before[0] + 1, before[1] + 1)
+    # The plain version in float64 is the reference: a per-triangle sum
+    # adds thousands of terms, and float32 rounding of the plain version
+    # itself reaches 0.8 of the tolerance.
+    want = render_fused.fused_bwd_reference(
+        *(a.double() if a.is_floating_point() else a for a in args), **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("g_dirs", "g_table", "g_params"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    outside = torch.ones(got[1].shape[0], dtype=torch.bool)
+    outside[list(GATHERED)] = False
+    assert not got[1][outside].any()
+
+
+def test_bwd_kernels_are_deterministic(cuda):
+    args, kw = _bwd_inputs(cuda, 512, "clean", seed=1)
+    first = render_fused.fused_bwd(*args, **kw)
+    second = render_fused.fused_bwd(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _train_leaves(device, size=64):
+    scene = cornell_box(pad_to=32, device=device)
+    lights = Lights.single(capacity=1, device=device)
+    leaves = [t.requires_grad_(True) for value in (scene, lights)
+              for t in vars(value).values()]
+    return scene, lights, leaves
+
+
+def test_train_step_launches_each_kernel_once(cuda):
+    scene, lights, leaves = _train_leaves(cuda)
+    cfg = RenderConfig(width=64, height=64, mode="clean")
+    camera = Camera.raytracer_default(device=cuda)
     with torch.no_grad():
-        render_fused.render_hard_fused(*args, **kw)
+        target = raytrace(scene, camera, lights, cfg) * 0.9
+    opt = torch.optim.SGD(leaves, lr=1e-3)
+    before = (render_fused.LAUNCHES, render_fused.LAUNCHES_BWD,
+              render_fused.LAUNCHES_SCATTER)
+    opt.zero_grad()
+    loss = torch.mean((raytrace(scene, camera, lights, cfg) - target) ** 2)
+    loss.backward()
+    opt.step()
+    after = (render_fused.LAUNCHES, render_fused.LAUNCHES_BWD,
+             render_fused.LAUNCHES_SCATTER)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert bool(torch.isfinite(scene.color.grad).all())
+    assert float(scene.color.grad.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("mode", ["clean", "parity"])
+def test_slice_grads_on_gpu_match_cpu(cuda, mode):
+    def grads(device):
+        scene, lights, _ = _train_leaves(device)
+        camera = Camera.raytracer_default(device=device)
+        for t in vars(camera).values():
+            t.requires_grad_(True)
+        out = raytrace_full(scene, camera, lights,
+                            RenderConfig(width=64, height=64, mode=mode))
+        (torch.mean(out.image ** 2)
+         + 0.1 * torch.mean(out.focal_distances ** 2)).backward()
+        return [convert.grads_to_numpy(v) for v in (scene, camera, lights)]
+
+    for got, want in zip(grads(cuda), grads("cpu")):
+        for field in want:
+            np.testing.assert_allclose(got[field], want[field], rtol=1e-4,
+                                       atol=1e-5, err_msg=field)
 
 
 def test_wrapper_checks_its_inputs(cuda):
@@ -96,3 +191,16 @@ def test_wrapper_checks_its_inputs(cuda):
     wide = torch.zeros((table.shape[0], 129), device=cuda)
     with pytest.raises(ValueError):
         render_fused.fused_fwd(dirs, wide, params, **call)
+    out = render_fused.fused_fwd(dirs, table, params, **call)
+    R = dirs.shape[0]
+    ones = torch.ones((R, 3), device=cuda)
+    fd = torch.ones((R,), device=cuda)
+    render_fused.fused_bwd(dirs, table, params, out.idx, out.occ, ones, fd,
+                           **call)
+    with pytest.raises(ValueError):  # an expanded (stride 0) cotangent
+        render_fused.fused_bwd(dirs, table, params, out.idx, out.occ,
+                               torch.ones(3, device=cuda).expand(R, 3), fd,
+                               **call)
+    with pytest.raises(TypeError):
+        render_fused.fused_bwd(dirs, table, params, out.idx.long(), out.occ,
+                               ones, fd, **call)
