@@ -39,14 +39,36 @@ nonzero without printing a result:
      kernels and through the plain backward, K2 and K3 alone and the plain
      backward alone, ``index_add_`` for K3's function, the device-busy
      share of a step (torch.profiler), and the 1024^2 train step.
+  9. the intersection kernels of the loop branch (K4, one light; K6,
+     several shadow sources) against their plain version on the card:
+     512^2 clean with one light, the bench's full-feature sources (2
+     lights x 16 samples, S = 32) and 500^2 parity (30 triangles) at an AA
+     sub-ray offset. t, idx and occ bit-identical, two calls identical,
+     and the VJP of t within rtol 1e-4 / atol 1e-5 of its float64
+     evaluation.
+ 10. the loop branch serving: raytrace at the CLI's ``--aa 3`` (exactly 9
+     K4 launches) against the numpy oracle; the ``render`` CLI's
+     full-feature frame (``--aa 3 --soft-shadows 16 --add-light ...
+     --dof``, exactly 9 K6 launches); the view server on a free loopback
+     port answering page, frame, key and state requests, each with the
+     launches its toggles call for (K1 with everything off, K4 a sub-ray
+     with one light, K6 a sub-ray with more sources).
+ 11. the loop branch training: 3 SGD steps of the bench's full-feature
+     512^2 step (every float leaf of scene and lights, jittered positions
+     included; exactly 9 K6 launches a step, no other kernel; finite
+     gradients); then card numbers: the full-feature frame and step,
+     K4 and K6 alone beside their plain versions and bounds, the
+     device-busy share and event count of a step and its peak memory.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
-steps of phase 8 (training: K1, K2, K3). Comparisons and timings launch
+steps of phase 8 (training: K1, K2, K3), before and after phase 10
+(serving the loop branch: K1, K4, K6), before and after the 3 steps of
+phase 11 (training the loop branch: K6). Comparisons and timings launch
 outside those windows. The line before the last is one JSON object
 describing each kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
-Details (result.json, render.bmp) go to build/chip_smoke/.
+Details (result.json, render.bmp, full_feature.bmp) go to build/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -57,7 +79,9 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -68,6 +92,8 @@ OUT = ROOT / "build" / "chip_smoke"
 ORACLE = ROOT / "raytpu" / "oracle" / "raytracer_oracle.py"
 # Image tolerances of tests/test_raytrace_parity.py::_assert_images_match.
 F32_ATOL, F32_RTOL, U8_FRAC, FLIP_FRAC = 2e-4, 1e-3, 0.999, 0.999
+# test_aa_parity's u8 fraction for AA frames.
+AA_U8_FRAC = 0.995
 # ROADMAP's gradient rule.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 # The H100 SXM's published peaks at its 700 W limit: device memory
@@ -163,20 +189,27 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
                                        else "operations")
 
 
+def tests_to_first_blocker(delta, m, k0) -> torch.Tensor:
+    """Plane tests a shadow sweep makes along each ray of ``delta``: the
+    triangles in order up to the first blocker (t < 0.99), or all C."""
+    from raytpu_torch.ops.intersect import plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
+    ts, oks = plane_tests(delta, m, k0)
+    blocked = oks & (ts < SHADOW_T)
+    first = blocked.float().argmax(dim=1) + 1  # the first True, 1-based
+    return torch.where(blocked.any(dim=1), first, m.shape[0])
+
+
 def shadow_tests(dirs, table, params) -> int:
-    """Plane tests K1's shadow sweep makes on these rays: each ray tests the
-    triangles in order up to its first blocker, or all C."""
+    """Plane tests K1's shadow sweep makes on these rays (misses sweep
+    too, from the camera position)."""
     from raytpu_torch.kernels.render_fused import _constants
     from raytpu_torch.kernels.tables import PRIMARY, SHADOW
     from raytpu_torch.ops.intersect import F32MAX, closest, plane_tests
-    from raytpu_torch.ops.shade import SHADOW_T
     best_t, _ = closest(*plane_tests(dirs, *_constants(table, PRIMARY)))
     tz = torch.where(best_t < F32MAX, best_t, 0.0)
     delta = (params[0:3] + tz[:, None] * dirs) - params[3:6]
-    ts, oks = plane_tests(delta, *_constants(table, SHADOW))
-    blocked = oks & (ts < SHADOW_T)
-    first = blocked.float().argmax(dim=1) + 1  # the first True, 1-based
-    return int(torch.where(blocked.any(dim=1), first, table.shape[1]).sum())
+    return int(tests_to_first_blocker(delta, *_constants(table, SHADOW)).sum())
 
 
 def bwd_args(args, kw, seed: int):
@@ -201,19 +234,45 @@ def bwd_args(args, kw, seed: int):
             dict(ambient=kw["ambient"], parity=kw["parity"]))
 
 
-def train_step(dev, size: int, lr: float):
-    """bench.py's train step in the port: the MSE of the size^2 clean
-    render of the Cornell box (padded to 32) to the render of the starting
-    parameters, and one SGD step over every float leaf of scene and lights.
-    Returns a function that takes one step and returns its loss."""
+def bench_frame(dev, size: int):
+    """bench.py's train-step frame: the size^2 clean render of the Cornell
+    box (padded to 32), one light of capacity 1."""
     from raytpu_torch import Camera, Lights, RenderConfig, cornell_box
+    return (cornell_box(pad_to=32, device=dev),
+            Camera.raytracer_default(device=dev),
+            Lights.single(capacity=1, device=dev),
+            RenderConfig(width=size, height=size, mode="clean"))
+
+
+def full_feature_lights(dev):
+    """bench.py's full-feature light bank (`bench.py:584-586`): two lights
+    with 16 jittered positions each, the second's jitter from seed 1."""
+    from raytpu_torch import Lights
+    return Lights.single(capacity=2, soft_samples=16, device=dev).add(
+        (0.4, -0.5, -0.7), (1.0, 1.0, 1.0), 7.0,
+        generator=torch.Generator().manual_seed(1))
+
+
+def full_feature_frame(dev, size: int):
+    """bench.py's full-feature frame (`bench.py:582-589`): size^2 clean,
+    AA 3x3, 16 soft-shadow samples, two lights, DoF, the Cornell box
+    padded to 32."""
+    from raytpu_torch import Camera, RenderConfig, cornell_box
+    return (cornell_box(pad_to=32, device=dev),
+            Camera.raytracer_default(device=dev), full_feature_lights(dev),
+            RenderConfig(width=size, height=size, mode="clean", aa_samples=3,
+                         soft_shadow_samples=16, dof_enabled=True))
+
+
+def train_step(scene, camera, lights, cfg, lr: float, target_scale=1.0):
+    """bench.py's train step in the port: the MSE of the render to the
+    render of the starting parameters (times ``target_scale``; bench.py
+    takes 1, where every gradient starts at 0), and one SGD step over every
+    float leaf of scene and lights. Returns a function that takes one step
+    and returns its loss."""
     from raytpu_torch.render.raytrace import raytrace
-    scene = cornell_box(pad_to=32, device=dev)
-    camera = Camera.raytracer_default(device=dev)
-    lights = Lights.single(capacity=1, device=dev)
-    cfg = RenderConfig(width=size, height=size, mode="clean")
     with torch.no_grad():
-        target = raytrace(scene, camera, lights, cfg)
+        target = raytrace(scene, camera, lights, cfg) * target_scale
     opt = torch.optim.SGD([t.requires_grad_(True) for value in (scene, lights)
                            for t in vars(value).values()], lr=lr)
 
@@ -280,6 +339,95 @@ def device_busy(step, steps: int) -> dict:
                 share=busy_ms / wall_ms if count else None,
                 kernels=count / steps,
                 by_name=[(name[:120], ms) for name, ms in ranked])
+
+
+def sweep_case(dev, size: int, mode: str, pad_to, lights, samples: int,
+               offset: tuple[float, float]) -> dict:
+    """The intersection kernels' inputs for one sub-ray of a frame: the
+    rays at sub-pixel ``offset``, the camera's and the shadow sources'
+    constants (sources light-major, sample-minor, as raytrace_full makes
+    them) and the packed table."""
+    from raytpu_torch import Camera, RenderConfig, cornell_box
+    from raytpu_torch.kernels.intersect import occluded_table
+    from raytpu_torch.ops.intersect import tri_constants
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.raytrace import camera_ray_dirs, pixel_grid
+    scene = cornell_box(pad_to=pad_to, device=dev)
+    camera = Camera.raytracer_default(device=dev)
+    cfg = RenderConfig(width=size, height=size, mode=mode)
+    xs, ys = pixel_grid(cfg, dev)
+    dirs = camera_ray_dirs(xs + offset[0], ys + offset[1], camera, cfg)
+    consts = tri_constants(scene, camera.pos)
+    src = source_positions(lights, samples)
+    consts_src = tri_constants(scene, src)
+    table = occluded_table(consts.m, consts.k0, consts.valid, consts_src.m,
+                           consts_src.k0, cfg.tri_chunk)
+    return dict(dirs=dirs, m=consts.m, k0=consts.k0, valid=consts.valid,
+                m_s=consts_src.m, k0_s=consts_src.k0, cam=camera.pos, src=src,
+                table=table, tri_chunk=cfg.tri_chunk)
+
+
+def run_sweeps(case: dict, multi: bool):
+    """The K4 (multi False, one source) or K6 wrapper on a sweep_case; occ
+    is (S, R) either way."""
+    from raytpu_torch.kernels import intersect as isect
+    c = case
+    if multi:
+        return isect.closest_hit_occluded_multi(
+            c["dirs"], c["m"], c["k0"], c["valid"], c["m_s"], c["k0_s"],
+            c["cam"], c["src"], tri_chunk=c["tri_chunk"])
+    t, idx, occ = isect.closest_hit_occluded(
+        c["dirs"], c["m"], c["k0"], c["valid"], c["m_s"][0], c["k0_s"][0],
+        c["cam"], c["src"][0], tri_chunk=c["tri_chunk"])
+    return t, idx, occ[None]
+
+
+def sweep_tests(case: dict) -> int:
+    """Plane tests the intersection kernels make on a sweep_case: C a ray
+    in the primary sweep, and each source's shadow sweep of each hit ray
+    (misses skip theirs)."""
+    from raytpu_torch.kernels.intersect import _block, sweeps_reference
+    dirs, table, src = case["dirs"], case["table"], case["src"]
+    t, idx, _ = sweeps_reference(dirs, table, case["cam"], src)
+    hit = idx >= 0
+    pos = case["cam"][None, :] + torch.where(hit, t, 0.0)[:, None] * dirs
+    total = dirs.shape[0] * table.shape[1]
+    for s in range(src.shape[0]):
+        tests = tests_to_first_blocker(pos - src[s][None, :],
+                                       *_block(table, 1 + s))
+        total += int(torch.where(hit, tests, 0).sum())
+    return total
+
+
+def sweep_bound(case: dict) -> tuple[float, str]:
+    """K4's or K6's bound on a sweep_case: 12 B in and 8 + 4 S B out a
+    ray, the table and positions once, and FLOPS_PLANE_TEST a test."""
+    R, S = case["dirs"].shape[0], case["src"].shape[0]
+    return bound_ms(R * (12 + 8 + 4 * S)
+                    + (case["table"].numel() + 3 + 3 * S) * 4,
+                    FLOPS_PLANE_TEST * sweep_tests(case))
+
+
+def kernel_counts() -> dict:
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import render_fused
+    return {"render_fused_fwd": render_fused.LAUNCHES,
+            "closest_hit_occluded": isect.LAUNCHES_OCCLUDED,
+            "closest_hit_occluded_multi": isect.LAUNCHES_OCCLUDED_MULTI,
+            "render_fused_bwd": render_fused.LAUNCHES_BWD,
+            "render_fused_scatter": render_fused.LAUNCHES_SCATTER}
+
+
+def zero_counts() -> None:
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import render_fused
+    for name in ("LAUNCHES", "LAUNCHES_BWD", "LAUNCHES_SCATTER"):
+        setattr(render_fused, name, 0)
+    isect.LAUNCHES_OCCLUDED = isect.LAUNCHES_OCCLUDED_MULTI = 0
+
+
+def delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
 def main() -> int:
@@ -497,7 +645,7 @@ def main() -> int:
         record[f"bwd_compare_{size}_{mode}"] = line
 
     say("== phase 8: the train path (512^2 clean, SGD on scene + lights)")
-    step512 = train_step(dev, 512, 1e-9)
+    step512 = train_step(*bench_frame(dev, 512), 1e-9)
     for name in ("LAUNCHES", "LAUNCHES_BWD", "LAUNCHES_SCATTER"):
         setattr(render_fused, name, 0)
     losses = [step512() for _ in range(20)]
@@ -593,7 +741,7 @@ def main() -> int:
         f"{busy['share']}), {step_ms['kernels']:.4f} ms without it")
     for name, ms in busy["by_name"][:8]:
         say(f"  {ms:.5f} ms  {name[:100]}")
-    step1024 = train_step(dev, 1024, 1e-9)
+    step1024 = train_step(*bench_frame(dev, 1024), 1e-9)
     step1024_ms = median_ms_in_turns({"kernels": step1024}, n=1, reps=31)
     say(f"train step 1024^2 clean: {step1024_ms['kernels']:.4f} ms through "
         f"K2/K3 ({card})")
@@ -601,6 +749,251 @@ def main() -> int:
                   step_ms=step_ms, bwd_ms=bwd_ms, k2_ms=k2_ms, k3_ms=k3_ms,
                   k2_bound=k2_bound, k3_bound=k3_bound, profile=busy,
                   step1024_ms=step1024_ms, bwd_max_abs_err=bwd_err)
+
+    say("== phase 9: K4 and K6 against their plain versions on the card")
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.view import ViewerApp, serve
+    cases = {
+        # 512^2 clean, one light: K4.
+        "k4_512_clean": (sweep_case(dev, 512, "clean", 32, Lights.single(
+            capacity=1, device=dev), 1, (0.0, 0.0)), False),
+        # The bench's full-feature sources, 2 lights x 16 samples, at the
+        # first AA sub-ray: K6 with S = 32.
+        "k6_512_clean_s32": (sweep_case(dev, 512, "clean", 32,
+                                        full_feature_lights(dev), 16,
+                                        (-0.5, -0.5)), True),
+        # 500^2 parity, 30 triangles, at the AA sub-ray (0.5, 0): K4.
+        "k4_500_parity": (sweep_case(dev, 500, "parity", None, Lights.single(
+            capacity=1, device=dev), 1, (0.5, 0.0)), False),
+    }
+    sweep_err = {False: 0.0, True: 0.0}
+    for name, (case, multi) in cases.items():
+        got = run_sweeps(case, multi)
+        again = run_sweeps(case, multi)
+        want = isect.sweeps_reference(case["dirs"], case["table"], case["cam"],
+                                      case["src"])
+        torch.cuda.synchronize()
+        idx_mis = int((got[1] != want[1]).sum())
+        occ_mis = int((got[2] != want[2]).sum())
+        t_same = torch.equal(got[0], want[0])
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        hits = float((got[1] >= 0).float().mean())
+        # The VJP of t against its float64 evaluation, one-signed
+        # cotangents as in phase 7.
+        rng = np.random.default_rng(len(name))
+        t_bar = torch.tensor(rng.uniform(0.5, 1.5, got[0].shape[0]).astype(
+            np.float32), device=dev)
+        vjp_args = (case["dirs"], case["m"], case["k0"], got[0], got[1],
+                    t_bar)
+        g32 = isect.closest_hit_vjp(*vjp_args)
+        g64 = isect.closest_hit_vjp(*(
+            a.double() if a.is_floating_point() else a for a in vjp_args))
+        vjp_line = []
+        for gname, g, w in zip(("g_dirs", "g_m", "g_k0"), g32, g64):
+            require(bool(torch.isfinite(g).all()), f"finite {gname}")
+            tol = GRAD_ATOL + GRAD_RTOL * w.abs()
+            err = (g.double() - w).abs()
+            vjp_line.append(f"{gname} {float((err / tol).max()):.3f} of tol")
+            require(bool((err <= tol).all()),
+                    f"VJP {gname} within rtol {GRAD_RTOL} / atol {GRAD_ATOL}")
+        say(f"{name} (S={case['src'].shape[0]}, C={case['table'].shape[1]}):"
+            f" idx mismatches {idx_mis}, occ mismatches {occ_mis}, t "
+            f"bit-identical {t_same}, two calls identical {same}, hit rays "
+            f"{hits:.4f}, occluded {int(got[2].sum())}; VJP vs float64: "
+            f"{', '.join(vjp_line)}")
+        require(idx_mis == 0 and occ_mis == 0 and t_same,
+                f"{name}: t, idx and occ bit-identical to the plain version")
+        require(same, f"{name}: two kernel calls identical")
+        require(bool(got[2].any()), f"{name}: some ray is occluded")
+        sweep_err[multi] = max(sweep_err[multi],
+                               float((got[0] - want[0]).abs().max()))
+        record[f"sweeps_{name}"] = dict(idx_mismatch=idx_mis,
+                                        occ_mismatch=occ_mis, t_equal=t_same,
+                                        repeat_equal=same, vjp=vjp_line)
+
+    say("== phase 10: the loop branch serving (AA frame, render CLI, view "
+        "server)")
+    zero_counts()
+    before = kernel_counts()
+    cfg_aa = RenderConfig(aa_samples=3)  # the CLI's defaults with --aa 3
+    out = raytrace_full(cornell_box(device=dev),
+                        Camera.raytracer_default(device=dev),
+                        Lights.single(capacity=1, device=dev), cfg_aa)
+    img = out.image.cpu().numpy()
+    aa_launches = delta(before, kernel_counts())
+    say(f"500^2 parity --aa 3 frame: launches {aa_launches}")
+    require(aa_launches == {"closest_hit_occluded": 9},
+            "an AA 3 frame launches K4 9 times and nothing else")
+    require(np.isfinite(img).all() and not img[0].any()
+            and img[1:-1, 1:-1].max() > 0.3, "finite, black border, lit")
+    t0 = time.perf_counter()
+    img_o, _ = load_oracle().render(cornell_box_numpy(), width=500,
+                                    height=500, aa_samples=3)
+    err = np.abs(img - img_o) - (F32_ATOL + F32_RTOL * np.abs(img_o))
+    f32_ok = float((err.max(axis=-1) <= 0).mean())
+    u8_ok = float((np.abs(quantize_u8(img).astype(int)
+                          - quantize_u8(img_o).astype(int)).max(axis=-1)
+                   <= 1).mean())
+    say(f"vs numpy oracle, AA 3 ({time.perf_counter() - t0:.1f} s): "
+        f"f32-close pixels {f32_ok:.6f}, u8 within 1 {u8_ok:.6f}")
+    require(u8_ok >= AA_U8_FRAC, "u8 within 1 step on >= 99.5% of pixels")
+    require(f32_ok >= FLIP_FRAC, "f32 atol 2e-4 on all but <= 0.1% pixels")
+    record["oracle_aa3"] = dict(f32_ok=f32_ok, u8_ok=u8_ok)
+
+    before = kernel_counts()
+    bmp = OUT / "full_feature.bmp"
+    cli_main(["render", "--aa", "3", "--soft-shadows", "16", "--add-light",
+              "0.4", "-0.5", "-0.7", "1", "1", "1", "7", "--dof", "-o",
+              str(bmp)])
+    cli_launches = delta(before, kernel_counts())
+    frame_u8 = read_bmp(str(bmp))
+    say(f"render CLI --aa 3 --soft-shadows 16 --add-light --dof: "
+        f"{frame_u8.shape}, launches {cli_launches}")
+    require(frame_u8.shape == (500, 500, 3)
+            and frame_u8[1:-1, 1:-1].max() > 80, "a lit full-feature BMP")
+    require(cli_launches == {"closest_hit_occluded_multi": 9},
+            "the full-feature frame launches K6 9 times and nothing else")
+
+    app = ViewerApp(cornell_box(device=dev),
+                    Camera.raytracer_default(device=dev),
+                    Lights.single(capacity=32, soft_samples=16, device=dev),
+                    RenderConfig(), seed=0)  # the view CLI's defaults
+    server = serve(app, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    k1, k4, k6 = ("render_fused_fwd", "closest_hit_occluded",
+                  "closest_hit_occluded_multi")
+    # (request, the launches it must make): K1 with everything off, K4 a
+    # sub-ray with one light and hard shadows, K6 a sub-ray otherwise.
+    requests = [("/", {}), ("/frame.bmp", {k1: 1}), ("/key?k=7", {k4: 9}),
+                ("/key?k=8", {k6: 9}), ("/key?k=2", {k6: 9}),
+                ("/key?k=9", {k6: 9}), ("/key?k=up", {k6: 9}),
+                ("/key?k=3", {k6: 9}), ("/key?k=8", {k4: 9}),
+                ("/key?k=7", {k1: 1}), ("/frame.bmp", {}), ("/state", {})]
+    try:
+        for path, want in requests:
+            before = kernel_counts()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(base + path, timeout=300) as r:
+                status, body = r.status, r.read()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = delta(before, kernel_counts())
+            say(f"GET {path}: {status}, {len(body)} bytes, {ms:.1f} ms, "
+                f"launches {got}")
+            require(status == 200, f"{path} answered 200")
+            require(got == want, f"{path} launches {want}")
+            require(app._frame is None or np.isfinite(app._frame).all(),
+                    "finite frames")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    state = json.loads(body)
+    require(state["lights"] == 1 and state["dof"] and not state["aa"],
+            "the viewer's state follows the keys")
+    serve_launches = kernel_counts()  # zeroed where phase 10 began
+    say(f"serving path launches: {serve_launches}")
+    require(all(serve_launches[k] > 0 for k in (k1, k4, k6)),
+            "the serving path launched K1, K4 and K6")
+
+    say("== phase 11: the loop branch training (the bench's full-feature "
+        "step, 512^2)")
+    scene_f, camera_f, lights_f, cfg_f = full_feature_frame(dev, 512)
+    # A target 10% darker than the start, so that every gradient is
+    # nonzero and its finiteness means something.
+    step_full = train_step(scene_f, camera_f, lights_f, cfg_f, 1e-9,
+                           target_scale=0.9)
+    zero_counts()
+    losses = [step_full() for _ in range(3)]
+    full_launches = kernel_counts()
+    say(f"3 steps, loss {float(losses[0]):.6g} -> {float(losses[-1]):.6g}; "
+        f"train path launches: {full_launches}")
+    require(full_launches[k6] == 27 and full_launches[k4] == 0
+            and full_launches[k1] == 0
+            and full_launches["render_fused_bwd"] == 0
+            and full_launches["render_fused_scatter"] == 0,
+            "each step launches K6 9 times and no other kernel")
+    # A leaf the frame does not read (Lights.position, where soft shadows
+    # shade from the jittered positions) has no gradient; Scene.active
+    # takes no part in it, as in the JAX package.
+    for value in (scene_f, lights_f):
+        for name, leaf in vars(value).items():
+            require(leaf.grad is None
+                    or bool(torch.isfinite(leaf.grad).all()),
+                    f"finite gradient of {name}")
+    require(scene_f.active.grad is None or not scene_f.active.grad.any(),
+            "no gradient of Scene.active")
+    require(all(float(leaf.grad.abs().max()) > 0.0 for leaf in (
+        scene_f.v0, scene_f.color, lights_f.color, lights_f.jitter)),
+        "vertices, albedo, light colors and jittered positions take a "
+        "gradient")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_full()
+    torch.cuda.synchronize()
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def full_frame():
+        with torch.no_grad():
+            return raytrace(scene_f, camera_f, lights_f, cfg_f)
+
+    full_ms = median_ms_in_turns({"frame": full_frame, "step": step_full},
+                                 n=1, reps=11)
+    busy_full = device_busy(step_full, steps=3)
+    busy_frame = device_busy(full_frame, steps=3)
+
+    k4_case, k6_case = cases["k4_512_clean"][0], cases["k6_512_clean_s32"][0]
+    outs = {m: isect._outputs(c["dirs"], c["src"].shape[0])
+            for m, c in ((False, k4_case), (True, k6_case))}
+
+    def launcher(case, multi):
+        launch = (isect.launch_occluded_multi_kernel if multi
+                  else isect.launch_occluded_kernel)
+        return lambda: launch(case["dirs"], case["table"], case["cam"],
+                              case["src"], *outs[multi])
+
+    def plain(case):
+        return lambda: isect.sweeps_reference(case["dirs"], case["table"],
+                                              case["cam"], case["src"])
+
+    k4_ms = median_ms_in_turns({"kernel": launcher(k4_case, False),
+                                "plain": plain(k4_case)},
+                               n=5, reps=9, timer=held_ms)
+    k6_ms = median_ms_in_turns({"kernel": launcher(k6_case, True)}, n=5,
+                               reps=9, timer=held_ms)
+    # The plain K6 makes ~40 launches a source, more than the stream holds
+    # while a sleep blocks it: timed back to back, where its 33 MB
+    # operations keep the device the bottleneck.
+    k6_ms.update(median_ms_in_turns({"plain": plain(k6_case)}, n=2, reps=5))
+    k4_bound, k6_bound = sweep_bound(k4_case), sweep_bound(k6_case)
+    card = card_line()
+    say(f"K4 alone, 512^2 clean, S=1: {k4_ms['kernel']:.4f} ms device time "
+        f"(plain {k4_ms['plain']:.4f} ms; bound {k4_bound[0]:.4f} ms, "
+        f"{k4_bound[1]}) ({card})")
+    say(f"K6 alone, 512^2 clean, S=32: {k6_ms['kernel']:.4f} ms device time "
+        f"(plain {k6_ms['plain']:.4f} ms back to back; bound "
+        f"{k6_bound[0]:.4f} ms, {k6_bound[1]}) ({card})")
+    say(f"full-feature 512^2 (AA 3, soft 16, 2 lights, DoF): frame "
+        f"{full_ms['frame']:.4f} ms, train step {full_ms['step']:.4f} ms "
+        f"(CUDA events, median of 11); peak memory of a step "
+        f"{step_peak_gb:.3f} GB ({card})")
+    say(f"profile of 3 steps: device busy {busy_full['busy_ms']:.4f} ms a "
+        f"step in {busy_full['kernels']} device events; "
+        f"{busy_full['wall_ms']:.4f} ms a step on the host clock under the "
+        f"profiler (share {busy_full['share']})")
+    for name, ms in busy_full["by_name"][:10]:
+        say(f"  {ms:.5f} ms  {name[:100]}")
+    say(f"profile of 3 frames: device busy {busy_frame['busy_ms']:.4f} ms a "
+        f"frame in {busy_frame['kernels']} device events; "
+        f"{busy_frame['wall_ms']:.4f} ms a frame on the host clock under the "
+        f"profiler (share {busy_frame['share']})")
+    record.update(aa_launches=aa_launches, cli_launches=cli_launches,
+                  serve_launches=serve_launches, full_launches=full_launches,
+                  full_ms=full_ms, full_profile=busy_full,
+                  full_frame_profile=busy_frame,
+                  step_peak_gb=step_peak_gb, k4_ms=k4_ms, k6_ms=k6_ms,
+                  k4_bound=k4_bound, k6_bound=k6_bound)
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
     say(card)
@@ -625,6 +1018,18 @@ def main() -> int:
              max_abs_err=bwd_err["sums"], ms=k3_ms["kernel"],
              plain_ms=k3_ms["plain"], bound_ms=k3_bound[0],
              bound_by=k3_bound[1], library_ms=k3_ms["index_add_"]),
+        dict(name="closest_hit_occluded", route="cuda",
+             source="raytpu_torch/csrc/intersect.cu",
+             replaces="raytpu/kernels/intersect_pallas.py:288",
+             launches=serve_launches[k4], max_abs_err=sweep_err[False],
+             ms=k4_ms["kernel"], plain_ms=k4_ms["plain"],
+             bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None),
+        dict(name="closest_hit_occluded_multi", route="cuda",
+             source="raytpu_torch/csrc/intersect.cu",
+             replaces="raytpu/kernels/intersect_pallas.py:451",
+             launches=full_launches[k6], max_abs_err=sweep_err[True],
+             ms=k6_ms["kernel"], plain_ms=k6_ms["plain"],
+             bound_ms=k6_bound[0], bound_by=k6_bound[1], library_ms=None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,13 @@
 """raytpu-torch command-line interface (counterpart of raytpu/cli/main.py).
 
   raytpu-torch render — raytrace the Cornell box to a BMP
+  raytpu-torch view   — the live viewer over localhost HTTP
 
 The render flags and their defaults are the JAX package's; ``--device``
 picks where the frame is rendered (default ``cuda``: a run with no GPU
-fails instead of carrying on on the CPU). Configurations outside the
-ported slice (STL scenes, AA, soft shadows, extra lights) raise
-NotImplementedError naming their ROADMAP.md item.
+fails instead of carrying on on the CPU). STL scenes (``--stl``), mode
+'soft' and the viewer's rasterizer raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -101,6 +102,38 @@ def cmd_render(args):
           f"{scene.device})")
 
 
+def cmd_view(args):
+    import torch
+
+    from raytpu_torch.core.types import Lights
+    from raytpu_torch.view import ViewerApp, serve
+
+    scene, camera, _lights, cfg = _build_inputs(args)
+    # The reference's 32-slot light bank (raytracer.cpp:47), so key 2 can
+    # spawn lights, each with the 16 jittered positions key 8 asks for
+    # (SOFT_SHADOWS_SAMPLES, raytracer.cpp:40-41).
+    lights = Lights.single(
+        position=args.light_pos, color=args.light_color,
+        intensity=args.light_intensity, capacity=32,
+        soft_samples=max(args.soft_shadows, 16), device=scene.device,
+    )
+    for i, l in enumerate(args.add_light or []):
+        lights = lights.add(l[:3], l[3:6], l[6],
+                            generator=torch.Generator().manual_seed(i + 1))
+    app = ViewerApp(scene, camera, lights, cfg, renderer=args.renderer)
+    app.render()
+    server = serve(app, port=args.port)
+    print(f"raytpu-torch viewer: http://127.0.0.1:{server.server_address[1]}/"
+          f"  ({cfg.width}x{cfg.height}, {cfg.mode}, {scene.device}, "
+          f"{app.last_ms:.0f} ms/frame)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="raytpu-torch",
@@ -110,6 +143,14 @@ def main(argv=None):
     p = sub.add_parser("render", help="raytrace to a BMP")
     _render_flags(p)
     p.set_defaults(func=cmd_render)
+    p = sub.add_parser("view", help="live interactive viewer (browser "
+                                    "framebuffer; the reference's realtime "
+                                    "SDL loop)")
+    _render_flags(p)
+    p.add_argument("--renderer", default="raytrace",
+                   choices=["raytrace", "rasterize"])
+    p.add_argument("--port", type=int, default=8000)
+    p.set_defaults(func=cmd_view)
     args = parser.parse_args(argv)
     return args.func(args)
 

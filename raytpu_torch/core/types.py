@@ -290,6 +290,16 @@ class Lights:
             jitter=self.jitter[take],
         )
 
+    def delete_last(self) -> "Lights":
+        """Functional DeleteLight (`raytracer.cpp:195-199`): deactivates the
+        highest active slot; a bank with no active light is unchanged. On
+        the device, without a host read."""
+        active = self.mask > 0
+        slots = torch.arange(self.capacity, device=self.device)
+        last = torch.argmax(torch.where(active, slots, -1))
+        mask = torch.where((slots == last) & active.any(), 0.0, self.mask)
+        return dataclasses.replace(self, mask=mask)
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -315,7 +325,8 @@ class RenderConfig:
     soft_edge_sharpness: float = 100.0
     soft_z_sharpness: float = 100.0
     # Route the eligible configuration (one light, hard shadows, one
-    # sub-ray, one triangle chunk) through the fused forward kernel.
+    # sub-ray, one triangle chunk) through the fused forward kernel; with
+    # False it takes the loop branch of raytrace_full.
     megakernel: bool = True
 
     def replace(self, **kw) -> "RenderConfig":

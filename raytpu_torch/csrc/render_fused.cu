@@ -31,6 +31,8 @@
 #include <cfloat>
 #include <cuda_runtime.h>
 
+#include "plane_test.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -40,31 +42,6 @@ constexpr int kPrimary = 0, kShadow = 10, kNormal = 20, kAlbedo = 23;
 constexpr int kParams = 10;
 constexpr float kFourPi = 0x1.921fb6p+3f;  // float32(4 * pi)
 constexpr float kShadowT = 0x1.fae148p-1f;  // float32(0.99)
-
-struct PlaneHit {
-  float t;
-  bool ok;
-};
-
-// One ray against triangle i of a 10-row constant block [n | c2 | c3 | k0]
-// (intersect_pallas.py::_chunk_tuv): one reciprocal, three multiplies,
-// inclusive barycentric bounds, and no hit for a zero denominator.
-__device__ __forceinline__ PlaneHit plane_test(const float* blk, int C, int i,
-                                               float dx, float dy, float dz) {
-  const float denom =
-      -((dx * blk[0 * C + i] + dy * blk[1 * C + i]) + dz * blk[2 * C + i]);
-  const bool nonpar = denom != 0.0f;
-  const float rec = 1.0f / (nonpar ? denom : 1.0f);
-  const float t = blk[9 * C + i] * rec;
-  const float u =
-      ((dx * blk[3 * C + i] + dy * blk[4 * C + i]) + dz * blk[5 * C + i]) *
-      rec;
-  const float v =
-      ((dx * blk[6 * C + i] + dy * blk[7 * C + i]) + dz * blk[8 * C + i]) *
-      rec;
-  return {t, (u + v <= 1.0f) && (u >= 0.0f) && (v >= 0.0f) && (t >= 0.0f) &&
-                 nonpar};
-}
 
 __global__ void __launch_bounds__(kThreads)
     render_fused_fwd_kernel(const float* __restrict__ dirs,

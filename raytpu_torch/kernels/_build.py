@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources are raytpu_torch/csrc/*.cu, each with a plain C interface (no
-PyTorch headers, so a build takes seconds). At first use each is compiled
+PyTorch headers, so a build takes seconds), and the *.cuh headers they
+include. At first use each is compiled
 with nvcc for Hopper (sm_90a), all at once in parallel, and the objects are
 linked into one shared library under ``build/raytpu_torch/`` beside the
 package, named by a hash of the sources and flags, and loaded with ctypes.
@@ -43,6 +44,11 @@ SIGNATURES = {
                                 _P, _P, _I, _P],
     # partials, blocks, C, g_table, g_params, stream
     "raytpu_render_fused_scatter": [_P, _I, _I, _P, _P, _P],
+    # dirs, table, cam, light, C, R, t, idx, occ, stream
+    "raytpu_closest_hit_occluded": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # dirs, table, cam, src, C, S, R, t, idx, occ, stream
+    "raytpu_closest_hit_occluded_multi": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                          _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -65,7 +71,7 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"raytpu_torch_kernels-{h.hexdigest()[:16]}.so"

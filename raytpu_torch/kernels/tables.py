@@ -1,10 +1,12 @@
 """Triangle tables and parameters of the fused forward kernel.
 
 Counterpart of the helpers ``_tight_chunk`` and ``_blocked_constants`` in
-raytpu/kernels/intersect_pallas.py. The TPU kernel read its constants as
-chunk-blocked (4C, 3) scalar-prefetch arrays; the CUDA kernel reads one
-flat float32 table of TABLE_ROWS rows by C columns (row-major), which each
-thread block copies into shared memory:
+raytpu/kernels/intersect_pallas.py. The TPU kernels read their constants
+as chunk-blocked (4C, 3) scalar-prefetch arrays; the CUDA kernels read
+flat float32 tables of 10-row constant blocks (``_constant_rows``). The
+intersection kernels (kernels/intersect.py) take 1 + S such blocks; the
+fused forward kernel reads one table of TABLE_ROWS rows by C columns
+(row-major), which each thread block copies into shared memory:
 
   rows  0..9   primary (camera-origin) constants  n xyz | c2 xyz | c3 xyz | k0
   rows 10..19  shadow (light-origin) constants, same layout
@@ -38,12 +40,17 @@ def tight_chunk(T: int, tri_chunk: int) -> int:
 
 def _constant_rows(m: torch.Tensor, k0: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
-    """(10, T) rows [n | c2 | c3 | k0] with invalid triangles zeroed. The
-    mask takes no part in the gradient, as in the JAX package's VJP."""
+    """(10, T) rows [n | c2 | c3 | k0] with invalid triangles zeroed, from
+    m (T, 3, 3) and k0 (T,); (S, 10, T) from batched constants m (S, T, 3,
+    3) and k0 (S, T). The mask takes no part in the gradient, as in the JAX
+    package's VJP."""
     valid = valid.detach()
     m = m * valid[:, None, None]
     k0 = k0 * valid
-    return torch.cat([m[:, 0, :].T, m[:, 1, :].T, m[:, 2, :].T, k0[None, :]])
+    return torch.cat([m[..., 0, :].transpose(-1, -2),
+                      m[..., 1, :].transpose(-1, -2),
+                      m[..., 2, :].transpose(-1, -2), k0[..., None, :]],
+                     dim=-2)
 
 
 def pack_tables(m, k0, valid, m_l, k0_l, nrm, alb, C: int) -> torch.Tensor:

@@ -37,11 +37,14 @@ class TriConstants(NamedTuple):
 
 
 def tri_constants(scene: Scene, start: torch.Tensor) -> TriConstants:
-    """Intersection constants for rays originating at ``start`` (3,)."""
+    """Intersection constants for rays originating at ``start`` (3,), or
+    for each of S origins ``start`` (S, 3): then m is (S, T, 3, 3) and k0
+    (S, T), element for element the operations of one origin (the JAX
+    package's ``vmap`` of tri_constants over the shadow sources)."""
     e1, e2 = scene.edges()
-    b = start[None, :] - scene.v0
-    n = cross(e1, e2)
-    m = torch.stack([n, cross(e2, b), cross(b, e1)], dim=1)
+    b = start[..., None, :] - scene.v0
+    n = cross(e1, e2).expand_as(b)
+    m = torch.stack([n, cross(e2, b), cross(b, e1)], dim=-2)
     return TriConstants(m=m, k0=dot3(n, b), valid=scene.active)
 
 
@@ -79,11 +82,16 @@ def plane_tests(dirs: torch.Tensor, m: torch.Tensor, k0: torch.Tensor):
 def closest(t: torch.Tensor, ok: torch.Tensor):
     """Per-ray minimum of t over the passing triangles, LAST index winning
     ties (`raytracer.cpp:243` ``>=`` update). Returns (best_t, best_idx);
-    best_t = F32MAX and best_idx = C - 1 where nothing passes."""
+    best_t = F32MAX and best_idx = C - 1 where nothing passes.
+
+    best_t is read at the winner, so its gradient reaches the last of tied
+    triangles, as the JAX package's ``take_along_axis`` sends it; the
+    minimum's own gradient would reach the first."""
     tm = torch.where(ok, t, F32MAX)
-    best_t = tm.min(dim=1).values
+    low = tm.detach().min(dim=1).values
     rows = torch.arange(tm.shape[1], device=tm.device, dtype=torch.int32)
-    best_idx = torch.where(tm == best_t[:, None], rows, -1).max(dim=1).values
+    best_idx = torch.where(tm == low[:, None], rows, -1).max(dim=1).values
+    best_t = tm.gather(1, best_idx[:, None].long())[:, 0]
     return best_t, best_idx
 
 
@@ -107,6 +115,22 @@ def intersect_scene(start: torch.Tensor, dirs: torch.Tensor, scene: Scene,
                     tri_chunk: int = 512) -> Hits:
     """Constants + intersect in one call."""
     return intersect(dirs, tri_constants(scene, start), tri_chunk=tri_chunk)
+
+
+def one_hot_idx(idx: torch.Tensor, T: int) -> torch.Tensor:
+    """(R,) indices -> (R, T) float32 one-hot rows; negative indices (misses)
+    take row 0, and callers mask misses."""
+    rows = torch.arange(T, dtype=idx.dtype, device=idx.device)
+    return (idx.clamp_min(0)[:, None] == rows).to(torch.float32)
+
+
+def gather_rows(oh: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """one-hot (R, T) @ table (T, K) -> (R, K) in full float32: each output
+    is the one selected row exactly, and the backward is the product
+    ``oh.T @ g``, a fixed-order per-row sum with no atomics."""
+    # TF32 would round a normal to 10 mantissa bits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.matmul(oh, table)
 
 
 def hit_positions(start: torch.Tensor, dirs: torch.Tensor,

@@ -1,16 +1,27 @@
 """Public raytrace API (counterpart of raytpu/render/raytrace.py).
 
-This slice of the port renders and differentiates the configuration of
-the JAX package's megakernel branch: one active light, hard shadows, one
-sub-ray per pixel, at most 128 triangles, mode 'parity' or 'clean'. The
-whole per-ray forward runs in the fused kernel and its backward in the two
-backward kernels (raytpu_torch.kernels.render_fused); the DoF stage
-follows as plain torch. A loss on the image or the focal distances
-differentiates, through ``dof_apply``, the packed tables and parameters,
-``tri_constants`` and ``Scene.normals()``, to every leaf of the scene
-(``active`` excepted, as in the JAX package), to the light, and through
-``camera_ray_dirs`` to the camera. Any other configuration raises
-NotImplementedError naming the ROADMAP.md item that brings it, whatever
+``raytrace_full`` renders and differentiates every hard-visibility
+configuration of the JAX package ('parity' and 'clean', at most 128
+triangles) through one of two branches:
+
+  * the megakernel branch (one active light, hard shadows, one sub-ray,
+    ``cfg.megakernel``): the whole per-ray forward in the fused kernel and
+    its backward in the two backward kernels
+    (raytpu_torch.kernels.render_fused);
+  * the loop branch (AA, soft shadows, several lights, or
+    ``megakernel=False``): per sub-ray, the primary hit and the shadow
+    occlusion in one launch of an intersection kernel
+    (raytpu_torch.kernels.intersect: K4 for one light with hard shadows,
+    K6 for several shadow sources), the running AA record with the parity
+    quirk, the one-hot gather of normals and albedo, and the vectorised
+    shading of ops/shade.py.
+
+The DoF stage follows as plain torch. A loss on the image or the focal
+distances differentiates to every leaf of the scene (``active`` excepted,
+as in the JAX package), of the lights (the jittered soft-shadow positions
+through the shading) and, through ``camera_ray_dirs``, of the camera. The
+soft renderers (mode 'soft') and scenes of more than 128 triangles raise
+NotImplementedError naming the ROADMAP.md item that brings them, whatever
 the device.
 """
 
@@ -22,9 +33,21 @@ import torch
 
 from raytpu_torch.core.types import Camera, Lights, RenderConfig, Scene
 from raytpu_torch.kernels import render_fused
+from raytpu_torch.kernels.intersect import (
+    intersect_occluded,
+    intersect_occluded_multi,
+)
 from raytpu_torch.kernels.tables import MAX_CHUNK
 from raytpu_torch.ops.blur import dof_apply
-from raytpu_torch.ops.intersect import tri_constants
+from raytpu_torch.ops.intersect import (
+    F32MAX,
+    gather_rows,
+    hit_distances,
+    hit_positions,
+    one_hot_idx,
+    tri_constants,
+)
+from raytpu_torch.ops.shade import composite, direct_light, source_positions
 
 
 class RenderOut(NamedTuple):
@@ -56,27 +79,35 @@ def camera_ray_dirs(xs: torch.Tensor, ys: torch.Tensor, camera: Camera,
     return torch.matmul(d, camera.rotation().T)
 
 
+def _subpixel_offsets(cfg: RenderConfig) -> list[tuple[float, float]]:
+    """AA sub-ray offsets (dx, dy): from -0.5 in steps of 1/(N-1)
+    (`raytracer.cpp:564-576,593,596`), x fastest."""
+    n = cfg.aa_samples
+    if n <= 1:
+        return [(0.0, 0.0)]
+    step = 1.0 / (n - 1)
+    return [(-0.5 + z2 * step, -0.5 + z * step)
+            for z in range(n) for z2 in range(n)]
+
+
 def _check_scope(scene: Scene, lights: Lights, cfg: RenderConfig):
-    """Raise for a configuration this slice of the port does not render."""
+    """Raise for a configuration this port does not render yet, and for
+    more soft-shadow samples than the light bank holds (ROADMAP fault F7:
+    the JAX package silently repeats the bank's last jittered position)."""
     gaps = []
     if cfg.mode not in ("clean", "parity"):
         gaps.append(f"mode {cfg.mode!r}: port item 6 (soft renderers)")
-    if not cfg.megakernel:
-        gaps.append("megakernel=False: port item 3 (loop branch)")
-    if cfg.aa_samples > 1:
-        gaps.append(f"aa_samples={cfg.aa_samples}: port item 3 (loop branch)")
-    if cfg.soft_shadow_samples > 1:
-        gaps.append(f"soft_shadow_samples={cfg.soft_shadow_samples}: "
-                    "port item 3 (loop branch)")
-    if lights.capacity > 1:
-        gaps.append(f"{lights.capacity} active lights: port item 3 "
-                    "(loop branch)")
     if scene.num_triangles > MAX_CHUNK:
         gaps.append(f"{scene.num_triangles} triangles: port item 4 "
                     "(STL scale)")
     if gaps:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md): " + "; ".join(gaps))
+    if cfg.soft_shadow_samples > lights.num_soft_samples:
+        raise ValueError(
+            f"soft_shadow_samples={cfg.soft_shadow_samples} but the light "
+            f"bank holds {lights.num_soft_samples} jittered positions a "
+            "light (Lights(soft_samples=...))")
 
 
 def fused_inputs(scene: Scene, camera: Camera, lights: Lights,
@@ -104,11 +135,87 @@ def raytrace_full(scene: Scene, camera: Camera, lights: Lights,
     """
     lights = lights.compact()
     _check_scope(scene, lights, cfg)
-    out = render_fused.render_hard_fused(
-        *fused_inputs(scene, camera, lights, cfg), tri_chunk=cfg.tri_chunk,
-        ambient=cfg.ambient, parity=cfg.mode == "parity")
-    img = out.color.reshape(cfg.height, cfg.width, 3)
-    fd = out.fd.reshape(cfg.height, cfg.width)
+    if (cfg.megakernel and lights.capacity == 1
+            and cfg.soft_shadow_samples == 1 and cfg.aa_samples <= 1):
+        out = render_fused.render_hard_fused(
+            *fused_inputs(scene, camera, lights, cfg),
+            tri_chunk=cfg.tri_chunk, ambient=cfg.ambient,
+            parity=cfg.mode == "parity")
+        img = out.color.reshape(cfg.height, cfg.width, 3)
+        fd = out.fd.reshape(cfg.height, cfg.width)
+        return RenderOut(image=dof_apply(img, fd, cfg), focal_distances=fd)
+    return _loop_branch(scene, camera, lights, cfg)
+
+
+def _loop_branch(scene: Scene, camera: Camera, lights: Lights,
+                 cfg: RenderConfig) -> RenderOut:
+    """The loop branch of the JAX package's ``_raytrace_full``
+    (`render/raytrace.py:152-274`), one intersection launch a sub-ray."""
+    xs, ys = pixel_grid(cfg, scene.device)
+    consts = tri_constants(scene, camera.pos)
+    offsets = _subpixel_offsets(cfg)
+    parity_record = cfg.mode == "parity" and len(offsets) > 1
+    # One light with hard shadows takes K4; anything else K6, with the
+    # sources light-major and sample-minor, as direct_light reads them.
+    single = lights.capacity == 1 and cfg.soft_shadow_samples == 1
+    src_pos = source_positions(lights, cfg.soft_shadow_samples)
+    consts_src = tri_constants(scene, src_pos[0] if single else src_pos)
+    normals_albedo = torch.cat([scene.normals(), scene.color], dim=1)
+
+    R = xs.shape[0]
+    accum = None
+    # The closest Euclidean distance per pixel over the sub-rays (the
+    # reference's persistent intersection record, `raytracer.cpp:580`),
+    # which feeds DoF, and the record's hit, triangle and occlusion bits.
+    rec_dist = torch.full((R,), F32MAX, device=xs.device)
+    rec_idx = torch.zeros((R,), dtype=torch.int32, device=xs.device)
+    rec_pos = torch.zeros((R, 3), device=xs.device)
+    rec_occ = torch.zeros((src_pos.shape[0], R), dtype=torch.bool,
+                          device=xs.device)
+
+    for dx, dy in offsets:
+        dirs = camera_ray_dirs(xs + dx, ys + dy, camera, cfg)
+        if single:
+            hits, occ = intersect_occluded(
+                dirs, consts, consts_src, camera.pos, src_pos[0],
+                tri_chunk=cfg.tri_chunk)
+            occ = occ[None, :]
+        else:
+            hits, occ = intersect_occluded_multi(
+                dirs, consts, consts_src, camera.pos, src_pos,
+                tri_chunk=cfg.tri_chunk)
+        dist = hit_distances(dirs, hits)
+
+        # Merge into the running record (`>=` update semantics, `:243`).
+        upd = hits.hit & (dist <= rec_dist)
+        rec_dist = torch.where(upd, dist, rec_dist)
+        rec_idx = torch.where(upd, hits.idx, rec_idx)
+        rec_pos = torch.where(upd[:, None],
+                              hit_positions(camera.pos, dirs, hits), rec_pos)
+        if parity_record:
+            # Parity quirk: each sub-ray shades the RECORD's hit, which may
+            # be a stale closer hit of an earlier sub-ray. Occlusion is a
+            # function of the record position alone, so the bits of the
+            # sub-ray that set the record are the record's.
+            rec_occ = torch.where(upd[None, :], occ, rec_occ)
+            pos, shade_idx, occ = rec_pos, rec_idx, rec_occ
+        else:
+            pos = hit_positions(camera.pos, dirs, hits)
+            shade_idx = hits.idx.clamp_min(0)
+
+        # Normals and albedo of the shaded triangle in one one-hot product.
+        both = gather_rows(one_hot_idx(shade_idx, scene.num_triangles),
+                           normals_albedo)
+        direct = direct_light(pos, shade_idx, scene, lights, cfg,
+                              n_dir=both[:, :3], occlusion_rows=occ)
+        # The reference adds a sample only where the sub-ray itself hit
+        # (`raytracer.cpp:580-591`).
+        color = composite(direct, both[:, 3:], hits.hit, cfg)
+        accum = color if accum is None else accum + color
+
+    img = (accum / float(len(offsets))).reshape(cfg.height, cfg.width, 3)
+    fd = torch.where(rec_dist < F32MAX, rec_dist - camera.dof_focus,
+                     0.0).reshape(cfg.height, cfg.width)
     return RenderOut(image=dof_apply(img, fd, cfg), focal_distances=fd)
 
 

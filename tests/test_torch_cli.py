@@ -2,6 +2,15 @@
 (raytpu_torch.cli.main, raytpu_torch.render.animate) against the JAX
 package's."""
 
+import argparse
+import json
+import re
+import signal
+import subprocess
+import sys
+import urllib.request
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -15,13 +24,16 @@ from raytpu.render import animate as jax_animate
 from raytpu.render.raytrace import raytrace as jax_raytrace
 
 from raytpu_torch import convert
+from raytpu_torch.cli import main as cli_main
 from raytpu_torch.cli.main import main
 from raytpu_torch.core.cornell import cornell_box
-from raytpu_torch.core.image import read_bmp
+from raytpu_torch.core.image import quantize_u8, read_bmp
 from raytpu_torch.core.types import Camera, Lights, RenderConfig
 from raytpu_torch.kernels import render_fused
 from raytpu_torch.render import animate
 from raytpu_torch.render.raytrace import raytrace
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def leaves(value):
@@ -57,7 +69,50 @@ def test_render_cli_refuses_cuda_without_a_card(tmp_path):
 def test_render_cli_refuses_unported_flags(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["render", "--device", "cpu", "--width", "8", "--height", "8",
-              "--aa", "3", "-o", str(tmp_path / "x.bmp")])
+              "--stl", str(tmp_path / "model.stl"),
+              "-o", str(tmp_path / "x.bmp")])
+
+
+def test_render_cli_renders_the_loop_branch(tmp_path):
+    """AA, soft shadows, a second light and DoF: the full-feature frame."""
+    out = tmp_path / "full.bmp"
+    flags = ["--width", "16", "--height", "16", "--mode", "clean",
+             "--focal", "8", "--aa", "3", "--soft-shadows", "4",
+             "--add-light", "0.4", "-0.5", "-0.7", "1", "1", "1", "7",
+             "--dof"]
+    main(["render", "--device", "cpu", *flags, "-o", str(out)])
+    parser = argparse.ArgumentParser()
+    cli_main._render_flags(parser)
+    want = raytrace(*cli_main._build_inputs(parser.parse_args(
+        ["--device", "cpu", *flags])))
+    got = read_bmp(str(out))
+    np.testing.assert_array_equal(got, quantize_u8(want.numpy()))
+    assert got[1:-1, 1:-1].max() > 80
+
+
+def test_view_cli_serves_on_cpu():
+    """``view --device cpu`` answers requests until interrupted."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raytpu_torch.cli.main", "view", "--device",
+         "cpu", "--width", "16", "--height", "16", "--mode", "clean",
+         "--port", "0"], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        base = re.search(r"http://127\.0\.0\.1:\d+", line)
+        assert base, line
+        base = base.group()
+        with urllib.request.urlopen(base + "/key?k=7", timeout=60) as r:
+            assert json.loads(r.read())["aa"] is True
+        with urllib.request.urlopen(base + "/key?k=8", timeout=60) as r:
+            assert json.loads(r.read())["soft_shadows"] is True
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        finally:
+            proc.kill()
+            proc.stdout.close()
+    assert proc.returncode == 0
 
 
 def test_expand_script_matches_jax():

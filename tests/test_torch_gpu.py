@@ -204,3 +204,108 @@ def test_wrapper_checks_its_inputs(cuda):
     with pytest.raises(TypeError):
         render_fused.fused_bwd(dirs, table, params, out.idx.long(), out.occ,
                                ones, fd, **call)
+
+
+def _sweep_inputs(device, size, n_lights, samples, offset=(0.0, 0.0),
+                  pad_to=32, yaw=0.0, pos=(0.0, 0.0, -2.0)):
+    """The intersection kernels' arguments for one sub-ray of a frame."""
+    from raytpu_torch.ops.intersect import tri_constants
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.raytrace import camera_ray_dirs, pixel_grid
+    scene = cornell_box(pad_to=pad_to, device=device)
+    camera = Camera.make(pos, yaw=yaw, device=device)
+    cfg = RenderConfig(width=size, height=size)
+    lights = Lights.single(capacity=n_lights, soft_samples=16, device=device)
+    if n_lights == 2:
+        lights = lights.add((0.4, -0.5, -0.7), (1.0, 1.0, 1.0), 7.0)
+    xs, ys = pixel_grid(cfg, device)
+    dirs = camera_ray_dirs(xs + offset[0], ys + offset[1], camera, cfg)
+    c = tri_constants(scene, camera.pos)
+    src = source_positions(lights, samples)
+    cs = tri_constants(scene, src)
+    return dirs, c.m, c.k0, c.valid, cs.m, cs.k0, camera.pos, src
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["k4", "k6"])
+@pytest.mark.parametrize("size,pad_to,yaw,pos,offset", [
+    (512, 32, 0.0, (0.0, 0.0, -2.0), (0.0, 0.0)),
+    (257, None, 0.3, (0.2, -0.1, -1.8), (-0.5, 0.5)),
+])
+def test_intersect_kernels_match_plain_version(cuda, multi, size, pad_to,
+                                               yaw, pos, offset):
+    from raytpu_torch.kernels import intersect as isect
+    n_lights, samples = (2, 16) if multi else (1, 1)
+    args = _sweep_inputs(cuda, size, n_lights, samples, offset, pad_to, yaw,
+                         pos)
+    if multi:
+        fn, ref, counter = (isect.closest_hit_occluded_multi,
+                            isect.closest_hit_occluded_multi_reference,
+                            "LAUNCHES_OCCLUDED_MULTI")
+    else:
+        args = (*args[:4], args[4][0], args[5][0], args[6], args[7][0])
+        fn, ref, counter = (isect.closest_hit_occluded,
+                            isect.closest_hit_occluded_reference,
+                            "LAUNCHES_OCCLUDED")
+    before = getattr(isect, counter)
+    got = fn(*args)
+    assert getattr(isect, counter) == before + 1
+    want = ref(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert float((got[1] >= 0).float().mean()) > 0.2
+    assert bool(got[2].any()) and not bool(got[2].all())
+
+
+def test_intersect_wrapper_checks_its_inputs(cuda):
+    from raytpu_torch.kernels import intersect as isect
+    dirs, m, k0, valid, m_s, k0_s, cam, src = _sweep_inputs(cuda, 16, 2, 4)
+    call = (m, k0, valid, m_s, k0_s, cam, src)
+    isect.closest_hit_occluded_multi(dirs, *call)
+    with pytest.raises(TypeError):
+        isect.closest_hit_occluded_multi(dirs.double(), *call)
+    with pytest.raises(ValueError):
+        isect.closest_hit_occluded_multi(dirs.T.contiguous().T, *call)
+    with pytest.raises(ValueError):  # the camera position on the host
+        isect.closest_hit_occluded_multi(dirs, m, k0, valid, m_s, k0_s,
+                                         cam.cpu(), src)
+
+
+@pytest.mark.parametrize("n_lights,samples,kernel", [
+    (1, 1, "LAUNCHES_OCCLUDED"), (2, 4, "LAUNCHES_OCCLUDED_MULTI")])
+def test_loop_branch_on_gpu_matches_cpu(cuda, n_lights, samples, kernel):
+    """The loop branch (AA 3, DoF) on the card, forward and gradients,
+    against the CPU path; one intersection launch a sub-ray."""
+    from raytpu_torch.kernels import intersect as isect
+
+    def run(device):
+        scene, lights, _ = _train_leaves(device)
+        lights = Lights.single(capacity=n_lights, soft_samples=4,
+                               device=device)
+        if n_lights == 2:
+            lights = lights.add((0.4, -0.5, -0.7), (1.0, 1.0, 1.0), 7.0)
+        for t in vars(lights).values():
+            t.requires_grad_(True)
+        camera = Camera.raytracer_default(device=device)
+        out = raytrace_full(scene, camera, lights, RenderConfig(
+            width=64, height=64, mode="parity", aa_samples=3,
+            soft_shadow_samples=samples, dof_enabled=True))
+        (torch.mean(out.image ** 2)
+         + 0.1 * torch.mean(out.focal_distances ** 2)).backward()
+        return out, [convert.grads_to_numpy(v) for v in (scene, lights)]
+
+    counts = (render_fused.LAUNCHES, render_fused.LAUNCHES_BWD,
+              getattr(isect, kernel))
+    got, got_grads = run(cuda)
+    assert (render_fused.LAUNCHES, render_fused.LAUNCHES_BWD,
+            getattr(isect, kernel)) == (counts[0], counts[1], counts[2] + 9)
+    want, want_grads = run("cpu")
+    # The card's matmul for the ray directions may fuse its products, so
+    # a knife-edge winner can flip (at most 0.1% of pixels).
+    bad = (got.image.detach().cpu() - want.image.detach()).abs() > 1e-5
+    assert float(bad.any(dim=-1).float().mean()) <= 0.001
+    for got_g, want_g in zip(got_grads, want_grads):
+        for field in want_g:
+            np.testing.assert_allclose(got_g[field], want_g[field], rtol=1e-4,
+                                       atol=1e-5, err_msg=field)

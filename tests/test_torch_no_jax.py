@@ -14,6 +14,7 @@ _IMPORT_CHECK = """
 import sys
 import raytpu_torch, raytpu_torch.cli.main, raytpu_torch.kernels.render_fused
 import raytpu_torch.render.animate, raytpu_torch.convert
+import raytpu_torch.kernels.intersect, raytpu_torch.view
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "raytpu.")) or m == "raytpu")
 assert not loaded, loaded

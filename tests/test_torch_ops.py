@@ -7,9 +7,14 @@ ray (mismatches are counted); t agrees to rtol 5e-7, since XLA:CPU
 contracts the plane products into FMAs and moves t by an ulp.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
 
 from raytpu.core.cornell import cornell_box as jax_cornell_box
 from raytpu.core.types import Camera as JaxCamera
@@ -113,10 +118,61 @@ def test_direct_light_and_composite_match_jax(frame, mode):
 
 
 def test_direct_light_refuses_several_lights(frame):
+    """Several lights and soft-shadow samples, once refused, now shade as
+    the JAX package's direct_light does: 2 lights x 4 samples, both modes,
+    each source's shadow rays traced by the op itself."""
     scene, cam, dirs = frame
-    lights = convert.lights_from_numpy(
-        leaves(JaxLights.single(capacity=2)), device="cpu")
+    jax_lights = JaxLights.single(capacity=2, soft_samples=4).add(
+        (0.4, -0.5, -0.7), (1.0, 0.8, 0.6), 7.0, key=jax.random.PRNGKey(1))
+    hits = jax_intersect.intersect(dirs, jax_intersect.tri_constants(
+        scene, cam.pos))
+    pos = jax_intersect.hit_positions(cam.pos, dirs, hits)
+    shade_idx = np.maximum(np.asarray(hits.idx), 0)
     t_scene = convert.scene_from_numpy(leaves(scene), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shade.direct_light(torch.zeros(4, 3), torch.zeros(4, dtype=torch.long),
-                           t_scene, lights, RenderConfig())
+    lights = convert.lights_from_numpy(leaves(jax_lights), device="cpu")
+    for mode in ("clean", "parity"):
+        jcfg = JaxRenderConfig(mode=mode, soft_shadow_samples=4,
+                               use_pallas=False)
+        want = jax_shade.direct_light(pos, shade_idx, scene, jax_lights, jcfg)
+        got = shade.direct_light(
+            _t(pos), _t(shade_idx).long(), t_scene, lights,
+            RenderConfig(mode=mode, soft_shadow_samples=4))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6, err_msg=mode)
+    with pytest.raises(ValueError, match="jittered"):
+        shade.direct_light(_t(pos), _t(shade_idx).long(), t_scene, lights,
+                           RenderConfig(soft_shadow_samples=16))
+
+
+def test_intersect_grad_reaches_the_last_tied_triangle():
+    """F6: the gradient of t goes to the last-wins winner, as JAX's
+    take_along_axis sends it. The centre rays tie on the back wall's
+    diagonal, which triangles 8 and 9 share."""
+    scene = jax_cornell_box(pad_to=32)
+    cam = JaxCamera.raytracer_default()
+    cfg = JaxRenderConfig(width=16, height=16)
+    dirs = camera_ray_dirs(*pixel_grid(cfg), cam, cfg)
+
+    def t_sum(v0, v1, v2, d):
+        s = dataclasses.replace(scene, v0=v0, v1=v1, v2=v2)
+        hits = jax_intersect.intersect(d, jax_intersect.tri_constants(
+            s, cam.pos))
+        return jnp.sum(jnp.where(hits.hit, hits.t, 0.0))
+
+    want = jax.grad(t_sum, argnums=(0, 1, 2, 3))(scene.v0, scene.v1,
+                                                 scene.v2, dirs)
+    t_scene = convert.scene_from_numpy(leaves(scene), device="cpu")
+    inputs = [t_scene.v0, t_scene.v1, t_scene.v2, _t(dirs)]
+    for x in inputs:
+        x.requires_grad_(True)
+    t_scene = dataclasses.replace(t_scene, v0=inputs[0], v1=inputs[1],
+                                  v2=inputs[2])
+    hits = intersect.intersect(inputs[3], intersect.tri_constants(
+        t_scene, _t(cam.pos)))
+    got = torch.autograd.grad(torch.where(hits.hit, hits.t, 0.0).sum(),
+                              inputs)
+    assert int(hits.idx.eq(8).sum()) and int(hits.idx.eq(9).sum())
+    for name, g, w in zip(("v0", "v1", "v2", "dirs"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    assert np.abs(np.asarray(want[0])[8:10]).max() > 1e-3

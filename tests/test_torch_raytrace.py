@@ -10,6 +10,7 @@ tests/test_raytrace_parity.py); every other pixel is held to atol 1e-6
 oracle check uses tests/test_raytrace_parity.py's tolerances.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -121,6 +122,8 @@ def _two_lights():
         (0.3, -0.5, -0.5), (1.0, 1.0, 1.0), 5.0)
 
 
+# The configurations of the loop branch, once out of scope, now render and
+# match JAX; STL scale and the soft renderers still raise.
 OUT_OF_SCOPE = {
     "megakernel-off": (lambda: (cornell_box(device="cpu"),
                                 RenderConfig(megakernel=False))),
@@ -132,6 +135,7 @@ OUT_OF_SCOPE = {
                            RenderConfig())),
     "soft-mode": lambda: (cornell_box(device="cpu"), RenderConfig(mode="soft")),
 }
+STILL_RAISE = ("stl-scale", "soft-mode")
 
 
 @pytest.mark.parametrize("name", list(OUT_OF_SCOPE))
@@ -140,5 +144,27 @@ def test_out_of_scope_configs_raise(name):
     cfg = cfg.replace(width=8, height=8)
     lights = (_two_lights() if name == "two-lights"
               else Lights.single(capacity=1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        raytrace(scene, Camera.raytracer_default(device="cpu"), lights, cfg)
+    camera = Camera.raytracer_default(device="cpu")
+    if name in STILL_RAISE:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            raytrace(scene, camera, lights, cfg)
+        return
+    got = raytrace(scene, camera, lights, cfg)
+    jcfg = JaxRenderConfig(**{f: getattr(cfg, f) for f in (
+        "width", "height", "mode", "aa_samples", "soft_shadow_samples",
+        "megakernel")}, use_pallas=False)
+    want = jax_raytrace_full(
+        jax_cornell_box(), JaxCamera.raytracer_default(),
+        JaxLights(**{k: jnp.asarray(v) for k, v in
+                     convert.to_numpy(lights).items()}), jcfg).image
+    _assert_close_but_flips(got, want, 1e-6)
+
+
+def test_more_soft_samples_than_the_bank_holds_raise():
+    """F7: the JAX package repeats a bank's last jittered position when
+    more samples are asked for than it holds; the port refuses."""
+    lights = Lights.single(capacity=1, soft_samples=1, device="cpu")
+    with pytest.raises(ValueError, match="jittered"):
+        raytrace(cornell_box(device="cpu"),
+                 Camera.raytracer_default(device="cpu"), lights,
+                 RenderConfig(width=8, height=8, soft_shadow_samples=16))

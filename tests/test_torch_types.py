@@ -176,6 +176,19 @@ def test_compact_matches_jax(active):
         np.testing.assert_array_equal(got[name], value)
 
 
+@pytest.mark.parametrize("active", [[0], [0, 2], [1, 3], [0, 1, 2, 3], []])
+def test_delete_last_matches_jax(active):
+    mask = np.zeros(4, np.float32)
+    mask[active] = 1.0
+    jax_lights = dataclasses.replace(JaxLights.empty(4, 2),
+                                     mask=jnp.asarray(mask))
+    lights = convert.lights_from_numpy(leaves(jax_lights), device="cpu")
+    got = convert.to_numpy(lights.delete_last())
+    want = leaves(jax_lights.delete_last())
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name], value)
+
+
 def test_render_config_defaults_match_jax():
     ours = {f.name: getattr(RenderConfig(), f.name)
             for f in dataclasses.fields(RenderConfig)}
