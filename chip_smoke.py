@@ -16,8 +16,9 @@ nonzero without printing a result:
      be 0; color and focal distance within 1e-6.
   4. the main path as a user calls it: raytpu_torch.raytrace at the CLI
      defaults (500^2 parity, Cornell box, one light of capacity 1) against
-     the numpy oracle (raytpu/oracle/raytracer_oracle.py, loaded by path:
-     this script imports no JAX), and the ``render`` CLI writing a BMP.
+     the port's copy of the numpy oracle (raytpu_torch.oracle; this script
+     imports nothing of JAX or of the JAX package), and the ``render`` CLI
+     writing a BMP.
   5. a few requests: an 8-frame key script through the animate loop; the
      kernel must launch exactly once a frame.
   6. card numbers: the 512^2 clean forward frame and the kernel alone, each
@@ -59,28 +60,55 @@ nonzero without printing a result:
      gradients); then card numbers: the full-feature frame and step,
      K4 and K6 alone beside their plain versions and bounds, the
      device-busy share and event count of a step and its peak memory.
+ 12. the hard rasterizer's winner kernels (K8b, one triangle chunk; K8c,
+     several chunks skipped by a (pixel tile, chunk) mask) against their
+     plain versions on the card: K8b at 512^2 clean (the bench's raster
+     step: Cornell box padded to 32, the rasteriser camera) and at 500^2
+     clean (30 triangles); K8c on the 9,028-triangle procedural STL mesh
+     (raytpu_torch.core.stl.procedural_stl_text, written to
+     build/chip_smoke/) at 500^2 clean, with its mask and with the mask
+     forced to all ones. 0 winner mismatches, masked = all-ones, two calls
+     identical; the mask's keep rate.
+ 13. the rasterizer serving: rasterize at the CLI defaults (500^2 parity,
+     plain torch, no kernel) against the port's copy of the rasterizer
+     oracle (u8 within 1 everywhere, >= 99.99% exact, focal distances
+     within 1e-5); the ``rasterize`` CLI in clean mode (exactly 1 K8b) and
+     with ``--stl`` (exactly 1 K8c), each writing a BMP; parity with
+     ``--stl`` refusing the mesh (ROADMAP fault F8); an 8-frame animate
+     key script with the clean rasterizer (one K8b a frame); the view
+     server with the rasterizer, each request with its launches and key 0
+     answering 501.
+ 14. the raster train step: 3 SGD steps of the bench's step (512^2 clean,
+     Cornell padded to 32, the rasteriser camera, MSE to a fixed target,
+     every float leaf of scene and lights): exactly one K8b a step and no
+     other kernel, finite gradients; then card numbers: the clean frame
+     and step, the 500^2 parity frame, the 500^2 clean STL frame, K8b and
+     K8c alone beside their plain versions and bounds, the device-busy
+     share and event count of a step and its peak memory.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
 steps of phase 8 (training: K1, K2, K3), before and after phase 10
 (serving the loop branch: K1, K4, K6), before and after the 3 steps of
-phase 11 (training the loop branch: K6). Comparisons and timings launch
+phase 11 (training the loop branch: K6), before and after phase 13
+(serving the rasterizer: K8b, K8c), before and after the 3 steps of
+phase 14 (training the rasterizer: K8b). Comparisons and timings launch
 outside those windows. The line before the last is one JSON object
 describing each kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
-Details (result.json, render.bmp, full_feature.bmp) go to build/chip_smoke/.
+Details (result.json and the BMPs) go to build/chip_smoke/.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -89,7 +117,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
-ORACLE = ROOT / "raytpu" / "oracle" / "raytracer_oracle.py"
 # Image tolerances of tests/test_raytrace_parity.py::_assert_images_match.
 F32_ATOL, F32_RTOL, U8_FRAC, FLIP_FRAC = 2e-4, 1e-3, 0.999, 0.999
 # test_aa_parity's u8 fraction for AA frames.
@@ -106,6 +133,11 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # and the backward's recompute, derivative and block sums of a hit ray
 # (render_fused_bwd.cu).
 FLOPS_PLANE_TEST, FLOPS_FWD_SHADE, FLOPS_BWD_HIT = 20, 50, 180
+# The raster kernels' pixel-triangle test (raster.cu::sweep): four planes
+# of two multiplies and two adds.
+FLOPS_RASTER_TEST = 16
+# Image rule of tests/test_rasterize_parity.py::test_parity_vs_oracle_500.
+RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 # Cycles of torch.cuda._sleep that hold the stream while timed calls are
 # enqueued (about 100 ms at the H100's clocks). The calls held must also
 # stay within the stream's queue of about a thousand launches.
@@ -122,13 +154,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-
-
-def load_oracle():
-    spec = importlib.util.spec_from_file_location("raytracer_oracle", ORACLE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def require(ok: bool, what: str) -> None:
@@ -264,21 +289,23 @@ def full_feature_frame(dev, size: int):
                          soft_shadow_samples=16, dof_enabled=True))
 
 
-def train_step(scene, camera, lights, cfg, lr: float, target_scale=1.0):
-    """bench.py's train step in the port: the MSE of the render to the
-    render of the starting parameters (times ``target_scale``; bench.py
-    takes 1, where every gradient starts at 0), and one SGD step over every
-    float leaf of scene and lights. Returns a function that takes one step
-    and returns its loss."""
-    from raytpu_torch.render.raytrace import raytrace
+def train_step(scene, camera, lights, cfg, lr: float, target_scale=1.0,
+               render=None):
+    """bench.py's train step in the port: the MSE of the render (raytrace,
+    or ``render``) to the render of the starting parameters (times
+    ``target_scale``; bench.py takes 1, where every gradient starts at 0),
+    and one SGD step over every float leaf of scene and lights. Returns a
+    function that takes one step and returns its loss."""
+    if render is None:
+        from raytpu_torch.render.raytrace import raytrace as render
     with torch.no_grad():
-        target = raytrace(scene, camera, lights, cfg) * target_scale
+        target = render(scene, camera, lights, cfg) * target_scale
     opt = torch.optim.SGD([t.requires_grad_(True) for value in (scene, lights)
                            for t in vars(value).values()], lr=lr)
 
     def step():
         opt.zero_grad()
-        loss = torch.mean((raytrace(scene, camera, lights, cfg) - target)
+        loss = torch.mean((render(scene, camera, lights, cfg) - target)
                           ** 2)
         loss.backward()
         opt.step()
@@ -351,11 +378,12 @@ def sweep_case(dev, size: int, mode: str, pad_to, lights, samples: int,
     from raytpu_torch.kernels.intersect import occluded_table
     from raytpu_torch.ops.intersect import tri_constants
     from raytpu_torch.ops.shade import source_positions
-    from raytpu_torch.render.raytrace import camera_ray_dirs, pixel_grid
+    from raytpu_torch.core.types import pixel_grid
+    from raytpu_torch.render.raytrace import camera_ray_dirs
     scene = cornell_box(pad_to=pad_to, device=dev)
     camera = Camera.raytracer_default(device=dev)
     cfg = RenderConfig(width=size, height=size, mode=mode)
-    xs, ys = pixel_grid(cfg, dev)
+    xs, ys = pixel_grid(size, size, dev)
     dirs = camera_ray_dirs(xs + offset[0], ys + offset[1], camera, cfg)
     consts = tri_constants(scene, camera.pos)
     src = source_positions(lights, samples)
@@ -410,20 +438,111 @@ def sweep_bound(case: dict) -> tuple[float, str]:
 
 def kernel_counts() -> dict:
     from raytpu_torch.kernels import intersect as isect
-    from raytpu_torch.kernels import render_fused
+    from raytpu_torch.kernels import raster, render_fused
     return {"render_fused_fwd": render_fused.LAUNCHES,
             "closest_hit_occluded": isect.LAUNCHES_OCCLUDED,
             "closest_hit_occluded_multi": isect.LAUNCHES_OCCLUDED_MULTI,
             "render_fused_bwd": render_fused.LAUNCHES_BWD,
-            "render_fused_scatter": render_fused.LAUNCHES_SCATTER}
+            "render_fused_scatter": render_fused.LAUNCHES_SCATTER,
+            "raster_winner": raster.LAUNCHES_WINNER,
+            "raster_winner_masked": raster.LAUNCHES_WINNER_MASKED}
 
 
 def zero_counts() -> None:
     from raytpu_torch.kernels import intersect as isect
-    from raytpu_torch.kernels import render_fused
+    from raytpu_torch.kernels import raster, render_fused
     for name in ("LAUNCHES", "LAUNCHES_BWD", "LAUNCHES_SCATTER"):
         setattr(render_fused, name, 0)
     isect.LAUNCHES_OCCLUDED = isect.LAUNCHES_OCCLUDED_MULTI = 0
+    raster.LAUNCHES_WINNER = raster.LAUNCHES_WINNER_MASKED = 0
+
+
+def raster_case(scene, camera, cfg) -> dict:
+    """The winner kernels' inputs for a clean frame, as rasterize_exact
+    makes them: the (T, 16) constants from the screen vertices and the
+    backface mask, and the K8c mask over its tiles where T is more than a
+    chunk."""
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.ops.raster import cull_mask
+    from raytpu_torch.render.soft import _screen_vertices
+    with torch.no_grad():
+        sx, sy, zinv, _ = _screen_vertices(scene, camera, cfg)
+        keep = cull_mask(scene, camera, cfg.replace(frustum_cull=False))
+        consts = raster.raster_tri_constants(sx, sy, zinv, keep)
+        case = dict(consts=consts, H=cfg.height, W=cfg.width, mask=None,
+                    chunk=raster.MAX_CHUNK)
+        if consts.shape[0] > raster.MAX_CHUNK:
+            case["mask"] = raster.chunk_screen_mask(
+                sx, sy, zinv, consts[:, 12],
+                raster.tile_rects(cfg.height, cfg.width, consts.device),
+                raster.MAX_CHUNK)
+    return case
+
+
+def run_winner(case: dict, mask=None):
+    """The K8b (no mask) or K8c wrapper on a raster_case; ``mask``
+    overrides the case's own."""
+    from raytpu_torch.kernels import raster
+    c = case
+    if c["mask"] is None:
+        return raster.raster_winner(c["consts"], c["H"], c["W"])
+    return raster.raster_winner_masked(
+        c["consts"], c["H"], c["W"], c["mask"] if mask is None else mask,
+        c["chunk"])
+
+
+def plain_winner(case: dict):
+    from raytpu_torch.kernels import raster
+    c = case
+    if c["mask"] is None:
+        return raster.resolve_winner_reference(c["consts"], c["H"], c["W"])
+    return raster.resolve_winner_masked_reference(
+        c["consts"], c["H"], c["W"], c["mask"], c["chunk"])
+
+
+def winner_bound(case: dict) -> tuple[float, str]:
+    """K8b's or K8c's bound on a raster_case: the constants (and mask) read
+    once and 4 B of winner written a pixel, against FLOPS_RASTER_TEST a
+    test of a pixel against a valid row (valid = consts[:, 12] > 0; an
+    invalid row needs no test): every valid row for every pixel (K8b), or
+    for each (tile, chunk) pair the mask keeps, the tile's pixels inside
+    the image against the chunk's valid rows (K8c)."""
+    from raytpu_torch.kernels import raster
+    c = case
+    T, H, W = c["consts"].shape[0], c["H"], c["W"]
+    valid = (c["consts"][:, 12] > 0.0).long()
+    nbytes = c["consts"].numel() * 4 + H * W * 4
+    if c["mask"] is None:
+        return bound_ms(nbytes, FLOPS_RASTER_TEST * H * W * int(valid.sum()))
+    pad = c["mask"].shape[1] * c["chunk"] - T
+    chunk_valid = torch.cat([valid, valid.new_zeros(pad)]).reshape(
+        -1, c["chunk"]).sum(dim=1)
+    xmin, xmax, ymin, ymax = raster.tile_rects(H, W, valid.device)
+    tile_pixels = ((xmax - xmin + 1) * (ymax - ymin + 1)).long()
+    tests = int((c["mask"].long() * tile_pixels[:, None]
+                 * chunk_valid[None, :]).sum())
+    return bound_ms(nbytes + c["mask"].numel() * 4, FLOPS_RASTER_TEST * tests)
+
+
+def raster_bench_frame(dev, size: int):
+    """bench.py's raster step frame (`bench.py:339-397`): size^2 clean, the
+    Cornell box padded to 32, the rasteriser camera, one light."""
+    from raytpu_torch import Camera, Lights, RenderConfig, cornell_box
+    return (cornell_box(pad_to=32, device=dev),
+            Camera.rasterizer_default(device=dev),
+            Lights.single(capacity=1, device=dev),
+            RenderConfig(width=size, height=size, mode="clean"))
+
+
+def stl_frame(dev, path, size: int):
+    """The rasterize CLI's STL frame (`--stl`): size^2 clean, the camera
+    (0, -0.5, -5) at f = 500, one light."""
+    from raytpu_torch import Camera, Lights, RenderConfig, load_stl
+    return (load_stl(str(path), device=dev),
+            Camera.make((0.0, -0.5, -5.0), focal=500.0, dof_focus=1.9,
+                        device=dev),
+            Lights.single(capacity=1, device=dev),
+            RenderConfig(width=size, height=size, mode="clean"))
 
 
 def delta(before: dict, after: dict) -> dict:
@@ -451,6 +570,7 @@ def main() -> int:
     from raytpu_torch.core.image import quantize_u8, read_bmp
     from raytpu_torch.kernels import _build, render_fused
     from raytpu_torch.kernels.tables import GATHERED, PARAMS, tight_chunk
+    from raytpu_torch.oracle import raytracer_oracle
     from raytpu_torch.render.animate import animate, expand_script
     from raytpu_torch.render.raytrace import (
         fused_inputs, raytrace, raytrace_full)
@@ -511,7 +631,7 @@ def main() -> int:
     require(img.shape == (500, 500, 3) and np.isfinite(img).all(),
             "finite (500, 500, 3) image")
     t0 = time.perf_counter()
-    img_o, fd_o = load_oracle().render(cornell_box_numpy(), width=500,
+    img_o, fd_o = raytracer_oracle.render(cornell_box_numpy(), width=500,
                                        height=500)
     err = np.abs(img - img_o) - (F32_ATOL + F32_RTOL * np.abs(img_o))
     f32_ok = float((err.max(axis=-1) <= 0).mean())
@@ -827,7 +947,7 @@ def main() -> int:
     require(np.isfinite(img).all() and not img[0].any()
             and img[1:-1, 1:-1].max() > 0.3, "finite, black border, lit")
     t0 = time.perf_counter()
-    img_o, _ = load_oracle().render(cornell_box_numpy(), width=500,
+    img_o, _ = raytracer_oracle.render(cornell_box_numpy(), width=500,
                                     height=500, aa_samples=3)
     err = np.abs(img - img_o) - (F32_ATOL + F32_RTOL * np.abs(img_o))
     f32_ok = float((err.max(axis=-1) <= 0).mean())
@@ -994,6 +1114,293 @@ def main() -> int:
                   full_frame_profile=busy_frame,
                   step_peak_gb=step_peak_gb, k4_ms=k4_ms, k6_ms=k6_ms,
                   k4_bound=k4_bound, k6_bound=k6_bound)
+
+    say("== phase 12: K8b and K8c against their plain versions on the card")
+    from raytpu_torch.core.stl import procedural_stl_text
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.oracle import rasterizer_oracle
+    from raytpu_torch.render.rasterize import rasterize, rasterize_full
+    # The 9,028-triangle stand-in for the reference's enemy1.stl.
+    stl_path = OUT / "f1_torus.stl"
+    stl_path.write_text(procedural_stl_text())
+    s512, c512, _, cfg_r512 = raster_bench_frame(dev, 512)
+    rcases = {
+        # The bench's raster step: 512^2 clean, padded to 32 (K8b).
+        "k8b_512_bench": raster_case(s512, c512, cfg_r512),
+        # The rasterize CLI in clean mode: 500^2, 30 triangles (K8b).
+        "k8b_500_clean": raster_case(
+            cornell_box(device=dev),
+            Camera.make((0.0, 0.0, -3.0), focal=500.0, dof_focus=1.9,
+                        device=dev),
+            RenderConfig(mode="clean")),
+        # The rasterize CLI's --stl frame: 500^2 clean, 71 chunks (K8c).
+        "k8c_500_stl": raster_case(*(stl_frame(dev, stl_path, 500)[i]
+                                     for i in (0, 1, 3))),
+    }
+    winner_err = {"k8b": 0, "k8c": 0}
+    for name, case in rcases.items():
+        got, again, want = run_winner(case), run_winner(case), \
+            plain_winner(case)
+        line = ""
+        if case["mask"] is not None:
+            ones = torch.ones_like(case["mask"])
+            got_ones = run_winner(case, mask=ones)
+            want_ones = raster.resolve_winner_masked_reference(
+                case["consts"], case["H"], case["W"], ones, case["chunk"])
+            torch.cuda.synchronize()
+            keep_rate = float(case["mask"].float().mean())
+            same_ones = (torch.equal(got, got_ones)
+                         and torch.equal(got_ones, want_ones))
+            line = (f", mask keep rate {keep_rate:.4f} of "
+                    f"{tuple(case['mask'].shape)} (tile, chunk) pairs, "
+                    f"masked = all-ones {same_ones}")
+            require(same_ones, f"{name}: the masked winners equal the "
+                               f"all-ones mask's, kernel and plain")
+            record[f"{name}_keep_rate"] = keep_rate
+        torch.cuda.synchronize()
+        mis = int((got != want).sum())
+        same = torch.equal(got, again)
+        hits = float((got >= 0).float().mean())
+        say(f"{name} (T={case['consts'].shape[0]}, {case['H']}^2): winner "
+            f"mismatches {mis}, two calls identical {same}, covered pixels "
+            f"{hits:.4f}, distinct winners {int(torch.unique(got).numel())}"
+            f"{line}")
+        require(mis == 0, f"{name}: 0 winner mismatches")
+        require(same, f"{name}: two kernel calls identical")
+        require(0.1 < hits, f"{name}: pixels covered")
+        key = "k8b" if case["mask"] is None else "k8c"
+        winner_err[key] = max(winner_err[key],
+                              int((got.long() - want.long()).abs().max()))
+        record[f"winner_{name}"] = dict(mismatch=mis, repeat_equal=same,
+                                        covered=hits)
+
+    say("== phase 13: the rasterizer serving (the CLI defaults against the "
+        "oracle, the rasterize CLI, animate, the view server)")
+    zero_counts()
+    before = kernel_counts()
+    cfg_par = RenderConfig()  # 500x500 parity, the rasterize CLI's defaults
+    out = rasterize_full(cornell_box(device=dev),
+                         Camera.rasterizer_default(device=dev),
+                         Lights.single(capacity=1, device=dev), cfg_par)
+    img = out.image.cpu().numpy()
+    fd = out.focal_distances.cpu().numpy()
+    require(img.shape == (500, 500, 3) and np.isfinite(img).all()
+            and img.max() > 0.3, "a finite, lit (500, 500, 3) parity frame")
+    t0 = time.perf_counter()
+    img_o, fd_o, _ = rasterizer_oracle.render(cornell_box_numpy(), width=500,
+                                              height=500)
+    diff = np.abs(quantize_u8(img).astype(int)
+                  - quantize_u8(img_o).astype(int)).max(axis=-1)
+    exact = float((diff == 0).mean())
+    fd_err = float(np.abs(fd - fd_o).max())
+    say(f"parity 500^2 vs the rasterizer oracle ({time.perf_counter() - t0:.1f}"
+        f" s): u8 max step {int(diff.max())}, exact pixels {exact:.6f}, "
+        f"max |d focal distance| {fd_err:.3g}")
+    require(int(diff.max()) <= 1 and exact >= RASTER_EXACT_FRAC,
+            "u8 within 1 everywhere and >= 99.99% exact")
+    require(fd_err < RASTER_FD_ATOL, "focal distances within 1e-5")
+    bmp = OUT / "raster_parity.bmp"
+    cli_main(["rasterize", "-o", str(bmp)])
+    require(np.array_equal(read_bmp(str(bmp)), quantize_u8(img)),
+            "the rasterize CLI writes the same parity frame")
+    par_launches = delta(before, kernel_counts())
+    say(f"parity frame and CLI: launches {par_launches}")
+    require(par_launches == {}, "parity mode launches no kernel")
+    record["raster_oracle"] = dict(exact=exact, max_step=int(diff.max()),
+                                   fd_err=fd_err)
+
+    for flags, want, bmp_name in (
+            (["--mode", "clean"], {"raster_winner": 1}, "raster_clean.bmp"),
+            (["--mode", "clean", "--stl", str(stl_path)],
+             {"raster_winner_masked": 1}, "raster_stl.bmp")):
+        before = kernel_counts()
+        cli_main(["rasterize", *flags, "-o", str(OUT / bmp_name)])
+        got = delta(before, kernel_counts())
+        frame_u8 = read_bmp(str(OUT / bmp_name))
+        lit = float((frame_u8.max(axis=-1) > 0).mean())
+        say(f"rasterize CLI {' '.join(flags[:2])}"
+            f"{' --stl' if '--stl' in flags else ''}: {frame_u8.shape}, lit "
+            f"{lit:.4f}, launches {got}")
+        require(frame_u8.shape == (500, 500, 3) and 0.2 < lit
+                and frame_u8.max() > 80, f"a lit {bmp_name}")
+        require(got == want, f"{bmp_name}: launches {want}")
+    before = kernel_counts()
+    try:
+        cli_main(["rasterize", "--stl", str(stl_path), "-o",
+                  str(OUT / "raster_stl_parity.bmp")])
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    say(f"rasterize CLI --stl in parity mode: ValueError {refused!r} "
+        f"(ROADMAP fault F8)")
+    require("not a multiple of 64" in refused
+            and delta(before, kernel_counts()) == {},
+            "parity refuses the 9,028-triangle mesh before any launch")
+
+    before = kernel_counts()
+    keys = expand_script("left*2,up*2,w*2,a*2")
+    res = animate(cornell_box(pad_to=32, device=dev),
+                  Camera.rasterizer_default(device=dev),
+                  Lights.single(capacity=1, device=dev),
+                  RenderConfig(mode="clean"), keys, renderer="rasterize")
+    got = delta(before, kernel_counts())
+    say(f"animate, clean rasterizer: {res.n_frames} frames, "
+        f"{res.ms_per_frame:.3f} ms/frame host clock, launches {got}")
+    require(got == {"raster_winner": 8}, "one K8b a frame")
+    require(all(bool(torch.isfinite(f).all()) and float(f.max()) > 0.3
+                for f in res.frames), "finite, lit frames")
+    require(not torch.equal(res.frames[0], res.frames[-1]),
+            "the key script moves the view")
+
+    app = ViewerApp(cornell_box(device=dev),
+                    Camera.make((0.0, 0.0, -3.0), focal=500.0,
+                                dof_focus=1.9, device=dev),
+                    Lights.single(capacity=32, soft_samples=16, device=dev),
+                    RenderConfig(mode="clean"), renderer="rasterize", seed=0)
+    server = serve(app, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    k8b = "raster_winner"
+    # (request, status, launches): every frame one K8b; keys 7, 8 and 9
+    # change settings the clean rasterizer ignores; key 0 is item 6.
+    requests = [("/", 200, {}), ("/frame.bmp", 200, {k8b: 1}),
+                ("/key?k=up", 200, {k8b: 1}), ("/key?k=left", 200, {k8b: 1}),
+                ("/key?k=w", 200, {k8b: 1}), ("/key?k=7", 200, {k8b: 1}),
+                ("/key?k=8", 200, {k8b: 1}), ("/key?k=9", 200, {k8b: 1}),
+                ("/key?k=2", 200, {k8b: 1}), ("/key?k=3", 200, {k8b: 1}),
+                ("/key?k=0", 501, {}), ("/frame.bmp", 200, {}),
+                ("/state", 200, {})]
+    try:
+        for path, want_status, want in requests:
+            before = kernel_counts()
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(base + path, timeout=300) as r:
+                    status, body = r.status, r.read()
+            except urllib.error.HTTPError as exc:
+                status, body = exc.code, exc.read()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = delta(before, kernel_counts())
+            say(f"GET {path}: {status}, {len(body)} bytes, {ms:.1f} ms, "
+                f"launches {got}")
+            require(status == want_status, f"{path} answered {want_status}")
+            require(got == want, f"{path} launches {want}")
+            require(app._frame is None or np.isfinite(app._frame).all(),
+                    "finite frames")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    state = json.loads(body)
+    require(state["renderer"] == "rasterize" and state["lights"] == 1
+            and state["dof"] and state["aa"], "the viewer's state follows "
+            "the keys")
+    raster_serve = kernel_counts()  # zeroed where phase 13 began
+    say(f"rasterizer serving path launches: {raster_serve}")
+    require(raster_serve[k8b] > 0 and raster_serve["raster_winner_masked"] > 0
+            and not any(v for k, v in raster_serve.items()
+                        if not k.startswith("raster_")),
+            "the rasterizer's serving path launched K8b and K8c and no "
+            "raytracer kernel")
+
+    say("== phase 14: the raster train step (the bench's step, 512^2 "
+        "clean) and card numbers")
+    scene_r, camera_r, lights_r, cfg_r = raster_bench_frame(dev, 512)
+    step_r = train_step(scene_r, camera_r, lights_r, cfg_r, 1e-9,
+                        target_scale=0.9, render=rasterize)
+    zero_counts()
+    losses = [step_r() for _ in range(3)]
+    raster_train = kernel_counts()
+    say(f"3 steps, loss {float(losses[0]):.6g} -> {float(losses[-1]):.6g}; "
+        f"train path launches: {raster_train}")
+    require(raster_train[k8b] == 3
+            and not any(v for k, v in raster_train.items() if k != k8b),
+            "each step launches K8b once and no other kernel")
+    for value in (scene_r, lights_r):
+        for name, leaf in vars(value).items():
+            require(leaf.grad is None or bool(torch.isfinite(leaf.grad).all()),
+                    f"finite gradient of {name}")
+    require(all(float(leaf.grad.abs().max()) > 0.0 for leaf in (
+        scene_r.v0, scene_r.color, lights_r.position, lights_r.color)),
+        "vertices, albedo, light position and color take a gradient")
+    require(scene_r.active.grad is None or not scene_r.active.grad.any(),
+            "no gradient of Scene.active")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_r()
+    torch.cuda.synchronize()
+    raster_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def clean_frame():
+        with torch.no_grad():
+            return rasterize(scene_r, camera_r, lights_r, cfg_r)
+
+    scene_p = cornell_box(device=dev)
+    camera_p = Camera.rasterizer_default(device=dev)
+    lights_p = Lights.single(capacity=1, device=dev)
+    scene_s, camera_s, lights_s, cfg_s = stl_frame(dev, stl_path, 500)
+
+    def parity_frame():
+        return rasterize(scene_p, camera_p, lights_p, cfg_par)
+
+    def stl_clean_frame():
+        return rasterize(scene_s, camera_s, lights_s, cfg_s)
+
+    raster_ms = median_ms_in_turns({"frame": clean_frame, "step": step_r},
+                                   n=1, reps=31)
+    raster_ms.update(median_ms_in_turns({"stl_frame": stl_clean_frame},
+                                        n=1, reps=11))
+    raster_ms.update(median_ms_in_turns({"parity_frame": parity_frame},
+                                        n=1, reps=5))
+    busy_r = device_busy(step_r, steps=10)
+    k8b_case, k8c_case = rcases["k8b_512_bench"], rcases["k8c_500_stl"]
+    idx_b = torch.empty(512 * 512, dtype=torch.int32, device=dev)
+    idx_c = torch.empty(500 * 500, dtype=torch.int32, device=dev)
+    k8b_ms = median_ms_in_turns({
+        "kernel": lambda: raster.launch_winner_kernel(
+            k8b_case["consts"], 512, 512, idx_b),
+        "plain": lambda: plain_winner(k8b_case),
+    }, n=5, reps=9, timer=held_ms)
+    k8c_ms = median_ms_in_turns({
+        "kernel": lambda: raster.launch_winner_masked_kernel(
+            k8c_case["consts"], 500, 500, k8c_case["mask"],
+            k8c_case["chunk"], idx_c),
+    }, n=5, reps=9, timer=held_ms)
+    # The plain K8c makes ~20 launches a chunk, 71 chunks: more than the
+    # stream holds while a sleep blocks it, so it is timed back to back.
+    k8c_ms.update(median_ms_in_turns({"plain": lambda: plain_winner(
+        k8c_case)}, n=1, reps=3))
+    k8b_bound, k8c_bound = winner_bound(k8b_case), winner_bound(k8c_case)
+    card = card_line()
+    def valid_rows(case):
+        return int((case["consts"][:, 12] > 0.0).sum())
+
+    say(f"K8b alone, 512^2 clean, T={k8b_case['consts'].shape[0]} "
+        f"({valid_rows(k8b_case)} valid): {k8b_ms['kernel']:.4f} ms device "
+        f"time (plain {k8b_ms['plain']:.4f} ms; bound {k8b_bound[0]:.4f} ms, "
+        f"{k8b_bound[1]}) ({card})")
+    say(f"K8c alone, 500^2 clean STL, T={k8c_case['consts'].shape[0]} "
+        f"({valid_rows(k8c_case)} valid), keep "
+        f"rate {record['k8c_500_stl_keep_rate']:.4f}: {k8c_ms['kernel']:.4f} "
+        f"ms device time (plain {k8c_ms['plain']:.4f} ms back to back; bound "
+        f"{k8c_bound[0]:.4f} ms, {k8c_bound[1]}) ({card})")
+    say(f"raster 512^2 clean (CUDA events, median of 31): frame "
+        f"{raster_ms['frame']:.4f} ms, train step {raster_ms['step']:.4f} ms;"
+        f" 500^2 clean STL frame {raster_ms['stl_frame']:.4f} ms (median of "
+        f"11); 500^2 parity frame {raster_ms['parity_frame']:.4f} ms (median "
+        f"of 5); peak memory of a step {raster_peak_gb:.3f} GB ({card})")
+    say(f"profile of 10 raster steps: device busy {busy_r['busy_ms']:.4f} ms "
+        f"a step in {busy_r['kernels']} device events; {busy_r['wall_ms']:.4f}"
+        f" ms a step on the host clock under the profiler (share "
+        f"{busy_r['share']})")
+    for name, ms in busy_r["by_name"][:8]:
+        say(f"  {ms:.5f} ms  {name[:100]}")
+    record.update(raster_serve=raster_serve, raster_train=raster_train,
+                  raster_ms=raster_ms, raster_profile=busy_r,
+                  raster_peak_gb=raster_peak_gb, k8b_ms=k8b_ms,
+                  k8c_ms=k8c_ms, k8b_bound=k8b_bound, k8c_bound=k8c_bound,
+                  winner_err=winner_err)
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
     say(card)
@@ -1030,6 +1437,19 @@ def main() -> int:
              launches=full_launches[k6], max_abs_err=sweep_err[True],
              ms=k6_ms["kernel"], plain_ms=k6_ms["plain"],
              bound_ms=k6_bound[0], bound_by=k6_bound[1], library_ms=None),
+        dict(name="raster_winner", route="cuda",
+             source="raytpu_torch/csrc/raster.cu",
+             replaces="raytpu/kernels/raster_pallas.py:90",
+             launches=raster_serve[k8b], max_abs_err=winner_err["k8b"],
+             ms=k8b_ms["kernel"], plain_ms=k8b_ms["plain"],
+             bound_ms=k8b_bound[0], bound_by=k8b_bound[1], library_ms=None),
+        dict(name="raster_winner_masked", route="cuda",
+             source="raytpu_torch/csrc/raster.cu",
+             replaces="raytpu/kernels/raster_pallas.py:178",
+             launches=raster_serve["raster_winner_masked"],
+             max_abs_err=winner_err["k8c"], ms=k8c_ms["kernel"],
+             plain_ms=k8c_ms["plain"], bound_ms=k8c_bound[0],
+             bound_by=k8c_bound[1], library_ms=None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

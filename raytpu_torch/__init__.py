@@ -7,11 +7,15 @@ device go through those kernels; tensors on the CPU go through their plain
 PyTorch versions. This package never imports jax.
 
 Public API:
-  raytrace(scene, camera, lights, cfg) -> image (H, W, 3) float32 tensor
+  raytrace(scene, camera, lights, cfg)  -> image (H, W, 3) float32 tensor
+  rasterize(scene, camera, lights, cfg) -> image (H, W, 3) float32 tensor
+  load_stl(path, *, device)             -> Scene of an ASCII STL model
 """
 
 from raytpu_torch.core.cornell import cornell_box
+from raytpu_torch.core.stl import load_stl
 from raytpu_torch.core.types import Camera, Lights, RenderConfig, Scene
+from raytpu_torch.render.rasterize import rasterize
 from raytpu_torch.render.raytrace import raytrace
 
 __version__ = "0.1.0"
@@ -22,5 +26,7 @@ __all__ = [
     "RenderConfig",
     "Scene",
     "cornell_box",
+    "load_stl",
+    "rasterize",
     "raytrace",
 ]

@@ -1,12 +1,14 @@
 """raytpu-torch command-line interface (counterpart of raytpu/cli/main.py).
 
-  raytpu-torch render — raytrace the Cornell box to a BMP
-  raytpu-torch view   — the live viewer over localhost HTTP
+  raytpu-torch render    — raytrace the Cornell box to a BMP
+  raytpu-torch rasterize — rasterize the Cornell box or an ASCII STL model
+                           to a BMP (ref: the rasteriser binary)
+  raytpu-torch view      — the live viewer over localhost HTTP
 
-The render flags and their defaults are the JAX package's; ``--device``
-picks where the frame is rendered (default ``cuda``: a run with no GPU
-fails instead of carrying on on the CPU). STL scenes (``--stl``), mode
-'soft' and the viewer's rasterizer raise NotImplementedError naming their
+The flags and their defaults are the JAX package's; ``--device`` picks
+where the frame is rendered (default ``cuda``: a run with no GPU fails
+instead of carrying on on the CPU). Mode 'soft' and the raytracer's STL
+scenes (``render --stl``) raise NotImplementedError naming their
 ROADMAP.md item.
 """
 
@@ -16,7 +18,7 @@ import argparse
 import sys
 
 
-def _render_flags(p: argparse.ArgumentParser):
+def _render_flags(p: argparse.ArgumentParser, rasterizer: bool = False):
     p.add_argument("-o", "--output", default="screenshot.bmp",
                    help="output BMP path (ref: SDL_SaveBMP on exit)")
     p.add_argument("--width", type=int, default=500)
@@ -25,13 +27,15 @@ def _render_flags(p: argparse.ArgumentParser):
                    default="parity")
     p.add_argument("--stl", default=None,
                    help="render an ASCII STL model instead of the Cornell "
-                        "box (not ported yet)")
+                        "box (ref CUSTOM_MODEL, `rasteriser.cpp:20`; the "
+                        "raytracer's is not ported yet)")
     p.add_argument("--morton", action="store_true",
                    help="Morton-sort STL triangles (with --stl)")
     p.add_argument("--camera-pos", type=float, nargs=3, default=None)
     p.add_argument("--yaw", type=float, default=0.0)
     p.add_argument("--focal", type=float, default=None,
-                   help="focal length in pixels (ref: 250)")
+                   help="focal length in pixels (ref: 250 raytracer / 500 "
+                        "rasteriser)")
     p.add_argument("--light-pos", type=float, nargs=3,
                    default=(0.0, -0.5, -0.7))
     p.add_argument("--light-color", type=float, nargs=3,
@@ -45,18 +49,30 @@ def _render_flags(p: argparse.ArgumentParser):
     p.add_argument("--dof-kernel", type=int, default=8)
     p.add_argument("--dof-focus", type=float, default=None,
                    help="DoF focus distance (ref FOCAL_LENGTH, keys [ ])")
-    p.add_argument("--aa", type=int, default=1, metavar="N",
-                   help="NxN supersample AA (ref key 7, AA_SAMPLES=3)")
-    p.add_argument("--soft-shadows", type=int, default=1, metavar="S",
-                   help="soft-shadow samples (ref key 8, 16 samples)")
+    if rasterizer:
+        p.add_argument("--no-backface-cull", action="store_true",
+                       help="disable backface culling (ref key 7)")
+        p.add_argument("--no-frustum-cull", action="store_true",
+                       help="disable frustum culling (ref key 8)")
+    else:
+        p.add_argument("--aa", type=int, default=1, metavar="N",
+                       help="NxN supersample AA (ref key 7, AA_SAMPLES=3)")
+        p.add_argument("--soft-shadows", type=int, default=1, metavar="S",
+                       help="soft-shadow samples (ref key 8, 16 samples)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
 
 
-def _build_inputs(args):
+def _build_inputs(args, rasterizer: bool = False):
+    """Scene, camera, lights and RenderConfig from the flags, with the
+    raytracer's or the rasteriser's defaults: focal 250 / 500, camera
+    (0, 0, -2) / (0, 0, -3) ((0, -0.5, -5) for an STL model,
+    `rasteriser.cpp:109`), DoF focus 1.3 / 1.9, and the rasteriser's
+    y_scale 1.01 in parity mode only."""
     import torch
 
     from raytpu_torch.core.cornell import cornell_box
+    from raytpu_torch.core.stl import load_stl
     from raytpu_torch.core.types import Camera, Lights, RenderConfig
 
     device = torch.device(args.device)
@@ -64,29 +80,41 @@ def _build_inputs(args):
         raise SystemExit("raytpu-torch: --device cuda but no CUDA device is "
                          "available (pass --device cpu to render on the CPU)")
     if args.stl:
-        raise NotImplementedError(
-            "--stl: STL scenes are ROADMAP.md port item 4 (STL scale)")
-    scene = cornell_box(device=device)
+        if not rasterizer:
+            raise NotImplementedError(
+                "--stl with the raytracer: ROADMAP.md port item 4 (STL "
+                "scale)")
+        scene = load_stl(args.stl, reorder="morton" if args.morton else None,
+                         device=device)
+        default_cam = (0.0, -0.5, -5.0)
+    else:
+        scene = cornell_box(device=device)
+        default_cam = (0.0, 0.0, -3.0) if rasterizer else (0.0, 0.0, -2.0)
     camera = Camera.make(
-        args.camera_pos or (0.0, 0.0, -2.0), yaw=args.yaw,
-        focal=args.focal if args.focal is not None else 250.0,
-        dof_focus=args.dof_focus if args.dof_focus is not None else 1.3,
+        args.camera_pos or default_cam, yaw=args.yaw,
+        focal=args.focal if args.focal is not None else (
+            500.0 if rasterizer else 250.0),
+        y_scale=1.01 if (rasterizer and args.mode == "parity") else 1.0,
+        dof_focus=args.dof_focus if args.dof_focus is not None else (
+            1.9 if rasterizer else 1.3),
         device=device,
     )
     extra = args.add_light or []
-    soft_samples = max(args.soft_shadows, 1)
+    soft_shadows = getattr(args, "soft_shadows", 1)
     lights = Lights.single(
         position=args.light_pos, color=args.light_color,
         intensity=args.light_intensity, capacity=1 + len(extra),
-        soft_samples=soft_samples, device=device,
+        soft_samples=max(soft_shadows, 1), device=device,
     )
     for i, l in enumerate(extra):
         lights = lights.add(l[:3], l[3:6], l[6],
                             generator=torch.Generator().manual_seed(i + 1))
     cfg = RenderConfig(
         width=args.width, height=args.height, mode=args.mode,
-        aa_samples=args.aa, soft_shadow_samples=args.soft_shadows,
+        aa_samples=getattr(args, "aa", 1), soft_shadow_samples=soft_shadows,
         dof_enabled=args.dof, dof_kernel_size=args.dof_kernel,
+        backface_cull=not getattr(args, "no_backface_cull", False),
+        frustum_cull=not getattr(args, "no_frustum_cull", False),
     )
     return scene, camera, lights, cfg
 
@@ -102,13 +130,25 @@ def cmd_render(args):
           f"{scene.device})")
 
 
+def cmd_rasterize(args):
+    from raytpu_torch.core.image import write_bmp
+    from raytpu_torch.render.rasterize import rasterize
+
+    scene, camera, lights, cfg = _build_inputs(args, rasterizer=True)
+    img = rasterize(scene, camera, lights, cfg).cpu().numpy()
+    write_bmp(args.output, img)
+    print(f"wrote {args.output} ({cfg.width}x{cfg.height}, {cfg.mode}, "
+          f"{scene.num_triangles} triangles, {scene.device})")
+
+
 def cmd_view(args):
     import torch
 
     from raytpu_torch.core.types import Lights
     from raytpu_torch.view import ViewerApp, serve
 
-    scene, camera, _lights, cfg = _build_inputs(args)
+    scene, camera, _lights, cfg = _build_inputs(
+        args, rasterizer=args.renderer == "rasterize")
     # The reference's 32-slot light bank (raytracer.cpp:47), so key 2 can
     # spawn lights, each with the 16 jittered positions key 8 asks for
     # (SOFT_SHADOWS_SAMPLES, raytracer.cpp:40-41).
@@ -137,12 +177,16 @@ def cmd_view(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="raytpu-torch",
-        description="PyTorch/CUDA port of the raytpu raytracer",
+        description="PyTorch/CUDA port of the raytpu raytracer and "
+                    "rasterizer",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("render", help="raytrace to a BMP")
     _render_flags(p)
     p.set_defaults(func=cmd_render)
+    p = sub.add_parser("rasterize", help="rasterize to a BMP")
+    _render_flags(p, rasterizer=True)
+    p.set_defaults(func=cmd_rasterize)
     p = sub.add_parser("view", help="live interactive viewer (browser "
                                     "framebuffer; the reference's realtime "
                                     "SDL loop)")

@@ -47,6 +47,24 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
 
 
+def matmul3(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``a @ m`` for a (..., 3) and m (3, 3), each output summed left to
+    right in float32: the same bits on every device (a library matmul may
+    fuse or reorder its products)."""
+    return (a[..., 0:1] * m[0] + a[..., 1:2] * m[1]) + a[..., 2:3] * m[2]
+
+
+def pixel_grid(height: int, width: int, device):
+    """Integer pixel coordinates (x, y) as float32 (H*W,) grids,
+    row-major."""
+    ys, xs = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(width, dtype=torch.float32, device=device),
+        indexing="ij",
+    )
+    return xs.reshape(-1), ys.reshape(-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """Triangle soup as struct-of-arrays (raytpu.core.types.Scene).
@@ -174,6 +192,13 @@ class Camera:
         """`raytracer.cpp:67-70`: f=250, pos (0,0,-2), DoF focus 1.3."""
         return Camera.make((0.0, 0.0, -2.0), focal=250.0, dof_focus=1.3,
                            device=device)
+
+    @staticmethod
+    def rasterizer_default(*, device) -> "Camera":
+        """`rasteriser.cpp:39-41`: f=500, pos (0,0,-3), y_scale 1.01
+        (`rasteriser.cpp:115`), DoF focus 1.9 (`rasteriser.cpp:31`)."""
+        return Camera.make((0.0, 0.0, -3.0), focal=500.0, y_scale=1.01,
+                           dof_focus=1.9, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -49,6 +49,10 @@ SIGNATURES = {
     # dirs, table, cam, src, C, S, R, t, idx, occ, stream
     "raytpu_closest_hit_occluded_multi": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                           _P, _P],
+    # consts, T, H, W, idx, stream
+    "raytpu_raster_winner": [_P, _I, _I, _I, _P, _P],
+    # consts, T, chunk, mask, H, W, idx, stream
+    "raytpu_raster_winner_masked": [_P, _I, _I, _P, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

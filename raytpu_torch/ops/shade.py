@@ -140,6 +140,33 @@ def direct_light(hit_pos: torch.Tensor, hit_idx: torch.Tensor, scene: Scene,
     return result2
 
 
+def irradiance_no_shadow(world: torch.Tensor, n_dir: torch.Tensor,
+                         lights: Lights) -> torch.Tensor:
+    """Direct irradiance per point with NO occlusion test: the rasteriser's
+    lighting model (`rasteriser.cpp:567-584`). world, n_dir (..., 3);
+    returns (..., 3). Light by light in the bank's order, with the same
+    r = 0 guards as direct_light."""
+    result = None
+    for k in range(lights.capacity):
+        delta = world - lights.position[k]
+        r2 = dot3(delta, delta)
+        lit = r2 > 0.0
+        r2s = torch.where(lit, r2, 1.0)
+        r = torch.sqrt(r2s)
+        A = FOUR_PI * r2s
+        light_color = lights.color[k] * lights.intensity[k]
+        r_dir = -delta / r[..., None]
+        lam = dot3(r_dir, n_dir)
+        lam = torch.maximum(lam, torch.zeros_like(lam))
+        term = lights.mask[k] * torch.where(
+            lit[..., None], (light_color / A[..., None]) * lam[..., None], 0.0)
+        # JAX starts from zeros; 0 + x is x.
+        result = term if result is None else result + term
+    if result is None:
+        return torch.zeros_like(world)
+    return result
+
+
 def composite(direct: torch.Tensor, albedo: torch.Tensor, hit: torch.Tensor,
               cfg: RenderConfig) -> torch.Tensor:
     """Final per-ray color (`raytracer.cpp:583-591`); misses are black.

@@ -31,7 +31,13 @@ from typing import NamedTuple
 
 import torch
 
-from raytpu_torch.core.types import Camera, Lights, RenderConfig, Scene
+from raytpu_torch.core.types import (
+    Camera,
+    Lights,
+    RenderConfig,
+    Scene,
+    pixel_grid,
+)
 from raytpu_torch.kernels import render_fused
 from raytpu_torch.kernels.intersect import (
     intersect_occluded,
@@ -53,16 +59,6 @@ from raytpu_torch.ops.shade import composite, direct_light, source_positions
 class RenderOut(NamedTuple):
     image: torch.Tensor            # (H, W, 3) float32
     focal_distances: torch.Tensor  # (H, W) float32 (distance - dof_focus)
-
-
-def pixel_grid(cfg: RenderConfig, device):
-    """Integer pixel coordinates as float32 (H*W,) grids, row-major."""
-    ys, xs = torch.meshgrid(
-        torch.arange(cfg.height, dtype=torch.float32, device=device),
-        torch.arange(cfg.width, dtype=torch.float32, device=device),
-        indexing="ij",
-    )
-    return xs.reshape(-1), ys.reshape(-1)
 
 
 def camera_ray_dirs(xs: torch.Tensor, ys: torch.Tensor, camera: Camera,
@@ -115,7 +111,7 @@ def fused_inputs(scene: Scene, camera: Camera, lights: Lights,
     """The positional arguments of render_fused.render_hard_fused for a
     frame: ray directions, both constant sets, normals, albedo and the
     single light's parameters (``lights`` compacted to one slot)."""
-    xs, ys = pixel_grid(cfg, scene.device)
+    xs, ys = pixel_grid(cfg.height, cfg.width, scene.device)
     consts = tri_constants(scene, camera.pos)
     consts_light = tri_constants(scene, lights.position[0])
     p_eff = lights.mask[0] * (lights.color[0] * lights.intensity[0])
@@ -151,7 +147,7 @@ def _loop_branch(scene: Scene, camera: Camera, lights: Lights,
                  cfg: RenderConfig) -> RenderOut:
     """The loop branch of the JAX package's ``_raytrace_full``
     (`render/raytrace.py:152-274`), one intersection launch a sub-ray."""
-    xs, ys = pixel_grid(cfg, scene.device)
+    xs, ys = pixel_grid(cfg.height, cfg.width, scene.device)
     consts = tri_constants(scene, camera.pos)
     offsets = _subpixel_offsets(cfg)
     parity_record = cfg.mode == "parity" and len(offsets) > 1

@@ -1,0 +1,142 @@
+"""The hard limit of the soft rasterizer (counterpart of the hard-limit
+pieces of raytpu/render/soft.py): ``rasterize_exact``, the float-precise
+hard rasterizer of mode 'clean'.
+
+Screen vertices are floats (no truncation); a pixel's winner is the first
+triangle with the largest covered zinv at its integer corner, found by the
+raster kernels (raytpu_torch.kernels.raster: K8b for one chunk, K8c for
+several) on constants computed from detached tensors: the winner is
+piecewise constant. Only the winner's attributes are then recomputed
+(``_shade_winner``) and shaded without shadows, and autograd
+differentiates that recompute, as ``jax.grad`` does through the JAX
+package's stop_gradient'ed winner.
+
+The soft renderers themselves (``rasterize_soft``, ``raytrace_soft``) are
+ROADMAP.md port item 6.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytpu_torch.core.types import (
+    Camera,
+    Lights,
+    RenderConfig,
+    Scene,
+    matmul3,
+    pixel_grid,
+)
+from raytpu_torch.kernels.raster import raster_tri_constants, resolve_winner
+from raytpu_torch.ops.intersect import gather_rows, one_hot_idx
+from raytpu_torch.ops.raster import cull_mask, glm_inverse3
+from raytpu_torch.ops.shade import irradiance_no_shadow
+
+
+def _not_ported(name: str):
+    raise NotImplementedError(
+        f"{name} (mode 'soft'): ROADMAP.md port item 6 (soft renderers)")
+
+
+def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
+                   cfg: RenderConfig) -> torch.Tensor:
+    """Not ported yet: ROADMAP.md port item 6."""
+    _not_ported("rasterize_soft")
+
+
+def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
+                  cfg: RenderConfig) -> torch.Tensor:
+    """Not ported yet: ROADMAP.md port item 6."""
+    _not_ported("raytrace_soft")
+
+
+def _screen_vertices(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """Float screen coordinates (no truncation), zinv and pos3d of every
+    vertex: sx, sy, zinv (T, 3) and pos3d (T, 3, 3)."""
+    verts = torch.stack([scene.v0, scene.v1, scene.v2], dim=1)
+    pos = matmul3(verts - camera.pos, camera.rotation())
+    zinv = 1.0 / pos[..., 2]
+    sx = camera.focal * pos[..., 0] * zinv + cfg.width / 2.0
+    sy = camera.focal * pos[..., 1] * zinv + cfg.height / 2.0
+    return sx, sy, zinv, pos * zinv[..., None]
+
+
+def rasterize_exact(scene: Scene, camera: Camera, lights: Lights,
+                    cfg: RenderConfig) -> torch.Tensor:
+    """The float-precise HARD rasterizer; returns (H, W, 3).
+
+    A pixel is covered where its signed distance is >= 0; the largest
+    covered zinv > 0 wins (background where none, the cleared depth
+    buffer). The reference's backface culling applies (`rasteriser.cpp:
+    404-412`); frustum culling stays parity-only, as in the JAX package.
+    DoF is not applied (ROADMAP fault F9, as in the JAX package).
+    """
+    H, W = cfg.height, cfg.width
+    sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
+    px, py = pixel_grid(H, W, sx.device)  # the integer pixel corners
+    with torch.no_grad():
+        keep = cull_mask(scene, camera, cfg.replace(frustum_cull=False))
+        consts = raster_tri_constants(sx, sy, zinv, keep)
+        winner = resolve_winner(consts, H, W, screen_verts=(sx, sy, zinv))
+    img = _shade_winner(winner, px, py, sx, sy, zinv, pos3d, scene, camera,
+                        lights, cfg)
+    return img.reshape(H, W, 3)
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)``: maximum then minimum, each passing half the
+    gradient on a tie, as JAX's do."""
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x)),
+                         torch.ones_like(x))
+
+
+def _shade_winner(winner, px, py, sx, sy, zinv, pos3d, scene: Scene,
+                  camera: Camera, lights: Lights,
+                  cfg: RenderConfig) -> torch.Tensor:
+    """Shade each pixel's winning triangle only: its barycentrics and
+    attributes recomputed per pixel (O(R), not O(R T)), then the clean
+    PixelShader. winner (R,) int32, -1 for background; returns (R, 3).
+
+    Up to T = 1024 the winner's rows come from one (R, T) one-hot product,
+    as in the JAX package; above that, where the one-hot would not fit,
+    from indexing. Both give each row exactly, but indexing's backward on
+    CUDA (an accumulating index_put) walks a row's duplicate indices in
+    turn: on an H100 it took 44 ms of a 512^2 Cornell train step, where
+    ~12k pixels share each winning row, against 1.8 ms for the whole
+    step's device work with the one-hot product."""
+    hit = winner >= 0
+    T = sx.shape[0]
+    if T <= 1024:
+        g = gather_rows(one_hot_idx(winner, T), torch.cat(
+            [sx, sy, zinv, pos3d.reshape(T, 9), scene.normals(),
+             scene.color], dim=1))
+        vx, vy, vz = g[:, 0:3], g[:, 3:6], g[:, 6:9]
+        vp = g[:, 9:18].reshape(-1, 3, 3)
+        n_dir, albedo = g[:, 18:21], g[:, 21:24]
+    else:
+        safe = winner.clamp_min(0).long()
+        vx, vy, vz, vp = sx[safe], sy[safe], zinv[safe], pos3d[safe]
+        n_dir, albedo = scene.normals()[safe], scene.color[safe]
+
+    ax, ay = vx[:, 0], vy[:, 0]
+    bx, by = vx[:, 1], vy[:, 1]
+    cx, cy = vx[:, 2], vy[:, 2]
+    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    area_safe = torch.where(area.abs() > 1e-12, area, 1e-12)
+    l0 = ((bx - px) * (cy - py) - (by - py) * (cx - px)) / area_safe
+    l1 = ((cx - px) * (ay - py) - (cy - py) * (ax - px)) / area_safe
+    l2 = 1.0 - l0 - l1
+    l0c, l1c, l2c = _clip01(l0), _clip01(l1), _clip01(l2)
+    lsum = l0c + l1c + l2c + 1e-12
+    l0c, l1c, l2c = l0c / lsum, l1c / lsum, l2c / lsum
+
+    zpx = l0c * vz[:, 0] + l1c * vz[:, 1] + l2c * vz[:, 2]
+    ppx = (l0c[:, None] * vp[:, 0] + l1c[:, None] * vp[:, 1]
+           + l2c[:, None] * vp[:, 2])
+    inv_rot = glm_inverse3(camera.rotation())
+    zsafe = torch.where(zpx.abs() > 1e-12, zpx, 1e-12)
+    world = matmul3(ppx / zsafe[:, None], inv_rot) + camera.pos
+    irr = irradiance_no_shadow(world, n_dir, lights)
+    color = albedo * (irr + float(np.float32(cfg.ambient)))
+    return torch.where(hit[:, None], color, 0.0)

@@ -211,14 +211,15 @@ def _sweep_inputs(device, size, n_lights, samples, offset=(0.0, 0.0),
     """The intersection kernels' arguments for one sub-ray of a frame."""
     from raytpu_torch.ops.intersect import tri_constants
     from raytpu_torch.ops.shade import source_positions
-    from raytpu_torch.render.raytrace import camera_ray_dirs, pixel_grid
+    from raytpu_torch.core.types import pixel_grid
+    from raytpu_torch.render.raytrace import camera_ray_dirs
     scene = cornell_box(pad_to=pad_to, device=device)
     camera = Camera.make(pos, yaw=yaw, device=device)
     cfg = RenderConfig(width=size, height=size)
     lights = Lights.single(capacity=n_lights, soft_samples=16, device=device)
     if n_lights == 2:
         lights = lights.add((0.4, -0.5, -0.7), (1.0, 1.0, 1.0), 7.0)
-    xs, ys = pixel_grid(cfg, device)
+    xs, ys = pixel_grid(size, size, device)
     dirs = camera_ray_dirs(xs + offset[0], ys + offset[1], camera, cfg)
     c = tri_constants(scene, camera.pos)
     src = source_positions(lights, samples)
@@ -309,3 +310,130 @@ def test_loop_branch_on_gpu_matches_cpu(cuda, n_lights, samples, kernel):
         for field in want_g:
             np.testing.assert_allclose(got_g[field], want_g[field], rtol=1e-4,
                                        atol=1e-5, err_msg=field)
+
+
+def _raster_case(device, name, size):
+    """The winner kernels' inputs for a clean frame, as rasterize_exact
+    makes them: the Cornell box padded to 32 (one chunk, K8b) at the
+    rasteriser camera or off the pixel grid, or a procedural STL mesh (9,028
+    or 800 triangles, several chunks, K8c) at the STL camera."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.ops.raster import cull_mask
+    from raytpu_torch.render.soft import _screen_vertices
+    if name.startswith("stl"):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/mesh.stl"
+            with open(path, "w") as f:
+                f.write(procedural_stl_text(*((20, 20) if name == "stl800"
+                                              else ())))
+            scene = load_stl(path, device=device)
+        camera = Camera.make((0.0, -0.5, -5.0), focal=float(size),
+                             device=device)
+    else:
+        scene = cornell_box(pad_to=32, device=device)
+        camera = (Camera.rasterizer_default(device=device)
+                  if name == "cornell" else
+                  Camera.make((0.011, -0.007, -3.013), focal=size + 0.23,
+                              y_scale=1.01, device=device))
+    cfg = RenderConfig(width=size, height=size, mode="clean")
+    sx, sy, zinv, _ = _screen_vertices(scene, camera, cfg)
+    keep = cull_mask(scene, camera, cfg.replace(frustum_cull=False))
+    consts = raster.raster_tri_constants(sx, sy, zinv, keep)
+    mask = raster.chunk_screen_mask(
+        sx, sy, zinv, consts[:, 12], raster.tile_rects(size, size, device),
+        raster.MAX_CHUNK) if consts.shape[0] > raster.MAX_CHUNK else None
+    return consts, mask
+
+
+@pytest.mark.parametrize("name,size", [
+    ("cornell", 512), ("offgrid", 257), ("stl", 500), ("stl800", 129)])
+def test_raster_kernels_match_plain_version(cuda, name, size):
+    """K8b (one chunk) or K8c (several, with the mask and with the mask
+    forced to all ones) against the plain version: identical winners, two
+    calls identical."""
+    from raytpu_torch.kernels import raster
+    consts, mask = _raster_case(cuda, name, size)
+    if mask is None:
+        before = raster.LAUNCHES_WINNER
+        got = raster.raster_winner(consts, size, size)
+        again = raster.raster_winner(consts, size, size)
+        assert raster.LAUNCHES_WINNER == before + 2
+        want = raster.resolve_winner_reference(consts, size, size)
+    else:
+        before = raster.LAUNCHES_WINNER_MASKED
+        got = raster.raster_winner_masked(consts, size, size, mask, 128)
+        again = raster.raster_winner_masked(consts, size, size, mask, 128)
+        ones = torch.ones_like(mask)
+        got_ones = raster.raster_winner_masked(consts, size, size, ones, 128)
+        assert raster.LAUNCHES_WINNER_MASKED == before + 3
+        want = raster.resolve_winner_masked_reference(consts, size, size,
+                                                      mask, 128)
+        assert torch.equal(got_ones, got)
+        assert 0.0 < float(mask.float().mean()) < 1.0
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (size * size,)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert float((got >= 0).float().mean()) > 0.1
+
+
+def test_rasterize_on_gpu_matches_cpu(cuda):
+    """Clean frames (K8b, and K8c on the 800-triangle mesh) and the raster
+    step's gradients on the card against the CPU path."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.render.rasterize import rasterize
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mesh.stl"
+        with open(path, "w") as f:
+            f.write(procedural_stl_text(20, 20))
+
+        def run(device):
+            scene = cornell_box(pad_to=32, device=device)
+            lights = Lights.single(capacity=1, device=device)
+            for t in (*vars(scene).values(), *vars(lights).values()):
+                t.requires_grad_(True)
+            camera = Camera.make((0.011, -0.007, -3.013), focal=64.23,
+                                 y_scale=1.01, device=device)
+            cfg = RenderConfig(width=64, height=64, mode="clean")
+            img = rasterize(scene, camera, lights, cfg)
+            torch.mean((img - 0.3) ** 2).backward()
+            with torch.no_grad():
+                stl = rasterize(load_stl(path, device=device),
+                                Camera.make((0.0, -0.5, -5.0), focal=64.0,
+                                            device=device),
+                                Lights.single(capacity=1, device=device),
+                                cfg)
+            return img.detach(), stl, [convert.grads_to_numpy(v)
+                                       for v in (scene, lights)]
+
+        counts = (raster.LAUNCHES_WINNER, raster.LAUNCHES_WINNER_MASKED)
+        got = run(cuda)
+        assert (raster.LAUNCHES_WINNER, raster.LAUNCHES_WINNER_MASKED) == (
+            counts[0] + 1, counts[1] + 1)
+        want = run("cpu")
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5
+    for got_g, want_g in zip(got[2], want[2]):
+        for field in want_g:
+            np.testing.assert_allclose(got_g[field], want_g[field], rtol=1e-4,
+                                       atol=1e-5, err_msg=field)
+
+
+def test_raster_wrappers_check_their_inputs(cuda):
+    from raytpu_torch.kernels import raster
+    consts, mask = _raster_case(cuda, "stl800", 64)
+    with pytest.raises(ValueError):
+        raster.raster_winner(consts, 64, 64)  # more than one chunk
+    with pytest.raises(ValueError):
+        raster.raster_winner_masked(consts, 64, 64, mask.long(), 128)
+    with pytest.raises(ValueError):
+        raster.raster_winner_masked(consts, 64, 64, mask.cpu(), 128)
+    with pytest.raises(ValueError):
+        raster.raster_winner_masked(consts.double(), 64, 64, mask, 128)
+    with pytest.raises(ValueError):
+        raster.raster_winner_masked(consts, 80, 64, mask, 128)

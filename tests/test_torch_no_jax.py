@@ -15,6 +15,10 @@ import sys
 import raytpu_torch, raytpu_torch.cli.main, raytpu_torch.kernels.render_fused
 import raytpu_torch.render.animate, raytpu_torch.convert
 import raytpu_torch.kernels.intersect, raytpu_torch.view
+import raytpu_torch.kernels.raster, raytpu_torch.ops.raster
+import raytpu_torch.render.rasterize, raytpu_torch.render.soft
+import raytpu_torch.core.stl, raytpu_torch.oracle.raytracer_oracle
+import raytpu_torch.oracle.rasterizer_oracle
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "raytpu.")) or m == "raytpu")
 assert not loaded, loaded

@@ -99,9 +99,13 @@ def test_viewer_refuses_what_is_not_ported():
     assert app.cfg.mode == "clean" and app.frame_n == 0
     with pytest.raises(KeyError):
         app.handle_key("q")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # The rasterizer is ported (tests/test_torch_rasterize.py); an unknown
+    # renderer is refused.
+    assert ViewerApp(app.scene, app.camera, app.lights, app.cfg,
+                     renderer="rasterize").renderer == "rasterize"
+    with pytest.raises(ValueError, match="renderer"):
         ViewerApp(app.scene, app.camera, app.lights, app.cfg,
-                  renderer="rasterize")
+                  renderer="scanline")
 
 
 def test_viewer_http_roundtrip(tmp_path):
