@@ -76,8 +76,8 @@ nonzero without printing a result:
      with ``--stl`` (exactly 1 K8c), each writing a BMP; parity with
      ``--stl`` refusing the mesh (ROADMAP fault F8); an 8-frame animate
      key script with the clean rasterizer (one K8b a frame); the view
-     server with the rasterizer, each request with its launches and key 0
-     answering 501.
+     server with the rasterizer, each request with its launches (its key
+     0 is phase 17's).
  14. the raster train step: 3 SGD steps of the bench's step (512^2 clean,
      Cornell padded to 32, the rasteriser camera, MSE to a fixed target,
      every float leaf of scene and lights): exactly one K8b a step and no
@@ -85,6 +85,38 @@ nonzero without printing a result:
      and step, the 500^2 parity frame, the 500^2 clean STL frame, K8b and
      K8c alone beside their plain versions and bounds, the device-busy
      share and event count of a step and its peak memory.
+ 15. the soft raster forward kernels (K9a, K9b) against their plain
+     versions on the card: the bench's soft_rasterize frame (512^2,
+     Cornell padded to 32, the rasteriser camera, sharpness 40 / 40), the
+     fit's frame (500^2, 30 triangles, the fit CLI's camera, 10 / 20) and
+     the bench's soft_stl frame (the 9,028-triangle mesh padded to 9,216 at
+     512^2, culled) with its keep-mask and with an all-ones mask. agg, m and
+     s within rtol 1e-5 / atol 1e-6, the all-ones mask bit-identical to
+     K9a, two calls identical; the keep rate.
+ 16. the soft raster backward kernels (K9c, K9d) on the same cases
+     against the plain backward in float64 with the float32 branch
+     decisions (kernels/soft_raster.py::Kinks), cotangents drawn from a
+     numpy seed: within rtol 1e-4 / atol 1e-5 after scaling by the largest
+     entry. Where the plain float32 version itself misses that rule (the
+     mesh at 512^2: pixels within float32 rounding of an edge), within the
+     rule of the plain float32 version and no farther from float64 than
+     it; two calls identical; K9d with all ones equal to K9c.
+ 17. soft serving: the ``rasterize`` CLI in soft mode at its defaults
+     (500^2 Cornell: exactly one K9a), with ``--stl`` at 512^2 (one K9b)
+     and at 500^2 (one K9a over 283 chunks: the JAX package culls only
+     where the image blocks into its 1,024-pixel tiles); the view server
+     with the rasterizer, key 0 giving a soft frame (one K9a) and back
+     (one K8b), the raytracer's key 0 answering 501.
+ 18. training: the ``fit`` CLI at its defaults on
+     results/fit_reference/target.bmp (500 steps in two stages at 500^2:
+     exactly one K9a and one K9c a step, one K9a for the final frame, no
+     other kernel; the logged loss finite and falling; fit.bmp written); a
+     fit checkpointed after 10 steps and resumed for 10 ending bit for bit
+     on the straight run's parameters; the bench's soft_rasterize step and
+     its soft_stl step culled (K9b + K9d) and brute (K9a + K9c); then card
+     numbers: the soft frames, the fit's ms a step, the steps' device-busy
+     share, events and peak memory, K9a-K9d alone beside their plain
+     versions and bounds.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
@@ -92,8 +124,10 @@ steps of phase 8 (training: K1, K2, K3), before and after phase 10
 (serving the loop branch: K1, K4, K6), before and after the 3 steps of
 phase 11 (training the loop branch: K6), before and after phase 13
 (serving the rasterizer: K8b, K8c), before and after the 3 steps of
-phase 14 (training the rasterizer: K8b). Comparisons and timings launch
-outside those windows. The line before the last is one JSON object
+phase 14 (training the rasterizer: K8b), before and after phase 17
+(serving the soft rasterizer: K9a, K9b, K8b), before and after the fit CLI
+of phase 18 (training: K9a, K9c). Comparisons and timings launch outside
+those windows. The line before the last is one JSON object
 describing each kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Details (result.json and the BMPs) go to build/chip_smoke/.
@@ -136,6 +170,21 @@ FLOPS_PLANE_TEST, FLOPS_FWD_SHADE, FLOPS_BWD_HIT = 20, 50, 180
 # The raster kernels' pixel-triangle test (raster.cu::sweep): four planes
 # of two multiplies and two adds.
 FLOPS_RASTER_TEST = 16
+# The soft raster kernels' float operations a (pixel, row) pair, counted
+# from raytpu_torch/csrc/soft_raster.cu for a pixel outside the triangle
+# (the three segment distances and one square root; most pairs), a divide,
+# square root, exp, log1p, min or max counting as one. Forward: the logit
+# (123: edges 21, half planes 5, segments 64, barycentrics 22,
+# log_sigmoid and sum 10, the max 1), then the barycentrics, the weight
+# and the 10 sums (74). Backward: the recompute (160) and the derivative
+# through one segment distance (218).
+FLOPS_SOFT_FWD, FLOPS_SOFT_BWD = 197, 378
+# Column groups of the soft kernels' (Tp, 32) table
+# (kernels/soft_raster.py::soft_tri_constants), each of one kind and size:
+# the gradient of 1 / area is 1e2-1e6 times the vertices', so a rule scaled
+# by the whole table's largest entry would not see the others.
+SOFT_GROUPS = (("vertices", 0, 9), ("inv_area", 9, 10), ("zinv", 10, 13),
+               ("attributes", 13, 28), ("valid", 28, 29))
 # Image rule of tests/test_rasterize_parity.py::test_parity_vs_oracle_500.
 RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 # Cycles of torch.cuda._sleep that hold the stream while timed calls are
@@ -439,7 +488,12 @@ def sweep_bound(case: dict) -> tuple[float, str]:
 def kernel_counts() -> dict:
     from raytpu_torch.kernels import intersect as isect
     from raytpu_torch.kernels import raster, render_fused
+    from raytpu_torch.kernels import soft_raster as sr
     return {"render_fused_fwd": render_fused.LAUNCHES,
+            "soft_raster_fwd": sr.LAUNCHES_SOFT_FWD,
+            "soft_raster_fwd_masked": sr.LAUNCHES_SOFT_FWD_MASKED,
+            "soft_raster_bwd": sr.LAUNCHES_SOFT_BWD,
+            "soft_raster_bwd_masked": sr.LAUNCHES_SOFT_BWD_MASKED,
             "closest_hit_occluded": isect.LAUNCHES_OCCLUDED,
             "closest_hit_occluded_multi": isect.LAUNCHES_OCCLUDED_MULTI,
             "render_fused_bwd": render_fused.LAUNCHES_BWD,
@@ -455,6 +509,9 @@ def zero_counts() -> None:
         setattr(render_fused, name, 0)
     isect.LAUNCHES_OCCLUDED = isect.LAUNCHES_OCCLUDED_MULTI = 0
     raster.LAUNCHES_WINNER = raster.LAUNCHES_WINNER_MASKED = 0
+    from raytpu_torch.kernels import soft_raster as sr
+    sr.LAUNCHES_SOFT_FWD = sr.LAUNCHES_SOFT_FWD_MASKED = 0
+    sr.LAUNCHES_SOFT_BWD = sr.LAUNCHES_SOFT_BWD_MASKED = 0
 
 
 def raster_case(scene, camera, cfg) -> dict:
@@ -543,6 +600,99 @@ def stl_frame(dev, path, size: int):
                         device=dev),
             Lights.single(capacity=1, device=dev),
             RenderConfig(width=size, height=size, mode="clean"))
+
+
+def soft_case(scene, camera, cfg) -> dict:
+    """The soft kernels' inputs for a frame, as rasterize_soft builds them
+    (kernels/soft_raster.py::soft_inputs), on detached tensors."""
+    from raytpu_torch.kernels import soft_raster as sr
+    with torch.no_grad():
+        consts, chunk, mask, es, zs = sr.soft_inputs(scene, camera, cfg)
+    return dict(consts=consts.contiguous(), chunk=chunk, mask=mask, es=es,
+                zs=zs, H=cfg.height, W=cfg.width)
+
+
+def own_mask(case, mask):
+    """``mask``, or the case's own where it is "own"."""
+    return case["mask"] if isinstance(mask, str) else mask
+
+
+def soft_fwd(case, mask="own"):
+    """K9a (no mask) or K9b's wrapper on a soft_case; ``mask`` overrides
+    the case's own."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = case
+    return sr.soft_agg_fwd(c["consts"], c["H"], c["W"], c["chunk"],
+                           own_mask(c, mask), c["es"],
+                           c["zs"])
+
+
+def soft_bwd(case, m, cot, mask="own"):
+    from raytpu_torch.kernels import soft_raster as sr
+    c = case
+    return sr.soft_agg_bwd(c["consts"], m, cot, c["H"], c["W"], c["chunk"],
+                           own_mask(c, mask), c["es"],
+                           c["zs"])
+
+
+def soft_pixel_mask(case, mask="own"):
+    from raytpu_torch.kernels import soft_raster as sr
+    mask = own_mask(case, mask)
+    return None if mask is None else sr.expand_mask(mask, case["H"],
+                                                    case["W"])
+
+
+def plain_soft_fwd(case, mask="own"):
+    from raytpu_torch.kernels import soft_raster as sr
+    c = case
+    return sr.soft_agg_reference(
+        c["consts"], sr.pixel_coords(c["H"], c["W"], c["consts"].device),
+        soft_pixel_mask(case, mask), c["es"], c["zs"], c["chunk"])
+
+
+def plain_soft_bwd(case, m, cot, mask="own", dtype=torch.float32):
+    """The plain backward; in float64 with the float32 table's branch
+    decisions (Kinks)."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = case
+    return sr.soft_agg_bwd_reference(
+        c["consts"].to(dtype),
+        sr.pixel_coords(c["H"], c["W"], c["consts"].device, dtype),
+        soft_pixel_mask(case, mask), m.to(dtype), cot.to(dtype), c["es"],
+        c["zs"], c["chunk"],
+        branches_from=c["consts"] if dtype != torch.float32 else None)
+
+
+def soft_bound(case, backward: bool, mask="own") -> tuple[float, str]:
+    """K9a-K9d's bound on a soft_case: the table read (and, backward,
+    its gradient written) once, 12 floats a pixel (agg, m, s out; m and the
+    11 cotangents in), against FLOPS_SOFT_* a (pixel, row) pair: every pixel
+    against every row, or for each (tile, chunk) pair the mask keeps, the
+    tile's pixels inside the image against the chunk's rows."""
+    from raytpu_torch.kernels.raster import tile_rects
+    c = case
+    mask = own_mask(c, mask)
+    H, W, Tp = c["H"], c["W"], c["consts"].shape[0]
+    nbytes = Tp * 128 * (2 if backward else 1) + H * W * 48
+    if mask is None:
+        pairs = H * W * Tp
+    else:
+        xmin, xmax, ymin, ymax = tile_rects(H, W, mask.device)
+        tile_pixels = ((xmax - xmin + 1) * (ymax - ymin + 1)).long()
+        pairs = int((mask.long() * tile_pixels[:, None]).sum()) * c["chunk"]
+        nbytes += mask.numel() * 4
+    return bound_ms(nbytes, (FLOPS_SOFT_BWD if backward else FLOPS_SOFT_FWD)
+                    * pairs)
+
+
+def soft_cot(case, seed: int) -> torch.Tensor:
+    """(11, R) cotangents of one sign (as phase 7's backward check: signed
+    ones cancel in the sums until float32 rounding decides the small
+    ones), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    R = case["H"] * case["W"]
+    return torch.tensor(rng.uniform(0.5, 1.5, (11, R)).astype(np.float32),
+                        device=case["consts"].device)
 
 
 def delta(before: dict, after: dict) -> dict:
@@ -1263,14 +1413,14 @@ def main() -> int:
     base = f"http://127.0.0.1:{server.server_address[1]}"
     k8b = "raster_winner"
     # (request, status, launches): every frame one K8b; keys 7, 8 and 9
-    # change settings the clean rasterizer ignores; key 0 is item 6.
+    # change settings the clean rasterizer ignores; key 0 (soft) is
+    # phase 17's.
     requests = [("/", 200, {}), ("/frame.bmp", 200, {k8b: 1}),
                 ("/key?k=up", 200, {k8b: 1}), ("/key?k=left", 200, {k8b: 1}),
                 ("/key?k=w", 200, {k8b: 1}), ("/key?k=7", 200, {k8b: 1}),
                 ("/key?k=8", 200, {k8b: 1}), ("/key?k=9", 200, {k8b: 1}),
                 ("/key?k=2", 200, {k8b: 1}), ("/key?k=3", 200, {k8b: 1}),
-                ("/key?k=0", 501, {}), ("/frame.bmp", 200, {}),
-                ("/state", 200, {})]
+                ("/frame.bmp", 200, {}), ("/state", 200, {})]
     try:
         for path, want_status, want in requests:
             before = kernel_counts()
@@ -1401,7 +1551,494 @@ def main() -> int:
                   raster_peak_gb=raster_peak_gb, k8b_ms=k8b_ms,
                   k8c_ms=k8c_ms, k8b_bound=k8b_bound, k8c_bound=k8c_bound,
                   winner_err=winner_err)
+
+    say("== phase 15: K9a and K9b against their plain versions on the card")
+    from raytpu_torch import load_stl
+    from raytpu_torch.kernels import soft_raster as sr
+    from raytpu_torch.opt.fit import FitConfig, fit
+    from raytpu_torch.render.soft import rasterize_soft
+
+    def soft_bench_frame(size: int):
+        """bench.py's soft_rasterize frame (`bench.py:399-425`): size^2,
+        the Cornell box padded to 32, the rasteriser camera, one light,
+        sharpness 40 / 40."""
+        return (cornell_box(pad_to=32, device=dev),
+                Camera.rasterizer_default(device=dev),
+                Lights.single(capacity=1, device=dev),
+                RenderConfig(width=size, height=size, mode="soft",
+                             soft_edge_sharpness=40.0,
+                             soft_z_sharpness=40.0))
+
+    def fit_frame():
+        """The fit CLI's frame at its first stage: the 500^2 target's
+        camera (0, 0, -3) at focal 500, y_scale 1.01, 30 triangles, one
+        light of intensity 10, sharpness 10 / 20."""
+        return (cornell_box(device=dev),
+                Camera.make((0.0, 0.0, -3.0), focal=500.0, y_scale=1.01,
+                            device=dev),
+                Lights.single(capacity=1, intensity=10.0, device=dev),
+                RenderConfig(mode="soft", soft_edge_sharpness=10.0,
+                             soft_z_sharpness=20.0))
+
+    def soft_stl_frame(size: int):
+        """bench.py's soft_stl frame (`bench.py:610-641`): the mesh padded
+        to 9,216 at size^2, the rasteriser camera, sharpness 40 / 40."""
+        return (load_stl(str(stl_path), device=dev).pad_to(9216),
+                Camera.rasterizer_default(device=dev),
+                Lights.single(capacity=1, device=dev),
+                RenderConfig(width=size, height=size, mode="soft",
+                             soft_edge_sharpness=40.0,
+                             soft_z_sharpness=40.0))
+
+    def pick(frame):  # (scene, camera, cfg) of a frame
+        return frame[0], frame[1], frame[3]
+
+    scases = {
+        "k9a_512_bench": soft_case(*pick(soft_bench_frame(512))),
+        "k9a_500_fit": soft_case(*pick(fit_frame())),
+        # 288 chunks at 512^2: the JAX rule culls (K9b).
+        "k9b_512_stl": soft_case(*pick(soft_stl_frame(512))),
+    }
+    require(scases["k9b_512_stl"]["mask"] is not None
+            and scases["k9a_512_bench"]["mask"] is None
+            and scases["k9a_500_fit"]["mask"] is None,
+            "the JAX rule culls the mesh at 512^2 and not the box")
+    soft_err = {"k9a": 0.0, "k9b": 0.0, "k9c": 0.0, "k9d": 0.0}
+    soft_m = {}
+
+    def agg_close(got, want) -> tuple[bool, float]:
+        errs = [(g - w).abs() for g, w in zip(got, want)]
+        ok = all(bool((e <= 1e-6 + 1e-5 * w.abs()).all())
+                 for e, w in zip(errs, want))
+        return ok, max(float(e.max()) for e in errs)
+
+    for name, case in scases.items():
+        t0 = time.perf_counter()
+        got, again = soft_fwd(case), soft_fwd(case)
+        want = plain_soft_fwd(case)
+        torch.cuda.synchronize()
+        ok, err = agg_close(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        line = ""
+        key = "k9a"
+        if case["mask"] is not None:
+            key = "k9b"
+            ones = torch.ones_like(case["mask"])
+            got_ones, got_none = soft_fwd(case, ones), soft_fwd(case, None)
+            ok_none, err_none = agg_close(got_none,
+                                          plain_soft_fwd(case, None))
+            torch.cuda.synchronize()
+            same_ones = all(torch.equal(a, b)
+                            for a, b in zip(got_ones, got_none))
+            keep_rate = float(case["mask"].float().mean())
+            cull_err = max(float((a - b).abs().max())
+                           for a, b in zip(got, got_none))
+            line = (f"; mask keep rate {keep_rate:.4f} of "
+                    f"{tuple(case['mask'].shape)} (tile, chunk) pairs, "
+                    f"all-ones = K9a bitwise {same_ones}, culled vs unculled "
+                    f"max |d| {cull_err:.3g}; K9a on it vs plain max |d| "
+                    f"{err_none:.3g}")
+            require(same_ones, f"{name}: K9b with all ones is K9a")
+            require(ok_none, f"{name}: K9a within rtol 1e-5 / atol 1e-6")
+            require(cull_err < 1e-6, f"{name}: culled within 1e-6")
+            soft_err["k9a"] = max(soft_err["k9a"], err_none)
+            record[f"{name}_keep_rate"] = keep_rate
+            soft_m[name + "_ones"] = got_none[1]
+        say(f"{name} (Tp={case['consts'].shape[0]} in chunks of "
+            f"{case['chunk']}, {case['H']}^2, es {case['es']:g} zs "
+            f"{case['zs']:g}): agg/m/s vs plain max |d| {err:.3g}, within "
+            f"rtol 1e-5 / atol 1e-6 {ok}, two calls identical {same}, "
+            f"foreground {float((got[0][6] > 1e-3).float().mean()):.4f}"
+            f"{line} ({time.perf_counter() - t0:.1f} s)")
+        require(ok, f"{name}: agg, m, s within rtol 1e-5 / atol 1e-6")
+        require(same, f"{name}: two kernel calls identical")
+        require(all(bool(torch.isfinite(t).all()) for t in got), "finite")
+        soft_err[key] = max(soft_err[key], err)
+        soft_m[name] = got[1]
+        record[f"soft_fwd_{name}"] = dict(max_abs_err=err, repeat_equal=same)
+
+    say("== phase 16: K9c and K9d against the plain backward in float64")
+
+    def within(got, want) -> dict:
+        """The JAX tests' rule, rtol 1e-4 / atol 1e-5 after scaling by
+        want's largest entry, over the whole table and over each column
+        group of SOFT_GROUPS scaled by its own: {group: (largest scaled
+        |got - want|, every entry within the rule)}."""
+        want = want.double()
+        diff = (got.double() - want).abs()
+        out = {}
+        for group, lo, hi in (("table", 0, 32),) + SOFT_GROUPS:
+            w, d = want[:, lo:hi], diff[:, lo:hi]
+            scale = float(w.abs().max())
+            ok = bool((d <= 1e-5 * scale + 1e-4 * w.abs()).all())
+            out[group] = (float(d.max()) / scale if scale else float(d.max()),
+                          ok)
+        return out
+
+    soft_checks = {}
+    for name, case in scases.items():
+        variants = [("own", soft_m[name])]
+        if case["mask"] is not None:
+            variants.append((torch.ones_like(case["mask"]),
+                             soft_m[name + "_ones"]))
+        for mask, m in variants:
+            t0 = time.perf_counter()
+            cot = soft_cot(case, seed=5)
+            got, again = soft_bwd(case, m, cot, mask), \
+                soft_bwd(case, m, cot, mask)
+            want = plain_soft_bwd(case, m, cot, mask, torch.float64)
+            plain32 = plain_soft_bwd(case, m, cot, mask)
+            torch.cuda.synchronize()
+            r64, r32, f64 = (within(got, want), within(got, plain32),
+                             within(plain32, want))
+            # A pixel within float32 rounding of an edge, outside it, loses
+            # the direction of its segment distance in float32 (the
+            # difference that gives it is 0): there the float32 function
+            # itself, the plain version's as the kernel's (and JAX's), is
+            # far from float64 (F11). In every group the kernel is held to
+            # the plain float32 version by the rule, and to float64 by the
+            # rule or, where the plain float32 version misses it too, by
+            # being no farther from float64 than that version.
+            check = {g: dict(err64=r64[g][0], ok64=r64[g][1],
+                             err32=r32[g][0], ok32=r32[g][1],
+                             floor64=f64[g][0],
+                             ok=r32[g][1] and (r64[g][1] or r64[g][0]
+                                               <= 1.01 * f64[g][0]))
+                     for g in r64}
+            same = torch.equal(got, again)
+            label = name if isinstance(mask, str) else name + " all-ones"
+            soft_checks[label] = check
+            extra = ""
+            if not isinstance(mask, str):
+                plain_c = soft_bwd(case, m, cot, None)
+                torch.cuda.synchronize()
+                equal_c = torch.equal(plain_c, got)
+                extra = f", = K9c bitwise {equal_c}"
+                require(equal_c, f"{label}: K9d with all ones is K9c")
+            say(f"{label}: d consts, two calls identical {same}{extra} "
+                f"({time.perf_counter() - t0:.1f} s); by column group, the "
+                f"largest |d| scaled by the group's largest float64 entry:")
+            for g, lo, hi in (("table", 0, 32),) + SOFT_GROUPS:
+                cg = check[g]
+                say(f"  {g} (cols {lo}-{hi - 1}, scale "
+                    f"{float(want[:, lo:hi].abs().max()):.4g}): vs float64 "
+                    f"{cg['err64']:.3g} within {cg['ok64']}; the plain "
+                    f"float32 version vs float64 {cg['floor64']:.3g}; vs the "
+                    f"plain float32 version {cg['err32']:.3g} within "
+                    f"{cg['ok32']}; passes {cg['ok']}")
+            for g, cg in check.items():
+                require(cg["ok"], f"{label}, {g}: K9c/K9d within rtol 1e-4 "
+                                  f"/ atol 1e-5 of the plain float32 version "
+                                  f"and of float64 (or no farther from "
+                                  f"float64 than that version) after scaling")
+            require(same, f"{label}: two backward calls identical")
+            require(bool(torch.isfinite(got).all())
+                    and not got[:, 29:].any(), f"{label}: finite gradient")
+            key = "k9c" if case["mask"] is None else "k9d"
+            soft_err[key] = max([soft_err[key]] + [
+                check[g]["err64"] for g, _, _ in SOFT_GROUPS])
+            record[f"soft_bwd_{label}"] = dict(groups=check,
+                                               repeat_equal=same)
+            del want, plain32
+    torch.cuda.empty_cache()
+
+    say("== phase 17: soft serving (the rasterize CLI in soft mode, the "
+        "view server's key 0)")
+    zero_counts()
+    stl500 = soft_case(*stl_frame(dev, stl_path, 500)[:2],
+                       RenderConfig(mode="soft"))
+    require(stl500["mask"] is None, "no cull at 500^2 (JAX's rule)")
+    chunks_500 = stl500["consts"].shape[0] // stl500["chunk"]
+    del stl500
+    for flags, want, bmp_name in (
+            ([], {"soft_raster_fwd": 1}, "raster_soft.bmp"),
+            (["--stl", str(stl_path), "--width", "512", "--height", "512"],
+             {"soft_raster_fwd_masked": 1}, "raster_soft_stl512.bmp"),
+            (["--stl", str(stl_path)], {"soft_raster_fwd": 1},
+             "raster_soft_stl500.bmp")):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        cli_main(["rasterize", "--mode", "soft", *flags, "-o",
+                  str(OUT / bmp_name)])
+        ms = (time.perf_counter() - t0) * 1e3
+        got = delta(before, kernel_counts())
+        frame_u8 = read_bmp(str(OUT / bmp_name))
+        lit = float((frame_u8.max(axis=-1) > 0).mean())
+        size = 512 if "512" in flags else 500
+        say(f"rasterize CLI --mode soft {' '.join(f for f in flags if not f.endswith('.stl'))}"
+            f": {frame_u8.shape}, lit {lit:.4f}, {ms:.1f} ms host clock, "
+            f"launches {got}"
+            + (f" ({chunks_500} chunks, unculled)" if flags and size == 500
+               else ""))
+        require(frame_u8.shape == (size, size, 3) and 0.2 < lit
+                and frame_u8.max() > 80, f"a lit {bmp_name}")
+        require(got == want, f"{bmp_name}: launches {want}")
+    require(chunks_500 == 283, "the mesh at 500^2 runs 283 chunks")
+
+    def serve_and_check(app, requests):
+        server = serve(app, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        body = b""
+        try:
+            for path, want_status, want in requests:
+                before = kernel_counts()
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(base + path,
+                                                timeout=300) as r:
+                        status, body = r.status, r.read()
+                except urllib.error.HTTPError as exc:
+                    status, body = exc.code, exc.read()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = delta(before, kernel_counts())
+                say(f"GET {path} ({app.renderer}): {status}, {len(body)} "
+                    f"bytes, {ms:.1f} ms, launches {got}, mode "
+                    f"{app.cfg.mode}")
+                require(status == want_status, f"{path} answered "
+                                               f"{want_status}")
+                require(got == want, f"{path} launches {want}")
+                require(app._frame is None
+                        or np.isfinite(app._frame).all(), "finite frames")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        return body
+
+    app = ViewerApp(cornell_box(device=dev),
+                    Camera.make((0.0, 0.0, -3.0), focal=500.0,
+                                dof_focus=1.9, device=dev),
+                    Lights.single(capacity=32, soft_samples=16, device=dev),
+                    RenderConfig(mode="clean"), renderer="rasterize", seed=0)
+    k9a = "soft_raster_fwd"
+    serve_and_check(app, [("/frame.bmp", 200, {k8b: 1})])
+    clean_frame_np = app._frame.copy()
+    serve_and_check(app, [("/key?k=0", 200, {k9a: 1})])
+    soft_frame_np = app._frame.copy()
+    serve_and_check(app, [("/key?k=up", 200, {k9a: 1}),
+                          ("/frame.bmp", 200, {}),
+                          ("/key?k=0", 200, {k8b: 1}), ("/state", 200, {})])
+    require(app.cfg.mode == "clean" and float(np.abs(
+        soft_frame_np - clean_frame_np).max()) > 1e-3,
+        "key 0 toggles a soft frame and back")
+    tracer = ViewerApp(cornell_box(pad_to=32, device=dev),
+                       Camera.raytracer_default(device=dev),
+                       Lights.single(capacity=1, device=dev),
+                       RenderConfig(mode="clean"), renderer="raytrace")
+    body = serve_and_check(tracer, [("/key?k=0", 501, {})])
+    require(b"item 6b" in body, "the raytracer's key 0 names item 6b")
+    soft_serve = kernel_counts()  # zeroed where phase 17 began
+    say(f"soft serving path launches: {soft_serve}")
+    require(soft_serve[k9a] > 0 and soft_serve["soft_raster_fwd_masked"] > 0
+            and soft_serve[k8b] > 0
+            and not any(v for k, v in soft_serve.items()
+                        if k not in (k9a, "soft_raster_fwd_masked", k8b)),
+            "the soft serving path launched K9a, K9b and K8b, nothing else")
+
+    say("== phase 18: training (the fit CLI at its defaults, resume, the "
+        "bench's soft steps) and card numbers")
+    import contextlib
+    import io
+    target_bmp = ROOT / "results" / "fit_reference" / "target.bmp"
+    logs, printed = io.StringIO(), io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logs), contextlib.redirect_stdout(printed):
+        cli_main(["fit", str(target_bmp), "-o", str(OUT / "fit.bmp")])
+    fit_s = time.perf_counter() - t0
+    fit_launches = kernel_counts()
+    records = [json.loads(line) for line in logs.getvalue().splitlines()
+               if line.startswith("{")]
+    for line in printed.getvalue().splitlines():
+        say(f"  fit: {line}")
+    fit_losses = [r["loss"] for r in records]
+    say(f"fit CLI (500 steps, 2 stages, 500^2): {fit_s:.2f} s, logged "
+        f"losses {[round(x, 6) for x in fit_losses]}, ms a step (last of "
+        f"each 50) {[round(r['ms_per_step'], 3) for r in records]}; "
+        f"launches {fit_launches}")
+    require({k: v for k, v in fit_launches.items() if v}
+            == {"soft_raster_fwd": 501, "soft_raster_bwd": 500},
+            "each fit step launches K9a and K9c once (and the final frame one "
+        "K9a), no other kernel")
+    stage0, stage1 = fit_losses[:5], fit_losses[5:]
+    require(len(records) == 10 and np.isfinite(fit_losses).all()
+            and stage0[-1] < stage0[0] and stage1[-1] < stage1[0],
+            "the fit's loss is finite and falls in each stage")
+    fit_img = read_bmp(str(OUT / "fit.bmp"))
+    require(fit_img.shape == (500, 500, 3) and fit_img.max() > 80,
+            "fit.bmp written")
+    fit_ms_step = statistics.median(r["ms_per_step"] for r in records)
+
+    target_np = read_bmp(str(target_bmp)).astype(np.float32) / 255.0
+    ckpt_dir = OUT / "ckpt"
+    one_stage = ((10.0, 20.0, 1.0),)
+
+    def fit_run(steps, resume_from=None, **kw):
+        scene_f, camera_f, lights_f, _ = fit_frame()
+        return fit(target_np, scene_f, camera_f, lights_f,
+                   RenderConfig(mode="soft"),
+                   FitConfig(steps=steps, stages=one_stage, log_every=0,
+                             **kw), resume_from=resume_from)
+
+    straight = fit_run(20, checkpoint_every=10, checkpoint_dir=str(ckpt_dir))
+    resumed = fit_run(10, resume_from=str(ckpt_dir / "ckpt_10.npz"))
+    same_resume = all(
+        torch.equal(getattr(a, f), getattr(b, f))
+        for a, b in ((resumed.scene, straight.scene),
+                     (resumed.lights, straight.lights)) for f in vars(a))
+    say(f"checkpoint at step 10 resumed for 10: parameters bit-identical to "
+        f"the straight 20 steps {same_resume}; losses "
+        f"{straight.losses[-1]:.6g} / {resumed.losses[-1]:.6g}")
+    require(same_resume and np.array_equal(resumed.losses,
+                                           straight.losses[10:]),
+            "resume gives the straight run's parameters bit for bit")
+
+    def cull_render(cull):
+        def render(s, c, li, cfg):
+            return sr.rasterize_soft_kernel(s, c, li, cfg, cull=cull)
+        return render
+
+    step_soft = train_step(*soft_bench_frame(512), 1e-9, target_scale=0.9,
+                           render=rasterize_soft)
+    step_stl_c = train_step(*soft_stl_frame(512), 1e-9, target_scale=0.9,
+                            render=cull_render(True))
+    step_stl_b = train_step(*soft_stl_frame(512), 1e-9, target_scale=0.9,
+                            render=cull_render(False))
+    soft_train = {}
+    for name, step, n, want in (
+            ("soft_rasterize", step_soft, 3,
+             {"soft_raster_fwd": 3, "soft_raster_bwd": 3}),
+            ("soft_stl_culled", step_stl_c, 3,
+             {"soft_raster_fwd_masked": 3, "soft_raster_bwd_masked": 3}),
+            ("soft_stl_brute", step_stl_b, 2,
+             {"soft_raster_fwd": 2, "soft_raster_bwd": 2})):
+        zero_counts()
+        losses = [float(step()) for _ in range(n)]
+        got = {k: v for k, v in kernel_counts().items() if v}
+        say(f"{name} step: {n} steps, loss {losses[0]:.6g} -> "
+            f"{losses[-1]:.6g}; launches {got}")
+        require(got == want, f"{name}: launches {want}")
+        require(np.isfinite(losses).all(), f"{name}: finite loss")
+        soft_train[name] = got
+
+    def peak_gb(step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    soft_peak = {"soft_rasterize": peak_gb(step_soft),
+                 "soft_stl_culled": peak_gb(step_stl_c),
+                 "soft_stl_brute": peak_gb(step_stl_b)}
+    busy_soft = {"soft_rasterize": device_busy(step_soft, steps=10),
+                 "soft_stl_culled": device_busy(step_stl_c, steps=3),
+                 "soft_stl_brute": device_busy(step_stl_b, steps=2)}
+
+    s_b, c_b, l_b, cfg_b = soft_bench_frame(512)
+    s_f, c_f, l_f, cfg_f = fit_frame()
+    s_s, c_s, l_s, cfg_s = soft_stl_frame(512)
+    s_5, c_5, l_5, _ = stl_frame(dev, stl_path, 500)
+    cfg_5 = RenderConfig(mode="soft")
+
+    def frame_fn(scene, camera, lights, cfg):
+        def run():
+            with torch.no_grad():
+                return rasterize_soft(scene, camera, lights, cfg)
+        return run
+
+    soft_ms = median_ms_in_turns({
+        "bench_frame": frame_fn(s_b, c_b, l_b, cfg_b),
+        "fit_frame": frame_fn(s_f, c_f, l_f, cfg_f),
+        "bench_step": step_soft}, n=1, reps=11)
+    soft_ms.update(median_ms_in_turns({
+        "stl512_culled_frame": frame_fn(s_s, c_s, l_s, cfg_s),
+        "stl500_frame": frame_fn(s_5, c_5, l_5, cfg_5),
+        "stl_culled_step": step_stl_c}, n=1, reps=5))
+    soft_ms.update(median_ms_in_turns({"stl_brute_step": step_stl_b}, n=1,
+                                      reps=3))
+
+    def kernel_timers(case, mask="own"):
+        c = case
+        mk = own_mask(c, mask)
+        R = c["H"] * c["W"]
+        out = [torch.empty((sr.N_CH, R), device=dev),
+               torch.empty(R, device=dev), torch.empty(R, device=dev)]
+        cot = soft_cot(case, seed=5)
+        m = soft_fwd(case, mk)[1]
+        groups = sr.bwd_groups(c["consts"].shape[0] // c["chunk"], c["H"],
+                               c["W"])
+        partials = torch.empty((groups, *c["consts"].shape), device=dev)
+        dc = torch.empty_like(c["consts"])
+        args = (c["consts"], c["H"], c["W"], c["chunk"], mk, c["es"],
+                c["zs"])
+        return (lambda: sr.launch_fwd_kernel(*args, *out),
+                lambda: sr.launch_bwd_kernel(*args, m, cot, partials, dc),
+                lambda: plain_soft_fwd(case, mask),
+                lambda: plain_soft_bwd(case, m, cot, mask))
+
+    kcases = {"bench": (scases["k9a_512_bench"], "own"),
+              "fit": (scases["k9a_500_fit"], "own"),
+              "stl_culled": (scases["k9b_512_stl"], "own"),
+              "stl_brute": (scases["k9b_512_stl"], None)}
+    soft_k = {}
+    for name, (case, mask) in kcases.items():
+        fwd_k, bwd_k, fwd_p, bwd_p = kernel_timers(case, mask)
+        big = name.startswith("stl")
+        t = median_ms_in_turns({"fwd": fwd_k, "bwd": bwd_k},
+                               n=2 if big else 5, reps=5, timer=held_ms)
+        # The plain versions launch tens of kernels a chunk: timed back to
+        # back, as they overflow the queue a held stream takes.
+        t.update({f"{k}_plain": v for k, v in median_ms_in_turns(
+            {"fwd": fwd_p, "bwd": bwd_p}, n=1, reps=3).items()})
+        t["fwd_bound"] = soft_bound(case, False, mask)
+        t["bwd_bound"] = soft_bound(case, True, mask)
+        soft_k[name] = t
+        torch.cuda.empty_cache()
+    card = card_line()
+    for name, t in soft_k.items():
+        say(f"K9{'b' if name == 'stl_culled' else 'a'} / "
+            f"K9{'d' if name == 'stl_culled' else 'c'} alone, {name}: "
+            f"forward {t['fwd']:.4f} ms (plain {t['fwd_plain']:.4f}; bound "
+            f"{t['fwd_bound'][0]:.4f} ms, {t['fwd_bound'][1]}), backward "
+            f"{t['bwd']:.4f} ms (plain {t['bwd_plain']:.4f}; bound "
+            f"{t['bwd_bound'][0]:.4f} ms, {t['bwd_bound'][1]}) ({card})")
+    say(f"soft frames (CUDA events, median): 512^2 bench "
+        f"{soft_ms['bench_frame']:.4f} ms, 500^2 fit frame "
+        f"{soft_ms['fit_frame']:.4f} ms, STL 512^2 culled "
+        f"{soft_ms['stl512_culled_frame']:.4f} ms, STL 500^2 unculled "
+        f"{soft_ms['stl500_frame']:.4f} ms; steps: soft_rasterize "
+        f"{soft_ms['bench_step']:.4f} ms, soft_stl culled "
+        f"{soft_ms['stl_culled_step']:.4f} ms, brute "
+        f"{soft_ms['stl_brute_step']:.4f} ms; the fit CLI "
+        f"{fit_ms_step:.4f} ms a step (host clock, median of its logs) "
+        f"({card})")
+    for name, busy in busy_soft.items():
+        say(f"profile of {name} steps: device busy {busy['busy_ms']:.4f} ms "
+            f"a step in {busy['kernels']} device events; "
+            f"{busy['wall_ms']:.4f} ms a step on the host clock under the "
+            f"profiler (share {busy['share']}); peak memory "
+            f"{soft_peak[name]:.3f} GB")
+        for kname, ms in busy["by_name"][:5]:
+            say(f"  {ms:.5f} ms  {kname[:100]}")
+    record.update(soft_err=soft_err, soft_serve=soft_serve,
+                  fit_launches=fit_launches, fit_losses=fit_losses,
+                  fit_s=fit_s, fit_ms_step=fit_ms_step,
+                  soft_train=soft_train, soft_ms=soft_ms, soft_k=soft_k,
+                  soft_busy=busy_soft, soft_peak=soft_peak)
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
+
+    def bwd_checks(prefix: str) -> dict:
+        """Phase 16's rule for each case of K9c (prefix k9a) or K9d (k9b)
+        and each column group: [scaled error vs float64, within the rule,
+        the plain float32 version's scaled error vs float64, K9c/K9d within
+        the rule of that version]."""
+        return {label: {g: [c["err64"], c["ok64"], c["floor64"], c["ok32"]]
+                        for g, c in check.items()}
+                for label, check in soft_checks.items()
+                if label.startswith(prefix)}
 
     say(card)
     print(json.dumps({"kernels": [
@@ -1450,6 +2087,40 @@ def main() -> int:
              max_abs_err=winner_err["k8c"], ms=k8c_ms["kernel"],
              plain_ms=k8c_ms["plain"], bound_ms=k8c_bound[0],
              bound_by=k8c_bound[1], library_ms=None),
+        dict(name="soft_raster_fwd", route="cuda",
+             source="raytpu_torch/csrc/soft_raster.cu",
+             replaces="raytpu/kernels/soft_raster_pallas.py:245",
+             launches=fit_launches["soft_raster_fwd"],
+             max_abs_err=soft_err["k9a"], ms=soft_k["bench"]["fwd"],
+             plain_ms=soft_k["bench"]["fwd_plain"],
+             bound_ms=soft_k["bench"]["fwd_bound"][0],
+             bound_by=soft_k["bench"]["fwd_bound"][1], library_ms=None),
+        dict(name="soft_raster_fwd_masked", route="cuda",
+             source="raytpu_torch/csrc/soft_raster.cu",
+             replaces="raytpu/kernels/soft_raster_pallas.py:342",
+             launches=soft_serve["soft_raster_fwd_masked"],
+             max_abs_err=soft_err["k9b"], ms=soft_k["stl_culled"]["fwd"],
+             plain_ms=soft_k["stl_culled"]["fwd_plain"],
+             bound_ms=soft_k["stl_culled"]["fwd_bound"][0],
+             bound_by=soft_k["stl_culled"]["fwd_bound"][1], library_ms=None),
+        dict(name="soft_raster_bwd", route="cuda",
+             source="raytpu_torch/csrc/soft_raster.cu",
+             replaces="raytpu/kernels/soft_raster_pallas.py:286",
+             launches=fit_launches["soft_raster_bwd"],
+             max_abs_err=soft_err["k9c"], ms=soft_k["bench"]["bwd"],
+             plain_ms=soft_k["bench"]["bwd_plain"],
+             bound_ms=soft_k["bench"]["bwd_bound"][0],
+             bound_by=soft_k["bench"]["bwd_bound"][1], library_ms=None,
+             checks=bwd_checks("k9a")),
+        dict(name="soft_raster_bwd_masked", route="cuda",
+             source="raytpu_torch/csrc/soft_raster.cu",
+             replaces="raytpu/kernels/soft_raster_pallas.py:389",
+             launches=soft_train["soft_stl_culled"]["soft_raster_bwd_masked"],
+             max_abs_err=soft_err["k9d"], ms=soft_k["stl_culled"]["bwd"],
+             plain_ms=soft_k["stl_culled"]["bwd_plain"],
+             bound_ms=soft_k["stl_culled"]["bwd_bound"][0],
+             bound_by=soft_k["stl_culled"]["bwd_bound"][1], library_ms=None,
+             checks=bwd_checks("k9b")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

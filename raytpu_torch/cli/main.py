@@ -3,13 +3,15 @@
   raytpu-torch render    — raytrace the Cornell box to a BMP
   raytpu-torch rasterize — rasterize the Cornell box or an ASCII STL model
                            to a BMP (ref: the rasteriser binary)
+  raytpu-torch fit       — inverse-rendering fit of the Cornell box to a
+                           target BMP through the soft rasterizer
   raytpu-torch view      — the live viewer over localhost HTTP
 
 The flags and their defaults are the JAX package's; ``--device`` picks
-where the frame is rendered (default ``cuda``: a run with no GPU fails
-instead of carrying on on the CPU). Mode 'soft' and the raytracer's STL
-scenes (``render --stl``) raise NotImplementedError naming their
-ROADMAP.md item.
+where the frame is rendered or the fit trained (default ``cuda``: a run
+with no GPU fails instead of carrying on on the CPU). The raytracer's mode
+'soft' and STL scenes (``render --stl``), ``fit --renderer raytrace`` and
+``fit --mesh`` raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -63,6 +65,16 @@ def _render_flags(p: argparse.ArgumentParser, rasterizer: bool = False):
                    help="torch device to render on (default cuda)")
 
 
+def _device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("raytpu-torch: --device cuda but no CUDA device is "
+                         "available (pass --device cpu to run on the CPU)")
+    return device
+
+
 def _build_inputs(args, rasterizer: bool = False):
     """Scene, camera, lights and RenderConfig from the flags, with the
     raytracer's or the rasteriser's defaults: focal 250 / 500, camera
@@ -75,10 +87,7 @@ def _build_inputs(args, rasterizer: bool = False):
     from raytpu_torch.core.stl import load_stl
     from raytpu_torch.core.types import Camera, Lights, RenderConfig
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("raytpu-torch: --device cuda but no CUDA device is "
-                         "available (pass --device cpu to render on the CPU)")
+    device = _device(args.device)
     if args.stl:
         if not rasterizer:
             raise NotImplementedError(
@@ -141,6 +150,47 @@ def cmd_rasterize(args):
           f"{scene.num_triangles} triangles, {scene.device})")
 
 
+def cmd_fit(args):
+    """Fit the Cornell box's vertices, albedo and light to a target BMP
+    (``cmd_fit`` of the JAX CLI): camera (0, 0, -3) at focal = the target's
+    width, y_scale 1.01; one light of capacity 1 at --init-intensity; the
+    result rendered at sharpness 400 / 4000 to --output."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core.cornell import cornell_box
+    from raytpu_torch.core.image import read_bmp, write_bmp
+    from raytpu_torch.core.types import Camera, Lights, RenderConfig
+    from raytpu_torch.opt.fit import FitConfig, fit
+    from raytpu_torch.render.soft import rasterize_soft
+
+    if args.mesh:
+        raise NotImplementedError(
+            "fit --mesh trains through the sharded soft renderer: ROADMAP.md "
+            "port item 8")
+    device = _device(args.device)
+    target = read_bmp(args.target).astype(np.float32) / 255.0
+    h, w, _ = target.shape
+    scene = cornell_box(device=device)
+    camera = Camera.make((0.0, 0.0, -3.0), focal=float(w), y_scale=1.01,
+                         device=device)
+    lights = Lights.single(capacity=1, intensity=args.init_intensity,
+                           device=device)
+    cfg = RenderConfig(width=w, height=h, mode="soft")
+    fit_cfg = FitConfig(steps=args.steps, renderer=args.renderer,
+                        checkpoint_dir=args.checkpoint_dir)
+    result = fit(target, scene, camera, lights, cfg, fit_cfg,
+                 resume_from=args.resume)
+    print(f"final loss: {result.losses[-1]:.6f}")
+    if args.output:
+        with torch.no_grad():
+            img = rasterize_soft(result.scene, camera, result.lights,
+                                 cfg.replace(soft_edge_sharpness=400.0,
+                                             soft_z_sharpness=4000.0))
+        write_bmp(args.output, img.cpu().numpy())
+        print(f"wrote {args.output}")
+
+
 def cmd_view(args):
     import torch
 
@@ -187,6 +237,21 @@ def main(argv=None):
     p = sub.add_parser("rasterize", help="rasterize to a BMP")
     _render_flags(p, rasterizer=True)
     p.set_defaults(func=cmd_rasterize)
+    p = sub.add_parser("fit", help="inverse-rendering fit")
+    p.add_argument("target", help="target BMP image")
+    p.add_argument("-o", "--output", default="fit.bmp")
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--renderer", choices=["rasterize", "raytrace"],
+                   default="rasterize")
+    p.add_argument("--init-intensity", type=float, default=10.0)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume", default=None)
+    p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                   help="shard the fit over a device mesh (not ported: "
+                        "ROADMAP.md port item 8)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda)")
+    p.set_defaults(func=cmd_fit)
     p = sub.add_parser("view", help="live interactive viewer (browser "
                                     "framebuffer; the reference's realtime "
                                     "SDL loop)")

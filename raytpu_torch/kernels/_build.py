@@ -53,6 +53,13 @@ SIGNATURES = {
     "raytpu_raster_winner": [_P, _I, _I, _I, _P, _P],
     # consts, T, chunk, mask, H, W, idx, stream
     "raytpu_raster_winner_masked": [_P, _I, _I, _P, _I, _I, _P, _P],
+    # consts, Tp, chunk, mask (or null), H, W, es, zs, agg, m, s, stream
+    "raytpu_soft_raster_fwd": [_P, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P,
+                               _P],
+    # consts, Tp, chunk, mask (or null), H, W, es, zs, m, cot, groups,
+    # partials, dc, stream
+    "raytpu_soft_raster_bwd": [_P, _I, _I, _P, _I, _I, _F, _F, _P, _P, _I,
+                               _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

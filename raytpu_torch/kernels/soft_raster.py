@@ -1,0 +1,592 @@
+"""The soft (differentiable) rasterizer's aggregation (counterpart of
+raytpu/kernels/soft_raster_pallas.py).
+
+Per pixel, a softmax over every triangle's logit
+``zs * zpx + log_sigmoid(es * sdist) + log(valid + 1e-20)`` and a
+background hypothesis (logit 0, the cleared depth buffer,
+`rasteriser.cpp:188`) aggregates 10 attribute channels [albedo rgb, pos3d
+numerator xyz, zinv, normal xyz]; shading runs once per pixel on the
+aggregate outside (render/soft.py::shade_agg_raster). The triangles come as
+the (Tp, 32) table of ``soft_tri_constants``, in chunks of ``chunk`` <= 32
+rows; the softmax is JAX's chunk-by-chunk online form (a chunk's max, one
+rescale of the carry, then the chunk's sums).
+
+  soft_agg_fwd   K9a's wrapper (no mask) and K9b's (a (tile, chunk) keep
+                 mask over 16 x 16 pixel tiles): agg (10, R), m, s.
+  soft_agg_bwd   K9c's and K9d's: d consts from the saved m and the 11
+                 cotangent rows [d s, d acc_0..9].
+  *_reference    their plain PyTorch versions.
+  SoftAgg        the torch.autograd.Function around them (``_soft_agg``).
+  rasterize_soft_kernel   ``rasterize_soft_pallas``: the whole soft frame.
+
+On CUDA tensors the wrappers launch the hand-written kernels
+(raytpu_torch/csrc/soft_raster.cu); on CPU tensors they run the plain
+versions. The JAX kernels also take the camera-globals and lights tables,
+which ``_chunk_terms`` never reads (ROADMAP fault F3; ``jax.grad`` gives
+them exactly zero): the port's kernels take neither.
+
+The running max m is a constant of the backward: the image acc / s does not
+depend on it (soft_raster_pallas.py:20-27).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytpu_torch.core.types import pixel_grid
+from raytpu_torch.kernels import _build
+from raytpu_torch.kernels.raster import TILE, _route, tile_rects
+
+# Launches of each CUDA kernel in this process, counted by its wrapper where
+# it launches the kernel and nowhere else. A backward launch is K9c's (or
+# K9d's) per-block pass and the fixed-order sum of its partials.
+LAUNCHES_SOFT_FWD = 0          # K9a, by soft_agg_fwd without a mask
+LAUNCHES_SOFT_FWD_MASKED = 0   # K9b, by soft_agg_fwd with a mask
+LAUNCHES_SOFT_BWD = 0          # K9c, by soft_agg_bwd without a mask
+LAUNCHES_SOFT_BWD_MASKED = 0   # K9d, by soft_agg_bwd with a mask
+
+CONST_COLS = 32
+N_CH = 10
+MAX_CHUNK = 32
+# ln(1e-20): a culled (tile, chunk) pair's weight is at most exp(-46) of the
+# background hypothesis, the size the kernel already treats as zero.
+CULL_MARGIN = 46.0
+# The JAX package decides whether to cull by whether the image blocks into
+# its 1,024-pixel tiles (trap: 500^2 does not, 512^2 does); the port keeps
+# that decision, though its own tiles are 16 x 16.
+JAX_TILE_P = 1024
+# Backward grid: about this many blocks in all (8 per SM of an H100), split
+# over the chunks; each block takes every groups-th pixel tile.
+BWD_BLOCKS = 132 * 8
+
+
+def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 square root rounded once from float64: correctly rounded,
+    as XLA's and CUDA's are (PyTorch's CPU sqrt can be an ulp off, ROADMAP
+    fault F4)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def soft_tri_constants(sx, sy, zinv, pos3d, color, normal, keep):
+    """The kernels' (T, 32) float32 rows (``soft_tri_constants`` of the JAX
+    package): sx, sy, zinv (T, 3) screen vertices and vertex 1/z; pos3d
+    (T, 3, 3) camera-space position / z; color, normal (T, 3); keep (T,).
+
+      0-5   ax ay bx by cx cy          13-21 pos3d row-major
+      6-8   orient / (|edge_k| + 1e-12) 22-24 albedo rgb
+      9     1 / area_safe               25-27 normal xyz
+      10-12 vertex zinv                 28    valid = keep * (|area| > 1e-4)
+      29-31 zero
+    """
+    ax, ay = sx[:, 0], sy[:, 0]
+    bx, by = sx[:, 1], sy[:, 1]
+    cx, cy = sx[:, 2], sy[:, 2]
+    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    area_ok = area.abs() > 1e-4
+    area_safe = torch.where(area.abs() > 1e-12, area, 1e-12)
+    orient = torch.sign(area_safe)
+
+    def edge_scale(x0, y0, x1, y1):
+        ex = x1 - x0
+        ey = y1 - y0
+        # sqrt(0) guarded: its derivative would NaN the gradients of
+        # degenerate (padding) edges, whose edge value is 0 anyway.
+        n2 = ex * ex + ey * ey
+        return orient / (_sqrt_f32(torch.where(n2 > 0.0, n2, 1.0)) + 1e-12)
+
+    valid = keep * area_ok.to(torch.float32)
+    cols = [ax, ay, bx, by, cx, cy,
+            edge_scale(ax, ay, bx, by), edge_scale(bx, by, cx, cy),
+            edge_scale(cx, cy, ax, ay),
+            1.0 / area_safe,
+            zinv[:, 0], zinv[:, 1], zinv[:, 2],
+            *pos3d.reshape(-1, 9).unbind(1),
+            *color.unbind(1), *normal.unbind(1), valid]
+    zeros = torch.zeros_like(ax)
+    cols += [zeros] * (CONST_COLS - len(cols))
+    return torch.stack(cols, dim=1)
+
+
+class Kinks:
+    """The branch decisions of ``chunk_terms``, recorded on one evaluation
+    and replayed on another.
+
+    chunk_terms has kinks where its derivative jumps: the minimum of two
+    values, clip01's bounds, |x| and the inside test. Where a pixel sits on
+    a kink in exact arithmetic (an edge through a pixel, a barycentric of
+    exactly 0), rounding picks the side, so a float64 evaluation can take
+    another branch than the float32 kernel and differ from it by a whole
+    pair's gradient. Recorded on a float32 evaluation and replayed in
+    float64, the decisions give the float64 reference of the kernel's own
+    branches (``soft_agg_bwd_reference(branches_from=...)``). A minimum's
+    decision is the weight of its first argument: 1 where it is the
+    smaller, 1/2 on a tie (the gradient's split), 0 else."""
+
+    def __init__(self):
+        self.decisions = []
+        self.replaying = False
+        self._next = 0
+
+    def replay(self) -> "Kinks":
+        self.replaying, self._next = True, 0
+        return self
+
+    def decide(self, make):
+        if self.replaying:
+            self._next += 1
+            return self.decisions[self._next - 1]
+        self.decisions.append(make())
+        return self.decisions[-1]
+
+
+def minimum(a, b, kinks: Kinks | None = None):
+    """``torch.minimum`` (half the gradient to each side of a tie, as
+    ``jnp.minimum``); replaying ``kinks``, the recorded weighting."""
+    if kinks is None:
+        return torch.minimum(a, b)
+    w = kinks.decide(lambda: torch.where(a < b, 1.0,
+                                         torch.where(a == b, 0.5, 0.0)))
+    if not kinks.replaying:
+        return torch.minimum(a, b)
+    w = w.to(a.dtype)
+    return w * a + (1.0 - w) * b
+
+
+def clip01(x: torch.Tensor, kinks: Kinks | None = None) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)``: maximum then minimum, each passing half the
+    gradient on a tie, as JAX's do (``torch.clamp`` passes all of it)."""
+    zeros = torch.zeros_like(x)
+    return minimum(-minimum(-x, zeros, kinks), zeros + 1.0, kinks)
+
+
+def absolute(x: torch.Tensor, kinks: Kinks | None = None) -> torch.Tensor:
+    """``x.abs()``; replaying ``kinks``, the recorded sign times x."""
+    if kinks is None:
+        return x.abs()
+    sign = kinks.decide(lambda: torch.sign(x))
+    return sign.to(x.dtype) * x if kinks.replaying else x.abs()
+
+
+def log_sigmoid(x: torch.Tensor, kinks: Kinks | None = None) -> torch.Tensor:
+    """``jax.nn.log_sigmoid`` op by op, ``min(x, 0) - log1p(exp(-|x|))``;
+    its derivative is sigmoid(-x) (one half at 0, through the tie)."""
+    return minimum(x, torch.zeros_like(x), kinks) - torch.log1p(
+        torch.exp(-absolute(x, kinks)))
+
+
+def chunk_terms(cs: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                es: float, zs: float, kinks: Kinks | None = None):
+    """Per-(row, pixel) logit and the 10 attribute values of one chunk
+    (``_chunk_terms``): cs (C, 32), px, py (P,). Returns (logit (C, P),
+    vals), vals[j] (C, P) or (C, 1) where a value is the row's own.
+    ``kinks`` records or replays the branch decisions (Kinks)."""
+    def col(j):
+        return cs[:, j:j + 1]
+
+    px = px[None, :]
+    py = py[None, :]
+    ax, ay, bx, by, cx, cy = (col(j) for j in range(6))
+
+    def edge_raw(x0, y0, x1, y1):
+        return (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
+
+    # Raw edge values double as barycentric numerators (`:179-182`).
+    r0 = edge_raw(ax, ay, bx, by)
+    r1 = edge_raw(bx, by, cx, cy)
+    r2 = edge_raw(cx, cy, ax, ay)
+    hp_min = minimum(minimum(r0 * col(6), r1 * col(7), kinks), r2 * col(8),
+                     kinks)
+
+    def seg2(x0, y0, x1, y1):
+        ex = x1 - x0
+        ey = y1 - y0
+        rec = 1.0 / (ex * ex + ey * ey + 1e-12)
+        tpar = clip01(((px - x0) * ex + (py - y0) * ey) * rec, kinks)
+        dx = px - (x0 + tpar * ex)
+        dy = py - (y0 + tpar * ey)
+        return dx * dx + dy * dy + 1e-20
+
+    seg_min = torch.sqrt(minimum(
+        minimum(seg2(ax, ay, bx, by), seg2(bx, by, cx, cy), kinks),
+        seg2(cx, cy, ax, ay), kinks))
+    inside = hp_min >= 0.0 if kinks is None else kinks.decide(
+        lambda: hp_min >= 0.0)
+    sdist = torch.where(inside, hp_min, -seg_min)
+
+    l0 = r1 * col(9)
+    l1 = r2 * col(9)
+    l2 = 1.0 - l0 - l1
+    l0c, l1c, l2c = clip01(l0, kinks), clip01(l1, kinks), clip01(l2, kinks)
+    lrec = 1.0 / (l0c + l1c + l2c + 1e-12)
+    l0c, l1c, l2c = l0c * lrec, l1c * lrec, l2c * lrec
+    zpx = l0c * col(10) + l1c * col(11) + l2c * col(12)
+    logit = (zs * zpx + log_sigmoid(es * sdist, kinks)
+             + torch.log(col(28) + 1e-20))
+    pnum = [l0c * col(13 + j) + l1c * col(16 + j) + l2c * col(19 + j)
+            for j in range(3)]
+    vals = [col(22 + j) for j in range(3)] + pnum + [zpx] + [
+        col(25 + j) for j in range(3)]
+    return logit, vals
+
+
+def _chunks_kept(mask, n_chunks: int) -> list:
+    """Which chunks any pixel keeps (all of them without a mask), read once
+    on the host."""
+    if mask is None:
+        return [True] * n_chunks
+    return mask.any(dim=1).tolist()
+
+
+def soft_agg_reference(consts, coords, mask, es: float, zs: float,
+                       chunk: int):
+    """Plain PyTorch version of K9a (mask None) and K9b, on any device and
+    in any float type: consts (Tp, 32) in chunks of ``chunk`` rows, coords
+    (2, R) pixel x, y, mask None or (n_chunks, R) bool (the keep-mask
+    expanded to pixels). A chunk a pixel does not keep leaves its carry
+    exactly as it was. Returns agg (10, R), m (R,), s (R,)."""
+    px, py = coords[0], coords[1]
+    R = px.shape[0]
+    m = px.new_zeros(R)
+    s = px.new_ones(R)
+    acc = px.new_zeros(N_CH, R)
+    n_chunks = consts.shape[0] // chunk
+    for c, kept in enumerate(_chunks_kept(mask, n_chunks)):
+        if not kept:
+            continue
+        logit, vals = chunk_terms(consts[c * chunk:(c + 1) * chunk], px, py,
+                                  es, zs)
+        m_new = torch.maximum(m, logit.max(dim=0).values)
+        scale = torch.exp(m - m_new)
+        w = torch.exp(logit - m_new)
+        s_new = s * scale + w.sum(dim=0)
+        acc_new = acc * scale + torch.stack([(w * v).sum(dim=0)
+                                             for v in vals])
+        if mask is None:
+            m, s, acc = m_new, s_new, acc_new
+        else:
+            keep = mask[c]
+            m = torch.where(keep, m_new, m)
+            s = torch.where(keep, s_new, s)
+            acc = torch.where(keep, acc_new, acc)
+    return acc * (1.0 / s), m, s
+
+
+def soft_agg_bwd_reference(consts, coords, mask, m, cot, es: float,
+                           zs: float, chunk: int,
+                           branches_from=None) -> torch.Tensor:
+    """Plain PyTorch version of K9c (mask None) and K9d, on any device and
+    in any float type: each chunk recomputed at the saved m (R,), a
+    constant, and differentiated by autograd against the cotangent rows cot
+    (11, R) = [d s, d acc_0..9], as ``_bwd_kernel``'s in-kernel ``jax.vjp``
+    does. Pairs a mask drops take no part. Returns d consts (Tp, 32).
+
+    branches_from: None, or a float32 table of the same rows whose branch
+    decisions (Kinks) the evaluation takes, for a float64 reference of the
+    float32 kernel."""
+    px, py = coords[0], coords[1]
+    dc = torch.zeros_like(consts)
+    n_chunks = consts.shape[0] // chunk
+    with torch.enable_grad():
+        for c, kept in enumerate(_chunks_kept(mask, n_chunks)):
+            if not kept:
+                continue
+            rows = slice(c * chunk, (c + 1) * chunk)
+            kinks = None
+            if branches_from is not None:
+                kinks = Kinks()
+                with torch.no_grad():
+                    chunk_terms(branches_from[rows], px.float(), py.float(),
+                                es, zs, kinks)
+                kinks.replay()
+            cs = consts[rows].detach().requires_grad_()
+            logit, vals = chunk_terms(cs, px, py, es, zs, kinks)
+            w = torch.exp(logit - m)
+            if mask is not None:
+                w = torch.where(mask[c], w, 0.0)
+            outs = [w.sum(dim=0)] + [(w * v).sum(dim=0) for v in vals]
+            (dc[rows],) = torch.autograd.grad(
+                outs, cs, grad_outputs=list(cot))
+    return dc
+
+
+def pixel_coords(H: int, W: int, device, dtype=torch.float32):
+    """(2, H*W) integer pixel coordinates x, y, row-major."""
+    return torch.stack(pixel_grid(H, W, device)).to(dtype)
+
+
+def expand_mask(mask: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The (n_tiles, n_chunks) keep-mask over TILE x TILE tiles as an
+    (n_chunks, H*W) bool mask of pixels."""
+    px, py = pixel_grid(H, W, mask.device)
+    tile = (py.long() // TILE) * -(-W // TILE) + px.long() // TILE
+    return (mask[tile] != 0).T
+
+
+def _check(consts, H: int, W: int, chunk: int, mask=None, m=None, cot=None):
+    """Raise on what the kernels do not take."""
+    Tp = consts.shape[0]
+    if consts.dtype != torch.float32 or consts.dim() != 2 or \
+            consts.shape[1] != CONST_COLS or not consts.is_contiguous():
+        raise ValueError(f"consts: expected a contiguous (Tp, {CONST_COLS}) "
+                         f"float32 tensor, got {consts.dtype} "
+                         f"{tuple(consts.shape)}")
+    if not 1 <= chunk <= MAX_CHUNK or Tp < chunk or Tp % chunk:
+        raise ValueError(f"chunk must be 1..{MAX_CHUNK} and divide Tp = {Tp},"
+                         f" got {chunk}")
+    if H < 1 or W < 1:
+        raise ValueError(f"empty image {H}x{W}")
+    R = H * W
+    if mask is not None:
+        shape = (-(-H // TILE) * -(-W // TILE), Tp // chunk)
+        if mask.dtype != torch.int32 or tuple(mask.shape) != shape or \
+                not mask.is_contiguous() or mask.device != consts.device:
+            raise ValueError(f"mask: expected a contiguous int32 {shape} "
+                             f"tensor on {consts.device}, got {mask.dtype} "
+                             f"{tuple(mask.shape)} on {mask.device}")
+    for name, t, shape in (("m", m, (R,)), ("cot", cot, (1 + N_CH, R))):
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) !=
+                              shape or not t.is_contiguous() or
+                              t.device != consts.device):
+            raise ValueError(f"{name}: expected a contiguous float32 {shape} "
+                             f"tensor on {consts.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_fwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
+                      zs: float, agg, m, s) -> None:
+    """Launch K9a (mask None) or K9b into the outputs the caller allocated.
+    Checks nothing and counts nothing; the wrapper does both."""
+    err = _build.load().raytpu_soft_raster_fwd(
+        consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, es, zs,
+        agg.data_ptr(), m.data_ptr(), s.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"soft_raster_fwd launch failed: CUDA error {err}")
+
+
+def bwd_groups(n_chunks: int, H: int, W: int) -> int:
+    """The backward's pixel-tile groups a chunk: BWD_BLOCKS blocks spread
+    over the chunks, at most one group a tile."""
+    n_tiles = -(-H // TILE) * -(-W // TILE)
+    return max(1, min(n_tiles, -(-BWD_BLOCKS // n_chunks)))
+
+
+def launch_bwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
+                      zs: float, m, cot, partials, dc) -> None:
+    """Launch K9c (mask None) or K9d and the sum of its partials (groups,
+    Tp, 32) into dc (Tp, 32), all allocated by the caller. Checks nothing
+    and counts nothing; the wrapper does both."""
+    err = _build.load().raytpu_soft_raster_bwd(
+        consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, es, zs,
+        m.data_ptr(), cot.data_ptr(), partials.shape[0], partials.data_ptr(),
+        dc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"soft_raster_bwd launch failed: CUDA error {err}")
+
+
+def soft_agg_fwd(consts: torch.Tensor, H: int, W: int, chunk: int,
+                 mask: torch.Tensor | None, es: float, zs: float):
+    """K9a's (mask None) and K9b's wrapper: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. consts (Tp, 32) in chunks of
+    ``chunk`` <= 32 rows; mask None or (n_tiles, n_chunks) int32 over
+    TILE x TILE tiles (tile_rects). Returns agg (10, H*W), m, s (H*W,)."""
+    global LAUNCHES_SOFT_FWD, LAUNCHES_SOFT_FWD_MASKED
+    if not _route(consts):
+        return soft_agg_reference(
+            consts, pixel_coords(H, W, consts.device, consts.dtype),
+            None if mask is None else expand_mask(mask, H, W), es, zs, chunk)
+    _check(consts, H, W, chunk, mask)
+    R = H * W
+    agg = torch.empty((N_CH, R), dtype=torch.float32, device=consts.device)
+    m = torch.empty((R,), dtype=torch.float32, device=consts.device)
+    s = torch.empty((R,), dtype=torch.float32, device=consts.device)
+    with torch.cuda.device(consts.device):
+        launch_fwd_kernel(consts, H, W, chunk, mask, es, zs, agg, m, s)
+    if mask is None:
+        LAUNCHES_SOFT_FWD += 1
+    else:
+        LAUNCHES_SOFT_FWD_MASKED += 1
+    return agg, m, s
+
+
+def soft_agg_bwd(consts: torch.Tensor, m: torch.Tensor, cot: torch.Tensor,
+                 H: int, W: int, chunk: int, mask: torch.Tensor | None,
+                 es: float, zs: float) -> torch.Tensor:
+    """K9c's (mask None) and K9d's wrapper: the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors. m (H*W,) the forward's
+    saved max, cot (11, H*W) = [d s, d acc_0..9]; the rest as soft_agg_fwd.
+    Returns d consts (Tp, 32), zero in columns 29-31."""
+    global LAUNCHES_SOFT_BWD, LAUNCHES_SOFT_BWD_MASKED
+    if not _route(consts):
+        return soft_agg_bwd_reference(
+            consts, pixel_coords(H, W, consts.device, consts.dtype),
+            None if mask is None else expand_mask(mask, H, W), m, cot, es,
+            zs, chunk)
+    _check(consts, H, W, chunk, mask, m, cot)
+    Tp = consts.shape[0]
+    groups = bwd_groups(Tp // chunk, H, W)
+    partials = torch.empty((groups, Tp, CONST_COLS), dtype=torch.float32,
+                           device=consts.device)
+    dc = torch.empty_like(consts)
+    with torch.cuda.device(consts.device):
+        launch_bwd_kernel(consts, H, W, chunk, mask, es, zs, m, cot,
+                          partials, dc)
+    if mask is None:
+        LAUNCHES_SOFT_BWD += 1
+    else:
+        LAUNCHES_SOFT_BWD_MASKED += 1
+    return dc
+
+
+class SoftAgg(torch.autograd.Function):
+    """agg (10, H*W) of the (Tp, 32) table (``_soft_agg``), differentiable
+    in consts. The backward forms the cotangent rows as ``_soft_agg_bwd``
+    does (img = acc / s: d acc_j = g_j / s, d s = -(g . img) / s) and runs
+    K9c/K9d (or their plain version)."""
+
+    @staticmethod
+    def forward(ctx, consts, H: int, W: int, chunk: int, mask, es: float,
+                zs: float):
+        agg, m, s = soft_agg_fwd(consts, H, W, chunk, mask, es, zs)
+        ctx.save_for_backward(consts, agg, m, s)
+        ctx.args = (H, W, chunk, mask, es, zs)
+        return agg
+
+    @staticmethod
+    def backward(ctx, g):
+        consts, agg, m, s = ctx.saved_tensors
+        H, W, chunk, mask, es, zs = ctx.args
+        srec = 1.0 / s
+        da = g * srec
+        ds = -(g * agg).sum(dim=0, keepdim=True) * srec
+        cot = torch.cat([ds, da]).contiguous()
+        dc = soft_agg_bwd(consts.contiguous(), m, cot, H, W, chunk, mask,
+                          es, zs)
+        return dc, None, None, None, None, None, None
+
+
+def soft_chunk_bounds(consts: torch.Tensor, chunk: int):
+    """Each chunk's screen box [xmin, ymin, xmax, ymax] (n_chunks, 4), its
+    largest vertex zinv clamped at 0 (n_chunks,) and whether it has any
+    row (``soft_chunk_bounds``). All-zero rows (chunk padding) are left
+    out; every other row, valid or not, is covered: the kernel gives it a
+    finite logit."""
+    c = consts.reshape(-1, chunk, CONST_COLS)
+    row_used = (c != 0.0).any(dim=-1)
+    xs = torch.stack([c[..., 0], c[..., 2], c[..., 4]], -1)
+    ys = torch.stack([c[..., 1], c[..., 3], c[..., 5]], -1)
+    zi = torch.stack([c[..., 10], c[..., 11], c[..., 12]], -1)
+    big = 3.0e38
+    m3 = row_used[..., None]
+
+    def reduce(a, lo: bool):
+        a = torch.where(m3, a, big if lo else -big).reshape(a.shape[0], -1)
+        return a.min(dim=1).values if lo else a.max(dim=1).values
+
+    zmax = torch.clamp_min(reduce(zi, False), 0.0)
+    boxes = torch.stack([reduce(xs, True), reduce(ys, True),
+                         reduce(xs, False), reduce(ys, False)], dim=1)
+    return boxes, zmax, row_used.any(dim=1)
+
+
+def soft_keep_mask(rects: tuple, consts: torch.Tensor, es: float, zs: float,
+                   chunk: int) -> torch.Tensor:
+    """Conservative (n_tiles, n_chunks) int32 keep-mask for K9b/K9d
+    (``soft_keep_mask``), for tiles given as rectangles (xmin, xmax, ymin,
+    ymax), (n_tiles,) each (tile_rects).
+
+    A chunk may be skipped for a tile when every pixel of the tile is
+    farther than delta_c = (zs * zmax_c + 46) / es from the chunk's screen
+    box: a dropped row's logit is then at most -46, a weight of 1e-20 of the
+    background's, and so is its gradient."""
+    xmin, xmax, ymin, ymax = rects
+    boxes, zmax, nonempty = soft_chunk_bounds(consts, chunk)
+    delta = (zs * zmax + CULL_MARGIN) / es
+
+    def axis_gap(tlo, thi, clo, chi):
+        gap = torch.maximum(clo[None, :] - thi[:, None],
+                            tlo[:, None] - chi[None, :])
+        return torch.clamp_min(gap, 0.0)
+
+    dx = axis_gap(xmin, xmax, boxes[:, 0], boxes[:, 2])
+    dy = axis_gap(ymin, ymax, boxes[:, 1], boxes[:, 3])
+    # Relative and absolute slack on the comparison (boxes at ~1e3 px).
+    lim = delta[None, :] * 1.001 + 0.5
+    keep = (dx * dx + dy * dy <= lim * lim) & nonempty[None, :]
+    return keep.to(torch.int32)
+
+
+def cull_block(tile_p: int, H: int, W: int):
+    """``_cull_block``: the (th, tw) pixel block of the JAX package's
+    culled path, or None when H x W does not block evenly into tile_p
+    pixels."""
+    tw = 32
+    while tw > 1 and (tile_p % tw or W % tw):
+        tw //= 2
+    th = tile_p // tw
+    if tile_p % tw or H % th or W % tw:
+        return None
+    return th, tw
+
+
+def use_cull(cull: bool | None, n_chunks: int, H: int, W: int) -> bool:
+    """Whether the frame culls, as ``rasterize_soft_pallas`` decides: cull
+    None culls where there is more than one chunk and the image blocks into
+    the JAX package's 1,024-pixel tiles; cull True where it does not block
+    raises ValueError, as there."""
+    blk = cull_block(JAX_TILE_P, H, W)
+    if cull is None:
+        return n_chunks > 1 and blk is not None
+    if cull and blk is None:
+        raise ValueError(f"cull=True needs H, W to tile into 2D blocks for "
+                         f"tile_p {JAX_TILE_P}; got {H}x{W}")
+    return cull
+
+
+def soft_inputs(scene, camera, cfg, cull: bool | None = None,
+                chunk: int = MAX_CHUNK):
+    """The kernels' inputs for a soft frame, as ``rasterize_soft_pallas``
+    builds them: the (Tp, 32) table padded to a whole number of chunks of
+    min(chunk, max(T, 8)) rows (T == 0 takes one all-invalid chunk, the
+    background), the keep-mask where ``use_cull`` culls (else None), and
+    the sharpness. Returns (consts, chunk, mask, es, zs); consts carries
+    the autograd graph of the scene and camera."""
+    from raytpu_torch.render.soft import _screen_vertices
+
+    H, W = cfg.height, cfg.width
+    sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
+    consts = soft_tri_constants(sx, sy, zinv, pos3d, scene.color,
+                                scene.normals(), scene.active)
+    T = consts.shape[0]
+    chunk = min(chunk, max(T, 8))
+    pad = chunk if T == 0 else (-T) % chunk
+    if pad:
+        consts = torch.cat([consts, consts.new_zeros(pad, CONST_COLS)])
+    es = float(cfg.soft_edge_sharpness)
+    zs = float(cfg.soft_z_sharpness)
+    mask = None
+    if use_cull(cull, consts.shape[0] // chunk, H, W):
+        mask = soft_keep_mask(tile_rects(H, W, consts.device),
+                              consts.detach(), es, zs, chunk)
+    return consts, chunk, mask, es, zs
+
+
+def rasterize_soft_kernel(scene, camera, lights, cfg, cull: bool | None = None,
+                          chunk: int = MAX_CHUNK) -> torch.Tensor:
+    """The soft frame through K9a/K9b (``rasterize_soft_pallas``); returns
+    (H, W, 3). Gradients reach the scene (``active`` too, through
+    log(valid)), the camera (through the screen vertices) and the lights
+    (through the shading). Inputs: ``soft_inputs``."""
+    from raytpu_torch.render.soft import shade_agg_raster
+
+    consts, chunk, mask, es, zs = soft_inputs(scene, camera, cfg, cull, chunk)
+    H, W = cfg.height, cfg.width
+    agg = SoftAgg.apply(consts, H, W, chunk, mask, es, zs).T
+    img = shade_agg_raster(agg[:, 0:3], agg[:, 3:6], agg[:, 6], agg[:, 7:10],
+                           camera, lights, float(np.float32(cfg.ambient)))
+    return img.reshape(H, W, 3)

@@ -11,7 +11,9 @@ The pixel-major redesign of the reference's scanline rasteriser
     ``rasterize_exact``: the winner search runs in the raster kernels
     (K8b for one triangle chunk, K8c for several) on CUDA tensors.
     As in the JAX package it ignores DoF (ROADMAP fault F9).
-  * 'soft'   — not ported yet (ROADMAP.md port item 6).
+  * 'soft'   — the differentiable rasterizer, render/soft.py
+    ``rasterize_soft``, through the soft raster kernels (K9a/K9b forward,
+    K9c/K9d backward) on CUDA tensors; no DoF, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ def rasterize(scene: Scene, camera: Camera, lights: Lights,
               cfg: RenderConfig) -> torch.Tensor:
     """Render and return the (H, W, 3) float32 image."""
     if cfg.mode == "soft":
-        return rasterize_soft(scene, camera, lights, cfg)
+        return rasterize_soft(scene, camera, lights.compact(), cfg)
     if cfg.mode == "clean":
         return rasterize_exact(scene, camera, lights.compact(), cfg)
     return rasterize_full(scene, camera, lights, cfg).image

@@ -92,7 +92,7 @@ def _check_scope(scene: Scene, lights: Lights, cfg: RenderConfig):
     the JAX package silently repeats the bank's last jittered position)."""
     gaps = []
     if cfg.mode not in ("clean", "parity"):
-        gaps.append(f"mode {cfg.mode!r}: port item 6 (soft renderers)")
+        gaps.append(f"mode {cfg.mode!r}: port item 6b (the soft raytracer)")
     if scene.num_triangles > MAX_CHUNK:
         gaps.append(f"{scene.num_triangles} triangles: port item 4 "
                     "(STL scale)")

@@ -1,18 +1,29 @@
-"""The hard limit of the soft rasterizer (counterpart of the hard-limit
-pieces of raytpu/render/soft.py): ``rasterize_exact``, the float-precise
-hard rasterizer of mode 'clean'.
+"""The soft rasterizer and the hard limit of the soft paths (counterpart of
+the rasterizer half of raytpu/render/soft.py).
 
-Screen vertices are floats (no truncation); a pixel's winner is the first
-triangle with the largest covered zinv at its integer corner, found by the
-raster kernels (raytpu_torch.kernels.raster: K8b for one chunk, K8c for
-several) on constants computed from detached tensors: the winner is
-piecewise constant. Only the winner's attributes are then recomputed
-(``_shade_winner``) and shaded without shadows, and autograd
-differentiates that recompute, as ``jax.grad`` does through the JAX
-package's stop_gradient'ed winner.
+  * ``rasterize_soft`` — the differentiable rasterizer: per pixel, a
+    softmax over triangle logits ``zs * zinv + log_sigmoid(es * sdist) +
+    log(valid)`` and a background at logit 0 (the reference's cleared depth
+    buffer, `rasteriser.cpp:188,606`) aggregates attributes (albedo, pos3d
+    numerator, zinv, normal); ``shade_agg_raster`` shades the aggregate
+    once per pixel. The aggregation runs in the soft raster kernels
+    (raytpu_torch.kernels.soft_raster: K9a/K9b forward, K9c/K9d backward)
+    on CUDA tensors and in their plain versions on the CPU. The JAX
+    package's jnp streaming path (chunks of ``raster_tri_chunk``) is its
+    kernel's math reassociated; the port has the kernel's math only.
+  * ``rasterize_exact`` — the float-precise HARD rasterizer of mode
+    'clean', the soft path's limit. Screen vertices are floats (no
+    truncation); a pixel's winner is the first triangle with the largest
+    covered zinv at its integer corner, found by the raster kernels
+    (raytpu_torch.kernels.raster: K8b for one chunk, K8c for several) on
+    constants computed from detached tensors: the winner is piecewise
+    constant. Only the winner's attributes are then recomputed
+    (``_shade_winner``) and shaded without shadows, and autograd
+    differentiates that recompute, as ``jax.grad`` does through the JAX
+    package's stop_gradient'ed winner.
 
-The soft renderers themselves (``rasterize_soft``, ``raytrace_soft``) are
-ROADMAP.md port item 6.
+``raytrace_soft`` (with ``_soft_shadow_factor`` and kernels K10a-l) is
+ROADMAP.md port item 6b.
 """
 
 from __future__ import annotations
@@ -29,26 +40,47 @@ from raytpu_torch.core.types import (
     pixel_grid,
 )
 from raytpu_torch.kernels.raster import raster_tri_constants, resolve_winner
+from raytpu_torch.kernels.soft_raster import clip01, rasterize_soft_kernel
 from raytpu_torch.ops.intersect import gather_rows, one_hot_idx
 from raytpu_torch.ops.raster import cull_mask, glm_inverse3
 from raytpu_torch.ops.shade import irradiance_no_shadow
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} (mode 'soft'): ROADMAP.md port item 6 (soft renderers)")
-
-
 def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
                    cfg: RenderConfig) -> torch.Tensor:
-    """Not ported yet: ROADMAP.md port item 6."""
-    _not_ported("rasterize_soft")
+    """Differentiable rasterize; returns (H, W, 3). Soft z-buffer through
+    the soft raster kernels (``rasterize_soft_kernel``, the JAX package's
+    ``rasterize_soft_pallas``), culling chunks where the JAX package
+    would."""
+    return rasterize_soft_kernel(scene, camera, lights, cfg)
 
 
 def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
                   cfg: RenderConfig) -> torch.Tensor:
-    """Not ported yet: ROADMAP.md port item 6."""
-    _not_ported("raytrace_soft")
+    """Not ported yet: ROADMAP.md port item 6b (the soft raytracer)."""
+    raise NotImplementedError(
+        "raytrace_soft (mode 'soft' of the raytracer): ROADMAP.md port item "
+        "6b (the soft raytracer, kernels K10a-l)")
+
+
+def shade_agg_raster(alb, ppx, zpx, nrm, camera: Camera, lights: Lights,
+                     ambient: float) -> torch.Tensor:
+    """Shade the aggregated raster surface once per pixel: the world point
+    rebuilt from the aggregated pos3d numerator and zinv (in the hard limit
+    the winner's `rasteriser.cpp:557` reconstruction), then irradiance
+    without shadows. alb, ppx, nrm (..., 3); zpx (...,); returns (..., 3).
+
+    ``zpx > 1e-6`` gates the division, not an epsilon guard as in
+    ``_shade_winner``: background-dominated pixels have zpx ~ 0, and a
+    1e-12 guard would amplify their cotangents by 1 / zpx^2 although the
+    forward is masked by their near-zero albedo; there the point is shaded
+    at z = 1 with bounded gradients."""
+    inv_rot = glm_inverse3(camera.rotation())
+    vis = zpx > 1e-6
+    zsafe = torch.where(vis, zpx, 1.0)
+    world = matmul3(ppx / zsafe[..., None], inv_rot) + camera.pos
+    irr = irradiance_no_shadow(world, nrm, lights)
+    return alb * (irr + float(np.float32(ambient)))
 
 
 def _screen_vertices(scene: Scene, camera: Camera, cfg: RenderConfig):
@@ -82,13 +114,6 @@ def rasterize_exact(scene: Scene, camera: Camera, lights: Lights,
     img = _shade_winner(winner, px, py, sx, sy, zinv, pos3d, scene, camera,
                         lights, cfg)
     return img.reshape(H, W, 3)
-
-
-def _clip01(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.clip(x, 0, 1)``: maximum then minimum, each passing half the
-    gradient on a tie, as JAX's do."""
-    return torch.minimum(torch.maximum(x, torch.zeros_like(x)),
-                         torch.ones_like(x))
 
 
 def _shade_winner(winner, px, py, sx, sy, zinv, pos3d, scene: Scene,
@@ -127,7 +152,7 @@ def _shade_winner(winner, px, py, sx, sy, zinv, pos3d, scene: Scene,
     l0 = ((bx - px) * (cy - py) - (by - py) * (cx - px)) / area_safe
     l1 = ((cx - px) * (ay - py) - (cy - py) * (ax - px)) / area_safe
     l2 = 1.0 - l0 - l1
-    l0c, l1c, l2c = _clip01(l0), _clip01(l1), _clip01(l2)
+    l0c, l1c, l2c = clip01(l0), clip01(l1), clip01(l2)
     lsum = l0c + l1c + l2c + 1e-12
     l0c, l1c, l2c = l0c / lsum, l1c / lsum, l2c / lsum
 

@@ -16,14 +16,16 @@ the CPU), with the JAX viewer's key map:
   9             depth-of-field toggle               `raytracer.cpp:450-460`
   ] / [         focal length +/- 0.1 (px scale ~ +/-10)  `raytracer.cpp:462-473`
   2 / 3         spawn random light / delete last    `raytracer.cpp:520-539`
-  0             clean <-> soft: not ported yet (ROADMAP.md port item 6);
-                answered with HTTP 501
+  0             clean <-> soft (the differentiable render): the
+                rasterizer's soft frame runs the soft raster kernels (K9a);
+                the raytracer's is port item 6b, answered with HTTP 501
 
 The raytracer's keys 7, 8 and 2 move a frame off the fused forward kernel
 onto the loop branch of raytrace_full. The rasterizer (``renderer=
 "rasterize"``) renders through render.rasterize: parity mode as plain
-torch, clean mode through the raster kernels; it ignores the AA and
-soft-shadow settings that keys 7 and 8 change, as the JAX viewer's does.
+torch, clean mode through the raster kernels, soft mode (key 0) through
+the soft raster kernels; it ignores the AA and soft-shadow settings that
+keys 7 and 8 change, as the JAX viewer's does.
 
 Run:  raytpu-torch view [--renderer raytrace|rasterize] [--width W
       --height H] [--port P] [--device cuda|cpu]
@@ -103,7 +105,8 @@ class ViewerApp:
     def handle_key(self, key: str) -> dict:
         """Apply one key event (the reference's Update()), render, and
         return the new state. Raises KeyError for an unknown key and
-        NotImplementedError for key 0, before changing any state."""
+        NotImplementedError for the raytracer's key 0, before changing any
+        state."""
         with self.lock:
             if key in _MOVE_KEYS:
                 apply_key = (apply_key_raytracer
@@ -141,10 +144,13 @@ class ViewerApp:
                                               generator=generator)
             elif key == "3":  # delete the most recent light
                 self.lights = self.lights.delete_last()
-            elif key == "0":
-                raise NotImplementedError(
-                    "key 0 (clean <-> soft render): ROADMAP.md port item 6 "
-                    "(soft renderers)")
+            elif key == "0":  # clean <-> soft (differentiable) render
+                if self.renderer == "raytrace":
+                    raise NotImplementedError(
+                        "key 0 (clean <-> soft render) of the raytracer: "
+                        "ROADMAP.md port item 6b (the soft raytracer)")
+                new_mode = "soft" if self.cfg.mode != "soft" else "clean"
+                self.cfg = self.cfg.replace(mode=new_mode)
             elif key != "none":
                 raise KeyError(key)
             self.render()
@@ -173,7 +179,7 @@ _PAGE = """<!doctype html>
  #hud { margin-top:.6em; white-space:pre }
 </style></head><body>
 <div>raytpu live viewer — arrows: move/turn · wasd: light · 7 AA · 8 soft
- shadows · 9 DoF · [ ] focal · 2/3 add/del light</div>
+ shadows · 9 DoF · [ ] focal · 2/3 add/del light · 0 soft</div>
 <img id="fb" src="/frame.bmp">
 <div id="hud">connecting…</div>
 <script>

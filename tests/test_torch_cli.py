@@ -22,6 +22,7 @@ from raytpu.core.types import Lights as JaxLights
 from raytpu.core.types import RenderConfig as JaxRenderConfig
 from raytpu.render import animate as jax_animate
 from raytpu.render.raytrace import raytrace as jax_raytrace
+from raytpu.render.soft import rasterize_soft as jax_rasterize_soft
 
 from raytpu_torch import convert
 from raytpu_torch.cli import main as cli_main
@@ -30,8 +31,10 @@ from raytpu_torch.core.cornell import cornell_box
 from raytpu_torch.core.image import quantize_u8, read_bmp
 from raytpu_torch.core.types import Camera, Lights, RenderConfig
 from raytpu_torch.kernels import render_fused
+from raytpu_torch.opt.fit import FitConfig, fit
 from raytpu_torch.render import animate
 from raytpu_torch.render.raytrace import raytrace
+from raytpu_torch.render.soft import rasterize_soft
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -163,3 +166,60 @@ def test_animate_renders_one_frame_per_key():
         animate.animate(cornell_box(device="cpu"),
                         Camera.raytracer_default(device="cpu"),
                         Lights.single(capacity=1, device="cpu"), cfg, [])
+
+
+def test_fit_cli_trains_on_cpu(tmp_path, capsys):
+    """``fit TARGET --device cpu``: the JAX CLI's set-up (the box, camera
+    (0, 0, -3) at focal = the target's width, y_scale 1.01, one light at
+    --init-intensity), the fit's final loss printed, the result rendered
+    at sharpness 400 / 4000 to --output."""
+    from raytpu_torch.core.image import write_bmp
+    W, H = 24, 20
+    camera = Camera.make((0.0, 0.0, -3.0), focal=float(W), y_scale=1.01,
+                         device="cpu")
+    cfg = RenderConfig(width=W, height=H, mode="soft")
+    with torch.no_grad():
+        img = rasterize_soft(cornell_box(device="cpu"), camera,
+                             Lights.single(capacity=1, device="cpu"),
+                             cfg.replace(soft_edge_sharpness=40.0,
+                                         soft_z_sharpness=200.0))
+    target = tmp_path / "target.bmp"
+    write_bmp(str(target), img.numpy())
+    out = tmp_path / "fit.bmp"
+    main(["fit", str(target), "--device", "cpu", "--steps", "4", "-o",
+          str(out)])
+    printed = capsys.readouterr().out
+    want = fit(read_bmp(str(target)).astype(np.float32) / 255.0,
+               cornell_box(device="cpu"), camera,
+               Lights.single(capacity=1, intensity=10.0, device="cpu"), cfg,
+               FitConfig(steps=4))
+    assert f"final loss: {want.losses[-1]:.6f}" in printed
+    assert want.losses[-1] < want.losses[0]
+    with torch.no_grad():
+        frame = rasterize_soft(want.scene, camera, want.lights,
+                               cfg.replace(soft_edge_sharpness=400.0,
+                                           soft_z_sharpness=4000.0))
+    np.testing.assert_array_equal(read_bmp(str(out)),
+                                  quantize_u8(frame.numpy()))
+    for flags, item in ((["--mesh", "2x2"], "item 8"),
+                        (["--renderer", "raytrace"], "item 6b")):
+        with pytest.raises(NotImplementedError, match=item):
+            main(["fit", str(target), "--device", "cpu", "--steps", "1",
+                  "-o", str(tmp_path / "x.bmp"), *flags])
+
+
+def test_rasterize_cli_soft_writes_the_jax_frame(tmp_path):
+    """``rasterize --mode soft`` at an off-grid camera (ROADMAP fault F4)
+    against the JAX package's soft frame, u8 within 1."""
+    out = tmp_path / "soft.bmp"
+    pos = (0.011, -0.007, -3.013)
+    main(["rasterize", "--device", "cpu", "--mode", "soft", "--width", "32",
+          "--height", "24", "--focal", "32.23", "--camera-pos",
+          *map(str, pos), "-o", str(out)])
+    want = quantize_u8(np.asarray(jax_rasterize_soft(
+        jax_cornell_box(), JaxCamera.make(pos, focal=32.23, dof_focus=1.9),
+        JaxLights.single(capacity=1),
+        JaxRenderConfig(width=32, height=24, mode="soft"))))
+    got = read_bmp(str(out))
+    assert got.shape == (24, 32, 3) and got.max() > 80
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1

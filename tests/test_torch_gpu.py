@@ -437,3 +437,171 @@ def test_raster_wrappers_check_their_inputs(cuda):
         raster.raster_winner_masked(consts.double(), 64, 64, mask, 128)
     with pytest.raises(ValueError):
         raster.raster_winner_masked(consts, 80, 64, mask, 128)
+
+
+def _soft_case(device, name, size=64):
+    """The soft kernels' inputs at a small size: the (Tp, 32) table, its
+    chunk, sharpness and, for the mesh, its keep-mask. 'cornell': the box
+    padded to 32 (one chunk, K9a/K9c); 'mesh': the 800-triangle procedural
+    mesh padded to 832 (26 chunks, K9b/K9d with soft_keep_mask)."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.kernels import soft_raster as sr
+    from raytpu_torch.kernels.raster import tile_rects
+    from raytpu_torch.render.soft import _screen_vertices
+    es = zs = 40.0
+    if name == "cornell":
+        scene = cornell_box(pad_to=32, device=device)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/mesh.stl"
+            with open(path, "w") as f:
+                f.write(procedural_stl_text(20, 20))
+            scene = load_stl(path, device=device).pad_to(832)
+    camera = Camera.make((0.0, 0.0, -3.0), focal=float(size), y_scale=1.01,
+                         device=device)
+    cfg = RenderConfig(width=size, height=size, mode="soft")
+    with torch.no_grad():
+        sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
+        consts = sr.soft_tri_constants(sx, sy, zinv, pos3d, scene.color,
+                                       scene.normals(), scene.active)
+        mask = None
+        if name == "mesh":
+            mask = sr.soft_keep_mask(tile_rects(size, size, device), consts,
+                                     es, zs, sr.MAX_CHUNK)
+    return dict(consts=consts.contiguous(), chunk=min(32, consts.shape[0]),
+                mask=mask, es=es, zs=zs, H=size, W=size)
+
+
+def _soft_cot(case, seed=0):
+    """(11, R) cotangents of one sign, as chip_smoke.py's: signed ones
+    cancel in the sums over pixels until float32 rounding decides the small
+    entries."""
+    rng = np.random.default_rng(seed)
+    R = case["H"] * case["W"]
+    return torch.tensor(rng.uniform(0.5, 1.5, (11, R)).astype(np.float32),
+                        device=case["consts"].device)
+
+
+# Column groups of the (Tp, 32) table, as chip_smoke.py's SOFT_GROUPS:
+# vertices and edge scales, 1 / area, vertex zinv, the attributes, valid.
+# Each is held to the rule scaled by its own largest entry, since 1 / area's
+# and valid's gradients are orders of magnitude above the others.
+_SOFT_GROUPS = ((0, 32), (0, 9), (9, 10), (10, 13), (13, 28), (28, 29))
+
+
+def _assert_groups_close(got, want):
+    for lo, hi in _SOFT_GROUPS:
+        w = want[:, lo:hi].double()
+        scale = float(w.abs().max())
+        torch.testing.assert_close(got[:, lo:hi].double() / scale, w / scale,
+                                   rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"columns {lo}-{hi - 1}: {m}")
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh"])
+def test_soft_forward_kernels_match_plain_versions(cuda, name):
+    from raytpu_torch.kernels import soft_raster as sr
+    c = _soft_case(cuda, name)
+    args = (c["consts"], c["H"], c["W"], c["chunk"], c["mask"], c["es"],
+            c["zs"])
+    counts = (sr.LAUNCHES_SOFT_FWD, sr.LAUNCHES_SOFT_FWD_MASKED)
+    got, again = sr.soft_agg_fwd(*args), sr.soft_agg_fwd(*args)
+    want = sr.soft_agg_reference(
+        c["consts"], sr.pixel_coords(c["H"], c["W"], cuda),
+        None if c["mask"] is None else sr.expand_mask(c["mask"], c["H"],
+                                                      c["W"]),
+        c["es"], c["zs"], c["chunk"])
+    masked = c["mask"] is not None
+    assert (sr.LAUNCHES_SOFT_FWD, sr.LAUNCHES_SOFT_FWD_MASKED) == (
+        counts[0] + 2 * (not masked), counts[1] + 2 * masked)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    if masked:
+        assert 0.0 < float(c["mask"].float().mean()) < 1.0
+        ones = torch.ones_like(c["mask"])
+        full = sr.soft_agg_fwd(c["consts"], c["H"], c["W"], c["chunk"], ones,
+                               c["es"], c["zs"])
+        plain = sr.soft_agg_fwd(c["consts"], c["H"], c["W"], c["chunk"], None,
+                                c["es"], c["zs"])
+        for f, p, g in zip(full, plain, got):
+            assert torch.equal(f, p)  # K9b with all ones is K9a, bitwise
+            torch.testing.assert_close(g, p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh"])
+def test_soft_backward_kernels_match_plain_float64(cuda, name):
+    """K9c/K9d against the plain backward in float64 with the float32
+    branch decisions (Kinks) and against the plain float32 version, the
+    JAX tests' rule after scaling, over the whole table and over each
+    column group by its own largest entry; two calls bit-identical."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = _soft_case(cuda, name)
+    _, m, _ = sr.soft_agg_fwd(c["consts"], c["H"], c["W"], c["chunk"],
+                              c["mask"], c["es"], c["zs"])
+    cot = _soft_cot(c)
+    args = (c["consts"], m, cot, c["H"], c["W"], c["chunk"], c["mask"],
+            c["es"], c["zs"])
+    got, again = sr.soft_agg_bwd(*args), sr.soft_agg_bwd(*args)
+    pix = None if c["mask"] is None else sr.expand_mask(c["mask"], c["H"],
+                                                        c["W"])
+    want = sr.soft_agg_bwd_reference(
+        c["consts"].double(),
+        sr.pixel_coords(c["H"], c["W"], cuda, torch.float64), pix,
+        m.double(), cot.double(), c["es"], c["zs"], c["chunk"],
+        branches_from=c["consts"])
+    plain32 = sr.soft_agg_bwd_reference(
+        c["consts"], sr.pixel_coords(c["H"], c["W"], cuda), pix, m, cot,
+        c["es"], c["zs"], c["chunk"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all()) and not got[:, 29:].any()
+    _assert_groups_close(got, want)
+    _assert_groups_close(got, plain32)
+
+
+def test_fit_step_launches_k9a_and_k9c_once(cuda):
+    from raytpu_torch.kernels import intersect, raster
+    from raytpu_torch.kernels import soft_raster as sr
+    from raytpu_torch.opt.fit import FitConfig, fit
+
+    def counts():
+        return (render_fused.LAUNCHES, render_fused.LAUNCHES_BWD,
+                render_fused.LAUNCHES_SCATTER, intersect.LAUNCHES_OCCLUDED,
+                intersect.LAUNCHES_OCCLUDED_MULTI, raster.LAUNCHES_WINNER,
+                raster.LAUNCHES_WINNER_MASKED, sr.LAUNCHES_SOFT_FWD,
+                sr.LAUNCHES_SOFT_FWD_MASKED, sr.LAUNCHES_SOFT_BWD,
+                sr.LAUNCHES_SOFT_BWD_MASKED)
+
+    camera = Camera.make((0.0, 0.0, -3.0), focal=48.0, y_scale=1.01,
+                         device=cuda)
+    target = torch.full((40, 48, 3), 0.3, device=cuda)
+    before = counts()
+    res = fit(target, cornell_box(device=cuda), camera,
+              Lights.single(capacity=1, device=cuda),
+              RenderConfig(width=48, height=40, mode="soft"),
+              FitConfig(steps=3, stages=((10.0, 20.0, 1.0),), log_every=0))
+    delta = [a - b for a, b in zip(counts(), before)]
+    assert delta == [0] * 7 + [3, 0, 3, 0]
+    assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
+
+
+def test_soft_wrappers_check_their_inputs(cuda):
+    from raytpu_torch.kernels import soft_raster as sr
+    c = _soft_case(cuda, "mesh")
+    args = (c["H"], c["W"], c["chunk"])
+    with pytest.raises(ValueError):
+        sr.soft_agg_fwd(c["consts"], *args, c["mask"].long(), 40.0, 40.0)
+    with pytest.raises(ValueError):
+        sr.soft_agg_fwd(c["consts"], *args, c["mask"].cpu(), 40.0, 40.0)
+    with pytest.raises(ValueError):
+        sr.soft_agg_fwd(c["consts"].double(), *args, None, 40.0, 40.0)
+    with pytest.raises(ValueError):
+        sr.soft_agg_fwd(c["consts"], c["H"], c["W"], 33, None, 40.0, 40.0)
+    m = torch.zeros(c["H"] * c["W"], device=cuda)
+    with pytest.raises(ValueError):
+        sr.soft_agg_bwd(c["consts"], m, _soft_cot(c)[:10], *args, None, 40.0,
+                        40.0)

@@ -23,7 +23,6 @@ import re
 import signal
 import subprocess
 import sys
-import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -53,7 +52,7 @@ from raytpu_torch.core.types import Camera, Lights, RenderConfig
 from raytpu_torch.kernels import raster as raster_kernels
 from raytpu_torch.render import animate
 from raytpu_torch.render.rasterize import rasterize, rasterize_full
-from raytpu_torch.render.soft import rasterize_exact
+from raytpu_torch.render.soft import rasterize_exact, rasterize_soft
 from raytpu_torch.view import ViewerApp
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -122,8 +121,9 @@ def test_rasterize_dispatches_by_mode():
     assert torch.equal(rasterize(scene, camera, lights, clean),
                        rasterize_exact(scene, camera, lights.compact(),
                                        clean))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rasterize(scene, camera, lights, cfg.replace(mode="soft"))
+    soft = cfg.replace(mode="soft")
+    assert torch.equal(rasterize(scene, camera, lights, soft),
+                       rasterize_soft(scene, camera, lights.compact(), soft))
     # F9: clean mode ignores DoF, as in the JAX package; parity blurs.
     dof = clean.replace(dof_enabled=True)
     assert torch.equal(rasterize(scene, camera, lights, dof),
@@ -334,13 +334,18 @@ def test_rasterize_viewer_frames_match_jax(mode):
         np.testing.assert_array_equal(app._frame, frame)
     assert app.handle_key("3")["lights"] == 1
     assert np.abs(app._frame - frame).max() > 1e-3
-    with pytest.raises(NotImplementedError, match="item 6"):
-        app.handle_key("0")
+    # Key 0: the soft frame, then back to clean.
+    app.handle_key("0")
+    assert app.cfg.mode == "soft"
+    np.testing.assert_array_equal(app._frame, rasterize_soft(
+        app.scene, app.camera, app.lights.compact(), app.cfg).numpy())
+    app.handle_key("0")
+    assert app.cfg.mode == "clean"
 
 
 def test_rasterize_view_cli_serves_on_cpu():
     """``view --renderer rasterize --device cpu`` answers frame and key
-    requests, key 0 with 501, until interrupted."""
+    requests, key 0 with the soft frame, until interrupted."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "raytpu_torch.cli.main", "view", "--renderer",
          "rasterize", "--device", "cpu", "--width", "16", "--height", "16",
@@ -357,9 +362,8 @@ def test_rasterize_view_cli_serves_on_cpu():
             assert json.loads(r.read())["frame"] >= 1
         with urllib.request.urlopen(base + "/frame.bmp", timeout=60) as r:
             assert r.status == 200 and len(r.read()) > 16 * 16 * 3
-        with pytest.raises(urllib.error.HTTPError) as exc:
-            urllib.request.urlopen(base + "/key?k=0", timeout=60)
-        assert exc.value.code == 501
+        with urllib.request.urlopen(base + "/key?k=0", timeout=60) as r:
+            assert r.status == 200 and json.loads(r.read())["frame"] >= 2
     finally:
         proc.send_signal(signal.SIGINT)
         try:

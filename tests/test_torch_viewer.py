@@ -142,3 +142,38 @@ def test_viewer_http_roundtrip(tmp_path):
         thread.join(timeout=30)
     assert not thread.is_alive()
 
+
+
+def test_key0_on_both_renderers():
+    """Key 0 toggles the rasterizer's frame between clean and soft, as the
+    JAX viewer's does (its soft frame held to JAX's at the soft tests'
+    atol 5e-5 / rtol 1e-4); the raytracer's soft frame is item 6b."""
+    scene = jax_cornell_box(pad_to=32)
+    camera = JaxCamera.make((0.011, -0.007, -3.013), focal=16.23,
+                            dof_focus=1.9)
+    lights = JaxLights.single(capacity=4)
+    jax_app = JaxViewerApp(scene, camera, lights, JaxRenderConfig(
+        width=SIZE, height=SIZE, mode="clean", use_pallas=False),
+        renderer="rasterize", seed=0)
+    app = ViewerApp(convert.scene_from_numpy(leaves(scene), device="cpu"),
+                    convert.camera_from_numpy(leaves(camera), device="cpu"),
+                    convert.lights_from_numpy(leaves(lights), device="cpu"),
+                    RenderConfig(width=SIZE, height=SIZE, mode="clean"),
+                    renderer="rasterize", seed=0)
+    clean = app.render().copy()
+    jax_app.render()
+    for key in ("0", "left"):
+        want = jax_app.handle_key(key)
+        got = app.handle_key(key)
+        assert {k: v for k, v in got.items() if k != "ms"} == {
+            k: v for k, v in want.items() if k != "ms"}, key
+        np.testing.assert_allclose(app._frame, np.asarray(jax_app._frame),
+                                   atol=5e-5, rtol=1e-4, err_msg=key)
+    assert app.cfg.mode == "soft"
+    assert np.abs(app._frame - clean).max() > 1e-3
+    app.handle_key("0")
+    assert app.cfg.mode == "clean"
+    _, tracer = _apps()
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        tracer.handle_key("0")
+    assert tracer.cfg.mode == "clean" and tracer.frame_n == 0
