@@ -106,7 +106,8 @@ nonzero without printing a result:
      and at 500^2 (one K9a over 283 chunks: the JAX package culls only
      where the image blocks into its 1,024-pixel tiles); the view server
      with the rasterizer, key 0 giving a soft frame (one K9a) and back
-     (one K8b), the raytracer's key 0 answering 501.
+     (one K8b), the raytracer's key 0 a soft raytrace frame (one K10a and
+     one K10g).
  18. training: the ``fit`` CLI at its defaults on
      results/fit_reference/target.bmp (500 steps in two stages at 500^2:
      exactly one K9a and one K9c a step, one K9a for the final frame, no
@@ -117,6 +118,38 @@ nonzero without printing a result:
      numbers: the soft frames, the fit's ms a step, the steps' device-busy
      share, events and peak memory, K9a-K9d alone beside their plain
      versions and bounds.
+ 19. the soft raytrace forward kernels (K10a, the primary softmax; K10g,
+     the shadow's optical depth) against their plain versions on the card,
+     cull=False: the bench's soft_raytrace frame (512^2, Cornell padded to
+     32, the raytracer camera, sharpness 40 / 40), the fit CLI's frame
+     (500^2, 30 triangles, 10 / 20), the bench's full-feature sources (2
+     lights x 16 samples, S = 32) and the brute soft_raytrace_stl frame
+     (the mesh padded to 9,216 at 512^2, the rasteriser camera). out, m, s
+     and trans within rtol 1e-5 / atol 1e-6, two calls identical.
+ 20. the soft raytrace backward kernels (K10c, K10i) on the same cases
+     against the plain backward in float64 with the float32 branch
+     decisions (Kinks) and against the plain float32 version, cotangents
+     of one sign from a numpy seed: rtol 1e-4 / atol 1e-5 after scaling
+     each column group (kernels/soft_raytrace.py::PRI_GROUPS, SHW_GROUPS)
+     and each of d camera, d dirs, d sources, d world by its own largest
+     entry, with phase 16's rule where the float32 version itself misses
+     float64 (F11); two calls identical.
+ 21. soft raytrace serving: the ``render`` CLI in soft mode at its
+     defaults (500^2 Cornell: one K10a and one K10g), with 16 soft-shadow
+     samples and a second light (one K10g over 32 sources), with ``--stl``
+     (one K10a over 283 chunks: unculled at 500^2) and at 512^2 (raising,
+     naming item 6c, before any launch); the view server with the
+     raytracer at the view CLI's defaults, key 0 giving a soft frame (one
+     K10a, one K10g) and back (one K1).
+ 22. training through the soft raytracer: the ``fit`` CLI with
+     ``--renderer raytrace`` at its other defaults (500 steps at 500^2:
+     exactly one K10a, K10c, K10g and K10i a step, one K9a for the final
+     frame, no other kernel; the logged loss finite and falling in each
+     stage); the bench's soft_raytrace step and its brute soft_raytrace_stl
+     step (one of each K10 kernel a step); then card numbers: the soft
+     raytrace frames and steps, the fit's ms a step, the steps' device-busy
+     share, events and peak memory, K10a-K10i alone on each case beside
+     their plain versions and bounds.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
@@ -125,10 +158,13 @@ steps of phase 8 (training: K1, K2, K3), before and after phase 10
 phase 11 (training the loop branch: K6), before and after phase 13
 (serving the rasterizer: K8b, K8c), before and after the 3 steps of
 phase 14 (training the rasterizer: K8b), before and after phase 17
-(serving the soft rasterizer: K9a, K9b, K8b), before and after the fit CLI
-of phase 18 (training: K9a, K9c). Comparisons and timings launch outside
-those windows. The line before the last is one JSON object
-describing each kernel; the last line is
+(serving the soft rasterizer: K9a, K9b, K8b, and the raytracer's key 0:
+K10a, K10g), before and after the fit CLI of phase 18 (training: K9a, K9c),
+before and after phase 21 (serving the soft raytracer: K10a, K10g, K1),
+before and after the raytrace fit CLI of phase 22 (training: K10a, K10c,
+K10g, K10i). Comparisons and timings launch outside those windows. The
+line before the last is one JSON object describing each kernel; the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Details (result.json and the BMPs) go to build/chip_smoke/.
 """
@@ -185,6 +221,26 @@ FLOPS_SOFT_FWD, FLOPS_SOFT_BWD = 197, 378
 # by the whole table's largest entry would not see the others.
 SOFT_GROUPS = (("vertices", 0, 9), ("inv_area", 9, 10), ("zinv", 10, 13),
                ("attributes", 13, 28), ("valid", 28, 29))
+# The soft raytrace kernels' float operations, counted from
+# raytpu_torch/csrc/soft_raytrace.cu as FLOPS_SOFT_* are, a comparison
+# counting as one too. Every pair or triple pays its gate (primary 12: the
+# denominator's dot product, its guard, 1 / denom, t and the hit test;
+# shadow 11, the hit test without |d|); a gated one (behind the camera or
+# the source, or near-parallel) needs nothing more. K10a: an ungated (ray,
+# row) pair's logit (40, the gate included) and, where its weight is not 0,
+# the weight and the 9 sums (27). K10g: an ungated (source, point, row)
+# triple's term (40). K10c: an ungated pair's recompute up to its weight
+# (41) and, where that is not 0, the derivative (128) and its share of the
+# row's 18 sums over rays (18). K10i: only the triples of a (source, point)
+# whose cotangent d od is not 0; of those, an ungated one's recompute (38)
+# and, where its term is not 0, the derivative (128) and its 14 sums. A pair
+# of weight 0 (underflowed) needs nothing past its recompute: its every
+# contribution is 0.
+FLOPS_SRT_PRI_GATE, FLOPS_SRT_SHW_GATE = 12, 11
+FLOPS_SRT_PRI_LOGIT, FLOPS_SRT_PRI_SUMS = 40, 27
+FLOPS_SRT_SHW_TERM = 40
+FLOPS_SRT_PRI_W, FLOPS_SRT_PRI_BWD = 41, 146
+FLOPS_SRT_SHW_W, FLOPS_SRT_SHW_BWD = 38, 142
 # Image rule of tests/test_rasterize_parity.py::test_parity_vs_oracle_500.
 RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 # Cycles of torch.cuda._sleep that hold the stream while timed calls are
@@ -489,6 +545,7 @@ def kernel_counts() -> dict:
     from raytpu_torch.kernels import intersect as isect
     from raytpu_torch.kernels import raster, render_fused
     from raytpu_torch.kernels import soft_raster as sr
+    from raytpu_torch.kernels import soft_raytrace as srt
     return {"render_fused_fwd": render_fused.LAUNCHES,
             "soft_raster_fwd": sr.LAUNCHES_SOFT_FWD,
             "soft_raster_fwd_masked": sr.LAUNCHES_SOFT_FWD_MASKED,
@@ -499,7 +556,11 @@ def kernel_counts() -> dict:
             "render_fused_bwd": render_fused.LAUNCHES_BWD,
             "render_fused_scatter": render_fused.LAUNCHES_SCATTER,
             "raster_winner": raster.LAUNCHES_WINNER,
-            "raster_winner_masked": raster.LAUNCHES_WINNER_MASKED}
+            "raster_winner_masked": raster.LAUNCHES_WINNER_MASKED,
+            "soft_rt_pri_fwd": srt.LAUNCHES_SRT_PRI_FWD,
+            "soft_rt_pri_bwd": srt.LAUNCHES_SRT_PRI_BWD,
+            "soft_rt_shw_fwd": srt.LAUNCHES_SRT_SHW_FWD,
+            "soft_rt_shw_bwd": srt.LAUNCHES_SRT_SHW_BWD}
 
 
 def zero_counts() -> None:
@@ -512,6 +573,9 @@ def zero_counts() -> None:
     from raytpu_torch.kernels import soft_raster as sr
     sr.LAUNCHES_SOFT_FWD = sr.LAUNCHES_SOFT_FWD_MASKED = 0
     sr.LAUNCHES_SOFT_BWD = sr.LAUNCHES_SOFT_BWD_MASKED = 0
+    from raytpu_torch.kernels import soft_raytrace as srt
+    srt.LAUNCHES_SRT_PRI_FWD = srt.LAUNCHES_SRT_PRI_BWD = 0
+    srt.LAUNCHES_SRT_SHW_FWD = srt.LAUNCHES_SRT_SHW_BWD = 0
 
 
 def raster_case(scene, camera, cfg) -> dict:
@@ -693,6 +757,149 @@ def soft_cot(case, seed: int) -> torch.Tensor:
     R = case["H"] * case["W"]
     return torch.tensor(rng.uniform(0.5, 1.5, (11, R)).astype(np.float32),
                         device=case["consts"].device)
+
+
+def srt_case(scene, camera, lights, cfg) -> dict:
+    """The soft raytrace kernels' inputs for a frame, as raytrace_soft builds
+    them with cull=False (kernels/soft_raytrace.py::raytrace_soft_inputs),
+    on detached tensors: both tables, the rays (3, R), the camera position,
+    the chunk, the sharpness and the shadow sources."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.ops.shade import source_positions
+    with torch.no_grad():
+        pri, shw, dirs, chunk, es, zs = srt.raytrace_soft_inputs(
+            scene, camera, cfg, cull=False)
+        srcs = source_positions(lights, max(cfg.soft_shadow_samples, 1))
+    return dict(pri=pri.contiguous(), shw=shw.contiguous(), dirs=dirs,
+                cam=camera.pos.detach().contiguous(), chunk=chunk, es=es,
+                zs=zs, srcs=srcs.detach().contiguous())
+
+
+def srt_fwd(c, plain=False):
+    """K10a's wrapper on a srt_case (out, m, s), or its plain version."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    fn = srt.primary_agg_reference if plain else srt.primary_agg_fwd
+    return fn(c["pri"], c["cam"], c["dirs"], c["es"], c["zs"], c["chunk"])
+
+
+def srt_shw(c, world, plain=False):
+    """K10g's wrapper on a srt_case and world points (3, R), or its plain
+    version."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    fn = srt.shadow_trans_reference if plain else srt.shadow_trans_fwd
+    return fn(c["shw"], c["srcs"], world, c["es"], c["zs"], c["chunk"])
+
+
+def srt_bwd(c, m, cot, plain=False, dtype=torch.float32):
+    """K10c's wrapper (dc, dcam, dd), or its plain version; in float64 with
+    the float32 branch decisions (Kinks)."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    args = (c["pri"], c["cam"], c["dirs"], m, cot)
+    if not plain:
+        return srt.primary_agg_bwd(*args, c["es"], c["zs"], c["chunk"])
+    return srt.primary_agg_bwd_reference(
+        *(t.to(dtype) for t in args), c["es"], c["zs"], c["chunk"],
+        f32_branches=dtype != torch.float32)
+
+
+def srt_shw_bwd(c, world, trans, gcot, plain=False, dtype=torch.float32):
+    """K10i's wrapper (dc, dsrc, dw), or its plain version; in float64 with
+    the float32 branch decisions."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    args = (c["shw"], c["srcs"], world, trans, gcot)
+    if not plain:
+        return srt.shadow_trans_bwd(*args, c["es"], c["zs"], c["chunk"])
+    return srt.shadow_trans_bwd_reference(
+        *(t.to(dtype) for t in args), c["es"], c["zs"], c["chunk"],
+        f32_branches=dtype != torch.float32)
+
+
+def srt_work(c, m, world, dl) -> dict:
+    """What K10a-K10i must do on a srt_case, from a plain recompute:
+    (ray, row) pairs in all, gated, and of a weight not 0 at the saved m;
+    (source, point, row) triples in all and gated; of the triples whose
+    cotangent dl (S, R) is not 0, how many, how many gated and how many of
+    a term not 0."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.kernels.soft_raster import Kinks
+    pri, shw, d, chunk = c["pri"], c["shw"], c["dirs"], c["chunk"]
+    Tp, R, S = pri.shape[0], d.shape[1], c["srcs"].shape[0]
+    w = dict(pairs=R * Tp, gated_p=0, live_p=0, triples=S * R * Tp,
+             gated_s=0, act_s=0, act_gated_s=0, live_s=0)
+    with torch.no_grad():
+        for lo in range(0, Tp, chunk):
+            logit, _ = srt.primary_terms(pri[lo:lo + chunk], c["cam"],
+                                         d[0:1], d[1:2], d[2:3], c["es"],
+                                         c["zs"])
+            w["gated_p"] += int((logit == -1e30).sum())
+            w["live_p"] += int((torch.exp(logit - m) != 0.0).sum())
+            for s in range(S):
+                kinks = Kinks()
+                term = srt.shadow_terms(shw[lo:lo + chunk], c["srcs"][s],
+                                        world[0:1], world[1:2], world[2:3],
+                                        c["es"], c["zs"], kinks)
+                ok = kinks.decisions[-1]  # shadow_terms' last: its hit test
+                require(ok.dtype == torch.bool and ok.shape == term.shape,
+                        "srt_work: the shadow hit test recorded")
+                act = (dl[s] != 0.0).expand_as(term)
+                w["gated_s"] += int((~ok).sum())
+                w["act_s"] += int(act.sum())
+                w["act_gated_s"] += int((act & ~ok).sum())
+                w["live_s"] += int((act & (term != 0.0)).sum())
+    return w
+
+
+def srt_bounds(c, w) -> dict:
+    """K10a-K10i's bounds on a srt_case with srt_work's counts w: each input
+    read and each output written once (primary forward: 12 B in, 44 B out
+    a ray; backward: 56 B in, 12 B out a ray, the table's gradient out;
+    shadow: 12 B a point and 4 B a (source, point) each way, 8 B in and
+    12 B out backward), against the operations of FLOPS_SRT_*: the gate
+    alone for a gated pair or triple."""
+    Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
+    hit_p = w["pairs"] - w["gated_p"]
+    return {
+        "pri_fwd": bound_ms(R * 56 + Tp * 128 + 12,
+                            FLOPS_SRT_PRI_GATE * w["gated_p"]
+                            + FLOPS_SRT_PRI_LOGIT * hit_p
+                            + FLOPS_SRT_PRI_SUMS * w["live_p"]),
+        "pri_bwd": bound_ms(R * 68 + Tp * 256 + 24,
+                            FLOPS_SRT_PRI_GATE * w["gated_p"]
+                            + FLOPS_SRT_PRI_W * hit_p
+                            + FLOPS_SRT_PRI_BWD * w["live_p"]),
+        "shw_fwd": bound_ms(R * (12 + 4 * S) + Tp * 64 + 12 * S,
+                            FLOPS_SRT_SHW_GATE * w["gated_s"]
+                            + FLOPS_SRT_SHW_TERM
+                            * (w["triples"] - w["gated_s"])),
+        "shw_bwd": bound_ms(R * (24 + 8 * S) + Tp * 128 + 24 * S,
+                            FLOPS_SRT_SHW_GATE * w["act_gated_s"]
+                            + FLOPS_SRT_SHW_W
+                            * (w["act_s"] - w["act_gated_s"])
+                            + FLOPS_SRT_SHW_BWD * w["live_s"]),
+    }
+
+
+def rule_by_group(got, want, groups) -> dict:
+    """The JAX tests' rule, rtol 1e-4 / atol 1e-5 after scaling each column
+    group by want's largest entry in it: {group: (largest |got - want|
+    over that scale, every entry within the rule)}."""
+    want = want.double()
+    diff = (got.double() - want).abs()
+    out = {}
+    for group, lo, hi in groups:
+        w, d = want[..., lo:hi], diff[..., lo:hi]
+        scale = float(w.abs().max())
+        ok = bool((d <= 1e-5 * scale + 1e-4 * w.abs()).all())
+        out[group] = (float(d.max()) / scale if scale else float(d.max()), ok)
+    return out
+
+
+def one_signed(shape, device, seed: int) -> torch.Tensor:
+    """Cotangents of one sign from a numpy seed (as phase 7's: signed ones
+    cancel in the sums until float32 rounding decides the small ones)."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.uniform(0.5, 1.5, shape).astype(np.float32),
+                        device=device)
 
 
 def delta(before: dict, after: dict) -> dict:
@@ -1827,15 +2034,18 @@ def main() -> int:
                        Camera.raytracer_default(device=dev),
                        Lights.single(capacity=1, device=dev),
                        RenderConfig(mode="clean"), renderer="raytrace")
-    body = serve_and_check(tracer, [("/key?k=0", 501, {})])
-    require(b"item 6b" in body, "the raytracer's key 0 names item 6b")
+    k10 = ("soft_rt_pri_fwd", "soft_rt_shw_fwd")
+    serve_and_check(tracer, [("/key?k=0", 200, {k: 1 for k in k10})])
+    require(tracer.cfg.mode == "soft", "the raytracer's key 0 gives soft")
     soft_serve = kernel_counts()  # zeroed where phase 17 began
     say(f"soft serving path launches: {soft_serve}")
     require(soft_serve[k9a] > 0 and soft_serve["soft_raster_fwd_masked"] > 0
             and soft_serve[k8b] > 0
             and not any(v for k, v in soft_serve.items()
-                        if k not in (k9a, "soft_raster_fwd_masked", k8b)),
-            "the soft serving path launched K9a, K9b and K8b, nothing else")
+                        if k not in (k9a, "soft_raster_fwd_masked", k8b)
+                        + k10),
+            "the soft serving path launched K9a, K9b, K8b and (the "
+            "raytracer's key 0) K10a and K10g, nothing else")
 
     say("== phase 18: training (the fit CLI at its defaults, resume, the "
         "bench's soft steps) and card numbers")
@@ -2030,6 +2240,394 @@ def main() -> int:
                   soft_busy=busy_soft, soft_peak=soft_peak)
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
+    say("== phase 19: K10a and K10g against their plain versions on the "
+        "card")
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.render.soft import raytrace_soft
+
+    def srt_bench_frame(size: int, lights=None, samples: int = 1):
+        """bench.py's soft_raytrace frame (`bench.py:399-413`): size^2, the
+        Cornell box padded to 32, the raytracer camera, sharpness 40 / 40,
+        one light of capacity 1 (or ``lights`` with ``samples``
+        soft-shadow samples)."""
+        return (cornell_box(pad_to=32, device=dev),
+                Camera.raytracer_default(device=dev),
+                lights or Lights.single(capacity=1, device=dev),
+                RenderConfig(width=size, height=size, mode="soft",
+                             soft_shadow_samples=samples,
+                             soft_edge_sharpness=40.0,
+                             soft_z_sharpness=40.0))
+
+    rcases = {
+        "bench_512": srt_case(*srt_bench_frame(512)),
+        # The fit CLI's first stage: 30 triangles, es 10 / zs 20.
+        "fit_500": srt_case(*fit_frame()),
+        # The bench's full-feature sources: 2 lights x 16 samples, S = 32.
+        "full_512": srt_case(*srt_bench_frame(512, full_feature_lights(dev),
+                                              16)),
+        # bench.py's brute soft_raytrace_stl (`bench.py:644-676`): the mesh
+        # padded to 9,216, the rasteriser camera, cull=False.
+        "stl_512_brute": srt_case(*soft_stl_frame(512)),
+    }
+    require(rcases["stl_512_brute"]["pri"].shape[0] == 9216
+            and rcases["stl_512_brute"]["chunk"] == 32
+            and rcases["full_512"]["srcs"].shape[0] == 32,
+            "the cases' shapes")
+    srt_err = {"k10a": 0.0, "k10g": 0.0, "k10c": 0.0, "k10i": 0.0}
+    srt_out = {}
+    for name, c in rcases.items():
+        t0 = time.perf_counter()
+        got, again = srt_fwd(c), srt_fwd(c)
+        want = srt_fwd(c, plain=True)
+        world = got[0][3:6].contiguous()
+        trans, trans2 = srt_shw(c, world), srt_shw(c, world)
+        twant = srt_shw(c, world, plain=True)
+        torch.cuda.synchronize()
+        ok_a, err_a = agg_close(got, want)
+        ok_g, err_g = agg_close((trans,), (twant,))
+        same = all(torch.equal(a, b) for a, b in zip((*got, trans),
+                                                     (*again, trans2)))
+        Tp, S = c["pri"].shape[0], c["srcs"].shape[0]
+        say(f"{name} (Tp={Tp} in {Tp // c['chunk']} chunks, "
+            f"{c['dirs'].shape[1]} rays, S={S}, es {c['es']:g} zs "
+            f"{c['zs']:g}): K10a out/m/s vs plain max |d| {err_a:.3g} "
+            f"within rtol 1e-5 / atol 1e-6 {ok_a}; K10g trans vs plain max "
+            f"|d| {err_g:.3g} within {ok_g}; two calls identical {same}; "
+            f"surface share {float((got[1] > 1.0).float().mean()):.4f}, "
+            f"trans mean {float(trans.mean()):.4f}, zero "
+            f"{float((trans == 0).float().mean()):.4f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        require(ok_a and ok_g, f"{name}: K10a and K10g within rtol 1e-5 / "
+                               f"atol 1e-6 of their plain versions")
+        require(same, f"{name}: two kernel calls identical")
+        require(all(bool(torch.isfinite(t).all()) for t in (*got, trans)),
+                f"{name}: finite")
+        srt_err["k10a"] = max(srt_err["k10a"], err_a)
+        srt_err["k10g"] = max(srt_err["k10g"], err_g)
+        srt_out[name] = (got, world, trans)
+        record[f"srt_fwd_{name}"] = dict(k10a=err_a, k10g=err_g,
+                                         repeat_equal=same)
+        del again, want, trans2, twant
+
+    say("== phase 20: K10c and K10i against the plain backward in float64")
+    srt_checks, srt_cots = {}, {}
+    one = (("all", 0, 3),)
+    for name, c in rcases.items():
+        t0 = time.perf_counter()
+        (_, m, _), world, trans = srt_out[name]
+        cot = one_signed((10, m.shape[0]), dev, seed=7)
+        gcot = one_signed(tuple(trans.shape), dev, seed=8)
+        srt_cots[name] = (cot, gcot)
+        got, again = srt_bwd(c, m, cot), srt_bwd(c, m, cot)
+        sgot, sagain = (srt_shw_bwd(c, world, trans, gcot),
+                        srt_shw_bwd(c, world, trans, gcot))
+        same = all(torch.equal(a, b) for a, b in zip((*got, *sgot),
+                                                     (*again, *sagain)))
+        w64 = srt_bwd(c, m, cot, plain=True, dtype=torch.float64)
+        p32 = srt_bwd(c, m, cot, plain=True)
+        sw64 = srt_shw_bwd(c, world, trans, gcot, plain=True,
+                           dtype=torch.float64)
+        sp32 = srt_shw_bwd(c, world, trans, gcot, plain=True)
+        torch.cuda.synchronize()
+        # (kernel, part, got, float64, plain float32, column groups).
+        pieces = [
+            ("k10c", "table", got[0], w64[0], p32[0], srt.PRI_GROUPS),
+            ("k10c", "camera", got[1][None], w64[1][None], p32[1][None], one),
+            ("k10c", "dirs", got[2].T, w64[2].T, p32[2].T, one),
+            ("k10i", "table", sgot[0], sw64[0], sp32[0], srt.SHW_GROUPS),
+            ("k10i", "sources", sgot[1], sw64[1], sp32[1], one),
+            ("k10i", "world", sgot[2].T, sw64[2].T, sp32[2].T, one)]
+        say(f"{name}: two calls identical {same} "
+            f"({time.perf_counter() - t0:.1f} s); by group, the largest "
+            f"|d| scaled by the group's largest float64 entry:")
+        for kernel, part, g, w, p, groups in pieces:
+            r64, r32, f64 = (rule_by_group(g, w, groups),
+                             rule_by_group(g, p, groups),
+                             rule_by_group(p, w, groups))
+            for grp in r64:
+                # The kernel is held to the plain float32 version by the
+                # rule, and to float64 by the rule or, where the plain
+                # float32 version misses it too, by being no farther from
+                # float64 than that version (ROADMAP fault F11).
+                chk = dict(err64=r64[grp][0], ok64=r64[grp][1],
+                           err32=r32[grp][0], ok32=r32[grp][1],
+                           floor64=f64[grp][0],
+                           ok=r32[grp][1] and (r64[grp][1] or r64[grp][0]
+                                               <= 1.01 * f64[grp][0]))
+                label = f"{kernel} {part}/{grp}"
+                srt_checks.setdefault(kernel, {})[f"{name} {part}/{grp}"] = [
+                    chk["err64"], chk["ok64"], chk["floor64"], chk["ok32"]]
+                say(f"  {label}: vs float64 {chk['err64']:.3g} within "
+                    f"{chk['ok64']}; plain float32 vs float64 "
+                    f"{chk['floor64']:.3g}; vs plain float32 "
+                    f"{chk['err32']:.3g} within {chk['ok32']}; passes on "
+                    f"{'float64' if chk['ok64'] else 'the F11 rule'} "
+                    f"{chk['ok']}")
+                require(chk["ok"], f"{name} {label}: within rtol 1e-4 / "
+                                   f"atol 1e-5 after scaling")
+                srt_err[kernel] = max(srt_err[kernel], chk["err64"])
+        require(same, f"{name}: two backward calls identical")
+        require(all(bool(torch.isfinite(t).all()) for t in (*got, *sgot))
+                and not got[0][:, srt.PRI_USED:].any()
+                and not sgot[0][:, srt.SHW_USED:].any(),
+                f"{name}: finite gradients, unused columns 0")
+        del pieces, w64, p32, sw64, sp32, again, sagain
+        torch.cuda.empty_cache()
+
+    say("== phase 21: soft raytrace serving (the render CLI in soft mode, "
+        "the view server's key 0)")
+    zero_counts()
+    k10a, k10g = "soft_rt_pri_fwd", "soft_rt_shw_fwd"
+    one_frame = {k10a: 1, k10g: 1}
+    seen = []
+    real_pri, real_shw = srt.primary_agg_fwd, srt.shadow_trans_fwd
+
+    def spy_pri(consts, cam, dirs, es, zs, chunk):
+        seen.append(("chunks", consts.shape[0] // chunk))
+        return real_pri(consts, cam, dirs, es, zs, chunk)
+
+    def spy_shw(consts, srcs, *args):
+        seen.append(("sources", srcs.shape[0]))
+        return real_shw(consts, srcs, *args)
+
+    srt.primary_agg_fwd, srt.shadow_trans_fwd = spy_pri, spy_shw
+    try:
+        for flags, shapes, bmp_name in (
+                ([], [("chunks", 1), ("sources", 1)], "raytrace_soft.bmp"),
+                (["--soft-shadows", "16", "--add-light", "0.4", "-0.5",
+                  "-0.7", "1", "1", "1", "7"],
+                 [("chunks", 1), ("sources", 32)], "raytrace_soft_full.bmp"),
+                (["--stl", str(stl_path)], [("chunks", 283), ("sources", 1)],
+                 "raytrace_soft_stl500.bmp")):
+            before = kernel_counts()
+            del seen[:]
+            t0 = time.perf_counter()
+            cli_main(["render", "--mode", "soft", *flags, "-o",
+                      str(OUT / bmp_name)])
+            ms = (time.perf_counter() - t0) * 1e3
+            got = delta(before, kernel_counts())
+            frame_u8 = read_bmp(str(OUT / bmp_name))
+            lit = float((frame_u8.max(axis=-1) > 0).mean())
+            say(f"render CLI --mode soft "
+                f"{' '.join(f for f in flags if not f.endswith('.stl'))}: "
+                f"{frame_u8.shape}, lit {lit:.4f}, max {frame_u8.max()}, "
+                f"{ms:.1f} ms host clock, launches {got}, {seen}")
+            # The mesh at 5 units from the light is dim: ambient 0.2 of its
+            # albedo, ~40 of 255.
+            require(frame_u8.shape == (500, 500, 3) and lit > 0.02
+                    and frame_u8.max() > (20 if flags[:1] == ["--stl"]
+                                          else 80), f"a lit {bmp_name}")
+            require(got == one_frame and seen == shapes,
+                    f"{bmp_name}: launches {one_frame} over {shapes}")
+    finally:
+        srt.primary_agg_fwd, srt.shadow_trans_fwd = real_pri, real_shw
+    before = kernel_counts()
+    try:
+        cli_main(["render", "--mode", "soft", "--stl", str(stl_path),
+                  "--width", "512", "--height", "512", "-o",
+                  str(OUT / "refused.bmp")])
+        refused = ""
+    except NotImplementedError as exc:
+        refused = str(exc)
+    say(f"render CLI --mode soft --stl at 512^2: NotImplementedError "
+        f"{refused!r}, launches {delta(before, kernel_counts())}")
+    require("item 6c" in refused and not delta(before, kernel_counts()),
+            "the culled soft raytracer raises naming item 6c, no launch")
+    viewer = ViewerApp(cornell_box(device=dev),
+                       Camera.raytracer_default(device=dev),
+                       Lights.single(capacity=32, soft_samples=16,
+                                     device=dev),
+                       RenderConfig(), seed=0)  # the view CLI's defaults
+    serve_and_check(viewer, [("/frame.bmp", 200, {k1: 1}),
+                             ("/key?k=0", 200, one_frame),
+                             ("/key?k=left", 200, one_frame),
+                             ("/frame.bmp", 200, {}),
+                             ("/key?k=0", 200, {k1: 1}),
+                             ("/state", 200, {})])
+    require(viewer.cfg.mode == "clean", "key 0 toggles soft and back")
+    rt_serve = kernel_counts()  # zeroed where phase 21 began
+    say(f"soft raytrace serving path launches: {rt_serve}")
+    require(rt_serve[k10a] > 0 and rt_serve[k10g] > 0 and rt_serve[k1] > 0
+            and not any(v for k, v in rt_serve.items()
+                        if k not in (k10a, k10g, k1)),
+            "the soft raytrace serving path launched K10a, K10g and K1, "
+            "nothing else")
+
+    say("== phase 22: training through the soft raytracer (the fit CLI "
+        "with --renderer raytrace, the bench's soft raytrace steps) and "
+        "card numbers")
+    logs, printed = io.StringIO(), io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logs), contextlib.redirect_stdout(printed):
+        cli_main(["fit", str(target_bmp), "--renderer", "raytrace", "-o",
+                  str(OUT / "fit_raytrace.bmp")])
+    rfit_s = time.perf_counter() - t0
+    rfit_launches = kernel_counts()
+    rrecords = [json.loads(line) for line in logs.getvalue().splitlines()
+                if line.startswith("{")]
+    for line in printed.getvalue().splitlines():
+        say(f"  fit: {line}")
+    rfit_losses = [r["loss"] for r in rrecords]
+    say(f"fit CLI --renderer raytrace (500 steps, 2 stages, 500^2): "
+        f"{rfit_s:.2f} s, logged losses "
+        f"{[round(x, 6) for x in rfit_losses]}, ms a step (last of each 50) "
+        f"{[round(r['ms_per_step'], 3) for r in rrecords]}; launches "
+        f"{ {k: v for k, v in rfit_launches.items() if v} }")
+    four = ("soft_rt_pri_fwd", "soft_rt_pri_bwd", "soft_rt_shw_fwd",
+            "soft_rt_shw_bwd")
+    require({k: v for k, v in rfit_launches.items() if v}
+            == {**{k: 500 for k in four}, "soft_raster_fwd": 1},
+            "each raytrace fit step launches K10a, K10c, K10g and K10i once "
+            "(the final frame one K9a), no other kernel")
+    stage0, stage1 = rfit_losses[:5], rfit_losses[5:]
+    require(len(rrecords) == 10 and np.isfinite(rfit_losses).all()
+            and stage0[-1] < stage0[0] and stage1[-1] < stage1[0],
+            "the raytrace fit's loss is finite and falls in each stage")
+    require(read_bmp(str(OUT / "fit_raytrace.bmp")).shape == (500, 500, 3),
+            "fit_raytrace.bmp written")
+    rfit_ms_step = statistics.median(r["ms_per_step"] for r in rrecords)
+
+    def brute(s_, c_, l_, cfg_):
+        return raytrace_soft(s_, c_, l_, cfg_, cull=False)
+
+    step_rt = train_step(*srt_bench_frame(512), 1e-9, target_scale=0.9,
+                         render=raytrace_soft)
+    step_rt_stl = train_step(*soft_stl_frame(512), 1e-9, target_scale=0.9,
+                             render=brute)
+    rt_train = {}
+    for name, step, n in (("soft_raytrace", step_rt, 3),
+                          ("soft_raytrace_stl_brute", step_rt_stl, 2)):
+        zero_counts()
+        losses = [float(step()) for _ in range(n)]
+        got = {k: v for k, v in kernel_counts().items() if v}
+        say(f"{name} step: {n} steps, loss {losses[0]:.6g} -> "
+            f"{losses[-1]:.6g}; launches {got}")
+        require(got == {k: n for k in four}, f"{name}: launches")
+        require(np.isfinite(losses).all(), f"{name}: finite loss")
+        rt_train[name] = got
+    rt_peak = {"soft_raytrace": peak_gb(step_rt),
+               "soft_raytrace_stl_brute": peak_gb(step_rt_stl)}
+    rt_busy = {"soft_raytrace": device_busy(step_rt, steps=10),
+               "soft_raytrace_stl_brute": device_busy(step_rt_stl, steps=2)}
+
+    def rframe(frame, cull=None):
+        s_, c_, l_, cfg_ = frame
+
+        def run():
+            with torch.no_grad():
+                return raytrace_soft(s_, c_, l_, cfg_, cull=cull)
+        return run
+
+    stl500_frame = (load_stl(str(stl_path), device=dev),
+                    Camera.make((0.0, -0.5, -5.0), focal=250.0,
+                                dof_focus=1.3, device=dev),
+                    Lights.single(capacity=1, device=dev),
+                    RenderConfig(mode="soft"))  # the render CLI's --stl
+    rt_ms = median_ms_in_turns({
+        "bench_frame": rframe(srt_bench_frame(512)),
+        "fit_frame": rframe(fit_frame()),
+        "full_frame": rframe(srt_bench_frame(512, full_feature_lights(dev),
+                                             16)),
+        "bench_step": step_rt}, n=1, reps=11)
+    rt_ms.update(median_ms_in_turns({
+        "stl500_frame": rframe(stl500_frame),
+        "stl512_brute_frame": rframe(soft_stl_frame(512), cull=False)},
+        n=1, reps=5))
+    rt_ms.update(median_ms_in_turns({"stl_brute_step": step_rt_stl}, n=1,
+                                    reps=3))
+
+    def srt_timers(c, m, world, trans, cot, gcot):
+        """The four kernels launched into preallocated outputs, and their
+        plain versions, on one case."""
+        R, Tp, S = m.shape[0], c["pri"].shape[0], c["srcs"].shape[0]
+        es, zs, chunk = c["es"], c["zs"], c["chunk"]
+        out = (torch.empty((9, R), device=dev), torch.empty(R, device=dev),
+               torch.empty(R, device=dev))
+        tr = torch.empty((S, R), device=dev)
+        pg = srt.bwd_groups(Tp, srt.PRI_USED, R)
+        sg = srt.bwd_groups(Tp, srt.SHW_USED, R)
+        pbuf = (torch.empty((pg, Tp, srt.PRI_USED), device=dev),
+                torch.empty((pg, 3), device=dev),
+                torch.empty_like(c["pri"]), torch.empty(3, device=dev),
+                torch.empty_like(c["dirs"]))
+        sbuf = (torch.empty((sg, Tp, srt.SHW_USED), device=dev),
+                torch.empty((sg, S, 3), device=dev),
+                torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
+                torch.empty_like(world))
+        kernels = {
+            "pri_fwd": lambda: srt.launch_pri_fwd_kernel(
+                c["pri"], chunk, c["cam"], c["dirs"], es, zs, *out),
+            "pri_bwd": lambda: srt.launch_pri_bwd_kernel(
+                c["pri"], chunk, c["cam"], c["dirs"], es, zs, m, cot, *pbuf),
+            "shw_fwd": lambda: srt.launch_shw_fwd_kernel(
+                c["shw"], chunk, c["srcs"], world, es, zs, tr),
+            "shw_bwd": lambda: srt.launch_shw_bwd_kernel(
+                c["shw"], chunk, c["srcs"], world, trans, gcot, es, zs,
+                *sbuf)}
+        plain = {
+            "pri_fwd": lambda: srt_fwd(c, plain=True),
+            "pri_bwd": lambda: srt_bwd(c, m, cot, plain=True),
+            "shw_fwd": lambda: srt_shw(c, world, plain=True),
+            "shw_bwd": lambda: srt_shw_bwd(c, world, trans, gcot,
+                                           plain=True)}
+        return kernels, plain
+
+    rt_k = {}
+    for name, c in rcases.items():
+        (_, m, _), world, trans = srt_out[name]
+        cot, gcot = srt_cots[name]
+        kernels, plain = srt_timers(c, m, world, trans, cot, gcot)
+        big = name.startswith("stl")
+        t = median_ms_in_turns(kernels, n=2 if big else 5, reps=5,
+                               timer=held_ms)
+        # The plain versions launch tens of kernels a chunk: timed back to
+        # back, as they overflow the queue a held stream takes.
+        t.update({f"{k}_plain": v for k, v in median_ms_in_turns(
+            plain, n=1, reps=3).items()})
+        dl = gcot * trans * (-srt.OD_SCALE)
+        work = srt_work(c, m, world, dl)
+        t["work"] = work
+        t["bounds"] = srt_bounds(c, work)
+        rt_k[name] = t
+        del kernels, plain
+        torch.cuda.empty_cache()
+    card = card_line()
+    for name, t in rt_k.items():
+        w = t["work"]
+        say(f"K10 alone, {name} ({w['pairs']} pairs, {w['gated_p']} gated, "
+            f"{w['live_p']} of weight not 0; {w['triples']} shadow triples, "
+            f"{w['gated_s']} gated; backward {w['act_s']} of d od not 0, "
+            f"{w['act_gated_s']} of them gated, {w['live_s']} live): "
+            + ", ".join(
+                f"{k} {t[k]:.4f} ms (plain {t[k + '_plain']:.4f}; bound "
+                f"{t['bounds'][k][0]:.4f} ms, {t['bounds'][k][1]})"
+                for k in ("pri_fwd", "pri_bwd", "shw_fwd", "shw_bwd"))
+            + f" ({card})")
+    say(f"soft raytrace (CUDA events, median): frames 512^2 bench "
+        f"{rt_ms['bench_frame']:.4f} ms, 500^2 fit {rt_ms['fit_frame']:.4f} "
+        f"ms, 512^2 full-feature sources {rt_ms['full_frame']:.4f} ms, STL "
+        f"500^2 (CLI) {rt_ms['stl500_frame']:.4f} ms, STL 512^2 brute "
+        f"{rt_ms['stl512_brute_frame']:.4f} ms; steps: soft_raytrace "
+        f"{rt_ms['bench_step']:.4f} ms, soft_raytrace_stl brute "
+        f"{rt_ms['stl_brute_step']:.4f} ms; the raytrace fit CLI "
+        f"{rfit_ms_step:.4f} ms a step (host clock, median of its logs) "
+        f"({card})")
+    for name, busy in rt_busy.items():
+        say(f"profile of {name} steps: device busy {busy['busy_ms']:.4f} ms "
+            f"a step in {busy['kernels']} device events; "
+            f"{busy['wall_ms']:.4f} ms a step on the host clock under the "
+            f"profiler (share {busy['share']}); peak memory "
+            f"{rt_peak[name]:.3f} GB")
+        for kname, ms in busy["by_name"][:5]:
+            say(f"  {ms:.5f} ms  {kname[:100]}")
+    record.update(srt_err=srt_err, srt_checks=srt_checks,
+                  rt_serve=rt_serve, rfit_launches=rfit_launches,
+                  rfit_losses=rfit_losses, rfit_s=rfit_s,
+                  rfit_ms_step=rfit_ms_step, rt_train=rt_train, rt_ms=rt_ms,
+                  rt_k=rt_k, rt_busy=rt_busy, rt_peak=rt_peak)
+    (OUT / "result.json").write_text(json.dumps(record, indent=1))
+
     def bwd_checks(prefix: str) -> dict:
         """Phase 16's rule for each case of K9c (prefix k9a) or K9d (k9b)
         and each column group: [scaled error vs float64, within the rule,
@@ -2039,6 +2637,24 @@ def main() -> int:
                         for g, c in check.items()}
                 for label, check in soft_checks.items()
                 if label.startswith(prefix)}
+
+    def k10_entry(part: str, key: str, replaces: str) -> dict:
+        """A soft raytrace kernel's entry: its launches in the raytrace fit
+        CLI, its error (K10c/K10i: the largest group-scaled error against
+        float64, with the groups' checks), times and bound at the bench's
+        512^2 Cornell case."""
+        t = rt_k["bench_512"]
+        entry = dict(name=f"soft_rt_{part}", route="cuda",
+                     source="raytpu_torch/csrc/soft_raytrace.cu",
+                     replaces=replaces,
+                     launches=rfit_launches[f"soft_rt_{part}"],
+                     max_abs_err=srt_err[key], ms=t[part],
+                     plain_ms=t[f"{part}_plain"],
+                     bound_ms=t["bounds"][part][0],
+                     bound_by=t["bounds"][part][1], library_ms=None)
+        if key in srt_checks:
+            entry["checks"] = srt_checks[key]
+        return entry
 
     say(card)
     print(json.dumps({"kernels": [
@@ -2121,6 +2737,14 @@ def main() -> int:
              bound_ms=soft_k["stl_culled"]["bwd_bound"][0],
              bound_by=soft_k["stl_culled"]["bwd_bound"][1], library_ms=None,
              checks=bwd_checks("k9b")),
+        k10_entry("pri_fwd", "k10a",
+                  replaces="raytpu/kernels/soft_raytrace_pallas.py:235"),
+        k10_entry("pri_bwd", "k10c",
+                  replaces="raytpu/kernels/soft_raytrace_pallas.py:326"),
+        k10_entry("shw_fwd", "k10g",
+                  replaces="raytpu/kernels/soft_raytrace_pallas.py:925"),
+        k10_entry("shw_bwd", "k10i",
+                  replaces="raytpu/kernels/soft_raytrace_pallas.py:974"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,9 +9,12 @@
 
 The flags and their defaults are the JAX package's; ``--device`` picks
 where the frame is rendered or the fit trained (default ``cuda``: a run
-with no GPU fails instead of carrying on on the CPU). The raytracer's mode
-'soft' and STL scenes (``render --stl``), ``fit --renderer raytrace`` and
-``fit --mesh`` raise NotImplementedError naming their ROADMAP.md item.
+with no GPU fails instead of carrying on on the CPU). ``render --mode soft``
+and ``fit --renderer raytrace`` run the soft raytracer; ``render --mode soft
+--stl`` runs it where the JAX package would not cull (the CLI's 500^2) and
+raises naming ROADMAP.md port item 6c where it would. The hard raytracer's
+STL scenes (``render --stl`` in parity and clean) and ``fit --mesh`` raise
+NotImplementedError naming their ROADMAP.md item (4 and 8).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ def _render_flags(p: argparse.ArgumentParser, rasterizer: bool = False):
     p.add_argument("--stl", default=None,
                    help="render an ASCII STL model instead of the Cornell "
                         "box (ref CUSTOM_MODEL, `rasteriser.cpp:20`; the "
-                        "raytracer's is not ported yet)")
+                        "hard raytracer's is not ported yet)")
     p.add_argument("--morton", action="store_true",
                    help="Morton-sort STL triangles (with --stl)")
     p.add_argument("--camera-pos", type=float, nargs=3, default=None)
@@ -89,10 +92,6 @@ def _build_inputs(args, rasterizer: bool = False):
 
     device = _device(args.device)
     if args.stl:
-        if not rasterizer:
-            raise NotImplementedError(
-                "--stl with the raytracer: ROADMAP.md port item 4 (STL "
-                "scale)")
         scene = load_stl(args.stl, reorder="morton" if args.morton else None,
                          device=device)
         default_cam = (0.0, -0.5, -5.0)

@@ -1,0 +1,833 @@
+// The soft (differentiable) raytracer for Hopper (sm_90a): K10a, K10c,
+// K10g and K10i, unmasked.
+//
+// K10a, soft_rt_pri_fwd_kernel, replaces
+// raytpu/kernels/soft_raytrace_pallas.py::_pri_fwd_kernel; K10c,
+// soft_rt_pri_bwd_kernel and the fixed-order sums sum_groups_kernel,
+// replaces _pri_bwd_fused_kernel; K10g, soft_rt_shw_fwd_kernel, replaces
+// _shw_fwd_kernel; K10i, soft_rt_shw_bwd_kernel and the same sums, replaces
+// _shw_bwd_fused_kernel.
+//
+// What they compute. Primary: for every ray r (direction d, from the
+// camera position g) and every row of the (Tp, 32) float32 table of
+// kernels/soft_raytrace.py::primary_tri_constants, _primary_terms'
+// Moller-Trumbore t, u, v from the precomputed camera terms, the margin
+// min(u, v, 1 - u - v), and the logit
+//   zs / max(t |d|, dmin, 0.1) + log_sigmoid(es margin) + log(active + 1e-20)
+// with behind-camera and near-parallel pairs gated to weight 0; the 9 values
+// [albedo rgb, g + t d, normal xyz]. A background hypothesis (logit 0, zero
+// values) joins the softmax. The forward keeps JAX's chunk-by-chunk online
+// form (a chunk's max, one exp(m - m_new) rescale of the carry, the chunk's
+// sums) and writes out (9, R) = acc / s, m (R,) and s (R,). Shadow: for every
+// source s and point w (the aggregated hit position), the optical depth
+//   od = sum over rows of sigmoid(es margin) active sigmoid(zs (0.99 r - t))
+// along the ray from s to w (pairs whose hit is behind the source or
+// near-parallel give 0), summed chunk by chunk, and trans = exp(-16 od).
+// The backwards take the saved m (primary) or trans (shadow) and the
+// cotangents formed outside (primary: [d s, d acc_0..8], _primary_cot;
+// shadow: d trans) and give, per pair at the saved m,
+//   w = exp(logit - m), dL/dlogit = w (ds + sum_j da_j val_j),
+//   dL/dval_j = w da_j
+// (shadow: d od = -16 trans d trans), taken back by hand through
+// _primary_terms to the table's 18 used columns, the camera position and the
+// ray direction, or through _shadow_od_terms to the table's 14 used
+// columns, the source and the point. Ties pass half the gradient to each
+// side, as jnp.minimum and jnp.maximum do; d log_sigmoid(x) / dx =
+// sigmoid(-x), d sigmoid(x) / dx = sigmoid (1 - sigmoid). A pair whose
+// weight is exactly 0 (gated, or underflowed) contributes exactly 0 and is
+// skipped, as its terms are all products with that 0. The JAX kernels also
+// take a globals row and the lights table; _primary_terms reads the
+// globals' first three entries only (the camera position, passed alone
+// here) and deletes the lights table, whose gradient is exactly zero.
+//
+// Layout and design. The TPU grid walked (1,024-ray tile, chunk) in order,
+// carrying (m, s, acc) or od in VMEM scratch, and the backward kept the
+// whole d-table resident across the grid. Here one thread takes a ray (or a
+// (source, point) pair), 256 a block, the carry in registers, and a block
+// stages one chunk of <= 32 rows in shared memory, read by warp-uniform
+// broadcast, with per-row values derived once: |n| and log(active + 1e-20)
+// (primary); b = s - v0, cross(e2, b), cross(b, e1), k0 and |n| for the
+// block's source (shadow). The backwards run the same thread-a-ray loop
+// over every chunk in order, so the per-ray gradients (d dirs, d world)
+// add up in registers chunk by chunk, with the per-ray chains (|d|;
+// 1 / |w - s|) applied once a chunk to the chunk's sums, as JAX's VJP of a
+// broadcast does. A row's gradient is a sum over rays: for each row a warp
+// adds its 32 lanes by shuffles (skipped where no lane has a pair), the
+// block adds its 8 warps in order into its own (Tp, used) partial in device
+// memory, and a block walks ray blocks g, g + groups, ...; the sum kernel
+// adds the groups' partials in a fixed order. The camera's and the
+// sources' gradients take the same two steps. No floating-point atomics:
+// two calls give the same bits.
+//
+// Bound on the H100: ~50-70 float operations and 4-6 exp/log/sqrt/divides
+// a (ray, row) pair forward, 3-4x that backward, against ~40 B a ray and
+// the table: bound by operations (chip_smoke.py counts them on its inputs).
+//
+// Rounding. Built with -fmad=false and IEEE division and sqrt; every
+// expression in the JAX kernels' order (the shadow's rsqrt as 1 / sqrt, as
+// the plain version pins it), so the forwards match the plain PyTorch
+// versions (kernels/soft_raytrace.py) to the order of their sums.
+
+#include <cstddef>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kThreads = 256;             // rays (or points) a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunk = 32;             // rows a chunk
+constexpr int kPriCols = 32;              // columns of the primary table
+constexpr int kPriUsed = 18;              // of them read
+constexpr int kPriRow = kPriUsed + 2;     // + |n|, log(active + 1e-20)
+constexpr int kShwCols = 16;              // columns of the shadow table
+constexpr int kShwUsed = 14;              // of them read
+constexpr int kShwRow = 21;               // derived per (row, source)
+constexpr int kSumSlices = 32;            // sum kernel: slices of groups
+constexpr float kTNear = 0.1f;            // raytpu/render/soft.py::_T_NEAR
+constexpr float kBig = 3.4028235e38f;
+constexpr float kOdScale = 16.0f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// d min(a, b) / da: 1 where a is the smaller, half on a tie.
+__device__ __forceinline__ float dmin_first(float a, float b) {
+  return a < b ? 1.0f : (a == b ? 0.5f : 0.0f);
+}
+
+// d max(a, b) / da: 1 where a is the larger, half on a tie.
+__device__ __forceinline__ float dmax_first(float a, float b) {
+  return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0), jnp.cross's order.
+__device__ __forceinline__ void cross3(const float* a, const float* b,
+                                       float* out) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// Stages chunk ch's rows (18 used columns) and their |n| and
+// log(active + 1e-20) in s_c; every thread of the block calls it.
+__device__ __forceinline__ void load_pri_chunk(const float* consts, int ch,
+                                               int chunk,
+                                               float (*s_c)[kPriRow]) {
+  const float* src = consts + static_cast<size_t>(ch) * chunk * kPriCols;
+  for (int k = threadIdx.x; k < chunk * kPriUsed; k += kThreads) {
+    s_c[k / kPriUsed][k % kPriUsed] = src[(k / kPriUsed) * kPriCols +
+                                          k % kPriUsed];
+  }
+  __syncthreads();
+  if (threadIdx.x < chunk) {
+    float* c = s_c[threadIdx.x];
+    c[18] = sqrtf((c[0] * c[0] + c[1] * c[1]) + c[2] * c[2]);
+    c[19] = logf(c[16] + 1e-20f);
+  }
+  __syncthreads();
+}
+
+// Stages chunk ch's rows for the source at sp: b = sp - v0 (0-2), e1 (3-5),
+// e2 (6-8), n (9-11), k0 = sp . n - n . v0 (12), active (13),
+// cross(e2, b) (14-16), cross(b, e1) (17-19), |n| (20).
+__device__ __forceinline__ void load_shw_chunk(const float* consts, int ch,
+                                               int chunk, const float* sp,
+                                               float (*s_q)[kShwRow]) {
+  if (threadIdx.x < chunk) {
+    const float* q =
+        consts + (static_cast<size_t>(ch) * chunk + threadIdx.x) * kShwCols;
+    float* o = s_q[threadIdx.x];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      o[j] = sp[j] - q[j];
+      o[3 + j] = q[3 + j];
+      o[6 + j] = q[6 + j];
+      o[9 + j] = q[9 + j];
+    }
+    o[12] = ((sp[0] * q[9] + sp[1] * q[10]) + sp[2] * q[11]) - q[12];
+    o[13] = q[13];
+    cross3(o + 6, o, o + 14);
+    cross3(o, o + 3, o + 17);
+    o[20] = sqrtf((q[9] * q[9] + q[10] * q[10]) + q[11] * q[11]);
+  }
+  __syncthreads();
+}
+
+// The primary logit and t of ray d (|d| = dn) against staged row c; false
+// for a gated pair (weight 0).
+__device__ __forceinline__ bool pri_logit(const float* c, const float* d,
+                                          float dn, float es, float zs,
+                                          float* logit, float* t_out) {
+  const float denom = -((d[0] * c[0] + d[1] * c[1]) + d[2] * c[2]);
+  const float safe = fabsf(denom) > 1e-12f ? denom : 1e-12f;
+  const float rec = 1.0f / safe;
+  const float t = c[9] * rec;
+  if (!(t > 1e-6f && fabsf(denom) > (1e-3f * dn) * c[18])) return false;
+  const float u = ((d[0] * c[3] + d[1] * c[4]) + d[2] * c[5]) * rec;
+  const float v = ((d[0] * c[6] + d[1] * c[7]) + d[2] * c[8]) * rec;
+  const float margin = fminf(fminf(u, v), (1.0f - u) - v);
+  const float zinv = 1.0f / fmaxf(fmaxf(t * dn, c[17]), kTNear);
+  const float xs = es * margin;
+  *logit = (zs * zinv + (fminf(xs, 0.0f) - log1pf(expf(-fabsf(xs))))) +
+           c[19];
+  *t_out = t;
+  return true;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_pri_fwd_kernel(const float* __restrict__ consts, int n_chunks,
+                           int chunk, const float* __restrict__ cam,
+                           const float* __restrict__ dirs, int R, float es,
+                           float zs, float* __restrict__ out,
+                           float* __restrict__ m_out,
+                           float* __restrict__ s_out) {
+  __shared__ float s_c[kMaxChunk][kPriRow];
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = r < R;
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) d[j] = dirs[static_cast<size_t>(j) * R + r];
+  }
+  const float gp[3] = {cam[0], cam[1], cam[2]};
+  const float dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
+  // The background hypothesis: logit 0, zero values (`:244-251`).
+  float m = 0.0f, s = 1.0f;
+  float acc[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) acc[j] = 0.0f;
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    __syncthreads();  // every thread is done with the previous chunk
+    load_pri_chunk(consts, ch, chunk, s_c);
+    float logit[kMaxChunk], tt[kMaxChunk];
+    float cmax = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < kMaxChunk; ++i) {
+      if (i < chunk) {
+        if (!pri_logit(s_c[i], d, dn, es, zs, &logit[i], &tt[i])) {
+          logit[i] = -1e30f;
+        }
+        cmax = fmaxf(cmax, logit[i]);
+      }
+    }
+    const float m_new = fmaxf(m, cmax);
+    const float scale = expf(m - m_new);
+    float wsum = 0.0f;
+    float vsum[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) vsum[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunk; ++i) {
+      if (i < chunk) {
+        const float w = expf(logit[i] - m_new);
+        if (w != 0.0f) {  // a zero weight adds exactly nothing
+          const float* c = s_c[i];
+          const float tp = tt[i] < kBig ? tt[i] : 0.0f;
+          wsum += w;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            vsum[j] += w * c[13 + j];
+            vsum[3 + j] += w * (gp[j] + tp * d[j]);
+            vsum[6 + j] += w * c[10 + j];
+          }
+        }
+      }
+    }
+    m = m_new;
+    s = s * scale + wsum;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) acc[j] = acc[j] * scale + vsum[j];
+  }
+  if (live) {
+    const float rec = 1.0f / s;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) out[static_cast<size_t>(j) * R + r] =
+        acc[j] * rec;
+    m_out[r] = m;
+    s_out[r] = s;
+  }
+}
+
+// The shadow term cov * occ_z of the ray with unit direction dh and length
+// rr against staged row q.
+__device__ __forceinline__ float shw_term(const float* q, const float* dh,
+                                          float rr, float es, float zs) {
+  const float denom = -((dh[0] * q[9] + dh[1] * q[10]) + dh[2] * q[11]);
+  const float safe = fabsf(denom) > 1e-12f ? denom : 1e-12f;
+  const float rec = 1.0f / safe;
+  const float t = q[12] * rec;
+  if (!(t > 1e-6f && fabsf(denom) > 1e-3f * q[20])) return 0.0f;
+  const float u = ((dh[0] * q[14] + dh[1] * q[15]) + dh[2] * q[16]) * rec;
+  const float v = ((dh[0] * q[17] + dh[1] * q[18]) + dh[2] * q[19]) * rec;
+  const float margin = fminf(fminf(u, v), (1.0f - u) - v);
+  const float cov = sigmoid(es * margin) * q[13];
+  return cov * sigmoid(zs * (0.99f * rr - t));
+}
+
+// The per-point terms of the shadow ray from sp to w: d = w - sp, r2s
+// (|d|^2, 1 where 0), sq = sqrt(r2s), rrec = 1 / sq, rr = r2s rrec and
+// dh = d rrec.
+struct ShadowRay {
+  float d[3], dh[3], r2s, sq, rrec, rr;
+  bool lit;
+};
+
+__device__ __forceinline__ ShadowRay shadow_ray(const float* w,
+                                                const float* sp) {
+  ShadowRay a;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) a.d[j] = w[j] - sp[j];
+  const float r2 = (a.d[0] * a.d[0] + a.d[1] * a.d[1]) + a.d[2] * a.d[2];
+  a.lit = r2 > 0.0f;
+  a.r2s = a.lit ? r2 : 1.0f;
+  a.sq = sqrtf(a.r2s);
+  a.rrec = 1.0f / a.sq;
+  a.rr = a.r2s * a.rrec;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) a.dh[j] = a.d[j] * a.rrec;
+  return a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_shw_fwd_kernel(const float* __restrict__ consts, int n_chunks,
+                           int chunk, const float* __restrict__ srcs,
+                           const float* __restrict__ world, int R, float es,
+                           float zs, float* __restrict__ trans) {
+  __shared__ float s_q[kMaxChunk][kShwRow];
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const int src = blockIdx.y;
+  const bool live = r < R;
+  const float sp[3] = {srcs[3 * src], srcs[3 * src + 1], srcs[3 * src + 2]};
+  float w[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) w[j] = world[static_cast<size_t>(j) * R + r];
+  }
+  const ShadowRay a = shadow_ray(w, sp);
+  float od = 0.0f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    __syncthreads();
+    load_shw_chunk(consts, ch, chunk, sp, s_q);
+    float csum = 0.0f;
+    for (int i = 0; i < chunk; ++i) {
+      csum += shw_term(s_q[i], a.dh, a.rr, es, zs);
+    }
+    od += csum;
+  }
+  if (live) {
+    trans[static_cast<size_t>(src) * R + r] = expf(-kOdScale * od);
+  }
+}
+
+// Warp sum of g[0..N) into dst (lane 0 writes), or zeros where no lane of
+// the warp has a pair.
+template <int N>
+__device__ __forceinline__ void warp_sum_store(const float* g, bool mine,
+                                               float* dst) {
+  const int lane = threadIdx.x & 31;
+  if (__any_sync(kFull, mine)) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float v = g[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_xor_sync(kFull, v, off);
+      }
+      if (lane == 0) dst[k] = v;
+    }
+  } else if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) dst[k] = 0.0f;
+  }
+}
+
+// Adds one (ray, row) pair's gradient to the row's g[18], the camera's
+// gcam[3], the ray's chunk sums ddc[3] (direction) and ddn (|d|). d the
+// direction, dn = |d|, gp the camera position, mp the ray's saved max, ds
+// and da its cotangents. False (nothing added) for a pair of weight 0.
+__device__ __forceinline__ bool pri_pair_bwd(const float* c, const float* d,
+                                             float dn, const float* gp,
+                                             float mp, float ds,
+                                             const float* da, float es,
+                                             float zs, float* g, float* gcam,
+                                             float* ddc, float* ddn) {
+  const float denom = -((d[0] * c[0] + d[1] * c[1]) + d[2] * c[2]);
+  const bool big = fabsf(denom) > 1e-12f;
+  const float safe = big ? denom : 1e-12f;
+  const float rec = 1.0f / safe;
+  const float t = c[9] * rec;
+  if (!(t > 1e-6f && fabsf(denom) > (1e-3f * dn) * c[18])) return false;
+  const float nu = (d[0] * c[3] + d[1] * c[4]) + d[2] * c[5];
+  const float nv = (d[0] * c[6] + d[1] * c[7]) + d[2] * c[8];
+  const float u = nu * rec, v = nv * rec;
+  const float muv = fminf(u, v), omu = (1.0f - u) - v;
+  const float margin = fminf(muv, omu);
+  const float dist = t * dn;
+  const float a1 = fmaxf(dist, c[17]);
+  const float a2 = fmaxf(a1, kTNear);
+  const float zinv = 1.0f / a2;
+  const float xs = es * margin;
+  const float ex = expf(-fabsf(xs));
+  const float logit = (zs * zinv + (fminf(xs, 0.0f) - log1pf(ex))) + c[19];
+  const float w = expf(logit - mp);
+  if (w == 0.0f) return false;
+  const bool finite_t = t < kBig;
+  const float tp = finite_t ? t : 0.0f;
+  // dL/dlogit = w (ds + sum_j da_j val_j).
+  float inner = ds;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    inner += (da[j] * c[13 + j] + da[3 + j] * (gp[j] + tp * d[j])) +
+             da[6 + j] * c[10 + j];
+  }
+  const float G = w * inner;
+  // The values: albedo, normal, pos = g + tp d.
+  float dtp = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    g[13 + j] += w * da[j];
+    g[10 + j] += w * da[6 + j];
+    const float P = w * da[3 + j];
+    gcam[j] += P;
+    dtp += P * d[j];
+    ddc[j] += P * tp;
+  }
+  // log(active + 1e-20): 1e20 on a row of active 0.
+  g[16] += G / (c[16] + 1e-20f);
+  // log_sigmoid(xs): sigmoid(-xs) = e / (1 + e) for xs >= 0, else
+  // 1 / (1 + e), with e = exp(-|xs|).
+  const float sig = xs >= 0.0f ? ex / (1.0f + ex) : 1.0f / (1.0f + ex);
+  const float dmargin = G * sig * es;
+  // zinv = 1 / max(max(dist, dmin), t_near), dist = t |d|.
+  const float da2 = -(G * zs) / (a2 * a2);
+  const float da1 = da2 * dmax_first(a1, kTNear);
+  const float ddist = da1 * dmax_first(dist, c[17]);
+  g[17] += da1 * dmax_first(c[17], dist);
+  *ddn += ddist * t;
+  const float dt = ddist * dn + (finite_t ? dtp : 0.0f);
+  // margin = min(min(u, v), (1 - u) - v).
+  const float dmuv = dmargin * dmin_first(muv, omu);
+  const float domu = dmargin * dmin_first(omu, muv);
+  const float du = dmuv * dmin_first(u, v) - domu;
+  const float dv = dmuv * dmin_first(v, u) - domu;
+  // t = k0 rec, u = nu rec, v = nv rec, rec = 1 / safe.
+  g[9] += dt * rec;
+  const float drec = (dt * c[9] + du * nu) + dv * nv;
+  const float dnu = du * rec, dnv = dv * rec;
+  const float dden = big ? -drec * (rec * rec) : 0.0f;
+  // denom = -(d . n), nu = d . c2b, nv = d . cb1.
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    g[j] -= dden * d[j];
+    g[3 + j] += dnu * d[j];
+    g[6 + j] += dnv * d[j];
+    ddc[j] += (dnu * c[3 + j] + dnv * c[6 + j]) - dden * c[j];
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_pri_bwd_kernel(const float* __restrict__ consts, int Tp,
+                           int chunk, const float* __restrict__ cam,
+                           const float* __restrict__ dirs, int R, float es,
+                           float zs, const float* __restrict__ m,
+                           const float* __restrict__ cot, int groups,
+                           float* __restrict__ partials,
+                           float* __restrict__ cam_partials,
+                           float* __restrict__ dd_out) {
+  __shared__ float s_c[kMaxChunk][kPriRow];
+  __shared__ float s_red[kWarps][kMaxChunk][kPriUsed];
+  __shared__ float s_cam[kWarps][3];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n_chunks = Tp / chunk;
+  const int n_tiles = (R + kThreads - 1) / kThreads;
+  const float gp[3] = {cam[0], cam[1], cam[2]};
+  float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kPriUsed;
+  float gcam[3] = {0.0f, 0.0f, 0.0f};
+  for (int tile = blockIdx.x; tile < n_tiles; tile += groups) {
+    const bool first = tile == static_cast<int>(blockIdx.x);
+    const int r = tile * kThreads + tid;
+    const bool live = r < R;
+    float d[3] = {0.0f, 0.0f, 0.0f}, da[9];
+    float mp = 0.0f, ds = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) da[j] = 0.0f;
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) d[j] = dirs[static_cast<size_t>(j) * R + r];
+      mp = m[r];
+      ds = cot[r];
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        da[j] = cot[static_cast<size_t>(1 + j) * R + r];
+      }
+    }
+    const float dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
+    float dd[3] = {0.0f, 0.0f, 0.0f};
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      __syncthreads();  // s_c and s_red are free again
+      load_pri_chunk(consts, ch, chunk, s_c);
+      float ddc[3] = {0.0f, 0.0f, 0.0f}, ddn = 0.0f;
+      for (int i = 0; i < chunk; ++i) {
+        float g[kPriUsed];
+#pragma unroll
+        for (int k = 0; k < kPriUsed; ++k) g[k] = 0.0f;
+        const bool mine = live && pri_pair_bwd(s_c[i], d, dn, gp, mp, ds, da,
+                                               es, zs, g, gcam, ddc, &ddn);
+        warp_sum_store<kPriUsed>(g, mine, s_red[warp][i]);
+      }
+      // |d| = sqrt((dx dx + dy dy) + dz dz), once a chunk.
+      if (live) {
+        const float dq = ddn * (0.5f / dn);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) dd[j] += ddc[j] + (dq * d[j] + dq * d[j]);
+      }
+      __syncthreads();
+      for (int o = tid; o < chunk * kPriUsed; o += kThreads) {
+        const int row = o / kPriUsed, k = o % kPriUsed;
+        float sum = 0.0f;
+#pragma unroll
+        for (int wp = 0; wp < kWarps; ++wp) sum += s_red[wp][row][k];
+        float* dst =
+            part + (static_cast<size_t>(ch) * chunk + row) * kPriUsed + k;
+        *dst = first ? sum : *dst + sum;
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) dd_out[static_cast<size_t>(j) * R + r] =
+          dd[j];
+    }
+  }
+  warp_sum_store<3>(gcam, true, s_cam[warp]);
+  __syncthreads();
+  if (tid < 3) {
+    float sum = 0.0f;
+    for (int wp = 0; wp < kWarps; ++wp) sum += s_cam[wp][tid];
+    cam_partials[static_cast<size_t>(blockIdx.x) * 3 + tid] = sum;
+  }
+}
+
+// Adds one (source, point, row) triple's gradient to the row's g[14], the
+// source's dsrc[3] and the point's chunk sums ddh[3] (unit direction) and
+// drr (length). dl = d od of the pair. False (nothing added) where its
+// weight is 0.
+__device__ __forceinline__ bool shw_pair_bwd(const float* q, const float* dh,
+                                             float rr, float dl,
+                                             const float* sp, float es,
+                                             float zs, float* g, float* ddh,
+                                             float* drr, float* dsrc) {
+  const float denom = -((dh[0] * q[9] + dh[1] * q[10]) + dh[2] * q[11]);
+  const bool big = fabsf(denom) > 1e-12f;
+  const float safe = big ? denom : 1e-12f;
+  const float rec = 1.0f / safe;
+  const float t = q[12] * rec;
+  if (!(t > 1e-6f && fabsf(denom) > 1e-3f * q[20])) return false;
+  const float nu = (dh[0] * q[14] + dh[1] * q[15]) + dh[2] * q[16];
+  const float nv = (dh[0] * q[17] + dh[1] * q[18]) + dh[2] * q[19];
+  const float u = nu * rec, v = nv * rec;
+  const float muv = fminf(u, v), omu = (1.0f - u) - v;
+  const float margin = fminf(muv, omu);
+  const float cov0 = sigmoid(es * margin);
+  const float occ = sigmoid(zs * (0.99f * rr - t));
+  if (cov0 == 0.0f || occ == 0.0f) return false;
+  const float cov = cov0 * q[13];
+  // od term = cov0 active occ.
+  const float dcov = dl * occ, docc = dl * cov;
+  g[13] += dcov * cov0;
+  const float dmargin = ((dcov * q[13]) * (cov0 * (1.0f - cov0))) * es;
+  const float dy = (docc * (occ * (1.0f - occ))) * zs;
+  *drr += dy * 0.99f;
+  const float dt = -dy;
+  const float dmuv = dmargin * dmin_first(muv, omu);
+  const float domu = dmargin * dmin_first(omu, muv);
+  const float du = dmuv * dmin_first(u, v) - domu;
+  const float dv = dmuv * dmin_first(v, u) - domu;
+  // t = k0 rec, u = nu rec, v = nv rec, rec = 1 / safe.
+  const float dk0 = dt * rec;
+  const float drec = (dt * q[12] + du * nu) + dv * nv;
+  const float dnu = du * rec, dnv = dv * rec;
+  const float dden = big ? -drec * (rec * rec) : 0.0f;
+  // denom = -(dh . n), nu = dh . c2b, nv = dh . cb1, k0 = sp . n - n . v0.
+  float dn[3], dc2b[3], dcb1[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    ddh[j] += (dnu * q[14 + j] + dnv * q[17 + j]) - dden * q[9 + j];
+    dn[j] = dk0 * sp[j] - dden * dh[j];
+    dc2b[j] = dnu * dh[j];
+    dcb1[j] = dnv * dh[j];
+    dsrc[j] += dk0 * q[9 + j];
+  }
+  g[12] -= dk0;
+  // c2b = cross(e2, b), cb1 = cross(b, e1), b = sp - v0.
+  float de1[3], de2[3], db[3], db2[3];
+  cross3(q, dc2b, de2);
+  cross3(dc2b, q + 6, db);
+  cross3(q + 3, dcb1, db2);
+  cross3(dcb1, q, de1);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float dbj = db[j] + db2[j];
+    g[j] -= dbj;
+    dsrc[j] += dbj;
+    g[3 + j] += de1[j];
+    g[6 + j] += de2[j];
+    g[9 + j] += dn[j];
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_shw_bwd_kernel(const float* __restrict__ consts, int Tp,
+                           int chunk, const float* __restrict__ srcs, int S,
+                           const float* __restrict__ world, int R,
+                           const float* __restrict__ trans,
+                           const float* __restrict__ gcot, float es, float zs,
+                           int groups, float* __restrict__ partials,
+                           float* __restrict__ src_partials,
+                           float* __restrict__ dw_out) {
+  __shared__ float s_q[kMaxChunk][kShwRow];
+  __shared__ float s_red[kWarps][kMaxChunk][kShwUsed];
+  __shared__ float s_src[kWarps][3];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n_chunks = Tp / chunk;
+  const int n_tiles = (R + kThreads - 1) / kThreads;
+  float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kShwUsed;
+  float* spart = src_partials + static_cast<size_t>(blockIdx.x) * S * 3;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += groups) {
+    const bool first_tile = tile == static_cast<int>(blockIdx.x);
+    const int r = tile * kThreads + tid;
+    const bool live = r < R;
+    float w[3] = {0.0f, 0.0f, 0.0f};
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) w[j] = world[static_cast<size_t>(j) * R + r];
+    }
+    float dw[3] = {0.0f, 0.0f, 0.0f};
+    for (int src = 0; src < S; ++src) {
+      const bool first = first_tile && src == 0;
+      const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
+                           srcs[3 * src + 2]};
+      const ShadowRay a = shadow_ray(w, sp);
+      // d od = d trans * (-16) * trans.
+      float dl = 0.0f;
+      if (live) {
+        const size_t k = static_cast<size_t>(src) * R + r;
+        dl = gcot[k] * trans[k] * (-kOdScale);
+      }
+      const bool active = live && dl != 0.0f;
+      float dws[3] = {0.0f, 0.0f, 0.0f}, dsrc[3] = {0.0f, 0.0f, 0.0f};
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        __syncthreads();  // s_q and s_red are free again
+        load_shw_chunk(consts, ch, chunk, sp, s_q);
+        float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;
+        for (int i = 0; i < chunk; ++i) {
+          float g[kShwUsed];
+#pragma unroll
+          for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
+          const bool mine = active && shw_pair_bwd(s_q[i], a.dh, a.rr, dl, sp,
+                                                   es, zs, g, ddh, &drr,
+                                                   dsrc);
+          warp_sum_store<kShwUsed>(g, mine, s_red[warp][i]);
+        }
+        if (active) {
+          // dh = d rrec, rr = r2s rrec, rrec = 1 / sqrt(r2s), r2s = |d|^2
+          // (1 where 0), d = w - sp: once a chunk.
+          float drrec = drr * a.r2s;
+          float dd[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            dd[j] = ddh[j] * a.rrec;
+            drrec += ddh[j] * a.d[j];
+          }
+          const float dsq = -drrec / (a.sq * a.sq);
+          const float dr2s = drr * a.rrec + dsq * (0.5f / a.sq);
+          const float dr2 = a.lit ? dr2s : 0.0f;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            dd[j] += dr2 * a.d[j] + dr2 * a.d[j];
+            dws[j] += dd[j];
+            dsrc[j] -= dd[j];
+          }
+        }
+        __syncthreads();
+        for (int o = tid; o < chunk * kShwUsed; o += kThreads) {
+          const int row = o / kShwUsed, k = o % kShwUsed;
+          float sum = 0.0f;
+#pragma unroll
+          for (int wp = 0; wp < kWarps; ++wp) sum += s_red[wp][row][k];
+          float* dst =
+              part + (static_cast<size_t>(ch) * chunk + row) * kShwUsed + k;
+          *dst = first ? sum : *dst + sum;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) dw[j] += dws[j];
+      warp_sum_store<3>(dsrc, active, s_src[warp]);
+      __syncthreads();
+      if (tid < 3) {
+        float sum = 0.0f;
+        for (int wp = 0; wp < kWarps; ++wp) sum += s_src[wp][tid];
+        float* dst = spart + 3 * src + tid;
+        *dst = first_tile ? sum : *dst + sum;
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) dw_out[static_cast<size_t>(j) * R + r] =
+          dw[j];
+    }
+  }
+}
+
+// out[row, k] = sum over groups g, in order, of partials[g, row, k] for
+// k < in_cols, and 0 for in_cols <= k < out_cols. Thread (x, y) adds
+// groups y, y + kSumSlices, ... of one output entry; thread (x, 0) then
+// adds the kSumSlices sums in order.
+__global__ void __launch_bounds__(32 * kSumSlices)
+    sum_groups_kernel(const float* __restrict__ partials, int groups,
+                      int rows, int in_cols, int out_cols,
+                      float* __restrict__ out) {
+  __shared__ float s_sum[kSumSlices][33];
+  const int o = blockIdx.x * 32 + threadIdx.x;
+  const int n = rows * out_cols;
+  const int row = o / out_cols, k = o % out_cols;
+  const size_t stride = static_cast<size_t>(rows) * in_cols;
+  float acc = 0.0f;
+  if (o < n && k < in_cols) {
+    const float* p = partials + static_cast<size_t>(row) * in_cols + k;
+    for (int g = threadIdx.y; g < groups; g += kSumSlices) {
+      acc += p[g * stride];
+    }
+  }
+  s_sum[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || o >= n) return;
+  float total = 0.0f;
+  for (int sl = 0; sl < kSumSlices; ++sl) total += s_sum[sl][threadIdx.x];
+  out[o] = total;
+}
+
+cudaError_t sum_groups(const float* partials, int groups, int rows,
+                       int in_cols, int out_cols, float* out,
+                       cudaStream_t st) {
+  const int n = rows * out_cols;
+  sum_groups_kernel<<<(n + 31) / 32, dim3(32, kSumSlices), 0, st>>>(
+      partials, groups, rows, in_cols, out_cols, out);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int Tp, int chunk, int R) {
+  return chunk < 1 || chunk > kMaxChunk || Tp < chunk || Tp % chunk != 0 ||
+         R < 1;
+}
+
+}  // namespace
+
+// consts (Tp, 32) float32 device pointer in chunks of `chunk` <= 32 rows;
+// cam (3,), dirs (3, R) float32; out (9, R), m and s (R,) float32 outputs.
+// Launches K10a on `stream` and returns the launch's cudaError_t.
+extern "C" int raytpu_soft_rt_pri_fwd(const void* consts, int Tp, int chunk,
+                                      const void* cam, const void* dirs,
+                                      int R, float es, float zs, void* out,
+                                      void* m, void* s, void* stream) {
+  if (bad_shape(Tp, chunk, R)) return (int)cudaErrorInvalidValue;
+  soft_rt_pri_fwd_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(consts), Tp / chunk, chunk,
+      static_cast<const float*>(cam), static_cast<const float*>(dirs), R, es,
+      zs, static_cast<float*>(out), static_cast<float*>(m),
+      static_cast<float*>(s));
+  return (int)cudaGetLastError();
+}
+
+// consts, cam and dirs as for raytpu_soft_rt_pri_fwd; m (R,) and cot
+// (10, R) float32; partials (groups, Tp, 18) and cam_partials (groups, 3)
+// float32 scratch, 1 <= groups <= the blocks of 256 rays (every block
+// takes one at least); dc (Tp, 32), dcam (3,) and dd (3, R) float32
+// outputs, every entry written. Launches K10c and the sums over groups on
+// `stream`; returns the first cudaError_t.
+extern "C" int raytpu_soft_rt_pri_bwd(const void* consts, int Tp, int chunk,
+                                      const void* cam, const void* dirs,
+                                      int R, float es, float zs,
+                                      const void* m, const void* cot,
+                                      int groups, void* partials,
+                                      void* cam_partials, void* dc,
+                                      void* dcam, void* dd, void* stream) {
+  if (bad_shape(Tp, chunk, R) || groups < 1 ||
+      groups > (R + kThreads - 1) / kThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partials);
+  float* cpart = static_cast<float*>(cam_partials);
+  soft_rt_pri_bwd_kernel<<<groups, kThreads, 0, st>>>(
+      static_cast<const float*>(consts), Tp, chunk,
+      static_cast<const float*>(cam), static_cast<const float*>(dirs), R, es,
+      zs, static_cast<const float*>(m), static_cast<const float*>(cot),
+      groups, part, cpart, static_cast<float*>(dd));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = sum_groups(part, groups, Tp, kPriUsed, kPriCols,
+                   static_cast<float*>(dc), st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_groups(cpart, groups, 1, 3, 3, static_cast<float*>(dcam),
+                         st);
+}
+
+// consts (Tp, 16) float32 in chunks of `chunk` <= 32 rows; srcs (S, 3),
+// world (3, R) float32; trans (S, R) float32 output. Launches K10g on
+// `stream` and returns the launch's cudaError_t.
+extern "C" int raytpu_soft_rt_shw_fwd(const void* consts, int Tp, int chunk,
+                                      const void* srcs, int S,
+                                      const void* world, int R, float es,
+                                      float zs, void* trans, void* stream) {
+  if (bad_shape(Tp, chunk, R) || S < 1 || S > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((R + kThreads - 1) / kThreads, S);
+  soft_rt_shw_fwd_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(consts), Tp / chunk, chunk,
+      static_cast<const float*>(srcs), static_cast<const float*>(world), R,
+      es, zs, static_cast<float*>(trans));
+  return (int)cudaGetLastError();
+}
+
+// consts, srcs and world as for raytpu_soft_rt_shw_fwd; trans and gcot
+// (S, R) float32; partials (groups, Tp, 14) and src_partials (groups, S, 3)
+// float32 scratch, groups as for raytpu_soft_rt_pri_bwd; dc (Tp, 16), dsrc
+// (S, 3) and dw (3, R) float32 outputs, every entry written. Launches K10i
+// and the sums over groups on `stream`; returns the first cudaError_t.
+extern "C" int raytpu_soft_rt_shw_bwd(const void* consts, int Tp, int chunk,
+                                      const void* srcs, int S,
+                                      const void* world, int R,
+                                      const void* trans, const void* gcot,
+                                      float es, float zs, int groups,
+                                      void* partials, void* src_partials,
+                                      void* dc, void* dsrc, void* dw,
+                                      void* stream) {
+  if (bad_shape(Tp, chunk, R) || S < 1 || groups < 1 ||
+      groups > (R + kThreads - 1) / kThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partials);
+  float* spart = static_cast<float*>(src_partials);
+  soft_rt_shw_bwd_kernel<<<groups, kThreads, 0, st>>>(
+      static_cast<const float*>(consts), Tp, chunk,
+      static_cast<const float*>(srcs), S, static_cast<const float*>(world),
+      R, static_cast<const float*>(trans), static_cast<const float*>(gcot),
+      es, zs, groups, part, spart, static_cast<float*>(dw));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = sum_groups(part, groups, Tp, kShwUsed, kShwCols,
+                   static_cast<float*>(dc), st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_groups(spart, groups, S, 3, 3, static_cast<float*>(dsrc),
+                         st);
+}

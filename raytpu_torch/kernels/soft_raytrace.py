@@ -1,0 +1,671 @@
+"""The soft (differentiable) raytracer's kernels (counterpart of
+raytpu/kernels/soft_raytrace_pallas.py, unmasked).
+
+Primary: per ray, a softmax over every triangle's logit
+``zs * zinv + log_sigmoid(es * margin) + log(active + 1e-20)`` and a
+background hypothesis (logit 0, black at infinity) aggregates 9 attribute
+channels [albedo rgb, hit position xyz, normal xyz]; zinv is
+``1 / max(t |d|, dmin, 0.1)`` and behind-camera or near-parallel pairs are
+gated to weight 0. Shadow: per (source, point), the optical depth
+``od = sum cov * occ_z`` over every triangle and ``T = exp(-16 od)``. The
+triangles come as the (Tp, 32) and (Tp, 16) tables of
+``primary_tri_constants`` and ``shadow_tri_constants`` in chunks of
+``chunk`` <= 32 rows; both forwards keep JAX's chunk-by-chunk order (the
+primary's online softmax: a chunk's max, one rescale of the carry, then the
+chunk's sums).
+
+  primary_agg_fwd   K10a's wrapper: out (9, R), m, s.
+  primary_agg_bwd   K10c's: d consts, d camera position, d dirs from the
+                    saved m and the 10 cotangent rows of ``primary_cot``.
+  shadow_trans_fwd  K10g's: trans (S, R).
+  shadow_trans_bwd  K10i's: d consts, d sources, d world points.
+  *_reference       their plain PyTorch versions.
+  PrimaryAgg, ShadowTrans   the torch.autograd.Functions around them
+                    (``_primary_agg``, ``_shadow_trans``).
+  raytrace_soft_kernel      ``raytrace_soft_pallas``: the whole soft frame.
+
+On CUDA tensors the wrappers launch the hand-written kernels
+(raytpu_torch/csrc/soft_raytrace.cu); on CPU tensors they run the plain
+versions. Where JAX would cull chunks (the masked kernels K10b/d/h/j) the
+frame raises NotImplementedError: ROADMAP.md port item 6c.
+
+The JAX kernels also take a (1, 16) globals row and the (L, 8) lights
+table. ``_primary_terms`` reads only the globals' first three entries, the
+camera position (``pos = g + t d``), and deletes the lights table, so
+``jax.grad`` gives the lights table and globals 3-15 exactly zero
+(tests/test_torch_soft_raytrace_kernels.py holds it): the port passes the
+camera position alone. Two docstrings there are stale (ROADMAP fault F12):
+the shadow kernel sums the optical depth, not ``log(1 - occ)``, and the
+primary output rows are [albedo, position, normal], not [shade, ambient,
+position].
+
+The shadow's ``1 / |d|`` is ``1 / sqrt(r2)`` with a correctly rounded
+square root here and in the kernel (JAX's ``rsqrt`` is not correctly
+rounded), so the two agree bit for bit on the card and come within ulps of
+JAX on the CPU. The running max m is a constant of the backward: the image
+acc / s does not depend on it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytpu_torch.core.types import cross, dot3, pixel_grid
+from raytpu_torch.kernels import _build
+from raytpu_torch.kernels.raster import _route
+from raytpu_torch.kernels.soft_raster import (
+    Kinks,
+    _sqrt_f32,
+    log_sigmoid,
+    minimum,
+    use_cull,
+)
+
+# Launches of each CUDA kernel in this process, counted by its wrapper where
+# it launches the kernel and nowhere else. A backward launch is the per-block
+# pass and the fixed-order sums of its partials.
+LAUNCHES_SRT_PRI_FWD = 0  # K10a, by primary_agg_fwd
+LAUNCHES_SRT_PRI_BWD = 0  # K10c, by primary_agg_bwd
+LAUNCHES_SRT_SHW_FWD = 0  # K10g, by shadow_trans_fwd
+LAUNCHES_SRT_SHW_BWD = 0  # K10i, by shadow_trans_bwd
+
+PRI_COLS = 32
+SHW_COLS = 16
+# Columns the kernels read (and the backward's partials carry).
+PRI_USED = 18
+SHW_USED = 14
+N_OUT = 9
+MAX_CHUNK = 32
+# The tables' column groups, each of one kind and size, for rules scaled by
+# a group's own largest entry.
+PRI_GROUPS = (("planes", 0, 10), ("normal", 10, 13), ("albedo", 13, 16),
+              ("active", 16, 17), ("dmin", 17, 18))
+SHW_GROUPS = (("v0", 0, 3), ("edges", 3, 9), ("n", 9, 12), ("n_v0", 12, 13),
+              ("active", 13, 14))
+BIG = 3.4028235e38
+OD_SCALE = 16.0
+T_NEAR = 0.1  # raytpu/render/soft.py::_T_NEAR: the bounded depth's floor
+# The kernels' block: this many rays (or shadow points) a block.
+THREADS = 256
+# Backward grid: at most this many blocks (8 per SM of an H100), each
+# taking every groups-th block of rays, and at most this many bytes of
+# per-block table partials in all.
+BWD_BLOCKS = 132 * 8
+PARTIAL_BYTES = 256 << 20
+
+
+# ---------------------------------------------------------------------------
+# Tables
+# ---------------------------------------------------------------------------
+
+def primary_tri_constants(scene, start: torch.Tensor) -> torch.Tensor:
+    """(T, 32) table of the primary kernels (``primary_tri_constants``):
+    n = cross(e1, e2) (0-2), c2b = cross(e2, b) (3-5), cb1 = cross(b, e1)
+    (6-8) with b = start - v0, k0 = n . b (9), the shading normal
+    (``scene.normals()``, 10-12), albedo (13-15), active (16) and
+    dmin = max(|start - centroid| - r_tri, 0) (17); 18-31 zero."""
+    e1, e2 = scene.edges()
+    b = start[None, :] - scene.v0
+    n = cross(e1, e2)
+    c2b = cross(e2, b)
+    cb1 = cross(b, e1)
+    k0 = dot3(n, b)
+    nrm = scene.normals()
+    cen = (scene.v0 + scene.v1 + scene.v2) / 3.0
+
+    def sq(v):
+        return dot3(v - cen, v - cen)
+
+    r2t = torch.maximum(torch.maximum(sq(scene.v0), sq(scene.v1)),
+                        sq(scene.v2))
+    oc = _sqrt_f32(dot3(cen - start[None, :], cen - start[None, :]))
+    dmin = torch.maximum(oc - _sqrt_f32(r2t + 1e-20), torch.zeros_like(oc))
+    cols = [*n.unbind(1), *c2b.unbind(1), *cb1.unbind(1), k0,
+            *nrm.unbind(1), *scene.color.unbind(1), scene.active, dmin]
+    cols += [torch.zeros_like(k0)] * (PRI_COLS - len(cols))
+    return torch.stack(cols, dim=1)
+
+
+def shadow_tri_constants(scene) -> torch.Tensor:
+    """(T, 16) table of the shadow kernels (``shadow_tri_constants``,
+    source-independent): v0 (0-2), e1 (3-5), e2 (6-8), n (9-11), n . v0
+    (12), active (13); 14-15 zero."""
+    e1, e2 = scene.edges()
+    n = cross(e1, e2)
+    cols = [*scene.v0.unbind(1), *e1.unbind(1), *e2.unbind(1), *n.unbind(1),
+            dot3(n, scene.v0), scene.active]
+    cols += [torch.zeros_like(cols[0])] * (SHW_COLS - len(cols))
+    return torch.stack(cols, dim=1)
+
+
+def pad_rows(table: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The table padded with zero rows to a whole number of chunks; an empty
+    table takes one all-zero chunk (the background)."""
+    T = table.shape[0]
+    pad = chunk if T == 0 else (-T) % chunk
+    if not pad:
+        return table
+    return torch.cat([table, table.new_zeros(pad, table.shape[1])])
+
+
+# ---------------------------------------------------------------------------
+# Per-(triangle, ray) terms, op by op in the JAX kernels' order
+# ---------------------------------------------------------------------------
+
+def _flag(kinks: Kinks | None, make):
+    """A branch decision (a boolean tensor), recorded or replayed."""
+    return make() if kinks is None else kinks.decide(make)
+
+
+def _safe_denom(denom, kinks: Kinks | None):
+    """Where the Moller-Trumbore denominator is divided by, |denom| >
+    1e-12 (else 1e-12 is). Replayed in float64, a denominator float32 kept
+    can be exactly 0 (a ray parallel to a plane, exactly); it takes the
+    1e-12 too, so that the gated pair's zero cotangent does not meet an
+    infinite 1 / denom."""
+    big = _flag(kinks, lambda: denom.abs() > 1e-12)
+    return big & (denom != 0.0) if kinks is not None else big
+
+
+def maximum(a, b, kinks: Kinks | None = None):
+    """``jnp.maximum``: half the gradient to each side of a tie."""
+    return -minimum(-a, -b, kinks)
+
+
+def primary_terms(cs, cam, dx, dy, dz, es: float, zs: float,
+                  kinks: Kinks | None = None):
+    """Per-(row, ray) logit and the 9 values of one chunk
+    (``_primary_terms``): cs (C, 32), cam (3,) the camera position, dx, dy,
+    dz (1, P) the ray directions. Returns (logit (C, P), vals), vals[j]
+    (C, P), or (C, 1) where a value is the row's own. ``kinks`` records or
+    replays the branch decisions (Kinks)."""
+    def col(j):
+        return cs[:, j:j + 1]
+
+    denom = -((dx * col(0) + dy * col(1)) + dz * col(2))
+    safe = torch.where(_safe_denom(denom, kinks), denom, 1e-12)
+    rec = 1.0 / safe
+    t = col(9) * rec
+    u = ((dx * col(3) + dy * col(4)) + dz * col(5)) * rec
+    v = ((dx * col(6) + dy * col(7)) + dz * col(8)) * rec
+    margin = minimum(minimum(u, v, kinks), (1.0 - u) - v, kinks)
+    dn = _sqrt_f32((dx * dx + dy * dy) + dz * dz)
+    nmag = _sqrt_f32((col(0) * col(0) + col(1) * col(1)) + col(2) * col(2))
+    hit_ok = _flag(kinks, lambda: (t > 1e-6)
+                   & (denom.abs() > (1e-3 * dn) * nmag))
+    dist = t * dn
+    zinv = 1.0 / maximum(maximum(dist, col(17), kinks),
+                         torch.full_like(dist, T_NEAR), kinks)
+    # A gated pair's margin can be anything (its t and u, v come from a
+    # near-zero denominator); it is replaced by -1e30 below either way, and
+    # taken as 0 here so that no exp(|margin|) overflows into its (zero)
+    # gradient: replayed in float64 with float32's branches, such a margin
+    # can take the other sign than its recorded |x|.
+    margin = torch.where(hit_ok, margin, 0.0)
+    logit = ((zs * torch.where(hit_ok, zinv, 0.0)
+              + log_sigmoid(es * margin, kinks))
+             + torch.log(col(16) + 1e-20))
+    logit = torch.where(hit_ok, logit, -1e30)
+    tp = torch.where(_flag(kinks, lambda: hit_ok & (t < BIG)), t, 0.0)
+    pos = [cam[j] + tp * d for j, d in enumerate((dx, dy, dz))]
+    vals = ([col(13 + j) for j in range(3)] + pos
+            + [col(10 + j) for j in range(3)])
+    return logit, vals
+
+
+def shadow_terms(cs, src, wx, wy, wz, es: float, zs: float,
+                 kinks: Kinks | None = None):
+    """Per-(row, point) optical depth ``cov * occ_z`` of one chunk for one
+    source (the summand of ``_shadow_od_terms``): cs (C, 16), src (3,), wx,
+    wy, wz (1, P) the world points. Returns (C, P)."""
+    def col(j):
+        return cs[:, j:j + 1]
+
+    d = [wx - src[0], wy - src[1], wz - src[2]]
+    r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    r2s = torch.where(_flag(kinks, lambda: r2 > 0.0), r2, 1.0)
+    rrec = 1.0 / _sqrt_f32(r2s)  # JAX: lax.rsqrt (see the module note)
+    r = r2s * rrec
+    dh = [dj * rrec for dj in d]
+    b = [src[j] - col(j) for j in range(3)]
+    e1 = [col(3), col(4), col(5)]
+    e2 = [col(6), col(7), col(8)]
+    n = [col(9), col(10), col(11)]
+    c2b = [e2[1] * b[2] - e2[2] * b[1],
+           e2[2] * b[0] - e2[0] * b[2],
+           e2[0] * b[1] - e2[1] * b[0]]
+    cb1 = [b[1] * e1[2] - b[2] * e1[1],
+           b[2] * e1[0] - b[0] * e1[2],
+           b[0] * e1[1] - b[1] * e1[0]]
+    k0 = ((src[0] * n[0] + src[1] * n[1]) + src[2] * n[2]) - col(12)
+    denom = -((dh[0] * n[0] + dh[1] * n[1]) + dh[2] * n[2])
+    safe = torch.where(_safe_denom(denom, kinks), denom, 1e-12)
+    rec = 1.0 / safe
+    t = k0 * rec
+    u = ((dh[0] * c2b[0] + dh[1] * c2b[1]) + dh[2] * c2b[2]) * rec
+    v = ((dh[0] * cb1[0] + dh[1] * cb1[1]) + dh[2] * cb1[2]) * rec
+    margin = minimum(minimum(u, v, kinks), (1.0 - u) - v, kinks)
+    cov = torch.sigmoid(es * margin) * col(13)
+    nmag = _sqrt_f32((n[0] * n[0] + n[1] * n[1]) + n[2] * n[2])
+    ok = _flag(kinks, lambda: (t > 1e-6) & (denom.abs() > 1e-3 * nmag))
+    occ_z = torch.where(ok, torch.sigmoid(zs * (0.99 * r - t)), 0.0)
+    return cov * occ_z
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _chunks(Tp: int, chunk: int):
+    return [slice(c * chunk, (c + 1) * chunk) for c in range(Tp // chunk)]
+
+
+def primary_agg_reference(consts, cam, dirs, es: float, zs: float,
+                          chunk: int):
+    """Plain PyTorch version of K10a, on any device and in any float type:
+    consts (Tp, 32) in chunks of ``chunk`` rows, cam (3,), dirs (3, R).
+    From the background hypothesis (m = 0, s = 1, acc = 0), chunk by chunk
+    as ``_pri_fwd_kernel``. Returns out (9, R) = acc / s, m (R,), s (R,)."""
+    dx, dy, dz = dirs[0:1], dirs[1:2], dirs[2:3]
+    R = dirs.shape[1]
+    m = dirs.new_zeros(R)
+    s = dirs.new_ones(R)
+    acc = dirs.new_zeros(N_OUT, R)
+    for rows in _chunks(consts.shape[0], chunk):
+        logit, vals = primary_terms(consts[rows], cam, dx, dy, dz, es, zs)
+        m_new = torch.maximum(m, logit.max(dim=0).values)
+        scale = torch.exp(m - m_new)
+        w = torch.exp(logit - m_new)
+        m = m_new
+        s = s * scale + w.sum(dim=0)
+        acc = acc * scale + torch.stack([(w * v).sum(dim=0) for v in vals])
+    return acc * (1.0 / s), m, s
+
+
+def _record(fn, args, kinks_wanted: bool):
+    """The branch decisions of fn(*float32 args) for a replay, or None."""
+    if not kinks_wanted:
+        return None
+    kinks = Kinks()
+    with torch.no_grad():
+        fn(*[a.float() if isinstance(a, torch.Tensor) else a for a in args],
+           kinks)
+    return kinks.replay()
+
+
+def primary_agg_bwd_reference(consts, cam, dirs, m, cot, es: float,
+                              zs: float, chunk: int,
+                              f32_branches: bool = False):
+    """Plain PyTorch version of K10c, on any device and in any float type:
+    each chunk recomputed at the saved m (R,), a constant, and
+    differentiated by autograd against the cotangent rows cot (10, R) =
+    [d s, d acc_0..8] (``primary_cot``), as ``_pri_bwd_fused_kernel``'s
+    in-kernel ``jax.vjp`` does. Returns (d consts (Tp, 32), d cam (3,),
+    d dirs (3, R)).
+
+    f32_branches: take the branch decisions (Kinks) of the inputs rounded
+    to float32, for a float64 reference of the float32 kernel."""
+    dc = torch.zeros_like(consts)
+    dcam = torch.zeros_like(cam)
+    dd = torch.zeros_like(dirs)
+    with torch.enable_grad():
+        for rows in _chunks(consts.shape[0], chunk):
+            kinks = _record(
+                lambda cs, g, d, k: primary_terms(cs, g, d[0:1], d[1:2],
+                                                  d[2:3], es, zs, k),
+                (consts[rows], cam, dirs), f32_branches)
+            cs = consts[rows].detach().requires_grad_()
+            g = cam.detach().requires_grad_()
+            d = dirs.detach().requires_grad_()
+            logit, vals = primary_terms(cs, g, d[0:1], d[1:2], d[2:3], es, zs,
+                                        kinks)
+            w = torch.exp(logit - m)
+            outs = [w.sum(dim=0)] + [(w * v).sum(dim=0) for v in vals]
+            gc, gg, gd = torch.autograd.grad(outs, (cs, g, d),
+                                             grad_outputs=list(cot))
+            dc[rows] = gc
+            dcam = dcam + gg
+            dd = dd + gd
+    return dc, dcam, dd
+
+
+def shadow_trans_reference(consts, srcs, world, es: float, zs: float,
+                           chunk: int):
+    """Plain PyTorch version of K10g: consts (Tp, 16), srcs (S, 3), world
+    (3, R). The optical depth summed chunk by chunk, then
+    ``exp(-16 od)`` (``_shw_fwd_kernel``). Returns trans (S, R)."""
+    wx, wy, wz = world[0:1], world[1:2], world[2:3]
+    out = []
+    for s in range(srcs.shape[0]):
+        od = world.new_zeros(world.shape[1])
+        for rows in _chunks(consts.shape[0], chunk):
+            od = od + shadow_terms(consts[rows], srcs[s], wx, wy, wz, es,
+                                   zs).sum(dim=0)
+        out.append(torch.exp(-OD_SCALE * od))
+    return torch.stack(out)
+
+
+def shadow_trans_bwd_reference(consts, srcs, world, trans, gcot, es: float,
+                               zs: float, chunk: int,
+                               f32_branches: bool = False):
+    """Plain PyTorch version of K10i: d od = gcot * (-16) * trans, each
+    (source, chunk) recomputed and differentiated by autograd, as
+    ``_shw_bwd_fused_kernel``'s ``jax.vjp``; d world summed over the sources
+    in order (``_shadow_bwd``). Returns (d consts (Tp, 16), d srcs (S, 3),
+    d world (3, R)). f32_branches as for primary_agg_bwd_reference."""
+    dc = torch.zeros_like(consts)
+    dsrc = torch.zeros_like(srcs)
+    dw = torch.zeros_like(world)
+    dlog = gcot * trans * (-OD_SCALE)
+    with torch.enable_grad():
+        for s in range(srcs.shape[0]):
+            dws = torch.zeros_like(world)
+            for rows in _chunks(consts.shape[0], chunk):
+                kinks = _record(
+                    lambda cs, sr, w, k: shadow_terms(cs, sr, w[0:1], w[1:2],
+                                                      w[2:3], es, zs, k),
+                    (consts[rows], srcs[s], world), f32_branches)
+                cs = consts[rows].detach().requires_grad_()
+                sr = srcs[s].detach().requires_grad_()
+                w = world.detach().requires_grad_()
+                od = shadow_terms(cs, sr, w[0:1], w[1:2], w[2:3], es, zs,
+                                  kinks).sum(dim=0)
+                gc, gs, gw = torch.autograd.grad(od, (cs, sr, w),
+                                                 grad_outputs=dlog[s])
+                dc[rows] = dc[rows] + gc
+                dsrc[s] = dsrc[s] + gs
+                dws = dws + gw
+            dw = dw + dws
+    return dc, dsrc, dw
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != shape or \
+            not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name}: expected a contiguous float32 {shape} "
+                         f"tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_table(consts: torch.Tensor, cols: int, chunk: int) -> None:
+    Tp = consts.shape[0] if consts.dim() == 2 else -1
+    _check("consts", consts, (Tp, cols), consts.device)
+    if not 1 <= chunk <= MAX_CHUNK or Tp < chunk or Tp % chunk:
+        raise ValueError(f"chunk must be 1..{MAX_CHUNK} and divide Tp = {Tp},"
+                         f" got {chunk}")
+
+
+def bwd_groups(Tp: int, used: int, R: int) -> int:
+    """The backward's blocks: one a block of THREADS rays at most, at most
+    BWD_BLOCKS, and partials of at most PARTIAL_BYTES."""
+    n_tiles = -(-R // THREADS)
+    return max(1, min(n_tiles, BWD_BLOCKS, PARTIAL_BYTES // (Tp * used * 4)))
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def launch_pri_fwd_kernel(consts, chunk: int, cam, dirs, es: float,
+                          zs: float, out, m, s) -> None:
+    """Launch K10a into the outputs the caller allocated. Checks nothing
+    and counts nothing; the wrapper does both."""
+    _raise("soft_rt_pri_fwd", _build.load().raytpu_soft_rt_pri_fwd(
+        consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
+        dirs.data_ptr(), dirs.shape[1], es, zs, out.data_ptr(), m.data_ptr(),
+        s.data_ptr(), _stream()))
+
+
+def launch_pri_bwd_kernel(consts, chunk: int, cam, dirs, es: float,
+                          zs: float, m, cot, partials, cam_partials, dc,
+                          dcam, dd) -> None:
+    """Launch K10c and the sums of its partials (groups, Tp, 18) and
+    (groups, 3) into dc (Tp, 32), dcam (3,) and dd (3, R), all allocated by
+    the caller. Checks nothing and counts nothing."""
+    _raise("soft_rt_pri_bwd", _build.load().raytpu_soft_rt_pri_bwd(
+        consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
+        dirs.data_ptr(), dirs.shape[1], es, zs, m.data_ptr(), cot.data_ptr(),
+        partials.shape[0], partials.data_ptr(), cam_partials.data_ptr(),
+        dc.data_ptr(), dcam.data_ptr(), dd.data_ptr(), _stream()))
+
+
+def launch_shw_fwd_kernel(consts, chunk: int, srcs, world, es: float,
+                          zs: float, trans) -> None:
+    """Launch K10g into trans (S, R). Checks nothing and counts nothing."""
+    _raise("soft_rt_shw_fwd", _build.load().raytpu_soft_rt_shw_fwd(
+        consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
+        srcs.shape[0], world.data_ptr(), world.shape[1], es, zs,
+        trans.data_ptr(), _stream()))
+
+
+def launch_shw_bwd_kernel(consts, chunk: int, srcs, world, trans, gcot,
+                          es: float, zs: float, partials, src_partials, dc,
+                          dsrc, dw) -> None:
+    """Launch K10i and the sums of its partials (groups, Tp, 14) and
+    (groups, S, 3) into dc (Tp, 16), dsrc (S, 3) and dw (3, R). Checks
+    nothing and counts nothing."""
+    _raise("soft_rt_shw_bwd", _build.load().raytpu_soft_rt_shw_bwd(
+        consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
+        srcs.shape[0], world.data_ptr(), world.shape[1], trans.data_ptr(),
+        gcot.data_ptr(), es, zs, partials.shape[0], partials.data_ptr(),
+        src_partials.data_ptr(), dc.data_ptr(), dsrc.data_ptr(),
+        dw.data_ptr(), _stream()))
+
+
+def primary_agg_fwd(consts: torch.Tensor, cam: torch.Tensor,
+                    dirs: torch.Tensor, es: float, zs: float, chunk: int):
+    """K10a's wrapper: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. consts (Tp, 32) in chunks of ``chunk`` <= 32 rows, cam
+    (3,), dirs (3, R). Returns out (9, R), m (R,), s (R,)."""
+    global LAUNCHES_SRT_PRI_FWD
+    if not _route(consts):
+        return primary_agg_reference(consts, cam, dirs, es, zs, chunk)
+    _check_table(consts, PRI_COLS, chunk)
+    _check("cam", cam, (3,), consts.device)
+    R = dirs.shape[1] if dirs.dim() == 2 else -1
+    _check("dirs", dirs, (3, R), consts.device)
+    out = dirs.new_empty((N_OUT, R))
+    m, s = dirs.new_empty(R), dirs.new_empty(R)
+    with torch.cuda.device(consts.device):
+        launch_pri_fwd_kernel(consts, chunk, cam, dirs, es, zs, out, m, s)
+    LAUNCHES_SRT_PRI_FWD += 1
+    return out, m, s
+
+
+def primary_agg_bwd(consts, cam, dirs, m, cot, es: float, zs: float,
+                    chunk: int):
+    """K10c's wrapper: the CUDA kernels for CUDA tensors, the plain version
+    for CPU tensors. m (R,) the forward's saved max, cot (10, R) =
+    [d s, d acc_0..8]; the rest as primary_agg_fwd. Returns d consts (Tp,
+    32, zero in columns 18-31), d cam (3,) and d dirs (3, R)."""
+    global LAUNCHES_SRT_PRI_BWD
+    if not _route(consts):
+        return primary_agg_bwd_reference(consts, cam, dirs, m, cot, es, zs,
+                                         chunk)
+    _check_table(consts, PRI_COLS, chunk)
+    _check("cam", cam, (3,), consts.device)
+    R = dirs.shape[1] if dirs.dim() == 2 else -1
+    _check("dirs", dirs, (3, R), consts.device)
+    _check("m", m, (R,), consts.device)
+    _check("cot", cot, (1 + N_OUT, R), consts.device)
+    Tp = consts.shape[0]
+    groups = bwd_groups(Tp, PRI_USED, R)
+    partials = consts.new_empty((groups, Tp, PRI_USED))
+    cam_partials = consts.new_empty((groups, 3))
+    dc, dcam, dd = (torch.empty_like(consts), torch.empty_like(cam),
+                    torch.empty_like(dirs))
+    with torch.cuda.device(consts.device):
+        launch_pri_bwd_kernel(consts, chunk, cam, dirs, es, zs, m, cot,
+                              partials, cam_partials, dc, dcam, dd)
+    LAUNCHES_SRT_PRI_BWD += 1
+    return dc, dcam, dd
+
+
+def shadow_trans_fwd(consts: torch.Tensor, srcs: torch.Tensor,
+                     world: torch.Tensor, es: float, zs: float,
+                     chunk: int) -> torch.Tensor:
+    """K10g's wrapper: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. consts (Tp, 16) in chunks of ``chunk`` <= 32 rows,
+    srcs (S, 3), world (3, R). Returns trans (S, R)."""
+    global LAUNCHES_SRT_SHW_FWD
+    if not _route(consts):
+        return shadow_trans_reference(consts, srcs, world, es, zs, chunk)
+    _check_table(consts, SHW_COLS, chunk)
+    S = srcs.shape[0] if srcs.dim() == 2 else -1
+    _check("srcs", srcs, (S, 3), consts.device)
+    R = world.shape[1] if world.dim() == 2 else -1
+    _check("world", world, (3, R), consts.device)
+    trans = world.new_empty((S, R))
+    with torch.cuda.device(consts.device):
+        launch_shw_fwd_kernel(consts, chunk, srcs, world, es, zs, trans)
+    LAUNCHES_SRT_SHW_FWD += 1
+    return trans
+
+
+def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
+                     chunk: int):
+    """K10i's wrapper: the CUDA kernels for CUDA tensors, the plain version
+    for CPU tensors. trans (S, R) the forward's output, gcot (S, R) its
+    cotangent; the rest as shadow_trans_fwd. Returns d consts (Tp, 16, zero
+    in columns 14-15), d srcs (S, 3) and d world (3, R)."""
+    global LAUNCHES_SRT_SHW_BWD
+    if not _route(consts):
+        return shadow_trans_bwd_reference(consts, srcs, world, trans, gcot,
+                                          es, zs, chunk)
+    _check_table(consts, SHW_COLS, chunk)
+    S = srcs.shape[0] if srcs.dim() == 2 else -1
+    _check("srcs", srcs, (S, 3), consts.device)
+    R = world.shape[1] if world.dim() == 2 else -1
+    _check("world", world, (3, R), consts.device)
+    _check("trans", trans, (S, R), consts.device)
+    _check("gcot", gcot, (S, R), consts.device)
+    Tp = consts.shape[0]
+    groups = bwd_groups(Tp, SHW_USED, R)
+    partials = consts.new_empty((groups, Tp, SHW_USED))
+    src_partials = consts.new_empty((groups, S, 3))
+    dc, dsrc, dw = (torch.empty_like(consts), torch.empty_like(srcs),
+                    torch.empty_like(world))
+    with torch.cuda.device(consts.device):
+        launch_shw_bwd_kernel(consts, chunk, srcs, world, trans, gcot, es,
+                              zs, partials, src_partials, dc, dsrc, dw)
+    LAUNCHES_SRT_SHW_BWD += 1
+    return dc, dsrc, dw
+
+
+def primary_cot(g: torch.Tensor, out: torch.Tensor,
+                s: torch.Tensor) -> torch.Tensor:
+    """The 10 cotangent rows [d s, d acc_0..8] of out = acc / s
+    (``_primary_cot``): d acc_j = g_j / s, d s = -(g . out) / s."""
+    srec = 1.0 / s
+    ds = -(g * out).sum(dim=0, keepdim=True) * srec
+    return torch.cat([ds, g * srec]).contiguous()
+
+
+class PrimaryAgg(torch.autograd.Function):
+    """out (9, R) of the (Tp, 32) table (``_primary_agg``), differentiable
+    in consts, the camera position and the ray directions (3, R); the
+    backward runs K10c (or its plain version)."""
+
+    @staticmethod
+    def forward(ctx, consts, cam, dirs, es: float, zs: float, chunk: int):
+        out, m, s = primary_agg_fwd(consts, cam, dirs, es, zs, chunk)
+        ctx.save_for_backward(consts, cam, dirs, out, m, s)
+        ctx.args = (es, zs, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        consts, cam, dirs, out, m, s = ctx.saved_tensors
+        dc, dcam, dd = primary_agg_bwd(consts, cam, dirs, m,
+                                       primary_cot(g, out, s), *ctx.args)
+        return dc, dcam, dd, None, None, None
+
+
+class ShadowTrans(torch.autograd.Function):
+    """trans (S, R) from each source (S, 3) to each world point (3, R)
+    (``_shadow_trans``), differentiable in all three; the backward runs
+    K10i (or its plain version)."""
+
+    @staticmethod
+    def forward(ctx, consts, srcs, world, es: float, zs: float, chunk: int):
+        trans = shadow_trans_fwd(consts, srcs, world, es, zs, chunk)
+        ctx.save_for_backward(consts, srcs, world, trans)
+        ctx.args = (es, zs, chunk)
+        return trans
+
+    @staticmethod
+    def backward(ctx, g):
+        consts, srcs, world, trans = ctx.saved_tensors
+        dc, dsrc, dw = shadow_trans_bwd(consts, srcs, world, trans,
+                                        g.contiguous(), *ctx.args)
+        return dc, dsrc, dw, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# The soft frame
+# ---------------------------------------------------------------------------
+
+def raytrace_soft_inputs(scene, camera, cfg, cull: bool | None = None,
+                         chunk: int = MAX_CHUNK):
+    """The kernels' inputs for a soft frame, as ``raytrace_soft_pallas``
+    builds them: both tables padded to a whole number of chunks of
+    min(chunk, max(T, 8)) rows (T == 0 takes one all-zero chunk), the ray
+    directions (3, H*W) and the sharpness. Returns (pri, shw, dirs, chunk,
+    es, zs), carrying the autograd graph of scene and camera.
+
+    Where JAX would cull (``use_cull``: auto on several chunks at a size
+    that blocks into its 1,024-pixel tiles, or cull True) the masked
+    kernels are needed: NotImplementedError, ROADMAP.md port item 6c."""
+    from raytpu_torch.render.raytrace import camera_ray_dirs
+
+    H, W = cfg.height, cfg.width
+    chunk = min(chunk, max(scene.num_triangles, 8))
+    pri = pad_rows(primary_tri_constants(scene, camera.pos), chunk)
+    if use_cull(cull, pri.shape[0] // chunk, H, W):
+        raise NotImplementedError(
+            f"the culled soft raytracer ({pri.shape[0] // chunk} chunks at "
+            f"{H}x{W}; masked kernels K10b/d/h/j): ROADMAP.md port item 6c;"
+            " pass cull=False for the unmasked kernels")
+    shw = pad_rows(shadow_tri_constants(scene), chunk)
+    xs, ys = pixel_grid(H, W, scene.device)
+    dirs = camera_ray_dirs(xs, ys, camera, cfg).T.contiguous()
+    return (pri, shw, dirs, chunk, float(cfg.soft_edge_sharpness),
+            float(cfg.soft_z_sharpness))
+
+
+def raytrace_soft_kernel(scene, camera, lights, cfg, cull: bool | None = None,
+                         chunk: int = MAX_CHUNK) -> torch.Tensor:
+    """The soft raytraced frame through K10a/K10g (``raytrace_soft_pallas``,
+    unmasked); returns (H, W, 3). Shadow sources are each light's first
+    ``soft_shadow_samples`` jittered positions (light-major) when that is
+    above 1, else the lights' positions; a light's shadow is the mean over
+    its sources, and the frame's Σ mask · shadow / max(Σ mask, 1). The
+    light bank is taken as given: inactive slots' sources are traced too
+    and weigh 0. Gradients reach every leaf of scene, camera and lights.
+    Inputs: ``raytrace_soft_inputs``."""
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.soft import shade_agg_raytrace
+
+    H, W = cfg.height, cfg.width
+    pri, shw, dirs, chunk, es, zs = raytrace_soft_inputs(scene, camera, cfg,
+                                                         cull, chunk)
+    out = PrimaryAgg.apply(pri, camera.pos, dirs, es, zs, chunk)
+    samples = max(cfg.soft_shadow_samples, 1)
+    srcs = source_positions(lights, samples).contiguous()
+    trans = ShadowTrans.apply(shw, srcs, out[3:6], es, zs, chunk)
+    per_light = trans.reshape(lights.capacity, samples, -1).mean(dim=1)
+    denom = torch.maximum(lights.mask.sum(), lights.mask.new_ones(()))
+    shadow = (lights.mask[:, None] * per_light).sum(dim=0) / denom
+    img = shade_agg_raytrace(out[0:3].T, out[3:6].T, out[6:9].T, lights,
+                             float(np.float32(cfg.ambient)), shadow)
+    return img.reshape(H, W, 3)

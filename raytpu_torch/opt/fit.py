@@ -2,9 +2,11 @@
 (counterpart of raytpu/opt/fit.py).
 
 The soft rasterizer (render/soft.py::rasterize_soft, whose aggregation runs
-in the soft raster kernels on a card) under an image loss; Adam or SGD in
-parameter groups (vertices, albedo, light position and intensity, light
-color); annealing stages that raise the soft sharpness so the fit moves
+in the soft raster kernels on a card) or the soft raytracer
+(``renderer="raytrace"``: render/soft.py::raytrace_soft, the soft raytrace
+kernels, with the light bank as given, not compacted) under an image loss;
+Adam or SGD in parameter groups (vertices, albedo, light position and
+intensity, light color); annealing stages that raise the soft sharpness so the fit moves
 toward the hard image; npz checkpoints with exact resume.
 
 The JAX package's optax chain maps onto torch.optim as follows:
@@ -24,8 +26,7 @@ The JAX package's optax chain maps onto torch.optim as follows:
 ``fit(resume_from=...)`` reruns the whole stage schedule after the restored
 step, and with ``stage_reset`` discards the restored optimizer state at
 stage 0: the JAX package's behaviour, kept (ROADMAP.md fault F10). The
-soft raytracer (``renderer="raytrace"``) is port item 6b and the sharded fit
-(``mesh=``) item 8.
+sharded fit (``mesh=``) is port item 8.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ class FitConfig:
     optimizer: str = "adam"  # or "sgd"
     # Adds prox_to_init * sum(mean((p - p_init)^2)) over every leaf.
     prox_to_init: float = 0.0
-    renderer: str = "rasterize"  # "raytrace" is port item 6b
+    renderer: str = "rasterize"  # or "raytrace"
     # 'mse', 'chroma', 'chroma+edge' or 'none' (extra_loss and prox only);
     # any other value is mse, as in the JAX package.
     loss: str = "mse"
@@ -225,9 +226,8 @@ def _render_fn(renderer: str) -> Callable:
         from raytpu_torch.render.soft import rasterize_soft
         return rasterize_soft
     if renderer == "raytrace":
-        raise NotImplementedError(
-            "fit(renderer='raytrace') trains through the soft raytracer: "
-            "ROADMAP.md port item 6b")
+        from raytpu_torch.render.soft import raytrace_soft
+        return raytrace_soft
     raise ValueError(f"unknown renderer {renderer!r}")
 
 

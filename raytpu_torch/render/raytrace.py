@@ -19,10 +19,12 @@ triangles) through one of two branches:
 The DoF stage follows as plain torch. A loss on the image or the focal
 distances differentiates to every leaf of the scene (``active`` excepted,
 as in the JAX package), of the lights (the jittered soft-shadow positions
-through the shading) and, through ``camera_ray_dirs``, of the camera. The
-soft renderers (mode 'soft') and scenes of more than 128 triangles raise
-NotImplementedError naming the ROADMAP.md item that brings them, whatever
-the device.
+through the shading) and, through ``camera_ray_dirs``, of the camera.
+Scenes of more than 128 triangles raise NotImplementedError naming the
+ROADMAP.md item that brings them (port item 4), whatever the device.
+``raytrace`` renders mode 'soft'
+through the soft raytracer (render/soft.py::raytrace_soft, the soft
+raytrace kernels K10a/K10c/K10g/K10i) on the compacted light bank.
 """
 
 from __future__ import annotations
@@ -87,18 +89,14 @@ def _subpixel_offsets(cfg: RenderConfig) -> list[tuple[float, float]]:
 
 
 def _check_scope(scene: Scene, lights: Lights, cfg: RenderConfig):
-    """Raise for a configuration this port does not render yet, and for
-    more soft-shadow samples than the light bank holds (ROADMAP fault F7:
-    the JAX package silently repeats the bank's last jittered position)."""
-    gaps = []
-    if cfg.mode not in ("clean", "parity"):
-        gaps.append(f"mode {cfg.mode!r}: port item 6b (the soft raytracer)")
+    """Raise for a scene this port's hard raytracer does not render yet,
+    and for more soft-shadow samples than the light bank holds (ROADMAP
+    fault F7: the JAX package silently repeats the bank's last jittered
+    position)."""
     if scene.num_triangles > MAX_CHUNK:
-        gaps.append(f"{scene.num_triangles} triangles: port item 4 "
-                    "(STL scale)")
-    if gaps:
         raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): " + "; ".join(gaps))
+            f"not ported yet (see ROADMAP.md): {scene.num_triangles} "
+            "triangles: port item 4 (STL scale)")
     if cfg.soft_shadow_samples > lights.num_soft_samples:
         raise ValueError(
             f"soft_shadow_samples={cfg.soft_shadow_samples} but the light "
@@ -217,5 +215,10 @@ def _loop_branch(scene: Scene, camera: Camera, lights: Lights,
 
 def raytrace(scene: Scene, camera: Camera, lights: Lights,
              cfg: RenderConfig) -> torch.Tensor:
-    """Render and return the (H, W, 3) float32 image."""
+    """Render and return the (H, W, 3) float32 image; mode 'soft' through
+    raytrace_soft on the compacted bank, as the JAX package's raytrace."""
+    if cfg.mode == "soft":
+        from raytpu_torch.render.soft import raytrace_soft
+
+        return raytrace_soft(scene, camera, lights.compact(), cfg)
     return raytrace_full(scene, camera, lights, cfg).image

@@ -22,8 +22,17 @@ the rasterizer half of raytpu/render/soft.py).
     differentiates that recompute, as ``jax.grad`` does through the JAX
     package's stop_gradient'ed winner.
 
-``raytrace_soft`` (with ``_soft_shadow_factor`` and kernels K10a-l) is
-ROADMAP.md port item 6b.
+  * ``raytrace_soft`` — the differentiable raytracer: per ray, a softmax
+    over triangle logits ``zs * zinv + log_sigmoid(es * margin) +
+    log(active)`` (zinv the bounded inverse metric depth of the ray-plane
+    hit, margin the barycentric margin) and a background at logit 0
+    aggregates (albedo, hit position, normal); an optical-depth shadow
+    ``exp(-16 od)`` toward each shadow source scales the direct term of
+    ``shade_agg_raytrace``. The aggregation and the shadow run in the soft
+    raytrace kernels (raytpu_torch.kernels.soft_raytrace: K10a/K10g
+    forward, K10c/K10i backward). The JAX package's jnp streaming path is
+    that math reassociated; the port has the kernels' math only. Frames
+    that JAX would cull (the masked kernels) are port item 6c.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from raytpu_torch.core.types import (
 )
 from raytpu_torch.kernels.raster import raster_tri_constants, resolve_winner
 from raytpu_torch.kernels.soft_raster import clip01, rasterize_soft_kernel
+from raytpu_torch.kernels.soft_raytrace import raytrace_soft_kernel
 from raytpu_torch.ops.intersect import gather_rows, one_hot_idx
 from raytpu_torch.ops.raster import cull_mask, glm_inverse3
 from raytpu_torch.ops.shade import irradiance_no_shadow
@@ -56,11 +66,23 @@ def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
 
 
 def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
-                  cfg: RenderConfig) -> torch.Tensor:
-    """Not ported yet: ROADMAP.md port item 6b (the soft raytracer)."""
-    raise NotImplementedError(
-        "raytrace_soft (mode 'soft' of the raytracer): ROADMAP.md port item "
-        "6b (the soft raytracer, kernels K10a-l)")
+                  cfg: RenderConfig, cull: bool | None = None) -> torch.Tensor:
+    """Differentiable raytrace; returns (H, W, 3). Through the soft raytrace
+    kernels (``raytrace_soft_kernel``, the JAX package's
+    ``raytrace_soft_pallas``). ``cull`` None culls where the JAX package
+    would, which raises NotImplementedError (port item 6c); False runs the
+    unmasked kernels at any size."""
+    return raytrace_soft_kernel(scene, camera, lights, cfg, cull=cull)
+
+
+def shade_agg_raytrace(alb, pos, nrm, lights: Lights, ambient: float,
+                       shadow) -> torch.Tensor:
+    """Shade the aggregated raytrace surface once per ray: irradiance at the
+    aggregated (position, normal) scaled by the shadow transmittance, then
+    albedo and ambient as in 'clean'. alb, pos, nrm (..., 3); shadow
+    (...,); returns (..., 3)."""
+    irr = irradiance_no_shadow(pos, nrm, lights)
+    return alb * (irr * shadow[..., None] + float(np.float32(ambient)))
 
 
 def shade_agg_raster(alb, ppx, zpx, nrm, camera: Camera, lights: Lights,

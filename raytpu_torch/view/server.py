@@ -17,8 +17,9 @@ the CPU), with the JAX viewer's key map:
   ] / [         focal length +/- 0.1 (px scale ~ +/-10)  `raytracer.cpp:462-473`
   2 / 3         spawn random light / delete last    `raytracer.cpp:520-539`
   0             clean <-> soft (the differentiable render): the
-                rasterizer's soft frame runs the soft raster kernels (K9a);
-                the raytracer's is port item 6b, answered with HTTP 501
+                rasterizer's soft frame runs the soft raster kernels (K9a),
+                the raytracer's the soft raytrace kernels (K10a, K10g) on
+                the compacted light bank
 
 The raytracer's keys 7, 8 and 2 move a frame off the fused forward kernel
 onto the loop branch of raytrace_full. The rasterizer (``renderer=
@@ -52,7 +53,7 @@ from raytpu_torch.render.animate import (
     apply_key_raytracer,
 )
 from raytpu_torch.render.rasterize import rasterize
-from raytpu_torch.render.raytrace import raytrace_full
+from raytpu_torch.render.raytrace import raytrace
 
 _MOVE_KEYS = tuple(k for k in KEYS if k != "none")
 
@@ -86,8 +87,8 @@ class ViewerApp:
         t0 = time.perf_counter()
         with torch.no_grad():
             if self.renderer == "raytrace":
-                img = raytrace_full(self.scene, self.camera, self.lights,
-                                    self.cfg).image
+                img = raytrace(self.scene, self.camera, self.lights,
+                               self.cfg)
             else:
                 img = rasterize(self.scene, self.camera, self.lights,
                                 self.cfg)
@@ -104,9 +105,8 @@ class ViewerApp:
 
     def handle_key(self, key: str) -> dict:
         """Apply one key event (the reference's Update()), render, and
-        return the new state. Raises KeyError for an unknown key and
-        NotImplementedError for the raytracer's key 0, before changing any
-        state."""
+        return the new state. Raises KeyError for an unknown key, before
+        changing any state."""
         with self.lock:
             if key in _MOVE_KEYS:
                 apply_key = (apply_key_raytracer
@@ -145,10 +145,6 @@ class ViewerApp:
             elif key == "3":  # delete the most recent light
                 self.lights = self.lights.delete_last()
             elif key == "0":  # clean <-> soft (differentiable) render
-                if self.renderer == "raytrace":
-                    raise NotImplementedError(
-                        "key 0 (clean <-> soft render) of the raytracer: "
-                        "ROADMAP.md port item 6b (the soft raytracer)")
                 new_mode = "soft" if self.cfg.mode != "soft" else "clean"
                 self.cfg = self.cfg.replace(mode=new_mode)
             elif key != "none":

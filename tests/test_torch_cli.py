@@ -69,10 +69,68 @@ def test_render_cli_refuses_cuda_without_a_card(tmp_path):
     assert not (tmp_path / "x.bmp").exists()
 
 
+def _mesh_stl(path, n: int):
+    """The first n triangles of the procedural F1 mesh as an ASCII STL."""
+    from raytpu_torch.core.stl import procedural_stl_text
+    lines = procedural_stl_text().splitlines()
+    facets = [i for i, line in enumerate(lines)
+              if line.strip().startswith("facet")]
+    body = lines[facets[0]:facets[n]] if n < len(facets) else \
+        lines[facets[0]:-1]
+    path.write_text("\n".join([lines[0], *body, lines[-1]]) + "\n")
+    return path
+
+
 def test_render_cli_refuses_unported_flags(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["render", "--device", "cpu", "--width", "8", "--height", "8",
-              "--stl", str(tmp_path / "model.stl"),
+    """The hard raytracer's STL scale (more than 128 triangles, parity and
+    clean) is port item 4."""
+    stl = _mesh_stl(tmp_path / "model.stl", 200)
+    for mode in ("parity", "clean"):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            main(["render", "--device", "cpu", "--width", "8", "--height",
+                  "8", "--mode", mode, "--stl", str(stl),
+                  "-o", str(tmp_path / "x.bmp")])
+
+
+def test_render_cli_soft_writes_the_jax_frame(tmp_path):
+    """``render --mode soft`` at an off-grid camera against the JAX
+    package's soft raytrace (its jnp path), u8 within 1."""
+    out = tmp_path / "soft.bmp"
+    pos = (0.011, -0.007, -2.013)
+    main(["render", "--device", "cpu", "--mode", "soft", "--width", "32",
+          "--height", "24", "--focal", "32.23", "--camera-pos",
+          *map(str, pos), "-o", str(out)])
+    want = quantize_u8(np.asarray(jax_raytrace(
+        jax_cornell_box(), JaxCamera.make(pos, focal=32.23, dof_focus=1.3),
+        JaxLights.single(capacity=1),
+        JaxRenderConfig(width=32, height=24, mode="soft"))))
+    got = read_bmp(str(out))
+    assert got.shape == (24, 32, 3) and got.max() > 80
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_render_cli_soft_stl_runs_unculled_and_refuses_the_culled(tmp_path):
+    """``render --mode soft --stl``: several chunks at a size that does not
+    block into JAX's 1,024-pixel tiles run the unmasked kernels' plain
+    versions and match raytrace_soft with cull=False; at a size that
+    blocks, JAX would cull (the masked kernels): item 6c."""
+    from raytpu_torch.render.soft import raytrace_soft
+    stl = _mesh_stl(tmp_path / "model.stl", 70)
+    out = tmp_path / "stl.bmp"
+    flags = ["--mode", "soft", "--stl", str(stl), "--width", "24",
+             "--height", "20"]
+    main(["render", "--device", "cpu", *flags, "-o", str(out)])
+    parser = argparse.ArgumentParser()
+    cli_main._render_flags(parser)
+    scene, camera, lights, cfg = cli_main._build_inputs(parser.parse_args(
+        ["--device", "cpu", *flags]))
+    assert scene.num_triangles == 70
+    want = raytrace_soft(scene, camera, lights, cfg, cull=False)
+    np.testing.assert_array_equal(read_bmp(str(out)),
+                                  quantize_u8(want.numpy()))
+    with pytest.raises(NotImplementedError, match="item 6c"):
+        main(["render", "--device", "cpu", "--mode", "soft", "--stl",
+              str(stl), "--width", "32", "--height", "32",
               "-o", str(tmp_path / "x.bmp")])
 
 
@@ -201,11 +259,43 @@ def test_fit_cli_trains_on_cpu(tmp_path, capsys):
                                            soft_z_sharpness=4000.0))
     np.testing.assert_array_equal(read_bmp(str(out)),
                                   quantize_u8(frame.numpy()))
-    for flags, item in ((["--mesh", "2x2"], "item 8"),
-                        (["--renderer", "raytrace"], "item 6b")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["fit", str(target), "--device", "cpu", "--steps", "1",
-                  "-o", str(tmp_path / "x.bmp"), *flags])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        main(["fit", str(target), "--device", "cpu", "--steps", "1",
+              "-o", str(tmp_path / "x.bmp"), "--mesh", "2x2"])
+
+
+def test_fit_cli_trains_the_raytracer_on_cpu(tmp_path, capsys):
+    """``fit TARGET --renderer raytrace --device cpu``: the soft raytracer
+    trains (the fit's own loss printed) and the final frame is still the
+    soft rasterizer's at 400 / 4000, as in the JAX CLI."""
+    from raytpu_torch.core.image import write_bmp
+    W, H = 24, 20
+    camera = Camera.make((0.0, 0.0, -3.0), focal=float(W), y_scale=1.01,
+                         device="cpu")
+    cfg = RenderConfig(width=W, height=H, mode="soft")
+    with torch.no_grad():
+        img = rasterize_soft(cornell_box(device="cpu"), camera,
+                             Lights.single(capacity=1, device="cpu"),
+                             cfg.replace(soft_edge_sharpness=40.0,
+                                         soft_z_sharpness=200.0))
+    target = tmp_path / "target.bmp"
+    write_bmp(str(target), img.numpy())
+    out = tmp_path / "fit.bmp"
+    main(["fit", str(target), "--device", "cpu", "--steps", "4",
+          "--renderer", "raytrace", "-o", str(out)])
+    printed = capsys.readouterr().out
+    want = fit(read_bmp(str(target)).astype(np.float32) / 255.0,
+               cornell_box(device="cpu"), camera,
+               Lights.single(capacity=1, intensity=10.0, device="cpu"), cfg,
+               FitConfig(steps=4, renderer="raytrace"))
+    assert f"final loss: {want.losses[-1]:.6f}" in printed
+    assert np.isfinite(want.losses).all()
+    with torch.no_grad():
+        frame = rasterize_soft(want.scene, camera, want.lights,
+                               cfg.replace(soft_edge_sharpness=400.0,
+                                           soft_z_sharpness=4000.0))
+    np.testing.assert_array_equal(read_bmp(str(out)),
+                                  quantize_u8(frame.numpy()))
 
 
 def test_rasterize_cli_soft_writes_the_jax_frame(tmp_path):

@@ -605,3 +605,202 @@ def test_soft_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         sr.soft_agg_bwd(c["consts"], m, _soft_cot(c)[:10], *args, None, 40.0,
                         40.0)
+
+
+def _srt_case(device, name, size=64):
+    """The soft raytrace kernels' inputs at a small size, cull=False: both
+    tables, the rays, the chunk, sharpness, four shadow sources and the
+    aggregated hit positions of the plain forward. 'cornell': the box
+    padded to 32 (one chunk); 'mesh': the 800-triangle procedural mesh
+    padded to 832 (26 chunks)."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.kernels import soft_raytrace as srt
+    if name == "cornell":
+        scene = cornell_box(pad_to=32, device=device)
+        camera = Camera.make((0.0, 0.0, -2.0), focal=size / 2.0,
+                             device=device)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/mesh.stl"
+            with open(path, "w") as f:
+                f.write(procedural_stl_text(20, 20))
+            scene = load_stl(path, device=device).pad_to(832)
+        camera = Camera.make((0.0, -0.5, -5.0), focal=size / 2.0,
+                             device=device)
+    cfg = RenderConfig(width=size, height=size, mode="soft",
+                       soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
+    with torch.no_grad():
+        pri, shw, dirs, chunk, es, zs = srt.raytrace_soft_inputs(
+            scene, camera, cfg, cull=False)
+        out, _, _ = srt.primary_agg_reference(pri, camera.pos, dirs, es, zs,
+                                              chunk)
+    srcs = torch.tensor([[0.0, -0.5, -0.7], [0.03, -0.52, -0.69],
+                         [0.4, -0.5, -0.7], [0.38, -0.47, -0.72]],
+                        device=device)
+    return dict(pri=pri.contiguous(), shw=shw.contiguous(), dirs=dirs,
+                cam=camera.pos.contiguous(), chunk=chunk, es=es, zs=zs,
+                srcs=srcs, world=out[3:6].contiguous())
+
+
+def _one_signed(shape, device, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.uniform(0.5, 1.5, shape).astype(np.float32),
+                        device=device)
+
+
+def _rule(got, want):
+    """Largest |got - want| over the rtol 1e-4 / atol 1e-5 bound scaled by
+    want's largest entry: <= 1 passes."""
+    got, want = got.double(), want.double()
+    scale = max(float(want.abs().max()), 1e-30)
+    return float(((got - want).abs() / (1e-5 * scale + 1e-4 * want.abs()))
+                 .max())
+
+
+def _assert_float64_rule(got, want64, plain32, groups):
+    """Each column group: within the rule of the plain float32 version, and
+    of the float64 evaluation or no farther from it than that version
+    (ROADMAP fault F11)."""
+    for name, lo, hi in groups:
+        g, w, p = (t[..., lo:hi] for t in (got, want64, plain32))
+        assert _rule(g, p) <= 1.0, name
+        assert _rule(g, w) <= max(1.0, 1.01 * _rule(p, w)), name
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh"])
+def test_soft_raytrace_forward_kernels_match_plain_versions(cuda, name):
+    from raytpu_torch.kernels import soft_raytrace as srt
+    c = _srt_case(cuda, name)
+    counts = (srt.LAUNCHES_SRT_PRI_FWD, srt.LAUNCHES_SRT_SHW_FWD)
+    pargs = (c["pri"], c["cam"], c["dirs"], c["es"], c["zs"], c["chunk"])
+    got, again = srt.primary_agg_fwd(*pargs), srt.primary_agg_fwd(*pargs)
+    want = srt.primary_agg_reference(*pargs)
+    sargs = (c["shw"], c["srcs"], c["world"], c["es"], c["zs"], c["chunk"])
+    trans, trans2 = srt.shadow_trans_fwd(*sargs), srt.shadow_trans_fwd(*sargs)
+    trans_want = srt.shadow_trans_reference(*sargs)
+    torch.cuda.synchronize()
+    assert (srt.LAUNCHES_SRT_PRI_FWD, srt.LAUNCHES_SRT_SHW_FWD) == (
+        counts[0] + 2, counts[1] + 2)
+    for g, a, w in zip((*got, trans), (*again, trans2), (*want, trans_want)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    # Surfaces in view: a logit above the background's.
+    assert float((got[1] > 1.0).float().mean()) > 0.05
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh"])
+def test_soft_raytrace_backward_kernels_match_plain_float64(cuda, name):
+    """K10c/K10i against the plain backward in float64 with the float32
+    branch decisions (Kinks) and against the plain float32 version, by
+    column group; two calls bit-identical."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    c = _srt_case(cuda, name)
+    R = c["dirs"].shape[1]
+    _, m, _ = srt.primary_agg_fwd(c["pri"], c["cam"], c["dirs"], c["es"],
+                                  c["zs"], c["chunk"])
+    cot = _one_signed((10, R), cuda, 0)
+    pargs = (c["pri"], c["cam"], c["dirs"], m, cot, c["es"], c["zs"],
+             c["chunk"])
+    got, again = srt.primary_agg_bwd(*pargs), srt.primary_agg_bwd(*pargs)
+    want = srt.primary_agg_bwd_reference(
+        *(t.double() for t in pargs[:5]), *pargs[5:], f32_branches=True)
+    plain = srt.primary_agg_bwd_reference(*pargs)
+    trans = srt.shadow_trans_fwd(c["shw"], c["srcs"], c["world"], c["es"],
+                                 c["zs"], c["chunk"])
+    gcot = _one_signed(trans.shape, cuda, 1)
+    sargs = (c["shw"], c["srcs"], c["world"], trans, gcot, c["es"], c["zs"],
+             c["chunk"])
+    sgot, sagain = srt.shadow_trans_bwd(*sargs), srt.shadow_trans_bwd(*sargs)
+    swant = srt.shadow_trans_bwd_reference(
+        *(t.double() for t in sargs[:5]), *sargs[5:], f32_branches=True)
+    splain = srt.shadow_trans_bwd_reference(*sargs)
+    torch.cuda.synchronize()
+    for g, a in zip((*got, *sgot), (*again, *sagain)):
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    assert not got[0][:, srt.PRI_USED:].any()
+    assert not sgot[0][:, srt.SHW_USED:].any()
+    _assert_float64_rule(got[0], want[0], plain[0], srt.PRI_GROUPS)
+    one = (("all", 0, 3),)
+    _assert_float64_rule(got[1][None], want[1][None], plain[1][None], one)
+    _assert_float64_rule(got[2].T, want[2].T, plain[2].T, one)
+    _assert_float64_rule(sgot[0], swant[0], splain[0], srt.SHW_GROUPS)
+    _assert_float64_rule(sgot[1], swant[1], splain[1], one)
+    _assert_float64_rule(sgot[2].T, swant[2].T, splain[2].T, one)
+
+
+def test_raytrace_fit_step_launches_each_k10_kernel_once(cuda):
+    from raytpu_torch.kernels import intersect, raster
+    from raytpu_torch.kernels import soft_raster as sr
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.opt.fit import FitConfig, fit
+
+    def counts():
+        return (render_fused.LAUNCHES, render_fused.LAUNCHES_BWD,
+                render_fused.LAUNCHES_SCATTER, intersect.LAUNCHES_OCCLUDED,
+                intersect.LAUNCHES_OCCLUDED_MULTI, raster.LAUNCHES_WINNER,
+                raster.LAUNCHES_WINNER_MASKED, sr.LAUNCHES_SOFT_FWD,
+                sr.LAUNCHES_SOFT_FWD_MASKED, sr.LAUNCHES_SOFT_BWD,
+                sr.LAUNCHES_SOFT_BWD_MASKED, srt.LAUNCHES_SRT_PRI_FWD,
+                srt.LAUNCHES_SRT_PRI_BWD, srt.LAUNCHES_SRT_SHW_FWD,
+                srt.LAUNCHES_SRT_SHW_BWD)
+
+    camera = Camera.make((0.0, 0.0, -3.0), focal=48.0, y_scale=1.01,
+                         device=cuda)
+    target = torch.full((40, 48, 3), 0.3, device=cuda)
+    before = counts()
+    res = fit(target, cornell_box(device=cuda), camera,
+              Lights.single(capacity=1, device=cuda),
+              RenderConfig(width=48, height=40, mode="soft"),
+              FitConfig(steps=3, stages=((40.0, 200.0, 1.0),), log_every=0,
+                        renderer="raytrace"))
+    delta = [a - b for a, b in zip(counts(), before)]
+    assert delta == [0] * 11 + [3, 3, 3, 3]
+    assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
+
+
+def test_soft_raytrace_on_gpu_matches_cpu(cuda):
+    """The whole soft frame and its gradients on the card against the CPU
+    (the plain versions)."""
+    from raytpu_torch.render.soft import raytrace_soft
+
+    def run(device):
+        scene = cornell_box(pad_to=32, device=device)
+        camera = Camera.raytracer_default(device=device)
+        lights = Lights.single(capacity=2, soft_samples=4, device=device)
+        for t in (scene.v0, camera.pos, lights.jitter):
+            t.requires_grad_(True)
+        img = raytrace_soft(scene, camera, lights, RenderConfig(
+            width=48, height=40, mode="soft", soft_shadow_samples=4,
+            soft_edge_sharpness=60.0, soft_z_sharpness=60.0))
+        torch.sin(3.0 * img).sum().backward()
+        return [t.detach().cpu() for t in (img, scene.v0.grad,
+                                           camera.pos.grad,
+                                           lights.jitter.grad)]
+
+    for got, want in zip(run(cuda), run("cpu")):
+        scale = max(float(want.abs().max()), 1e-8)
+        torch.testing.assert_close(got / scale, want / scale, rtol=0,
+                                   atol=2e-4)
+
+
+def test_soft_raytrace_wrappers_check_their_inputs(cuda):
+    from raytpu_torch.kernels import soft_raytrace as srt
+    c = _srt_case(cuda, "cornell", size=16)
+    with pytest.raises(ValueError):
+        srt.primary_agg_fwd(c["pri"].double(), c["cam"], c["dirs"], 40.0,
+                            40.0, c["chunk"])
+    with pytest.raises(ValueError):
+        srt.primary_agg_fwd(c["pri"], c["cam"].cpu(), c["dirs"], 40.0, 40.0,
+                            c["chunk"])
+    with pytest.raises(ValueError):
+        srt.primary_agg_fwd(c["pri"], c["cam"], c["dirs"].T, 40.0, 40.0,
+                            c["chunk"])
+    with pytest.raises(ValueError):
+        srt.shadow_trans_fwd(c["shw"], c["srcs"], c["world"], 40.0, 40.0, 33)
+    with pytest.raises(ValueError):
+        srt.shadow_trans_bwd(c["shw"], c["srcs"], c["world"],
+                             torch.zeros(3, 5, device=cuda),
+                             torch.zeros(3, 5, device=cuda), 40.0, 40.0,
+                             c["chunk"])

@@ -94,9 +94,13 @@ def test_viewer_spawned_light_matches_jax():
 
 def test_viewer_refuses_what_is_not_ported():
     _, app = _apps()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        app.handle_key("0")
-    assert app.cfg.mode == "clean" and app.frame_n == 0
+    # The hard raytracer at STL scale (more than 128 triangles) is port
+    # item 4.
+    big = ViewerApp(convert.scene_from_numpy(leaves(jax_cornell_box(
+        pad_to=136)), device="cpu"), app.camera, app.lights, app.cfg)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        big.handle_key("none")
+    assert big.frame_n == 0
     with pytest.raises(KeyError):
         app.handle_key("q")
     # The rasterizer is ported (tests/test_torch_rasterize.py); an unknown
@@ -131,10 +135,13 @@ def test_viewer_http_roundtrip(tmp_path):
         (tmp_path / "frame.bmp").write_bytes(bmp)
         img = read_bmp(str(tmp_path / "frame.bmp"))
         assert img.shape == (SIZE, SIZE, 3) and img.max() > 0
-        for key, code, text in (("0", 501, b"item 6"), ("zz", 400, b"")):
-            with pytest.raises(urllib.error.HTTPError) as exc:
-                get(f"/key?k={key}")
-            assert exc.value.code == code and text in exc.value.read()
+        clean = app._frame.copy()
+        status, body = get("/key?k=0")  # the soft raytracer
+        assert status == 200 and app.cfg.mode == "soft"
+        assert np.abs(app._frame - clean).max() > 1e-3
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            get("/key?k=zz")
+        assert exc.value.code == 400
         assert get("/state")[0] == 200  # still serving
     finally:
         server.shutdown()
@@ -145,9 +152,9 @@ def test_viewer_http_roundtrip(tmp_path):
 
 
 def test_key0_on_both_renderers():
-    """Key 0 toggles the rasterizer's frame between clean and soft, as the
-    JAX viewer's does (its soft frame held to JAX's at the soft tests'
-    atol 5e-5 / rtol 1e-4); the raytracer's soft frame is item 6b."""
+    """Key 0 toggles the rasterizer's and the raytracer's frame between
+    clean and soft, as the JAX viewer's does (the soft frames held to JAX's
+    jnp paths at the soft tests' atol 5e-5 / rtol 1e-4)."""
     scene = jax_cornell_box(pad_to=32)
     camera = JaxCamera.make((0.011, -0.007, -3.013), focal=16.23,
                             dof_focus=1.9)
@@ -173,7 +180,17 @@ def test_key0_on_both_renderers():
     assert np.abs(app._frame - clean).max() > 1e-3
     app.handle_key("0")
     assert app.cfg.mode == "clean"
-    _, tracer = _apps()
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tracer.handle_key("0")
-    assert tracer.cfg.mode == "clean" and tracer.frame_n == 0
+    jax_tracer, tracer = _apps()
+    clean = tracer.render().copy()
+    jax_tracer.render()
+    for key, mode in (("0", "soft"), ("left", "soft"), ("0", "clean")):
+        want = jax_tracer.handle_key(key)
+        got = tracer.handle_key(key)
+        assert {k: v for k, v in got.items() if k != "ms"} == {
+            k: v for k, v in want.items() if k != "ms"}, key
+        np.testing.assert_allclose(tracer._frame,
+                                   np.asarray(jax_tracer._frame),
+                                   atol=5e-5, rtol=1e-4, err_msg=key)
+        assert tracer.cfg.mode == mode
+        if key == "0" and mode == "soft":
+            assert np.abs(tracer._frame - clean).max() > 1e-3
