@@ -150,6 +150,32 @@ nonzero without printing a result:
      raytrace frames and steps, the fit's ms a step, the steps' device-busy
      share, events and peak memory, K10a-K10i alone on each case beside
      their plain versions and bounds.
+ 23. the multi-chunk intersection kernels (K5, the brute closest hit; K7d,
+     K5 with a (ray tile, chunk) keep-mask; K7a, the closest hit and the
+     shadow sweeps of S sources with a (ray tile, (1 + S) chunks) mask)
+     against their plain versions on the card: K5 and K7d at the bench's
+     stl_intersect shapes (512^2, the 9,028-triangle mesh padded to 9,216,
+     the rasteriser camera), K7a on the render --stl frame (500^2, 9,028
+     triangles, the CLI's STL camera) at an AA sub-ray offset with one
+     light (S = 1) and with the full-feature sources (S = 32). t, idx and
+     occ bit-identical to the plain versions, culled = brute (K7d = K5; K7a
+     = K7a with an all-ones mask, its hits = K5's), two calls identical,
+     the keep rates printed; the VJP of t at T = 9,028 within rtol 1e-4 /
+     atol 1e-5 of its float64 evaluation, two backward calls identical.
+ 24. STL serving: the ``render`` CLI with ``--stl`` at its defaults (500^2
+     parity: exactly one K7a, no other kernel), ``--mode clean`` (one),
+     ``--aa 3`` (nine), and ``--aa 3 --soft-shadows 16 --add-light ...
+     --dof`` (nine, each at S = 32); the 800-triangle mesh at 96^2 parity
+     with two lights and 4 soft-shadow samples (one K7a) against the
+     port's numpy oracle, at tests/test_raytrace_parity.py's tolerances.
+ 25. the bench's stl_intersect row through the port (brute: one K5 a
+     call; culled: one K7d a call; timed with CUDA events), 3 SGD steps of
+     the MSE of the 512^2 clean STL frame (9,028 triangles, the render
+     --stl camera, one light in front of the mesh) to a fixed target over
+     every float leaf (exactly one K7a a step, no other kernel, finite
+     gradients), then card numbers: the STL frames and step, the step's
+     device-busy share, events and peak memory, K5, K7d and K7a alone
+     beside their plain versions and bounds.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
@@ -162,7 +188,9 @@ phase 14 (training the rasterizer: K8b), before and after phase 17
 K10a, K10g), before and after the fit CLI of phase 18 (training: K9a, K9c),
 before and after phase 21 (serving the soft raytracer: K10a, K10g, K1),
 before and after the raytrace fit CLI of phase 22 (training: K10a, K10c,
-K10g, K10i). Comparisons and timings launch outside those windows. The
+K10g, K10i), before and after phase 24 (serving STL scenes: K7a), before
+and after each call of phase 25's stl_intersect row (K5, K7d) and its 3
+STL steps (K7a). Comparisons and timings launch outside those windows. The
 line before the last is one JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -249,7 +277,12 @@ RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 HOLD_CYCLES = 200_000_000
 
 
+T0 = time.perf_counter()
+
+
 def say(msg: str) -> None:
+    if msg.startswith("== phase"):
+        msg += f" [{time.perf_counter() - T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -541,6 +574,142 @@ def sweep_bound(case: dict) -> tuple[float, str]:
                     FLOPS_PLANE_TEST * sweep_tests(case))
 
 
+# The render CLI's STL camera (raytpu_torch/cli/main.py::_build_inputs,
+# as the JAX CLI's): (0, -0.5, -5) at the raytracer's focal 250 and DoF
+# focus 1.3.
+STL_CAM, STL_FOCAL = (0.0, -0.5, -5.0), 250.0
+
+
+def stl_camera(dev):
+    from raytpu_torch import Camera
+    return Camera.make(STL_CAM, focal=STL_FOCAL, dof_focus=1.3, device=dev)
+
+
+def stl_case(dev, scene, camera, size: int, lights, samples: int,
+             offset: tuple[float, float]) -> dict:
+    """The multi-chunk kernels' inputs for one sub-ray of a size^2 frame of
+    ``scene``: the rays at sub-pixel ``offset``, the camera's constants,
+    the port's 16 x 16 ray tiles, and with ``lights`` (else None) the
+    shadow sources' constants (light-major, sample-minor); the table and
+    the keep-mask K7a takes (K7d: its primary columns), as raytrace_full
+    and intersect_closest_culled make them."""
+    from raytpu_torch import RenderConfig
+    from raytpu_torch.core.types import pixel_grid
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels.tables import constant_table, tight_chunk
+    from raytpu_torch.ops.intersect import tri_constants
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.raytrace import camera_ray_dirs
+    cfg = RenderConfig(width=size, height=size)
+    xs, ys = pixel_grid(size, size, dev)
+    dirs = camera_ray_dirs(xs + offset[0], ys + offset[1], camera, cfg)
+    c = tri_constants(scene, camera.pos)
+    T = scene.num_triangles
+    C = tight_chunk(T, cfg.tri_chunk)
+    n_chunks = -(-T // C)
+    tiles = isect.ray_tiles(size * size, (size, size), dev)
+    geom = (scene.v0, scene.v1, scene.v2)
+    case = dict(dirs=dirs, m=c.m, k0=c.k0, valid=c.valid, cam=camera.pos,
+                tiles=tiles, C=C, n_chunks=n_chunks, geom=geom, size=size)
+    if lights is None:
+        case["mask"] = isect.primary_mask(camera.pos, dirs, tiles, *geom,
+                                          c.valid, C)
+        case["table"] = constant_table(c.m, c.k0, c.valid, None, None, C)
+        case["src"] = dirs.new_zeros((0, 3))
+        return case
+    src = source_positions(lights, samples)
+    cs = tri_constants(scene, src)
+    case.update(m_s=cs.m, k0_s=cs.k0, src=src,
+                mask=isect.fused_mask(dirs, tiles, geom, c.valid, src,
+                                      camera.pos, C),
+                table=constant_table(c.m, c.k0, c.valid, cs.m, cs.k0, C))
+    return case
+
+
+def run_stl(case: dict, kernel: str, mask=None, plain: bool = False):
+    """K5, K7d or K7a (``kernel``) on an stl_case through its wrapper, or
+    its plain version; ``mask`` overrides the case's keep-mask."""
+    from raytpu_torch.kernels import intersect as isect
+    c = case
+    mask = c["mask"] if mask is None else mask
+    table, C = c["table"], c["C"]
+    if kernel == "k5":
+        return (isect.closest_reference(c["dirs"], table[:10], C) if plain
+                else isect.closest_hit(c["dirs"], c["m"], c["k0"],
+                                       c["valid"]))
+    if kernel == "k7d":
+        mask = mask[:, :c["n_chunks"]].contiguous()
+        if plain:
+            return isect.closest_masked_reference(c["dirs"], table[:10], C,
+                                                  mask, c["tiles"])
+        return isect.closest_hit_masked(c["dirs"], c["m"], c["k0"],
+                                        c["valid"], mask, c["tiles"])
+    if plain:
+        return isect.occluded_masked_reference(c["dirs"], table, C, c["cam"],
+                                               c["src"], mask, c["tiles"])
+    return isect.closest_hit_occluded_multi_masked(
+        c["dirs"], c["m"], c["k0"], c["valid"], c["m_s"], c["k0_s"],
+        c["cam"], c["src"], mask, c["tiles"])
+
+
+def stl_work(case: dict, kernel: str) -> dict:
+    """Plane tests K5, K7d or K7a make on an stl_case: every ray against
+    every column (K5); each tile's real rays against its kept chunks'
+    (K7d, K7a's primary sweep); and K7a's shadow sweeps: each hit ray of a
+    tile, for each source, through the chunks the tile keeps for it in
+    order, up to its first blocker (t < 0.99)."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.ops.intersect import plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
+    c = case
+    tiles, C, n = c["tiles"], c["C"], c["n_chunks"]
+    R = c["dirs"].shape[0]
+    if kernel == "k5":
+        return dict(primary=R * c["table"].shape[1], shadow=0, keep=1.0)
+    rays = torch.bincount(tiles.tile, minlength=tiles.count)
+    pmask = c["mask"][:, :n].long()
+    work = dict(primary=int((pmask.sum(dim=1) * rays).sum()) * C, shadow=0,
+                keep=float(pmask.float().mean()))
+    if kernel == "k7d":
+        return work
+    work["shadow_keep"] = float(c["mask"][:, n:].float().mean())
+    t, idx = isect.closest_masked_reference(
+        c["dirs"], c["table"][:10], C, pmask.int(), tiles)
+    hit = idx >= 0
+    pos = c["cam"][None, :] + torch.where(hit, t, 0.0)[:, None] * c["dirs"]
+    shadow = 0
+    for s in range(c["src"].shape[0]):
+        sweeping = hit.clone()
+        for ch in range(n):
+            keep = c["mask"][tiles.tile, (1 + s) * n + ch] != 0
+            rows = torch.nonzero(sweeping & keep).squeeze(1)
+            if rows.numel() == 0:
+                continue
+            ts, oks = plane_tests(pos[rows] - c["src"][s][None, :],
+                                  *isect._chunk(c["table"], 1 + s, ch, C))
+            blocked = oks & (ts < SHADOW_T)
+            first = blocked.float().argmax(dim=1) + 1
+            any_ = blocked.any(dim=1)
+            shadow += int(torch.where(any_, first, C).sum())
+            sweeping[rows[any_]] = False
+    work["shadow"] = shadow
+    return work
+
+
+def stl_bound(case: dict, kernel: str, work: dict) -> tuple[float, str]:
+    """K5's, K7d's or K7a's bound: 12 B in and 8 + 4 S B out a ray, the
+    table and the mask read once, FLOPS_PLANE_TEST a plane test of
+    stl_work."""
+    c = case
+    R, S = c["dirs"].shape[0], c["src"].shape[0]
+    nbytes = R * (12 + 8 + 4 * S) + c["table"].numel() * 4 + (3 + 3 * S) * 4
+    if kernel != "k5":
+        nbytes += (c["mask"].numel() if kernel == "k7a"
+                   else c["tiles"].count * c["n_chunks"]) * 4
+    return bound_ms(nbytes,
+                    FLOPS_PLANE_TEST * (work["primary"] + work["shadow"]))
+
+
 def kernel_counts() -> dict:
     from raytpu_torch.kernels import intersect as isect
     from raytpu_torch.kernels import raster, render_fused
@@ -553,6 +722,9 @@ def kernel_counts() -> dict:
             "soft_raster_bwd_masked": sr.LAUNCHES_SOFT_BWD_MASKED,
             "closest_hit_occluded": isect.LAUNCHES_OCCLUDED,
             "closest_hit_occluded_multi": isect.LAUNCHES_OCCLUDED_MULTI,
+            "closest_hit": isect.LAUNCHES_CLOSEST,
+            "closest_hit_masked": isect.LAUNCHES_CLOSEST_MASKED,
+            "closest_hit_occluded_masked": isect.LAUNCHES_OCCLUDED_MASKED,
             "render_fused_bwd": render_fused.LAUNCHES_BWD,
             "render_fused_scatter": render_fused.LAUNCHES_SCATTER,
             "raster_winner": raster.LAUNCHES_WINNER,
@@ -569,6 +741,8 @@ def zero_counts() -> None:
     for name in ("LAUNCHES", "LAUNCHES_BWD", "LAUNCHES_SCATTER"):
         setattr(render_fused, name, 0)
     isect.LAUNCHES_OCCLUDED = isect.LAUNCHES_OCCLUDED_MULTI = 0
+    isect.LAUNCHES_CLOSEST = isect.LAUNCHES_CLOSEST_MASKED = 0
+    isect.LAUNCHES_OCCLUDED_MASKED = 0
     raster.LAUNCHES_WINNER = raster.LAUNCHES_WINNER_MASKED = 0
     from raytpu_torch.kernels import soft_raster as sr
     sr.LAUNCHES_SOFT_FWD = sr.LAUNCHES_SOFT_FWD_MASKED = 0
@@ -2626,6 +2800,348 @@ def main() -> int:
                   rfit_losses=rfit_losses, rfit_s=rfit_s,
                   rfit_ms_step=rfit_ms_step, rt_train=rt_train, rt_ms=rt_ms,
                   rt_k=rt_k, rt_busy=rt_busy, rt_peak=rt_peak)
+    say("== phase 23: K5, K7d and K7a against their plain versions on the "
+        "card")
+    from raytpu_torch import load_stl
+    mesh = load_stl(str(stl_path), device=dev)  # 9,028 triangles
+    stl_cases = {
+        # The bench's stl_intersect row (`bench.py:679-719`): 512^2, the
+        # mesh padded to 9,216, the rasteriser camera: K5 and K7d.
+        "stl_intersect_512": stl_case(
+            dev, mesh.pad_to(9216), Camera.rasterizer_default(device=dev),
+            512, None, 1, (0.0, 0.0)),
+        # The render --stl frame: 500^2, 9,028 triangles, one light (S = 1)
+        # at the AA sub-ray (-0.5, 0.5): K7a.
+        "render_stl_500_s1": stl_case(
+            dev, mesh, stl_camera(dev), 500,
+            Lights.single(capacity=1, device=dev), 1, (-0.5, 0.5)),
+        # The full-feature sources, 2 lights x 16 samples (S = 32): K7a.
+        "render_stl_500_s32": stl_case(
+            dev, mesh, stl_camera(dev), 500, full_feature_lights(dev), 16,
+            (-0.5, -0.5)),
+    }
+    stl_err = {"k5": 0.0, "k7d": 0.0, "k7a": 0.0}
+    stl_keep = {}
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    c = stl_cases["stl_intersect_512"]
+    k5, k5_again = run_stl(c, "k5"), run_stl(c, "k5")
+    k7d, k7d_again = run_stl(c, "k7d"), run_stl(c, "k7d")
+    k7d_ones = run_stl(c, "k7d", mask=torch.ones_like(c["mask"]))
+    p5, p7d = run_stl(c, "k5", plain=True), run_stl(c, "k7d", plain=True)
+    torch.cuda.synchronize()
+    stl_keep["stl_intersect_512"] = float(c["mask"].float().mean())
+    say(f"stl_intersect 512^2 (T = 9,216, {c['n_chunks']} chunks, "
+        f"{c['tiles'].count} tiles): K5 = plain {same(k5, p5)}, K7d = plain "
+        f"{same(k7d, p7d)}, K7d = K5 {same(k7d, k5)}, all-ones K7d = K5 "
+        f"{same(k7d_ones, k5)}, two calls identical "
+        f"{same(k5, k5_again) and same(k7d, k7d_again)}; keep rate "
+        f"{stl_keep['stl_intersect_512']:.4f}, hit rays "
+        f"{float((k5[1] >= 0).float().mean()):.4f}")
+    require(same(k5, p5) and same(k7d, p7d),
+            "K5 and K7d bit-identical to their plain versions")
+    require(same(k7d, k5) and same(k7d_ones, k5), "culled K7d = brute K5")
+    require(same(k5, k5_again) and same(k7d, k7d_again),
+            "two kernel calls identical")
+    require(bool((k5[1] >= 0).any()), "the mesh is in view")
+    for key, got, want in (("k5", k5, p5), ("k7d", k7d, p7d)):
+        hit = want[1] >= 0
+        stl_err[key] = float((got[0][hit] - want[0][hit]).abs().max())
+    del k5_again, k7d_again, k7d_ones, p5, p7d
+
+    for name in ("render_stl_500_s1", "render_stl_500_s32"):
+        c = stl_cases[name]
+        got, again = run_stl(c, "k7a"), run_stl(c, "k7a")
+        ones = run_stl(c, "k7a", mask=torch.ones_like(c["mask"]))
+        want = run_stl(c, "k7a", plain=True)
+        brute = run_stl(c, "k5")
+        torch.cuda.synchronize()
+        n = c["n_chunks"]
+        stl_keep[name] = (float(c["mask"][:, :n].float().mean()),
+                          float(c["mask"][:, n:].float().mean()))
+        say(f"K7a {name} (S = {c['src'].shape[0]}, {n} chunks): = plain "
+            f"{same(got, want)}, = all-ones mask {same(got, ones)}, t and "
+            f"idx = K5 {same(got[:2], brute)}, two calls identical "
+            f"{same(got, again)}; keep rate primary {stl_keep[name][0]:.4f},"
+            f" shadow {stl_keep[name][1]:.4f}; hit rays "
+            f"{float((got[1] >= 0).float().mean()):.4f}, occluded "
+            f"{int(got[2].sum())}")
+        require(same(got, want), f"{name}: K7a bit-identical to plain")
+        require(same(got, ones) and same(got[:2], brute),
+                f"{name}: culled K7a = brute")
+        require(same(got, again), f"{name}: two K7a calls identical")
+        require(bool(got[2].any()) and not bool(got[2][:, got[1] < 0].any()),
+                f"{name}: some hit ray occluded, no miss ray")
+        hit = want[1] >= 0
+        stl_err["k7a"] = max(stl_err["k7a"], float(
+            (got[0][hit] - want[0][hit]).abs().max()))
+        stl_cases[name]["out"] = got
+        del again, ones, want, brute
+
+    # The VJP of t at T = 9,028 (gather and fixed-order sums) against its
+    # float64 evaluation; two backward calls bit-identical.
+    c = stl_cases["render_stl_500_s1"]
+    t7, idx7 = c["out"][:2]
+    rng = np.random.default_rng(23)
+    t_bar = torch.tensor(rng.uniform(0.5, 1.5, t7.shape[0]).astype(
+        np.float32), device=dev)
+    vjp_args = (c["dirs"], c["m"], c["k0"], t7, idx7, t_bar)
+    g32 = isect.closest_hit_vjp(*vjp_args)
+    g32_again = isect.closest_hit_vjp(*vjp_args)
+    g64 = isect.closest_hit_vjp(*(
+        a.double() if a.is_floating_point() else a for a in vjp_args))
+    torch.cuda.synchronize()
+    stl_vjp = []
+    for gname, g, w in zip(("g_dirs", "g_m", "g_k0"), g32, g64):
+        require(bool(torch.isfinite(g).all()), f"finite {gname}")
+        tol = GRAD_ATOL + GRAD_RTOL * w.abs()
+        err = (g.double() - w).abs()
+        stl_vjp.append(f"{gname} {float((err / tol).max()):.3f} of tol")
+        require(bool((err <= tol).all()),
+                f"STL VJP {gname} within rtol {GRAD_RTOL} / atol {GRAD_ATOL}")
+    require(same(g32, g32_again), "two backward calls bit-identical")
+    require(float(g32[2].abs().max()) > 0.0, "the VJP reaches k0")
+    say(f"VJP of t at T = 9,028 vs float64: {', '.join(stl_vjp)}; two "
+        f"backward calls bit-identical True")
+    record.update(stl_err=stl_err, stl_keep=stl_keep, stl_vjp=stl_vjp)
+
+    say("== phase 24: the hard raytracer at STL scale serving (the render "
+        "CLI's --stl frames, the oracle)")
+    k5n, k7dn, k7an = ("closest_hit", "closest_hit_masked",
+                       "closest_hit_occluded_masked")
+    sources_seen = []
+    launch_k7a = isect.launch_occluded_masked_kernel
+
+    def spy_k7a(dirs, table, C, cam, src, *args):
+        sources_seen.append(src.shape[0])
+        return launch_k7a(dirs, table, C, cam, src, *args)
+
+    ff_flags = ["--aa", "3", "--soft-shadows", "16", "--add-light", "0.4",
+                "-0.5", "-0.7", "1", "1", "1", "7", "--dof"]
+    stl_runs = [("render --stl", [], 1, 1), ("--mode clean",
+                                              ["--mode", "clean"], 1, 1),
+                ("--aa 3", ["--aa", "3"], 9, 1),
+                ("--aa 3 --soft-shadows 16 --add-light --dof", ff_flags, 9,
+                 32)]
+    isect.launch_occluded_masked_kernel = spy_k7a
+    zero_counts()
+    stl_serve_ms = {}
+    try:
+        for name, flags, n_launch, n_src in stl_runs:
+            before = kernel_counts()
+            sources_seen.clear()
+            bmp = OUT / "render_stl.bmp"
+            t0 = time.perf_counter()
+            cli_main(["render", "--stl", str(stl_path), *flags, "-o",
+                      str(bmp)])
+            torch.cuda.synchronize()
+            stl_serve_ms[name] = (time.perf_counter() - t0) * 1e3
+            got = delta(before, kernel_counts())
+            frame_u8 = read_bmp(str(bmp))
+            say(f"render CLI {name}: {frame_u8.shape}, "
+                f"{stl_serve_ms[name]:.1f} ms (host clock, build of the "
+                f"scene included), launches {got}, sources {sources_seen}")
+            require(got == {k7an: n_launch},
+                    f"{name}: exactly {n_launch} K7a and no other kernel")
+            require(sources_seen == [n_src] * n_launch, f"{name}: S = {n_src}")
+            require(frame_u8.shape == (500, 500, 3) and frame_u8.max() >= 20
+                    and (frame_u8.max(axis=-1) == 0).any(),
+                    f"{name}: the mesh on a black background")
+    finally:
+        isect.launch_occluded_masked_kernel = launch_k7a
+
+    # The 800-triangle mesh against the numpy oracle: parity, two lights
+    # with 4 soft-shadow samples each (S = 8), no AA (the reference steps
+    # its AA offsets only on hits, which the mesh's misses break) and no
+    # DoF (the oracle has none), the camera nudged off the plane x = 0
+    # where the torus's edges and the light line up, the light in front.
+    import argparse
+    from raytpu_torch.cli import main as cli_module
+    from raytpu_torch.core.stl import procedural_stl_text
+    small_path = OUT / "torus800.stl"
+    small_path.write_text(procedural_stl_text(20, 20))
+    parser = argparse.ArgumentParser()
+    cli_module._render_flags(parser)
+    args = parser.parse_args([
+        "--stl", str(small_path), "--width", "96", "--height", "96",
+        "--focal", "96", "--camera-pos", "0.0123", "-0.5", "-5",
+        "--light-pos", "0.3", "-1.5", "-3", "--soft-shadows", "4",
+        "--add-light", "0.4", "-0.5", "-0.7", "1", "1", "1", "7"])
+    s8, cam8, l8, cfg8 = cli_module._build_inputs(args)
+    before = kernel_counts()
+    with torch.no_grad():
+        img8 = raytrace_full(s8, cam8, l8, cfg8).image.cpu().numpy()
+    got = delta(before, kernel_counts())
+    t0 = time.perf_counter()
+    img_o, _ = raytracer_oracle.render(
+        tuple(x.cpu().numpy() for x in (s8.v0, s8.v1, s8.v2, s8.color)),
+        width=96, height=96, focal=96.0, camera_pos=(0.0123, -0.5, -5.0),
+        light_positions=l8.position.cpu().numpy(),
+        light_colors=l8.color.cpu().numpy(),
+        light_intensities=l8.intensity.cpu().numpy(),
+        soft_positions=l8.jitter[:, :4].cpu().numpy())
+    err = np.abs(img8 - img_o) - (F32_ATOL + F32_RTOL * np.abs(img_o))
+    f32_ok = float((err.max(axis=-1) <= 0).mean())
+    u8_ok = float((np.abs(quantize_u8(img8).astype(int)
+                          - quantize_u8(img_o).astype(int)).max(axis=-1)
+                   <= 1).mean())
+    say(f"800-triangle mesh, 96^2 parity, S = 8, vs numpy oracle "
+        f"({time.perf_counter() - t0:.1f} s): launches {got}, f32-close "
+        f"pixels {f32_ok:.6f}, u8 within 1 {u8_ok:.6f}, lit "
+        f"{float(img8.max()):.3f}")
+    require(got == {k7an: 1}, "the oracle frame launches one K7a")
+    require(img8.max() > 0.15, "the oracle frame is lit")
+    require(u8_ok >= U8_FRAC, "u8 within 1 step on >= 99.9% of pixels")
+    require(f32_ok >= FLIP_FRAC, "f32 atol 2e-4 on all but <= 0.1% pixels")
+    stl_serve = kernel_counts()  # zeroed where phase 24 began
+    say(f"STL serving path launches: {stl_serve}")
+    record.update(stl_serve=stl_serve, stl_serve_ms=stl_serve_ms,
+                  oracle_stl=dict(f32_ok=f32_ok, u8_ok=u8_ok))
+
+    say("== phase 25: the stl_intersect row, the STL train step and card "
+        "numbers")
+    c = stl_cases["stl_intersect_512"]
+    consts_b = isect.TriConstants(c["m"], c["k0"], c["valid"])
+
+    def row_brute():
+        return isect.intersect_closest(c["dirs"], consts_b).t
+
+    def row_culled():
+        return isect.intersect_closest_culled(
+            c["dirs"], consts_b, c["cam"], *c["geom"],
+            image_hw=(512, 512)).t
+
+    row_launches, row_t = {}, {}
+    for name, fn in (("brute", row_brute), ("culled", row_culled)):
+        zero_counts()
+        row_t[name] = fn()
+        row_launches[name] = {k: v for k, v in kernel_counts().items() if v}
+        say(f"stl_intersect row, {name}: launches {row_launches[name]}")
+        require(row_launches[name]
+                == {"brute": {k5n: 1}, "culled": {k7dn: 1}}[name],
+                f"the stl_intersect row's {name} call launches one "
+                f"{'K5' if name == 'brute' else 'K7d'} and nothing else")
+    require(torch.equal(row_t["brute"], row_t["culled"]),
+            "the row's culled t = its brute t")
+    row_ms = median_ms_in_turns({"brute": row_brute, "culled": row_culled},
+                                n=3, reps=7)
+
+    # Three SGD steps of the MSE of the 512^2 clean STL frame (the render
+    # --stl camera, 9,028 triangles, one light) to a target 10% darker.
+    scene_t = load_stl(str(stl_path), device=dev)
+    lights_t = Lights.single(capacity=1, position=(0.3, -1.5, -3.0),
+                             device=dev)
+    cfg_t = RenderConfig(width=512, height=512, mode="clean")
+    step_stl = train_step(scene_t, stl_camera(dev), lights_t, cfg_t, 1e-9,
+                          target_scale=0.9)
+    zero_counts()
+    losses = [float(step_stl()) for _ in range(3)]
+    stl_train = {k: v for k, v in kernel_counts().items() if v}
+    say(f"STL train step, 3 steps, loss {losses[0]:.6g} -> {losses[-1]:.6g};"
+        f" launches {stl_train}")
+    require(stl_train == {k7an: 3}, "each STL step launches one K7a and "
+                                    "no other kernel")
+    require(np.isfinite(losses).all(), "finite STL loss")
+    for value in (scene_t, lights_t):
+        for name, leaf in vars(value).items():
+            require(leaf.grad is None
+                    or bool(torch.isfinite(leaf.grad).all()),
+                    f"finite gradient of {name}")
+    require(all(float(leaf.grad.abs().max()) > 0.0 for leaf in (
+        scene_t.v0, scene_t.color, lights_t.color)),
+        "vertices, albedo and the light's color take a gradient")
+    stl_peak = peak_gb(step_stl)
+
+    def stl_frame_fn(flags):
+        parser_f = argparse.ArgumentParser()
+        cli_module._render_flags(parser_f)
+        inputs = cli_module._build_inputs(parser_f.parse_args(
+            ["--stl", str(stl_path), *flags]))
+
+        def run():
+            with torch.no_grad():
+                return raytrace(*inputs)
+        return run
+
+    stl_ms = median_ms_in_turns({
+        "render_stl_500": stl_frame_fn([]),
+        "clean_500": stl_frame_fn(["--mode", "clean"]),
+        "clean_512": stl_frame_fn(["--mode", "clean", "--width", "512",
+                                   "--height", "512"]),
+        "step_512": step_stl}, n=1, reps=5)
+    stl_ms.update(median_ms_in_turns({
+        "aa3_500": stl_frame_fn(["--aa", "3"]),
+        "full_500": stl_frame_fn(ff_flags)}, n=1, reps=3))
+    stl_busy = device_busy(step_stl, steps=3)
+
+    # The kernels alone: K5 and K7d on the row's rays, K7a on the render
+    # --stl sub-ray (S = 1) and the full-feature sources (S = 32).
+    stl_k = {}
+    for name, kernel in (("stl_intersect_512", "k5"),
+                         ("stl_intersect_512", "k7d"),
+                         ("render_stl_500_s1", "k7a"),
+                         ("render_stl_500_s32", "k7a")):
+        c = stl_cases[name]
+        S = c["src"].shape[0]
+        outs = isect._outputs(c["dirs"], S)
+        table, C = c["table"], c["C"]
+        if kernel == "k7a":
+            def launch(c=c, outs=outs):
+                isect.launch_occluded_masked_kernel(
+                    c["dirs"], c["table"], c["C"], c["cam"], c["src"],
+                    c["mask"], c["tiles"], *outs)
+        else:
+            mask = (None if kernel == "k5"
+                    else c["mask"][:, :c["n_chunks"]].contiguous())
+
+            def launch(c=c, outs=outs, mask=mask):
+                isect.launch_closest_kernel(c["dirs"], c["table"][:10],
+                                            c["C"], mask, c["tiles"],
+                                            *outs[:2])
+        t = median_ms_in_turns({"kernel": launch}, n=3, reps=5,
+                               timer=held_ms)
+        # The plain versions, warm from phase 23, back to back: K7a's at
+        # S = 32 (seconds) once.
+        t["plain"] = (cuda_ms(lambda c=c: run_stl(c, kernel, plain=True), 1)
+                      if S > 1 else median_ms_in_turns(
+                          {"plain": lambda c=c, k=kernel: run_stl(
+                              c, k, plain=True)}, n=1, reps=3)["plain"])
+        work = stl_work(c, kernel)
+        t.update(work=work, bound=stl_bound(c, kernel, work))
+        stl_k[f"{kernel}_{name}"] = t
+        del outs
+        torch.cuda.empty_cache()
+    card = card_line()
+    for key, t in stl_k.items():
+        w = t["work"]
+        say(f"{key} alone: {t['kernel']:.4f} ms device time (plain "
+            f"{t['plain']:.4f} ms back to back; bound {t['bound'][0]:.4f} "
+            f"ms, {t['bound'][1]}: {w['primary']} primary and {w['shadow']} "
+            f"shadow plane tests, primary keep rate {w['keep']:.4f}) ({card})")
+    say(f"stl_intersect row (CUDA events, median of 7, 3 calls each): brute "
+        f"{row_ms['brute']:.4f} ms, culled {row_ms['culled']:.4f} ms "
+        f"(mask included) ({card})")
+    say(f"STL frames (CUDA events, median): render --stl 500^2 parity "
+        f"{stl_ms['render_stl_500']:.4f} ms, clean {stl_ms['clean_500']:.4f}"
+        f" ms, --aa 3 {stl_ms['aa3_500']:.4f} ms, full feature (AA 3, S = "
+        f"32, DoF) {stl_ms['full_500']:.4f} ms, 512^2 clean "
+        f"{stl_ms['clean_512']:.4f} ms; 512^2 clean train step "
+        f"{stl_ms['step_512']:.4f} ms, peak memory {stl_peak:.3f} GB "
+        f"({card})")
+    say(f"profile of 3 STL steps: device busy {stl_busy['busy_ms']:.4f} ms a "
+        f"step in {stl_busy['kernels']} device events; "
+        f"{stl_busy['wall_ms']:.4f} ms a step on the host clock under the "
+        f"profiler (share {stl_busy['share']})")
+    for kname, ms in stl_busy["by_name"][:8]:
+        say(f"  {ms:.5f} ms  {kname[:100]}")
+    record.update(row_launches=row_launches, row_ms=row_ms,
+                  stl_train=stl_train, stl_losses=losses, stl_ms=stl_ms,
+                  stl_busy=stl_busy, stl_peak=stl_peak, stl_k={
+                      k: {kk: vv for kk, vv in v.items()}
+                      for k, v in stl_k.items()})
+
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
     def bwd_checks(prefix: str) -> dict:
@@ -2654,6 +3170,25 @@ def main() -> int:
                      bound_by=t["bounds"][part][1], library_ms=None)
         if key in srt_checks:
             entry["checks"] = srt_checks[key]
+        return entry
+
+    def stl_entry(name: str, key: str, case: str, launches: int,
+                  replaces: str, s32=None) -> dict:
+        """K5's, K7d's or K7a's entry: its launches on the main path (the
+        stl_intersect row's call; K7a: phase 24's serving), its t error
+        against plain, its times and bound on its phase 25 case (K7a: the
+        render --stl sub-ray, S = 1, and the S = 32 sources beside)."""
+        t = stl_k[case]
+        entry = dict(name=name, route="cuda",
+                     source="raytpu_torch/csrc/intersect.cu",
+                     replaces=replaces, launches=launches,
+                     max_abs_err=stl_err[key], ms=t["kernel"],
+                     plain_ms=t["plain"], bound_ms=t["bound"][0],
+                     bound_by=t["bound"][1], library_ms=None)
+        if s32 is not None:
+            entry["s32"] = dict(ms=s32["kernel"], plain_ms=s32["plain"],
+                                bound_ms=s32["bound"][0],
+                                bound_by=s32["bound"][1])
         return entry
 
     say(card)
@@ -2745,6 +3280,16 @@ def main() -> int:
                   replaces="raytpu/kernels/soft_raytrace_pallas.py:925"),
         k10_entry("shw_bwd", "k10i",
                   replaces="raytpu/kernels/soft_raytrace_pallas.py:974"),
+        stl_entry("closest_hit", "k5", "k5_stl_intersect_512",
+                  row_launches["brute"][k5n],
+                  replaces="raytpu/kernels/intersect_pallas.py:89"),
+        stl_entry("closest_hit_masked", "k7d", "k7d_stl_intersect_512",
+                  row_launches["culled"][k7dn],
+                  replaces="raytpu/kernels/intersect_pallas.py:1128"),
+        stl_entry("closest_hit_occluded_masked", "k7a",
+                  "k7a_render_stl_500_s1", stl_serve[k7an],
+                  replaces="raytpu/kernels/intersect_pallas.py:632",
+                  s32=stl_k["k7a_render_stl_500_s32"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

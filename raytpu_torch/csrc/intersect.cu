@@ -1,4 +1,5 @@
-// Closest hit with shadow occlusion for Hopper (sm_90a): K4 and K6.
+// Closest hit, with and without shadow occlusion, for Hopper (sm_90a): K4,
+// K6, and over several chunks K5, K7d and K7a.
 //
 // K4, closest_hit_occluded_kernel, replaces
 // raytpu/kernels/intersect_pallas.py::_fused_kernel (launched by
@@ -47,11 +48,56 @@
 // the 67 TFLOP/s float32 peak against ~0.012 ms for its 39 MB: bound by
 // operations.
 //
+// K5 and K7d, closest_hit_kernel<false> and <true>, replace
+// intersect_pallas.py::_kernel (launched by _closest_hit_raw through
+// closest_hit, the brute sweep of intersect_pallas) and ::_kernel_masked
+// (launched by _closest_hit_masked_raw through closest_hit_masked, the
+// culled sweep of intersect_pallas_culled): the primary closest hit over
+// any number of chunks of C <= 128 triangles, the masked instance skipping
+// the chunks a (ray tile, chunk) keep-mask rules out. K7a,
+// raytpu_closest_hit_occluded_masked, replaces ::_fused_multi_kernel_masked
+// (launched by _fused_multi_masked_raw through the scene_geom branch of
+// intersect_occluded_multi_pallas, which every sub-ray of raytrace_full
+// takes on a scene of more than 128 triangles): the masked primary sweep
+// (closest_hit_kernel<true> on the mask's primary columns), then for each
+// of S sources the any-hit sweep over the chunks that source's mask
+// columns keep (occlusion_masked_kernel), two kernels in one launch.
+//
 // Rounding. Built with -fmad=false and IEEE division, each expression in
 // the JAX kernel's order (the shadow direction is (cam + tz * d) - source),
 // so t, idx and occ equal the plain PyTorch versions
-// (kernels/intersect.py::closest_hit_occluded{,_multi}_reference) on the
-// card bit for bit.
+// (kernels/intersect.py::closest_hit_occluded{,_multi}_reference,
+// closest_reference, closest_masked_reference, occluded_masked_reference)
+// on the card bit for bit.
+//
+// Several chunks (K5, K7d, K7a). The TPU kernels' (ray tile, chunk) grid,
+// whose VMEM scratch carries the running best from one grid step to the
+// next, becomes a loop inside the block: one thread a ray, one block of 256
+// rays a ray tile (16 x 16 pixels of an image, or 256 consecutive rays of a
+// list: the port's tiles, kernels/intersect.py::ray_tiles), and for each
+// chunk in order the block reads the tile's keep bit (block-uniform) and,
+// for a kept chunk, stages the chunk's 10 x C constants (5 KB) in shared
+// memory and runs the closest-hit update on them. The running best stays
+// in registers; `<=` over the triangles in order makes the last index win
+// ties, within a chunk and across chunks, as the JAX kernels' chunk min
+// with `upd = chunk_min <= best_t` does. A culled chunk holds no hit for
+// any ray of its tile (the mask is conservative), so t and idx equal the
+// brute sweep's. K7a's shadow phase then runs one block for each (tile,
+// source) pair: it forms pos = cam + tz * d from the primary kernel's t and
+// sweeps the source's kept chunks, a ray stopping at its first blocker and
+// the block leaving the remaining chunks once no ray of it still sweeps
+// (__syncthreads_or). One block a tile for all S sources would leave the
+// card nearly idle: on an STL frame only the few tiles that see the model
+// have hits, and each would run S sweeps in turn. Threads of a tile past
+// the image's edge take part in the staging and the barriers and write
+// nothing.
+//
+// Bound of K5 at 512^2 x 9,216 triangles: 2.42 G plane tests of ~20 float
+// operations, 0.72 ms at 67 TFLOP/s against 12 + 8 B a ray and 0.37 MB of
+// table: bound by operations. The culled kernels do the kept (tile, chunk)
+// pairs' share of that. What the design does about it: the constants are
+// read from shared memory as broadcasts, two barriers a kept chunk, no
+// atomics, and a kept chunk costs one global read of 5 KB a block.
 
 #include <cfloat>
 #include <cstddef>
@@ -65,6 +111,65 @@ constexpr int kThreads = 256;
 constexpr int kMaxTris = 128;
 constexpr int kBlockRows = 10;  // n xyz | c2 xyz | c3 xyz | k0
 constexpr float kShadowT = 0x1.fae148p-1f;  // float32(0.99)
+
+// The ray of this thread in the masked kernels' tiles: block b is tile b,
+// row-major over tiles of th x (256 / th) rays of an H x W grid.
+struct TileRay {
+  int r;
+  bool valid;
+};
+
+__device__ __forceinline__ TileRay tile_ray(int H, int W, int th) {
+  const int tw = kThreads / th;
+  const int tiles_x = (W + tw - 1) / tw;
+  const int y = (blockIdx.x / tiles_x) * th + threadIdx.x / tw;
+  const int x = (blockIdx.x % tiles_x) * tw + threadIdx.x % tw;
+  const bool valid = y < H && x < W;
+  return {valid ? y * W + x : 0, valid};
+}
+
+// Copy chunk c of the 10-row constant block at `blk` (row stride Tp) into
+// shared memory as a 10 x C block.
+__device__ __forceinline__ void stage(float* s_blk,
+                                      const float* __restrict__ blk, int Tp,
+                                      int C, int c) {
+  for (int k = threadIdx.x; k < kBlockRows * C; k += kThreads) {
+    const int row = k / C;
+    s_blk[k] = blk[static_cast<size_t>(row) * Tp +
+                   static_cast<size_t>(c) * C + (k - row * C)];
+  }
+}
+
+// The primary sweep over the chunks of the block at `table`: for each
+// chunk the tile keeps (keep == nullptr: every chunk), the running
+// closest hit with `<=`. Every thread of the block calls it (barriers).
+__device__ __forceinline__ void sweep_chunks(const float* __restrict__ table,
+                                             int Tp, int C,
+                                             const int* __restrict__ keep,
+                                             float* s_blk, bool valid,
+                                             float dx, float dy, float dz,
+                                             float* best_t, int* best_i) {
+  float bt = FLT_MAX;
+  int bi = -1;
+  const int n_chunks = Tp / C;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (keep != nullptr && keep[c] == 0) continue;  // block-uniform
+    __syncthreads();  // the previous chunk is read
+    stage(s_blk, table, Tp, C, c);
+    __syncthreads();
+    if (!valid) continue;
+    for (int i = 0; i < C; ++i) {
+      const PlaneHit p = plane_test(s_blk, C, i, dx, dy, dz);
+      const float tm = p.ok ? p.t : FLT_MAX;
+      if (tm <= bt) {
+        bt = tm;
+        bi = c * C + i;
+      }
+    }
+  }
+  *best_t = bt;
+  *best_i = bi;
+}
 
 // Primary closest hit over the block at `blk`; `<=` lets the last of equal
 // t win. Returns the winner (-1 if none) and its t (FLT_MAX if none).
@@ -171,6 +276,79 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool Masked>
+__global__ void __launch_bounds__(kThreads)
+    closest_hit_kernel(const float* __restrict__ dirs,
+                       const float* __restrict__ table, int Tp, int C,
+                       const int* __restrict__ mask, int mask_stride, int H,
+                       int W, int th, float* __restrict__ t_out,
+                       int* __restrict__ idx_out) {
+  __shared__ float s_blk[kBlockRows * kMaxTris];
+  const TileRay ray = tile_ray(H, W, th);
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (ray.valid) {
+    dx = dirs[3 * ray.r];
+    dy = dirs[3 * ray.r + 1];
+    dz = dirs[3 * ray.r + 2];
+  }
+  const int* keep =
+      Masked ? mask + static_cast<size_t>(blockIdx.x) * mask_stride : nullptr;
+  float best_t;
+  int best_i;
+  sweep_chunks(table, Tp, C, keep, s_blk, ray.valid, dx, dy, dz, &best_t,
+               &best_i);
+  if (!ray.valid) return;
+  t_out[ray.r] = best_t;
+  idx_out[ray.r] = best_t < FLT_MAX ? best_i : -1;
+}
+
+// K7a's shadow phase: block (tile, s) sweeps source s's kept chunks for
+// the tile's hit rays, from the primary hits t of the same launch.
+__global__ void __launch_bounds__(kThreads)
+    occlusion_masked_kernel(const float* __restrict__ dirs,
+                            const float* __restrict__ table, int Tp, int C,
+                            const float* __restrict__ cam,
+                            const float* __restrict__ src, int S,
+                            const int* __restrict__ mask, int H, int W,
+                            int th, const float* __restrict__ t_in,
+                            int* __restrict__ occ_out) {
+  __shared__ float s_blk[kBlockRows * kMaxTris];
+  const TileRay ray = tile_ray(H, W, th);
+  const int s = blockIdx.y;
+  const int n_chunks = Tp / C;
+  const int* keep = mask +
+                    static_cast<size_t>(blockIdx.x) * (1 + S) * n_chunks +
+                    static_cast<size_t>(1 + s) * n_chunks;
+  const float* blk = table + static_cast<size_t>(1 + s) * kBlockRows * Tp;
+  float ex = 0.0f, ey = 0.0f, ez = 0.0f;
+  bool hit = false;
+  if (ray.valid) {
+    const float best_t = t_in[ray.r];
+    hit = best_t < FLT_MAX;
+    // The hit position, cam + tz * d as the JAX kernel forms it.
+    const float tz = hit ? best_t : 0.0f;
+    ex = (cam[0] + tz * dirs[3 * ray.r]) - src[3 * s];
+    ey = (cam[1] + tz * dirs[3 * ray.r + 1]) - src[3 * s + 1];
+    ez = (cam[2] + tz * dirs[3 * ray.r + 2]) - src[3 * s + 2];
+  }
+  bool sweeping = hit;
+  bool occ = false;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (keep[c] == 0) continue;  // block-uniform
+    // A barrier (the previous chunk is read) that also tells whether any
+    // ray of the tile still sweeps this source.
+    if (!__syncthreads_or(sweeping)) break;
+    stage(s_blk, blk, Tp, C, c);
+    __syncthreads();
+    if (sweeping && blocked(s_blk, C, ex, ey, ez)) {
+      occ = true;
+      sweeping = false;
+    }
+  }
+  if (ray.valid)
+    occ_out[static_cast<size_t>(s) * H * W + ray.r] = occ ? 1 : 0;
+}
+
 }  // namespace
 
 // dirs (R, 3), table (20, C), cam (3,), light (3,) float32 device pointers;
@@ -206,5 +384,67 @@ extern "C" int raytpu_closest_hit_occluded_multi(
       static_cast<const float*>(dirs), static_cast<const float*>(table),
       static_cast<const float*>(cam), static_cast<const float*>(src), C, S, R,
       static_cast<float*>(t), static_cast<int*>(idx), static_cast<int*>(occ));
+  return (int)cudaGetLastError();
+}
+
+// dirs (R = H * W, 3) and table (10, Tp) float32 device pointers, Tp a
+// multiple of the chunk C <= 128; mask null (K5: every chunk, tiles of 256
+// consecutive rays, pass H = 1, W = R, th = 1) or the (n_tiles, Tp / C)
+// int32 keep-mask over the tiles of th x (256 / th) rays of the H x W grid
+// (K7d); t (R,) float32 and idx (R,) int32 outputs. Launches on `stream`
+// and returns the launch's cudaError_t.
+extern "C" int raytpu_closest_hit(const void* dirs, const void* table, int Tp,
+                                  int C, const void* mask, int H, int W,
+                                  int th, void* t, void* idx, void* stream) {
+  if (C < 1 || C > kMaxTris || Tp < C || Tp % C != 0 || H < 0 || W < 0 ||
+      th < 1 || kThreads % th != 0)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0 || W == 0) return (int)cudaSuccess;
+  const int tw = kThreads / th;
+  const int blocks = ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask == nullptr)
+    closest_hit_kernel<false><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
+        C, nullptr, 0, H, W, th, static_cast<float*>(t),
+        static_cast<int*>(idx));
+  else
+    closest_hit_kernel<true><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
+        C, static_cast<const int*>(mask), Tp / C, H, W, th,
+        static_cast<float*>(t), static_cast<int*>(idx));
+  return (int)cudaGetLastError();
+}
+
+// dirs (R = H * W, 3), table ((1 + S) * 10, Tp), cam (3,), src (S, 3)
+// float32 device pointers, Tp a multiple of the chunk C <= 128; mask the
+// (n_tiles, (1 + S) * Tp / C) int32 keep-mask over the tiles of
+// th x (256 / th) rays of the H x W grid; t (R,) float32, idx (R,) int32
+// and occ (S, R) int32 outputs. Launches K7a's two kernels on `stream`,
+// the primary sweep (a block a tile) and the shadow sweeps (a block a
+// tile and source), and returns the launches' cudaError_t.
+extern "C" int raytpu_closest_hit_occluded_masked(
+    const void* dirs, const void* table, int Tp, int C, const void* cam,
+    const void* src, int S, const void* mask, int H, int W, int th, void* t,
+    void* idx, void* occ, void* stream) {
+  if (C < 1 || C > kMaxTris || Tp < C || Tp % C != 0 || S < 1 ||
+      S > 65535 || H < 0 || W < 0 || th < 1 || kThreads % th != 0 ||
+      mask == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0 || W == 0) return (int)cudaSuccess;
+  const int tw = kThreads / th;
+  const int blocks = ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  closest_hit_kernel<true><<<blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
+      C, static_cast<const int*>(mask), (1 + S) * (Tp / C), H, W, th,
+      static_cast<float*>(t), static_cast<int*>(idx));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  occlusion_masked_kernel<<<dim3(blocks, S), kThreads, 0, s>>>(
+      static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
+      C, static_cast<const float*>(cam), static_cast<const float*>(src), S,
+      static_cast<const int*>(mask), H, W, th, static_cast<const float*>(t),
+      static_cast<int*>(occ));
   return (int)cudaGetLastError();
 }

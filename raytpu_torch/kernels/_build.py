@@ -49,6 +49,11 @@ SIGNATURES = {
     # dirs, table, cam, src, C, S, R, t, idx, occ, stream
     "raytpu_closest_hit_occluded_multi": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                           _P, _P],
+    # dirs, table, Tp, C, mask (or null), H, W, th, t, idx, stream
+    "raytpu_closest_hit": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    # dirs, table, Tp, C, cam, src, S, mask, H, W, th, t, idx, occ, stream
+    "raytpu_closest_hit_occluded_masked": [_P, _P, _I, _I, _P, _P, _I, _P,
+                                           _I, _I, _I, _P, _P, _P, _P],
     # consts, T, H, W, idx, stream
     "raytpu_raster_winner": [_P, _I, _I, _I, _P, _P],
     # consts, T, chunk, mask, H, W, idx, stream

@@ -1,69 +1,109 @@
-"""Closest hit with shadow occlusion, the loop branch's kernels.
+"""Closest hit, with and without shadow occlusion: the hard raytracer's
+intersection kernels.
 
-Counterpart of the K4 and K6 parts of raytpu/kernels/intersect_pallas.py.
-Per ray, in one launch: the primary closest hit over C <= 128 triangles
-(last index wins ties), the hit position ``cam + t * d``, and the any-hit
-shadow test (t < 0.99) from each shadow source toward it:
+Counterpart of the K4-K7d parts of raytpu/kernels/intersect_pallas.py.
+Per ray: the primary closest hit (last index wins ties), and for the
+occluded kernels the hit position ``cam + t * d`` and the any-hit shadow
+test (t < 0.99) from each shadow source toward it:
 
-  closest_hit_occluded         K4's wrapper: one light
-                               (replaces ``_fused_kernel``).
+  closest_hit_occluded         K4's wrapper: one light, one chunk of
+                               T <= 128 (replaces ``_fused_kernel``).
   closest_hit_occluded_multi   K6's wrapper: S sources, lights and/or the
                                jittered soft-shadow positions, light-major
-                               and sample-minor
+                               and sample-minor, one chunk
                                (replaces ``_fused_multi_kernel``).
+  closest_hit                  K5's wrapper: the closest hit streamed over
+                               every chunk of 128 (replaces ``_kernel``).
+  closest_hit_masked           K7d's wrapper: K5 skipping the chunks a
+                               (ray tile, chunk) keep-mask rules out
+                               (replaces ``_kernel_masked``).
+  closest_hit_occluded_multi_masked
+                               K7a's wrapper: K6 over several chunks with a
+                               (ray tile, (1 + S) chunks) keep-mask
+                               (replaces ``_fused_multi_kernel_masked``).
   *_reference                  their plain PyTorch versions.
-  intersect_occluded{,_multi}  (Hits, occ bool) through ClosestHitOccluded,
-                               as ``intersect_occluded{,_multi}_pallas``.
-  ClosestHitOccluded           the torch.autograd.Function around both.
+  intersect_closest{,_culled}  Hits through K5 / K7d (``intersect_pallas``,
+                               ``intersect_pallas_culled``).
+  intersect_occluded{,_multi}  (Hits, occ bool) through K4 / K6, or K7a for
+                               a multi-chunk scene given its vertices
+                               (``intersect_occluded{,_multi}_pallas``).
+  ClosestHit, ClosestHitOccluded
+                               the torch.autograd.Functions around them.
 
 On CUDA tensors the wrappers launch the hand-written kernels
 (raytpu_torch/csrc/intersect.cu); on CPU tensors they run the plain
-versions. Both take the constants as one float32 table of 1 + S blocks of
-10 rows by C columns (tables.py::_constant_rows; invalid triangles
-zeroed, columns past T zero), the camera position and the S source
-positions.
+versions. They take the constants as one float32 table of 1 + S blocks of
+10 rows by Tp columns (tables.py::constant_table; invalid triangles zeroed,
+columns past T zero), the camera position and the S source positions.
 
-Occlusion on a miss ray is 0 in both, and its shadow sweeps are skipped:
-that is K6's contract in the JAX package. K4's JAX wrapper returns the raw
-bit of a shadow ray traced from the camera; no consumer reads it (composite
-zeroes misses, and the AA record takes hits only).
+The masked kernels' ray tiles are the port's own (:func:`ray_tiles`):
+16 x 16 pixel blocks of an image, or runs of 256 rays of a ray list, one
+CUDA block each, a tile that overhangs the image padded with its nearest
+real ray as the JAX package pads. Their masks come from kernels/cull.py
+for those tiles. The masks are conservative, so t, idx and occ (on hit
+rays) do not depend on the tiling, and a masked kernel gives its unmasked
+twin's results.
+
+Occlusion on a miss ray is 0 in K6 and K7a, and its shadow sweeps are
+skipped: that is the JAX package's contract for both. K4's JAX wrapper
+returns the raw bit of a shadow ray traced from the camera; no consumer
+reads it (composite zeroes misses, and the AA record takes hits only).
 
 The VJP is the JAX package's analytic ``_bwd``: t = k0_i / s with
 s = -(d . n_i) at the winner i, so ``coef = t_bar / s`` gives
 ``g_dirs = coef t n_i``, ``g_m[i, 0] += coef t d`` and ``g_k0[i] += coef``.
-The per-triangle sums are one one-hot (R, T)^T @ (R, 4) product in full
-float32: a fixed order and no atomics, so a step is reproducible. idx,
-occ, ``valid``, the shadow constants and the source positions get no
-gradient.
+Up to T = 1024 the per-triangle sums are one one-hot (R, T)^T @ (R, 4)
+product in full float32; above, a gather and the fixed-order sums of
+ops/intersect.py::sum_rows_by_index. Both add in a fixed order with no
+atomics, so a step is reproducible. idx, occ, ``valid``, the shadow
+constants, the source positions and the masks get no gradient.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from raytpu_torch.core.types import dot3
 from raytpu_torch.kernels import _build
-from raytpu_torch.kernels.tables import _constant_rows, tight_chunk
+from raytpu_torch.kernels.cull import (
+    chunk_spheres,
+    keep_mask,
+    shadow_keep_mask,
+    tile_cones,
+)
+from raytpu_torch.kernels.tables import constant_table, tight_chunk
 from raytpu_torch.ops.intersect import (
     F32MAX,
     Hits,
     TriConstants,
     closest,
     gather_rows,
+    intersect,
     one_hot_idx,
     plane_tests,
+    sum_rows_by_index,
 )
 from raytpu_torch.ops.shade import SHADOW_T
 
 # Launches of each CUDA kernel in this process, counted by its wrapper
 # where it launches the kernel and nowhere else.
-LAUNCHES_OCCLUDED = 0        # K4, by closest_hit_occluded
-LAUNCHES_OCCLUDED_MULTI = 0  # K6, by closest_hit_occluded_multi
+LAUNCHES_OCCLUDED = 0         # K4, by closest_hit_occluded
+LAUNCHES_OCCLUDED_MULTI = 0   # K6, by closest_hit_occluded_multi
+LAUNCHES_CLOSEST = 0          # K5, by closest_hit
+LAUNCHES_CLOSEST_MASKED = 0   # K7d, by closest_hit_masked
+LAUNCHES_OCCLUDED_MASKED = 0  # K7a, by closest_hit_occluded_multi_masked
 
 BLOCK_ROWS = 10  # n xyz | c2 xyz | c3 xyz | k0
+TILE = 16        # the masked kernels' pixel tile side
+TILE_RAYS = 256  # rays a tile: one CUDA block
+# Up to this many triangles the VJP's per-triangle sums and the frame's
+# attribute gather are one-hot products, above it indexing
+# (``_bwd``, `raytpu/render/raytrace.py:246-260`).
+ONE_HOT_MAX = 1024
 
 
 def occluded_table(m, k0, valid, m_s, k0_s, tri_chunk: int) -> torch.Tensor:
@@ -74,11 +114,11 @@ def occluded_table(m, k0, valid, m_s, k0_s, tri_chunk: int) -> torch.Tensor:
     C = tight_chunk(T, tri_chunk)
     if T > C:
         raise NotImplementedError(
-            f"{T} triangles need the chunked intersection kernels "
-            f"(tri_chunk={tri_chunk}): ROADMAP.md port item 4 (STL scale)")
-    rows = torch.cat([_constant_rows(m, k0, valid),
-                      _constant_rows(m_s, k0_s, valid).flatten(0, 1)])
-    return torch.nn.functional.pad(rows, (0, C - T)).contiguous()
+            f"K4 and K6 take one chunk of {C} triangles, not {T}: a "
+            "multi-chunk scene goes through K7a "
+            "(closest_hit_occluded_multi_masked; ROADMAP.md section 2), as "
+            "the JAX package routes it")
+    return constant_table(m, k0, valid, m_s, k0_s, C)
 
 
 def _block(table: torch.Tensor, b: int):
@@ -104,14 +144,12 @@ def sweeps_reference(dirs: torch.Tensor, table: torch.Tensor,
             torch.stack(occ).to(torch.int32))
 
 
-def _check(dirs, table, cam, src):
-    R, S = dirs.shape[0], src.shape[0]
-    for name, t, shape in (("dirs", dirs, (R, 3)),
-                           ("table", table, ((1 + S) * BLOCK_ROWS,
-                                             table.shape[-1])),
-                           ("cam", cam, (3,)), ("src", src, (S, 3))):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+def _require(dirs, checks) -> None:
+    """Raise unless each (name, tensor, dtype, shape) of ``checks`` has
+    that dtype and shape, lies on dirs' device and is contiguous."""
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if t.device != dirs.device:
             raise ValueError(f"{name} is on {t.device}, dirs on {dirs.device}")
         if tuple(t.shape) != shape:
@@ -119,6 +157,15 @@ def _check(dirs, table, cam, src):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(dirs, table, cam, src):
+    R, S = dirs.shape[0], src.shape[0]
+    f32 = torch.float32
+    _require(dirs, (("dirs", dirs, f32, (R, 3)),
+                    ("table", table, f32, ((1 + S) * BLOCK_ROWS,
+                                           table.shape[-1])),
+                    ("cam", cam, f32, (3,)), ("src", src, f32, (S, 3))))
     if S < 1:
         raise ValueError("at least one shadow source is needed")
 
@@ -156,13 +203,19 @@ def launch_occluded_multi_kernel(dirs, table, cam, src, t, idx, occ):
                            f"error {err}")
 
 
+def _on_cuda(dirs) -> bool:
+    """True for CUDA tensors (launch), False for CPU tensors (the plain
+    version); raises for any other device."""
+    if dirs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no route for tensors on {dirs.device}")
+    return dirs.device.type == "cuda"
+
+
 def _sweeps(dirs, table, cam, src, launch) -> tuple:
     """The sweeps of ``table`` on dirs' device: the plain version for CPU
     tensors, ``launch`` on fresh outputs for CUDA tensors."""
-    if dirs.device.type == "cpu":
+    if not _on_cuda(dirs):
         return sweeps_reference(dirs, table, cam, src)
-    if dirs.device.type != "cuda":
-        raise ValueError(f"no route for tensors on {dirs.device}")
     _check(dirs, table, cam, src)
     out = _outputs(dirs, src.shape[0])
     with torch.cuda.device(dirs.device):
@@ -222,21 +275,312 @@ def closest_hit_occluded_multi(dirs, m, k0, valid, m_s, k0_s, cam_pos,
 
 def closest_hit_vjp(dirs, m, k0, t, idx, t_bar):
     """The JAX package's ``_bwd``: cotangents (g_dirs (R, 3), g_m (T, 3, 3),
-    g_k0 (T,)) of t = k0_i / -(d . n_i) at each ray's winner i."""
+    g_k0 (T,)) of t = k0_i / -(d . n_i) at each ray's winner i. Misses add
+    0 to triangle 0."""
     T = m.shape[0]
     hit = idx >= 0
-    oh = one_hot_idx(idx, T).to(m.dtype)
-    n = gather_rows(oh, m[:, 0])
+    if T <= ONE_HOT_MAX:
+        oh = one_hot_idx(idx, T).to(m.dtype)
+        n = gather_rows(oh, m[:, 0])
+    else:
+        i = idx.clamp_min(0)
+        n = m[i.long(), 0]
     s = -dot3(dirs, n)
     s_safe = torch.where(s.abs() > 0.0, s, 1.0)
     t_hit = torch.where(hit, t, 0.0)
     coef = torch.where(hit, t_bar / s_safe, 0.0)
     ct = (coef * t_hit)[:, None]
-    # Both per-triangle sums in one product; each column is its own sum.
-    sums = gather_rows(oh.T, torch.cat([coef[:, None], ct * dirs], dim=1))
+    # Both per-triangle sums at once; each column is its own sum.
+    vals = torch.cat([coef[:, None], ct * dirs], dim=1)
+    sums = (gather_rows(oh.T, vals) if T <= ONE_HOT_MAX
+            else sum_rows_by_index(i, vals, T))
     g_m = m.new_zeros((T, 3, 3))
     g_m[:, 0] = sums[:, 1:]
     return ct * n, g_m, sums[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Several chunks: K5, K7d and K7a.
+
+
+class RayTiles(NamedTuple):
+    """The masked kernels' ray tiles, row-major over the tiles: th x tw
+    pixel blocks (th * tw = TILE_RAYS) of an H x W grid of rays, ray
+    ``y * W + x``.
+
+    rays: (n_tiles * TILE_RAYS,) int64, the ray of each tile slot; a slot
+      past the image's edge takes the nearest ray of its tile (clamped).
+    tile: (R,) int64, the tile of each ray.
+    """
+
+    height: int
+    width: int
+    th: int
+    rays: torch.Tensor
+    tile: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.rays.shape[0] // TILE_RAYS
+
+
+def ray_tiles(R: int, image_hw, device) -> RayTiles:
+    """Tiles of R rays: TILE x TILE pixel blocks where the rays are a
+    row-major image of ``image_hw`` = (H, W) pixels, else runs of TILE_RAYS
+    consecutive rays (the grid 1 x R, blocks of 1 x 256)."""
+    if image_hw is None:
+        H, W, th = 1, R, 1
+    else:
+        H, W = image_hw
+        th = TILE
+        if H * W != R:
+            raise ValueError(f"image {H} x {W} does not hold {R} rays")
+    tw = TILE_RAYS // th
+    tiles_x = -(-W // tw)
+    b = torch.arange(-(-H // th) * tiles_x, device=device)[:, None]
+    k = torch.arange(TILE_RAYS, device=device)[None, :]
+    y = ((b // tiles_x) * th + k // tw).clamp_max(H - 1)
+    x = ((b % tiles_x) * tw + k % tw).clamp_max(W - 1)
+    r = torch.arange(R, device=device)
+    return RayTiles(H, W, th, rays=(y * W + x).reshape(-1),
+                    tile=(r // W // th) * tiles_x + (r % W) // tw)
+
+
+def primary_mask(origin, dirs, tiles: RayTiles, v0, v1, v2, valid,
+                 chunk: int) -> torch.Tensor:
+    """(n_tiles, n_chunks) int32 keep-mask of rays from ``origin``
+    (kernels/cull.py::chunk_mask_for on the tiles' rays)."""
+    with torch.no_grad():
+        centers, radii = chunk_spheres(v0, v1, v2, valid, chunk)
+        axes, cos_half = tile_cones(dirs[tiles.rays], TILE_RAYS)
+        return keep_mask(origin, axes, cos_half, centers, radii)
+
+
+def fused_mask(dirs, tiles: RayTiles, scene_geom, valid, src_pos, cam_pos,
+               chunk: int) -> torch.Tensor:
+    """(n_tiles, (1 + S) * n_chunks) int32 keep-mask of K7a: the primary
+    columns, then each source's shadow columns (``_fused_masks``)."""
+    with torch.no_grad():
+        centers, radii = chunk_spheres(*scene_geom, valid, chunk)
+        axes, cos_half = tile_cones(dirs[tiles.rays], TILE_RAYS)
+        primary = keep_mask(cam_pos, axes, cos_half, centers, radii)
+        shadow = shadow_keep_mask(primary, centers, radii, src_pos)
+        return torch.cat([primary, shadow.reshape(tiles.count, -1)], dim=1)
+
+
+def _chunk(table: torch.Tensor, b: int, c: int, C: int):
+    """(m (C, 3, 3), k0 (C,)) of chunk c of block b of a table."""
+    return _block(table[:, c * C:(c + 1) * C], b)
+
+
+def _kept(mask, tiles: RayTiles, col: int) -> torch.Tensor:
+    """The rays whose tile keeps mask column ``col``."""
+    return torch.nonzero(mask[tiles.tile, col]).squeeze(1)
+
+
+def closest_reference(dirs, table, C: int):
+    """Plain PyTorch version of K5, on any device: the streamed
+    ops/intersect.py::intersect over block 0 of table (10, Tp) in chunks of
+    C. Returns (t (R,), idx (R,) int32)."""
+    m, k0 = _block(table, 0)
+    hits = intersect(dirs, TriConstants(m, k0, torch.ones_like(k0)),
+                     tri_chunk=C)
+    return hits.t, hits.idx
+
+
+def closest_masked_reference(dirs, table, C: int, mask, tiles: RayTiles):
+    """Plain PyTorch version of K7d, on any device: block 0 of table
+    (10, Tp) chunk by chunk, each chunk on the rays whose tile keeps it
+    (mask (n_tiles, Tp / C)). Returns (t (R,), idx (R,) int32)."""
+    R = dirs.shape[0]
+    best_t = dirs.new_full((R,), F32MAX)
+    best_idx = torch.zeros((R,), dtype=torch.int32, device=dirs.device)
+    for c in range(table.shape[1] // C):
+        rows = _kept(mask, tiles, c)
+        t, idx = closest(*plane_tests(dirs[rows], *_chunk(table, 0, c, C)))
+        bt = best_t[rows]
+        upd = t <= bt  # a later chunk wins ties
+        best_t[rows] = torch.where(upd, t, bt)
+        best_idx[rows] = torch.where(upd, idx + c * C, best_idx[rows])
+    hit = best_t < F32MAX
+    return best_t, torch.where(hit, best_idx, -1)
+
+
+def occluded_masked_reference(dirs, table, C: int, cam, src, mask,
+                              tiles: RayTiles):
+    """Plain PyTorch version of K7a, on any device: dirs (R, 3), table
+    ((1 + S) * 10, Tp), cam (3,), src (S, 3), mask (n_tiles, (1 + S) *
+    n_chunks). The primary sweep as closest_masked_reference, then each
+    source's chunks on the hit rays whose tile keeps them. Returns (t (R,),
+    idx (R,) int32, occ (S, R) int32), occ 0 on a miss."""
+    n_chunks = table.shape[1] // C
+    best_t, idx = closest_masked_reference(dirs, table, C,
+                                           mask[:, :n_chunks], tiles)
+    hit = idx >= 0
+    pos = cam[None, :] + torch.where(hit, best_t, 0.0)[:, None] * dirs
+    occ = torch.zeros((src.shape[0], dirs.shape[0]), dtype=torch.bool,
+                      device=dirs.device)
+    for s in range(src.shape[0]):
+        for c in range(n_chunks):
+            rows = _kept(mask, tiles, (1 + s) * n_chunks + c)
+            rows = rows[hit[rows]]
+            ts, oks = plane_tests(pos[rows] - src[s][None, :],
+                                  *_chunk(table, 1 + s, c, C))
+            occ[s, rows] |= (oks & (ts < SHADOW_T)).any(dim=1)
+    return best_t, idx, occ.to(torch.int32)
+
+
+def _check_chunked(dirs, table, C: int, mask, tiles) -> None:
+    """The checks of K5 (mask None), K7d and K7a (their masks), beyond
+    those of the sources (_check)."""
+    R, Tp = dirs.shape[0], table.shape[-1]
+    if not 1 <= C <= 128 or Tp % C:
+        raise ValueError(f"chunk {C} must be in [1, 128] and divide {Tp}")
+    checks = [("dirs", dirs, torch.float32, (R, 3)),
+              ("table", table, torch.float32, (table.shape[0], Tp))]
+    if mask is not None:
+        if tiles.height * tiles.width != R:
+            raise ValueError(f"tiles of {tiles.height} x {tiles.width} rays "
+                             f"for {R} rays")
+        blocks = table.shape[0] // BLOCK_ROWS
+        checks.append(("mask", mask, torch.int32,
+                       (tiles.count, blocks * (Tp // C))))
+    _require(dirs, checks)
+
+
+def launch_closest_kernel(dirs, table, C: int, mask, tiles, t, idx):
+    """Launch K5 (mask None: every ray in runs of 256) or K7d (mask
+    (n_tiles, n_chunks) over ``tiles``) on outputs the caller allocated:
+    t (R,), idx (R,). Checks nothing and counts nothing; the wrappers do
+    both."""
+    H, W, th = ((1, dirs.shape[0], 1) if mask is None
+                else (tiles.height, tiles.width, tiles.th))
+    err = _build.load().raytpu_closest_hit(
+        dirs.data_ptr(), table.data_ptr(), table.shape[1], C,
+        None if mask is None else mask.data_ptr(), H, W, th, t.data_ptr(),
+        idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"closest_hit launch failed: CUDA error {err}")
+
+
+def launch_occluded_masked_kernel(dirs, table, C: int, cam, src, mask,
+                                  tiles, t, idx, occ):
+    """Launch K7a on outputs the caller allocated: t (R,), idx (R,) and occ
+    (S, R). Checks nothing and counts nothing; the wrapper does both."""
+    err = _build.load().raytpu_closest_hit_occluded_masked(
+        dirs.data_ptr(), table.data_ptr(), table.shape[1], C, cam.data_ptr(),
+        src.data_ptr(), src.shape[0], mask.data_ptr(), tiles.height,
+        tiles.width, tiles.th, t.data_ptr(), idx.data_ptr(), occ.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"closest_hit_occluded_masked launch failed: CUDA "
+                           f"error {err}")
+
+
+def primary_table(m, k0, valid, tri_chunk: int):
+    """(table (10, Tp), C) of the closest-hit kernels: C = tight_chunk."""
+    C = tight_chunk(m.shape[0], tri_chunk)
+    return constant_table(m, k0, valid, None, None, C), C
+
+
+def closest_hit_reference(dirs, m, k0, valid, *, tri_chunk: int = 512):
+    """Plain PyTorch version of K5 from the camera-origin constants m
+    (T, 3, 3), k0 (T,), valid (T,). Returns (t (R,), idx (R,) int32)."""
+    return closest_reference(dirs, *primary_table(m, k0, valid, tri_chunk))
+
+
+def closest_hit_masked_reference(dirs, m, k0, valid, mask, tiles, *,
+                                 tri_chunk: int = 512):
+    """Plain PyTorch version of K7d: as closest_hit_reference, skipping the
+    chunks ``mask`` (n_tiles, n_chunks) rules out for each tile."""
+    table, C = primary_table(m, k0, valid, tri_chunk)
+    return closest_masked_reference(dirs, table, C, mask, tiles)
+
+
+def closest_hit_occluded_multi_masked_reference(
+        dirs, m, k0, valid, m_s, k0_s, cam_pos, src_pos, mask, tiles, *,
+        tri_chunk: int = 512):
+    """Plain PyTorch version of K7a: as closest_hit_occluded_multi_reference
+    over any number of chunks, skipping what ``mask`` (n_tiles, (1 + S) *
+    n_chunks) rules out for each tile."""
+    C = tight_chunk(m.shape[0], tri_chunk)
+    table = constant_table(m, k0, valid, m_s, k0_s, C)
+    return occluded_masked_reference(dirs, table, C, cam_pos, src_pos, mask,
+                                     tiles)
+
+
+def closest_hit(dirs, m, k0, valid, *, tri_chunk: int = 512):
+    """K5's wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Arguments and result as for closest_hit_reference."""
+    global LAUNCHES_CLOSEST
+    table, C = primary_table(m, k0, valid, tri_chunk)
+    if not _on_cuda(dirs):
+        return closest_reference(dirs, table, C)
+    _check_chunked(dirs, table, C, None, None)
+    t, idx, _ = _outputs(dirs, 0)
+    with torch.cuda.device(dirs.device):
+        launch_closest_kernel(dirs, table, C, None, None, t, idx)
+    LAUNCHES_CLOSEST += 1
+    return t, idx
+
+
+def closest_hit_masked(dirs, m, k0, valid, mask, tiles, *,
+                       tri_chunk: int = 512):
+    """K7d's wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Arguments and result as for closest_hit_masked_reference."""
+    global LAUNCHES_CLOSEST_MASKED
+    table, C = primary_table(m, k0, valid, tri_chunk)
+    if not _on_cuda(dirs):
+        return closest_masked_reference(dirs, table, C, mask, tiles)
+    _check_chunked(dirs, table, C, mask, tiles)
+    t, idx, _ = _outputs(dirs, 0)
+    with torch.cuda.device(dirs.device):
+        launch_closest_kernel(dirs, table, C, mask, tiles, t, idx)
+    LAUNCHES_CLOSEST_MASKED += 1
+    return t, idx
+
+
+def closest_hit_occluded_multi_masked(dirs, m, k0, valid, m_s, k0_s,
+                                      cam_pos, src_pos, mask, tiles, *,
+                                      tri_chunk: int = 512):
+    """K7a's wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Arguments and result as for
+    closest_hit_occluded_multi_masked_reference."""
+    global LAUNCHES_OCCLUDED_MASKED
+    C = tight_chunk(m.shape[0], tri_chunk)
+    table = constant_table(m, k0, valid, m_s, k0_s, C)
+    cam, src = cam_pos.contiguous(), src_pos.contiguous()
+    if not _on_cuda(dirs):
+        return occluded_masked_reference(dirs, table, C, cam, src, mask,
+                                         tiles)
+    _check(dirs, table, cam, src)
+    _check_chunked(dirs, table, C, mask, tiles)
+    out = _outputs(dirs, src.shape[0])
+    with torch.cuda.device(dirs.device):
+        launch_occluded_masked_kernel(dirs, table, C, cam, src, mask, tiles,
+                                      *out)
+    LAUNCHES_OCCLUDED_MASKED += 1
+    return out
+
+
+class ClosestHit(torch.autograd.Function):
+    """(t, idx) of ``fn`` (closest_hit, closest_hit_masked with its mask
+    bound, or their plain versions), differentiable in t (counterpart of
+    the custom_vjp of closest_hit{,_masked}). idx is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, dirs, m, k0, valid, fn: Callable):
+        t, idx = fn(dirs, m, k0, valid)
+        ctx.save_for_backward(dirs, m, k0, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, t_bar, _g_idx):
+        dirs, m, k0, t, idx = ctx.saved_tensors
+        g_dirs, g_m, g_k0 = closest_hit_vjp(dirs, m, k0, t, idx, t_bar)
+        return g_dirs, g_m, g_k0, None, None
 
 
 class ClosestHitOccluded(torch.autograd.Function):
@@ -276,14 +620,57 @@ def intersect_occluded(dirs: torch.Tensor, consts: TriConstants,
     return _hits(t, idx), occ.bool()
 
 
+def intersect_closest(dirs: torch.Tensor, consts: TriConstants, *,
+                      tri_chunk: int = 512) -> Hits:
+    """Closest hit of every ray against every chunk through K5
+    (``intersect_pallas``)."""
+    t, idx = ClosestHit.apply(
+        dirs, consts.m, consts.k0, consts.valid,
+        functools.partial(closest_hit, tri_chunk=tri_chunk))
+    return _hits(t, idx)
+
+
+def intersect_closest_culled(dirs: torch.Tensor, consts: TriConstants,
+                             origin: torch.Tensor, v0, v1, v2, *,
+                             tri_chunk: int = 512,
+                             image_hw: tuple | None = None) -> Hits:
+    """Chunk-culled closest hit of rays from ``origin`` through K7d
+    (``intersect_pallas_culled``): v0, v1, v2 are the scene's vertices in
+    the constants' order; image_hw = (H, W) where the rays are a row-major
+    pixel grid (pixel tiles cull far more than runs of rays). The same
+    Hits as intersect_closest."""
+    tiles = ray_tiles(dirs.shape[0], image_hw, dirs.device)
+    mask = primary_mask(origin, dirs, tiles, v0, v1, v2, consts.valid,
+                        tight_chunk(consts.m.shape[0], tri_chunk))
+    t, idx = ClosestHit.apply(
+        dirs, consts.m, consts.k0, consts.valid,
+        functools.partial(closest_hit_masked, mask=mask, tiles=tiles,
+                          tri_chunk=tri_chunk))
+    return _hits(t, idx)
+
+
 def intersect_occluded_multi(dirs: torch.Tensor, consts: TriConstants,
                              consts_src: TriConstants, cam_pos: torch.Tensor,
-                             src_pos: torch.Tensor, *, tri_chunk: int = 512):
-    """Primary intersect and occlusion toward S sources through K6
-    (``intersect_occluded_multi_pallas``). consts_src holds batched
-    constants, m (S, T, 3, 3) and k0 (S, T), from
-    ``tri_constants(scene, src_pos)``. Returns (Hits, occ (S, R) bool)."""
+                             src_pos: torch.Tensor, *, tri_chunk: int = 512,
+                             scene_geom: tuple | None = None,
+                             image_hw: tuple | None = None):
+    """Primary intersect and occlusion toward S sources
+    (``intersect_occluded_multi_pallas``): through K6 for one chunk, and
+    through K7a with its keep-mask for several where ``scene_geom`` =
+    (v0, v1, v2) gives the scene's vertices (image_hw as for
+    intersect_closest_culled). consts_src holds batched constants, m
+    (S, T, 3, 3) and k0 (S, T), from ``tri_constants(scene, src_pos)``.
+    Returns (Hits, occ (S, R) bool), occ False on a miss."""
+    T = consts.m.shape[0]
+    C = tight_chunk(T, tri_chunk)
+    fn = closest_hit_occluded_multi
+    if scene_geom is not None and T > C:
+        tiles = ray_tiles(dirs.shape[0], image_hw, dirs.device)
+        mask = fused_mask(dirs, tiles, scene_geom, consts.valid, src_pos,
+                          cam_pos, C)
+        fn = functools.partial(closest_hit_occluded_multi_masked, mask=mask,
+                               tiles=tiles)
     t, idx, occ = ClosestHitOccluded.apply(
         dirs, consts.m, consts.k0, consts.valid, consts_src.m, consts_src.k0,
-        cam_pos, src_pos, closest_hit_occluded_multi, tri_chunk)
+        cam_pos, src_pos, fn, tri_chunk)
     return _hits(t, idx), occ.bool()

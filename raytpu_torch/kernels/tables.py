@@ -4,8 +4,10 @@ Counterpart of the helpers ``_tight_chunk`` and ``_blocked_constants`` in
 raytpu/kernels/intersect_pallas.py. The TPU kernels read their constants
 as chunk-blocked (4C, 3) scalar-prefetch arrays; the CUDA kernels read
 flat float32 tables of 10-row constant blocks (``_constant_rows``). The
-intersection kernels (kernels/intersect.py) take 1 + S such blocks; the
-fused forward kernel reads one table of TABLE_ROWS rows by C columns
+intersection kernels (kernels/intersect.py) take 1 + S such blocks of Tp
+columns (``constant_table``: T rounded up to whole chunks, the columns
+past T zero, as ``_blocked_constants`` zeroes them); the fused forward
+kernel reads one table of TABLE_ROWS rows by C columns
 (row-major), which each thread block copies into shared memory:
 
   rows  0..9   primary (camera-origin) constants  n xyz | c2 xyz | c3 xyz | k0
@@ -51,6 +53,20 @@ def _constant_rows(m: torch.Tensor, k0: torch.Tensor,
                       m[..., 1, :].transpose(-1, -2),
                       m[..., 2, :].transpose(-1, -2), k0[..., None, :]],
                      dim=-2)
+
+
+def constant_table(m, k0, valid, m_s, k0_s, C: int) -> torch.Tensor:
+    """The intersection kernels' ((1 + S) * 10, Tp) table, Tp = T rounded
+    up to a multiple of the chunk C: block 0 from the camera-origin
+    constants (m (T, 3, 3), k0 (T,), valid (T,)), block 1 + s from source
+    s's (m_s (S, T, 3, 3), k0_s (S, T); None for no source); invalid
+    triangles and the columns past T zero, so they never hit."""
+    T = m.shape[0]
+    rows = _constant_rows(m, k0, valid)
+    if m_s is not None:
+        rows = torch.cat([rows,
+                          _constant_rows(m_s, k0_s, valid).flatten(0, 1)])
+    return torch.nn.functional.pad(rows, (0, -(-T // C) * C - T)).contiguous()
 
 
 def pack_tables(m, k0, valid, m_l, k0_l, nrm, alb, C: int) -> torch.Tensor:

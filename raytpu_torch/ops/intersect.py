@@ -5,10 +5,14 @@ the reference's Cramer's rule (`raytracer.cpp:202-257`) is the dot of the
 ray direction with a per-triangle constant, so R rays against T triangles
 are three (R, T) broadcast products and elementwise tests. The op order is
 the JAX package's, with no fused multiply-adds, so the winner index agrees
-bit for bit with the CUDA kernel (raytpu_torch/csrc/render_fused.cu).
+bit for bit with the CUDA kernels (raytpu_torch/csrc/render_fused.cu,
+intersect.cu). Scenes of more than ``tri_chunk`` triangles stream through
+``intersect`` a chunk at a time with a running closest hit, O(R * chunk)
+memory at any T.
 
-Only the single-chunk case (T <= tri_chunk) is ported; the streamed
-multi-chunk scan arrives with the STL-scale slice.
+Per-triangle sums of per-ray values (the backward of a gather by triangle
+index) run in a fixed order on every device, with no atomics
+(:func:`sum_rows_by_index`), so a train step is reproducible bit for bit.
 """
 
 from __future__ import annotations
@@ -95,18 +99,44 @@ def closest(t: torch.Tensor, ok: torch.Tensor):
     return best_t, best_idx
 
 
+def _chunk_hits(dirs, m, k0, valid):
+    """Closest hit of each ray within one chunk: (t, local index); t =
+    F32MAX where the chunk has no valid hit."""
+    t, ok = plane_tests(dirs, m, k0)
+    return closest(t, ok & (valid[None, :] > 0.0))
+
+
 def intersect(dirs: torch.Tensor, consts: TriConstants,
               tri_chunk: int = 512) -> Hits:
-    """Closest intersection of R rays against all T <= tri_chunk triangles."""
+    """Closest intersection of R rays against all T triangles.
+
+    T <= tri_chunk takes one chunk. Larger scenes stream chunks of
+    tri_chunk triangles with a running (t, idx) minimum, a later chunk
+    winning ties as a later triangle does (the reference's ``>=`` update);
+    T must then be a multiple of tri_chunk (Scene.pad_to), as in the JAX
+    package.
+    """
     T = consts.m.shape[0]
-    if T > tri_chunk:
-        raise NotImplementedError(
-            f"{T} triangles need the streamed multi-chunk intersect "
-            f"(tri_chunk={tri_chunk}): ROADMAP.md port item 4 (STL scale)"
-        )
-    t, ok = plane_tests(dirs, consts.m, consts.k0)
-    ok = ok & (consts.valid[None, :] > 0.0)
-    best_t, best_idx = closest(t, ok)
+    if T <= tri_chunk:
+        best_t, best_idx = _chunk_hits(dirs, consts.m, consts.k0,
+                                       consts.valid)
+    else:
+        if T % tri_chunk != 0:
+            raise ValueError(
+                f"triangle count {T} must be padded to a multiple of "
+                f"tri_chunk={tri_chunk} (use Scene.pad_to)")
+        best_t = best_idx = None
+        for c0 in range(0, T, tri_chunk):
+            cs = slice(c0, c0 + tri_chunk)
+            t, idx = _chunk_hits(dirs, consts.m[cs], consts.k0[cs],
+                                 consts.valid[cs])
+            idx = idx + c0
+            if best_t is None:
+                best_t, best_idx = t, idx
+                continue
+            upd = t <= best_t
+            best_t = torch.where(upd, t, best_t)
+            best_idx = torch.where(upd, idx, best_idx)
     hit = best_t < F32MAX
     return Hits(t=best_t, idx=torch.where(hit, best_idx, -1), hit=hit)
 
@@ -131,6 +161,51 @@ def gather_rows(oh: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     # TF32 would round a normal to 10 mantissa bits.
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.matmul(oh, table)
+
+
+def sum_rows_by_index(idx: torch.Tensor, vals: torch.Tensor,
+                      T: int) -> torch.Tensor:
+    """(T, K) sums of the rows of vals (N, K) by idx (N,) in [0, T), in one
+    fixed order on every device and with no atomics (``index_add_`` on CUDA
+    adds in a varying order): a stable sort by index, a segmented inclusive
+    scan in log2(N) doubling steps, and each run read at its end."""
+    keys, order = torch.sort(idx, stable=True)
+    v = vals[order]
+    N = keys.shape[0]
+    d = 1
+    while d < N:
+        # Each row adds the partial sum d rows back while it is its own
+        # triangle's: after the step a row holds the sum of up to 2d rows.
+        same = (keys[d:] == keys[:-d])[:, None]
+        v = torch.cat([v[:d], torch.where(same, v[d:] + v[:-d], v[d:])])
+        d *= 2
+    tris = torch.arange(T, dtype=keys.dtype, device=keys.device)
+    end = torch.searchsorted(keys, tris, right=True) - 1
+    found = (end >= 0) & (keys[end.clamp_min(0)] == tris)
+    return torch.where(found[:, None], v[end.clamp_min(0)], 0.0)
+
+
+class _GatherByIndex(torch.autograd.Function):
+    """table[idx] whose backward sums by index in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return sum_rows_by_index(idx, g, ctx.rows), None
+
+
+def gather_rows_by_index(table: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """table (T, K) rows at idx (R,) in [0, T): the indexing of the JAX
+    package's large-scene gathers, its backward reproducible bit for bit
+    (:func:`sum_rows_by_index`)."""
+    return _GatherByIndex.apply(table, idx)
 
 
 def hit_positions(start: torch.Tensor, dirs: torch.Tensor,

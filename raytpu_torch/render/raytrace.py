@@ -1,27 +1,27 @@
 """Public raytrace API (counterpart of raytpu/render/raytrace.py).
 
 ``raytrace_full`` renders and differentiates every hard-visibility
-configuration of the JAX package ('parity' and 'clean', at most 128
-triangles) through one of two branches:
+configuration of the JAX package ('parity' and 'clean', scenes of any
+triangle count) through one of two branches:
 
   * the megakernel branch (one active light, hard shadows, one sub-ray,
-    ``cfg.megakernel``): the whole per-ray forward in the fused kernel and
-    its backward in the two backward kernels
+    ``cfg.megakernel``, at most 128 triangles): the whole per-ray forward
+    in the fused kernel and its backward in the two backward kernels
     (raytpu_torch.kernels.render_fused);
-  * the loop branch (AA, soft shadows, several lights, or
-    ``megakernel=False``): per sub-ray, the primary hit and the shadow
-    occlusion in one launch of an intersection kernel
-    (raytpu_torch.kernels.intersect: K4 for one light with hard shadows,
-    K6 for several shadow sources), the running AA record with the parity
-    quirk, the one-hot gather of normals and albedo, and the vectorised
-    shading of ops/shade.py.
+  * the loop branch (AA, soft shadows, several lights,
+    ``megakernel=False``, or more than 128 triangles): per sub-ray, the
+    primary hit and the shadow occlusion in one launch of an intersection
+    kernel (raytpu_torch.kernels.intersect: K4 for one light with hard
+    shadows, K6 for several shadow sources, K7a with its chunk keep-mask
+    for a scene of more than 128 triangles, one light included), the
+    running AA record with the parity quirk, the gather of normals and
+    albedo (a one-hot product up to 1,024 triangles, indexing above), and
+    the vectorised shading of ops/shade.py.
 
 The DoF stage follows as plain torch. A loss on the image or the focal
 distances differentiates to every leaf of the scene (``active`` excepted,
 as in the JAX package), of the lights (the jittered soft-shadow positions
 through the shading) and, through ``camera_ray_dirs``, of the camera.
-Scenes of more than 128 triangles raise NotImplementedError naming the
-ROADMAP.md item that brings them (port item 4), whatever the device.
 ``raytrace`` renders mode 'soft'
 through the soft raytracer (render/soft.py::raytrace_soft, the soft
 raytrace kernels K10a/K10c/K10g/K10i) on the compacted light bank.
@@ -42,6 +42,7 @@ from raytpu_torch.core.types import (
 )
 from raytpu_torch.kernels import render_fused
 from raytpu_torch.kernels.intersect import (
+    ONE_HOT_MAX,
     intersect_occluded,
     intersect_occluded_multi,
 )
@@ -50,6 +51,7 @@ from raytpu_torch.ops.blur import dof_apply
 from raytpu_torch.ops.intersect import (
     F32MAX,
     gather_rows,
+    gather_rows_by_index,
     hit_distances,
     hit_positions,
     one_hot_idx,
@@ -88,15 +90,10 @@ def _subpixel_offsets(cfg: RenderConfig) -> list[tuple[float, float]]:
             for z in range(n) for z2 in range(n)]
 
 
-def _check_scope(scene: Scene, lights: Lights, cfg: RenderConfig):
-    """Raise for a scene this port's hard raytracer does not render yet,
-    and for more soft-shadow samples than the light bank holds (ROADMAP
-    fault F7: the JAX package silently repeats the bank's last jittered
-    position)."""
-    if scene.num_triangles > MAX_CHUNK:
-        raise NotImplementedError(
-            f"not ported yet (see ROADMAP.md): {scene.num_triangles} "
-            "triangles: port item 4 (STL scale)")
+def _check_scope(lights: Lights, cfg: RenderConfig):
+    """Raise for more soft-shadow samples than the light bank holds
+    (ROADMAP fault F7: the JAX package silently repeats the bank's last
+    jittered position)."""
     if cfg.soft_shadow_samples > lights.num_soft_samples:
         raise ValueError(
             f"soft_shadow_samples={cfg.soft_shadow_samples} but the light "
@@ -128,9 +125,10 @@ def raytrace_full(scene: Scene, camera: Camera, lights: Lights,
     one active light renders as a capacity-1 bank.
     """
     lights = lights.compact()
-    _check_scope(scene, lights, cfg)
+    _check_scope(lights, cfg)
     if (cfg.megakernel and lights.capacity == 1
-            and cfg.soft_shadow_samples == 1 and cfg.aa_samples <= 1):
+            and cfg.soft_shadow_samples == 1 and cfg.aa_samples <= 1
+            and scene.num_triangles <= MAX_CHUNK):
         out = render_fused.render_hard_fused(
             *fused_inputs(scene, camera, lights, cfg),
             tri_chunk=cfg.tri_chunk, ambient=cfg.ambient,
@@ -150,10 +148,16 @@ def _loop_branch(scene: Scene, camera: Camera, lights: Lights,
     offsets = _subpixel_offsets(cfg)
     parity_record = cfg.mode == "parity" and len(offsets) > 1
     # One light with hard shadows takes K4; anything else K6, with the
-    # sources light-major and sample-minor, as direct_light reads them.
-    single = lights.capacity == 1 and cfg.soft_shadow_samples == 1
+    # sources light-major and sample-minor, as direct_light reads them. A
+    # scene of several chunks takes K7a with its keep-mask, one light
+    # (S = 1) included (`render/raytrace.py:152-162`).
+    T = scene.num_triangles
+    big_scene = T > MAX_CHUNK
+    single = (lights.capacity == 1 and cfg.soft_shadow_samples == 1
+              and not big_scene)
     src_pos = source_positions(lights, cfg.soft_shadow_samples)
     consts_src = tri_constants(scene, src_pos[0] if single else src_pos)
+    geom = (scene.v0, scene.v1, scene.v2) if big_scene else None
     normals_albedo = torch.cat([scene.normals(), scene.color], dim=1)
 
     R = xs.shape[0]
@@ -177,7 +181,8 @@ def _loop_branch(scene: Scene, camera: Camera, lights: Lights,
         else:
             hits, occ = intersect_occluded_multi(
                 dirs, consts, consts_src, camera.pos, src_pos,
-                tri_chunk=cfg.tri_chunk)
+                tri_chunk=cfg.tri_chunk, scene_geom=geom,
+                image_hw=(cfg.height, cfg.width))
         dist = hit_distances(dirs, hits)
 
         # Merge into the running record (`>=` update semantics, `:243`).
@@ -197,9 +202,12 @@ def _loop_branch(scene: Scene, camera: Camera, lights: Lights,
             pos = hit_positions(camera.pos, dirs, hits)
             shade_idx = hits.idx.clamp_min(0)
 
-        # Normals and albedo of the shaded triangle in one one-hot product.
-        both = gather_rows(one_hot_idx(shade_idx, scene.num_triangles),
-                           normals_albedo)
+        # Normals and albedo of the shaded triangle: one one-hot product up
+        # to ONE_HOT_MAX triangles, indexing above (the same values).
+        if T <= ONE_HOT_MAX:
+            both = gather_rows(one_hot_idx(shade_idx, T), normals_albedo)
+        else:
+            both = gather_rows_by_index(normals_albedo, shade_idx)
         direct = direct_light(pos, shade_idx, scene, lights, cfg,
                               n_dir=both[:, :3], occlusion_rows=occ)
         # The reference adds a sample only where the sub-ray itself hit

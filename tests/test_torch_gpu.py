@@ -804,3 +804,149 @@ def test_soft_raytrace_wrappers_check_their_inputs(cuda):
                              torch.zeros(3, 5, device=cuda),
                              torch.zeros(3, 5, device=cuda), 40.0, 40.0,
                              c["chunk"])
+
+
+def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0)):
+    """The multi-chunk kernels' inputs: a size^2 frame of the procedural
+    torus (quads x quads, two triangles each; 74 x 61 is the 9,028 mesh),
+    the ``render --stl`` camera nudged off x = 0, the sources of n_lights
+    lights with ``samples`` jittered positions each."""
+    from raytpu_torch.core import stl
+    from raytpu_torch.core.types import Scene, pixel_grid
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.ops.intersect import tri_constants
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.raytrace import camera_ray_dirs
+    tris = stl.parse_ascii_stl(stl.procedural_stl_text(*quads))
+    tris = tris * np.float32(-stl.DEFAULT_SCALE)
+    scene = Scene.from_vertices(tris[:, 0], tris[:, 1], tris[:, 2],
+                                np.full((tris.shape[0], 3), 0.5, np.float32),
+                                device=device)
+    camera = Camera.make((0.0123, -0.5, -5.0), focal=float(size),
+                         device=device)
+    cfg = RenderConfig(width=size, height=size)
+    lights = Lights.single(capacity=n_lights, soft_samples=16, device=device)
+    if n_lights == 2:
+        lights = lights.add((0.4, -0.5, -0.7), (1.0, 1.0, 1.0), 7.0)
+    xs, ys = pixel_grid(size, size, device)
+    dirs = camera_ray_dirs(xs + offset[0], ys + offset[1], camera, cfg)
+    c = tri_constants(scene, camera.pos)
+    src = source_positions(lights, samples)
+    cs = tri_constants(scene, src)
+    tiles = isect.ray_tiles(size * size, (size, size), device)
+    geom = (scene.v0, scene.v1, scene.v2)
+    return dict(args=(dirs, c.m, c.k0, c.valid), src_args=(cs.m, cs.k0,
+                                                           camera.pos, src),
+                tiles=tiles, geom=geom, cam=camera.pos)
+
+
+@pytest.mark.parametrize("size,quads", [(512, (74, 61)), (200, (20, 20))],
+                         ids=["mesh9028-512", "mesh800-200"])
+def test_closest_hit_kernels_match_plain_version(cuda, size, quads):
+    """K5 and K7d bit for bit against their plain versions, K7d = K5,
+    K7d with an all-ones mask = K5, two calls identical."""
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, size, quads, 1, 1)
+    args, tiles = case["args"], case["tiles"]
+    mask = isect.primary_mask(case["cam"], args[0], tiles, *case["geom"],
+                              args[3], 128)
+    before = (isect.LAUNCHES_CLOSEST, isect.LAUNCHES_CLOSEST_MASKED)
+    k5 = isect.closest_hit(*args)
+    k7d = isect.closest_hit_masked(*args, mask, tiles)
+    ones = isect.closest_hit_masked(*args, torch.ones_like(mask), tiles)
+    again = isect.closest_hit_masked(*args, mask, tiles)
+    assert (isect.LAUNCHES_CLOSEST, isect.LAUNCHES_CLOSEST_MASKED) == (
+        before[0] + 1, before[1] + 3)
+    want5 = isect.closest_hit_reference(*args)
+    want7 = isect.closest_hit_masked_reference(*args, mask, tiles)
+    torch.cuda.synchronize()
+    for got, want in ((k5, want5), (k7d, want7), (k7d, k5), (ones, k5),
+                      (again, k7d)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert 0.05 < float((k5[1] >= 0).float().mean()) < 0.9
+    assert float(mask.float().mean()) < 0.6
+
+
+@pytest.mark.parametrize("n_lights,samples", [(1, 1), (2, 16)],
+                         ids=["s1", "s32"])
+def test_occluded_masked_kernel_matches_plain_version(cuda, n_lights,
+                                                      samples):
+    """K7a on the 9,028 mesh at 500^2 (an AA sub-ray offset) bit for bit
+    against its plain version and against an all-ones mask, its hits equal
+    to K5's, two calls identical."""
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, 500, (74, 61), samples, n_lights, (0.5, -0.5))
+    args = (*case["args"], *case["src_args"])
+    tiles = case["tiles"]
+    mask = isect.fused_mask(args[0], tiles, case["geom"], args[3], args[7],
+                            case["cam"], 128)
+    before = isect.LAUNCHES_OCCLUDED_MASKED
+    got = isect.closest_hit_occluded_multi_masked(*args, mask, tiles)
+    ones = isect.closest_hit_occluded_multi_masked(
+        *args, torch.ones_like(mask), tiles)
+    again = isect.closest_hit_occluded_multi_masked(*args, mask, tiles)
+    assert isect.LAUNCHES_OCCLUDED_MASKED == before + 3
+    want = isect.closest_hit_occluded_multi_masked_reference(*args, mask,
+                                                             tiles)
+    k5 = isect.closest_hit(*case["args"])
+    torch.cuda.synchronize()
+    for other in (want, ones, again):
+        assert all(torch.equal(a, b) for a, b in zip(got, other))
+    assert torch.equal(got[0], k5[0]) and torch.equal(got[1], k5[1])
+    assert got[2].shape == (n_lights * samples, 500 * 500)
+    assert bool(got[2].any()) and not bool(got[2][:, got[1] < 0].any())
+
+
+def test_multi_chunk_wrappers_check_their_inputs(cuda):
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, 64, (20, 20), 1, 1)
+    args, tiles = case["args"], case["tiles"]
+    mask = isect.primary_mask(case["cam"], args[0], tiles, *case["geom"],
+                              args[3], 128)
+    isect.closest_hit_masked(*args, mask, tiles)
+    with pytest.raises(TypeError):
+        isect.closest_hit_masked(*args, mask.long(), tiles)
+    with pytest.raises(ValueError):  # one chunk column short
+        isect.closest_hit_masked(*args, mask[:, 1:].contiguous(), tiles)
+    with pytest.raises(ValueError):  # the mask on the host
+        isect.closest_hit_masked(*args, mask.cpu(), tiles)
+    with pytest.raises(TypeError):
+        isect.closest_hit(args[0].double(), *args[1:])
+
+
+def test_stl_frame_on_gpu_matches_cpu(cuda):
+    """raytrace_full on the 800-triangle torus (K7a, one launch a sub-ray)
+    and its gradients, on the card against the CPU path."""
+    from raytpu_torch.core import stl
+    from raytpu_torch.core.types import Scene
+    from raytpu_torch.kernels import intersect as isect
+    tris = stl.parse_ascii_stl(stl.procedural_stl_text(20, 20))
+    tris = tris * np.float32(-stl.DEFAULT_SCALE)
+
+    def run(device):
+        scene = Scene.from_vertices(
+            tris[:, 0], tris[:, 1], tris[:, 2],
+            np.full((tris.shape[0], 3), 0.5, np.float32), device=device)
+        lights = Lights.single(capacity=1, position=(0.3, -1.5, -3.0),
+                               device=device)
+        for value in (scene, lights):
+            for t in vars(value).values():
+                t.requires_grad_(True)
+        camera = Camera.make((0.0123, -0.5, -5.0), focal=64.0, device=device)
+        out = raytrace_full(scene, camera, lights, RenderConfig(
+            width=64, height=64, mode="parity", aa_samples=2))
+        (torch.mean(out.image ** 2)
+         + 0.1 * torch.mean(out.focal_distances ** 2)).backward()
+        return out, [convert.grads_to_numpy(v) for v in (scene, lights)]
+
+    before = isect.LAUNCHES_OCCLUDED_MASKED
+    got, got_grads = run(cuda)
+    assert isect.LAUNCHES_OCCLUDED_MASKED == before + 4
+    want, want_grads = run("cpu")
+    bad = (got.image.detach().cpu() - want.image.detach()).abs() > 1e-5
+    assert float(bad.any(dim=-1).float().mean()) <= 0.001
+    assert float(want.image.detach().max()) > 0.1
+    for got_g, want_g in zip(got_grads, want_grads):
+        for field in want_g:
+            np.testing.assert_allclose(got_g[field], want_g[field], rtol=1e-4,
+                                       atol=1e-5, err_msg=field)

@@ -20,7 +20,7 @@ import raytpu_torch.render.rasterize, raytpu_torch.render.soft
 import raytpu_torch.core.stl, raytpu_torch.oracle.raytracer_oracle
 import raytpu_torch.oracle.rasterizer_oracle
 import raytpu_torch.kernels.soft_raster, raytpu_torch.opt.fit
-import raytpu_torch.kernels.soft_raytrace
+import raytpu_torch.kernels.soft_raytrace, raytpu_torch.kernels.cull
 import raytpu_torch.utils.profiling
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "raytpu.")) or m == "raytpu")

@@ -82,11 +82,25 @@ def test_intersect_matches_jax(frame):
 
 
 def test_intersect_refuses_more_than_one_chunk(frame):
+    """The streamed multi-chunk intersect, once refused, matches JAX's
+    ``lax.scan`` over chunks at tri_chunk=16 (two chunks of the box):
+    winners bit for bit, t to rtol 5e-7, and the single-chunk result (the
+    box's 30 triangles in two chunks of 15); a triangle count that is not
+    a whole number of chunks raises as in JAX."""
     scene, cam, dirs = frame
-    consts = intersect.TriConstants(
-        *map(_t, jax_intersect.tri_constants(scene, cam.pos)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        intersect.intersect(_t(dirs), consts, tri_chunk=16)
+    jconsts = jax_intersect.tri_constants(scene, cam.pos)
+    consts = intersect.TriConstants(*map(_t, jconsts))
+    chunk = scene.num_triangles // 2
+    got = intersect.intersect(_t(dirs), consts, tri_chunk=chunk)
+    want = jax_intersect.intersect(dirs, jconsts, tri_chunk=chunk)
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
+    np.testing.assert_array_equal(got.hit.numpy(), np.asarray(want.hit))
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), rtol=5e-7)
+    one = intersect.intersect(_t(dirs), consts)
+    assert torch.equal(got.idx, one.idx) and torch.equal(got.t, one.t)
+    assert bool(got.hit.any())
+    with pytest.raises(ValueError, match="multiple of tri_chunk=24"):
+        intersect.intersect(_t(dirs), consts, tri_chunk=24)
 
 
 @pytest.mark.parametrize("mode", ["clean", "parity"])

@@ -93,14 +93,22 @@ def test_viewer_spawned_light_matches_jax():
 
 
 def test_viewer_refuses_what_is_not_ported():
-    _, app = _apps()
-    # The hard raytracer at STL scale (more than 128 triangles) is port
-    # item 4.
-    big = ViewerApp(convert.scene_from_numpy(leaves(jax_cornell_box(
-        pad_to=136)), device="cpu"), app.camera, app.lights, app.cfg)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        big.handle_key("none")
-    assert big.frame_n == 0
+    jax_app, app = _apps()
+    # The hard raytracer at STL scale (more than 128 triangles), once
+    # refused, renders: the box padded to 136 triangles (two chunks through
+    # K7a's plain version) gives the JAX viewer's frame of the same scene,
+    # AA on (key 7) included.
+    scene = jax_cornell_box(pad_to=136)
+    big = ViewerApp(convert.scene_from_numpy(leaves(scene), device="cpu"),
+                    app.camera, app.lights, app.cfg)
+    jax_big = JaxViewerApp(scene, jax_app.camera, jax_app.lights,
+                           jax_app.cfg, seed=0)
+    for key in ("none", "7"):
+        got, want = big.handle_key(key), jax_big.handle_key(key)
+        assert got["aa"] == want["aa"]
+        np.testing.assert_allclose(big._frame, np.asarray(jax_big._frame),
+                                   rtol=0, atol=1e-6, err_msg=key)
+    assert big.frame_n == 2 and big._frame.max() > 0.1
     with pytest.raises(KeyError):
         app.handle_key("q")
     # The rasterizer is ported (tests/test_torch_rasterize.py); an unknown
