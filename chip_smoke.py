@@ -137,10 +137,10 @@ nonzero without printing a result:
  21. soft raytrace serving: the ``render`` CLI in soft mode at its
      defaults (500^2 Cornell: one K10a and one K10g), with 16 soft-shadow
      samples and a second light (one K10g over 32 sources), with ``--stl``
-     (one K10a over 283 chunks: unculled at 500^2) and at 512^2 (raising,
-     naming item 6c, before any launch); the view server with the
-     raytracer at the view CLI's defaults, key 0 giving a soft frame (one
-     K10a, one K10g) and back (one K1).
+     (one K10a over 283 chunks: unculled at 500^2) and at 512^2 (culled:
+     one K10b and one K10h); the view server with the raytracer at the
+     view CLI's defaults, key 0 giving a soft frame (one K10a, one K10g)
+     and back (one K1).
  22. training through the soft raytracer: the ``fit`` CLI with
      ``--renderer raytrace`` at its other defaults (500 steps at 500^2:
      exactly one K10a, K10c, K10g and K10i a step, one K9a for the final
@@ -176,6 +176,30 @@ nonzero without printing a result:
      gradients), then card numbers: the STL frames and step, the step's
      device-busy share, events and peak memory, K5, K7d and K7a alone
      beside their plain versions and bounds.
+ 26. the masked soft raytrace kernels (K10b, K10h forward; K10d, K10j
+     backward) against their plain versions on the card: the bench's
+     culled soft_raytrace_stl step (the mesh padded to 9,216 at 512^2, the
+     rasteriser camera, 40 / 40, cull=True) and the ``render --mode soft
+     --stl`` 512^2 frame (9,028 triangles, the CLI's STL camera, S = 1 and
+     ``--soft-shadows 16``), each with its keep-masks on the port's 16 x
+     16 tiles: out, m, s and trans within rtol 1e-5 / atol 1e-6, two calls
+     identical, all-ones masks = K10a / K10g bit for bit, culled = brute at
+     JAX's rule (atol 1e-6 / rtol 1e-6), the keep rates printed; at the
+     step's shapes K10d and K10j against the plain masked backward in
+     float64 by column group with phase 20's rule, culled = brute at that
+     rule (or, where float32 misses it, F11, within twice the plain
+     float32 version's distance from float64), all-ones masks on 256-ray
+     runs = K10c / K10i bit for bit, two calls identical.
+ 27. culled soft raytrace serving: ``render --mode soft --stl`` at 512^2
+     (one K10b and one K10h over 283 chunks and one source) and with
+     ``--soft-shadows 16`` (16 sources); the view server on the STL scene
+     at 512^2, key 0 giving a culled soft frame (one K10b, one K10h) and
+     back (one K7a).
+ 28. the bench's culled soft_raytrace_stl step: 2 SGD steps (exactly one
+     K10b, K10d, K10h and K10j a step, no unmasked K10), then card
+     numbers: the culled step beside phase 22's brute step, its device-busy
+     share, events and peak memory, the culled frames, K10b-K10j alone
+     beside their plain versions and bounds (kept pairs and triples only).
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
@@ -186,11 +210,14 @@ phase 11 (training the loop branch: K6), before and after phase 13
 phase 14 (training the rasterizer: K8b), before and after phase 17
 (serving the soft rasterizer: K9a, K9b, K8b, and the raytracer's key 0:
 K10a, K10g), before and after the fit CLI of phase 18 (training: K9a, K9c),
-before and after phase 21 (serving the soft raytracer: K10a, K10g, K1),
+before and after phase 21 (serving the soft raytracer: K10a, K10g, K10b,
+K10h, K1),
 before and after the raytrace fit CLI of phase 22 (training: K10a, K10c,
 K10g, K10i), before and after phase 24 (serving STL scenes: K7a), before
 and after each call of phase 25's stl_intersect row (K5, K7d) and its 3
-STL steps (K7a). Comparisons and timings launch outside those windows. The
+STL steps (K7a), before and after phase 27 (serving the culled soft
+raytracer: K10b, K10h, K7a) and before and after phase 28's 2 culled steps
+(K10b, K10d, K10h, K10j). Comparisons and timings launch outside those windows. The
 line before the last is one JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -732,7 +759,11 @@ def kernel_counts() -> dict:
             "soft_rt_pri_fwd": srt.LAUNCHES_SRT_PRI_FWD,
             "soft_rt_pri_bwd": srt.LAUNCHES_SRT_PRI_BWD,
             "soft_rt_shw_fwd": srt.LAUNCHES_SRT_SHW_FWD,
-            "soft_rt_shw_bwd": srt.LAUNCHES_SRT_SHW_BWD}
+            "soft_rt_shw_bwd": srt.LAUNCHES_SRT_SHW_BWD,
+            "soft_rt_pri_fwd_masked": srt.LAUNCHES_SRT_PRI_FWD_MASKED,
+            "soft_rt_pri_bwd_masked": srt.LAUNCHES_SRT_PRI_BWD_MASKED,
+            "soft_rt_shw_fwd_masked": srt.LAUNCHES_SRT_SHW_FWD_MASKED,
+            "soft_rt_shw_bwd_masked": srt.LAUNCHES_SRT_SHW_BWD_MASKED}
 
 
 def zero_counts() -> None:
@@ -750,6 +781,8 @@ def zero_counts() -> None:
     from raytpu_torch.kernels import soft_raytrace as srt
     srt.LAUNCHES_SRT_PRI_FWD = srt.LAUNCHES_SRT_PRI_BWD = 0
     srt.LAUNCHES_SRT_SHW_FWD = srt.LAUNCHES_SRT_SHW_BWD = 0
+    srt.LAUNCHES_SRT_PRI_FWD_MASKED = srt.LAUNCHES_SRT_PRI_BWD_MASKED = 0
+    srt.LAUNCHES_SRT_SHW_FWD_MASKED = srt.LAUNCHES_SRT_SHW_BWD_MASKED = 0
 
 
 def raster_case(scene, camera, cfg) -> dict:
@@ -933,119 +966,163 @@ def soft_cot(case, seed: int) -> torch.Tensor:
                         device=case["consts"].device)
 
 
-def srt_case(scene, camera, lights, cfg) -> dict:
-    """The soft raytrace kernels' inputs for a frame, as raytrace_soft builds
-    them with cull=False (kernels/soft_raytrace.py::raytrace_soft_inputs),
-    on detached tensors: both tables, the rays (3, R), the camera position,
-    the chunk, the sharpness and the shadow sources."""
-    from raytpu_torch.kernels import soft_raytrace as srt
+def srt_case(scene, camera, lights, cfg, cull: bool = False) -> dict:
+    """The soft raytrace kernels' inputs for a frame, as raytrace_soft
+    builds them (render/soft.py::raytrace_soft_inputs, cull False or
+    True), on detached tensors: both tables, the rays (3, R), the camera
+    position, the chunk, the sharpness and the shadow sources; culled, the
+    ray tiles, the primary keep-mask and the vertices the shadow mask is
+    made from (srt_shadow_mask)."""
     from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.soft import raytrace_soft_inputs
     with torch.no_grad():
-        pri, shw, dirs, chunk, es, zs = srt.raytrace_soft_inputs(
-            scene, camera, cfg, cull=False)
+        inp = raytrace_soft_inputs(scene, camera, cfg, cull=cull)
         srcs = source_positions(lights, max(cfg.soft_shadow_samples, 1))
-    return dict(pri=pri.contiguous(), shw=shw.contiguous(), dirs=dirs,
-                cam=camera.pos.detach().contiguous(), chunk=chunk, es=es,
-                zs=zs, srcs=srcs.detach().contiguous())
+    c = dict(pri=inp.pri.contiguous(), shw=inp.shw.contiguous(),
+             dirs=inp.dirs.detach(), cam=camera.pos.detach().contiguous(),
+             chunk=inp.chunk, es=inp.es, zs=inp.zs,
+             srcs=srcs.detach().contiguous())
+    if cull:
+        c.update(tiles=inp.tiles, mask=inp.mask, smask=None,
+                 geom=tuple(v.detach() for v in (scene.v0, scene.v1,
+                                                  scene.v2)))
+    return c
 
 
-def srt_fwd(c, plain=False):
-    """K10a's wrapper on a srt_case (out, m, s), or its plain version."""
+def srt_shadow_mask(c, world) -> torch.Tensor:
+    """The shadow keep-mask (n_tiles, S, n_chunks) of a culled srt_case at
+    the aggregated hit positions world (3, R), as raytrace_soft makes it."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.kernels.intersect import TILE_RAYS
+    with torch.no_grad():
+        return srt.soft_rt_shadow_mask(world.T[c["tiles"].rays], c["srcs"],
+                                       *c["geom"], c["es"], c["zs"],
+                                       TILE_RAYS, c["chunk"])
+
+
+def _cull(c, masked: bool, mask_key: str) -> dict:
+    """The wrappers' mask and tiles of a culled srt_case, or none."""
+    return dict(mask=c[mask_key], tiles=c["tiles"]) if masked else {}
+
+
+def srt_fwd(c, plain=False, masked=False):
+    """K10a's wrapper on a srt_case (out, m, s), or its plain version;
+    masked: K10b's with the case's keep-mask."""
     from raytpu_torch.kernels import soft_raytrace as srt
     fn = srt.primary_agg_reference if plain else srt.primary_agg_fwd
-    return fn(c["pri"], c["cam"], c["dirs"], c["es"], c["zs"], c["chunk"])
+    return fn(c["pri"], c["cam"], c["dirs"], c["es"], c["zs"], c["chunk"],
+              **_cull(c, masked, "mask"))
 
 
-def srt_shw(c, world, plain=False):
+def srt_shw(c, world, plain=False, masked=False):
     """K10g's wrapper on a srt_case and world points (3, R), or its plain
-    version."""
+    version; masked: K10h's with the case's shadow mask."""
     from raytpu_torch.kernels import soft_raytrace as srt
     fn = srt.shadow_trans_reference if plain else srt.shadow_trans_fwd
-    return fn(c["shw"], c["srcs"], world, c["es"], c["zs"], c["chunk"])
+    return fn(c["shw"], c["srcs"], world, c["es"], c["zs"], c["chunk"],
+              **_cull(c, masked, "smask"))
 
 
-def srt_bwd(c, m, cot, plain=False, dtype=torch.float32):
+def srt_bwd(c, m, cot, plain=False, dtype=torch.float32, masked=False):
     """K10c's wrapper (dc, dcam, dd), or its plain version; in float64 with
-    the float32 branch decisions (Kinks)."""
+    the float32 branch decisions (Kinks); masked: K10d's."""
     from raytpu_torch.kernels import soft_raytrace as srt
     args = (c["pri"], c["cam"], c["dirs"], m, cot)
+    cull = _cull(c, masked, "mask")
     if not plain:
-        return srt.primary_agg_bwd(*args, c["es"], c["zs"], c["chunk"])
+        return srt.primary_agg_bwd(*args, c["es"], c["zs"], c["chunk"],
+                                   **cull)
     return srt.primary_agg_bwd_reference(
         *(t.to(dtype) for t in args), c["es"], c["zs"], c["chunk"],
-        f32_branches=dtype != torch.float32)
+        f32_branches=dtype != torch.float32, **cull)
 
 
-def srt_shw_bwd(c, world, trans, gcot, plain=False, dtype=torch.float32):
+def srt_shw_bwd(c, world, trans, gcot, plain=False, dtype=torch.float32,
+                masked=False):
     """K10i's wrapper (dc, dsrc, dw), or its plain version; in float64 with
-    the float32 branch decisions."""
+    the float32 branch decisions; masked: K10j's."""
     from raytpu_torch.kernels import soft_raytrace as srt
     args = (c["shw"], c["srcs"], world, trans, gcot)
+    cull = _cull(c, masked, "smask")
     if not plain:
-        return srt.shadow_trans_bwd(*args, c["es"], c["zs"], c["chunk"])
+        return srt.shadow_trans_bwd(*args, c["es"], c["zs"], c["chunk"],
+                                    **cull)
     return srt.shadow_trans_bwd_reference(
         *(t.to(dtype) for t in args), c["es"], c["zs"], c["chunk"],
-        f32_branches=dtype != torch.float32)
+        f32_branches=dtype != torch.float32, **cull)
 
 
-def srt_work(c, m, world, dl) -> dict:
-    """What K10a-K10i must do on a srt_case, from a plain recompute:
-    (ray, row) pairs in all, gated, and of a weight not 0 at the saved m;
-    (source, point, row) triples in all and gated; of the triples whose
-    cotangent dl (S, R) is not 0, how many, how many gated and how many of
-    a term not 0."""
+def srt_work(c, m, world, dl, masked: bool = False) -> dict:
+    """What K10a-K10i (masked: K10b-K10j) must do on a srt_case, from a
+    plain recompute: (ray, row) pairs in all (masked: of the rays whose
+    tile keeps the row's chunk), gated, and of a weight not 0 at the saved
+    m; (source, point, row) triples in all (masked: kept) and gated; of
+    the triples whose cotangent dl (S, R) is not 0 (dl None: not
+    counted), how many, how many gated and how many of a term not 0."""
     from raytpu_torch.kernels import soft_raytrace as srt
     from raytpu_torch.kernels.soft_raster import Kinks
     pri, shw, d, chunk = c["pri"], c["shw"], c["dirs"], c["chunk"]
-    Tp, R, S = pri.shape[0], d.shape[1], c["srcs"].shape[0]
-    w = dict(pairs=R * Tp, gated_p=0, live_p=0, triples=S * R * Tp,
-             gated_s=0, act_s=0, act_gated_s=0, live_s=0)
+    Tp, S = pri.shape[0], c["srcs"].shape[0]
+    tiles = c.get("tiles")
+    w = dict(pairs=0, gated_p=0, live_p=0, triples=0, gated_s=0, act_s=0,
+             act_gated_s=0, live_s=0)
     with torch.no_grad():
-        for lo in range(0, Tp, chunk):
+        for k, lo in enumerate(range(0, Tp, chunk)):
+            keep = srt._kept(c["mask"] if masked else None, tiles, k)
+            dk = d[:, keep]
             logit, _ = srt.primary_terms(pri[lo:lo + chunk], c["cam"],
-                                         d[0:1], d[1:2], d[2:3], c["es"],
+                                         dk[0:1], dk[1:2], dk[2:3], c["es"],
                                          c["zs"])
+            w["pairs"] += logit.numel()
             w["gated_p"] += int((logit == -1e30).sum())
-            w["live_p"] += int((torch.exp(logit - m) != 0.0).sum())
+            w["live_p"] += int((torch.exp(logit - m[keep]) != 0.0).sum())
             for s in range(S):
+                keep = srt._kept(c["smask"] if masked else None, tiles, k, s)
+                wk = world[:, keep]
                 kinks = Kinks()
                 term = srt.shadow_terms(shw[lo:lo + chunk], c["srcs"][s],
-                                        world[0:1], world[1:2], world[2:3],
-                                        c["es"], c["zs"], kinks)
+                                        wk[0:1], wk[1:2], wk[2:3], c["es"],
+                                        c["zs"], kinks)
                 ok = kinks.decisions[-1]  # shadow_terms' last: its hit test
                 require(ok.dtype == torch.bool and ok.shape == term.shape,
                         "srt_work: the shadow hit test recorded")
-                act = (dl[s] != 0.0).expand_as(term)
+                w["triples"] += term.numel()
                 w["gated_s"] += int((~ok).sum())
+                if dl is None:
+                    continue
+                act = (dl[s][keep] != 0.0).expand_as(term)
                 w["act_s"] += int(act.sum())
                 w["act_gated_s"] += int((act & ~ok).sum())
                 w["live_s"] += int((act & (term != 0.0)).sum())
     return w
 
 
-def srt_bounds(c, w) -> dict:
-    """K10a-K10i's bounds on a srt_case with srt_work's counts w: each input
-    read and each output written once (primary forward: 12 B in, 44 B out
-    a ray; backward: 56 B in, 12 B out a ray, the table's gradient out;
-    shadow: 12 B a point and 4 B a (source, point) each way, 8 B in and
-    12 B out backward), against the operations of FLOPS_SRT_*: the gate
-    alone for a gated pair or triple."""
+def srt_bounds(c, w, masked: bool = False) -> dict:
+    """K10a-K10i's (masked: K10b-K10j's) bounds on a srt_case with
+    srt_work's counts w: each input read and each output written once
+    (primary forward: 12 B in, 44 B out a ray; backward: 56 B in, 12 B out
+    a ray, the table's gradient out; shadow: 12 B a point and 4 B a
+    (source, point) each way, 8 B in and 12 B out backward; masked, the
+    keep-mask read once too), against the operations of FLOPS_SRT_*: the
+    gate alone for a gated pair or triple."""
     Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
+    pmask = c["mask"].numel() * 4 if masked else 0
+    smask = c["smask"].numel() * 4 if masked else 0
     hit_p = w["pairs"] - w["gated_p"]
     return {
-        "pri_fwd": bound_ms(R * 56 + Tp * 128 + 12,
+        "pri_fwd": bound_ms(R * 56 + Tp * 128 + 12 + pmask,
                             FLOPS_SRT_PRI_GATE * w["gated_p"]
                             + FLOPS_SRT_PRI_LOGIT * hit_p
                             + FLOPS_SRT_PRI_SUMS * w["live_p"]),
-        "pri_bwd": bound_ms(R * 68 + Tp * 256 + 24,
+        "pri_bwd": bound_ms(R * 68 + Tp * 256 + 24 + pmask,
                             FLOPS_SRT_PRI_GATE * w["gated_p"]
                             + FLOPS_SRT_PRI_W * hit_p
                             + FLOPS_SRT_PRI_BWD * w["live_p"]),
-        "shw_fwd": bound_ms(R * (12 + 4 * S) + Tp * 64 + 12 * S,
+        "shw_fwd": bound_ms(R * (12 + 4 * S) + Tp * 64 + 12 * S + smask,
                             FLOPS_SRT_SHW_GATE * w["gated_s"]
                             + FLOPS_SRT_SHW_TERM
                             * (w["triples"] - w["gated_s"])),
-        "shw_bwd": bound_ms(R * (24 + 8 * S) + Tp * 128 + 24 * S,
+        "shw_bwd": bound_ms(R * (24 + 8 * S) + Tp * 128 + 24 * S + smask,
                             FLOPS_SRT_SHW_GATE * w["act_gated_s"]
                             + FLOPS_SRT_SHW_W
                             * (w["act_s"] - w["act_gated_s"])
@@ -2556,9 +2633,9 @@ def main() -> int:
     seen = []
     real_pri, real_shw = srt.primary_agg_fwd, srt.shadow_trans_fwd
 
-    def spy_pri(consts, cam, dirs, es, zs, chunk):
+    def spy_pri(consts, cam, dirs, es, zs, chunk, *cull):
         seen.append(("chunks", consts.shape[0] // chunk))
-        return real_pri(consts, cam, dirs, es, zs, chunk)
+        return real_pri(consts, cam, dirs, es, zs, chunk, *cull)
 
     def spy_shw(consts, srcs, *args):
         seen.append(("sources", srcs.shape[0]))
@@ -2595,18 +2672,19 @@ def main() -> int:
                     f"{bmp_name}: launches {one_frame} over {shapes}")
     finally:
         srt.primary_agg_fwd, srt.shadow_trans_fwd = real_pri, real_shw
+    # At 512^2 the JAX package culls: one K10b and one K10h.
+    k10b, k10h = "soft_rt_pri_fwd_masked", "soft_rt_shw_fwd_masked"
     before = kernel_counts()
-    try:
-        cli_main(["render", "--mode", "soft", "--stl", str(stl_path),
-                  "--width", "512", "--height", "512", "-o",
-                  str(OUT / "refused.bmp")])
-        refused = ""
-    except NotImplementedError as exc:
-        refused = str(exc)
-    say(f"render CLI --mode soft --stl at 512^2: NotImplementedError "
-        f"{refused!r}, launches {delta(before, kernel_counts())}")
-    require("item 6c" in refused and not delta(before, kernel_counts()),
-            "the culled soft raytracer raises naming item 6c, no launch")
+    cli_main(["render", "--mode", "soft", "--stl", str(stl_path),
+              "--width", "512", "--height", "512", "-o",
+              str(OUT / "raytrace_soft_stl512.bmp")])
+    got = delta(before, kernel_counts())
+    frame_u8 = read_bmp(str(OUT / "raytrace_soft_stl512.bmp"))
+    say(f"render CLI --mode soft --stl at 512^2 (culled): {frame_u8.shape}, "
+        f"max {frame_u8.max()}, launches {got}")
+    require(got == {k10b: 1, k10h: 1} and frame_u8.shape == (512, 512, 3)
+            and frame_u8.max() > 20,
+            "the culled soft raytracer renders 512^2: one K10b, one K10h")
     viewer = ViewerApp(cornell_box(device=dev),
                        Camera.raytracer_default(device=dev),
                        Lights.single(capacity=32, soft_samples=16,
@@ -2622,10 +2700,11 @@ def main() -> int:
     rt_serve = kernel_counts()  # zeroed where phase 21 began
     say(f"soft raytrace serving path launches: {rt_serve}")
     require(rt_serve[k10a] > 0 and rt_serve[k10g] > 0 and rt_serve[k1] > 0
+            and rt_serve[k10b] > 0 and rt_serve[k10h] > 0
             and not any(v for k, v in rt_serve.items()
-                        if k not in (k10a, k10g, k1)),
-            "the soft raytrace serving path launched K10a, K10g and K1, "
-            "nothing else")
+                        if k not in (k10a, k10g, k1, k10b, k10h)),
+            "the soft raytrace serving path launched K10a, K10g, K10b, K10h "
+            "and K1, nothing else")
 
     say("== phase 22: training through the soft raytracer (the fit CLI "
         "with --renderer raytrace, the bench's soft raytrace steps) and "
@@ -2711,16 +2790,18 @@ def main() -> int:
     rt_ms.update(median_ms_in_turns({"stl_brute_step": step_rt_stl}, n=1,
                                     reps=3))
 
-    def srt_timers(c, m, world, trans, cot, gcot):
-        """The four kernels launched into preallocated outputs, and their
-        plain versions, on one case."""
+    def srt_timers(c, m, world, trans, cot, gcot, masked=False):
+        """The four kernels (masked: K10b, K10d, K10h, K10j) launched into
+        preallocated outputs, and their plain versions, on one case."""
         R, Tp, S = m.shape[0], c["pri"].shape[0], c["srcs"].shape[0]
         es, zs, chunk = c["es"], c["zs"], c["chunk"]
+        pcull, scull = _cull(c, masked, "mask"), _cull(c, masked, "smask")
+        blocks = c["tiles"].count * srt.THREADS if masked else R
         out = (torch.empty((9, R), device=dev), torch.empty(R, device=dev),
                torch.empty(R, device=dev))
         tr = torch.empty((S, R), device=dev)
-        pg = srt.bwd_groups(Tp, srt.PRI_USED, R)
-        sg = srt.bwd_groups(Tp, srt.SHW_USED, R)
+        pg = srt.bwd_groups(Tp, srt.PRI_USED, blocks)
+        sg = srt.bwd_groups(Tp, srt.SHW_USED, blocks)
         pbuf = (torch.empty((pg, Tp, srt.PRI_USED), device=dev),
                 torch.empty((pg, 3), device=dev),
                 torch.empty_like(c["pri"]), torch.empty(3, device=dev),
@@ -2731,20 +2812,21 @@ def main() -> int:
                 torch.empty_like(world))
         kernels = {
             "pri_fwd": lambda: srt.launch_pri_fwd_kernel(
-                c["pri"], chunk, c["cam"], c["dirs"], es, zs, *out),
+                c["pri"], chunk, c["cam"], c["dirs"], es, zs, *out, **pcull),
             "pri_bwd": lambda: srt.launch_pri_bwd_kernel(
-                c["pri"], chunk, c["cam"], c["dirs"], es, zs, m, cot, *pbuf),
+                c["pri"], chunk, c["cam"], c["dirs"], es, zs, m, cot, *pbuf,
+                **pcull),
             "shw_fwd": lambda: srt.launch_shw_fwd_kernel(
-                c["shw"], chunk, c["srcs"], world, es, zs, tr),
+                c["shw"], chunk, c["srcs"], world, es, zs, tr, **scull),
             "shw_bwd": lambda: srt.launch_shw_bwd_kernel(
                 c["shw"], chunk, c["srcs"], world, trans, gcot, es, zs,
-                *sbuf)}
+                *sbuf, **scull)}
         plain = {
-            "pri_fwd": lambda: srt_fwd(c, plain=True),
-            "pri_bwd": lambda: srt_bwd(c, m, cot, plain=True),
-            "shw_fwd": lambda: srt_shw(c, world, plain=True),
+            "pri_fwd": lambda: srt_fwd(c, plain=True, masked=masked),
+            "pri_bwd": lambda: srt_bwd(c, m, cot, plain=True, masked=masked),
+            "shw_fwd": lambda: srt_shw(c, world, plain=True, masked=masked),
             "shw_bwd": lambda: srt_shw_bwd(c, world, trans, gcot,
-                                           plain=True)}
+                                           plain=True, masked=masked)}
         return kernels, plain
 
     rt_k = {}
@@ -3142,6 +3224,315 @@ def main() -> int:
                       k: {kk: vv for kk, vv in v.items()}
                       for k, v in stl_k.items()})
 
+    say("== phase 26: K10b, K10d, K10h and K10j against their plain "
+        "versions on the card")
+    parser_s = argparse.ArgumentParser()
+    cli_module._render_flags(parser_s)
+    stl512_flags = ["--stl", str(stl_path), "--mode", "soft", "--width",
+                    "512", "--height", "512"]
+
+    def cli_inputs(flags):
+        """The render CLI's scene, camera, lights and config for flags."""
+        return cli_module._build_inputs(parser_s.parse_args(flags))
+
+    k10b, k10h = "soft_rt_pri_fwd_masked", "soft_rt_shw_fwd_masked"
+    k10d, k10j = "soft_rt_pri_bwd_masked", "soft_rt_shw_bwd_masked"
+    masked4 = (k10b, k10d, k10h, k10j)
+    mcases = {
+        # bench.py's culled soft_raytrace_stl step (`bench.py:644-676`):
+        # the mesh padded to 9,216 at 512^2, the rasteriser camera, 40 /
+        # 40, one light, cull=True.
+        "stl_step_512": srt_case(*soft_stl_frame(512), cull=True),
+        # render --mode soft --stl at 512^2: 9,028 triangles (283 chunks),
+        # the CLI's STL camera, one light (S = 1) and --soft-shadows 16.
+        "render_stl_512": srt_case(*cli_inputs(stl512_flags), cull=True),
+        "render_stl_512_s16": srt_case(*cli_inputs(
+            stl512_flags + ["--soft-shadows", "16"]), cull=True),
+    }
+    require(mcases["stl_step_512"]["pri"].shape[0] == 9216
+            and mcases["render_stl_512"]["pri"].shape[0] == 283 * 32
+            and mcases["render_stl_512_s16"]["srcs"].shape[0] == 16
+            and all(c["tiles"].count == 1024 for c in mcases.values()),
+            "the culled cases' shapes (1,024 tiles of 16 x 16)")
+    srtm_err = {"k10b": 0.0, "k10h": 0.0, "k10d": 0.0, "k10j": 0.0}
+    srtm_out, srtm_keep = {}, {}
+    for name, c in mcases.items():
+        t0 = time.perf_counter()
+        got, again = srt_fwd(c, masked=True), srt_fwd(c, masked=True)
+        want = srt_fwd(c, plain=True, masked=True)
+        brute = srt_fwd(c)
+        ones = srt.primary_agg_fwd(c["pri"], c["cam"], c["dirs"], c["es"],
+                                   c["zs"], c["chunk"],
+                                   torch.ones_like(c["mask"]), c["tiles"])
+        world = got[0][3:6].contiguous()
+        c["smask"] = srt_shadow_mask(c, world)
+        trans, trans2 = (srt_shw(c, world, masked=True),
+                         srt_shw(c, world, masked=True))
+        twant = srt_shw(c, world, plain=True, masked=True)
+        tbrute = srt_shw(c, world)
+        tones = srt.shadow_trans_fwd(c["shw"], c["srcs"], world, c["es"],
+                                     c["zs"], c["chunk"],
+                                     torch.ones_like(c["smask"]), c["tiles"])
+        torch.cuda.synchronize()
+        ok_b, err_b = agg_close(got, want)
+        ok_h, err_h = agg_close((trans,), (twant,))
+        same = all(torch.equal(a, b) for a, b in zip((*got, trans),
+                                                     (*again, trans2)))
+        ones_same = all(torch.equal(a, b) for a, b in zip(
+            (*ones, tones), (*brute, tbrute)))
+        # Culled = brute at JAX's rule (tests/test_soft_raytrace_cull.py):
+        # the frame's attributes and shadow within atol 1e-6 / rtol 1e-6.
+        cb = max(float(((a - b).abs() - 1e-6 * b.abs()).max())
+                 for a, b in ((got[0], brute[0]), (trans, tbrute)))
+        keep = (float(c["mask"].float().mean()),
+                float(c["smask"].float().mean()))
+        srtm_keep[name] = keep
+        say(f"{name} ({c['pri'].shape[0] // c['chunk']} chunks, S="
+            f"{c['srcs'].shape[0]}, keep rates primary {keep[0]:.4f} shadow "
+            f"{keep[1]:.4f}): K10b vs plain max |d| {err_b:.3g} within rtol "
+            f"1e-5 / atol 1e-6 {ok_b}; K10h vs plain {err_h:.3g} within "
+            f"{ok_h}; two calls identical {same}; all-ones = K10a/K10g "
+            f"bitwise {ones_same}; culled vs brute beyond rtol 1e-6 by "
+            f"{cb:.3g} (atol 1e-6); surface share "
+            f"{float((got[1] > 1.0).float().mean()):.4f}, trans mean "
+            f"{float(trans.mean()):.4f} ({time.perf_counter() - t0:.1f} s)")
+        require(ok_b and ok_h, f"{name}: K10b and K10h within rtol 1e-5 / "
+                               f"atol 1e-6 of their plain versions")
+        require(same and ones_same, f"{name}: two calls identical, all-ones "
+                                    f"masks = the unmasked kernels bitwise")
+        require(cb <= 1e-6, f"{name}: culled = brute at JAX's rule")
+        require(all(bool(torch.isfinite(t).all()) for t in (*got, trans))
+                and 0.0 < keep[0] < 1.0 and 0.0 < keep[1] < 1.0,
+                f"{name}: finite, the masks drop pairs")
+        srtm_err["k10b"] = max(srtm_err["k10b"], err_b)
+        srtm_err["k10h"] = max(srtm_err["k10h"], err_h)
+        srtm_out[name] = (got, world, trans)
+        del again, want, brute, ones, trans2, twant, tbrute, tones
+        torch.cuda.empty_cache()
+
+    # The backward kernels at the culled step's shapes (the only path that
+    # runs them), against the plain masked backward in float64 by column
+    # group with phase 20's F11 rule.
+    from raytpu_torch.kernels.intersect import ray_tiles
+    c = mcases["stl_step_512"]
+    (_, m, _), world, trans = srtm_out["stl_step_512"]
+    t0 = time.perf_counter()
+    cot = one_signed((10, m.shape[0]), dev, seed=7)
+    gcot = one_signed(tuple(trans.shape), dev, seed=8)
+    srtm_cots = (cot, gcot)
+    got, again = srt_bwd(c, m, cot, masked=True), srt_bwd(c, m, cot,
+                                                           masked=True)
+    sgot, sagain = (srt_shw_bwd(c, world, trans, gcot, masked=True),
+                    srt_shw_bwd(c, world, trans, gcot, masked=True))
+    kb, skb = srt_bwd(c, m, cot), srt_shw_bwd(c, world, trans, gcot)
+    # Every bit set, on tiles of 256 consecutive rays (K10c's own blocks):
+    # K10c's and K10i's bits.
+    runs = ray_tiles(m.shape[0], None, dev)
+    n_chunks, S = c["pri"].shape[0] // c["chunk"], c["srcs"].shape[0]
+    ones = srt.primary_agg_bwd(
+        c["pri"], c["cam"], c["dirs"], m, cot, c["es"], c["zs"], c["chunk"],
+        mask=torch.ones((runs.count, n_chunks), dtype=torch.int32,
+                        device=dev), tiles=runs)
+    sones = srt.shadow_trans_bwd(
+        c["shw"], c["srcs"], world, trans, gcot, c["es"], c["zs"],
+        c["chunk"], mask=torch.ones((runs.count, S, n_chunks),
+                                    dtype=torch.int32, device=dev),
+        tiles=runs)
+    same = all(torch.equal(a, b) for a, b in zip((*got, *sgot),
+                                                 (*again, *sagain)))
+    ones_same = all(torch.equal(a, b) for a, b in zip((*ones, *sones),
+                                                      (*kb, *skb)))
+    w64 = srt_bwd(c, m, cot, plain=True, dtype=torch.float64, masked=True)
+    p32 = srt_bwd(c, m, cot, plain=True, masked=True)
+    sw64 = srt_shw_bwd(c, world, trans, gcot, plain=True,
+                       dtype=torch.float64, masked=True)
+    sp32 = srt_shw_bwd(c, world, trans, gcot, plain=True, masked=True)
+    torch.cuda.synchronize()
+    say(f"stl_step_512 backward: two calls identical {same}; all-ones on "
+        f"256-ray runs = K10c/K10i bitwise {ones_same} "
+        f"({time.perf_counter() - t0:.1f} s); by group, the largest |d| "
+        f"scaled by the group's largest float64 entry:")
+    require(same and ones_same, "K10d/K10j: two calls identical, all-ones "
+                                "= K10c/K10i bitwise")
+    srtm_checks = {}
+    one = (("all", 0, 3),)
+    pieces = [
+        ("k10d", "table", got[0], w64[0], p32[0], kb[0], srt.PRI_GROUPS),
+        ("k10d", "camera", got[1][None], w64[1][None], p32[1][None],
+         kb[1][None], one),
+        ("k10d", "dirs", got[2].T, w64[2].T, p32[2].T, kb[2].T, one),
+        ("k10j", "table", sgot[0], sw64[0], sp32[0], skb[0], srt.SHW_GROUPS),
+        ("k10j", "sources", sgot[1], sw64[1], sp32[1], skb[1], one),
+        ("k10j", "world", sgot[2].T, sw64[2].T, sp32[2].T, skb[2].T, one)]
+    for kernel, part, g, w, p, b, groups in pieces:
+        r64, r32, f64, rcb = (rule_by_group(g, w, groups),
+                              rule_by_group(g, p, groups),
+                              rule_by_group(p, w, groups),
+                              rule_by_group(g, b, groups))
+        for grp in r64:
+            # Phase 20's rule against the plain masked version; culled =
+            # brute at the same rule or, where float32 itself misses it
+            # (F11), within twice the plain float32 version's own distance
+            # from float64.
+            chk = dict(err64=r64[grp][0], ok64=r64[grp][1],
+                       err32=r32[grp][0], ok32=r32[grp][1],
+                       floor64=f64[grp][0], errcb=rcb[grp][0],
+                       okcb=rcb[grp][1] or rcb[grp][0] <= 2.0 * f64[grp][0],
+                       ok=r32[grp][1] and (r64[grp][1] or r64[grp][0]
+                                           <= 1.01 * f64[grp][0]))
+            srtm_checks.setdefault(kernel, {})[
+                f"stl_step_512 {part}/{grp}"] = [
+                chk["err64"], chk["ok64"], chk["floor64"], chk["ok32"]]
+            label = f"{kernel} {part}/{grp}"
+            say(f"  {label}: vs float64 {chk['err64']:.3g} within "
+                f"{chk['ok64']}; plain float32 vs float64 "
+                f"{chk['floor64']:.3g}; vs plain float32 {chk['err32']:.3g} "
+                f"within {chk['ok32']}; culled vs brute {chk['errcb']:.3g} "
+                f"passes {chk['okcb']}; passes on "
+                f"{'float64' if chk['ok64'] else 'the F11 rule'} {chk['ok']}")
+            require(chk["ok"] and chk["okcb"],
+                    f"stl_step_512 {label}: within rtol 1e-4 / atol 1e-5 "
+                    f"after scaling, culled = brute")
+            srtm_err[kernel] = max(srtm_err[kernel], chk["err64"])
+    require(all(bool(torch.isfinite(t).all()) for t in (*got, *sgot))
+            and not got[0][:, srt.PRI_USED:].any()
+            and not sgot[0][:, srt.SHW_USED:].any(),
+            "K10d/K10j: finite gradients, unused columns 0")
+    del pieces, w64, p32, sw64, sp32, again, sagain, ones, sones, kb, skb
+    torch.cuda.empty_cache()
+
+    say("== phase 27: culled soft raytrace serving (render --mode soft "
+        "--stl at 512^2, the view server's key 0 on the STL scene)")
+    zero_counts()
+    seen = []
+    srt.primary_agg_fwd, srt.shadow_trans_fwd = spy_pri, spy_shw
+    try:
+        for flags, shapes, bmp_name in (
+                (stl512_flags, [("chunks", 283), ("sources", 1)],
+                 "raytrace_soft_stl512_s1.bmp"),
+                (stl512_flags + ["--soft-shadows", "16"],
+                 [("chunks", 283), ("sources", 16)],
+                 "raytrace_soft_stl512_s16.bmp")):
+            before = kernel_counts()
+            del seen[:]
+            t0 = time.perf_counter()
+            cli_main(["render", *flags, "-o", str(OUT / bmp_name)])
+            ms = (time.perf_counter() - t0) * 1e3
+            got = delta(before, kernel_counts())
+            frame_u8 = read_bmp(str(OUT / bmp_name))
+            lit = float((frame_u8.max(axis=-1) > 0).mean())
+            say(f"render CLI {' '.join(flags[2:])}: {frame_u8.shape}, lit "
+                f"{lit:.4f}, max {frame_u8.max()}, {ms:.1f} ms host clock, "
+                f"launches {got}, {seen}")
+            require(frame_u8.shape == (512, 512, 3) and lit > 0.02
+                    and frame_u8.max() > 20, f"a lit {bmp_name}")
+            require(got == {k10b: 1, k10h: 1} and seen == shapes,
+                    f"{bmp_name}: one K10b and one K10h over {shapes}")
+    finally:
+        srt.primary_agg_fwd, srt.shadow_trans_fwd = real_pri, real_shw
+    # The view CLI's inputs (cmd_view): the render flags' scene, camera and
+    # config, a 32-slot light bank of 16 jittered positions each.
+    vs, vc, _, vcfg = cli_inputs(["--stl", str(stl_path), "--width", "512",
+                                  "--height", "512"])
+    stl_viewer = ViewerApp(vs, vc, Lights.single(capacity=32,
+                                                 soft_samples=16,
+                                                 device=dev), vcfg)
+    serve_and_check(stl_viewer, [("/frame.bmp", 200, {k7an: 1}),
+                                 ("/key?k=0", 200, {k10b: 1, k10h: 1}),
+                                 ("/key?k=left", 200, {k10b: 1, k10h: 1}),
+                                 ("/key?k=0", 200, {k7an: 1}),
+                                 ("/state", 200, {})])
+    require(stl_viewer.cfg.mode == "clean", "key 0 toggles soft and back")
+    rtm_serve = kernel_counts()  # zeroed where phase 27 began
+    say(f"culled soft raytrace serving path launches: "
+        f"{ {k: v for k, v in rtm_serve.items() if v} }")
+    require(rtm_serve[k10b] == 4 and rtm_serve[k10h] == 4
+            and rtm_serve[k7an] == 2
+            and not any(v for k, v in rtm_serve.items()
+                        if k not in (k10b, k10h, k7an)),
+            "the culled serving path launched K10b, K10h (4 each) and K7a "
+            "(the viewer's hard frames), nothing else")
+
+    say("== phase 28: the culled soft_raytrace_stl step and card numbers")
+
+    def culled(s_, c_, l_, cfg_):
+        return raytrace_soft(s_, c_, l_, cfg_, cull=True)
+
+    step_rt_stl_c = train_step(*soft_stl_frame(512), 1e-9, target_scale=0.9,
+                               render=culled)
+    zero_counts()
+    losses = [float(step_rt_stl_c()) for _ in range(2)]
+    rtm_train = {k: v for k, v in kernel_counts().items() if v}
+    say(f"soft_raytrace_stl culled step: 2 steps, loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}; launches {rtm_train}")
+    require(rtm_train == {k: 2 for k in masked4},
+            "each culled step launches K10b, K10d, K10h and K10j once, no "
+            "unmasked K10")
+    require(np.isfinite(losses).all(), "finite culled loss")
+    rtm_peak = {"culled_step": peak_gb(step_rt_stl_c),
+                "brute_step": peak_gb(step_rt_stl)}
+    rtm_busy = {"culled_step": device_busy(step_rt_stl_c, steps=3)}
+    rtm_ms = median_ms_in_turns({"culled_step": step_rt_stl_c,
+                                 "brute_step": step_rt_stl}, n=1, reps=3)
+    rtm_ms.update(median_ms_in_turns({
+        "step_frame_culled": rframe(soft_stl_frame(512), cull=True),
+        "render_stl512": rframe(cli_inputs(stl512_flags)),
+        "render_stl512_s16": rframe(cli_inputs(
+            stl512_flags + ["--soft-shadows", "16"]))}, n=1, reps=5))
+    rtm_k = {}
+    for name, c in mcases.items():
+        (_, m, _), world, trans = srtm_out[name]
+        step_case = name == "stl_step_512"
+        cot, gcot = srtm_cots if step_case else (None, None)
+        kernels, plain = srt_timers(c, m, world, trans, cot, gcot,
+                                    masked=True)
+        parts = (("pri_fwd", "pri_bwd", "shw_fwd", "shw_bwd") if step_case
+                 else ("pri_fwd", "shw_fwd"))
+        t = median_ms_in_turns({k: kernels[k] for k in parts}, n=2, reps=5,
+                               timer=held_ms)
+        t.update({f"{k}_plain": v for k, v in median_ms_in_turns(
+            {k: plain[k] for k in parts}, n=1, reps=3).items()})
+        dl = gcot * trans * (-srt.OD_SCALE) if step_case else None
+        work = srt_work(c, m, world, dl, masked=True)
+        t["work"] = work
+        t["bounds"] = srt_bounds(c, work, masked=True)
+        rtm_k[name] = t
+        del kernels, plain
+        torch.cuda.empty_cache()
+    card = card_line()
+    for name, t in rtm_k.items():
+        w = t["work"]
+        parts = [k for k in ("pri_fwd", "pri_bwd", "shw_fwd", "shw_bwd")
+                 if k in t]
+        say(f"K10 masked alone, {name} (keep rates primary "
+            f"{srtm_keep[name][0]:.4f} shadow {srtm_keep[name][1]:.4f}; "
+            f"{w['pairs']} kept pairs, {w['gated_p']} gated, {w['live_p']} "
+            f"of weight not 0; {w['triples']} kept shadow triples, "
+            f"{w['gated_s']} gated; backward {w['act_s']} of d od not 0, "
+            f"{w['live_s']} live): "
+            + ", ".join(
+                f"{k} {t[k]:.4f} ms (plain {t[k + '_plain']:.4f}; bound "
+                f"{t['bounds'][k][0]:.4f} ms, {t['bounds'][k][1]})"
+                for k in parts) + f" ({card})")
+    say(f"soft_raytrace_stl steps (CUDA events, median of 3): culled "
+        f"{rtm_ms['culled_step']:.4f} ms, brute {rtm_ms['brute_step']:.4f} "
+        f"ms; peak memory culled {rtm_peak['culled_step']:.3f} GB, brute "
+        f"{rtm_peak['brute_step']:.3f} GB; frames (median of 5): the step's "
+        f"512^2 frame culled {rtm_ms['step_frame_culled']:.4f} ms, render "
+        f"--mode soft --stl 512^2 {rtm_ms['render_stl512']:.4f} ms, with "
+        f"--soft-shadows 16 {rtm_ms['render_stl512_s16']:.4f} ms ({card})")
+    busy = rtm_busy["culled_step"]
+    say(f"profile of 3 culled soft_raytrace_stl steps: device busy "
+        f"{busy['busy_ms']:.4f} ms a step in {busy['kernels']} device "
+        f"events; {busy['wall_ms']:.4f} ms a step on the host clock under "
+        f"the profiler (share {busy['share']})")
+    for kname, ms in busy["by_name"][:8]:
+        say(f"  {ms:.5f} ms  {kname[:100]}")
+    record.update(srtm_err=srtm_err, srtm_checks=srtm_checks,
+                  srtm_keep=srtm_keep, rtm_serve=rtm_serve,
+                  rtm_train=rtm_train, rtm_losses=losses, rtm_ms=rtm_ms,
+                  rtm_peak=rtm_peak, rtm_busy=rtm_busy, rtm_k=rtm_k)
+
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
     def bwd_checks(prefix: str) -> dict:
@@ -3170,6 +3561,32 @@ def main() -> int:
                      bound_by=t["bounds"][part][1], library_ms=None)
         if key in srt_checks:
             entry["checks"] = srt_checks[key]
+        return entry
+
+    def k10m_entry(part: str, key: str, launches: int,
+                   replaces: str) -> dict:
+        """A masked soft raytrace kernel's entry: its launches on the main
+        path (K10b, K10h: phase 27's serving; K10d, K10j: phase 28's
+        culled steps), its error (K10d/K10j: the largest group-scaled
+        error against float64, with the groups' checks), times and bound
+        at the culled step's shapes; the forwards' at the render --stl
+        512^2 frame's beside them (S = 1 and S = 16)."""
+        t = rtm_k["stl_step_512"]
+        entry = dict(name=f"soft_rt_{part}_masked", route="cuda",
+                     source="raytpu_torch/csrc/soft_raytrace.cu",
+                     replaces=replaces, launches=launches,
+                     max_abs_err=srtm_err[key], ms=t[part],
+                     plain_ms=t[f"{part}_plain"],
+                     bound_ms=t["bounds"][part][0],
+                     bound_by=t["bounds"][part][1], library_ms=None)
+        for case in ("render_stl_512", "render_stl_512_s16"):
+            f = rtm_k[case]
+            if part in f:
+                entry[case] = dict(ms=f[part], plain_ms=f[f"{part}_plain"],
+                                   bound_ms=f["bounds"][part][0],
+                                   bound_by=f["bounds"][part][1])
+        if key in srtm_checks:
+            entry["checks"] = srtm_checks[key]
         return entry
 
     def stl_entry(name: str, key: str, case: str, launches: int,
@@ -3290,6 +3707,14 @@ def main() -> int:
                   "k7a_render_stl_500_s1", stl_serve[k7an],
                   replaces="raytpu/kernels/intersect_pallas.py:632",
                   s32=stl_k["k7a_render_stl_500_s32"]),
+        k10m_entry("pri_fwd", "k10b", rtm_serve[k10b],
+                   replaces="raytpu/kernels/soft_raytrace_pallas.py:276"),
+        k10m_entry("pri_bwd", "k10d", rtm_train[k10d],
+                   replaces="raytpu/kernels/soft_raytrace_pallas.py:390"),
+        k10m_entry("shw_fwd", "k10h", rtm_serve[k10h],
+                   replaces="raytpu/kernels/soft_raytrace_pallas.py:945"),
+        k10m_entry("shw_bwd", "k10j", rtm_train[k10j],
+                   replaces="raytpu/kernels/soft_raytrace_pallas.py:1031"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

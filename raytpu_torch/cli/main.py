@@ -14,10 +14,11 @@ raytraces an ASCII STL model in parity and clean from the STL camera
 (0, -0.5, -5) at focal 250, its triangles in file order (``--morton``
 sorts them), through the chunk-culled intersection kernel K7a.
 ``render --mode soft`` and ``fit --renderer raytrace`` run the soft
-raytracer; ``render --mode soft --stl`` runs it where the JAX package would
-not cull (the CLI's 500^2) and raises naming ROADMAP.md port item 6c where
-it would. ``fit --mesh`` raises NotImplementedError naming ROADMAP.md port
-item 8.
+raytracer; ``render --mode soft --stl`` culls chunks where the JAX package
+would (an image that blocks into its 1,024-pixel tiles, such as 512^2:
+the masked kernels K10b and K10h) and runs every chunk where it would not
+(the CLI's 500^2). ``fit --mesh`` raises NotImplementedError naming
+ROADMAP.md port item 8.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ path and the CUDA kernels round alike.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Literal
 
@@ -52,6 +53,48 @@ def matmul3(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     right in float32: the same bits on every device (a library matmul may
     fuse or reorder its products)."""
     return (a[..., 0:1] * m[0] + a[..., 1:2] * m[1]) + a[..., 2:3] * m[2]
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Library matmuls in full float32 inside the block: TF32 (10 mantissa
+    bits) off, and the caller's setting restored on the way out."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+class _MatMulF32(torch.autograd.Function):
+    """``torch.matmul`` under full_float32, its backward too: the backward
+    runs after the forward's block has restored the caller's flag, so it
+    redoes the product under its own and takes autograd's gradients of it
+    (the same library calls on the same layouts as a plain matmul's)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with full_float32():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        want = [t.detach().requires_grad_(need)
+                for t, need in zip((a, b), ctx.needs_input_grad)]
+        with torch.enable_grad(), full_float32():
+            out = torch.matmul(*want)
+            got = iter(torch.autograd.grad(
+                out, [t for t in want if t.requires_grad], g))
+        return tuple(next(got) if t.requires_grad else None for t in want)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full float32, forward and backward, whatever the
+    caller's TF32 setting, which it leaves as it found it."""
+    return _MatMulF32.apply(a, b)
 
 
 def pixel_grid(height: int, width: int, device):

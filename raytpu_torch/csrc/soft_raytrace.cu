@@ -1,12 +1,16 @@
-// The soft (differentiable) raytracer for Hopper (sm_90a): K10a, K10c,
-// K10g and K10i, unmasked.
+// The soft (differentiable) raytracer for Hopper (sm_90a): K10a-K10d and
+// K10g-K10j, unmasked and masked.
 //
-// K10a, soft_rt_pri_fwd_kernel, replaces
-// raytpu/kernels/soft_raytrace_pallas.py::_pri_fwd_kernel; K10c,
-// soft_rt_pri_bwd_kernel and the fixed-order sums sum_groups_kernel,
-// replaces _pri_bwd_fused_kernel; K10g, soft_rt_shw_fwd_kernel, replaces
-// _shw_fwd_kernel; K10i, soft_rt_shw_bwd_kernel and the same sums, replaces
-// _shw_bwd_fused_kernel.
+// K10a, soft_rt_pri_fwd_kernel<false>, replaces
+// raytpu/kernels/soft_raytrace_pallas.py::_pri_fwd_kernel and K10b,
+// soft_rt_pri_fwd_kernel<true>, ::_pri_fwd_kernel_masked; K10c,
+// soft_rt_pri_bwd_kernel<false> and the fixed-order sums sum_groups_kernel,
+// replaces _pri_bwd_fused_kernel and K10d, soft_rt_pri_bwd_kernel<true> and
+// the same sums, _pri_bwd_fused_kernel_masked; K10g,
+// soft_rt_shw_fwd_kernel<false>, replaces _shw_fwd_kernel and K10h, <true>,
+// _shw_fwd_kernel_masked; K10i, soft_rt_shw_bwd_kernel<false> and the sums,
+// replaces _shw_bwd_fused_kernel and K10j, <true>,
+// _shw_bwd_fused_kernel_masked.
 //
 // What they compute. Primary: for every ray r (direction d, from the
 // camera position g) and every row of the (Tp, 32) float32 table of
@@ -59,6 +63,19 @@
 // sources' gradients take the same two steps. No floating-point atomics:
 // two calls give the same bits.
 //
+// The masked kernels (K10b, K10d, K10h, K10j) take a keep-mask over the
+// port's ray tiles (kernels/intersect.py::ray_tiles: th x 256 / th pixel
+// blocks of the H x W image, 16 x 16 for a frame, row-major over the tiles)
+// in place of runs of 256 consecutive rays: a block (or, backward, each turn
+// of a block's loop) takes one tile, reads the tile's keep bit for each
+// chunk, the same for every thread, and skips a dropped chunk before staging
+// it, leaving the carry (m, s, acc), or od, as it was, and adding nothing to
+// any gradient, as JAX's pl.when(keep) does. Slots of a tile past the
+// image's edge hold no ray: they read nothing, write nothing and add nothing.
+// The primary mask is (n_tiles, n_chunks), the shadow mask (n_tiles, S,
+// n_chunks), int32. A masked kernel with every bit set computes what its
+// unmasked twin does, in the same order, for each ray.
+//
 // Bound on the H100: ~50-70 float operations and 4-6 exp/log/sqrt/divides
 // a (ray, row) pair forward, 3-4x that backward, against ~40 B a ray and
 // the table: bound by operations (chip_smoke.py counts them on its inputs).
@@ -109,6 +126,38 @@ __device__ __forceinline__ void cross3(const float* a, const float* b,
   out[0] = a[1] * b[2] - a[2] * b[1];
   out[1] = a[2] * b[0] - a[0] * b[2];
   out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// The ray of this thread in tile `tile` and whether it is one: the tile's
+// slots are rays tile * 256 + threadIdx.x of R (unmasked), or a th x
+// (256 / th) block of the H x W grid, row-major over the blocks (masked).
+struct TileRay {
+  int r;
+  bool live;
+};
+
+template <bool kMasked>
+__device__ __forceinline__ TileRay tile_ray(int tile, int R, int H, int W,
+                                            int th) {
+  if (!kMasked) {
+    const int r = tile * kThreads + threadIdx.x;
+    return {r, r < R};
+  }
+  const int tw = kThreads / th;
+  const int tiles_x = (W + tw - 1) / tw;
+  const int y = (tile / tiles_x) * th + threadIdx.x / tw;
+  const int x = (tile % tiles_x) * tw + threadIdx.x % tw;
+  const bool live = y < H && x < W;
+  return {live ? y * W + x : 0, live};
+}
+
+// Zeroes a block's partial rows of chunk ch (cols of them a row): a dropped
+// chunk on the block's first turn, whose later turns add to them. Each
+// entry is owned by the thread that adds to it.
+__device__ __forceinline__ void zero_rows(float* part, int ch, int chunk,
+                                          int cols) {
+  float* dst = part + static_cast<size_t>(ch) * chunk * cols;
+  for (int o = threadIdx.x; o < chunk * cols; o += kThreads) dst[o] = 0.0f;
 }
 
 // Stages chunk ch's rows (18 used columns) and their |n| and
@@ -177,16 +226,22 @@ __device__ __forceinline__ bool pri_logit(const float* c, const float* d,
   return true;
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
     soft_rt_pri_fwd_kernel(const float* __restrict__ consts, int n_chunks,
                            int chunk, const float* __restrict__ cam,
-                           const float* __restrict__ dirs, int R, float es,
-                           float zs, float* __restrict__ out,
+                           const float* __restrict__ dirs, int R,
+                           const int* __restrict__ mask, int H, int W,
+                           int th, float es, float zs,
+                           float* __restrict__ out,
                            float* __restrict__ m_out,
                            float* __restrict__ s_out) {
   __shared__ float s_c[kMaxChunk][kPriRow];
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = r < R;
+  const TileRay ray = tile_ray<kMasked>(blockIdx.x, R, H, W, th);
+  const int r = ray.r;
+  const bool live = ray.live;
+  const int* keep =
+      kMasked ? mask + static_cast<size_t>(blockIdx.x) * n_chunks : nullptr;
   float d[3] = {0.0f, 0.0f, 0.0f};
   if (live) {
 #pragma unroll
@@ -201,6 +256,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < 9; ++j) acc[j] = 0.0f;
 
   for (int ch = 0; ch < n_chunks; ++ch) {
+    if (kMasked && keep[ch] == 0) continue;  // the same bit for the block
     __syncthreads();  // every thread is done with the previous chunk
     load_pri_chunk(consts, ch, chunk, s_c);
     float logit[kMaxChunk], tt[kMaxChunk];
@@ -292,15 +348,23 @@ __device__ __forceinline__ ShadowRay shadow_ray(const float* w,
   return a;
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
     soft_rt_shw_fwd_kernel(const float* __restrict__ consts, int n_chunks,
                            int chunk, const float* __restrict__ srcs,
-                           const float* __restrict__ world, int R, float es,
-                           float zs, float* __restrict__ trans) {
+                           const float* __restrict__ world, int R,
+                           const int* __restrict__ mask, int H, int W,
+                           int th, float es, float zs,
+                           float* __restrict__ trans) {
   __shared__ float s_q[kMaxChunk][kShwRow];
-  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const TileRay ray = tile_ray<kMasked>(blockIdx.x, R, H, W, th);
+  const int r = ray.r;
   const int src = blockIdx.y;
-  const bool live = r < R;
+  const bool live = ray.live;
+  const int* keep =
+      kMasked ? mask + (static_cast<size_t>(blockIdx.x) * gridDim.y + src) *
+                           n_chunks
+              : nullptr;
   const float sp[3] = {srcs[3 * src], srcs[3 * src + 1], srcs[3 * src + 2]};
   float w[3] = {0.0f, 0.0f, 0.0f};
   if (live) {
@@ -310,6 +374,7 @@ __global__ void __launch_bounds__(kThreads)
   const ShadowRay a = shadow_ray(w, sp);
   float od = 0.0f;
   for (int ch = 0; ch < n_chunks; ++ch) {
+    if (kMasked && keep[ch] == 0) continue;  // the same bit for the block
     __syncthreads();
     load_shw_chunk(consts, ch, chunk, sp, s_q);
     float csum = 0.0f;
@@ -430,11 +495,14 @@ __device__ __forceinline__ bool pri_pair_bwd(const float* c, const float* d,
   return true;
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
     soft_rt_pri_bwd_kernel(const float* __restrict__ consts, int Tp,
                            int chunk, const float* __restrict__ cam,
-                           const float* __restrict__ dirs, int R, float es,
-                           float zs, const float* __restrict__ m,
+                           const float* __restrict__ dirs, int R,
+                           const int* __restrict__ mask, int H, int W,
+                           int th, int n_tiles, float es, float zs,
+                           const float* __restrict__ m,
                            const float* __restrict__ cot, int groups,
                            float* __restrict__ partials,
                            float* __restrict__ cam_partials,
@@ -444,14 +512,16 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float s_cam[kWarps][3];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int n_chunks = Tp / chunk;
-  const int n_tiles = (R + kThreads - 1) / kThreads;
   const float gp[3] = {cam[0], cam[1], cam[2]};
   float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kPriUsed;
   float gcam[3] = {0.0f, 0.0f, 0.0f};
   for (int tile = blockIdx.x; tile < n_tiles; tile += groups) {
     const bool first = tile == static_cast<int>(blockIdx.x);
-    const int r = tile * kThreads + tid;
-    const bool live = r < R;
+    const TileRay ray = tile_ray<kMasked>(tile, R, H, W, th);
+    const int r = ray.r;
+    const bool live = ray.live;
+    const int* keep =
+        kMasked ? mask + static_cast<size_t>(tile) * n_chunks : nullptr;
     float d[3] = {0.0f, 0.0f, 0.0f}, da[9];
     float mp = 0.0f, ds = 0.0f;
 #pragma unroll
@@ -469,6 +539,10 @@ __global__ void __launch_bounds__(kThreads)
     const float dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
     float dd[3] = {0.0f, 0.0f, 0.0f};
     for (int ch = 0; ch < n_chunks; ++ch) {
+      if (kMasked && keep[ch] == 0) {  // the same bit for the block
+        if (first) zero_rows(part, ch, chunk, kPriUsed);
+        continue;
+      }
       __syncthreads();  // s_c and s_red are free again
       load_pri_chunk(consts, ch, chunk, s_c);
       float ddc[3] = {0.0f, 0.0f, 0.0f}, ddn = 0.0f;
@@ -581,10 +655,13 @@ __device__ __forceinline__ bool shw_pair_bwd(const float* q, const float* dh,
   return true;
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
     soft_rt_shw_bwd_kernel(const float* __restrict__ consts, int Tp,
                            int chunk, const float* __restrict__ srcs, int S,
                            const float* __restrict__ world, int R,
+                           const int* __restrict__ mask, int H, int W,
+                           int th, int n_tiles,
                            const float* __restrict__ trans,
                            const float* __restrict__ gcot, float es, float zs,
                            int groups, float* __restrict__ partials,
@@ -595,13 +672,13 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float s_src[kWarps][3];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int n_chunks = Tp / chunk;
-  const int n_tiles = (R + kThreads - 1) / kThreads;
   float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kShwUsed;
   float* spart = src_partials + static_cast<size_t>(blockIdx.x) * S * 3;
   for (int tile = blockIdx.x; tile < n_tiles; tile += groups) {
     const bool first_tile = tile == static_cast<int>(blockIdx.x);
-    const int r = tile * kThreads + tid;
-    const bool live = r < R;
+    const TileRay ray = tile_ray<kMasked>(tile, R, H, W, th);
+    const int r = ray.r;
+    const bool live = ray.live;
     float w[3] = {0.0f, 0.0f, 0.0f};
     if (live) {
 #pragma unroll
@@ -621,7 +698,14 @@ __global__ void __launch_bounds__(kThreads)
       }
       const bool active = live && dl != 0.0f;
       float dws[3] = {0.0f, 0.0f, 0.0f}, dsrc[3] = {0.0f, 0.0f, 0.0f};
+      const int* keep =
+          kMasked ? mask + (static_cast<size_t>(tile) * S + src) * n_chunks
+                  : nullptr;
       for (int ch = 0; ch < n_chunks; ++ch) {
+        if (kMasked && keep[ch] == 0) {  // the same bit for the block
+          if (first) zero_rows(part, ch, chunk, kShwUsed);
+          continue;
+        }
         __syncthreads();  // s_q and s_red are free again
         load_shw_chunk(consts, ch, chunk, sp, s_q);
         float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;
@@ -726,50 +810,78 @@ bool bad_shape(int Tp, int chunk, int R) {
          R < 1;
 }
 
+// The blocks of 256 rays: tiles of the H x W grid where there is a mask
+// (0 for a grid that is not R rays or a th that does not divide 256), runs
+// of 256 consecutive rays where there is none.
+int ray_blocks(const void* mask, int R, int H, int W, int th) {
+  if (mask == nullptr) return (R + kThreads - 1) / kThreads;
+  if (H < 1 || W < 1 || static_cast<long long>(H) * W != R || th < 1 ||
+      th > kThreads || kThreads % th != 0) {
+    return 0;
+  }
+  const int tw = kThreads / th;
+  return ((H + th - 1) / th) * ((W + tw - 1) / tw);
+}
+
 }  // namespace
 
 // consts (Tp, 32) float32 device pointer in chunks of `chunk` <= 32 rows;
-// cam (3,), dirs (3, R) float32; out (9, R), m and s (R,) float32 outputs.
-// Launches K10a on `stream` and returns the launch's cudaError_t.
+// cam (3,), dirs (3, R) float32; mask null (K10a) or the (n_tiles,
+// n_chunks) int32 keep-mask over the tiles of th x (256 / th) rays of the
+// H x W grid of the R rays (K10b); out (9, R), m and s (R,) float32
+// outputs. Launches the kernel on `stream` and returns the launch's
+// cudaError_t.
 extern "C" int raytpu_soft_rt_pri_fwd(const void* consts, int Tp, int chunk,
                                       const void* cam, const void* dirs,
-                                      int R, float es, float zs, void* out,
+                                      int R, const void* mask, int H, int W,
+                                      int th, float es, float zs, void* out,
                                       void* m, void* s, void* stream) {
-  if (bad_shape(Tp, chunk, R)) return (int)cudaErrorInvalidValue;
-  soft_rt_pri_fwd_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = ray_blocks(mask, R, H, W, th);
+  if (bad_shape(Tp, chunk, R) || blocks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = mask ? soft_rt_pri_fwd_kernel<true>
+                     : soft_rt_pri_fwd_kernel<false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(consts), Tp / chunk, chunk,
-      static_cast<const float*>(cam), static_cast<const float*>(dirs), R, es,
-      zs, static_cast<float*>(out), static_cast<float*>(m),
+      static_cast<const float*>(cam), static_cast<const float*>(dirs), R,
+      static_cast<const int*>(mask), H, W, th, es, zs,
+      static_cast<float*>(out), static_cast<float*>(m),
       static_cast<float*>(s));
   return (int)cudaGetLastError();
 }
 
-// consts, cam and dirs as for raytpu_soft_rt_pri_fwd; m (R,) and cot
-// (10, R) float32; partials (groups, Tp, 18) and cam_partials (groups, 3)
-// float32 scratch, 1 <= groups <= the blocks of 256 rays (every block
-// takes one at least); dc (Tp, 32), dcam (3,) and dd (3, R) float32
-// outputs, every entry written. Launches K10c and the sums over groups on
-// `stream`; returns the first cudaError_t.
+// consts, cam, dirs and mask (K10c without, K10d with) as for
+// raytpu_soft_rt_pri_fwd; m (R,) and cot (10, R) float32; partials
+// (groups, Tp, 18) and cam_partials (groups, 3) float32 scratch, 1 <=
+// groups <= the blocks of 256 rays (every block takes one at least); dc
+// (Tp, 32), dcam (3,) and dd (3, R) float32 outputs, every entry written.
+// Launches the kernel and the sums over groups on `stream`; returns the
+// first cudaError_t.
 extern "C" int raytpu_soft_rt_pri_bwd(const void* consts, int Tp, int chunk,
                                       const void* cam, const void* dirs,
-                                      int R, float es, float zs,
+                                      int R, const void* mask, int H, int W,
+                                      int th, float es, float zs,
                                       const void* m, const void* cot,
                                       int groups, void* partials,
                                       void* cam_partials, void* dc,
                                       void* dcam, void* dd, void* stream) {
-  if (bad_shape(Tp, chunk, R) || groups < 1 ||
-      groups > (R + kThreads - 1) / kThreads) {
+  const int n_tiles = ray_blocks(mask, R, H, W, th);
+  if (bad_shape(Tp, chunk, R) || n_tiles < 1 || groups < 1 ||
+      groups > n_tiles) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
   float* cpart = static_cast<float*>(cam_partials);
-  soft_rt_pri_bwd_kernel<<<groups, kThreads, 0, st>>>(
+  auto kernel = mask ? soft_rt_pri_bwd_kernel<true>
+                     : soft_rt_pri_bwd_kernel<false>;
+  kernel<<<groups, kThreads, 0, st>>>(
       static_cast<const float*>(consts), Tp, chunk,
-      static_cast<const float*>(cam), static_cast<const float*>(dirs), R, es,
-      zs, static_cast<const float*>(m), static_cast<const float*>(cot),
-      groups, part, cpart, static_cast<float*>(dd));
+      static_cast<const float*>(cam), static_cast<const float*>(dirs), R,
+      static_cast<const int*>(mask), H, W, th, n_tiles, es, zs,
+      static_cast<const float*>(m), static_cast<const float*>(cot), groups,
+      part, cpart, static_cast<float*>(dd));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = sum_groups(part, groups, Tp, kPriUsed, kPriCols,
@@ -780,49 +892,62 @@ extern "C" int raytpu_soft_rt_pri_bwd(const void* consts, int Tp, int chunk,
 }
 
 // consts (Tp, 16) float32 in chunks of `chunk` <= 32 rows; srcs (S, 3),
-// world (3, R) float32; trans (S, R) float32 output. Launches K10g on
-// `stream` and returns the launch's cudaError_t.
+// world (3, R) float32; mask null (K10g) or the (n_tiles, S, n_chunks)
+// int32 keep-mask over the tiles of the H x W grid (K10h); trans (S, R)
+// float32 output. Launches the kernel on `stream` and returns the launch's
+// cudaError_t.
 extern "C" int raytpu_soft_rt_shw_fwd(const void* consts, int Tp, int chunk,
                                       const void* srcs, int S,
-                                      const void* world, int R, float es,
-                                      float zs, void* trans, void* stream) {
-  if (bad_shape(Tp, chunk, R) || S < 1 || S > 65535) {
+                                      const void* world, int R,
+                                      const void* mask, int H, int W, int th,
+                                      float es, float zs, void* trans,
+                                      void* stream) {
+  const int blocks = ray_blocks(mask, R, H, W, th);
+  if (bad_shape(Tp, chunk, R) || blocks < 1 || S < 1 || S > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((R + kThreads - 1) / kThreads, S);
-  soft_rt_shw_fwd_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = mask ? soft_rt_shw_fwd_kernel<true>
+                     : soft_rt_shw_fwd_kernel<false>;
+  kernel<<<dim3(blocks, S), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(consts), Tp / chunk, chunk,
       static_cast<const float*>(srcs), static_cast<const float*>(world), R,
-      es, zs, static_cast<float*>(trans));
+      static_cast<const int*>(mask), H, W, th, es, zs,
+      static_cast<float*>(trans));
   return (int)cudaGetLastError();
 }
 
-// consts, srcs and world as for raytpu_soft_rt_shw_fwd; trans and gcot
-// (S, R) float32; partials (groups, Tp, 14) and src_partials (groups, S, 3)
-// float32 scratch, groups as for raytpu_soft_rt_pri_bwd; dc (Tp, 16), dsrc
-// (S, 3) and dw (3, R) float32 outputs, every entry written. Launches K10i
-// and the sums over groups on `stream`; returns the first cudaError_t.
+// consts, srcs, world and mask (K10i without, K10j with) as for
+// raytpu_soft_rt_shw_fwd; trans and gcot (S, R) float32; partials (groups,
+// Tp, 14) and src_partials (groups, S, 3) float32 scratch, groups as for
+// raytpu_soft_rt_pri_bwd; dc (Tp, 16), dsrc (S, 3) and dw (3, R) float32
+// outputs, every entry written. Launches the kernel and the sums over
+// groups on `stream`; returns the first cudaError_t.
 extern "C" int raytpu_soft_rt_shw_bwd(const void* consts, int Tp, int chunk,
                                       const void* srcs, int S,
                                       const void* world, int R,
+                                      const void* mask, int H, int W, int th,
                                       const void* trans, const void* gcot,
                                       float es, float zs, int groups,
                                       void* partials, void* src_partials,
                                       void* dc, void* dsrc, void* dw,
                                       void* stream) {
-  if (bad_shape(Tp, chunk, R) || S < 1 || groups < 1 ||
-      groups > (R + kThreads - 1) / kThreads) {
+  const int n_tiles = ray_blocks(mask, R, H, W, th);
+  if (bad_shape(Tp, chunk, R) || n_tiles < 1 || S < 1 || groups < 1 ||
+      groups > n_tiles) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
   float* spart = static_cast<float*>(src_partials);
-  soft_rt_shw_bwd_kernel<<<groups, kThreads, 0, st>>>(
+  auto kernel = mask ? soft_rt_shw_bwd_kernel<true>
+                     : soft_rt_shw_bwd_kernel<false>;
+  kernel<<<groups, kThreads, 0, st>>>(
       static_cast<const float*>(consts), Tp, chunk,
       static_cast<const float*>(srcs), S, static_cast<const float*>(world),
-      R, static_cast<const float*>(trans), static_cast<const float*>(gcot),
-      es, zs, groups, part, spart, static_cast<float*>(dw));
+      R, static_cast<const int*>(mask), H, W, th, n_tiles,
+      static_cast<const float*>(trans), static_cast<const float*>(gcot), es,
+      zs, groups, part, spart, static_cast<float*>(dw));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = sum_groups(part, groups, Tp, kShwUsed, kShwCols,

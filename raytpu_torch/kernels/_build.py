@@ -65,19 +65,23 @@ SIGNATURES = {
     # partials, dc, stream
     "raytpu_soft_raster_bwd": [_P, _I, _I, _P, _I, _I, _F, _F, _P, _P, _I,
                                _P, _P, _P],
-    # consts, Tp, chunk, cam, dirs, R, es, zs, out, m, s, stream
-    "raytpu_soft_rt_pri_fwd": [_P, _I, _I, _P, _P, _I, _F, _F, _P, _P, _P,
-                               _P],
-    # consts, Tp, chunk, cam, dirs, R, es, zs, m, cot, groups, partials,
-    # cam_partials, dc, dcam, dd, stream
-    "raytpu_soft_rt_pri_bwd": [_P, _I, _I, _P, _P, _I, _F, _F, _P, _P, _I,
-                               _P, _P, _P, _P, _P, _P],
-    # consts, Tp, chunk, srcs, S, world, R, es, zs, trans, stream
-    "raytpu_soft_rt_shw_fwd": [_P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P],
-    # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs, groups,
-    # partials, src_partials, dc, dsrc, dw, stream
-    "raytpu_soft_rt_shw_bwd": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _F, _F,
-                               _I, _P, _P, _P, _P, _P, _P],
+    # consts, Tp, chunk, cam, dirs, R, mask (or null), H, W, th, es, zs,
+    # out, m, s, stream
+    "raytpu_soft_rt_pri_fwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
+                               _F, _P, _P, _P, _P],
+    # consts, Tp, chunk, cam, dirs, R, mask (or null), H, W, th, es, zs, m,
+    # cot, groups, partials, cam_partials, dc, dcam, dd, stream
+    "raytpu_soft_rt_pri_bwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
+                               _F, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    # consts, Tp, chunk, srcs, S, world, R, mask (or null), H, W, th, es,
+    # zs, trans, stream
+    "raytpu_soft_rt_shw_fwd": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                               _F, _F, _P, _P],
+    # consts, Tp, chunk, srcs, S, world, R, mask (or null), H, W, th,
+    # trans, gcot, es, zs, groups, partials, src_partials, dc, dsrc, dw,
+    # stream
+    "raytpu_soft_rt_shw_bwd": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                               _P, _P, _F, _F, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytpu_torch.core.types import dot3
+from raytpu_torch.core.types import dot3, full_float32
 
 # The JAX package's Python-float constants, rounded to float32 as its weak
 # typing rounds them where they meet a float32 array.
@@ -188,9 +188,9 @@ def shadow_keep_mask(primary_keep, centers, radii, src_pos) -> torch.Tensor:
             & valid_j & valid_c)                          # (S, Cj, Cc)
     # keep[i, s, c] = OR_j primary_keep[i, j] & pair[s, j, c], as a product
     # of 0/1 values in full float32 (TF32 would be exact too).
-    torch.backends.cuda.matmul.allow_tf32 = False
     pk = primary_keep.to(torch.float32)
-    hits = torch.matmul(pk, pair.to(torch.float32).reshape(S, C, C))
+    with full_float32():
+        hits = torch.matmul(pk, pair.to(torch.float32).reshape(S, C, C))
     return (hits > 0.0).to(torch.int32).permute(1, 0, 2).contiguous()
 
 

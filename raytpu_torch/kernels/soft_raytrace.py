@@ -1,5 +1,5 @@
 """The soft (differentiable) raytracer's kernels (counterpart of
-raytpu/kernels/soft_raytrace_pallas.py, unmasked).
+raytpu/kernels/soft_raytrace_pallas.py).
 
 Primary: per ray, a softmax over every triangle's logit
 ``zs * zinv + log_sigmoid(es * margin) + log(active + 1e-20)`` and a
@@ -14,20 +14,33 @@ triangles come as the (Tp, 32) and (Tp, 16) tables of
 primary's online softmax: a chunk's max, one rescale of the carry, then the
 chunk's sums).
 
-  primary_agg_fwd   K10a's wrapper: out (9, R), m, s.
-  primary_agg_bwd   K10c's: d consts, d camera position, d dirs from the
-                    saved m and the 10 cotangent rows of ``primary_cot``.
-  shadow_trans_fwd  K10g's: trans (S, R).
-  shadow_trans_bwd  K10i's: d consts, d sources, d world points.
+  primary_agg_fwd   K10a's wrapper (K10b's with a mask): out (9, R), m, s.
+  primary_agg_bwd   K10c's (K10d's): d consts, d camera position, d dirs
+                    from the saved m and the 10 cotangent rows of
+                    ``primary_cot``.
+  shadow_trans_fwd  K10g's (K10h's): trans (S, R).
+  shadow_trans_bwd  K10i's (K10j's): d consts, d sources, d world points.
   *_reference       their plain PyTorch versions.
   PrimaryAgg, ShadowTrans   the torch.autograd.Functions around them
                     (``_primary_agg``, ``_shadow_trans``).
-  raytrace_soft_kernel      ``raytrace_soft_pallas``: the whole soft frame.
+  chunk_cull_bounds, inflate, soft_rt_keep_mask, soft_rt_shadow_mask
+                    the culled frame's keep-masks (``_chunk_cull_bounds``,
+                    ``_inflate``, ``soft_rt_keep_mask``,
+                    ``soft_rt_shadow_mask``).
 
 On CUDA tensors the wrappers launch the hand-written kernels
 (raytpu_torch/csrc/soft_raytrace.cu); on CPU tensors they run the plain
-versions. Where JAX would cull chunks (the masked kernels K10b/d/h/j) the
-frame raises NotImplementedError: ROADMAP.md port item 6c.
+versions. The frame that assembles them is render/soft.py::raytrace_soft.
+
+Culling. Given a keep-mask and the ray tiles it was made on
+(kernels/intersect.py::ray_tiles: the port's 16 x 16 pixel tiles, not
+JAX's 1,024 swizzled pixels), the masked versions skip every (tile, chunk)
+pair, or (tile, source, chunk) triple, the mask drops: a dropped chunk
+leaves a ray's carry (m, s, acc), or od, exactly as it was, and gives its
+pairs exactly zero gradient, as JAX's masked kernels do. The masks bound
+what they drop to e^-46 of the background's weight (primary) or an
+optical depth of e^-46 (shadow), so a culled frame and a brute one differ
+by terms of that size; the masks carry no gradient.
 
 The JAX kernels also take a (1, 16) globals row and the (L, 8) lights
 table. ``_primary_terms`` reads only the globals' first three entries, the
@@ -51,15 +64,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytpu_torch.core.types import cross, dot3, pixel_grid
+from raytpu_torch.core.types import cross, dot3
 from raytpu_torch.kernels import _build
+from raytpu_torch.kernels.cull import (
+    _norm,
+    _sqrt,
+    chunk_spheres,
+    keep_mask,
+    position_shadow_mask,
+    tile_cones,
+)
+from raytpu_torch.kernels.intersect import RayTiles
 from raytpu_torch.kernels.raster import _route
 from raytpu_torch.kernels.soft_raster import (
     Kinks,
     _sqrt_f32,
     log_sigmoid,
     minimum,
-    use_cull,
 )
 
 # Launches of each CUDA kernel in this process, counted by its wrapper where
@@ -69,6 +90,10 @@ LAUNCHES_SRT_PRI_FWD = 0  # K10a, by primary_agg_fwd
 LAUNCHES_SRT_PRI_BWD = 0  # K10c, by primary_agg_bwd
 LAUNCHES_SRT_SHW_FWD = 0  # K10g, by shadow_trans_fwd
 LAUNCHES_SRT_SHW_BWD = 0  # K10i, by shadow_trans_bwd
+LAUNCHES_SRT_PRI_FWD_MASKED = 0  # K10b, by primary_agg_fwd with a mask
+LAUNCHES_SRT_PRI_BWD_MASKED = 0  # K10d, by primary_agg_bwd with a mask
+LAUNCHES_SRT_SHW_FWD_MASKED = 0  # K10h, by shadow_trans_fwd with a mask
+LAUNCHES_SRT_SHW_BWD_MASKED = 0  # K10j, by shadow_trans_bwd with a mask
 
 PRI_COLS = 32
 SHW_COLS = 16
@@ -93,6 +118,12 @@ THREADS = 256
 # per-block table partials in all.
 BWD_BLOCKS = 132 * 8
 PARTIAL_BYTES = 256 << 20
+# The JAX package's cull constants (soft_raytrace_pallas.py:1374, 1454-1455,
+# 1479-1483), copied: a dropped pair's weight is at most e^-CULL_MARGIN of
+# the background's; the slacks, float32 where they meet a float32 array.
+CULL_MARGIN = 46.0
+_CULL_REL = float(np.float32(1.05))
+_CULL_ABS = float(np.float32(1e-3))
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +285,75 @@ def shadow_terms(cs, src, wx, wy, wz, es: float, zs: float,
 
 
 # ---------------------------------------------------------------------------
+# Keep-masks of the culled frame
+# ---------------------------------------------------------------------------
+
+def chunk_cull_bounds(v0, v1, v2, chunk: int):
+    """Bounding sphere and longest edge of each chunk of ``chunk`` rows
+    over the rows that carry coverage, those of a nonzero plane normal
+    (``_chunk_cull_bounds``; inactive rows carry e^-46-relative coverage,
+    so they count). Returns (centers (n_chunks, 3), radii (n_chunks,),
+    emax (n_chunks,)); radius -1 marks a chunk of degenerate rows only."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = cross(e1, e2)
+    used = (dot3(n, n) > 0.0).to(torch.float32)
+    centers, radii = chunk_spheres(v0, v1, v2, used, chunk)
+    e3 = v2 - v1
+    elen2 = torch.maximum(torch.maximum(dot3(e1, e1), dot3(e2, e2)),
+                          dot3(e3, e3))
+    pad = (-elen2.shape[0]) % chunk
+    if pad:
+        elen2 = torch.cat([elen2, elen2.new_zeros(pad)])
+        used = torch.cat([used, used.new_zeros(pad)])
+    elen2 = torch.where(used > 0.0, elen2, 0.0)
+    emax = _sqrt(elen2.reshape(-1, chunk).amax(dim=1))
+    return centers, radii, emax
+
+
+def inflate(radii, delta):
+    """Chunk radii grown by delta; an empty chunk (-1) stays empty."""
+    return torch.where(radii >= 0.0, radii + delta, -1.0)
+
+
+def soft_rt_keep_mask(dirs, origin, v0, v1, v2, es: float, zs: float,
+                      t_near: float, tile_r: int, chunk: int):
+    """(n_tiles, n_chunks) int32 keep-mask of the primary kernels
+    (``soft_rt_keep_mask``): a chunk is dropped for a tile of ``tile_r``
+    consecutive directions of dirs (R, 3) from ``origin`` where every ray
+    clears its sphere inflated by 2 E (46 + zs / max(d_c - r_c, t_near)) /
+    es (1.05 relative and 1e-3 absolute slack), which bounds each of its
+    logits to 46 below the background's. Pad a tile with a real ray."""
+    centers, radii, emax = chunk_cull_bounds(v0, v1, v2, chunk)
+    d_c = _norm(centers - origin[None, :])
+    zinv_max = 1.0 / torch.clamp_min(d_c - torch.clamp_min(radii, 0.0),
+                                     float(np.float32(t_near)))
+    delta = ((2.0 * emax / float(np.float32(es)))
+             * (CULL_MARGIN + float(np.float32(zs)) * zinv_max) * _CULL_REL
+             + _CULL_ABS)
+    axes, cos_half = tile_cones(dirs, tile_r)
+    keep = keep_mask(origin, axes, cos_half, centers,
+                     inflate(radii, delta)) != 0
+    return (keep & (radii >= 0.0)[None, :]).to(torch.int32)
+
+
+def soft_rt_shadow_mask(world, src_pos, v0, v1, v2, es: float, zs: float,
+                        tile_r: int, chunk: int):
+    """(n_tiles, S, n_chunks) int32 keep-mask of the shadow kernels
+    (``soft_rt_shadow_mask``): kernels/cull.py::position_shadow_mask of the
+    tiles of ``tile_r`` consecutive points of world (R, 3), the aggregated
+    hit positions, toward src_pos (S, 3), the chunk radii inflated by
+    2 E 46 / es and the range cap extended by 46 / zs (each with the
+    slacks), which bounds a dropped triple's optical depth to e^-46."""
+    centers, radii, emax = chunk_cull_bounds(v0, v1, v2, chunk)
+    delta = ((2.0 * emax / float(np.float32(es))) * CULL_MARGIN * _CULL_REL
+             + _CULL_ABS)
+    return position_shadow_mask(world, src_pos, centers,
+                                inflate(radii, delta), tile_r,
+                                range_pad=CULL_MARGIN / zs * 1.05 + 1e-3)
+
+
+# ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
@@ -261,25 +361,43 @@ def _chunks(Tp: int, chunk: int):
     return [slice(c * chunk, (c + 1) * chunk) for c in range(Tp // chunk)]
 
 
+_ALL = slice(None)
+
+
+def _kept(mask, tiles: RayTiles | None, c: int, s: int | None = None):
+    """The rays whose tile keeps chunk c (of source s, for a shadow mask):
+    an index tensor, or every ray where there is no mask."""
+    if mask is None:
+        return _ALL
+    col = mask[tiles.tile, c] if s is None else mask[tiles.tile, s, c]
+    return torch.nonzero(col).squeeze(1)
+
+
 def primary_agg_reference(consts, cam, dirs, es: float, zs: float,
-                          chunk: int):
-    """Plain PyTorch version of K10a, on any device and in any float type:
-    consts (Tp, 32) in chunks of ``chunk`` rows, cam (3,), dirs (3, R).
-    From the background hypothesis (m = 0, s = 1, acc = 0), chunk by chunk
-    as ``_pri_fwd_kernel``. Returns out (9, R) = acc / s, m (R,), s (R,)."""
-    dx, dy, dz = dirs[0:1], dirs[1:2], dirs[2:3]
+                          chunk: int, mask=None, tiles: RayTiles = None):
+    """Plain PyTorch version of K10a (K10b with a mask), on any device and
+    in any float type: consts (Tp, 32) in chunks of ``chunk`` rows, cam
+    (3,), dirs (3, R). From the background hypothesis (m = 0, s = 1,
+    acc = 0), chunk by chunk as ``_pri_fwd_kernel``; with mask (n_tiles,
+    n_chunks) over ``tiles``, each chunk on the rays whose tile keeps it.
+    Returns out (9, R) = acc / s, m (R,), s (R,)."""
     R = dirs.shape[1]
     m = dirs.new_zeros(R)
     s = dirs.new_ones(R)
     acc = dirs.new_zeros(N_OUT, R)
-    for rows in _chunks(consts.shape[0], chunk):
-        logit, vals = primary_terms(consts[rows], cam, dx, dy, dz, es, zs)
-        m_new = torch.maximum(m, logit.max(dim=0).values)
-        scale = torch.exp(m - m_new)
+    for c, rows in enumerate(_chunks(consts.shape[0], chunk)):
+        keep = _kept(mask, tiles, c)
+        d = dirs[:, keep]
+        logit, vals = primary_terms(consts[rows], cam, d[0:1], d[1:2],
+                                    d[2:3], es, zs)
+        m_old = m[keep]
+        m_new = torch.maximum(m_old, logit.max(dim=0).values)
+        scale = torch.exp(m_old - m_new)
         w = torch.exp(logit - m_new)
-        m = m_new
-        s = s * scale + w.sum(dim=0)
-        acc = acc * scale + torch.stack([(w * v).sum(dim=0) for v in vals])
+        m[keep] = m_new
+        s[keep] = s[keep] * scale + w.sum(dim=0)
+        acc[:, keep] = acc[:, keep] * scale + torch.stack(
+            [(w * v).sum(dim=0) for v in vals])
     return acc * (1.0 / s), m, s
 
 
@@ -296,13 +414,15 @@ def _record(fn, args, kinks_wanted: bool):
 
 def primary_agg_bwd_reference(consts, cam, dirs, m, cot, es: float,
                               zs: float, chunk: int,
-                              f32_branches: bool = False):
-    """Plain PyTorch version of K10c, on any device and in any float type:
-    each chunk recomputed at the saved m (R,), a constant, and
-    differentiated by autograd against the cotangent rows cot (10, R) =
-    [d s, d acc_0..8] (``primary_cot``), as ``_pri_bwd_fused_kernel``'s
-    in-kernel ``jax.vjp`` does. Returns (d consts (Tp, 32), d cam (3,),
-    d dirs (3, R)).
+                              f32_branches: bool = False, mask=None,
+                              tiles: RayTiles = None):
+    """Plain PyTorch version of K10c (K10d with a mask), on any device and
+    in any float type: each chunk recomputed at the saved m (R,), a
+    constant, and differentiated by autograd against the cotangent rows
+    cot (10, R) = [d s, d acc_0..8] (``primary_cot``), as
+    ``_pri_bwd_fused_kernel``'s in-kernel ``jax.vjp`` does; with a mask,
+    on the rays whose tile keeps the chunk only (a dropped pair's gradient
+    is exactly 0). Returns (d consts (Tp, 32), d cam (3,), d dirs (3, R)).
 
     f32_branches: take the branch decisions (Kinks) of the inputs rounded
     to float32, for a float64 reference of the float32 kernel."""
@@ -310,50 +430,60 @@ def primary_agg_bwd_reference(consts, cam, dirs, m, cot, es: float,
     dcam = torch.zeros_like(cam)
     dd = torch.zeros_like(dirs)
     with torch.enable_grad():
-        for rows in _chunks(consts.shape[0], chunk):
+        for c, rows in enumerate(_chunks(consts.shape[0], chunk)):
+            keep = _kept(mask, tiles, c)
+            if mask is not None and keep.numel() == 0:
+                continue
             kinks = _record(
                 lambda cs, g, d, k: primary_terms(cs, g, d[0:1], d[1:2],
                                                   d[2:3], es, zs, k),
-                (consts[rows], cam, dirs), f32_branches)
+                (consts[rows], cam, dirs[:, keep]), f32_branches)
             cs = consts[rows].detach().requires_grad_()
             g = cam.detach().requires_grad_()
-            d = dirs.detach().requires_grad_()
+            d = dirs[:, keep].detach().requires_grad_()
             logit, vals = primary_terms(cs, g, d[0:1], d[1:2], d[2:3], es, zs,
                                         kinks)
-            w = torch.exp(logit - m)
+            w = torch.exp(logit - m[keep])
             outs = [w.sum(dim=0)] + [(w * v).sum(dim=0) for v in vals]
             gc, gg, gd = torch.autograd.grad(outs, (cs, g, d),
-                                             grad_outputs=list(cot))
+                                             grad_outputs=list(cot[:, keep]))
             dc[rows] = gc
             dcam = dcam + gg
-            dd = dd + gd
+            dd[:, keep] = dd[:, keep] + gd
     return dc, dcam, dd
 
 
 def shadow_trans_reference(consts, srcs, world, es: float, zs: float,
-                           chunk: int):
-    """Plain PyTorch version of K10g: consts (Tp, 16), srcs (S, 3), world
-    (3, R). The optical depth summed chunk by chunk, then
-    ``exp(-16 od)`` (``_shw_fwd_kernel``). Returns trans (S, R)."""
-    wx, wy, wz = world[0:1], world[1:2], world[2:3]
+                           chunk: int, mask=None, tiles: RayTiles = None):
+    """Plain PyTorch version of K10g (K10h with a mask): consts (Tp, 16),
+    srcs (S, 3), world (3, R). The optical depth summed chunk by chunk,
+    then ``exp(-16 od)`` (``_shw_fwd_kernel``); with mask (n_tiles, S,
+    n_chunks) over ``tiles``, each (source, chunk) on the points whose tile
+    keeps it, from od = 0. Returns trans (S, R)."""
     out = []
     for s in range(srcs.shape[0]):
         od = world.new_zeros(world.shape[1])
-        for rows in _chunks(consts.shape[0], chunk):
-            od = od + shadow_terms(consts[rows], srcs[s], wx, wy, wz, es,
-                                   zs).sum(dim=0)
+        for c, rows in enumerate(_chunks(consts.shape[0], chunk)):
+            keep = _kept(mask, tiles, c, s)
+            w = world[:, keep]
+            od[keep] = od[keep] + shadow_terms(
+                consts[rows], srcs[s], w[0:1], w[1:2], w[2:3], es,
+                zs).sum(dim=0)
         out.append(torch.exp(-OD_SCALE * od))
     return torch.stack(out)
 
 
 def shadow_trans_bwd_reference(consts, srcs, world, trans, gcot, es: float,
                                zs: float, chunk: int,
-                               f32_branches: bool = False):
-    """Plain PyTorch version of K10i: d od = gcot * (-16) * trans, each
-    (source, chunk) recomputed and differentiated by autograd, as
-    ``_shw_bwd_fused_kernel``'s ``jax.vjp``; d world summed over the sources
-    in order (``_shadow_bwd``). Returns (d consts (Tp, 16), d srcs (S, 3),
-    d world (3, R)). f32_branches as for primary_agg_bwd_reference."""
+                               f32_branches: bool = False, mask=None,
+                               tiles: RayTiles = None):
+    """Plain PyTorch version of K10i (K10j with a mask): d od = gcot *
+    (-16) * trans, each (source, chunk) recomputed and differentiated by
+    autograd, as ``_shw_bwd_fused_kernel``'s ``jax.vjp``, on the points
+    whose tile keeps it where there is a mask; d world summed over the
+    sources in order (``_shadow_bwd``). Returns (d consts (Tp, 16), d srcs
+    (S, 3), d world (3, R)). f32_branches as for
+    primary_agg_bwd_reference."""
     dc = torch.zeros_like(consts)
     dsrc = torch.zeros_like(srcs)
     dw = torch.zeros_like(world)
@@ -361,21 +491,24 @@ def shadow_trans_bwd_reference(consts, srcs, world, trans, gcot, es: float,
     with torch.enable_grad():
         for s in range(srcs.shape[0]):
             dws = torch.zeros_like(world)
-            for rows in _chunks(consts.shape[0], chunk):
+            for c, rows in enumerate(_chunks(consts.shape[0], chunk)):
+                keep = _kept(mask, tiles, c, s)
+                if mask is not None and keep.numel() == 0:
+                    continue
                 kinks = _record(
                     lambda cs, sr, w, k: shadow_terms(cs, sr, w[0:1], w[1:2],
                                                       w[2:3], es, zs, k),
-                    (consts[rows], srcs[s], world), f32_branches)
+                    (consts[rows], srcs[s], world[:, keep]), f32_branches)
                 cs = consts[rows].detach().requires_grad_()
                 sr = srcs[s].detach().requires_grad_()
-                w = world.detach().requires_grad_()
+                w = world[:, keep].detach().requires_grad_()
                 od = shadow_terms(cs, sr, w[0:1], w[1:2], w[2:3], es, zs,
                                   kinks).sum(dim=0)
                 gc, gs, gw = torch.autograd.grad(od, (cs, sr, w),
-                                                 grad_outputs=dlog[s])
+                                                 grad_outputs=dlog[s][keep])
                 dc[rows] = dc[rows] + gc
                 dsrc[s] = dsrc[s] + gs
-                dws = dws + gw
+                dws[:, keep] = dws[:, keep] + gw
             dw = dw + dws
     return dc, dsrc, dw
 
@@ -384,10 +517,11 @@ def shadow_trans_bwd_reference(consts, srcs, world, trans, gcot, es: float,
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.dtype != torch.float32 or tuple(t.shape) != shape or \
+def _check(name: str, t: torch.Tensor, shape: tuple, device,
+           dtype=torch.float32) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or \
             not t.is_contiguous() or t.device != device:
-        raise ValueError(f"{name}: expected a contiguous float32 {shape} "
+        raise ValueError(f"{name}: expected a contiguous {dtype} {shape} "
                          f"tensor on {device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
 
@@ -400,11 +534,26 @@ def _check_table(consts: torch.Tensor, cols: int, chunk: int) -> None:
                          f" got {chunk}")
 
 
+def _check_mask(mask, tiles: RayTiles, R: int, shape: tuple,
+                device) -> None:
+    """A keep-mask (n_tiles, *shape) int32 over tiles of R rays."""
+    if tiles.height * tiles.width != R:
+        raise ValueError(f"tiles of {tiles.height} x {tiles.width} rays for "
+                         f"{R} rays")
+    _check("mask", mask, (tiles.count, *shape), device, torch.int32)
+
+
 def bwd_groups(Tp: int, used: int, R: int) -> int:
     """The backward's blocks: one a block of THREADS rays at most, at most
     BWD_BLOCKS, and partials of at most PARTIAL_BYTES."""
     n_tiles = -(-R // THREADS)
     return max(1, min(n_tiles, BWD_BLOCKS, PARTIAL_BYTES // (Tp * used * 4)))
+
+
+def _groups(Tp: int, used: int, R: int, tiles: RayTiles | None) -> int:
+    """bwd_groups over the rays' blocks: R rays in runs of THREADS, or the
+    masked kernels' tiles."""
+    return bwd_groups(Tp, used, R if tiles is None else tiles.count * THREADS)
 
 
 def _stream() -> int:
@@ -416,82 +565,107 @@ def _raise(name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _tile_args(mask, tiles: RayTiles | None) -> tuple:
+    """The C entry points' (mask, H, W, th): null for the unmasked
+    kernels."""
+    if mask is None:
+        return None, 0, 0, 0
+    return mask.data_ptr(), tiles.height, tiles.width, tiles.th
+
+
 def launch_pri_fwd_kernel(consts, chunk: int, cam, dirs, es: float,
-                          zs: float, out, m, s) -> None:
-    """Launch K10a into the outputs the caller allocated. Checks nothing
-    and counts nothing; the wrapper does both."""
+                          zs: float, out, m, s, mask=None,
+                          tiles: RayTiles = None) -> None:
+    """Launch K10a (mask None) or K10b (mask (n_tiles, n_chunks) over
+    ``tiles``) into the outputs the caller allocated. Checks nothing and
+    counts nothing; the wrapper does both."""
     _raise("soft_rt_pri_fwd", _build.load().raytpu_soft_rt_pri_fwd(
         consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
-        dirs.data_ptr(), dirs.shape[1], es, zs, out.data_ptr(), m.data_ptr(),
-        s.data_ptr(), _stream()))
+        dirs.data_ptr(), dirs.shape[1], *_tile_args(mask, tiles), es, zs,
+        out.data_ptr(), m.data_ptr(), s.data_ptr(), _stream()))
 
 
 def launch_pri_bwd_kernel(consts, chunk: int, cam, dirs, es: float,
                           zs: float, m, cot, partials, cam_partials, dc,
-                          dcam, dd) -> None:
-    """Launch K10c and the sums of its partials (groups, Tp, 18) and
-    (groups, 3) into dc (Tp, 32), dcam (3,) and dd (3, R), all allocated by
-    the caller. Checks nothing and counts nothing."""
+                          dcam, dd, mask=None, tiles: RayTiles = None) -> None:
+    """Launch K10c (K10d with a mask) and the sums of its partials (groups,
+    Tp, 18) and (groups, 3) into dc (Tp, 32), dcam (3,) and dd (3, R), all
+    allocated by the caller. Checks nothing and counts nothing."""
     _raise("soft_rt_pri_bwd", _build.load().raytpu_soft_rt_pri_bwd(
         consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
-        dirs.data_ptr(), dirs.shape[1], es, zs, m.data_ptr(), cot.data_ptr(),
-        partials.shape[0], partials.data_ptr(), cam_partials.data_ptr(),
-        dc.data_ptr(), dcam.data_ptr(), dd.data_ptr(), _stream()))
+        dirs.data_ptr(), dirs.shape[1], *_tile_args(mask, tiles), es, zs,
+        m.data_ptr(), cot.data_ptr(), partials.shape[0], partials.data_ptr(),
+        cam_partials.data_ptr(), dc.data_ptr(), dcam.data_ptr(),
+        dd.data_ptr(), _stream()))
 
 
 def launch_shw_fwd_kernel(consts, chunk: int, srcs, world, es: float,
-                          zs: float, trans) -> None:
-    """Launch K10g into trans (S, R). Checks nothing and counts nothing."""
+                          zs: float, trans, mask=None,
+                          tiles: RayTiles = None) -> None:
+    """Launch K10g (K10h with a mask (n_tiles, S, n_chunks)) into trans
+    (S, R). Checks nothing and counts nothing."""
     _raise("soft_rt_shw_fwd", _build.load().raytpu_soft_rt_shw_fwd(
         consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
-        srcs.shape[0], world.data_ptr(), world.shape[1], es, zs,
-        trans.data_ptr(), _stream()))
+        srcs.shape[0], world.data_ptr(), world.shape[1],
+        *_tile_args(mask, tiles), es, zs, trans.data_ptr(), _stream()))
 
 
 def launch_shw_bwd_kernel(consts, chunk: int, srcs, world, trans, gcot,
                           es: float, zs: float, partials, src_partials, dc,
-                          dsrc, dw) -> None:
-    """Launch K10i and the sums of its partials (groups, Tp, 14) and
-    (groups, S, 3) into dc (Tp, 16), dsrc (S, 3) and dw (3, R). Checks
-    nothing and counts nothing."""
+                          dsrc, dw, mask=None, tiles: RayTiles = None) -> None:
+    """Launch K10i (K10j with a mask) and the sums of its partials (groups,
+    Tp, 14) and (groups, S, 3) into dc (Tp, 16), dsrc (S, 3) and dw (3, R).
+    Checks nothing and counts nothing."""
     _raise("soft_rt_shw_bwd", _build.load().raytpu_soft_rt_shw_bwd(
         consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
-        srcs.shape[0], world.data_ptr(), world.shape[1], trans.data_ptr(),
-        gcot.data_ptr(), es, zs, partials.shape[0], partials.data_ptr(),
-        src_partials.data_ptr(), dc.data_ptr(), dsrc.data_ptr(),
-        dw.data_ptr(), _stream()))
+        srcs.shape[0], world.data_ptr(), world.shape[1],
+        *_tile_args(mask, tiles), trans.data_ptr(), gcot.data_ptr(), es, zs,
+        partials.shape[0], partials.data_ptr(), src_partials.data_ptr(),
+        dc.data_ptr(), dsrc.data_ptr(), dw.data_ptr(), _stream()))
 
 
 def primary_agg_fwd(consts: torch.Tensor, cam: torch.Tensor,
-                    dirs: torch.Tensor, es: float, zs: float, chunk: int):
-    """K10a's wrapper: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. consts (Tp, 32) in chunks of ``chunk`` <= 32 rows, cam
-    (3,), dirs (3, R). Returns out (9, R), m (R,), s (R,)."""
-    global LAUNCHES_SRT_PRI_FWD
+                    dirs: torch.Tensor, es: float, zs: float, chunk: int,
+                    mask=None, tiles: RayTiles = None):
+    """K10a's wrapper, K10b's with a mask: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. consts (Tp, 32) in chunks
+    of ``chunk`` <= 32 rows, cam (3,), dirs (3, R); mask (n_tiles,
+    n_chunks) int32 over ``tiles``, the R rays' tiles. Returns out (9, R),
+    m (R,), s (R,)."""
+    global LAUNCHES_SRT_PRI_FWD, LAUNCHES_SRT_PRI_FWD_MASKED
     if not _route(consts):
-        return primary_agg_reference(consts, cam, dirs, es, zs, chunk)
+        return primary_agg_reference(consts, cam, dirs, es, zs, chunk, mask,
+                                     tiles)
     _check_table(consts, PRI_COLS, chunk)
     _check("cam", cam, (3,), consts.device)
     R = dirs.shape[1] if dirs.dim() == 2 else -1
     _check("dirs", dirs, (3, R), consts.device)
+    if mask is not None:
+        _check_mask(mask, tiles, R, (consts.shape[0] // chunk,),
+                    consts.device)
     out = dirs.new_empty((N_OUT, R))
     m, s = dirs.new_empty(R), dirs.new_empty(R)
     with torch.cuda.device(consts.device):
-        launch_pri_fwd_kernel(consts, chunk, cam, dirs, es, zs, out, m, s)
-    LAUNCHES_SRT_PRI_FWD += 1
+        launch_pri_fwd_kernel(consts, chunk, cam, dirs, es, zs, out, m, s,
+                              mask, tiles)
+    if mask is None:
+        LAUNCHES_SRT_PRI_FWD += 1
+    else:
+        LAUNCHES_SRT_PRI_FWD_MASKED += 1
     return out, m, s
 
 
 def primary_agg_bwd(consts, cam, dirs, m, cot, es: float, zs: float,
-                    chunk: int):
-    """K10c's wrapper: the CUDA kernels for CUDA tensors, the plain version
-    for CPU tensors. m (R,) the forward's saved max, cot (10, R) =
-    [d s, d acc_0..8]; the rest as primary_agg_fwd. Returns d consts (Tp,
-    32, zero in columns 18-31), d cam (3,) and d dirs (3, R)."""
-    global LAUNCHES_SRT_PRI_BWD
+                    chunk: int, mask=None, tiles: RayTiles = None):
+    """K10c's wrapper, K10d's with a mask: the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors. m (R,) the forward's saved
+    max, cot (10, R) = [d s, d acc_0..8]; the rest as primary_agg_fwd.
+    Returns d consts (Tp, 32, zero in columns 18-31), d cam (3,) and
+    d dirs (3, R)."""
+    global LAUNCHES_SRT_PRI_BWD, LAUNCHES_SRT_PRI_BWD_MASKED
     if not _route(consts):
         return primary_agg_bwd_reference(consts, cam, dirs, m, cot, es, zs,
-                                         chunk)
+                                         chunk, mask=mask, tiles=tiles)
     _check_table(consts, PRI_COLS, chunk)
     _check("cam", cam, (3,), consts.device)
     R = dirs.shape[1] if dirs.dim() == 2 else -1
@@ -499,49 +673,67 @@ def primary_agg_bwd(consts, cam, dirs, m, cot, es: float, zs: float,
     _check("m", m, (R,), consts.device)
     _check("cot", cot, (1 + N_OUT, R), consts.device)
     Tp = consts.shape[0]
-    groups = bwd_groups(Tp, PRI_USED, R)
+    if mask is not None:
+        _check_mask(mask, tiles, R, (Tp // chunk,), consts.device)
+    groups = _groups(Tp, PRI_USED, R, tiles if mask is not None else None)
     partials = consts.new_empty((groups, Tp, PRI_USED))
     cam_partials = consts.new_empty((groups, 3))
     dc, dcam, dd = (torch.empty_like(consts), torch.empty_like(cam),
                     torch.empty_like(dirs))
     with torch.cuda.device(consts.device):
         launch_pri_bwd_kernel(consts, chunk, cam, dirs, es, zs, m, cot,
-                              partials, cam_partials, dc, dcam, dd)
-    LAUNCHES_SRT_PRI_BWD += 1
+                              partials, cam_partials, dc, dcam, dd, mask,
+                              tiles)
+    if mask is None:
+        LAUNCHES_SRT_PRI_BWD += 1
+    else:
+        LAUNCHES_SRT_PRI_BWD_MASKED += 1
     return dc, dcam, dd
 
 
 def shadow_trans_fwd(consts: torch.Tensor, srcs: torch.Tensor,
                      world: torch.Tensor, es: float, zs: float,
-                     chunk: int) -> torch.Tensor:
-    """K10g's wrapper: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. consts (Tp, 16) in chunks of ``chunk`` <= 32 rows,
-    srcs (S, 3), world (3, R). Returns trans (S, R)."""
-    global LAUNCHES_SRT_SHW_FWD
+                     chunk: int, mask=None,
+                     tiles: RayTiles = None) -> torch.Tensor:
+    """K10g's wrapper, K10h's with a mask: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. consts (Tp, 16) in chunks
+    of ``chunk`` <= 32 rows, srcs (S, 3), world (3, R); mask (n_tiles, S,
+    n_chunks) int32 over ``tiles``. Returns trans (S, R)."""
+    global LAUNCHES_SRT_SHW_FWD, LAUNCHES_SRT_SHW_FWD_MASKED
     if not _route(consts):
-        return shadow_trans_reference(consts, srcs, world, es, zs, chunk)
+        return shadow_trans_reference(consts, srcs, world, es, zs, chunk,
+                                      mask, tiles)
     _check_table(consts, SHW_COLS, chunk)
     S = srcs.shape[0] if srcs.dim() == 2 else -1
     _check("srcs", srcs, (S, 3), consts.device)
     R = world.shape[1] if world.dim() == 2 else -1
     _check("world", world, (3, R), consts.device)
+    if mask is not None:
+        _check_mask(mask, tiles, R, (S, consts.shape[0] // chunk),
+                    consts.device)
     trans = world.new_empty((S, R))
     with torch.cuda.device(consts.device):
-        launch_shw_fwd_kernel(consts, chunk, srcs, world, es, zs, trans)
-    LAUNCHES_SRT_SHW_FWD += 1
+        launch_shw_fwd_kernel(consts, chunk, srcs, world, es, zs, trans,
+                              mask, tiles)
+    if mask is None:
+        LAUNCHES_SRT_SHW_FWD += 1
+    else:
+        LAUNCHES_SRT_SHW_FWD_MASKED += 1
     return trans
 
 
 def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
-                     chunk: int):
-    """K10i's wrapper: the CUDA kernels for CUDA tensors, the plain version
-    for CPU tensors. trans (S, R) the forward's output, gcot (S, R) its
-    cotangent; the rest as shadow_trans_fwd. Returns d consts (Tp, 16, zero
-    in columns 14-15), d srcs (S, 3) and d world (3, R)."""
-    global LAUNCHES_SRT_SHW_BWD
+                     chunk: int, mask=None, tiles: RayTiles = None):
+    """K10i's wrapper, K10j's with a mask: the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors. trans (S, R) the forward's
+    output, gcot (S, R) its cotangent; the rest as shadow_trans_fwd.
+    Returns d consts (Tp, 16, zero in columns 14-15), d srcs (S, 3) and
+    d world (3, R)."""
+    global LAUNCHES_SRT_SHW_BWD, LAUNCHES_SRT_SHW_BWD_MASKED
     if not _route(consts):
         return shadow_trans_bwd_reference(consts, srcs, world, trans, gcot,
-                                          es, zs, chunk)
+                                          es, zs, chunk, mask=mask,
+                                          tiles=tiles)
     _check_table(consts, SHW_COLS, chunk)
     S = srcs.shape[0] if srcs.dim() == 2 else -1
     _check("srcs", srcs, (S, 3), consts.device)
@@ -550,15 +742,21 @@ def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
     _check("trans", trans, (S, R), consts.device)
     _check("gcot", gcot, (S, R), consts.device)
     Tp = consts.shape[0]
-    groups = bwd_groups(Tp, SHW_USED, R)
+    if mask is not None:
+        _check_mask(mask, tiles, R, (S, Tp // chunk), consts.device)
+    groups = _groups(Tp, SHW_USED, R, tiles if mask is not None else None)
     partials = consts.new_empty((groups, Tp, SHW_USED))
     src_partials = consts.new_empty((groups, S, 3))
     dc, dsrc, dw = (torch.empty_like(consts), torch.empty_like(srcs),
                     torch.empty_like(world))
     with torch.cuda.device(consts.device):
         launch_shw_bwd_kernel(consts, chunk, srcs, world, trans, gcot, es,
-                              zs, partials, src_partials, dc, dsrc, dw)
-    LAUNCHES_SRT_SHW_BWD += 1
+                              zs, partials, src_partials, dc, dsrc, dw, mask,
+                              tiles)
+    if mask is None:
+        LAUNCHES_SRT_SHW_BWD += 1
+    else:
+        LAUNCHES_SRT_SHW_BWD_MASKED += 1
     return dc, dsrc, dw
 
 
@@ -574,98 +772,50 @@ def primary_cot(g: torch.Tensor, out: torch.Tensor,
 class PrimaryAgg(torch.autograd.Function):
     """out (9, R) of the (Tp, 32) table (``_primary_agg``), differentiable
     in consts, the camera position and the ray directions (3, R); the
-    backward runs K10c (or its plain version)."""
+    backward runs K10c, or K10d with the forward's mask (or their plain
+    version). The mask and its tiles take no gradient (``_mask_cot``)."""
 
     @staticmethod
-    def forward(ctx, consts, cam, dirs, es: float, zs: float, chunk: int):
-        out, m, s = primary_agg_fwd(consts, cam, dirs, es, zs, chunk)
+    def forward(ctx, consts, cam, dirs, es: float, zs: float, chunk: int,
+                mask=None, tiles: RayTiles = None):
+        out, m, s = primary_agg_fwd(consts, cam, dirs, es, zs, chunk, mask,
+                                    tiles)
         ctx.save_for_backward(consts, cam, dirs, out, m, s)
         ctx.args = (es, zs, chunk)
+        ctx.cull = (mask, tiles)
         return out
 
     @staticmethod
     def backward(ctx, g):
         consts, cam, dirs, out, m, s = ctx.saved_tensors
+        mask, tiles = ctx.cull
         dc, dcam, dd = primary_agg_bwd(consts, cam, dirs, m,
-                                       primary_cot(g, out, s), *ctx.args)
-        return dc, dcam, dd, None, None, None
+                                       primary_cot(g, out, s), *ctx.args,
+                                       mask=mask, tiles=tiles)
+        return dc, dcam, dd, None, None, None, None, None
 
 
 class ShadowTrans(torch.autograd.Function):
     """trans (S, R) from each source (S, 3) to each world point (3, R)
     (``_shadow_trans``), differentiable in all three; the backward runs
-    K10i (or its plain version)."""
+    K10i, or K10j with the forward's mask (or their plain version). The
+    mask and its tiles take no gradient."""
 
     @staticmethod
-    def forward(ctx, consts, srcs, world, es: float, zs: float, chunk: int):
-        trans = shadow_trans_fwd(consts, srcs, world, es, zs, chunk)
+    def forward(ctx, consts, srcs, world, es: float, zs: float, chunk: int,
+                mask=None, tiles: RayTiles = None):
+        trans = shadow_trans_fwd(consts, srcs, world, es, zs, chunk, mask,
+                                 tiles)
         ctx.save_for_backward(consts, srcs, world, trans)
         ctx.args = (es, zs, chunk)
+        ctx.cull = (mask, tiles)
         return trans
 
     @staticmethod
     def backward(ctx, g):
         consts, srcs, world, trans = ctx.saved_tensors
+        mask, tiles = ctx.cull
         dc, dsrc, dw = shadow_trans_bwd(consts, srcs, world, trans,
-                                        g.contiguous(), *ctx.args)
-        return dc, dsrc, dw, None, None, None
-
-
-# ---------------------------------------------------------------------------
-# The soft frame
-# ---------------------------------------------------------------------------
-
-def raytrace_soft_inputs(scene, camera, cfg, cull: bool | None = None,
-                         chunk: int = MAX_CHUNK):
-    """The kernels' inputs for a soft frame, as ``raytrace_soft_pallas``
-    builds them: both tables padded to a whole number of chunks of
-    min(chunk, max(T, 8)) rows (T == 0 takes one all-zero chunk), the ray
-    directions (3, H*W) and the sharpness. Returns (pri, shw, dirs, chunk,
-    es, zs), carrying the autograd graph of scene and camera.
-
-    Where JAX would cull (``use_cull``: auto on several chunks at a size
-    that blocks into its 1,024-pixel tiles, or cull True) the masked
-    kernels are needed: NotImplementedError, ROADMAP.md port item 6c."""
-    from raytpu_torch.render.raytrace import camera_ray_dirs
-
-    H, W = cfg.height, cfg.width
-    chunk = min(chunk, max(scene.num_triangles, 8))
-    pri = pad_rows(primary_tri_constants(scene, camera.pos), chunk)
-    if use_cull(cull, pri.shape[0] // chunk, H, W):
-        raise NotImplementedError(
-            f"the culled soft raytracer ({pri.shape[0] // chunk} chunks at "
-            f"{H}x{W}; masked kernels K10b/d/h/j): ROADMAP.md port item 6c;"
-            " pass cull=False for the unmasked kernels")
-    shw = pad_rows(shadow_tri_constants(scene), chunk)
-    xs, ys = pixel_grid(H, W, scene.device)
-    dirs = camera_ray_dirs(xs, ys, camera, cfg).T.contiguous()
-    return (pri, shw, dirs, chunk, float(cfg.soft_edge_sharpness),
-            float(cfg.soft_z_sharpness))
-
-
-def raytrace_soft_kernel(scene, camera, lights, cfg, cull: bool | None = None,
-                         chunk: int = MAX_CHUNK) -> torch.Tensor:
-    """The soft raytraced frame through K10a/K10g (``raytrace_soft_pallas``,
-    unmasked); returns (H, W, 3). Shadow sources are each light's first
-    ``soft_shadow_samples`` jittered positions (light-major) when that is
-    above 1, else the lights' positions; a light's shadow is the mean over
-    its sources, and the frame's Σ mask · shadow / max(Σ mask, 1). The
-    light bank is taken as given: inactive slots' sources are traced too
-    and weigh 0. Gradients reach every leaf of scene, camera and lights.
-    Inputs: ``raytrace_soft_inputs``."""
-    from raytpu_torch.ops.shade import source_positions
-    from raytpu_torch.render.soft import shade_agg_raytrace
-
-    H, W = cfg.height, cfg.width
-    pri, shw, dirs, chunk, es, zs = raytrace_soft_inputs(scene, camera, cfg,
-                                                         cull, chunk)
-    out = PrimaryAgg.apply(pri, camera.pos, dirs, es, zs, chunk)
-    samples = max(cfg.soft_shadow_samples, 1)
-    srcs = source_positions(lights, samples).contiguous()
-    trans = ShadowTrans.apply(shw, srcs, out[3:6], es, zs, chunk)
-    per_light = trans.reshape(lights.capacity, samples, -1).mean(dim=1)
-    denom = torch.maximum(lights.mask.sum(), lights.mask.new_ones(()))
-    shadow = (lights.mask[:, None] * per_light).sum(dim=0) / denom
-    img = shade_agg_raytrace(out[0:3].T, out[3:6].T, out[6:9].T, lights,
-                             float(np.float32(cfg.ambient)), shadow)
-    return img.reshape(H, W, 3)
+                                        g.contiguous(), *ctx.args, mask=mask,
+                                        tiles=tiles)
+        return dc, dsrc, dw, None, None, None, None, None

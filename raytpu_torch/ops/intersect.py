@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytpu_torch.core.types import Scene, cross, dot3
+from raytpu_torch.core.types import Scene, cross, dot3, matmul_f32
 
 F32MAX = float(np.finfo(np.float32).max)
 
@@ -159,8 +159,7 @@ def gather_rows(oh: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     is the one selected row exactly, and the backward is the product
     ``oh.T @ g``, a fixed-order per-row sum with no atomics."""
     # TF32 would round a normal to 10 mantissa bits.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(oh, table)
+    return matmul_f32(oh, table)
 
 
 def sum_rows_by_index(idx: torch.Tensor, vals: torch.Tensor,

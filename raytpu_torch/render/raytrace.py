@@ -38,6 +38,7 @@ from raytpu_torch.core.types import (
     Lights,
     RenderConfig,
     Scene,
+    matmul_f32,
     pixel_grid,
 )
 from raytpu_torch.kernels import render_fused
@@ -75,8 +76,7 @@ def camera_ray_dirs(xs: torch.Tensor, ys: torch.Tensor, camera: Camera,
         dim=-1,
     )
     # Full float32: TF32 would move the directions by ~1e-3 relative.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(d, camera.rotation().T)
+    return matmul_f32(d, camera.rotation().T)
 
 
 def _subpixel_offsets(cfg: RenderConfig) -> list[tuple[float, float]]:

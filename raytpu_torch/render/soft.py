@@ -30,12 +30,15 @@ the rasterizer half of raytpu/render/soft.py).
     ``exp(-16 od)`` toward each shadow source scales the direct term of
     ``shade_agg_raytrace``. The aggregation and the shadow run in the soft
     raytrace kernels (raytpu_torch.kernels.soft_raytrace: K10a/K10g
-    forward, K10c/K10i backward). The JAX package's jnp streaming path is
-    that math reassociated; the port has the kernels' math only. Frames
-    that JAX would cull (the masked kernels) are port item 6c.
+    forward, K10c/K10i backward; where the JAX package culls, the masked
+    K10b/K10h and K10d/K10j with keep-masks on the port's 16 x 16 pixel
+    tiles). The JAX package's jnp streaming path is that math
+    reassociated; the port has the kernels' math only.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,12 +51,17 @@ from raytpu_torch.core.types import (
     matmul3,
     pixel_grid,
 )
+from raytpu_torch.kernels import soft_raytrace as srt
+from raytpu_torch.kernels.intersect import TILE_RAYS, RayTiles, ray_tiles
 from raytpu_torch.kernels.raster import raster_tri_constants, resolve_winner
-from raytpu_torch.kernels.soft_raster import clip01, rasterize_soft_kernel
-from raytpu_torch.kernels.soft_raytrace import raytrace_soft_kernel
+from raytpu_torch.kernels.soft_raster import (
+    clip01,
+    rasterize_soft_kernel,
+    use_cull,
+)
 from raytpu_torch.ops.intersect import gather_rows, one_hot_idx
 from raytpu_torch.ops.raster import cull_mask, glm_inverse3
-from raytpu_torch.ops.shade import irradiance_no_shadow
+from raytpu_torch.ops.shade import irradiance_no_shadow, source_positions
 
 
 def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
@@ -65,14 +73,99 @@ def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
     return rasterize_soft_kernel(scene, camera, lights, cfg)
 
 
+class SoftRtInputs(NamedTuple):
+    """The soft raytrace kernels' inputs for a frame (raytrace_soft_inputs).
+
+    pri, shw: the (Tp, 32) and (Tp, 16) tables, Tp a multiple of chunk.
+    dirs: (3, H*W) ray directions, row-major over the image.
+    tiles, mask: the culled frame's ray tiles (kernels/intersect.py::
+      ray_tiles, 16 x 16 pixels) and the primary keep-mask (n_tiles,
+      n_chunks) int32 over them; None where the frame does not cull.
+    """
+
+    pri: torch.Tensor
+    shw: torch.Tensor
+    dirs: torch.Tensor
+    chunk: int
+    es: float
+    zs: float
+    tiles: RayTiles | None
+    mask: torch.Tensor | None
+
+
+def raytrace_soft_inputs(scene: Scene, camera: Camera, cfg: RenderConfig,
+                         cull: bool | None = None,
+                         chunk: int = srt.MAX_CHUNK) -> SoftRtInputs:
+    """The kernels' inputs for a soft frame, as ``raytrace_soft_pallas``
+    builds them: both tables padded to a whole number of chunks of
+    min(chunk, max(T, 8)) rows (T == 0 takes one all-zero chunk), the ray
+    directions and the sharpness, carrying the autograd graph of scene and
+    camera; where the frame culls (``use_cull``: auto on several chunks at
+    a size that blocks into JAX's 1,024-pixel tiles, or cull True), the ray
+    tiles and the primary keep-mask, made on the device from detached
+    tensors."""
+    from raytpu_torch.render.raytrace import camera_ray_dirs
+
+    H, W = cfg.height, cfg.width
+    chunk = min(chunk, max(scene.num_triangles, 8))
+    pri = srt.pad_rows(srt.primary_tri_constants(scene, camera.pos), chunk)
+    culled = use_cull(cull, pri.shape[0] // chunk, H, W)
+    shw = srt.pad_rows(srt.shadow_tri_constants(scene), chunk)
+    xs, ys = pixel_grid(H, W, scene.device)
+    dirs = camera_ray_dirs(xs, ys, camera, cfg).T.contiguous()
+    es, zs = float(cfg.soft_edge_sharpness), float(cfg.soft_z_sharpness)
+    tiles = mask = None
+    if culled:
+        tiles = ray_tiles(H * W, (H, W), scene.device)
+        with torch.no_grad():
+            mask = srt.soft_rt_keep_mask(
+                dirs.detach().T[tiles.rays], camera.pos.detach(),
+                scene.v0.detach(), scene.v1.detach(), scene.v2.detach(), es,
+                zs, srt.T_NEAR, TILE_RAYS, chunk)
+    return SoftRtInputs(pri, shw, dirs, chunk, es, zs, tiles, mask)
+
+
 def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
-                  cfg: RenderConfig, cull: bool | None = None) -> torch.Tensor:
-    """Differentiable raytrace; returns (H, W, 3). Through the soft raytrace
-    kernels (``raytrace_soft_kernel``, the JAX package's
-    ``raytrace_soft_pallas``). ``cull`` None culls where the JAX package
-    would, which raises NotImplementedError (port item 6c); False runs the
-    unmasked kernels at any size."""
-    return raytrace_soft_kernel(scene, camera, lights, cfg, cull=cull)
+                  cfg: RenderConfig, cull: bool | None = None,
+                  chunk: int = srt.MAX_CHUNK) -> torch.Tensor:
+    """Differentiable raytrace; returns (H, W, 3). The JAX package's
+    ``raytrace_soft_pallas``: the primary aggregation (``PrimaryAgg``:
+    K10a, or K10b where the frame culls) of albedo, hit position and
+    normal, then the optical-depth shadow (``ShadowTrans``: K10g, or K10h
+    with the shadow keep-mask of the aggregated positions) toward the
+    shadow sources, each light's first ``soft_shadow_samples`` jittered
+    positions (light-major) when that is above 1, else the lights'
+    positions; a light's shadow is the mean over its sources, and the
+    frame's sum of mask * shadow / max(sum of mask, 1). The light bank is
+    taken as given: inactive slots' sources are traced too and weigh 0.
+    Gradients reach every leaf of scene, camera and lights (the backward:
+    K10c/K10i, or K10d/K10j).
+
+    ``cull`` None culls where the JAX package would (several chunks, an
+    image that blocks into its 1,024-pixel tiles); True culls or raises
+    ValueError where the image does not block; False runs the unmasked
+    kernels at any size. ``chunk``: rows a chunk, at most 32."""
+    H, W = cfg.height, cfg.width
+    inp = raytrace_soft_inputs(scene, camera, cfg, cull, chunk)
+    out = srt.PrimaryAgg.apply(inp.pri, camera.pos, inp.dirs, inp.es,
+                               inp.zs, inp.chunk, inp.mask, inp.tiles)
+    samples = max(cfg.soft_shadow_samples, 1)
+    srcs = source_positions(lights, samples).contiguous()
+    smask = None
+    if inp.tiles is not None:
+        with torch.no_grad():
+            smask = srt.soft_rt_shadow_mask(
+                out.detach()[3:6].T[inp.tiles.rays], srcs.detach(),
+                scene.v0.detach(), scene.v1.detach(), scene.v2.detach(),
+                inp.es, inp.zs, TILE_RAYS, inp.chunk)
+    trans = srt.ShadowTrans.apply(inp.shw, srcs, out[3:6], inp.es, inp.zs,
+                                  inp.chunk, smask, inp.tiles)
+    per_light = trans.reshape(lights.capacity, samples, -1).mean(dim=1)
+    denom = torch.maximum(lights.mask.sum(), lights.mask.new_ones(()))
+    shadow = (lights.mask[:, None] * per_light).sum(dim=0) / denom
+    img = shade_agg_raytrace(out[0:3].T, out[3:6].T, out[6:9].T, lights,
+                             float(np.float32(cfg.ambient)), shadow)
+    return img.reshape(H, W, 3)
 
 
 def shade_agg_raytrace(alb, pos, nrm, lights: Lights, ambient: float,

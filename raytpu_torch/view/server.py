@@ -18,8 +18,10 @@ the CPU), with the JAX viewer's key map:
   2 / 3         spawn random light / delete last    `raytracer.cpp:520-539`
   0             clean <-> soft (the differentiable render): the
                 rasterizer's soft frame runs the soft raster kernels (K9a),
-                the raytracer's the soft raytrace kernels (K10a, K10g) on
-                the compacted light bank
+                the raytracer's the soft raytrace kernels (K10a, K10g; on
+                a scene of several chunks at a size that blocks into JAX's
+                1,024-pixel tiles, the masked K10b, K10h) on the
+                compacted light bank
 
 The raytracer's keys 7, 8 and 2 move a frame off the fused forward kernel
 onto the loop branch of raytrace_full. The rasterizer (``renderer=

@@ -129,25 +129,24 @@ def test_render_cli_soft_stl_runs_unculled_and_refuses_the_culled(tmp_path):
     """``render --mode soft --stl``: several chunks at a size that does not
     block into JAX's 1,024-pixel tiles run the unmasked kernels' plain
     versions and match raytrace_soft with cull=False; at a size that
-    blocks, JAX would cull (the masked kernels): item 6c."""
+    blocks (32^2), the CLI culls as JAX would, through the masked kernels'
+    plain versions, and its BMP is the u8 of raytrace_soft with cull=True.
+    (The name dates from before the culled frame was ported.)"""
     from raytpu_torch.render.soft import raytrace_soft
     stl = _mesh_stl(tmp_path / "model.stl", 70)
-    out = tmp_path / "stl.bmp"
-    flags = ["--mode", "soft", "--stl", str(stl), "--width", "24",
-             "--height", "20"]
-    main(["render", "--device", "cpu", *flags, "-o", str(out)])
     parser = argparse.ArgumentParser()
     cli_main._render_flags(parser)
-    scene, camera, lights, cfg = cli_main._build_inputs(parser.parse_args(
-        ["--device", "cpu", *flags]))
-    assert scene.num_triangles == 70
-    want = raytrace_soft(scene, camera, lights, cfg, cull=False)
-    np.testing.assert_array_equal(read_bmp(str(out)),
-                                  quantize_u8(want.numpy()))
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        main(["render", "--device", "cpu", "--mode", "soft", "--stl",
-              str(stl), "--width", "32", "--height", "32",
-              "-o", str(tmp_path / "x.bmp")])
+    for size, cull in (((24, 20), False), ((32, 32), True)):
+        out = tmp_path / f"stl{size[0]}.bmp"
+        flags = ["--mode", "soft", "--stl", str(stl), "--width",
+                 str(size[0]), "--height", str(size[1])]
+        main(["render", "--device", "cpu", *flags, "-o", str(out)])
+        scene, camera, lights, cfg = cli_main._build_inputs(
+            parser.parse_args(["--device", "cpu", *flags]))
+        assert scene.num_triangles == 70
+        want = raytrace_soft(scene, camera, lights, cfg, cull=cull)
+        np.testing.assert_array_equal(read_bmp(str(out)),
+                                      quantize_u8(want.numpy()))
 
 
 def test_render_cli_renders_the_loop_branch(tmp_path):

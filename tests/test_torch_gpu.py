@@ -8,6 +8,8 @@ The file imports no JAX, so it also runs where only the port is installed:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX on the CPU.)
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -617,6 +619,7 @@ def _srt_case(device, name, size=64):
 
     from raytpu_torch.core.stl import load_stl, procedural_stl_text
     from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.render.soft import raytrace_soft_inputs
     if name == "cornell":
         scene = cornell_box(pad_to=32, device=device)
         camera = Camera.make((0.0, 0.0, -2.0), focal=size / 2.0,
@@ -632,7 +635,7 @@ def _srt_case(device, name, size=64):
     cfg = RenderConfig(width=size, height=size, mode="soft",
                        soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
     with torch.no_grad():
-        pri, shw, dirs, chunk, es, zs = srt.raytrace_soft_inputs(
+        pri, shw, dirs, chunk, es, zs, _, _ = raytrace_soft_inputs(
             scene, camera, cfg, cull=False)
         out, _, _ = srt.primary_agg_reference(pri, camera.pos, dirs, es, zs,
                                               chunk)
@@ -659,14 +662,14 @@ def _rule(got, want):
                  .max())
 
 
-def _assert_float64_rule(got, want64, plain32, groups):
+def _assert_float64_rule(got, want64, plain32, groups, slack=1.01):
     """Each column group: within the rule of the plain float32 version, and
     of the float64 evaluation or no farther from it than that version
-    (ROADMAP fault F11)."""
+    (ROADMAP fault F11), up to a factor ``slack``."""
     for name, lo, hi in groups:
         g, w, p = (t[..., lo:hi] for t in (got, want64, plain32))
         assert _rule(g, p) <= 1.0, name
-        assert _rule(g, w) <= max(1.0, 1.01 * _rule(p, w)), name
+        assert _rule(g, w) <= max(1.0, slack * _rule(p, w)), name
 
 
 @pytest.mark.parametrize("name", ["cornell", "mesh"])
@@ -804,6 +807,236 @@ def test_soft_raytrace_wrappers_check_their_inputs(cuda):
                              torch.zeros(3, 5, device=cuda),
                              torch.zeros(3, 5, device=cuda), 40.0, 40.0,
                              c["chunk"])
+
+
+def _srt_culled_case(device, H, W, samples=1):
+    """The masked soft raytrace kernels' inputs on an H x W frame of the
+    800-triangle procedural mesh (25 chunks of 32) from the STL camera:
+    the culled frame's tables, rays, tiles and primary mask
+    (render/soft.py::raytrace_soft_inputs with cull=True; the tiles are the
+    port's 16 x 16 blocks, padded where H or W is not a multiple of 16),
+    the aggregated hit positions of the plain masked forward, the shadow
+    sources (one light, or its first ``samples`` jittered positions) and
+    their shadow mask."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.kernels.intersect import TILE_RAYS, ray_tiles
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.soft import raytrace_soft_inputs
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mesh.stl"
+        with open(path, "w") as f:
+            f.write(procedural_stl_text(20, 20))
+        scene = load_stl(path, device=device)
+    camera = Camera.make((0.0, -0.5, -5.0), focal=max(H, W) * 0.6,
+                         device=device)
+    lights = Lights.single(capacity=1, soft_samples=16,
+                           position=(0.3, -1.5, -3.0), device=device)
+    cfg = RenderConfig(width=W, height=H, mode="soft",
+                       soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
+    with torch.no_grad():
+        inp = raytrace_soft_inputs(scene, camera, cfg, cull=False)
+        tiles = ray_tiles(H * W, (H, W), device)
+        mask = srt.soft_rt_keep_mask(
+            inp.dirs.T[tiles.rays], camera.pos, scene.v0, scene.v1,
+            scene.v2, inp.es, inp.zs, srt.T_NEAR, TILE_RAYS, inp.chunk)
+        out, _, _ = srt.primary_agg_reference(inp.pri, camera.pos, inp.dirs,
+                                              inp.es, inp.zs, inp.chunk,
+                                              mask, tiles)
+        srcs = source_positions(lights, samples).contiguous()
+        world = out[3:6].contiguous()
+        smask = srt.soft_rt_shadow_mask(
+            world.T[tiles.rays], srcs, scene.v0, scene.v1, scene.v2, inp.es,
+            inp.zs, TILE_RAYS, inp.chunk)
+    return dict(pri=inp.pri, shw=inp.shw, dirs=inp.dirs,
+                cam=camera.pos.contiguous(), chunk=inp.chunk, es=inp.es,
+                zs=inp.zs, tiles=tiles, mask=mask, srcs=srcs, world=world,
+                smask=smask)
+
+
+@pytest.mark.parametrize("H,W,samples", [(64, 64, 1), (40, 72, 16)],
+                         ids=["64x64-s1", "40x72-s16"])
+def test_masked_soft_raytrace_forward_kernels_match_plain_versions(
+        cuda, H, W, samples):
+    """K10b and K10h against their plain versions (rtol 1e-5 / atol 1e-6),
+    two calls identical, with every bit set equal to K10a and K10g bit for
+    bit, and within the JAX rule of the brute frame; 40 x 72 pads its
+    tiles on both sides."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    c = _srt_culled_case(cuda, H, W, samples)
+    assert 0 < int(c["mask"].sum()) < c["mask"].numel()
+    counts = (srt.LAUNCHES_SRT_PRI_FWD_MASKED,
+              srt.LAUNCHES_SRT_SHW_FWD_MASKED)
+    pargs = (c["pri"], c["cam"], c["dirs"], c["es"], c["zs"], c["chunk"])
+    got = srt.primary_agg_fwd(*pargs, c["mask"], c["tiles"])
+    again = srt.primary_agg_fwd(*pargs, c["mask"], c["tiles"])
+    want = srt.primary_agg_reference(*pargs, c["mask"], c["tiles"])
+    ones = srt.primary_agg_fwd(*pargs, torch.ones_like(c["mask"]),
+                               c["tiles"])
+    brute = srt.primary_agg_fwd(*pargs)
+    sargs = (c["shw"], c["srcs"], c["world"], c["es"], c["zs"], c["chunk"])
+    trans = srt.shadow_trans_fwd(*sargs, c["smask"], c["tiles"])
+    trans2 = srt.shadow_trans_fwd(*sargs, c["smask"], c["tiles"])
+    twant = srt.shadow_trans_reference(*sargs, c["smask"], c["tiles"])
+    tones = srt.shadow_trans_fwd(*sargs, torch.ones_like(c["smask"]),
+                                 c["tiles"])
+    tbrute = srt.shadow_trans_fwd(*sargs)
+    torch.cuda.synchronize()
+    assert (srt.LAUNCHES_SRT_PRI_FWD_MASKED,
+            srt.LAUNCHES_SRT_SHW_FWD_MASKED) == (counts[0] + 3,
+                                                 counts[1] + 3)
+    for g, a, w, o, b in zip((*got, trans), (*again, trans2),
+                             (*want, twant), (*ones, tones),
+                             (*brute, tbrute)):
+        assert torch.equal(g, a) and torch.equal(o, b)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[0], brute[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(trans, tbrute, rtol=1e-6, atol=1e-6)
+    assert float((got[1] > 1.0).float().mean()) > 0.05
+
+
+@pytest.mark.parametrize("H,W,samples", [(64, 64, 1), (40, 72, 16)],
+                         ids=["64x64-s1", "40x72-s16"])
+def test_masked_soft_raytrace_backward_kernels_match_plain_float64(
+        cuda, H, W, samples):
+    """K10d and K10j against the plain masked backward in float64 with the
+    float32 branch decisions and against the plain float32 version, by
+    column group; two calls bit-identical; a chunk no tile keeps gets
+    exactly 0. With every bit set, the per-ray gradients (d dirs, d world)
+    equal K10c's and K10i's bit for bit on the 16 x 16 tiles, and every
+    gradient does on tiles of 256 consecutive rays, K10c's own blocks (the
+    sums over rays add the same terms in the same order only there)."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.kernels.intersect import ray_tiles
+    c = _srt_culled_case(cuda, H, W, samples)
+    R, tiles = c["dirs"].shape[1], c["tiles"]
+    runs = ray_tiles(R, None, cuda)
+    n_chunks = c["pri"].shape[0] // c["chunk"]
+    S = c["srcs"].shape[0]
+    _, m, _ = srt.primary_agg_fwd(c["pri"], c["cam"], c["dirs"], c["es"],
+                                  c["zs"], c["chunk"], c["mask"], tiles)
+    cot = _one_signed((10, R), cuda, 0)
+    pargs = (c["pri"], c["cam"], c["dirs"], m, cot, c["es"], c["zs"],
+             c["chunk"])
+    cull = dict(mask=c["mask"], tiles=tiles)
+    got, again = (srt.primary_agg_bwd(*pargs, **cull),
+                  srt.primary_agg_bwd(*pargs, **cull))
+    want = srt.primary_agg_bwd_reference(
+        *(t.double() for t in pargs[:5]), *pargs[5:], f32_branches=True,
+        **cull)
+    plain = srt.primary_agg_bwd_reference(*pargs, **cull)
+    ones = srt.primary_agg_bwd(*pargs, mask=torch.ones_like(c["mask"]),
+                               tiles=tiles)
+    ones_runs = srt.primary_agg_bwd(
+        *pargs, mask=torch.ones((runs.count, n_chunks), dtype=torch.int32,
+                                device=cuda), tiles=runs)
+    brute = srt.primary_agg_bwd(*pargs)
+    trans = srt.shadow_trans_fwd(c["shw"], c["srcs"], c["world"], c["es"],
+                                 c["zs"], c["chunk"], c["smask"], tiles)
+    gcot = _one_signed(trans.shape, cuda, 1)
+    sargs = (c["shw"], c["srcs"], c["world"], trans, gcot, c["es"], c["zs"],
+             c["chunk"])
+    scull = dict(mask=c["smask"], tiles=tiles)
+    sgot, sagain = (srt.shadow_trans_bwd(*sargs, **scull),
+                    srt.shadow_trans_bwd(*sargs, **scull))
+    swant = srt.shadow_trans_bwd_reference(
+        *(t.double() for t in sargs[:5]), *sargs[5:], f32_branches=True,
+        **scull)
+    splain = srt.shadow_trans_bwd_reference(*sargs, **scull)
+    sones = srt.shadow_trans_bwd(*sargs, mask=torch.ones_like(c["smask"]),
+                                 tiles=tiles)
+    sones_runs = srt.shadow_trans_bwd(
+        *sargs, mask=torch.ones((runs.count, S, n_chunks), dtype=torch.int32,
+                                device=cuda), tiles=runs)
+    sbrute = srt.shadow_trans_bwd(*sargs)
+    torch.cuda.synchronize()
+    for g, a in zip((*got, *sgot), (*again, *sagain)):
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    for o, b in zip((*ones_runs, *sones_runs), (*brute, *sbrute)):
+        assert torch.equal(o, b)
+    assert torch.equal(ones[2], brute[2]) and torch.equal(sones[2], sbrute[2])
+    dropped = c["mask"].amax(dim=0) == 0
+    if bool(dropped.any()):
+        assert not got[0].reshape(-1, c["chunk"], srt.PRI_COLS)[
+            dropped].any()
+    # The masked kernels add a row's terms tile by tile (16 x 16 pixels),
+    # in another order than the plain version's sums over the kept rays,
+    # so where float32 misses float64 (F11: the sources' 3 entries cancel)
+    # they are held within twice the plain float32 version's distance
+    # from float64, as chip_smoke.py phase 26 holds culled against brute.
+    rule = functools.partial(_assert_float64_rule, slack=2.0)
+    rule(got[0], want[0], plain[0], srt.PRI_GROUPS)
+    one = (("all", 0, 3),)
+    rule(got[1][None], want[1][None], plain[1][None], one)
+    rule(got[2].T, want[2].T, plain[2].T, one)
+    rule(sgot[0], swant[0], splain[0], srt.SHW_GROUPS)
+    rule(sgot[1], swant[1], splain[1], one)
+    rule(sgot[2].T, swant[2].T, splain[2].T, one)
+
+
+def test_culled_soft_raytrace_on_gpu_matches_cpu(cuda):
+    """The culled soft frame (W = 40, H = 128: JAX culls in 8 x 128 blocks,
+    the port's 16 x 16 tiles pad) and its gradients on the card against the
+    CPU, one of each masked kernel and no unmasked one a step."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.render.soft import raytrace_soft
+
+    def counts():
+        return [getattr(srt, f"LAUNCHES_SRT_{k}") for k in (
+            "PRI_FWD", "PRI_BWD", "SHW_FWD", "SHW_BWD", "PRI_FWD_MASKED",
+            "PRI_BWD_MASKED", "SHW_FWD_MASKED", "SHW_BWD_MASKED")]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mesh.stl"
+        with open(path, "w") as f:
+            f.write(procedural_stl_text(5, 7))
+
+        def run(device):
+            scene = load_stl(path, device=device)
+            camera = Camera.make((0.0, -0.5, -5.0), focal=60.0,
+                                 device=device)
+            lights = Lights.single(capacity=1, position=(0.3, -1.5, -3.0),
+                                   device=device)
+            for t in (scene.v0, camera.pos, lights.position):
+                t.requires_grad_(True)
+            before = counts()
+            img = raytrace_soft(scene, camera, lights, RenderConfig(
+                width=40, height=128, mode="soft", soft_edge_sharpness=40.0,
+                soft_z_sharpness=40.0), cull=True, chunk=8)
+            torch.sin(3.0 * img).sum().backward()
+            launched = [a - b for a, b in zip(counts(), before)]
+            return launched, [t.detach().cpu() for t in (
+                img, scene.v0.grad, camera.pos.grad, lights.position.grad)]
+
+        launched, got_all = run(cuda)
+        assert launched == [0, 0, 0, 0, 1, 1, 1, 1]
+        for got, want in zip(got_all, run("cpu")[1]):
+            scale = max(float(want.abs().max()), 1e-8)
+            torch.testing.assert_close(got / scale, want / scale, rtol=0,
+                                       atol=2e-4)
+
+
+def test_masked_soft_raytrace_wrappers_check_their_inputs(cuda):
+    from raytpu_torch.kernels import soft_raytrace as srt
+    c = _srt_culled_case(cuda, 32, 32)
+    pargs = (c["pri"], c["cam"], c["dirs"], c["es"], c["zs"], c["chunk"])
+    with pytest.raises(ValueError, match="mask"):
+        srt.primary_agg_fwd(*pargs, c["mask"].float(), c["tiles"])
+    with pytest.raises(ValueError, match="mask"):
+        srt.primary_agg_fwd(*pargs, c["mask"][:, :-1].contiguous(),
+                            c["tiles"])
+    with pytest.raises(ValueError, match="tiles"):
+        srt.primary_agg_fwd(c["pri"], c["cam"],
+                            c["dirs"][:, :-1].contiguous(), c["es"], c["zs"],
+                            c["chunk"], c["mask"], c["tiles"])
+    with pytest.raises(ValueError, match="mask"):
+        srt.shadow_trans_fwd(c["shw"], c["srcs"], c["world"], c["es"],
+                             c["zs"], c["chunk"], c["mask"], c["tiles"])
 
 
 def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0)):

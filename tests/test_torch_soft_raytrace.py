@@ -28,8 +28,9 @@ from raytpu_torch import convert
 from raytpu_torch.core.cornell import cornell_box
 from raytpu_torch.core.types import Camera, Lights, RenderConfig
 from raytpu_torch.kernels import soft_raytrace as kernels
+from raytpu_torch.kernels.soft_raster import use_cull
 from raytpu_torch.render.raytrace import raytrace
-from raytpu_torch.render.soft import raytrace_soft
+from raytpu_torch.render.soft import raytrace_soft, raytrace_soft_inputs
 
 CFG = dict(width=48, height=40, mode="soft", soft_edge_sharpness=60.0,
            soft_z_sharpness=60.0)
@@ -120,29 +121,34 @@ def test_gradients_match_jax(setups):
 
 def test_cull_decision_is_jax_and_the_masked_route_raises():
     """JAX culls where there is more than one chunk and the image blocks
-    into its 1,024-pixel tiles (not at the CLI's 500^2); there the port
-    needs the masked kernels and raises naming item 6c. cull=False runs the
-    unmasked kernels at any size and gives the one-chunk frame's image."""
+    into its 1,024-pixel tiles (not at the CLI's 500^2); there the frame
+    runs the masked kernels (their plain versions here), auto or with cull
+    True, and matches the brute frame at JAX's culled rule
+    (tests/test_soft_raytrace_cull.py: atol 1e-6 / rtol 1e-6). cull True
+    at a size that does not block still raises ValueError. cull=False runs
+    the unmasked kernels at any size and gives the one-chunk frame's
+    image."""
     scene = cornell_box(pad_to=32, device="cpu")
     camera = Camera.raytracer_default(device="cpu")
     lights = Lights.single(capacity=1, device="cpu")
     cfg = RenderConfig(width=64, height=64, mode="soft")
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        kernels.raytrace_soft_kernel(scene, camera, lights, cfg, chunk=8)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        kernels.raytrace_soft_kernel(scene, camera, lights, cfg, cull=True)
+    brute = raytrace_soft(scene, camera, lights, cfg, cull=False, chunk=8)
+    auto = raytrace_soft(scene, camera, lights, cfg, chunk=8)
+    culled = raytrace_soft(scene, camera, lights, cfg, cull=True, chunk=8)
+    assert kernels.LAUNCHES_SRT_PRI_FWD_MASKED == 0  # plain versions here
+    for img in (auto, culled):
+        np.testing.assert_allclose(img.numpy(), brute.numpy(), atol=1e-6,
+                                   rtol=1e-6)
     with pytest.raises(ValueError, match="tile"):
-        kernels.raytrace_soft_kernel(scene, camera, lights,
-                                     cfg.replace(width=48, height=40),
-                                     cull=True)
-    brute = kernels.raytrace_soft_kernel(scene, camera, lights, cfg,
-                                         cull=False, chunk=8)
-    one = kernels.raytrace_soft_kernel(scene, camera, lights, cfg)
+        raytrace_soft(scene, camera, lights,
+                      cfg.replace(width=48, height=40), cull=True)
+    one = raytrace_soft(scene, camera, lights, cfg)
     np.testing.assert_allclose(brute.numpy(), one.numpy(), atol=1e-6,
                                rtol=1e-5)
     # 283 chunks of the F1 mesh at 500^2: no cull; 512^2: cull.
-    assert kernels.use_cull(None, 283, 500, 500) is False
-    assert kernels.use_cull(None, 288, 512, 512) is True
+    assert use_cull(None, 283, 500, 500) is False
+    assert use_cull(None, 288, 512, 512) is True
+    assert use_cull(None, 1, 512, 512) is False
 
 
 def test_raytrace_dispatches_soft_on_the_compacted_bank():
@@ -199,7 +205,7 @@ def test_shadow_darkens_at_the_fits_first_stage_as_in_jax():
         cfg = dict(width=W, height=H, mode="soft", soft_edge_sharpness=es,
                    soft_z_sharpness=zs)
         with torch.no_grad():
-            pri, shw, dirs, chunk, es_, zs_ = kernels.raytrace_soft_inputs(
+            pri, shw, dirs, chunk, es_, zs_, _, _ = raytrace_soft_inputs(
                 pscene, pcamera, RenderConfig(**cfg))
             out, _, _ = kernels.primary_agg_reference(pri, pcamera.pos, dirs,
                                                       es_, zs_, chunk)

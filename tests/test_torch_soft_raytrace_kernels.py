@@ -315,7 +315,8 @@ def test_zero_triangles_give_the_background():
     scene = Scene(v0=empty, v1=empty, v2=empty, color=empty,
                   active=torch.zeros(0))
     from raytpu_torch.core.types import Camera, Lights, RenderConfig
-    img = kernels.raytrace_soft_kernel(
+    from raytpu_torch.render.soft import raytrace_soft
+    img = raytrace_soft(
         scene, Camera.raytracer_default(device="cpu"),
         Lights.single(capacity=2, device="cpu"),
         RenderConfig(width=W, height=H, mode="soft"))
