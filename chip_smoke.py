@@ -200,6 +200,31 @@ nonzero without printing a result:
      numbers: the culled step beside phase 22's brute step, its device-busy
      share, events and peak memory, the culled frames, K10b-K10j alone
      beside their plain versions and bounds (kept pairs and triples only).
+ 29. the sharded renderer's kernels against their plain versions on the
+     card: K7b (occlusion of known points) on the 512^2 Cornell frame's
+     hit points toward the full-feature sources (S = 32); K7c (K7b with
+     kernels/intersect.py::position_mask) on the bench's stl_intersect
+     frame's hit points (the mesh padded to 9,216, 512^2, the rasteriser
+     camera) at S = 1 and S = 16, = K7b; K8a (the multi-chunk winner
+     without a mask) on the rasterize CLI's STL frame at 512^2 (9,028
+     triangles), the whole frame and its lower half (y0 = 256), = K8c.
+     Bits equal, two calls identical, exact launch counts.
+ 30. sharded serving on a 1 x 1 NCCL mesh (init_distributed at world size
+     1, make_mesh(1, 1)), each frame against its single-card frame:
+     make_sharded_render at 512^2 clean Cornell, at full feature (AA 3,
+     16 soft samples, two lights, DoF through dof_block) and on the mesh
+     (K7d + K7c); make_sharded_rasterize on Cornell (K8b) and on the mesh
+     (K8a); make_sharded_soft_render at 512^2, 40 / 40, both renderers.
+     Hard frames within atol 1e-6, soft within atol 1e-6 / rtol 1e-5;
+     exact launches; ms a frame beside the single-card frame's.
+ 31. the sharded train step on 1 x 1 (hard clean 512^2 against the
+     single-card loop branch, both soft renderers against their frames):
+     loss and every gradient within rtol 1e-4 / atol 1e-5 (soft leaves
+     scaled by their largest entry), one launch of each kernel a step;
+     step ms beside the single-card step's, busy share, events, peak
+     memory; fit(mesh=1x1) against fit (rtol 1e-4) and ``fit --mesh 1x1``
+     (the CLI, which then shuts the process group down); then K7b, K7c and
+     K8a alone beside their plain versions and bounds.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
@@ -216,8 +241,11 @@ before and after the raytrace fit CLI of phase 22 (training: K10a, K10c,
 K10g, K10i), before and after phase 24 (serving STL scenes: K7a), before
 and after each call of phase 25's stl_intersect row (K5, K7d) and its 3
 STL steps (K7a), before and after phase 27 (serving the culled soft
-raytracer: K10b, K10h, K7a) and before and after phase 28's 2 culled steps
-(K10b, K10d, K10h, K10j). Comparisons and timings launch outside those windows. The
+raytracer: K10b, K10h, K7a), before and after phase 28's 2 culled steps
+(K10b, K10d, K10h, K10j), before and after phase 30's sharded frames (K5,
+K7b, K7d, K7c, K8b, K8a, K9a, K10a, K10g), and before and after each
+sharded step and the sharded fit of phase 31. Comparisons and timings
+launch outside those windows. The
 line before the last is one JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -226,7 +254,9 @@ Details (result.json and the BMPs) go to build/chip_smoke/.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -752,10 +782,13 @@ def kernel_counts() -> dict:
             "closest_hit": isect.LAUNCHES_CLOSEST,
             "closest_hit_masked": isect.LAUNCHES_CLOSEST_MASKED,
             "closest_hit_occluded_masked": isect.LAUNCHES_OCCLUDED_MASKED,
+            "occlusion": isect.LAUNCHES_OCCLUSION,
+            "occlusion_masked": isect.LAUNCHES_OCCLUSION_MASKED,
             "render_fused_bwd": render_fused.LAUNCHES_BWD,
             "render_fused_scatter": render_fused.LAUNCHES_SCATTER,
             "raster_winner": raster.LAUNCHES_WINNER,
             "raster_winner_masked": raster.LAUNCHES_WINNER_MASKED,
+            "raster_winner_chunked": raster.LAUNCHES_WINNER_CHUNKED,
             "soft_rt_pri_fwd": srt.LAUNCHES_SRT_PRI_FWD,
             "soft_rt_pri_bwd": srt.LAUNCHES_SRT_PRI_BWD,
             "soft_rt_shw_fwd": srt.LAUNCHES_SRT_SHW_FWD,
@@ -774,7 +807,9 @@ def zero_counts() -> None:
     isect.LAUNCHES_OCCLUDED = isect.LAUNCHES_OCCLUDED_MULTI = 0
     isect.LAUNCHES_CLOSEST = isect.LAUNCHES_CLOSEST_MASKED = 0
     isect.LAUNCHES_OCCLUDED_MASKED = 0
+    isect.LAUNCHES_OCCLUSION = isect.LAUNCHES_OCCLUSION_MASKED = 0
     raster.LAUNCHES_WINNER = raster.LAUNCHES_WINNER_MASKED = 0
+    raster.LAUNCHES_WINNER_CHUNKED = 0
     from raytpu_torch.kernels import soft_raster as sr
     sr.LAUNCHES_SOFT_FWD = sr.LAUNCHES_SOFT_FWD_MASKED = 0
     sr.LAUNCHES_SOFT_BWD = sr.LAUNCHES_SOFT_BWD_MASKED = 0
@@ -875,10 +910,11 @@ def stl_frame(dev, path, size: int):
 
 def soft_case(scene, camera, cfg) -> dict:
     """The soft kernels' inputs for a frame, as rasterize_soft builds them
-    (kernels/soft_raster.py::soft_inputs), on detached tensors."""
-    from raytpu_torch.kernels import soft_raster as sr
+    (render/soft.py::rasterize_soft_inputs), on detached tensors."""
+    from raytpu_torch.render.soft import rasterize_soft_inputs
     with torch.no_grad():
-        consts, chunk, mask, es, zs = sr.soft_inputs(scene, camera, cfg)
+        consts, chunk, mask, es, zs = rasterize_soft_inputs(scene, camera,
+                                                            cfg)
     return dict(consts=consts.contiguous(), chunk=chunk, mask=mask, es=es,
                 zs=zs, H=cfg.height, W=cfg.width)
 
@@ -1155,6 +1191,505 @@ def one_signed(shape, device, seed: int) -> torch.Tensor:
 
 def delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def occlusion_case(dev, scene, camera, size: int, lights, samples: int,
+                   masked: bool) -> dict:
+    """K7b's or K7c's inputs as the sharded renderer's 1 x 1 block makes
+    them for the first sub-ray of a size^2 frame: the single-card hit
+    positions (K5 over the whole scene, the camera position on a miss),
+    the sources' constants (light-major, sample-minor) and, masked, the
+    port's 16 x 16 tiles and kernels/intersect.py::position_mask."""
+    from raytpu_torch import RenderConfig
+    from raytpu_torch.core.types import pixel_grid
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels.tables import source_table, tight_chunk
+    from raytpu_torch.ops.intersect import tri_constants
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.raytrace import camera_ray_dirs
+    with torch.no_grad():
+        cfg = RenderConfig(width=size, height=size)
+        dirs = camera_ray_dirs(*pixel_grid(size, size, dev), camera, cfg)
+        c = tri_constants(scene, camera.pos)
+        t, idx = isect.closest_hit(dirs, c.m, c.k0, c.valid)
+        pos = camera.pos + torch.where(idx >= 0, t, 0.0)[:, None] * dirs
+        src = source_positions(lights, samples).contiguous()
+        cs = tri_constants(scene, src)
+        C = tight_chunk(scene.num_triangles, cfg.tri_chunk)
+        case = dict(pos=pos.contiguous(), m_s=cs.m, k0_s=cs.k0, src=src,
+                    valid=scene.active, C=C, tri_chunk=cfg.tri_chunk,
+                    table=source_table(cs.m, cs.k0, scene.active, C),
+                    mask=None, tiles=None, hit=float((idx >= 0).float()
+                                                     .mean()))
+        if masked:
+            case["tiles"] = isect.ray_tiles(size * size, (size, size), dev)
+            case["mask"] = isect.position_mask(
+                pos, case["tiles"], (scene.v0, scene.v1, scene.v2),
+                scene.active, src, C)
+    return case
+
+
+def run_occlusion(case: dict, mask="own", plain: bool = False):
+    """K7b (no mask) or K7c on an occlusion_case through the wrapper, or
+    the plain version; ``mask`` None forces K7b."""
+    from raytpu_torch.kernels import intersect as isect
+    c = case
+    mask = c["mask"] if isinstance(mask, str) else mask
+    if plain:
+        if mask is None:
+            return isect.occlusion_reference(c["pos"], c["table"], c["C"],
+                                             c["src"])
+        return isect.occlusion_masked_reference(c["pos"], c["table"], c["C"],
+                                                c["src"], mask, c["tiles"])
+    return isect.occlusion_multi(c["pos"], c["m_s"], c["k0_s"], c["src"],
+                                 c["valid"], c["tri_chunk"], mask,
+                                 c["tiles"])
+
+
+def occlusion_tests(case: dict) -> int:
+    """Plane tests K7b or K7c make on an occlusion_case: each point, for
+    each source, through the chunks its tile keeps (every chunk, K7b) in
+    order, up to its first blocker (t < 0.99)."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.ops.intersect import plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
+    c = case
+    R, C = c["pos"].shape[0], c["C"]
+    n = c["table"].shape[1] // C
+    total = 0
+    for s in range(c["src"].shape[0]):
+        sweeping = torch.ones(R, dtype=torch.bool, device=c["pos"].device)
+        for ch in range(n):
+            keep = sweeping
+            if c["mask"] is not None:
+                keep = keep & (c["mask"][c["tiles"].tile, s * n + ch] != 0)
+            rows = torch.nonzero(keep).squeeze(1)
+            if rows.numel() == 0:
+                continue
+            ts, oks = plane_tests(c["pos"][rows] - c["src"][s][None, :],
+                                  *isect._chunk(c["table"], s, ch, C))
+            blocked = oks & (ts < SHADOW_T)
+            any_ = blocked.any(dim=1)
+            first = blocked.float().argmax(dim=1) + 1
+            total += int(torch.where(any_, first, C).sum())
+            sweeping[rows[any_]] = False
+    return total
+
+
+def occlusion_bound(case: dict) -> tuple[float, str]:
+    """K7b's or K7c's bound: 12 B in and 4 S B out a point, the table, the
+    sources and the mask read once, FLOPS_PLANE_TEST a plane test of
+    occlusion_tests."""
+    c = case
+    R, S = c["pos"].shape[0], c["src"].shape[0]
+    nbytes = R * (12 + 4 * S) + (c["table"].numel() + 3 * S) * 4
+    if c["mask"] is not None:
+        nbytes += c["mask"].numel() * 4
+    return bound_ms(nbytes, FLOPS_PLANE_TEST * occlusion_tests(c))
+
+
+def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
+    """Phases 29-31: K7b, K7c and K8a against their plain versions, the
+    sharded serving frames and the sharded train step and fit on a 1 x 1
+    NCCL mesh. Returns the three kernels' entries of the kernels line."""
+    from raytpu_torch import Camera, Lights, RenderConfig, cornell_box
+    from raytpu_torch import load_stl
+    from raytpu_torch.cli.main import main as cli_main
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.opt.fit import FitConfig, fit
+    from raytpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+    from raytpu_torch.parallel import render as pr
+    from raytpu_torch.render.raytrace import raytrace_full
+    from raytpu_torch.render.soft import (
+        rasterize_exact,
+        rasterize_soft,
+        raytrace_soft,
+    )
+
+    say("== phase 29: K7b, K7c and K8a against their plain versions on the "
+        "card")
+    mesh9028 = load_stl(str(stl_path), device=dev)
+    one = Lights.single(capacity=1, device=dev)
+    occ_cases = {
+        # K7b: the 512^2 Cornell frame's hit points toward the bench's
+        # full-feature sources (2 lights x 16 samples, S = 32).
+        "cornell_512_s32": occlusion_case(
+            dev, cornell_box(pad_to=32, device=dev),
+            Camera.raytracer_default(device=dev), 512,
+            full_feature_lights(dev), 16, masked=False),
+        # K7c: the bench's stl_intersect frame (the mesh padded to 9,216 at
+        # 512^2, the rasteriser camera), S = 1 and S = 16.
+        "stl_512_s1": occlusion_case(
+            dev, mesh9028.pad_to(9216), Camera.rasterizer_default(device=dev),
+            512, one, 1, masked=True),
+        "stl_512_s16": occlusion_case(
+            dev, mesh9028.pad_to(9216), Camera.rasterizer_default(device=dev),
+            512, Lights.single(capacity=1, soft_samples=16, device=dev), 16,
+            masked=True),
+    }
+    err = {"k7b": 0.0, "k7c": 0.0, "k8a": 0.0}
+    zero_counts()
+    for name, c in occ_cases.items():
+        key = "k7b" if c["mask"] is None else "k7c"
+        before = kernel_counts()
+        got, again = run_occlusion(c), run_occlusion(c)
+        launched = delta(before, kernel_counts())
+        want = run_occlusion(c, plain=True)
+        brute = run_occlusion(c, mask=None) if key == "k7c" else got
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        keep = (float(c["mask"].float().mean()) if c["mask"] is not None
+                else 1.0)
+        say(f"{key.upper()} {name} (S = {c['src'].shape[0]}, {c['C']}-"
+            f"triangle chunks of {c['table'].shape[1]}, keep rate "
+            f"{keep:.4f}, hit points {c['hit']:.4f}): mismatches vs plain "
+            f"{mism}, = K7b {torch.equal(got, brute)}, two calls identical "
+            f"{torch.equal(got, again)}; occluded {int(got.sum())}; launches "
+            f"{launched}")
+        require(mism == 0, f"{name}: {key.upper()} bit-identical to plain")
+        require(torch.equal(got, brute), f"{name}: culled K7c = K7b")
+        require(torch.equal(got, again), f"{name}: two calls identical")
+        require(bool(got.any()) and not bool(got.all()),
+                f"{name}: some points occluded, not all")
+        want_l = {"occlusion" if key == "k7b" else "occlusion_masked": 2}
+        require(launched == want_l, f"{name}: exact launch counts")
+        err[key] = max(err[key], float((got - want).abs().max()))
+        del again, want, brute
+
+    k8_frame = stl_frame(dev, stl_path, 512)
+    k8 = raster_case(k8_frame[0], k8_frame[1], k8_frame[3])
+    consts = k8["consts"]
+    before = kernel_counts()
+    full = raster.raster_winner_chunked(consts, 512, 512, 128)
+    full_again = raster.raster_winner_chunked(consts, 512, 512, 128)
+    half = raster.raster_winner_chunked(consts, 256, 512, 128, y0=256)
+    launched = delta(before, kernel_counts())
+    want_full = raster.resolve_winner_chunked_reference(consts, 512, 512, 128)
+    want_half = raster.resolve_winner_chunked_reference(consts, 256, 512, 128,
+                                                        y0=256)
+    masked = run_winner(k8)
+    torch.cuda.synchronize()
+    say(f"K8a on the mesh at 512^2 (T = {consts.shape[0]}, "
+        f"{-(-consts.shape[0] // 128)} chunks): winner mismatches vs plain "
+        f"{int((full != want_full).sum())}, the lower half (y0 = 256) "
+        f"{int((half != want_half).sum())}, = the frame's rows "
+        f"{torch.equal(half, full[256 * 512:])}, = K8c "
+        f"{torch.equal(full, masked)}, two calls identical "
+        f"{torch.equal(full, full_again)}; covered "
+        f"{float((full >= 0).float().mean()):.4f}; launches {launched}")
+    require(torch.equal(full, want_full) and torch.equal(half, want_half),
+            "K8a bit-identical to plain at y0 = 0 and 256")
+    require(torch.equal(half, full[256 * 512:]) and torch.equal(full, masked)
+            and torch.equal(full, full_again),
+            "K8a's half block = the frame's rows = K8c; repeats identical")
+    require(launched == {"raster_winner_chunked": 3},
+            "exactly three K8a launches")
+    require(bool((full >= 0).any()), "the mesh is in view")
+    del full_again, want_full, want_half, masked, half
+
+    say("== phase 30: sharded serving on a 1 x 1 NCCL mesh")
+    state = init_distributed()
+    mesh = make_mesh(1, 1)
+    say(f"process group: {state.backend}, world {state.num_processes}, rank "
+        f"{state.process_id} on {state.device}; mesh {mesh}")
+    require(state.backend == "nccl" and state.num_processes == 1,
+            "one NCCL rank")
+    stl_lit = (mesh9028, stl_camera(dev),
+               Lights.single(capacity=1, position=(0.3, -1.5, -3.0),
+                             device=dev),
+               RenderConfig(width=512, height=512, mode="clean"))
+    hard_frames = {"clean_512": bench_frame(dev, 512),
+                   "full_feature_512": full_feature_frame(dev, 512),
+                   "stl_512": stl_lit}
+    raster_frames = {"raster_512": raster_bench_frame(dev, 512),
+                     "raster_stl_512": k8_frame}
+    soft40 = dict(mode="soft", soft_edge_sharpness=40.0,
+                  soft_z_sharpness=40.0)
+    soft_frames = {
+        "soft_rasterize_512": (
+            cornell_box(pad_to=32, device=dev),
+            Camera.rasterizer_default(device=dev), one,
+            RenderConfig(width=512, height=512, **soft40)),
+        "soft_raytrace_512": (
+            cornell_box(pad_to=32, device=dev),
+            Camera.raytracer_default(device=dev), one,
+            RenderConfig(width=512, height=512, **soft40))}
+    sharded = {}
+    for name, f in hard_frames.items():
+        sharded[name] = (pr.make_sharded_render(mesh, f[3]), f)
+    for name, f in raster_frames.items():
+        sharded[name] = (pr.make_sharded_rasterize(mesh, f[3]), f)
+    for name, f in soft_frames.items():
+        sharded[name] = (pr.make_sharded_soft_render(
+            mesh, f[3], name.split("_")[1]), f)
+    zero_counts()
+    with torch.no_grad():
+        images = {name: fn(*f[:3]) for name, (fn, f) in sharded.items()}
+    torch.cuda.synchronize()
+    serve = {k: v for k, v in kernel_counts().items() if v}
+    say(f"sharded serving, 7 frames: launches {serve}")
+    require(serve == {"closest_hit": 10, "occlusion": 10,
+                      "closest_hit_masked": 1, "occlusion_masked": 1,
+                      "raster_winner": 1, "raster_winner_chunked": 1,
+                      "soft_raster_fwd": 1, "soft_rt_pri_fwd": 1,
+                      "soft_rt_shw_fwd": 1},
+            "the sharded frames launch K5 + K7b (1 + 9 sub-rays), K7d + "
+            "K7c, K8b, K8a, K9a, K10a + K10g, nothing else")
+
+    def single(name, f):
+        s, c, li, cfg = f
+        if name in hard_frames:
+            return raytrace_full(s, c, li, cfg).image
+        if name in raster_frames:
+            return rasterize_exact(s, c, li, cfg)
+        return (rasterize_soft if "rasterize" in name else raytrace_soft)(
+            s, c, li, cfg)
+
+    frame_err, frame_ms = {}, {}
+    for name, (fn, f) in sharded.items():
+        with torch.no_grad():
+            want = single(name, f)
+            diff = (images[name] - want).abs()
+            soft = name.startswith("soft")
+            tol = 1e-6 + (1e-5 * want.abs() if soft else 0.0)
+            frame_err[name] = float(diff.max())
+            require(bool((diff <= tol).all()) and bool(
+                torch.isfinite(images[name]).all()),
+                f"{name}: the sharded frame = the single-card frame within "
+                f"{'atol 1e-6 / rtol 1e-5' if soft else 'atol 1e-6'}")
+            require(float(images[name].max()) > 0.0, f"{name}: not black")
+            frame_ms[name] = median_ms_in_turns(
+                {"sharded": lambda fn=fn, f=f: fn(*f[:3]),
+                 "single": lambda name=name, f=f: single(name, f)},
+                n=1, reps=5)
+    del images
+    card = card_line()
+    for name, t in frame_ms.items():
+        say(f"{name}: max |sharded - single| {frame_err[name]:.3g}; "
+            f"{t['sharded']:.4f} ms a sharded frame, {t['single']:.4f} ms "
+            f"the single-card frame (CUDA events, median of 5; {card})")
+    # Where the full-feature frame's time goes, sharded and single-card.
+    fn, f = sharded["full_feature_512"]
+    with torch.no_grad():
+        frame_busy = {
+            "sharded": device_busy(lambda: fn(*f[:3]), steps=3),
+            "single": device_busy(
+                lambda: single("full_feature_512", f), steps=3)}
+    for side, b in frame_busy.items():
+        say(f"full_feature_512 {side} frame under the profiler: device busy "
+            f"{b['busy_ms']:.4f} ms a frame in {b['kernels']} events, "
+            f"{b['wall_ms']:.4f} ms on the host clock (share {b['share']})")
+        for kname, ms in b["by_name"][:6]:
+            say(f"  {ms:.5f} ms  {kname[:100]}")
+
+    say("== phase 31: the sharded train step and fit on 1 x 1")
+    rng = np.random.default_rng(31)
+    steps = {
+        "clean_512": (bench_frame(dev, 512), "raytrace", None),
+        "soft_rasterize_512": (soft_frames["soft_rasterize_512"],
+                               "rasterize", rasterize_soft),
+        "soft_raytrace_512": (soft_frames["soft_raytrace_512"], "raytrace",
+                              raytrace_soft)}
+    step_err, step_fns, train_launches = {}, {}, {}
+    for name, (f, renderer, soft_fn) in steps.items():
+        s, c, li, cfg = f
+        target = torch.tensor(rng.uniform(0.0, 0.5, (512, 512, 3)).astype(
+            np.float32), device=dev)
+        train, _ = pr.make_sharded_train_step(mesh, cfg, renderer=renderer)
+        st = pr.train_state(s, li, lambda p: torch.optim.SGD(p, lr=1e-9))
+        ref = pr.train_state(s, li, lambda p: torch.optim.SGD(p, lr=1e-9))
+        if soft_fn is None:
+            # The single-card loop branch: the sharded block's own ops.
+            ref_cfg = cfg.replace(megakernel=False)
+
+            def ref_img(st_, c=c, cfg_=ref_cfg):
+                return raytrace_full(st_.scene, c, st_.lights, cfg_).image
+        else:
+            def ref_img(st_, c=c, cfg_=cfg, fn=soft_fn):
+                return fn(st_.scene, c, st_.lights, cfg_)
+
+        def ref_step(st_=ref, ref_img=ref_img, target=target):
+            for p in pr.leaves(st_.scene, st_.lights):
+                p.grad = None
+            loss = torch.mean((ref_img(st_) - target) ** 2)
+            loss.backward()
+            st_.optimizer.step()
+            return loss.detach()
+
+        zero_counts()
+        loss = train(st, c, target)
+        torch.cuda.synchronize()
+        train_launches[name] = {k: v for k, v in kernel_counts().items()
+                                if v}
+        want_loss = ref_step()
+        worst = 0.0  # the largest error as a fraction of its tolerance
+        for i, (g, w) in enumerate(zip(
+                (p.grad for p in pr.leaves(st.scene, st.lights)),
+                (p.grad for p in pr.leaves(ref.scene, ref.lights)))):
+            w = torch.zeros_like(g) if w is None else w
+            require(bool(torch.isfinite(g).all()), f"{name}: finite grad")
+            # The soft leaves scaled by their largest entry, as the CPU
+            # tests hold them (tests/test_torch_parallel.py).
+            scale = (max(float(w.abs().max()), 1e-3) if soft_fn is not None
+                     else 1.0)
+            frac = ((g - w).abs() / scale) / (GRAD_ATOL
+                                             + GRAD_RTOL * w.abs() / scale)
+            worst = max(worst, float(frac.max()))
+            require(bool((frac <= 1.0).all()),
+                    f"{name}: leaf {i}'s gradient = the single-card step's "
+                    f"(rtol {GRAD_RTOL} / atol {GRAD_ATOL})")
+        lrel = abs(float(loss) - float(want_loss)) / float(want_loss)
+        require(lrel <= GRAD_RTOL, f"{name}: loss = the single-card loss")
+        step_err[name] = dict(loss=float(loss), single_loss=float(want_loss),
+                              loss_rel=lrel, grad_of_tolerance=worst)
+        step_fns[name] = (lambda train=train, st=st, c=c, target=target:
+                          train(st, c, target), ref_step)
+        say(f"{name} sharded step: loss {float(loss):.8g} (single-card "
+            f"{float(want_loss):.8g}, rel {lrel:.3g}); every gradient within "
+            f"the rule (worst {worst:.3g} of the tolerance); launches "
+            f"{train_launches[name]}")
+    require(train_launches == {
+        "clean_512": {"closest_hit": 1, "occlusion": 1},
+        "soft_rasterize_512": {"soft_raster_fwd": 1, "soft_raster_bwd": 1},
+        "soft_raytrace_512": {"soft_rt_pri_fwd": 1, "soft_rt_pri_bwd": 1,
+                              "soft_rt_shw_fwd": 1, "soft_rt_shw_bwd": 1}},
+        "each sharded step launches exactly its kernels once")
+    step_ms, step_busy, step_peak = {}, {}, {}
+    for name, (fn, ref_fn) in step_fns.items():
+        step_ms[name] = median_ms_in_turns({"sharded": fn, "single": ref_fn},
+                                           n=1, reps=5)
+        step_busy[name] = device_busy(fn, steps=3)
+        step_peak[name] = {}
+        for side, f_ in (("sharded", fn), ("single", ref_fn)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            f_()
+            torch.cuda.synchronize()
+            step_peak[name][side] = torch.cuda.max_memory_allocated() / 1e9
+    card = card_line()
+    for name in step_fns:
+        b = step_busy[name]
+        say(f"{name}: sharded step {step_ms[name]['sharded']:.4f} ms, "
+            f"single-card {step_ms[name]['single']:.4f} ms (median of 5); "
+            f"device busy {b['busy_ms']:.4f} ms a step in {b['kernels']} "
+            f"events, {b['wall_ms']:.4f} ms on the host clock under the "
+            f"profiler (share {b['share']}); peak "
+            f"{step_peak[name]['sharded']:.3f} GB (single-card "
+            f"{step_peak[name]['single']:.3f} GB) ({card})")
+        for kname, ms in b["by_name"][:5]:
+            say(f"  {ms:.5f} ms  {kname[:100]}")
+
+    # fit(mesh=...) against fit: 6 steps of the fit CLI's frame at 128^2.
+    from raytpu_torch.core.image import read_bmp, write_bmp
+    fit_cam = Camera.make((0.0, 0.0, -3.0), focal=128.0, y_scale=1.01,
+                          device=dev)
+    fit_cfg_r = RenderConfig(width=128, height=128, mode="soft")
+    with torch.no_grad():
+        fit_target = rasterize_soft(cornell_box(device=dev), fit_cam, one,
+                                    fit_cfg_r.replace(
+                                        soft_edge_sharpness=40.0,
+                                        soft_z_sharpness=200.0))
+
+    def run_fit(m):
+        return fit(fit_target, cornell_box(device=dev), fit_cam,
+                   Lights.single(capacity=1, intensity=10.0, device=dev),
+                   fit_cfg_r, FitConfig(steps=6),
+                   mesh=m).losses
+
+    zero_counts()
+    fit_sharded = run_fit(mesh)
+    fit_launches = {k: v for k, v in kernel_counts().items() if v}
+    fit_single = run_fit(None)
+    require(np.allclose(fit_sharded, fit_single, rtol=1e-4, atol=0.0),
+            "fit(mesh=1x1) follows fit at rtol 1e-4")
+    require(fit_launches == {"soft_raster_fwd": 6, "soft_raster_bwd": 6},
+            "one K9a and one K9c a sharded fit step")
+    say(f"fit(mesh=1x1), 6 steps at 128^2: losses {fit_sharded.tolist()} "
+        f"(fit: {fit_single.tolist()}); launches {fit_launches}")
+    target_bmp = OUT / "sharded_fit_target.bmp"
+    write_bmp(str(target_bmp), fit_target.cpu().numpy())
+    cli_out = OUT / "sharded_fit.bmp"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli_main(["fit", str(target_bmp), "--steps", "4", "--mesh", "1x1",
+                  "-o", str(cli_out)])  # shuts the process group down
+    # fit() on what the CLI reads: the BMP's u8 target, focal = its width.
+    want_line = fit(read_bmp(str(target_bmp)).astype(np.float32) / 255.0,
+                    cornell_box(device=dev), fit_cam,
+                    Lights.single(capacity=1, intensity=10.0, device=dev),
+                    fit_cfg_r, FitConfig(steps=4)).losses[-1]
+    say(f"fit --mesh 1x1: {printed.getvalue().strip()!r} (fit: final loss "
+        f"{want_line:.6f})")
+    require(f"final loss: {want_line:.6f}" in printed.getvalue()
+            and cli_out.exists(), "fit --mesh 1x1 prints fit's final loss "
+                                  "and writes its frame")
+    shutdown_distributed()
+
+    record.update(sharded_err=err, sharded_serve=serve,
+                  sharded_frame_err=frame_err, sharded_frame_ms=frame_ms,
+                  sharded_frame_busy=frame_busy,
+                  sharded_steps=step_err, sharded_train=train_launches,
+                  sharded_step_ms=step_ms, sharded_step_busy=step_busy,
+                  sharded_step_peak=step_peak,
+                  sharded_fit=[fit_sharded.tolist(), fit_single.tolist()])
+
+    # Card numbers of the kernels alone.
+    timings = {}
+    for name, c in occ_cases.items():
+        t = median_ms_in_turns({"kernel": lambda c=c: run_occlusion(c)},
+                               n=5, reps=5, timer=held_ms)
+        t.update(median_ms_in_turns(
+            {"plain": lambda c=c: run_occlusion(c, plain=True)}, n=1,
+            reps=1))
+        t["bound"] = occlusion_bound(c)
+        timings[name] = t
+    t = median_ms_in_turns(
+        {"kernel": lambda: raster.raster_winner_chunked(consts, 512, 512,
+                                                        128)},
+        n=5, reps=5, timer=held_ms)
+    t.update(median_ms_in_turns(
+        {"plain": lambda: raster.resolve_winner_chunked_reference(
+            consts, 512, 512, 128)}, n=1, reps=1))
+    valid = int((consts[:, 12] > 0.0).sum())
+    t["bound"] = bound_ms(consts.numel() * 4 + 512 * 512 * 4,
+                          FLOPS_RASTER_TEST * 512 * 512 * valid)
+    timings["k8a_stl_512"] = t
+    card = card_line()
+    for name, t in timings.items():
+        say(f"{name}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} "
+            f"ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) ({card})")
+    record["sharded_kernels"] = timings
+
+    def entry(name, key, case, launches, replaces, extra=None):
+        t = timings[case]
+        e = dict(name=name, route="cuda",
+                 source=("raytpu_torch/csrc/raster.cu" if key == "k8a"
+                         else "raytpu_torch/csrc/intersect.cu"),
+                 replaces=replaces, launches=launches, max_abs_err=err[key],
+                 ms=t["kernel"], plain_ms=t["plain"], bound_ms=t["bound"][0],
+                 bound_by=t["bound"][1], library_ms=None)
+        if extra is not None:
+            x = timings[extra]
+            e[extra] = dict(ms=x["kernel"], plain_ms=x["plain"],
+                            bound_ms=x["bound"][0], bound_by=x["bound"][1])
+        return e
+
+    return [
+        entry("occlusion", "k7b", "cornell_512_s32", serve["occlusion"],
+              replaces="raytpu/kernels/intersect_pallas.py:912"),
+        entry("occlusion_masked", "k7c", "stl_512_s1",
+              serve["occlusion_masked"],
+              replaces="raytpu/kernels/intersect_pallas.py:950",
+              extra="stl_512_s16"),
+        entry("raster_winner_chunked", "k8a", "k8a_stl_512",
+              serve["raster_winner_chunked"],
+              replaces="raytpu/kernels/raster_pallas.py:39"),
+    ]
 
 
 def main() -> int:
@@ -2358,7 +2893,7 @@ def main() -> int:
 
     def cull_render(cull):
         def render(s, c, li, cfg):
-            return sr.rasterize_soft_kernel(s, c, li, cfg, cull=cull)
+            return rasterize_soft(s, c, li, cfg, cull=cull)
         return render
 
     step_soft = train_step(*soft_bench_frame(512), 1e-9, target_scale=0.9,
@@ -3533,6 +4068,8 @@ def main() -> int:
                   rtm_train=rtm_train, rtm_losses=losses, rtm_ms=rtm_ms,
                   rtm_peak=rtm_peak, rtm_busy=rtm_busy, rtm_k=rtm_k)
 
+    sharded_entries = sharded_phases(dev, stl_path, record)
+
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
     def bwd_checks(prefix: str) -> dict:
@@ -3715,6 +4252,7 @@ def main() -> int:
                    replaces="raytpu/kernels/soft_raytrace_pallas.py:945"),
         k10m_entry("shw_bwd", "k10j", rtm_train[k10j],
                    replaces="raytpu/kernels/soft_raytrace_pallas.py:1031"),
+        *sharded_entries,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,8 +17,11 @@ sorts them), through the chunk-culled intersection kernel K7a.
 raytracer; ``render --mode soft --stl`` culls chunks where the JAX package
 would (an image that blocks into its 1,024-pixel tiles, such as 512^2:
 the masked kernels K10b and K10h) and runs every chunk where it would not
-(the CLI's 500^2). ``fit --mesh`` raises NotImplementedError naming
-ROADMAP.md port item 8.
+(the CLI's 500^2). ``fit --mesh DATAxMODEL`` trains through the sharded
+soft renderer on a (data, model) mesh of the job's ranks: under
+``torchrun --nproc-per-node N`` (N = DATA x MODEL, rank r on cuda:r, or
+gloo with ``--device cpu``); a plain ``python -m`` is one rank, a 1x1
+mesh. Rank 0 alone prints and writes files.
 """
 
 from __future__ import annotations
@@ -156,7 +159,26 @@ def cmd_fit(args):
     """Fit the Cornell box's vertices, albedo and light to a target BMP
     (``cmd_fit`` of the JAX CLI): camera (0, 0, -3) at focal = the target's
     width, y_scale 1.01; one light of capacity 1 at --init-intensity; the
-    result rendered at sharpness 400 / 4000 to --output."""
+    result rendered at sharpness 400 / 4000 to --output. With --mesh the
+    job's ranks train on a DATAxMODEL mesh (init_distributed: torchrun's
+    environment, or one rank), each on its own device."""
+    device = _device(args.device)
+    mesh = None
+    if args.mesh:
+        from raytpu_torch.parallel import init_distributed, make_mesh
+        data, model = (int(x) for x in args.mesh.lower().split("x"))
+        state = init_distributed(device=device.type)
+        device = state.device
+        mesh = make_mesh(data, model, device=device.type)
+    try:
+        _fit_and_write(args, device, mesh)
+    finally:
+        if mesh is not None:
+            from raytpu_torch.parallel import shutdown_distributed
+            shutdown_distributed()
+
+
+def _fit_and_write(args, device, mesh):
     import numpy as np
     import torch
 
@@ -166,11 +188,6 @@ def cmd_fit(args):
     from raytpu_torch.opt.fit import FitConfig, fit
     from raytpu_torch.render.soft import rasterize_soft
 
-    if args.mesh:
-        raise NotImplementedError(
-            "fit --mesh trains through the sharded soft renderer: ROADMAP.md "
-            "port item 8")
-    device = _device(args.device)
     target = read_bmp(args.target).astype(np.float32) / 255.0
     h, w, _ = target.shape
     scene = cornell_box(device=device)
@@ -182,7 +199,9 @@ def cmd_fit(args):
     fit_cfg = FitConfig(steps=args.steps, renderer=args.renderer,
                         checkpoint_dir=args.checkpoint_dir)
     result = fit(target, scene, camera, lights, cfg, fit_cfg,
-                 resume_from=args.resume)
+                 resume_from=args.resume, mesh=mesh)
+    if mesh is not None and mesh.get_rank() != 0:
+        return
     print(f"final loss: {result.losses[-1]:.6f}")
     if args.output:
         with torch.no_grad():
@@ -249,8 +268,9 @@ def main(argv=None):
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", default=None)
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="shard the fit over a device mesh (not ported: "
-                        "ROADMAP.md port item 8)")
+                   help="shard the fit over a (data, model) mesh of the "
+                        "job's ranks (torchrun --nproc-per-node "
+                        "DATA*MODEL)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
     p.set_defaults(func=cmd_fit)

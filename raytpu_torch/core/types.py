@@ -97,11 +97,11 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _MatMulF32.apply(a, b)
 
 
-def pixel_grid(height: int, width: int, device):
+def pixel_grid(height: int, width: int, device, y0: int = 0):
     """Integer pixel coordinates (x, y) as float32 (H*W,) grids,
-    row-major."""
+    row-major, of rows [y0, y0 + height) of a frame ``width`` wide."""
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(height, dtype=torch.float32, device=device) + float(y0),
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij",
     )

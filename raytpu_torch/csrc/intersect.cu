@@ -1,5 +1,6 @@
 // Closest hit, with and without shadow occlusion, for Hopper (sm_90a): K4,
-// K6, and over several chunks K5, K7d and K7a.
+// K6, and over several chunks K5, K7d and K7a; and the occlusion of known
+// points, K7b and K7c.
 //
 // K4, closest_hit_occluded_kernel, replaces
 // raytpu/kernels/intersect_pallas.py::_fused_kernel (launched by
@@ -91,6 +92,25 @@
 // have hits, and each would run S sweeps in turn. Threads of a tile past
 // the image's edge take part in the staging and the barriers and write
 // nothing.
+//
+// K7b and K7c, occlusion_points_kernel<false> and <true>, replace
+// intersect_pallas.py::_occlusion_multi_kernel (launched at :1078 by
+// occlusion_multi_pallas) and ::_occlusion_multi_kernel_masked (launched at
+// :1063 for a block of several chunks given its vertices): the any-hit
+// shadow test (t < 0.99) of S sources toward KNOWN points, with no primary
+// phase. The sharded renderer merges the primary closest hit across the
+// triangle shards before any shadow ray exists, so each shard runs these on
+// the merged hit positions against its own triangle block
+// (raytpu_torch/parallel/render.py::_merged_occlusion_rows). Block (tile,
+// s), one thread a point: the ray is pos - src[s], swept over source s's
+// chunks (K7c: the chunks its (tile, s) mask columns keep, skipped
+// block-uniformly) as occlusion_masked_kernel sweeps, a point stopping at
+// its first blocker and the block leaving once none of its points still
+// sweeps. Unlike K7a every point is tested, a miss's camera-origin point
+// included, as the JAX kernels test every point; the masks of
+// kernels/cull.py::position_shadow_mask are conservative for every point,
+// so K7c's bits equal K7b's. Bound: 20 float operations a plane test to the
+// first blocker against 12 B in and 4 S B out a point: operations.
 //
 // Bound of K5 at 512^2 x 9,216 triangles: 2.42 G plane tests of ~20 float
 // operations, 0.72 ms at 67 TFLOP/s against 12 + 8 B a ray and 0.37 MB of
@@ -349,6 +369,49 @@ __global__ void __launch_bounds__(kThreads)
     occ_out[static_cast<size_t>(s) * H * W + ray.r] = occ ? 1 : 0;
 }
 
+// K7b (Masked false) and K7c: block (tile, s) tests the tile's points
+// against source s's chunks (the kept ones, K7c), each point from the first
+// chunk to its first blocker.
+template <bool Masked>
+__global__ void __launch_bounds__(kThreads)
+    occlusion_points_kernel(const float* __restrict__ pos,
+                            const float* __restrict__ table, int Tp, int C,
+                            const float* __restrict__ src, int S,
+                            const int* __restrict__ mask, int H, int W,
+                            int th, int* __restrict__ occ_out) {
+  __shared__ float s_blk[kBlockRows * kMaxTris];
+  const TileRay ray = tile_ray(H, W, th);
+  const int s = blockIdx.y;
+  const int n_chunks = Tp / C;
+  const int* keep =
+      Masked ? mask + static_cast<size_t>(blockIdx.x) * S * n_chunks +
+                   static_cast<size_t>(s) * n_chunks
+             : nullptr;
+  const float* blk = table + static_cast<size_t>(s) * kBlockRows * Tp;
+  float ex = 0.0f, ey = 0.0f, ez = 0.0f;
+  if (ray.valid) {
+    ex = pos[3 * ray.r] - src[3 * s];
+    ey = pos[3 * ray.r + 1] - src[3 * s + 1];
+    ez = pos[3 * ray.r + 2] - src[3 * s + 2];
+  }
+  bool sweeping = ray.valid;
+  bool occ = false;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (Masked && keep[c] == 0) continue;  // block-uniform
+    // A barrier (the previous chunk is read) that also tells whether any
+    // point of the tile still sweeps.
+    if (!__syncthreads_or(sweeping)) break;
+    stage(s_blk, blk, Tp, C, c);
+    __syncthreads();
+    if (sweeping && blocked(s_blk, C, ex, ey, ez)) {
+      occ = true;
+      sweeping = false;
+    }
+  }
+  if (ray.valid)
+    occ_out[static_cast<size_t>(s) * H * W + ray.r] = occ ? 1 : 0;
+}
+
 }  // namespace
 
 // dirs (R, 3), table (20, C), cam (3,), light (3,) float32 device pointers;
@@ -446,5 +509,35 @@ extern "C" int raytpu_closest_hit_occluded_masked(
       C, static_cast<const float*>(cam), static_cast<const float*>(src), S,
       static_cast<const int*>(mask), H, W, th, static_cast<const float*>(t),
       static_cast<int*>(occ));
+  return (int)cudaGetLastError();
+}
+
+// pos (R = H * W, 3), table (S * 10, Tp), src (S, 3) float32 device
+// pointers, Tp a multiple of the chunk C <= 128; mask null (K7b: tiles of
+// 256 consecutive points, pass H = 1, W = R, th = 1) or the (n_tiles, S *
+// Tp / C) int32 keep-mask over the tiles of th x (256 / th) points of the
+// H x W grid (K7c); occ (S, R) int32 output. Launches a block a (tile,
+// source) on `stream` and returns the launch's cudaError_t.
+extern "C" int raytpu_occlusion_points(const void* pos, const void* table,
+                                       int Tp, int C, const void* src, int S,
+                                       const void* mask, int H, int W, int th,
+                                       void* occ, void* stream) {
+  if (C < 1 || C > kMaxTris || Tp < C || Tp % C != 0 || S < 1 ||
+      S > 65535 || H < 0 || W < 0 || th < 1 || kThreads % th != 0)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0 || W == 0) return (int)cudaSuccess;
+  const int tw = kThreads / th;
+  const dim3 grid(((H + th - 1) / th) * ((W + tw - 1) / tw), S);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(pos);
+  const float* tab = static_cast<const float*>(table);
+  const float* sp = static_cast<const float*>(src);
+  int* o = static_cast<int*>(occ);
+  if (mask == nullptr)
+    occlusion_points_kernel<false><<<grid, kThreads, 0, st>>>(
+        p, tab, Tp, C, sp, S, nullptr, H, W, th, o);
+  else
+    occlusion_points_kernel<true><<<grid, kThreads, 0, st>>>(
+        p, tab, Tp, C, sp, S, static_cast<const int*>(mask), H, W, th, o);
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,11 @@
 // soft_raster_bwd_kernel<true> and the same sum, replace _bwd_kernel_masked.
 //
 // What they compute. For every pixel (x, y) of an H x W image (integer
-// coordinates, row-major r = y W + x) and every row of the (Tp, 32) float32
-// triangle table of kernels/soft_raster.py::soft_tri_constants, the logit
+// coordinates, row-major r = y W + x; the image is rows [y0, y0 + H) of the
+// frame, as the sharded soft rasterizer's row blocks are, so a pixel's y
+// coordinate is float(y0 + y), exact below 2^24) and every row of the
+// (Tp, 32) float32 triangle table of kernels/soft_raster.py::
+// soft_tri_constants, the logit
 //   zs zpx + log_sigmoid(es sdist) + log(valid + 1e-20)
 // and the 10 attribute values [albedo rgb, pos3d numerator xyz, zpx,
 // normal xyz] of _chunk_terms (soft_raster_pallas.py:146-242), with the
@@ -171,7 +174,8 @@ template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
     soft_raster_fwd_kernel(const float* __restrict__ consts, int n_chunks,
                            int chunk, const int* __restrict__ mask, int H,
-                           int W, float es, float zs, float* __restrict__ agg,
+                           int W, int y0, float es, float zs,
+                           float* __restrict__ agg,
                            float* __restrict__ m_out,
                            float* __restrict__ s_out) {
   __shared__ float s_c[kMaxChunk * kCols];
@@ -179,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
   const int x = blockIdx.x * kTile + threadIdx.x;
   const int y = blockIdx.y * kTile + threadIdx.y;
   const int tid = threadIdx.y * kTile + threadIdx.x;
-  const float px = static_cast<float>(x), py = static_cast<float>(y);
+  const float px = static_cast<float>(x), py = static_cast<float>(y0 + y);
   const int* keep =
       kMasked ? mask + static_cast<size_t>(blockIdx.y * gridDim.x +
                                            blockIdx.x) * n_chunks
@@ -434,7 +438,7 @@ template <bool kMasked>
 __global__ void __launch_bounds__(kMaxChunk* kSlices)
     soft_raster_bwd_kernel(const float* __restrict__ consts, int Tp,
                            int chunk, const int* __restrict__ mask, int H,
-                           int W, float es, float zs,
+                           int W, int y0, float es, float zs,
                            const float* __restrict__ m,
                            const float* __restrict__ cot, int groups,
                            float* __restrict__ partials) {
@@ -466,8 +470,8 @@ __global__ void __launch_bounds__(kMaxChunk* kSlices)
         float da[kCh];
 #pragma unroll
         for (int j = 0; j < kCh; ++j) da[j] = cot[(1 + j) * R + r];
-        pair_bwd(c, d, static_cast<float>(x), static_cast<float>(y), m[r],
-                 cot[r], da, es, zs, acc);
+        pair_bwd(c, d, static_cast<float>(x), static_cast<float>(y0 + y),
+                 m[r], cot[r], da, es, zs, acc);
       }
     }
   }
@@ -519,10 +523,11 @@ bool bad_shape(int Tp, int chunk, int H, int W) {
 
 // consts (Tp, 32) float32 device pointer in chunks of `chunk` <= 32 rows;
 // mask (tiles_y * tiles_x, Tp / chunk) int32 over 16 x 16 tiles row-major,
-// or null for K9a; agg (10, H * W), m and s (H * W,) float32 outputs.
+// or null for K9a; the image rows [y0, y0 + H) of the frame; agg (10, H * W),
+// m and s (H * W,) float32 outputs.
 // Launches K9a or K9b on `stream` and returns the launch's cudaError_t.
 extern "C" int raytpu_soft_raster_fwd(const void* consts, int Tp, int chunk,
-                                      const void* mask, int H, int W,
+                                      const void* mask, int H, int W, int y0,
                                       float es, float zs, void* agg, void* m,
                                       void* s, void* stream) {
   if (bad_shape(Tp, chunk, H, W)) return (int)cudaErrorInvalidValue;
@@ -535,10 +540,10 @@ extern "C" int raytpu_soft_raster_fwd(const void* consts, int Tp, int chunk,
         *so = static_cast<float*>(s);
   if (mk == nullptr) {
     soft_raster_fwd_kernel<false><<<grid, block, 0, st>>>(
-        c, Tp / chunk, chunk, mk, H, W, es, zs, a, mo, so);
+        c, Tp / chunk, chunk, mk, H, W, y0, es, zs, a, mo, so);
   } else {
     soft_raster_fwd_kernel<true><<<grid, block, 0, st>>>(
-        c, Tp / chunk, chunk, mk, H, W, es, zs, a, mo, so);
+        c, Tp / chunk, chunk, mk, H, W, y0, es, zs, a, mo, so);
   }
   return (int)cudaGetLastError();
 }
@@ -548,7 +553,7 @@ extern "C" int raytpu_soft_raster_fwd(const void* consts, int Tp, int chunk,
 // scratch; dc (Tp, 32) float32 output, every entry written. Launches K9c or
 // K9d and the sum over groups on `stream`; returns the first cudaError_t.
 extern "C" int raytpu_soft_raster_bwd(const void* consts, int Tp, int chunk,
-                                      const void* mask, int H, int W,
+                                      const void* mask, int H, int W, int y0,
                                       float es, float zs, const void* m,
                                       const void* cot, int groups,
                                       void* partials, void* dc,
@@ -566,10 +571,10 @@ extern "C" int raytpu_soft_raster_bwd(const void* consts, int Tp, int chunk,
   float* part = static_cast<float*>(partials);
   if (mk == nullptr) {
     soft_raster_bwd_kernel<false><<<grid, block, 0, st>>>(
-        c, Tp, chunk, mk, H, W, es, zs, mp, cp, groups, part);
+        c, Tp, chunk, mk, H, W, y0, es, zs, mp, cp, groups, part);
   } else {
     soft_raster_bwd_kernel<true><<<grid, block, 0, st>>>(
-        c, Tp, chunk, mk, H, W, es, zs, mp, cp, groups, part);
+        c, Tp, chunk, mk, H, W, y0, es, zs, mp, cp, groups, part);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

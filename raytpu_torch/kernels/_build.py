@@ -54,17 +54,20 @@ SIGNATURES = {
     # dirs, table, Tp, C, cam, src, S, mask, H, W, th, t, idx, occ, stream
     "raytpu_closest_hit_occluded_masked": [_P, _P, _I, _I, _P, _P, _I, _P,
                                            _I, _I, _I, _P, _P, _P, _P],
-    # consts, T, H, W, idx, stream
-    "raytpu_raster_winner": [_P, _I, _I, _I, _P, _P],
-    # consts, T, chunk, mask, H, W, idx, stream
-    "raytpu_raster_winner_masked": [_P, _I, _I, _P, _I, _I, _P, _P],
-    # consts, Tp, chunk, mask (or null), H, W, es, zs, agg, m, s, stream
-    "raytpu_soft_raster_fwd": [_P, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P,
-                               _P],
-    # consts, Tp, chunk, mask (or null), H, W, es, zs, m, cot, groups,
+    # pos, table, Tp, C, src, S, mask (or null), H, W, th, occ, stream
+    "raytpu_occlusion_points": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
+                                _P],
+    # consts, T, H, W, y0, idx, stream
+    "raytpu_raster_winner": [_P, _I, _I, _I, _I, _P, _P],
+    # consts, T, chunk, mask (or null), H, W, y0, idx, stream
+    "raytpu_raster_winner_chunked": [_P, _I, _I, _P, _I, _I, _I, _P, _P],
+    # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, agg, m, s, stream
+    "raytpu_soft_raster_fwd": [_P, _I, _I, _P, _I, _I, _I, _F, _F, _P, _P,
+                               _P, _P],
+    # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, m, cot, groups,
     # partials, dc, stream
-    "raytpu_soft_raster_bwd": [_P, _I, _I, _P, _I, _I, _F, _F, _P, _P, _I,
-                               _P, _P, _P],
+    "raytpu_soft_raster_bwd": [_P, _I, _I, _P, _I, _I, _I, _F, _F, _P, _P,
+                               _I, _P, _P, _P],
     # consts, Tp, chunk, cam, dirs, R, mask (or null), H, W, th, es, zs,
     # out, m, s, stream
     "raytpu_soft_rt_pri_fwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,

@@ -21,6 +21,14 @@ test (t < 0.99) from each shadow source toward it:
                                K7a's wrapper: K6 over several chunks with a
                                (ray tile, (1 + S) chunks) keep-mask
                                (replaces ``_fused_multi_kernel_masked``).
+  occlusion_multi              K7b's and K7c's wrapper: the any-hit shadow
+                               test of S sources toward known points, no
+                               primary phase, over every chunk (K7b,
+                               ``_occlusion_multi_kernel``) or the chunks a
+                               (point tile, S chunks) keep-mask keeps (K7c,
+                               ``_occlusion_multi_kernel_masked``): the
+                               sharded renderer's occlusion of merged hits
+                               (``occlusion_multi_pallas``).
   *_reference                  their plain PyTorch versions.
   intersect_closest{,_culled}  Hits through K5 / K7d (``intersect_pallas``,
                                ``intersect_pallas_culled``).
@@ -45,7 +53,9 @@ rays) do not depend on the tiling, and a masked kernel gives its unmasked
 twin's results.
 
 Occlusion on a miss ray is 0 in K6 and K7a, and its shadow sweeps are
-skipped: that is the JAX package's contract for both. K4's JAX wrapper
+skipped: that is the JAX package's contract for both. K7b and K7c know no
+primary hit and test every point, as the JAX kernels do; their masks
+(:func:`position_mask`) are conservative for every point. K4's JAX wrapper
 returns the raw bit of a shadow ray traced from the camera; no consumer
 reads it (composite zeroes misses, and the AA record takes hits only).
 
@@ -72,10 +82,15 @@ from raytpu_torch.kernels import _build
 from raytpu_torch.kernels.cull import (
     chunk_spheres,
     keep_mask,
+    position_shadow_mask,
     shadow_keep_mask,
     tile_cones,
 )
-from raytpu_torch.kernels.tables import constant_table, tight_chunk
+from raytpu_torch.kernels.tables import (
+    constant_table,
+    source_table,
+    tight_chunk,
+)
 from raytpu_torch.ops.intersect import (
     F32MAX,
     Hits,
@@ -96,6 +111,8 @@ LAUNCHES_OCCLUDED_MULTI = 0   # K6, by closest_hit_occluded_multi
 LAUNCHES_CLOSEST = 0          # K5, by closest_hit
 LAUNCHES_CLOSEST_MASKED = 0   # K7d, by closest_hit_masked
 LAUNCHES_OCCLUDED_MASKED = 0  # K7a, by closest_hit_occluded_multi_masked
+LAUNCHES_OCCLUSION = 0         # K7b, by occlusion_multi without a mask
+LAUNCHES_OCCLUSION_MASKED = 0  # K7c, by occlusion_multi with a mask
 
 BLOCK_ROWS = 10  # n xyz | c2 xyz | c3 xyz | k0
 TILE = 16        # the masked kernels' pixel tile side
@@ -561,6 +578,128 @@ def closest_hit_occluded_multi_masked(dirs, m, k0, valid, m_s, k0_s,
                                       *out)
     LAUNCHES_OCCLUDED_MASKED += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Occlusion of known points: K7b and K7c.
+
+
+def position_mask(pos, tiles: RayTiles, scene_geom, valid, src_pos,
+                  chunk: int) -> torch.Tensor:
+    """(n_tiles, S * n_chunks) int32 keep-mask of K7c for the points pos
+    (R, 3) on ``tiles``: kernels/cull.py::position_shadow_mask over the
+    tiles' points (a tile's pad slots repeat a real point of it, so they
+    widen no bound), chunk spheres from scene_geom = (v0, v1, v2)."""
+    with torch.no_grad():
+        centers, radii = chunk_spheres(*scene_geom, valid, chunk)
+        keep = position_shadow_mask(pos[tiles.rays], src_pos, centers, radii,
+                                    TILE_RAYS)
+        return keep.reshape(tiles.count, -1).contiguous()
+
+
+def occlusion_reference(pos, table, C: int, src):
+    """Plain PyTorch version of K7b, on any device: pos (R, 3), table
+    (S * 10, Tp), src (S, 3). Each source's chunks in turn. Returns occ
+    (S, R) int32, 1 where a triangle blocks the segment at t < 0.99."""
+    S, R = src.shape[0], pos.shape[0]
+    occ = torch.zeros((S, R), dtype=torch.bool, device=pos.device)
+    for s in range(S):
+        delta = pos - src[s][None, :]
+        for c in range(table.shape[1] // C):
+            ts, oks = plane_tests(delta, *_chunk(table, s, c, C))
+            occ[s] |= (oks & (ts < SHADOW_T)).any(dim=1)
+    return occ.to(torch.int32)
+
+
+def occlusion_masked_reference(pos, table, C: int, src, mask,
+                               tiles: RayTiles):
+    """Plain PyTorch version of K7c, on any device: as occlusion_reference,
+    each (source, chunk) on the points whose tile keeps it (mask (n_tiles,
+    S * n_chunks) over ``tiles``). Returns occ (S, R) int32."""
+    n_chunks = table.shape[1] // C
+    S, R = src.shape[0], pos.shape[0]
+    occ = torch.zeros((S, R), dtype=torch.bool, device=pos.device)
+    for s in range(S):
+        for c in range(n_chunks):
+            rows = _kept(mask, tiles, s * n_chunks + c)
+            ts, oks = plane_tests(pos[rows] - src[s][None, :],
+                                  *_chunk(table, s, c, C))
+            occ[s, rows] |= (oks & (ts < SHADOW_T)).any(dim=1)
+    return occ.to(torch.int32)
+
+
+def occlusion_multi_reference(pos, m_s, k0_s, src_pos, valid, *,
+                              tri_chunk: int = 512):
+    """Plain PyTorch version of K7b from the S sources' constants m_s
+    (S, T, 3, 3), k0_s (S, T) and valid (T,). Returns occ (S, R) int32."""
+    C = tight_chunk(m_s.shape[1], tri_chunk)
+    return occlusion_reference(pos, source_table(m_s, k0_s, valid, C), C,
+                               src_pos)
+
+
+def occlusion_multi_masked_reference(pos, m_s, k0_s, src_pos, valid, mask,
+                                     tiles: RayTiles, *,
+                                     tri_chunk: int = 512):
+    """Plain PyTorch version of K7c: as occlusion_multi_reference, skipping
+    what ``mask`` (n_tiles, S * n_chunks) rules out for each tile."""
+    C = tight_chunk(m_s.shape[1], tri_chunk)
+    return occlusion_masked_reference(
+        pos, source_table(m_s, k0_s, valid, C), C, src_pos, mask, tiles)
+
+
+def launch_occlusion_kernel(pos, table, C: int, src, mask, tiles, occ):
+    """Launch K7b (mask None: every point in runs of 256) or K7c (mask
+    (n_tiles, S * n_chunks) over ``tiles``) on the (S, R) int32 output the
+    caller allocated. Checks nothing and counts nothing; the wrapper does
+    both."""
+    H, W, th = ((1, pos.shape[0], 1) if mask is None
+                else (tiles.height, tiles.width, tiles.th))
+    err = _build.load().raytpu_occlusion_points(
+        pos.data_ptr(), table.data_ptr(), table.shape[1], C, src.data_ptr(),
+        src.shape[0], None if mask is None else mask.data_ptr(), H, W, th,
+        occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"occlusion_points launch failed: CUDA error "
+                           f"{err}")
+
+
+def occlusion_multi(pos, m_s, k0_s, src_pos, valid, tri_chunk: int = 512,
+                    mask=None, tiles: RayTiles | None = None) -> torch.Tensor:
+    """K7b's (mask None) and K7c's wrapper: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. pos (R, 3) surface points;
+    m_s (S, T, 3, 3), k0_s (S, T) the sources' constants
+    (``tri_constants(scene, src_pos)``); src_pos (S, 3); valid (T,); mask
+    (n_tiles, S * n_chunks) int32 over ``tiles`` (:func:`position_mask`).
+    Returns occ (S, R) int32. No gradient: the inputs are read detached."""
+    global LAUNCHES_OCCLUSION, LAUNCHES_OCCLUSION_MASKED
+    with torch.no_grad():
+        C = tight_chunk(m_s.shape[1], tri_chunk)
+        table = source_table(m_s, k0_s, valid, C)
+        pos, src = pos.contiguous(), src_pos.contiguous()
+        if not _on_cuda(pos):
+            if mask is None:
+                return occlusion_reference(pos, table, C, src)
+            return occlusion_masked_reference(pos, table, C, src, mask,
+                                              tiles)
+        S, R = src.shape[0], pos.shape[0]
+        _check_chunked(pos, table, C, None, None)
+        _require(pos, (("src", src, torch.float32, (S, 3)),
+                       ("table", table, torch.float32,
+                        (S * BLOCK_ROWS, table.shape[1]))))
+        if mask is not None:
+            if tiles.height * tiles.width != R:
+                raise ValueError(f"tiles of {tiles.height} x {tiles.width} "
+                                 f"points for {R} points")
+            _require(pos, (("mask", mask, torch.int32,
+                            (tiles.count, S * (table.shape[1] // C))),))
+        occ = torch.empty((S, R), dtype=torch.int32, device=pos.device)
+        with torch.cuda.device(pos.device):
+            launch_occlusion_kernel(pos, table, C, src, mask, tiles, occ)
+    if mask is None:
+        LAUNCHES_OCCLUSION += 1
+    else:
+        LAUNCHES_OCCLUSION_MASKED += 1
+    return occ
 
 
 class ClosestHit(torch.autograd.Function):

@@ -14,6 +14,9 @@ covered where ``min(e0, e1, e2) >= 0``, ``zpx > 0`` and ``valid``.
   raster_winner_masked   K8c's wrapper, several chunks, skipping the
                          chunks a (pixel tile, chunk) keep-mask rules out
                          (replaces ``_kernel_masked``).
+  raster_winner_chunked  K8a's wrapper, several chunks, every one swept
+                         (replaces ``_kernel``; only the sharded
+                         rasterizer's triangle blocks launch it).
   *_reference            their plain PyTorch versions.
   resolve_winner         the dispatch of ``resolve_winner_pallas``.
   chunk_screen_mask      the conservative keep-mask, as the JAX package's
@@ -24,9 +27,10 @@ On CUDA tensors the wrappers launch the hand-written kernels
 The winner is piecewise constant and gets no gradient: callers pass
 detached constants, as the JAX package stop_gradients them.
 
-K8a (``_kernel``: several chunks without the mask) is reached only from
-the sharded render (raytpu/parallel/render.py:572) and is ROADMAP.md port
-item 8; ``resolve_winner`` raises where it would be needed.
+Every function takes the image's first row ``y0``: the H x W image is rows
+[y0, y0 + H) of the frame (pixel y = y0 + row), as the sharded
+rasterizer's row blocks are (raytpu_torch/parallel/render.py); y0 = 0 is
+the whole frame. K8c's mask is over the image's own tiles.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ from raytpu_torch.kernels import _build
 
 # Launches of each CUDA kernel in this process, counted by its wrapper
 # where it launches the kernel and nowhere else.
-LAUNCHES_WINNER = 0         # K8b, by raster_winner
-LAUNCHES_WINNER_MASKED = 0  # K8c, by raster_winner_masked
+LAUNCHES_WINNER = 0          # K8b, by raster_winner
+LAUNCHES_WINNER_MASKED = 0   # K8c, by raster_winner_masked
+LAUNCHES_WINNER_CHUNKED = 0  # K8a, by raster_winner_chunked
 
 NEG_INF = float(-np.finfo(np.float32).max)  # _NEG_INF = -3.4028235e38
 MAX_CHUNK = 128
@@ -166,37 +171,57 @@ def _chunk_best(px, py, c: torch.Tensor):
     return best, first.values
 
 
-def resolve_winner_masked_reference(consts: torch.Tensor, H: int, W: int,
-                                    mask: torch.Tensor,
-                                    chunk: int) -> torch.Tensor:
-    """Plain PyTorch version of K8c, on any device: the chunks of
-    ``chunk`` rows in order, each skipped for the pixels of a tile whose
-    mask bit is 0 (TILE x TILE tiles, mask (n_tiles, n_chunks)); a chunk
-    replaces the running winner only with a strictly larger zpx. Returns
-    (H*W,) int32."""
-    px, py = pixel_grid(H, W, consts.device)
-    tile = ((py.long() // TILE) * -(-W // TILE) + px.long() // TILE)
+def _chunks_reference(consts, H: int, W: int, chunk: int, mask, y0: int):
+    """The chunks of ``chunk`` rows in order, each skipped for the pixels
+    of a tile whose mask bit is 0 (mask None: none skipped); a chunk
+    replaces the running winner only with a strictly larger zpx."""
+    px, py = pixel_grid(H, W, consts.device, y0)
+    row = py.long() - y0
+    tile = (row // TILE) * -(-W // TILE) + px.long() // TILE
     best_z = torch.full_like(px, NEG_INF)
     best_i = torch.full(px.shape, -1, dtype=torch.int32, device=px.device)
     for c, lo in enumerate(range(0, consts.shape[0], chunk)):
         z, first = _chunk_best(px, py, consts[lo:lo + chunk])
-        upd = (z > best_z) & (mask[tile, c] != 0)
+        upd = z > best_z
+        if mask is not None:
+            upd = upd & (mask[tile, c] != 0)
         best_z = torch.where(upd, z, best_z)
         best_i = torch.where(upd, first + lo, best_i)
     return torch.where(best_z > NEG_INF, best_i, -1)
 
 
-def resolve_winner_reference(consts: torch.Tensor, H: int,
-                             W: int) -> torch.Tensor:
+def resolve_winner_masked_reference(consts: torch.Tensor, H: int, W: int,
+                                    mask: torch.Tensor, chunk: int,
+                                    y0: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K8c, on any device: the chunks of
+    ``chunk`` rows in order, each skipped for the pixels of a tile whose
+    mask bit is 0 (TILE x TILE tiles of the image, mask (n_tiles,
+    n_chunks)); a chunk replaces the running winner only with a strictly
+    larger zpx. Returns (H*W,) int32."""
+    return _chunks_reference(consts, H, W, chunk, mask, y0)
+
+
+def resolve_winner_chunked_reference(consts: torch.Tensor, H: int, W: int,
+                                     chunk: int,
+                                     y0: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K8a, on any device: K8c's with no chunk
+    skipped (``_kernel``: each chunk's first row at its max, then a strict
+    ``>`` across chunks). Returns (H*W,) int32."""
+    return _chunks_reference(consts, H, W, chunk, None, y0)
+
+
+def resolve_winner_reference(consts: torch.Tensor, H: int, W: int,
+                             y0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K8b, on any device: one chunk of T <= 128
     rows. Returns (H*W,) int32."""
-    best_z, first = _chunk_best(*pixel_grid(H, W, consts.device), consts)
+    best_z, first = _chunk_best(*pixel_grid(H, W, consts.device, y0), consts)
     return torch.where(best_z > NEG_INF, first, -1)
 
 
 def _check(consts, H: int, W: int, mask=None, chunk: int | None = None):
-    """Raise on what the kernels do not take: K8b (mask None) one chunk of
-    T <= 128 rows, K8c chunks of 1..128 rows and a mask over its tiles."""
+    """Raise on what the kernels do not take: K8b (mask and chunk None)
+    one chunk of T <= 128 rows, K8a (chunk given) and K8c chunks of 1..128
+    rows, K8c a mask over its tiles."""
     T = consts.shape[0]
     if consts.dtype != torch.float32 or consts.dim() != 2 or \
             consts.shape[1] != CONST_COLS or not consts.is_contiguous():
@@ -205,13 +230,15 @@ def _check(consts, H: int, W: int, mask=None, chunk: int | None = None):
                          f"{tuple(consts.shape)}")
     if H < 1 or W < 1 or T < 1:
         raise ValueError(f"empty image {H}x{W} or no triangles ({T})")
-    if mask is None:
+    if chunk is None:
         if T > MAX_CHUNK:
             raise ValueError(f"K8b takes at most {MAX_CHUNK} triangles, got "
                              f"{T}")
         return
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be 1..{MAX_CHUNK}, got {chunk}")
+    if mask is None:
+        return
     shape = ((-(-H // TILE)) * (-(-W // TILE)), -(-T // chunk))
     if mask.dtype != torch.int32 or tuple(mask.shape) != shape or \
             not mask.is_contiguous() or mask.device != consts.device:
@@ -220,25 +247,27 @@ def _check(consts, H: int, W: int, mask=None, chunk: int | None = None):
                          f"{tuple(mask.shape)} on {mask.device}")
 
 
-def launch_winner_kernel(consts, H: int, W: int, idx) -> None:
+def launch_winner_kernel(consts, H: int, W: int, idx, y0: int = 0) -> None:
     """Launch K8b on the (H*W,) int32 output the caller allocated. Checks
     nothing and counts nothing; the wrapper does both."""
     err = _build.load().raytpu_raster_winner(
-        consts.data_ptr(), consts.shape[0], H, W, idx.data_ptr(),
+        consts.data_ptr(), consts.shape[0], H, W, y0, idx.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"raster_winner launch failed: CUDA error {err}")
 
 
 def launch_winner_masked_kernel(consts, H: int, W: int, mask, chunk: int,
-                                idx) -> None:
-    """Launch K8c on the (H*W,) int32 output the caller allocated. Checks
-    nothing and counts nothing; the wrapper does both."""
-    err = _build.load().raytpu_raster_winner_masked(
-        consts.data_ptr(), consts.shape[0], chunk, mask.data_ptr(), H, W,
-        idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                                idx, y0: int = 0) -> None:
+    """Launch K8c (or K8a, mask None) on the (H*W,) int32 output the
+    caller allocated. Checks nothing and counts nothing; the wrappers do
+    both."""
+    err = _build.load().raytpu_raster_winner_chunked(
+        consts.data_ptr(), consts.shape[0], chunk,
+        None if mask is None else mask.data_ptr(), H, W, y0, idx.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"raster_winner_masked launch failed: CUDA error "
+        raise RuntimeError(f"raster_winner_chunked launch failed: CUDA error "
                            f"{err}")
 
 
@@ -251,52 +280,71 @@ def _route(consts: torch.Tensor) -> bool:
     return True
 
 
-def raster_winner(consts: torch.Tensor, H: int, W: int) -> torch.Tensor:
+def raster_winner(consts: torch.Tensor, H: int, W: int,
+                  y0: int = 0) -> torch.Tensor:
     """K8b's wrapper: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. consts (T <= 128, 16); returns (H*W,) int32."""
+    for CPU tensors. consts (T <= 128, 16); returns (H*W,) int32 for rows
+    [y0, y0 + H)."""
     global LAUNCHES_WINNER
     if not _route(consts):
-        return resolve_winner_reference(consts, H, W)
+        return resolve_winner_reference(consts, H, W, y0)
     _check(consts, H, W)
     idx = torch.empty((H * W,), dtype=torch.int32, device=consts.device)
     with torch.cuda.device(consts.device):
-        launch_winner_kernel(consts, H, W, idx)
+        launch_winner_kernel(consts, H, W, idx, y0)
     LAUNCHES_WINNER += 1
     return idx
 
 
 def raster_winner_masked(consts: torch.Tensor, H: int, W: int,
-                         mask: torch.Tensor, chunk: int) -> torch.Tensor:
+                         mask: torch.Tensor, chunk: int,
+                         y0: int = 0) -> torch.Tensor:
     """K8c's wrapper: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. consts (T, 16) in chunks of ``chunk`` <= 128 rows;
-    mask (n_tiles, n_chunks) int32 over TILE x TILE tiles; returns (H*W,)
-    int32."""
+    mask (n_tiles, n_chunks) int32 over the image's TILE x TILE tiles;
+    returns (H*W,) int32 for rows [y0, y0 + H)."""
     global LAUNCHES_WINNER_MASKED
     if not _route(consts):
-        return resolve_winner_masked_reference(consts, H, W, mask, chunk)
+        return resolve_winner_masked_reference(consts, H, W, mask, chunk, y0)
     _check(consts, H, W, mask, chunk)
     idx = torch.empty((H * W,), dtype=torch.int32, device=consts.device)
     with torch.cuda.device(consts.device):
-        launch_winner_masked_kernel(consts, H, W, mask, chunk, idx)
+        launch_winner_masked_kernel(consts, H, W, mask, chunk, idx, y0)
     LAUNCHES_WINNER_MASKED += 1
     return idx
 
 
+def raster_winner_chunked(consts: torch.Tensor, H: int, W: int, chunk: int,
+                          y0: int = 0) -> torch.Tensor:
+    """K8a's wrapper: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. consts (T, 16) in chunks of ``chunk`` <= 128 rows,
+    every chunk swept; returns (H*W,) int32 for rows [y0, y0 + H)."""
+    global LAUNCHES_WINNER_CHUNKED
+    if not _route(consts):
+        return resolve_winner_chunked_reference(consts, H, W, chunk, y0)
+    _check(consts, H, W, None, chunk)
+    idx = torch.empty((H * W,), dtype=torch.int32, device=consts.device)
+    with torch.cuda.device(consts.device):
+        launch_winner_masked_kernel(consts, H, W, None, chunk, idx, y0)
+    LAUNCHES_WINNER_CHUNKED += 1
+    return idx
+
+
 def resolve_winner(consts: torch.Tensor, H: int, W: int,
-                   tri_chunk: int = 128,
-                   screen_verts: tuple | None = None) -> torch.Tensor:
-    """Winning triangle per pixel of the H x W grid, dispatched as
-    ``resolve_winner_pallas``: one chunk (T <= min(tri_chunk, 128)) goes
-    to K8b, several with ``screen_verts`` = (sx, sy, zinv) to K8c with
-    chunk_screen_mask over its tiles. Returns (H*W,) int32."""
+                   tri_chunk: int = 128, screen_verts: tuple | None = None,
+                   y0: int = 0) -> torch.Tensor:
+    """Winning triangle per pixel of rows [y0, y0 + H) of a frame W wide,
+    dispatched as ``resolve_winner_pallas``: one chunk (T <= min(tri_chunk,
+    128)) goes to K8b, several with ``screen_verts`` = (sx, sy, zinv) to K8c
+    with chunk_screen_mask over its tiles, several without to K8a. Returns
+    (H*W,) int32."""
     chunk = min(tri_chunk, MAX_CHUNK)
     if consts.shape[0] <= chunk:
-        return raster_winner(consts, H, W)
+        return raster_winner(consts, H, W, y0)
     if screen_verts is None:
-        raise NotImplementedError(
-            "several triangle chunks without screen_verts take K8a, which "
-            "only the sharded render launches: ROADMAP.md port item 8")
+        return raster_winner_chunked(consts, H, W, chunk, y0)
     sx, sy, zinv = screen_verts
+    xmin, xmax, ymin, ymax = tile_rects(H, W, consts.device)
     mask = chunk_screen_mask(sx, sy, zinv, consts[:, 12],
-                             tile_rects(H, W, consts.device), chunk)
-    return raster_winner_masked(consts, H, W, mask, chunk)
+                             (xmin, xmax, ymin + y0, ymax + y0), chunk)
+    return raster_winner_masked(consts, H, W, mask, chunk, y0)

@@ -17,11 +17,16 @@ rescale of the carry, then the chunk's sums).
                  cotangent rows [d s, d acc_0..9].
   *_reference    their plain PyTorch versions.
   SoftAgg        the torch.autograd.Function around them (``_soft_agg``).
-  rasterize_soft_kernel   ``rasterize_soft_pallas``: the whole soft frame.
+  SoftAggStats   the same returning (agg, m, s) (``_soft_agg_stats``), for
+                 the sharded soft combine (raytpu_torch/parallel/render.py).
 
 On CUDA tensors the wrappers launch the hand-written kernels
 (raytpu_torch/csrc/soft_raster.cu); on CPU tensors they run the plain
-versions. The JAX kernels also take the camera-globals and lights tables,
+versions. The frame that assembles them is render/soft.py::rasterize_soft.
+Every function takes the image's first row ``y0``: the H x W image is rows
+[y0, y0 + H) of the frame (pixel y = y0 + row), as the sharded soft
+rasterizer's row blocks are; the masks are over the image's own tiles. The
+JAX kernels also take the camera-globals and lights tables,
 which ``_chunk_terms`` never reads (ROADMAP fault F3; ``jax.grad`` gives
 them exactly zero): the port's kernels take neither.
 
@@ -31,12 +36,11 @@ depend on it (soft_raster_pallas.py:20-27).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from raytpu_torch.core.types import pixel_grid
 from raytpu_torch.kernels import _build
-from raytpu_torch.kernels.raster import TILE, _route, tile_rects
+from raytpu_torch.kernels.raster import TILE, _route
 
 # Launches of each CUDA kernel in this process, counted by its wrapper where
 # it launches the kernel and nowhere else. A backward launch is K9c's (or
@@ -310,9 +314,10 @@ def soft_agg_bwd_reference(consts, coords, mask, m, cot, es: float,
     return dc
 
 
-def pixel_coords(H: int, W: int, device, dtype=torch.float32):
-    """(2, H*W) integer pixel coordinates x, y, row-major."""
-    return torch.stack(pixel_grid(H, W, device)).to(dtype)
+def pixel_coords(H: int, W: int, device, dtype=torch.float32, y0: int = 0):
+    """(2, H*W) integer pixel coordinates x, y of rows [y0, y0 + H),
+    row-major."""
+    return torch.stack(pixel_grid(H, W, device, y0)).to(dtype)
 
 
 def expand_mask(mask: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -358,11 +363,12 @@ def _ptr(t):
 
 
 def launch_fwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
-                      zs: float, agg, m, s) -> None:
+                      zs: float, agg, m, s, y0: int = 0) -> None:
     """Launch K9a (mask None) or K9b into the outputs the caller allocated.
     Checks nothing and counts nothing; the wrapper does both."""
     err = _build.load().raytpu_soft_raster_fwd(
-        consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, es, zs,
+        consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, y0, es,
+        zs,
         agg.data_ptr(), m.data_ptr(), s.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -377,12 +383,13 @@ def bwd_groups(n_chunks: int, H: int, W: int) -> int:
 
 
 def launch_bwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
-                      zs: float, m, cot, partials, dc) -> None:
+                      zs: float, m, cot, partials, dc, y0: int = 0) -> None:
     """Launch K9c (mask None) or K9d and the sum of its partials (groups,
     Tp, 32) into dc (Tp, 32), all allocated by the caller. Checks nothing
     and counts nothing; the wrapper does both."""
     err = _build.load().raytpu_soft_raster_bwd(
-        consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, es, zs,
+        consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, y0, es,
+        zs,
         m.data_ptr(), cot.data_ptr(), partials.shape[0], partials.data_ptr(),
         dc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -390,15 +397,17 @@ def launch_bwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
 
 
 def soft_agg_fwd(consts: torch.Tensor, H: int, W: int, chunk: int,
-                 mask: torch.Tensor | None, es: float, zs: float):
+                 mask: torch.Tensor | None, es: float, zs: float,
+                 y0: int = 0):
     """K9a's (mask None) and K9b's wrapper: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. consts (Tp, 32) in chunks of
     ``chunk`` <= 32 rows; mask None or (n_tiles, n_chunks) int32 over
-    TILE x TILE tiles (tile_rects). Returns agg (10, H*W), m, s (H*W,)."""
+    TILE x TILE tiles (tile_rects); the image rows [y0, y0 + H). Returns agg
+    (10, H*W), m, s (H*W,)."""
     global LAUNCHES_SOFT_FWD, LAUNCHES_SOFT_FWD_MASKED
     if not _route(consts):
         return soft_agg_reference(
-            consts, pixel_coords(H, W, consts.device, consts.dtype),
+            consts, pixel_coords(H, W, consts.device, consts.dtype, y0),
             None if mask is None else expand_mask(mask, H, W), es, zs, chunk)
     _check(consts, H, W, chunk, mask)
     R = H * W
@@ -406,7 +415,7 @@ def soft_agg_fwd(consts: torch.Tensor, H: int, W: int, chunk: int,
     m = torch.empty((R,), dtype=torch.float32, device=consts.device)
     s = torch.empty((R,), dtype=torch.float32, device=consts.device)
     with torch.cuda.device(consts.device):
-        launch_fwd_kernel(consts, H, W, chunk, mask, es, zs, agg, m, s)
+        launch_fwd_kernel(consts, H, W, chunk, mask, es, zs, agg, m, s, y0)
     if mask is None:
         LAUNCHES_SOFT_FWD += 1
     else:
@@ -416,7 +425,7 @@ def soft_agg_fwd(consts: torch.Tensor, H: int, W: int, chunk: int,
 
 def soft_agg_bwd(consts: torch.Tensor, m: torch.Tensor, cot: torch.Tensor,
                  H: int, W: int, chunk: int, mask: torch.Tensor | None,
-                 es: float, zs: float) -> torch.Tensor:
+                 es: float, zs: float, y0: int = 0) -> torch.Tensor:
     """K9c's (mask None) and K9d's wrapper: the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors. m (H*W,) the forward's
     saved max, cot (11, H*W) = [d s, d acc_0..9]; the rest as soft_agg_fwd.
@@ -424,7 +433,7 @@ def soft_agg_bwd(consts: torch.Tensor, m: torch.Tensor, cot: torch.Tensor,
     global LAUNCHES_SOFT_BWD, LAUNCHES_SOFT_BWD_MASKED
     if not _route(consts):
         return soft_agg_bwd_reference(
-            consts, pixel_coords(H, W, consts.device, consts.dtype),
+            consts, pixel_coords(H, W, consts.device, consts.dtype, y0),
             None if mask is None else expand_mask(mask, H, W), m, cot, es,
             zs, chunk)
     _check(consts, H, W, chunk, mask, m, cot)
@@ -435,7 +444,7 @@ def soft_agg_bwd(consts: torch.Tensor, m: torch.Tensor, cot: torch.Tensor,
     dc = torch.empty_like(consts)
     with torch.cuda.device(consts.device):
         launch_bwd_kernel(consts, H, W, chunk, mask, es, zs, m, cot,
-                          partials, dc)
+                          partials, dc, y0)
     if mask is None:
         LAUNCHES_SOFT_BWD += 1
     else:
@@ -443,31 +452,61 @@ def soft_agg_bwd(consts: torch.Tensor, m: torch.Tensor, cot: torch.Tensor,
     return dc
 
 
+def _agg_bwd(ctx, g, g_s=None) -> torch.Tensor:
+    """d consts of SoftAgg and SoftAggStats: the cotangent rows formed as
+    ``_soft_agg_bwd`` does (img = acc / s: d acc_j = g_j / s, d s =
+    -(g . img) / s, plus the cotangent of s itself where s is an output),
+    then K9c/K9d (or their plain version)."""
+    consts, agg, m, s = ctx.saved_tensors
+    H, W, chunk, mask, es, zs, y0 = ctx.args
+    srec = 1.0 / s
+    da = g * srec
+    ds = -(g * agg).sum(dim=0, keepdim=True) * srec
+    if g_s is not None:
+        ds = ds + g_s
+    cot = torch.cat([ds, da]).contiguous()
+    return soft_agg_bwd(consts.contiguous(), m, cot, H, W, chunk, mask, es,
+                        zs, y0)
+
+
 class SoftAgg(torch.autograd.Function):
-    """agg (10, H*W) of the (Tp, 32) table (``_soft_agg``), differentiable
-    in consts. The backward forms the cotangent rows as ``_soft_agg_bwd``
-    does (img = acc / s: d acc_j = g_j / s, d s = -(g . img) / s) and runs
-    K9c/K9d (or their plain version)."""
+    """agg (10, H*W) of the (Tp, 32) table for rows [y0, y0 + H)
+    (``_soft_agg``), differentiable in consts; the backward runs K9c/K9d
+    (or their plain version)."""
 
     @staticmethod
     def forward(ctx, consts, H: int, W: int, chunk: int, mask, es: float,
-                zs: float):
-        agg, m, s = soft_agg_fwd(consts, H, W, chunk, mask, es, zs)
+                zs: float, y0: int = 0):
+        agg, m, s = soft_agg_fwd(consts, H, W, chunk, mask, es, zs, y0)
         ctx.save_for_backward(consts, agg, m, s)
-        ctx.args = (H, W, chunk, mask, es, zs)
+        ctx.args = (H, W, chunk, mask, es, zs, y0)
         return agg
 
     @staticmethod
     def backward(ctx, g):
-        consts, agg, m, s = ctx.saved_tensors
-        H, W, chunk, mask, es, zs = ctx.args
-        srec = 1.0 / s
-        da = g * srec
-        ds = -(g * agg).sum(dim=0, keepdim=True) * srec
-        cot = torch.cat([ds, da]).contiguous()
-        dc = soft_agg_bwd(consts.contiguous(), m, cot, H, W, chunk, mask,
-                          es, zs)
-        return dc, None, None, None, None, None, None
+        return (_agg_bwd(ctx, g),) + (None,) * 7
+
+
+class SoftAggStats(torch.autograd.Function):
+    """(agg, m, s) of SoftAgg's inputs (``_soft_agg_stats``): agg and s are
+    differentiable in consts, m is not. The backward takes s's cotangent
+    into the d s row and drops m's: exact where the caller uses (m, s) only
+    through s * exp(m - M) with M held constant, as the sharded soft combine
+    does (the kernel's d s, taken at m held constant, carries what m's path
+    would)."""
+
+    @staticmethod
+    def forward(ctx, consts, H: int, W: int, chunk: int, mask, es: float,
+                zs: float, y0: int = 0):
+        agg, m, s = soft_agg_fwd(consts, H, W, chunk, mask, es, zs, y0)
+        ctx.save_for_backward(consts, agg, m, s)
+        ctx.args = (H, W, chunk, mask, es, zs, y0)
+        ctx.mark_non_differentiable(m)
+        return agg, m, s
+
+    @staticmethod
+    def backward(ctx, g, _g_m, g_s):
+        return (_agg_bwd(ctx, g, g_s[None, :]),) + (None,) * 7
 
 
 def soft_chunk_bounds(consts: torch.Tensor, chunk: int):
@@ -546,47 +585,3 @@ def use_cull(cull: bool | None, n_chunks: int, H: int, W: int) -> bool:
         raise ValueError(f"cull=True needs H, W to tile into 2D blocks for "
                          f"tile_p {JAX_TILE_P}; got {H}x{W}")
     return cull
-
-
-def soft_inputs(scene, camera, cfg, cull: bool | None = None,
-                chunk: int = MAX_CHUNK):
-    """The kernels' inputs for a soft frame, as ``rasterize_soft_pallas``
-    builds them: the (Tp, 32) table padded to a whole number of chunks of
-    min(chunk, max(T, 8)) rows (T == 0 takes one all-invalid chunk, the
-    background), the keep-mask where ``use_cull`` culls (else None), and
-    the sharpness. Returns (consts, chunk, mask, es, zs); consts carries
-    the autograd graph of the scene and camera."""
-    from raytpu_torch.render.soft import _screen_vertices
-
-    H, W = cfg.height, cfg.width
-    sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
-    consts = soft_tri_constants(sx, sy, zinv, pos3d, scene.color,
-                                scene.normals(), scene.active)
-    T = consts.shape[0]
-    chunk = min(chunk, max(T, 8))
-    pad = chunk if T == 0 else (-T) % chunk
-    if pad:
-        consts = torch.cat([consts, consts.new_zeros(pad, CONST_COLS)])
-    es = float(cfg.soft_edge_sharpness)
-    zs = float(cfg.soft_z_sharpness)
-    mask = None
-    if use_cull(cull, consts.shape[0] // chunk, H, W):
-        mask = soft_keep_mask(tile_rects(H, W, consts.device),
-                              consts.detach(), es, zs, chunk)
-    return consts, chunk, mask, es, zs
-
-
-def rasterize_soft_kernel(scene, camera, lights, cfg, cull: bool | None = None,
-                          chunk: int = MAX_CHUNK) -> torch.Tensor:
-    """The soft frame through K9a/K9b (``rasterize_soft_pallas``); returns
-    (H, W, 3). Gradients reach the scene (``active`` too, through
-    log(valid)), the camera (through the screen vertices) and the lights
-    (through the shading). Inputs: ``soft_inputs``."""
-    from raytpu_torch.render.soft import shade_agg_raster
-
-    consts, chunk, mask, es, zs = soft_inputs(scene, camera, cfg, cull, chunk)
-    H, W = cfg.height, cfg.width
-    agg = SoftAgg.apply(consts, H, W, chunk, mask, es, zs).T
-    img = shade_agg_raster(agg[:, 0:3], agg[:, 3:6], agg[:, 6], agg[:, 7:10],
-                           camera, lights, float(np.float32(cfg.ambient)))
-    return img.reshape(H, W, 3)

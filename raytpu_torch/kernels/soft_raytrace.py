@@ -23,6 +23,9 @@ chunk's sums).
   *_reference       their plain PyTorch versions.
   PrimaryAgg, ShadowTrans   the torch.autograd.Functions around them
                     (``_primary_agg``, ``_shadow_trans``).
+  PrimaryAggStats   PrimaryAgg returning (out, m, s) (``_primary_agg_stats``),
+                    for the sharded soft combine
+                    (raytpu_torch/parallel/render.py).
   chunk_cull_bounds, inflate, soft_rt_keep_mask, soft_rt_shadow_mask
                     the culled frame's keep-masks (``_chunk_cull_bounds``,
                     ``_inflate``, ``soft_rt_keep_mask``,
@@ -760,12 +763,15 @@ def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
     return dc, dsrc, dw
 
 
-def primary_cot(g: torch.Tensor, out: torch.Tensor,
-                s: torch.Tensor) -> torch.Tensor:
+def primary_cot(g: torch.Tensor, out: torch.Tensor, s: torch.Tensor,
+                g_s: torch.Tensor | None = None) -> torch.Tensor:
     """The 10 cotangent rows [d s, d acc_0..8] of out = acc / s
-    (``_primary_cot``): d acc_j = g_j / s, d s = -(g . out) / s."""
+    (``_primary_cot``): d acc_j = g_j / s, d s = -(g . out) / s, plus the
+    cotangent g_s (R,) of s itself where s is an output."""
     srec = 1.0 / s
     ds = -(g * out).sum(dim=0, keepdim=True) * srec
+    if g_s is not None:
+        ds = ds + g_s[None, :]
     return torch.cat([ds, g * srec]).contiguous()
 
 
@@ -793,6 +799,31 @@ class PrimaryAgg(torch.autograd.Function):
                                        primary_cot(g, out, s), *ctx.args,
                                        mask=mask, tiles=tiles)
         return dc, dcam, dd, None, None, None, None, None
+
+
+class PrimaryAggStats(torch.autograd.Function):
+    """(out, m, s) of PrimaryAgg's inputs, unmasked
+    (``_primary_agg_stats``): out and s are differentiable in consts, the
+    camera position and the ray directions, m is not. The backward takes
+    s's cotangent into the d s row and drops m's, exact where the caller
+    uses (m, s) only through s * exp(m - M) with M held constant, as the
+    sharded soft combine does (kernels/soft_raster.py::SoftAggStats)."""
+
+    @staticmethod
+    def forward(ctx, consts, cam, dirs, es: float, zs: float, chunk: int):
+        out, m, s = primary_agg_fwd(consts, cam, dirs, es, zs, chunk)
+        ctx.save_for_backward(consts, cam, dirs, out, m, s)
+        ctx.args = (es, zs, chunk)
+        ctx.mark_non_differentiable(m)
+        return out, m, s
+
+    @staticmethod
+    def backward(ctx, g, _g_m, g_s):
+        consts, cam, dirs, out, m, s = ctx.saved_tensors
+        dc, dcam, dd = primary_agg_bwd(consts, cam, dirs, m,
+                                       primary_cot(g, out, s, g_s),
+                                       *ctx.args)
+        return dc, dcam, dd, None, None, None
 
 
 class ShadowTrans(torch.autograd.Function):

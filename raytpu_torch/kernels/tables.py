@@ -69,6 +69,16 @@ def constant_table(m, k0, valid, m_s, k0_s, C: int) -> torch.Tensor:
     return torch.nn.functional.pad(rows, (0, -(-T // C) * C - T)).contiguous()
 
 
+def source_table(m_s, k0_s, valid, C: int) -> torch.Tensor:
+    """The (S * 10, Tp) table of the occlusion kernels K7b and K7c: block s
+    from source s's constants (m_s (S, T, 3, 3), k0_s (S, T)), invalid
+    triangles and the columns past T zero, Tp = T rounded up to a multiple
+    of the chunk C."""
+    T = m_s.shape[1]
+    rows = _constant_rows(m_s, k0_s, valid).flatten(0, 1)
+    return torch.nn.functional.pad(rows, (0, -(-T // C) * C - T)).contiguous()
+
+
 def pack_tables(m, k0, valid, m_l, k0_l, nrm, alb, C: int) -> torch.Tensor:
     """The kernel's (TABLE_ROWS, C) table from the primary constants
     (m, k0, valid), the shadow constants (m_l, k0_l), normals and albedo."""

@@ -25,8 +25,15 @@ The JAX package's optax chain maps onto torch.optim as follows:
 
 ``fit(resume_from=...)`` reruns the whole stage schedule after the restored
 step, and with ``stage_reset`` discards the restored optimizer state at
-stage 0: the JAX package's behaviour, kept (ROADMAP.md fault F10). The
-sharded fit (``mesh=``) is port item 8.
+stage 0: the JAX package's behaviour, kept (ROADMAP.md fault F10).
+
+``fit(mesh=...)`` trains through the sharded soft renderer
+(raytpu_torch/parallel/render.py: rows over 'data', triangles over
+'model'), every rank of the mesh holding the full target and the same
+parameters. Each step gathers the image on every rank, differentiates its
+loss there at 1 / world size and sums the gradients over the world
+(``reduce_grads``), so every rank takes the single-process step with the
+same bits. Rank 0 alone writes checkpoints, images and log lines.
 """
 
 from __future__ import annotations
@@ -231,17 +238,36 @@ def _render_fn(renderer: str) -> Callable:
     raise ValueError(f"unknown renderer {renderer!r}")
 
 
+def _stage_frame(fit_cfg: FitConfig, cfg: RenderConfig, mesh) -> Callable:
+    """(scene, camera, lights) -> the (H, W, 3) frame of one stage: the
+    renderer's, or on a mesh the sharded soft renderer's row blocks
+    gathered into the whole image on every rank."""
+    if mesh is None:
+        render = _render_fn(fit_cfg.renderer)
+        return lambda s, c, li: render(s, c, li, cfg)  # noqa: E731
+    from raytpu_torch.parallel.render import (
+        gather_image,
+        make_sharded_soft_render,
+    )
+    sharded = make_sharded_soft_render(mesh, cfg, fit_cfg.renderer)
+    return lambda s, c, li: gather_image(sharded(s, c, li), mesh)  # noqa
+
+
 def fit(target, scene0: Scene, camera: Camera, lights0: Lights,
         render_cfg: RenderConfig, fit_cfg: FitConfig,
         resume_from: str | None = None, mesh=None) -> FitResult:
     """Run the inverse-rendering fit; target (H, W, 3), float. Trains on
     the scene's device. Returns detached copies of the fitted (or, with
-    select "best", the best-scoring) scene and lights."""
+    select "best", the best-scoring) scene and lights.
+
+    mesh: a (data, model) DeviceMesh over every rank of the job
+    (raytpu_torch.parallel.make_mesh); the fit then runs on every rank,
+    through the sharded soft renderer (module docstring)."""
+    _render_fn(fit_cfg.renderer)  # an unknown renderer raises up front
+    world = 1 if mesh is None else mesh.size()
+    writer = mesh is None or mesh.get_rank() == 0
     if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...) trains through the sharded soft renderer: "
-            "ROADMAP.md port item 8")
-    render = _render_fn(fit_cfg.renderer)
+        from raytpu_torch.parallel.render import reduce_grads
     device = scene0.device
     if isinstance(target, torch.Tensor):
         target = target.detach().to(device=device, dtype=torch.float32)
@@ -280,6 +306,7 @@ def fit(target, scene0: Scene, camera: Camera, lights0: Lights,
         n_steps = int(fit_cfg.steps * frac)
         if fit_cfg.stage_reset:
             opt, sched = make_optimizer(fit_cfg, params, steps=n_steps)
+        frame = _stage_frame(fit_cfg, cfg, mesh)
 
         for _ in range(n_steps):
             log = bool(fit_cfg.log_every
@@ -287,9 +314,11 @@ def fit(target, scene0: Scene, camera: Camera, lights0: Lights,
             with timer.frame():
                 for p in params.values():
                     p.grad = None
-                loss = loss_of(render(scene, camera, lights, cfg))
+                loss = loss_of(frame(scene, camera, lights))
                 if loss.requires_grad:
-                    loss.backward()
+                    (loss if mesh is None else loss / world).backward()
+                if mesh is not None:
+                    reduce_grads(params.values())
                 gnorm = None
                 if log:
                     gnorm = torch.sqrt(sum(
@@ -302,7 +331,7 @@ def fit(target, scene0: Scene, camera: Camera, lights0: Lights,
             if (fit_cfg.eval_every
                     and step_counter % fit_cfg.eval_every == 0):
                 maybe_eval(step_counter)
-            if log:
+            if log and writer:
                 log_metrics(step_counter, stream=fit_cfg.metrics_stream,
                             stage=stage_i, loss=loss, grad_norm=gnorm,
                             ms_per_step=timer.last_ms,
@@ -310,9 +339,10 @@ def fit(target, scene0: Scene, camera: Camera, lights0: Lights,
             if (fit_cfg.image_dump_every
                     and step_counter % fit_cfg.image_dump_every == 0):
                 with torch.no_grad():
-                    img = render(scene, camera, lights, cfg)
-                _dump_image(img, fit_cfg, step_counter)
-            if (fit_cfg.checkpoint_dir
+                    img = frame(scene, camera, lights)
+                if writer:
+                    _dump_image(img, fit_cfg, step_counter)
+            if (writer and fit_cfg.checkpoint_dir
                     and step_counter % fit_cfg.checkpoint_every == 0):
                 save_checkpoint(os.path.join(fit_cfg.checkpoint_dir,
                                              f"ckpt_{step_counter}.npz"),

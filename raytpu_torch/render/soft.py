@@ -54,23 +54,80 @@ from raytpu_torch.core.types import (
 from raytpu_torch.kernels import soft_raytrace as srt
 from raytpu_torch.kernels.intersect import TILE_RAYS, RayTiles, ray_tiles
 from raytpu_torch.kernels.raster import raster_tri_constants, resolve_winner
-from raytpu_torch.kernels.soft_raster import (
-    clip01,
-    rasterize_soft_kernel,
-    use_cull,
-)
+from raytpu_torch.kernels import soft_raster as sr
+from raytpu_torch.kernels.raster import tile_rects
+from raytpu_torch.kernels.soft_raster import clip01, use_cull
 from raytpu_torch.ops.intersect import gather_rows, one_hot_idx
 from raytpu_torch.ops.raster import cull_mask, glm_inverse3
 from raytpu_torch.ops.shade import irradiance_no_shadow, source_positions
 
 
+class SoftRasterInputs(NamedTuple):
+    """The soft raster kernels' inputs for a frame (rasterize_soft_inputs):
+    the (Tp, 32) table, Tp a multiple of chunk, carrying the autograd graph
+    of scene and camera; the keep-mask (n_tiles, n_chunks) int32 over the
+    16 x 16 tiles of kernels/raster.py::tile_rects where the frame culls,
+    else None; and the sharpness."""
+
+    consts: torch.Tensor
+    chunk: int
+    mask: torch.Tensor | None
+    es: float
+    zs: float
+
+
+def soft_chunk(T: int, chunk: int = sr.MAX_CHUNK) -> int:
+    """Rows a chunk of a soft table of T triangles: min(chunk, max(T, 8)),
+    as the JAX package's soft frames take it."""
+    return min(chunk, max(T, 8))
+
+
+def rasterize_soft_inputs(scene: Scene, camera: Camera, cfg: RenderConfig,
+                          cull: bool | None = None,
+                          chunk: int = sr.MAX_CHUNK) -> SoftRasterInputs:
+    """The kernels' inputs for a soft frame, as ``rasterize_soft_pallas``
+    builds them: the table padded to a whole number of chunks of
+    min(chunk, max(T, 8)) rows (T == 0 takes one all-invalid chunk, the
+    background), and the keep-mask where ``use_cull`` culls."""
+    H, W = cfg.height, cfg.width
+    sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
+    consts = sr.soft_tri_constants(sx, sy, zinv, pos3d, scene.color,
+                                   scene.normals(), scene.active)
+    T = consts.shape[0]
+    chunk = soft_chunk(T, chunk)
+    pad = chunk if T == 0 else (-T) % chunk
+    if pad:
+        consts = torch.cat([consts, consts.new_zeros(pad, sr.CONST_COLS)])
+    es = float(cfg.soft_edge_sharpness)
+    zs = float(cfg.soft_z_sharpness)
+    mask = None
+    if use_cull(cull, consts.shape[0] // chunk, H, W):
+        mask = sr.soft_keep_mask(tile_rects(H, W, consts.device),
+                                 consts.detach(), es, zs, chunk)
+    return SoftRasterInputs(consts, chunk, mask, es, zs)
+
+
 def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
-                   cfg: RenderConfig) -> torch.Tensor:
-    """Differentiable rasterize; returns (H, W, 3). Soft z-buffer through
-    the soft raster kernels (``rasterize_soft_kernel``, the JAX package's
-    ``rasterize_soft_pallas``), culling chunks where the JAX package
-    would."""
-    return rasterize_soft_kernel(scene, camera, lights, cfg)
+                   cfg: RenderConfig, cull: bool | None = None,
+                   chunk: int = sr.MAX_CHUNK) -> torch.Tensor:
+    """Differentiable rasterize; returns (H, W, 3). The JAX package's
+    ``rasterize_soft_pallas``: the soft z-buffer through the soft raster
+    kernels (``SoftAgg``: K9a, or K9b where the frame culls; the backward
+    K9c or K9d), then ``shade_agg_raster``. Gradients reach the scene
+    (``active`` too, through log(valid)), the camera (through the screen
+    vertices) and the lights (through the shading).
+
+    ``cull`` None culls where the JAX package would (several chunks, an
+    image that blocks into its 1,024-pixel tiles); True culls or raises
+    ValueError where the image does not block; False runs K9a at any size.
+    ``chunk``: rows a chunk, at most 32."""
+    H, W = cfg.height, cfg.width
+    inp = rasterize_soft_inputs(scene, camera, cfg, cull, chunk)
+    agg = sr.SoftAgg.apply(inp.consts, H, W, inp.chunk, inp.mask, inp.es,
+                           inp.zs).T
+    img = shade_agg_raster(agg[:, 0:3], agg[:, 3:6], agg[:, 6], agg[:, 7:10],
+                           camera, lights, float(np.float32(cfg.ambient)))
+    return img.reshape(H, W, 3)
 
 
 class SoftRtInputs(NamedTuple):
@@ -107,7 +164,7 @@ def raytrace_soft_inputs(scene: Scene, camera: Camera, cfg: RenderConfig,
     from raytpu_torch.render.raytrace import camera_ray_dirs
 
     H, W = cfg.height, cfg.width
-    chunk = min(chunk, max(scene.num_triangles, 8))
+    chunk = soft_chunk(scene.num_triangles, chunk)
     pri = srt.pad_rows(srt.primary_tri_constants(scene, camera.pos), chunk)
     culled = use_cull(cull, pri.shape[0] // chunk, H, W)
     shw = srt.pad_rows(srt.shadow_tri_constants(scene), chunk)

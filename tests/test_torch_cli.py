@@ -274,9 +274,25 @@ def test_fit_cli_trains_on_cpu(tmp_path, capsys):
                                            soft_z_sharpness=4000.0))
     np.testing.assert_array_equal(read_bmp(str(out)),
                                   quantize_u8(frame.numpy()))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["fit", str(target), "--device", "cpu", "--steps", "1",
-              "-o", str(tmp_path / "x.bmp"), "--mesh", "2x2"])
+    # --mesh: one rank under a plain python -m (a 1x1 mesh), and two
+    # ranks under torchrun (2x1), each printing the unsharded fit's loss
+    # and writing its frame (fresh processes: the process group is global
+    # state).
+    for launcher, mesh in (([sys.executable], "1x1"),
+                           ([sys.executable, "-m",
+                             "torch.distributed.run", "--standalone",
+                             "--nproc-per-node", "2"], "2x1")):
+        mesh_out = tmp_path / f"fit{mesh}.bmp"
+        proc = subprocess.run(
+            [*launcher, "-m", "raytpu_torch.cli.main", "fit", str(target),
+             "--device", "cpu", "--steps", "4", "-o", str(mesh_out),
+             "--mesh", mesh], cwd=ROOT, capture_output=True, text=True,
+            timeout=120)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert proc.stdout.count("final loss:") == 1  # rank 0 alone
+        assert f"final loss: {want.losses[-1]:.6f}" in proc.stdout
+        assert np.abs(read_bmp(str(mesh_out)).astype(int)
+                      - read_bmp(str(out)).astype(int)).max() <= 1
 
 
 def test_fit_cli_trains_the_raytracer_on_cpu(tmp_path, capsys):

@@ -384,11 +384,49 @@ def test_unknown_options_raise(target):
         _fit(target, steps=1, renderer="scanline")
 
 
-def test_unported_routes_raise_naming_their_items(target):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fit(target, cornell_box(device="cpu"), _camera(), _start_lights(),
-            RenderConfig(width=SIZE, height=SIZE, mode="soft"),
-            FitConfig(steps=1), mesh=object())
+_MESH_FIT = """
+import sys
+import numpy as np
+import torch
+from raytpu_torch.core.cornell import cornell_box
+from raytpu_torch.core.types import Camera, Lights, RenderConfig
+from raytpu_torch.opt.fit import FitConfig, fit
+from raytpu_torch.parallel import (init_distributed, make_mesh,
+                                   shutdown_distributed)
+target, out = sys.argv[1], sys.argv[2]
+init_distributed(device="cpu")
+try:
+    res = fit(np.load(target), cornell_box(device="cpu"),
+              Camera.make((0.0, 0.0, -3.0), focal=24.0, y_scale=1.01,
+                          device="cpu"),
+              Lights.single(capacity=1, intensity=8.0,
+                            position=(0.2, -0.3, -0.5), device="cpu"),
+              RenderConfig(width=24, height=24, mode="soft"),
+              FitConfig(steps=3, log_every=0, stages=((10.0, 20.0, 1.0),)),
+              mesh=make_mesh(1, 1, device="cpu"))
+    np.save(out, res.losses)
+finally:
+    shutdown_distributed()
+"""
+
+
+def test_unported_routes_raise_naming_their_items(target, tmp_path):
+    """The route that raised naming port item 8, ``fit(mesh=...)``, runs:
+    on a 1 x 1 mesh of one rank (a fresh process: the process group is
+    global state) it follows the unsharded fit at rtol 1e-4."""
+    import subprocess
+    import sys
+    assert SIZE == 24 and ONE_STAGE == ((10.0, 20.0, 1.0),)
+    np.save(tmp_path / "target.npy", target)
+    proc = subprocess.run(
+        [sys.executable, "-c", _MESH_FIT, str(tmp_path / "target.npy"),
+         str(tmp_path / "losses.npy")],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    want = _fit(target, steps=3).losses
+    np.testing.assert_allclose(np.load(tmp_path / "losses.npy"), want,
+                               rtol=1e-4)
 
 
 def test_metrics_stream_and_image_dumps(target, tmp_path):

@@ -1183,3 +1183,214 @@ def test_stl_frame_on_gpu_matches_cpu(cuda):
         for field in want_g:
             np.testing.assert_allclose(got_g[field], want_g[field], rtol=1e-4,
                                        atol=1e-5, err_msg=field)
+
+
+# ---------------------------------------------------------------------------
+# The sharded renderer's kernels: K7b, K7c, K8a; K8b, K8c, K9a, K9c at y0.
+
+
+def _occlusion_case(device, size, quads, samples):
+    """K7b's and K7c's inputs: the hit points of a size^2 frame of the
+    procedural torus (_mesh_sweep's; the camera position on a miss), the
+    sources' constants, the port's tiles and position_mask."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels.tables import tight_chunk
+    c = _mesh_sweep(device, size, quads, samples, 2 if samples > 1 else 1)
+    dirs, m, k0, valid = c["args"]
+    m_s, k0_s, cam, src = c["src_args"]
+    with torch.no_grad():
+        t, idx = isect.closest_hit(dirs, m, k0, valid)
+        pos = (cam + torch.where(idx >= 0, t, 0.0)[:, None] * dirs)
+        mask = isect.position_mask(pos, c["tiles"], c["geom"], valid, src,
+                                   tight_chunk(m.shape[0], 512))
+    return dict(args=(pos.contiguous(), m_s, k0_s, src.contiguous(), valid),
+                mask=mask, tiles=c["tiles"], hit=idx >= 0)
+
+
+@pytest.mark.parametrize("size,quads,samples",
+                         [(512, (74, 61), 1), (200, (20, 20), 16)],
+                         ids=["9028-tris-512-s1", "800-tris-200-s32"])
+def test_occlusion_kernels_match_plain_version(cuda, size, quads, samples):
+    """K7b and K7c against their plain versions: occlusion bits equal for
+    every point, K7c = K7b, an all-ones mask = K7b, two calls identical,
+    exact launch counts."""
+    from raytpu_torch.kernels import intersect as isect
+    c = _occlusion_case(cuda, size, quads, samples)
+    args = c["args"]
+    before = (isect.LAUNCHES_OCCLUSION, isect.LAUNCHES_OCCLUSION_MASKED)
+    brute, brute_again = (isect.occlusion_multi(*args),
+                          isect.occlusion_multi(*args))
+    culled = isect.occlusion_multi(*args, 512, c["mask"], c["tiles"])
+    ones = isect.occlusion_multi(*args, 512, torch.ones_like(c["mask"]),
+                                 c["tiles"])
+    assert (isect.LAUNCHES_OCCLUSION, isect.LAUNCHES_OCCLUSION_MASKED) == (
+        before[0] + 2, before[1] + 2)
+    want = isect.occlusion_multi_reference(*args)
+    want_culled = isect.occlusion_multi_masked_reference(
+        *args, c["mask"], c["tiles"])
+    torch.cuda.synchronize()
+    assert brute.dtype == torch.int32
+    assert brute.shape == (args[3].shape[0], size * size)
+    assert torch.equal(brute, want) and torch.equal(brute, brute_again)
+    assert torch.equal(culled, want_culled) and torch.equal(culled, brute)
+    assert torch.equal(ones, brute)
+    assert bool(brute[:, c["hit"]].any()) and not bool(brute.all())
+    assert 0.0 < float(c["mask"].float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("size,y0", [(257, 0), (512, 256), (129, 64)])
+def test_chunked_winner_kernel_matches_plain_version(cuda, size, y0):
+    """K8a on rows [y0, size) of the 9,028-triangle mesh's frame at the STL
+    camera: winners equal to the plain version and to K8c with an
+    all-ones mask over the same rows, two calls identical."""
+    from raytpu_torch.kernels import raster
+    consts, _ = _raster_case(cuda, "stl", size)
+    rows = size - y0
+    before = raster.LAUNCHES_WINNER_CHUNKED
+    got = raster.raster_winner_chunked(consts, rows, size, 128, y0)
+    again = raster.raster_winner_chunked(consts, rows, size, 128, y0)
+    assert raster.LAUNCHES_WINNER_CHUNKED == before + 2
+    n_tiles = -(-rows // raster.TILE) * -(-size // raster.TILE)
+    ones = torch.ones((n_tiles, -(-consts.shape[0] // 128)),
+                      dtype=torch.int32, device=cuda)
+    masked = raster.raster_winner_masked(consts, rows, size, ones, 128, y0)
+    want = raster.resolve_winner_chunked_reference(consts, rows, size, 128,
+                                                   y0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert torch.equal(got, masked)
+    assert 0.05 < float((got >= 0).float().mean()) < 0.95
+    if y0:
+        full = raster.raster_winner_chunked(consts, size, size, 128)
+        assert torch.equal(got, full[y0 * size:])
+
+
+def test_row_offset_kernels_match_plain_versions(cuda):
+    """K8b, K8c, K9a and K9c on rows [y0, y0 + rows) of a frame: the plain
+    versions' winners and aggregates for those rows (K8b, K8c exactly; K9a
+    within rtol 1e-5 / atol 1e-6; K9c the plain backward's rule by column
+    group), and at y0 = 0 the same bits as before."""
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.kernels import soft_raster as sr
+    size, y0, rows = 128, 48, 64
+    consts, _ = _raster_case(cuda, "offgrid", size)
+    got = raster.raster_winner(consts, rows, size, y0)
+    want = raster.resolve_winner_reference(consts, rows, size, y0)
+    full = raster.raster_winner(consts, size, size)
+    assert torch.equal(got, want)
+    assert torch.equal(got, full[y0 * size:(y0 + rows) * size])
+    mesh, _ = _raster_case(cuda, "stl", size)
+    ones = torch.ones((-(-rows // raster.TILE) * (size // raster.TILE),
+                       -(-mesh.shape[0] // 128)), dtype=torch.int32,
+                      device=cuda)
+    assert torch.equal(
+        raster.raster_winner_masked(mesh, rows, size, ones, 128, y0),
+        raster.resolve_winner_masked_reference(mesh, rows, size, ones, 128,
+                                               y0))
+    c = _soft_case(cuda, "cornell", size)
+    args = (c["consts"], rows, size, c["chunk"], None, c["es"], c["zs"])
+    agg, m, s = sr.soft_agg_fwd(*args, y0=y0)
+    coords = sr.pixel_coords(rows, size, cuda, y0=y0)
+    wagg, wm, ws = sr.soft_agg_reference(c["consts"], coords, None, c["es"],
+                                         c["zs"], c["chunk"])
+    for a, b in ((agg, wagg), (m, wm), (s, ws)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    fagg, _, _ = sr.soft_agg_fwd(c["consts"], size, size, c["chunk"], None,
+                                 c["es"], c["zs"])
+    part = slice(y0 * size, (y0 + rows) * size)
+    torch.testing.assert_close(agg, fagg[:, part], rtol=1e-5, atol=1e-6)
+    cot = _soft_cot(dict(c, H=rows), seed=9)
+    dc = sr.soft_agg_bwd(c["consts"], m, cot, rows, size, c["chunk"], None,
+                         c["es"], c["zs"], y0=y0)
+    want_dc = sr.soft_agg_bwd_reference(
+        c["consts"].double(), coords.double(), None, m.double(),
+        cot.double(), c["es"], c["zs"], c["chunk"],
+        branches_from=c["consts"])
+    torch.cuda.synchronize()
+    _assert_groups_close(dc, want_dc)
+
+
+def test_sharded_frames_on_one_rank_match_single_card(cuda):
+    """On a 1 x 1 NCCL mesh (one process), the sharded clean frame (K5 +
+    K7b), rasterizer (K8b) and soft rasterizer (K9a) equal the single-card
+    frames; launches exact."""
+    import torch.distributed as dist
+
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.kernels import soft_raster as sr
+    from raytpu_torch.parallel import (init_distributed, make_mesh,
+                                       shutdown_distributed)
+    from raytpu_torch.parallel import render as pr
+    from raytpu_torch.render.soft import rasterize_exact, rasterize_soft
+    if dist.is_initialized():
+        pytest.skip("a process group is already up")
+    init_distributed()
+    try:
+        mesh = make_mesh(1, 1)
+        scene = cornell_box(pad_to=32, device=cuda)
+        lights = Lights.single(capacity=1, device=cuda)
+        clean = RenderConfig(width=128, height=128, mode="clean")
+        cam_r = Camera.make((0.011, -0.007, -3.013), focal=128.23,
+                            y_scale=1.01, device=cuda)
+        soft = RenderConfig(width=128, height=128, mode="soft")
+        before = (isect.LAUNCHES_CLOSEST, isect.LAUNCHES_OCCLUSION,
+                  raster.LAUNCHES_WINNER, sr.LAUNCHES_SOFT_FWD)
+        with torch.no_grad():
+            img = pr.make_sharded_render(mesh, clean)(
+                scene, Camera.raytracer_default(device=cuda), lights)
+            ras = pr.make_sharded_rasterize(mesh, clean)(scene, cam_r,
+                                                         lights)
+            sof = pr.make_sharded_soft_render(mesh, soft)(scene, cam_r,
+                                                          lights)
+        assert (isect.LAUNCHES_CLOSEST, isect.LAUNCHES_OCCLUSION,
+                raster.LAUNCHES_WINNER, sr.LAUNCHES_SOFT_FWD) == tuple(
+            b + 1 for b in before)
+        with torch.no_grad():
+            want = raytrace_full(scene, Camera.raytracer_default(device=cuda),
+                                 lights, clean).image
+            want_r = rasterize_exact(scene, cam_r, lights, clean)
+            want_s = rasterize_soft(scene, cam_r, lights, soft)
+        torch.cuda.synchronize()
+        assert float((img - want).abs().max()) <= 1e-6
+        assert float((ras - want_r).abs().max()) <= 1e-6
+        torch.testing.assert_close(sof, want_s, rtol=1e-5, atol=1e-6)
+    finally:
+        shutdown_distributed()
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)],
+                         ids=["2x2", "4x1", "1x4"])
+def test_sharded_paths_across_four_cards(cuda, shape, tmp_path):
+    """tests/test_torch_parallel.py's sharded jobs on four cards, one rank
+    a card over NCCL (the halo and the merges crossing cards), held to the
+    unsharded port on cuda:0 at that file's rules."""
+    import importlib.util
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    spec = importlib.util.spec_from_file_location(
+        "torch_parallel_jobs",
+        __import__("pathlib").Path(__file__).with_name(
+            "test_torch_parallel.py"))
+    jobs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jobs)
+    from raytpu_torch.kernels import _build
+    _build.build()  # once, before the ranks load it
+    names = (*jobs.JOBS, "fit") if shape == (2, 2) else jobs.JOBS
+    results = jobs.launch(shape, tmp_path, names, device="cuda")
+    checks = ([(jobs.check_hard, n) for n in jobs.HARD]
+              + [(jobs.check_raster, n) for n in jobs.RASTER]
+              + [(jobs.check_soft, n) for n in jobs.SOFT_FRAMES]
+              + [(jobs.check_step, n) for n in jobs.STEPS])
+    failed = []
+    for check, name in checks:  # every check runs; any failure fails
+        try:
+            check(results, shape, name, cuda)
+        except AssertionError as e:
+            failed.append(f"{name}: {str(e)[:600]}")
+    if shape == (2, 2):
+        want = jobs.reference("fit", cuda)["losses"]
+        for r in results:
+            np.testing.assert_array_equal(r["fit"], results[0]["fit"])
+        np.testing.assert_allclose(results[0]["fit"], want, rtol=1e-3)
+    assert not failed, "\n".join(failed)

@@ -220,7 +220,10 @@ def test_wrappers_check_their_inputs():
         kernels._check(consts, 4, 4, mask.long(), 128)
     with pytest.raises(ValueError):
         kernels._check(consts, 20, 4, mask, 128)  # two tile rows
-    with pytest.raises(NotImplementedError, match="item 8"):
-        kernels.resolve_winner(consts, 4, 4)
+    # Several chunks without screen_verts: K8a (its plain version here).
+    assert torch.equal(kernels.resolve_winner(consts, 4, 4),
+                       torch.full((16,), -1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels._check(consts, 4, 4, None, 256)  # K8a's chunk
     with pytest.raises(ValueError):
         kernels.raster_winner(consts.to("meta"), 4, 4)

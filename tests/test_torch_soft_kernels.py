@@ -28,7 +28,7 @@ from raytpu_torch.core.stl import load_stl, procedural_stl_text
 from raytpu_torch.core.types import Camera, Lights, RenderConfig
 from raytpu_torch.kernels import soft_raster as kernels
 from raytpu_torch.kernels.raster import tile_rects
-from raytpu_torch.render.soft import _screen_vertices
+from raytpu_torch.render.soft import _screen_vertices, rasterize_soft
 
 W, H = 24, 20
 ES, ZS = 60.0, 60.0
@@ -189,7 +189,7 @@ def test_zero_triangles_give_the_background():
     scene = Scene(v0=empty, v1=empty, v2=empty, color=empty,
                   active=torch.zeros(0))
     cfg = RenderConfig(width=W, height=H, mode="soft")
-    img = kernels.rasterize_soft_kernel(
+    img = rasterize_soft(
         scene, Camera.rasterizer_default(device="cpu"),
         Lights.single(capacity=2, device="cpu"), cfg)
     assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
@@ -266,8 +266,7 @@ def test_culled_matches_unculled(mesh64):
     def run(cull):
         v0 = scene.v0.clone().requires_grad_(True)
         s = type(scene)(**{**vars(scene), "v0": v0})
-        img = kernels.rasterize_soft_kernel(s, camera, lights, cfg, cull=cull,
-                                            chunk=16)
+        img = rasterize_soft(s, camera, lights, cfg, cull=cull, chunk=16)
         (img ** 2).sum().backward()
         return img.detach(), v0.grad
 
