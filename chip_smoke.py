@@ -199,7 +199,8 @@ nonzero without printing a result:
      K10b, K10d, K10h and K10j a step, no unmasked K10), then card
      numbers: the culled step beside phase 22's brute step, its device-busy
      share, events and peak memory, the culled frames, K10b-K10j alone
-     beside their plain versions and bounds (kept pairs and triples only).
+     beside their plain versions (one call each) and bounds (kept pairs
+     and triples only).
  29. the sharded renderer's kernels against their plain versions on the
      card: K7b (occlusion of known points) on the 512^2 Cornell frame's
      hit points toward the full-feature sources (S = 32); K7c (K7b with
@@ -225,6 +226,24 @@ nonzero without printing a result:
      memory; fit(mesh=1x1) against fit (rtol 1e-4) and ``fit --mesh 1x1``
      (the CLI, which then shuts the process group down); then K7b, K7c and
      K8a alone beside their plain versions and bounds.
+ 32. the two-launch soft raytrace backwards (K10e and K10f, the primary's
+     tables and rays halves, above 32,768 triangles; K10k and K10l, the
+     shadow's, above 65,536) on the procedural torus at 256 x 130 quads
+     (66,560 triangles, 2,080 chunks): the four kernels at 128^2 (the
+     route depends on the table's size alone) against the plain backward
+     in float64 by column group with phase 20's rule, or where the plain
+     float32 version misses float64 (F11) within twice its distance, two
+     calls identical, d dirs and d world equal to the fused K10c's and
+     K10i's bit for bit; the culled 512^2 soft raytrace step on that torus
+     (exactly one K10b, K10h, K10e, K10f, K10k and K10l) and on the 200 x
+     90 one (36,000 triangles: K10e and K10f beside the masked K10j),
+     ``fit(renderer="raytrace")`` for 2 steps, the sharded step on a new
+     1 x 1 NCCL mesh against the single-card step; then card numbers at
+     512^2: the four kernels beside the fused K10c and K10i on the same
+     inputs (56 and 72 blocks under their partials' cap), the plain
+     backward of each pass once (~15 s apiece), the four kernels held to
+     it by column group with phase 20's rule, bounds, both steps, the
+     step's device-busy share and peak memory.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
@@ -243,8 +262,10 @@ and after each call of phase 25's stl_intersect row (K5, K7d) and its 3
 STL steps (K7a), before and after phase 27 (serving the culled soft
 raytracer: K10b, K10h, K7a), before and after phase 28's 2 culled steps
 (K10b, K10d, K10h, K10j), before and after phase 30's sharded frames (K5,
-K7b, K7d, K7c, K8b, K8a, K9a, K10a, K10g), and before and after each
-sharded step and the sharded fit of phase 31. Comparisons and timings
+K7b, K7d, K7c, K8b, K8a, K9a, K10a, K10g), before and after each
+sharded step and the sharded fit of phase 31, and before and after each
+of phase 32's two steps, its fit and its sharded step (K10b, K10h,
+K10e, K10f, K10k, K10l, K10j, K10a, K10g). Comparisons and timings
 launch outside those windows. The
 line before the last is one JSON object describing each kernel; the last
 line is
@@ -326,6 +347,23 @@ FLOPS_SRT_PRI_LOGIT, FLOPS_SRT_PRI_SUMS = 40, 27
 FLOPS_SRT_SHW_TERM = 40
 FLOPS_SRT_PRI_W, FLOPS_SRT_PRI_BWD = 41, 146
 FLOPS_SRT_SHW_W, FLOPS_SRT_SHW_BWD = 38, 142
+# The derivative's 128 operations by what needs them, counted from
+# pri_pair_bwd and shw_pair_bwd as above. Only the table's gradient (and the
+# camera's) needs the primary's 40: the albedo and normal rows (12), the
+# camera (3), the active row (3), the dmin row (2), the t row (2) and the
+# three plane rows (18); only the ray's needs its 26: the direction through
+# pos (6), |d| (2) and the planes (18). Only the table's gradient needs the
+# shadow's 42: the active row (2), n (9), n . v0 (1), the edges' two cross
+# products (18) and the adds into the v0, edge and n rows (12); only the
+# point's and the source's need its 29: the ray's length (2), unit
+# direction (18) and the source (9). The chain both halves need is the
+# rest. The two-launch halves each drop the other half's terms.
+FLOPS_SRT_PRI_TABLE, FLOPS_SRT_PRI_DIRS = 40, 26
+FLOPS_SRT_SHW_TABLE, FLOPS_SRT_SHW_RAYS = 42, 29
+FLOPS_SRT_PRI_CHAIN = (FLOPS_SRT_PRI_BWD - 18 - FLOPS_SRT_PRI_TABLE
+                       - FLOPS_SRT_PRI_DIRS)
+FLOPS_SRT_SHW_CHAIN = (FLOPS_SRT_SHW_BWD - 14 - FLOPS_SRT_SHW_TABLE
+                       - FLOPS_SRT_SHW_RAYS)
 # Image rule of tests/test_rasterize_parity.py::test_parity_vs_oracle_500.
 RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 # Cycles of torch.cuda._sleep that hold the stream while timed calls are
@@ -796,7 +834,11 @@ def kernel_counts() -> dict:
             "soft_rt_pri_fwd_masked": srt.LAUNCHES_SRT_PRI_FWD_MASKED,
             "soft_rt_pri_bwd_masked": srt.LAUNCHES_SRT_PRI_BWD_MASKED,
             "soft_rt_shw_fwd_masked": srt.LAUNCHES_SRT_SHW_FWD_MASKED,
-            "soft_rt_shw_bwd_masked": srt.LAUNCHES_SRT_SHW_BWD_MASKED}
+            "soft_rt_shw_bwd_masked": srt.LAUNCHES_SRT_SHW_BWD_MASKED,
+            "soft_rt_pri_bwd_tables": srt.LAUNCHES_SRT_PRI_BWD_TABLES,
+            "soft_rt_pri_bwd_dirs": srt.LAUNCHES_SRT_PRI_BWD_DIRS,
+            "soft_rt_shw_bwd_consts": srt.LAUNCHES_SRT_SHW_BWD_CONSTS,
+            "soft_rt_shw_bwd_rays": srt.LAUNCHES_SRT_SHW_BWD_RAYS}
 
 
 def zero_counts() -> None:
@@ -818,6 +860,8 @@ def zero_counts() -> None:
     srt.LAUNCHES_SRT_SHW_FWD = srt.LAUNCHES_SRT_SHW_BWD = 0
     srt.LAUNCHES_SRT_PRI_FWD_MASKED = srt.LAUNCHES_SRT_PRI_BWD_MASKED = 0
     srt.LAUNCHES_SRT_SHW_FWD_MASKED = srt.LAUNCHES_SRT_SHW_BWD_MASKED = 0
+    srt.LAUNCHES_SRT_PRI_BWD_TABLES = srt.LAUNCHES_SRT_PRI_BWD_DIRS = 0
+    srt.LAUNCHES_SRT_SHW_BWD_CONSTS = srt.LAUNCHES_SRT_SHW_BWD_RAYS = 0
 
 
 def raster_case(scene, camera, cfg) -> dict:
@@ -1163,6 +1207,39 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
                             + FLOPS_SRT_SHW_W
                             * (w["act_s"] - w["act_gated_s"])
                             + FLOPS_SRT_SHW_BWD * w["live_s"]),
+    }
+
+
+def two_launch_bounds(c, w) -> dict:
+    """K10e, K10f, K10k and K10l's bounds on a srt_case with srt_work's
+    unmasked counts w (the two-launch route takes no mask): each input
+    read and each output written once (K10e: 56 B a ray and the table in,
+    its gradient and d camera out; K10f: the same in, 12 B a ray out; K10k:
+    12 + 8 S B a point and the table in, its gradient out; K10l: the same
+    in, 12 B a point and d sources out), against srt_bounds' operations:
+    each half does a pair's or triple's recompute, the derivative's shared
+    chain and its own terms (FLOPS_SRT_*_TABLE, _DIRS, _RAYS), the tables
+    halves also their share of the row's sums (18 primary, 14 shadow)."""
+    Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
+    hit_p = w["pairs"] - w["gated_p"]
+    pri = FLOPS_SRT_PRI_GATE * w["gated_p"] + FLOPS_SRT_PRI_W * hit_p
+    shw = (FLOPS_SRT_SHW_GATE * w["act_gated_s"]
+           + FLOPS_SRT_SHW_W * (w["act_s"] - w["act_gated_s"]))
+    return {
+        "pri_bwd_tables": bound_ms(
+            R * 56 + Tp * 256 + 24,
+            pri + (FLOPS_SRT_PRI_CHAIN + FLOPS_SRT_PRI_TABLE + 18)
+            * w["live_p"]),
+        "pri_bwd_dirs": bound_ms(
+            R * 68 + Tp * 128 + 12,
+            pri + (FLOPS_SRT_PRI_CHAIN + FLOPS_SRT_PRI_DIRS) * w["live_p"]),
+        "shw_bwd_consts": bound_ms(
+            R * (12 + 8 * S) + Tp * 128 + 12 * S,
+            shw + (FLOPS_SRT_SHW_CHAIN + FLOPS_SRT_SHW_TABLE + 14)
+            * w["live_s"]),
+        "shw_bwd_rays": bound_ms(
+            R * (24 + 8 * S) + Tp * 64 + 24 * S,
+            shw + (FLOPS_SRT_SHW_CHAIN + FLOPS_SRT_SHW_RAYS) * w["live_s"]),
     }
 
 
@@ -1689,6 +1766,369 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
         entry("raster_winner_chunked", "k8a", "k8a_stl_512",
               serve["raster_winner_chunked"],
               replaces="raytpu/kernels/raster_pallas.py:39"),
+    ]
+
+
+def two_launch_phase(dev, record: dict) -> list[dict]:
+    """Phase 32: K10e, K10f, K10k and K10l, the two-launch soft raytrace
+    backwards, against their plain versions on the 66,560-triangle torus;
+    the paths that take them (the culled 512^2 soft raytrace step on 66,560
+    and 36,000 triangles, fit(renderer="raytrace"), the sharded step on a
+    1 x 1 NCCL mesh) with exact launches; their card numbers beside the
+    fused K10c and K10i on the same inputs. Returns their entries of the
+    kernels line."""
+    from raytpu_torch import Camera, Lights, RenderConfig, load_stl
+    from raytpu_torch.core.stl import procedural_stl_text
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.opt.fit import FitConfig, fit
+    from raytpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+    from raytpu_torch.parallel import render as pr
+    from raytpu_torch.render.soft import raytrace_soft
+
+    say("== phase 32: K10e, K10f, K10k and K10l (the two-launch soft "
+        "raytrace backwards) on meshes above 32,768 / 65,536 triangles")
+    t_phase = time.perf_counter()
+    geometry = {}
+    for quads in ((256, 130), (200, 90)):  # 2 n_major n_minor triangles
+        path = OUT / f"torus_{quads[0]}x{quads[1]}.stl"
+        path.write_text(procedural_stl_text(*quads))
+        mesh = load_stl(str(path), device=dev)
+        geometry[mesh.num_triangles] = mesh
+    require(sorted(geometry) == [36000, 66560], "the tori's sizes")
+
+    def frame(T: int, size: int):
+        """bench.py's soft_raytrace_stl frame (`bench.py:644-676`) on the
+        T-triangle torus: size^2, the rasteriser camera, one light,
+        sharpness 40 / 40; the scene's leaves fresh copies."""
+        mesh = geometry[T]
+        return (dataclasses.replace(mesh, **{k: v.clone() for k, v
+                                             in vars(mesh).items()}),
+                Camera.rasterizer_default(device=dev),
+                Lights.single(capacity=1, device=dev),
+                RenderConfig(width=size, height=size, mode="soft",
+                             soft_edge_sharpness=40.0,
+                             soft_z_sharpness=40.0))
+
+    def inputs(c):
+        """The backwards' inputs on a srt_case: the forward's m, world and
+        trans (K10a, K10g) and one-signed cotangents from numpy seeds."""
+        out, m, _ = srt_fwd(c)
+        world = out[3:6].contiguous()
+        trans = srt_shw(c, world)
+        cot = one_signed((10, m.shape[0]), dev, seed=7)
+        gcot = one_signed(tuple(trans.shape), dev, seed=8)
+        return ((c["pri"], c["cam"], c["dirs"], m, cot, c["es"], c["zs"],
+                 c["chunk"]),
+                (c["shw"], c["srcs"], world, trans, gcot, c["es"], c["zs"],
+                 c["chunk"]))
+
+    def pri_launch(a):  # the launch helpers' order of a backward's inputs
+        consts, cam, dirs, m, cot, es, zs, chunk = a
+        return consts, chunk, cam, dirs, es, zs, m, cot
+
+    def shw_launch(a):
+        consts, srcs, world, trans, gcot, es, zs, chunk = a
+        return consts, chunk, srcs, world, trans, gcot, es, zs
+
+    def fused(c, pargs, sargs):
+        """K10c and K10i, launched directly (the wrappers route this table
+        to K10e-K10l): (dc, dcam, dd), (dc, dsrc, dw) and the launches."""
+        Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
+        pg = srt.bwd_groups(Tp, srt.PRI_USED, R)
+        sg = srt.bwd_groups(Tp, srt.SHW_USED, R)
+        pbuf = (torch.empty((pg, Tp, srt.PRI_USED), device=dev),
+                torch.empty((pg, 3), device=dev), torch.empty_like(c["pri"]),
+                torch.empty(3, device=dev), torch.empty_like(c["dirs"]))
+        sbuf = (torch.empty((sg, Tp, srt.SHW_USED), device=dev),
+                torch.empty((sg, S, 3), device=dev),
+                torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
+                torch.empty_like(sargs[2]))
+        return pbuf[2:], sbuf[2:], {
+            "pri_bwd_fused": lambda: srt.launch_pri_bwd_kernel(
+                *pri_launch(pargs), *pbuf),
+            "shw_bwd_fused": lambda: srt.launch_shw_bwd_kernel(
+                *shw_launch(sargs), *sbuf)}
+
+    # The kernels against their plain versions at R = 128^2 (the route
+    # depends on Tp alone), in float64 with the float32 branch decisions
+    # and in float32, by column group with phase 20's rule (F11) or, where
+    # the plain float32 version misses float64 by more than the rule (the
+    # sources' 3 entries at these sizes: every float32 order, the fused
+    # K10i's too, lands 2-7 times the rule from float64), within twice
+    # that version's distance from float64, as phase 26 holds culled
+    # against brute.
+    c = srt_case(*frame(66560, 128))
+    Tp = c["pri"].shape[0]
+    require(Tp == 66560 and c["chunk"] == 32 and srt.pri_two_launch(Tp)
+            and srt.shw_two_launch(Tp), "66,560 rows: both passes two-launch")
+    t0 = time.perf_counter()
+    pargs, sargs = inputs(c)
+
+    def halves(pargs, sargs):
+        """The four kernels through their wrappers: (dc, dcam, dd, dc, dsrc,
+        dw)."""
+        return (*srt.primary_bwd_tables(*pargs), srt.primary_bwd_dirs(*pargs),
+                srt.shadow_bwd_consts(*sargs), *srt.shadow_bwd_rays(*sargs))
+
+    def parts(got, pri, shw):
+        """(kernel, part, column groups, got's part, the same part of the
+        primary and shadow backwards pri and shw)."""
+        one = (("all", 0, 3),)
+        return [("k10e", "table", srt.PRI_GROUPS, got[0], pri[0]),
+                ("k10e", "camera", one, got[1][None], pri[1][None]),
+                ("k10f", "dirs", one, got[2].T, pri[2].T),
+                ("k10k", "table", srt.SHW_GROUPS, got[3], shw[0]),
+                ("k10l", "sources", one, got[4], shw[1]),
+                ("k10l", "world", one, got[5].T, shw[2].T)]
+
+    got, again = halves(pargs, sargs), halves(pargs, sargs)
+    f_pri, f_shw, launch = fused(c, pargs, sargs)
+    launch["pri_bwd_fused"]()
+    launch["shw_bwd_fused"]()
+    w64 = srt.primary_agg_bwd_reference(
+        *(t.double() for t in pargs[:5]), *pargs[5:], f32_branches=True)
+    p32 = srt.primary_agg_bwd_reference(*pargs)
+    sw64 = srt.shadow_trans_bwd_reference(
+        *(t.double() for t in sargs[:5]), *sargs[5:], f32_branches=True)
+    sp32 = srt.shadow_trans_bwd_reference(*sargs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    # K10f adds a ray's terms as K10c does, K10l a point's as K10i does.
+    rays_equal = (torch.equal(got[2], f_pri[2])
+                  and torch.equal(got[5], f_shw[2]))
+    say(f"66,560 triangles ({Tp // c['chunk']} chunks), {c['dirs'].shape[1]}"
+        f" rays, S = {c['srcs'].shape[0]}: two calls identical {same}; d dirs"
+        f" = K10c's and d world = K10i's bit for bit {rays_equal} "
+        f"({time.perf_counter() - t0:.1f} s); by group, the largest |d| "
+        f"scaled by the group's largest float64 entry:")
+    require(same and rays_equal, "K10e-K10l: two calls identical, the rays' "
+                                 "gradients = K10c's and K10i's")
+    require(all(bool(torch.isfinite(t).all()) for t in got)
+            and not got[0][:, srt.PRI_USED:].any()
+            and not got[3][:, srt.SHW_USED:].any(),
+            "K10e-K10l: finite gradients, unused columns 0")
+    err = {"k10e": 0.0, "k10f": 0.0, "k10k": 0.0, "k10l": 0.0}
+    checks = {}
+    for (kernel, part, groups, g, w), (*_, p) in zip(
+            parts(got, w64, sw64), parts(got, p32, sp32)):
+        r64, r32, f64 = (rule_by_group(g, w, groups),
+                         rule_by_group(g, p, groups),
+                         rule_by_group(p, w, groups))
+        for grp in r64:
+            rule20 = r32[grp][1] and (r64[grp][1]
+                                      or r64[grp][0] <= 1.01 * f64[grp][0])
+            twice = not f64[grp][1] and r64[grp][0] <= 2.0 * f64[grp][0]
+            ok = rule20 or twice
+            checks.setdefault(kernel, {})[f"{part}/{grp}"] = [
+                r64[grp][0], r64[grp][1], f64[grp][0], r32[grp][1]]
+            how = ("float64" if r64[grp][1] else "the F11 rule" if rule20
+                   else "twice the plain float32 version's distance")
+            say(f"  {kernel} {part}/{grp}: vs float64 {r64[grp][0]:.3g} "
+                f"within {r64[grp][1]}; plain float32 vs float64 "
+                f"{f64[grp][0]:.3g}; vs plain float32 {r32[grp][0]:.3g} "
+                f"within {r32[grp][1]}; passes on {how} {ok}")
+            require(ok, f"{kernel} {part}/{grp}: within rtol 1e-4 / atol "
+                        f"1e-5 after scaling")
+            err[kernel] = max(err[kernel], r64[grp][0])
+    del got, again, f_pri, f_shw, launch, w64, p32, sw64, sp32
+    torch.cuda.empty_cache()
+
+    # The culled 512^2 step (forward K10b + K10h; above 32,768 rows the
+    # primary backward is two-launch, above 65,536 the shadow's too).
+    k10 = {k: f"soft_rt_{k}" for k in (
+        "pri_fwd_masked", "shw_fwd_masked", "pri_bwd_tables", "pri_bwd_dirs",
+        "shw_bwd_consts", "shw_bwd_rays", "shw_bwd_masked", "pri_fwd",
+        "shw_fwd")}
+    fwd = {k10["pri_fwd_masked"]: 1, k10["shw_fwd_masked"]: 1}
+    two = {k10["pri_bwd_tables"]: 1, k10["pri_bwd_dirs"]: 1}
+    want = {66560: {**fwd, **two, k10["shw_bwd_consts"]: 1,
+                    k10["shw_bwd_rays"]: 1},
+            36000: {**fwd, **two, k10["shw_bwd_masked"]: 1}}
+    steps, step_launches = {}, {}
+    for T in (66560, 36000):
+        steps[T] = train_step(*frame(T, 512), 1e-9, target_scale=0.9,
+                              render=raytrace_soft)
+        zero_counts()
+        loss = float(steps[T]())
+        step_launches[T] = {k: v for k, v in kernel_counts().items() if v}
+        say(f"culled 512^2 soft raytrace step on {T} triangles: loss "
+            f"{loss:.6g}, launches {step_launches[T]}")
+        require(np.isfinite(loss) and step_launches[T] == want[T],
+                f"the {T}-triangle step launches {want[T]}")
+
+    s_, c_, l_, cfg_ = frame(66560, 512)
+    with torch.no_grad():
+        target = raytrace_soft(s_, c_, l_, cfg_) * 0.9
+    zero_counts()
+    res = fit(target, s_, c_, l_, cfg_,
+              FitConfig(steps=2, stages=((40.0, 40.0, 1.0),),
+                        renderer="raytrace", log_every=0))
+    fit_launches = {k: v for k, v in kernel_counts().items() if v}
+    say(f"fit(renderer='raytrace'), 2 steps on 66,560 triangles at 512^2: "
+        f"losses {res.losses.tolist()}, launches {fit_launches}")
+    require(np.isfinite(res.losses).all()
+            and fit_launches == {k: 2 * v for k, v in want[66560].items()},
+            "each raytrace fit step launches K10b, K10h and K10e-K10l once")
+
+    # The sharded step on 1 x 1 (PrimaryAggStats, unmasked: K10a, K10g)
+    # against the single-card brute step, the same kernels.
+    init_distributed()
+    mesh = make_mesh(1, 1)
+    s_, c_, l_, cfg_ = frame(66560, 512)
+    target = torch.tensor(np.random.default_rng(32).uniform(
+        0.0, 0.5, (512, 512, 3)).astype(np.float32), device=dev)
+    train, _ = pr.make_sharded_train_step(mesh, cfg_, renderer="raytrace")
+    st = pr.train_state(s_, l_, lambda p: torch.optim.SGD(p, lr=1e-9))
+    ref = pr.train_state(s_, l_, lambda p: torch.optim.SGD(p, lr=1e-9))
+    zero_counts()
+    loss = float(train(st, c_, target).detach())
+    sharded_launches = {k: v for k, v in kernel_counts().items() if v}
+    want_loss = torch.mean((raytrace_soft(ref.scene, c_, ref.lights, cfg_,
+                                          cull=False) - target) ** 2)
+    want_loss.backward()
+    worst = 0.0
+    for g, w in zip((p.grad for p in pr.leaves(st.scene, st.lights)),
+                    (p.grad for p in pr.leaves(ref.scene, ref.lights))):
+        w = torch.zeros_like(g) if w is None else w
+        scale = max(float(w.abs().max()), 1e-3)
+        frac = ((g - w).abs() / scale) / (GRAD_ATOL
+                                         + GRAD_RTOL * w.abs() / scale)
+        worst = max(worst, float(frac.max()))
+        require(bool(torch.isfinite(g).all()), "sharded step: finite grads")
+    shutdown_distributed()
+    lrel = abs(loss - float(want_loss)) / float(want_loss)
+    say(f"sharded soft raytrace step on 1 x 1, 66,560 triangles at 512^2: "
+        f"loss {loss:.8g} (single-card {float(want_loss):.8g}, rel "
+        f"{lrel:.3g}); worst gradient {worst:.3g} of the tolerance; "
+        f"launches {sharded_launches}")
+    require(sharded_launches == {k10["pri_fwd"]: 1, k10["shw_fwd"]: 1,
+                                 **{k: 1 for k in want[66560]
+                                    if k not in fwd}},
+            "the sharded step launches K10a, K10g and K10e-K10l once")
+    require(lrel <= GRAD_RTOL and worst <= 1.0,
+            "the sharded step = the single-card step (rtol 1e-4 / atol "
+            "1e-5, leaves scaled)")
+    del st, ref, train, target
+    torch.cuda.empty_cache()
+
+    # Card numbers at the main path's 512^2: the four kernels launched into
+    # preallocated outputs beside the fused K10c and K10i on the same
+    # inputs; the plain version of each pass once (~15 s apiece: it computes
+    # both halves), its result kept to hold the kernels at these shapes.
+    peak = {}
+    for T, step in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak[T] = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = median_ms_in_turns({T: steps[T] for T in steps}, n=1, reps=3)
+    busy = device_busy(steps[66560], steps=2)
+    c = srt_case(*frame(66560, 512))
+    pargs, sargs = inputs(c)
+    R, S = c["dirs"].shape[1], c["srcs"].shape[0]
+    cam_partials = torch.empty((Tp // c["chunk"], 3), device=dev)
+    src_partials = torch.empty((-(-R // srt.THREADS), S, 3), device=dev)
+    dc, dcam = torch.empty_like(c["pri"]), torch.empty(3, device=dev)
+    dd, sdc = torch.empty_like(c["dirs"]), torch.empty_like(c["shw"])
+    dsrc, dw = torch.empty_like(c["srcs"]), torch.empty_like(sargs[2])
+    _, _, launch = fused(c, pargs, sargs)
+    kernels = {
+        "pri_bwd_tables": lambda: srt.launch_pri_bwd_tables_kernel(
+            *pri_launch(pargs), cam_partials, dc, dcam),
+        "pri_bwd_dirs": lambda: srt.launch_pri_bwd_dirs_kernel(
+            *pri_launch(pargs), dd),
+        "shw_bwd_consts": lambda: srt.launch_shw_bwd_consts_kernel(
+            *shw_launch(sargs), sdc),
+        "shw_bwd_rays": lambda: srt.launch_shw_bwd_rays_kernel(
+            *shw_launch(sargs), src_partials, dsrc, dw),
+        **launch}
+    t = median_ms_in_turns(kernels, n=1, reps=3, timer=held_ms)
+    plain = {}
+    for part, fn, args in (("pri", srt.primary_agg_bwd_reference, pargs),
+                           ("shw", srt.shadow_trans_bwd_reference, sargs)):
+        t[f"{part}_plain"] = cuda_ms(
+            lambda part=part, fn=fn, args=args: plain.update({
+                part: fn(*args)}), 1)
+    # The kernels at 512^2 against the plain float32 version by column
+    # group (phase 20's rule; no float64 reference at this size).
+    got = halves(pargs, sargs)
+    for kernel, part, groups, g, p in parts(got, plain["pri"], plain["shw"]):
+        for grp, (e, ok) in rule_by_group(g, p, groups).items():
+            checks[kernel][f"512/{part}/{grp}"] = [e, ok]
+            say(f"  512^2 {kernel} {part}/{grp}: vs plain float32 {e:.3g} "
+                f"within {ok}")
+            require(ok, f"{kernel} {part}/{grp} at 512^2: within rtol 1e-4 "
+                        f"/ atol 1e-5 of the plain float32 version after "
+                        f"scaling")
+            err[kernel] = max(err[kernel], e)
+    del got, plain
+    trans = sargs[3]
+    work = srt_work(c, pargs[3], sargs[2], sargs[4] * trans * (-srt.OD_SCALE))
+    bounds = two_launch_bounds(c, work)
+    fused_bounds = srt_bounds(c, work)
+    bounds["pri_bwd_fused"] = fused_bounds["pri_bwd"]
+    bounds["shw_bwd_fused"] = fused_bounds["shw_bwd"]
+    card = card_line()
+    groups = {"pri": srt.bwd_groups(Tp, srt.PRI_USED, R),
+              "shw": srt.bwd_groups(Tp, srt.SHW_USED, R)}
+    say(f"two-launch kernels alone, 66,560 triangles at 512^2 ({R} rays, "
+        f"{work['pairs']} pairs, {work['gated_p']} gated, {work['live_p']} "
+        f"of weight not 0; {work['act_s']} shadow triples of d od not 0, "
+        f"{work['act_gated_s']} gated, {work['live_s']} live): "
+        + ", ".join(f"{k} {t[k]:.4f} ms (plain, both halves "
+                    f"{t[k[:3] + '_plain']:.4f}; bound "
+                    f"{bounds[k][0]:.4f} ms, {bounds[k][1]})"
+                    for k in ("pri_bwd_tables", "pri_bwd_dirs",
+                              "shw_bwd_consts", "shw_bwd_rays"))
+        + f"; fused K10c {t['pri_bwd_fused']:.4f} ms ({groups['pri']} "
+        f"blocks, bound {bounds['pri_bwd_fused'][0]:.4f}), fused K10i "
+        f"{t['shw_bwd_fused']:.4f} ms ({groups['shw']} blocks, bound "
+        f"{bounds['shw_bwd_fused'][0]:.4f}) ({card})")
+    say(f"culled 512^2 soft raytrace steps (CUDA events, median of 3): "
+        f"66,560 triangles {step_ms[66560]:.4f} ms, 36,000 "
+        f"{step_ms[36000]:.4f} ms; peak memory {peak[66560]:.3f} / "
+        f"{peak[36000]:.3f} GB; the 66,560 step's device busy "
+        f"{busy['busy_ms']:.4f} ms a step in {busy['kernels']} device "
+        f"events, {busy['wall_ms']:.4f} ms on the host clock (share "
+        f"{busy['share']}) ({card})")
+    for kname, ms in busy["by_name"][:8]:
+        say(f"  {ms:.5f} ms  {kname[:100]}")
+    say(f"phase 32 took {time.perf_counter() - t_phase:.1f} s")
+    record["two_launch"] = dict(
+        err=err, checks=checks, step_launches={str(k): v for k, v in
+                                               step_launches.items()},
+        fit_launches=fit_launches, fit_losses=res.losses.tolist(),
+        sharded=dict(loss=loss, single_loss=float(want_loss),
+                     grad_of_tolerance=worst, launches=sharded_launches),
+        kernel_ms=t, bounds=bounds, work=work, fused_groups=groups,
+        step_ms={str(k): v for k, v in step_ms.items()},
+        peak_gb={str(k): v for k, v in peak.items()}, busy=busy)
+
+    def entry(part: str, key: str, fused_part: str, replaces: str) -> dict:
+        return dict(name=f"soft_rt_{part}", route="cuda",
+                    source="raytpu_torch/csrc/soft_raytrace.cu",
+                    replaces=replaces,
+                    launches=step_launches[66560][f"soft_rt_{part}"],
+                    max_abs_err=err[key], ms=t[part],
+                    plain_ms=t[f"{part[:3]}_plain"],
+                    bound_ms=bounds[part][0],
+                    bound_by=bounds[part][1], library_ms=None,
+                    checks=checks[key], fused_ms=t[fused_part])
+
+    return [
+        entry("pri_bwd_tables", "k10e", "pri_bwd_fused",
+              replaces="raytpu/kernels/soft_raytrace_pallas.py:449"),
+        entry("pri_bwd_dirs", "k10f", "pri_bwd_fused",
+              replaces="raytpu/kernels/soft_raytrace_pallas.py:499"),
+        entry("shw_bwd_consts", "k10k", "shw_bwd_fused",
+              replaces="raytpu/kernels/soft_raytrace_pallas.py:1079"),
+        entry("shw_bwd_rays", "k10l", "shw_bwd_fused",
+              replaces="raytpu/kernels/soft_raytrace_pallas.py:1105"),
     ]
 
 
@@ -4025,8 +4465,9 @@ def main() -> int:
                  else ("pri_fwd", "shw_fwd"))
         t = median_ms_in_turns({k: kernels[k] for k in parts}, n=2, reps=5,
                                timer=held_ms)
-        t.update({f"{k}_plain": v for k, v in median_ms_in_turns(
-            {k: plain[k] for k in parts}, n=1, reps=3).items()})
+        # The plain versions once each (0.6-10 s a call; phase 26 ran them
+        # on these shapes already).
+        t.update({f"{k}_plain": cuda_ms(plain[k], 1) for k in parts})
         dl = gcot * trans * (-srt.OD_SCALE) if step_case else None
         work = srt_work(c, m, world, dl, masked=True)
         t["work"] = work
@@ -4069,6 +4510,7 @@ def main() -> int:
                   rtm_peak=rtm_peak, rtm_busy=rtm_busy, rtm_k=rtm_k)
 
     sharded_entries = sharded_phases(dev, stl_path, record)
+    two_launch_entries = two_launch_phase(dev, record)
 
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
@@ -4253,6 +4695,7 @@ def main() -> int:
         k10m_entry("shw_bwd", "k10j", rtm_train[k10j],
                    replaces="raytpu/kernels/soft_raytrace_pallas.py:1031"),
         *sharded_entries,
+        *two_launch_entries,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
 // The soft (differentiable) raytracer for Hopper (sm_90a): K10a-K10d and
-// K10g-K10j, unmasked and masked.
+// K10g-K10j, unmasked and masked, and the two-launch backwards K10e, K10f,
+// K10k and K10l.
 //
 // K10a, soft_rt_pri_fwd_kernel<false>, replaces
 // raytpu/kernels/soft_raytrace_pallas.py::_pri_fwd_kernel and K10b,
@@ -10,7 +11,14 @@
 // soft_rt_shw_fwd_kernel<false>, replaces _shw_fwd_kernel and K10h, <true>,
 // _shw_fwd_kernel_masked; K10i, soft_rt_shw_bwd_kernel<false> and the sums,
 // replaces _shw_bwd_fused_kernel and K10j, <true>,
-// _shw_bwd_fused_kernel_masked.
+// _shw_bwd_fused_kernel_masked. K10e, soft_rt_pri_bwd_tables_kernel and the
+// camera's sum, replaces _pri_bwd_tables_kernel; K10f,
+// soft_rt_pri_bwd_dirs_kernel, _pri_bwd_dirs_kernel; K10k,
+// soft_rt_shw_bwd_consts_kernel, _shw_bwd_consts_kernel; K10l,
+// soft_rt_shw_bwd_rays_kernel and the sources' sum, _shw_bwd_rays_kernel.
+// The wrappers take them where JAX does, above its fused limit
+// (kernels/soft_raytrace.py::pri_two_launch, shw_two_launch), without a
+// mask, as JAX's two-launch route takes none.
 //
 // What they compute. Primary: for every ray r (direction d, from the
 // camera position g) and every row of the (Tp, 32) float32 table of
@@ -79,6 +87,8 @@
 // Bound on the H100: ~50-70 float operations and 4-6 exp/log/sqrt/divides
 // a (ray, row) pair forward, 3-4x that backward, against ~40 B a ray and
 // the table: bound by operations (chip_smoke.py counts them on its inputs).
+// The two-launch halves each recompute every pair, so together they do the
+// fused backward's operations and about twice its recomputes.
 //
 // Rounding. Built with -fmad=false and IEEE division and sqrt; every
 // expression in the JAX kernels' order (the shadow's rsqrt as 1 / sqrt, as
@@ -768,6 +778,337 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The two-launch backwards (K10e/K10f primary, K10k/K10l shadow), JAX's
+// route above its fused limit, split as JAX splits them: a chunk-major pass
+// owns each chunk's rows and sweeps every ray, a ray-major pass owns each
+// ray and sweeps every chunk. Neither needs per-block table partials, so a
+// large table fills the card where the fused kernels' 256 MiB of partials
+// leave fewer blocks than SMs. The pair derivatives are K10c's and K10i's
+// (pri_pair_bwd, shw_pair_bwd); each half drops the other half's outputs.
+
+// Each thread's share of a chunk's (row, column) entries, kMaxChunk * cols
+// of them over kThreads threads.
+constexpr int kPriOwn = (kMaxChunk * kPriUsed + kThreads - 1) / kThreads;
+constexpr int kShwOwn = (kMaxChunk * kShwUsed + kThreads - 1) / kThreads;
+
+// Adds the warps' row sums s_red[w][row][k] (w in order) to the entries
+// o = threadIdx.x + j kThreads < chunk * cols that this thread owns.
+template <int kCols, int kOwn>
+__device__ __forceinline__ void add_warp_rows(float (*s_red)[kMaxChunk][kCols],
+                                              int chunk, float* acc) {
+#pragma unroll
+  for (int j = 0; j < kOwn; ++j) {
+    const int o = threadIdx.x + j * kThreads;
+    if (o < chunk * kCols) {
+      const int row = o / kCols, k = o % kCols;
+      float sum = 0.0f;
+#pragma unroll
+      for (int wp = 0; wp < kWarps; ++wp) sum += s_red[wp][row][k];
+      acc[j] += sum;
+    }
+  }
+}
+
+// Writes chunk ch's rows of out (cols columns a row) from the entries the
+// threads own (acc, kCols used columns) and zeros in the rest; every
+// thread of the block calls it.
+template <int kCols, int kOwn>
+__device__ __forceinline__ void store_rows(const float* acc, int ch,
+                                           int chunk, int cols,
+                                           float (*s_acc)[kCols],
+                                           float* out) {
+#pragma unroll
+  for (int j = 0; j < kOwn; ++j) {
+    const int o = threadIdx.x + j * kThreads;
+    if (o < chunk * kCols) s_acc[o / kCols][o % kCols] = acc[j];
+  }
+  __syncthreads();
+  float* dst = out + static_cast<size_t>(ch) * chunk * cols;
+  for (int o = threadIdx.x; o < chunk * cols; o += kThreads) {
+    const int row = o / cols, k = o % cols;
+    dst[o] = k < kCols ? s_acc[row][k] : 0.0f;
+  }
+}
+
+// The ray r's saved max and cotangents (zeros where it is no ray).
+struct PriRay {
+  float d[3], dn, mp, ds, da[9];
+};
+
+__device__ __forceinline__ PriRay pri_ray(const float* dirs, const float* m,
+                                          const float* cot, int r, int R,
+                                          bool live) {
+  PriRay a;
+  a.mp = 0.0f;
+  a.ds = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) a.d[j] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) a.da[j] = 0.0f;
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) a.d[j] = dirs[static_cast<size_t>(j) * R + r];
+    a.mp = m[r];
+    a.ds = cot[r];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      a.da[j] = cot[static_cast<size_t>(1 + j) * R + r];
+    }
+  }
+  a.dn = sqrtf((a.d[0] * a.d[0] + a.d[1] * a.d[1]) + a.d[2] * a.d[2]);
+  return a;
+}
+
+// K10e, replaces _pri_bwd_tables_kernel: a block a chunk (blockIdx.x). The
+// chunk's rows stay in shared memory while the block sweeps every ray in
+// runs of 256, in order; each run's row sums go warp by warp (in order) into
+// the entries a thread owns, and the chunk's rows of dc are written once.
+// The camera's gradient: one (n_chunks, 3) partial, a row a block.
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_pri_bwd_tables_kernel(const float* __restrict__ consts,
+                                  int chunk, const float* __restrict__ cam,
+                                  const float* __restrict__ dirs, int R,
+                                  float es, float zs,
+                                  const float* __restrict__ m,
+                                  const float* __restrict__ cot,
+                                  float* __restrict__ dc,
+                                  float* __restrict__ cam_partials) {
+  __shared__ float s_c[kMaxChunk][kPriRow];
+  __shared__ float s_red[kWarps][kMaxChunk][kPriUsed];
+  __shared__ float s_acc[kMaxChunk][kPriUsed];
+  __shared__ float s_cam[kWarps][3];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ch = blockIdx.x;
+  const float gp[3] = {cam[0], cam[1], cam[2]};
+  load_pri_chunk(consts, ch, chunk, s_c);
+  float acc[kPriOwn], gcam[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < kPriOwn; ++j) acc[j] = 0.0f;
+  for (int run = 0; run * kThreads < R; ++run) {
+    const int r = run * kThreads + tid;
+    const bool live = r < R;
+    const PriRay a = pri_ray(dirs, m, cot, r, R, live);
+    float ddc[3] = {0.0f, 0.0f, 0.0f}, ddn = 0.0f;  // K10f's
+    for (int i = 0; i < chunk; ++i) {
+      float g[kPriUsed];
+#pragma unroll
+      for (int k = 0; k < kPriUsed; ++k) g[k] = 0.0f;
+      const bool mine = live && pri_pair_bwd(s_c[i], a.d, a.dn, gp, a.mp,
+                                             a.ds, a.da, es, zs, g, gcam,
+                                             ddc, &ddn);
+      warp_sum_store<kPriUsed>(g, mine, s_red[warp][i]);
+    }
+    __syncthreads();
+    add_warp_rows<kPriUsed, kPriOwn>(s_red, chunk, acc);
+    __syncthreads();  // s_red is free again
+  }
+  store_rows<kPriUsed, kPriOwn>(acc, ch, chunk, kPriCols, s_acc, dc);
+  warp_sum_store<3>(gcam, true, s_cam[warp]);
+  __syncthreads();
+  if (tid < 3) {
+    float sum = 0.0f;
+    for (int wp = 0; wp < kWarps; ++wp) sum += s_cam[wp][tid];
+    cam_partials[static_cast<size_t>(ch) * 3 + tid] = sum;
+  }
+}
+
+// K10f, replaces _pri_bwd_dirs_kernel: a thread a ray, 256 a block, every
+// chunk in order staged in shared memory as K10a stages it; the ray's
+// direction gradient adds up in registers chunk by chunk exactly as K10c's
+// does (the |d| chain once a chunk), so the two give the same bits.
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_pri_bwd_dirs_kernel(const float* __restrict__ consts,
+                                int n_chunks, int chunk,
+                                const float* __restrict__ cam,
+                                const float* __restrict__ dirs, int R,
+                                float es, float zs,
+                                const float* __restrict__ m,
+                                const float* __restrict__ cot,
+                                float* __restrict__ dd_out) {
+  __shared__ float s_c[kMaxChunk][kPriRow];
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = r < R;
+  const float gp[3] = {cam[0], cam[1], cam[2]};
+  const PriRay a = pri_ray(dirs, m, cot, r, R, live);
+  float dd[3] = {0.0f, 0.0f, 0.0f};
+  float g[kPriUsed], gcam[3] = {0.0f, 0.0f, 0.0f};  // K10e's
+#pragma unroll
+  for (int k = 0; k < kPriUsed; ++k) g[k] = 0.0f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    __syncthreads();  // every thread is done with the previous chunk
+    load_pri_chunk(consts, ch, chunk, s_c);
+    if (!live) continue;
+    float ddc[3] = {0.0f, 0.0f, 0.0f}, ddn = 0.0f;
+    for (int i = 0; i < chunk; ++i) {
+      pri_pair_bwd(s_c[i], a.d, a.dn, gp, a.mp, a.ds, a.da, es, zs, g, gcam,
+                   ddc, &ddn);
+    }
+    const float dq = ddn * (0.5f / a.dn);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dd[j] += ddc[j] + (dq * a.d[j] + dq * a.d[j]);
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dd_out[static_cast<size_t>(j) * R + r] =
+        dd[j];
+  }
+}
+
+// The point r's shadow ray from the source at sp and its d od = gcot
+// (-16) trans (0 where it is no point).
+struct ShwPoint {
+  ShadowRay a;
+  float dl;
+  bool active;
+};
+
+__device__ __forceinline__ ShwPoint shw_point(const float* w, const float* sp,
+                                              const float* trans,
+                                              const float* gcot, int src,
+                                              int r, int R, bool live) {
+  ShwPoint p;
+  p.a = shadow_ray(w, sp);
+  p.dl = 0.0f;
+  if (live) {
+    const size_t k = static_cast<size_t>(src) * R + r;
+    p.dl = gcot[k] * trans[k] * (-kOdScale);
+  }
+  p.active = live && p.dl != 0.0f;
+  return p;
+}
+
+__device__ __forceinline__ void load_point(const float* world, int r, int R,
+                                           bool live, float* w) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    w[j] = live ? world[static_cast<size_t>(j) * R + r] : 0.0f;
+  }
+}
+
+// K10k, replaces _shw_bwd_consts_kernel: a block a chunk (blockIdx.x),
+// sweeping the sources in order and, for each, every point in runs of 256
+// in order, the chunk staged for the source; row sums as K10e's.
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_shw_bwd_consts_kernel(const float* __restrict__ consts,
+                                  int chunk, const float* __restrict__ srcs,
+                                  int S, const float* __restrict__ world,
+                                  int R, const float* __restrict__ trans,
+                                  const float* __restrict__ gcot, float es,
+                                  float zs, float* __restrict__ dc) {
+  __shared__ float s_q[kMaxChunk][kShwRow];
+  __shared__ float s_red[kWarps][kMaxChunk][kShwUsed];
+  __shared__ float s_acc[kMaxChunk][kShwUsed];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ch = blockIdx.x;
+  float acc[kShwOwn];
+#pragma unroll
+  for (int j = 0; j < kShwOwn; ++j) acc[j] = 0.0f;
+  for (int src = 0; src < S; ++src) {
+    const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
+                         srcs[3 * src + 2]};
+    __syncthreads();  // every thread is done with the previous source's rows
+    load_shw_chunk(consts, ch, chunk, sp, s_q);
+    for (int run = 0; run * kThreads < R; ++run) {
+      const int r = run * kThreads + tid;
+      const bool live = r < R;
+      float w[3];
+      load_point(world, r, R, live, w);
+      const ShwPoint p = shw_point(w, sp, trans, gcot, src, r, R, live);
+      float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;  // K10l's
+      float dsrc[3] = {0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < chunk; ++i) {
+        float g[kShwUsed];
+#pragma unroll
+        for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
+        const bool mine = p.active && shw_pair_bwd(s_q[i], p.a.dh, p.a.rr,
+                                                   p.dl, sp, es, zs, g, ddh,
+                                                   &drr, dsrc);
+        warp_sum_store<kShwUsed>(g, mine, s_red[warp][i]);
+      }
+      __syncthreads();
+      add_warp_rows<kShwUsed, kShwOwn>(s_red, chunk, acc);
+      __syncthreads();  // s_red is free again
+    }
+  }
+  store_rows<kShwUsed, kShwOwn>(acc, ch, chunk, kShwCols, s_acc, dc);
+}
+
+// K10l, replaces _shw_bwd_rays_kernel: a thread a point, 256 a block, the
+// sources in order and for each every chunk in order, staged for the source
+// as K10g stages it. The point's gradient adds up chunk by chunk and is
+// summed over the sources in order, as K10i's is (the same bits); the
+// sources' gradients: a (blocks, S, 3) partial of warp sums added in order.
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_shw_bwd_rays_kernel(const float* __restrict__ consts,
+                                int n_chunks, int chunk,
+                                const float* __restrict__ srcs, int S,
+                                const float* __restrict__ world, int R,
+                                const float* __restrict__ trans,
+                                const float* __restrict__ gcot, float es,
+                                float zs, float* __restrict__ src_partials,
+                                float* __restrict__ dw_out) {
+  __shared__ float s_q[kMaxChunk][kShwRow];
+  __shared__ float s_src[kWarps][3];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int r = blockIdx.x * kThreads + tid;
+  const bool live = r < R;
+  float w[3];
+  load_point(world, r, R, live, w);
+  float dw[3] = {0.0f, 0.0f, 0.0f};
+  float g[kShwUsed];  // K10k's
+#pragma unroll
+  for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
+  for (int src = 0; src < S; ++src) {
+    const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
+                         srcs[3 * src + 2]};
+    const ShwPoint p = shw_point(w, sp, trans, gcot, src, r, R, live);
+    const ShadowRay& a = p.a;
+    float dws[3] = {0.0f, 0.0f, 0.0f}, dsrc[3] = {0.0f, 0.0f, 0.0f};
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      __syncthreads();  // s_q (and s_src) are free again
+      load_shw_chunk(consts, ch, chunk, sp, s_q);
+      if (!p.active) continue;
+      float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;
+      for (int i = 0; i < chunk; ++i) {
+        shw_pair_bwd(s_q[i], a.dh, a.rr, p.dl, sp, es, zs, g, ddh, &drr,
+                     dsrc);
+      }
+      // K10i's chain through dh, rr, rrec and r2s to d = w - sp.
+      float drrec = drr * a.r2s;
+      float dd[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        dd[j] = ddh[j] * a.rrec;
+        drrec += ddh[j] * a.d[j];
+      }
+      const float dsq = -drrec / (a.sq * a.sq);
+      const float dr2s = drr * a.rrec + dsq * (0.5f / a.sq);
+      const float dr2 = a.lit ? dr2s : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        dd[j] += dr2 * a.d[j] + dr2 * a.d[j];
+        dws[j] += dd[j];
+        dsrc[j] -= dd[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dw[j] += dws[j];
+    warp_sum_store<3>(dsrc, p.active, s_src[warp]);
+    __syncthreads();
+    if (tid < 3) {
+      float sum = 0.0f;
+      for (int wp = 0; wp < kWarps; ++wp) sum += s_src[wp][tid];
+      src_partials[(static_cast<size_t>(blockIdx.x) * S + src) * 3 + tid] =
+          sum;
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dw_out[static_cast<size_t>(j) * R + r] =
+        dw[j];
+  }
+}
+
 // out[row, k] = sum over groups g, in order, of partials[g, row, k] for
 // k < in_cols, and 0 for in_cols <= k < out_cols. Thread (x, y) adds
 // groups y, y + kSumSlices, ... of one output entry; thread (x, 0) then
@@ -954,5 +1295,99 @@ extern "C" int raytpu_soft_rt_shw_bwd(const void* consts, int Tp, int chunk,
                    static_cast<float*>(dc), st);
   if (err != cudaSuccess) return (int)err;
   return (int)sum_groups(spart, groups, S, 3, 3, static_cast<float*>(dsrc),
+                         st);
+}
+
+// K10e: consts (Tp, 32) float32 in chunks of `chunk` <= 32 rows; cam (3,),
+// dirs (3, R), m (R,) and cot (10, R) float32; cam_partials (Tp / chunk,
+// 3) float32 scratch; dc (Tp, 32) and dcam (3,) float32 outputs, every
+// entry written. Launches the kernel and the camera's sum on `stream`;
+// returns the first cudaError_t.
+extern "C" int raytpu_soft_rt_pri_bwd_tables(const void* consts, int Tp,
+                                             int chunk, const void* cam,
+                                             const void* dirs, int R,
+                                             float es, float zs,
+                                             const void* m, const void* cot,
+                                             void* cam_partials, void* dc,
+                                             void* dcam, void* stream) {
+  if (bad_shape(Tp, chunk, R)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_chunks = Tp / chunk;
+  float* cpart = static_cast<float*>(cam_partials);
+  soft_rt_pri_bwd_tables_kernel<<<n_chunks, kThreads, 0, st>>>(
+      static_cast<const float*>(consts), chunk,
+      static_cast<const float*>(cam), static_cast<const float*>(dirs), R, es,
+      zs, static_cast<const float*>(m), static_cast<const float*>(cot),
+      static_cast<float*>(dc), cpart);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_groups(cpart, n_chunks, 1, 3, 3, static_cast<float*>(dcam),
+                         st);
+}
+
+// K10f: consts, cam, dirs, m and cot as for raytpu_soft_rt_pri_bwd_tables;
+// dd (3, R) float32 output. Launches the kernel on `stream` and returns the
+// launch's cudaError_t.
+extern "C" int raytpu_soft_rt_pri_bwd_dirs(const void* consts, int Tp,
+                                           int chunk, const void* cam,
+                                           const void* dirs, int R, float es,
+                                           float zs, const void* m,
+                                           const void* cot, void* dd,
+                                           void* stream) {
+  if (bad_shape(Tp, chunk, R)) return (int)cudaErrorInvalidValue;
+  soft_rt_pri_bwd_dirs_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(consts), Tp / chunk, chunk,
+      static_cast<const float*>(cam), static_cast<const float*>(dirs), R, es,
+      zs, static_cast<const float*>(m), static_cast<const float*>(cot),
+      static_cast<float*>(dd));
+  return (int)cudaGetLastError();
+}
+
+// K10k: consts (Tp, 16) float32 in chunks of `chunk` <= 32 rows; srcs
+// (S, 3), world (3, R), trans and gcot (S, R) float32; dc (Tp, 16) float32
+// output, every entry written. Launches the kernel on `stream` and returns
+// the launch's cudaError_t.
+extern "C" int raytpu_soft_rt_shw_bwd_consts(const void* consts, int Tp,
+                                             int chunk, const void* srcs,
+                                             int S, const void* world, int R,
+                                             const void* trans,
+                                             const void* gcot, float es,
+                                             float zs, void* dc,
+                                             void* stream) {
+  if (bad_shape(Tp, chunk, R) || S < 1) return (int)cudaErrorInvalidValue;
+  soft_rt_shw_bwd_consts_kernel<<<Tp / chunk, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(consts), chunk,
+      static_cast<const float*>(srcs), S, static_cast<const float*>(world),
+      R, static_cast<const float*>(trans), static_cast<const float*>(gcot),
+      es, zs, static_cast<float*>(dc));
+  return (int)cudaGetLastError();
+}
+
+// K10l: consts, srcs, world, trans and gcot as for
+// raytpu_soft_rt_shw_bwd_consts; src_partials (ceil(R / 256), S, 3)
+// float32 scratch; dsrc (S, 3) and dw (3, R) float32 outputs. Launches the
+// kernel and the sources' sum on `stream`; returns the first cudaError_t.
+extern "C" int raytpu_soft_rt_shw_bwd_rays(const void* consts, int Tp,
+                                           int chunk, const void* srcs, int S,
+                                           const void* world, int R,
+                                           const void* trans,
+                                           const void* gcot, float es,
+                                           float zs, void* src_partials,
+                                           void* dsrc, void* dw,
+                                           void* stream) {
+  if (bad_shape(Tp, chunk, R) || S < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (R + kThreads - 1) / kThreads;
+  float* spart = static_cast<float*>(src_partials);
+  soft_rt_shw_bwd_rays_kernel<<<blocks, kThreads, 0, st>>>(
+      static_cast<const float*>(consts), Tp / chunk, chunk,
+      static_cast<const float*>(srcs), S, static_cast<const float*>(world),
+      R, static_cast<const float*>(trans), static_cast<const float*>(gcot),
+      es, zs, spart, static_cast<float*>(dw));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_groups(spart, blocks, S, 3, 3, static_cast<float*>(dsrc),
                          st);
 }

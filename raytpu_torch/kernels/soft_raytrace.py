@@ -17,9 +17,15 @@ chunk's sums).
   primary_agg_fwd   K10a's wrapper (K10b's with a mask): out (9, R), m, s.
   primary_agg_bwd   K10c's (K10d's): d consts, d camera position, d dirs
                     from the saved m and the 10 cotangent rows of
-                    ``primary_cot``.
+                    ``primary_cot``; above JAX's fused limit
+                    (``pri_two_launch``) the two-launch route, K10e's
+                    ``primary_bwd_tables`` (d consts, d camera position)
+                    and K10f's ``primary_bwd_dirs`` (d dirs).
   shadow_trans_fwd  K10g's (K10h's): trans (S, R).
-  shadow_trans_bwd  K10i's (K10j's): d consts, d sources, d world points.
+  shadow_trans_bwd  K10i's (K10j's): d consts, d sources, d world points;
+                    above JAX's limit (``shw_two_launch``), K10k's
+                    ``shadow_bwd_consts`` (d consts) and K10l's
+                    ``shadow_bwd_rays`` (d sources, d world).
   *_reference       their plain PyTorch versions.
   PrimaryAgg, ShadowTrans   the torch.autograd.Functions around them
                     (``_primary_agg``, ``_shadow_trans``).
@@ -44,6 +50,15 @@ pairs exactly zero gradient, as JAX's masked kernels do. The masks bound
 what they drop to e^-46 of the background's weight (primary) or an
 optical depth of e^-46 (shadow), so a culled frame and a brute one differ
 by terms of that size; the masks carry no gradient.
+
+The two-launch route. JAX's fused backwards keep the whole d-table resident
+in VMEM, so above ``_FUSED_BWD_MAX_ROWS`` 16-column rows (Tp > 32,768 for the
+32-column primary table, Tp > 65,536 for the shadow's) they split in two
+launches, one owning the table's rows and one the rays, and that route takes
+no mask: a culled frame's backward there runs over every pair (the forward
+stays culled). The port routes on the same predicates: the fused kernels'
+per-block table partials (capped at PARTIAL_BYTES) leave fewer blocks than
+the H100 has SMs at such sizes, and the split needs none.
 
 The JAX kernels also take a (1, 16) globals row and the (L, 8) lights
 table. ``_primary_terms`` reads only the globals' first three entries, the
@@ -97,6 +112,10 @@ LAUNCHES_SRT_PRI_FWD_MASKED = 0  # K10b, by primary_agg_fwd with a mask
 LAUNCHES_SRT_PRI_BWD_MASKED = 0  # K10d, by primary_agg_bwd with a mask
 LAUNCHES_SRT_SHW_FWD_MASKED = 0  # K10h, by shadow_trans_fwd with a mask
 LAUNCHES_SRT_SHW_BWD_MASKED = 0  # K10j, by shadow_trans_bwd with a mask
+LAUNCHES_SRT_PRI_BWD_TABLES = 0  # K10e, by primary_bwd_tables
+LAUNCHES_SRT_PRI_BWD_DIRS = 0  # K10f, by primary_bwd_dirs
+LAUNCHES_SRT_SHW_BWD_CONSTS = 0  # K10k, by shadow_bwd_consts
+LAUNCHES_SRT_SHW_BWD_RAYS = 0  # K10l, by shadow_bwd_rays
 
 PRI_COLS = 32
 SHW_COLS = 16
@@ -127,6 +146,24 @@ PARTIAL_BYTES = 256 << 20
 CULL_MARGIN = 46.0
 _CULL_REL = float(np.float32(1.05))
 _CULL_ABS = float(np.float32(1e-3))
+# The JAX package's fused-backward limit (soft_raytrace_pallas.py:73
+# ``_FUSED_BWD_MAX_ROWS``), copied: above this many 16-column rows the
+# backwards take the two-launch route (pri_two_launch, shw_two_launch).
+FUSED_BWD_MAX_ROWS = 65536
+
+
+def pri_two_launch(Tp: int) -> bool:
+    """Whether the primary backward of a (Tp, 32) table takes the
+    two-launch route (K10e + K10f), as ``_pri_bwd_impl`` decides
+    (soft_raytrace_pallas.py:661): above 32,768 rows."""
+    return Tp * PRI_COLS > FUSED_BWD_MAX_ROWS * 16
+
+
+def shw_two_launch(Tp: int) -> bool:
+    """Whether the shadow backward of a (Tp, 16) table takes the two-launch
+    route (K10k + K10l), as ``_shadow_bwd`` decides
+    (soft_raytrace_pallas.py:1228): above 65,536 rows."""
+    return Tp > FUSED_BWD_MAX_ROWS
 
 
 # ---------------------------------------------------------------------------
@@ -419,8 +456,8 @@ def primary_agg_bwd_reference(consts, cam, dirs, m, cot, es: float,
                               zs: float, chunk: int,
                               f32_branches: bool = False, mask=None,
                               tiles: RayTiles = None):
-    """Plain PyTorch version of K10c (K10d with a mask), on any device and
-    in any float type: each chunk recomputed at the saved m (R,), a
+    """Plain PyTorch version of K10c (K10d with a mask; without one, of
+    K10e and K10f together), on any device and in any float type: each chunk recomputed at the saved m (R,), a
     constant, and differentiated by autograd against the cotangent rows
     cot (10, R) = [d s, d acc_0..8] (``primary_cot``), as
     ``_pri_bwd_fused_kernel``'s in-kernel ``jax.vjp`` does; with a mask,
@@ -480,7 +517,8 @@ def shadow_trans_bwd_reference(consts, srcs, world, trans, gcot, es: float,
                                zs: float, chunk: int,
                                f32_branches: bool = False, mask=None,
                                tiles: RayTiles = None):
-    """Plain PyTorch version of K10i (K10j with a mask): d od = gcot *
+    """Plain PyTorch version of K10i (K10j with a mask; without one, of
+    K10k and K10l together): d od = gcot *
     (-16) * trans, each (source, chunk) recomputed and differentiated by
     autograd, as ``_shw_bwd_fused_kernel``'s ``jax.vjp``, on the points
     whose tile keeps it where there is a mask; d world summed over the
@@ -535,6 +573,31 @@ def _check_table(consts: torch.Tensor, cols: int, chunk: int) -> None:
     if not 1 <= chunk <= MAX_CHUNK or Tp < chunk or Tp % chunk:
         raise ValueError(f"chunk must be 1..{MAX_CHUNK} and divide Tp = {Tp},"
                          f" got {chunk}")
+
+
+def _check_pri_bwd(consts, cam, dirs, m, cot, chunk: int) -> int:
+    """The primary backward's inputs (as primary_agg_bwd takes them);
+    returns R."""
+    _check_table(consts, PRI_COLS, chunk)
+    _check("cam", cam, (3,), consts.device)
+    R = dirs.shape[1] if dirs.dim() == 2 else -1
+    _check("dirs", dirs, (3, R), consts.device)
+    _check("m", m, (R,), consts.device)
+    _check("cot", cot, (1 + N_OUT, R), consts.device)
+    return R
+
+
+def _check_shw_bwd(consts, srcs, world, trans, gcot, chunk: int) -> tuple:
+    """The shadow backward's inputs (as shadow_trans_bwd takes them);
+    returns (S, R)."""
+    _check_table(consts, SHW_COLS, chunk)
+    S = srcs.shape[0] if srcs.dim() == 2 else -1
+    _check("srcs", srcs, (S, 3), consts.device)
+    R = world.shape[1] if world.dim() == 2 else -1
+    _check("world", world, (3, R), consts.device)
+    _check("trans", trans, (S, R), consts.device)
+    _check("gcot", gcot, (S, R), consts.device)
+    return S, R
 
 
 def _check_mask(mask, tiles: RayTiles, R: int, shape: tuple,
@@ -627,6 +690,52 @@ def launch_shw_bwd_kernel(consts, chunk: int, srcs, world, trans, gcot,
         dc.data_ptr(), dsrc.data_ptr(), dw.data_ptr(), _stream()))
 
 
+def launch_pri_bwd_tables_kernel(consts, chunk: int, cam, dirs, es: float,
+                                 zs: float, m, cot, cam_partials, dc,
+                                 dcam) -> None:
+    """Launch K10e and the sum of its (n_chunks, 3) camera partials into dc
+    (Tp, 32) and dcam (3,), all allocated by the caller. Checks nothing and
+    counts nothing."""
+    _raise("soft_rt_pri_bwd_tables",
+           _build.load().raytpu_soft_rt_pri_bwd_tables(
+               consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
+               dirs.data_ptr(), dirs.shape[1], es, zs, m.data_ptr(),
+               cot.data_ptr(), cam_partials.data_ptr(), dc.data_ptr(),
+               dcam.data_ptr(), _stream()))
+
+
+def launch_pri_bwd_dirs_kernel(consts, chunk: int, cam, dirs, es: float,
+                               zs: float, m, cot, dd) -> None:
+    """Launch K10f into dd (3, R). Checks nothing and counts nothing."""
+    _raise("soft_rt_pri_bwd_dirs", _build.load().raytpu_soft_rt_pri_bwd_dirs(
+        consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
+        dirs.data_ptr(), dirs.shape[1], es, zs, m.data_ptr(), cot.data_ptr(),
+        dd.data_ptr(), _stream()))
+
+
+def launch_shw_bwd_consts_kernel(consts, chunk: int, srcs, world, trans,
+                                 gcot, es: float, zs: float, dc) -> None:
+    """Launch K10k into dc (Tp, 16). Checks nothing and counts nothing."""
+    _raise("soft_rt_shw_bwd_consts",
+           _build.load().raytpu_soft_rt_shw_bwd_consts(
+               consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
+               srcs.shape[0], world.data_ptr(), world.shape[1],
+               trans.data_ptr(), gcot.data_ptr(), es, zs, dc.data_ptr(),
+               _stream()))
+
+
+def launch_shw_bwd_rays_kernel(consts, chunk: int, srcs, world, trans, gcot,
+                               es: float, zs: float, src_partials, dsrc,
+                               dw) -> None:
+    """Launch K10l and the sum of its (ceil(R / 256), S, 3) source partials
+    into dsrc (S, 3) and dw (3, R). Checks nothing and counts nothing."""
+    _raise("soft_rt_shw_bwd_rays", _build.load().raytpu_soft_rt_shw_bwd_rays(
+        consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
+        srcs.shape[0], world.data_ptr(), world.shape[1], trans.data_ptr(),
+        gcot.data_ptr(), es, zs, src_partials.data_ptr(), dsrc.data_ptr(),
+        dw.data_ptr(), _stream()))
+
+
 def primary_agg_fwd(consts: torch.Tensor, cam: torch.Tensor,
                     dirs: torch.Tensor, es: float, zs: float, chunk: int,
                     mask=None, tiles: RayTiles = None):
@@ -663,18 +772,23 @@ def primary_agg_bwd(consts, cam, dirs, m, cot, es: float, zs: float,
     """K10c's wrapper, K10d's with a mask: the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors. m (R,) the forward's saved
     max, cot (10, R) = [d s, d acc_0..8]; the rest as primary_agg_fwd.
-    Returns d consts (Tp, 32, zero in columns 18-31), d cam (3,) and
-    d dirs (3, R)."""
+    Above JAX's fused limit (pri_two_launch) the two-launch route instead,
+    K10e and K10f (primary_bwd_tables, primary_bwd_dirs), which ignores
+    ``mask`` and ``tiles`` as ``_pri_bwd_impl`` does. Returns d consts (Tp,
+    32, zero in columns 18-31), d cam (3,) and d dirs (3, R)."""
     global LAUNCHES_SRT_PRI_BWD, LAUNCHES_SRT_PRI_BWD_MASKED
+    two = pri_two_launch(consts.shape[0])
+    if two:
+        mask = tiles = None
     if not _route(consts):
         return primary_agg_bwd_reference(consts, cam, dirs, m, cot, es, zs,
                                          chunk, mask=mask, tiles=tiles)
-    _check_table(consts, PRI_COLS, chunk)
-    _check("cam", cam, (3,), consts.device)
-    R = dirs.shape[1] if dirs.dim() == 2 else -1
-    _check("dirs", dirs, (3, R), consts.device)
-    _check("m", m, (R,), consts.device)
-    _check("cot", cot, (1 + N_OUT, R), consts.device)
+    if two:
+        dc, dcam = primary_bwd_tables(consts, cam, dirs, m, cot, es, zs,
+                                      chunk)
+        return dc, dcam, primary_bwd_dirs(consts, cam, dirs, m, cot, es, zs,
+                                          chunk)
+    R = _check_pri_bwd(consts, cam, dirs, m, cot, chunk)
     Tp = consts.shape[0]
     if mask is not None:
         _check_mask(mask, tiles, R, (Tp // chunk,), consts.device)
@@ -729,21 +843,25 @@ def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
                      chunk: int, mask=None, tiles: RayTiles = None):
     """K10i's wrapper, K10j's with a mask: the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors. trans (S, R) the forward's
-    output, gcot (S, R) its cotangent; the rest as shadow_trans_fwd.
-    Returns d consts (Tp, 16, zero in columns 14-15), d srcs (S, 3) and
-    d world (3, R)."""
+    output, gcot (S, R) its cotangent; the rest as shadow_trans_fwd. Above
+    JAX's limit (shw_two_launch) the two-launch route instead, K10k and
+    K10l (shadow_bwd_consts, shadow_bwd_rays), which ignores ``mask`` and
+    ``tiles`` as ``_shadow_bwd`` does. Returns d consts (Tp, 16, zero in
+    columns 14-15), d srcs (S, 3) and d world (3, R)."""
     global LAUNCHES_SRT_SHW_BWD, LAUNCHES_SRT_SHW_BWD_MASKED
+    two = shw_two_launch(consts.shape[0])
+    if two:
+        mask = tiles = None
     if not _route(consts):
         return shadow_trans_bwd_reference(consts, srcs, world, trans, gcot,
                                           es, zs, chunk, mask=mask,
                                           tiles=tiles)
-    _check_table(consts, SHW_COLS, chunk)
-    S = srcs.shape[0] if srcs.dim() == 2 else -1
-    _check("srcs", srcs, (S, 3), consts.device)
-    R = world.shape[1] if world.dim() == 2 else -1
-    _check("world", world, (3, R), consts.device)
-    _check("trans", trans, (S, R), consts.device)
-    _check("gcot", gcot, (S, R), consts.device)
+    if two:
+        dc = shadow_bwd_consts(consts, srcs, world, trans, gcot, es, zs,
+                               chunk)
+        return (dc, *shadow_bwd_rays(consts, srcs, world, trans, gcot, es,
+                                     zs, chunk))
+    S, R = _check_shw_bwd(consts, srcs, world, trans, gcot, chunk)
     Tp = consts.shape[0]
     if mask is not None:
         _check_mask(mask, tiles, R, (S, Tp // chunk), consts.device)
@@ -763,6 +881,80 @@ def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
     return dc, dsrc, dw
 
 
+def primary_bwd_tables(consts, cam, dirs, m, cot, es: float, zs: float,
+                       chunk: int):
+    """K10e's wrapper: the CUDA kernel for CUDA tensors, for CPU tensors the
+    unmasked primary_agg_bwd_reference's first two results; inputs as primary_agg_bwd's, no mask. Returns d consts
+    (Tp, 32, zero in columns 18-31) and d cam (3,)."""
+    global LAUNCHES_SRT_PRI_BWD_TABLES
+    if not _route(consts):
+        return primary_agg_bwd_reference(consts, cam, dirs, m, cot, es, zs,
+                                         chunk)[:2]
+    _check_pri_bwd(consts, cam, dirs, m, cot, chunk)
+    cam_partials = consts.new_empty((consts.shape[0] // chunk, 3))
+    dc, dcam = torch.empty_like(consts), torch.empty_like(cam)
+    with torch.cuda.device(consts.device):
+        launch_pri_bwd_tables_kernel(consts, chunk, cam, dirs, es, zs, m, cot,
+                                     cam_partials, dc, dcam)
+    LAUNCHES_SRT_PRI_BWD_TABLES += 1
+    return dc, dcam
+
+
+def primary_bwd_dirs(consts, cam, dirs, m, cot, es: float, zs: float,
+                     chunk: int) -> torch.Tensor:
+    """K10f's wrapper: the CUDA kernel for CUDA tensors, for CPU tensors the
+    unmasked primary_agg_bwd_reference's last result; inputs as primary_agg_bwd's, no mask. Returns d dirs
+    (3, R)."""
+    global LAUNCHES_SRT_PRI_BWD_DIRS
+    if not _route(consts):
+        return primary_agg_bwd_reference(consts, cam, dirs, m, cot, es, zs,
+                                         chunk)[2]
+    _check_pri_bwd(consts, cam, dirs, m, cot, chunk)
+    dd = torch.empty_like(dirs)
+    with torch.cuda.device(consts.device):
+        launch_pri_bwd_dirs_kernel(consts, chunk, cam, dirs, es, zs, m, cot,
+                                   dd)
+    LAUNCHES_SRT_PRI_BWD_DIRS += 1
+    return dd
+
+
+def shadow_bwd_consts(consts, srcs, world, trans, gcot, es: float, zs: float,
+                      chunk: int) -> torch.Tensor:
+    """K10k's wrapper: the CUDA kernel for CUDA tensors, for CPU tensors the
+    unmasked shadow_trans_bwd_reference's first result; inputs as shadow_trans_bwd's, no mask. Returns d
+    consts (Tp, 16, zero in columns 14-15)."""
+    global LAUNCHES_SRT_SHW_BWD_CONSTS
+    if not _route(consts):
+        return shadow_trans_bwd_reference(consts, srcs, world, trans, gcot,
+                                          es, zs, chunk)[0]
+    _check_shw_bwd(consts, srcs, world, trans, gcot, chunk)
+    dc = torch.empty_like(consts)
+    with torch.cuda.device(consts.device):
+        launch_shw_bwd_consts_kernel(consts, chunk, srcs, world, trans, gcot,
+                                     es, zs, dc)
+    LAUNCHES_SRT_SHW_BWD_CONSTS += 1
+    return dc
+
+
+def shadow_bwd_rays(consts, srcs, world, trans, gcot, es: float, zs: float,
+                    chunk: int):
+    """K10l's wrapper: the CUDA kernel for CUDA tensors, for CPU tensors the
+    unmasked shadow_trans_bwd_reference's last two results; inputs as shadow_trans_bwd's, no mask. Returns d srcs
+    (S, 3) and d world (3, R)."""
+    global LAUNCHES_SRT_SHW_BWD_RAYS
+    if not _route(consts):
+        return shadow_trans_bwd_reference(consts, srcs, world, trans, gcot,
+                                          es, zs, chunk)[1:]
+    S, R = _check_shw_bwd(consts, srcs, world, trans, gcot, chunk)
+    src_partials = consts.new_empty((-(-R // THREADS), S, 3))
+    dsrc, dw = torch.empty_like(srcs), torch.empty_like(world)
+    with torch.cuda.device(consts.device):
+        launch_shw_bwd_rays_kernel(consts, chunk, srcs, world, trans, gcot,
+                                   es, zs, src_partials, dsrc, dw)
+    LAUNCHES_SRT_SHW_BWD_RAYS += 1
+    return dsrc, dw
+
+
 def primary_cot(g: torch.Tensor, out: torch.Tensor, s: torch.Tensor,
                 g_s: torch.Tensor | None = None) -> torch.Tensor:
     """The 10 cotangent rows [d s, d acc_0..8] of out = acc / s
@@ -778,8 +970,9 @@ def primary_cot(g: torch.Tensor, out: torch.Tensor, s: torch.Tensor,
 class PrimaryAgg(torch.autograd.Function):
     """out (9, R) of the (Tp, 32) table (``_primary_agg``), differentiable
     in consts, the camera position and the ray directions (3, R); the
-    backward runs K10c, or K10d with the forward's mask (or their plain
-    version). The mask and its tiles take no gradient (``_mask_cot``)."""
+    backward runs K10c, or K10d with the forward's mask, or above JAX's
+    fused limit K10e + K10f without it (or their plain versions). The mask
+    and its tiles take no gradient (``_mask_cot``)."""
 
     @staticmethod
     def forward(ctx, consts, cam, dirs, es: float, zs: float, chunk: int,
@@ -829,8 +1022,9 @@ class PrimaryAggStats(torch.autograd.Function):
 class ShadowTrans(torch.autograd.Function):
     """trans (S, R) from each source (S, 3) to each world point (3, R)
     (``_shadow_trans``), differentiable in all three; the backward runs
-    K10i, or K10j with the forward's mask (or their plain version). The
-    mask and its tiles take no gradient."""
+    K10i, or K10j with the forward's mask, or above JAX's limit K10k + K10l
+    without it (or their plain versions). The mask and its tiles take no
+    gradient."""
 
     @staticmethod
     def forward(ctx, consts, srcs, world, es: float, zs: float, chunk: int,

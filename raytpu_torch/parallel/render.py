@@ -23,7 +23,8 @@ or, above 128 triangles, K7c with kernels/intersect.py::position_mask; the
 raster winner through K8b or, above 128 triangles, K8a; the soft
 aggregates through K9a/K9c (SoftAggStats) and K10a/K10c (PrimaryAggStats),
 the soft shadow through K10g/K10i, all unmasked, as JAX's sharded blocks
-run them.
+run them (a rank's block above JAX's fused limit takes the two-launch
+backwards K10e + K10f and K10k + K10l, as JAX's does).
 
 Each ``make_*`` returns a callable that gives this rank's row block;
 ``gather_image`` assembles the full image on every rank, differentiably.

@@ -196,7 +196,9 @@ def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
     frame's sum of mask * shadow / max(sum of mask, 1). The light bank is
     taken as given: inactive slots' sources are traced too and weigh 0.
     Gradients reach every leaf of scene, camera and lights (the backward:
-    K10c/K10i, or K10d/K10j).
+    K10c/K10i, or K10d/K10j; above JAX's fused limit, 32,768 triangles for
+    the primary pass and 65,536 for the shadow's, K10e + K10f and K10k +
+    K10l without the masks).
 
     ``cull`` None culls where the JAX package would (several chunks, an
     image that blocks into its 1,024-pixel tiles); True culls or raises

@@ -1039,6 +1039,176 @@ def test_masked_soft_raytrace_wrappers_check_their_inputs(cuda):
                              c["zs"], c["chunk"], c["mask"], c["tiles"])
 
 
+def _torus(device, quads):
+    """The procedural torus of quads[0] x quads[1] quads (two triangles
+    each) as a scene on device."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mesh.stl"
+        with open(path, "w") as f:
+            f.write(procedural_stl_text(*quads))
+        return load_stl(path, device=device)
+
+
+def _assert_f11_rule(got, want64, plain32, groups):
+    """Each column group within phase 20's rule (_assert_float64_rule), or,
+    where the plain float32 version misses float64 by more than the rule
+    (ROADMAP fault F11: at 66,560 rows the sources' 3 entries, a sum of
+    millions of cancelling terms, come out 2-7 times the rule from float64
+    in every float32 order, the fused K10i's included), within twice that
+    version's distance from float64, as chip_smoke.py phase 26 holds
+    culled against brute."""
+    for name, lo, hi in groups:
+        g, w, p = (t[..., lo:hi] for t in (got, want64, plain32))
+        r32, r64, f64 = _rule(g, p), _rule(g, w), _rule(p, w)
+        assert ((r32 <= 1.0 and r64 <= max(1.0, 1.01 * f64))
+                or (f64 > 1.0 and r64 <= 2.0 * f64)), (name, r32, r64, f64)
+
+
+def _two_launch_case(device, quads, size):
+    """The two-launch backwards' inputs on the torus at size^2 (the STL
+    camera, 40 / 40, cull=False), two shadow sources: the tables, rays,
+    the plain forward's m, hit positions and transmittance, one-signed
+    cotangents."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.render.soft import raytrace_soft_inputs
+    scene = _torus(device, quads)
+    camera = Camera.make((0.0, -0.5, -5.0), focal=size * 0.6, device=device)
+    cfg = RenderConfig(width=size, height=size, mode="soft",
+                       soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
+    srcs = torch.tensor([[0.3, -1.5, -3.0], [0.25, -1.45, -3.1]],
+                        device=device)
+    with torch.no_grad():
+        inp = raytrace_soft_inputs(scene, camera, cfg, cull=False)
+        out, m, _ = srt.primary_agg_reference(inp.pri, camera.pos, inp.dirs,
+                                              inp.es, inp.zs, inp.chunk)
+        world = out[3:6].contiguous()
+        trans = srt.shadow_trans_reference(inp.shw, srcs, world, inp.es,
+                                           inp.zs, inp.chunk)
+    R = size * size
+    return ((inp.pri, camera.pos.contiguous(), inp.dirs, m,
+             _one_signed((10, R), device, 0), inp.es, inp.zs, inp.chunk),
+            (inp.shw, srcs, world, trans, _one_signed((2, R), device, 1),
+             inp.es, inp.zs, inp.chunk))
+
+
+@pytest.mark.parametrize("quads,size,limit", [
+    ((256, 130), 16, None), ((20, 20), 48, 256)],
+    ids=["66560-16x16", "800-forced-48x48"])
+def test_two_launch_kernels_match_plain_float64(cuda, monkeypatch, quads,
+                                                size, limit):
+    """K10e, K10f, K10k and K10l through the wrappers' two-launch route
+    (primary_agg_bwd, shadow_trans_bwd) on the 66,560-triangle torus, where
+    JAX's limit takes it, and on the 800-triangle one with the limit forced
+    down: against the plain backward in float64 with the float32 branch
+    decisions and the plain float32 version by column group (phase 20's
+    rule, and where float32 misses float64 by more than the rule, F11's:
+    within twice the plain float32 version's distance from float64); two
+    calls bit-identical; one launch of each, none of K10c/K10i; the rays'
+    gradients (d dirs, d world) equal the fused K10c's and K10i's bit for
+    bit (the same sums in the same order)."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    if limit is not None:
+        monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", limit)
+    pargs, sargs = _two_launch_case(cuda, quads, size)
+    Tp = pargs[0].shape[0]
+    assert srt.pri_two_launch(Tp) and srt.shw_two_launch(Tp)
+    names = ("PRI_BWD_TABLES", "PRI_BWD_DIRS", "SHW_BWD_CONSTS",
+             "SHW_BWD_RAYS", "PRI_BWD", "SHW_BWD")
+
+    def counts():
+        return [getattr(srt, f"LAUNCHES_SRT_{k}") for k in names]
+
+    before = counts()
+    got = (*srt.primary_agg_bwd(*pargs), *srt.shadow_trans_bwd(*sargs))
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1, 0, 0]
+    again = (*srt.primary_agg_bwd(*pargs), *srt.shadow_trans_bwd(*sargs))
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", 1 << 30)
+    fused = (*srt.primary_agg_bwd(*pargs), *srt.shadow_trans_bwd(*sargs))
+    want = (*srt.primary_agg_bwd_reference(
+        *(t.double() for t in pargs[:5]), *pargs[5:], f32_branches=True),
+        *srt.shadow_trans_bwd_reference(
+        *(t.double() for t in sargs[:5]), *sargs[5:], f32_branches=True))
+    plain = (*srt.primary_agg_bwd_reference(*pargs),
+             *srt.shadow_trans_bwd_reference(*sargs))
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    assert torch.equal(got[2], fused[2]) and torch.equal(got[5], fused[5])
+    assert not got[0][:, srt.PRI_USED:].any()
+    assert not got[3][:, srt.SHW_USED:].any()
+    one = (("all", 0, 3),)
+    _assert_f11_rule(got[0], want[0], plain[0], srt.PRI_GROUPS)
+    _assert_f11_rule(got[1][None], want[1][None], plain[1][None], one)
+    _assert_f11_rule(got[2].T, want[2].T, plain[2].T, one)
+    _assert_f11_rule(got[3], want[3], plain[3], srt.SHW_GROUPS)
+    _assert_f11_rule(got[4], want[4], plain[4], one)
+    _assert_f11_rule(got[5].T, want[5].T, plain[5].T, one)
+
+
+@pytest.mark.parametrize("limit,shadow_fused", [(256, False), (1024, True)],
+                         ids=["both-two-launch", "primary-two-launch"])
+def test_two_launch_step_launches_and_matches_cpu(cuda, monkeypatch, limit,
+                                                  shadow_fused):
+    """The culled soft frame of the 800-triangle torus (64^2, 25 chunks)
+    and its gradients with the limit forced down, on the card against the
+    CPU: the forward K10b + K10h, the backward K10e + K10f and K10k + K10l
+    (or, where the shadow stays fused, K10j), no other K10 kernel; every
+    leaf within atol 2e-4 after scaling, as the unforced frame's test."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.render.soft import raytrace_soft
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", limit)
+    names = ("PRI_FWD", "PRI_BWD", "SHW_FWD", "SHW_BWD", "PRI_FWD_MASKED",
+             "PRI_BWD_MASKED", "SHW_FWD_MASKED", "SHW_BWD_MASKED",
+             "PRI_BWD_TABLES", "PRI_BWD_DIRS", "SHW_BWD_CONSTS",
+             "SHW_BWD_RAYS")
+
+    def counts():
+        return [getattr(srt, f"LAUNCHES_SRT_{k}") for k in names]
+
+    def run(device):
+        scene = _torus(device, (20, 20))
+        camera = Camera.make((0.0, -0.5, -5.0), focal=40.0, device=device)
+        lights = Lights.single(capacity=1, soft_samples=2,
+                               position=(0.3, -1.5, -3.0), device=device)
+        for t in (scene.v0, scene.color, camera.pos, lights.jitter):
+            t.requires_grad_(True)
+        before = counts()
+        img = raytrace_soft(scene, camera, lights, RenderConfig(
+            width=64, height=64, mode="soft", soft_shadow_samples=2,
+            soft_edge_sharpness=40.0, soft_z_sharpness=40.0), cull=True)
+        torch.sin(3.0 * img).sum().backward()
+        launched = [a - b for a, b in zip(counts(), before)]
+        return launched, [t.detach().cpu() for t in (
+            img, scene.v0.grad, scene.color.grad, camera.pos.grad,
+            lights.jitter.grad)]
+
+    launched, got_all = run(cuda)
+    fused, split = int(shadow_fused), int(not shadow_fused)
+    assert launched == [0, 0, 0, 0, 1, 0, 1, fused, 1, 1, split, split]
+    for got, want in zip(got_all, run("cpu")[1]):
+        scale = max(float(want.abs().max()), 1e-8)
+        torch.testing.assert_close(got / scale, want / scale, rtol=0,
+                                   atol=2e-4)
+
+
+def test_two_launch_wrappers_check_their_inputs(cuda):
+    from raytpu_torch.kernels import soft_raytrace as srt
+    pargs, sargs = _two_launch_case(cuda, (5, 7), 16)
+    with pytest.raises(ValueError, match="cot"):
+        srt.primary_bwd_tables(*pargs[:4], pargs[4][:9].contiguous(),
+                               *pargs[5:])
+    with pytest.raises(ValueError, match="dirs"):
+        srt.primary_bwd_dirs(pargs[0], pargs[1], pargs[2].T, *pargs[3:])
+    with pytest.raises(ValueError, match="chunk"):
+        srt.shadow_bwd_consts(*sargs[:7], 33)
+    with pytest.raises(ValueError, match="trans"):
+        srt.shadow_bwd_rays(*sargs[:3], sargs[3][:1].contiguous(),
+                            *sargs[4:])
+
+
 def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0)):
     """The multi-chunk kernels' inputs: a size^2 frame of the procedural
     torus (quads x quads, two triangles each; 74 x 61 is the 9,028 mesh),
