@@ -19,8 +19,13 @@ nonzero without printing a result:
      the port's copy of the numpy oracle (raytpu_torch.oracle; this script
      imports nothing of JAX or of the JAX package), and the ``render`` CLI
      writing a BMP.
-  5. a few requests: an 8-frame key script through the animate loop; the
-     kernel must launch exactly once a frame.
+  5. a few requests: an 8-frame key script through the animate loop, every
+     frame written as a BMP equal to the frame the renderer returned; then
+     the ``animate`` CLI at ``--preset realtime`` (150^2 parity, the Cornell
+     box padded to 32, its default 100-key script) writing every 8th frame
+     to build/chip_smoke/animate, its fps and compile_s printed. The kernel
+     must launch exactly once a frame, plus once for the render that warms
+     the path before the clock starts (JAX's ``compile_s``).
   6. card numbers: the 512^2 clean forward frame and the kernel alone, each
      through the kernel and through the plain version, timed with CUDA
      events (median), beside the card's name and power limit.
@@ -75,7 +80,8 @@ nonzero without printing a result:
      within 1e-5); the ``rasterize`` CLI in clean mode (exactly 1 K8b) and
      with ``--stl`` (exactly 1 K8c), each writing a BMP; parity with
      ``--stl`` refusing the mesh (ROADMAP fault F8); an 8-frame animate
-     key script with the clean rasterizer (one K8b a frame); the view
+     key script with the clean rasterizer (one K8b a frame and one for the
+     warm render; every frame written as a BMP); the view
      server with the rasterizer, each request with its launches (its key
      0 is phase 17's).
  14. the raster train step: 3 SGD steps of the bench's step (512^2 clean,
@@ -244,6 +250,24 @@ nonzero without printing a result:
      backward of each pass once (~15 s apiece), the four kernels held to
      it by column group with phase 20's rule, bounds, both steps, the
      step's device-busy share and peak memory.
+ 33. the megakernel labs' kernels against their plain versions on the card
+     (raytpu_torch/kernels/labs.py, csrc/labs.cu): K1r (the forward in the
+     (1, tile) row layout), L6 (the (8, tile/8) blocked layout, unblocked)
+     and the four L5 variants (gather and shading on or off) at 512^2 clean
+     (Cornell padded to 32, tile 2048) and 500^2 parity (30 triangles, tile
+     2000: 125 whole tiles, 250 columns a sublane for L6). color, fd, idx
+     and occ bit for bit (0 mismatches, max error 0.0), K1r equal to K1 on
+     all four outputs, two calls identical, exact launches, and ROADMAP
+     fault F23's ValueError for a ray count that is not a whole number of
+     tiles; then each kernel alone at 512^2 clean beside K1, its plain
+     version and its bound.
+ 34. the labs as a user runs them, each in a subprocess that must exit 0:
+     ``python -m raytpu_torch.labs.megakernel_lab6 --check-only`` (A, B and
+     K1 agree entry for entry), then lab 6 (A = K1r, B = L6, C =
+     raytrace_full at its default config, which runs K1: F21) and lab 4
+     (two-phase K4 and the four L5 variants) in full at 512^2; their JSON
+     lines are parsed and their tables printed beside the card line. Each
+     lab process starts with its counts at 0 and prints its launches.
 
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
@@ -265,7 +289,8 @@ raytracer: K10b, K10h, K7a), before and after phase 28's 2 culled steps
 K7b, K7d, K7c, K8b, K8a, K9a, K10a, K10g), before and after each
 sharded step and the sharded fit of phase 31, and before and after each
 of phase 32's two steps, its fit and its sharded step (K10b, K10h,
-K10e, K10f, K10k, K10l, K10j, K10a, K10g). Comparisons and timings
+K10e, K10f, K10k, K10l, K10j, K10a, K10g), and in each lab process of
+phase 34 from its start to its JSON line (K1r, L6, L5, K1, K4). Comparisons and timings
 launch outside those windows. The
 line before the last is one JSON object describing each kernel; the last
 line is
@@ -279,6 +304,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1266,6 +1292,40 @@ def one_signed(shape, device, seed: int) -> torch.Tensor:
                         device=device)
 
 
+@contextlib.contextmanager
+def spy_frames(module, name: str):
+    """Record every frame ``module.name`` (animate's renderer) returns, as
+    the tensor the caller gets; no extra render, no extra launch."""
+    real, frames = getattr(module, name), []
+
+    def spy(*args):
+        frames.append(real(*args))
+        return frames[-1]
+
+    setattr(module, name, spy)
+    try:
+        yield frames
+    finally:
+        setattr(module, name, real)
+
+
+def check_written_frames(res, frames, border: int) -> None:
+    """animate's frames: finite and lit (inside a ``border``), each written
+    as the BMP of its quantized values."""
+    from raytpu_torch.core.image import quantize_u8, read_bmp
+    require(res.n_frames == len(frames) == len(res.paths),
+            "one BMP a frame (save_every 1)")
+    for frame, path in zip(frames, res.paths):
+        inner = frame[border:frame.shape[0] - border,
+                      border:frame.shape[1] - border]
+        require(bool(torch.isfinite(frame).all())
+                and float(inner.max()) > 0.3,
+                "finite frame with a lit interior")
+        require(np.array_equal(read_bmp(path),
+                               quantize_u8(frame.cpu().numpy())),
+                f"{path} holds its frame")
+
+
 def delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
@@ -2132,6 +2192,267 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
     ]
 
 
+# Float operations of L5's variants beyond K1's, counted from
+# raytpu_torch/csrc/labs.cu: without the gather, the constant normal and
+# albedo (six multiplies a ray); without the shading, color = normal +
+# albedo (three adds a ray) in place of the shading of a hit ray.
+FLOPS_NO_GATHER, FLOPS_NO_SHADE = 6, 3
+
+
+def lab_case(dev, size: int, mode: str, pad_to, tile: int) -> dict:
+    """The lab kernels' inputs for a frame as the labs make them
+    (raytpu_torch/labs/common.py::lab_inputs: the Cornell box padded to
+    pad_to, the raytracer's default camera, one light of capacity 1) and
+    the wrappers' keywords for ``tile``."""
+    from raytpu_torch import Lights
+    from raytpu_torch.labs.common import lab_inputs
+    c = lab_inputs(Lights.single(capacity=1, device=dev), size, dev, mode,
+                   pad_to)
+    c.update(tile=tile, kw=dict(tile_r=tile, tri_chunk=c["cfg"].tri_chunk,
+                                ambient=c["cfg"].ambient,
+                                parity=mode == "parity"))
+    return c
+
+
+def lab_bound(c: dict, out_bytes: int, gather: bool = True,
+              shade: bool = True) -> tuple[float, str]:
+    """A lab kernel's bound on case c: 12 B of dirs in and ``out_bytes``
+    out a ray plus the tables; K1's plane tests (all C of the primary
+    sweep, the shadow sweep's up to its first blocker) and the shading of
+    each hit ray, or L5's replacements (FLOPS_NO_GATHER, FLOPS_NO_SHADE)."""
+    from raytpu_torch.kernels.render_fused import fused_fwd_reference
+    dirs, table, par = c["dirs"], c["table"], c["par"]
+    R = dirs.shape[0]
+    if "hits" not in c:
+        c["hits"] = int((fused_fwd_reference(
+            dirs, table, par, ambient=0.2, parity=False).idx >= 0).sum())
+        c["shadow_tests"] = shadow_tests(dirs, table, par)
+    flops = FLOPS_PLANE_TEST * (R * c["C"] + c["shadow_tests"])
+    flops += (FLOPS_FWD_SHADE * c["hits"] if shade
+              else FLOPS_NO_SHADE * R)
+    if not gather:
+        flops += FLOPS_NO_GATHER * R
+    return bound_ms(R * (12 + out_bytes) + (table.numel() + par.numel()) * 4,
+                    flops)
+
+
+def run_lab(module: str, *flags: str) -> dict:
+    """``python -m raytpu_torch.labs.<module> flags`` in a subprocess that
+    must exit 0; its log goes to build/chip_smoke/, its [lab] lines are
+    printed, and its JSON line is returned."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"raytpu_torch.labs.{module}", *flags],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    tag = module + "".join(f.replace("-", "_") for f in flags)
+    (OUT / f"{tag}.log").write_text(proc.stdout + proc.stderr)
+    require(proc.returncode == 0,
+            f"{module} {' '.join(flags)} exits 0 (code {proc.returncode}: "
+            f"{proc.stderr[-3000:]})")
+    for line in proc.stderr.splitlines():
+        if line.startswith("[lab"):
+            say(f"  {line}")
+    say(f"  ({module} {' '.join(flags)}: {time.perf_counter() - t0:.1f} s)")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def lab_phases(dev, record: dict) -> list[dict]:
+    """Phases 33 and 34: the lab kernels K1r, L6 and L5 against their plain
+    versions and K1, their card numbers, and the two labs run as a user
+    runs them. Returns their entries of the kernels line."""
+    from raytpu_torch.kernels import labs, render_fused
+    from raytpu_torch.labs.megakernel_lab4 import VARIANTS as LAB_VARIANTS
+
+    say("== phase 33: K1r, L6 and the four L5 variants against their plain "
+        "versions on the card")
+    t_phase = time.perf_counter()
+
+    def mismatch(got, want) -> list[int]:
+        return [int((a != b).sum()) for a, b in zip(got, want)]
+
+    def max_err(got, want) -> float:
+        return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    err = {"k1r": 0.0, "l6": 0.0, "l5": 0.0}
+    cases = {}
+    for key, size, mode, pad_to, tile in (
+            ("clean_512", 512, "clean", 32, 2048),
+            ("parity_500", 500, "parity", None, 2000)):
+        c = cases[key] = lab_case(dev, size, mode, pad_to, tile)
+        args = (c["dirs_t"], *c["consts"], c["par"])
+        before = (labs.LAUNCHES_ROWS, labs.LAUNCHES_BLK8,
+                  labs.LAUNCHES_VARIANT)
+        rows = labs.fused_fwd_raw(*args, **c["kw"])
+        again = labs.fused_fwd_raw(*args, **c["kw"])
+        out8 = labs.fused_fwd_blk8(*args, **c["kw"])
+        variants = {name: labs.run_variant(c["dirs_t"], c["table"], c["par"],
+                                           tile, c["C"], g, s)
+                    for g, s, name in LAB_VARIANTS}
+        launched = (labs.LAUNCHES_ROWS - before[0],
+                    labs.LAUNCHES_BLK8 - before[1],
+                    labs.LAUNCHES_VARIANT - before[2])
+        plain = labs.fused_fwd_raw_reference(*args, **c["kw"])
+        plain8 = labs.fused_fwd_blk8_reference(*args, **c["kw"])
+        k1 = render_fused.fused_fwd(c["dirs"], c["table"], c["par"],
+                                    ambient=c["kw"]["ambient"],
+                                    parity=c["kw"]["parity"])
+        k1_rows = (k1.color.T, k1.fd[None], k1.idx[None], k1.occ[None])
+        unblocked = (labs.unblk8(out8[0:24], tile),
+                     labs.unblk8(out8[24:32], tile))
+        v_mis, v_err = {}, 0.0
+        for g, s, name in LAB_VARIANTS:
+            want = labs.run_variant_reference(c["dirs_t"], c["table"],
+                                              c["par"], tile, c["C"], g, s)
+            v_mis[name] = mismatch(variants[name], want)
+            v_err = max(v_err, max_err(variants[name][:2], want[:2]))
+        torch.cuda.synchronize()
+        m_rows, m_k1 = mismatch(rows, plain), mismatch(rows, k1_rows)
+        m_again = mismatch(rows, again)
+        m_l6 = mismatch(unblocked, plain[:2]) + mismatch([out8], [plain8])
+        e_rows, e_l6 = max_err(rows[:2], plain[:2]), max_err([out8], [plain8])
+        hits = float((rows[2] >= 0).float().mean())
+        try:
+            labs.fused_fwd_raw(*args, **dict(c["kw"], tile_r=tile + 8))
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+        say(f"{size}^2 {mode} T={c['consts'][0].shape[0]} C={c['C']} tile "
+            f"{tile} (hit rays {hits:.4f}): K1r vs plain mismatches "
+            f"[color, fd, idx, occ] {m_rows}, max error {e_rows}; K1r vs K1 "
+            f"{m_k1}; two K1r calls {m_again}; L6 unblocked vs plain "
+            f"[color, fd] and the block {m_l6}, max error {e_l6}; L5 vs "
+            f"plain {v_mis}, max error {v_err}; launches [K1r, L6, L5] "
+            f"{list(launched)}; tile {tile + 8}: ValueError {refused!r}")
+        require(not any(m_rows + m_k1 + m_again + m_l6)
+                and not any(sum(v_mis.values(), [])),
+                "lab kernels = plain versions = K1 bit for bit")
+        require(e_rows == e_l6 == v_err == 0.0, "max error 0.0")
+        require(launched == (2, 1, 4), "exact launches")
+        require("F23" in refused, "a ragged tile count is refused (F23)")
+        require(bool(torch.isfinite(rows[0]).all()) and hits > 0.9,
+                "finite color, most rays hit")
+        err["k1r"] = max(err["k1r"], e_rows)
+        err["l6"] = max(err["l6"], e_l6)
+        err["l5"] = max(err["l5"], v_err)
+        record[f"labs_compare_{key}"] = dict(
+            k1r=m_rows, k1r_vs_k1=m_k1, repeat=m_again, l6=m_l6, l5=v_mis,
+            launches=launched)
+
+    # Each kernel alone on the labs' frame (512^2 clean), launched past the
+    # wrappers' packing (K1r and L6 take the JAX functions' constants and
+    # pack the table each call; K1 and L5 take it packed), beside K1 on the
+    # same inputs, the plain versions and the bounds.
+    c = cases["clean_512"]
+    tile, R = c["tile"], c["dirs"].shape[0]
+    args = (c["dirs_t"], *c["consts"], c["par"])
+    dirs8 = labs.blk8(c["dirs_t"], tile).contiguous()
+    out8 = torch.empty((32, R // 8), dtype=torch.float32, device=dev)
+    kernels = {
+        "k1r": lambda: labs._rows_call(c["dirs_t"], c["table"], c["par"],
+                                       tile, True, True, 0.2, False),
+        "l6": lambda: labs._launch(dirs8, c["table"], c["par"], R, tile,
+                                   labs._BLK8, True, True, 0.2, False,
+                                   (out8,)),
+        "k1": lambda: render_fused.fused_fwd(c["dirs"], c["table"], c["par"],
+                                             ambient=0.2, parity=False),
+        **{name: (lambda g=g, s=s: labs.run_variant(
+            c["dirs_t"], c["table"], c["par"], tile, c["C"], g, s))
+           for g, s, name in LAB_VARIANTS},
+    }
+    plains = {
+        "k1r_plain": lambda: labs.fused_fwd_raw_reference(*args, **c["kw"]),
+        "l6_plain": lambda: labs.fused_fwd_blk8_reference(*args, **c["kw"]),
+        **{f"{name}_plain": (lambda g=g, s=s: labs.run_variant_reference(
+            c["dirs_t"], c["table"], c["par"], tile, c["C"], g, s))
+           for g, s, name in LAB_VARIANTS},
+    }
+    t = median_ms_in_turns(kernels, n=20, reps=7, timer=held_ms)
+    t.update(median_ms_in_turns(plains, n=3, reps=5, timer=held_ms))
+    t["l6_wrapper"] = median_ms_in_turns(
+        {"w": lambda: labs.fused_fwd_blk8(*args, **c["kw"])}, n=20, reps=5,
+        timer=held_ms)["w"]
+    bounds = {"k1r": lab_bound(c, 24), "l6": lab_bound(c, 16),
+              **{name: lab_bound(c, 24, g, s) for g, s, name in LAB_VARIANTS}}
+    card = card_line()
+    say(f"512^2 clean, C={c['C']}, tile {tile}, device time a call (CUDA "
+        f"events, median of turns): "
+        + ", ".join(f"{k} {t[k]:.4f} ms (plain {t[k + '_plain']:.4f}; "
+                    f"bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
+                    for k in bounds)
+        + f"; K1 {t['k1']:.4f} ms; L6 through its wrapper (re-blocking "
+        f"dirs) {t['l6_wrapper']:.4f} ms ({card})")
+    say(f"phase 33 took {time.perf_counter() - t_phase:.1f} s")
+
+    say("== phase 34: the labs as a user runs them (subprocesses)")
+    t_phase = time.perf_counter()
+    check = run_lab("megakernel_lab6", "--check-only")
+    require(check["maxdiff_ab"] == 0.0
+            and not any(check["mismatch_ab"].values())
+            and not any(check["mismatch_a_k1"].values()),
+            "lab 6: A = B = K1 entry for entry")
+    lab6 = run_lab("megakernel_lab6")
+    lab4 = run_lab("megakernel_lab4")
+    rows6 = (("A  K1r, (1, tile) rows", "fused_1row_ms", "unc_1row"),
+             ("B  L6, (8, tile/8) blocks", "fused_8row_ms", "unc_8row"),
+             ("C  raytrace_full, default config (K1, F21)",
+              "split_full_fwd_ms", "unc_split"))
+    say(f"lab 6 (512^2 clean, Cornell 32, tile 2048; bench.py's estimator, "
+        f"ms a forward): ({lab6['card']})")
+    for label, key, unc in rows6:
+        say(f"  {label:44s} {lab6[key]:.4f} +- {lab6[unc]:.4f}")
+    say(f"  maxdiff_ab {lab6['maxdiff_ab']}, mismatches A-B "
+        f"{lab6['mismatch_ab']}, A-K1 {lab6['mismatch_a_k1']}")
+    say(f"lab 4 (512^2 clean, Cornell 32; lab 4's estimator, ms a call): "
+        f"({lab4['card']})")
+    for name in ("two-phase", *(v[2] for v in LAB_VARIANTS)):
+        say(f"  {name:14s} {lab4[name]:.4f}")
+    say(f"  mismatches against K1r {lab4['mismatch_vs_k1r']}")
+    require(all(lab6[k] > 0 for _, k, _ in rows6)
+            and all(lab4[v[2]] == lab4[v[2]] for v in LAB_VARIANTS),
+            "the labs' times")
+    require(not any(sum((list(m.values()) for m in
+                         lab4["mismatch_vs_k1r"].values()), [])),
+            "lab 4: every variant's idx and occ = K1r's, mega-full's all")
+    launched = {}
+    for res in (check, lab6, lab4):
+        for k, v in res["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    say(f"lab path launches (the three lab processes): {launched}")
+    require(all(launched.get(k, 0) > 0 for k in (
+        "render_fused_fwd_rows", "megakernel_lab6_blk8",
+        "megakernel_lab4_variant")), "the labs launched K1r, L6 and L5")
+    say(f"phase 34 took {time.perf_counter() - t_phase:.1f} s")
+    record["labs"] = dict(err=err, kernel_ms=t, bounds=bounds, lab6=lab6,
+                          lab6_check=check, lab4=lab4, launches=launched)
+
+    def entry(name, key, err_key, launches, lab_ms, replaces,
+              **extra) -> dict:
+        return dict(name=name, route="cuda",
+                    source="raytpu_torch/csrc/labs.cu", replaces=replaces,
+                    launches=launches, max_abs_err=err[err_key],
+                    ms=t[key], plain_ms=t[f"{key}_plain"],
+                    bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                    library_ms=None, lab_ms=lab_ms, k1_ms=t["k1"], **extra)
+
+    return [
+        entry("render_fused_fwd_rows", "k1r", "k1r",
+              launched["render_fused_fwd_rows"], lab6["fused_1row_ms"],
+              replaces="raytpu/kernels/render_fused.py:539"),
+        entry("megakernel_lab4_variant", "mega-full", "l5",
+              launched["megakernel_lab4_variant"], lab4["mega-full"],
+              replaces="bench/megakernel_lab4.py:126",
+              variants={name: dict(ms=t[name], plain_ms=t[f"{name}_plain"],
+                                   bound_ms=bounds[name][0],
+                                   bound_by=bounds[name][1],
+                                   lab_ms=lab4[name])
+                        for _, _, name in LAB_VARIANTS}),
+        entry("megakernel_lab6_blk8", "l6", "l6",
+              launched["megakernel_lab6_blk8"], lab6["fused_8row_ms"],
+              replaces="bench/megakernel_lab6.py:180",
+              wrapper_ms=t["l6_wrapper"]),
+    ]
+
+
 def main() -> int:
     record = {}
 
@@ -2154,6 +2475,7 @@ def main() -> int:
     from raytpu_torch.kernels import _build, render_fused
     from raytpu_torch.kernels.tables import GATHERED, PARAMS, tight_chunk
     from raytpu_torch.oracle import raytracer_oracle
+    from raytpu_torch.render import animate as animate_mod
     from raytpu_torch.render.animate import animate, expand_script
     from raytpu_torch.render.raytrace import (
         fused_inputs, raytrace, raytrace_full)
@@ -2237,24 +2559,46 @@ def main() -> int:
             "the render CLI writes the same frame")
     record["oracle"] = dict(f32_ok=f32_ok, u8_ok=u8_ok, fd_ok=fd_ok)
 
-    say("== phase 5: a few requests (8-frame key script through animate)")
+    say("== phase 5: a few requests (an 8-frame key script through animate, "
+        "the animate CLI at --preset realtime)")
     before = render_fused.LAUNCHES
     keys = expand_script("left*2,up*2,w*2,a*2")
-    res = animate(cornell_box(pad_to=32, device=dev),
-                  Camera.raytracer_default(device=dev),
-                  Lights.single(capacity=1, device=dev), cfg, keys)
+    with spy_frames(animate_mod, "raytrace") as rendered:
+        res = animate(cornell_box(pad_to=32, device=dev),
+                      Camera.raytracer_default(device=dev),
+                      Lights.single(capacity=1, device=dev), cfg, keys,
+                      out_dir=str(OUT / "animate_keys"))
     frame_launches = render_fused.LAUNCHES - before
-    say(f"{res.n_frames} frames, {res.ms_per_frame:.3f} ms/frame host clock, "
-        f"kernel launches {frame_launches}")
-    require(frame_launches == len(keys) == 8, "one launch per frame")
-    for frame in res.frames:
-        require(bool(torch.isfinite(frame).all())
-                and float(frame[1:-1, 1:-1].max()) > 0.3,
-                "finite frame with a lit interior")
+    say(f"{res.n_frames} frames, {res.fps:.1f} frames/s, "
+        f"{res.ms_per_frame:.3f} ms/frame host clock, warm render "
+        f"{res.compile_s:.3f} s, {len(res.paths)} BMPs, kernel launches "
+        f"{frame_launches}")
+    require(frame_launches == len(keys) + 1 == 9,
+            "one launch per frame and one for the warm render")
+    check_written_frames(res, rendered[1:], 1)
+    before = render_fused.LAUNCHES
+    anim_dir = OUT / "animate"
+    shutil.rmtree(anim_dir, ignore_errors=True)
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        cli_main(["animate", "--preset", "realtime", "--out-dir",
+                  str(anim_dir), "--save-every", "8"])
+    anim = json.loads(text.getvalue().strip().splitlines()[-1])
+    cli_launches = render_fused.LAUNCHES - before
+    bmps = sorted(anim_dir.glob("frame_*.bmp"))
+    say(f"animate CLI --preset realtime: {anim} ({cli_launches} K1 "
+        f"launches, {len(bmps)} BMPs in {anim_dir.relative_to(ROOT)})")
+    require(cli_launches == anim["frames"] + 1 == 101,
+            "the CLI: one K1 a frame and one for the warm render")
+    require(anim["saved"] == len(bmps) == 13 and anim["fps"] > 0
+            and anim["compile_s"] >= 0, "every 8th of 100 frames written")
+    firsts = [read_bmp(str(p)) for p in (bmps[0], bmps[-1])]
+    require(all(f.shape == (150, 150, 3) and f.max() > 80 for f in firsts)
+            and not np.array_equal(*firsts), "lit 150^2 frames that move")
     launches = render_fused.LAUNCHES
     say(f"main path launches: render_fused_fwd {launches}")
     require(launches > 0, "the main path launched the kernel")
     record["animate_ms_per_frame_host"] = res.ms_per_frame
+    record["animate_cli"] = anim
 
     say("== phase 6: card numbers (512^2 clean forward, CUDA events)")
     args, kw = frame_args(512, "clean", 32)
@@ -2822,17 +3166,20 @@ def main() -> int:
 
     before = kernel_counts()
     keys = expand_script("left*2,up*2,w*2,a*2")
-    res = animate(cornell_box(pad_to=32, device=dev),
-                  Camera.rasterizer_default(device=dev),
-                  Lights.single(capacity=1, device=dev),
-                  RenderConfig(mode="clean"), keys, renderer="rasterize")
+    with spy_frames(animate_mod, "rasterize") as rendered:
+        res = animate(cornell_box(pad_to=32, device=dev),
+                      Camera.rasterizer_default(device=dev),
+                      Lights.single(capacity=1, device=dev),
+                      RenderConfig(mode="clean"), keys, renderer="rasterize",
+                      out_dir=str(OUT / "animate_raster"))
     got = delta(before, kernel_counts())
     say(f"animate, clean rasterizer: {res.n_frames} frames, "
-        f"{res.ms_per_frame:.3f} ms/frame host clock, launches {got}")
-    require(got == {"raster_winner": 8}, "one K8b a frame")
-    require(all(bool(torch.isfinite(f).all()) and float(f.max()) > 0.3
-                for f in res.frames), "finite, lit frames")
-    require(not torch.equal(res.frames[0], res.frames[-1]),
+        f"{res.ms_per_frame:.3f} ms/frame host clock, {len(res.paths)} "
+        f"BMPs, launches {got}")
+    require(got == {"raster_winner": 9},
+            "one K8b a frame and one for the warm render")
+    check_written_frames(res, rendered[1:], 0)
+    require(not torch.equal(rendered[1], rendered[-1]),
             "the key script moves the view")
 
     app = ViewerApp(cornell_box(device=dev),
@@ -3275,8 +3622,6 @@ def main() -> int:
 
     say("== phase 18: training (the fit CLI at its defaults, resume, the "
         "bench's soft steps) and card numbers")
-    import contextlib
-    import io
     target_bmp = ROOT / "results" / "fit_reference" / "target.bmp"
     logs, printed = io.StringIO(), io.StringIO()
     zero_counts()
@@ -4511,6 +4856,7 @@ def main() -> int:
 
     sharded_entries = sharded_phases(dev, stl_path, record)
     two_launch_entries = two_launch_phase(dev, record)
+    lab_entries = lab_phases(dev, record)
 
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 
@@ -4696,6 +5042,7 @@ def main() -> int:
                    replaces="raytpu/kernels/soft_raytrace_pallas.py:1031"),
         *sharded_entries,
         *two_launch_entries,
+        *lab_entries,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,7 +9,8 @@ PyTorch versions. This package never imports jax.
 Public API:
   raytrace(scene, camera, lights, cfg)  -> image (H, W, 3) float32 tensor
   rasterize(scene, camera, lights, cfg) -> image (H, W, 3) float32 tensor
-  load_stl(path, *, device)             -> Scene of an ASCII STL model
+  load_stl(path, scale, color, pad_to, use_native, reorder, *, device)
+                                        -> Scene of an ASCII STL model
 """
 
 from raytpu_torch.core.cornell import cornell_box

@@ -5,6 +5,8 @@
                            to a BMP (ref: the rasteriser binary)
   raytpu-torch fit       — inverse-rendering fit of the Cornell box to a
                            target BMP through the soft rasterizer
+  raytpu-torch animate   — the frame-sequence driver (the reference's
+                           realtime Update/Draw loop over a key script)
   raytpu-torch view      — the live viewer over localhost HTTP
 
 The flags and their defaults are the JAX package's; ``--device`` picks
@@ -212,6 +214,42 @@ def _fit_and_write(args, device, mesh):
         print(f"wrote {args.output}")
 
 
+def cmd_animate(args):
+    """The frame-sequence driver (``cmd_animate`` of the JAX CLI): the
+    Cornell box padded to 32, one light of capacity 1, the --preset
+    realtime view or the renderer's default camera at --width x --height;
+    prints the JSON line of the JAX CLI."""
+    import json
+
+    from raytpu_torch.core.cornell import cornell_box
+    from raytpu_torch.core.types import Camera, Lights, RenderConfig
+    from raytpu_torch.render.animate import (
+        animate, expand_script, realtime_preset)
+
+    device = _device(args.device)
+    scene = cornell_box(pad_to=32, device=device)
+    if args.preset == "realtime":
+        camera, cfg = realtime_preset(device=device)
+    else:
+        camera = (Camera.rasterizer_default(device=device)
+                  if args.renderer == "rasterize"
+                  else Camera.raytracer_default(device=device))
+        cfg = RenderConfig(width=args.width, height=args.height,
+                           mode=args.mode)
+    lights = Lights.single(capacity=1, device=device)
+    res = animate(scene, camera, lights, cfg, expand_script(args.script),
+                  renderer=args.renderer, dt_ms=args.dt,
+                  out_dir=args.out_dir, save_every=args.save_every)
+    print(json.dumps({
+        "frames": res.n_frames,
+        "fps": round(res.fps, 1),
+        "ms_per_frame": round(res.ms_per_frame, 3),
+        "compile_s": round(res.compile_s, 2),
+        "saved": len(res.paths),
+        "out_dir": args.out_dir,
+    }))
+
+
 def cmd_view(args):
     import torch
 
@@ -274,6 +312,29 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
     p.set_defaults(func=cmd_fit)
+    p = sub.add_parser(
+        "animate", help="frame-sequence driver (realtime Update/Draw analog)")
+    p.add_argument("--script", default="left*30,up*20,d*20,right*30",
+                   help="per-frame key tokens, e.g. 'left*20,up*5,w*10' "
+                        "(keys: up down left right w s a d none)")
+    p.add_argument("--renderer", choices=["raytrace", "rasterize"],
+                   default="raytrace")
+    p.add_argument("--preset", choices=["none", "realtime"], default="none",
+                   help="realtime = 150x150 f=250 cam(0,0,-4.3) "
+                        "(raytracer.cpp:61-65)")
+    p.add_argument("--width", type=int, default=500)
+    p.add_argument("--height", type=int, default=500)
+    p.add_argument("--mode", choices=["parity", "clean"], default="parity")
+    p.add_argument("--dt", type=float, default=20.0,
+                   help="virtual frame time in ms for the rasteriser's "
+                        "dt-scaled motion (rasteriser.cpp:330-373)")
+    p.add_argument("--out-dir", default=None,
+                   help="write frame_%%04d.bmp here (omit for pure "
+                        "throughput measurement)")
+    p.add_argument("--save-every", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda)")
+    p.set_defaults(func=cmd_animate)
     p = sub.add_parser("view", help="live interactive viewer (browser "
                                     "framebuffer; the reference's realtime "
                                     "SDL loop)")

@@ -3,9 +3,9 @@
   * :func:`parse_ascii_stl` / :func:`load_stl` — the reference's loader
     (`rasteriser/Source/LoadSTL.cpp:17-97`): "outer" loop blocks, three
     "vertex x y z" lines each, a fixed gray albedo (`LoadSTL.cpp:22`), then
-    ``v *= -0.05`` on every axis (`LoadSTL.cpp:64-77`). The JAX package's
-    C++ parser (``use_native``) is not ported (ROADMAP.md port item 9); the
-    python parser reads the same numbers.
+    ``v *= -0.05`` on every axis (`LoadSTL.cpp:64-77`). ``use_native``
+    picks the C++ parser of raytpu_torch.native (the JAX package's, built
+    at first use), which reads the same numbers.
   * :func:`morton_order` — the centroid Morton sort of the ``--morton``
     flag (raytpu/kernels/cull.py::morton_order).
   * :func:`procedural_stl_text` — ASCII STL text of a closed, seeded,
@@ -68,20 +68,30 @@ def morton_order(v0, v1, v2, bits: int = 10) -> np.ndarray:
     return np.argsort(code, kind="stable")
 
 
-def load_stl(path: str, pad_to: int | None = None,
+def load_stl(path: str, scale: float = DEFAULT_SCALE, color=DEFAULT_COLOR,
+             pad_to: int | None = None, use_native: bool | None = None,
              reorder: str | None = None, *, device) -> Scene:
     """An ASCII STL file as a Scene on ``device``, with the reference's
-    ``v *= -DEFAULT_SCALE`` and gray DEFAULT_COLOR. Raises on a missing or
-    invalid file. ``reorder``: None keeps file order (the reference's
+    ``v *= -scale`` on every axis and one albedo ``color`` for every
+    triangle. Raises on a missing or invalid file. ``use_native``: None
+    takes the C++ parser where raytpu_torch.native builds and the python
+    one otherwise. ``reorder``: None keeps file order (the reference's
     tie-breaks depend on it), "morton" sorts by centroid Morton code."""
-    with open(path, "r", errors="replace") as f:
-        tris = parse_ascii_stl(f.read())
-    tris = tris * np.float32(-DEFAULT_SCALE)
+    from raytpu_torch import native
+
+    if use_native is None:
+        use_native = native.available()
+    if use_native:
+        tris = native.parse_stl(path)
+    else:
+        with open(path, "r", errors="replace") as f:
+            tris = parse_ascii_stl(f.read())
+    tris = tris * np.float32(-scale)
     if reorder == "morton":
         tris = tris[morton_order(tris[:, 0], tris[:, 1], tris[:, 2])]
     elif reorder is not None:
         raise ValueError(f"unknown reorder {reorder!r}")
-    colors = np.broadcast_to(np.asarray(DEFAULT_COLOR, np.float32),
+    colors = np.broadcast_to(np.asarray(color, np.float32),
                              (tris.shape[0], 3)).copy()
     scene = Scene.from_vertices(tris[:, 0], tris[:, 1], tris[:, 2], colors,
                                 device=device)

@@ -99,6 +99,10 @@ SIGNATURES = {
     # src_partials, dsrc, dw, stream
     "raytpu_soft_rt_shw_bwd_rays": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _F,
                                     _F, _P, _P, _P, _P],
+    # dirs, table, params, C, Rp, tile_r, layout, gather, shade, ambient,
+    # parity, color, fd, idx, occ, stream
+    "raytpu_mega_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
+                        _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

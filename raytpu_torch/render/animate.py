@@ -18,23 +18,37 @@ state transitions:
 
 ``forward``/``right`` are the camera rotation's third/first columns. Each
 frame is one render request: the state update runs on the host, the render
-on the scene's device.
+on the scene's device. The REALTIME preset reproduces `raytracer.cpp:61-65`
+(150x150, focal 250, camera (0, 0, -4.3)).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Iterable
 
 import numpy as np
 import torch
 
+from raytpu_torch.core.image import write_bmp
 from raytpu_torch.core.types import Camera, Lights, RenderConfig, Scene, f32
 from raytpu_torch.render.rasterize import rasterize
 from raytpu_torch.render.raytrace import raytrace
 
 KEYS = ("none", "up", "down", "left", "right", "w", "s", "a", "d")
+# Frames to be saved that may wait on the device before they are moved to
+# the host (raytpu/render/animate.py:219): a long script at 500^2 would
+# otherwise hold every frame in device memory until the loop ends.
+MAX_PENDING = 64
+
+
+def realtime_preset(*, device):
+    """`raytracer.cpp:61-65`: REALTIME -> 150x150, f=250, cam (0,0,-4.3),
+    parity. Returns (camera, cfg)."""
+    camera = Camera.make((0.0, 0.0, -4.3), focal=250.0, device=device)
+    return camera, RenderConfig(width=150, height=150, mode="parity")
 
 
 def expand_script(script: str) -> list[str]:
@@ -131,17 +145,33 @@ def apply_key_rasterizer(camera: Camera, lights: Lights, key: str,
 @dataclasses.dataclass
 class AnimateResult:
     n_frames: int
+    fps: float           # frames over the timed loop's host-clock seconds
     ms_per_frame: float  # host clock, up to the last frame's completion
-    frames: list         # (H, W, 3) float32 tensors, one per key
+    compile_s: float     # the warm render before the clock starts
+    paths: list          # the BMPs written, in frame order
+
+
+def _sync(img: torch.Tensor) -> None:
+    if img.is_cuda:
+        torch.cuda.synchronize(img.device)
 
 
 def animate(scene: Scene, camera: Camera, lights: Lights, cfg: RenderConfig,
             keys: Iterable[str], renderer: str = "raytrace",
-            dt_ms: float = 20.0) -> AnimateResult:
+            dt_ms: float = 20.0, out_dir: str | None = None,
+            save_every: int = 1) -> AnimateResult:
     """Render one frame per key token with ``renderer`` ("raytrace" or
     "rasterize"), applying the motion BEFORE each frame (Update then Draw,
     `raytracer.cpp:165-172`); ``dt_ms`` is the rasteriser's virtual frame
-    time. Frames stay on the scene's device."""
+    time. Returns timing stats; with ``out_dir``, frame i is written there
+    as frame_%04d.bmp when i % save_every == 0.
+
+    One render before the clock starts warms the path (on a card, the
+    kernels' first build and load) and is reported as ``compile_s``. The
+    frames to save stay on the device during the timed loop, at most
+    MAX_PENDING at a time (a full batch is moved to the host, timed, as
+    presentation would be); the BMPs are written after the clock stops.
+    """
     if renderer == "raytrace":
         render, step = raytrace, apply_key_raytracer
     elif renderer == "rasterize":
@@ -154,13 +184,33 @@ def animate(scene: Scene, camera: Camera, lights: Lights, cfg: RenderConfig,
     keys = list(keys)
     if not keys:
         raise ValueError("animate() needs at least one key event")
-    frames = []
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
     t0 = time.perf_counter()
-    for key in keys:
+    _sync(render(scene, camera, lights, cfg))
+    compile_s = time.perf_counter() - t0
+
+    kept = []     # (frame index, host ndarray)
+    pending = []  # (frame index, device tensor), at most MAX_PENDING
+    t0 = time.perf_counter()
+    for i, key in enumerate(keys):
         camera, lights = step(camera, lights, key)
-        frames.append(render(scene, camera, lights, cfg))
-    if frames[-1].is_cuda:
-        torch.cuda.synchronize(frames[-1].device)
+        img = render(scene, camera, lights, cfg)
+        if out_dir and i % save_every == 0:
+            pending.append((i, img))
+            if len(pending) >= MAX_PENDING:
+                kept.extend((j, a.cpu().numpy()) for j, a in pending)
+                pending.clear()
+    _sync(img)
     wall = time.perf_counter() - t0
-    return AnimateResult(n_frames=len(keys),
-                         ms_per_frame=wall / len(keys) * 1e3, frames=frames)
+    kept.extend((j, a.cpu().numpy()) for j, a in pending)
+    paths = []
+    for i, arr in kept:
+        path = os.path.join(out_dir, f"frame_{i:04d}.bmp")
+        write_bmp(path, arr)
+        paths.append(path)
+    n = len(keys)
+    return AnimateResult(n_frames=n, fps=n / wall,
+                         ms_per_frame=wall / n * 1e3, compile_s=compile_s,
+                         paths=paths)

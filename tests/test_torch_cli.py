@@ -216,25 +216,43 @@ def test_key_transitions_match_jax():
                                            atol=1e-6)
 
 
-def test_animate_renders_one_frame_per_key():
+def test_animate_renders_one_frame_per_key(tmp_path, monkeypatch):
+    """Every frame is written (save_every 1) and equals a direct render of
+    the state after its keys; a spy on the renderer sees the frames as
+    float tensors (the first call is the warm render before the clock)."""
     keys = animate.expand_script("left*2,up*2,w*2,a*2")
     cfg = RenderConfig(width=24, height=24)
+    rendered = []
+
+    def spy(*args):
+        rendered.append(raytrace(*args))
+        return rendered[-1]
+
+    monkeypatch.setattr(animate, "raytrace", spy)
     before = render_fused.LAUNCHES
     res = animate.animate(cornell_box(pad_to=32, device="cpu"),
                           Camera.raytracer_default(device="cpu"),
-                          Lights.single(capacity=1, device="cpu"), cfg, keys)
+                          Lights.single(capacity=1, device="cpu"), cfg, keys,
+                          out_dir=str(tmp_path))
     assert render_fused.LAUNCHES == before  # CPU tensors: plain version
-    assert res.n_frames == len(res.frames) == 8 and res.ms_per_frame > 0
-    for frame in res.frames:
+    frames = rendered[1:]
+    assert res.n_frames == len(frames) == len(res.paths) == 8
+    assert res.ms_per_frame > 0 and res.fps > 0 and res.compile_s > 0
+    for frame in frames:
         assert bool(torch.isfinite(frame).all())
         assert float(frame[1:-1, 1:-1].max()) > 0.3
-    # Frame 6 is the state after keys 0..6.
+    # Frame i is the state after keys 0..i.
     cam = Camera.raytracer_default(device="cpu")
     lights = Lights.single(capacity=1, device="cpu")
-    for key in keys[:7]:
+    for i, key in enumerate(keys):
         cam, lights = animate.apply_key_raytracer(cam, lights, key)
-    want = raytrace(cornell_box(pad_to=32, device="cpu"), cam, lights, cfg)
-    assert torch.equal(res.frames[6], want)
+        want = raytrace(cornell_box(pad_to=32, device="cpu"), cam, lights,
+                        cfg)
+        assert res.paths[i] == str(tmp_path / f"frame_{i:04d}.bmp")
+        assert np.array_equal(read_bmp(res.paths[i]),
+                              quantize_u8(want.numpy()))
+        if i == 6:
+            assert torch.equal(frames[6], want)
     with pytest.raises(ValueError):
         animate.animate(cornell_box(device="cpu"),
                         Camera.raytracer_default(device="cpu"),

@@ -1564,3 +1564,52 @@ def test_sharded_paths_across_four_cards(cuda, shape, tmp_path):
             np.testing.assert_array_equal(r["fit"], results[0]["fit"])
         np.testing.assert_allclose(results[0]["fit"], want, rtol=1e-3)
     assert not failed, "\n".join(failed)
+
+
+def _lab_case(device, size, mode, pad_to):
+    """The lab kernels' inputs for a frame, as the labs make them."""
+    from raytpu_torch.labs.common import lab_inputs
+    return dict(lab_inputs(Lights.single(capacity=1, device=device), size,
+                           device, mode, pad_to), parity=mode == "parity")
+
+
+@pytest.mark.parametrize("size,mode,pad_to,tile", [
+    (512, "clean", 32, 2048), (500, "parity", None, 2000)])
+def test_lab_kernels_match_plain_versions(cuda, size, mode, pad_to, tile):
+    """K1r, L6 (unblocked) and the four L5 variants against their plain
+    versions bit for bit, K1r against K1 bit for bit, exact launches."""
+    from raytpu_torch.kernels import labs
+    c = _lab_case(cuda, size, mode, pad_to)
+    kw = dict(tile_r=tile, tri_chunk=512, ambient=0.2, parity=c["parity"])
+    before = (labs.LAUNCHES_ROWS, labs.LAUNCHES_BLK8, labs.LAUNCHES_VARIANT)
+    rows = labs.fused_fwd_raw(c["dirs_t"], *c["consts"], c["par"], **kw)
+    out8 = labs.fused_fwd_blk8(c["dirs_t"], *c["consts"], c["par"], **kw)
+    variants = {(g, s): labs.run_variant(c["dirs_t"], c["table"], c["par"],
+                                         tile, c["C"], g, s)
+                for g in (True, False) for s in (True, False)}
+    assert (labs.LAUNCHES_ROWS, labs.LAUNCHES_BLK8,
+            labs.LAUNCHES_VARIANT) == (before[0] + 1, before[1] + 1,
+                                       before[2] + 4)
+    want = labs.fused_fwd_raw_reference(c["dirs_t"], *c["consts"], c["par"],
+                                        **kw)
+    k1 = render_fused.fused_fwd(c["dirs"], c["table"], c["par"],
+                                ambient=0.2, parity=c["parity"])
+    torch.cuda.synchronize()
+    for g, w, k in zip(rows, want, (k1.color.T, k1.fd[None], k1.idx[None],
+                                    k1.occ[None])):
+        assert int((g != w).sum()) == 0 and int((g != k).sum()) == 0
+    assert torch.equal(labs.unblk8(out8[0:24], tile), want[0])
+    assert torch.equal(labs.unblk8(out8[24:32], tile), want[1])
+    assert torch.equal(out8, labs.fused_fwd_blk8_reference(
+        c["dirs_t"], *c["consts"], c["par"], **kw))
+    for (g, s), got in variants.items():
+        plain = labs.run_variant_reference(c["dirs_t"], c["table"], c["par"],
+                                           tile, c["C"], g, s)
+        for a, b in zip(got, plain):
+            assert int((a != b).sum()) == 0, (g, s)
+    again = labs.fused_fwd_raw(c["dirs_t"], *c["consts"], c["par"], **kw)
+    for a, b in zip(rows, again):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="F23"):
+        labs.fused_fwd_raw(c["dirs_t"], *c["consts"], c["par"],
+                           **dict(kw, tile_r=tile + 8))

@@ -14,7 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _NO_JAX = """
 loaded = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith(("jax.", "raytpu.")) or m == "raytpu")
+                if m in ("jax", "raytpu", "bench")
+                or m.startswith(("jax.", "raytpu.", "bench.")))
 assert not loaded, loaded
 print("no jax")
 """
@@ -33,6 +34,9 @@ import raytpu_torch.kernels.soft_raytrace, raytpu_torch.kernels.cull
 import raytpu_torch.utils.profiling
 import raytpu_torch.parallel, raytpu_torch.parallel.render
 import raytpu_torch.parallel.collectives, raytpu_torch.parallel.mp_dryrun
+import raytpu_torch.labs.megakernel_lab6, raytpu_torch.labs.megakernel_lab4
+import raytpu_torch.kernels.labs, raytpu_torch.native
+import raytpu_torch.labs.timing
 """ + _NO_JAX
 
 
@@ -78,7 +82,7 @@ def test_chip_smoke_loads_nothing_of_jax():
                     if importlib.util.find_spec(f"{node.module}.{a.name}"))
     assert "raytpu_torch.parallel.render" in names
     bad = sorted(n for n in names
-                 if n.split(".")[0] in ("jax", "jaxlib", "raytpu"))
+                 if n.split(".")[0] in ("jax", "jaxlib", "raytpu", "bench"))
     assert not bad, bad
     check = "\n".join(
         ["import sys", "sys.path.insert(0, '.')", "import chip_smoke"]

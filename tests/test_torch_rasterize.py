@@ -258,25 +258,43 @@ def test_rasterizer_key_transitions_match_jax():
                                            atol=1e-6, err_msg=name)
 
 
-def test_animate_rasterizer_renders_one_frame_per_key():
+def test_animate_rasterizer_renders_one_frame_per_key(tmp_path,
+                                                     monkeypatch):
+    """Every frame is written and equals a direct rasterize of the state
+    after its keys; a spy on the renderer sees the float frames (the first
+    call is the warm render before the clock)."""
     keys = animate.expand_script("left*2,up*2,w*2,a*2")
     cfg = RenderConfig(width=24, height=24, mode="clean")
     camera = Camera.make((0.0, 0.0, -3.0), focal=24.0, y_scale=1.01,
                          dof_focus=1.9, device="cpu")
+    rendered = []
+
+    def spy(*args):
+        rendered.append(rasterize(*args))
+        return rendered[-1]
+
+    monkeypatch.setattr(animate, "rasterize", spy)
     before = (raster_kernels.LAUNCHES_WINNER,
               raster_kernels.LAUNCHES_WINNER_MASKED)
     res = animate.animate(cornell_box(pad_to=32, device="cpu"), camera,
                           Lights.single(capacity=1, device="cpu"), cfg, keys,
-                          renderer="rasterize")
+                          renderer="rasterize", out_dir=str(tmp_path))
     assert (raster_kernels.LAUNCHES_WINNER,
             raster_kernels.LAUNCHES_WINNER_MASKED) == before  # plain on CPU
-    assert res.n_frames == len(res.frames) == 8
+    frames = rendered[1:]
+    assert res.n_frames == len(frames) == len(res.paths) == 8
     cam, lights = camera, Lights.single(capacity=1, device="cpu")
-    for key in keys[:7]:
+    for i, key in enumerate(keys):
         cam, lights = animate.apply_key_rasterizer(cam, lights, key)
-    want = rasterize(cornell_box(pad_to=32, device="cpu"), cam, lights, cfg)
-    assert torch.equal(res.frames[6], want)
-    assert not torch.equal(res.frames[0], res.frames[-1])
+        want = rasterize(cornell_box(pad_to=32, device="cpu"), cam, lights,
+                         cfg)
+        assert np.array_equal(read_bmp(res.paths[i]),
+                              quantize_u8(want.numpy()))
+        if i == 6:
+            assert torch.equal(frames[6], want)
+    assert not torch.equal(frames[0], frames[-1])
+    assert not np.array_equal(read_bmp(res.paths[0]),
+                              read_bmp(res.paths[-1]))
     with pytest.raises(ValueError, match="renderer"):
         animate.animate(cornell_box(device="cpu"), camera,
                         Lights.single(capacity=1, device="cpu"), cfg, keys,
