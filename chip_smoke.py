@@ -269,6 +269,33 @@ nonzero without printing a result:
      lines are parsed and their tables printed beside the card line. Each
      lab process starts with its counts at 0 and prints its launches.
 
+ 35. lab 1's, lab 2's and lab 3's kernels against their plain versions
+     on the card (raytpu_torch/kernels/labs.py, csrc/kernel_lab.cu,
+     csrc/intersect.cu for L2, csrc/labs.cu), at 512^2 clean (the raytracer's default camera): L1 on
+     the Cornell box padded to 32 and on 9,216 random triangles
+     (labs/common.py::random_scene, seed 1), every chunk mode, dot and
+     divide at tile 2048 and (tight, recip) also at 4096 and 8192; its vpu
+     instances bit for bit and (vpu, recip) equal to K5, its mxu (tensor
+     core, 3xTF32) instances within labs.mxu_rule (t within the 3xTF32
+     bound of the winner, idx equal except near-ties and near-edges,
+     counted and printed); L2 equal to its plain version and to K4 on t,
+     idx and occ of every ray, L3 (t = the rays' x, idx = occ = 0) and L4
+     (2 x) exact, at the Cornell box padded to 32, 64 and 128; two calls
+     identical, exact launches, the tile and F23 ValueErrors and L2's and
+     L3's refusal of a table of more than one chunk; then each kernel alone
+     (held stream) beside K5 or K4 on the same inputs, its plain version,
+     its bound (mxu: its padded MACs at the TF32 peak plus the rest at the
+     float32 peak) and, for L4, ``x * 2``.
+ 36. the labs as a user runs them, each in a subprocess that must exit 0:
+     ``python -m raytpu_torch.labs.kernel_lab`` (K5 and L1's 24 variants
+     a scene, each row's mismatches against K5: (vpu, recip) must be 0),
+     ``megakernel_lab2`` (K5, K4, L3 and L2 at pads 32 / 64 / 128, eager
+     and CUDA-graph chains; L2 = K4, L3 exact) and ``megakernel_lab3``
+     (a scalar op, L4 and K4 in chains of 5 / 20 / 80, eager and graph,
+     with lab 3's line through them); their tables are printed beside the
+     card line. Each lab process starts with its counts at 0 and prints
+     its launches (graph replays counted as the calls they run).
+
 Launch counts are zeroed just before each path and read just after it:
 before phase 4 and after phase 5 (serving: K1), before and after the 20
 steps of phase 8 (training: K1, K2, K3), before and after phase 10
@@ -290,7 +317,8 @@ K7b, K7d, K7c, K8b, K8a, K9a, K10a, K10g), before and after each
 sharded step and the sharded fit of phase 31, and before and after each
 of phase 32's two steps, its fit and its sharded step (K10b, K10h,
 K10e, K10f, K10k, K10l, K10j, K10a, K10g), and in each lab process of
-phase 34 from its start to its JSON line (K1r, L6, L5, K1, K4). Comparisons and timings
+phase 34 from its start to its JSON line (K1r, L6, L5, K1, K4), and in each
+lab process of phase 36 likewise (L1, K5, L2, L3, K4, L4). Comparisons and timings
 launch outside those windows. The
 line before the last is one JSON object describing each kernel; the last
 line is
@@ -669,10 +697,10 @@ def run_sweeps(case: dict, multi: bool):
     return t, idx, occ[None]
 
 
-def sweep_tests(case: dict) -> int:
+def sweep_tests(case: dict, multi: bool) -> int:
     """Plane tests the intersection kernels make on a sweep_case: C a ray
     in the primary sweep, and each source's shadow sweep of each hit ray
-    (misses skip theirs)."""
+    (K6's misses skip theirs; K4 sweeps a miss from the camera, F25)."""
     from raytpu_torch.kernels.intersect import _block, sweeps_reference
     dirs, table, src = case["dirs"], case["table"], case["src"]
     t, idx, _ = sweeps_reference(dirs, table, case["cam"], src)
@@ -682,17 +710,18 @@ def sweep_tests(case: dict) -> int:
     for s in range(src.shape[0]):
         tests = tests_to_first_blocker(pos - src[s][None, :],
                                        *_block(table, 1 + s))
-        total += int(torch.where(hit, tests, 0).sum())
+        total += int((torch.where(hit, tests, 0) if multi else tests).sum())
     return total
 
 
-def sweep_bound(case: dict) -> tuple[float, str]:
-    """K4's or K6's bound on a sweep_case: 12 B in and 8 + 4 S B out a
-    ray, the table and positions once, and FLOPS_PLANE_TEST a test."""
+def sweep_bound(case: dict, multi: bool) -> tuple[float, str]:
+    """K4's (multi False) or K6's bound on a sweep_case: 12 B in and
+    8 + 4 S B out a ray, the table and positions once, and
+    FLOPS_PLANE_TEST a test."""
     R, S = case["dirs"].shape[0], case["src"].shape[0]
     return bound_ms(R * (12 + 8 + 4 * S)
                     + (case["table"].numel() + 3 + 3 * S) * 4,
-                    FLOPS_PLANE_TEST * sweep_tests(case))
+                    FLOPS_PLANE_TEST * sweep_tests(case, multi))
 
 
 # The render CLI's STL camera (raytpu_torch/cli/main.py::_build_inputs,
@@ -2453,6 +2482,331 @@ def lab_phases(dev, record: dict) -> list[dict]:
     ]
 
 
+# L1's bound: a plane test of its div form has three divides for K5's one
+# reciprocal and three multiplies (one operation fewer); its mxu instances
+# move the 15 operations of the three dots onto the tensor cores as 3 dots
+# x 3 TF32 passes x K = 8 padded MACs (2 operations each) a pair of
+# triangles padded to whole 16-row tiles, at the dense TF32 peak.
+FLOPS_PLANE_TEST_DIV, FLOPS_DOTS = FLOPS_PLANE_TEST - 1, 15
+MXU_FLOPS_PAIR, PEAK_TF32_S = 2 * 3 * 3 * 8, 495e12
+
+
+def kernel_lab_bound(R: int, table, C: int, dot: str,
+                     div: str) -> tuple[float, str]:
+    """L1's bound on R rays and a packed table (10, Tp) of chunks of C: 12
+    B in and 8 B out a ray and the table once; every (ray, triangle) pair
+    of the padded table (vpu); mxu: the padded MACs at the TF32 peak plus
+    the CUDA-core remainder at the float32 peak."""
+    nbytes = R * 20 + table.numel() * 4
+    per_test = FLOPS_PLANE_TEST_DIV if div == "div" else FLOPS_PLANE_TEST
+    pairs = R * table.shape[1]
+    if dot == "vpu":
+        return bound_ms(nbytes, per_test * pairs)
+    tiles = -(-C // 16) * 16 * (table.shape[1] // C)
+    t_ops = (MXU_FLOPS_PAIR * R * tiles / PEAK_TF32_S
+             + (per_test - FLOPS_DOTS) * pairs / PEAK_F32_S)
+    t_bytes = nbytes / PEAK_BYTES_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_lab_phases(dev, record: dict) -> list[dict]:
+    """Phases 35 and 36: L1 (lab 1's closest-hit variants), L2 and L3 (lab
+    2's one-step and no-op) and L4 (lab 3's tiny kernel) against their
+    plain versions, K5 and K4, their card numbers, and the three labs run
+    as a user runs them. Returns their entries of the kernels line."""
+    from raytpu_torch import Lights
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import labs
+    from raytpu_torch.kernels.tables import constant_table
+    from raytpu_torch.labs import kernel_lab
+    from raytpu_torch.labs.common import lab_inputs
+
+    say("== phase 35: L1, L2, L3 and L4 against their plain versions on the "
+        "card")
+    t_phase = time.perf_counter()
+    dirs, dirs_t, scenes = kernel_lab.scenes(512, 9216, dev)
+    R = dirs.shape[0]
+    err = {"vpu": 0.0, "mxu": 0.0}
+    near = {"near_tie": 0, "near_edge": 0}
+    tables = {}
+    before, launched = labs.LAUNCHES_KERNEL_LAB, 0
+    for name, (m, k0, valid) in scenes.items():
+        k5 = isect.closest_hit(dirs, m, k0, valid, tri_chunk=512)
+        for chunk_mode in labs.CHUNK_MODES:
+            table, C = tables[name, chunk_mode] = labs.kernel_lab_table(
+                m, k0, valid, chunk_mode)
+            for dot in labs.DOTS:
+                for div in labs.DIVS:
+                    kw = dict(chunk_mode=chunk_mode, dot=dot, div=div)
+                    want = labs.lab_sweep_reference(dirs_t, table, C, dot,
+                                                    div)
+                    extra = (chunk_mode, div) == ("tight", "recip")
+                    for tile in (2048, 4096, 8192) if extra else (2048,):
+                        got = labs.kernel_lab_variant(dirs_t, m, k0, valid,
+                                                      tile_r=tile, **kw)
+                        launched += 1
+                        if extra and tile == 2048:
+                            again = labs.kernel_lab_variant(
+                                dirs_t, m, k0, valid, tile_r=tile, **kw)
+                            launched += 1
+                            require(torch.equal(got[0], again[0])
+                                    and torch.equal(got[1], again[1]),
+                                    f"{name} {kw}: two calls identical")
+                        torch.cuda.synchronize()
+                        both = (got[1] == want[1]) & (want[1] >= 0)
+                        e = float(torch.where(both, got[0] - want[0],
+                                              0.0).abs().max())
+                        line = (f"{name} T={m.shape[0]} C={C} {chunk_mode} "
+                                f"{dot} {div} tile {tile}: ")
+                        if dot == "vpu":
+                            same = (torch.equal(got[0], want[0])
+                                    and torch.equal(got[1], want[1]))
+                            k5_same = (torch.equal(got[0], k5[0])
+                                       and torch.equal(got[1], k5[1]))
+                            say(line + f"= plain bit for bit {same}"
+                                + (f", = K5 {k5_same}" if div == "recip"
+                                   else ""))
+                            require(same, f"{line}vpu = plain bit for bit")
+                            require(div == "div" or k5_same,
+                                    f"{line}(vpu, recip) = K5 bit for bit")
+                            err["vpu"] = max(err["vpu"], e)
+                        else:
+                            rule = labs.mxu_rule(dirs_t, table, got, want)
+                            say(line + f"against plain 3xTF32 {rule}, max "
+                                f"|dt| {e:.3g}")
+                            require(rule["t_over"] == 0 and
+                                    rule["other"] == 0,
+                                    f"{line}mxu within the 3xTF32 rule")
+                            for k in near:
+                                near[k] += rule[k]
+                            err["mxu"] = max(err["mxu"], e)
+    require(labs.LAUNCHES_KERNEL_LAB - before == launched,
+            "L1: one launch a wrapper call")
+    m, k0, valid = scenes["cornell32"]
+    for bad, what in ((dict(tile_r=1024), "tile_r"),
+                      (dict(tile_r=2048, dirs_t=dirs_t[:, :R - 256]),
+                       "F23")):
+        try:
+            labs.kernel_lab_variant(bad.pop("dirs_t", dirs_t), m, k0, valid,
+                                    chunk_mode="tight", dot="vpu",
+                                    div="recip", **bad)
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+        require(what in refused, f"L1 refuses {what}: {refused!r}")
+    say(f"L1: {launched} launches, mxu near-ties {near['near_tie']}, "
+        f"near-edges {near['near_edge']} (counted, allowed by the rule)")
+
+    probe = {}
+    counts0 = (labs.LAUNCHES_ONESTEP, labs.LAUNCHES_NOOP)
+    for pad in (32, 64, 128):
+        x = probe[pad] = lab_inputs(Lights.single(capacity=1, device=dev),
+                                    512, dev, pad_to=pad)
+        m, k0, valid, m_l, k0_l = x["consts"][0:5]
+        x["table_k4"] = constant_table(m, k0, valid, m_l[None], k0_l[None],
+                                       x["C"])
+        args = x["probe_args"] = (x["dirs_t"], x["table_k4"], x["cam_pos"],
+                                  x["light_pos"], 2048, x["C"])
+        one, again = labs.run_onestep(*args), labs.run_onestep(*args)
+        nop = labs.run_noop(*args)
+        k4 = isect.closest_hit_occluded(x["dirs"], m, k0, valid, m_l, k0_l,
+                                        x["cam_pos"], x["light_pos"])
+        plain_one = labs.run_onestep_reference(*args)
+        plain_nop = labs.run_noop_reference(*args)
+        torch.cuda.synchronize()
+        m_k4 = [int((a[0] != b).sum()) for a, b in zip(one, k4)]
+        m_plain = [int((a != b).sum()) for a, b in zip(one, plain_one)]
+        m_again = [int((a != b).sum()) for a, b in zip(one, again)]
+        m_nop = [int((a != b).sum()) for a, b in zip(nop, plain_nop)]
+        miss = one[1] < 0
+        say(f"L2/L3 512^2 clean T={pad} C={x['C']}: L2 vs K4 [t, idx, occ] "
+            f"{m_k4} on all rays ({int(miss.sum())} misses, raw bits "
+            f"{int(one[2][miss].sum())}); vs plain {m_plain}; two calls "
+            f"{m_again}; L3 vs plain {m_nop}, t = dirs x "
+            f"{torch.equal(nop[0][0], x['dirs_t'][0])}")
+        require(not any(m_k4 + m_plain + m_again + m_nop),
+                "L2 = plain = K4 on every ray, L3 = plain, bit for bit")
+        require(torch.equal(nop[0][0], x["dirs_t"][0])
+                and not nop[1].any() and not nop[2].any(),
+                "L3: t = dirs x, idx = occ = 0")
+    x_tiny = torch.tensor(np.random.default_rng(35).standard_normal(
+        labs.TINY_SHAPE).astype(np.float32), device=dev)
+    tiny = labs.run_tiny(x_tiny)
+    require(torch.equal(tiny, x_tiny * 2) and torch.equal(
+        tiny, labs.run_tiny_reference(x_tiny)), "L4 = x * 2 bit for bit")
+    require((labs.LAUNCHES_ONESTEP - counts0[0],
+             labs.LAUNCHES_NOOP - counts0[1]) == (6, 3),
+            "L2, L3: one launch a wrapper call")
+    args = probe[32]["probe_args"]
+    for fn in (labs.run_onestep, labs.run_noop):
+        for bad, what in ((args[:4] + (3000, args[5]), "F23"),
+                          ((args[0], torch.cat([args[1], args[1]], 1))
+                           + args[2:], "one chunk")):
+            try:
+                fn(*bad)
+                refused = ""
+            except ValueError as exc:
+                refused = str(exc)
+            require(what in refused, f"L2/L3 refuse {what}: {refused!r}")
+
+    # Each kernel alone (held stream, past the wrappers' packing) beside
+    # K5 or K4 on the same inputs, its plain version and its bound.
+    t, bounds = {}, {}
+    for name in scenes:
+        fns = {}
+        m, k0, valid = scenes[name]
+        k5_table, C5 = isect.primary_table(m, k0, valid, 512)
+        k5_out = isect._outputs(dirs, 0)[:2]
+        fns[(name, "k5")] = (lambda tb=k5_table, c=C5, o=k5_out:
+                             isect.launch_closest_kernel(dirs, tb, c, None,
+                                                         None, *o))
+        for chunk_mode in labs.CHUNK_MODES:
+            table, C = tables[name, chunk_mode]
+            for tile in labs.KERNEL_LAB_TILES:
+                for dot in labs.DOTS:
+                    for div in labs.DIVS:
+                        if name == "cornell32" and tile != 2048:
+                            continue
+                        key = (name, tile, chunk_mode, dot, div)
+                        out = isect._outputs(dirs, 0)[:2]
+                        fns[key] = (lambda tb=table, c=C, a=(tile, dot, div),
+                                    o=out: labs.launch_kernel_lab(
+                                        dirs_t, tb, c, *a, *o))
+                        bounds[key] = kernel_lab_bound(R, table, C, dot, div)
+        t.update(median_ms_in_turns(fns, n=5, reps=3, timer=held_ms))
+    # The kernels line's L1 numbers: K5's function (tight, vpu, recip) at
+    # tile 2048 on the 9,216-triangle scene; the mxu twin beside it.
+    main_key = ("stl9216", 2048, "tight", "vpu", "recip")
+    mxu_key = ("stl9216", 2048, "tight", "mxu", "recip")
+    t["l1"], bounds["l1"] = t[main_key], bounds[main_key]
+    stl_table, stl_c = tables["stl9216", "tight"]
+    t.update(median_ms_in_turns({
+        "l1_plain": lambda: labs.lab_sweep_reference(dirs_t, stl_table,
+                                                     stl_c, "vpu", "recip"),
+        "l1_mxu_plain": lambda: labs.lab_sweep_reference(
+            dirs_t, stl_table, stl_c, "mxu", "recip")}, n=1, reps=3))
+    x = probe[32]
+    a = x["probe_args"]
+    dirs32 = x["dirs"]
+    outs = {k: (torch.empty((1, R), device=dev),
+                torch.empty((1, R), dtype=torch.int32, device=dev),
+                torch.empty((1, R), dtype=torch.int32, device=dev))
+            for k in ("l2", "l3", "k4")}
+    src32 = x["light_pos"].reshape(1, 3).contiguous()
+    t.update(median_ms_in_turns({
+        "l2": lambda: labs.launch_k4_probe(*a[:4], False, *outs["l2"]),
+        "l3": lambda: labs.launch_k4_probe(*a[:4], True, *outs["l3"]),
+        "k4": lambda: isect.launch_occluded_kernel(
+            dirs32, a[1], a[2], src32, *outs["k4"]),
+        "l4": lambda: labs.run_tiny(x_tiny),
+        "l4_library": lambda: x_tiny * 2}, n=20, reps=7, timer=held_ms))
+    # The plain versions launch tens of ops a call: fewer calls a hold.
+    t.update(median_ms_in_turns({
+        "l2_plain": lambda: labs.run_onestep_reference(*a),
+        "l3_plain": lambda: labs.run_noop_reference(*a),
+        "l4_plain": lambda: labs.run_tiny_reference(x_tiny)}, n=3, reps=5,
+        timer=held_ms))
+    bounds["l2"] = sweep_bound(dict(dirs=dirs32, table=a[1], cam=a[2],
+                                    src=src32), False)
+    bounds["l3"] = bound_ms(R * 16 + (a[1].numel() + 6) * 4, 0)
+    bounds["l4"] = bound_ms(2 * x_tiny.numel() * 4, x_tiny.numel())
+    card = card_line()
+    say(f"512^2, device time a call (CUDA events, median of turns; "
+        f"{card}):")
+    for name in scenes:
+        say(f"  {name}: K5 {t[(name, 'k5')]:.4f} ms")
+        for key in (k for k in bounds if isinstance(k, tuple)
+                    and k[0] == name):
+            say(f"  {name} tile {key[1]} {key[2]:6s} {key[3]} {key[4]:5s} "
+                f"{t[key]:.4f} ms (bound {bounds[key][0]:.4f} ms, "
+                f"{bounds[key][1]})")
+    say(f"  plain L1 stl9216 (tight, vpu, recip) {t['l1_plain']:.4f} ms, "
+        f"(tight, mxu, recip) {t['l1_mxu_plain']:.4f} ms (back to back)")
+    for k in ("l2", "l3", "l4"):
+        say(f"  {k.upper()} {t[k]:.4f} ms (plain {t[k + '_plain']:.4f}; "
+            f"bound {bounds[k][0]:.5f} ms, {bounds[k][1]})")
+    say(f"  K4 (same inputs as L2) {t['k4']:.4f} ms; x * 2 "
+        f"{t['l4_library']:.4f} ms")
+    say(f"phase 35 took {time.perf_counter() - t_phase:.1f} s")
+
+    say("== phase 36: labs 1, 2 and 3 as a user runs them (subprocesses)")
+    t_phase = time.perf_counter()
+    lab1 = run_lab("kernel_lab")
+    lab2 = run_lab("megakernel_lab2")
+    lab3 = run_lab("megakernel_lab3")
+    say(f"lab 1 (512^2 clean; ms a call over 30 calls, CUDA events; "
+        f"{lab1['card']}):")
+    for name, sc in lab1["scenes"].items():
+        say(f"  [{name}] T={sc['T']} shipped (K5) {sc['shipped_ms']:.4f}")
+        for r in sc["variants"]:
+            say(f"  [{name}] tile={r['tile']} {r['chunk']:6s} {r['dot']} "
+                f"{r['div']:5s}: {r['ms']:.4f} ms idx!={r['idx_mismatch']} "
+                f"t!={r['t_mismatch']}")
+            if (r["dot"], r["div"]) == ("vpu", "recip"):
+                require(r["idx_mismatch"] == r["t_mismatch"] == 0,
+                        "lab 1: (vpu, recip) = the shipped K5")
+    say(f"lab 2 (512^2 clean, Cornell; lab 2's estimator, ms a call, eager "
+        f"/ graph; {lab2['card']}):")
+    for pad, rows in lab2["rows"].items():
+        for row, v in rows.items():
+            say(f"  T={pad} {row:14s} {v['eager']:.4f} / {v['graph']:.4f}")
+        require(not any(sum((list(mm.values()) for mm in
+                             lab2["mismatch"][pad].values()), [])),
+                "lab 2: L2 = K4, L3 exact")
+    say(f"lab 3 (ms a chain of 5 / 20 / 80 calls; slope us a call, fixed "
+        f"ms; {lab3['card']}):")
+    for name, case in lab3["cases"].items():
+        for col in ("eager", "graph"):
+            f = case[col]
+            ts = f["totals"]
+            say(f"  {name:12s} {col:5s} {ts['5']:.4f} / {ts['20']:.4f} / "
+                f"{ts['80']:.4f}: slope {f['slope_ms'] * 1e3:.2f} us, fixed "
+                f"{f['fixed_ms']:.4f} ms")
+    launched = {}
+    for res in (lab1, lab2, lab3):
+        for k, v in res["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    say(f"lab path launches (the three lab processes, graph replays "
+        f"counted): {launched}")
+    require(all(launched.get(k, 0) > 0 for k in (
+        "kernel_lab_variant", "lab2_onestep", "lab2_noop", "lab3_tiny")),
+        "the labs launched L1, L2, L3 and L4")
+    say(f"phase 36 took {time.perf_counter() - t_phase:.1f} s")
+    record["kernel_labs"] = dict(
+        err=err, near=near, lab1=lab1, lab2=lab2, lab3=lab3,
+        launches=launched, kernel_ms={str(k): v for k, v in t.items()},
+        bounds={str(k): v for k, v in bounds.items()})
+
+    def entry(name, key, replaces, launches, max_err, source, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=max_err, ms=t[key],
+                    plain_ms=t[f"{key}_plain"], bound_ms=bounds[key][0],
+                    bound_by=bounds[key][1], library_ms=None, **extra)
+
+    return [
+        entry("kernel_lab_variant", "l1", "bench/kernel_lab.py:138",
+              launched["kernel_lab_variant"], err["vpu"],
+              "raytpu_torch/csrc/kernel_lab.cu",
+              k5_ms=t[("stl9216", "k5")],
+              mxu=dict(max_abs_err=err["mxu"], **near, ms=t[mxu_key],
+                       plain_ms=t["l1_mxu_plain"]),
+              variants={" ".join(map(str, k)): dict(
+                  ms=t[k], bound_ms=bounds[k][0], bound_by=bounds[k][1])
+                  for k in bounds if isinstance(k, tuple)}),
+        entry("lab2_onestep", "l2", "bench/megakernel_lab2.py:88",
+              launched["lab2_onestep"], 0.0,
+              "raytpu_torch/csrc/intersect.cu",
+              k4_ms=t["k4"]),
+        entry("lab2_noop", "l3", "bench/megakernel_lab2.py:131",
+              launched["lab2_noop"], 0.0, "raytpu_torch/csrc/labs.cu"),
+        dict(entry("lab3_tiny", "l4", "bench/megakernel_lab3.py:54",
+                   launched["lab3_tiny"], 0.0, "raytpu_torch/csrc/labs.cu"),
+             library_ms=t["l4_library"]),
+    ]
+
+
 def main() -> int:
     record = {}
 
@@ -2818,7 +3172,7 @@ def main() -> int:
         got = run_sweeps(case, multi)
         again = run_sweeps(case, multi)
         want = isect.sweeps_reference(case["dirs"], case["table"], case["cam"],
-                                      case["src"])
+                                      case["src"], mask_misses=multi)
         torch.cuda.synchronize()
         idx_mis = int((got[1] != want[1]).sum())
         occ_mis = int((got[2] != want[2]).sum())
@@ -3000,20 +3354,23 @@ def main() -> int:
         return lambda: launch(case["dirs"], case["table"], case["cam"],
                               case["src"], *outs[multi])
 
-    def plain(case):
+    def plain(case, multi):
         return lambda: isect.sweeps_reference(case["dirs"], case["table"],
-                                              case["cam"], case["src"])
+                                              case["cam"], case["src"],
+                                              mask_misses=multi)
 
     k4_ms = median_ms_in_turns({"kernel": launcher(k4_case, False),
-                                "plain": plain(k4_case)},
+                                "plain": plain(k4_case, False)},
                                n=5, reps=9, timer=held_ms)
     k6_ms = median_ms_in_turns({"kernel": launcher(k6_case, True)}, n=5,
                                reps=9, timer=held_ms)
     # The plain K6 makes ~40 launches a source, more than the stream holds
     # while a sleep blocks it: timed back to back, where its 33 MB
     # operations keep the device the bottleneck.
-    k6_ms.update(median_ms_in_turns({"plain": plain(k6_case)}, n=2, reps=5))
-    k4_bound, k6_bound = sweep_bound(k4_case), sweep_bound(k6_case)
+    k6_ms.update(median_ms_in_turns({"plain": plain(k6_case, True)}, n=2,
+                                    reps=5))
+    k4_bound = sweep_bound(k4_case, False)
+    k6_bound = sweep_bound(k6_case, True)
     card = card_line()
     say(f"K4 alone, 512^2 clean, S=1: {k4_ms['kernel']:.4f} ms device time "
         f"(plain {k4_ms['plain']:.4f} ms; bound {k4_bound[0]:.4f} ms, "
@@ -4857,6 +5214,7 @@ def main() -> int:
     sharded_entries = sharded_phases(dev, stl_path, record)
     two_launch_entries = two_launch_phase(dev, record)
     lab_entries = lab_phases(dev, record)
+    lab_entries += kernel_lab_phases(dev, record)
 
     (OUT / "result.json").write_text(json.dumps(record, indent=1))
 

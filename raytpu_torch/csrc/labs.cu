@@ -1,4 +1,6 @@
-// The megakernel labs' forward kernels for Hopper (sm_90a): K1r, L5, L6.
+// The labs' kernels for Hopper (sm_90a): the megakernel labs' forward
+// kernels K1r, L5, L6, and lab 2's and lab 3's probes L3, L4 (below; lab
+// 1's L1 is kernel_lab.cu, lab 2's L2 intersect.cu's K4 kernel).
 //
 // Replaces three TPU kernels that compute one function, K1's whole hard
 // forward in one launch (primary closest hit, shadow any-hit toward the
@@ -217,5 +219,87 @@ extern "C" int raytpu_mega_fwd(const void* dirs, const void* table,
   else
     launch<kRow, false, false>(d, t, p, C, Rp, tile_r, ambient, parity, c, f,
                                i, o, s);
+  return (int)cudaGetLastError();
+}
+
+// Lab 2's and lab 3's probes of K4's time (bench/megakernel_lab2.py,
+// bench/megakernel_lab3.py; lab 2's one-step L2 is K4's kernel with planar
+// rays, intersect.cu):
+//
+//   L3  noop_kernel replaces megakernel_lab2.py::noop_kernel (launched at
+//       :131 by run_noop): K4's launch geometry (R / 256 blocks of 256
+//       threads) and K4's staging of the 2 x 10 x C table and the two
+//       positions into shared memory, the counterpart of the TPU's per-step
+//       DMA, and no plane test: t = dirs_t[0, r], idx = occ = 0. The stores
+//       go through a volatile pointer, so the compiler keeps the staging
+//       that nothing reads.
+//   L4  tiny_kernel replaces megakernel_lab3.py::tiny_kernel (launched at
+//       :54 by run_tiny): one block writes 2 x of an (8, 128) tile.
+//
+// Bounds on the H100: L3 at 512^2, C = 32, moves 16 B a ray (x in; t, idx,
+// occ out), 4.2 MB, ~1.3 us at 3.35 TB/s, and L4 8 KB: what they show is
+// launch and staging overhead.
+
+namespace {
+
+constexpr int kBlockRows = 10;  // n xyz | c2 xyz | c3 xyz | k0
+
+__global__ void __launch_bounds__(kThreads)
+    noop_kernel(const float* __restrict__ dirs_t,
+                const float* __restrict__ table,
+                const float* __restrict__ cam,
+                const float* __restrict__ light, int C, int R,
+                float* __restrict__ t_out, int* __restrict__ idx_out,
+                int* __restrict__ occ_out) {
+  __shared__ float s_tab[2 * kBlockRows * kMaxTris];
+  __shared__ float s_org[6];
+  volatile float* tab = s_tab;
+  volatile float* org = s_org;
+  for (int k = threadIdx.x; k < 2 * kBlockRows * C; k += kThreads)
+    tab[k] = table[k];
+  if (threadIdx.x < 3) org[threadIdx.x] = cam[threadIdx.x];
+  else if (threadIdx.x < 6) org[threadIdx.x] = light[threadIdx.x - 3];
+  __syncthreads();
+
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= R) return;
+  t_out[r] = dirs_t[r];
+  idx_out[r] = 0;
+  occ_out[r] = 0;
+}
+
+__global__ void tiny_kernel(const float* __restrict__ x,
+                            float* __restrict__ out, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i] * 2.0f;
+}
+
+}  // namespace
+
+// dirs_t (3, R), table (20, C), cam (3,), light (3,) float32 device
+// pointers; t (R,) float32, idx and occ (R,) int32 outputs. Launches L3
+// on `stream` and returns the launch's cudaError_t.
+extern "C" int raytpu_lab_noop(const void* dirs_t, const void* table,
+                               const void* cam, const void* light, int C,
+                               int R, void* t, void* idx, void* occ,
+                               void* stream) {
+  if (C < 1 || C > kMaxTris || R < 0) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  const int blocks = (R + kThreads - 1) / kThreads;
+  noop_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dirs_t), static_cast<const float*>(table),
+      static_cast<const float*>(cam), static_cast<const float*>(light), C, R,
+      static_cast<float*>(t), static_cast<int*>(idx), static_cast<int*>(occ));
+  return (int)cudaGetLastError();
+}
+
+// x and out (n,) float32 device pointers, n <= 1024 (lab 3's (8, 128)
+// tile). One block; launches on `stream` and returns the launch's
+// cudaError_t.
+extern "C" int raytpu_lab_tiny(const void* x, void* out, int n,
+                               void* stream) {
+  if (n < 0 || n > 1024) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  tiny_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), n);
   return (int)cudaGetLastError();
 }

@@ -44,8 +44,9 @@ SIGNATURES = {
                                 _P, _P, _I, _P],
     # partials, blocks, C, g_table, g_params, stream
     "raytpu_render_fused_scatter": [_P, _I, _I, _P, _P, _P],
-    # dirs, table, cam, light, C, R, t, idx, occ, stream
-    "raytpu_closest_hit_occluded": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # dirs, table, cam, light, C, R, planar, t, idx, occ, stream
+    "raytpu_closest_hit_occluded": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                    _P],
     # dirs, table, cam, src, C, S, R, t, idx, occ, stream
     "raytpu_closest_hit_occluded_multi": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                           _P, _P],
@@ -103,6 +104,12 @@ SIGNATURES = {
     # parity, color, fd, idx, occ, stream
     "raytpu_mega_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
                         _P, _P, _P],
+    # dirs_t, table, Tp, C, R, tile_r, dot, div, t, idx, stream
+    "raytpu_kernel_lab": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # dirs_t, table, cam, light, C, R, t, idx, occ, stream
+    "raytpu_lab_noop": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # x, out, n, stream
+    "raytpu_lab_tiny": [_P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

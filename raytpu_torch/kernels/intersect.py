@@ -55,9 +55,11 @@ twin's results.
 Occlusion on a miss ray is 0 in K6 and K7a, and its shadow sweeps are
 skipped: that is the JAX package's contract for both. K7b and K7c know no
 primary hit and test every point, as the JAX kernels do; their masks
-(:func:`position_mask`) are conservative for every point. K4's JAX wrapper
-returns the raw bit of a shadow ray traced from the camera; no consumer
-reads it (composite zeroes misses, and the AA record takes hits only).
+(:func:`position_mask`) are conservative for every point. K4 sweeps every
+ray, a miss with tz = 0, and returns that raw bit (a shadow ray from the
+light to the camera) unmasked, as JAX's ``intersect_occluded_pallas``
+does; no consumer reads it (composite zeroes misses, and the AA record
+takes hits only).
 
 The VJP is the JAX package's analytic ``_bwd``: t = k0_i / s with
 s = -(d . n_i) at the winner i, so ``coef = t_bar / s`` gives
@@ -145,10 +147,13 @@ def _block(table: torch.Tensor, b: int):
 
 
 def sweeps_reference(dirs: torch.Tensor, table: torch.Tensor,
-                     cam: torch.Tensor, src: torch.Tensor):
+                     cam: torch.Tensor, src: torch.Tensor, *,
+                     mask_misses: bool = True):
     """Plain PyTorch version of both kernels, on any device: dirs (R, 3),
     table ((1 + S) * 10, C), cam (3,), src (S, 3). Returns (t (R,),
-    idx (R,) int32, occ (S, R) int32)."""
+    idx (R,) int32, occ (S, R) int32). A miss ray's occ is 0 with
+    ``mask_misses`` (K6), else the raw bit of its shadow ray from the
+    camera position (K4)."""
     best_t, best_idx = closest(*plane_tests(dirs, *_block(table, 0)))
     hit = best_t < F32MAX
     tz = torch.where(hit, best_t, 0.0)
@@ -156,7 +161,8 @@ def sweeps_reference(dirs: torch.Tensor, table: torch.Tensor,
     occ = []
     for s in range(src.shape[0]):
         ts, oks = plane_tests(pos - src[s][None, :], *_block(table, 1 + s))
-        occ.append((oks & (ts < SHADOW_T)).any(dim=1) & hit)
+        bit = (oks & (ts < SHADOW_T)).any(dim=1)
+        occ.append(bit & hit if mask_misses else bit)
     return (best_t, torch.where(hit, best_idx, -1),
             torch.stack(occ).to(torch.int32))
 
@@ -194,14 +200,17 @@ def _outputs(dirs: torch.Tensor, S: int):
             torch.empty((S, R), dtype=torch.int32, device=dirs.device))
 
 
-def launch_occluded_kernel(dirs, table, cam, light, t, idx, occ):
+def launch_occluded_kernel(dirs, table, cam, light, t, idx, occ, *,
+                           planar: bool = False):
     """Launch K4 on outputs the caller allocated: t (R,), idx (R,) and occ
-    (R,) or (1, R). Checks nothing and counts nothing; the wrapper does
-    both."""
+    (R,) or (1, R); dirs (R, 3), or (3, R) with ``planar`` (lab 2's L2,
+    kernels/labs.py::run_onestep). Checks nothing and counts nothing; the
+    wrappers do both."""
     err = _build.load().raytpu_closest_hit_occluded(
         dirs.data_ptr(), table.data_ptr(), cam.data_ptr(), light.data_ptr(),
-        table.shape[1], dirs.shape[0], t.data_ptr(), idx.data_ptr(),
-        occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        table.shape[1], dirs.shape[1 if planar else 0], int(planar),
+        t.data_ptr(), idx.data_ptr(), occ.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"closest_hit_occluded launch failed: CUDA error "
                            f"{err}")
@@ -228,11 +237,12 @@ def _on_cuda(dirs) -> bool:
     return dirs.device.type == "cuda"
 
 
-def _sweeps(dirs, table, cam, src, launch) -> tuple:
+def _sweeps(dirs, table, cam, src, launch, mask_misses: bool) -> tuple:
     """The sweeps of ``table`` on dirs' device: the plain version for CPU
     tensors, ``launch`` on fresh outputs for CUDA tensors."""
     if not _on_cuda(dirs):
-        return sweeps_reference(dirs, table, cam, src)
+        return sweeps_reference(dirs, table, cam, src,
+                                mask_misses=mask_misses)
     _check(dirs, table, cam, src)
     out = _outputs(dirs, src.shape[0])
     with torch.cuda.device(dirs.device):
@@ -245,9 +255,10 @@ def closest_hit_occluded_reference(dirs, m, k0, valid, m_l, k0_l, cam_pos,
     """Plain PyTorch version of K4, on any device. dirs (R, 3); m, k0,
     valid the camera-origin constants; m_l (T, 3, 3), k0_l (T,) the
     light-origin ones; cam_pos, light_pos (3,). Returns (t (R,), idx (R,)
-    int32, occ (R,) int32)."""
+    int32, occ (R,) int32), occ the raw bit on a miss ray."""
     table = occluded_table(m, k0, valid, m_l[None], k0_l[None], tri_chunk)
-    t, idx, occ = sweeps_reference(dirs, table, cam_pos, light_pos[None])
+    t, idx, occ = sweeps_reference(dirs, table, cam_pos, light_pos[None],
+                                   mask_misses=False)
     return t, idx, occ[0]
 
 
@@ -256,7 +267,7 @@ def closest_hit_occluded_multi_reference(dirs, m, k0, valid, m_s, k0_s,
                                          tri_chunk: int = 512):
     """Plain PyTorch version of K6, on any device. As
     closest_hit_occluded_reference with S sources: m_s (S, T, 3, 3),
-    k0_s (S, T), src_pos (S, 3); occ is (S, R) int32."""
+    k0_s (S, T), src_pos (S, 3); occ is (S, R) int32, 0 on a miss ray."""
     table = occluded_table(m, k0, valid, m_s, k0_s, tri_chunk)
     return sweeps_reference(dirs, table, cam_pos, src_pos)
 
@@ -270,7 +281,7 @@ def closest_hit_occluded(dirs, m, k0, valid, m_l, k0_l, cam_pos, light_pos,
     table = occluded_table(m, k0, valid, m_l[None], k0_l[None], tri_chunk)
     src = light_pos.reshape(1, 3).contiguous()
     t, idx, occ = _sweeps(dirs, table, cam_pos.contiguous(), src,
-                          launch_occluded_kernel)
+                          launch_occluded_kernel, mask_misses=False)
     if dirs.is_cuda:
         LAUNCHES_OCCLUDED += 1
     return t, idx, occ[0]
@@ -284,7 +295,7 @@ def closest_hit_occluded_multi(dirs, m, k0, valid, m_s, k0_s, cam_pos,
     global LAUNCHES_OCCLUDED_MULTI
     table = occluded_table(m, k0, valid, m_s, k0_s, tri_chunk)
     out = _sweeps(dirs, table, cam_pos.contiguous(), src_pos.contiguous(),
-                  launch_occluded_multi_kernel)
+                  launch_occluded_multi_kernel, mask_misses=True)
     if dirs.is_cuda:
         LAUNCHES_OCCLUDED_MULTI += 1
     return out

@@ -1,15 +1,16 @@
-"""What both labs share: the device flag, the card line, the Cornell box
-inputs at 512^2 clean and the mismatch counts."""
+"""What the labs share: the device flag, the card line, the Cornell box
+inputs at 512^2 clean, lab 1's random scene and the mismatch counts."""
 
 from __future__ import annotations
 
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from raytpu_torch.core.cornell import cornell_box
-from raytpu_torch.core.types import Camera, RenderConfig
+from raytpu_torch.core.types import Camera, RenderConfig, Scene
 from raytpu_torch.kernels.tables import pack_params, pack_tables, tight_chunk
 from raytpu_torch.render.raytrace import fused_inputs
 
@@ -64,3 +65,18 @@ def lab_inputs(lights, size: int, device, mode: str = "clean",
 def mismatches(got, want, names=("color", "fd", "idx", "occ")) -> dict:
     """Entries of each output that differ (values: -0.0 equals 0.0)."""
     return {name: int((g != w).sum()) for name, g, w in zip(names, got, want)}
+
+
+def random_scene(T: int, seed: int, device) -> Scene:
+    """Lab 1's random scene (bench/kernel_lab.py:188-197): T triangles with
+    v0 uniform in [-1, 1]^3 and edges e1, e2 uniform in [-0.1, 0.1]^3,
+    albedo 0.5. The JAX lab draws with jax.random, which torch cannot
+    reproduce: this draws the same law from numpy.random.default_rng(seed),
+    a different scene (ROADMAP fault F24)."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-1.0, 1.0, (T, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.1, 0.1, (T, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.1, 0.1, (T, 3)).astype(np.float32)
+    return Scene.from_vertices(v0, v0 + e1, v0 + e2,
+                               np.full((T, 3), 0.5, np.float32),
+                               device=device)

@@ -19,6 +19,18 @@ bench/megakernel_lab4.py:32-59).
                      difference of the batch minima over the 35 calls
                      between them, each output's sum x 1e-30 added to the
                      next input.
+  chain_time         lab 2's estimator (megakernel_lab2.py:31-53): ms a
+                     call, the best batch of ``reps`` chains of ``iters``
+                     calls over reps x iters;
+  total_time         lab 3's (megakernel_lab3.py:26-46): ms a chain.
+                     Both carry each output's sum x 1e-30 into the next
+                     input, as the JAX chains do, and give two columns:
+                     ``eager``, the chain launched from the host as labs 4
+                     and 6 time it, and ``graph``, the same chain captured
+                     once in a torch.cuda.CUDAGraph and replayed: JAX's
+                     chain is one jit of a lax.scan, a single program on the
+                     device, and the graph is its counterpart (None on the
+                     CPU).
 """
 
 from __future__ import annotations
@@ -189,10 +201,7 @@ def slope_time(fn, x, n_lo=5, n_hi=40, batches=4, reps=2):
 
     def chained(eps, iters):
         carry = x + eps
-        for _ in range(iters):
-            out = fn(carry)
-            total = sum(o.sum(dtype=torch.float32) for o in out)
-            carry.add_(total, alpha=1e-30)
+        _chain(fn, carry, iters)
         return carry
 
     def time_at(n):
@@ -208,3 +217,82 @@ def min_slope(time_at, n_lo: int, n_hi: int) -> float:
     and time_at(n_lo) over n_hi - n_lo."""
     lo, hi = time_at(n_lo), time_at(n_hi)
     return (min(hi) - min(lo)) / (n_hi - n_lo)
+
+
+def _leaves(out) -> list:
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def _chain(fn, carry: torch.Tensor, iters: int) -> None:
+    """``iters`` calls of fn, each call's outputs summed x 1e-30 into carry
+    in place (JAX: ``carry + mean`` in a scan)."""
+    for _ in range(iters):
+        total = sum(o.sum(dtype=torch.float32) for o in _leaves(fn(carry)))
+        carry.add_(total, alpha=1e-30)
+
+
+def _chain_ms(fn, x: torch.Tensor, iters: int, batches: int,
+              reps: int) -> dict:
+    """ms a chain of ``iters`` calls (the best batch of ``reps`` chains, per
+    chain), eager and through a CUDA graph, and the calls of fn made:
+    ``eager`` ran from the host, ``captured`` were recorded into the graph
+    (a launch counter counts them, the device runs none), ``replayed`` ran
+    in the graph's replays. A kernel's device launches are its counter's
+    change minus captured plus replayed."""
+    clock = _Clock(x.device)
+    carry = torch.empty_like(x)
+
+    def eager_batch():
+        clock.start()
+        for _ in range(reps):
+            carry.copy_(x)
+            _chain(fn, carry, iters)
+        return clock.stop() / reps
+
+    eager_batch()  # warm up (and build the kernels)
+    eager = min(eager_batch() for _ in range(batches))
+    calls = {"eager": (1 + batches) * reps * iters, "captured": 0,
+             "replayed": 0}
+    graph = None
+    if x.device.type == "cuda":
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):  # warm up off the capture stream
+            carry.copy_(x)
+            _chain(fn, carry, iters)
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            carry.copy_(x)
+            _chain(fn, carry, iters)
+
+        def graph_batch():
+            clock.start()
+            for _ in range(reps):
+                g.replay()
+            return clock.stop() / reps
+
+        graph_batch()  # warm up
+        graph = min(graph_batch() for _ in range(batches))
+        calls["eager"] += iters
+        calls["captured"] = iters
+        calls["replayed"] = (1 + batches) * reps * iters
+    return {"eager": eager, "graph": graph, "calls": calls}
+
+
+def chain_time(fn, x: torch.Tensor, iters: int = 20, batches: int = 4,
+               reps: int = 3) -> dict:
+    """Lab 2's estimator: ms a call of fn in a chain of ``iters``, eager and
+    graph (see _chain_ms)."""
+    res = _chain_ms(fn, x, iters, batches, reps)
+    for col in ("eager", "graph"):
+        if res[col] is not None:
+            res[col] /= iters
+    return res
+
+
+def total_time(fn, x: torch.Tensor, iters: int, batches: int = 4,
+               reps: int = 3) -> dict:
+    """Lab 3's estimator: ms a chain of ``iters`` calls of fn, eager and
+    graph (see _chain_ms)."""
+    return _chain_ms(fn, x, iters, batches, reps)

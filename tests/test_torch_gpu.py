@@ -1613,3 +1613,78 @@ def test_lab_kernels_match_plain_versions(cuda, size, mode, pad_to, tile):
     with pytest.raises(ValueError, match="F23"):
         labs.fused_fwd_raw(c["dirs_t"], *c["consts"], c["par"],
                            **dict(kw, tile_r=tile + 8))
+
+
+def test_kernel_lab_and_overhead_kernels_match_plain_versions(cuda):
+    """Phase 35's checks at 128^2: L1's vpu instances against their plain
+    versions bit for bit (both chunk modes and divide forms at tile 2048,
+    one call each at 4096 and 8192), (vpu, recip) = K5, the mxu instances
+    within labs.mxu_rule; L2 = its plain version = K4 on every ray, L3 and
+    L4 exact; exact launches, repeats identical, the refusals; and one
+    chain captured in a CUDA graph."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import labs
+    from raytpu_torch.labs import kernel_lab, timing
+    from raytpu_torch.labs.common import lab_inputs
+    dirs, dirs_t, scenes = kernel_lab.scenes(128, 1000, cuda)
+    before = labs.LAUNCHES_KERNEL_LAB
+    calls = 0
+    for name, (m, k0, valid) in scenes.items():
+        k5 = isect.closest_hit(dirs, m, k0, valid, tri_chunk=512)
+        for chunk_mode in labs.CHUNK_MODES:
+            table, _ = labs.kernel_lab_table(m, k0, valid, chunk_mode)
+            for dot in labs.DOTS:
+                for div in labs.DIVS:
+                    kw = dict(chunk_mode=chunk_mode, dot=dot, div=div)
+                    tiles = (2048, 4096, 8192) if div == "recip" else (2048,)
+                    want = labs.kernel_lab_variant_reference(
+                        dirs_t, m, k0, valid, tile_r=2048, **kw)
+                    for tile in tiles:
+                        got = labs.kernel_lab_variant(dirs_t, m, k0, valid,
+                                                      tile_r=tile, **kw)
+                        calls += 1
+                        torch.cuda.synchronize()
+                        if dot == "vpu":
+                            assert torch.equal(got[0], want[0]), (name, kw)
+                            assert torch.equal(got[1], want[1]), (name, kw)
+                            if div == "recip":
+                                assert torch.equal(got[0], k5[0])
+                                assert torch.equal(got[1], k5[1])
+                        else:
+                            rule = labs.mxu_rule(dirs_t, table, got, want)
+                            print(name, kw, tile, rule)
+                            assert rule["t_over"] == rule["other"] == 0
+    assert labs.LAUNCHES_KERNEL_LAB == before + calls
+    with pytest.raises(ValueError, match="tile_r"):
+        labs.kernel_lab_variant(dirs_t, m, k0, valid, tile_r=1024,
+                                chunk_mode="tight", dot="vpu", div="recip")
+
+    x = lab_inputs(Lights.single(capacity=1, device=cuda), 128, cuda)
+    m, k0, valid, m_l, k0_l = x["consts"][0:5]
+    from raytpu_torch.kernels.tables import constant_table
+    table = constant_table(m, k0, valid, m_l[None], k0_l[None], x["C"])
+    args = (x["dirs_t"], table, x["cam_pos"], x["light_pos"], 2048, x["C"])
+    counts = (labs.LAUNCHES_ONESTEP, labs.LAUNCHES_NOOP, labs.LAUNCHES_TINY)
+    one, again = labs.run_onestep(*args), labs.run_onestep(*args)
+    nop = labs.run_noop(*args)
+    ones = torch.ones(labs.TINY_SHAPE, device=cuda)
+    tiny = labs.run_tiny(ones * 3.0)
+    assert (labs.LAUNCHES_ONESTEP, labs.LAUNCHES_NOOP,
+            labs.LAUNCHES_TINY) == (counts[0] + 2, counts[1] + 1,
+                                    counts[2] + 1)
+    k4 = isect.closest_hit_occluded(x["dirs"], m, k0, valid, m_l, k0_l,
+                                    x["cam_pos"], x["light_pos"])
+    plain = labs.run_onestep_reference(*args)
+    torch.cuda.synchronize()
+    for a, b, c, k in zip(one, again, plain, k4):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a[0], k)
+    assert torch.equal(nop[0][0], x["dirs_t"][0])
+    assert not nop[1].any() and not nop[2].any()
+    assert torch.equal(tiny, ones * 6.0)
+    with pytest.raises(ValueError, match="F23"):
+        labs.run_onestep(*args[:4], 3000, x["C"])
+    with pytest.raises(ValueError, match="one chunk"):
+        labs.run_noop(x["dirs_t"], torch.cat([table, table], 1), *args[2:])
+    r = timing.chain_time(labs.run_tiny, ones, iters=3, batches=1, reps=1)
+    assert r["graph"] is not None and r["graph"] > 0
+    assert r["calls"]["captured"] == 3 and r["calls"]["replayed"] == 6

@@ -4,9 +4,10 @@ against the JAX package's ``intersect_occluded_pallas`` (K4) and
 
 On the CPU the port's wrappers run their plain versions; the CUDA kernels
 are held to those on the card (tests/test_torch_gpu.py, chip_smoke.py).
-The winner index and the occlusion bits agree bit for bit (K4's only on
-hit rays: the port defines a miss ray's bit as 0, the JAX wrapper returns
-a shadow ray traced from the camera); t agrees to rtol 5e-7, since
+The winner index and the occlusion bits agree bit for bit on every ray:
+K4's on a miss ray is the raw bit of a shadow ray from the light to the
+camera in both packages (F25), K6's is 0 on a miss in both (the JAX
+wrapper masks misses); t agrees to rtol 5e-7, since
 XLA:CPU contracts the plane products into FMAs. The VJP of t is held to
 ``jax.vjp`` through the same call, at ROADMAP's gradient rule.
 """
@@ -19,9 +20,11 @@ import jax
 import jax.numpy as jnp
 
 from raytpu.core.cornell import cornell_box as jax_cornell_box
+from raytpu.core.cornell import cornell_box_numpy as jax_cornell_box_numpy
 from raytpu.core.types import Camera as JaxCamera
 from raytpu.core.types import Lights as JaxLights
 from raytpu.core.types import RenderConfig as JaxRenderConfig
+from raytpu.core.types import Scene as JaxScene
 from raytpu.kernels.intersect_pallas import (
     intersect_occluded_multi_pallas,
     intersect_occluded_pallas,
@@ -103,13 +106,17 @@ def test_kernels_plain_versions_match_pallas(pad_to, n_src):
 
     hit = np.asarray(want_idx) >= 0
     mismatches = int((hits.idx.numpy() != np.asarray(want_idx)).sum())
-    occ_mismatches = int((occ.numpy() != np.asarray(want_occ))[:, hit].sum())
+    # K4: every ray, the raw bit on misses (F25); K6: hit rays, and 0 on
+    # misses below.
+    rays = np.ones_like(hit) if n_src == 1 else hit
+    occ_mismatches = int((occ.numpy() != np.asarray(want_occ))[:, rays].sum())
     print(f"{hit.sum()} hit rays of {R}; idx mismatches {mismatches}, occ "
-          f"mismatches on hit rays {occ_mismatches}, occluded "
-          f"{int(occ.sum())}")
+          f"mismatches on the {rays.sum()} rays compared {occ_mismatches}, "
+          f"occluded {int(occ.sum())}")
     assert mismatches == 0 and occ_mismatches == 0
     assert occ.dtype == torch.bool and tuple(occ.shape) == (n_src, R)
-    assert not occ.numpy()[:, ~hit].any()  # 0 on misses, by contract
+    if n_src > 1:
+        assert not occ.numpy()[:, ~hit].any()  # K6: 0 on misses, by contract
     assert occ.numpy()[:, hit].any() and not occ.numpy()[:, hit].all()
     np.testing.assert_array_equal(hits.hit.numpy(), hit)
     np.testing.assert_allclose(hits.t.detach().numpy(), np.asarray(want_t),
@@ -141,7 +148,9 @@ def test_wrappers_launch_nothing_on_cpu():
         assert torch.equal(a, b)
     one = kernels.closest_hit_occluded(dirs, c.m, c.k0, c.valid, cs.m[0],
                                        cs.k0[0], _t(cam.pos), src[0])
-    # K4 is K6 with one source.
+    # K4 is K6 with one source (every ray of this view hits, so K4's raw
+    # miss bits, F25, do not show).
+    assert bool((idx >= 0).all())
     assert torch.equal(one[0], t) and torch.equal(one[1], idx)
     assert torch.equal(one[2], occ[0])
     assert (kernels.LAUNCHES_OCCLUDED,
@@ -151,3 +160,46 @@ def test_wrappers_launch_nothing_on_cpu():
         kernels.closest_hit_occluded(dirs, c.m, c.k0, c.valid, cs.m[0],
                                      cs.k0[0], _t(cam.pos), src[0],
                                      tri_chunk=16)
+
+
+def test_k4_miss_rays_carry_jax_raw_bit():
+    """F25: with a small triangle across the light-to-camera segment, every
+    miss ray's shadow ray (from the light to the camera, tz = 0) is
+    blocked: JAX's K4 returns bit 1 on each miss, and so does the port's."""
+    v0, v1, v2, color = jax_cornell_box_numpy()
+    cam = JaxCamera.make((0.1, 0.05, -2.0), yaw=0.1, focal=SIZE / 2)
+    light = np.asarray(JaxLights.single(capacity=1).position[0])
+    pos = np.asarray(cam.pos)
+    # A triangle of side ~0.03 centred on the segment's midpoint, in the
+    # plane normal to the segment.
+    axis = (light - pos) / np.linalg.norm(light - pos)
+    e1 = np.cross(axis, [0.0, 1.0, 0.0])
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(axis, e1)
+    mid = 0.5 * (light + pos)
+    blocker = [mid + 0.02 * e1, mid - 0.01 * e1 + 0.017 * e2,
+               mid - 0.01 * e1 - 0.017 * e2]
+    scene = JaxScene.from_vertices(
+        *(np.concatenate([v, np.float32(b)[None]]) for v, b in
+          zip((v0, v1, v2), blocker)),
+        np.concatenate([color, np.full((1, 3), 0.5, np.float32)]))
+    cfg = JaxRenderConfig(width=SIZE, height=SIZE)
+    dirs = camera_ray_dirs(*pixel_grid(cfg), cam, cfg)
+    R = dirs.shape[0]
+    consts = jax_tri_constants(scene, cam.pos)
+    cl = jax_tri_constants(scene, light)
+    hits, want = intersect_occluded_pallas(dirs, consts, cl, cam.pos, light,
+                                           tile_r=R)
+    miss = ~np.asarray(hits.hit)
+
+    c = TriConstants(*map(_t, consts))
+    got_hits, got = kernels.intersect_occluded(
+        _t(dirs), c, TriConstants(_t(cl.m), _t(cl.k0), c.valid),
+        _t(cam.pos), _t(light))
+    print(f"{miss.sum()} miss rays of {R}; JAX bits on misses "
+          f"{int(np.asarray(want)[miss].sum())}, port's "
+          f"{int(got.numpy()[miss].sum())}")
+    assert 0 < miss.sum() < R
+    np.testing.assert_array_equal(got_hits.idx.numpy(), np.asarray(hits.idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.asarray(want)[miss].all() and got.numpy()[miss].all()

@@ -36,7 +36,8 @@ import raytpu_torch.parallel, raytpu_torch.parallel.render
 import raytpu_torch.parallel.collectives, raytpu_torch.parallel.mp_dryrun
 import raytpu_torch.labs.megakernel_lab6, raytpu_torch.labs.megakernel_lab4
 import raytpu_torch.kernels.labs, raytpu_torch.native
-import raytpu_torch.labs.timing
+import raytpu_torch.labs.timing, raytpu_torch.labs.kernel_lab
+import raytpu_torch.labs.megakernel_lab2, raytpu_torch.labs.megakernel_lab3
 """ + _NO_JAX
 
 
