@@ -246,10 +246,12 @@ nonzero without printing a result:
      ``fit(renderer="raytrace")`` for 2 steps, the sharded step on a new
      1 x 1 NCCL mesh against the single-card step; then card numbers at
      512^2: the four kernels beside the fused K10c and K10i on the same
-     inputs (56 and 72 blocks under their partials' cap), the plain
-     backward of each pass once (~15 s apiece), the four kernels held to
-     it by column group with phase 20's rule, bounds, both steps, the
-     step's device-busy share and peak memory.
+     inputs (56 and 72 blocks under their partials' cap) and the first
+     design's K10e and K10f, K10f with a warp on 8 x 4 pixels (the same d
+     dirs), the plain backward of each pass once (~15 s apiece), the four
+     kernels held to it by column group with phase 20's rule, the pairs
+     gated, proved dead by K10e's and K10f's early-out and of weight not
+     0, bounds, both steps, their device-busy shares and peak memory.
  33. the megakernel labs' kernels against their plain versions on the card
      (raytpu_torch/kernels/labs.py, csrc/labs.cu): K1r (the forward in the
      (1, tile) row layout), L6 (the (8, tile/8) blocked layout, unblocked)
@@ -418,6 +420,13 @@ FLOPS_SRT_PRI_CHAIN = (FLOPS_SRT_PRI_BWD - 18 - FLOPS_SRT_PRI_TABLE
                        - FLOPS_SRT_PRI_DIRS)
 FLOPS_SRT_SHW_CHAIN = (FLOPS_SRT_SHW_BWD - 14 - FLOPS_SRT_SHW_TABLE
                        - FLOPS_SRT_SHW_RAYS)
+# K10e and K10f stop a pair that pri_pair_dead proves of weight 0 at its
+# test (csrc/soft_raytrace.cu): the gate (12) and then u and v's dot
+# products (10) and products (2), 1 - u - v (2), the margin's two minima
+# (2), es margin (1), min(xs, 0) (1), B's two adds (2), B - m (1) and the
+# comparison (1): 34, against FLOPS_SRT_PRI_W's 41 for the pairs it does
+# not prove dead.
+FLOPS_SRT_PRI_DEAD = FLOPS_SRT_PRI_GATE + 22
 # Image rule of tests/test_rasterize_parity.py::test_parity_vs_oracle_500.
 RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 # Cycles of torch.cuda._sleep that hold the stream while timed calls are
@@ -1190,17 +1199,19 @@ def srt_shw_bwd(c, world, trans, gcot, plain=False, dtype=torch.float32,
 def srt_work(c, m, world, dl, masked: bool = False) -> dict:
     """What K10a-K10i (masked: K10b-K10j) must do on a srt_case, from a
     plain recompute: (ray, row) pairs in all (masked: of the rays whose
-    tile keeps the row's chunk), gated, and of a weight not 0 at the saved
-    m; (source, point, row) triples in all (masked: kept) and gated; of
-    the triples whose cotangent dl (S, R) is not 0 (dl None: not
-    counted), how many, how many gated and how many of a term not 0."""
+    tile keeps the row's chunk), gated, of a weight not 0 at the saved m,
+    and of those the gate passes, how many K10e's and K10f's early-out
+    proves of weight 0 (srt.primary_dead_pairs); (source, point, row)
+    triples in all (masked: kept) and gated; of the triples whose
+    cotangent dl (S, R) is not 0 (dl None: not counted), how many, how many
+    gated and how many of a term not 0."""
     from raytpu_torch.kernels import soft_raytrace as srt
     from raytpu_torch.kernels.soft_raster import Kinks
     pri, shw, d, chunk = c["pri"], c["shw"], c["dirs"], c["chunk"]
     Tp, S = pri.shape[0], c["srcs"].shape[0]
     tiles = c.get("tiles")
-    w = dict(pairs=0, gated_p=0, live_p=0, triples=0, gated_s=0, act_s=0,
-             act_gated_s=0, live_s=0)
+    w = dict(pairs=0, gated_p=0, dead_p=0, live_p=0, triples=0, gated_s=0,
+             act_s=0, act_gated_s=0, live_s=0)
     with torch.no_grad():
         for k, lo in enumerate(range(0, Tp, chunk)):
             keep = srt._kept(c["mask"] if masked else None, tiles, k)
@@ -1210,7 +1221,13 @@ def srt_work(c, m, world, dl, masked: bool = False) -> dict:
                                          c["zs"])
             w["pairs"] += logit.numel()
             w["gated_p"] += int((logit == -1e30).sum())
-            w["live_p"] += int((torch.exp(logit - m[keep]) != 0.0).sum())
+            live = torch.exp(logit - m[keep]) != 0.0
+            w["live_p"] += int(live.sum())
+            no_pair = srt.primary_dead_pairs(pri[lo:lo + chunk], dk, m[keep],
+                                             c["es"], c["zs"])
+            w["dead_p"] += int((no_pair & (logit != -1e30)).sum())
+            require(not (no_pair & live).any(),
+                    "srt_work: no pair of weight not 0 proved dead")
             for s in range(S):
                 keep = srt._kept(c["smask"] if masked else None, tiles, k, s)
                 wk = world[:, keep]
@@ -1274,10 +1291,14 @@ def two_launch_bounds(c, w) -> dict:
     in, 12 B a point and d sources out), against srt_bounds' operations:
     each half does a pair's or triple's recompute, the derivative's shared
     chain and its own terms (FLOPS_SRT_*_TABLE, _DIRS, _RAYS), the tables
-    halves also their share of the row's sums (18 primary, 14 shadow)."""
+    halves also their share of the row's sums (18 primary, 14 shadow);
+    K10e and K10f stop a pair proved dead at its test
+    (FLOPS_SRT_PRI_DEAD)."""
     Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
     hit_p = w["pairs"] - w["gated_p"]
-    pri = FLOPS_SRT_PRI_GATE * w["gated_p"] + FLOPS_SRT_PRI_W * hit_p
+    pri = (FLOPS_SRT_PRI_GATE * w["gated_p"]
+           + FLOPS_SRT_PRI_DEAD * w["dead_p"]
+           + FLOPS_SRT_PRI_W * (hit_p - w["dead_p"]))
     shw = (FLOPS_SRT_SHW_GATE * w["act_gated_s"]
            + FLOPS_SRT_SHW_W * (w["act_s"] - w["act_gated_s"]))
     return {
@@ -1858,6 +1879,14 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
     ]
 
 
+# The first design's card numbers for K10e and K10f (a block a chunk, every
+# pair's logit worked out in full) at 512^2 on the 66,560-triangle torus
+# and its culled step there (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's.
+FIRST_DESIGN_MS = {"pri_bwd_tables": 126.4583, "pri_bwd_dirs": 79.7943,
+           "culled_step": 336.37}
+
+
 def two_launch_phase(dev, record: dict) -> list[dict]:
     """Phase 32: K10e, K10f, K10k and K10l, the two-launch soft raytrace
     backwards, against their plain versions on the 66,560-triangle torus;
@@ -2116,27 +2145,47 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
         torch.cuda.synchronize()
         peak[T] = torch.cuda.max_memory_allocated() / 1e9
     step_ms = median_ms_in_turns({T: steps[T] for T in steps}, n=1, reps=3)
-    busy = device_busy(steps[66560], steps=2)
+    busy = {T: device_busy(steps[T], steps=2) for T in steps}
     c = srt_case(*frame(66560, 512))
     pargs, sargs = inputs(c)
     R, S = c["dirs"].shape[1], c["srcs"].shape[0]
-    cam_partials = torch.empty((Tp // c["chunk"], 3), device=dev)
+    tables_scratch = srt.pri_bwd_tables_scratch(c["pri"], c["dirs"])
+    rows = torch.empty((Tp, srt.ROW_STAGED), device=dev)
     src_partials = torch.empty((-(-R // srt.THREADS), S, 3), device=dev)
     dc, dcam = torch.empty_like(c["pri"]), torch.empty(3, device=dev)
     dd, sdc = torch.empty_like(c["dirs"]), torch.empty_like(c["shw"])
     dsrc, dw = torch.empty_like(c["srcs"]), torch.empty_like(sargs[2])
     _, _, launch = fused(c, pargs, sargs)
+    # K10f with a warp on an 8 x 4 block of pixels in place of 32 x 1 (the
+    # rays permuted so that each 32 in a row are one block; its d dirs
+    # permuted back): the kernel cannot take that map itself, as its
+    # callers pass no image width. It may not change a ray's bits.
+    blocks = torch.arange(R, device=dev).reshape(512 // 4, 4, 512 // 8, 8)
+    perm = blocks.permute(0, 2, 1, 3).reshape(-1)
+    pargs_8x4 = (pargs[0], pargs[1], pargs[2][:, perm].contiguous(),
+                 pargs[3][perm].contiguous(), pargs[4][:, perm].contiguous(),
+                 *pargs[5:])
+    dd_8x4 = torch.empty_like(dd)
     kernels = {
         "pri_bwd_tables": lambda: srt.launch_pri_bwd_tables_kernel(
-            *pri_launch(pargs), cam_partials, dc, dcam),
+            *pri_launch(pargs), *tables_scratch, dc, dcam),
         "pri_bwd_dirs": lambda: srt.launch_pri_bwd_dirs_kernel(
-            *pri_launch(pargs), dd),
+            *pri_launch(pargs), rows, dd),
+        "pri_bwd_dirs_8x4": lambda: srt.launch_pri_bwd_dirs_kernel(
+            *pri_launch(pargs_8x4), rows, dd_8x4),
         "shw_bwd_consts": lambda: srt.launch_shw_bwd_consts_kernel(
             *shw_launch(sargs), sdc),
         "shw_bwd_rays": lambda: srt.launch_shw_bwd_rays_kernel(
             *shw_launch(sargs), src_partials, dsrc, dw),
         **launch}
     t = median_ms_in_turns(kernels, n=1, reps=3, timer=held_ms)
+    torch.cuda.synchronize()
+    same_8x4 = torch.equal(dd_8x4[:, torch.argsort(perm)], dd)
+    say(f"K10f with a warp on 8 x 4 pixels {t['pri_bwd_dirs_8x4']:.4f} ms, "
+        f"on 32 x 1 {t['pri_bwd_dirs']:.4f} ms; d dirs the same bits "
+        f"{same_8x4}")
+    require(same_8x4, "K10f on 8 x 4 pixels a warp gives the same d dirs")
+    del pargs_8x4, dd_8x4
     plain = {}
     for part, fn, args in (("pri", srt.primary_agg_bwd_reference, pargs),
                            ("shw", srt.shadow_trans_bwd_reference, sargs)):
@@ -2165,12 +2214,18 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
     card = card_line()
     groups = {"pri": srt.bwd_groups(Tp, srt.PRI_USED, R),
               "shw": srt.bwd_groups(Tp, srt.SHW_USED, R)}
+    passing = work["pairs"] - work["gated_p"]
     say(f"two-launch kernels alone, 66,560 triangles at 512^2 ({R} rays, "
-        f"{work['pairs']} pairs, {work['gated_p']} gated, {work['live_p']} "
-        f"of weight not 0; {work['act_s']} shadow triples of d od not 0, "
-        f"{work['act_gated_s']} gated, {work['live_s']} live): "
-        + ", ".join(f"{k} {t[k]:.4f} ms (plain, both halves "
-                    f"{t[k[:3] + '_plain']:.4f}; bound "
+        f"{work['pairs']} pairs, {work['gated_p']} gated, {work['dead_p']} "
+        f"proved dead by K10e's and K10f's bound "
+        f"({work['dead_p'] / max(passing, 1):.4%} of the gate's passing "
+        f"pairs), {work['live_p']} of weight not 0; {work['act_s']} shadow "
+        f"triples of d od not 0, {work['act_gated_s']} gated, "
+        f"{work['live_s']} live): "
+        + ", ".join(f"{k} {t[k]:.4f} ms ("
+                    + (f"first design {FIRST_DESIGN_MS[k]:.4f}; "
+                       if k in FIRST_DESIGN_MS else "")
+                    + f"plain, both halves {t[k[:3] + '_plain']:.4f}; bound "
                     f"{bounds[k][0]:.4f} ms, {bounds[k][1]})"
                     for k in ("pri_bwd_tables", "pri_bwd_dirs",
                               "shw_bwd_consts", "shw_bwd_rays"))
@@ -2179,14 +2234,17 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
         f"{t['shw_bwd_fused']:.4f} ms ({groups['shw']} blocks, bound "
         f"{bounds['shw_bwd_fused'][0]:.4f}) ({card})")
     say(f"culled 512^2 soft raytrace steps (CUDA events, median of 3): "
-        f"66,560 triangles {step_ms[66560]:.4f} ms, 36,000 "
-        f"{step_ms[36000]:.4f} ms; peak memory {peak[66560]:.3f} / "
-        f"{peak[36000]:.3f} GB; the 66,560 step's device busy "
-        f"{busy['busy_ms']:.4f} ms a step in {busy['kernels']} device "
-        f"events, {busy['wall_ms']:.4f} ms on the host clock (share "
-        f"{busy['share']}) ({card})")
-    for kname, ms in busy["by_name"][:8]:
-        say(f"  {ms:.5f} ms  {kname[:100]}")
+        f"66,560 triangles {step_ms[66560]:.4f} ms (first design "
+        f"{FIRST_DESIGN_MS['culled_step']:.2f}), 36,000 "
+        f"{step_ms[36000]:.4f} ms; "
+        f"peak memory {peak[66560]:.3f} / {peak[36000]:.3f} GB ({card})")
+    for T in steps:
+        say(f"  the {T} step's device busy {busy[T]['busy_ms']:.4f} ms a "
+            f"step in {busy[T]['kernels']} device events, "
+            f"{busy[T]['wall_ms']:.4f} ms on the host clock (share "
+            f"{busy[T]['share']})")
+        for kname, ms in busy[T]["by_name"][:8]:
+            say(f"    {ms:.5f} ms  {kname[:100]}")
     say(f"phase 32 took {time.perf_counter() - t_phase:.1f} s")
     record["two_launch"] = dict(
         err=err, checks=checks, step_launches={str(k): v for k, v in
@@ -2196,7 +2254,8 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
                      grad_of_tolerance=worst, launches=sharded_launches),
         kernel_ms=t, bounds=bounds, work=work, fused_groups=groups,
         step_ms={str(k): v for k, v in step_ms.items()},
-        peak_gb={str(k): v for k, v in peak.items()}, busy=busy)
+        peak_gb={str(k): v for k, v in peak.items()},
+        busy={str(k): v for k, v in busy.items()})
 
     def entry(part: str, key: str, fused_part: str, replaces: str) -> dict:
         return dict(name=f"soft_rt_{part}", route="cuda",

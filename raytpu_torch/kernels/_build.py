@@ -86,13 +86,15 @@ SIGNATURES = {
     # stream
     "raytpu_soft_rt_shw_bwd": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
                                _P, _P, _F, _F, _I, _P, _P, _P, _P, _P, _P],
-    # consts, Tp, chunk, cam, dirs, R, es, zs, m, cot, cam_partials, dc,
-    # dcam, stream
+    # consts, Tp, chunk, cam, dirs, R, es, zs, m, cot, rays, splits,
+    # partials, cam_partials, dc, dcam, stream
     "raytpu_soft_rt_pri_bwd_tables": [_P, _I, _I, _P, _P, _I, _F, _F, _P, _P,
-                                      _P, _P, _P, _P],
-    # consts, Tp, chunk, cam, dirs, R, es, zs, m, cot, dd, stream
+                                      _P, _I, _P, _P, _P, _P, _P],
+    # consts, Tp, chunk, cam, dirs, R, es, zs, m, cot, rows, dd, stream
     "raytpu_soft_rt_pri_bwd_dirs": [_P, _I, _I, _P, _P, _I, _F, _F, _P, _P,
-                                    _P, _P],
+                                    _P, _P, _P],
+    # x, n, out, stream
+    "raytpu_soft_rt_expf": [_P, _I, _P, _P],
     # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs, dc, stream
     "raytpu_soft_rt_shw_bwd_consts": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _F,
                                       _F, _P, _P],

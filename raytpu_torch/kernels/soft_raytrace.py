@@ -27,6 +27,8 @@ chunk's sums).
                     ``shadow_bwd_consts`` (d consts) and K10l's
                     ``shadow_bwd_rays`` (d sources, d world).
   *_reference       their plain PyTorch versions.
+  primary_dead_pairs  the plain form of K10e's and K10f's early-out: the
+                    pairs they prove of weight exactly 0 and skip.
   PrimaryAgg, ShadowTrans   the torch.autograd.Functions around them
                     (``_primary_agg``, ``_shadow_trans``).
   PrimaryAggStats   PrimaryAgg returning (out, m, s) (``_primary_agg_stats``),
@@ -150,6 +152,17 @@ _CULL_ABS = float(np.float32(1e-3))
 # ``_FUSED_BWD_MAX_ROWS``), copied: above this many 16-column rows the
 # backwards take the two-launch route (pri_two_launch, shw_two_launch).
 FUSED_BWD_MAX_ROWS = 65536
+# K10e and K10f stop a (ray, row) pair whose logit bound lies more than this
+# below the ray's saved max: its weight is exactly 0 (primary_dead_pairs,
+# csrc/soft_raytrace.cu::pri_pair_dead).
+DEAD_BELOW = -110.0
+# K10e's scratch: rays packed 16 floats each in tiles of RAY_TILE, the
+# tiles cut into at most TABLE_SPLITS runs (one partial of the table each).
+RAY_TILE = 128
+RAY_PACKED = 16
+TABLE_SPLITS = 16
+# K10f's scratch: the table staged 24 floats a row.
+ROW_STAGED = 24
 
 
 def pri_two_launch(Tp: int) -> bool:
@@ -441,6 +454,40 @@ def primary_agg_reference(consts, cam, dirs, es: float, zs: float,
     return acc * (1.0 / s), m, s
 
 
+def primary_dead_pairs(cs, dirs, m, es: float, zs: float) -> torch.Tensor:
+    """Plain PyTorch form of K10e's and K10f's early-out
+    (csrc/soft_raytrace.cu::pri_pair_dead) in its operations' order, for
+    the tests and chip_smoke.py; the kernels' route never calls it. cs
+    (C, 32) rows of the primary table, dirs (3, R), m (R,) the forward's
+    saved max. Returns (C, R) bool, True where the pair is gated or where
+    the bound of its logit
+    ``B = (zb + min(es margin, 0)) + log(active + 1e-20)``,
+    ``zb = zs / max(dmin, 0.1)`` (0 for zs < 0), lies below
+    ``m + DEAD_BELOW``: its weight ``exp(logit - m)`` is then exactly 0. A
+    NaN in B or m marks nothing (``min`` here keeps a NaN xs)."""
+    def col(j):
+        return cs[:, j:j + 1]
+
+    dx, dy, dz = dirs[0:1], dirs[1:2], dirs[2:3]
+    denom = -((dx * col(0) + dy * col(1)) + dz * col(2))
+    safe = torch.where(denom.abs() > 1e-12, denom, 1e-12)
+    rec = 1.0 / safe
+    t = col(9) * rec
+    dn = _sqrt_f32((dx * dx + dy * dy) + dz * dz)
+    nmag = _sqrt_f32((col(0) * col(0) + col(1) * col(1)) + col(2) * col(2))
+    hit = (t > 1e-6) & (denom.abs() > (1e-3 * dn) * nmag)
+    u = ((dx * col(3) + dy * col(4)) + dz * col(5)) * rec
+    v = ((dx * col(6) + dy * col(7)) + dz * col(8)) * rec
+    # fminf and fmaxf drop a NaN operand; torch.fmin and fmax do too.
+    margin = torch.fmin(torch.fmin(u, v), (1.0 - u) - v)
+    xs = es * margin
+    cap = torch.where(xs > 0.0, 0.0, xs)
+    zinv_max = 1.0 / torch.fmax(col(17), torch.full_like(col(17), T_NEAR))
+    zb = torch.zeros_like(zinv_max) if zs < 0.0 else zs * zinv_max
+    bound = (zb + cap) + torch.log(col(16) + 1e-20)
+    return ~hit | ((bound - m[None, :]) < DEAD_BELOW)
+
+
 def _record(fn, args, kinks_wanted: bool):
     """The branch decisions of fn(*float32 args) for a replay, or None."""
     if not kinks_wanted:
@@ -690,27 +737,58 @@ def launch_shw_bwd_kernel(consts, chunk: int, srcs, world, trans, gcot,
         dc.data_ptr(), dsrc.data_ptr(), dw.data_ptr(), _stream()))
 
 
+def pri_bwd_tables_scratch(consts, dirs) -> tuple:
+    """K10e's scratch for a (Tp, 32) table and dirs (3, R): the packed rays
+    (ceil(R / RAY_TILE) RAY_TILE, RAY_PACKED), the runs' partials (splits,
+    Tp, 18) and the blocks' camera sums (splits ceil(Tp / THREADS), 3),
+    splits = min(TABLE_SPLITS, the ray tiles)."""
+    Tp, R = consts.shape[0], dirs.shape[1]
+    tiles = -(-R // RAY_TILE)
+    splits = min(TABLE_SPLITS, tiles)
+    return (consts.new_empty((tiles * RAY_TILE, RAY_PACKED)),
+            consts.new_empty((splits, Tp, PRI_USED)),
+            consts.new_empty((splits * -(-Tp // THREADS), 3)))
+
+
 def launch_pri_bwd_tables_kernel(consts, chunk: int, cam, dirs, es: float,
-                                 zs: float, m, cot, cam_partials, dc,
-                                 dcam) -> None:
-    """Launch K10e and the sum of its (n_chunks, 3) camera partials into dc
-    (Tp, 32) and dcam (3,), all allocated by the caller. Checks nothing and
+                                 zs: float, m, cot, rays, partials,
+                                 cam_partials, dc, dcam) -> None:
+    """Launch K10e (the rays' packing, the kernel, the sums of its partials
+    and camera sums) into dc (Tp, 32) and dcam (3,), with the scratch of
+    pri_bwd_tables_scratch, all allocated by the caller. Checks nothing and
     counts nothing."""
     _raise("soft_rt_pri_bwd_tables",
            _build.load().raytpu_soft_rt_pri_bwd_tables(
                consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
                dirs.data_ptr(), dirs.shape[1], es, zs, m.data_ptr(),
-               cot.data_ptr(), cam_partials.data_ptr(), dc.data_ptr(),
+               cot.data_ptr(), rays.data_ptr(), partials.shape[0],
+               partials.data_ptr(), cam_partials.data_ptr(), dc.data_ptr(),
                dcam.data_ptr(), _stream()))
 
 
 def launch_pri_bwd_dirs_kernel(consts, chunk: int, cam, dirs, es: float,
-                               zs: float, m, cot, dd) -> None:
-    """Launch K10f into dd (3, R). Checks nothing and counts nothing."""
+                               zs: float, m, cot, rows, dd) -> None:
+    """Launch K10f (the table's staging into rows (Tp, ROW_STAGED) and the
+    kernel) into dd (3, R). Checks nothing and counts nothing."""
     _raise("soft_rt_pri_bwd_dirs", _build.load().raytpu_soft_rt_pri_bwd_dirs(
         consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
         dirs.data_ptr(), dirs.shape[1], es, zs, m.data_ptr(), cot.data_ptr(),
-        dd.data_ptr(), _stream()))
+        rows.data_ptr(), dd.data_ptr(), _stream()))
+
+
+def expf_probe(x: torch.Tensor) -> torch.Tensor:
+    """expf of x (n,) float32 as the kernels compute it: on a CUDA tensor
+    through the library's raytpu_soft_rt_expf (built with the kernels'
+    flags), on a CPU tensor torch.exp. The tests' probe of the underflow
+    that K10e's and K10f's early-out relies on."""
+    if not _route(x):
+        return torch.exp(x)
+    _check("x", x, (x.numel(),), x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _raise("soft_rt_expf", _build.load().raytpu_soft_rt_expf(
+            x.data_ptr(), x.numel(), out.data_ptr(), _stream()))
+    return out
 
 
 def launch_shw_bwd_consts_kernel(consts, chunk: int, srcs, world, trans,
@@ -891,11 +969,11 @@ def primary_bwd_tables(consts, cam, dirs, m, cot, es: float, zs: float,
         return primary_agg_bwd_reference(consts, cam, dirs, m, cot, es, zs,
                                          chunk)[:2]
     _check_pri_bwd(consts, cam, dirs, m, cot, chunk)
-    cam_partials = consts.new_empty((consts.shape[0] // chunk, 3))
+    scratch = pri_bwd_tables_scratch(consts, dirs)
     dc, dcam = torch.empty_like(consts), torch.empty_like(cam)
     with torch.cuda.device(consts.device):
         launch_pri_bwd_tables_kernel(consts, chunk, cam, dirs, es, zs, m, cot,
-                                     cam_partials, dc, dcam)
+                                     *scratch, dc, dcam)
     LAUNCHES_SRT_PRI_BWD_TABLES += 1
     return dc, dcam
 
@@ -910,10 +988,11 @@ def primary_bwd_dirs(consts, cam, dirs, m, cot, es: float, zs: float,
         return primary_agg_bwd_reference(consts, cam, dirs, m, cot, es, zs,
                                          chunk)[2]
     _check_pri_bwd(consts, cam, dirs, m, cot, chunk)
+    rows = consts.new_empty((consts.shape[0], ROW_STAGED))
     dd = torch.empty_like(dirs)
     with torch.cuda.device(consts.device):
         launch_pri_bwd_dirs_kernel(consts, chunk, cam, dirs, es, zs, m, cot,
-                                   dd)
+                                   rows, dd)
     LAUNCHES_SRT_PRI_BWD_DIRS += 1
     return dd
 

@@ -1067,16 +1067,16 @@ def _assert_f11_rule(got, want64, plain32, groups):
                 or (f64 > 1.0 and r64 <= 2.0 * f64)), (name, r32, r64, f64)
 
 
-def _two_launch_case(device, quads, size):
-    """The two-launch backwards' inputs on the torus at size^2 (the STL
-    camera, 40 / 40, cull=False), two shadow sources: the tables, rays,
-    the plain forward's m, hit positions and transmittance, one-signed
-    cotangents."""
+def _two_launch_case(device, quads, size, width=None):
+    """The two-launch backwards' inputs on the torus at size^2, or size x
+    width (the STL camera, 40 / 40, cull=False), two shadow sources: the
+    tables, rays, the plain forward's m, hit positions and transmittance,
+    one-signed cotangents."""
     from raytpu_torch.kernels import soft_raytrace as srt
     from raytpu_torch.render.soft import raytrace_soft_inputs
     scene = _torus(device, quads)
     camera = Camera.make((0.0, -0.5, -5.0), focal=size * 0.6, device=device)
-    cfg = RenderConfig(width=size, height=size, mode="soft",
+    cfg = RenderConfig(width=width or size, height=size, mode="soft",
                        soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
     srcs = torch.tensor([[0.3, -1.5, -3.0], [0.25, -1.45, -3.1]],
                         device=device)
@@ -1087,7 +1087,7 @@ def _two_launch_case(device, quads, size):
         world = out[3:6].contiguous()
         trans = srt.shadow_trans_reference(inp.shw, srcs, world, inp.es,
                                            inp.zs, inp.chunk)
-    R = size * size
+    R = size * (width or size)
     return ((inp.pri, camera.pos.contiguous(), inp.dirs, m,
              _one_signed((10, R), device, 0), inp.es, inp.zs, inp.chunk),
             (inp.shw, srcs, world, trans, _one_signed((2, R), device, 1),
@@ -1146,6 +1146,106 @@ def test_two_launch_kernels_match_plain_float64(cuda, monkeypatch, quads,
     _assert_f11_rule(got[3], want[3], plain[3], srt.SHW_GROUPS)
     _assert_f11_rule(got[4], want[4], plain[4], one)
     _assert_f11_rule(got[5].T, want[5].T, plain[5].T, one)
+
+
+def test_dead_pair_kernels_on_a_ragged_frame(cuda, monkeypatch):
+    """K10e and K10f on a 40 x 72 frame of the 800-triangle torus, the
+    limit forced down: 2,880 rays, not a whole number of K10e's 128-ray
+    tiles or K10f's blocks. Against the plain
+    backward in float64 with the float32 branch decisions and in float32 by
+    column group (F11's rule); two calls bit-identical; d dirs equal to the
+    fused K10c's bit for bit, as the early-out skips only pairs of weight
+    exactly 0; the plain predicate marks most of the pairs."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", 256)
+    pargs = _two_launch_case(cuda, (20, 20), 40, width=72)[0]
+    consts, cam, dirs, m, cot, es, zs, chunk = pargs
+    assert dirs.shape[1] == 2880 and srt.pri_two_launch(consts.shape[0])
+    before = (srt.LAUNCHES_SRT_PRI_BWD_TABLES, srt.LAUNCHES_SRT_PRI_BWD_DIRS)
+    got = (*srt.primary_bwd_tables(*pargs), srt.primary_bwd_dirs(*pargs))
+    assert (srt.LAUNCHES_SRT_PRI_BWD_TABLES,
+            srt.LAUNCHES_SRT_PRI_BWD_DIRS) == (before[0] + 1, before[1] + 1)
+    again = (*srt.primary_bwd_tables(*pargs), srt.primary_bwd_dirs(*pargs))
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", 1 << 30)
+    fused = srt.primary_agg_bwd(*pargs)
+    want = srt.primary_agg_bwd_reference(
+        *(t.double() for t in pargs[:5]), *pargs[5:], f32_branches=True)
+    plain = srt.primary_agg_bwd_reference(*pargs)
+    dead = torch.cat([srt.primary_dead_pairs(consts[lo:lo + chunk], dirs, m,
+                                             es, zs)
+                      for lo in range(0, consts.shape[0], chunk)])
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    assert torch.equal(got[2], fused[2])
+    assert not got[0][:, srt.PRI_USED:].any()
+    one = (("all", 0, 3),)
+    _assert_f11_rule(got[0], want[0], plain[0], srt.PRI_GROUPS)
+    _assert_f11_rule(got[1][None], want[1][None], plain[1][None], one)
+    _assert_f11_rule(got[2].T, want[2].T, plain[2].T, one)
+    assert float(dead.float().mean()) > 0.9
+
+
+def test_dead_pair_kernels_through_the_hole(cuda):
+    """The 48^2 frame of the rasterizer's default camera on the main path's
+    66,560-triangle torus looks through its hole: every ray misses, every
+    pair is gated or proved dead (the plain predicate), K10e's gradients are
+    exactly zero and K10f's d dirs equals the fused K10c's bit for bit."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.render.soft import raytrace_soft_inputs
+    camera = Camera.rasterizer_default(device=cuda)
+    cfg = RenderConfig(width=48, height=48, mode="soft",
+                       soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
+    with torch.no_grad():
+        inp = raytrace_soft_inputs(_torus(cuda, (256, 130)), camera, cfg,
+                                   cull=False)
+        _, m, _ = srt.primary_agg_fwd(inp.pri, camera.pos, inp.dirs, inp.es,
+                                      inp.zs, inp.chunk)
+    pargs = (inp.pri, camera.pos.contiguous(), inp.dirs, m,
+             _one_signed((10, 48 * 48), cuda, 2), inp.es, inp.zs, inp.chunk)
+    assert srt.pri_two_launch(inp.pri.shape[0])
+    dc, dcam = srt.primary_bwd_tables(*pargs)
+    dd = srt.primary_bwd_dirs(*pargs)
+    partials = torch.empty((1, inp.pri.shape[0], srt.PRI_USED), device=cuda)
+    fused = (torch.empty_like(inp.pri), torch.empty(3, device=cuda),
+             torch.empty_like(inp.dirs))
+    srt.launch_pri_bwd_kernel(inp.pri, inp.chunk, camera.pos.contiguous(),
+                              inp.dirs, inp.es, inp.zs, m, pargs[4], partials,
+                              torch.empty((1, 3), device=cuda), *fused)
+    dead = all(bool(srt.primary_dead_pairs(inp.pri[lo:lo + inp.chunk],
+                                           inp.dirs, m, inp.es,
+                                           inp.zs).all())
+               for lo in range(0, inp.pri.shape[0], inp.chunk))
+    torch.cuda.synchronize()
+    assert not m.any() and dead
+    assert not dc.any() and not dcam.any()
+    assert torch.equal(dd, fused[2]) and not dd.any()
+
+
+def test_expf_underflows_below_the_dead_threshold(cuda):
+    """pri_pair_dead's premise on the card: the kernels' expf (built with
+    their flags) returns exactly 0 for every float32 from -110 down to -200,
+    enumerated on the device (7,077,889 values), and for one in every 997
+    below that down to -FLT_MAX and -inf; at -103 it is not yet 0."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+
+    def floats(lo_bits, hi_bits, step=1):
+        bits = torch.arange(lo_bits, hi_bits + 1, step, dtype=torch.int64,
+                            device=cuda)
+        return bits.to(torch.int32).view(torch.float32)
+
+    x = floats(0xC2DC0000, 0xC3480000)  # -110 ... -200, every float32
+    assert x.numel() == 7_077_889
+    assert float(x[0]) == srt.DEAD_BELOW and float(x[-1]) == -200.0
+    assert bool((x[1:] < x[:-1]).all())
+    below = torch.cat([floats(0xC3480000, 0xFF7FFFFF, 997),
+                       torch.tensor([-3.4028235e38, -float("inf")],
+                                    device=cuda)])
+    got, got_below = srt.expf_probe(x), srt.expf_probe(below)
+    edge = srt.expf_probe(torch.tensor([-103.0], device=cuda))
+    torch.cuda.synchronize()
+    assert not got.any() and not got_below.any()
+    assert float(edge[0]) > 0.0
 
 
 @pytest.mark.parametrize("limit,shadow_fused", [(256, False), (1024, True)],
