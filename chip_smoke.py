@@ -427,6 +427,18 @@ FLOPS_SRT_SHW_CHAIN = (FLOPS_SRT_SHW_BWD - 14 - FLOPS_SRT_SHW_TABLE
 # comparison (1): 34, against FLOPS_SRT_PRI_W's 41 for the pairs it does
 # not prove dead.
 FLOPS_SRT_PRI_DEAD = FLOPS_SRT_PRI_GATE + 22
+# K10k and K10l take 1e-3 |n| once a row and 0.99 rr once a point for each
+# source (stage_shw_row, pack_shw_points_kernel, the test's staged point),
+# so a triple there does without those two products: its gate is 10, and
+# a triple shw_triple_dead finds dead stops at its test, the gate (10) and
+# then u and v's dot products (10) and products (2), 1 - u - v (2), the
+# margin's two minima (2), es margin (1), y = zs (0.99 rr - t) (2) and the
+# two comparisons (2): 31, against the 36 of FLOPS_SRT_SHW_W without the
+# two products for the triples it does not find dead. The fused K10i and
+# K10j still form both products a triple (FLOPS_SRT_SHW_GATE, _W).
+FLOPS_SRT_SHW_STAGED_GATE = FLOPS_SRT_SHW_GATE - 1
+FLOPS_SRT_SHW_STAGED_W = FLOPS_SRT_SHW_W - 2
+FLOPS_SRT_SHW_DEAD = FLOPS_SRT_SHW_STAGED_GATE + 21
 # Image rule of tests/test_rasterize_parity.py::test_parity_vs_oracle_500.
 RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 # Cycles of torch.cuda._sleep that hold the stream while timed calls are
@@ -1204,14 +1216,15 @@ def srt_work(c, m, world, dl, masked: bool = False) -> dict:
     proves of weight 0 (srt.primary_dead_pairs); (source, point, row)
     triples in all (masked: kept) and gated; of the triples whose
     cotangent dl (S, R) is not 0 (dl None: not counted), how many, how many
-    gated and how many of a term not 0."""
+    gated, how many of those the gate passes K10k's and K10l's early-out
+    finds dead (srt.shadow_dead_triples) and how many of a term not 0."""
     from raytpu_torch.kernels import soft_raytrace as srt
     from raytpu_torch.kernels.soft_raster import Kinks
     pri, shw, d, chunk = c["pri"], c["shw"], c["dirs"], c["chunk"]
     Tp, S = pri.shape[0], c["srcs"].shape[0]
     tiles = c.get("tiles")
     w = dict(pairs=0, gated_p=0, dead_p=0, live_p=0, triples=0, gated_s=0,
-             act_s=0, act_gated_s=0, live_s=0)
+             act_s=0, act_gated_s=0, dead_s=0, live_s=0)
     with torch.no_grad():
         for k, lo in enumerate(range(0, Tp, chunk)):
             keep = srt._kept(c["mask"] if masked else None, tiles, k)
@@ -1243,9 +1256,15 @@ def srt_work(c, m, world, dl, masked: bool = False) -> dict:
                 if dl is None:
                     continue
                 act = (dl[s][keep] != 0.0).expand_as(term)
+                live = act & (term != 0.0)
+                dead = act & ok & srt.shadow_dead_triples(
+                    shw[lo:lo + chunk], c["srcs"][s], wk, c["es"], c["zs"])
                 w["act_s"] += int(act.sum())
                 w["act_gated_s"] += int((act & ~ok).sum())
-                w["live_s"] += int((act & (term != 0.0)).sum())
+                w["dead_s"] += int(dead.sum())
+                w["live_s"] += int(live.sum())
+                require(not (dead & live).any(),
+                        "srt_work: no triple of a term not 0 found dead")
     return w
 
 
@@ -1293,14 +1312,20 @@ def two_launch_bounds(c, w) -> dict:
     chain and its own terms (FLOPS_SRT_*_TABLE, _DIRS, _RAYS), the tables
     halves also their share of the row's sums (18 primary, 14 shadow);
     K10e and K10f stop a pair proved dead at its test
-    (FLOPS_SRT_PRI_DEAD)."""
+    (FLOPS_SRT_PRI_DEAD), K10k and K10l a triple found dead at its test
+    (FLOPS_SRT_SHW_DEAD), and form 1e-3 |n| and 0.99 rr once a row and a
+    point for each source in place of once a triple (_STAGED_GATE,
+    _STAGED_W)."""
     Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
     hit_p = w["pairs"] - w["gated_p"]
     pri = (FLOPS_SRT_PRI_GATE * w["gated_p"]
            + FLOPS_SRT_PRI_DEAD * w["dead_p"]
            + FLOPS_SRT_PRI_W * (hit_p - w["dead_p"]))
-    shw = (FLOPS_SRT_SHW_GATE * w["act_gated_s"]
-           + FLOPS_SRT_SHW_W * (w["act_s"] - w["act_gated_s"]))
+    shw = ((Tp + R) * S
+           + FLOPS_SRT_SHW_STAGED_GATE * w["act_gated_s"]
+           + FLOPS_SRT_SHW_DEAD * w["dead_s"]
+           + FLOPS_SRT_SHW_STAGED_W * (w["act_s"] - w["act_gated_s"]
+                                       - w["dead_s"]))
     return {
         "pri_bwd_tables": bound_ms(
             R * 56 + Tp * 256 + 24,
@@ -1879,12 +1904,16 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
     ]
 
 
-# The first design's card numbers for K10e and K10f (a block a chunk, every
-# pair's logit worked out in full) at 512^2 on the 66,560-triangle torus
-# and its culled step there (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W),
-# printed beside this run's.
+# The first design's card numbers at 512^2 on the 66,560-triangle torus
+# (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W), printed beside this run's:
+# K10e and K10f's (a block a chunk, every pair's logit worked out in full)
+# and the culled step's with them; K10k and K10l's (a block a chunk, and a
+# thread a point with every chunk staged in every block; every triple's
+# sigmoids worked out in full), measured after K10e and K10f's redesign,
+# and the culled step's with those.
 FIRST_DESIGN_MS = {"pri_bwd_tables": 126.4583, "pri_bwd_dirs": 79.7943,
-           "culled_step": 336.37}
+                   "culled_step": 336.37, "shw_bwd_consts": 84.5155,
+                   "shw_bwd_rays": 65.0146, "culled_step_pr13": 206.0834}
 
 
 def two_launch_phase(dev, record: dict) -> list[dict]:
@@ -2151,6 +2180,13 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
     R, S = c["dirs"].shape[1], c["srcs"].shape[0]
     tables_scratch = srt.pri_bwd_tables_scratch(c["pri"], c["dirs"])
     rows = torch.empty((Tp, srt.ROW_STAGED), device=dev)
+    consts_scratch = srt.shw_bwd_consts_scratch(c["shw"], c["srcs"],
+                                                sargs[2])
+    # K10k in half its runs (SHW_SPLITS / 2), the setting it was chosen
+    # over: another order of its row sums, so only its time is read.
+    partials_half = consts_scratch[1][:consts_scratch[1].shape[0] // 2]
+    sdc_half = torch.empty_like(c["shw"])
+    shw_rows = torch.empty((S, Tp, srt.SHW_STAGED), device=dev)
     src_partials = torch.empty((-(-R // srt.THREADS), S, 3), device=dev)
     dc, dcam = torch.empty_like(c["pri"]), torch.empty(3, device=dev)
     dd, sdc = torch.empty_like(c["dirs"]), torch.empty_like(c["shw"])
@@ -2174,9 +2210,11 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
         "pri_bwd_dirs_8x4": lambda: srt.launch_pri_bwd_dirs_kernel(
             *pri_launch(pargs_8x4), rows, dd_8x4),
         "shw_bwd_consts": lambda: srt.launch_shw_bwd_consts_kernel(
-            *shw_launch(sargs), sdc),
+            *shw_launch(sargs), consts_scratch[0], consts_scratch[1], sdc),
+        "shw_bwd_consts_half": lambda: srt.launch_shw_bwd_consts_kernel(
+            *shw_launch(sargs), consts_scratch[0], partials_half, sdc_half),
         "shw_bwd_rays": lambda: srt.launch_shw_bwd_rays_kernel(
-            *shw_launch(sargs), src_partials, dsrc, dw),
+            *shw_launch(sargs), shw_rows, src_partials, dsrc, dw),
         **launch}
     t = median_ms_in_turns(kernels, n=1, reps=3, timer=held_ms)
     torch.cuda.synchronize()
@@ -2186,6 +2224,10 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
         f"{same_8x4}")
     require(same_8x4, "K10f on 8 x 4 pixels a warp gives the same d dirs")
     del pargs_8x4, dd_8x4
+    say(f"K10k in {consts_scratch[1].shape[0]} runs "
+        f"{t['shw_bwd_consts']:.4f} ms, in {partials_half.shape[0]} "
+        f"{t['shw_bwd_consts_half']:.4f} ms")
+    del partials_half, sdc_half
     plain = {}
     for part, fn, args in (("pri", srt.primary_agg_bwd_reference, pargs),
                            ("shw", srt.shadow_trans_bwd_reference, sargs)):
@@ -2215,13 +2257,17 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
     groups = {"pri": srt.bwd_groups(Tp, srt.PRI_USED, R),
               "shw": srt.bwd_groups(Tp, srt.SHW_USED, R)}
     passing = work["pairs"] - work["gated_p"]
+    passing_s = work["act_s"] - work["act_gated_s"]
     say(f"two-launch kernels alone, 66,560 triangles at 512^2 ({R} rays, "
         f"{work['pairs']} pairs, {work['gated_p']} gated, {work['dead_p']} "
         f"proved dead by K10e's and K10f's bound "
         f"({work['dead_p'] / max(passing, 1):.4%} of the gate's passing "
-        f"pairs), {work['live_p']} of weight not 0; {work['act_s']} shadow "
-        f"triples of d od not 0, {work['act_gated_s']} gated, "
-        f"{work['live_s']} live): "
+        f"pairs), {work['live_p']} of weight not 0; {work['triples']} "
+        f"shadow triples, {work['gated_s']} gated; {work['act_s']} of d od "
+        f"not 0, {work['act_gated_s']} of them gated, {work['dead_s']} found "
+        f"dead by K10k's and K10l's test "
+        f"({work['dead_s'] / max(passing_s, 1):.4%} of the gate's passing "
+        f"triples), {work['live_s']} live): "
         + ", ".join(f"{k} {t[k]:.4f} ms ("
                     + (f"first design {FIRST_DESIGN_MS[k]:.4f}; "
                        if k in FIRST_DESIGN_MS else "")
@@ -2235,7 +2281,8 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
         f"{bounds['shw_bwd_fused'][0]:.4f}) ({card})")
     say(f"culled 512^2 soft raytrace steps (CUDA events, median of 3): "
         f"66,560 triangles {step_ms[66560]:.4f} ms (first design "
-        f"{FIRST_DESIGN_MS['culled_step']:.2f}), 36,000 "
+        f"{FIRST_DESIGN_MS['culled_step']:.2f}; with K10k and K10l's "
+        f"{FIRST_DESIGN_MS['culled_step_pr13']:.2f}), 36,000 "
         f"{step_ms[36000]:.4f} ms; "
         f"peak memory {peak[66560]:.3f} / {peak[36000]:.3f} GB ({card})")
     for T in steps:

@@ -15,8 +15,10 @@
 // sums of its runs and of the camera, replaces _pri_bwd_tables_kernel; K10f,
 // soft_rt_pri_bwd_dirs_kernel, _pri_bwd_dirs_kernel (both redesigned for
 // Hopper around the pairs whose weight is exactly 0, below); K10k,
-// soft_rt_shw_bwd_consts_kernel, _shw_bwd_consts_kernel; K10l,
-// soft_rt_shw_bwd_rays_kernel and the sources' sum, _shw_bwd_rays_kernel.
+// soft_rt_shw_bwd_consts_kernel and the sums of its runs,
+// _shw_bwd_consts_kernel; K10l, soft_rt_shw_bwd_rays_kernel and the
+// sources' sum, _shw_bwd_rays_kernel (both redesigned around the triples
+// whose sigmoid is exactly 0, below).
 // The wrappers take them where JAX does, above its fused limit
 // (kernels/soft_raytrace.py::pri_two_launch, shw_two_launch), without a
 // mask, as JAX's two-launch route takes none.
@@ -90,7 +92,8 @@
 // the table: bound by operations (chip_smoke.py counts them on its inputs).
 // The two-launch halves each recompute every pair, so together they do the
 // fused backward's operations and about twice its recomputes; K10e and K10f
-// stop a pair that pri_pair_dead proves of weight 0 at that test.
+// stop a pair that pri_pair_dead proves of weight 0 at that test, K10k and
+// K10l a triple that shw_triple_dead finds dead at that test.
 //
 // Rounding. Built with -fmad=false and IEEE division and sqrt; every
 // expression in the JAX kernels' order (the shadow's rsqrt as 1 / sqrt, as
@@ -788,49 +791,6 @@ __global__ void __launch_bounds__(kThreads)
 // 256 MiB cap leaves fewer blocks than SMs. The pair derivatives are K10c's and K10i's
 // (pri_pair_bwd, shw_pair_bwd); each half drops the other half's outputs.
 
-// Each thread's share of a chunk's (row, column) entries, kMaxChunk * cols
-// of them over kThreads threads (K10k).
-constexpr int kShwOwn = (kMaxChunk * kShwUsed + kThreads - 1) / kThreads;
-
-// Adds the warps' row sums s_red[w][row][k] (w in order) to the entries
-// o = threadIdx.x + j kThreads < chunk * cols that this thread owns.
-template <int kCols, int kOwn>
-__device__ __forceinline__ void add_warp_rows(float (*s_red)[kMaxChunk][kCols],
-                                              int chunk, float* acc) {
-#pragma unroll
-  for (int j = 0; j < kOwn; ++j) {
-    const int o = threadIdx.x + j * kThreads;
-    if (o < chunk * kCols) {
-      const int row = o / kCols, k = o % kCols;
-      float sum = 0.0f;
-#pragma unroll
-      for (int wp = 0; wp < kWarps; ++wp) sum += s_red[wp][row][k];
-      acc[j] += sum;
-    }
-  }
-}
-
-// Writes chunk ch's rows of out (cols columns a row) from the entries the
-// threads own (acc, kCols used columns) and zeros in the rest; every
-// thread of the block calls it.
-template <int kCols, int kOwn>
-__device__ __forceinline__ void store_rows(const float* acc, int ch,
-                                           int chunk, int cols,
-                                           float (*s_acc)[kCols],
-                                           float* out) {
-#pragma unroll
-  for (int j = 0; j < kOwn; ++j) {
-    const int o = threadIdx.x + j * kThreads;
-    if (o < chunk * kCols) s_acc[o / kCols][o % kCols] = acc[j];
-  }
-  __syncthreads();
-  float* dst = out + static_cast<size_t>(ch) * chunk * cols;
-  for (int o = threadIdx.x; o < chunk * cols; o += kThreads) {
-    const int row = o / cols, k = o % cols;
-    dst[o] = k < kCols ? s_acc[row][k] : 0.0f;
-  }
-}
-
 // K10e and K10f, redesigned for Hopper around the dead pairs. On the main
 // path (512^2 on the 66,560-triangle torus, sharpness 40 / 40) 85% of the
 // (ray, row) pairs pass the gate and only about 1 in 640 of those has a
@@ -1229,6 +1189,15 @@ __global__ void __launch_bounds__(kThreads)
   if (i < n) out[i] = expf(x[i]);
 }
 
+// out[i] = sigmoid(x[i]), built with the kernels' flags: the tests' probe
+// of the exact zero that shw_triple_dead relies on.
+__global__ void __launch_bounds__(kThreads)
+    sigmoid_probe_kernel(const float* __restrict__ x, int n,
+                         float* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) out[i] = sigmoid(x[i]);
+}
+
 // The point r's shadow ray from the source at sp and its d od = gcot
 // (-16) trans (0 where it is no point).
 struct ShwPoint {
@@ -1260,71 +1229,275 @@ __device__ __forceinline__ void load_point(const float* world, int r, int R,
   }
 }
 
-// K10k, replaces _shw_bwd_consts_kernel: a block a chunk (blockIdx.x),
-// sweeping the sources in order and, for each, every point in runs of 256
-// in order, the chunk staged for the source; each run's row sums warp by
-// warp (in order) into the entries a thread owns (add_warp_rows), the
-// chunk's rows written once (store_rows).
-__global__ void __launch_bounds__(kThreads)
-    soft_rt_shw_bwd_consts_kernel(const float* __restrict__ consts,
-                                  int chunk, const float* __restrict__ srcs,
-                                  int S, const float* __restrict__ world,
-                                  int R, const float* __restrict__ trans,
-                                  const float* __restrict__ gcot, float es,
-                                  float zs, float* __restrict__ dc) {
-  __shared__ float s_q[kMaxChunk][kShwRow];
-  __shared__ float s_red[kWarps][kMaxChunk][kShwUsed];
-  __shared__ float s_acc[kMaxChunk][kShwUsed];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int ch = blockIdx.x;
-  float acc[kShwOwn];
+// K10k and K10l, redesigned for Hopper around the dead triples. On the main
+// path (512^2 on the 66,560-triangle torus, one light, sharpness 40 / 40)
+// about 62% of the (source, point, row) triples pass the gate and more than
+// 99% of those have sigmoid(es margin) exactly 0, yet shw_pair_bwd works out
+// both sigmoids (an expf and an IEEE divide each) before it finds that 0.
+// shw_triple_dead below finds nearly all of them, and both kernels run
+// shw_pair_bwd, unchanged, on the rest only.
+//
+// Exactness. The test computes the gate, u, v, the margin, xs = es margin
+// and y = zs (0.99 rr - t) with shw_pair_bwd's expressions in its order
+// (the build contracts nothing into an FMA), so xs and y are the very
+// floats its two sigmoids take. sigmoid(x) = 1 / (1 + expf(-x)): below x =
+// kSigZero = -100, -x > 100 lies past float32 expf's overflow (about
+// 88.72), so expf(-x) = +inf and 1 / (1 + inf) = 0 exactly. Then cov0 or
+// occ is 0 and shw_pair_bwd returns before it adds anything: a triple the
+// test calls dead adds exactly what it adds today, nothing, so no bit of
+// any output moves. tests/test_torch_gpu.py enumerates every float32 from
+// -100 down to -200 on the device through raytpu_soft_rt_sigmoid (built
+// with these flags) to hold it.
+//
+// NaN and inf. Every comparison with a NaN is false, so a NaN xs or y is
+// not dead and falls through to shw_pair_bwd, which does what it always
+// did; fminf drops a NaN u or v here exactly as it does there, so the
+// margin is the same float; xs = -inf or y = -inf is dead, and its sigmoid
+// is 1 / (1 + inf) = 0 too. A point whose d od is 0 (or no point) adds
+// nothing and is skipped whole, as before.
+//
+// Staging. A row is six float4s for a source (stage_shw_row, with
+// load_shw_chunk's expressions, so the same bits): the dead test reads the
+// first three, (n, k0), (c2b, |n|), (cb1, 1e-3 |n|); the live path also
+// (b, active), (e1, 0), (e2, 0). A point is (dh, 0.99 rr) for the test and,
+// packed for K10k (pack_shw_points_kernel, through shw_point), (d od, rr,
+// 0, 0) beside it. 1e-3 |n| and 0.99 rr are the products shw_pair_bwd
+// forms, taken once a row and once a point.
+//
+// K10l: a thread a point, 256 a block; the source's staged rows
+// (pack_shw_rows_kernel, once a launch) stream through a ring of kStages
+// stages of whole chunks in shared memory, copied with cp.async two stages
+// ahead, one barrier a stage, read by every thread as a broadcast. For
+// each chunk a thread tests its point against every row and keeps a mask of
+// the triples not dead, then runs shw_pair_bwd on those in row order; K10i's
+// chain through dh, rr, rrec and r2s follows once a chunk, and the point
+// sums over the sources, the chunks and the rows in K10i's order, so
+// d world equals K10i's bit for bit. A block whose points all have d od 0
+// for a source skips it. The sources' gradients: a (blocks, S, 3) partial
+// of warp sums, added in order.
+//
+// K10k: row-stationary. A thread owns a row of the table: its staged
+// constants for the current source and its 14 gradient sums stay in
+// registers. A block owns 256 rows and one of `splits` contiguous runs of
+// point tiles; the packed points stream through a ring of tiles of
+// kPtTile in shared memory (cp.async, two tiles ahead), read by every warp
+// as a broadcast. For each group of 32 points, a ballot of d od != 0 skips
+// the points that add nothing (uniform across the block); a thread tests
+// its row against the rest and keeps a mask of the triples not dead, then
+// runs shw_pair_bwd on those in point order and drops the point's and the
+// source's outputs: no shuffle, shared-memory write or barrier a triple.
+// Each block writes its (256, 14) partial of its run; the runs' partials
+// add in run order (sum_groups_kernel), so two calls give the same bits.
+
+constexpr float kSigZero = -100.0f;  // sigmoid below this: exactly 0
+constexpr int kShwQ = 6;             // float4s of a staged shadow row
+constexpr int kPtQ = 2;              // float4s of a packed point
+constexpr int kPtTile = 256;         // points a K10k tile
+
+// Row q of the shadow table (14 used columns) staged for the source at sp
+// as six float4s with load_shw_chunk's expressions: s0 = (n, k0), s1 =
+// (c2b, |n|), s2 = (cb1, 1e-3 |n|), s3 = (b, active), s4 = (e1, 0), s5 =
+// (e2, 0).
+__device__ __forceinline__ void stage_shw_row(const float* q, const float* sp,
+                                              float4* s) {
+  float b[3], e1[3], e2[3], c2b[3], cb1[3];
 #pragma unroll
-  for (int j = 0; j < kShwOwn; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    b[j] = sp[j] - q[j];
+    e1[j] = q[3 + j];
+    e2[j] = q[6 + j];
+  }
+  const float k0 = ((sp[0] * q[9] + sp[1] * q[10]) + sp[2] * q[11]) - q[12];
+  cross3(e2, b, c2b);
+  cross3(b, e1, cb1);
+  const float nm = sqrtf((q[9] * q[9] + q[10] * q[10]) + q[11] * q[11]);
+  s[0] = make_float4(q[9], q[10], q[11], k0);
+  s[1] = make_float4(c2b[0], c2b[1], c2b[2], nm);
+  s[2] = make_float4(cb1[0], cb1[1], cb1[2], 1e-3f * nm);
+  s[3] = make_float4(b[0], b[1], b[2], q[13]);
+  s[4] = make_float4(e1[0], e1[1], e1[2], 0.0f);
+  s[5] = make_float4(e2[0], e2[1], e2[2], 0.0f);
+}
+
+// A staged row back in load_shw_chunk's layout (21 floats), as
+// shw_pair_bwd reads it.
+__device__ __forceinline__ void unstage_shw_row(const float4* s, float* q) {
+  const float4 s0 = s[0], s1 = s[1], s2 = s[2], s3 = s[3], s4 = s[4],
+               s5 = s[5];
+  q[0] = s3.x; q[1] = s3.y; q[2] = s3.z; q[13] = s3.w;
+  q[3] = s4.x; q[4] = s4.y; q[5] = s4.z;
+  q[6] = s5.x; q[7] = s5.y; q[8] = s5.z;
+  q[9] = s0.x; q[10] = s0.y; q[11] = s0.z; q[12] = s0.w;
+  q[14] = s1.x; q[15] = s1.y; q[16] = s1.z; q[20] = s1.w;
+  q[17] = s2.x; q[18] = s2.y; q[19] = s2.z;
+}
+
+// True where the triple of a point (pt = (dh, 0.99 rr)) and a staged row
+// (s0-s2) adds nothing: gated, by shw_pair_bwd's own test, or with xs or y
+// below kSigZero, where its sigmoid is exactly 0 (see above). False sends
+// it to shw_pair_bwd. The tests are or-ed bitwise, with no return between
+// them, so that the compiler schedules a run of triples as one block (a
+// gated triple's xs and y are computed and ignored).
+__device__ __forceinline__ bool shw_triple_dead(float4 s0, float4 s1,
+                                                float4 s2, float4 pt,
+                                                float es, float zs) {
+  // s1.w (|n|) is the live path's.
+  const float denom = -((pt.x * s0.x + pt.y * s0.y) + pt.z * s0.z);
+  const float safe = fabsf(denom) > 1e-12f ? denom : 1e-12f;
+  const float rec = 1.0f / safe;
+  const float t = s0.w * rec;
+  const float u = ((pt.x * s1.x + pt.y * s1.y) + pt.z * s1.z) * rec;
+  const float v = ((pt.x * s2.x + pt.y * s2.y) + pt.z * s2.z) * rec;
+  const float margin = fminf(fminf(u, v), (1.0f - u) - v);
+  const float xs = es * margin;
+  const float y = zs * (pt.w - t);
+  return !(t > 1e-6f) | !(fabsf(denom) > s2.w) | (xs < kSigZero) |
+         (y < kSigZero);
+}
+
+// The table's Tp rows staged (stage_shw_row) for each source (blockIdx.y)
+// for K10l: out (S, Tp, kShwQ float4s).
+__global__ void __launch_bounds__(kThreads)
+    pack_shw_rows_kernel(const float* __restrict__ consts, int Tp,
+                         const float* __restrict__ srcs,
+                         float4* __restrict__ out) {
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  const int src = blockIdx.y;
+  if (row >= Tp) return;
+  const float sp[3] = {srcs[3 * src], srcs[3 * src + 1], srcs[3 * src + 2]};
+  float q[kShwUsed];
+#pragma unroll
+  for (int k = 0; k < kShwUsed; ++k) {
+    q[k] = consts[static_cast<size_t>(row) * kShwCols + k];
+  }
+  float4 s[kShwQ];
+  stage_shw_row(q, sp, s);
+  float4* o = out + (static_cast<size_t>(src) * Tp + row) * kShwQ;
+#pragma unroll
+  for (int k = 0; k < kShwQ; ++k) o[k] = s[k];
+}
+
+// The points packed for each source (blockIdx.y) for K10k: out (S, Rp,
+// kPtQ float4s), Rp >= R, (dh, 0.99 rr) and (d od, rr, 0, 0) from
+// shw_point; d od 0 past R.
+__global__ void __launch_bounds__(kThreads)
+    pack_shw_points_kernel(const float* __restrict__ srcs,
+                           const float* __restrict__ world, int R, int Rp,
+                           const float* __restrict__ trans,
+                           const float* __restrict__ gcot,
+                           float4* __restrict__ out) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const int src = blockIdx.y;
+  if (r >= Rp) return;
+  const float sp[3] = {srcs[3 * src], srcs[3 * src + 1], srcs[3 * src + 2]};
+  const bool live = r < R;
+  float w[3];
+  load_point(world, r, R, live, w);
+  const ShwPoint p = shw_point(w, sp, trans, gcot, src, r, R, live);
+  float4* o = out + (static_cast<size_t>(src) * Rp + r) * kPtQ;
+  o[0] = make_float4(p.a.dh[0], p.a.dh[1], p.a.dh[2], 0.99f * p.a.rr);
+  o[1] = make_float4(p.dl, p.a.rr, 0.0f, 0.0f);
+}
+
+// K10k, replaces _shw_bwd_consts_kernel (see above): rows blockIdx.x * 256
+// + threadIdx.x, point tiles [blockIdx.y tps, (blockIdx.y + 1) tps) of each
+// source's packed points (Rp a whole number of tiles); partials (splits,
+// Tp, 14). Four blocks an SM (64 registers a thread, a few bytes spilled)
+// ran faster than the three or two that more registers allow, tiles of
+// 256 points than of 128, and 64 runs (kernels/soft_raytrace.py
+// SHW_SPLITS) than 32, 16 or 8 (chip_smoke.py's phase 32 times 64 beside
+// 32). At Tp = 66,560 the 64 runs' partials take 239 MB.
+__global__ void __launch_bounds__(kThreads, 4)
+    soft_rt_shw_bwd_consts_kernel(const float* __restrict__ consts, int Tp,
+                                  const float* __restrict__ srcs, int S,
+                                  const float4* __restrict__ pts, int Rp,
+                                  int tps, float es, float zs,
+                                  float* __restrict__ partials) {
+  __shared__ float4 s_pts[kStages * kPtTile * kPtQ];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row = blockIdx.x * kThreads + tid;
+  const bool row_live = row < Tp;
+  float g[kShwUsed];
+#pragma unroll
+  for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
+  const int n_tiles = Rp / kPtTile;
+  const int t0 = blockIdx.y * tps;
+  const int nt = max(0, min(n_tiles, t0 + tps) - t0);
   for (int src = 0; src < S; ++src) {
     const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
                          srcs[3 * src + 2]};
-    __syncthreads();  // every thread is done with the previous source's rows
-    load_shw_chunk(consts, ch, chunk, sp, s_q);
-    for (int run = 0; run * kThreads < R; ++run) {
-      const int r = run * kThreads + tid;
-      const bool live = r < R;
-      float w[3];
-      load_point(world, r, R, live, w);
-      const ShwPoint p = shw_point(w, sp, trans, gcot, src, r, R, live);
-      float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;  // K10l's
-      float dsrc[3] = {0.0f, 0.0f, 0.0f};
-      for (int i = 0; i < chunk; ++i) {
-        float g[kShwUsed];
+    float q[kShwUsed], qs[kShwRow];  // a row past Tp: zeros, always gated
 #pragma unroll
-        for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
-        const bool mine = p.active && shw_pair_bwd(s_q[i], p.a.dh, p.a.rr,
-                                                   p.dl, sp, es, zs, g, ddh,
-                                                   &drr, dsrc);
-        warp_sum_store<kShwUsed>(g, mine, s_red[warp][i]);
+    for (int k = 0; k < kShwUsed; ++k) {
+      q[k] = row_live ? consts[static_cast<size_t>(row) * kShwCols + k]
+                      : 0.0f;
+    }
+    float4 s[kShwQ];
+    stage_shw_row(q, sp, s);
+    unstage_shw_row(s, qs);
+    const float4* run =
+        pts + (static_cast<size_t>(src) * Rp +
+               static_cast<size_t>(t0) * kPtTile) * kPtQ;
+    auto issue = [&](int k) {
+      if (k < nt) {
+        copy_async(s_pts + (k % kStages) * kPtTile * kPtQ,
+                   run + static_cast<size_t>(k) * kPtTile * kPtQ,
+                   kPtTile * kPtQ);
       }
-      __syncthreads();
-      add_warp_rows<kShwUsed, kShwOwn>(s_red, chunk, acc);
-      __syncthreads();  // s_red is free again
+      cp_async_commit();
+    };
+    __syncthreads();  // every thread is done with the last source's tiles
+    issue(0);
+    issue(1);
+    for (int k = 0; k < nt; ++k) {
+      cp_async_wait_one();
+      __syncthreads();  // tile k is in; every thread is done with k - 1
+      issue(k + 2);     // into tile k - 1's buffer
+      const float4* buf = s_pts + (k % kStages) * kPtTile * kPtQ;
+      for (int grp = 0; grp < kPtTile; grp += 32) {
+        const float4* p = buf + grp * kPtQ;
+        // The points of d od not 0: the same bits in every warp.
+        const unsigned act =
+            __ballot_sync(kFull, p[lane * kPtQ + 1].x != 0.0f);
+        unsigned mask = 0u;
+#pragma unroll 8
+        for (int j = 0; j < 32; ++j) {
+          if (((act >> j) & 1u) &&
+              !shw_triple_dead(s[0], s[1], s[2], p[j * kPtQ], es, zs)) {
+            mask |= 1u << j;
+          }
+        }
+        while (mask != 0u) {  // this row's triples not dead, in point order
+          const int j = __ffs(mask) - 1;
+          mask &= mask - 1u;
+          const float4 pt = p[j * kPtQ], pl = p[j * kPtQ + 1];
+          const float dh[3] = {pt.x, pt.y, pt.z};
+          float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;  // K10l's
+          float dsrc[3] = {0.0f, 0.0f, 0.0f};
+          shw_pair_bwd(qs, dh, pl.y, pl.x, sp, es, zs, g, ddh, &drr, dsrc);
+        }
+      }
     }
   }
-  store_rows<kShwUsed, kShwOwn>(acc, ch, chunk, kShwCols, s_acc, dc);
+  if (row_live) {
+    float* dst =
+        partials + (static_cast<size_t>(blockIdx.y) * Tp + row) * kShwUsed;
+#pragma unroll
+    for (int k = 0; k < kShwUsed; ++k) dst[k] = g[k];
+  }
 }
 
-// K10l, replaces _shw_bwd_rays_kernel: a thread a point, 256 a block, the
-// sources in order and for each every chunk in order, staged for the source
-// as K10g stages it. The point's gradient adds up chunk by chunk and is
-// summed over the sources in order, as K10i's is (the same bits); the
-// sources' gradients: a (blocks, S, 3) partial of warp sums added in order.
+// K10l, replaces _shw_bwd_rays_kernel (see above): point blockIdx.x * 256
+// + threadIdx.x; rows the table staged for each source (S, Tp, kShwQ).
 __global__ void __launch_bounds__(kThreads)
-    soft_rt_shw_bwd_rays_kernel(const float* __restrict__ consts,
-                                int n_chunks, int chunk,
-                                const float* __restrict__ srcs, int S,
-                                const float* __restrict__ world, int R,
-                                const float* __restrict__ trans,
+    soft_rt_shw_bwd_rays_kernel(const float4* __restrict__ rows, int Tp,
+                                int chunk, const float* __restrict__ srcs,
+                                int S, const float* __restrict__ world,
+                                int R, const float* __restrict__ trans,
                                 const float* __restrict__ gcot, float es,
                                 float zs, float* __restrict__ src_partials,
                                 float* __restrict__ dw_out) {
-  __shared__ float s_q[kMaxChunk][kShwRow];
+  __shared__ float4 s_rows[kStages * kStageRows * kShwQ];
   __shared__ float s_src[kWarps][3];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int r = blockIdx.x * kThreads + tid;
@@ -1335,37 +1508,74 @@ __global__ void __launch_bounds__(kThreads)
   float g[kShwUsed];  // K10k's
 #pragma unroll
   for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
+  const int stage_rows = (kStageRows / chunk) * chunk;
+  const int n_stages = (Tp + stage_rows - 1) / stage_rows;
   for (int src = 0; src < S; ++src) {
     const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
                          srcs[3 * src + 2]};
     const ShwPoint p = shw_point(w, sp, trans, gcot, src, r, R, live);
     const ShadowRay& a = p.a;
+    const float4 pt = make_float4(a.dh[0], a.dh[1], a.dh[2], 0.99f * a.rr);
+    const float4* src_rows = rows + static_cast<size_t>(src) * Tp * kShwQ;
     float dws[3] = {0.0f, 0.0f, 0.0f}, dsrc[3] = {0.0f, 0.0f, 0.0f};
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      __syncthreads();  // s_q (and s_src) are free again
-      load_shw_chunk(consts, ch, chunk, sp, s_q);
-      if (!p.active) continue;
-      float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;
-      for (int i = 0; i < chunk; ++i) {
-        shw_pair_bwd(s_q[i], a.dh, a.rr, p.dl, sp, es, zs, g, ddh, &drr,
-                     dsrc);
+    auto issue = [&](int s) {
+      if (s < n_stages) {
+        const int row0 = s * stage_rows;
+        copy_async(s_rows + (s % kStages) * kStageRows * kShwQ,
+                   src_rows + static_cast<size_t>(row0) * kShwQ,
+                   min(stage_rows, Tp - row0) * kShwQ);
       }
-      // K10i's chain through dh, rr, rrec and r2s to d = w - sp.
-      float drrec = drr * a.r2s;
-      float dd[3];
+      cp_async_commit();
+    };
+    // Also the barrier after every thread's last use of the stages and of
+    // s_src for the source before.
+    if (__syncthreads_or(p.active)) {
+      issue(0);
+      issue(1);
+      for (int s = 0; s < n_stages; ++s) {
+        cp_async_wait_one();
+        __syncthreads();  // stage s is in; every thread is done with s - 1
+        issue(s + 2);     // into stage s - 1's buffer
+        if (!p.active) continue;
+        const float4* buf = s_rows + (s % kStages) * kStageRows * kShwQ;
+        const int n_ch = min(stage_rows, Tp - s * stage_rows) / chunk;
+        for (int cc = 0; cc < n_ch; ++cc) {
+          const float4* q = buf + cc * chunk * kShwQ;
+          unsigned mask = 0u;
+#pragma unroll 8
+          for (int i = 0; i < chunk; ++i) {
+            const float4* qi = q + i * kShwQ;
+            if (!shw_triple_dead(qi[0], qi[1], qi[2], pt, es, zs)) {
+              mask |= 1u << i;
+            }
+          }
+          float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;
+          while (mask != 0u) {  // the point's triples not dead, in row order
+            const int i = __ffs(mask) - 1;
+            mask &= mask - 1u;
+            float qs[kShwRow];
+            unstage_shw_row(q + i * kShwQ, qs);
+            shw_pair_bwd(qs, a.dh, a.rr, p.dl, sp, es, zs, g, ddh, &drr,
+                         dsrc);
+          }
+          // K10i's chain through dh, rr, rrec and r2s to d = w - sp.
+          float drrec = drr * a.r2s;
+          float dd[3];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        dd[j] = ddh[j] * a.rrec;
-        drrec += ddh[j] * a.d[j];
-      }
-      const float dsq = -drrec / (a.sq * a.sq);
-      const float dr2s = drr * a.rrec + dsq * (0.5f / a.sq);
-      const float dr2 = a.lit ? dr2s : 0.0f;
+          for (int j = 0; j < 3; ++j) {
+            dd[j] = ddh[j] * a.rrec;
+            drrec += ddh[j] * a.d[j];
+          }
+          const float dsq = -drrec / (a.sq * a.sq);
+          const float dr2s = drr * a.rrec + dsq * (0.5f / a.sq);
+          const float dr2 = a.lit ? dr2s : 0.0f;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        dd[j] += dr2 * a.d[j] + dr2 * a.d[j];
-        dws[j] += dd[j];
-        dsrc[j] -= dd[j];
+          for (int j = 0; j < 3; ++j) {
+            dd[j] += dr2 * a.d[j] + dr2 * a.d[j];
+            dws[j] += dd[j];
+            dsrc[j] -= dd[j];
+          }
+        }
       }
     }
 #pragma unroll
@@ -1658,49 +1868,90 @@ extern "C" int raytpu_soft_rt_expf(const void* x, int n, void* out,
   return (int)cudaGetLastError();
 }
 
+// out (n,) = sigmoid(x (n,)), float32 device pointers, as the kernels
+// above compute it (the tests' probe of shw_triple_dead's exact zero).
+// Launches on `stream`; returns the launch's cudaError_t.
+extern "C" int raytpu_soft_rt_sigmoid(const void* x, int n, void* out,
+                                      void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  sigmoid_probe_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
 // K10k: consts (Tp, 16) float32 in chunks of `chunk` <= 32 rows; srcs
-// (S, 3), world (3, R), trans and gcot (S, R) float32; dc (Tp, 16) float32
-// output, every entry written. Launches the kernel on `stream` and returns
-// the launch's cudaError_t.
+// (S, 3), world (3, R), trans and gcot (S, R) float32; scratch: pts (S,
+// ceil(R / 256) 256, 8) and partials (splits, Tp, 14) float32, 1 <= splits
+// <= ceil(R / 256); dc (Tp, 16) float32 output, every entry written.
+// Launches the points' packing, the kernel and the sum over the runs on
+// `stream`; returns the first cudaError_t.
 extern "C" int raytpu_soft_rt_shw_bwd_consts(const void* consts, int Tp,
                                              int chunk, const void* srcs,
                                              int S, const void* world, int R,
                                              const void* trans,
                                              const void* gcot, float es,
-                                             float zs, void* dc,
+                                             float zs, void* pts, int splits,
+                                             void* partials, void* dc,
                                              void* stream) {
-  if (bad_shape(Tp, chunk, R) || S < 1) return (int)cudaErrorInvalidValue;
-  soft_rt_shw_bwd_consts_kernel<<<Tp / chunk, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(consts), chunk,
-      static_cast<const float*>(srcs), S, static_cast<const float*>(world),
-      R, static_cast<const float*>(trans), static_cast<const float*>(gcot),
-      es, zs, static_cast<float*>(dc));
-  return (int)cudaGetLastError();
+  const int n_tiles = (R + kPtTile - 1) / kPtTile;
+  if (bad_shape(Tp, chunk, R) || S < 1 || S > 65535 || splits < 1 ||
+      splits > n_tiles || splits > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Rp = n_tiles * kPtTile;
+  float4* packed = static_cast<float4*>(pts);
+  pack_shw_points_kernel<<<dim3(Rp / kThreads, S), kThreads, 0, st>>>(
+      static_cast<const float*>(srcs), static_cast<const float*>(world), R,
+      Rp, static_cast<const float*>(trans), static_cast<const float*>(gcot),
+      packed);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  float* part = static_cast<float*>(partials);
+  soft_rt_shw_bwd_consts_kernel<<<dim3((Tp + kThreads - 1) / kThreads,
+                                       splits),
+                                  kThreads, 0, st>>>(
+      static_cast<const float*>(consts), Tp, static_cast<const float*>(srcs),
+      S, packed, Rp, (n_tiles + splits - 1) / splits, es, zs, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_groups(part, splits, Tp, kShwUsed, kShwCols,
+                         static_cast<float*>(dc), st);
 }
 
 // K10l: consts, srcs, world, trans and gcot as for
-// raytpu_soft_rt_shw_bwd_consts; src_partials (ceil(R / 256), S, 3)
-// float32 scratch; dsrc (S, 3) and dw (3, R) float32 outputs. Launches the
-// kernel and the sources' sum on `stream`; returns the first cudaError_t.
+// raytpu_soft_rt_shw_bwd_consts; scratch: rows (S, Tp, 24) float32, the
+// table staged for each source, and src_partials (ceil(R / 256), S, 3)
+// float32; dsrc (S, 3) and dw (3, R) float32 outputs. Launches the
+// table's staging, the kernel and the sources' sum on `stream`; returns
+// the first cudaError_t.
 extern "C" int raytpu_soft_rt_shw_bwd_rays(const void* consts, int Tp,
                                            int chunk, const void* srcs, int S,
                                            const void* world, int R,
                                            const void* trans,
                                            const void* gcot, float es,
-                                           float zs, void* src_partials,
-                                           void* dsrc, void* dw,
-                                           void* stream) {
-  if (bad_shape(Tp, chunk, R) || S < 1) return (int)cudaErrorInvalidValue;
+                                           float zs, void* rows,
+                                           void* src_partials, void* dsrc,
+                                           void* dw, void* stream) {
+  if (bad_shape(Tp, chunk, R) || S < 1 || S > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* staged = static_cast<float4*>(rows);
+  pack_shw_rows_kernel<<<dim3((Tp + kThreads - 1) / kThreads, S), kThreads,
+                         0, st>>>(static_cast<const float*>(consts), Tp,
+                                  static_cast<const float*>(srcs), staged);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int blocks = (R + kThreads - 1) / kThreads;
   float* spart = static_cast<float*>(src_partials);
   soft_rt_shw_bwd_rays_kernel<<<blocks, kThreads, 0, st>>>(
-      static_cast<const float*>(consts), Tp / chunk, chunk,
-      static_cast<const float*>(srcs), S, static_cast<const float*>(world),
-      R, static_cast<const float*>(trans), static_cast<const float*>(gcot),
-      es, zs, spart, static_cast<float*>(dw));
-  const cudaError_t err = cudaGetLastError();
+      staged, Tp, chunk, static_cast<const float*>(srcs), S,
+      static_cast<const float*>(world), R, static_cast<const float*>(trans),
+      static_cast<const float*>(gcot), es, zs, spart,
+      static_cast<float*>(dw));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)sum_groups(spart, blocks, S, 3, 3, static_cast<float*>(dsrc),
                          st);

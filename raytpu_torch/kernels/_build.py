@@ -95,13 +95,16 @@ SIGNATURES = {
                                     _P, _P, _P],
     # x, n, out, stream
     "raytpu_soft_rt_expf": [_P, _I, _P, _P],
-    # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs, dc, stream
+    # x, n, out, stream
+    "raytpu_soft_rt_sigmoid": [_P, _I, _P, _P],
+    # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs, pts,
+    # splits, partials, dc, stream
     "raytpu_soft_rt_shw_bwd_consts": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _F,
-                                      _F, _P, _P],
-    # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs,
+                                      _F, _P, _I, _P, _P, _P],
+    # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs, rows,
     # src_partials, dsrc, dw, stream
     "raytpu_soft_rt_shw_bwd_rays": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _F,
-                                    _F, _P, _P, _P, _P],
+                                    _F, _P, _P, _P, _P, _P],
     # dirs, table, params, C, Rp, tile_r, layout, gather, shade, ambient,
     # parity, color, fd, idx, occ, stream
     "raytpu_mega_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,

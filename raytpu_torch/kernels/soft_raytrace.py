@@ -29,6 +29,8 @@ chunk's sums).
   *_reference       their plain PyTorch versions.
   primary_dead_pairs  the plain form of K10e's and K10f's early-out: the
                     pairs they prove of weight exactly 0 and skip.
+  shadow_dead_triples  the plain form of K10k's and K10l's early-out: the
+                    triples whose sigmoid is exactly 0, which they skip.
   PrimaryAgg, ShadowTrans   the torch.autograd.Functions around them
                     (``_primary_agg``, ``_shadow_trans``).
   PrimaryAggStats   PrimaryAgg returning (out, m, s) (``_primary_agg_stats``),
@@ -163,6 +165,20 @@ RAY_PACKED = 16
 TABLE_SPLITS = 16
 # K10f's scratch: the table staged 24 floats a row.
 ROW_STAGED = 24
+# K10k and K10l stop a (source, point, row) triple whose sigmoid argument
+# es margin or zs (0.99 r - t) lies below this: that sigmoid is exactly 0
+# (shadow_dead_triples, csrc/soft_raytrace.cu::shw_triple_dead).
+SIG_ZERO = -100.0
+# K10k's scratch: each source's points packed 8 floats each in tiles of
+# POINT_TILE, the tiles cut into at most SHW_SPLITS runs (one partial of
+# the table each): at R = 512^2 and Tp = 66,560, 8.4 MB of points a source
+# (268 MB at S = 32) and 239 MB of partials. K10l's: the table staged 24
+# floats a row for each source (S Tp 96 B: 6.4 MB at Tp = 66,560 and S =
+# 1, 204 MB at S = 32).
+POINT_TILE = 256
+POINT_PACKED = 8
+SHW_SPLITS = 64
+SHW_STAGED = 24
 
 
 def pri_two_launch(Tp: int) -> bool:
@@ -488,6 +504,55 @@ def primary_dead_pairs(cs, dirs, m, es: float, zs: float) -> torch.Tensor:
     return ~hit | ((bound - m[None, :]) < DEAD_BELOW)
 
 
+def shadow_dead_triples(cs, src, world, es: float,
+                        zs: float) -> torch.Tensor:
+    """Plain PyTorch form of K10k's and K10l's early-out
+    (csrc/soft_raytrace.cu::shw_triple_dead) in its operations' order, for
+    the tests and chip_smoke.py; the kernels' route never calls it. cs
+    (C, 16) rows of the shadow table, src (3,) one source, world (3, P)
+    the points. Returns (C, P) bool, True where the triple is gated or
+    where ``xs = es margin`` or ``y = zs (0.99 r - t)``, the floats the
+    kernels' two sigmoids take, lies below SIG_ZERO: that sigmoid, and the
+    triple's term and gradient, are then exactly 0. A NaN xs or y marks
+    nothing."""
+    def col(j):
+        return cs[:, j:j + 1]
+
+    # The point's ray (shadow_ray): 1 / |d| as 1 / sqrt.
+    d = [world[j:j + 1] - src[j] for j in range(3)]
+    r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    r2s = torch.where(r2 > 0.0, r2, 1.0)
+    rrec = 1.0 / _sqrt_f32(r2s)
+    rr = r2s * rrec
+    dh = [dj * rrec for dj in d]
+    # The row staged for the source (stage_shw_row).
+    b = [src[j] - col(j) for j in range(3)]
+    e1 = [col(3), col(4), col(5)]
+    e2 = [col(6), col(7), col(8)]
+    n = [col(9), col(10), col(11)]
+    c2b = [e2[1] * b[2] - e2[2] * b[1],
+           e2[2] * b[0] - e2[0] * b[2],
+           e2[0] * b[1] - e2[1] * b[0]]
+    cb1 = [b[1] * e1[2] - b[2] * e1[1],
+           b[2] * e1[0] - b[0] * e1[2],
+           b[0] * e1[1] - b[1] * e1[0]]
+    k0 = ((src[0] * n[0] + src[1] * n[1]) + src[2] * n[2]) - col(12)
+    nmag = _sqrt_f32((n[0] * n[0] + n[1] * n[1]) + n[2] * n[2])
+    # The test (shw_triple_dead).
+    denom = -((dh[0] * n[0] + dh[1] * n[1]) + dh[2] * n[2])
+    safe = torch.where(denom.abs() > 1e-12, denom, 1e-12)
+    rec = 1.0 / safe
+    t = k0 * rec
+    u = ((dh[0] * c2b[0] + dh[1] * c2b[1]) + dh[2] * c2b[2]) * rec
+    v = ((dh[0] * cb1[0] + dh[1] * cb1[1]) + dh[2] * cb1[2]) * rec
+    # fminf drops a NaN operand; torch.fmin does too.
+    margin = torch.fmin(torch.fmin(u, v), (1.0 - u) - v)
+    xs = es * margin
+    y = zs * (0.99 * rr - t)
+    hit = (t > 1e-6) & (denom.abs() > 1e-3 * nmag)
+    return ~hit | (xs < SIG_ZERO) | (y < SIG_ZERO)
+
+
 def _record(fn, args, kinks_wanted: bool):
     """The branch decisions of fn(*float32 args) for a replay, or None."""
     if not kinks_wanted:
@@ -791,27 +856,62 @@ def expf_probe(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sigmoid_probe(x: torch.Tensor) -> torch.Tensor:
+    """sigmoid of x (n,) float32 as the kernels compute it, 1 / (1 +
+    expf(-x)): on a CUDA tensor through the library's
+    raytpu_soft_rt_sigmoid (built with the kernels' flags), on a CPU
+    tensor torch.sigmoid. The tests' probe of the exact zero that K10k's
+    and K10l's early-out relies on."""
+    if not _route(x):
+        return torch.sigmoid(x)
+    _check("x", x, (x.numel(),), x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _raise("soft_rt_sigmoid", _build.load().raytpu_soft_rt_sigmoid(
+            x.data_ptr(), x.numel(), out.data_ptr(), _stream()))
+    return out
+
+
+def shw_bwd_consts_scratch(consts, srcs, world) -> tuple:
+    """K10k's scratch for a (Tp, 16) table, srcs (S, 3) and world (3, R):
+    the packed points (S, ceil(R / POINT_TILE) POINT_TILE, POINT_PACKED)
+    and the runs' partials (splits, Tp, 14), splits = min(SHW_SPLITS, the
+    point tiles)."""
+    tiles = -(-world.shape[1] // POINT_TILE)
+    return (consts.new_empty((srcs.shape[0], tiles * POINT_TILE,
+                              POINT_PACKED)),
+            consts.new_empty((min(SHW_SPLITS, tiles), consts.shape[0],
+                              SHW_USED)))
+
+
 def launch_shw_bwd_consts_kernel(consts, chunk: int, srcs, world, trans,
-                                 gcot, es: float, zs: float, dc) -> None:
-    """Launch K10k into dc (Tp, 16). Checks nothing and counts nothing."""
+                                 gcot, es: float, zs: float, pts, partials,
+                                 dc) -> None:
+    """Launch K10k (the points' packing, the kernel, the sum of its runs'
+    partials) into dc (Tp, 16), with the scratch of shw_bwd_consts_scratch
+    (its runs, partials.shape[0]), all allocated by the caller. Checks
+    nothing and counts nothing."""
     _raise("soft_rt_shw_bwd_consts",
            _build.load().raytpu_soft_rt_shw_bwd_consts(
                consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
                srcs.shape[0], world.data_ptr(), world.shape[1],
-               trans.data_ptr(), gcot.data_ptr(), es, zs, dc.data_ptr(),
+               trans.data_ptr(), gcot.data_ptr(), es, zs, pts.data_ptr(),
+               partials.shape[0], partials.data_ptr(), dc.data_ptr(),
                _stream()))
 
 
 def launch_shw_bwd_rays_kernel(consts, chunk: int, srcs, world, trans, gcot,
-                               es: float, zs: float, src_partials, dsrc,
-                               dw) -> None:
-    """Launch K10l and the sum of its (ceil(R / 256), S, 3) source partials
-    into dsrc (S, 3) and dw (3, R). Checks nothing and counts nothing."""
+                               es: float, zs: float, rows, src_partials,
+                               dsrc, dw) -> None:
+    """Launch K10l (the table's staging into rows (S, Tp, SHW_STAGED), the
+    kernel, the sum of its (ceil(R / 256), S, 3) source partials) into dsrc
+    (S, 3) and dw (3, R), its scratch allocated by the caller. Checks
+    nothing and counts nothing."""
     _raise("soft_rt_shw_bwd_rays", _build.load().raytpu_soft_rt_shw_bwd_rays(
         consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
         srcs.shape[0], world.data_ptr(), world.shape[1], trans.data_ptr(),
-        gcot.data_ptr(), es, zs, src_partials.data_ptr(), dsrc.data_ptr(),
-        dw.data_ptr(), _stream()))
+        gcot.data_ptr(), es, zs, rows.data_ptr(), src_partials.data_ptr(),
+        dsrc.data_ptr(), dw.data_ptr(), _stream()))
 
 
 def primary_agg_fwd(consts: torch.Tensor, cam: torch.Tensor,
@@ -1007,10 +1107,11 @@ def shadow_bwd_consts(consts, srcs, world, trans, gcot, es: float, zs: float,
         return shadow_trans_bwd_reference(consts, srcs, world, trans, gcot,
                                           es, zs, chunk)[0]
     _check_shw_bwd(consts, srcs, world, trans, gcot, chunk)
+    scratch = shw_bwd_consts_scratch(consts, srcs, world)
     dc = torch.empty_like(consts)
     with torch.cuda.device(consts.device):
         launch_shw_bwd_consts_kernel(consts, chunk, srcs, world, trans, gcot,
-                                     es, zs, dc)
+                                     es, zs, *scratch, dc)
     LAUNCHES_SRT_SHW_BWD_CONSTS += 1
     return dc
 
@@ -1025,11 +1126,12 @@ def shadow_bwd_rays(consts, srcs, world, trans, gcot, es: float, zs: float,
         return shadow_trans_bwd_reference(consts, srcs, world, trans, gcot,
                                           es, zs, chunk)[1:]
     S, R = _check_shw_bwd(consts, srcs, world, trans, gcot, chunk)
+    rows = consts.new_empty((S, consts.shape[0], SHW_STAGED))
     src_partials = consts.new_empty((-(-R // THREADS), S, 3))
     dsrc, dw = torch.empty_like(srcs), torch.empty_like(world)
     with torch.cuda.device(consts.device):
         launch_shw_bwd_rays_kernel(consts, chunk, srcs, world, trans, gcot,
-                                   es, zs, src_partials, dsrc, dw)
+                                   es, zs, rows, src_partials, dsrc, dw)
     LAUNCHES_SRT_SHW_BWD_RAYS += 1
     return dsrc, dw
 

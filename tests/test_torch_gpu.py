@@ -1067,19 +1067,20 @@ def _assert_f11_rule(got, want64, plain32, groups):
                 or (f64 > 1.0 and r64 <= 2.0 * f64)), (name, r32, r64, f64)
 
 
-def _two_launch_case(device, quads, size, width=None):
+def _two_launch_case(device, quads, size, width=None, srcs=None):
     """The two-launch backwards' inputs on the torus at size^2, or size x
-    width (the STL camera, 40 / 40, cull=False), two shadow sources: the
-    tables, rays, the plain forward's m, hit positions and transmittance,
-    one-signed cotangents."""
+    width (the STL camera, 40 / 40, cull=False), two shadow sources (or
+    srcs (S, 3)): the tables, rays, the plain forward's m, hit positions
+    and transmittance, one-signed cotangents."""
     from raytpu_torch.kernels import soft_raytrace as srt
     from raytpu_torch.render.soft import raytrace_soft_inputs
     scene = _torus(device, quads)
     camera = Camera.make((0.0, -0.5, -5.0), focal=size * 0.6, device=device)
     cfg = RenderConfig(width=width or size, height=size, mode="soft",
                        soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
-    srcs = torch.tensor([[0.3, -1.5, -3.0], [0.25, -1.45, -3.1]],
-                        device=device)
+    if srcs is None:
+        srcs = torch.tensor([[0.3, -1.5, -3.0], [0.25, -1.45, -3.1]],
+                            device=device)
     with torch.no_grad():
         inp = raytrace_soft_inputs(scene, camera, cfg, cull=False)
         out, m, _ = srt.primary_agg_reference(inp.pri, camera.pos, inp.dirs,
@@ -1090,8 +1091,9 @@ def _two_launch_case(device, quads, size, width=None):
     R = size * (width or size)
     return ((inp.pri, camera.pos.contiguous(), inp.dirs, m,
              _one_signed((10, R), device, 0), inp.es, inp.zs, inp.chunk),
-            (inp.shw, srcs, world, trans, _one_signed((2, R), device, 1),
-             inp.es, inp.zs, inp.chunk))
+            (inp.shw, srcs, world, trans,
+             _one_signed((srcs.shape[0], R), device, 1), inp.es, inp.zs,
+             inp.chunk))
 
 
 @pytest.mark.parametrize("quads,size,limit", [
@@ -1220,6 +1222,90 @@ def test_dead_pair_kernels_through_the_hole(cuda):
     assert not m.any() and dead
     assert not dc.any() and not dcam.any()
     assert torch.equal(dd, fused[2]) and not dd.any()
+
+
+def test_dead_triple_kernels_on_a_ragged_frame(cuda, monkeypatch):
+    """K10k and K10l on a 40 x 72 frame of the 800-triangle torus with four
+    shadow sources, the limit forced down: 2,880 points, not a whole number
+    of K10k's 256-point tiles or K10l's blocks. Against the plain backward
+    in float64 with the float32 branch decisions and in float32 by column
+    group (F11's rule); two calls bit-identical; d world equal to the fused
+    K10i's bit for bit, as the early-out skips only triples that add
+    exactly nothing; the plain predicate marks most of the triples (83.8%
+    of them, gated ones included, on the card)."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", 256)
+    srcs = torch.tensor([[0.3, -1.5, -3.0], [0.25, -1.45, -3.1],
+                         [-0.4, -1.2, -2.8], [0.1, 1.3, -3.3]], device=cuda)
+    sargs = _two_launch_case(cuda, (20, 20), 40, width=72, srcs=srcs)[1]
+    consts, srcs, world, trans, gcot, es, zs, chunk = sargs
+    assert world.shape[1] == 2880 and srt.shw_two_launch(consts.shape[0])
+    before = (srt.LAUNCHES_SRT_SHW_BWD_CONSTS, srt.LAUNCHES_SRT_SHW_BWD_RAYS)
+    got = (srt.shadow_bwd_consts(*sargs), *srt.shadow_bwd_rays(*sargs))
+    assert (srt.LAUNCHES_SRT_SHW_BWD_CONSTS,
+            srt.LAUNCHES_SRT_SHW_BWD_RAYS) == (before[0] + 1, before[1] + 1)
+    again = (srt.shadow_bwd_consts(*sargs), *srt.shadow_bwd_rays(*sargs))
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", 1 << 30)
+    fused = srt.shadow_trans_bwd(*sargs)
+    want = srt.shadow_trans_bwd_reference(
+        *(t.double() for t in sargs[:5]), *sargs[5:], f32_branches=True)
+    plain = srt.shadow_trans_bwd_reference(*sargs)
+    dead = torch.cat([srt.shadow_dead_triples(consts, srcs[k], world, es, zs)
+                      for k in range(srcs.shape[0])])
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    assert torch.equal(got[2], fused[2])
+    assert not got[0][:, srt.SHW_USED:].any()
+    one = (("all", 0, 3),)
+    _assert_f11_rule(got[0], want[0], plain[0], srt.SHW_GROUPS)
+    _assert_f11_rule(got[1], want[1], plain[1], one)
+    _assert_f11_rule(got[2].T, want[2].T, plain[2].T, one)
+    assert float(dead.float().mean()) > 0.8
+
+
+def test_dead_triple_kernels_with_every_point_inactive(cuda, monkeypatch):
+    """K10k and K10l where every point's cotangent is 0 (d od 0): every
+    point is skipped, and the gradients are exactly zero, as the fused
+    K10i's."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", 256)
+    sargs = list(_two_launch_case(cuda, (20, 20), 40, width=72)[1])
+    sargs[4] = torch.zeros_like(sargs[4])
+    dc = srt.shadow_bwd_consts(*sargs)
+    dsrc, dw = srt.shadow_bwd_rays(*sargs)
+    monkeypatch.setattr(srt, "FUSED_BWD_MAX_ROWS", 1 << 30)
+    fused = srt.shadow_trans_bwd(*sargs)
+    torch.cuda.synchronize()
+    assert not dc.any() and not dsrc.any() and not dw.any()
+    assert not any(t.any() for t in fused)
+
+
+def test_sigmoid_is_zero_below_the_dead_threshold(cuda):
+    """shw_triple_dead's premise on the card: the kernels' sigmoid (built
+    with their flags) returns exactly 0 for every float32 from -100 down
+    to -200, enumerated on the device (8,388,609 values), and for one in
+    every 997 below that down to -FLT_MAX and -inf; at -88 it is not yet
+    0."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+
+    def floats(lo_bits, hi_bits, step=1):
+        bits = torch.arange(lo_bits, hi_bits + 1, step, dtype=torch.int64,
+                            device=cuda)
+        return bits.to(torch.int32).view(torch.float32)
+
+    x = floats(0xC2C80000, 0xC3480000)  # -100 ... -200, every float32
+    assert x.numel() == 8_388_609
+    assert float(x[0]) == srt.SIG_ZERO and float(x[-1]) == -200.0
+    assert bool((x[1:] < x[:-1]).all())
+    below = torch.cat([floats(0xC3480000, 0xFF7FFFFF, 997),
+                       torch.tensor([-3.4028235e38, -float("inf")],
+                                    device=cuda)])
+    got, got_below = srt.sigmoid_probe(x), srt.sigmoid_probe(below)
+    edge = srt.sigmoid_probe(torch.tensor([-88.0], device=cuda))
+    torch.cuda.synchronize()
+    assert not got.any() and not got_below.any()
+    assert float(edge[0]) > 0.0
 
 
 def test_expf_underflows_below_the_dead_threshold(cuda):
