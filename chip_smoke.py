@@ -365,6 +365,11 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # and the backward's recompute, derivative and block sums of a hit ray
 # (render_fused_bwd.cu).
 FLOPS_PLANE_TEST, FLOPS_FWD_SHADE, FLOPS_BWD_HIT = 20, 50, 180
+# K7a's any-hit reject (csrc/intersect.cu::shadow_reject): FLOPS_DOTS for
+# the dot products, the products |D| kRejectT and |D| kRejectUV, the sum
+# U + V and, unlike the counts above, its 8 comparisons: they are most of
+# what it does beside the dots.
+FLOPS_REJECT = 15 + 3 + 8  # FLOPS_DOTS + 3 + 8
 # The raster kernels' pixel-triangle test (raster.cu::sweep): four planes
 # of two multiplies and two adds.
 FLOPS_RASTER_TEST = 16
@@ -828,7 +833,11 @@ def stl_work(case: dict, kernel: str) -> dict:
     every column (K5); each tile's real rays against its kept chunks'
     (K7d, K7a's primary sweep); and K7a's shadow sweeps: each hit ray of a
     tile, for each source, through the chunks the tile keeps for it in
-    order, up to its first blocker (t < 0.99)."""
+    order, up to its first blocker (t < 0.99). Of those shadow tests,
+    ``rejected`` counts the ones K7a's reject decides (its plain form,
+    kernels/intersect.py::shadow_reject), and ``reject_wrong`` every test
+    of the sweeps, to the end of each chunk, that it rejects and
+    plane_tests calls blocking (it must be 0)."""
     from raytpu_torch.kernels import intersect as isect
     from raytpu_torch.ops.intersect import plane_tests
     from raytpu_torch.ops.shade import SHADOW_T
@@ -848,37 +857,73 @@ def stl_work(case: dict, kernel: str) -> dict:
         c["dirs"], c["table"][:10], C, pmask.int(), tiles)
     hit = idx >= 0
     pos = c["cam"][None, :] + torch.where(hit, t, 0.0)[:, None] * c["dirs"]
-    shadow = 0
-    for s in range(c["src"].shape[0]):
+    cols = torch.arange(C, device=pos.device)[None, :]
+    shadow = rejected = wrong = 0
+    S = c["src"].shape[0]
+    ray_tests = torch.zeros((S, R), dtype=torch.long, device=pos.device)
+    for s in range(S):
         sweeping = hit.clone()
         for ch in range(n):
             keep = c["mask"][tiles.tile, (1 + s) * n + ch] != 0
             rows = torch.nonzero(sweeping & keep).squeeze(1)
             if rows.numel() == 0:
                 continue
-            ts, oks = plane_tests(pos[rows] - c["src"][s][None, :],
-                                  *isect._chunk(c["table"], 1 + s, ch, C))
+            delta = pos[rows] - c["src"][s][None, :]
+            m, k0 = isect._chunk(c["table"], 1 + s, ch, C)
+            ts, oks = plane_tests(delta, m, k0)
             blocked = oks & (ts < SHADOW_T)
+            reject = isect.shadow_reject(delta, m, k0)
             first = blocked.float().argmax(dim=1) + 1
             any_ = blocked.any(dim=1)
-            shadow += int(torch.where(any_, first, C).sum())
+            tests = torch.where(any_, first, C)
+            ray_tests[s].index_add_(0, rows, tests)
+            shadow += int(tests.sum())
+            rejected += int((reject & (cols < tests[:, None])).sum())
+            wrong += int((reject & blocked).sum())
             sweeping[rows[any_]] = False
-    work["shadow"] = shadow
+    # K7a packs each tile's hit rays in ray order into warps of 32; in one
+    # run a warp sweeps until its last lane is done. Lane use: the tests its
+    # lanes make over 32 times its longest lane's, summed over the sources.
+    rays = torch.nonzero(hit).squeeze(1)  # in ray order
+    tile = tiles.tile[rays]
+    per_tile = torch.bincount(tile, minlength=tiles.count)
+    start = torch.cumsum(per_tile, 0) - per_tile
+    order = torch.argsort(tile, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(rays.numel(), device=rays.device) - start[
+        tile[order]]
+    warp = tile * (isect.TILE_RAYS // 32) + rank // 32
+    longest = torch.zeros((S, tiles.count * (isect.TILE_RAYS // 32)),
+                          dtype=torch.long, device=rays.device)
+    longest.scatter_reduce_(1, warp[None, :].expand(S, -1),
+                            ray_tests[:, rays], "amax")
+    work.update(shadow=shadow, rejected=rejected, reject_wrong=wrong,
+                hit_tiles=int((per_tile > 0).sum()),
+                hit_warps=int(((per_tile + 31) // 32).sum()),
+                lane_use=float(ray_tests.sum()) / max(
+                    1, 32 * int(longest.sum())))
     return work
 
 
-def stl_bound(case: dict, kernel: str, work: dict) -> tuple[float, str]:
+def stl_bound(case: dict, kernel: str, work: dict,
+              reject: bool = True) -> tuple[float, str]:
     """K5's, K7d's or K7a's bound: 12 B in and 8 + 4 S B out a ray, the
     table and the mask read once, FLOPS_PLANE_TEST a plane test of
-    stl_work."""
+    stl_work; K7a's shadow tests FLOPS_REJECT each and, where the reject
+    does not decide, a plane test besides (``reject`` False: every test a
+    plane test, the count before K7a's reject)."""
     c = case
     R, S = c["dirs"].shape[0], c["src"].shape[0]
     nbytes = R * (12 + 8 + 4 * S) + c["table"].numel() * 4 + (3 + 3 * S) * 4
     if kernel != "k5":
         nbytes += (c["mask"].numel() if kernel == "k7a"
                    else c["tiles"].count * c["n_chunks"]) * 4
-    return bound_ms(nbytes,
-                    FLOPS_PLANE_TEST * (work["primary"] + work["shadow"]))
+    flops = FLOPS_PLANE_TEST * (work["primary"] + work["shadow"])
+    if kernel == "k7a" and reject:
+        flops = (FLOPS_PLANE_TEST * (work["primary"] + work["shadow"]
+                                     - work["rejected"])
+                 + FLOPS_REJECT * work["shadow"])
+    return bound_ms(nbytes, flops)
 
 
 def kernel_counts() -> dict:
@@ -4745,6 +4790,61 @@ def main() -> int:
         stl_cases[name]["out"] = got
         del again, ones, want, brute
 
+    # K7a's reject: its plain form over every shadow test of both frames'
+    # sweeps (stl_work, to the end of each kept chunk), and the device
+    # reject (the probe kernel) against plane_test on the card on the
+    # hand-built edge pairs (= the plain form bit for bit there), 2^20
+    # random pairs and 2^20 real (hit ray, source, triangle) tests of the
+    # S = 32 frame.
+    reject_share = {}
+    for name in ("render_stl_500_s1", "render_stl_500_s32"):
+        c = stl_cases[name]
+        c["work"] = w = stl_work(c, "k7a")
+        reject_share[name] = w["rejected"] / w["shadow"]
+        say(f"K7a reject, {name}: decides {w['rejected']} of {w['shadow']} "
+            f"shadow tests ({reject_share[name]:.6f}); rejects "
+            f"{w['reject_wrong']} blocking tests of the sweeps; "
+            f"{w['hit_tiles']} of {c['tiles'].count} tiles hold a hit ray, "
+            f"{w['hit_warps']} warps of hit rays, lane use of one run "
+            f"{w['lane_use']:.4f}")
+        require(w["reject_wrong"] == 0,
+                f"{name}: the reject rejects no blocking test")
+        require(reject_share[name] > 0.99, f"{name}: the reject decides "
+                                           f"nearly every shadow test")
+    c = stl_cases["render_stl_500_s32"]
+    rng = np.random.default_rng(25)
+    hit_rays = torch.nonzero(c["out"][1] >= 0).squeeze(1)
+    n_real = 1 << 20
+    pick = torch.tensor(rng.integers(0, hit_rays.numel(), n_real), device=dev)
+    s_of = torch.tensor(rng.integers(0, c["src"].shape[0], n_real),
+                        device=dev)
+    col = torch.tensor(rng.integers(0, c["table"].shape[1], n_real),
+                       device=dev)
+    r_of = hit_rays[pick]
+    pos = c["cam"][None, :] + c["out"][0][r_of][:, None] * c["dirs"][r_of]
+    blocks = c["table"].reshape(-1, 10, c["table"].shape[1])
+    probe_pairs = {
+        "edge": isect.reject_edge_pairs(dev),
+        "random": isect.reject_random_pairs(n_real, 25, dev),
+        "real S = 32": ((pos - c["src"][s_of]).contiguous(),
+                        blocks[1 + s_of, :, col].contiguous())}
+    probe = {}
+    for pname, (rays_e, tri) in probe_pairs.items():
+        rej, blk = isect.shadow_reject_probe(rays_e, tri)
+        torch.cuda.synchronize()
+        probe[pname] = dict(pairs=rays_e.shape[0], rejected=int(rej.sum()),
+                            blocked=int(blk.sum()),
+                            wrong=int((rej & blk).sum()))
+        say(f"reject probe on the card, {pname}: {probe[pname]}")
+        require(probe[pname]["wrong"] == 0,
+                f"the device reject rejects no blocking {pname} pair")
+        if pname == "edge":
+            m, k0 = tri[:, :9].reshape(-1, 3, 3), tri[:, 9]
+            require(torch.equal(rej, isect.shadow_reject(rays_e[:1], m,
+                                                         k0)[0]),
+                    "the device reject = its plain form on the edge pairs")
+    del probe_pairs, pick, s_of, col, r_of, pos
+
     # The VJP of t at T = 9,028 (gather and fixed-order sums) against its
     # float64 evaluation; two backward calls bit-identical.
     c = stl_cases["render_stl_500_s1"]
@@ -4770,7 +4870,8 @@ def main() -> int:
     require(float(g32[2].abs().max()) > 0.0, "the VJP reaches k0")
     say(f"VJP of t at T = 9,028 vs float64: {', '.join(stl_vjp)}; two "
         f"backward calls bit-identical True")
-    record.update(stl_err=stl_err, stl_keep=stl_keep, stl_vjp=stl_vjp)
+    record.update(stl_err=stl_err, stl_keep=stl_keep, stl_vjp=stl_vjp,
+                  reject_share=reject_share, reject_probe=probe)
 
     say("== phase 24: the hard raytracer at STL scale serving (the render "
         "CLI's --stl frames, the oracle)")
@@ -4779,9 +4880,9 @@ def main() -> int:
     sources_seen = []
     launch_k7a = isect.launch_occluded_masked_kernel
 
-    def spy_k7a(dirs, table, C, cam, src, *args):
+    def spy_k7a(dirs, table, C, cam, src, *args, **kwargs):
         sources_seen.append(src.shape[0])
-        return launch_k7a(dirs, table, C, cam, src, *args)
+        return launch_k7a(dirs, table, C, cam, src, *args, **kwargs)
 
     ff_flags = ["--aa", "3", "--soft-shadows", "16", "--add-light", "0.4",
                 "-0.5", "-0.7", "1", "1", "1", "7", "--dof"]
@@ -4942,7 +5043,9 @@ def main() -> int:
     stl_busy = device_busy(step_stl, steps=3)
 
     # The kernels alone: K5 and K7d on the row's rays, K7a on the render
-    # --stl sub-ray (S = 1) and the full-feature sources (S = 32).
+    # --stl sub-ray (S = 1) and the full-feature sources (S = 32): K7a whole
+    # and its halves, the primary (phases 1: sweep, merge, packing) and the
+    # shadow (phases 2, on the hits a phase 1 left in the same scratch).
     stl_k = {}
     for name, kernel in (("stl_intersect_512", "k5"),
                          ("stl_intersect_512", "k7d"),
@@ -4953,10 +5056,15 @@ def main() -> int:
         outs = isect._outputs(c["dirs"], S)
         table, C = c["table"], c["C"]
         if kernel == "k7a":
-            def launch(c=c, outs=outs):
-                isect.launch_occluded_masked_kernel(
+            scratch = isect.k7a_scratch(c["dirs"], table, C, S, c["tiles"])
+
+            def k7a_launch(phases, c=c, outs=outs, scratch=scratch):
+                return lambda: isect.launch_occluded_masked_kernel(
                     c["dirs"], c["table"], c["C"], c["cam"], c["src"],
-                    c["mask"], c["tiles"], *outs)
+                    c["mask"], c["tiles"], *outs, scratch=scratch,
+                    phases=phases)
+            fns = {"kernel": k7a_launch(3), "primary": k7a_launch(1),
+                   "shadow": k7a_launch(2)}
         else:
             mask = (None if kernel == "k5"
                     else c["mask"][:, :c["n_chunks"]].contiguous())
@@ -4965,16 +5073,24 @@ def main() -> int:
                 isect.launch_closest_kernel(c["dirs"], c["table"][:10],
                                             c["C"], mask, c["tiles"],
                                             *outs[:2])
-        t = median_ms_in_turns({"kernel": launch}, n=3, reps=5,
-                               timer=held_ms)
+            fns = {"kernel": launch}
+        t = median_ms_in_turns(fns, n=3, reps=5, timer=held_ms)
+        if kernel == "k7a":
+            # The halves' outputs after the turns = a whole call's.
+            fns["primary"]()
+            fns["shadow"]()
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(outs, c["out"])),
+                    f"{name}: K7a's halves give its outputs")
         # The plain versions, warm from phase 23, back to back: K7a's at
         # S = 32 (seconds) once.
         t["plain"] = (cuda_ms(lambda c=c: run_stl(c, kernel, plain=True), 1)
                       if S > 1 else median_ms_in_turns(
                           {"plain": lambda c=c, k=kernel: run_stl(
                               c, k, plain=True)}, n=1, reps=3)["plain"])
-        work = stl_work(c, kernel)
-        t.update(work=work, bound=stl_bound(c, kernel, work))
+        work = c["work"] if kernel == "k7a" else stl_work(c, kernel)
+        t.update(work=work, bound=stl_bound(c, kernel, work),
+                 bound_old=stl_bound(c, kernel, work, reject=False))
         stl_k[f"{kernel}_{name}"] = t
         del outs
         torch.cuda.empty_cache()
@@ -4985,6 +5101,13 @@ def main() -> int:
             f"{t['plain']:.4f} ms back to back; bound {t['bound'][0]:.4f} "
             f"ms, {t['bound'][1]}: {w['primary']} primary and {w['shadow']} "
             f"shadow plane tests, primary keep rate {w['keep']:.4f}) ({card})")
+        if key.startswith("k7a"):
+            say(f"{key} halves: primary {t['primary']:.4f} ms, shadow "
+                f"{t['shadow']:.4f} ms device time; {w['rejected']} shadow "
+                f"tests decided by the reject; bound "
+                f"{t['bound'][0]:.4f} ms (without the reject, every test a "
+                f"plane test: {t['bound_old'][0]:.4f} ms); {w['hit_tiles']} "
+                f"tiles hold a hit ray in {w['hit_warps']} warps ({card})")
     say(f"stl_intersect row (CUDA events, median of 7, 3 calls each): brute "
         f"{row_ms['brute']:.4f} ms, culled {row_ms['culled']:.4f} ms "
         f"(mask included) ({card})")
@@ -5395,6 +5518,12 @@ def main() -> int:
             entry["s32"] = dict(ms=s32["kernel"], plain_ms=s32["plain"],
                                 bound_ms=s32["bound"][0],
                                 bound_by=s32["bound"][1])
+            for part, tt in (("s1", t), ("s32", s32)):
+                entry.setdefault(part, {}).update(
+                    primary_ms=tt["primary"], shadow_ms=tt["shadow"],
+                    bound_without_reject_ms=tt["bound_old"][0],
+                    reject_share=tt["work"]["rejected"]
+                    / tt["work"]["shadow"])
         return entry
 
     say(card)

@@ -67,10 +67,9 @@
 // raytpu_closest_hit_occluded_masked, replaces ::_fused_multi_kernel_masked
 // (launched by _fused_multi_masked_raw through the scene_geom branch of
 // intersect_occluded_multi_pallas, which every sub-ray of raytrace_full
-// takes on a scene of more than 128 triangles): the masked primary sweep
-// (closest_hit_kernel<true> on the mask's primary columns), then for each
-// of S sources the any-hit sweep over the chunks that source's mask
-// columns keep (occlusion_masked_kernel), two kernels in one launch.
+// takes on a scene of more than 128 triangles): the masked primary sweep,
+// then for each of S sources the any-hit sweep over the chunks that
+// source's mask columns keep.
 //
 // Rounding. Built with -fmad=false and IEEE division, each expression in
 // the JAX kernel's order (the shadow direction is (cam + tz * d) - source),
@@ -79,7 +78,7 @@
 // closest_reference, closest_masked_reference, occluded_masked_reference)
 // on the card bit for bit.
 //
-// Several chunks (K5, K7d, K7a). The TPU kernels' (ray tile, chunk) grid,
+// Several chunks (K5, K7d). The TPU kernels' (ray tile, chunk) grid,
 // whose VMEM scratch carries the running best from one grid step to the
 // next, becomes a loop inside the block: one thread a ray, one block of 256
 // rays a ray tile (16 x 16 pixels of an image, or 256 consecutive rays of a
@@ -91,15 +90,34 @@
 // ties, within a chunk and across chunks, as the JAX kernels' chunk min
 // with `upd = chunk_min <= best_t` does. A culled chunk holds no hit for
 // any ray of its tile (the mask is conservative), so t and idx equal the
-// brute sweep's. K7a's shadow phase then runs one block for each (tile,
-// source) pair: it forms pos = cam + tz * d from the primary kernel's t and
-// sweeps the source's kept chunks, a ray stopping at its first blocker and
-// the block leaving the remaining chunks once no ray of it still sweeps
-// (__syncthreads_or). One block a tile for all S sources would leave the
-// card nearly idle: on an STL frame only the few tiles that see the model
-// have hits, and each would run S sweeps in turn. Threads of a tile past
-// the image's edge take part in the staging and the barriers and write
-// nothing.
+// brute sweep's.
+//
+// K7a on Hopper. On an STL frame only the few tiles that see the mesh
+// hold work (on the 9,028-triangle mesh at 500^2, 7% of the rays hit), so
+// a block a tile would leave most of the card idle. K7a therefore runs
+// four kernels, one call:
+// - k7a_primary_kernel, a block a (tile, run): the tile's kept primary
+//   chunks are split into PRIMARY_RUNS runs by rank among the kept ones,
+//   each swept as above into partial (t, idx);
+// - k7a_merge_kernel, a block a tile: each ray folds its runs' partials in
+//   run order with `<=`, which is the sweep's own fold (the minimum, and the
+//   last index of it, since later runs hold later chunks); then the tile's
+//   hit rays are packed into full warps in ray order (ballot and prefix
+//   count) with their hit positions, and the tile's warps of hit rays are
+//   listed;
+// - k7a_pack_tris_kernel copies the S shadow blocks triangle-major, 48
+//   bytes a triangle, so a test reads its constants in three loads (two of
+//   16 bytes, one of 8), not ten;
+// - k7a_shadow_kernel, persistent warps that take work items (a warp of a
+//   tile's hit rays, a source, a run of that source's kept chunks) from an
+//   atomic counter: no block-wide barrier, a lane stops at its first
+//   blocker, the warp leaves once no lane sweeps, and a test first takes
+//   the exact reject (shadow_reject), which decides nearly every test
+//   without the IEEE reciprocal; plane_test decides the rest. With few
+//   sources a (tile, source)'s kept chunks are split into SHADOW_RUNS / S
+//   runs, so the few tiles spread over every SM; the runs' bits OR into the
+//   zeroed occ (a store of 1), in any order.
+// Misses keep occ 0. The work lists are built on the card: no host sync.
 //
 // K7b and K7c, occlusion_points_kernel<false> and <true>, replace
 // intersect_pallas.py::_occlusion_multi_kernel (launched at :1078 by
@@ -112,8 +130,8 @@
 // (raytpu_torch/parallel/render.py::_merged_occlusion_rows). Block (tile,
 // s), one thread a point: the ray is pos - src[s], swept over source s's
 // chunks (K7c: the chunks its (tile, s) mask columns keep, skipped
-// block-uniformly) as occlusion_masked_kernel sweeps, a point stopping at
-// its first blocker and the block leaving once none of its points still
+// block-uniformly), each chunk staged between two barriers, a point
+// stopping at its first blocker and the block leaving once none of its points still
 // sweeps. Unlike K7a every point is tested, a miss's camera-origin point
 // included, as the JAX kernels test every point; the masks of
 // kernels/cull.py::position_shadow_mask are conservative for every point,
@@ -125,10 +143,14 @@
 // table: bound by operations. The culled kernels do the kept (tile, chunk)
 // pairs' share of that. What the design does about it: the constants are
 // read from shared memory as broadcasts, two barriers a kept chunk, no
-// atomics, and a kept chunk costs one global read of 5 KB a block.
+// atomics, and a kept chunk costs one global read of 5 KB a block. K7a's
+// shadow tests that the reject decides cost its 26 operations (15 for the
+// dot products, 3 products and sums and 8 comparisons), the others those
+// and a plane test's 20: bound by operations (chip_smoke.py::stl_bound).
 
 #include <cfloat>
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "plane_test.cuh"
@@ -333,51 +355,361 @@ __global__ void __launch_bounds__(kThreads)
   idx_out[ray.r] = best_t < FLT_MAX ? best_i : -1;
 }
 
-// K7a's shadow phase: block (tile, s) sweeps source s's kept chunks for
-// the tile's hit rays, from the primary hits t of the same launch.
-__global__ void __launch_bounds__(kThreads)
-    occlusion_masked_kernel(const float* __restrict__ dirs,
-                            const float* __restrict__ table, int Tp, int C,
-                            const float* __restrict__ cam,
-                            const float* __restrict__ src, int S,
-                            const int* __restrict__ mask, int H, int W,
-                            int th, const float* __restrict__ t_in,
-                            int* __restrict__ occ_out) {
-  __shared__ float s_blk[kBlockRows * kMaxTris];
-  const TileRay ray = tile_ray(H, W, th);
-  const int s = blockIdx.y;
-  const int n_chunks = Tp / C;
-  const int* keep = mask +
-                    static_cast<size_t>(blockIdx.x) * (1 + S) * n_chunks +
-                    static_cast<size_t>(1 + s) * n_chunks;
-  const float* blk = table + static_cast<size_t>(1 + s) * kBlockRows * Tp;
-  float ex = 0.0f, ey = 0.0f, ez = 0.0f;
-  bool hit = false;
-  if (ray.valid) {
-    const float best_t = t_in[ray.r];
-    hit = best_t < FLT_MAX;
-    // The hit position, cam + tz * d as the JAX kernel forms it.
-    const float tz = hit ? best_t : 0.0f;
-    ex = (cam[0] + tz * dirs[3 * ray.r]) - src[3 * s];
-    ey = (cam[1] + tz * dirs[3 * ray.r + 1]) - src[3 * s + 1];
-    ez = (cam[2] + tz * dirs[3 * ray.r + 2]) - src[3 * s + 2];
-  }
-  bool sweeping = hit;
-  bool occ = false;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (keep[c] == 0) continue;  // block-uniform
-    // A barrier (the previous chunk is read) that also tells whether any
-    // ray of the tile still sweeps this source.
-    if (!__syncthreads_or(sweeping)) break;
-    stage(s_blk, blk, Tp, C, c);
-    __syncthreads();
-    if (sweeping && blocked(s_blk, C, ex, ey, ez)) {
-      occ = true;
-      sweeping = false;
+// ---------------------------------------------------------------------------
+// K7a: the primary sweep in runs of kept chunks, their ordered merge and the
+// packing of each tile's hit rays, then the shadow sweeps a warp a work item.
+
+constexpr int kTileWarps = kThreads / 32;  // warps of a 256-ray tile
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The reject's constants (kernels/intersect.py REJECT_*), float32 exactly.
+constexpr float kRejectMinD = 0x1p-40f;
+constexpr float kRejectMaxD = 0x1p40f;
+constexpr float kRejectEps = 0x1p-80f;
+constexpr float kRejectT = 0x1.fae168p-1f;  // kShadowT + 2^-20
+constexpr float kRejectUV = 0x1.00001p0f;   // 1 + 2^-20
+
+// The dot products of plane_test for the triangle-major constants
+// a = (n, k0), b = (c2, c3.x), c = (c3.y, c3.z), in plane_test's order:
+// Dn = -D (D is plane_test's denom, Dn the sum it negates), U (u's
+// numerator) and V (v's).
+__device__ __forceinline__ void shadow_dots(float4 a, float4 b, float2 c,
+                                            float ex, float ey, float ez,
+                                            float* Dn, float* U, float* V) {
+  *Dn = (ex * a.x + ey * a.y) + ez * a.z;
+  *U = (ex * b.x + ey * b.y) + ez * b.z;
+  *V = (ex * b.w + ey * c.x) + ez * c.y;
+}
+
+// x with D's sign bit XOR-ed in, from Dn = -D, whose sign bit is D's
+// complemented (one LOP3).
+__device__ __forceinline__ float flip_by(float x, float Dn) {
+  return __int_as_float(__float_as_int(x) ^
+                        (~__float_as_int(Dn) & static_cast<int>(0x80000000u)));
+}
+
+// The exact any-hit reject: true only where plane_test's ok && t < 0.99 is
+// surely false, decided from D, U, V and K (k0) without the reciprocal.
+//
+// plane_test forms r = fl(1 / D), u = fl(U r), v = fl(V r), t = fl(K r)
+// and fl(u + v). Round to nearest is symmetric, so with Ds = |D| and Us,
+// Vs, Ks the values with D's sign bit XOR-ed in (exact), u = fl(Us r'),
+// v = fl(Vs r'), t = fl(Ks r') for r' = fl(1 / Ds). Let e = 2^-24, and
+// take the guard 2^-40 <= Ds <= 2^40 (it fails for NaN, inf, 0 and every
+// subnormal D): then r' lies in [2^-40, 2^40] and fl(Ds c) = Ds c (1 + d),
+// |d| <= e, for c near 1. Each clause below implies the test fails:
+// - D = 0: plane_test's nonpar is false.
+// - Us < -2^-80: Us r' <= -2^-120, a normal number, so u < 0 (likewise
+//   Vs and v, Ks and t). A tiny or zero Us is left alone: fl(Us r') may
+//   round to -0, which passes u >= 0.
+// - Ks >= fl(Ds kRejectT): Ks r' >= kRejectT (1 - e)^2 > kShadowT, since
+//   kRejectT = kShadowT + 2^-20, so t = fl(Ks r') >= kShadowT (rounding is
+//   monotone and kShadowT a float; an overflow gives +inf).
+// - fl(Us + Vs) > fl(Ds kRejectUV), with Us, Vs >= -2^-80 (else a clause
+//   above holds): W = Us + Vs > Ds kRejectUV (1 - 2e), so r' W >
+//   kRejectUV (1 - e) (1 - 2e); |fl(x) - x| <= e |x| + 2^-150 gives
+//   u + v >= r' W - e r' (|Us| + |Vs|) - 2^-149, and |Us| + |Vs| <= W +
+//   4 2^-80, so u + v >= r' W (1 - e) - 2^-61 >= kRejectUV (1 - 4e) -
+//   2^-61 >= 1 + 2^-21 and fl(u + v) > 1 (kRejectUV = 1 + 2^-20).
+// A NaN makes every comparison that reads it false, so it never rejects.
+// Everything else (a test that blocks, a margin case, a D outside the
+// guard) falls through to plane_test. kernels/intersect.py::shadow_reject
+// is the plain form; the card enumerates it against plane_test
+// (raytpu_shadow_reject_probe). It takes Dn = -D (shadow_dots), so that D
+// itself is never formed.
+__device__ __forceinline__ bool shadow_reject(float Dn, float U, float V,
+                                              float K) {
+  const float Ds = fabsf(Dn);
+  const float Us = flip_by(U, Dn), Vs = flip_by(V, Dn), Ks = flip_by(K, Dn);
+  const bool guard = (Ds >= kRejectMinD) & (Ds <= kRejectMaxD);
+  const bool miss = (Us < -kRejectEps) | (Vs < -kRejectEps) |
+                    (Ks < -kRejectEps) | (Ks >= Ds * kRejectT) |
+                    (Us + Vs > Ds * kRejectUV);
+  return (Dn == 0.0f) | (guard & miss);
+}
+
+// The kept chunks of one keep-mask row (n columns) with rank in [lo, hi)
+// among the kept ones, in order: fn(c) for each, until fn returns false
+// (warp-uniformly). Every lane of the warp calls it and sees the same
+// chunks.
+template <typename Fn>
+__device__ __forceinline__ void for_kept_run(const int* __restrict__ keep,
+                                             int n, int lo, int hi, Fn fn) {
+  const int lane = threadIdx.x & 31;
+  int rank = 0;
+  for (int base = 0; base < n && rank < hi; base += 32) {
+    unsigned bits =
+        __ballot_sync(kFullMask, base + lane < n && keep[base + lane] != 0);
+    while (bits != 0u && rank < hi) {
+      const int c = base + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      if (rank++ >= lo && !fn(c)) return;
     }
   }
-  if (ray.valid)
-    occ_out[static_cast<size_t>(s) * H * W + ray.r] = occ ? 1 : 0;
+}
+
+// Kept chunks of a keep-mask row, counted by a warp.
+__device__ __forceinline__ int kept_count(const int* __restrict__ keep,
+                                          int n) {
+  const int lane = threadIdx.x & 31;
+  int k = 0;
+  for (int base = 0; base < n; base += 32)
+    k += __popc(
+        __ballot_sync(kFullMask, base + lane < n && keep[base + lane] != 0));
+  return k;
+}
+
+// Run j of `runs` over k kept chunks: ranks [k j / runs, k (j + 1) / runs).
+__device__ __forceinline__ int run_edge(int k, int j, int runs) {
+  return static_cast<int>(static_cast<long long>(k) * j / runs);
+}
+
+// K7a's primary sweep: block (tile, j) sweeps run j of the tile's kept
+// primary chunks (the mask's first n_chunks columns) as sweep_chunks does,
+// and writes its (t, idx) to the partials of run j.
+__global__ void __launch_bounds__(kThreads)
+    k7a_primary_kernel(const float* __restrict__ dirs,
+                       const float* __restrict__ table, int Tp, int C,
+                       const int* __restrict__ mask, int mask_stride, int H,
+                       int W, int th, float* __restrict__ t_part,
+                       int* __restrict__ i_part) {
+  __shared__ float s_blk[kBlockRows * kMaxTris];
+  const TileRay ray = tile_ray(H, W, th);
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (ray.valid) {
+    dx = dirs[3 * ray.r];
+    dy = dirs[3 * ray.r + 1];
+    dz = dirs[3 * ray.r + 2];
+  }
+  const int n_chunks = Tp / C;
+  const int* keep = mask + static_cast<size_t>(blockIdx.x) * mask_stride;
+  const int k = kept_count(keep, n_chunks);
+  float bt = FLT_MAX;
+  int bi = -1;
+  // Every warp walks the same chunks, so the barriers are block-uniform.
+  for_kept_run(keep, n_chunks, run_edge(k, blockIdx.y, gridDim.y),
+               run_edge(k, blockIdx.y + 1, gridDim.y), [&](int c) {
+                 __syncthreads();  // the previous chunk is read
+                 stage(s_blk, table, Tp, C, c);
+                 __syncthreads();
+                 if (ray.valid) {
+                   for (int i = 0; i < C; ++i) {
+                     const PlaneHit p = plane_test(s_blk, C, i, dx, dy, dz);
+                     const float tm = p.ok ? p.t : FLT_MAX;
+                     if (tm <= bt) {
+                       bt = tm;
+                       bi = c * C + i;
+                     }
+                   }
+                 }
+                 return true;
+               });
+  if (!ray.valid) return;
+  const size_t at = static_cast<size_t>(blockIdx.y) * H * W + ray.r;
+  t_part[at] = bt;
+  i_part[at] = bi;
+}
+
+// K7a's merge and packing, a block a tile: each ray folds its runs' (t,
+// idx) in run order with `<=` (the last index keeps winning ties), writes
+// t and idx, and the tile's hit rays are packed in ray order: hits[tile *
+// 256 + k] = (cam + t d, ray) for the k-th hit ray, n_hit[tile] their
+// count; the tile's warps of hit rays are appended to warp_list (tile * 8
+// + w, counted in counts[0]).
+__global__ void __launch_bounds__(kThreads)
+    k7a_merge_kernel(const float* __restrict__ dirs,
+                     const float* __restrict__ cam, int H, int W, int th,
+                     int runs, const float* __restrict__ t_part,
+                     const int* __restrict__ i_part,
+                     float* __restrict__ t_out, int* __restrict__ idx_out,
+                     float4* __restrict__ hits, int* __restrict__ n_hit,
+                     int* __restrict__ warp_list, int* __restrict__ counts) {
+  __shared__ int s_warp[kTileWarps];
+  const TileRay ray = tile_ray(H, W, th);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float bt = FLT_MAX;
+  int bi = -1;
+  if (ray.valid) {
+    for (int j = 0; j < runs; ++j) {
+      const size_t at = static_cast<size_t>(j) * H * W + ray.r;
+      const float tj = t_part[at];
+      if (tj <= bt) {
+        bt = tj;
+        bi = i_part[at];
+      }
+    }
+    t_out[ray.r] = bt;
+    idx_out[ray.r] = bt < FLT_MAX ? bi : -1;
+  }
+  const bool hit = ray.valid && bt < FLT_MAX;
+  const unsigned ballot = __ballot_sync(kFullMask, hit);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int w = 0; w < kTileWarps; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    total += s_warp[w];
+  }
+  if (hit) {
+    const int k = before + __popc(ballot & ((1u << lane) - 1u));
+    // The hit position as the JAX kernel forms it, cam + tz * d.
+    hits[static_cast<size_t>(blockIdx.x) * kThreads + k] = make_float4(
+        cam[0] + bt * dirs[3 * ray.r], cam[1] + bt * dirs[3 * ray.r + 1],
+        cam[2] + bt * dirs[3 * ray.r + 2], __int_as_float(ray.r));
+  }
+  if (threadIdx.x == 0) {
+    n_hit[blockIdx.x] = total;
+    const int warps = (total + 31) / 32;
+    if (warps > 0) {
+      const int at = atomicAdd(&counts[0], warps);
+      for (int w = 0; w < warps; ++w)
+        warp_list[at + w] = blockIdx.x * kTileWarps + w;
+    }
+  }
+}
+
+// The shadow blocks of the table, triangle-major, 48 bytes a triangle:
+// tris[(s * Tp + i) * 3 + {0, 1, 2}] = (n, k0), (c2, c3.x), (c3.y, c3.z, 0,
+// 0) of triangle i for source s.
+__global__ void k7a_pack_tris_kernel(const float* __restrict__ table, int Tp,
+                                     int S, float4* __restrict__ tris) {
+  const size_t n = static_cast<size_t>(S) * Tp;
+  for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       k < n; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t s = k / Tp, i = k % Tp;
+    const float* blk = table + (1 + s) * kBlockRows * Tp + i;
+    tris[3 * k] = make_float4(blk[0], blk[Tp], blk[2 * Tp], blk[9 * Tp]);
+    tris[3 * k + 1] = make_float4(blk[3 * Tp], blk[4 * Tp], blk[5 * Tp],
+                                  blk[6 * Tp]);
+    tris[3 * k + 2] = make_float4(blk[7 * Tp], blk[8 * Tp], 0.f, 0.f);
+  }
+}
+
+// Tests a group of the shadow sweep (its loads in flight together), and
+// the sweep's blocks an SM (128 registers a thread).
+constexpr int kShadowGroup = 16;
+constexpr int kShadowMinBlocks = 2;
+
+// The reject on the triangle whose triangle-major constants are at t.
+__device__ __forceinline__ bool rejected(const float4* __restrict__ t,
+                                         float ex, float ey, float ez) {
+  const float4 a = __ldg(t);
+  const float4 b = __ldg(t + 1);
+  const float2 c = __ldg(reinterpret_cast<const float2*>(t + 2));
+  float Dn, U, V;
+  shadow_dots(a, b, c, ex, ey, ez, &Dn, &U, &V);
+  return shadow_reject(Dn, U, V, a.w);
+}
+
+// G tests of the shadow sweep from triangle g on (constants at tri + 3 g,
+// so each load's offset is an immediate): the reject on each, and one
+// branch, taken only where it leaves a test undecided, to plane_test on
+// the table (row stride Tp). A blocker stops the lane and sets *occ.
+template <int G>
+__device__ __forceinline__ void shadow_group(const float4* __restrict__ tri,
+                                             const float* __restrict__ blk,
+                                             int Tp, int g, float ex,
+                                             float ey, float ez,
+                                             bool& sweeping, int* occ) {
+  const float4* t = tri + 3 * static_cast<size_t>(g);
+  bool decided = true;
+#pragma unroll
+  for (int u = 0; u < G; ++u) decided &= rejected(t + 3 * u, ex, ey, ez);
+  if (!sweeping || decided) return;
+  for (int i = g; i < g + G; ++i) {
+    if (rejected(t + 3 * (i - g), ex, ey, ez)) continue;
+    const PlaneHit p = plane_test(blk, Tp, i, ex, ey, ez);
+    if (p.ok && p.t < kShadowT) {
+      sweeping = false;
+      *occ = 1;
+      return;
+    }
+  }
+}
+
+// K7a's shadow sweeps, a warp a work item (warp of hit rays w of a tile,
+// source s, run j of the source's kept chunks): items hw + n_hw (j + runs
+// s), taken in turn from counts[1] by persistent warps. Each lane takes one
+// packed hit ray, sweeps the run's chunks from the triangle-major copy
+// (warp-uniform loads through the read-only cache) with the reject first
+// and plane_test on the table where it does not decide, and stops at its
+// first blocker; the warp leaves the item once no lane sweeps. A blocked
+// ray writes occ = 1 over the zeroed output: the runs' bits OR in any
+// order.
+__global__ void __launch_bounds__(kThreads, kShadowMinBlocks)
+    k7a_shadow_kernel(const float4* __restrict__ tris,
+                      const float* __restrict__ table, int Tp, int C,
+                      const float* __restrict__ src, int S, int runs,
+                      const int* __restrict__ mask, int R,
+                      const float4* __restrict__ hits,
+                      const int* __restrict__ n_hit,
+                      const int* __restrict__ warp_list,
+                      int* __restrict__ counts, int* __restrict__ occ_out) {
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = Tp / C;
+  const int n_hw = counts[0];
+  const long long n_items = static_cast<long long>(n_hw) * S * runs;
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(&counts[1], 1);
+    item = __shfl_sync(kFullMask, item, 0);
+    if (item >= n_items) return;
+    const int hw = item % n_hw, q = item / n_hw;
+    const int j = q % runs, s = q / runs;
+    const int tile = warp_list[hw] / kTileWarps;
+    const int slot = (warp_list[hw] % kTileWarps) * 32 + lane;
+    bool sweeping = slot < n_hit[tile];
+    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
+    int r = 0;
+    if (sweeping) {
+      const float4 h = hits[static_cast<size_t>(tile) * kThreads + slot];
+      ex = h.x - src[3 * s];
+      ey = h.y - src[3 * s + 1];
+      ez = h.z - src[3 * s + 2];
+      r = __float_as_int(h.w);
+    }
+    const int* keep = mask +
+                      static_cast<size_t>(tile) * (1 + S) * n_chunks +
+                      static_cast<size_t>(1 + s) * n_chunks;
+    const float4* tri = tris + static_cast<size_t>(s) * Tp * 3;
+    const float* blk = table + static_cast<size_t>(1 + s) * kBlockRows * Tp;
+    const int k = kept_count(keep, n_chunks);
+    int* occ = occ_out + static_cast<size_t>(s) * R + r;
+    for_kept_run(keep, n_chunks, run_edge(k, j, runs),
+                 run_edge(k, j + 1, runs), [&](int c) {
+      const int end = (c + 1) * C;
+      for (int i0 = c * C; i0 < end; i0 += 32) {
+        const int i1 = i0 + 32 < end ? i0 + 32 : end;
+        int g = i0;
+        for (; g + kShadowGroup <= i1; g += kShadowGroup)
+          shadow_group<kShadowGroup>(tri, blk, Tp, g, ex, ey, ez, sweeping,
+                                     occ);
+        for (; g < i1; g += 8)  // C is a multiple of 8
+          shadow_group<8>(tri, blk, Tp, g, ex, ey, ez, sweeping, occ);
+        if (!__any_sync(kFullMask, sweeping)) return false;
+      }
+      return true;
+    });
+  }
+}
+
+// The reject and plane_test's any-hit verdict on N (ray, triangle) pairs:
+// e (N, 3) shadow rays, tri (N, 10) constants [n | c2 | c3 | k0].
+__global__ void shadow_reject_probe_kernel(const float* __restrict__ e,
+                                           const float* __restrict__ tri,
+                                           int N, int* __restrict__ reject,
+                                           int* __restrict__ blocked) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= N) return;
+  const float* m = tri + 10 * static_cast<size_t>(k);
+  const float ex = e[3 * k], ey = e[3 * k + 1], ez = e[3 * k + 2];
+  float Dn, U, V;
+  shadow_dots(make_float4(m[0], m[1], m[2], m[9]),
+              make_float4(m[3], m[4], m[5], m[6]), make_float2(m[7], m[8]),
+              ex, ey, ez, &Dn, &U, &V);
+  reject[k] = shadow_reject(Dn, U, V, m[9]) ? 1 : 0;
+  const PlaneHit p = plane_test(m, 1, 0, ex, ey, ez);
+  blocked[k] = p.ok && p.t < kShadowT ? 1 : 0;
 }
 
 // K7b (Masked false) and K7c: block (tile, s) tests the tile's points
@@ -494,36 +826,156 @@ extern "C" int raytpu_closest_hit(const void* dirs, const void* table, int Tp,
   return (int)cudaGetLastError();
 }
 
+// K7a's scratch, carved from one buffer in this order, each part aligned to
+// 16 bytes: the triangle-major shadow constants (S Tp triangles of 48
+// bytes), the runs' partial t and idx (runs R each), the packed hits
+// (n_tiles 256 float4), n_hit (n_tiles), warp_list (n_tiles 8) and counts
+// (4 ints: warps of hit rays, next work item). `bytes` is the total.
+struct K7aScratch {
+  float4* tris;
+  float* t_part;
+  int* i_part;
+  float4* hits;
+  int* n_hit;
+  int* warp_list;
+  int* counts;
+  size_t bytes;
+};
+
+static size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+static K7aScratch k7a_scratch(void* base, int Tp, int S, int R, int n_tiles,
+                              int runs) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    const uintptr_t q = p + at;
+    at += align16(n);
+    return q;
+  };
+  K7aScratch sc;
+  sc.tris = reinterpret_cast<float4*>(
+      take(static_cast<size_t>(S) * Tp * 3 * sizeof(float4)));
+  sc.t_part = reinterpret_cast<float*>(
+      take(static_cast<size_t>(runs) * R * sizeof(float)));
+  sc.i_part = reinterpret_cast<int*>(
+      take(static_cast<size_t>(runs) * R * sizeof(int)));
+  sc.hits = reinterpret_cast<float4*>(
+      take(static_cast<size_t>(n_tiles) * kThreads * sizeof(float4)));
+  sc.n_hit = reinterpret_cast<int*>(take(n_tiles * sizeof(int)));
+  sc.warp_list =
+      reinterpret_cast<int*>(take(n_tiles * kTileWarps * sizeof(int)));
+  sc.counts = reinterpret_cast<int*>(take(4 * sizeof(int)));
+  sc.bytes = at;
+  return sc;
+}
+
+static bool k7a_shapes_ok(int Tp, int C, int S, int H, int W, int th,
+                          int pri_runs) {
+  return C >= 1 && C <= kMaxTris && Tp >= C && Tp % C == 0 && S >= 1 &&
+         H >= 0 && W >= 0 && th >= 1 && kThreads % th == 0 &&
+         pri_runs >= 1 && pri_runs <= 65535;
+}
+
+static int k7a_tiles(int H, int W, int th) {
+  const int tw = kThreads / th;
+  return ((H + th - 1) / th) * ((W + tw - 1) / tw);
+}
+
+// The bytes of K7a's scratch for these shapes, or -1 if K7a refuses them.
+extern "C" long long raytpu_closest_hit_occluded_masked_scratch(
+    int Tp, int C, int S, int H, int W, int th, int pri_runs) {
+  if (!k7a_shapes_ok(Tp, C, S, H, W, th, pri_runs)) return -1;
+  return static_cast<long long>(
+      k7a_scratch(nullptr, Tp, S, H * W, k7a_tiles(H, W, th), pri_runs)
+          .bytes);
+}
+
 // dirs (R = H * W, 3), table ((1 + S) * 10, Tp), cam (3,), src (S, 3)
 // float32 device pointers, Tp a multiple of the chunk C <= 128; mask the
 // (n_tiles, (1 + S) * Tp / C) int32 keep-mask over the tiles of
 // th x (256 / th) rays of the H x W grid; t (R,) float32, idx (R,) int32
-// and occ (S, R) int32 outputs. Launches K7a's two kernels on `stream`,
-// the primary sweep (a block a tile) and the shadow sweeps (a block a
-// tile and source), and returns the launches' cudaError_t.
+// and occ (S, R) int32 outputs; scratch (scratch_bytes, at least what
+// raytpu_closest_hit_occluded_masked_scratch gives). pri_runs and shw_runs split
+// each tile's kept primary chunks, and each (tile, source)'s kept shadow
+// chunks, into that many runs. phases: 1 the primary sweep, merge and
+// packing (t, idx and the scratch's hits); 2 the shadow sweeps (occ, from
+// the hits a phase 1 left in the same scratch); 3 both, K7a. Launches on
+// `stream`, never synchronises, and returns the first launch error.
 extern "C" int raytpu_closest_hit_occluded_masked(
     const void* dirs, const void* table, int Tp, int C, const void* cam,
     const void* src, int S, const void* mask, int H, int W, int th, void* t,
-    void* idx, void* occ, void* stream) {
-  if (C < 1 || C > kMaxTris || Tp < C || Tp % C != 0 || S < 1 ||
-      S > 65535 || H < 0 || W < 0 || th < 1 || kThreads % th != 0 ||
-      mask == nullptr)
+    void* idx, void* occ, void* scratch, long long scratch_bytes,
+    int pri_runs, int shw_runs, int phases, void* stream) {
+  if (!k7a_shapes_ok(Tp, C, S, H, W, th, pri_runs) || mask == nullptr ||
+      shw_runs < 1 || phases < 1 || phases > 3)
     return (int)cudaErrorInvalidValue;
   if (H == 0 || W == 0) return (int)cudaSuccess;
-  const int tw = kThreads / th;
-  const int blocks = ((H + th - 1) / th) * ((W + tw - 1) / tw);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  closest_hit_kernel<true><<<blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
-      C, static_cast<const int*>(mask), (1 + S) * (Tp / C), H, W, th,
-      static_cast<float*>(t), static_cast<int*>(idx));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  occlusion_masked_kernel<<<dim3(blocks, S), kThreads, 0, s>>>(
-      static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
-      C, static_cast<const float*>(cam), static_cast<const float*>(src), S,
-      static_cast<const int*>(mask), H, W, th, static_cast<const float*>(t),
-      static_cast<int*>(occ));
+  const int n_tiles = k7a_tiles(H, W, th);
+  const int R = H * W;
+  const K7aScratch sc = k7a_scratch(scratch, Tp, S, R, n_tiles, pri_runs);
+  if (scratch == nullptr || scratch_bytes < (long long)sc.bytes)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* d = static_cast<const float*>(dirs);
+  const float* tab = static_cast<const float*>(table);
+  const int* msk = static_cast<const int*>(mask);
+  cudaError_t err;
+  if (phases & 1) {
+    if ((err = cudaMemsetAsync(sc.counts, 0, sizeof(int), st)) != cudaSuccess)
+      return (int)err;
+    k7a_primary_kernel<<<dim3(n_tiles, pri_runs), kThreads, 0, st>>>(
+        d, tab, Tp, C, msk, (1 + S) * (Tp / C), H, W, th, sc.t_part,
+        sc.i_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    k7a_merge_kernel<<<n_tiles, kThreads, 0, st>>>(
+        d, static_cast<const float*>(cam), H, W, th, pri_runs, sc.t_part,
+        sc.i_part, static_cast<float*>(t), static_cast<int*>(idx), sc.hits,
+        sc.n_hit, sc.warp_list, sc.counts);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (phases & 2) {
+    if ((err = cudaMemsetAsync(occ, 0, static_cast<size_t>(S) * R * 4,
+                               st)) != cudaSuccess ||
+        (err = cudaMemsetAsync(sc.counts + 1, 0, sizeof(int), st)) !=
+            cudaSuccess)
+      return (int)err;
+    const size_t n_tris = static_cast<size_t>(S) * Tp;
+    k7a_pack_tris_kernel<<<static_cast<int>(
+                               (n_tris + kThreads - 1) / kThreads < 65535
+                                   ? (n_tris + kThreads - 1) / kThreads
+                                   : 65535),
+                           kThreads, 0, st>>>(tab, Tp, S, sc.tris);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    // Persistent warps: as many blocks as fit on the card at once.
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, k7a_shadow_kernel, kThreads, 0)) != cudaSuccess)
+      return (int)err;
+    k7a_shadow_kernel<<<sms * (per_sm > 0 ? per_sm : 1), kThreads, 0, st>>>(
+        sc.tris, tab, Tp, C, static_cast<const float*>(src), S, shw_runs,
+        msk, R, sc.hits, sc.n_hit, sc.warp_list, sc.counts,
+        static_cast<int*>(occ));
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// e (N, 3) and tri (N, 10) float32 device pointers; reject and blocked (N,)
+// int32 outputs: the device reject and plane_test's verdict (t < 0.99) on
+// each pair. Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int raytpu_shadow_reject_probe(const void* e, const void* tri,
+                                          int N, void* reject, void* blocked,
+                                          void* stream) {
+  if (N < 0) return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
+  shadow_reject_probe_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(e), static_cast<const float*>(tri), N,
+      static_cast<int*>(reject), static_cast<int*>(blocked));
   return (int)cudaGetLastError();
 }
 

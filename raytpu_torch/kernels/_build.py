@@ -31,9 +31,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # The C interface of every kernel: name -> argument types. Each returns the
-# cudaError_t of its launch as an int.
+# cudaError_t of its launch as an int, but those in RESTYPES.
 SIGNATURES = {
     # dirs, table, params, C, R, ambient, parity, color, fd, idx, occ, stream
     "raytpu_render_fused_fwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
@@ -52,9 +53,16 @@ SIGNATURES = {
                                           _P, _P],
     # dirs, table, Tp, C, mask (or null), H, W, th, t, idx, stream
     "raytpu_closest_hit": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
-    # dirs, table, Tp, C, cam, src, S, mask, H, W, th, t, idx, occ, stream
+    # dirs, table, Tp, C, cam, src, S, mask, H, W, th, t, idx, occ, scratch,
+    # scratch_bytes, pri_runs, shw_runs, phases, stream
     "raytpu_closest_hit_occluded_masked": [_P, _P, _I, _I, _P, _P, _I, _P,
-                                           _I, _I, _I, _P, _P, _P, _P],
+                                           _I, _I, _I, _P, _P, _P, _P, _L,
+                                           _I, _I, _I, _P],
+    # Tp, C, S, H, W, th, pri_runs: K7a's scratch bytes (-1: refused)
+    "raytpu_closest_hit_occluded_masked_scratch": [_I, _I, _I, _I, _I, _I,
+                                                   _I],
+    # e, tri, N, reject, blocked, stream
+    "raytpu_shadow_reject_probe": [_P, _P, _I, _P, _P, _P],
     # pos, table, Tp, C, src, S, mask (or null), H, W, th, occ, stream
     "raytpu_occlusion_points": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
                                 _P],
@@ -116,6 +124,8 @@ SIGNATURES = {
     # x, out, n, stream
     "raytpu_lab_tiny": [_P, _P, _I, _P],
 }
+
+RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L}
 
 _lib: ctypes.CDLL | None = None
 
@@ -190,6 +200,6 @@ def load() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib

@@ -30,6 +30,10 @@ test (t < 0.99) from each shadow source toward it:
                                sharded renderer's occlusion of merged hits
                                (``occlusion_multi_pallas``).
   *_reference                  their plain PyTorch versions.
+  shadow_reject                the plain form of K7a's exact any-hit reject
+                               (a test decided "not blocked" without the
+                               reciprocal); shadow_reject_probe runs the
+                               card's reject beside plane_test on pairs.
   intersect_closest{,_culled}  Hits through K5 / K7d (``intersect_pallas``,
                                ``intersect_pallas_culled``).
   intersect_occluded{,_multi}  (Hits, occ bool) through K4 / K6, or K7a for
@@ -76,6 +80,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -434,6 +439,92 @@ def closest_masked_reference(dirs, table, C: int, mask, tiles: RayTiles):
     return best_t, torch.where(hit, best_idx, -1)
 
 
+# K7a's exact any-hit reject (csrc/intersect.cu::shadow_reject, whose
+# comment holds the rounding argument): a test is decided "not blocked"
+# without the reciprocal where |D| lies in [REJECT_MIN_D, REJECT_MAX_D]
+# and a sign-adjusted U, V or K lies below -REJECT_EPS, K reaches
+# REJECT_T |D| or U + V exceeds REJECT_UV |D|; or where D = 0. All four
+# constants are float32 values exactly.
+REJECT_MIN_D, REJECT_MAX_D, REJECT_EPS = 2.0 ** -40, 2.0 ** 40, 2.0 ** -80
+REJECT_T = float.fromhex("0x1.fae168p-1")  # float32(0.99) + 2^-20
+REJECT_UV = 1.0 + 2.0 ** -20
+
+
+def shadow_reject(delta, m, k0) -> torch.Tensor:
+    """Plain form of K7a's any-hit reject, on any device: (R, C) bool,
+    True where the shadow test of ray ``delta`` (R, 3) against triangle
+    (m (C, 3, 3), k0 (C,)) surely fails (``plane_tests``' ok and t < 0.99
+    false), decided from D, U, V and K alone, each formed by plane_tests'
+    own expressions in its order. False leaves the test to plane_tests:
+    the reject never returns True for a blocking test."""
+    d = [delta[:, j:j + 1] for j in range(3)]
+
+    def dot_rows(row):
+        return (d[0] * m[None, :, row, 0] + d[1] * m[None, :, row, 1]
+                + d[2] * m[None, :, row, 2])
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=delta.device)
+
+    D = -dot_rows(0)
+    flip = D < 0.0  # the kernel XORs D's sign bit into U, V and K
+    Us = torch.where(flip, -dot_rows(1), dot_rows(1))
+    Vs = torch.where(flip, -dot_rows(2), dot_rows(2))
+    Ks = torch.where(flip, -k0[None, :], k0[None, :])
+    Ds = D.abs()
+    eps = f32(-REJECT_EPS)
+    guard = (Ds >= f32(REJECT_MIN_D)) & (Ds <= f32(REJECT_MAX_D))
+    return (D == 0.0) | (guard & ((Us < eps) | (Vs < eps) | (Ks < eps)
+                                  | (Ks >= Ds * f32(REJECT_T))
+                                  | (Us + Vs > Ds * f32(REJECT_UV))))
+
+
+def reject_edge_pairs(device="cpu"):
+    """Hand-built (delta (N, 3), tri (N, 10)) pairs around each edge of the
+    reject: the ray (1, 0, 0) and a triangle whose D, U, V and K are every
+    combination of values at ±0, subnormal, the guard's ends and one ulp
+    past them, inf and NaN, and of U, V, K at u, v, t near 0, u + v near 1
+    and t near 0.99 (each ± 1 ulp) for each D. With e = (1, 0, 0) the dot
+    products are n_x, c2_x and c3_x exactly (a zero's sign aside)."""
+    f32 = np.float32
+
+    def around(x):
+        x = f32(x)
+        return [np.nextafter(x, f32(-np.inf)), x, np.nextafter(x, f32(np.inf))]
+
+    mags = [0.0, 1e-45, 1e-39, *around(REJECT_MIN_D), 2.0 ** -20, 0.37, 1.0,
+            *around(REJECT_MAX_D), 3e38, np.inf]
+    ds = np.array([v for m in mags for v in (m, -m)] + [np.nan], f32)
+    fracs = np.array([0.0, -0.0, 1e-45, -1e-45, REJECT_EPS, -REJECT_EPS,
+                      2.0 ** -100, -2.0 ** -100, 0.25, *around(0.5),
+                      *around(1.0), *around(np.float32(0.99)), 1.5, -0.5,
+                      np.inf, np.nan], f32)
+    with np.errstate(all="ignore"):
+        D, fu, fv, fk = np.meshgrid(ds, fracs, fracs, fracs, indexing="ij")
+        D, fu, fv, fk = (a.reshape(-1) for a in (D, fu, fv, fk))
+        U, V, K = (f32(f) * D for f in (fu, fv, fk))
+        # u + v at 1 ± 1 ulp: V = D - U for a third of the pairs.
+        V = np.where(np.arange(D.size) % 3 == 0, (D - U).astype(f32), V)
+    tri = np.zeros((D.size, 10), f32)
+    tri[:, 0], tri[:, 3], tri[:, 6], tri[:, 9] = -D, U, V, K
+    delta = np.zeros((D.size, 3), f32)
+    delta[:, 0] = 1.0
+    return (torch.tensor(delta, device=device),
+            torch.tensor(tri, device=device))
+
+
+def reject_random_pairs(n: int, seed: int, device="cpu"):
+    """n random (delta (n, 3), tri (n, 10)) pairs drawn with numpy from
+    ``seed``: normal rays and constants, each pair's triangle scaled by
+    2^k, k uniform in [-60, 60], so D spans the guard and both sides."""
+    rng = np.random.default_rng(seed)
+    delta = rng.standard_normal((n, 3)).astype(np.float32)
+    tri = (rng.standard_normal((n, 10))
+           * np.exp2(rng.integers(-60, 61, (n, 1)))).astype(np.float32)
+    return (torch.tensor(delta, device=device),
+            torch.tensor(tri, device=device))
+
+
 def occluded_masked_reference(dirs, table, C: int, cam, src, mask,
                               tiles: RayTiles):
     """Plain PyTorch version of K7a, on any device: dirs (R, 3), table
@@ -491,18 +582,82 @@ def launch_closest_kernel(dirs, table, C: int, mask, tiles, t, idx):
         raise RuntimeError(f"closest_hit launch failed: CUDA error {err}")
 
 
+# K7a splits each tile's kept primary chunks into PRIMARY_RUNS runs (a
+# block each), and each (tile, source)'s kept shadow chunks into
+# SHADOW_RUNS // S runs (at least one): the few tiles that see a mesh then
+# fill the card when the sources are few.
+PRIMARY_RUNS = 8
+SHADOW_RUNS = 32
+
+
+def k7a_runs(S: int) -> tuple[int, int]:
+    """(primary runs, shadow runs) of K7a with S sources."""
+    return PRIMARY_RUNS, max(1, SHADOW_RUNS // S)
+
+
+def k7a_scratch(dirs, table, C: int, S: int, tiles: RayTiles):
+    """A fresh scratch buffer for one K7a call (uint8, on dirs' device),
+    sized by the kernel's library (csrc/intersect.cu::k7a_scratch)."""
+    n = _build.load().raytpu_closest_hit_occluded_masked_scratch(
+        table.shape[1], C, S, tiles.height, tiles.width, tiles.th,
+        k7a_runs(S)[0])
+    if n < 0:
+        raise ValueError(f"K7a takes no table of {table.shape[1]} columns "
+                         f"in chunks of {C} on {tiles.height} x "
+                         f"{tiles.width} rays")
+    return torch.empty((n,), dtype=torch.uint8, device=dirs.device)
+
+
 def launch_occluded_masked_kernel(dirs, table, C: int, cam, src, mask,
-                                  tiles, t, idx, occ):
-    """Launch K7a on outputs the caller allocated: t (R,), idx (R,) and occ
-    (S, R). Checks nothing and counts nothing; the wrapper does both."""
+                                  tiles, t, idx, occ, *, scratch,
+                                  phases: int = 3):
+    """Launch K7a on outputs and scratch (:func:`k7a_scratch`) the caller
+    allocated: t (R,), idx (R,) and occ (S, R). ``phases`` 3 runs K7a;
+    1 its primary half alone (t, idx and the packed hits in ``scratch``),
+    2 its shadow half alone on the hits a phase 1 left in the same scratch.
+    Checks nothing and counts nothing; the wrapper does both."""
+    S = src.shape[0]
+    pri_runs, shw_runs = k7a_runs(S)
     err = _build.load().raytpu_closest_hit_occluded_masked(
         dirs.data_ptr(), table.data_ptr(), table.shape[1], C, cam.data_ptr(),
-        src.data_ptr(), src.shape[0], mask.data_ptr(), tiles.height,
-        tiles.width, tiles.th, t.data_ptr(), idx.data_ptr(), occ.data_ptr(),
+        src.data_ptr(), S, mask.data_ptr(), tiles.height, tiles.width,
+        tiles.th, t.data_ptr(), idx.data_ptr(), occ.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), pri_runs, shw_runs, phases,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"closest_hit_occluded_masked launch failed: CUDA "
                            f"error {err}")
+
+
+def shadow_reject_probe(delta, tri):
+    """K7a's reject and the full any-hit test on pairs: delta (N, 3) shadow
+    rays, tri (N, 10) constants [n | c2 | c3 | k0]. Returns (reject (N,),
+    blocked (N,)) bool: the device reject and plane_test's verdict
+    (t < 0.99) on CUDA tensors (the card's probe kernel), their plain forms
+    on CPU tensors."""
+    if not _on_cuda(delta):
+        m, k0 = tri[:, :9].reshape(-1, 3, 3), tri[:, 9]
+        reject, blocked = [], []
+        for b in range(0, delta.shape[0], 256):  # each pair: a diagonal
+            d, mb, kb = delta[b:b + 256], m[b:b + 256], k0[b:b + 256]
+            ts, oks = plane_tests(d, mb, kb)
+            reject.append(shadow_reject(d, mb, kb).diagonal())
+            blocked.append((oks & (ts < SHADOW_T)).diagonal())
+        empty = delta.new_zeros((0,), dtype=torch.bool)
+        return torch.cat([empty, *reject]), torch.cat([empty, *blocked])
+    N = delta.shape[0]
+    _require(delta, (("delta", delta, torch.float32, (N, 3)),
+                     ("tri", tri, torch.float32, (N, 10))))
+    reject = torch.empty((N,), dtype=torch.int32, device=delta.device)
+    blocked = torch.empty_like(reject)
+    with torch.cuda.device(delta.device):
+        err = _build.load().raytpu_shadow_reject_probe(
+            delta.data_ptr(), tri.data_ptr(), N, reject.data_ptr(),
+            blocked.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"shadow_reject_probe launch failed: CUDA error "
+                           f"{err}")
+    return reject.bool(), blocked.bool()
 
 
 def primary_table(m, k0, valid, tri_chunk: int):
@@ -584,9 +739,10 @@ def closest_hit_occluded_multi_masked(dirs, m, k0, valid, m_s, k0_s,
     _check(dirs, table, cam, src)
     _check_chunked(dirs, table, C, mask, tiles)
     out = _outputs(dirs, src.shape[0])
+    scratch = k7a_scratch(dirs, table, C, src.shape[0], tiles)
     with torch.cuda.device(dirs.device):
         launch_occluded_masked_kernel(dirs, table, C, cam, src, mask, tiles,
-                                      *out)
+                                      *out, scratch=scratch)
     LAUNCHES_OCCLUDED_MASKED += 1
     return out
 

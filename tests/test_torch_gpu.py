@@ -1395,11 +1395,12 @@ def test_two_launch_wrappers_check_their_inputs(cuda):
                             *sargs[4:])
 
 
-def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0)):
+def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0),
+                zoom=1.0):
     """The multi-chunk kernels' inputs: a size^2 frame of the procedural
     torus (quads x quads, two triangles each; 74 x 61 is the 9,028 mesh),
-    the ``render --stl`` camera nudged off x = 0, the sources of n_lights
-    lights with ``samples`` jittered positions each."""
+    the ``render --stl`` camera nudged off x = 0 at focal zoom * size, the
+    sources of n_lights lights with ``samples`` jittered positions each."""
     from raytpu_torch.core import stl
     from raytpu_torch.core.types import Scene, pixel_grid
     from raytpu_torch.kernels import intersect as isect
@@ -1411,7 +1412,7 @@ def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0)):
     scene = Scene.from_vertices(tris[:, 0], tris[:, 1], tris[:, 2],
                                 np.full((tris.shape[0], 3), 0.5, np.float32),
                                 device=device)
-    camera = Camera.make((0.0123, -0.5, -5.0), focal=float(size),
+    camera = Camera.make((0.0123, -0.5, -5.0), focal=zoom * size,
                          device=device)
     cfg = RenderConfig(width=size, height=size)
     lights = Lights.single(capacity=n_lights, soft_samples=16, device=device)
@@ -1465,10 +1466,19 @@ def test_occluded_masked_kernel_matches_plain_version(cuda, n_lights,
     to K5's, two calls identical."""
     from raytpu_torch.kernels import intersect as isect
     case = _mesh_sweep(cuda, 500, (74, 61), samples, n_lights, (0.5, -0.5))
+    args, tiles = case["args"], case["tiles"]
+    mask = isect.fused_mask(args[0], tiles, case["geom"], args[3],
+                            case["src_args"][3], case["cam"], 128)
+    got = _k7a_checks(case, mask, tiles)
+    assert got[2].shape == (n_lights * samples, 500 * 500)
+    assert bool(got[2].any())
+
+
+def _k7a_checks(case, mask, tiles):
+    """K7a (three calls) against its plain version, an all-ones mask and
+    K5; returns its outputs."""
+    from raytpu_torch.kernels import intersect as isect
     args = (*case["args"], *case["src_args"])
-    tiles = case["tiles"]
-    mask = isect.fused_mask(args[0], tiles, case["geom"], args[3], args[7],
-                            case["cam"], 128)
     before = isect.LAUNCHES_OCCLUDED_MASKED
     got = isect.closest_hit_occluded_multi_masked(*args, mask, tiles)
     ones = isect.closest_hit_occluded_multi_masked(
@@ -1482,8 +1492,119 @@ def test_occluded_masked_kernel_matches_plain_version(cuda, n_lights,
     for other in (want, ones, again):
         assert all(torch.equal(a, b) for a, b in zip(got, other))
     assert torch.equal(got[0], k5[0]) and torch.equal(got[1], k5[1])
-    assert got[2].shape == (n_lights * samples, 500 * 500)
-    assert bool(got[2].any()) and not bool(got[2][:, got[1] < 0].any())
+    assert not bool(got[2][:, got[1] < 0].any())
+    return got
+
+
+@pytest.mark.parametrize("samples", [1, 16], ids=["s1", "s16"])
+def test_occluded_masked_kernel_close_camera(cuda, samples):
+    """K7a bit for bit where most tiles hold work: the 800-triangle torus
+    at 160^2 zoomed in (focal 3 x 160), 89% of its tiles with hit rays."""
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, 160, (20, 20), samples, 1, zoom=3.0)
+    args, tiles = case["args"], case["tiles"]
+    mask = isect.fused_mask(args[0], tiles, case["geom"], args[3],
+                            case["src_args"][3], case["cam"], 128)
+    got = _k7a_checks(case, mask, tiles)
+    hit = got[1] >= 0
+    per_tile = torch.bincount(tiles.tile[hit], minlength=tiles.count)
+    assert float((per_tile > 0).float().mean()) > 0.8
+    assert bool(got[2].any()) and float(hit.float().mean()) > 0.5
+
+
+def test_occluded_masked_kernel_chunk_of_24(cuda):
+    """K7a bit for bit with chunks of 24 triangles (the shadow sweep's
+    groups of 16 then its tail group of 8), the 800-triangle torus at 96^2
+    with 8 sources."""
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, 96, (20, 20), 4, 2)
+    args = (*case["args"], *case["src_args"])
+    tiles = case["tiles"]
+    mask = isect.fused_mask(args[0], tiles, case["geom"], args[3], args[7],
+                            case["cam"], 24)
+    got = isect.closest_hit_occluded_multi_masked(*args, mask, tiles,
+                                                  tri_chunk=24)
+    again = isect.closest_hit_occluded_multi_masked(*args, mask, tiles,
+                                                    tri_chunk=24)
+    want = isect.closest_hit_occluded_multi_masked_reference(
+        *args, mask, tiles, tri_chunk=24)
+    torch.cuda.synchronize()
+    for other in (want, again):
+        assert all(torch.equal(a, b) for a, b in zip(got, other))
+    assert mask.shape[1] == 9 * 34 and bool(got[2].any())
+
+
+def test_occluded_masked_kernel_single_hit_ray(cuda):
+    """K7a bit for bit on a frame with one hit ray: the 9,028 mesh at 64^2
+    with every other ray turned away from it (its tile holds one hit ray,
+    one lane of one warp)."""
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, 64, (74, 61), 16, 2)
+    dirs = case["args"][0]
+    t, idx = isect.closest_hit_reference(*case["args"])
+    hits = torch.nonzero(idx >= 0).squeeze(1)
+    keep = hits[hits.numel() // 2]
+    away = dirs.clone()
+    away[:, 2] = -away[:, 2]  # toward -z: behind the camera, a miss
+    away[keep] = dirs[keep]
+    case["args"] = (away.contiguous(), *case["args"][1:])
+    tiles = case["tiles"]
+    mask = isect.fused_mask(case["args"][0], tiles, case["geom"],
+                            case["args"][3], case["src_args"][3],
+                            case["cam"], 128)
+    got = _k7a_checks(case, mask, tiles)
+    assert int((got[1] >= 0).sum()) == 1 and int(got[1][keep]) >= 0
+
+
+def test_shadow_reject_probe(cuda):
+    """The device reject (raytpu_shadow_reject_probe) never rejects a test
+    that plane_test on the card calls blocking: hand-built edge pairs (where
+    it also equals its plain form bit for bit, and plane_test equals
+    plane_tests), random pairs, and every shadow test of 32 hit rays of the
+    9,028 mesh's S = 32 frame (16 of them occluded) against every
+    triangle."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.ops.intersect import plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
+    edge = isect.reject_edge_pairs(cuda)
+    rej, blk = isect.shadow_reject_probe(*edge)
+    delta, tri = edge
+    m, k0 = tri[:, :9].reshape(-1, 3, 3), tri[:, 9]
+    ts, oks = plane_tests(delta[:1], m, k0)
+    torch.cuda.synchronize()
+    assert not bool((rej & blk).any())
+    assert torch.equal(rej, isect.shadow_reject(delta[:1], m, k0)[0])
+    assert torch.equal(blk, (oks & (ts < SHADOW_T))[0])
+    assert int(blk.sum()) > 1000 and int(rej.sum()) > 1000
+
+    rej, blk = isect.shadow_reject_probe(
+        *isect.reject_random_pairs(1 << 18, 7, cuda))
+    assert not bool((rej & blk).any()) and bool(blk.any())
+
+    case = _mesh_sweep(cuda, 200, (74, 61), 16, 2)
+    dirs, cam, src = case["args"][0], case["cam"], case["src_args"][3]
+    mask = isect.fused_mask(dirs, case["tiles"], case["geom"],
+                            case["args"][3], src, cam, 128)
+    t, idx, occ = isect.closest_hit_occluded_multi_masked(
+        *case["args"], *case["src_args"], mask, case["tiles"])
+    # 16 hit rays that some source finds occluded, 16 that none does.
+    shade = occ.any(dim=0)
+    rays = torch.cat([torch.nonzero(shade).squeeze(1)[:16],
+                      torch.nonzero((idx >= 0) & ~shade).squeeze(1)[:16]])
+    assert rays.numel() == 32
+    m_s, k0_s, valid = case["src_args"][0], case["src_args"][1], \
+        case["args"][3]
+    T = m_s.shape[1]
+    pos = cam[None, :] + t[rays][:, None] * dirs[rays]
+    delta = (pos[None, :, None, :] - src[:, None, None, :]).expand(
+        -1, -1, T, -1).reshape(-1, 3).contiguous()
+    tri = torch.cat([(m_s * valid[None, :, None, None]).reshape(-1, T, 9),
+                     (k0_s * valid[None, :])[..., None]], dim=2)
+    tri = tri[:, None].expand(-1, rays.numel(), -1, -1).reshape(-1, 10)
+    rej, blk = isect.shadow_reject_probe(delta, tri.contiguous())
+    torch.cuda.synchronize()
+    assert not bool((rej & blk).any()) and bool(blk.any())
+    assert float(rej.float().mean()) > 0.99
 
 
 def test_multi_chunk_wrappers_check_their_inputs(cuda):
