@@ -395,17 +395,16 @@ SOFT_GROUPS = (("vertices", 0, 9), ("inv_area", 9, 10), ("zinv", 10, 13),
 # shadow 11, the hit test without |d|); a gated one (behind the camera or
 # the source, or near-parallel) needs nothing more. K10a: an ungated (ray,
 # row) pair's logit (40, the gate included) and, where its weight is not 0,
-# the weight and the 9 sums (27). K10g: an ungated (source, point, row)
-# triple's term (40). K10c: an ungated pair's recompute up to its weight
-# (41) and, where that is not 0, the derivative (128) and its share of the
-# row's 18 sums over rays (18). K10i: only the triples of a (source, point)
-# whose cotangent d od is not 0; of those, an ungated one's recompute (38)
-# and, where its term is not 0, the derivative (128) and its 14 sums. A pair
-# of weight 0 (underflowed) needs nothing past its recompute: its every
-# contribution is 0.
+# the weight and the 9 sums (27). K10c: an ungated pair's recompute up to
+# its weight (41) and, where that is not 0, the derivative (128) and its
+# share of the row's 18 sums over rays (18). The shadow's backward: only
+# the triples of a (source, point) whose cotangent d od is not 0; of those,
+# an ungated one's recompute (38) and, where its term is not 0, the
+# derivative (128) and its 14 sums. A pair of weight 0 (underflowed) needs
+# nothing past its recompute: its every contribution is 0. K10g-K10j as
+# redesigned: below.
 FLOPS_SRT_PRI_GATE, FLOPS_SRT_SHW_GATE = 12, 11
 FLOPS_SRT_PRI_LOGIT, FLOPS_SRT_PRI_SUMS = 40, 27
-FLOPS_SRT_SHW_TERM = 40
 FLOPS_SRT_PRI_W, FLOPS_SRT_PRI_BWD = 41, 146
 FLOPS_SRT_SHW_W, FLOPS_SRT_SHW_BWD = 38, 142
 # The derivative's 128 operations by what needs them, counted from
@@ -439,11 +438,20 @@ FLOPS_SRT_PRI_DEAD = FLOPS_SRT_PRI_GATE + 22
 # then u and v's dot products (10) and products (2), 1 - u - v (2), the
 # margin's two minima (2), es margin (1), y = zs (0.99 rr - t) (2) and the
 # two comparisons (2): 31, against the 36 of FLOPS_SRT_SHW_W without the
-# two products for the triples it does not find dead. The fused K10i and
-# K10j still form both products a triple (FLOPS_SRT_SHW_GATE, _W).
+# two products for the triples it does not find dead. Since their redesign
+# the fused K10g-K10j stage their rows and points the same way and count
+# the same (srt_bounds): K10i and K10j stop a triple shw_dead finds dead at
+# that test (FLOPS_SRT_SHW_DEAD) and go on from it for the others; K10g's
+# and K10h's test (shw_term_dead) adds four comparisons to it (the active
+# column finite; 1 - u - v, xs and y not NaN), 35, and a triple it does not
+# skip adds the term's two sigmoids (4 each), its two products and its add
+# into the chunk's sum, 11 more: 46 (the first design's count was 40 a
+# triple the gate passes).
 FLOPS_SRT_SHW_STAGED_GATE = FLOPS_SRT_SHW_GATE - 1
 FLOPS_SRT_SHW_STAGED_W = FLOPS_SRT_SHW_W - 2
 FLOPS_SRT_SHW_DEAD = FLOPS_SRT_SHW_STAGED_GATE + 21
+FLOPS_SRT_SHW_FWD_DEAD = FLOPS_SRT_SHW_DEAD + 4
+FLOPS_SRT_SHW_FWD_LIVE = FLOPS_SRT_SHW_FWD_DEAD + 11
 # Image rule of tests/test_rasterize_parity.py::test_parity_vs_oracle_500.
 RASTER_EXACT_FRAC, RASTER_FD_ATOL = 0.9999, 1e-5
 # Cycles of torch.cuda._sleep that hold the stream while timed calls are
@@ -1253,15 +1261,18 @@ def srt_shw_bwd(c, world, trans, gcot, plain=False, dtype=torch.float32,
         f32_branches=dtype != torch.float32, **cull)
 
 
-def srt_work(c, m, world, dl, masked: bool = False) -> dict:
+def srt_work(c, m, world, dl, masked: bool = False,
+             primary: bool = True) -> dict:
     """What K10a-K10i (masked: K10b-K10j) must do on a srt_case, from a
     plain recompute: (ray, row) pairs in all (masked: of the rays whose
     tile keeps the row's chunk), gated, of a weight not 0 at the saved m,
     and of those the gate passes, how many K10e's and K10f's early-out
-    proves of weight 0 (srt.primary_dead_pairs); (source, point, row)
-    triples in all (masked: kept) and gated; of the triples whose
-    cotangent dl (S, R) is not 0 (dl None: not counted), how many, how many
-    gated, how many of those the gate passes K10k's and K10l's early-out
+    proves of weight 0 (srt.primary_dead_pairs; primary False: none of
+    these); (source, point, row) triples in all (masked: kept), gated, and
+    of those the gate passes, how many the forwards' test skips
+    (srt.shadow_dead_terms) and how many have a term not 0; of the triples
+    whose cotangent dl (S, R) is not 0 (dl None: not counted), how many,
+    how many gated, how many of those the gate passes the backwards' test
     finds dead (srt.shadow_dead_triples) and how many of a term not 0."""
     from raytpu_torch.kernels import soft_raytrace as srt
     from raytpu_torch.kernels.soft_raster import Kinks
@@ -1269,23 +1280,24 @@ def srt_work(c, m, world, dl, masked: bool = False) -> dict:
     Tp, S = pri.shape[0], c["srcs"].shape[0]
     tiles = c.get("tiles")
     w = dict(pairs=0, gated_p=0, dead_p=0, live_p=0, triples=0, gated_s=0,
-             act_s=0, act_gated_s=0, dead_s=0, live_s=0)
+             dead_f=0, live_f=0, act_s=0, act_gated_s=0, dead_s=0, live_s=0)
     with torch.no_grad():
         for k, lo in enumerate(range(0, Tp, chunk)):
-            keep = srt._kept(c["mask"] if masked else None, tiles, k)
-            dk = d[:, keep]
-            logit, _ = srt.primary_terms(pri[lo:lo + chunk], c["cam"],
-                                         dk[0:1], dk[1:2], dk[2:3], c["es"],
-                                         c["zs"])
-            w["pairs"] += logit.numel()
-            w["gated_p"] += int((logit == -1e30).sum())
-            live = torch.exp(logit - m[keep]) != 0.0
-            w["live_p"] += int(live.sum())
-            no_pair = srt.primary_dead_pairs(pri[lo:lo + chunk], dk, m[keep],
+            if primary:
+                keep = srt._kept(c["mask"] if masked else None, tiles, k)
+                dk = d[:, keep]
+                logit, _ = srt.primary_terms(pri[lo:lo + chunk], c["cam"],
+                                             dk[0:1], dk[1:2], dk[2:3],
                                              c["es"], c["zs"])
-            w["dead_p"] += int((no_pair & (logit != -1e30)).sum())
-            require(not (no_pair & live).any(),
-                    "srt_work: no pair of weight not 0 proved dead")
+                w["pairs"] += logit.numel()
+                w["gated_p"] += int((logit == -1e30).sum())
+                live = torch.exp(logit - m[keep]) != 0.0
+                w["live_p"] += int(live.sum())
+                no_pair = srt.primary_dead_pairs(pri[lo:lo + chunk], dk,
+                                                 m[keep], c["es"], c["zs"])
+                w["dead_p"] += int((no_pair & (logit != -1e30)).sum())
+                require(not (no_pair & live).any(),
+                        "srt_work: no pair of weight not 0 proved dead")
             for s in range(S):
                 keep = srt._kept(c["smask"] if masked else None, tiles, k, s)
                 wk = world[:, keep]
@@ -1296,8 +1308,15 @@ def srt_work(c, m, world, dl, masked: bool = False) -> dict:
                 ok = kinks.decisions[-1]  # shadow_terms' last: its hit test
                 require(ok.dtype == torch.bool and ok.shape == term.shape,
                         "srt_work: the shadow hit test recorded")
+                skip = srt.shadow_dead_terms(shw[lo:lo + chunk],
+                                             c["srcs"][s], wk, c["es"],
+                                             c["zs"])
                 w["triples"] += term.numel()
                 w["gated_s"] += int((~ok).sum())
+                w["dead_f"] += int((ok & skip).sum())
+                w["live_f"] += int((term != 0.0).sum())
+                require(not (skip & (term != 0.0)).any(),
+                        "srt_work: no triple of a term not 0 skipped")
                 if dl is None:
                     continue
                 act = (dl[s][keep] != 0.0).expand_as(term)
@@ -1320,7 +1339,14 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
     a ray, the table's gradient out; shadow: 12 B a point and 4 B a
     (source, point) each way, 8 B in and 12 B out backward; masked, the
     keep-mask read once too), against the operations of FLOPS_SRT_*: the
-    gate alone for a gated pair or triple."""
+    gate alone for a gated pair or triple. The shadow kernels as
+    redesigned: 1e-3 |n| and 0.99 rr once a row and a point for each
+    source ((Tp + R) S), a gated triple 10 operations
+    (FLOPS_SRT_SHW_STAGED_GATE); forward, a triple the test skips 35
+    (FLOPS_SRT_SHW_FWD_DEAD), another 46 (_FWD_LIVE); backward, of the
+    triples whose d od is not 0, a dead one 31 (FLOPS_SRT_SHW_DEAD),
+    another 36 (_STAGED_W) and, where its term is not 0, the derivative and
+    its sums (FLOPS_SRT_SHW_BWD)."""
     Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
     pmask = c["mask"].numel() * 4 if masked else 0
     smask = c["smask"].numel() * 4 if masked else 0
@@ -1335,13 +1361,17 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
                             + FLOPS_SRT_PRI_W * hit_p
                             + FLOPS_SRT_PRI_BWD * w["live_p"]),
         "shw_fwd": bound_ms(R * (12 + 4 * S) + Tp * 64 + 12 * S + smask,
-                            FLOPS_SRT_SHW_GATE * w["gated_s"]
-                            + FLOPS_SRT_SHW_TERM
-                            * (w["triples"] - w["gated_s"])),
+                            (Tp + R) * S
+                            + FLOPS_SRT_SHW_STAGED_GATE * w["gated_s"]
+                            + FLOPS_SRT_SHW_FWD_DEAD * w["dead_f"]
+                            + FLOPS_SRT_SHW_FWD_LIVE
+                            * (w["triples"] - w["gated_s"] - w["dead_f"])),
         "shw_bwd": bound_ms(R * (24 + 8 * S) + Tp * 128 + 24 * S + smask,
-                            FLOPS_SRT_SHW_GATE * w["act_gated_s"]
-                            + FLOPS_SRT_SHW_W
-                            * (w["act_s"] - w["act_gated_s"])
+                            (Tp + R) * S
+                            + FLOPS_SRT_SHW_STAGED_GATE * w["act_gated_s"]
+                            + FLOPS_SRT_SHW_DEAD * w["dead_s"]
+                            + FLOPS_SRT_SHW_STAGED_W
+                            * (w["act_s"] - w["act_gated_s"] - w["dead_s"])
                             + FLOPS_SRT_SHW_BWD * w["live_s"]),
     }
 
@@ -2031,19 +2061,20 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
         to K10e-K10l): (dc, dcam, dd), (dc, dsrc, dw) and the launches."""
         Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
         pg = srt.bwd_groups(Tp, srt.PRI_USED, R)
-        sg = srt.bwd_groups(Tp, srt.SHW_USED, R)
+        sg = srt.shw_bwd_blocks(c["shw"], c["chunk"],
+                                srt._shw_tiles(R, None, None), S)
         pbuf = (torch.empty((pg, Tp, srt.PRI_USED), device=dev),
                 torch.empty((pg, 3), device=dev), torch.empty_like(c["pri"]),
                 torch.empty(3, device=dev), torch.empty_like(c["dirs"]))
-        sbuf = (torch.empty((sg, Tp, srt.SHW_USED), device=dev),
-                torch.empty((sg, S, 3), device=dev),
-                torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
+        sbuf = (torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
                 torch.empty_like(sargs[2]))
-        return pbuf[2:], sbuf[2:], {
+        scratch = srt.shw_scratch(c["shw"], c["chunk"], c["srcs"], sargs[2],
+                                  backward=True, blocks=sg)
+        return pbuf[2:], sbuf, {
             "pri_bwd_fused": lambda: srt.launch_pri_bwd_kernel(
                 *pri_launch(pargs), *pbuf),
             "shw_bwd_fused": lambda: srt.launch_shw_bwd_kernel(
-                *shw_launch(sargs), *sbuf)}
+                *shw_launch(sargs), *sbuf, blocks=sg, scratch=scratch)}
 
     # The kernels against their plain versions at R = 128^2 (the route
     # depends on Tp alone), in float64 with the float32 branch decisions
@@ -2300,7 +2331,8 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
     bounds["shw_bwd_fused"] = fused_bounds["shw_bwd"]
     card = card_line()
     groups = {"pri": srt.bwd_groups(Tp, srt.PRI_USED, R),
-              "shw": srt.bwd_groups(Tp, srt.SHW_USED, R)}
+              "shw": srt.shw_bwd_blocks(c["shw"], c["chunk"],
+                                        srt._shw_tiles(R, None, None), S)}
     passing = work["pairs"] - work["gated_p"]
     passing_s = work["act_s"] - work["act_gated_s"]
     say(f"two-launch kernels alone, 66,560 triangles at 512^2 ({R} rays, "
@@ -2337,7 +2369,9 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
             f"{busy[T]['share']})")
         for kname, ms in busy[T]["by_name"][:8]:
             say(f"    {ms:.5f} ms  {kname[:100]}")
+    masked = masked_shadow_numbers(dev, frame, t["shw_bwd_rays"])
     say(f"phase 32 took {time.perf_counter() - t_phase:.1f} s")
+    record["k10hj_big"] = masked
     record["two_launch"] = dict(
         err=err, checks=checks, step_launches={str(k): v for k, v in
                                                step_launches.items()},
@@ -2370,6 +2404,133 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
         entry("shw_bwd_rays", "k10l", "shw_bwd_fused",
               replaces="raytpu/kernels/soft_raytrace_pallas.py:1105"),
     ]
+
+
+def masked_shadow_numbers(dev, frame, k10l_ms: float) -> dict:
+    """Phase 32's K10h and K10j on the culled 512^2 steps' own inputs (the
+    66,560- and 36,000-triangle tori: K10b's and K10h's forward, the shadow
+    mask of its hit positions, one-signed cotangents): K10h against its
+    plain masked version (rtol 1e-5 / atol 1e-6) at both sizes, K10j
+    against its plain float32 version by column group (phase 20's rule) at
+    36,000, where the step takes it; each launched into preallocated
+    outputs and timed, K10j also in half its blocks and both in runs of
+    twice SHW_RUN kept chunks (another order of their sums: time only);
+    the keep rate, srt_work's counts and srt_bounds'. K10h at 66,560 is
+    printed beside K10l's k10l_ms of the same call. Returns {T: numbers}."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    res = {}
+    for T in (66560, 36000):
+        t0 = time.perf_counter()
+        c = srt_case(*frame(T, 512), cull=True)
+        agg, m, _ = srt_fwd(c, masked=True)
+        world = agg[3:6].contiguous()
+        del agg
+        c["smask"] = srt_shadow_mask(c, world)
+        trans = srt_shw(c, world, masked=True)
+        want = srt_shw(c, world, plain=True, masked=True)
+        torch.cuda.synchronize()
+        err = float((trans - want).abs().max())
+        ok = bool(torch.isfinite(trans).all()) and torch.allclose(
+            trans, want, rtol=1e-5, atol=1e-6)
+        require(ok, f"K10h on the {T}-triangle culled step within rtol 1e-5 "
+                    f"/ atol 1e-6 of its plain version")
+        del want
+        gcot = one_signed(tuple(trans.shape), dev, seed=8)
+        Tp, R, S, chunk = (c["shw"].shape[0], world.shape[1],
+                           c["srcs"].shape[0], c["chunk"])
+        scull = dict(mask=c["smask"], tiles=c["tiles"])
+        margs = (c["shw"], chunk, c["srcs"], world)
+        checks = {}
+        if T == 36000:
+            got = srt_shw_bwd(c, world, trans, gcot, masked=True)
+            plain = srt_shw_bwd(c, world, trans, gcot, plain=True,
+                                masked=True)
+            one = (("all", 0, 3),)
+            for part, g, p, groups in (
+                    ("table", got[0], plain[0], srt.SHW_GROUPS),
+                    ("sources", got[1], plain[1], one),
+                    ("world", got[2].T, plain[2].T, one)):
+                for grp, (e, gok) in rule_by_group(g, p, groups).items():
+                    checks[f"{part}/{grp}"] = [e, gok]
+                    say(f"  K10j on 36,000 triangles {part}/{grp}: vs plain "
+                        f"float32 {e:.3g} within {gok}")
+                    require(gok, f"K10j {part}/{grp} at 36,000: within "
+                                 f"rtol 1e-4 / atol 1e-5 of the plain "
+                                 f"float32 version after scaling")
+            del got, plain
+        tr = torch.empty_like(trans)
+        outs = (torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
+                torch.empty_like(world))
+
+        def timers(run: int) -> dict:
+            """K10h's and K10j's launches with runs of `run` kept chunks
+            (and K10j's in half its blocks), their scratch allocated."""
+            old, srt.SHW_RUN = srt.SHW_RUN, run
+            try:
+                blocks = srt.shw_bwd_blocks(c["shw"], chunk,
+                                            c["tiles"].count, S)
+                fs = srt.shw_scratch(*margs, **scull, backward=False)
+                bs = {b: srt.shw_scratch(*margs, **scull, backward=True,
+                                         blocks=b)
+                      for b in (blocks, max(1, blocks // 2))}
+            finally:
+                srt.SHW_RUN = old
+
+            def with_run(fn):
+                def go():
+                    old, srt.SHW_RUN = srt.SHW_RUN, run
+                    try:
+                        fn()
+                    finally:
+                        srt.SHW_RUN = old
+                return go
+            tag = "" if run == srt.SHW_RUN else f"_run{run}"
+            fns = {f"k10h{tag}": with_run(lambda: srt.launch_shw_fwd_kernel(
+                *margs, c["es"], c["zs"], tr, **scull, scratch=fs))}
+            for b, sc in bs.items():
+                name = f"k10j{tag}" + ("" if b == blocks else "_half")
+                if tag and b != blocks:
+                    continue
+                fns[name] = with_run(
+                    lambda b=b, sc=sc: srt.launch_shw_bwd_kernel(
+                        *margs, trans, gcot, c["es"], c["zs"], *outs,
+                        **scull, blocks=b, scratch=sc))
+            return fns, blocks
+
+        fns, blocks = timers(srt.SHW_RUN)
+        fns2, _ = timers(2 * srt.SHW_RUN)
+        ms = median_ms_in_turns({**fns, **fns2}, n=2, reps=3, timer=held_ms)
+        del fns, fns2
+        torch.cuda.empty_cache()
+        work = srt_work(c, m, world, gcot * trans * (-srt.OD_SCALE),
+                        masked=True, primary=False)
+        bounds = srt_bounds(c, work, masked=True)
+        keep = float(c["smask"].float().mean())
+        passing = work["triples"] - work["gated_s"]
+        passing_b = work["act_s"] - work["act_gated_s"]
+        res[T] = dict(ms=ms, blocks=blocks, keep=keep, work=work,
+                      bound_fwd=bounds["shw_fwd"], bound_bwd=bounds["shw_bwd"],
+                      fwd_err=err, bwd_checks=checks)
+        say(f"K10h and K10j on the culled 512^2 step's inputs, {T} triangles "
+            f"({Tp // chunk} chunks, shadow keep rate {keep:.4f}; "
+            f"{work['triples']} kept triples, {work['gated_s']} gated, "
+            f"{work['dead_f']} skipped by the forward's test "
+            f"({work['dead_f'] / max(passing, 1):.4%} of the gate's passing), "
+            f"{work['live_f']} of a term not 0; backward {work['act_s']} of d "
+            f"od not 0, {work['dead_s']} found dead "
+            f"({work['dead_s'] / max(passing_b, 1):.4%}), {work['live_s']} "
+            f"live): K10h {ms['k10h']:.4f} ms (bound "
+            f"{bounds['shw_fwd'][0]:.4f} ms, {bounds['shw_fwd'][1]}; vs "
+            f"plain {err:.3g}; runs of {2 * srt.SHW_RUN}: "
+            f"{ms[f'k10h_run{2 * srt.SHW_RUN}']:.4f}; K10l in this call "
+            f"{k10l_ms:.4f}), K10j {ms['k10j']:.4f} ms in {blocks} blocks "
+            f"(bound {bounds['shw_bwd'][0]:.4f} ms, {bounds['shw_bwd'][1]}; "
+            f"in {max(1, blocks // 2)} blocks {ms['k10j_half']:.4f}; runs of "
+            f"{2 * srt.SHW_RUN}: {ms[f'k10j_run{2 * srt.SHW_RUN}']:.4f}) "
+            f"({time.perf_counter() - t0:.1f} s; {card_line()})")
+        del c, trans, gcot, tr, outs, world, m
+        torch.cuda.empty_cache()
+    return res
 
 
 # Float operations of L5's variants beyond K1's, counted from
@@ -4629,15 +4790,20 @@ def main() -> int:
                torch.empty(R, device=dev))
         tr = torch.empty((S, R), device=dev)
         pg = srt.bwd_groups(Tp, srt.PRI_USED, blocks)
-        sg = srt.bwd_groups(Tp, srt.SHW_USED, blocks)
+        sg = srt.shw_bwd_blocks(
+            c["shw"], chunk,
+            srt._shw_tiles(R, scull.get("mask"), scull.get("tiles")), S)
         pbuf = (torch.empty((pg, Tp, srt.PRI_USED), device=dev),
                 torch.empty((pg, 3), device=dev),
                 torch.empty_like(c["pri"]), torch.empty(3, device=dev),
                 torch.empty_like(c["dirs"]))
-        sbuf = (torch.empty((sg, Tp, srt.SHW_USED), device=dev),
-                torch.empty((sg, S, 3), device=dev),
-                torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
+        sbuf = (torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
                 torch.empty_like(world))
+        fscratch = srt.shw_scratch(c["shw"], chunk, c["srcs"], world,
+                                   **scull, backward=False)
+        bscratch = (srt.shw_scratch(c["shw"], chunk, c["srcs"], world,
+                                    **scull, backward=True, blocks=sg)
+                    if gcot is not None else None)
         kernels = {
             "pri_fwd": lambda: srt.launch_pri_fwd_kernel(
                 c["pri"], chunk, c["cam"], c["dirs"], es, zs, *out, **pcull),
@@ -4645,10 +4811,11 @@ def main() -> int:
                 c["pri"], chunk, c["cam"], c["dirs"], es, zs, m, cot, *pbuf,
                 **pcull),
             "shw_fwd": lambda: srt.launch_shw_fwd_kernel(
-                c["shw"], chunk, c["srcs"], world, es, zs, tr, **scull),
+                c["shw"], chunk, c["srcs"], world, es, zs, tr, **scull,
+                scratch=fscratch),
             "shw_bwd": lambda: srt.launch_shw_bwd_kernel(
                 c["shw"], chunk, c["srcs"], world, trans, gcot, es, zs,
-                *sbuf, **scull)}
+                *sbuf, **scull, blocks=sg, scratch=bscratch)}
         plain = {
             "pri_fwd": lambda: srt_fwd(c, plain=True, masked=masked),
             "pri_bwd": lambda: srt_bwd(c, m, cot, plain=True, masked=masked),
@@ -5497,6 +5664,20 @@ def main() -> int:
                 entry[case] = dict(ms=f[part], plain_ms=f[f"{part}_plain"],
                                    bound_ms=f["bounds"][part][0],
                                    bound_by=f["bounds"][part][1])
+        # K10h and K10j on phase 32's culled steps (66,560 and 36,000
+        # triangles): time, bound, keep rate and the triples skipped.
+        for T, b in record["k10hj_big"].items():
+            if part not in ("shw_fwd", "shw_bwd"):
+                break
+            fwd = part == "shw_fwd"
+            w = b["work"]
+            bound = b["bound_fwd" if fwd else "bound_bwd"]
+            entry[f"step_{T}"] = dict(
+                ms=b["ms"]["k10h" if fwd else "k10j"], bound_ms=bound[0],
+                bound_by=bound[1], keep=b["keep"], triples=w["triples"],
+                gated=w["gated_s"] if fwd else w["act_gated_s"],
+                dead=w["dead_f"] if fwd else w["dead_s"],
+                live=w["live_f"] if fwd else w["live_s"])
         if key in srtm_checks:
             entry["checks"] = srtm_checks[key]
         return entry

@@ -9,9 +9,11 @@
 // replaces _pri_bwd_fused_kernel and K10d, soft_rt_pri_bwd_kernel<true> and
 // the same sums, _pri_bwd_fused_kernel_masked; K10g,
 // soft_rt_shw_fwd_kernel<false>, replaces _shw_fwd_kernel and K10h, <true>,
-// _shw_fwd_kernel_masked; K10i, soft_rt_shw_bwd_kernel<false> and the sums,
-// replaces _shw_bwd_fused_kernel and K10j, <true>,
-// _shw_bwd_fused_kernel_masked. K10e, soft_rt_pri_bwd_tables_kernel and the
+// _shw_fwd_kernel_masked, each with the merge of its runs; K10i,
+// soft_rt_shw_bwd_kernel<false>, the merge and the sums, replaces
+// _shw_bwd_fused_kernel and K10j, <true>, _shw_bwd_fused_kernel_masked
+// (K10g-K10j redesigned for Hopper around the triples that add exactly
+// nothing and the few tiles that hold the work, below). K10e, soft_rt_pri_bwd_tables_kernel and the
 // sums of its runs and of the camera, replaces _pri_bwd_tables_kernel; K10f,
 // soft_rt_pri_bwd_dirs_kernel, _pri_bwd_dirs_kernel (both redesigned for
 // Hopper around the pairs whose weight is exactly 0, below); K10k,
@@ -61,8 +63,7 @@
 // (source, point) pair), 256 a block, the carry in registers, and a block
 // stages one chunk of <= 32 rows in shared memory, read by warp-uniform
 // broadcast, with per-row values derived once: |n| and log(active + 1e-20)
-// (primary); b = s - v0, cross(e2, b), cross(b, e1), k0 and |n| for the
-// block's source (shadow). The backwards run the same thread-a-ray loop
+// (primary; the shadow's below). The backwards run the same thread-a-ray loop
 // over every chunk in order, so the per-ray gradients (d dirs, d world)
 // add up in registers chunk by chunk, with the per-ray chains (|d|;
 // 1 / |w - s|) applied once a chunk to the chunk's sums, as JAX's VJP of a
@@ -74,8 +75,8 @@
 // sources' gradients take the same two steps. No floating-point atomics:
 // two calls give the same bits.
 //
-// The masked kernels (K10b, K10d, K10h, K10j) take a keep-mask over the
-// port's ray tiles (kernels/intersect.py::ray_tiles: th x 256 / th pixel
+// The masked kernels (K10b, K10d; K10h and K10j below) take a keep-mask
+// over the port's ray tiles (kernels/intersect.py::ray_tiles: th x 256 / th pixel
 // blocks of the H x W image, 16 x 16 for a frame, row-major over the tiles)
 // in place of runs of 256 consecutive rays: a block (or, backward, each turn
 // of a block's loop) takes one tile, reads the tile's keep bit for each
@@ -101,6 +102,7 @@
 // versions (kernels/soft_raytrace.py) to the order of their sums.
 
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -190,32 +192,6 @@ __device__ __forceinline__ void load_pri_chunk(const float* consts, int ch,
     float* c = s_c[threadIdx.x];
     c[18] = sqrtf((c[0] * c[0] + c[1] * c[1]) + c[2] * c[2]);
     c[19] = logf(c[16] + 1e-20f);
-  }
-  __syncthreads();
-}
-
-// Stages chunk ch's rows for the source at sp: b = sp - v0 (0-2), e1 (3-5),
-// e2 (6-8), n (9-11), k0 = sp . n - n . v0 (12), active (13),
-// cross(e2, b) (14-16), cross(b, e1) (17-19), |n| (20).
-__device__ __forceinline__ void load_shw_chunk(const float* consts, int ch,
-                                               int chunk, const float* sp,
-                                               float (*s_q)[kShwRow]) {
-  if (threadIdx.x < chunk) {
-    const float* q =
-        consts + (static_cast<size_t>(ch) * chunk + threadIdx.x) * kShwCols;
-    float* o = s_q[threadIdx.x];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      o[j] = sp[j] - q[j];
-      o[3 + j] = q[3 + j];
-      o[6 + j] = q[6 + j];
-      o[9 + j] = q[9 + j];
-    }
-    o[12] = ((sp[0] * q[9] + sp[1] * q[10]) + sp[2] * q[11]) - q[12];
-    o[13] = q[13];
-    cross3(o + 6, o, o + 14);
-    cross3(o, o + 3, o + 17);
-    o[20] = sqrtf((q[9] * q[9] + q[10] * q[10]) + q[11] * q[11]);
   }
   __syncthreads();
 }
@@ -323,22 +299,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The shadow term cov * occ_z of the ray with unit direction dh and length
-// rr against staged row q.
-__device__ __forceinline__ float shw_term(const float* q, const float* dh,
-                                          float rr, float es, float zs) {
-  const float denom = -((dh[0] * q[9] + dh[1] * q[10]) + dh[2] * q[11]);
-  const float safe = fabsf(denom) > 1e-12f ? denom : 1e-12f;
-  const float rec = 1.0f / safe;
-  const float t = q[12] * rec;
-  if (!(t > 1e-6f && fabsf(denom) > 1e-3f * q[20])) return 0.0f;
-  const float u = ((dh[0] * q[14] + dh[1] * q[15]) + dh[2] * q[16]) * rec;
-  const float v = ((dh[0] * q[17] + dh[1] * q[18]) + dh[2] * q[19]) * rec;
-  const float margin = fminf(fminf(u, v), (1.0f - u) - v);
-  const float cov = sigmoid(es * margin) * q[13];
-  return cov * sigmoid(zs * (0.99f * rr - t));
-}
-
 // The per-point terms of the shadow ray from sp to w: d = w - sp, r2s
 // (|d|^2, 1 where 0), sq = sqrt(r2s), rrec = 1 / sq, rr = r2s rrec and
 // dh = d rrec.
@@ -361,46 +321,6 @@ __device__ __forceinline__ ShadowRay shadow_ray(const float* w,
 #pragma unroll
   for (int j = 0; j < 3; ++j) a.dh[j] = a.d[j] * a.rrec;
   return a;
-}
-
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-    soft_rt_shw_fwd_kernel(const float* __restrict__ consts, int n_chunks,
-                           int chunk, const float* __restrict__ srcs,
-                           const float* __restrict__ world, int R,
-                           const int* __restrict__ mask, int H, int W,
-                           int th, float es, float zs,
-                           float* __restrict__ trans) {
-  __shared__ float s_q[kMaxChunk][kShwRow];
-  const TileRay ray = tile_ray<kMasked>(blockIdx.x, R, H, W, th);
-  const int r = ray.r;
-  const int src = blockIdx.y;
-  const bool live = ray.live;
-  const int* keep =
-      kMasked ? mask + (static_cast<size_t>(blockIdx.x) * gridDim.y + src) *
-                           n_chunks
-              : nullptr;
-  const float sp[3] = {srcs[3 * src], srcs[3 * src + 1], srcs[3 * src + 2]};
-  float w[3] = {0.0f, 0.0f, 0.0f};
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) w[j] = world[static_cast<size_t>(j) * R + r];
-  }
-  const ShadowRay a = shadow_ray(w, sp);
-  float od = 0.0f;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (kMasked && keep[ch] == 0) continue;  // the same bit for the block
-    __syncthreads();
-    load_shw_chunk(consts, ch, chunk, sp, s_q);
-    float csum = 0.0f;
-    for (int i = 0; i < chunk; ++i) {
-      csum += shw_term(s_q[i], a.dh, a.rr, es, zs);
-    }
-    od += csum;
-  }
-  if (live) {
-    trans[static_cast<size_t>(src) * R + r] = expf(-kOdScale * od);
-  }
 }
 
 // Warp sum of g[0..N) into dst (lane 0 writes), or zeros where no lane of
@@ -601,28 +521,75 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Adds one (source, point, row) triple's gradient to the row's g[14], the
-// source's dsrc[3] and the point's chunk sums ddh[3] (unit direction) and
-// drr (length). dl = d od of the pair. False (nothing added) where its
-// weight is 0.
-__device__ __forceinline__ bool shw_pair_bwd(const float* q, const float* dh,
-                                             float rr, float dl,
-                                             const float* sp, float es,
-                                             float zs, float* g, float* ddh,
-                                             float* drr, float* dsrc) {
-  const float denom = -((dh[0] * q[9] + dh[1] * q[10]) + dh[2] * q[11]);
-  const bool big = fabsf(denom) > 1e-12f;
-  const float safe = big ? denom : 1e-12f;
-  const float rec = 1.0f / safe;
-  const float t = q[12] * rec;
-  if (!(t > 1e-6f && fabsf(denom) > 1e-3f * q[20])) return false;
-  const float nu = (dh[0] * q[14] + dh[1] * q[15]) + dh[2] * q[16];
-  const float nv = (dh[0] * q[17] + dh[1] * q[18]) + dh[2] * q[19];
-  const float u = nu * rec, v = nv * rec;
-  const float muv = fminf(u, v), omu = (1.0f - u) - v;
-  const float margin = fminf(muv, omu);
-  const float cov0 = sigmoid(es * margin);
-  const float occ = sigmoid(zs * (0.99f * rr - t));
+constexpr float kSigZero = -100.0f;  // sigmoid below this: exactly 0
+
+// The test of a (source, point, row) triple: the gate, u, v, the margin,
+// xs = es margin and y = zs (0.99 rr - t), by shw_pair_bwd's expressions
+// in its order, from the row staged for the source (stage_shw_row: s0 =
+// (n, k0), s1 = (c2b, |n|), s2 = (cb1, 1e-3 |n|)) and the point pt = (dh,
+// 0.99 rr). Every term and gradient of the triple goes on from these
+// floats.
+struct ShwTest {
+  float denom, rec, t, nu, nv, u, v, muv, omu, xs, y;
+  bool big, ok;
+};
+
+__device__ __forceinline__ ShwTest shw_test(float4 s0, float4 s1, float4 s2,
+                                            float4 pt, float es, float zs) {
+  ShwTest x;
+  x.denom = -((pt.x * s0.x + pt.y * s0.y) + pt.z * s0.z);
+  x.big = fabsf(x.denom) > 1e-12f;
+  const float safe = x.big ? x.denom : 1e-12f;
+  x.rec = 1.0f / safe;
+  x.t = s0.w * x.rec;
+  x.ok = (x.t > 1e-6f) & (fabsf(x.denom) > s2.w);
+  x.nu = (pt.x * s1.x + pt.y * s1.y) + pt.z * s1.z;
+  x.nv = (pt.x * s2.x + pt.y * s2.y) + pt.z * s2.z;
+  x.u = x.nu * x.rec;
+  x.v = x.nv * x.rec;
+  x.muv = fminf(x.u, x.v);
+  x.omu = (1.0f - x.u) - x.v;
+  x.xs = es * fminf(x.muv, x.omu);
+  x.y = zs * (pt.w - x.t);
+  return x;
+}
+
+// The backward's test: gated, or xs or y below kSigZero, where 1 / (1 +
+// expf(-x)) is exactly 0, so shw_pair_grad would add nothing (see K10k and
+// K10l's note below). Or-ed bitwise, with no return between them, so that
+// the compiler schedules a run of triples as one block.
+__device__ __forceinline__ bool shw_dead(const ShwTest& x) {
+  return !x.ok | (x.xs < kSigZero) | (x.y < kSigZero);
+}
+
+// The forward's test (K10g, K10h): true where the term cov0 active occ of a
+// triple is +-0, so that skipping it leaves the chunk's sum (from +0, never
+// -0) bit for bit as it was: gated (the kernels add nothing), or xs or y
+// below kSigZero, where that sigmoid is exactly 0 and the other lies in [0,
+// 1]; and only where the active column is finite and none of 1 - u - v, xs
+// and y is NaN, as 0 inf and 0 NaN are NaN. A NaN u or v makes 1 - u - v
+// NaN too, so the plain version's margin (a NaN-keeping minimum) is the
+// kernels' (fminf) wherever a triple is marked.
+__device__ __forceinline__ bool shw_term_dead(const ShwTest& x, float act) {
+  const bool sane = (fabsf(act) <= kBig) & (x.omu == x.omu) &
+                    (x.xs == x.xs) & (x.y == x.y);
+  return sane & shw_dead(x);
+}
+
+// Adds the gradient of a triple that passed its gate to the row's g[14],
+// the source's dsrc[3] and the point's chunk sums ddh[3] (unit direction)
+// and drr (length), going on from its test x: the two sigmoids and, where
+// neither is 0, the derivative. q the row in load order (unstage_shw_row),
+// dh the point's unit direction, dl = d od of the pair. False (nothing
+// added) where a sigmoid is 0.
+__device__ __forceinline__ bool shw_pair_grad(const ShwTest& x,
+                                              const float* q, const float* dh,
+                                              float dl, const float* sp,
+                                              float es, float zs, float* g,
+                                              float* ddh, float* drr,
+                                              float* dsrc) {
+  const float cov0 = sigmoid(x.xs);
+  const float occ = sigmoid(x.y);
   if (cov0 == 0.0f || occ == 0.0f) return false;
   const float cov = cov0 * q[13];
   // od term = cov0 active occ.
@@ -632,15 +599,15 @@ __device__ __forceinline__ bool shw_pair_bwd(const float* q, const float* dh,
   const float dy = (docc * (occ * (1.0f - occ))) * zs;
   *drr += dy * 0.99f;
   const float dt = -dy;
-  const float dmuv = dmargin * dmin_first(muv, omu);
-  const float domu = dmargin * dmin_first(omu, muv);
-  const float du = dmuv * dmin_first(u, v) - domu;
-  const float dv = dmuv * dmin_first(v, u) - domu;
+  const float dmuv = dmargin * dmin_first(x.muv, x.omu);
+  const float domu = dmargin * dmin_first(x.omu, x.muv);
+  const float du = dmuv * dmin_first(x.u, x.v) - domu;
+  const float dv = dmuv * dmin_first(x.v, x.u) - domu;
   // t = k0 rec, u = nu rec, v = nv rec, rec = 1 / safe.
-  const float dk0 = dt * rec;
-  const float drec = (dt * q[12] + du * nu) + dv * nv;
-  const float dnu = du * rec, dnv = dv * rec;
-  const float dden = big ? -drec * (rec * rec) : 0.0f;
+  const float dk0 = dt * x.rec;
+  const float drec = (dt * q[12] + du * x.nu) + dv * x.nv;
+  const float dnu = du * x.rec, dnv = dv * x.rec;
+  const float dden = x.big ? -drec * (x.rec * x.rec) : 0.0f;
   // denom = -(dh . n), nu = dh . c2b, nv = dh . cb1, k0 = sp . n - n . v0.
   float dn[3], dc2b[3], dcb1[3];
 #pragma unroll
@@ -670,117 +637,22 @@ __device__ __forceinline__ bool shw_pair_bwd(const float* q, const float* dh,
   return true;
 }
 
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-    soft_rt_shw_bwd_kernel(const float* __restrict__ consts, int Tp,
-                           int chunk, const float* __restrict__ srcs, int S,
-                           const float* __restrict__ world, int R,
-                           const int* __restrict__ mask, int H, int W,
-                           int th, int n_tiles,
-                           const float* __restrict__ trans,
-                           const float* __restrict__ gcot, float es, float zs,
-                           int groups, float* __restrict__ partials,
-                           float* __restrict__ src_partials,
-                           float* __restrict__ dw_out) {
-  __shared__ float s_q[kMaxChunk][kShwRow];
-  __shared__ float s_red[kWarps][kMaxChunk][kShwUsed];
-  __shared__ float s_src[kWarps][3];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int n_chunks = Tp / chunk;
-  float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kShwUsed;
-  float* spart = src_partials + static_cast<size_t>(blockIdx.x) * S * 3;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += groups) {
-    const bool first_tile = tile == static_cast<int>(blockIdx.x);
-    const TileRay ray = tile_ray<kMasked>(tile, R, H, W, th);
-    const int r = ray.r;
-    const bool live = ray.live;
-    float w[3] = {0.0f, 0.0f, 0.0f};
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) w[j] = world[static_cast<size_t>(j) * R + r];
-    }
-    float dw[3] = {0.0f, 0.0f, 0.0f};
-    for (int src = 0; src < S; ++src) {
-      const bool first = first_tile && src == 0;
-      const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
-                           srcs[3 * src + 2]};
-      const ShadowRay a = shadow_ray(w, sp);
-      // d od = d trans * (-16) * trans.
-      float dl = 0.0f;
-      if (live) {
-        const size_t k = static_cast<size_t>(src) * R + r;
-        dl = gcot[k] * trans[k] * (-kOdScale);
-      }
-      const bool active = live && dl != 0.0f;
-      float dws[3] = {0.0f, 0.0f, 0.0f}, dsrc[3] = {0.0f, 0.0f, 0.0f};
-      const int* keep =
-          kMasked ? mask + (static_cast<size_t>(tile) * S + src) * n_chunks
-                  : nullptr;
-      for (int ch = 0; ch < n_chunks; ++ch) {
-        if (kMasked && keep[ch] == 0) {  // the same bit for the block
-          if (first) zero_rows(part, ch, chunk, kShwUsed);
-          continue;
-        }
-        __syncthreads();  // s_q and s_red are free again
-        load_shw_chunk(consts, ch, chunk, sp, s_q);
-        float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;
-        for (int i = 0; i < chunk; ++i) {
-          float g[kShwUsed];
-#pragma unroll
-          for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
-          const bool mine = active && shw_pair_bwd(s_q[i], a.dh, a.rr, dl, sp,
-                                                   es, zs, g, ddh, &drr,
-                                                   dsrc);
-          warp_sum_store<kShwUsed>(g, mine, s_red[warp][i]);
-        }
-        if (active) {
-          // dh = d rrec, rr = r2s rrec, rrec = 1 / sqrt(r2s), r2s = |d|^2
-          // (1 where 0), d = w - sp: once a chunk.
-          float drrec = drr * a.r2s;
-          float dd[3];
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            dd[j] = ddh[j] * a.rrec;
-            drrec += ddh[j] * a.d[j];
-          }
-          const float dsq = -drrec / (a.sq * a.sq);
-          const float dr2s = drr * a.rrec + dsq * (0.5f / a.sq);
-          const float dr2 = a.lit ? dr2s : 0.0f;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            dd[j] += dr2 * a.d[j] + dr2 * a.d[j];
-            dws[j] += dd[j];
-            dsrc[j] -= dd[j];
-          }
-        }
-        __syncthreads();
-        for (int o = tid; o < chunk * kShwUsed; o += kThreads) {
-          const int row = o / kShwUsed, k = o % kShwUsed;
-          float sum = 0.0f;
-#pragma unroll
-          for (int wp = 0; wp < kWarps; ++wp) sum += s_red[wp][row][k];
-          float* dst =
-              part + (static_cast<size_t>(ch) * chunk + row) * kShwUsed + k;
-          *dst = first ? sum : *dst + sum;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) dw[j] += dws[j];
-      warp_sum_store<3>(dsrc, active, s_src[warp]);
-      __syncthreads();
-      if (tid < 3) {
-        float sum = 0.0f;
-        for (int wp = 0; wp < kWarps; ++wp) sum += s_src[wp][tid];
-        float* dst = spart + 3 * src + tid;
-        *dst = first_tile ? sum : *dst + sum;
-      }
-    }
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) dw_out[static_cast<size_t>(j) * R + r] =
-          dw[j];
-    }
-  }
+// Adds one (source, point, row) triple's gradient as shw_pair_grad does,
+// from its test on the row q in load order (b 0-2, e1 3-5, e2 6-8, n 9-11,
+// k0 12, active 13, c2b 14-16, cb1 17-19, |n| 20) and the point's unit
+// direction dh and length rr. False (nothing added) where its weight is 0.
+__device__ __forceinline__ bool shw_pair_bwd(const float* q, const float* dh,
+                                             float rr, float dl,
+                                             const float* sp, float es,
+                                             float zs, float* g, float* ddh,
+                                             float* drr, float* dsrc) {
+  const ShwTest x = shw_test(
+      make_float4(q[9], q[10], q[11], q[12]),
+      make_float4(q[14], q[15], q[16], q[20]),
+      make_float4(q[17], q[18], q[19], 1e-3f * q[20]),
+      make_float4(dh[0], dh[1], dh[2], 0.99f * rr), es, zs);
+  if (!x.ok) return false;
+  return shw_pair_grad(x, q, dh, dl, sp, es, zs, g, ddh, drr, dsrc);
 }
 
 // The two-launch backwards (K10e/K10f primary, K10k/K10l shadow), JAX's
@@ -1235,10 +1107,10 @@ __device__ __forceinline__ void load_point(const float* world, int r, int R,
 // 99% of those have sigmoid(es margin) exactly 0, yet shw_pair_bwd works out
 // both sigmoids (an expf and an IEEE divide each) before it finds that 0.
 // shw_triple_dead below finds nearly all of them, and both kernels run
-// shw_pair_bwd, unchanged, on the rest only.
+// shw_pair_bwd on the rest only.
 //
-// Exactness. The test computes the gate, u, v, the margin, xs = es margin
-// and y = zs (0.99 rr - t) with shw_pair_bwd's expressions in its order
+// Exactness. The test is shw_test, the gate, u, v, the margin, xs = es
+// margin and y = zs (0.99 rr - t), which shw_pair_bwd runs first itself
 // (the build contracts nothing into an FMA), so xs and y are the very
 // floats its two sigmoids take. sigmoid(x) = 1 / (1 + expf(-x)): below x =
 // kSigZero = -100, -x > 100 lies past float32 expf's overflow (about
@@ -1256,8 +1128,8 @@ __device__ __forceinline__ void load_point(const float* world, int r, int R,
 // is 1 / (1 + inf) = 0 too. A point whose d od is 0 (or no point) adds
 // nothing and is skipped whole, as before.
 //
-// Staging. A row is six float4s for a source (stage_shw_row, with
-// load_shw_chunk's expressions, so the same bits): the dead test reads the
+// Staging. A row is six float4s for a source (stage_shw_row, the first
+// design's per-chunk expressions, so the same bits): the dead test reads the
 // first three, (n, k0), (c2b, |n|), (cb1, 1e-3 |n|); the live path also
 // (b, active), (e1, 0), (e2, 0). A point is (dh, 0.99 rr) for the test and,
 // packed for K10k (pack_shw_points_kernel, through shw_point), (d od, rr,
@@ -1271,8 +1143,8 @@ __device__ __forceinline__ void load_point(const float* world, int r, int R,
 // each chunk a thread tests its point against every row and keeps a mask of
 // the triples not dead, then runs shw_pair_bwd on those in row order; K10i's
 // chain through dh, rr, rrec and r2s follows once a chunk, and the point
-// sums over the sources, the chunks and the rows in K10i's order, so
-// d world equals K10i's bit for bit. A block whose points all have d od 0
+// sums over the sources, K10i's runs of chunks, the chunks and the rows in
+// K10i's order, so d world equals K10i's bit for bit. A block whose points all have d od 0
 // for a source skips it. The sources' gradients: a (blocks, S, 3) partial
 // of warp sums, added in order.
 //
@@ -1289,13 +1161,12 @@ __device__ __forceinline__ void load_point(const float* world, int r, int R,
 // Each block writes its (256, 14) partial of its run; the runs' partials
 // add in run order (sum_groups_kernel), so two calls give the same bits.
 
-constexpr float kSigZero = -100.0f;  // sigmoid below this: exactly 0
 constexpr int kShwQ = 6;             // float4s of a staged shadow row
 constexpr int kPtQ = 2;              // float4s of a packed point
 constexpr int kPtTile = 256;         // points a K10k tile
 
 // Row q of the shadow table (14 used columns) staged for the source at sp
-// as six float4s with load_shw_chunk's expressions: s0 = (n, k0), s1 =
+// as six float4s: s0 = (n, k0), s1 =
 // (c2b, |n|), s2 = (cb1, 1e-3 |n|), s3 = (b, active), s4 = (e1, 0), s5 =
 // (e2, 0).
 __device__ __forceinline__ void stage_shw_row(const float* q, const float* sp,
@@ -1319,8 +1190,8 @@ __device__ __forceinline__ void stage_shw_row(const float* q, const float* sp,
   s[5] = make_float4(e2[0], e2[1], e2[2], 0.0f);
 }
 
-// A staged row back in load_shw_chunk's layout (21 floats), as
-// shw_pair_bwd reads it.
+// A staged row back in load order (21 floats), as shw_pair_bwd and
+// shw_pair_grad read it.
 __device__ __forceinline__ void unstage_shw_row(const float4* s, float* q) {
   const float4 s0 = s[0], s1 = s[1], s2 = s[2], s3 = s[3], s4 = s[4],
                s5 = s[5];
@@ -1341,18 +1212,7 @@ __device__ __forceinline__ void unstage_shw_row(const float4* s, float* q) {
 __device__ __forceinline__ bool shw_triple_dead(float4 s0, float4 s1,
                                                 float4 s2, float4 pt,
                                                 float es, float zs) {
-  // s1.w (|n|) is the live path's.
-  const float denom = -((pt.x * s0.x + pt.y * s0.y) + pt.z * s0.z);
-  const float safe = fabsf(denom) > 1e-12f ? denom : 1e-12f;
-  const float rec = 1.0f / safe;
-  const float t = s0.w * rec;
-  const float u = ((pt.x * s1.x + pt.y * s1.y) + pt.z * s1.z) * rec;
-  const float v = ((pt.x * s2.x + pt.y * s2.y) + pt.z * s2.z) * rec;
-  const float margin = fminf(fminf(u, v), (1.0f - u) - v);
-  const float xs = es * margin;
-  const float y = zs * (pt.w - t);
-  return !(t > 1e-6f) | !(fabsf(denom) > s2.w) | (xs < kSigZero) |
-         (y < kSigZero);
+  return shw_dead(shw_test(s0, s1, s2, pt, es, zs));
 }
 
 // The table's Tp rows staged (stage_shw_row) for each source (blockIdx.y)
@@ -1495,7 +1355,8 @@ __global__ void __launch_bounds__(kThreads)
                                 int S, const float* __restrict__ world,
                                 int R, const float* __restrict__ trans,
                                 const float* __restrict__ gcot, float es,
-                                float zs, float* __restrict__ src_partials,
+                                float zs, int run,
+                                float* __restrict__ src_partials,
                                 float* __restrict__ dw_out) {
   __shared__ float4 s_rows[kStages * kStageRows * kShwQ];
   __shared__ float s_src[kWarps][3];
@@ -1510,6 +1371,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < kShwUsed; ++k) g[k] = 0.0f;
   const int stage_rows = (kStageRows / chunk) * chunk;
   const int n_stages = (Tp + stage_rows - 1) / stage_rows;
+  const int n_chunks = Tp / chunk;
   for (int src = 0; src < S; ++src) {
     const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
                          srcs[3 * src + 2]};
@@ -1517,7 +1379,9 @@ __global__ void __launch_bounds__(kThreads)
     const ShadowRay& a = p.a;
     const float4 pt = make_float4(a.dh[0], a.dh[1], a.dh[2], 0.99f * a.rr);
     const float4* src_rows = rows + static_cast<size_t>(src) * Tp * kShwQ;
-    float dws[3] = {0.0f, 0.0f, 0.0f}, dsrc[3] = {0.0f, 0.0f, 0.0f};
+    // K10i's fold: a run's chunks into prun from 0, the runs into dws.
+    float dws[3] = {0.0f, 0.0f, 0.0f}, prun[3] = {0.0f, 0.0f, 0.0f};
+    float dsrc[3] = {0.0f, 0.0f, 0.0f};
     auto issue = [&](int s) {
       if (s < n_stages) {
         const int row0 = s * stage_rows;
@@ -1572,8 +1436,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
             dd[j] += dr2 * a.d[j] + dr2 * a.d[j];
-            dws[j] += dd[j];
+            prun[j] += dd[j];
             dsrc[j] -= dd[j];
+          }
+          const int c = s * (stage_rows / chunk) + cc + 1;  // chunks done
+          if (c % run == 0 || c == n_chunks) {
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              dws[j] += prun[j];
+              prun[j] = 0.0f;
+            }
           }
         }
       }
@@ -1594,6 +1466,444 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 3; ++j) dw_out[static_cast<size_t>(j) * R + r] =
         dw[j];
   }
+}
+
+// K10g-K10j, redesigned for Hopper. On the culled steps and frames (512^2,
+// the 9,216-, 36,000- and 66,560-triangle meshes) a third of the (tile,
+// source, chunk) triples are kept, more than 95% of the kept triples that
+// pass the gate have a sigmoid that is exactly 0, and a few tiles hold most
+// of the kept chunks; the first design (a block a tile, every kept chunk
+// derived by one warp between two barriers, every triple's sigmoids worked
+// out in full) ran 11-28x its bound there. Three changes:
+//
+// - Exact early-outs. The backward (K10i, K10j) runs shw_dead, K10k's and
+//   K10l's test, on every triple before the derivative: a dead triple adds
+//   nothing today, so no bit moves. The forward (K10g, K10h) adds its term
+//   cov0 active occ to od, so it skips a triple only where that term is
+//   +-0 (shw_term_dead): a sum that starts at +0 never becomes -0, and
+//   adding +-0 leaves it as it was, so od keeps its bits. Both go on from
+//   the test's own floats (ShwTest) to the term or the derivative, as the
+//   test is the first half of either: a triple that is not dead pays no
+//   second reciprocal. A warp walks a chunk's rows in order; the rows no
+//   lane keeps cost it the test alone.
+// - Rows staged once a launch. The masked kernels read each source's rows
+//   as pack_shw_rows_kernel staged them (stage_shw_row, six float4s a
+//   row), a kept chunk at a time through a cp.async ring of kShwRing
+//   stages, two ahead, one barrier a stage. The unmasked kernels, whose
+//   callers run them on tables of a chunk or two (the Cornell box: 32
+//   rows) 500 times a fit, stage the rows of their chunks in the same ring
+//   with the same expressions (the same bits), and save the staging launch.
+// - Work items of at most `run` kept chunks. A (tile, source)'s kept chunks
+//   (every chunk, unmasked) are cut into runs of `run` in order, a work
+//   item each, laid out in (tile, source, run) order; the masked kernels'
+//   items come from the plan (shw_plan_kernel: each pair's kept chunks in
+//   order; shw_items_kernel: the items' offsets), made on the card, with no
+//   host sync. Block b takes items b, b + blocks, ... (a fixed rule, no
+//   atomic counter), so the few tiles that hold most of the work spread
+//   over the card, and every sum adds in a fixed order: two calls give the
+//   same bits. An item sums od, or d world, over its run's chunks from 0;
+//   a merge (shw_fwd_merge_kernel, shw_bwd_merge_kernel) folds the runs of
+//   a (tile, source) in run order, and d world the sources in order, as
+//   k7a_merge_kernel folds K7a's runs. With one run a pair (and, backward,
+//   one source) an unmasked kernel writes trans, or d world, itself.
+//   K10l folds d world's chunks in the same runs, so its d world stays
+//   K10i's bit for bit. The backward's blocks each keep a (Tp, 14)
+//   partial of the table's gradient: a chunk's rows where a lane of the
+//   block has a live triple are added in warp order into it, the others
+//   written 0 once (a bit a chunk in shared memory says which); the
+//   partials add in block order (sum_groups_kernel). Their cap is the
+//   shadow backward's own, sized for the card (SHW_PARTIAL_BYTES in
+//   kernels/soft_raytrace.py), so at 36,000 rows the grid is no longer one
+//   block an SM.
+//
+// Unchanged: an unmasked kernel with every bit set computes what its masked
+// twin does, item by item, for each ray, so all-ones masks give the
+// unmasked kernels' bits.
+
+constexpr int kShwRing = 3;       // stages of a chunk's rows, two in flight
+constexpr int kScanThreads = 1024;  // shw_items_kernel's block
+
+// Where the kernels find their work items: masked, the plan's lists;
+// unmasked, `runs` runs of `run` chunks a (tile, source) pair, n_items in
+// all.
+struct ShwPlan {
+  const int* kept;   // (n_pairs, n_chunks): each pair's kept chunks
+  const int* nk;     // (n_pairs): their count
+  const int* off;    // (n_pairs + 1): each pair's first item; the items
+  const int* items;  // the pair of each item
+  int n_pairs, n_chunks, run, runs, n_items;
+};
+
+// The masked kernels' plan, a warp a (tile, source) pair p (the mask's row
+// p): the pair's kept chunks in order into kept[p n_chunks ...] and their
+// count into nk[p].
+__global__ void __launch_bounds__(kThreads)
+    shw_plan_kernel(const int* __restrict__ mask, int n_pairs, int n_chunks,
+                    int* __restrict__ kept, int* __restrict__ nk) {
+  const int lane = threadIdx.x & 31;
+  const long long p =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (p >= n_pairs) return;  // the same for the warp
+  const int* row = mask + p * n_chunks;
+  int* out = kept + p * n_chunks;
+  int k = 0;
+  for (int base = 0; base < n_chunks; base += 32) {
+    const int c = base + lane;
+    const bool on = c < n_chunks && row[c] != 0;
+    const unsigned bits = __ballot_sync(kFull, on);
+    if (on) out[k + __popc(bits & ((1u << lane) - 1u))] = c;
+    k += __popc(bits);
+  }
+  if (lane == 0) nk[p] = k;
+}
+
+// The masked kernels' items, one block: pair p's ceil(nk[p] / run) runs are
+// items off[p] ... off[p + 1] - 1, in pair order; items[i] is the pair of
+// item i and off[n_pairs] the number of items.
+__global__ void __launch_bounds__(kScanThreads)
+    shw_items_kernel(const int* __restrict__ nk, int n_pairs, int run,
+                     int* __restrict__ off, int* __restrict__ items) {
+  __shared__ int s_sum[kScanThreads];
+  const int tid = threadIdx.x;
+  const int per = (n_pairs + kScanThreads - 1) / kScanThreads;
+  const int lo = static_cast<int>(
+      min(static_cast<long long>(n_pairs), static_cast<long long>(tid) * per));
+  const int hi = min(n_pairs, lo + per);
+  int sum = 0;
+  for (int p = lo; p < hi; ++p) sum += (nk[p] + run - 1) / run;
+  s_sum[tid] = sum;
+  __syncthreads();
+  for (int d = 1; d < kScanThreads; d <<= 1) {  // inclusive scan
+    const int v = tid >= d ? s_sum[tid - d] : 0;
+    __syncthreads();
+    s_sum[tid] += v;
+    __syncthreads();
+  }
+  int at = s_sum[tid] - sum;
+  for (int p = lo; p < hi; ++p) {
+    const int r = (nk[p] + run - 1) / run;
+    off[p] = at;
+    for (int j = 0; j < r; ++j) items[at + j] = p;
+    at += r;
+  }
+  if (tid == kScanThreads - 1) off[n_pairs] = s_sum[tid];
+}
+
+// Work item `it`: its (tile, source) pair and its n chunks, the k-th at
+// item_chunk(x, k).
+struct ShwItem {
+  int pair, n, c0;
+  const int* list;
+};
+
+template <bool kMasked>
+__device__ __forceinline__ ShwItem shw_item(const ShwPlan& pl, int it) {
+  ShwItem x;
+  if (kMasked) {
+    x.pair = pl.items[it];
+    const int k0 = (it - pl.off[x.pair]) * pl.run;
+    x.n = min(pl.run, pl.nk[x.pair] - k0);
+    x.list = pl.kept + static_cast<size_t>(x.pair) * pl.n_chunks + k0;
+    x.c0 = 0;
+  } else {
+    x.pair = it / pl.runs;
+    x.c0 = (it % pl.runs) * pl.run;
+    x.n = min(pl.run, pl.n_chunks - x.c0);
+    x.list = nullptr;
+  }
+  return x;
+}
+
+template <bool kMasked>
+__device__ __forceinline__ int item_chunk(const ShwItem& x, int k) {
+  return kMasked ? x.list[k] : x.c0 + k;
+}
+
+template <bool kMasked>
+__device__ __forceinline__ int item_count(const ShwPlan& pl) {
+  return kMasked ? pl.off[pl.n_pairs] : pl.n_items;
+}
+
+// Pair p's first item and its number of runs.
+template <bool kMasked>
+__device__ __forceinline__ int2 pair_items(const ShwPlan& pl, int p) {
+  if (kMasked) return make_int2(pl.off[p], pl.off[p + 1] - pl.off[p]);
+  return make_int2(p * pl.runs, pl.runs);
+}
+
+// Issues stage k of item x into ring[k % kShwRing] and commits a cp.async
+// group: masked, a cp.async of the chunk's rows as staged for source src
+// (rows (S, Tp, kShwQ)); unmasked, the chunk's rows staged here by the
+// first `chunk` threads (stage_shw_row from the table, the same bits).
+template <bool kMasked>
+__device__ __forceinline__ void issue_shw_stage(
+    const ShwItem& x, int k, float4 (*ring)[kMaxChunk * kShwQ],
+    const float4* rows, const float* consts, int Tp, int chunk, int src,
+    const float* sp) {
+  if (k < x.n) {
+    const size_t row0 = static_cast<size_t>(item_chunk<kMasked>(x, k)) * chunk;
+    float4* dst = ring[k % kShwRing];
+    if (kMasked) {
+      copy_async(dst, rows + (static_cast<size_t>(src) * Tp + row0) * kShwQ,
+                 chunk * kShwQ);
+    } else if (threadIdx.x < chunk) {
+      stage_shw_row(consts + (row0 + threadIdx.x) * kShwCols, sp,
+                    dst + threadIdx.x * kShwQ);
+    }
+  }
+  cp_async_commit();
+}
+
+// K10g (kMasked false) and K10h (true), replace _shw_fwd_kernel and
+// _shw_fwd_kernel_masked (see above): block b takes items b, b + gridDim.x,
+// ...; a thread a ray of the item's tile. od_part (items, 256) the runs'
+// partial od, or null: trans written here.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_shw_fwd_kernel(const float* __restrict__ consts, int Tp,
+                           int chunk, const float4* __restrict__ rows,
+                           const float* __restrict__ srcs, int S,
+                           const float* __restrict__ world, int R, int H,
+                           int W, int th, float es, float zs, ShwPlan pl,
+                           float* __restrict__ od_part,
+                           float* __restrict__ trans) {
+  __shared__ float4 s_ring[kShwRing][kMaxChunk * kShwQ];
+  const int n_items = item_count<kMasked>(pl);
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const ShwItem x = shw_item<kMasked>(pl, it);
+    const int src = x.pair % S;
+    const TileRay ray = tile_ray<kMasked>(x.pair / S, R, H, W, th);
+    const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
+                         srcs[3 * src + 2]};
+    float w[3];
+    load_point(world, ray.r, R, ray.live, w);
+    const ShadowRay a = shadow_ray(w, sp);
+    const float4 pt = make_float4(a.dh[0], a.dh[1], a.dh[2], 0.99f * a.rr);
+    __syncthreads();  // every thread is done with the last item's stages
+    issue_shw_stage<kMasked>(x, 0, s_ring, rows, consts, Tp, chunk, src, sp);
+    issue_shw_stage<kMasked>(x, 1, s_ring, rows, consts, Tp, chunk, src, sp);
+    float od = 0.0f;
+    for (int k = 0; k < x.n; ++k) {
+      cp_async_wait_one();
+      __syncthreads();  // stage k is in; every thread is done with k - 1
+      issue_shw_stage<kMasked>(x, k + 2, s_ring, rows, consts, Tp, chunk,
+                               src, sp);  // into stage k - 1's buffer
+      const float4* q = s_ring[k % kShwRing];
+      float csum = 0.0f;
+#pragma unroll 4
+      for (int i = 0; i < chunk; ++i) {
+        const float4* qi = q + i * kShwQ;
+        const float act = qi[3].w;
+        const ShwTest t = shw_test(qi[0], qi[1], qi[2], pt, es, zs);
+        if (t.ok & !shw_term_dead(t, act)) {
+          csum += (sigmoid(t.xs) * act) * sigmoid(t.y);
+        }
+      }
+      od += csum;
+    }
+    if (od_part != nullptr) {
+      od_part[static_cast<size_t>(it) * kThreads + threadIdx.x] = od;
+    } else if (ray.live) {
+      trans[static_cast<size_t>(src) * R + ray.r] = expf(-kOdScale * od);
+    }
+  }
+}
+
+// K10g's and K10h's merge, a block a (tile, source) pair: od is the pair's
+// runs' partials added in run order from 0, trans = exp(-16 od).
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    shw_fwd_merge_kernel(ShwPlan pl, int S, int R, int H, int W, int th,
+                         const float* __restrict__ od_part,
+                         float* __restrict__ trans) {
+  const int p = blockIdx.x;
+  const TileRay ray = tile_ray<kMasked>(p / S, R, H, W, th);
+  if (!ray.live) return;
+  const int2 at = pair_items<kMasked>(pl, p);
+  float od = 0.0f;
+  for (int j = 0; j < at.y; ++j) {
+    od += od_part[static_cast<size_t>(at.x + j) * kThreads + threadIdx.x];
+  }
+  trans[static_cast<size_t>(p % S) * R + ray.r] = expf(-kOdScale * od);
+}
+
+// K10i (kMasked false) and K10j (true), replace _shw_bwd_fused_kernel and
+// _shw_bwd_fused_kernel_masked (see above): block b takes items b, b +
+// gridDim.x, ...; a thread a ray of the item's tile. partials (blocks, Tp,
+// 14) and src_partials (blocks, S, 3) the blocks' sums; dw_part (items, 3,
+// 256) the runs' partial d world, or null: d world written here. Dynamic
+// shared memory: shw_touched_bytes(n_chunks).
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    soft_rt_shw_bwd_kernel(const float* __restrict__ consts, int Tp,
+                           int chunk, const float4* __restrict__ rows,
+                           const float* __restrict__ srcs, int S,
+                           const float* __restrict__ world, int R, int H,
+                           int W, int th, const float* __restrict__ trans,
+                           const float* __restrict__ gcot, float es, float zs,
+                           ShwPlan pl, float* __restrict__ partials,
+                           float* __restrict__ src_partials,
+                           float* __restrict__ dw_part,
+                           float* __restrict__ dw_out) {
+  __shared__ float4 s_ring[kShwRing][kMaxChunk * kShwQ];
+  __shared__ float s_red[kWarps][kMaxChunk][kShwUsed];
+  __shared__ unsigned s_any[kWarps];
+  __shared__ float s_src[kWarps][3];
+  extern __shared__ unsigned s_touched[];  // chunks of the partial written
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_chunks = pl.n_chunks;
+  float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kShwUsed;
+  float* spart = src_partials + static_cast<size_t>(blockIdx.x) * S * 3;
+  for (int o = tid; o < (n_chunks + 31) / 32; o += kThreads) {
+    s_touched[o] = 0u;
+  }
+  for (int o = tid; o < S * 3; o += kThreads) spart[o] = 0.0f;
+  const int n_items = item_count<kMasked>(pl);
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const ShwItem x = shw_item<kMasked>(pl, it);
+    const int src = x.pair % S;
+    const TileRay ray = tile_ray<kMasked>(x.pair / S, R, H, W, th);
+    const float sp[3] = {srcs[3 * src], srcs[3 * src + 1],
+                         srcs[3 * src + 2]};
+    float w[3];
+    load_point(world, ray.r, R, ray.live, w);
+    const ShwPoint p = shw_point(w, sp, trans, gcot, src, ray.r, R,
+                                 ray.live);
+    const ShadowRay& a = p.a;
+    const float4 pt = make_float4(a.dh[0], a.dh[1], a.dh[2], 0.99f * a.rr);
+    float prun[3] = {0.0f, 0.0f, 0.0f}, dsrc[3] = {0.0f, 0.0f, 0.0f};
+    // Also the barrier after every thread's last use of the stages, s_red,
+    // s_any and s_src for the item before. An item whose points all have
+    // d od 0 adds nothing.
+    if (__syncthreads_or(p.active)) {
+      issue_shw_stage<kMasked>(x, 0, s_ring, rows, consts, Tp, chunk, src,
+                               sp);
+      issue_shw_stage<kMasked>(x, 1, s_ring, rows, consts, Tp, chunk, src,
+                               sp);
+      for (int k = 0; k < x.n; ++k) {
+        cp_async_wait_one();
+        __syncthreads();  // stage k is in; every thread is done with k - 1
+        issue_shw_stage<kMasked>(x, k + 2, s_ring, rows, consts, Tp, chunk,
+                                 src, sp);  // into stage k - 1's buffer
+        const int c = item_chunk<kMasked>(x, k);
+        // Read before the barrier below, after which thread 0 sets it.
+        const bool first = ((s_touched[c >> 5] >> (c & 31)) & 1u) == 0u;
+        const float4* q = s_ring[k % kShwRing];
+        float ddh[3] = {0.0f, 0.0f, 0.0f}, drr = 0.0f;
+        unsigned any = 0u;  // rows where a lane of the warp has a triple
+        for (int i = 0; i < chunk; ++i) {
+          const float4* qi = q + i * kShwQ;
+          const ShwTest t = shw_test(qi[0], qi[1], qi[2], pt, es, zs);
+          const bool mine = p.active && !shw_dead(t);
+          if (__any_sync(kFull, mine)) {
+            float g[kShwUsed];
+#pragma unroll
+            for (int col = 0; col < kShwUsed; ++col) g[col] = 0.0f;
+            if (mine) {
+              float qs[kShwRow];
+              unstage_shw_row(qi, qs);
+              shw_pair_grad(t, qs, a.dh, p.dl, sp, es, zs, g, ddh, &drr,
+                            dsrc);
+            }
+            warp_sum_store<kShwUsed>(g, mine, s_red[warp][i]);
+            any |= 1u << i;
+          }
+        }
+        if (lane == 0) s_any[warp] = any;
+        if (p.active) {
+          // K10i's chain through dh, rr, rrec and r2s to d = w - sp, once a
+          // chunk, into the run's sum.
+          float drrec = drr * a.r2s;
+          float dd[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            dd[j] = ddh[j] * a.rrec;
+            drrec += ddh[j] * a.d[j];
+          }
+          const float dsq = -drrec / (a.sq * a.sq);
+          const float dr2s = drr * a.rrec + dsq * (0.5f / a.sq);
+          const float dr2 = a.lit ? dr2s : 0.0f;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            dd[j] += dr2 * a.d[j] + dr2 * a.d[j];
+            prun[j] += dd[j];
+            dsrc[j] -= dd[j];
+          }
+        }
+        __syncthreads();  // the warps' row sums are in
+        unsigned rows_any = 0u;
+#pragma unroll
+        for (int wp = 0; wp < kWarps; ++wp) rows_any |= s_any[wp];
+        float* dst = part + static_cast<size_t>(c) * chunk * kShwUsed;
+        for (int o = tid; o < chunk * kShwUsed; o += kThreads) {
+          const int row = o / kShwUsed, col = o % kShwUsed;
+          if ((rows_any >> row) & 1u) {
+            float sum = 0.0f;
+#pragma unroll
+            for (int wp = 0; wp < kWarps; ++wp) {
+              if ((s_any[wp] >> row) & 1u) sum += s_red[wp][row][col];
+            }
+            dst[o] = first ? sum : dst[o] + sum;
+          } else if (first) {
+            dst[o] = 0.0f;
+          }
+        }
+        if (tid == 0) s_touched[c >> 5] |= 1u << (c & 31);
+      }
+    }
+    if (dw_part != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        dw_part[(static_cast<size_t>(it) * 3 + j) * kThreads + tid] = prun[j];
+      }
+    } else if (ray.live) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) dw_out[static_cast<size_t>(j) * R + ray.r] =
+          prun[j];
+    }
+    warp_sum_store<3>(dsrc, p.active, s_src[warp]);
+    __syncthreads();
+    if (tid < 3) {
+      float sum = 0.0f;
+      for (int wp = 0; wp < kWarps; ++wp) sum += s_src[wp][tid];
+      spart[3 * src + tid] += sum;
+    }
+  }
+  __syncthreads();
+  // The rows of chunks no item of this block wrote: 0, for the sums.
+  for (int c = warp; c < n_chunks; c += kWarps) {
+    if ((s_touched[c >> 5] >> (c & 31)) & 1u) continue;
+    float* dst = part + static_cast<size_t>(c) * chunk * kShwUsed;
+    for (int o = lane; o < chunk * kShwUsed; o += 32) dst[o] = 0.0f;
+  }
+}
+
+// K10i's and K10j's merge, a block a tile: each point's d world is, source
+// by source in order, the (tile, source)'s runs' partials added in run
+// order from 0, added from 0.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    shw_bwd_merge_kernel(ShwPlan pl, int S, int R, int H, int W, int th,
+                         const float* __restrict__ dw_part,
+                         float* __restrict__ dw) {
+  const TileRay ray = tile_ray<kMasked>(blockIdx.x, R, H, W, th);
+  if (!ray.live) return;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int src = 0; src < S; ++src) {
+    const int2 at = pair_items<kMasked>(pl, blockIdx.x * S + src);
+    float dws[3] = {0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < at.y; ++j) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        dws[c] += dw_part[(static_cast<size_t>(at.x + j) * 3 + c) * kThreads +
+                          threadIdx.x];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[c] += dws[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) dw[static_cast<size_t>(c) * R + ray.r] = acc[c];
 }
 
 // out[row, k] = sum over groups g, in order, of partials[g, row, k] for
@@ -1641,14 +1951,127 @@ bool bad_shape(int Tp, int chunk, int R) {
 // The blocks of 256 rays: tiles of the H x W grid where there is a mask
 // (0 for a grid that is not R rays or a th that does not divide 256), runs
 // of 256 consecutive rays where there is none.
-int ray_blocks(const void* mask, int R, int H, int W, int th) {
-  if (mask == nullptr) return (R + kThreads - 1) / kThreads;
+int ray_blocks(bool masked, int R, int H, int W, int th) {
+  if (!masked) return (R + kThreads - 1) / kThreads;
   if (H < 1 || W < 1 || static_cast<long long>(H) * W != R || th < 1 ||
       th > kThreads || kThreads % th != 0) {
     return 0;
   }
   const int tw = kThreads / th;
   return ((H + th - 1) / th) * ((W + tw - 1) / tw);
+}
+
+// A K10g-K10j call: its shapes (the first eleven fields, from the caller),
+// what follows from them (shw_shapes) and where its scratch lies
+// (shw_layout), carved from one buffer in this order, each part aligned to
+// 16 bytes: masked, the plan's kept lists (n_pairs n_chunks), nk
+// (n_pairs), off (n_pairs + 1) and items (max_items), int32, and the rows
+// staged for each source (S Tp kShwQ float4s); the runs' partial od
+// (forward: max_items 256 floats) or d world (backward: max_items 3 256),
+// unless the kernel writes its output itself (direct: unmasked, one run a
+// pair and, backward, one source); backward, the blocks' table partials
+// (blocks, Tp, 14) and source partials (blocks, S, 3).
+struct ShwCall {
+  int Tp, chunk, S, R, H, W, th, run, blocks;
+  bool masked, backward;
+  bool direct;
+  int n_tiles, n_chunks, n_pairs, runs;
+  long long max_items;  // the most work items: n_pairs runs
+  int* kept;
+  int* nk;
+  int* off;
+  int* items;
+  float4* rows;
+  float* run_part;
+  float* partials;
+  float* src_partials;
+  size_t bytes;
+};
+
+// The most chunks the backward's block keeps a bit for (its dynamic shared
+// memory, s_touched).
+constexpr int kMaxTouchedChunks = 1 << 17;
+
+size_t shw_touched_bytes(int n_chunks) {
+  return static_cast<size_t>((n_chunks + 31) / 32) * sizeof(unsigned);
+}
+
+bool shw_shapes(ShwCall& sc) {
+  if (bad_shape(sc.Tp, sc.chunk, sc.R) || sc.S < 1 || sc.run < 1) {
+    return false;
+  }
+  sc.n_tiles = ray_blocks(sc.masked, sc.R, sc.H, sc.W, sc.th);
+  sc.n_chunks = sc.Tp / sc.chunk;
+  sc.runs = (sc.n_chunks + sc.run - 1) / sc.run;
+  const long long pairs = static_cast<long long>(sc.n_tiles) * sc.S;
+  sc.max_items = pairs * sc.runs;
+  if (sc.n_tiles < 1 || sc.max_items > 0x7fffffffLL ||
+      (sc.masked && sc.S > 65535)) {
+    return false;
+  }
+  sc.n_pairs = static_cast<int>(pairs);
+  sc.direct = !sc.masked && sc.runs == 1 && (!sc.backward || sc.S == 1);
+  if (sc.backward && (sc.blocks < 1 || sc.blocks > sc.max_items ||
+                      sc.n_chunks > kMaxTouchedChunks)) {
+    return false;
+  }
+  return true;
+}
+
+static size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Carves the scratch at base (null: sizes it only); false where base
+// holds fewer than the bytes the call needs.
+bool shw_layout(ShwCall& sc, void* base, long long avail) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    const uintptr_t q = n == 0 ? 0 : p + at;
+    at += align16(n);
+    return q;
+  };
+  const size_t items = static_cast<size_t>(sc.max_items);
+  const size_t m = sc.masked ? 1 : 0, b = sc.backward ? 1 : 0;
+  sc.kept = reinterpret_cast<int*>(
+      take(m * sc.n_pairs * static_cast<size_t>(sc.n_chunks) * sizeof(int)));
+  sc.nk = reinterpret_cast<int*>(take(m * sc.n_pairs * sizeof(int)));
+  sc.off = reinterpret_cast<int*>(take(m * (sc.n_pairs + 1) * sizeof(int)));
+  sc.items = reinterpret_cast<int*>(take(m * items * sizeof(int)));
+  sc.rows = reinterpret_cast<float4*>(
+      take(m * sc.S * static_cast<size_t>(sc.Tp) * kShwQ * sizeof(float4)));
+  sc.run_part = reinterpret_cast<float*>(take(
+      (sc.direct ? 0 : 1) * items * (sc.backward ? 3 : 1) * kThreads *
+      sizeof(float)));
+  sc.partials = reinterpret_cast<float*>(take(
+      b * sc.blocks * static_cast<size_t>(sc.Tp) * kShwUsed * sizeof(float)));
+  sc.src_partials = reinterpret_cast<float*>(
+      take(b * sc.blocks * static_cast<size_t>(sc.S) * 3 * sizeof(float)));
+  sc.bytes = at;
+  return at == 0 || (base != nullptr && avail >= static_cast<long long>(at));
+}
+
+// Where the kernels find their items (ShwPlan) for a laid-out call.
+ShwPlan shw_plan(const ShwCall& sc) {
+  return ShwPlan{sc.kept, sc.nk, sc.off, sc.items, sc.n_pairs, sc.n_chunks,
+                 sc.run, sc.runs, static_cast<int>(sc.max_items)};
+}
+
+// Masked, the plan (the kept lists, the items) and each source's rows
+// staged once (pack_shw_rows_kernel); unmasked, nothing.
+cudaError_t shw_prepare(const ShwCall& sc, const float* consts,
+                        const float* srcs, const int* mask, cudaStream_t st) {
+  if (!sc.masked) return cudaSuccess;
+  const long long warps = static_cast<long long>(sc.n_pairs);
+  shw_plan_kernel<<<static_cast<int>((warps + kWarps - 1) / kWarps), kThreads,
+                    0, st>>>(mask, sc.n_pairs, sc.n_chunks, sc.kept, sc.nk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  shw_items_kernel<<<1, kScanThreads, 0, st>>>(sc.nk, sc.n_pairs, sc.run,
+                                               sc.off, sc.items);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  pack_shw_rows_kernel<<<dim3((sc.Tp + kThreads - 1) / kThreads, sc.S),
+                         kThreads, 0, st>>>(consts, sc.Tp, srcs, sc.rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1664,7 +2087,7 @@ extern "C" int raytpu_soft_rt_pri_fwd(const void* consts, int Tp, int chunk,
                                       int R, const void* mask, int H, int W,
                                       int th, float es, float zs, void* out,
                                       void* m, void* s, void* stream) {
-  const int blocks = ray_blocks(mask, R, H, W, th);
+  const int blocks = ray_blocks(mask != nullptr, R, H, W, th);
   if (bad_shape(Tp, chunk, R) || blocks < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1694,7 +2117,7 @@ extern "C" int raytpu_soft_rt_pri_bwd(const void* consts, int Tp, int chunk,
                                       int groups, void* partials,
                                       void* cam_partials, void* dc,
                                       void* dcam, void* dd, void* stream) {
-  const int n_tiles = ray_blocks(mask, R, H, W, th);
+  const int n_tiles = ray_blocks(mask != nullptr, R, H, W, th);
   if (bad_shape(Tp, chunk, R) || n_tiles < 1 || groups < 1 ||
       groups > n_tiles) {
     return (int)cudaErrorInvalidValue;
@@ -1721,68 +2144,147 @@ extern "C" int raytpu_soft_rt_pri_bwd(const void* consts, int Tp, int chunk,
 
 // consts (Tp, 16) float32 in chunks of `chunk` <= 32 rows; srcs (S, 3),
 // world (3, R) float32; mask null (K10g) or the (n_tiles, S, n_chunks)
-// int32 keep-mask over the tiles of the H x W grid (K10h); trans (S, R)
-// float32 output. Launches the kernel on `stream` and returns the launch's
-// cudaError_t.
+// int32 keep-mask over the tiles of the H x W grid (K10h); run the most
+// chunks a work item takes; scratch (scratch_bytes, at least what
+// raytpu_soft_rt_shw_scratch gives for backward 0); trans (S, R) float32
+// output. Launches the plan, the rows' staging, the kernel and the merge of
+// the runs (shw_call) on `stream`; returns the first cudaError_t.
 extern "C" int raytpu_soft_rt_shw_fwd(const void* consts, int Tp, int chunk,
                                       const void* srcs, int S,
                                       const void* world, int R,
                                       const void* mask, int H, int W, int th,
-                                      float es, float zs, void* trans,
-                                      void* stream) {
-  const int blocks = ray_blocks(mask, R, H, W, th);
-  if (bad_shape(Tp, chunk, R) || blocks < 1 || S < 1 || S > 65535) {
+                                      float es, float zs, int run,
+                                      void* scratch, long long scratch_bytes,
+                                      void* trans, void* stream) {
+  ShwCall sc{Tp, chunk, S, R, H, W, th, run, 0, mask != nullptr, false};
+  if (!shw_shapes(sc) || !shw_layout(sc, scratch, scratch_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = mask ? soft_rt_shw_fwd_kernel<true>
-                     : soft_rt_shw_fwd_kernel<false>;
-  kernel<<<dim3(blocks, S), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(consts), Tp / chunk, chunk,
-      static_cast<const float*>(srcs), static_cast<const float*>(world), R,
-      static_cast<const int*>(mask), H, W, th, es, zs,
-      static_cast<float*>(trans));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* tab = static_cast<const float*>(consts);
+  const float* sp = static_cast<const float*>(srcs);
+  cudaError_t err = shw_prepare(sc, tab, sp, static_cast<const int*>(mask), st);
+  if (err != cudaSuccess) return (int)err;
+  const ShwPlan pl = shw_plan(sc);
+  float* out = static_cast<float*>(trans);
+  const float* wp = static_cast<const float*>(world);
+  if (sc.masked) {
+    // Persistent blocks, as many as fit on the card at once, over the items.
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, soft_rt_shw_fwd_kernel<true>, kThreads, 0)) !=
+            cudaSuccess) {
+      return (int)err;
+    }
+    const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    soft_rt_shw_fwd_kernel<true>
+        <<<static_cast<int>(fit < sc.max_items ? fit : sc.max_items), kThreads,
+           0, st>>>(
+            tab, Tp, chunk, sc.rows, sp, S, wp, R, H, W, th, es, zs, pl,
+            sc.run_part, out);
+  } else {
+    soft_rt_shw_fwd_kernel<false>
+        <<<static_cast<int>(sc.max_items), kThreads, 0, st>>>(
+            tab, Tp, chunk, sc.rows, sp, S, wp, R, H, W, th, es, zs, pl,
+            sc.run_part, out);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || sc.direct) return (int)err;
+  auto merge = sc.masked ? shw_fwd_merge_kernel<true>
+                         : shw_fwd_merge_kernel<false>;
+  merge<<<sc.n_pairs, kThreads, 0, st>>>(pl, S, R, H, W, th, sc.run_part,
+                                         out);
   return (int)cudaGetLastError();
 }
 
-// consts, srcs, world and mask (K10i without, K10j with) as for
-// raytpu_soft_rt_shw_fwd; trans and gcot (S, R) float32; partials (groups,
-// Tp, 14) and src_partials (groups, S, 3) float32 scratch, groups as for
-// raytpu_soft_rt_pri_bwd; dc (Tp, 16), dsrc (S, 3) and dw (3, R) float32
-// outputs, every entry written. Launches the kernel and the sums over
-// groups on `stream`; returns the first cudaError_t.
+// consts, srcs, world, mask and run as for raytpu_soft_rt_shw_fwd; trans
+// and gcot (S, R) float32; blocks the kernel's blocks (1 <= blocks <= the
+// most work items), each with its own table partial; scratch (at least
+// what raytpu_soft_rt_shw_scratch gives for backward 1 and these blocks);
+// dc (Tp, 16), dsrc (S, 3) and dw (3, R) float32 outputs, every entry
+// written. Launches the plan, the rows' staging, the kernel, the merge of
+// the runs' d world and the sums over blocks on `stream`; returns the first
+// cudaError_t.
 extern "C" int raytpu_soft_rt_shw_bwd(const void* consts, int Tp, int chunk,
                                       const void* srcs, int S,
                                       const void* world, int R,
                                       const void* mask, int H, int W, int th,
                                       const void* trans, const void* gcot,
-                                      float es, float zs, int groups,
-                                      void* partials, void* src_partials,
+                                      float es, float zs, int run, int blocks,
+                                      void* scratch, long long scratch_bytes,
                                       void* dc, void* dsrc, void* dw,
                                       void* stream) {
-  const int n_tiles = ray_blocks(mask, R, H, W, th);
-  if (bad_shape(Tp, chunk, R) || n_tiles < 1 || S < 1 || groups < 1 ||
-      groups > n_tiles) {
+  ShwCall sc{Tp, chunk, S, R, H, W, th, run, blocks, mask != nullptr, true};
+  if (!shw_shapes(sc) || !shw_layout(sc, scratch, scratch_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partials);
-  float* spart = static_cast<float*>(src_partials);
-  auto kernel = mask ? soft_rt_shw_bwd_kernel<true>
-                     : soft_rt_shw_bwd_kernel<false>;
-  kernel<<<groups, kThreads, 0, st>>>(
-      static_cast<const float*>(consts), Tp, chunk,
-      static_cast<const float*>(srcs), S, static_cast<const float*>(world),
-      R, static_cast<const int*>(mask), H, W, th, n_tiles,
-      static_cast<const float*>(trans), static_cast<const float*>(gcot), es,
-      zs, groups, part, spart, static_cast<float*>(dw));
-  cudaError_t err = cudaGetLastError();
+  const float* tab = static_cast<const float*>(consts);
+  const float* sp = static_cast<const float*>(srcs);
+  cudaError_t err = shw_prepare(sc, tab, sp, static_cast<const int*>(mask), st);
   if (err != cudaSuccess) return (int)err;
-  err = sum_groups(part, groups, Tp, kShwUsed, kShwCols,
+  const ShwPlan pl = shw_plan(sc);
+  auto kernel = sc.masked ? soft_rt_shw_bwd_kernel<true>
+                          : soft_rt_shw_bwd_kernel<false>;
+  kernel<<<blocks, kThreads, shw_touched_bytes(sc.n_chunks), st>>>(
+      tab, Tp, chunk, sc.rows, sp, S, static_cast<const float*>(world), R, H,
+      W, th, static_cast<const float*>(trans),
+      static_cast<const float*>(gcot), es, zs, pl, sc.partials,
+      sc.src_partials, sc.run_part, static_cast<float*>(dw));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (!sc.direct) {
+    auto merge = sc.masked ? shw_bwd_merge_kernel<true>
+                           : shw_bwd_merge_kernel<false>;
+    merge<<<sc.n_tiles, kThreads, 0, st>>>(pl, S, R, H, W, th, sc.run_part,
+                                           static_cast<float*>(dw));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = sum_groups(sc.partials, blocks, Tp, kShwUsed, kShwCols,
                    static_cast<float*>(dc), st);
   if (err != cudaSuccess) return (int)err;
-  return (int)sum_groups(spart, groups, S, 3, 3, static_cast<float*>(dsrc),
-                         st);
+  return (int)sum_groups(sc.src_partials, blocks, S, 3, 3,
+                         static_cast<float*>(dsrc), st);
+}
+
+// The blocks of K10i and K10j the card holds at once for a table of
+// n_chunks chunks (their dynamic shared memory): the SMs times the fewer
+// blocks an SM of the two instances, so that an all-ones mask and no mask
+// take the same grid; -1 where the device cannot be read.
+extern "C" int raytpu_soft_rt_shw_bwd_fit(int n_chunks) {
+  int dev = 0, sms = 0, masked = 0, unmasked = 0;
+  const size_t smem = shw_touched_bytes(n_chunks);
+  if (n_chunks < 1 || n_chunks > kMaxTouchedChunks ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &masked, soft_rt_shw_bwd_kernel<true>, kThreads, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &unmasked, soft_rt_shw_bwd_kernel<false>, kThreads, smem) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return sms * (masked < unmasked ? masked : unmasked);
+}
+
+// The bytes of the scratch of a K10g-K10j call with these shapes (masked:
+// 1 with a mask; backward: 1 for K10i / K10j with `blocks` blocks, 0 for
+// K10g / K10h), or -1 where the kernels refuse them.
+extern "C" long long raytpu_soft_rt_shw_scratch(int Tp, int chunk, int S,
+                                                int R, int masked, int H,
+                                                int W, int th, int run,
+                                                int backward, int blocks) {
+  ShwCall sc{Tp, chunk, S, R, H, W, th, run, blocks, masked != 0,
+             backward != 0};
+  if (!shw_shapes(sc)) return -1;
+  shw_layout(sc, nullptr, 0);
+  return static_cast<long long>(sc.bytes);
 }
 
 // K10e: consts (Tp, 32) float32 in chunks of `chunk` <= 32 rows; cam (3,),
@@ -1921,7 +2423,8 @@ extern "C" int raytpu_soft_rt_shw_bwd_consts(const void* consts, int Tp,
 }
 
 // K10l: consts, srcs, world, trans and gcot as for
-// raytpu_soft_rt_shw_bwd_consts; scratch: rows (S, Tp, 24) float32, the
+// raytpu_soft_rt_shw_bwd_consts; run the chunks of K10i's runs, whose sums
+// d world folds as K10i does; scratch: rows (S, Tp, 24) float32, the
 // table staged for each source, and src_partials (ceil(R / 256), S, 3)
 // float32; dsrc (S, 3) and dw (3, R) float32 outputs. Launches the
 // table's staging, the kernel and the sources' sum on `stream`; returns
@@ -1931,10 +2434,10 @@ extern "C" int raytpu_soft_rt_shw_bwd_rays(const void* consts, int Tp,
                                            const void* world, int R,
                                            const void* trans,
                                            const void* gcot, float es,
-                                           float zs, void* rows,
+                                           float zs, int run, void* rows,
                                            void* src_partials, void* dsrc,
                                            void* dw, void* stream) {
-  if (bad_shape(Tp, chunk, R) || S < 1 || S > 65535) {
+  if (bad_shape(Tp, chunk, R) || S < 1 || S > 65535 || run < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1949,7 +2452,7 @@ extern "C" int raytpu_soft_rt_shw_bwd_rays(const void* consts, int Tp,
   soft_rt_shw_bwd_rays_kernel<<<blocks, kThreads, 0, st>>>(
       staged, Tp, chunk, static_cast<const float*>(srcs), S,
       static_cast<const float*>(world), R, static_cast<const float*>(trans),
-      static_cast<const float*>(gcot), es, zs, spart,
+      static_cast<const float*>(gcot), es, zs, run, spart,
       static_cast<float*>(dw));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -86,14 +86,21 @@ SIGNATURES = {
     "raytpu_soft_rt_pri_bwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
                                _F, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     # consts, Tp, chunk, srcs, S, world, R, mask (or null), H, W, th, es,
-    # zs, trans, stream
+    # zs, run, scratch, scratch_bytes, trans, stream
     "raytpu_soft_rt_shw_fwd": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
-                               _F, _F, _P, _P],
+                               _F, _F, _I, _P, _L, _P, _P],
     # consts, Tp, chunk, srcs, S, world, R, mask (or null), H, W, th,
-    # trans, gcot, es, zs, groups, partials, src_partials, dc, dsrc, dw,
-    # stream
+    # trans, gcot, es, zs, run, blocks, scratch, scratch_bytes, dc, dsrc,
+    # dw, stream
     "raytpu_soft_rt_shw_bwd": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
-                               _P, _P, _F, _F, _I, _P, _P, _P, _P, _P, _P],
+                               _P, _P, _F, _F, _I, _I, _P, _L, _P, _P, _P,
+                               _P],
+    # n_chunks: the blocks of K10i / K10j the card holds at once (-1: none)
+    "raytpu_soft_rt_shw_bwd_fit": [_I],
+    # Tp, chunk, S, R, masked, H, W, th, run, backward, blocks: the scratch
+    # bytes of a K10g-K10j call (-1: refused)
+    "raytpu_soft_rt_shw_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I],
     # consts, Tp, chunk, cam, dirs, R, es, zs, m, cot, rays, splits,
     # partials, cam_partials, dc, dcam, stream
     "raytpu_soft_rt_pri_bwd_tables": [_P, _I, _I, _P, _P, _I, _F, _F, _P, _P,
@@ -109,10 +116,10 @@ SIGNATURES = {
     # splits, partials, dc, stream
     "raytpu_soft_rt_shw_bwd_consts": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _F,
                                       _F, _P, _I, _P, _P, _P],
-    # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs, rows,
+    # consts, Tp, chunk, srcs, S, world, R, trans, gcot, es, zs, run, rows,
     # src_partials, dsrc, dw, stream
     "raytpu_soft_rt_shw_bwd_rays": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _F,
-                                    _F, _P, _P, _P, _P, _P],
+                                    _F, _I, _P, _P, _P, _P, _P],
     # dirs, table, params, C, Rp, tile_r, layout, gather, shade, ambient,
     # parity, color, fd, idx, occ, stream
     "raytpu_mega_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
@@ -125,7 +132,8 @@ SIGNATURES = {
     "raytpu_lab_tiny": [_P, _P, _I, _P],
 }
 
-RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L}
+RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L,
+            "raytpu_soft_rt_shw_scratch": _L}
 
 _lib: ctypes.CDLL | None = None
 

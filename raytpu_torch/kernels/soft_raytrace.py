@@ -29,8 +29,14 @@ chunk's sums).
   *_reference       their plain PyTorch versions.
   primary_dead_pairs  the plain form of K10e's and K10f's early-out: the
                     pairs they prove of weight exactly 0 and skip.
-  shadow_dead_triples  the plain form of K10k's and K10l's early-out: the
-                    triples whose sigmoid is exactly 0, which they skip.
+  shadow_dead_triples  the plain form of K10i's, K10j's, K10k's and K10l's
+                    early-out: the triples whose sigmoid is exactly 0, which
+                    they skip.
+  shadow_dead_terms the plain form of K10g's and K10h's early-out: the
+                    triples whose term is +-0, which they skip.
+  shadow_run_index, shadow_trans_runs  plain models of K10g-K10j's work
+                    items: the runs a (tile, source)'s kept chunks are cut
+                    into, and the optical depth folded run by run.
   PrimaryAgg, ShadowTrans   the torch.autograd.Functions around them
                     (``_primary_agg``, ``_shadow_trans``).
   PrimaryAggStats   PrimaryAgg returning (out, m, s) (``_primary_agg_stats``),
@@ -179,6 +185,22 @@ POINT_TILE = 256
 POINT_PACKED = 8
 SHW_SPLITS = 64
 SHW_STAGED = 24
+# K10g-K10j cut each (tile, source)'s kept chunks (unmasked: every chunk)
+# into runs of at most SHW_RUN, a work item each, in (tile, source, run)
+# order (csrc/soft_raytrace.cu, "K10g-K10j, redesigned"); K10l folds d
+# world in the same runs. The backward's blocks, as many as the card holds
+# at once (shw_bwd_blocks), each keep a (Tp, 14) partial of the table's
+# gradient, at most SHW_PARTIAL_BYTES of them in all: the shadow
+# backward's own cap, sized for the H100's 80 GB (1 GiB: on the H100 the
+# card's 396 blocks at Tp = 36,000, where PARTIAL_BYTES left 133; 288 at
+# 66,560). SHW_RUN 16 beat 32 on the culled steps' K10h and K10j at 36,000
+# triangles (chip_smoke.py phase 32). The scratch (shw_scratch) also
+# holds the masked plan (an int a mask entry), each source's staged rows
+# (96 B a row) and the runs' partial od (1 KB an item) or d world (3 KB an
+# item) for the most items, n_tiles S ceil(n_chunks / SHW_RUN): 223 MB at
+# Tp = 36,000 and S = 1.
+SHW_RUN = 16
+SHW_PARTIAL_BYTES = 1 << 30
 
 
 def pri_two_launch(Tp: int) -> bool:
@@ -504,17 +526,10 @@ def primary_dead_pairs(cs, dirs, m, es: float, zs: float) -> torch.Tensor:
     return ~hit | ((bound - m[None, :]) < DEAD_BELOW)
 
 
-def shadow_dead_triples(cs, src, world, es: float,
-                        zs: float) -> torch.Tensor:
-    """Plain PyTorch form of K10k's and K10l's early-out
-    (csrc/soft_raytrace.cu::shw_triple_dead) in its operations' order, for
-    the tests and chip_smoke.py; the kernels' route never calls it. cs
-    (C, 16) rows of the shadow table, src (3,) one source, world (3, P)
-    the points. Returns (C, P) bool, True where the triple is gated or
-    where ``xs = es margin`` or ``y = zs (0.99 r - t)``, the floats the
-    kernels' two sigmoids take, lies below SIG_ZERO: that sigmoid, and the
-    triple's term and gradient, are then exactly 0. A NaN xs or y marks
-    nothing."""
+def _shadow_test(cs, src, world, es: float, zs: float):
+    """The triples' test in the kernels' order of operations
+    (csrc/soft_raytrace.cu::shw_test): cs (C, 16) rows of the shadow table,
+    src (3,), world (3, P). Returns (hit, 1 - u - v, xs, y), each (C, P)."""
     def col(j):
         return cs[:, j:j + 1]
 
@@ -538,19 +553,99 @@ def shadow_dead_triples(cs, src, world, es: float,
            b[0] * e1[1] - b[1] * e1[0]]
     k0 = ((src[0] * n[0] + src[1] * n[1]) + src[2] * n[2]) - col(12)
     nmag = _sqrt_f32((n[0] * n[0] + n[1] * n[1]) + n[2] * n[2])
-    # The test (shw_triple_dead).
+    # The test (shw_test).
     denom = -((dh[0] * n[0] + dh[1] * n[1]) + dh[2] * n[2])
     safe = torch.where(denom.abs() > 1e-12, denom, 1e-12)
     rec = 1.0 / safe
     t = k0 * rec
     u = ((dh[0] * c2b[0] + dh[1] * c2b[1]) + dh[2] * c2b[2]) * rec
     v = ((dh[0] * cb1[0] + dh[1] * cb1[1]) + dh[2] * cb1[2]) * rec
+    omu = (1.0 - u) - v
     # fminf drops a NaN operand; torch.fmin does too.
-    margin = torch.fmin(torch.fmin(u, v), (1.0 - u) - v)
-    xs = es * margin
+    xs = es * torch.fmin(torch.fmin(u, v), omu)
     y = zs * (0.99 * rr - t)
     hit = (t > 1e-6) & (denom.abs() > 1e-3 * nmag)
+    return hit, omu, xs, y
+
+
+def shadow_dead_triples(cs, src, world, es: float,
+                        zs: float) -> torch.Tensor:
+    """Plain PyTorch form of the backwards' early-out (K10i, K10j, K10k,
+    K10l: csrc/soft_raytrace.cu::shw_dead) in its operations' order, for
+    the tests and chip_smoke.py; the kernels' route never calls it. cs
+    (C, 16) rows of the shadow table, src (3,) one source, world (3, P)
+    the points. Returns (C, P) bool, True where the triple is gated or
+    where ``xs = es margin`` or ``y = zs (0.99 r - t)``, the floats the
+    kernels' two sigmoids take, lies below SIG_ZERO: that sigmoid, and the
+    triple's term and gradient, are then exactly 0. A NaN xs or y marks
+    nothing."""
+    hit, _, xs, y = _shadow_test(cs, src, world, es, zs)
     return ~hit | (xs < SIG_ZERO) | (y < SIG_ZERO)
+
+
+def shadow_dead_terms(cs, src, world, es: float, zs: float) -> torch.Tensor:
+    """Plain PyTorch form of the forwards' early-out (K10g, K10h:
+    csrc/soft_raytrace.cu::shw_term_dead), in its operations' order, for
+    the tests and chip_smoke.py; the kernels' route never calls it. Inputs
+    as shadow_dead_triples'. Returns (C, P) bool, True where the triple's
+    term ``sigmoid(xs) active sigmoid(y)`` (zero where gated) is +-0, so
+    that skipping it leaves a sum from +0 as it was: shadow_dead_triples'
+    triples, but only where the active column is finite and none of
+    1 - u - v, xs and y is NaN (0 inf and 0 NaN are NaN). Where 1 - u - v
+    is not NaN neither u nor v is, so the kernels' margin (fminf) is the
+    plain version's (a NaN-keeping minimum)."""
+    hit, omu, xs, y = _shadow_test(cs, src, world, es, zs)
+    sane = (cs[:, 13:14].abs() <= BIG) & ~omu.isnan() & ~xs.isnan() \
+        & ~y.isnan()
+    return sane & (~hit | (xs < SIG_ZERO) | (y < SIG_ZERO))
+
+
+def shadow_run_index(mask, n_tiles: int, S: int, n_chunks: int,
+                     run: int = SHW_RUN) -> torch.Tensor:
+    """(n_tiles, S, n_chunks) int64: the run, among K10g-K10j's work items
+    of its (tile, source), that takes each chunk, -1 where the mask drops
+    it: a pair's kept chunks (every chunk where mask is None) cut in order
+    into runs of ``run``."""
+    if mask is None:
+        rank = torch.arange(n_chunks).expand(n_tiles, S, n_chunks)
+        return rank // run
+    rank = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
+    return torch.where(mask != 0, rank // run, -1)
+
+
+def shadow_trans_runs(consts, srcs, world, es: float, zs: float, chunk: int,
+                      mask=None, tiles: RayTiles = None,
+                      run: int = SHW_RUN) -> torch.Tensor:
+    """Plain model of K10g's and K10h's order (shadow_trans_reference's
+    result in another order of its sums): each (tile, source)'s kept
+    chunks cut into runs (shadow_run_index; unmasked, tiles of THREADS
+    consecutive points), each run's od summed chunk by chunk from 0, then
+    the runs added in order from 0 and ``exp(-16 od)``. Returns trans (S,
+    R)."""
+    R, S = world.shape[1], srcs.shape[0]
+    n_chunks = consts.shape[0] // chunk
+    if mask is None:
+        tile = torch.arange(R, device=world.device) // THREADS
+        n_tiles = -(-R // THREADS)
+    else:
+        tile, n_tiles = tiles.tile, tiles.count
+    runs = shadow_run_index(None if mask is None else mask.cpu(), n_tiles, S,
+                            n_chunks, run).to(world.device)
+    out = []
+    for s in range(S):
+        part = world.new_zeros((-(-n_chunks // run), R))
+        for c, rows in enumerate(_chunks(consts.shape[0], chunk)):
+            j = runs[tile, s, c]
+            keep = torch.nonzero(j >= 0).squeeze(1)
+            w = world[:, keep]
+            part[j[keep], keep] = part[j[keep], keep] + shadow_terms(
+                consts[rows], srcs[s], w[0:1], w[1:2], w[2:3], es,
+                zs).sum(dim=0)
+        od = world.new_zeros(R)
+        for j in range(part.shape[0]):
+            od = od + part[j]
+        out.append(torch.exp(-OD_SCALE * od))
+    return torch.stack(out)
 
 
 def _record(fn, args, kinks_wanted: bool):
@@ -777,29 +872,81 @@ def launch_pri_bwd_kernel(consts, chunk: int, cam, dirs, es: float,
         dd.data_ptr(), _stream()))
 
 
+def shw_items(n_tiles: int, S: int, n_chunks: int) -> int:
+    """The most work items of a K10g-K10j call: every (tile, source) pair
+    keeping every chunk, ceil(n_chunks / SHW_RUN) runs each (exactly the
+    unmasked kernels' items)."""
+    return n_tiles * S * -(-n_chunks // SHW_RUN)
+
+
+def shw_bwd_blocks(consts, chunk: int, n_tiles: int, S: int) -> int:
+    """K10i's and K10j's blocks for a (Tp, 16) table in chunks of
+    ``chunk``, n_tiles tiles and S sources: at most the work items
+    (shw_items), as many as the card holds at once (a second wave's blocks
+    would start their items when the first wave's are done; the library's
+    raytpu_soft_rt_shw_bwd_fit, the same for both kernels, so that an
+    all-ones mask and no mask take one grid), and SHW_PARTIAL_BYTES of
+    (Tp, 14) partials."""
+    Tp = consts.shape[0]
+    fit = _build.load().raytpu_soft_rt_shw_bwd_fit(Tp // chunk)
+    if fit < 1:
+        raise RuntimeError(f"soft_rt_shw_bwd: no block fits ({fit})")
+    return max(1, min(shw_items(n_tiles, S, Tp // chunk), fit,
+                      SHW_PARTIAL_BYTES // (Tp * SHW_USED * 4)))
+
+
+def _shw_tiles(R: int, mask, tiles: RayTiles | None) -> int:
+    """The tiles the shadow kernels take: the mask's, or runs of THREADS
+    consecutive points."""
+    return -(-R // THREADS) if mask is None else tiles.count
+
+
+def shw_scratch(consts, chunk: int, srcs, world, mask=None,
+                tiles: RayTiles = None, *, backward: bool,
+                blocks: int = 0) -> torch.Tensor:
+    """A fresh scratch buffer (uint8, on consts' device) for one K10g-K10j
+    call on these inputs (K10i and K10j: with ``blocks`` blocks), sized by
+    the kernels' library (csrc/soft_raytrace.cu::ShwCall)."""
+    H, W, th = ((tiles.height, tiles.width, tiles.th) if mask is not None
+                else (0, 0, 0))
+    n = _build.load().raytpu_soft_rt_shw_scratch(
+        consts.shape[0], chunk, srcs.shape[0], world.shape[1],
+        int(mask is not None), H, W, th, SHW_RUN, int(backward), blocks)
+    if n < 0:
+        raise ValueError(f"the shadow kernels take no table of "
+                         f"{consts.shape[0]} rows in chunks of {chunk} with "
+                         f"{srcs.shape[0]} sources on {world.shape[1]} "
+                         f"points and {blocks} blocks")
+    return torch.empty((n,), dtype=torch.uint8, device=consts.device)
+
+
 def launch_shw_fwd_kernel(consts, chunk: int, srcs, world, es: float,
                           zs: float, trans, mask=None,
-                          tiles: RayTiles = None) -> None:
+                          tiles: RayTiles = None, *, scratch) -> None:
     """Launch K10g (K10h with a mask (n_tiles, S, n_chunks)) into trans
-    (S, R). Checks nothing and counts nothing."""
+    (S, R), with the scratch of shw_scratch(backward=False). Checks nothing
+    and counts nothing."""
     _raise("soft_rt_shw_fwd", _build.load().raytpu_soft_rt_shw_fwd(
         consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
         srcs.shape[0], world.data_ptr(), world.shape[1],
-        *_tile_args(mask, tiles), es, zs, trans.data_ptr(), _stream()))
+        *_tile_args(mask, tiles), es, zs, SHW_RUN, scratch.data_ptr(),
+        scratch.numel(), trans.data_ptr(), _stream()))
 
 
 def launch_shw_bwd_kernel(consts, chunk: int, srcs, world, trans, gcot,
-                          es: float, zs: float, partials, src_partials, dc,
-                          dsrc, dw, mask=None, tiles: RayTiles = None) -> None:
-    """Launch K10i (K10j with a mask) and the sums of its partials (groups,
-    Tp, 14) and (groups, S, 3) into dc (Tp, 16), dsrc (S, 3) and dw (3, R).
-    Checks nothing and counts nothing."""
+                          es: float, zs: float, dc, dsrc, dw, mask=None,
+                          tiles: RayTiles = None, *, blocks: int,
+                          scratch) -> None:
+    """Launch K10i (K10j with a mask) with ``blocks`` blocks and the scratch
+    of shw_scratch(backward=True, blocks=blocks), the merge of its runs and
+    the sums of its blocks' partials into dc (Tp, 16), dsrc (S, 3) and dw
+    (3, R). Checks nothing and counts nothing."""
     _raise("soft_rt_shw_bwd", _build.load().raytpu_soft_rt_shw_bwd(
         consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
         srcs.shape[0], world.data_ptr(), world.shape[1],
         *_tile_args(mask, tiles), trans.data_ptr(), gcot.data_ptr(), es, zs,
-        partials.shape[0], partials.data_ptr(), src_partials.data_ptr(),
-        dc.data_ptr(), dsrc.data_ptr(), dw.data_ptr(), _stream()))
+        SHW_RUN, blocks, scratch.data_ptr(), scratch.numel(), dc.data_ptr(),
+        dsrc.data_ptr(), dw.data_ptr(), _stream()))
 
 
 def pri_bwd_tables_scratch(consts, dirs) -> tuple:
@@ -905,13 +1052,14 @@ def launch_shw_bwd_rays_kernel(consts, chunk: int, srcs, world, trans, gcot,
                                dsrc, dw) -> None:
     """Launch K10l (the table's staging into rows (S, Tp, SHW_STAGED), the
     kernel, the sum of its (ceil(R / 256), S, 3) source partials) into dsrc
-    (S, 3) and dw (3, R), its scratch allocated by the caller. Checks
-    nothing and counts nothing."""
+    (S, 3) and dw (3, R), its scratch allocated by the caller; d world
+    folds its chunks in K10i's runs of SHW_RUN. Checks nothing and counts
+    nothing."""
     _raise("soft_rt_shw_bwd_rays", _build.load().raytpu_soft_rt_shw_bwd_rays(
         consts.data_ptr(), consts.shape[0], chunk, srcs.data_ptr(),
         srcs.shape[0], world.data_ptr(), world.shape[1], trans.data_ptr(),
-        gcot.data_ptr(), es, zs, rows.data_ptr(), src_partials.data_ptr(),
-        dsrc.data_ptr(), dw.data_ptr(), _stream()))
+        gcot.data_ptr(), es, zs, SHW_RUN, rows.data_ptr(),
+        src_partials.data_ptr(), dsrc.data_ptr(), dw.data_ptr(), _stream()))
 
 
 def primary_agg_fwd(consts: torch.Tensor, cam: torch.Tensor,
@@ -1008,8 +1156,10 @@ def shadow_trans_fwd(consts: torch.Tensor, srcs: torch.Tensor,
                     consts.device)
     trans = world.new_empty((S, R))
     with torch.cuda.device(consts.device):
-        launch_shw_fwd_kernel(consts, chunk, srcs, world, es, zs, trans,
-                              mask, tiles)
+        launch_shw_fwd_kernel(
+            consts, chunk, srcs, world, es, zs, trans, mask, tiles,
+            scratch=shw_scratch(consts, chunk, srcs, world, mask, tiles,
+                                backward=False))
     if mask is None:
         LAUNCHES_SRT_SHW_FWD += 1
     else:
@@ -1043,15 +1193,15 @@ def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
     Tp = consts.shape[0]
     if mask is not None:
         _check_mask(mask, tiles, R, (S, Tp // chunk), consts.device)
-    groups = _groups(Tp, SHW_USED, R, tiles if mask is not None else None)
-    partials = consts.new_empty((groups, Tp, SHW_USED))
-    src_partials = consts.new_empty((groups, S, 3))
+    blocks = shw_bwd_blocks(consts, chunk, _shw_tiles(R, mask, tiles), S)
     dc, dsrc, dw = (torch.empty_like(consts), torch.empty_like(srcs),
                     torch.empty_like(world))
     with torch.cuda.device(consts.device):
-        launch_shw_bwd_kernel(consts, chunk, srcs, world, trans, gcot, es,
-                              zs, partials, src_partials, dc, dsrc, dw, mask,
-                              tiles)
+        launch_shw_bwd_kernel(
+            consts, chunk, srcs, world, trans, gcot, es, zs, dc, dsrc, dw,
+            mask, tiles, blocks=blocks,
+            scratch=shw_scratch(consts, chunk, srcs, world, mask, tiles,
+                                backward=True, blocks=blocks))
     if mask is None:
         LAUNCHES_SRT_SHW_BWD += 1
     else:

@@ -976,6 +976,78 @@ def test_masked_soft_raytrace_backward_kernels_match_plain_float64(
     rule(sgot[2].T, swant[2].T, splain[2].T, one)
 
 
+@pytest.mark.parametrize("run", [3, None], ids=["runs-of-3", "SHW_RUN"])
+def test_masked_shadow_kernels_split_a_full_tile(cuda, monkeypatch, run):
+    """K10h and K10j where the first tile keeps every chunk of both sources
+    (25 of the 800-triangle torus's) and the others keep about half of what
+    the culled frame's mask keeps (a seeded draw): that tile's runs (9 of 3
+    chunks, or 2 of SHW_RUN) go to different blocks. Against the plain masked versions (K10h rtol
+    1e-5 / atol 1e-6; K10j by column group against float64 with the
+    float32 branch decisions, F11's rule), two calls bit-identical, and
+    with every bit set the unmasked kernels' d world bit for bit."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    if run is not None:
+        monkeypatch.setattr(srt, "SHW_RUN", run)
+    c = _srt_culled_case(cuda, 48, 48, samples=2)
+    draw = np.random.default_rng(4).uniform(size=tuple(c["smask"].shape))
+    smask = c["smask"] * torch.tensor(draw < 0.5, device=cuda).int()
+    smask[0] = 1
+    assert 0 < int(smask[1:].sum()) < smask[1:].numel()
+    fargs = (c["shw"], c["srcs"], c["world"], c["es"], c["zs"], c["chunk"])
+    cull = dict(mask=smask, tiles=c["tiles"])
+    trans = srt.shadow_trans_fwd(*fargs, **cull)
+    trans2 = srt.shadow_trans_fwd(*fargs, **cull)
+    twant = srt.shadow_trans_reference(*fargs, **cull)
+    gcot = _one_signed(trans.shape, cuda, 3)
+    sargs = (c["shw"], c["srcs"], c["world"], trans, gcot, c["es"], c["zs"],
+             c["chunk"])
+    got, again = (srt.shadow_trans_bwd(*sargs, **cull),
+                  srt.shadow_trans_bwd(*sargs, **cull))
+    want = srt.shadow_trans_bwd_reference(
+        *(t.double() for t in sargs[:5]), *sargs[5:], f32_branches=True,
+        **cull)
+    plain = srt.shadow_trans_bwd_reference(*sargs, **cull)
+    ones = srt.shadow_trans_bwd(*sargs, mask=torch.ones_like(smask),
+                                tiles=c["tiles"])
+    brute = srt.shadow_trans_bwd(*sargs)
+    torch.cuda.synchronize()
+    assert torch.equal(trans, trans2)
+    torch.testing.assert_close(trans, twant, rtol=1e-5, atol=1e-6)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    assert torch.equal(ones[2], brute[2])
+    one = (("all", 0, 3),)
+    rule = functools.partial(_assert_float64_rule, slack=2.0)
+    rule(got[0], want[0], plain[0], srt.SHW_GROUPS)
+    rule(got[1], want[1], plain[1], one)
+    rule(got[2].T, want[2].T, plain[2].T, one)
+
+
+def test_forward_dead_test_holds_against_the_kernels_sigmoid(cuda):
+    """shw_term_dead's premise on the card: on the 800-triangle torus's
+    culled frame at S = 16, every triple the plain forward test marks and
+    the gate passes has a term, the kernels' sigmoid of xs (built with
+    their flags, raytpu_soft_rt_sigmoid) times the active column times
+    their sigmoid of y, of +-0; most of those the gate passes are
+    marked."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    c = _srt_culled_case(cuda, 40, 72, samples=16)
+    shw, marked, passing = c["shw"], 0, 0
+    for s in range(c["srcs"].shape[0]):
+        hit, _, xs, y = srt._shadow_test(shw, c["srcs"][s], c["world"],
+                                         c["es"], c["zs"])
+        dead = srt.shadow_dead_terms(shw, c["srcs"][s], c["world"], c["es"],
+                                     c["zs"]) & hit
+        act = shw[:, 13:14].expand_as(xs)[dead]
+        term = (srt.sigmoid_probe(xs[dead].contiguous()) * act
+                * srt.sigmoid_probe(y[dead].contiguous()))
+        torch.cuda.synchronize()
+        assert not term.any()
+        marked += int(dead.sum())
+        passing += int(hit.sum())
+    assert marked > 0.5 * passing
+
+
 def test_culled_soft_raytrace_on_gpu_matches_cpu(cuda):
     """The culled soft frame (W = 40, H = 128: JAX culls in 8 x 128 blocks,
     the port's 16 x 16 tiles pad) and its gradients on the card against the
