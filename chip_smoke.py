@@ -365,11 +365,11 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # and the backward's recompute, derivative and block sums of a hit ray
 # (render_fused_bwd.cu).
 FLOPS_PLANE_TEST, FLOPS_FWD_SHADE, FLOPS_BWD_HIT = 20, 50, 180
-# K7a's any-hit reject (csrc/intersect.cu::shadow_reject): FLOPS_DOTS for
-# the dot products, the products |D| kRejectT and |D| kRejectUV, the sum
-# U + V and, unlike the counts above, its 8 comparisons: they are most of
-# what it does beside the dots.
-FLOPS_REJECT = 15 + 3 + 8  # FLOPS_DOTS + 3 + 8
+# The any-hit reject of K6 and K7a (csrc/intersect.cu::shadow_reject):
+# FLOPS_DOTS for the dot products, the products |D| kRejectT and
+# |D| kRejectUV and the sum U + V; its 8 comparisons count not at all, as
+# above, so a test it decides costs less than the plane test's 20.
+FLOPS_REJECT = 15 + 3  # FLOPS_DOTS + 3
 # The raster kernels' pixel-triangle test (raster.cu::sweep): four planes
 # of two multiplies and two adds.
 FLOPS_RASTER_TEST = 16
@@ -382,6 +382,15 @@ FLOPS_RASTER_TEST = 16
 # and the 10 sums (74). Backward: the recompute (160) and the derivative
 # through one segment distance (218).
 FLOPS_SOFT_FWD, FLOPS_SOFT_BWD = 197, 378
+# K9c's and K9d's dead test since their redesign (soft_raster.cu::
+# soft_dist, soft_pair_dead), counted as above with its comparison: the
+# edges (21), half planes (5) and segment distances (64) of the forward's
+# logit, xs = es sd (1), its cap (1), B's two adds, B - m and the
+# comparison (4): 96 a pair. A live pair goes on from soft_dist's floats
+# (pair_bwd): FLOPS_SOFT_BWD without the edges, half planes, segment
+# distances and xs that its recompute held, 287 more.
+FLOPS_SOFT_DEAD = 21 + 5 + 64 + 1 + 1 + 4
+FLOPS_SOFT_BWD_REST = FLOPS_SOFT_BWD - (21 + 5 + 64 + 1)
 # Column groups of the soft kernels' (Tp, 32) table
 # (kernels/soft_raster.py::soft_tri_constants), each of one kind and size:
 # the gradient of 1 / area is 1e2-1e6 times the vertices', so a rule scaled
@@ -590,11 +599,12 @@ def bench_frame(dev, size: int):
             RenderConfig(width=size, height=size, mode="clean"))
 
 
-def full_feature_lights(dev):
+def full_feature_lights(dev, samples: int = 16):
     """bench.py's full-feature light bank (`bench.py:584-586`): two lights
-    with 16 jittered positions each, the second's jitter from seed 1."""
+    with 16 jittered positions each (or ``samples``), the second's jitter
+    from seed 1."""
     from raytpu_torch import Lights
-    return Lights.single(capacity=2, soft_samples=16, device=dev).add(
+    return Lights.single(capacity=2, soft_samples=samples, device=dev).add(
         (0.4, -0.5, -0.7), (1.0, 1.0, 1.0), 7.0,
         generator=torch.Generator().manual_seed(1))
 
@@ -731,31 +741,94 @@ def run_sweeps(case: dict, multi: bool):
     return t, idx, occ[None]
 
 
-def sweep_tests(case: dict, multi: bool) -> int:
+def sweep_work(case: dict, multi: bool) -> dict:
     """Plane tests the intersection kernels make on a sweep_case: C a ray
-    in the primary sweep, and each source's shadow sweep of each hit ray
-    (K6's misses skip theirs; K4 sweeps a miss from the camera, F25)."""
-    from raytpu_torch.kernels.intersect import _block, sweeps_reference
+    in the primary sweep (``primary``), and each source's shadow sweep of
+    each hit ray to its first blocker (``shadow``; K6's misses skip theirs,
+    K4 sweeps a miss from the camera, F25). Of K6's shadow tests,
+    ``rejected`` counts those its exact reject decides (the plain form,
+    kernels/intersect.py::shadow_reject) and ``reject_wrong`` every test of
+    a hit ray it rejects that plane_tests calls blocking (it must be 0);
+    ``hit`` is the share of hit rays."""
+    from raytpu_torch.kernels.intersect import (_block, shadow_reject,
+                                                sweeps_reference)
+    from raytpu_torch.ops.intersect import plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
     dirs, table, src = case["dirs"], case["table"], case["src"]
     t, idx, _ = sweeps_reference(dirs, table, case["cam"], src)
     hit = idx >= 0
     pos = case["cam"][None, :] + torch.where(hit, t, 0.0)[:, None] * dirs
-    total = dirs.shape[0] * table.shape[1]
+    C = table.shape[1]
+    cols = torch.arange(C, device=dirs.device)[None, :]
+    work = dict(primary=dirs.shape[0] * C, shadow=0, rejected=0,
+                reject_wrong=0, hit=float(hit.float().mean()))
     for s in range(src.shape[0]):
-        tests = tests_to_first_blocker(pos - src[s][None, :],
-                                       *_block(table, 1 + s))
-        total += int((torch.where(hit, tests, 0) if multi else tests).sum())
-    return total
+        delta = pos - src[s][None, :]
+        m, k0 = _block(table, 1 + s)
+        tests = tests_to_first_blocker(delta, m, k0)
+        if not multi:
+            work["shadow"] += int(tests.sum())
+            continue
+        tests = torch.where(hit, tests, 0)
+        work["shadow"] += int(tests.sum())
+        ts, oks = plane_tests(delta[hit], m, k0)
+        reject = shadow_reject(delta[hit], m, k0)
+        work["rejected"] += int((reject & (cols < tests[hit][:, None])).sum())
+        work["reject_wrong"] += int((reject & oks & (ts < SHADOW_T)).sum())
+    return work
 
 
-def sweep_bound(case: dict, multi: bool) -> tuple[float, str]:
+def sweep_bound(case: dict, multi: bool, work: dict | None = None,
+                reject: bool = True) -> tuple[float, str]:
     """K4's (multi False) or K6's bound on a sweep_case: 12 B in and
-    8 + 4 S B out a ray, the table and positions once, and
-    FLOPS_PLANE_TEST a test."""
+    8 + 4 S B out a ray, the table and positions once, and FLOPS_PLANE_TEST
+    a test of sweep_work; since K6's redesign its shadow tests
+    FLOPS_REJECT each and, where the reject does not decide, a plane test
+    besides (``reject`` False: every test a plane test, the count before
+    the redesign)."""
     R, S = case["dirs"].shape[0], case["src"].shape[0]
+    w = work or sweep_work(case, multi)
+    flops = FLOPS_PLANE_TEST * (w["primary"] + w["shadow"])
+    if multi and reject:
+        flops = (FLOPS_PLANE_TEST * (w["primary"] + w["shadow"]
+                                     - w["rejected"])
+                 + FLOPS_REJECT * w["shadow"])
     return bound_ms(R * (12 + 8 + 4 * S)
-                    + (case["table"].numel() + 3 + 3 * S) * 4,
-                    FLOPS_PLANE_TEST * sweep_tests(case, multi))
+                    + (case["table"].numel() + 3 + 3 * S) * 4, flops)
+
+
+def k6_staging_ms(dev, sources=(64, 96, 128)) -> list[dict]:
+    """K6 with its triangle-major copy staged in shared memory and read
+    through the cache, in turns, at 512^2 on the Cornell box (C = 32) with
+    S sources (full_feature_lights with S / 2 samples a light): 96, 144
+    and 192 KB of copy, the largest kernels/intersect.py::k6_staged stages
+    and two it reads through (the C side stages up to 200 KB): the
+    readings behind K6_STAGED_MAX_BYTES. The two outputs agree bit for
+    bit."""
+    from raytpu_torch.kernels import intersect as isect
+    rows = []
+    for S in sources:
+        case = sweep_case(dev, 512, "clean", 32,
+                          full_feature_lights(dev, S // 2), S // 2,
+                          (-0.5, -0.5))
+        C = case["table"].shape[1]
+        scratch = isect.k6_scratch(case["table"], case["src"])
+        outs = {k: isect._outputs(case["dirs"], S) for k in (True, False)}
+
+        def run(staged):
+            return lambda: isect.launch_occluded_multi_kernel(
+                case["dirs"], case["table"], case["cam"], case["src"],
+                *outs[staged], scratch=scratch, staged=staged)
+
+        ms = median_ms_in_turns({"staged": run(True), "read": run(False)},
+                                n=5, reps=9, timer=held_ms)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(outs[True],
+                                                      outs[False])),
+                f"K6 staged and read through agree at S = {S}")
+        rows.append(dict(S=S, C=C, copy_kb=48 * S * C / 1024,
+                         wrapper_staged=isect.k6_staged(S, C), **ms))
+    return rows
 
 
 # The render CLI's STL camera (raytpu_torch/cli/main.py::_build_inputs,
@@ -1143,12 +1216,72 @@ def plain_soft_bwd(case, m, cot, mask="own", dtype=torch.float32):
         branches_from=c["consts"] if dtype != torch.float32 else None)
 
 
-def soft_bound(case, backward: bool, mask="own") -> tuple[float, str]:
+def soft_pair_work(case, m, cot, mask="own") -> dict:
+    """The (pixel, row) pairs K9c or K9d takes on a soft_case at the saved
+    max m and cotangents cot: every pixel against every row, or each tile's
+    pixels against the rows of the chunks its mask keeps (``pairs``); of
+    those, ``dead`` the ones its exact dead test skips (the plain form,
+    kernels/soft_raster.py::soft_dead_pairs), ``zero`` the ones whose plain
+    float32 weight exp(logit - m) is 0, ``wrong`` the skipped ones whose
+    weight is not (it must be 0); and, a warp on each 4 x 8 pixel block of
+    a 16 x 16 tile as the kernels run them, the (warp, row) units, those
+    with a live lane and the live lanes in those."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = case
+    mask = own_mask(c, mask)
+    H, W, chunk, consts = c["H"], c["W"], c["chunk"], c["consts"]
+    n_chunks = consts.shape[0] // chunk
+    dev = consts.device
+    tiles_x = -(-W // 16)
+    n_tiles = tiles_x * -(-H // 16)
+    ly, lx = torch.meshgrid(torch.arange(16, device=dev),
+                            torch.arange(16, device=dev), indexing="ij")
+    lane_order = torch.argsort((((ly // 4) * 2 + lx // 8) * 32
+                                + (ly % 4) * 8 + lx % 8).reshape(-1))
+    t = torch.arange(n_tiles, device=dev)
+    X = ((t % tiles_x) * 16)[:, None] + lx.reshape(-1)[lane_order][None, :]
+    Y = ((t // tiles_x) * 16)[:, None] + ly.reshape(-1)[lane_order][None, :]
+    keep = (torch.ones((n_tiles, n_chunks), dtype=torch.bool, device=dev)
+            if mask is None else mask != 0)
+    w = dict(pairs=0, dead=0, zero=0, wrong=0, units=0, live_units=0,
+             live_lanes=0)
+    for ch in range(n_chunks):
+        kept = torch.nonzero(keep[:, ch]).squeeze(1)
+        if kept.numel() == 0:
+            continue
+        x, y = X[kept].reshape(-1), Y[kept].reshape(-1)
+        ok = ((x < W) & (y < H))[None, :]
+        r = torch.where(ok[0], y * W + x, 0)
+        cs = consts[ch * chunk:(ch + 1) * chunk]
+        coords = torch.stack([x.float(), y.float()])
+        with torch.no_grad():
+            logit, _ = sr.chunk_terms(cs, coords[0], coords[1], c["es"],
+                                      c["zs"])
+            zero = torch.exp(logit - m[r][None, :]) == 0.0
+            dead = sr.soft_dead_pairs(cs, coords, m[r], cot[:, r], c["es"],
+                                      c["zs"]) & ok
+        live = ~dead & ok
+        w["pairs"] += int(ok.sum()) * chunk
+        w["dead"] += int(dead.sum())
+        w["zero"] += int((zero & ok).sum())
+        w["wrong"] += int((dead & ~zero).sum())
+        units = live.reshape(chunk, -1, 32)
+        w["units"] += units.shape[0] * units.shape[1]
+        w["live_units"] += int(units.any(dim=2).sum())
+        w["live_lanes"] += int(units.sum())
+    return w
+
+
+def soft_bound(case, backward: bool, mask="own",
+               work: dict | None = None) -> tuple[float, str]:
     """K9a-K9d's bound on a soft_case: the table read (and, backward,
     its gradient written) once, 12 floats a pixel (agg, m, s out; m and the
     11 cotangents in), against FLOPS_SOFT_* a (pixel, row) pair: every pixel
     against every row, or for each (tile, chunk) pair the mask keeps, the
-    tile's pixels inside the image against the chunk's rows."""
+    tile's pixels inside the image against the chunk's rows. Backward, with
+    ``work`` (soft_pair_work) since the redesign: FLOPS_SOFT_DEAD a pair
+    for its dead test and FLOPS_SOFT_BWD_REST more for a live one; without
+    it, FLOPS_SOFT_BWD a pair (the count before)."""
     from raytpu_torch.kernels.raster import tile_rects
     c = case
     mask = own_mask(c, mask)
@@ -1161,6 +1294,9 @@ def soft_bound(case, backward: bool, mask="own") -> tuple[float, str]:
         tile_pixels = ((xmax - xmin + 1) * (ymax - ymin + 1)).long()
         pairs = int((mask.long() * tile_pixels[:, None]).sum()) * c["chunk"]
         nbytes += mask.numel() * 4
+    if backward and work is not None:
+        return bound_ms(nbytes, FLOPS_SOFT_DEAD * pairs
+                        + FLOPS_SOFT_BWD_REST * (pairs - work["dead"]))
     return bound_ms(nbytes, (FLOPS_SOFT_BWD if backward else FLOPS_SOFT_FWD)
                     * pairs)
 
@@ -3471,15 +3607,19 @@ def main() -> int:
         "k4_512_clean": (sweep_case(dev, 512, "clean", 32, Lights.single(
             capacity=1, device=dev), 1, (0.0, 0.0)), False),
         # The bench's full-feature sources, 2 lights x 16 samples, at the
-        # first AA sub-ray: K6 with S = 32.
+        # first AA sub-ray and at the central one: K6 with S = 32.
         "k6_512_clean_s32": (sweep_case(dev, 512, "clean", 32,
                                         full_feature_lights(dev), 16,
                                         (-0.5, -0.5)), True),
+        "k6_512_clean_s32_aa4": (sweep_case(dev, 512, "clean", 32,
+                                            full_feature_lights(dev), 16,
+                                            (0.0, 0.0)), True),
         # 500^2 parity, 30 triangles, at the AA sub-ray (0.5, 0): K4.
         "k4_500_parity": (sweep_case(dev, 500, "parity", None, Lights.single(
             capacity=1, device=dev), 1, (0.5, 0.0)), False),
     }
     sweep_err = {False: 0.0, True: 0.0}
+    sweep_works = {}
     for name, (case, multi) in cases.items():
         got = run_sweeps(case, multi)
         again = run_sweeps(case, multi)
@@ -3523,6 +3663,18 @@ def main() -> int:
         record[f"sweeps_{name}"] = dict(idx_mismatch=idx_mis,
                                         occ_mismatch=occ_mis, t_equal=t_same,
                                         repeat_equal=same, vjp=vjp_line)
+        if multi:
+            # K6's exact reject on every shadow test of the hit rays.
+            work = sweep_work(case, True)
+            sweep_works[name] = work
+            say(f"  K6's reject: {work['rejected']} of {work['shadow']} "
+                f"shadow tests to the first blocker decided "
+                f"({work['rejected'] / max(1, work['shadow']):.6f}), "
+                f"{work['reject_wrong']} blocking tests rejected; hit rays "
+                f"{work['hit']:.4f}")
+            require(work["reject_wrong"] == 0,
+                    f"{name}: K6's reject rejects no blocking test")
+            record[f"sweeps_{name}"]["reject"] = work
 
     say("== phase 10: the loop branch serving (AA frame, render CLI, view "
         "server)")
@@ -3660,11 +3812,16 @@ def main() -> int:
     outs = {m: isect._outputs(c["dirs"], c["src"].shape[0])
             for m, c in ((False, k4_case), (True, k6_case))}
 
+    k6_scratch = isect.k6_scratch(k6_case["table"], k6_case["src"])
+
     def launcher(case, multi):
-        launch = (isect.launch_occluded_multi_kernel if multi
-                  else isect.launch_occluded_kernel)
-        return lambda: launch(case["dirs"], case["table"], case["cam"],
-                              case["src"], *outs[multi])
+        if multi:
+            return lambda: isect.launch_occluded_multi_kernel(
+                case["dirs"], case["table"], case["cam"], case["src"],
+                *outs[True], scratch=k6_scratch)
+        return lambda: isect.launch_occluded_kernel(
+            case["dirs"], case["table"], case["cam"], case["src"],
+            *outs[False])
 
     def plain(case, multi):
         return lambda: isect.sweeps_reference(case["dirs"], case["table"],
@@ -3674,22 +3831,43 @@ def main() -> int:
     k4_ms = median_ms_in_turns({"kernel": launcher(k4_case, False),
                                 "plain": plain(k4_case, False)},
                                n=5, reps=9, timer=held_ms)
-    k6_ms = median_ms_in_turns({"kernel": launcher(k6_case, True)}, n=5,
-                               reps=9, timer=held_ms)
+    # K6 as the wrapper launches it, and with its triangle-major copy
+    # staged in shared memory and read from device memory, in turns (the
+    # choice: kernels/intersect.py::k6_staged).
+    def k6_launcher(staged):
+        return lambda: isect.launch_occluded_multi_kernel(
+            k6_case["dirs"], k6_case["table"], k6_case["cam"],
+            k6_case["src"], *outs[True], scratch=k6_scratch, staged=staged)
+
+    k6_ms = median_ms_in_turns({"kernel": launcher(k6_case, True),
+                                "staged": k6_launcher(True),
+                                "read": k6_launcher(False)}, n=5, reps=9,
+                               timer=held_ms)
     # The plain K6 makes ~40 launches a source, more than the stream holds
     # while a sleep blocks it: timed back to back, where its 33 MB
     # operations keep the device the bottleneck.
     k6_ms.update(median_ms_in_turns({"plain": plain(k6_case, True)}, n=2,
                                     reps=5))
+    k6_staging = k6_staging_ms(dev)
     k4_bound = sweep_bound(k4_case, False)
-    k6_bound = sweep_bound(k6_case, True)
+    k6_work = sweep_works["k6_512_clean_s32"]
+    k6_bound = sweep_bound(k6_case, True, k6_work)
+    k6_bound_old = sweep_bound(k6_case, True, k6_work, reject=False)
     card = card_line()
     say(f"K4 alone, 512^2 clean, S=1: {k4_ms['kernel']:.4f} ms device time "
         f"(plain {k4_ms['plain']:.4f} ms; bound {k4_bound[0]:.4f} ms, "
         f"{k4_bound[1]}) ({card})")
     say(f"K6 alone, 512^2 clean, S=32: {k6_ms['kernel']:.4f} ms device time "
-        f"(plain {k6_ms['plain']:.4f} ms back to back; bound "
-        f"{k6_bound[0]:.4f} ms, {k6_bound[1]}) ({card})")
+        f"(staged {k6_ms['staged']:.4f} ms, read through the cache "
+        f"{k6_ms['read']:.4f} ms; plain {k6_ms['plain']:.4f} ms back to "
+        f"back; bound {k6_bound[0]:.4f} ms, {k6_bound[1]}; without the "
+        f"reject {k6_bound_old[0]:.4f} ms) ({card})")
+    for row in k6_staging:
+        say(f"K6 alone, 512^2 clean, C={row['C']}, S={row['S']} "
+            f"({row['copy_kb']:.0f} KB of copy): staged {row['staged']:.4f} "
+            f"ms, read through the cache {row['read']:.4f} ms; the wrapper "
+            f"{'stages' if row['wrapper_staged'] else 'reads through'} "
+            f"({card})")
     say(f"full-feature 512^2 (AA 3, soft 16, 2 lights, DoF): frame "
         f"{full_ms['frame']:.4f} ms, train step {full_ms['step']:.4f} ms "
         f"(CUDA events, median of 11); peak memory of a step "
@@ -3709,7 +3887,9 @@ def main() -> int:
                   full_ms=full_ms, full_profile=busy_full,
                   full_frame_profile=busy_frame,
                   step_peak_gb=step_peak_gb, k4_ms=k4_ms, k6_ms=k6_ms,
-                  k4_bound=k4_bound, k6_bound=k6_bound)
+                  k4_bound=k4_bound, k6_bound=k6_bound,
+                  k6_bound_without_reject=k6_bound_old,
+                  k6_staging=k6_staging)
 
     say("== phase 12: K8b and K8c against their plain versions on the card")
     from raytpu_torch.core.stl import procedural_stl_text
@@ -4183,11 +4363,21 @@ def main() -> int:
             require(same, f"{label}: two backward calls identical")
             require(bool(torch.isfinite(got).all())
                     and not got[:, 29:].any(), f"{label}: finite gradient")
+            # The pairs the kernel skips: its dead test's plain form on the
+            # same inputs, against the plain float32 weight.
+            work = soft_pair_work(case, m, cot, mask)
+            say(f"  dead pairs: {work['dead']} of {work['pairs']} proved "
+                f"dead ({work['dead'] / max(1, work['pairs']):.4f}), "
+                f"{work['zero']} of weight 0, {work['wrong']} proved dead "
+                f"with a weight not 0; (warp, row) units with a live lane "
+                f"{work['live_units']} of {work['units']}")
+            require(work["wrong"] == 0,
+                    f"{label}: no pair of weight not 0 found dead")
             key = "k9c" if case["mask"] is None else "k9d"
             soft_err[key] = max([soft_err[key]] + [
                 check[g]["err64"] for g, _, _ in SOFT_GROUPS])
             record[f"soft_bwd_{label}"] = dict(groups=check,
-                                               repeat_equal=same)
+                                               repeat_equal=same, work=work)
             del want, plain32
     torch.cuda.empty_cache()
 
@@ -4418,16 +4608,15 @@ def main() -> int:
                torch.empty(R, device=dev), torch.empty(R, device=dev)]
         cot = soft_cot(case, seed=5)
         m = soft_fwd(case, mk)[1]
-        groups = sr.bwd_groups(c["consts"].shape[0] // c["chunk"], c["H"],
-                               c["W"])
-        partials = torch.empty((groups, *c["consts"].shape), device=dev)
+        scratch = sr.bwd_scratch(c["consts"], c["H"], c["W"], c["chunk"])
         dc = torch.empty_like(c["consts"])
         args = (c["consts"], c["H"], c["W"], c["chunk"], mk, c["es"],
                 c["zs"])
         return (lambda: sr.launch_fwd_kernel(*args, *out),
-                lambda: sr.launch_bwd_kernel(*args, m, cot, partials, dc),
+                lambda: sr.launch_bwd_kernel(*args, m, cot, dc,
+                                             scratch=scratch),
                 lambda: plain_soft_fwd(case, mask),
-                lambda: plain_soft_bwd(case, m, cot, mask))
+                lambda: plain_soft_bwd(case, m, cot, mask), m, cot)
 
     kcases = {"bench": (scases["k9a_512_bench"], "own"),
               "fit": (scases["k9a_500_fit"], "own"),
@@ -4435,7 +4624,7 @@ def main() -> int:
               "stl_brute": (scases["k9b_512_stl"], None)}
     soft_k = {}
     for name, (case, mask) in kcases.items():
-        fwd_k, bwd_k, fwd_p, bwd_p = kernel_timers(case, mask)
+        fwd_k, bwd_k, fwd_p, bwd_p, m_k, cot_k = kernel_timers(case, mask)
         big = name.startswith("stl")
         t = median_ms_in_turns({"fwd": fwd_k, "bwd": bwd_k},
                                n=2 if big else 5, reps=5, timer=held_ms)
@@ -4444,7 +4633,11 @@ def main() -> int:
         t.update({f"{k}_plain": v for k, v in median_ms_in_turns(
             {"fwd": fwd_p, "bwd": bwd_p}, n=1, reps=3).items()})
         t["fwd_bound"] = soft_bound(case, False, mask)
-        t["bwd_bound"] = soft_bound(case, True, mask)
+        t["work"] = soft_pair_work(case, m_k, cot_k, mask)
+        require(t["work"]["wrong"] == 0,
+                f"{name}: no pair of weight not 0 found dead")
+        t["bwd_bound"] = soft_bound(case, True, mask, t["work"])
+        t["bwd_bound_old"] = soft_bound(case, True, mask)
         soft_k[name] = t
         torch.cuda.empty_cache()
     card = card_line()
@@ -4454,7 +4647,15 @@ def main() -> int:
             f"forward {t['fwd']:.4f} ms (plain {t['fwd_plain']:.4f}; bound "
             f"{t['fwd_bound'][0]:.4f} ms, {t['fwd_bound'][1]}), backward "
             f"{t['bwd']:.4f} ms (plain {t['bwd_plain']:.4f}; bound "
-            f"{t['bwd_bound'][0]:.4f} ms, {t['bwd_bound'][1]}) ({card})")
+            f"{t['bwd_bound'][0]:.4f} ms, {t['bwd_bound'][1]}; without the "
+            f"dead test {t['bwd_bound_old'][0]:.4f} ms) ({card})")
+        wk = t["work"]
+        say(f"  pairs {wk['pairs']}, proved dead {wk['dead']} "
+            f"({wk['dead'] / max(1, wk['pairs']):.4f}), weight 0 "
+            f"{wk['zero']}, live {wk['pairs'] - wk['dead']}; (warp, row) "
+            f"units {wk['units']}, with a live lane {wk['live_units']}, "
+            f"lanes live in those "
+            f"{wk['live_lanes'] / max(1, 32 * wk['live_units']):.4f}")
     say(f"soft frames (CUDA events, median): 512^2 bench "
         f"{soft_ms['bench_frame']:.4f} ms, 500^2 fit frame "
         f"{soft_ms['fit_frame']:.4f} ms, STL 512^2 culled "

@@ -38,24 +38,31 @@
 // Design. One thread per ray, 256 a block. K4 copies both blocks (at most
 // 10 KB) into shared memory; every thread reads the same entry at the same
 // time, a broadcast without bank conflicts. K6 copies the primary block
-// into shared memory, but its source blocks (S x 10 x C floats: 42 KB at
-// S = 32, C = 32, and 2.6 MB for a 32-slot bank with 16 samples at C = 128)
-// do not fit. They are read from device memory through the read-only
-// cache (the table pointer is const __restrict__), and all threads of a
-// warp that still sweep read the same address, one transaction a load.
-// Staging one source at a time in shared memory was the other choice; it
-// needs two block-wide barriers a source, which make every warp wait for
-// the block's slowest ray, while here a warp whose rays all missed or
-// were blocked early moves on to the next source at once. One source's
-// block is 1.3-5 KB and stays in L1 while the warps of an SM sweep it.
+// into shared memory and runs the same primary sweep (it needs t, so it
+// keeps plane_test's reciprocal). Its shadow sweeps, ~250 M tests at 512^2
+// and S = 32, nearly all misses, are where its time goes: a sweep that paid
+// plane_test's IEEE reciprocal and ten loads at stride C on each test ran
+// at 13x its bound. So K6 sweeps the sources as K7a does:
+// k7a_pack_tris_kernel copies the S source blocks triangle-major (48 bytes
+// a triangle, three loads a test), each test takes K7a's exact reject
+// first (shadow_reject, no reciprocal) and plane_test decides only what the
+// reject leaves open (shadow_group); a lane stops at its first blocker and
+// the warp goes on to the next source once no lane sweeps (__any_sync).
+// The copy is staged once a block in dynamic shared memory where S C 48
+// bytes fit (49 KB at S = 32, C = 32), else read from device memory
+// through the read-only cache (every lane of a warp reads the same
+// triangle: one transaction), as for the viewer's largest banks (C = 128,
+// hundreds of sources); kernels/intersect.py::k6_staged chooses. Staged
+// was the faster on the H100 up to 96 KB, where two blocks share an SM,
+// and the slower at 144 and 192 KB (PERF.md). 95% of the bench's rays
+// hit, so the misses are not packed out of the warps.
 //
 // Bound on the H100 (512^2 rays, C = 32). Memory: 12 B in and 8 + 4 S B
-// out a ray. Arithmetic: C plane tests a ray in the primary sweep and up to
-// S x C for the shadow sweeps of a hit ray (K4: of every ray), each an IEEE
-// divide and ~20
-// float operations. K6 at S = 32 does up to 5.5 GFLOP a launch, ~0.08 ms at
-// the 67 TFLOP/s float32 peak against ~0.012 ms for its 39 MB: bound by
-// operations.
+// out a ray. Arithmetic: C plane tests a ray in the primary sweep (20
+// float operations each) and the shadow tests of a hit ray to its first
+// blocker (K4: of every ray); K6's cost FLOPS_REJECT each where the reject
+// decides them, and a plane test's 20 more elsewhere
+// (chip_smoke.py::sweep_bound). At S = 32: bound by operations.
 //
 // K5 and K7d, closest_hit_kernel<false> and <true>, replace
 // intersect_pallas.py::_kernel (launched by _closest_hit_raw through
@@ -144,9 +151,10 @@
 // pairs' share of that. What the design does about it: the constants are
 // read from shared memory as broadcasts, two barriers a kept chunk, no
 // atomics, and a kept chunk costs one global read of 5 KB a block. K7a's
-// shadow tests that the reject decides cost its 26 operations (15 for the
-// dot products, 3 products and sums and 8 comparisons), the others those
-// and a plane test's 20: bound by operations (chip_smoke.py::stl_bound).
+// shadow tests that the reject decides cost its 18 operations (15 for the
+// dot products, 3 products and sums; its comparisons count not at all),
+// the others those and a plane test's 20: bound by operations
+// (chip_smoke.py::stl_bound).
 
 #include <cfloat>
 #include <cstddef>
@@ -287,46 +295,6 @@ __global__ void __launch_bounds__(kThreads)
   t_out[r] = best_t;
   idx_out[r] = hit ? best_i : -1;
   occ_out[r] = occ ? 1 : 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    closest_hit_occluded_multi_kernel(const float* __restrict__ dirs,
-                                      const float* __restrict__ table,
-                                      const float* __restrict__ cam,
-                                      const float* __restrict__ src, int C,
-                                      int S, int R, float* __restrict__ t_out,
-                                      int* __restrict__ idx_out,
-                                      int* __restrict__ occ_out) {
-  __shared__ float s_tab[kBlockRows * kMaxTris];
-  __shared__ float s_cam[3];
-  for (int k = threadIdx.x; k < kBlockRows * C; k += kThreads)
-    s_tab[k] = table[k];
-  if (threadIdx.x < 3) s_cam[threadIdx.x] = cam[threadIdx.x];
-  __syncthreads();
-
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= R) return;
-  const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
-  float best_t;
-  const int best_i = closest(s_tab, C, dx, dy, dz, &best_t);
-  const bool hit = best_t < FLT_MAX;
-  t_out[r] = best_t;
-  idx_out[r] = hit ? best_i : -1;
-
-  const float tz = hit ? best_t : 0.0f;
-  const float px = s_cam[0] + tz * dx;
-  const float py = s_cam[1] + tz * dy;
-  const float pz = s_cam[2] + tz * dz;
-  for (int s = 0; s < S; ++s) {
-    bool occ = false;
-    if (hit) {
-      const float* blk =
-          table + static_cast<size_t>(1 + s) * kBlockRows * C;
-      occ = blocked(blk, C, px - src[3 * s], py - src[3 * s + 1],
-                    pz - src[3 * s + 2]);
-    }
-    occ_out[static_cast<size_t>(s) * R + r] = occ ? 1 : 0;
-  }
 }
 
 template <bool Masked>
@@ -589,13 +557,19 @@ __global__ void k7a_pack_tris_kernel(const float* __restrict__ table, int Tp,
 // the sweep's blocks an SM (128 registers a thread).
 constexpr int kShadowGroup = 16;
 constexpr int kShadowMinBlocks = 2;
+// K6's largest staged triangle-major copy: a block's shared memory less its
+// primary block and the slack the runtime keeps.
+constexpr long long kMaxStagedBytes = 200 * 1024;
 
-// The reject on the triangle whose triangle-major constants are at t.
+// The reject on the triangle whose triangle-major constants are at t, in
+// device memory through the read-only cache or (kSmem) in shared memory.
+template <bool kSmem = false>
 __device__ __forceinline__ bool rejected(const float4* __restrict__ t,
                                          float ex, float ey, float ez) {
-  const float4 a = __ldg(t);
-  const float4 b = __ldg(t + 1);
-  const float2 c = __ldg(reinterpret_cast<const float2*>(t + 2));
+  const float4 a = kSmem ? t[0] : __ldg(t);
+  const float4 b = kSmem ? t[1] : __ldg(t + 1);
+  const float2 c = kSmem ? *reinterpret_cast<const float2*>(t + 2)
+                         : __ldg(reinterpret_cast<const float2*>(t + 2));
   float Dn, U, V;
   shadow_dots(a, b, c, ex, ey, ez, &Dn, &U, &V);
   return shadow_reject(Dn, U, V, a.w);
@@ -605,7 +579,7 @@ __device__ __forceinline__ bool rejected(const float4* __restrict__ t,
 // so each load's offset is an immediate): the reject on each, and one
 // branch, taken only where it leaves a test undecided, to plane_test on
 // the table (row stride Tp). A blocker stops the lane and sets *occ.
-template <int G>
+template <int G, bool kSmem = false>
 __device__ __forceinline__ void shadow_group(const float4* __restrict__ tri,
                                              const float* __restrict__ blk,
                                              int Tp, int g, float ex,
@@ -614,16 +588,96 @@ __device__ __forceinline__ void shadow_group(const float4* __restrict__ tri,
   const float4* t = tri + 3 * static_cast<size_t>(g);
   bool decided = true;
 #pragma unroll
-  for (int u = 0; u < G; ++u) decided &= rejected(t + 3 * u, ex, ey, ez);
+  for (int u = 0; u < G; ++u)
+    decided &= rejected<kSmem>(t + 3 * u, ex, ey, ez);
   if (!sweeping || decided) return;
   for (int i = g; i < g + G; ++i) {
-    if (rejected(t + 3 * (i - g), ex, ey, ez)) continue;
+    if (rejected<kSmem>(t + 3 * (i - g), ex, ey, ez)) continue;
     const PlaneHit p = plane_test(blk, Tp, i, ex, ey, ez);
     if (p.ok && p.t < kShadowT) {
       sweeping = false;
       *occ = 1;
       return;
     }
+  }
+}
+
+// K6, a thread a ray, 256 a block: the primary sweep on the primary block
+// staged in shared memory (closest: plane_test, it needs t), then the S
+// shadow sweeps of a hit ray, each test through the exact reject first and
+// plane_test on the table (row stride C) only where the reject leaves it
+// open (shadow_group, K7a's). The sources' constants are read
+// triangle-major from k7a_pack_tris_kernel's copy of K6's table (Tp = C),
+// in device memory through the read-only cache or (kStaged) staged once a
+// block in dynamic shared memory (S C 48 bytes). A lane stops at its first
+// blocker; the warp moves to the next source once no lane sweeps. Misses
+// sweep nothing (occ 0). A lane past R takes part in the warp's votes only.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    closest_hit_occluded_multi_kernel(const float* __restrict__ dirs,
+                                      const float* __restrict__ table,
+                                      const float* __restrict__ cam,
+                                      const float* __restrict__ src,
+                                      const float4* __restrict__ tris, int C,
+                                      int S, int R, float* __restrict__ t_out,
+                                      int* __restrict__ idx_out,
+                                      int* __restrict__ occ_out) {
+  extern __shared__ float4 s_tris[];
+  __shared__ float s_tab[kBlockRows * kMaxTris];
+  __shared__ float s_cam[3];
+  for (int k = threadIdx.x; k < kBlockRows * C; k += kThreads)
+    s_tab[k] = table[k];
+  if (kStaged) {
+    for (int k = threadIdx.x; k < S * C * 3; k += kThreads)
+      s_tris[k] = tris[k];
+  }
+  if (threadIdx.x < 3) s_cam[threadIdx.x] = cam[threadIdx.x];
+  __syncthreads();
+
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const bool valid = r < R;
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (valid) {
+    dx = dirs[3 * r];
+    dy = dirs[3 * r + 1];
+    dz = dirs[3 * r + 2];
+  }
+  float best_t;
+  const int best_i = closest(s_tab, C, dx, dy, dz, &best_t);
+  const bool hit = valid && best_t < FLT_MAX;
+  if (valid) {
+    t_out[r] = best_t;
+    idx_out[r] = hit ? best_i : -1;
+  }
+  const float tz = hit ? best_t : 0.0f;
+  const float px = s_cam[0] + tz * dx;
+  const float py = s_cam[1] + tz * dy;
+  const float pz = s_cam[2] + tz * dz;
+  const float4* tri_all = kStaged ? s_tris : tris;
+  for (int s = 0; s < S; ++s) {
+    bool sweeping = hit;
+    int occ = 0;
+    if (__any_sync(kFullMask, sweeping)) {
+      const float ex = px - src[3 * s], ey = py - src[3 * s + 1],
+                  ez = pz - src[3 * s + 2];
+      const float4* tri = tri_all + static_cast<size_t>(s) * C * 3;
+      const float* blk = table + static_cast<size_t>(1 + s) * kBlockRows * C;
+      for (int i0 = 0; i0 < C; i0 += 32) {
+        const int i1 = i0 + 32 < C ? i0 + 32 : C;
+        int g = i0;
+        for (; g + kShadowGroup <= i1; g += kShadowGroup)
+          shadow_group<kShadowGroup, kStaged>(tri, blk, C, g, ex, ey, ez,
+                                              sweeping, &occ);
+        for (; g + 8 <= i1; g += 8)
+          shadow_group<8, kStaged>(tri, blk, C, g, ex, ey, ez, sweeping,
+                                   &occ);
+        for (; g < i1; ++g)
+          shadow_group<1, kStaged>(tri, blk, C, g, ex, ey, ez, sweeping,
+                                   &occ);
+        if (!__any_sync(kFullMask, sweeping)) break;
+      }
+    }
+    if (valid) occ_out[static_cast<size_t>(s) * R + r] = occ;
   }
 }
 
@@ -780,20 +834,49 @@ extern "C" int raytpu_closest_hit_occluded(const void* dirs, const void* table,
 }
 
 // dirs (R, 3), table ((1 + S) * 10, C), cam (3,), src (S, 3) float32 device
-// pointers; t (R,) float32, idx (R,) int32 and occ (S, R) int32 outputs.
-// Launches on `stream` and returns the launch's cudaError_t.
+// pointers; t (R,) float32, idx (R,) int32 and occ (S, R) int32 outputs;
+// tris scratch for the triangle-major copy (S C 48 bytes, scratch_bytes at
+// least that, 16-byte aligned). staged 1 stages the copy in shared memory
+// (S C 48 bytes a block, at most kMaxStagedBytes), 0 reads it from device
+// memory. Launches the copy and K6 on `stream`, never synchronises, and
+// returns the first launch error.
 extern "C" int raytpu_closest_hit_occluded_multi(
     const void* dirs, const void* table, const void* cam, const void* src,
-    int C, int S, int R, void* t, void* idx, void* occ, void* stream) {
-  if (C < 1 || C > kMaxTris || S < 1 || R < 0)
+    int C, int S, int R, void* t, void* idx, void* occ, void* tris,
+    long long scratch_bytes, int staged, void* stream) {
+  const long long tri_bytes = 48LL * S * C;
+  if (C < 1 || C > kMaxTris || S < 1 || R < 0 || tris == nullptr ||
+      scratch_bytes < tri_bytes || (staged != 0 && staged != 1) ||
+      (staged == 1 && tri_bytes > kMaxStagedBytes))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* tab = static_cast<const float*>(table);
+  float4* tr = static_cast<float4*>(tris);
+  const int n_tris = S * C;
+  k7a_pack_tris_kernel<<<(n_tris + kThreads - 1) / kThreads, kThreads, 0,
+                         st>>>(tab, C, S, tr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int blocks = (R + kThreads - 1) / kThreads;
-  closest_hit_occluded_multi_kernel<<<blocks, kThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dirs), static_cast<const float*>(table),
-      static_cast<const float*>(cam), static_cast<const float*>(src), C, S, R,
-      static_cast<float*>(t), static_cast<int*>(idx), static_cast<int*>(occ));
+  const float* d = static_cast<const float*>(dirs);
+  const float* cp = static_cast<const float*>(cam);
+  const float* sp = static_cast<const float*>(src);
+  if (staged == 1) {
+    const int smem = static_cast<int>(tri_bytes);
+    if ((err = cudaFuncSetAttribute(
+             closest_hit_occluded_multi_kernel<true>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return (int)err;
+    closest_hit_occluded_multi_kernel<true><<<blocks, kThreads, smem, st>>>(
+        d, tab, cp, sp, tr, C, S, R, static_cast<float*>(t),
+        static_cast<int*>(idx), static_cast<int*>(occ));
+  } else {
+    closest_hit_occluded_multi_kernel<false><<<blocks, kThreads, 0, st>>>(
+        d, tab, cp, sp, tr, C, S, R, static_cast<float*>(t),
+        static_cast<int*>(idx), static_cast<int*>(occ));
+  }
   return (int)cudaGetLastError();
 }
 

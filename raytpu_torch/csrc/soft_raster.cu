@@ -3,10 +3,10 @@
 //
 // K9a, soft_raster_fwd_kernel<false>, replaces
 // raytpu/kernels/soft_raster_pallas.py::_fwd_kernel; K9b,
-// soft_raster_fwd_kernel<true>, replaces _fwd_kernel_masked; K9c,
-// soft_raster_bwd_kernel<false> and the fixed-order sum
-// soft_raster_bwd_sum_kernel, replace _bwd_kernel; K9d,
-// soft_raster_bwd_kernel<true> and the same sum, replace _bwd_kernel_masked.
+// soft_raster_fwd_kernel<true>, replaces _fwd_kernel_masked; K9c replaces
+// _bwd_kernel and K9d _bwd_kernel_masked: both are soft_bwd_list_kernel,
+// soft_bwd_items_kernel, soft_raster_bwd_kernel and the fixed-order sum
+// soft_raster_bwd_sum_kernel, K9c with every tile kept.
 //
 // What they compute. For every pixel (x, y) of an H x W image (integer
 // coordinates, row-major r = y W + x; the image is rows [y0, y0 + H) of the
@@ -44,20 +44,16 @@
 // reciprocals), keeps the chunk's 32 logits in registers from the first pass
 // (the max), and in the second recomputes only the barycentrics for the
 // sums. The masked forward skips a chunk block-uniformly.
-// The backward turns the pairing around: a block is 32 rows (one chunk, a
-// warp) by 8 pixel slices. Each thread holds its row's 29 constants and 29
-// gradient sums in registers and walks the pixels of its slice; a warp reads
-// one pixel's m and cotangents at a time, a broadcast. Grid (chunk, group):
-// a group takes tiles g, g + groups, ... (the masked backward skips a tile
-// whose bit is 0), so one chunk (Cornell) spreads over up to ~1,000 groups
-// and 288 chunks (the STL mesh) over a few each. A block adds its 8 slices
-// in order and writes one (Tp, 32) partial; the sum kernel adds the groups
-// in a fixed order. No floating-point atomics: two calls give the same bits.
+// The backward (below, "K9c and K9d, redesigned") works in items of a
+// chunk and a run of its kept tiles, a pixel a lane, and skips the pairs
+// whose weight it proves exactly 0; every sum has a fixed order, so two
+// calls give the same bits.
 //
-// Bound on the H100: ~150 float operations and 5-6 exp/log/sqrt/divides a
-// (pixel, row) pair forward, ~3x that backward, against 48 B a pixel of
-// output (forward) or input (backward) and the table: bound by operations
-// (chip_smoke.py counts them on its inputs).
+// Bound on the H100: ~200 float operations a (pixel, row) pair forward; a
+// backward pair pays its dead test (soft_dist, B, the comparison) and, if
+// live, ~290 more (pair_bwd past soft_dist); against 48 B a pixel of output (forward) or input
+// (backward) and the table: bound by operations (chip_smoke.py counts
+// them on its inputs: FLOPS_SOFT_*).
 //
 // Rounding. Built with -fmad=false and IEEE division and sqrt; every
 // expression in the JAX kernel's order, so the forward matches the plain
@@ -65,6 +61,7 @@
 // order of its sums.
 
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -77,7 +74,6 @@ constexpr int kCols = 32;                  // columns of the table
 constexpr int kUsed = 29;                  // columns _chunk_terms reads
 constexpr int kCh = 10;                    // aggregated channels
 constexpr int kDerived = 4;                // per-row values derived once
-constexpr int kSlices = 8;                 // backward: pixel slices a block
 constexpr int kSumSlices = 32;             // sum kernel: slices of groups
 
 __device__ __forceinline__ float clip01(float x) {
@@ -300,32 +296,52 @@ __device__ __forceinline__ void seg2_bwd(float x0, float y0, float x1,
   *gy1 += dey;
 }
 
-// Adds the gradient of one (pixel, row) pair to g[29]: c the row's
-// constants, d its derived values, mp the pixel's saved max, ds and da its
-// cotangents.
+// The forward half of pair_bwd that its dead test shares: the raw edge
+// values, the half-plane values, the segment distances (outside only) and
+// the signed distance sd, each in fwd_logit's expressions.
+struct SoftDist {
+  float r0, r1, r2, e0, e1, e2, e01, q0, q1, q2, q01, smin, sd;
+  bool inside;
+};
+
+__device__ __forceinline__ SoftDist soft_dist(const float* c, const float* d,
+                                              float px, float py) {
+  SoftDist s;
+  const float ax = c[0], ay = c[1], bx = c[2], by = c[3], cx = c[4],
+              cy = c[5];
+  s.r0 = edge_raw(ax, ay, bx, by, px, py);
+  s.r1 = edge_raw(bx, by, cx, cy, px, py);
+  s.r2 = edge_raw(cx, cy, ax, ay, px, py);
+  s.e0 = s.r0 * c[6];
+  s.e1 = s.r1 * c[7];
+  s.e2 = s.r2 * c[8];
+  s.e01 = fminf(s.e0, s.e1);
+  const float hp = fminf(s.e01, s.e2);
+  s.inside = hp >= 0.0f;
+  s.q0 = s.q1 = s.q2 = s.q01 = s.smin = 0.0f;
+  s.sd = hp;
+  if (!s.inside) {
+    s.q0 = seg2(ax, ay, bx, by, d[1], px, py);
+    s.q1 = seg2(bx, by, cx, cy, d[2], px, py);
+    s.q2 = seg2(cx, cy, ax, ay, d[3], px, py);
+    s.q01 = fminf(s.q0, s.q1);
+    s.smin = sqrtf(fminf(s.q01, s.q2));
+    s.sd = -s.smin;
+  }
+  return s;
+}
+
+// Adds the gradient of one (pixel, row) pair to g[29], going on from the
+// pair's soft_dist and xs = es sd: c the row's constants, d its derived
+// values, mp the pixel's saved max, ds and da its cotangents.
 __device__ __forceinline__ void pair_bwd(const float* c, const float* d,
+                                         const SoftDist& s, float xs,
                                          float px, float py, float mp,
                                          float ds, const float* da, float es,
                                          float zs, float* g) {
   const float ax = c[0], ay = c[1], bx = c[2], by = c[3], cx = c[4],
               cy = c[5];
-  const float r0 = edge_raw(ax, ay, bx, by, px, py);
-  const float r1 = edge_raw(bx, by, cx, cy, px, py);
-  const float r2 = edge_raw(cx, cy, ax, ay, px, py);
-  const float e0 = r0 * c[6], e1 = r1 * c[7], e2 = r2 * c[8];
-  const float e01 = fminf(e0, e1);
-  const float hp = fminf(e01, e2);
-  const bool inside = hp >= 0.0f;
-  float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f, q01 = 0.0f, smin = 0.0f;
-  float sd = hp;
-  if (!inside) {
-    q0 = seg2(ax, ay, bx, by, d[1], px, py);
-    q1 = seg2(bx, by, cx, cy, d[2], px, py);
-    q2 = seg2(cx, cy, ax, ay, d[3], px, py);
-    q01 = fminf(q0, q1);
-    smin = sqrtf(fminf(q01, q2));
-    sd = -smin;
-  }
+  const float r0 = s.r0, r1 = s.r1, r2 = s.r2;
   // Barycentrics, kept unrolled for the backward.
   const float l0 = r1 * c[9];
   const float l1 = r2 * c[9];
@@ -334,7 +350,6 @@ __device__ __forceinline__ void pair_bwd(const float* c, const float* d,
   const float lrec = 1.0f / (((l0c + l1c) + l2c) + 1e-12f);
   const float L0 = l0c * lrec, L1 = l1c * lrec, L2 = l2c * lrec;
   const float zpx = (L0 * c[10] + L1 * c[11]) + L2 * c[12];
-  const float xs = es * sd;
   const float ex = expf(-fabsf(xs));
   const float logit =
       (zs * zpx + (fminf(xs, 0.0f) - log1pf(ex))) + d[0];
@@ -397,12 +412,12 @@ __device__ __forceinline__ void pair_bwd(const float* c, const float* d,
 
   float gax = 0.0f, gay = 0.0f, gbx = 0.0f, gby = 0.0f, gcx = 0.0f,
         gcy = 0.0f;
-  if (inside) {
+  if (s.inside) {
     // sd = hp = min(min(e0, e1), e2), e_k = r_k s_k.
-    const float d01 = dsd * dmin_first(e01, e2);
-    const float de2 = dsd * dmin_first(e2, e01);
-    const float de0 = d01 * dmin_first(e0, e1);
-    const float de1 = d01 * dmin_first(e1, e0);
+    const float d01 = dsd * dmin_first(s.e01, s.e2);
+    const float de2 = dsd * dmin_first(s.e2, s.e01);
+    const float de0 = d01 * dmin_first(s.e0, s.e1);
+    const float de1 = d01 * dmin_first(s.e1, s.e0);
     dr0 += de0 * c[6];
     dr1 += de1 * c[7];
     dr2 += de2 * c[8];
@@ -411,11 +426,11 @@ __device__ __forceinline__ void pair_bwd(const float* c, const float* d,
     g[8] += de2 * r2;
   } else {
     // sd = -sqrt(min(min(q0, q1), q2)).
-    const float dQ = -dsd / (2.0f * smin);
-    const float d01 = dQ * dmin_first(q01, q2);
-    const float dq2 = dQ * dmin_first(q2, q01);
-    const float dq0 = d01 * dmin_first(q0, q1);
-    const float dq1 = d01 * dmin_first(q1, q0);
+    const float dQ = -dsd / (2.0f * s.smin);
+    const float d01 = dQ * dmin_first(s.q01, s.q2);
+    const float dq2 = dQ * dmin_first(s.q2, s.q01);
+    const float dq0 = d01 * dmin_first(s.q0, s.q1);
+    const float dq1 = d01 * dmin_first(s.q1, s.q0);
     if (dq0 != 0.0f)
       seg2_bwd(ax, ay, bx, by, d[1], px, py, dq0, &gax, &gay, &gbx, &gby);
     if (dq1 != 0.0f)
@@ -434,77 +449,320 @@ __device__ __forceinline__ void pair_bwd(const float* c, const float* d,
   g[5] += gcy;
 }
 
-template <bool kMasked>
-__global__ void __launch_bounds__(kMaxChunk* kSlices)
-    soft_raster_bwd_kernel(const float* __restrict__ consts, int Tp,
-                           int chunk, const int* __restrict__ mask, int H,
-                           int W, int y0, float es, float zs,
-                           const float* __restrict__ m,
-                           const float* __restrict__ cot, int groups,
-                           float* __restrict__ partials) {
-  __shared__ float s_red[kSlices][kMaxChunk][kUsed];
-  const int i = threadIdx.x, slice = threadIdx.y;
-  const int ch = blockIdx.x, group = blockIdx.y;
-  const int n_chunks = Tp / chunk;
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const int n_tiles = tiles_x * ((H + kTile - 1) / kTile);
-  const size_t R = static_cast<size_t>(H) * W;
-  float acc[kUsed];
+// ---------------------------------------------------------------------------
+// K9c and K9d, redesigned for Hopper around the dead pairs.
+//
+// On the culled soft STL step (512^2, the 9,028-triangle mesh padded to
+// 9,216, es = zs = 40) 93% of the kept (pixel, row) pairs have a weight
+// exp(logit - m) of exactly 0 (96.9% of the (tile, chunk) pairs are culled
+// first), and at the bench's Cornell step 89% of all pairs. Running
+// pair_bwd's ~380 operations (a sqrt, expf, log1pf, IEEE divides) on every
+// one, in a grid of (chunk, tile group) blocks that walks every tile's
+// mask bit and lasts as long as its busiest chunk, took 17.5x the bound.
+// So the kernels test each pair first and spread the kept pairs in items.
+//
+// The dead test (soft_pair_dead). The logit is
+//   (zs zpx + (min(xs, 0) - log1p(exp(-|xs|)))) + d0,
+// xs = es sd, d0 = log(valid + 1e-20). Its bound
+//   B = (zb + cap) + d0,  cap = xs > 0 ? 0 : xs,
+// takes sd and xs from soft_dist, the same floats pair_bwd goes on from
+// (so the live path pays no second distance), and zb >= fl(zs zpx) for any
+// barycentrics: L_k in [0, 1 + 5e] with sum <= 1 + 4e (e = 2^-24; clip01
+// drops a NaN, so each L_k is finite), so |fl(zs zpx)| <= |zs| max|zinv_k|
+// (1 + 8.2e), and zb = max(fl(fl(|zs| max|zinv_k|) (1 + 2^-16)), 2^-99)
+// exceeds it. log1pf of exp(-|xs|) in [0, 1] is >= 0, and rounding to
+// nearest is monotone in each operand of a sum or difference, so the
+// float32 B is >= the float32 logit exactly. Then fl(logit - m) <=
+// fl(B - m), and where B - m < kDeadBelow = -110, w = expf(logit - m) is
+// exactly 0 on the card (float32 expf underflows below about -103.97;
+// tests/test_torch_gpu.py enumerates -110 to -200 through
+// raytpu_soft_rt_expf, built with these flags).
+//
+// No 0 * inf. The test marks a pair dead only where every factor that
+// meets w is finite, so that every term pair_bwd would add is +-0: the
+// row's 29 used columns and the pixel's 11 cotangents lie within
+// kTame = 2^40 in magnitude (every product and sum of pair_bwd then stays
+// below 2^125), es and zs too, and valid + 1e-20 is not 0 (G / 0). A row
+// that fails carries zb = NaN, a pixel that fails m = NaN in the test, so
+// B - m is NaN and the comparison false; a NaN in B or m falls through the
+// same way (cap keeps a NaN xs, where fminf would drop it). A sum that
+// starts at +0 never becomes -0, and adding +-0 to it changes no bit, so a
+// skipped pair leaves every sum as it was.
+//
+// Work items (no host sync, no atomic work counter). soft_bwd_list_kernel
+// lists each chunk's kept tiles in tile order (every tile for K9c);
+// soft_bwd_items_kernel cuts each list into runs of `run` tiles, run =
+// max(1, ceil(kept pairs / kMaxItems)) (one tile a run on the Cornell
+// step's 1,024 tiles, a few on the culled mesh), and numbers the runs
+// chunk by chunk: at most kMaxItems + n_chunks items. soft_raster_bwd_kernel
+// runs as many blocks as the card holds at once; block b takes items b,
+// b + blocks, ... Each item: the chunk's rows staged in shared memory
+// (stage_bwd_row: 29 columns, the four derived values, zb), then for each
+// tile of the run, warp w takes the 4 x 8 pixel block w of the 16 x 16
+// tile, a pixel a lane, and walks the chunk's rows: every lane runs the
+// dead test, and a row with a live lane (a ballot) runs pair_bwd on its
+// live lanes; the warp's 29 sums are added across lanes by a reduce-scatter
+// (5 shuffle levels, fixed order) that leaves column k's total in lane k,
+// which adds it to the warp's (row, column) sum in shared memory. A warp
+// on a compact pixel block keeps its lanes busy: on the mesh step 8.7% of
+// (warp, row) units have a live lane and 79% of their lanes are live
+// (with a row a lane and the pixels in turn, ~25%). The block
+// adds its 8 warps in order into the item's (chunk, 32) partial, and
+// soft_raster_bwd_sum_kernel adds each chunk's items in run order. Every
+// sum has a fixed order, so two calls give the same bits, and K9c is K9d
+// with every tile kept: the same items and sums, bit for bit.
+//
+// Scratch (raytpu_soft_raster_bwd_scratch): the lists (n_chunks n_tiles
+// ints), the kept counts, item offsets and item chunks, and the partials,
+// (kMaxItems + n_chunks) x chunk x 32 floats: 9.6 MB at 288 chunks of 32,
+// 8.4 MB for one chunk; the lists 1.2 MB at 288 chunks and 1,024 tiles.
+
+constexpr int kBwdWarps = kThreads / 32;    // warps a block: 8
+constexpr int kBlockRowsPx = 4;             // a warp's pixel block: 4 x 8
+constexpr int kBlockColsPx = 8;
+constexpr int kRowStride = 40;              // floats a staged row
+constexpr int kMaxItems = 2048;             // runs of kept tiles, about
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr float kDeadBelow = -110.0f;       // B - m below this: w = 0
+constexpr float kTame = 0x1p40f;            // inputs a dead pair may have
+constexpr float kZSlack = 0x1.0001p0f;      // 1 + 2^-16
+constexpr float kZFloor = 0x1p-99f;
+
+// A row staged for the backward: q[0..28] its used columns, q[32..35] the
+// four derived values (derive), q[36] zb (NaN where the row may not be
+// found dead).
+__device__ __forceinline__ void stage_bwd_row(const float* src, float es,
+                                              float zs, float* q) {
+  bool tame = fabsf(es) <= kTame && fabsf(zs) <= kTame;
 #pragma unroll
-  for (int k = 0; k < kUsed; ++k) acc[k] = 0.0f;
-  if (i < chunk) {
-    float c[kUsed], d[kDerived];
-    const float* row = consts + (static_cast<size_t>(ch) * chunk + i) * kCols;
-#pragma unroll
-    for (int k = 0; k < kUsed; ++k) c[k] = row[k];
-    derive(c, d);
-    for (int t = group; t < n_tiles; t += groups) {
-      if (kMasked && mask[static_cast<size_t>(t) * n_chunks + ch] == 0) {
-        continue;
-      }
-      const int tx = (t % tiles_x) * kTile, ty = (t / tiles_x) * kTile;
-      for (int p = slice; p < kTile * kTile; p += kSlices) {
-        const int x = tx + p % kTile, y = ty + p / kTile;
-        if (x >= W || y >= H) continue;
-        const size_t r = static_cast<size_t>(y) * W + x;
-        float da[kCh];
-#pragma unroll
-        for (int j = 0; j < kCh; ++j) da[j] = cot[(1 + j) * R + r];
-        pair_bwd(c, d, static_cast<float>(x), static_cast<float>(y0 + y),
-                 m[r], cot[r], da, es, zs, acc);
-      }
-    }
+  for (int k = 0; k < kUsed; ++k) {
+    q[k] = src[k];
+    tame &= fabsf(q[k]) <= kTame;
   }
+  derive(q, q + 32);
+  tame &= (q[28] + 1e-20f) != 0.0f;
+  const float zabs = fmaxf(fmaxf(fabsf(q[10]), fabsf(q[11])), fabsf(q[12]));
+  const float zb = fmaxf((fabsf(zs) * zabs) * kZSlack, kZFloor);
+  q[36] = tame ? zb : CUDART_NAN_F;
+}
+
+// True where pair_bwd of a pair would add only +-0 (above): q the staged
+// row, xs = es sd from the pair's soft_dist (which pair_bwd goes on from),
+// mt the pixel's saved max, or NaN for a pixel whose cotangents may not be
+// skipped.
+__device__ __forceinline__ bool soft_pair_dead(const float* q, float xs,
+                                               float mt) {
+  const float cap = xs > 0.0f ? 0.0f : xs;
+  return ((q[36] + cap) + q[32]) - mt < kDeadBelow;
+}
+
+// One level of reduce_scatter: a lane keeps the half of g[0, 2 half) its
+// bit `half` selects and adds its partner's copy of that half.
+template <int kHalf>
+__device__ __forceinline__ void scatter_level(float* g, int lane) {
+  const bool hi = (lane & kHalf) != 0;
 #pragma unroll
-  for (int k = 0; k < kUsed; ++k) s_red[slice][i][k] = acc[k];
-  __syncthreads();
-  // The block's partial: its slices added in order; columns 29-31 are 0.
-  float* out = partials + (static_cast<size_t>(group) * Tp +
-                           static_cast<size_t>(ch) * chunk) * kCols;
-  for (int o = slice * kMaxChunk + i; o < chunk * kCols;
-       o += kMaxChunk * kSlices) {
-    const int row = o / kCols, k = o % kCols;
-    float sum = 0.0f;
-    if (k < kUsed) {
-      for (int sl = 0; sl < kSlices; ++sl) sum += s_red[sl][row][k];
-    }
-    out[o] = sum;
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = hi ? g[i] : g[i + kHalf];
+    const float keep = hi ? g[i + kHalf] : g[i];
+    g[i] = keep + __shfl_xor_sync(kFullMask, send, kHalf);
   }
 }
 
-// dc[o] = sum over groups g, in order, of partials[g][o]; o < n = Tp * 32.
-// Thread (x, y) adds groups y, y + kSumSlices, ... of column x; thread
-// (x, 0) then adds the kSumSlices sums in order.
+// Column k of the warp's 32 sums g[0..31] added over its lanes, returned in
+// lane k: five levels, each lane keeping half of what it holds and adding
+// its partner's other half, in a fixed order.
+__device__ __forceinline__ float reduce_scatter(float* g) {
+  const int lane = threadIdx.x & 31;
+  scatter_level<16>(g, lane);
+  scatter_level<8>(g, lane);
+  scatter_level<4>(g, lane);
+  scatter_level<2>(g, lane);
+  scatter_level<1>(g, lane);
+  return g[0];
+}
+
+// Each chunk's kept tiles in tile order (mask null: every tile), a block a
+// chunk: list[ch n_tiles + i] for i < kept[ch].
+__global__ void __launch_bounds__(kThreads)
+    soft_bwd_list_kernel(const int* __restrict__ mask, int n_tiles,
+                         int n_chunks, int* __restrict__ list,
+                         int* __restrict__ kept) {
+  __shared__ int s_warp[kBwdWarps];
+  const int ch = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += kThreads) {
+    const int t = t0 + threadIdx.x;
+    const bool keep =
+        t < n_tiles &&
+        (mask == nullptr || mask[static_cast<size_t>(t) * n_chunks + ch] != 0);
+    const unsigned ballot = __ballot_sync(kFullMask, keep);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kBwdWarps; ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      total += s_warp[w];
+    }
+    if (keep)
+      list[static_cast<size_t>(ch) * n_tiles + base + before +
+           __popc(ballot & ((1u << lane) - 1u))] = t;
+    base += total;
+    __syncthreads();  // s_warp is read
+  }
+  if (threadIdx.x == 0) kept[ch] = base;
+}
+
+// One block: the run length (counts[1]) from the kept pairs, each chunk's
+// first item (off, n_chunks + 1 entries), each item's chunk (item_ch) and
+// the item count (counts[0]). Thread i takes chunks [i span, (i + 1) span).
+__global__ void __launch_bounds__(1024)
+    soft_bwd_items_kernel(const int* __restrict__ kept, int n_chunks,
+                          int* __restrict__ off, int* __restrict__ item_ch,
+                          int* __restrict__ counts) {
+  __shared__ long long s_sum[1024];
+  __shared__ int s_run;
+  const int tid = threadIdx.x;
+  const int span = (n_chunks + 1023) / 1024;
+  const int lo = tid * span < n_chunks ? tid * span : n_chunks;
+  const int hi = lo + span < n_chunks ? lo + span : n_chunks;
+  long long pairs = 0;
+  for (int ch = lo; ch < hi; ++ch) pairs += kept[ch];
+  s_sum[tid] = pairs;
+  __syncthreads();
+  if (tid == 0) {
+    long long total = 0;
+    for (int i = 0; i < 1024; ++i) total += s_sum[i];
+    const long long run = (total + kMaxItems - 1) / kMaxItems;
+    s_run = run > 1 ? static_cast<int>(run) : 1;
+  }
+  __syncthreads();
+  const int run = s_run;
+  int items = 0;
+  for (int ch = lo; ch < hi; ++ch) items += (kept[ch] + run - 1) / run;
+  __syncthreads();  // s_sum is read
+  s_sum[tid] = items;
+  __syncthreads();
+  if (tid == 0) {  // exclusive prefix over the threads, in order
+    long long acc = 0;
+    for (int i = 0; i < 1024; ++i) {
+      const long long v = s_sum[i];
+      s_sum[i] = acc;
+      acc += v;
+    }
+    counts[0] = static_cast<int>(acc);
+    counts[1] = run;
+    off[n_chunks] = static_cast<int>(acc);
+  }
+  __syncthreads();
+  int at = static_cast<int>(s_sum[tid]);
+  for (int ch = lo; ch < hi; ++ch) {
+    off[ch] = at;
+    const int n = (kept[ch] + run - 1) / run;
+    for (int j = 0; j < n; ++j) item_ch[at + j] = ch;
+    at += n;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    soft_raster_bwd_kernel(const float* __restrict__ consts, int chunk,
+                           int H, int W, int y0, float es, float zs,
+                           const float* __restrict__ m,
+                           const float* __restrict__ cot, int n_tiles,
+                           const int* __restrict__ list,
+                           const int* __restrict__ kept,
+                           const int* __restrict__ off,
+                           const int* __restrict__ item_ch,
+                           const int* __restrict__ counts,
+                           float* __restrict__ partials) {
+  __shared__ float s_row[kMaxChunk][kRowStride];
+  __shared__ float s_acc[kBwdWarps][kMaxChunk][kCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_items = counts[0], run = counts[1];
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const size_t R = static_cast<size_t>(H) * W;
+  const int bx = (warp % (kTile / kBlockColsPx)) * kBlockColsPx +
+                 lane % kBlockColsPx;
+  const int by = (warp / (kTile / kBlockColsPx)) * kBlockRowsPx +
+                 lane / kBlockColsPx;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const int ch = item_ch[it];
+    const int q0 = (it - off[ch]) * run;
+    const int q1 = q0 + run < kept[ch] ? q0 + run : kept[ch];
+    __syncthreads();  // the previous item's rows and sums are read
+    if (threadIdx.x < chunk)
+      stage_bwd_row(consts + (static_cast<size_t>(ch) * chunk + threadIdx.x) *
+                                 kCols,
+                    es, zs, s_row[threadIdx.x]);
+    for (int o = threadIdx.x; o < kBwdWarps * kMaxChunk * kCols;
+         o += kThreads)
+      (&s_acc[0][0][0])[o] = 0.0f;
+    __syncthreads();
+    for (int q = q0; q < q1; ++q) {
+      const int t = list[static_cast<size_t>(ch) * n_tiles + q];
+      const int x = (t % tiles_x) * kTile + bx;
+      const int y = (t / tiles_x) * kTile + by;
+      const bool valid = x < W && y < H;
+      const size_t r = valid ? static_cast<size_t>(y) * W + x : 0;
+      float mp = 0.0f, ds = 0.0f, da[kCh];
+      bool tame = valid;
+#pragma unroll
+      for (int j = 0; j < kCh; ++j) da[j] = 0.0f;
+      if (valid) {
+        mp = m[r];
+        ds = cot[r];
+        tame &= fabsf(ds) <= kTame;
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          da[j] = cot[(1 + j) * R + r];
+          tame &= fabsf(da[j]) <= kTame;
+        }
+      }
+      const float mt = tame ? mp : CUDART_NAN_F;
+      const float px = static_cast<float>(x),
+                  py = static_cast<float>(y0 + y);
+      for (int i = 0; i < chunk; ++i) {
+        const float* qr = s_row[i];
+        const SoftDist sdist = soft_dist(qr, qr + 32, px, py);
+        const float xs = es * sdist.sd;
+        const bool live = valid && !soft_pair_dead(qr, xs, mt);
+        if (__ballot_sync(kFullMask, live) == 0u) continue;
+        float g[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) g[k] = 0.0f;
+        if (live)
+          pair_bwd(qr, qr + 32, sdist, xs, px, py, mp, ds, da, es, zs, g);
+        const float total = reduce_scatter(g);
+        if (lane < kUsed) s_acc[warp][i][lane] += total;
+      }
+    }
+    __syncthreads();
+    // The item's partial: the block's warps added in order.
+    float* out = partials + static_cast<size_t>(it) * chunk * kCols;
+    for (int o = threadIdx.x; o < chunk * kCols; o += kThreads) {
+      const int row = o / kCols, k = o % kCols;
+      float sum = 0.0f;
+      for (int w = 0; w < kBwdWarps; ++w) sum += s_acc[w][row][k];
+      out[o] = sum;
+    }
+  }
+}
+
+// dc[o] (o < Tp 32, row o / 32 of chunk ch): the sum over ch's items, in
+// run order, of their partials' entry. Thread (x, y) adds items y,
+// y + kSumSlices, ... of entry x; thread (x, 0) then adds the kSumSlices
+// sums in order. A chunk with no item gets +0.
 __global__ void __launch_bounds__(32 * kSumSlices)
-    soft_raster_bwd_sum_kernel(const float* __restrict__ partials, int groups,
+    soft_raster_bwd_sum_kernel(const float* __restrict__ partials,
+                               const int* __restrict__ off, int chunk,
                                int n, float* __restrict__ dc) {
   __shared__ float s_sum[kSumSlices][33];
   const int o = blockIdx.x * 32 + threadIdx.x;
   float acc = 0.0f;
   if (o < n) {
-    for (int g = threadIdx.y; g < groups; g += kSumSlices) {
-      acc += partials[static_cast<size_t>(g) * n + o];
-    }
+    const int ch = o / (chunk * kCols), e = o % (chunk * kCols);
+    for (int j = off[ch] + threadIdx.y; j < off[ch + 1]; j += kSumSlices)
+      acc += partials[static_cast<size_t>(j) * chunk * kCols + e];
   }
   s_sum[threadIdx.y][threadIdx.x] = acc;
   __syncthreads();
@@ -512,6 +770,42 @@ __global__ void __launch_bounds__(32 * kSumSlices)
   float total = 0.0f;
   for (int sl = 0; sl < kSumSlices; ++sl) total += s_sum[sl][threadIdx.x];
   dc[o] = total;
+}
+
+// The backward's scratch, carved from one buffer in this order, each part
+// aligned to 16 bytes.
+struct BwdScratch {
+  int* list;
+  int* kept;
+  int* off;
+  int* item_ch;
+  int* counts;
+  float* partials;
+  size_t bytes;
+};
+
+size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+BwdScratch bwd_scratch(void* base, int n_chunks, int n_tiles, int chunk) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    const uintptr_t q = p + at;
+    at += align16(n);
+    return q;
+  };
+  const size_t items = static_cast<size_t>(kMaxItems) + n_chunks;
+  BwdScratch sc;
+  sc.list = reinterpret_cast<int*>(
+      take(static_cast<size_t>(n_chunks) * n_tiles * sizeof(int)));
+  sc.kept = reinterpret_cast<int*>(take(n_chunks * sizeof(int)));
+  sc.off = reinterpret_cast<int*>(take((n_chunks + 1) * sizeof(int)));
+  sc.item_ch = reinterpret_cast<int*>(take(items * sizeof(int)));
+  sc.counts = reinterpret_cast<int*>(take(4 * sizeof(int)));
+  sc.partials = reinterpret_cast<float*>(
+      take(items * chunk * kCols * sizeof(float)));
+  sc.bytes = at;
+  return sc;
 }
 
 bool bad_shape(int Tp, int chunk, int H, int W) {
@@ -548,38 +842,59 @@ extern "C" int raytpu_soft_raster_fwd(const void* consts, int Tp, int chunk,
   return (int)cudaGetLastError();
 }
 
+static int n_tiles_of(int H, int W) {
+  return ((W + kTile - 1) / kTile) * ((H + kTile - 1) / kTile);
+}
+
+// The bytes of the backward's scratch for these shapes, or -1 if the
+// kernels refuse them.
+extern "C" long long raytpu_soft_raster_bwd_scratch(int Tp, int chunk, int H,
+                                                    int W) {
+  if (bad_shape(Tp, chunk, H, W)) return -1;
+  return static_cast<long long>(
+      bwd_scratch(nullptr, Tp / chunk, n_tiles_of(H, W), chunk).bytes);
+}
+
 // consts and mask as for raytpu_soft_raster_fwd (mask null for K9c); m (H *
-// W,) and cot (11, H * W) float32; partials (groups, Tp, 32) float32
-// scratch; dc (Tp, 32) float32 output, every entry written. Launches K9c or
-// K9d and the sum over groups on `stream`; returns the first cudaError_t.
+// W,) and cot (11, H * W) float32; scratch (scratch_bytes, at least what
+// raytpu_soft_raster_bwd_scratch gives); dc (Tp, 32) float32 output, every
+// entry written. Launches the lists, the items, K9c or K9d and the sum over
+// items on `stream`, never synchronises, and returns the first cudaError_t.
 extern "C" int raytpu_soft_raster_bwd(const void* consts, int Tp, int chunk,
                                       const void* mask, int H, int W, int y0,
                                       float es, float zs, const void* m,
-                                      const void* cot, int groups,
-                                      void* partials, void* dc,
+                                      const void* cot, void* scratch,
+                                      long long scratch_bytes, void* dc,
                                       void* stream) {
-  if (bad_shape(Tp, chunk, H, W) || groups < 1) {
+  if (bad_shape(Tp, chunk, H, W)) return (int)cudaErrorInvalidValue;
+  const int n_chunks = Tp / chunk, n_tiles = n_tiles_of(H, W);
+  const BwdScratch sc = bwd_scratch(scratch, n_chunks, n_tiles, chunk);
+  if (scratch == nullptr || scratch_bytes < (long long)sc.bytes)
     return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid(Tp / chunk, groups);
-  const dim3 block(kMaxChunk, kSlices);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(consts);
-  const int* mk = static_cast<const int*>(mask);
-  const float *mp = static_cast<const float*>(m),
-              *cp = static_cast<const float*>(cot);
-  float* part = static_cast<float*>(partials);
-  if (mk == nullptr) {
-    soft_raster_bwd_kernel<false><<<grid, block, 0, st>>>(
-        c, Tp, chunk, mk, H, W, y0, es, zs, mp, cp, groups, part);
-  } else {
-    soft_raster_bwd_kernel<true><<<grid, block, 0, st>>>(
-        c, Tp, chunk, mk, H, W, y0, es, zs, mp, cp, groups, part);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  soft_bwd_list_kernel<<<n_chunks, kThreads, 0, st>>>(
+      static_cast<const int*>(mask), n_tiles, n_chunks, sc.list, sc.kept);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  soft_bwd_items_kernel<<<1, 1024, 0, st>>>(sc.kept, n_chunks, sc.off,
+                                            sc.item_ch, sc.counts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // Persistent blocks: as many as fit on the card at once.
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, soft_raster_bwd_kernel, kThreads, 0)) != cudaSuccess)
+    return (int)err;
+  soft_raster_bwd_kernel<<<sms * (per_sm > 0 ? per_sm : 1), kThreads, 0,
+                           st>>>(
+      static_cast<const float*>(consts), chunk, H, W, y0, es, zs,
+      static_cast<const float*>(m), static_cast<const float*>(cot), n_tiles,
+      sc.list, sc.kept, sc.off, sc.item_ch, sc.counts, sc.partials);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int n = Tp * kCols;
   soft_raster_bwd_sum_kernel<<<(n + 31) / 32, dim3(32, kSumSlices), 0, st>>>(
-      part, groups, n, static_cast<float*>(dc));
+      sc.partials, sc.off, chunk, n, static_cast<float*>(dc));
   return (int)cudaGetLastError();
 }

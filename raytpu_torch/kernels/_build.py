@@ -48,9 +48,10 @@ SIGNATURES = {
     # dirs, table, cam, light, C, R, planar, t, idx, occ, stream
     "raytpu_closest_hit_occluded": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                                     _P],
-    # dirs, table, cam, src, C, S, R, t, idx, occ, stream
+    # dirs, table, cam, src, C, S, R, t, idx, occ, tris, scratch_bytes,
+    # staged, stream
     "raytpu_closest_hit_occluded_multi": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                          _P, _P],
+                                          _P, _P, _L, _I, _P],
     # dirs, table, Tp, C, mask (or null), H, W, th, t, idx, stream
     "raytpu_closest_hit": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     # dirs, table, Tp, C, cam, src, S, mask, H, W, th, t, idx, occ, scratch,
@@ -73,10 +74,12 @@ SIGNATURES = {
     # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, agg, m, s, stream
     "raytpu_soft_raster_fwd": [_P, _I, _I, _P, _I, _I, _I, _F, _F, _P, _P,
                                _P, _P],
-    # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, m, cot, groups,
-    # partials, dc, stream
+    # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, m, cot, scratch,
+    # scratch_bytes, dc, stream
     "raytpu_soft_raster_bwd": [_P, _I, _I, _P, _I, _I, _I, _F, _F, _P, _P,
-                               _I, _P, _P, _P],
+                               _P, _L, _P, _P],
+    # Tp, chunk, H, W: the backward's scratch bytes (-1: refused)
+    "raytpu_soft_raster_bwd_scratch": [_I, _I, _I, _I],
     # consts, Tp, chunk, cam, dirs, R, mask (or null), H, W, th, es, zs,
     # out, m, s, stream
     "raytpu_soft_rt_pri_fwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
@@ -133,6 +136,7 @@ SIGNATURES = {
 }
 
 RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L,
+            "raytpu_soft_raster_bwd_scratch": _L,
             "raytpu_soft_rt_shw_scratch": _L}
 
 _lib: ctypes.CDLL | None = None

@@ -221,13 +221,41 @@ def launch_occluded_kernel(dirs, table, cam, light, t, idx, occ, *,
                            f"{err}")
 
 
-def launch_occluded_multi_kernel(dirs, table, cam, src, t, idx, occ):
-    """Launch K6 on outputs the caller allocated: t (R,), idx (R,) and occ
-    (S, R). Checks nothing and counts nothing; the wrapper does both."""
+# K6 stages its triangle-major copy of the sources' constants (48 bytes a
+# triangle) in shared memory where it takes at most this many bytes, and
+# reads it from device memory through the read-only cache above
+# (csrc/intersect.cu). On the H100 at 512^2, C = 32, staging was the faster
+# at 96 KB (S = 64), where two blocks share an SM, and the slower at 144
+# and 192 KB (chip_smoke.py::k6_staging_ms; times in PERF.md).
+K6_STAGED_MAX_BYTES = 96 * 1024
+
+
+def k6_staged(S: int, C: int) -> bool:
+    """Whether K6 stages the S sources' C triangles in shared memory."""
+    return 48 * S * C <= K6_STAGED_MAX_BYTES
+
+
+def k6_scratch(table, src) -> torch.Tensor:
+    """A fresh scratch buffer for one K6 call (uint8, on src's device): the
+    triangle-major copy of the S sources' C triangles, 48 bytes each."""
+    return torch.empty((48 * src.shape[0] * table.shape[1],),
+                       dtype=torch.uint8, device=src.device)
+
+
+def launch_occluded_multi_kernel(dirs, table, cam, src, t, idx, occ, *,
+                                 scratch, staged: bool | None = None):
+    """Launch K6 (and the triangle-major copy of the sources' constants it
+    reads) on outputs the caller allocated: t (R,), idx (R,) and occ
+    (S, R), with ``scratch`` (:func:`k6_scratch`) for the copy;
+    ``staged`` None takes k6_staged's choice. Checks nothing and counts
+    nothing; the wrapper does both."""
+    S, C = src.shape[0], table.shape[1]
+    if staged is None:
+        staged = k6_staged(S, C)
     err = _build.load().raytpu_closest_hit_occluded_multi(
         dirs.data_ptr(), table.data_ptr(), cam.data_ptr(), src.data_ptr(),
-        table.shape[1], src.shape[0], dirs.shape[0], t.data_ptr(),
-        idx.data_ptr(), occ.data_ptr(),
+        C, S, dirs.shape[0], t.data_ptr(), idx.data_ptr(), occ.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), int(staged),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"closest_hit_occluded_multi launch failed: CUDA "
@@ -299,8 +327,13 @@ def closest_hit_occluded_multi(dirs, m, k0, valid, m_s, k0_s, cam_pos,
     closest_hit_occluded_multi_reference."""
     global LAUNCHES_OCCLUDED_MULTI
     table = occluded_table(m, k0, valid, m_s, k0_s, tri_chunk)
+
+    def launch(*args):
+        launch_occluded_multi_kernel(*args, scratch=k6_scratch(table,
+                                                               src_pos))
+
     out = _sweeps(dirs, table, cam_pos.contiguous(), src_pos.contiguous(),
-                  launch_occluded_multi_kernel, mask_misses=True)
+                  launch, mask_misses=True)
     if dirs.is_cuda:
         LAUNCHES_OCCLUDED_MULTI += 1
     return out

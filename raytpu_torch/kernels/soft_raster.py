@@ -36,6 +36,8 @@ depend on it (soft_raster_pallas.py:20-27).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from raytpu_torch.core.types import pixel_grid
@@ -44,7 +46,8 @@ from raytpu_torch.kernels.raster import TILE, _route
 
 # Launches of each CUDA kernel in this process, counted by its wrapper where
 # it launches the kernel and nowhere else. A backward launch is K9c's (or
-# K9d's) per-block pass and the fixed-order sum of its partials.
+# K9d's) four kernels: the kept-tile lists, the work items, the pass over
+# the items and the fixed-order sum of their partials.
 LAUNCHES_SOFT_FWD = 0          # K9a, by soft_agg_fwd without a mask
 LAUNCHES_SOFT_FWD_MASKED = 0   # K9b, by soft_agg_fwd with a mask
 LAUNCHES_SOFT_BWD = 0          # K9c, by soft_agg_bwd without a mask
@@ -60,9 +63,17 @@ CULL_MARGIN = 46.0
 # its 1,024-pixel tiles (trap: 500^2 does not, 512^2 does); the port keeps
 # that decision, though its own tiles are 16 x 16.
 JAX_TILE_P = 1024
-# Backward grid: about this many blocks in all (8 per SM of an H100), split
-# over the chunks; each block takes every groups-th pixel tile.
-BWD_BLOCKS = 132 * 8
+# K9c and K9d stop a (pixel, row) pair whose logit bound lies more than
+# this below the pixel's saved max: its weight is exactly 0 (float32 expf
+# underflows to 0 below about -103.97; soft_dead_pairs,
+# csrc/soft_raster.cu::soft_pair_dead). Only rows and pixels whose inputs
+# lie within TAME in magnitude qualify, so that no 0 * inf arises. zb, the
+# bound of zs * zpx, is |zs| max|zinv| times Z_SLACK (above the 8 ulps of
+# rounding zpx can gather), at least Z_FLOOR.
+DEAD_BELOW = -110.0
+TAME = 2.0 ** 40
+Z_SLACK = 1.0 + 2.0 ** -16
+Z_FLOOR = 2.0 ** -99
 
 
 def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
@@ -277,8 +288,8 @@ def soft_agg_reference(consts, coords, mask, es: float, zs: float,
 
 
 def soft_agg_bwd_reference(consts, coords, mask, m, cot, es: float,
-                           zs: float, chunk: int,
-                           branches_from=None) -> torch.Tensor:
+                           zs: float, chunk: int, branches_from=None,
+                           drop=None) -> torch.Tensor:
     """Plain PyTorch version of K9c (mask None) and K9d, on any device and
     in any float type: each chunk recomputed at the saved m (R,), a
     constant, and differentiated by autograd against the cotangent rows cot
@@ -287,7 +298,8 @@ def soft_agg_bwd_reference(consts, coords, mask, m, cot, es: float,
 
     branches_from: None, or a float32 table of the same rows whose branch
     decisions (Kinks) the evaluation takes, for a float64 reference of the
-    float32 kernel."""
+    float32 kernel. drop: None, or (Tp, R) bool pairs left out as a mask
+    leaves them out (the tests' model of the kernels' skipped pairs)."""
     px, py = coords[0], coords[1]
     dc = torch.zeros_like(consts)
     n_chunks = consts.shape[0] // chunk
@@ -308,10 +320,78 @@ def soft_agg_bwd_reference(consts, coords, mask, m, cot, es: float,
             w = torch.exp(logit - m)
             if mask is not None:
                 w = torch.where(mask[c], w, 0.0)
+            if drop is not None:
+                w = torch.where(drop[rows], 0.0, w)
             outs = [w.sum(dim=0)] + [(w * v).sum(dim=0) for v in vals]
             (dc[rows],) = torch.autograd.grad(
                 outs, cs, grad_outputs=list(cot))
     return dc
+
+
+def soft_logit_bound(cs, coords, es: float, zs: float) -> torch.Tensor:
+    """The bound B >= logit of K9c's and K9d's dead test
+    (csrc/soft_raster.cu::soft_pair_dead) in its operations' order, (C, P)
+    float32: ``B = (zb + min(es sd, 0)) + log(valid + 1e-20)``, sd the
+    kernels' own signed distance (soft_dist: half-plane values inside,
+    minus the distance to the nearest edge segment outside) and zb >= zs *
+    zpx for any barycentrics of the row. cs (C, 32) rows, coords (2, P)
+    pixel x, y. NaN on a row that may not be found dead: a used column, es
+    or zs beyond TAME in magnitude (or not finite), or valid + 1e-20 = 0."""
+    def col(j):
+        return cs[:, j:j + 1]
+
+    f32 = cs.dtype
+    px, py = coords[0][None, :], coords[1][None, :]
+    ax, ay, bx, by, cx, cy = (col(j) for j in range(6))
+
+    def edge_raw(x0, y0, x1, y1):
+        return (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
+
+    def seg2(x0, y0, x1, y1):
+        ex, ey = x1 - x0, y1 - y0
+        rec = 1.0 / ((ex * ex + ey * ey) + 1e-12)
+        t = torch.fmin(torch.fmax(((px - x0) * ex + (py - y0) * ey) * rec,
+                                  torch.zeros((), dtype=f32)),
+                       torch.ones((), dtype=f32))
+        dx = px - (x0 + t * ex)
+        dy = py - (y0 + t * ey)
+        return (dx * dx + dy * dy) + 1e-20
+
+    # fminf and fmaxf drop a NaN operand; torch.fmin and fmax do too.
+    hp = torch.fmin(torch.fmin(edge_raw(ax, ay, bx, by) * col(6),
+                               edge_raw(bx, by, cx, cy) * col(7)),
+                    edge_raw(cx, cy, ax, ay) * col(8))
+    smin = _sqrt_f32(torch.fmin(torch.fmin(seg2(ax, ay, bx, by),
+                                           seg2(bx, by, cx, cy)),
+                                seg2(cx, cy, ax, ay)))
+    xs = es * torch.where(hp >= 0.0, hp, -smin)
+    cap = torch.where(xs > 0.0, 0.0, xs)  # keeps a NaN xs, as the kernels
+    tame = math.isfinite(es) and math.isfinite(zs) and \
+        abs(es) <= TAME and abs(zs) <= TAME
+    row_ok = (cs[:, :29].abs() <= TAME).all(dim=1, keepdim=True) \
+        & ((col(28) + 1e-20) != 0.0) & tame
+    zabs = cs[:, 10:13].abs().max(dim=1, keepdim=True).values
+    zb = torch.fmax((abs(zs) * zabs) * Z_SLACK,
+                    torch.full_like(zabs, Z_FLOOR))
+    zb = torch.where(row_ok, zb, float("nan"))
+    return (zb + cap) + torch.log(col(28) + 1e-20)
+
+
+def soft_dead_pairs(cs, coords, m, cot, es: float,
+                    zs: float) -> torch.Tensor:
+    """Plain PyTorch form of K9c's and K9d's early-out
+    (csrc/soft_raster.cu::soft_pair_dead) in its operations' order, for
+    the tests and chip_smoke.py; the kernels' route never calls it. cs
+    (C, 32) float32 rows of the table, coords (2, P) pixel x, y, m (P,) the
+    forward's saved max, cot (11, P) the cotangent rows. Returns (C, P)
+    bool, True where soft_logit_bound's B lies more than DEAD_BELOW below
+    m: the pair's weight exp(logit - m) is then exactly 0, and every term
+    it would add is +-0, since only tame rows (soft_logit_bound) and pixels
+    whose 11 cotangents lie within TAME in magnitude qualify. A NaN in B or
+    m marks nothing."""
+    pix_ok = (cot.abs() <= TAME).all(dim=0)[None, :]
+    mt = torch.where(pix_ok, m[None, :], float("nan"))
+    return soft_logit_bound(cs, coords, es, zs) - mt < DEAD_BELOW
 
 
 def pixel_coords(H: int, W: int, device, dtype=torch.float32, y0: int = 0):
@@ -375,22 +455,28 @@ def launch_fwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
         raise RuntimeError(f"soft_raster_fwd launch failed: CUDA error {err}")
 
 
-def bwd_groups(n_chunks: int, H: int, W: int) -> int:
-    """The backward's pixel-tile groups a chunk: BWD_BLOCKS blocks spread
-    over the chunks, at most one group a tile."""
-    n_tiles = -(-H // TILE) * -(-W // TILE)
-    return max(1, min(n_tiles, -(-BWD_BLOCKS // n_chunks)))
+def bwd_scratch(consts, H: int, W: int, chunk: int) -> torch.Tensor:
+    """A fresh scratch buffer for one K9c or K9d call (uint8, on consts'
+    device), sized by the kernels' library
+    (csrc/soft_raster.cu::bwd_scratch: the kept-tile lists, the work items
+    and their partials)."""
+    n = _build.load().raytpu_soft_raster_bwd_scratch(consts.shape[0], chunk,
+                                                     H, W)
+    if n < 0:
+        raise ValueError(f"K9c/K9d take no table of {consts.shape[0]} rows "
+                         f"in chunks of {chunk} on {H} x {W} pixels")
+    return torch.empty((n,), dtype=torch.uint8, device=consts.device)
 
 
 def launch_bwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
-                      zs: float, m, cot, partials, dc, y0: int = 0) -> None:
-    """Launch K9c (mask None) or K9d and the sum of its partials (groups,
-    Tp, 32) into dc (Tp, 32), all allocated by the caller. Checks nothing
-    and counts nothing; the wrapper does both."""
+                      zs: float, m, cot, dc, y0: int = 0, *,
+                      scratch) -> None:
+    """Launch K9c (mask None) or K9d into dc (Tp, 32), allocated by the
+    caller, with ``scratch`` (:func:`bwd_scratch`). Checks nothing and
+    counts nothing; the wrapper does both."""
     err = _build.load().raytpu_soft_raster_bwd(
         consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, y0, es,
-        zs,
-        m.data_ptr(), cot.data_ptr(), partials.shape[0], partials.data_ptr(),
+        zs, m.data_ptr(), cot.data_ptr(), scratch.data_ptr(), scratch.numel(),
         dc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"soft_raster_bwd launch failed: CUDA error {err}")
@@ -437,14 +523,11 @@ def soft_agg_bwd(consts: torch.Tensor, m: torch.Tensor, cot: torch.Tensor,
             None if mask is None else expand_mask(mask, H, W), m, cot, es,
             zs, chunk)
     _check(consts, H, W, chunk, mask, m, cot)
-    Tp = consts.shape[0]
-    groups = bwd_groups(Tp // chunk, H, W)
-    partials = torch.empty((groups, Tp, CONST_COLS), dtype=torch.float32,
-                           device=consts.device)
     dc = torch.empty_like(consts)
+    scratch = bwd_scratch(consts, H, W, chunk)
     with torch.cuda.device(consts.device):
-        launch_bwd_kernel(consts, H, W, chunk, mask, es, zs, m, cot,
-                          partials, dc, y0)
+        launch_bwd_kernel(consts, H, W, chunk, mask, es, zs, m, cot, dc, y0,
+                          scratch=scratch)
     if mask is None:
         LAUNCHES_SOFT_BWD += 1
     else:

@@ -275,6 +275,100 @@ def test_intersect_wrapper_checks_its_inputs(cuda):
                                          cam.cpu(), src)
 
 
+def _k6_torus_inputs(device, quads, size, n_src, seed=3):
+    """K6's arguments on the procedural torus of 2 x quads triangles at
+    size^2 (the render --stl camera nudged off x = 0, focal size: rays
+    through the hole and past the rim miss) with n_src shadow sources
+    drawn with numpy above it."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.core.types import pixel_grid
+    from raytpu_torch.ops.intersect import tri_constants
+    from raytpu_torch.render.raytrace import camera_ray_dirs
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/torus.stl"
+        with open(path, "w") as f:
+            f.write(procedural_stl_text(*quads))
+        scene = load_stl(path, device=device)
+    camera = Camera.make((0.0123, -0.5, -5.0), focal=float(size),
+                         device=device)
+    cfg = RenderConfig(width=size, height=size)
+    xs, ys = pixel_grid(size, size, device)
+    dirs = camera_ray_dirs(xs, ys, camera, cfg)
+    rng = np.random.default_rng(seed)
+    src = torch.tensor((np.array([0.0, -1.5, -3.0], np.float32)
+                        + rng.uniform(-0.6, 0.6, (n_src, 3))).astype(
+                            np.float32), device=device)
+    c = tri_constants(scene, camera.pos)
+    cs = tri_constants(scene, src)
+    return dirs, c.m, c.k0, c.valid, cs.m, cs.k0, camera.pos, src
+
+
+@pytest.mark.parametrize("n_src,staged", [
+    (48, None), (48, False), (4, None), (4, True), (4, False)])
+def test_k6_at_128_triangles_on_a_frame_with_misses(cuda, n_src, staged):
+    """K6 at C = 128 on a frame with misses: S = 48 (288 KB of
+    triangle-major constants, more than a block's shared memory holds, so
+    the wrapper reads them from device memory and staging them is
+    refused) and S = 4 (24 KB: staged), each also forced either way. t,
+    idx and occ equal the plain version bit for bit, occ is 0 on a miss,
+    and two calls are identical."""
+    from raytpu_torch.kernels import intersect as isect
+    args = _k6_torus_inputs(cuda, (8, 8), 96, n_src)
+    dirs, cam, src = args[0], args[6], args[7]
+    table = isect.occluded_table(*args[1:6], 512)
+    assert table.shape[1] == 128
+    assert isect.k6_staged(n_src, 128) == (n_src == 4)
+
+    def run():
+        if staged is None:
+            before = isect.LAUNCHES_OCCLUDED_MULTI
+            out = isect.closest_hit_occluded_multi(*args)
+            assert isect.LAUNCHES_OCCLUDED_MULTI == before + 1
+            return out
+        out = isect._outputs(dirs, n_src)
+        isect.launch_occluded_multi_kernel(
+            dirs, table, cam, src, *out,
+            scratch=isect.k6_scratch(table, src), staged=staged)
+        return out
+
+    got, again = run(), run()
+    want = isect.sweeps_reference(dirs, table, cam, src)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    hit = got[1] >= 0
+    assert 0.05 < float(hit.float().mean()) < 0.95
+    assert not bool(got[2][:, ~hit].any()) and bool(got[2].any())
+    if n_src == 48:
+        with pytest.raises(RuntimeError):
+            isect.launch_occluded_multi_kernel(
+                dirs, table, cam, src, *isect._outputs(dirs, n_src),
+                scratch=isect.k6_scratch(table, src), staged=True)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_k6_staged_and_read_through_at_the_bench_shapes(cuda, staged):
+    """The bench's full-feature sources (2 lights x 16 samples, S = 32) at
+    512^2 on the Cornell box: K6 with its triangle-major copy staged in
+    shared memory and read through the cache, each bit for bit the plain
+    version."""
+    from raytpu_torch.kernels import intersect as isect
+    args = _sweep_inputs(cuda, 512, 2, 16, (-0.5, -0.5))
+    dirs, cam, src = args[0], args[6], args[7]
+    table = isect.occluded_table(*args[1:6], 512)
+    out = isect._outputs(dirs, src.shape[0])
+    isect.launch_occluded_multi_kernel(dirs, table, cam, src, *out,
+                                       scratch=isect.k6_scratch(table, src),
+                                       staged=staged)
+    want = isect.sweeps_reference(dirs, table, cam, src)
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    assert bool(out[2].any())
+
+
 @pytest.mark.parametrize("n_lights,samples,kernel", [
     (1, 1, "LAUNCHES_OCCLUDED"), (2, 4, "LAUNCHES_OCCLUDED_MULTI")])
 def test_loop_branch_on_gpu_matches_cpu(cuda, n_lights, samples, kernel):
@@ -563,6 +657,87 @@ def test_soft_backward_kernels_match_plain_float64(cuda, name):
     assert bool(torch.isfinite(got).all()) and not got[:, 29:].any()
     _assert_groups_close(got, want)
     _assert_groups_close(got, plain32)
+
+
+def _soft_bwd_and_plain(c, mask, cot=None):
+    """K9c/K9d (mask None or not), twice, and the plain float32 and float64
+    backwards on a _soft_case with the forward's saved max under ``mask``."""
+    from raytpu_torch.kernels import soft_raster as sr
+    _, m, _ = sr.soft_agg_fwd(c["consts"], c["H"], c["W"], c["chunk"], mask,
+                              c["es"], c["zs"])
+    cot = _soft_cot(c) if cot is None else cot
+    args = (c["consts"], m, cot, c["H"], c["W"], c["chunk"], mask, c["es"],
+            c["zs"])
+    got, again = sr.soft_agg_bwd(*args), sr.soft_agg_bwd(*args)
+    pix = None if mask is None else sr.expand_mask(mask, c["H"], c["W"])
+    coords = sr.pixel_coords(c["H"], c["W"], c["consts"].device)
+    plain32 = sr.soft_agg_bwd_reference(c["consts"], coords, pix, m, cot,
+                                        c["es"], c["zs"], c["chunk"])
+    want = sr.soft_agg_bwd_reference(
+        c["consts"].double(), coords.double(), pix, m.double(),
+        cot.double(), c["es"], c["zs"], c["chunk"],
+        branches_from=c["consts"])
+    torch.cuda.synchronize()
+    return got, again, plain32, want, m
+
+
+def test_k9d_with_a_tile_that_keeps_every_chunk(cuda):
+    """K9d on the mesh's mask with one tile keeping every chunk (26 runs of
+    one tile on that chunk row's lists): the JAX tests' rule against the
+    plain float32 and float64 backwards by column group, two calls
+    identical; an all-ones mask is K9c bit for bit."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = _soft_case(cuda, "mesh")
+    mask = c["mask"].clone()
+    mask[mask.shape[0] // 2 + 3] = 1
+    assert bool(mask.all(dim=1).any()) and not bool(mask.all())
+    got, again, plain32, want, m = _soft_bwd_and_plain(c, mask)
+    assert torch.equal(got, again)
+    _assert_groups_close(got, want)
+    _assert_groups_close(got, plain32)
+    ones = torch.ones_like(mask)
+    cot = _soft_cot(c, seed=4)
+    args = (c["consts"], m, cot, c["H"], c["W"], c["chunk"])
+    full = sr.soft_agg_bwd(*args, ones, c["es"], c["zs"])
+    plain = sr.soft_agg_bwd(*args, None, c["es"], c["zs"])
+    torch.cuda.synchronize()
+    assert torch.equal(full.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh"])
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+def test_soft_backward_with_non_finite_cotangents(cuda, name, value):
+    """A NaN (an inf) cotangent on a few pixels: the kernel takes every
+    pair of those pixels (its dead test leaves them alone), so the rows
+    with a non-finite entry are exactly the rows of the chunks their tiles
+    keep (every row for K9c), two calls agree bit for bit, and every other
+    row is within the rule of the plain float32 version with those
+    entries 0. (The plain version's own NaN reaches rows a mask drops too:
+    its masked weight 0 times the NaN.)"""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = _soft_case(cuda, name)
+    cot, clean = _soft_cot(c), _soft_cot(c)
+    bad = ((0, 700), (4, 2100), (9, 3333)) if value != value else (
+        (7, 1500),)
+    tiles_x = -(-c["W"] // sr.TILE)
+    touched = torch.zeros(c["consts"].shape[0], dtype=torch.bool,
+                          device=cuda)
+    for row, pixel in bad:
+        cot[row, pixel] = value
+        clean[row, pixel] = 0.0
+        y, x = divmod(pixel, c["W"])
+        tile = (y // sr.TILE) * tiles_x + x // sr.TILE
+        keep = (torch.ones(c["consts"].shape[0] // c["chunk"],
+                           dtype=torch.bool, device=cuda)
+                if c["mask"] is None else c["mask"][tile] != 0)
+        touched |= keep.repeat_interleave(c["chunk"])
+    got, again, _, _, _ = _soft_bwd_and_plain(c, c["mask"], cot)
+    _, _, plain32, _, _ = _soft_bwd_and_plain(c, c["mask"], clean)
+    assert torch.equal((~torch.isfinite(got)).any(dim=1), touched)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if c["mask"] is not None:
+        assert 0 < int(touched.sum()) < touched.numel()
+        _assert_groups_close(got[~touched], plain32[~touched])
 
 
 def test_fit_step_launches_k9a_and_k9c_once(cuda):

@@ -119,6 +119,54 @@ def test_reject_on_every_shadow_test_of_the_torus(frame):
     assert rejected >= 0.999 * (tests - blocking)
 
 
+def test_reject_on_every_shadow_test_of_the_full_feature_frame():
+    """K6's shadow tests on the bench's full-feature Cornell frame at 32^2
+    (the box padded to 32, two lights of 16 jittered samples, S = 32, the
+    first AA sub-ray): the reject rejects no blocking test of any hit ray,
+    and decides nearly all that do not block."""
+    from raytpu_torch.core.cornell import cornell_box
+    from raytpu_torch.core.types import Camera, Lights, RenderConfig
+    from raytpu_torch.core.types import pixel_grid as port_pixel_grid
+    from raytpu_torch.ops.intersect import tri_constants
+    from raytpu_torch.ops.shade import source_positions
+    from raytpu_torch.render.raytrace import (
+        camera_ray_dirs as port_ray_dirs)
+    size = 32
+    scene = cornell_box(pad_to=32, device="cpu")
+    camera = Camera.raytracer_default(device="cpu")
+    cfg = RenderConfig(width=size, height=size, mode="clean")
+    lights = Lights.single(capacity=2, soft_samples=16, device="cpu").add(
+        (0.4, -0.5, -0.7), (1.0, 1.0, 1.0), 7.0,
+        generator=torch.Generator().manual_seed(1))
+    xs, ys = port_pixel_grid(size, size, "cpu")
+    dirs = port_ray_dirs(xs - 0.5, ys - 0.5, camera, cfg)
+    c = tri_constants(scene, camera.pos)
+    src = source_positions(lights, 16)
+    cs = tri_constants(scene, src)
+    table = kernels.occluded_table(c.m, c.k0, c.valid, cs.m, cs.k0,
+                                   cfg.tri_chunk)
+    t, idx, _ = kernels.sweeps_reference(dirs, table, camera.pos, src)
+    hit = idx >= 0
+    pos = camera.pos[None, :] + t[hit][:, None] * dirs[hit]
+    tests = rejected = blocking = 0
+    for s in range(src.shape[0]):
+        m, k0 = kernels._block(table, 1 + s)
+        delta = pos - src[s][None, :]
+        ts, oks = plane_tests(delta, m, k0)
+        blocked = oks & (ts < SHADOW_T)
+        reject = kernels.shadow_reject(delta, m, k0)
+        assert not bool((reject & blocked).any())
+        tests += reject.numel()
+        rejected += int(reject.sum())
+        blocking += int(blocked.sum())
+    print(f"\n{int(hit.sum())} hit rays x 32 sources x 32 triangles: "
+          f"{tests} tests, {blocking} blocking, the reject decides "
+          f"{rejected} ({rejected / tests:.6f})")
+    assert src.shape[0] == 32 and int(hit.sum()) > 0.9 * size * size
+    assert blocking > 100
+    assert rejected >= 0.99 * (tests - blocking)
+
+
 def test_reject_at_the_edges_of_its_argument():
     """Hand-built constants at every edge: no blocking test rejected, both
     verdicts present, and the clear cases decided."""
