@@ -433,10 +433,11 @@ FLOPS_SRT_PRI_CHAIN = (FLOPS_SRT_PRI_BWD - 18 - FLOPS_SRT_PRI_TABLE
                        - FLOPS_SRT_PRI_DIRS)
 FLOPS_SRT_SHW_CHAIN = (FLOPS_SRT_SHW_BWD - 14 - FLOPS_SRT_SHW_TABLE
                        - FLOPS_SRT_SHW_RAYS)
-# K10e and K10f stop a pair that pri_pair_dead proves of weight 0 at its
-# test (csrc/soft_raytrace.cu): the gate (12) and then u and v's dot
-# products (10) and products (2), 1 - u - v (2), the margin's two minima
-# (2), es margin (1), min(xs, 0) (1), B's two adds (2), B - m (1) and the
+# K10e and K10f (and, since their redesign, the fused K10c and K10d) stop
+# a pair that pri_pair_dead proves of weight 0 at its test
+# (csrc/soft_raytrace.cu): the gate (12) and then u and v's dot products
+# (10) and products (2), 1 - u - v (2), the margin's two minima (2), es
+# margin (1), min(xs, 0) (1), B's two adds (2), B - m (1) and the
 # comparison (1): 34, against FLOPS_SRT_PRI_W's 41 for the pairs it does
 # not prove dead.
 FLOPS_SRT_PRI_DEAD = FLOPS_SRT_PRI_GATE + 22
@@ -1475,7 +1476,10 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
     a ray, the table's gradient out; shadow: 12 B a point and 4 B a
     (source, point) each way, 8 B in and 12 B out backward; masked, the
     keep-mask read once too), against the operations of FLOPS_SRT_*: the
-    gate alone for a gated pair or triple. The shadow kernels as
+    gate alone for a gated pair or triple. The primary backward as
+    redesigned: a pair primary_dead_pairs proves dead 34
+    (FLOPS_SRT_PRI_DEAD), another the gate passes 41 (_W) and, where its
+    weight is not 0, the derivative and its sums (_BWD). The shadow kernels as
     redesigned: 1e-3 |n| and 0.99 rr once a row and a point for each
     source ((Tp + R) S), a gated triple 10 operations
     (FLOPS_SRT_SHW_STAGED_GATE); forward, a triple the test skips 35
@@ -1494,7 +1498,8 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
                             + FLOPS_SRT_PRI_SUMS * w["live_p"]),
         "pri_bwd": bound_ms(R * 68 + Tp * 256 + 24 + pmask,
                             FLOPS_SRT_PRI_GATE * w["gated_p"]
-                            + FLOPS_SRT_PRI_W * hit_p
+                            + FLOPS_SRT_PRI_DEAD * w["dead_p"]
+                            + FLOPS_SRT_PRI_W * (hit_p - w["dead_p"])
                             + FLOPS_SRT_PRI_BWD * w["live_p"]),
         "shw_fwd": bound_ms(R * (12 + 4 * S) + Tp * 64 + 12 * S + smask,
                             (Tp + R) * S
@@ -1510,6 +1515,81 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
                             * (w["act_s"] - w["act_gated_s"] - w["dead_s"])
                             + FLOPS_SRT_SHW_BWD * w["live_s"]),
     }
+
+
+def pri_item_work(c, m, masked: bool = False) -> dict:
+    """K10c's (masked: K10d's) work on a srt_case, from the plain forms:
+    the items its plan makes (srt.primary_bwd_items: how many, the chunks
+    of the shortest, mean and longest, the tiles cut into more than one);
+    of the (warp, row) units of the kept (tile, chunk) pairs, a warp on 32
+    rays of a tile (K10d: a 4 x 8 pixel block of a 16 x 16 tile, K10c: 32
+    consecutive rays), how many have a lane whose pair
+    srt.primary_dead_pairs does not prove dead, and the share of their
+    lanes that are; the (ray, chunk) pairs with a pair not proved dead."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.kernels.intersect import TILE, ray_tiles
+    pri, d, chunk = c["pri"], c["dirs"], c["chunk"]
+    R, n_chunks = d.shape[1], pri.shape[0] // chunk
+    tiles = c["tiles"] if masked else ray_tiles(R, None, d.device)
+    mask = c["mask"] if masked else None
+    items = srt.primary_bwd_items(None if mask is None else mask.cpu(),
+                                  tiles.count, n_chunks)
+    runs = [len(ch) for _, ch in items]
+    per_tile = np.bincount([t for t, _ in items], minlength=tiles.count)
+    tw = srt.THREADS // tiles.th
+    b = torch.arange(tiles.count, device=d.device)[:, None]
+    k = torch.arange(srt.THREADS, device=d.device)[None, :]
+    tiles_x = -(-tiles.width // tw)
+    valid = (((b // tiles_x) * tiles.th + k // tw < tiles.height)
+             & ((b % tiles_x) * tw + k % tw < tiles.width))
+    if tiles.th == TILE:  # csrc/soft_raytrace.cu::bwd_slot's 4 x 8 blocks
+        wp = torch.arange(8, device=d.device)[:, None]
+        ln = torch.arange(32, device=d.device)[None, :]
+        slot = (((wp // 2) * 4 + ln // 8) * 16 + (wp % 2) * 8
+                + ln % 8).reshape(-1)
+    else:
+        slot = torch.arange(srt.THREADS, device=d.device)
+    rays = tiles.rays.view(tiles.count, srt.THREADS)[:, slot]
+    valid = valid[:, slot]
+    units = live_units = live_lanes = ray_chunks = 0
+    with torch.no_grad():
+        for ch in range(n_chunks):
+            keep = (torch.arange(tiles.count, device=d.device) if mask is None
+                    else torch.nonzero(mask[:, ch]).squeeze(1))
+            if keep.numel() == 0:
+                continue
+            r = rays[keep].reshape(-1)
+            ok = ~srt.primary_dead_pairs(pri[ch * chunk:(ch + 1) * chunk],
+                                         d[:, r], m[r], c["es"], c["zs"])
+            ok = (ok & valid[keep].reshape(1, -1)).view(chunk, -1, 32)
+            units += ok.shape[0] * ok.shape[1]
+            unit = ok.any(dim=-1)
+            live_units += int(unit.sum())
+            live_lanes += int(ok.sum())
+            ray_chunks += int(ok.any(dim=0).sum())
+    return dict(items=len(items), run_min=min(runs), run_mean=float(
+        np.mean(runs)), run_max=max(runs),
+        split_tiles=int((per_tile > 1).sum()), units=units,
+        live_units=live_units,
+        lane_share=live_lanes / max(32 * live_units, 1),
+        ray_chunks=ray_chunks)
+
+
+def pri_work_line(w, iw) -> str:
+    """The fused primary backward's counts (srt_work's w, pri_item_work's
+    iw) as printed by phases 22 and 28."""
+    hit = w["pairs"] - w["gated_p"]
+    return (f"{w['pairs']} pairs: {w['gated_p']} gated, {w['dead_p']} "
+            f"proved dead ({w['dead_p'] / max(hit, 1):.4%} of the gate's "
+            f"passing pairs), {hit - w['dead_p']} live (not proved dead), "
+            f"{w['live_p']} of weight not 0; {iw['items']} items of "
+            f"{iw['run_min']}-{iw['run_max']} chunks (mean "
+            f"{iw['run_mean']:.2f}), {iw['split_tiles']} tiles cut into "
+            f"more than one; (warp, row) units with a live lane "
+            f"{iw['live_units']} of {iw['units']} "
+            f"({iw['live_units'] / max(iw['units'], 1):.4%}), their lanes "
+            f"{iw['lane_share']:.2%} live; (ray, chunk) pairs with a pair not "
+            f"proved dead {iw['ray_chunks']}")
 
 
 def two_launch_bounds(c, w) -> dict:
@@ -2195,20 +2275,22 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
     def fused(c, pargs, sargs):
         """K10c and K10i, launched directly (the wrappers route this table
         to K10e-K10l): (dc, dcam, dd), (dc, dsrc, dw) and the launches."""
-        Tp, R, S = c["pri"].shape[0], c["dirs"].shape[1], c["srcs"].shape[0]
-        pg = srt.bwd_groups(Tp, srt.PRI_USED, R)
+        R, S = c["dirs"].shape[1], c["srcs"].shape[0]
+        pg = srt.pri_bwd_blocks(c["pri"], c["chunk"],
+                                srt._tile_count(R, None, None))
         sg = srt.shw_bwd_blocks(c["shw"], c["chunk"],
-                                srt._shw_tiles(R, None, None), S)
-        pbuf = (torch.empty((pg, Tp, srt.PRI_USED), device=dev),
-                torch.empty((pg, 3), device=dev), torch.empty_like(c["pri"]),
-                torch.empty(3, device=dev), torch.empty_like(c["dirs"]))
+                                srt._tile_count(R, None, None), S)
+        pbuf = (torch.empty_like(c["pri"]), torch.empty(3, device=dev),
+                torch.empty_like(c["dirs"]))
+        pscratch = srt.pri_scratch(c["pri"], c["chunk"], c["dirs"],
+                                   blocks=pg)
         sbuf = (torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
                 torch.empty_like(sargs[2]))
         scratch = srt.shw_scratch(c["shw"], c["chunk"], c["srcs"], sargs[2],
                                   backward=True, blocks=sg)
-        return pbuf[2:], sbuf, {
+        return pbuf, sbuf, {
             "pri_bwd_fused": lambda: srt.launch_pri_bwd_kernel(
-                *pri_launch(pargs), *pbuf),
+                *pri_launch(pargs), *pbuf, blocks=pg, scratch=pscratch),
             "shw_bwd_fused": lambda: srt.launch_shw_bwd_kernel(
                 *shw_launch(sargs), *sbuf, blocks=sg, scratch=scratch)}
 
@@ -2466,9 +2548,10 @@ def two_launch_phase(dev, record: dict) -> list[dict]:
     bounds["pri_bwd_fused"] = fused_bounds["pri_bwd"]
     bounds["shw_bwd_fused"] = fused_bounds["shw_bwd"]
     card = card_line()
-    groups = {"pri": srt.bwd_groups(Tp, srt.PRI_USED, R),
+    groups = {"pri": srt.pri_bwd_blocks(c["pri"], c["chunk"],
+                                        srt._tile_count(R, None, None)),
               "shw": srt.shw_bwd_blocks(c["shw"], c["chunk"],
-                                        srt._shw_tiles(R, None, None), S)}
+                                        srt._tile_count(R, None, None), S)}
     passing = work["pairs"] - work["gated_p"]
     passing_s = work["act_s"] - work["act_gated_s"]
     say(f"two-launch kernels alone, 66,560 triangles at 512^2 ({R} rays, "
@@ -4986,18 +5069,19 @@ def main() -> int:
         R, Tp, S = m.shape[0], c["pri"].shape[0], c["srcs"].shape[0]
         es, zs, chunk = c["es"], c["zs"], c["chunk"]
         pcull, scull = _cull(c, masked, "mask"), _cull(c, masked, "smask")
-        blocks = c["tiles"].count * srt.THREADS if masked else R
         out = (torch.empty((9, R), device=dev), torch.empty(R, device=dev),
                torch.empty(R, device=dev))
         tr = torch.empty((S, R), device=dev)
-        pg = srt.bwd_groups(Tp, srt.PRI_USED, blocks)
+        pg = srt.pri_bwd_blocks(
+            c["pri"], chunk,
+            srt._tile_count(R, pcull.get("mask"), pcull.get("tiles")))
         sg = srt.shw_bwd_blocks(
             c["shw"], chunk,
-            srt._shw_tiles(R, scull.get("mask"), scull.get("tiles")), S)
-        pbuf = (torch.empty((pg, Tp, srt.PRI_USED), device=dev),
-                torch.empty((pg, 3), device=dev),
-                torch.empty_like(c["pri"]), torch.empty(3, device=dev),
+            srt._tile_count(R, scull.get("mask"), scull.get("tiles")), S)
+        pbuf = (torch.empty_like(c["pri"]), torch.empty(3, device=dev),
                 torch.empty_like(c["dirs"]))
+        pscratch = srt.pri_scratch(c["pri"], chunk, c["dirs"], **pcull,
+                                   blocks=pg)
         sbuf = (torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
                 torch.empty_like(world))
         fscratch = srt.shw_scratch(c["shw"], chunk, c["srcs"], world,
@@ -5010,7 +5094,7 @@ def main() -> int:
                 c["pri"], chunk, c["cam"], c["dirs"], es, zs, *out, **pcull),
             "pri_bwd": lambda: srt.launch_pri_bwd_kernel(
                 c["pri"], chunk, c["cam"], c["dirs"], es, zs, m, cot, *pbuf,
-                **pcull),
+                **pcull, blocks=pg, scratch=pscratch),
             "shw_fwd": lambda: srt.launch_shw_fwd_kernel(
                 c["shw"], chunk, c["srcs"], world, es, zs, tr, **scull,
                 scratch=fscratch),
@@ -5040,6 +5124,7 @@ def main() -> int:
         dl = gcot * trans * (-srt.OD_SCALE)
         work = srt_work(c, m, world, dl)
         t["work"] = work
+        t["items"] = pri_item_work(c, m)
         t["bounds"] = srt_bounds(c, work)
         rt_k[name] = t
         del kernels, plain
@@ -5056,6 +5141,7 @@ def main() -> int:
                 f"{t['bounds'][k][0]:.4f} ms, {t['bounds'][k][1]})"
                 for k in ("pri_fwd", "pri_bwd", "shw_fwd", "shw_bwd"))
             + f" ({card})")
+        say(f"  K10c on {name}: {pri_work_line(w, t['items'])}")
     say(f"soft raytrace (CUDA events, median): frames 512^2 bench "
         f"{rt_ms['bench_frame']:.4f} ms, 500^2 fit {rt_ms['fit_frame']:.4f} "
         f"ms, 512^2 full-feature sources {rt_ms['full_frame']:.4f} ms, STL "
@@ -5770,6 +5856,8 @@ def main() -> int:
         dl = gcot * trans * (-srt.OD_SCALE) if step_case else None
         work = srt_work(c, m, world, dl, masked=True)
         t["work"] = work
+        if step_case:
+            t["items"] = pri_item_work(c, m, masked=True)
         t["bounds"] = srt_bounds(c, work, masked=True)
         rtm_k[name] = t
         del kernels, plain
@@ -5789,6 +5877,8 @@ def main() -> int:
                 f"{k} {t[k]:.4f} ms (plain {t[k + '_plain']:.4f}; bound "
                 f"{t['bounds'][k][0]:.4f} ms, {t['bounds'][k][1]})"
                 for k in parts) + f" ({card})")
+        if "items" in t:
+            say(f"  K10d on {name}: {pri_work_line(w, t['items'])}")
     say(f"soft_raytrace_stl steps (CUDA events, median of 3): culled "
         f"{rtm_ms['culled_step']:.4f} ms, brute {rtm_ms['brute_step']:.4f} "
         f"ms; peak memory culled {rtm_peak['culled_step']:.3f} GB, brute "

@@ -49,6 +49,7 @@
 // K1r equals K1 (render_fused.cu) bit for bit.
 
 #include <cfloat>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "plane_test.cuh"
@@ -235,6 +236,14 @@ extern "C" int raytpu_mega_fwd(const void* dirs, const void* table,
 //       that nothing reads.
 //   L4  tiny_kernel replaces megakernel_lab3.py::tiny_kernel (launched at
 //       :54 by run_tiny): one block writes 2 x of an (8, 128) tile.
+//       Redesigned for Hopper: the first design's strided loop took four
+//       rounds of a scalar load, multiply and store a thread and lost to
+//       PyTorch's vectorized `x * 2` (0.0025 against 0.0021 ms); now a
+//       thread takes a whole float4 (the tile's 256 of them, one a thread),
+//       loaded before anything is stored. A tail past the last float4, or
+//       an address not aligned to 16 bytes, takes the scalar path: a
+//       thread's up to four elements (n <= 1024), all loaded, then stored.
+//       x * 2 is exact, so every path gives the same bits.
 //
 // Bounds on the H100: L3 at 512^2, C = 32, moves 16 B a ray (x in; t, idx,
 // occ out), 4.2 MB, ~1.3 us at 3.35 TB/s, and L4 8 KB: what they show is
@@ -268,9 +277,34 @@ __global__ void __launch_bounds__(kThreads)
   occ_out[r] = 0;
 }
 
-__global__ void tiny_kernel(const float* __restrict__ x,
-                            float* __restrict__ out, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i] * 2.0f;
+__global__ void __launch_bounds__(kThreads)
+    tiny_kernel(const float* __restrict__ x, float* __restrict__ out,
+                int n) {
+  const int i = threadIdx.x;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(out)) & 15u) == 0u;
+  const int nv = aligned ? n / 4 : 0;  // whole float4s
+  if (i < nv) {
+    float4 v = reinterpret_cast<const float4*>(x)[i];
+    v.x *= 2.0f;
+    v.y *= 2.0f;
+    v.z *= 2.0f;
+    v.w *= 2.0f;
+    reinterpret_cast<float4*>(out)[i] = v;
+  }
+  if (4 * nv == n) return;  // lab 3's tile: nothing left
+  // The rest, a thread's elements 4 nv + i + j kThreads, loaded first.
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int e = 4 * nv + i + j * kThreads;
+    v[j] = e < n ? x[e] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int e = 4 * nv + i + j * kThreads;
+    if (e < n) out[e] = v[j] * 2.0f;
+  }
 }
 
 }  // namespace

@@ -5,9 +5,11 @@
 // K10a, soft_rt_pri_fwd_kernel<false>, replaces
 // raytpu/kernels/soft_raytrace_pallas.py::_pri_fwd_kernel and K10b,
 // soft_rt_pri_fwd_kernel<true>, ::_pri_fwd_kernel_masked; K10c,
-// soft_rt_pri_bwd_kernel<false> and the fixed-order sums sum_groups_kernel,
-// replaces _pri_bwd_fused_kernel and K10d, soft_rt_pri_bwd_kernel<true> and
-// the same sums, _pri_bwd_fused_kernel_masked; K10g,
+// soft_rt_pri_bwd_kernel<false>, the merge of its runs and its fixed-order
+// sums, replaces _pri_bwd_fused_kernel and K10d, soft_rt_pri_bwd_kernel<true>
+// with its plan, merge and sums, _pri_bwd_fused_kernel_masked (K10c and K10d
+// redesigned for Hopper around the pairs whose weight is exactly 0 and the
+// few tiles that hold the work, below); K10g,
 // soft_rt_shw_fwd_kernel<false>, replaces _shw_fwd_kernel and K10h, <true>,
 // _shw_fwd_kernel_masked, each with the merge of its runs; K10i,
 // soft_rt_shw_bwd_kernel<false>, the merge and the sums, replaces
@@ -73,7 +75,8 @@
 // memory, and a block walks ray blocks g, g + groups, ...; the sum kernel
 // adds the groups' partials in a fixed order. The camera's and the
 // sources' gradients take the same two steps. No floating-point atomics:
-// two calls give the same bits.
+// two calls give the same bits. (The first design's backwards; K10c, K10d
+// and K10g-K10j have been redesigned since, below.)
 //
 // The masked kernels (K10b, K10d; K10h and K10j below) take a keep-mask
 // over the port's ray tiles (kernels/intersect.py::ray_tiles: th x 256 / th pixel
@@ -92,7 +95,7 @@
 // a (ray, row) pair forward, 3-4x that backward, against ~40 B a ray and
 // the table: bound by operations (chip_smoke.py counts them on its inputs).
 // The two-launch halves each recompute every pair, so together they do the
-// fused backward's operations and about twice its recomputes; K10e and K10f
+// fused backward's operations and about twice its recomputes; K10c-K10f
 // stop a pair that pri_pair_dead proves of weight 0 at that test, K10k and
 // K10l a triple that shw_triple_dead finds dead at that test.
 //
@@ -166,15 +169,6 @@ __device__ __forceinline__ TileRay tile_ray(int tile, int R, int H, int W,
   const int x = (tile % tiles_x) * tw + threadIdx.x % tw;
   const bool live = y < H && x < W;
   return {live ? y * W + x : 0, live};
-}
-
-// Zeroes a block's partial rows of chunk ch (cols of them a row): a dropped
-// chunk on the block's first turn, whose later turns add to them. Each
-// entry is owned by the thread that adds to it.
-__device__ __forceinline__ void zero_rows(float* part, int ch, int chunk,
-                                          int cols) {
-  float* dst = part + static_cast<size_t>(ch) * chunk * cols;
-  for (int o = threadIdx.x; o < chunk * cols; o += kThreads) dst[o] = 0.0f;
 }
 
 // Stages chunk ch's rows (18 used columns) and their |n| and
@@ -345,32 +339,56 @@ __device__ __forceinline__ void warp_sum_store(const float* g, bool mine,
   }
 }
 
-// Adds one (ray, row) pair's gradient to the row's g[18], the camera's
-// gcam[3], the ray's chunk sums ddc[3] (direction) and ddn (|d|). d the
-// direction, dn = |d|, gp the camera position, mp the ray's saved max, ds
-// and da its cotangents. False (nothing added) for a pair of weight 0.
-__device__ __forceinline__ bool pri_pair_bwd(const float* c, const float* d,
-                                             float dn, const float* gp,
-                                             float mp, float ds,
-                                             const float* da, float es,
-                                             float zs, float* g, float* gcam,
-                                             float* ddc, float* ddn) {
-  const float denom = -((d[0] * c[0] + d[1] * c[1]) + d[2] * c[2]);
-  const bool big = fabsf(denom) > 1e-12f;
-  const float safe = big ? denom : 1e-12f;
-  const float rec = 1.0f / safe;
-  const float t = c[9] * rec;
-  if (!(t > 1e-6f && fabsf(denom) > (1e-3f * dn) * c[18])) return false;
-  const float nu = (d[0] * c[3] + d[1] * c[4]) + d[2] * c[5];
-  const float nv = (d[0] * c[6] + d[1] * c[7]) + d[2] * c[8];
-  const float u = nu * rec, v = nv * rec;
-  const float muv = fminf(u, v), omu = (1.0f - u) - v;
-  const float margin = fminf(muv, omu);
+// The first half of a (ray, row) pair's backward, in pri_pair_bwd's order,
+// from the ray d and the row's n (columns 0-2), k0 (9), c2b (3-5) and cb1
+// (6-8): the denominator and its guard, 1 / denom, t, u and v with their
+// numerators, the margin's two operands and xs = es margin. pri_pair_dead
+// (K10c-K10f's test) and pri_pair_rest (the derivative) both go on from it,
+// so a pair's test and its gradient see the same bits.
+struct PriTest {
+  float denom, rec, t, nu, nv, u, v, muv, omu, xs;
+  bool big;
+};
+
+__device__ __forceinline__ PriTest pri_test(const float* d, float n0,
+                                            float n1, float n2, float k0,
+                                            float c3, float c4, float c5,
+                                            float c6, float c7, float c8,
+                                            float es) {
+  PriTest x;
+  x.denom = -((d[0] * n0 + d[1] * n1) + d[2] * n2);
+  x.big = fabsf(x.denom) > 1e-12f;
+  const float safe = x.big ? x.denom : 1e-12f;
+  x.rec = 1.0f / safe;
+  x.t = k0 * x.rec;
+  x.nu = (d[0] * c3 + d[1] * c4) + d[2] * c5;
+  x.nv = (d[0] * c6 + d[1] * c7) + d[2] * c8;
+  x.u = x.nu * x.rec;
+  x.v = x.nv * x.rec;
+  x.muv = fminf(x.u, x.v);
+  x.omu = (1.0f - x.u) - x.v;
+  x.xs = es * fminf(x.muv, x.omu);
+  return x;
+}
+
+// The rest of a pair's backward from its test x, the gate passed: the
+// weight at the saved max mp and, where it is not 0, the derivative (as
+// pri_pair_bwd below, whose second half it is).
+__device__ __forceinline__ bool pri_pair_rest(const PriTest& x,
+                                              const float* c, const float* d,
+                                              float dn, const float* gp,
+                                              float mp, float ds,
+                                              const float* da, float es,
+                                              float zs, float* g, float* gcam,
+                                              float* ddc, float* ddn) {
+  const bool big = x.big;
+  const float rec = x.rec, t = x.t, nu = x.nu, nv = x.nv;
+  const float muv = x.muv, omu = x.omu, xs = x.xs;
+  const float u = x.u, v = x.v;
   const float dist = t * dn;
   const float a1 = fmaxf(dist, c[17]);
   const float a2 = fmaxf(a1, kTNear);
   const float zinv = 1.0f / a2;
-  const float xs = es * margin;
   const float ex = expf(-fabsf(xs));
   const float logit = (zs * zinv + (fminf(xs, 0.0f) - log1pf(ex))) + c[19];
   const float w = expf(logit - mp);
@@ -430,95 +448,20 @@ __device__ __forceinline__ bool pri_pair_bwd(const float* c, const float* d,
   return true;
 }
 
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-    soft_rt_pri_bwd_kernel(const float* __restrict__ consts, int Tp,
-                           int chunk, const float* __restrict__ cam,
-                           const float* __restrict__ dirs, int R,
-                           const int* __restrict__ mask, int H, int W,
-                           int th, int n_tiles, float es, float zs,
-                           const float* __restrict__ m,
-                           const float* __restrict__ cot, int groups,
-                           float* __restrict__ partials,
-                           float* __restrict__ cam_partials,
-                           float* __restrict__ dd_out) {
-  __shared__ float s_c[kMaxChunk][kPriRow];
-  __shared__ float s_red[kWarps][kMaxChunk][kPriUsed];
-  __shared__ float s_cam[kWarps][3];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int n_chunks = Tp / chunk;
-  const float gp[3] = {cam[0], cam[1], cam[2]};
-  float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kPriUsed;
-  float gcam[3] = {0.0f, 0.0f, 0.0f};
-  for (int tile = blockIdx.x; tile < n_tiles; tile += groups) {
-    const bool first = tile == static_cast<int>(blockIdx.x);
-    const TileRay ray = tile_ray<kMasked>(tile, R, H, W, th);
-    const int r = ray.r;
-    const bool live = ray.live;
-    const int* keep =
-        kMasked ? mask + static_cast<size_t>(tile) * n_chunks : nullptr;
-    float d[3] = {0.0f, 0.0f, 0.0f}, da[9];
-    float mp = 0.0f, ds = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) da[j] = 0.0f;
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) d[j] = dirs[static_cast<size_t>(j) * R + r];
-      mp = m[r];
-      ds = cot[r];
-#pragma unroll
-      for (int j = 0; j < 9; ++j) {
-        da[j] = cot[static_cast<size_t>(1 + j) * R + r];
-      }
-    }
-    const float dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
-    float dd[3] = {0.0f, 0.0f, 0.0f};
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      if (kMasked && keep[ch] == 0) {  // the same bit for the block
-        if (first) zero_rows(part, ch, chunk, kPriUsed);
-        continue;
-      }
-      __syncthreads();  // s_c and s_red are free again
-      load_pri_chunk(consts, ch, chunk, s_c);
-      float ddc[3] = {0.0f, 0.0f, 0.0f}, ddn = 0.0f;
-      for (int i = 0; i < chunk; ++i) {
-        float g[kPriUsed];
-#pragma unroll
-        for (int k = 0; k < kPriUsed; ++k) g[k] = 0.0f;
-        const bool mine = live && pri_pair_bwd(s_c[i], d, dn, gp, mp, ds, da,
-                                               es, zs, g, gcam, ddc, &ddn);
-        warp_sum_store<kPriUsed>(g, mine, s_red[warp][i]);
-      }
-      // |d| = sqrt((dx dx + dy dy) + dz dz), once a chunk.
-      if (live) {
-        const float dq = ddn * (0.5f / dn);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) dd[j] += ddc[j] + (dq * d[j] + dq * d[j]);
-      }
-      __syncthreads();
-      for (int o = tid; o < chunk * kPriUsed; o += kThreads) {
-        const int row = o / kPriUsed, k = o % kPriUsed;
-        float sum = 0.0f;
-#pragma unroll
-        for (int wp = 0; wp < kWarps; ++wp) sum += s_red[wp][row][k];
-        float* dst =
-            part + (static_cast<size_t>(ch) * chunk + row) * kPriUsed + k;
-        *dst = first ? sum : *dst + sum;
-      }
-    }
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) dd_out[static_cast<size_t>(j) * R + r] =
-          dd[j];
-    }
-  }
-  warp_sum_store<3>(gcam, true, s_cam[warp]);
-  __syncthreads();
-  if (tid < 3) {
-    float sum = 0.0f;
-    for (int wp = 0; wp < kWarps; ++wp) sum += s_cam[wp][tid];
-    cam_partials[static_cast<size_t>(blockIdx.x) * 3 + tid] = sum;
-  }
+// Adds one (ray, row) pair's gradient to the row's g[18], the camera's
+// gcam[3], the ray's chunk sums ddc[3] (direction) and ddn (|d|). d the
+// direction, dn = |d|, gp the camera position, mp the ray's saved max, ds
+// and da its cotangents. False (nothing added) for a pair of weight 0.
+__device__ __forceinline__ bool pri_pair_bwd(const float* c, const float* d,
+                                             float dn, const float* gp,
+                                             float mp, float ds,
+                                             const float* da, float es,
+                                             float zs, float* g, float* gcam,
+                                             float* ddc, float* ddn) {
+  const PriTest x = pri_test(d, c[0], c[1], c[2], c[9], c[3], c[4], c[5],
+                             c[6], c[7], c[8], es);
+  if (!(x.t > 1e-6f && fabsf(x.denom) > (1e-3f * dn) * c[18])) return false;
+  return pri_pair_rest(x, c, d, dn, gp, mp, ds, da, es, zs, g, gcam, ddc, ddn);
 }
 
 constexpr float kSigZero = -100.0f;  // sigmoid below this: exactly 0
@@ -714,7 +657,8 @@ __device__ __forceinline__ bool shw_pair_bwd(const float* q, const float* dh,
 // chunk, a thread tests all its rows and keeps a bit mask of the pairs not
 // proved dead, then runs pri_pair_bwd on those in row order, so each lane
 // of a warp walks its own live rows at once; the |d| chain follows once a
-// chunk, as in K10c, so d dirs equals K10c's bit for bit.
+// chunk into the sum of its run of `run` chunks, and the runs are added in
+// order, as K10c folds its work items, so d dirs equals K10c's bit for bit.
 //
 // K10e: row-stationary. A thread owns a row of the table: its staged
 // constants and its 18 + 3 gradient sums stay in registers. A block owns
@@ -789,25 +733,33 @@ __device__ __forceinline__ void unstage_pri_row(const float4* q, float* c) {
 }
 
 // True where the pair of a ray (r0 = (d, 1e-3 |d|), saved max mp) and a
-// staged row (q0-q2, zb) adds nothing: gated, by pri_pair_bwd's own test,
-// or of weight exactly 0 by the bound B above. False sends it to
-// pri_pair_bwd. The gate's tests and the bound's are or-ed bitwise, with
-// no return between them, so that the compiler schedules a run of pairs as
-// one block (a gated pair's B is computed and ignored).
+// staged row (q0-q2, zb; |n| nm = q1.w, la = q2.w) with test x adds
+// nothing: gated, by pri_pair_bwd's own test, or of weight exactly 0 by the
+// bound B above. False sends it to pri_pair_bwd (K10c and K10d: on to
+// pri_pair_rest from x). The gate's tests and the bound's are or-ed
+// bitwise, with no return between them, so that the compiler schedules a
+// run of pairs as one block (a gated pair's B is computed and ignored).
+__device__ __forceinline__ bool pri_dead(const PriTest& x, float4 r0,
+                                         float nm, float zb, float la,
+                                         float mp) {
+  const float cap = x.xs > 0.0f ? 0.0f : x.xs;
+  return !(x.t > 1e-6f) | !(fabsf(x.denom) > r0.w * nm) |
+         (((zb + cap) + la) - mp < kDeadBelow);
+}
+
+// The test of a ray against the row's first three staged float4s.
+__device__ __forceinline__ PriTest pri_row_test(float4 r0, float4 q0,
+                                                float4 q1, float4 q2,
+                                                float es) {
+  const float d[3] = {r0.x, r0.y, r0.z};
+  return pri_test(d, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q2.x, q2.y,
+                  q2.z, es);
+}
+
 __device__ __forceinline__ bool pri_pair_dead(float4 q0, float4 q1,
                                               float4 q2, float zb, float4 r0,
                                               float mp, float es) {
-  const float denom = -((r0.x * q0.x + r0.y * q0.y) + r0.z * q0.z);
-  const float safe = fabsf(denom) > 1e-12f ? denom : 1e-12f;
-  const float rec = 1.0f / safe;
-  const float t = q0.w * rec;
-  const float u = ((r0.x * q1.x + r0.y * q1.y) + r0.z * q1.z) * rec;
-  const float v = ((r0.x * q2.x + r0.y * q2.y) + r0.z * q2.z) * rec;
-  const float margin = fminf(fminf(u, v), (1.0f - u) - v);
-  const float xs = es * margin;
-  const float cap = xs > 0.0f ? 0.0f : xs;
-  return !(t > 1e-6f) | !(fabsf(denom) > r0.w * q1.w) |
-         (((zb + cap) + q2.w) - mp < kDeadBelow);
+  return pri_dead(pri_row_test(r0, q0, q1, q2, es), r0, q1.w, zb, q2.w, mp);
 }
 
 // The ray's values pri_pair_bwd reads, from its four packed float4s.
@@ -967,7 +919,7 @@ __global__ void __launch_bounds__(kThreads)
     soft_rt_pri_bwd_dirs_kernel(const float4* __restrict__ rows, int Tp,
                                 int chunk, const float* __restrict__ cam,
                                 const float* __restrict__ dirs, int R,
-                                float es, float zs,
+                                float es, float zs, int run,
                                 const float* __restrict__ m,
                                 const float* __restrict__ cot,
                                 float* __restrict__ dd_out) {
@@ -992,17 +944,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   a.dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
   a.r0 = make_float4(d[0], d[1], d[2], 1e-3f * a.dn);
-  float dd[3];
+  float dd[3], prun[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     a.d[j] = d[j];
     dd[j] = 0.0f;
+    prun[j] = 0.0f;
   }
   float g[kPriUsed], gcam[3] = {0.0f, 0.0f, 0.0f};  // K10e's
 #pragma unroll
   for (int k = 0; k < kPriUsed; ++k) g[k] = 0.0f;
   const int stage_rows = (kStageRows / chunk) * chunk;
   const int n_stages = (Tp + stage_rows - 1) / stage_rows;
+  int in_run = run;  // chunks left in the current run
   auto issue = [&](int s) {
     if (s < n_stages) {
       const int row0 = s * stage_rows;
@@ -1040,10 +994,21 @@ __global__ void __launch_bounds__(kThreads)
         pri_pair_bwd(c, a.d, a.dn, gp, a.mp, a.ds, a.da, es, zs, g, gcam, ddc,
                      &ddn);
       }
-      // |d| = sqrt((dx dx + dy dy) + dz dz), once a chunk, as K10c.
+      // |d| = sqrt((dx dx + dy dy) + dz dz), once a chunk, into the run's
+      // sum, and the runs of `run` chunks added in order, as K10c does.
       const float dq = ddn * (0.5f / a.dn);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) dd[j] += ddc[j] + (dq * a.d[j] + dq * a.d[j]);
+      for (int j = 0; j < 3; ++j) {
+        prun[j] += ddc[j] + (dq * a.d[j] + dq * a.d[j]);
+      }
+      if (--in_run == 0 || s * (stage_rows / chunk) + cc + 1 == Tp / chunk) {
+        in_run = run;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          dd[j] += prun[j];
+          prun[j] = 0.0f;
+        }
+      }
     }
   }
   if (live) {
@@ -1906,6 +1871,369 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < 3; ++c) dw[static_cast<size_t>(c) * R + ray.r] = acc[c];
 }
 
+// K10c and K10d, redesigned for Hopper. On the culled 9,216-triangle step
+// (512^2, 1,024 tiles, 23.43% of the (tile, chunk) pairs kept) 88% of the
+// kept (ray, row) pairs are proved of weight exactly 0 by pri_pair_dead and
+// 6.6% are gated, a few tiles keep most of the chunks (111 of 288 at most),
+// and the first design (a block a tile, pri_pair_bwd worked out in full on
+// every pair, 18 x 5 shuffles and a barrier pair for every row of a chunk a
+// lane of a warp had a pair in, a (groups, Tp, 18) partial of 268 MB
+// written in full) ran 18.5x its bound there. Three changes:
+//
+// - An exact dead-pair skip. Every (ray, row) pair is screened with K10e's
+//   and K10f's test (pri_pair_dead: pri_test, then pri_dead), and only the
+//   pairs it does not prove dead go on to the derivative, pri_pair_bwd's
+//   second half (pri_pair_rest) from the test's own floats, the same
+//   expressions in the same order. A pair proved dead adds nothing today
+//   (pri_pair_bwd returns before its first add), so no term and no order
+//   of adding one moves.
+// - Live rows only, cheaper sums. A warp walks a chunk's rows in order and
+//   goes on past the test only where a lane has a live pair (a vote); a
+//   (warp, row) with no live lane costs the test alone. A live one adds its
+//   18 sums over the 32 lanes by a fixed-order reduce-scatter
+//   (reduce_scatter18: five shuffle levels, 20 shuffles in all, column k's
+//   total in lane scatter18_col's lane). The warps' sums
+//   of a chunk are added in warp order by the warp that owns the row (rows
+//   w, w + 8, ...) into the block's (Tp, 18) partial, one chunk behind the
+//   warps (s_red is double-buffered), so a chunk costs one barrier. A
+//   block's partial is written only where a lane of one of its items had a
+//   live pair: a bit a (chunk, row) (`touched`, set by integer atomics)
+//   says which rows hold a sum, nothing is zeroed, and sum_touched_kernel
+//   adds in block order only the rows the bits mark. In a masked tile of
+//   16 x 16 rays a warp takes a 4 x 8 block (bwd_slot): 8% fewer (warp,
+//   row) units have a live lane than with 2 x 16 strips. Three blocks an SM
+//   (80 registers, a few spilled) ran faster on the culled step than the
+//   two that its 107-114 registers allow.
+// - Work items of at most `run` kept chunks, as K10g-K10j's: a tile's kept
+//   chunks (every chunk, unmasked) are cut in order into runs of `run`, a
+//   work item each, from the plan that shw_plan_kernel and shw_items_kernel
+//   make on the card (a tile is K10j's (tile, source) pair with one
+//   source). Block b takes items b, b + blocks, ... (a fixed rule), so the
+//   few tiles that hold most of the work spread over the card. The rows are
+//   staged once a launch (pack_pri_rows_kernel, K10f's) and stream through
+//   a cp.async ring of kShwRing chunks, two ahead. An item adds a ray's
+//   d dirs over its chunks from 0, the |d| chain once a chunk as before;
+//   a tile with one item writes them itself, pri_bwd_merge_kernel folds the
+//   items of the others in run order. K10f folds its chunks in the same
+//   runs, so its d dirs stay K10c's bit for bit. The camera's gradient is a
+//   sum a block, added in block order.
+//
+// Every sum has a fixed order, so two calls give the same bits, and K10c is
+// K10d with every tile kept: the same items, sums and grid (the fewer
+// blocks an SM of the two instances), bit for bit.
+
+// One level of reduce_scatter18: N values in g[0, N); lanes with bit `kHalf`
+// clear keep g[0, C), the others g[C, N) moved to g[0, N - C), C = ceil(N /
+// 2), each adding its partner's copy (a value past N counts 0).
+template <int N, int kHalf>
+__device__ __forceinline__ void scatter18_level(float* g, bool hi) {
+  constexpr int C = (N + 1) / 2;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const float up = C + i < N ? g[C + i] : 0.0f;
+    const float send = hi ? g[i] : up;
+    const float keep = hi ? up : g[i];
+    g[i] = keep + __shfl_xor_sync(kFull, send, kHalf);
+  }
+}
+
+// The warp's 18 sums g[0..17] added over its 32 lanes in a fixed order;
+// returns this lane's total, that of column scatter18_col(lane).
+__device__ __forceinline__ float reduce_scatter18(float* g) {
+  const int lane = threadIdx.x & 31;
+  scatter18_level<18, 16>(g, (lane & 16) != 0);
+  scatter18_level<9, 8>(g, (lane & 8) != 0);
+  scatter18_level<5, 4>(g, (lane & 4) != 0);
+  scatter18_level<3, 2>(g, (lane & 2) != 0);
+  scatter18_level<2, 1>(g, (lane & 1) != 0);
+  return g[0];
+}
+
+// The column whose total reduce_scatter18 leaves in `lane`, or -1 (14
+// lanes hold none): the levels' splits replayed on the real count.
+__device__ __forceinline__ int scatter18_col(int lane) {
+  int col = 0, real = kPriUsed, n = kPriUsed;
+  for (int half = 16; half >= 1; half >>= 1) {
+    const int c = (n + 1) / 2;
+    if (lane & half) {
+      col += c;
+      real = real > c ? real - c : 0;
+    } else {
+      real = real < c ? real : c;
+    }
+    n = c;
+  }
+  return real == 1 ? col : -1;
+}
+
+// The slot of the tile this thread takes in the backward: in a masked tile
+// of th x tw rays with th % 4 == 0 and tw % 8 == 0, warp w a 4 x 8 block
+// (blocks row-major), lane l its pixel (l / 8, l % 8); else the thread's
+// index (unmasked, runs of 256 consecutive rays).
+template <bool kMasked>
+__device__ __forceinline__ int bwd_slot(int th) {
+  const int tw = kThreads / th;
+  if (!kMasked || th % 4 != 0 || tw % 8 != 0) return threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int by = (warp / (tw / 8)) * 4 + lane / 8;
+  const int bx = (warp % (tw / 8)) * 8 + lane % 8;
+  return by * tw + bx;
+}
+
+// tile_ray for slot `slot` of the tile.
+template <bool kMasked>
+__device__ __forceinline__ TileRay slot_ray(int tile, int slot, int R, int H,
+                                            int W, int th) {
+  if (!kMasked) {
+    const int r = tile * kThreads + slot;
+    return {r, r < R};
+  }
+  const int tw = kThreads / th;
+  const int tiles_x = (W + tw - 1) / tw;
+  const int y = (tile / tiles_x) * th + slot / tw;
+  const int x = (tile % tiles_x) * tw + slot % tw;
+  const bool live = y < H && x < W;
+  return {live ? y * W + x : 0, live};
+}
+
+// Issues stage k of item x (the chunk's staged rows) into ring[k %
+// kShwRing] and commits a cp.async group.
+template <bool kMasked>
+__device__ __forceinline__ void issue_pri_stage(
+    const ShwItem& x, int k, float4 (*ring)[kMaxChunk * kRowQ],
+    const float4* rows, int chunk) {
+  if (k < x.n) {
+    const size_t row0 = static_cast<size_t>(item_chunk<kMasked>(x, k)) * chunk;
+    copy_async(ring[k % kShwRing], rows + row0 * kRowQ, chunk * kRowQ);
+  }
+  cp_async_commit();
+}
+
+// Adds the warps' sums of chunk c (buffer b) into the block's partial part:
+// warp w the rows w, w + 8, ... that a lane of the block had a live pair
+// in, its lanes the columns, the warps' sums in warp order; the row's first
+// sum is written, later ones added (tmask, the block's bits of chunk c).
+__device__ __forceinline__ void pri_block_sum(int c, int chunk,
+                                              float (*red)[kMaxChunk][kPriUsed],
+                                              const unsigned* any, float* part,
+                                              unsigned* tmask) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned all = 0u;
+#pragma unroll
+  for (int wp = 0; wp < kWarps; ++wp) all |= any[wp];
+  unsigned rows = all & (0x01010101u << warp);
+  if (rows == 0u) return;  // the same for the warp
+  unsigned before = 0u;
+  if (lane == 0) before = atomicOr(tmask + c, rows);
+  before = __shfl_sync(kFull, before, 0);
+  while (rows != 0u) {
+    const int row = __ffs(rows) - 1;
+    rows &= rows - 1u;
+    if (lane < kPriUsed) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int wp = 0; wp < kWarps; ++wp) {
+        if ((any[wp] >> row) & 1u) sum += red[wp][row][lane];
+      }
+      float* dst = part + (static_cast<size_t>(c) * chunk + row) * kPriUsed +
+                   lane;
+      *dst = ((before >> row) & 1u) ? *dst + sum : sum;
+    }
+  }
+}
+
+// K10c (kMasked false) and K10d (true), replace _pri_bwd_fused_kernel and
+// _pri_bwd_fused_kernel_masked (see above): block b takes items b, b +
+// gridDim.x, ...; a thread a ray of the item's tile (bwd_slot). rows the
+// staged table (pack_pri_rows_kernel); partials (blocks, Tp, 18) and
+// touched (blocks, n_chunks) the blocks' sums and their bits; cam_partials
+// (blocks, 3); dd_part (items, 3, 256) the runs' partial d dirs of tiles
+// with more than one item, or null where every tile has one (`direct`:
+// unmasked with one run a tile); dd_out (3, R).
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 3)
+    soft_rt_pri_bwd_kernel(const float4* __restrict__ rows, int Tp,
+                           int chunk, const float* __restrict__ cam,
+                           const float* __restrict__ dirs, int R, int H,
+                           int W, int th, float es, float zs,
+                           const float* __restrict__ m,
+                           const float* __restrict__ cot, ShwPlan pl,
+                           float* __restrict__ partials,
+                           unsigned* __restrict__ touched,
+                           float* __restrict__ cam_partials,
+                           float* __restrict__ dd_part,
+                           float* __restrict__ dd_out) {
+  __shared__ float4 s_ring[kShwRing][kMaxChunk * kRowQ];
+  __shared__ float s_red[2][kWarps][kMaxChunk][kPriUsed];
+  __shared__ unsigned s_any[2][kWarps];
+  __shared__ float s_cam[kWarps][3];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col = scatter18_col(lane);
+  const int slot = bwd_slot<kMasked>(th);
+  const int n_chunks = pl.n_chunks;
+  float* part = partials + static_cast<size_t>(blockIdx.x) * Tp * kPriUsed;
+  unsigned* tmask = touched + static_cast<size_t>(blockIdx.x) * n_chunks;
+  for (int o = tid; o < n_chunks; o += kThreads) tmask[o] = 0u;
+  const float gp[3] = {cam[0], cam[1], cam[2]};
+  float gcam[3] = {0.0f, 0.0f, 0.0f};
+  const int n_items = item_count<kMasked>(pl);
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const ShwItem x = shw_item<kMasked>(pl, it);
+    const TileRay ray = slot_ray<kMasked>(x.pair, slot, R, H, W, th);
+    float d[3] = {0.0f, 0.0f, 0.0f}, da[9];
+    float mp = 0.0f, ds = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) da[j] = 0.0f;
+    if (ray.live) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        d[j] = dirs[static_cast<size_t>(j) * R + ray.r];
+      }
+      mp = m[ray.r];
+      ds = cot[ray.r];
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        da[j] = cot[static_cast<size_t>(1 + j) * R + ray.r];
+      }
+    }
+    const float dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
+    const float4 r0 = make_float4(d[0], d[1], d[2], 1e-3f * dn);
+    float prun[3] = {0.0f, 0.0f, 0.0f};
+    // The previous item's last sums were added before its closing barrier,
+    // and every thread is done with its stages: the ring is free.
+    issue_pri_stage<kMasked>(x, 0, s_ring, rows, chunk);
+    issue_pri_stage<kMasked>(x, 1, s_ring, rows, chunk);
+    for (int k = 0; k < x.n; ++k) {
+      cp_async_wait_one();
+      // Stage k is in; every thread is done with stage k - 1 and the warps'
+      // sums of chunk k - 1 are in s_red[(k - 1) & 1].
+      __syncthreads();
+      issue_pri_stage<kMasked>(x, k + 2, s_ring, rows, chunk);
+      if (k > 0) {
+        const int b = (k - 1) & 1;
+        pri_block_sum(item_chunk<kMasked>(x, k - 1), chunk, s_red[b],
+                      s_any[b], part, tmask);
+      }
+      const int b = k & 1;
+      const float4* q = s_ring[k % kShwRing];
+      unsigned any = 0u;  // the warp's rows with a live lane
+      float ddc[3] = {0.0f, 0.0f, 0.0f}, ddn = 0.0f;
+#pragma unroll 4
+      for (int i = 0; i < chunk; ++i) {
+        const float4* qi = q + i * kRowQ;
+        const float4 q1 = qi[1], q2 = qi[2];
+        const PriTest pt = pri_row_test(r0, qi[0], q1, q2, es);
+        const bool live =
+            ray.live & !pri_dead(pt, r0, q1.w, qi[3].x, q2.w, mp);
+        if (__any_sync(kFull, live)) {
+          any |= 1u << i;
+          float g[kPriUsed];
+#pragma unroll
+          for (int k2 = 0; k2 < kPriUsed; ++k2) g[k2] = 0.0f;
+          if (live) {
+            float cr[kPriRow];
+            unstage_pri_row(qi, cr);
+            pri_pair_rest(pt, cr, d, dn, gp, mp, ds, da, es, zs, g, gcam, ddc,
+                          &ddn);
+          }
+          const float total = reduce_scatter18(g);
+          if (col >= 0) s_red[b][warp][i][col] = total;
+        }
+      }
+      if (lane == 0) s_any[b][warp] = any;
+      if (ray.live) {
+        // |d| = sqrt((dx dx + dy dy) + dz dz), once a chunk.
+        const float dq = ddn * (0.5f / dn);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) prun[j] += ddc[j] + (dq * d[j] + dq * d[j]);
+      }
+    }
+    __syncthreads();  // the warps' sums of the last chunk are in
+    const int b = (x.n - 1) & 1;
+    pri_block_sum(item_chunk<kMasked>(x, x.n - 1), chunk, s_red[b], s_any[b],
+                  part, tmask);
+    if (ray.live) {
+      const bool one = dd_part == nullptr ||
+                       (kMasked && pair_items<kMasked>(pl, x.pair).y == 1);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (one) {
+          dd_out[static_cast<size_t>(j) * R + ray.r] = prun[j];
+        } else {
+          dd_part[(static_cast<size_t>(it) * 3 + j) * kThreads + tid] =
+              prun[j];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float v = gcam[j];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    if (lane == 0) s_cam[warp][j] = v;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    float sum = 0.0f;
+    for (int wp = 0; wp < kWarps; ++wp) sum += s_cam[wp][tid];
+    cam_partials[static_cast<size_t>(blockIdx.x) * 3 + tid] = sum;
+  }
+}
+
+// K10c's and K10d's merge of d dirs, a block a tile: a tile with one item
+// was written by the kernel; the others' rays get their items' partials
+// added in run order from 0 (0 where the tile keeps no chunk).
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    pri_bwd_merge_kernel(ShwPlan pl, int R, int H, int W, int th,
+                         const float* __restrict__ dd_part,
+                         float* __restrict__ dd) {
+  const TileRay ray = slot_ray<kMasked>(blockIdx.x, bwd_slot<kMasked>(th), R,
+                                        H, W, th);
+  const int2 at = pair_items<kMasked>(pl, blockIdx.x);
+  if (!ray.live || at.y == 1) return;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < at.y; ++j) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      acc[c] += dd_part[(static_cast<size_t>(at.x + j) * 3 + c) * kThreads +
+                        threadIdx.x];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) dd[static_cast<size_t>(c) * R + ray.r] = acc[c];
+}
+
+// dc (Tp, 32): entry (row, k < 18) the sum over blocks b, in order, of
+// partials[b, row, k] where b's bit of (row's chunk, row) is set (+0 where
+// none is), k >= 18 zero. Thread (x, y) adds blocks y, y + kSumSlices, ...
+// of one entry; thread (x, 0) then adds the kSumSlices sums in order.
+__global__ void __launch_bounds__(32 * kSumSlices)
+    sum_touched_kernel(const float* __restrict__ partials,
+                       const unsigned* __restrict__ touched, int blocks,
+                       int Tp, int chunk, float* __restrict__ dc) {
+  __shared__ float s_sum[kSumSlices][33];
+  const int o = blockIdx.x * 32 + threadIdx.x;
+  const int n = Tp * kPriCols;
+  const int row = o / kPriCols, k = o % kPriCols;
+  const int n_chunks = Tp / chunk, c = row / chunk, bit = row % chunk;
+  float acc = 0.0f;
+  if (o < n && k < kPriUsed) {
+    for (int b = threadIdx.y; b < blocks; b += kSumSlices) {
+      if ((touched[static_cast<size_t>(b) * n_chunks + c] >> bit) & 1u) {
+        acc += partials[(static_cast<size_t>(b) * Tp + row) * kPriUsed + k];
+      }
+    }
+  }
+  s_sum[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || o >= n) return;
+  float total = 0.0f;
+  for (int sl = 0; sl < kSumSlices; ++sl) total += s_sum[sl][threadIdx.x];
+  dc[o] = total;
+}
+
 // out[row, k] = sum over groups g, in order, of partials[g, row, k] for
 // k < in_cols, and 0 for in_cols <= k < out_cols. Thread (x, y) adds
 // groups y, y + kSumSlices, ... of one output entry; thread (x, 0) then
@@ -2074,6 +2402,75 @@ cudaError_t shw_prepare(const ShwCall& sc, const float* consts,
   return cudaGetLastError();
 }
 
+// A K10c/K10d call: its shapes (the first nine fields, from the caller),
+// what follows from them (pri_shapes) and where its scratch lies
+// (pri_layout), carved from one buffer in this order, each part aligned to
+// 16 bytes: masked, the plan (shw_plan's: kept lists n_tiles n_chunks, nk
+// n_tiles, off n_tiles + 1 and items max_items, int32); the staged rows
+// (Tp kRowQ float4s); the runs' partial d dirs (max_items 3 256 floats)
+// unless every tile has one item (direct: unmasked, one run a tile); the
+// blocks' table partials (blocks, Tp, 18), their bits (blocks, n_chunks)
+// and camera sums (blocks, 3).
+struct PriCall {
+  int Tp, chunk, R, H, W, th, run, blocks;
+  bool masked;
+  bool direct;
+  int n_tiles, n_chunks, runs;
+  long long max_items;  // the most work items: n_tiles runs
+  int* kept;
+  int* nk;
+  int* off;
+  int* items;
+  float4* rows;
+  float* dd_part;
+  float* partials;
+  unsigned* touched;
+  float* cam_partials;
+  size_t bytes;
+};
+
+bool pri_shapes(PriCall& pc) {
+  if (bad_shape(pc.Tp, pc.chunk, pc.R) || pc.run < 1) return false;
+  pc.n_tiles = ray_blocks(pc.masked, pc.R, pc.H, pc.W, pc.th);
+  pc.n_chunks = pc.Tp / pc.chunk;
+  pc.runs = (pc.n_chunks + pc.run - 1) / pc.run;
+  pc.max_items = static_cast<long long>(pc.n_tiles) * pc.runs;
+  pc.direct = !pc.masked && pc.runs == 1;
+  return pc.n_tiles >= 1 && pc.max_items <= 0x7fffffffLL &&
+         pc.blocks >= 1 && pc.blocks <= pc.max_items;
+}
+
+// Carves the scratch at base (null: sizes it only); false where base
+// holds fewer than the bytes the call needs.
+bool pri_layout(PriCall& pc, void* base, long long avail) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    const uintptr_t q = n == 0 ? 0 : p + at;
+    at += align16(n);
+    return q;
+  };
+  const size_t items = static_cast<size_t>(pc.max_items);
+  const size_t m = pc.masked ? 1 : 0, blocks = pc.blocks;
+  pc.kept = reinterpret_cast<int*>(
+      take(m * pc.n_tiles * static_cast<size_t>(pc.n_chunks) * sizeof(int)));
+  pc.nk = reinterpret_cast<int*>(take(m * pc.n_tiles * sizeof(int)));
+  pc.off = reinterpret_cast<int*>(take(m * (pc.n_tiles + 1) * sizeof(int)));
+  pc.items = reinterpret_cast<int*>(take(m * items * sizeof(int)));
+  pc.rows = reinterpret_cast<float4*>(
+      take(static_cast<size_t>(pc.Tp) * kRowQ * sizeof(float4)));
+  pc.dd_part = reinterpret_cast<float*>(
+      take((pc.direct ? 0 : 1) * items * 3 * kThreads * sizeof(float)));
+  pc.partials = reinterpret_cast<float*>(
+      take(blocks * static_cast<size_t>(pc.Tp) * kPriUsed * sizeof(float)));
+  pc.touched = reinterpret_cast<unsigned*>(
+      take(blocks * static_cast<size_t>(pc.n_chunks) * sizeof(unsigned)));
+  pc.cam_partials =
+      reinterpret_cast<float*>(take(blocks * 3 * sizeof(float)));
+  pc.bytes = at;
+  return base != nullptr && avail >= static_cast<long long>(at);
+}
+
 }  // namespace
 
 // consts (Tp, 32) float32 device pointer in chunks of `chunk` <= 32 rows;
@@ -2103,43 +2500,93 @@ extern "C" int raytpu_soft_rt_pri_fwd(const void* consts, int Tp, int chunk,
 }
 
 // consts, cam, dirs and mask (K10c without, K10d with) as for
-// raytpu_soft_rt_pri_fwd; m (R,) and cot (10, R) float32; partials
-// (groups, Tp, 18) and cam_partials (groups, 3) float32 scratch, 1 <=
-// groups <= the blocks of 256 rays (every block takes one at least); dc
-// (Tp, 32), dcam (3,) and dd (3, R) float32 outputs, every entry written.
-// Launches the kernel and the sums over groups on `stream`; returns the
-// first cudaError_t.
+// raytpu_soft_rt_pri_fwd; m (R,) and cot (10, R) float32; run the most
+// chunks a work item takes; blocks the kernel's blocks (1 <= blocks <= the
+// most work items), each with its own table partial; scratch (at least what
+// raytpu_soft_rt_pri_scratch gives for these shapes and blocks); dc (Tp,
+// 32), dcam (3,) and dd (3, R) float32 outputs, every entry written.
+// Launches the plan (masked), the rows' staging, the kernel, the merge of
+// the runs' d dirs (unless direct) and the sums over blocks on `stream`;
+// returns the first cudaError_t.
 extern "C" int raytpu_soft_rt_pri_bwd(const void* consts, int Tp, int chunk,
                                       const void* cam, const void* dirs,
                                       int R, const void* mask, int H, int W,
                                       int th, float es, float zs,
                                       const void* m, const void* cot,
-                                      int groups, void* partials,
-                                      void* cam_partials, void* dc,
+                                      int run, int blocks, void* scratch,
+                                      long long scratch_bytes, void* dc,
                                       void* dcam, void* dd, void* stream) {
-  const int n_tiles = ray_blocks(mask != nullptr, R, H, W, th);
-  if (bad_shape(Tp, chunk, R) || n_tiles < 1 || groups < 1 ||
-      groups > n_tiles) {
+  PriCall pc{Tp, chunk, R, H, W, th, run, blocks, mask != nullptr};
+  if (!pri_shapes(pc) || !pri_layout(pc, scratch, scratch_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partials);
-  float* cpart = static_cast<float*>(cam_partials);
-  auto kernel = mask ? soft_rt_pri_bwd_kernel<true>
-                     : soft_rt_pri_bwd_kernel<false>;
-  kernel<<<groups, kThreads, 0, st>>>(
-      static_cast<const float*>(consts), Tp, chunk,
-      static_cast<const float*>(cam), static_cast<const float*>(dirs), R,
-      static_cast<const int*>(mask), H, W, th, n_tiles, es, zs,
-      static_cast<const float*>(m), static_cast<const float*>(cot), groups,
-      part, cpart, static_cast<float*>(dd));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = sum_groups(part, groups, Tp, kPriUsed, kPriCols,
-                   static_cast<float*>(dc), st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)sum_groups(cpart, groups, 1, 3, 3, static_cast<float*>(dcam),
-                         st);
+  cudaError_t err;
+  if (pc.masked) {
+    shw_plan_kernel<<<(pc.n_tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        static_cast<const int*>(mask), pc.n_tiles, pc.n_chunks, pc.kept,
+        pc.nk);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    shw_items_kernel<<<1, kScanThreads, 0, st>>>(pc.nk, pc.n_tiles, run,
+                                                 pc.off, pc.items);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  pack_pri_rows_kernel<<<(Tp + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      static_cast<const float*>(consts), Tp, zs, pc.rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const ShwPlan pl{pc.kept, pc.nk, pc.off, pc.items, pc.n_tiles, pc.n_chunks,
+                   run, pc.runs, static_cast<int>(pc.max_items)};
+  auto kernel = pc.masked ? soft_rt_pri_bwd_kernel<true>
+                          : soft_rt_pri_bwd_kernel<false>;
+  float* ddo = static_cast<float*>(dd);
+  kernel<<<blocks, kThreads, 0, st>>>(
+      pc.rows, Tp, chunk, static_cast<const float*>(cam),
+      static_cast<const float*>(dirs), R, H, W, th, es, zs,
+      static_cast<const float*>(m), static_cast<const float*>(cot), pl,
+      pc.partials, pc.touched, pc.cam_partials, pc.dd_part, ddo);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (!pc.direct) {
+    auto merge = pc.masked ? pri_bwd_merge_kernel<true>
+                           : pri_bwd_merge_kernel<false>;
+    merge<<<pc.n_tiles, kThreads, 0, st>>>(pl, R, H, W, th, pc.dd_part, ddo);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const int n = Tp * kPriCols;
+  sum_touched_kernel<<<(n + 31) / 32, dim3(32, kSumSlices), 0, st>>>(
+      pc.partials, pc.touched, blocks, Tp, chunk, static_cast<float*>(dc));
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)sum_groups(pc.cam_partials, blocks, 1, 3, 3,
+                         static_cast<float*>(dcam), st);
+}
+
+// The blocks of K10c and K10d the card holds at once: the SMs times the
+// fewer blocks an SM of the two instances, so that an all-ones mask and no
+// mask take the same grid; -1 where the device cannot be read.
+extern "C" int raytpu_soft_rt_pri_bwd_fit() {
+  int dev = 0, sms = 0, masked = 0, unmasked = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &masked, soft_rt_pri_bwd_kernel<true>, kThreads, 0) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &unmasked, soft_rt_pri_bwd_kernel<false>, kThreads, 0) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return sms * (masked < unmasked ? masked : unmasked);
+}
+
+// The bytes of the scratch of a K10c/K10d call with these shapes (masked:
+// 1 with a mask) and blocks, or -1 where the kernels refuse them.
+extern "C" long long raytpu_soft_rt_pri_scratch(int Tp, int chunk, int R,
+                                                int masked, int H, int W,
+                                                int th, int run, int blocks) {
+  PriCall pc{Tp, chunk, R, H, W, th, run, blocks, masked != 0};
+  if (!pri_shapes(pc)) return -1;
+  pri_layout(pc, nullptr, 0);
+  return static_cast<long long>(pc.bytes);
 }
 
 // consts (Tp, 16) float32 in chunks of `chunk` <= 32 rows; srcs (S, 3),
@@ -2333,16 +2780,17 @@ extern "C" int raytpu_soft_rt_pri_bwd_tables(const void* consts, int Tp,
 }
 
 // K10f: consts, cam, dirs, m and cot as for raytpu_soft_rt_pri_bwd_tables;
+// run the chunks of K10c's runs, whose sums d dirs folds as K10c does;
 // scratch: rows (Tp, 24) float32, the staged table; dd (3, R) float32
-// output. Launches the table's staging and the kernel
-// on `stream`; returns the first cudaError_t.
+// output. Launches the table's staging and the kernel on `stream`; returns
+// the first cudaError_t.
 extern "C" int raytpu_soft_rt_pri_bwd_dirs(const void* consts, int Tp,
                                            int chunk, const void* cam,
                                            const void* dirs, int R, float es,
-                                           float zs, const void* m,
+                                           float zs, int run, const void* m,
                                            const void* cot, void* rows,
                                            void* dd, void* stream) {
-  if (bad_shape(Tp, chunk, R)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(Tp, chunk, R) || run < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float4* staged = static_cast<float4*>(rows);
   pack_pri_rows_kernel<<<(Tp + kThreads - 1) / kThreads, kThreads, 0, st>>>(
@@ -2352,7 +2800,7 @@ extern "C" int raytpu_soft_rt_pri_bwd_dirs(const void* consts, int Tp,
   soft_rt_pri_bwd_dirs_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
                                 st>>>(
       staged, Tp, chunk, static_cast<const float*>(cam),
-      static_cast<const float*>(dirs), R, es, zs,
+      static_cast<const float*>(dirs), R, es, zs, run,
       static_cast<const float*>(m), static_cast<const float*>(cot),
       static_cast<float*>(dd));
   return (int)cudaGetLastError();

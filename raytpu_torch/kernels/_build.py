@@ -85,9 +85,14 @@ SIGNATURES = {
     "raytpu_soft_rt_pri_fwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
                                _F, _P, _P, _P, _P],
     # consts, Tp, chunk, cam, dirs, R, mask (or null), H, W, th, es, zs, m,
-    # cot, groups, partials, cam_partials, dc, dcam, dd, stream
+    # cot, run, blocks, scratch, scratch_bytes, dc, dcam, dd, stream
     "raytpu_soft_rt_pri_bwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
-                               _F, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+                               _F, _P, _P, _I, _I, _P, _L, _P, _P, _P, _P],
+    # the blocks of K10c / K10d the card holds at once (-1: none)
+    "raytpu_soft_rt_pri_bwd_fit": [],
+    # Tp, chunk, R, masked, H, W, th, run, blocks: the scratch bytes of a
+    # K10c / K10d call (-1: refused)
+    "raytpu_soft_rt_pri_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I],
     # consts, Tp, chunk, srcs, S, world, R, mask (or null), H, W, th, es,
     # zs, run, scratch, scratch_bytes, trans, stream
     "raytpu_soft_rt_shw_fwd": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
@@ -108,9 +113,9 @@ SIGNATURES = {
     # partials, cam_partials, dc, dcam, stream
     "raytpu_soft_rt_pri_bwd_tables": [_P, _I, _I, _P, _P, _I, _F, _F, _P, _P,
                                       _P, _I, _P, _P, _P, _P, _P],
-    # consts, Tp, chunk, cam, dirs, R, es, zs, m, cot, rows, dd, stream
-    "raytpu_soft_rt_pri_bwd_dirs": [_P, _I, _I, _P, _P, _I, _F, _F, _P, _P,
-                                    _P, _P, _P],
+    # consts, Tp, chunk, cam, dirs, R, es, zs, run, m, cot, rows, dd, stream
+    "raytpu_soft_rt_pri_bwd_dirs": [_P, _I, _I, _P, _P, _I, _F, _F, _I, _P,
+                                    _P, _P, _P, _P],
     # x, n, out, stream
     "raytpu_soft_rt_expf": [_P, _I, _P, _P],
     # x, n, out, stream
@@ -137,7 +142,8 @@ SIGNATURES = {
 
 RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L,
             "raytpu_soft_raster_bwd_scratch": _L,
-            "raytpu_soft_rt_shw_scratch": _L}
+            "raytpu_soft_rt_shw_scratch": _L,
+            "raytpu_soft_rt_pri_scratch": _L}
 
 _lib: ctypes.CDLL | None = None
 

@@ -669,6 +669,15 @@ def run_tiny_reference(x):
     return x * 2.0
 
 
+def launch_tiny_kernel(x, out) -> None:
+    """Launch L4 on contiguous float32 x and out of the same n <= 1024
+    elements, at any address (out = 2 x). Checks nothing and counts
+    nothing; run_tiny does both."""
+    _raise_on(_build.load().raytpu_lab_tiny(
+        x.data_ptr(), out.data_ptr(), x.numel(),
+        torch.cuda.current_stream().cuda_stream), "tiny")
+
+
 def run_tiny(x):
     """L4's wrapper (megakernel_lab3.py::run_tiny): x (8, 128) float32 ->
     2 x."""
@@ -679,9 +688,6 @@ def run_tiny(x):
     x = x.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _build.load().raytpu_lab_tiny(
-            x.data_ptr(), out.data_ptr(), x.numel(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "tiny")
+        launch_tiny_kernel(x, out)
     LAUNCHES_TINY += 1
     return out

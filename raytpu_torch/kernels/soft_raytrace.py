@@ -27,8 +27,10 @@ chunk's sums).
                     ``shadow_bwd_consts`` (d consts) and K10l's
                     ``shadow_bwd_rays`` (d sources, d world).
   *_reference       their plain PyTorch versions.
-  primary_dead_pairs  the plain form of K10e's and K10f's early-out: the
-                    pairs they prove of weight exactly 0 and skip.
+  primary_dead_pairs  the plain form of K10c-K10f's early-out: the pairs
+                    they prove of weight exactly 0 and skip.
+  primary_bwd_items plain model of K10c's and K10d's work items: each
+                    tile's kept chunks cut into runs of PRI_RUN.
   shadow_dead_triples  the plain form of K10i's, K10j's, K10k's and K10l's
                     early-out: the triples whose sigmoid is exactly 0, which
                     they skip.
@@ -67,8 +69,8 @@ in VMEM, so above ``_FUSED_BWD_MAX_ROWS`` 16-column rows (Tp > 32,768 for the
 launches, one owning the table's rows and one the rays, and that route takes
 no mask: a culled frame's backward there runs over every pair (the forward
 stays culled). The port routes on the same predicates: the fused kernels'
-per-block table partials (capped at PARTIAL_BYTES) leave fewer blocks than
-the H100 has SMs at such sizes, and the split needs none.
+per-block table partials (capped at PARTIAL_BYTES) grow with the table, and
+the split needs none.
 
 The JAX kernels also take a (1, 16) globals row and the (L, 8) lights
 table. ``_primary_terms`` reads only the globals' first three entries, the
@@ -145,11 +147,6 @@ OD_SCALE = 16.0
 T_NEAR = 0.1  # raytpu/render/soft.py::_T_NEAR: the bounded depth's floor
 # The kernels' block: this many rays (or shadow points) a block.
 THREADS = 256
-# Backward grid: at most this many blocks (8 per SM of an H100), each
-# taking every groups-th block of rays, and at most this many bytes of
-# per-block table partials in all.
-BWD_BLOCKS = 132 * 8
-PARTIAL_BYTES = 256 << 20
 # The JAX package's cull constants (soft_raytrace_pallas.py:1374, 1454-1455,
 # 1479-1483), copied: a dropped pair's weight is at most e^-CULL_MARGIN of
 # the background's; the slacks, float32 where they meet a float32 array.
@@ -160,7 +157,7 @@ _CULL_ABS = float(np.float32(1e-3))
 # ``_FUSED_BWD_MAX_ROWS``), copied: above this many 16-column rows the
 # backwards take the two-launch route (pri_two_launch, shw_two_launch).
 FUSED_BWD_MAX_ROWS = 65536
-# K10e and K10f stop a (ray, row) pair whose logit bound lies more than this
+# K10c-K10f stop a (ray, row) pair whose logit bound lies more than this
 # below the ray's saved max: its weight is exactly 0 (primary_dead_pairs,
 # csrc/soft_raytrace.cu::pri_pair_dead).
 DEAD_BELOW = -110.0
@@ -190,17 +187,27 @@ SHW_STAGED = 24
 # order (csrc/soft_raytrace.cu, "K10g-K10j, redesigned"); K10l folds d
 # world in the same runs. The backward's blocks, as many as the card holds
 # at once (shw_bwd_blocks), each keep a (Tp, 14) partial of the table's
-# gradient, at most SHW_PARTIAL_BYTES of them in all: the shadow
-# backward's own cap, sized for the H100's 80 GB (1 GiB: on the H100 the
-# card's 396 blocks at Tp = 36,000, where PARTIAL_BYTES left 133; 288 at
-# 66,560). SHW_RUN 16 beat 32 on the culled steps' K10h and K10j at 36,000
-# triangles (chip_smoke.py phase 32). The scratch (shw_scratch) also
-# holds the masked plan (an int a mask entry), each source's staged rows
-# (96 B a row) and the runs' partial od (1 KB an item) or d world (3 KB an
-# item) for the most items, n_tiles S ceil(n_chunks / SHW_RUN): 223 MB at
-# Tp = 36,000 and S = 1.
+# gradient, at most PARTIAL_BYTES of them in all, a cap sized for the
+# H100's 80 GB (1 GiB: on the H100 the card's 396 blocks at Tp = 36,000,
+# where the first design's 256 MiB left 133; 288 at 66,560). K10c and K10d
+# (since their redesign) keep (Tp, 18) partials under the same cap, written
+# only where a lane had a live pair. SHW_RUN 16 beat 32 on the culled
+# steps' K10h and K10j at 36,000 triangles (chip_smoke.py phase 32). The
+# scratch (shw_scratch) also holds the masked plan (an int a mask entry),
+# each source's staged rows (96 B a row) and the runs' partial od (1 KB an
+# item) or d world (3 KB an item) for the most items, n_tiles S
+# ceil(n_chunks / SHW_RUN): 223 MB at Tp = 36,000 and S = 1.
 SHW_RUN = 16
-SHW_PARTIAL_BYTES = 1 << 30
+PARTIAL_BYTES = 1 << 30
+# K10c and K10d cut each tile's kept chunks (unmasked: every chunk) into
+# runs of at most PRI_RUN, a work item each, in (tile, run) order, from the
+# plan K10j's kernels make (csrc/soft_raytrace.cu, "K10c and K10d,
+# redesigned"); K10f folds d dirs in the same runs. On the culled 9,216
+# step a tile keeps up to 111 of 288 chunks: 4,785 items. The scratch
+# (pri_scratch) holds the plan, the staged rows (96 B a row), the runs'
+# partial d dirs (3 KB an item) for the most items and the blocks'
+# partials: 322 MB at Tp = 9,216 on 512^2 rays and 396 blocks.
+PRI_RUN = 16
 
 
 def pri_two_launch(Tp: int) -> bool:
@@ -493,7 +500,7 @@ def primary_agg_reference(consts, cam, dirs, es: float, zs: float,
 
 
 def primary_dead_pairs(cs, dirs, m, es: float, zs: float) -> torch.Tensor:
-    """Plain PyTorch form of K10e's and K10f's early-out
+    """Plain PyTorch form of K10c-K10f's early-out
     (csrc/soft_raytrace.cu::pri_pair_dead) in its operations' order, for
     the tests and chip_smoke.py; the kernels' route never calls it. cs
     (C, 32) rows of the primary table, dirs (3, R), m (R,) the forward's
@@ -524,6 +531,22 @@ def primary_dead_pairs(cs, dirs, m, es: float, zs: float) -> torch.Tensor:
     zb = torch.zeros_like(zinv_max) if zs < 0.0 else zs * zinv_max
     bound = (zb + cap) + torch.log(col(16) + 1e-20)
     return ~hit | ((bound - m[None, :]) < DEAD_BELOW)
+
+
+def primary_bwd_items(mask, n_tiles: int, n_chunks: int,
+                      run: int = PRI_RUN) -> list:
+    """Plain model of K10c's and K10d's work items (the plan of
+    csrc/soft_raytrace.cu's shw_plan_kernel and shw_items_kernel with one
+    source a tile; unmasked, every chunk): each tile's kept chunks (mask
+    (n_tiles, n_chunks) != 0, or every chunk where mask is None) in order,
+    cut into runs of at most ``run``, a work item each, in (tile, run)
+    order. Returns [(tile, [chunk, ...]), ...]."""
+    items = []
+    for t in range(n_tiles):
+        kept = (list(range(n_chunks)) if mask is None
+                else torch.nonzero(mask[t]).squeeze(1).tolist())
+        items += [(t, kept[i:i + run]) for i in range(0, len(kept), run)]
+    return items
 
 
 def _shadow_test(cs, src, world, es: float, zs: float):
@@ -816,19 +839,6 @@ def _check_mask(mask, tiles: RayTiles, R: int, shape: tuple,
     _check("mask", mask, (tiles.count, *shape), device, torch.int32)
 
 
-def bwd_groups(Tp: int, used: int, R: int) -> int:
-    """The backward's blocks: one a block of THREADS rays at most, at most
-    BWD_BLOCKS, and partials of at most PARTIAL_BYTES."""
-    n_tiles = -(-R // THREADS)
-    return max(1, min(n_tiles, BWD_BLOCKS, PARTIAL_BYTES // (Tp * used * 4)))
-
-
-def _groups(Tp: int, used: int, R: int, tiles: RayTiles | None) -> int:
-    """bwd_groups over the rays' blocks: R rays in runs of THREADS, or the
-    masked kernels' tiles."""
-    return bwd_groups(Tp, used, R if tiles is None else tiles.count * THREADS)
-
-
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -858,18 +868,63 @@ def launch_pri_fwd_kernel(consts, chunk: int, cam, dirs, es: float,
         out.data_ptr(), m.data_ptr(), s.data_ptr(), _stream()))
 
 
+def pri_items(n_tiles: int, n_chunks: int) -> int:
+    """The most work items of a K10c/K10d call: every tile keeping every
+    chunk, ceil(n_chunks / PRI_RUN) runs each (exactly K10c's items)."""
+    return n_tiles * -(-n_chunks // PRI_RUN)
+
+
+def pri_blocks(Tp: int, n_items: int, fit: int) -> int:
+    """K10c's and K10d's blocks for a (Tp, 32) table with at most n_items
+    work items, where the card holds ``fit`` blocks at once: at most the
+    items, at most fit (a second wave's blocks would start their items when
+    the first wave's are done) and PARTIAL_BYTES of (Tp, 18) partials."""
+    return max(1, min(n_items, fit, PARTIAL_BYTES // (Tp * PRI_USED * 4)))
+
+
+def pri_bwd_blocks(consts, chunk: int, n_tiles: int) -> int:
+    """pri_blocks on the card (the library's raytpu_soft_rt_pri_bwd_fit, the
+    same for both kernels, so that an all-ones mask and no mask take one
+    grid) for a (Tp, 32) table in chunks of ``chunk`` and n_tiles tiles."""
+    fit = _build.load().raytpu_soft_rt_pri_bwd_fit()
+    if fit < 1:
+        raise RuntimeError(f"soft_rt_pri_bwd: no block fits ({fit})")
+    Tp = consts.shape[0]
+    return pri_blocks(Tp, pri_items(n_tiles, Tp // chunk), fit)
+
+
+def pri_scratch(consts, chunk: int, dirs, mask=None, tiles: RayTiles = None,
+                *, blocks: int) -> torch.Tensor:
+    """A fresh scratch buffer (uint8, on consts' device) for one K10c/K10d
+    call on these inputs with ``blocks`` blocks, sized by the kernels'
+    library (csrc/soft_raytrace.cu::PriCall)."""
+    H, W, th = ((tiles.height, tiles.width, tiles.th) if mask is not None
+                else (0, 0, 0))
+    n = _build.load().raytpu_soft_rt_pri_scratch(
+        consts.shape[0], chunk, dirs.shape[1], int(mask is not None), H, W,
+        th, PRI_RUN, blocks)
+    if n < 0:
+        raise ValueError(f"the primary backward takes no table of "
+                         f"{consts.shape[0]} rows in chunks of {chunk} on "
+                         f"{dirs.shape[1]} rays and {blocks} blocks")
+    return torch.empty((n,), dtype=torch.uint8, device=consts.device)
+
+
 def launch_pri_bwd_kernel(consts, chunk: int, cam, dirs, es: float,
-                          zs: float, m, cot, partials, cam_partials, dc,
-                          dcam, dd, mask=None, tiles: RayTiles = None) -> None:
-    """Launch K10c (K10d with a mask) and the sums of its partials (groups,
-    Tp, 18) and (groups, 3) into dc (Tp, 32), dcam (3,) and dd (3, R), all
-    allocated by the caller. Checks nothing and counts nothing."""
+                          zs: float, m, cot, dc, dcam, dd, mask=None,
+                          tiles: RayTiles = None, *, blocks: int,
+                          scratch) -> None:
+    """Launch K10c (K10d with a mask) with ``blocks`` blocks and the scratch
+    of pri_scratch(blocks=blocks): the plan, the rows' staging, the kernel,
+    the merge of its runs and the sums of its blocks' partials into dc (Tp,
+    32), dcam (3,) and dd (3, R), all allocated by the caller. Checks
+    nothing and counts nothing."""
     _raise("soft_rt_pri_bwd", _build.load().raytpu_soft_rt_pri_bwd(
         consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
         dirs.data_ptr(), dirs.shape[1], *_tile_args(mask, tiles), es, zs,
-        m.data_ptr(), cot.data_ptr(), partials.shape[0], partials.data_ptr(),
-        cam_partials.data_ptr(), dc.data_ptr(), dcam.data_ptr(),
-        dd.data_ptr(), _stream()))
+        m.data_ptr(), cot.data_ptr(), PRI_RUN, blocks, scratch.data_ptr(),
+        scratch.numel(), dc.data_ptr(), dcam.data_ptr(), dd.data_ptr(),
+        _stream()))
 
 
 def shw_items(n_tiles: int, S: int, n_chunks: int) -> int:
@@ -885,19 +940,19 @@ def shw_bwd_blocks(consts, chunk: int, n_tiles: int, S: int) -> int:
     (shw_items), as many as the card holds at once (a second wave's blocks
     would start their items when the first wave's are done; the library's
     raytpu_soft_rt_shw_bwd_fit, the same for both kernels, so that an
-    all-ones mask and no mask take one grid), and SHW_PARTIAL_BYTES of
+    all-ones mask and no mask take one grid), and PARTIAL_BYTES of
     (Tp, 14) partials."""
     Tp = consts.shape[0]
     fit = _build.load().raytpu_soft_rt_shw_bwd_fit(Tp // chunk)
     if fit < 1:
         raise RuntimeError(f"soft_rt_shw_bwd: no block fits ({fit})")
     return max(1, min(shw_items(n_tiles, S, Tp // chunk), fit,
-                      SHW_PARTIAL_BYTES // (Tp * SHW_USED * 4)))
+                      PARTIAL_BYTES // (Tp * SHW_USED * 4)))
 
 
-def _shw_tiles(R: int, mask, tiles: RayTiles | None) -> int:
-    """The tiles the shadow kernels take: the mask's, or runs of THREADS
-    consecutive points."""
+def _tile_count(R: int, mask, tiles: RayTiles | None) -> int:
+    """The tiles the fused backwards (K10c, K10d, K10i, K10j) take: the
+    mask's, or runs of THREADS consecutive rays or points."""
     return -(-R // THREADS) if mask is None else tiles.count
 
 
@@ -981,11 +1036,12 @@ def launch_pri_bwd_tables_kernel(consts, chunk: int, cam, dirs, es: float,
 def launch_pri_bwd_dirs_kernel(consts, chunk: int, cam, dirs, es: float,
                                zs: float, m, cot, rows, dd) -> None:
     """Launch K10f (the table's staging into rows (Tp, ROW_STAGED) and the
-    kernel) into dd (3, R). Checks nothing and counts nothing."""
+    kernel, folding d dirs in K10c's runs of PRI_RUN chunks) into dd (3,
+    R). Checks nothing and counts nothing."""
     _raise("soft_rt_pri_bwd_dirs", _build.load().raytpu_soft_rt_pri_bwd_dirs(
         consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
-        dirs.data_ptr(), dirs.shape[1], es, zs, m.data_ptr(), cot.data_ptr(),
-        rows.data_ptr(), dd.data_ptr(), _stream()))
+        dirs.data_ptr(), dirs.shape[1], es, zs, PRI_RUN, m.data_ptr(),
+        cot.data_ptr(), rows.data_ptr(), dd.data_ptr(), _stream()))
 
 
 def expf_probe(x: torch.Tensor) -> torch.Tensor:
@@ -1118,15 +1174,15 @@ def primary_agg_bwd(consts, cam, dirs, m, cot, es: float, zs: float,
     Tp = consts.shape[0]
     if mask is not None:
         _check_mask(mask, tiles, R, (Tp // chunk,), consts.device)
-    groups = _groups(Tp, PRI_USED, R, tiles if mask is not None else None)
-    partials = consts.new_empty((groups, Tp, PRI_USED))
-    cam_partials = consts.new_empty((groups, 3))
     dc, dcam, dd = (torch.empty_like(consts), torch.empty_like(cam),
                     torch.empty_like(dirs))
     with torch.cuda.device(consts.device):
-        launch_pri_bwd_kernel(consts, chunk, cam, dirs, es, zs, m, cot,
-                              partials, cam_partials, dc, dcam, dd, mask,
-                              tiles)
+        blocks = pri_bwd_blocks(consts, chunk, _tile_count(R, mask, tiles))
+        launch_pri_bwd_kernel(
+            consts, chunk, cam, dirs, es, zs, m, cot, dc, dcam, dd, mask,
+            tiles, blocks=blocks,
+            scratch=pri_scratch(consts, chunk, dirs, mask, tiles,
+                                blocks=blocks))
     if mask is None:
         LAUNCHES_SRT_PRI_BWD += 1
     else:
@@ -1193,7 +1249,7 @@ def shadow_trans_bwd(consts, srcs, world, trans, gcot, es: float, zs: float,
     Tp = consts.shape[0]
     if mask is not None:
         _check_mask(mask, tiles, R, (S, Tp // chunk), consts.device)
-    blocks = shw_bwd_blocks(consts, chunk, _shw_tiles(R, mask, tiles), S)
+    blocks = shw_bwd_blocks(consts, chunk, _tile_count(R, mask, tiles), S)
     dc, dsrc, dw = (torch.empty_like(consts), torch.empty_like(srcs),
                     torch.empty_like(world))
     with torch.cuda.device(consts.device):

@@ -1455,12 +1455,12 @@ def test_dead_pair_kernels_through_the_hole(cuda):
     assert srt.pri_two_launch(inp.pri.shape[0])
     dc, dcam = srt.primary_bwd_tables(*pargs)
     dd = srt.primary_bwd_dirs(*pargs)
-    partials = torch.empty((1, inp.pri.shape[0], srt.PRI_USED), device=cuda)
     fused = (torch.empty_like(inp.pri), torch.empty(3, device=cuda),
              torch.empty_like(inp.dirs))
-    srt.launch_pri_bwd_kernel(inp.pri, inp.chunk, camera.pos.contiguous(),
-                              inp.dirs, inp.es, inp.zs, m, pargs[4], partials,
-                              torch.empty((1, 3), device=cuda), *fused)
+    srt.launch_pri_bwd_kernel(
+        inp.pri, inp.chunk, camera.pos.contiguous(), inp.dirs, inp.es,
+        inp.zs, m, pargs[4], *fused, blocks=1,
+        scratch=srt.pri_scratch(inp.pri, inp.chunk, inp.dirs, blocks=1))
     dead = all(bool(srt.primary_dead_pairs(inp.pri[lo:lo + inp.chunk],
                                            inp.dirs, m, inp.es,
                                            inp.zs).all())
@@ -2242,3 +2242,96 @@ def test_kernel_lab_and_overhead_kernels_match_plain_versions(cuda):
     r = timing.chain_time(labs.run_tiny, ones, iters=3, batches=1, reps=1)
     assert r["graph"] is not None and r["graph"] > 0
     assert r["calls"]["captured"] == 3 and r["calls"]["replayed"] == 6
+
+
+@pytest.mark.parametrize("run", [3, None], ids=["runs-of-3", "PRI_RUN"])
+@pytest.mark.parametrize("layout", ["full-tile", "thin"])
+def test_masked_primary_backward_items(cuda, monkeypatch, run, layout):
+    """K10d where the first tile keeps every chunk (25 of the 800-triangle
+    torus's) and the others about half of what the culled frame's mask
+    keeps, so that tile's runs (9 of 3 chunks, or 2 of PRI_RUN) go to
+    different blocks; or spread thin, each tile keeping at most one chunk
+    (a seeded draw). Against the plain masked backward by column group
+    (float64 with the float32 branch decisions, F11's rule), two calls
+    bit-identical, a chunk no tile keeps exactly 0; with every bit set on
+    K10c's own tiles of 256 consecutive rays, K10c's bits; K10f's d dirs,
+    folded in the same runs, = K10c's bit for bit."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    from raytpu_torch.kernels.intersect import ray_tiles
+    if run is not None:
+        monkeypatch.setattr(srt, "PRI_RUN", run)
+    c = _srt_culled_case(cuda, 48, 48)
+    R, tiles = c["dirs"].shape[1], c["tiles"]
+    n_chunks = c["pri"].shape[0] // c["chunk"]
+    rng = np.random.default_rng(5)
+    mask = c["mask"].clone()
+    if layout == "full-tile":
+        draw = rng.uniform(size=tuple(mask.shape))
+        mask *= torch.tensor(draw < 0.5, device=cuda).int()
+        mask[0] = 1
+        assert int(mask[0].sum()) == n_chunks
+    else:
+        pick = rng.integers(0, n_chunks, size=mask.shape[0])
+        thin = torch.zeros_like(mask)
+        thin[torch.arange(mask.shape[0]), torch.tensor(pick)] = 1
+        mask *= thin
+        assert int(mask.sum(dim=1).max()) <= 1
+    assert 0 < int(mask.sum()) < mask.numel()
+    _, m, _ = srt.primary_agg_fwd(c["pri"], c["cam"], c["dirs"], c["es"],
+                                  c["zs"], c["chunk"], mask, tiles)
+    cot = _one_signed((10, R), cuda, 6)
+    pargs = (c["pri"], c["cam"], c["dirs"], m, cot, c["es"], c["zs"],
+             c["chunk"])
+    cull = dict(mask=mask, tiles=tiles)
+    count = srt.LAUNCHES_SRT_PRI_BWD_MASKED
+    got, again = (srt.primary_agg_bwd(*pargs, **cull),
+                  srt.primary_agg_bwd(*pargs, **cull))
+    want = srt.primary_agg_bwd_reference(
+        *(t.double() for t in pargs[:5]), *pargs[5:], f32_branches=True,
+        **cull)
+    plain = srt.primary_agg_bwd_reference(*pargs, **cull)
+    runs = ray_tiles(R, None, cuda)
+    ones = srt.primary_agg_bwd(
+        *pargs, mask=torch.ones((runs.count, n_chunks), dtype=torch.int32,
+                                device=cuda), tiles=runs)
+    brute = srt.primary_agg_bwd(*pargs)
+    dirs_k10f = srt.primary_bwd_dirs(*pargs)
+    torch.cuda.synchronize()
+    assert srt.LAUNCHES_SRT_PRI_BWD_MASKED == count + 3
+    for g, a, o, b in zip(got, again, ones, brute):
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+        assert torch.equal(o, b)
+    assert torch.equal(dirs_k10f, brute[2])
+    dropped = mask.amax(dim=0) == 0
+    assert not got[0].reshape(-1, c["chunk"], srt.PRI_COLS)[dropped].any()
+    rule = functools.partial(_assert_float64_rule, slack=2.0)
+    one = (("all", 0, 3),)
+    rule(got[0], want[0], plain[0], srt.PRI_GROUPS)
+    rule(got[1][None], want[1][None], plain[1][None], one)
+    rule(got[2].T, want[2].T, plain[2].T, one)
+
+
+@pytest.mark.parametrize("case", ["1024", "1023", "misaligned"])
+def test_tiny_kernel_is_x_times_two(cuda, case):
+    """L4 (float4s a thread, a scalar tail and a scalar path off 16-byte
+    alignment) equals x * 2 bit for bit on 1,024 and 1,023 elements and on
+    a view 4 bytes past an aligned address (through run_tiny), including
+    NaN, infinities, subnormals and values whose double overflows."""
+    from raytpu_torch.kernels import labs
+    rng = np.random.default_rng(7)
+    vals = rng.standard_normal(1025).astype(np.float32) * 1e3
+    vals[:6] = [np.nan, np.inf, -np.inf, 1e-40, -0.0, 3e38]
+    base = torch.tensor(vals, device=cuda)
+    if case == "misaligned":
+        x = base[1:].view(labs.TINY_SHAPE)
+        assert x.data_ptr() % 16 == 4
+        count = labs.LAUNCHES_TINY
+        got = labs.run_tiny(x)
+        assert labs.LAUNCHES_TINY == count + 1
+    else:
+        x = base[:int(case)].clone()
+        got = torch.empty_like(x)
+        labs.launch_tiny_kernel(x, got)
+    torch.cuda.synchronize()
+    want = x * 2
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -333,6 +333,9 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError, match="no route"):
         kernels.primary_agg_fwd(pri.to("meta"), torch.zeros(3),
                                 torch.zeros(3, 4), 1.0, 1.0, 8)
-    assert kernels.bwd_groups(32, kernels.PRI_USED, 512 * 512) == 1024
-    assert kernels.bwd_groups(9216, kernels.PRI_USED, 512 * 512) == 404
-    assert kernels.bwd_groups(32, kernels.SHW_USED, 100) == 1
+    # K10c's grid: the items (a tile a run of PRI_RUN chunks), at most the
+    # blocks the card holds at once, and PARTIAL_BYTES of partials.
+    assert kernels.pri_blocks(32, kernels.pri_items(1024, 1), 264) == 264
+    assert kernels.pri_blocks(32, kernels.pri_items(1, 1), 264) == 1
+    assert kernels.pri_blocks(9216, kernels.pri_items(1024, 288), 4096) \
+        == kernels.PARTIAL_BYTES // (9216 * kernels.PRI_USED * 4)
