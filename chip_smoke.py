@@ -433,8 +433,9 @@ FLOPS_SRT_PRI_CHAIN = (FLOPS_SRT_PRI_BWD - 18 - FLOPS_SRT_PRI_TABLE
                        - FLOPS_SRT_PRI_DIRS)
 FLOPS_SRT_SHW_CHAIN = (FLOPS_SRT_SHW_BWD - 14 - FLOPS_SRT_SHW_TABLE
                        - FLOPS_SRT_SHW_RAYS)
-# K10e and K10f (and, since their redesign, the fused K10c and K10d) stop
-# a pair that pri_pair_dead proves of weight 0 at its test
+# K10e and K10f (and, since their redesign, the fused K10c and K10d, and
+# the forwards K10a and K10b against their running max) stop a pair that
+# pri_pair_dead proves of weight 0 at its test
 # (csrc/soft_raytrace.cu): the gate (12) and then u and v's dot products
 # (10) and products (2), 1 - u - v (2), the margin's two minima (2), es
 # margin (1), min(xs, 0) (1), B's two adds (2), B - m (1) and the
@@ -1398,43 +1399,173 @@ def srt_shw_bwd(c, world, trans, gcot, plain=False, dtype=torch.float32,
         f32_branches=dtype != torch.float32, **cull)
 
 
+def pri_fwd_work(c, m, masked: bool = False) -> dict:
+    """What K10a (masked: K10b) and K10c (K10d) must do on a srt_case's
+    primary pairs, from the plain forms: (ray, row) pairs in all (masked:
+    of the rays whose tile keeps the row's chunk), gated, of a weight not
+    0 at the saved m; of those the gate passes, how many the forward's
+    test proves dead against the running carry of its work item
+    (srt.primary_fwd_walk, dead_pf) and how many K10c-K10f's test at the
+    saved m does (srt.primary_dead_pairs, dead_p); and the forward's plan
+    (srt.primary_fwd_items): its run, items and the tiles of more than one
+    item, which the merge folds. Requires that neither test marks a pair
+    of a weight not 0. Kept in c for the saved m it was counted at."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    key = "pri_work_masked" if masked else "pri_work"
+    if key in c and c[key][0] is m:
+        return c[key][1]
+    pri, d, chunk = c["pri"], c["dirs"], c["chunk"]
+    mask, tiles = (c["mask"], c["tiles"]) if masked else (None, None)
+    w = dict(pairs=0, gated_p=0, dead_pf=0, dead_p=0, live_p=0)
+    with torch.no_grad():
+        for k, keep, logit, dead in srt.primary_fwd_walk(
+                pri, c["cam"], d, c["es"], c["zs"], chunk, mask, tiles):
+            hit = logit != -1e30
+            live = torch.exp(logit - m[keep]) != 0.0
+            no_pair = srt.primary_dead_pairs(pri[k * chunk:(k + 1) * chunk],
+                                             d[:, keep], m[keep], c["es"],
+                                             c["zs"])
+            w["pairs"] += logit.numel()
+            w["gated_p"] += int((~hit).sum())
+            w["live_p"] += int(live.sum())
+            w["dead_pf"] += int((dead & hit).sum())
+            w["dead_p"] += int((no_pair & hit).sum())
+            require(not (dead & live).any(),
+                    "pri_fwd_work: no pair of weight not 0 proved dead "
+                    "against the running carry")
+            require(not (no_pair & live).any(),
+                    "pri_fwd_work: no pair of weight not 0 proved dead")
+    R, n_chunks = d.shape[1], pri.shape[0] // chunk
+    n_tiles = tiles.count if masked else -(-R // srt.THREADS)
+    run, items = srt.primary_fwd_items(None if mask is None else mask.cpu(),
+                                       n_tiles, n_chunks, R)
+    per_tile = np.bincount([t for t, _ in items], minlength=n_tiles)
+    w.update(fwd_run=run, fwd_items=len(items),
+             fwd_merged=int((per_tile > 1).sum()))
+    c[key] = (m, w)
+    return w
+
+
+def pri_fwd_line(w) -> str:
+    """The primary forward's counts (pri_fwd_work's w) as printed by
+    phases 19, 22, 26 and 28."""
+    hit = w["pairs"] - w["gated_p"]
+    return (f"{w['pairs']} pairs: {w['gated_p']} gated, {w['dead_pf']} "
+            f"proved dead against the running carry "
+            f"({w['dead_pf'] / max(hit, 1):.4%} of the gate's passing pairs; "
+            f"at the saved max {w['dead_p'] / max(hit, 1):.4%}), "
+            f"{hit - w['dead_pf']} live (not proved dead), {w['live_p']} of "
+            f"weight not 0; {w['fwd_items']} items of runs of "
+            f"{w['fwd_run']} chunks, {w['fwd_merged']} tiles of more than "
+            f"one item (merged)")
+
+
+@contextlib.contextmanager
+def pri_fwd_rule(run_min: int, items: int):
+    """K10a's and K10b's run rule (kernels/soft_raytrace.py
+    PRI_FWD_RUN_MIN, PRI_FWD_ITEMS, which the wrappers and launchers read
+    at each call) set to (run_min, items) inside the block."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    old = srt.PRI_FWD_RUN_MIN, srt.PRI_FWD_ITEMS
+    srt.PRI_FWD_RUN_MIN, srt.PRI_FWD_ITEMS = run_min, items
+    try:
+        yield
+    finally:
+        srt.PRI_FWD_RUN_MIN, srt.PRI_FWD_ITEMS = old
+
+
+# The run rules pri_fwd_rule_ms times, (PRI_FWD_RUN_MIN, PRI_FWD_ITEMS),
+# the rule in use first: the run's floor and the items the split aims at,
+# each moved alone, and (1024, 1), one item a tile (no split, no merge).
+FWD_RULES_UNMASKED = ((8, 1024), (8, 2048), (8, 4096), (1024, 1))
+FWD_RULES_MASKED = ((8, 1024), (4, 1024), (16, 1024), (32, 1024),
+                    (8, 2048), (8, 4096), (1024, 1))
+
+
+def pri_fwd_rule_ms(c, masked: bool, rules, n: int) -> list[dict]:
+    """K10a (masked: K10b) on a srt_case under each (run_min, items) of
+    rules: the plan's run, items and tiles of more than one item
+    (srt.primary_fwd_items) and the launcher's median device ms (held
+    stream, in turns, median of 5 of n calls). Requires every rule's m bit
+    for bit equal to the first rule's, and out and s within rtol 1e-5 /
+    atol 1e-6 of it: the split moves no max, only the rounding of the
+    sums. The launcher counts no launch. PERF.md §6 reads these
+    for the choice of PRI_FWD_RUN_MIN and PRI_FWD_ITEMS."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    pcull = _cull(c, masked, "mask")
+    R, n_chunks = c["dirs"].shape[1], c["pri"].shape[0] // c["chunk"]
+    n_tiles = c["tiles"].count if masked else -(-R // srt.THREADS)
+    mask = c["mask"].cpu() if masked else None
+    dev = c["dirs"].device
+    rows, outs, calls = [], [], {}
+    for run_min, items in rules:
+        with pri_fwd_rule(run_min, items):
+            run, plan = srt.primary_fwd_items(mask, n_tiles, n_chunks, R)
+            scratch = srt.pri_fwd_scratch(c["pri"], c["chunk"], c["dirs"],
+                                          **pcull)
+        out = (torch.empty((9, R), device=dev), torch.empty(R, device=dev),
+               torch.empty(R, device=dev))
+
+        def call(rule=(run_min, items), out=out, scratch=scratch):
+            with pri_fwd_rule(*rule):
+                srt.launch_pri_fwd_kernel(
+                    c["pri"], c["chunk"], c["cam"], c["dirs"], c["es"],
+                    c["zs"], *out, **pcull, scratch=scratch)
+
+        call()
+        per_tile = np.bincount([t for t, _ in plan], minlength=n_tiles)
+        rows.append(dict(run_min=run_min, items=items, run=run,
+                         n_items=len(plan),
+                         merged=int((per_tile > 1).sum()),
+                         scratch_mb=scratch.numel() / 1e6))
+        outs.append(out)
+        calls[f"{run_min}/{items}"] = call
+    torch.cuda.synchronize()
+    for row, out in zip(rows, outs):
+        errs = [(g - w).abs() for g, w in zip(out, outs[0])]
+        require(torch.equal(out[1], outs[0][1])
+                and all(bool((e <= 1e-6 + 1e-5 * w.abs()).all())
+                        for e, w in zip(errs, outs[0])),
+                f"rule {row['run_min']}/{row['items']}: m bitwise, out and "
+                f"s within rtol 1e-5 / atol 1e-6 of the rule in use")
+        row["max_abs_d"] = max(float(e.max()) for e in errs)
+    t = median_ms_in_turns(calls, n=n, reps=5, timer=held_ms)
+    for row in rows:
+        row["ms"] = t[f"{row['run_min']}/{row['items']}"]
+    return rows
+
+
+def pri_fwd_rule_line(rows) -> str:
+    """pri_fwd_rule_ms's rows as phases 22 and 28 print them."""
+    return "; ".join(
+        f"{r['run_min']}/{r['items']}: {r['ms']:.4f} ms, run {r['run']}, "
+        f"{r['n_items']} items, {r['merged']} merged, max |d| "
+        f"{r['max_abs_d']:.3g}" for r in rows)
+
+
 def srt_work(c, m, world, dl, masked: bool = False,
              primary: bool = True) -> dict:
     """What K10a-K10i (masked: K10b-K10j) must do on a srt_case, from a
-    plain recompute: (ray, row) pairs in all (masked: of the rays whose
-    tile keeps the row's chunk), gated, of a weight not 0 at the saved m,
-    and of those the gate passes, how many K10e's and K10f's early-out
-    proves of weight 0 (srt.primary_dead_pairs; primary False: none of
-    these); (source, point, row) triples in all (masked: kept), gated, and
-    of those the gate passes, how many the forwards' test skips
-    (srt.shadow_dead_terms) and how many have a term not 0; of the triples
-    whose cotangent dl (S, R) is not 0 (dl None: not counted), how many,
-    how many gated, how many of those the gate passes the backwards' test
-    finds dead (srt.shadow_dead_triples) and how many of a term not 0."""
+    plain recompute: the primary pairs as pri_fwd_work counts them
+    (primary False: none of these); (source, point, row) triples in all
+    (masked: kept), gated, and of those the gate passes, how many the
+    forwards' test skips (srt.shadow_dead_terms) and how many have a term
+    not 0; of the triples whose cotangent dl (S, R) is not 0 (dl None: not
+    counted), how many, how many gated, how many of those the gate passes
+    the backwards' test finds dead (srt.shadow_dead_triples) and how many
+    of a term not 0."""
     from raytpu_torch.kernels import soft_raytrace as srt
     from raytpu_torch.kernels.soft_raster import Kinks
-    pri, shw, d, chunk = c["pri"], c["shw"], c["dirs"], c["chunk"]
-    Tp, S = pri.shape[0], c["srcs"].shape[0]
+    shw, chunk = c["shw"], c["chunk"]
+    Tp, S = c["pri"].shape[0], c["srcs"].shape[0]
     tiles = c.get("tiles")
-    w = dict(pairs=0, gated_p=0, dead_p=0, live_p=0, triples=0, gated_s=0,
-             dead_f=0, live_f=0, act_s=0, act_gated_s=0, dead_s=0, live_s=0)
+    w = dict(pairs=0, gated_p=0, dead_p=0, dead_pf=0, live_p=0, triples=0,
+             gated_s=0, dead_f=0, live_f=0, act_s=0, act_gated_s=0,
+             dead_s=0, live_s=0)
+    if primary:
+        w.update(pri_fwd_work(c, m, masked))
     with torch.no_grad():
         for k, lo in enumerate(range(0, Tp, chunk)):
-            if primary:
-                keep = srt._kept(c["mask"] if masked else None, tiles, k)
-                dk = d[:, keep]
-                logit, _ = srt.primary_terms(pri[lo:lo + chunk], c["cam"],
-                                             dk[0:1], dk[1:2], dk[2:3],
-                                             c["es"], c["zs"])
-                w["pairs"] += logit.numel()
-                w["gated_p"] += int((logit == -1e30).sum())
-                live = torch.exp(logit - m[keep]) != 0.0
-                w["live_p"] += int(live.sum())
-                no_pair = srt.primary_dead_pairs(pri[lo:lo + chunk], dk,
-                                                 m[keep], c["es"], c["zs"])
-                w["dead_p"] += int((no_pair & (logit != -1e30)).sum())
-                require(not (no_pair & live).any(),
-                        "srt_work: no pair of weight not 0 proved dead")
             for s in range(S):
                 keep = srt._kept(c["smask"] if masked else None, tiles, k, s)
                 wk = world[:, keep]
@@ -1476,7 +1607,11 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
     a ray, the table's gradient out; shadow: 12 B a point and 4 B a
     (source, point) each way, 8 B in and 12 B out backward; masked, the
     keep-mask read once too), against the operations of FLOPS_SRT_*: the
-    gate alone for a gated pair or triple. The primary backward as
+    gate alone for a gated pair or triple. The primary forward as
+    redesigned: a pair it proves dead against the running carry 34
+    (FLOPS_SRT_PRI_DEAD), another the gate passes its logit (40, _LOGIT)
+    and, where its weight is not 0, the weight and the sums (_SUMS). The
+    primary backward as
     redesigned: a pair primary_dead_pairs proves dead 34
     (FLOPS_SRT_PRI_DEAD), another the gate passes 41 (_W) and, where its
     weight is not 0, the derivative and its sums (_BWD). The shadow kernels as
@@ -1494,7 +1629,8 @@ def srt_bounds(c, w, masked: bool = False) -> dict:
     return {
         "pri_fwd": bound_ms(R * 56 + Tp * 128 + 12 + pmask,
                             FLOPS_SRT_PRI_GATE * w["gated_p"]
-                            + FLOPS_SRT_PRI_LOGIT * hit_p
+                            + FLOPS_SRT_PRI_DEAD * w["dead_pf"]
+                            + FLOPS_SRT_PRI_LOGIT * (hit_p - w["dead_pf"])
                             + FLOPS_SRT_PRI_SUMS * w["live_p"]),
         "pri_bwd": bound_ms(R * 68 + Tp * 256 + 24 + pmask,
                             FLOPS_SRT_PRI_GATE * w["gated_p"]
@@ -4826,12 +4962,56 @@ def main() -> int:
         require(same, f"{name}: two kernel calls identical")
         require(all(bool(torch.isfinite(t).all()) for t in (*got, trans)),
                 f"{name}: finite")
+        say(f"  K10a on {name}: {pri_fwd_line(pri_fwd_work(c, got[1]))}")
         srt_err["k10a"] = max(srt_err["k10a"], err_a)
         srt_err["k10g"] = max(srt_err["k10g"], err_g)
         srt_out[name] = (got, world, trans)
         record[f"srt_fwd_{name}"] = dict(k10a=err_a, k10g=err_g,
                                          repeat_equal=same)
         del again, want, trans2, twant
+
+    # The render CLI's --stl frame (500^2, 283 chunks, cull=False), where
+    # the rule splits: 977 tiles of two work items each, folded by
+    # pri_fwd_merge_kernel<false>. Against the plain version, two calls,
+    # and one item a tile (the rule (1024, 1), no merge): m bit for bit.
+    stl500_frame = (load_stl(str(stl_path), device=dev),
+                    Camera.make((0.0, -0.5, -5.0), focal=250.0,
+                                dof_focus=1.3, device=dev),
+                    Lights.single(capacity=1, device=dev),
+                    RenderConfig(mode="soft"))  # the render CLI's --stl
+    stl500_case = c = srt_case(*stl500_frame)
+    t0 = time.perf_counter()
+    got, again = srt_fwd(c), srt_fwd(c)
+    want = srt_fwd(c, plain=True)
+    with pri_fwd_rule(1024, 1):
+        whole = srt_fwd(c)
+    torch.cuda.synchronize()
+    ok_a, err_a = agg_close(got, want)
+    ok_w, err_w = agg_close(got, whole)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    m_same = torch.equal(got[1], whole[1])
+    w = pri_fwd_work(c, got[1])
+    say(f"stl500_cli (Tp={c['pri'].shape[0]} in "
+        f"{c['pri'].shape[0] // c['chunk']} chunks, {c['dirs'].shape[1]} "
+        f"rays): K10a out/m/s vs plain max |d| {err_a:.3g} within rtol "
+        f"1e-5 / atol 1e-6 {ok_a}; two calls identical {same}; vs one item "
+        f"a tile: m bitwise {m_same}, out/s max |d| {err_w:.3g} within "
+        f"{ok_w} ({time.perf_counter() - t0:.1f} s)")
+    say(f"  K10a on stl500_cli: {pri_fwd_line(w)}")
+    require(c["pri"].shape[0] == 283 * 32 and c["chunk"] == 32
+            and w["fwd_merged"] > 0,
+            "stl500_cli: 283 chunks, tiles of several items merged")
+    require(ok_a, "stl500_cli: K10a within rtol 1e-5 / atol 1e-6 of its "
+                  "plain version")
+    require(same, "stl500_cli: two kernel calls identical")
+    require(m_same and ok_w, "stl500_cli: the merged items keep m's bits "
+                             "and out/s within the rule of one item a tile")
+    require(all(bool(torch.isfinite(t).all()) for t in got),
+            "stl500_cli: finite")
+    srt_err["k10a"] = max(srt_err["k10a"], err_a)
+    record["srt_fwd_stl500_cli"] = dict(k10a=err_a, repeat_equal=same,
+                                        m_equal_one_item=m_same)
+    del got, again, want, whole
 
     say("== phase 20: K10c and K10i against the plain backward in float64")
     srt_checks, srt_cots = {}, {}
@@ -5045,11 +5225,6 @@ def main() -> int:
                 return raytrace_soft(s_, c_, l_, cfg_, cull=cull)
         return run
 
-    stl500_frame = (load_stl(str(stl_path), device=dev),
-                    Camera.make((0.0, -0.5, -5.0), focal=250.0,
-                                dof_focus=1.3, device=dev),
-                    Lights.single(capacity=1, device=dev),
-                    RenderConfig(mode="soft"))  # the render CLI's --stl
     rt_ms = median_ms_in_turns({
         "bench_frame": rframe(srt_bench_frame(512)),
         "fit_frame": rframe(fit_frame()),
@@ -5082,6 +5257,7 @@ def main() -> int:
                 torch.empty_like(c["dirs"]))
         pscratch = srt.pri_scratch(c["pri"], chunk, c["dirs"], **pcull,
                                    blocks=pg)
+        fwd_scratch = srt.pri_fwd_scratch(c["pri"], chunk, c["dirs"], **pcull)
         sbuf = (torch.empty_like(c["shw"]), torch.empty_like(c["srcs"]),
                 torch.empty_like(world))
         fscratch = srt.shw_scratch(c["shw"], chunk, c["srcs"], world,
@@ -5091,7 +5267,8 @@ def main() -> int:
                     if gcot is not None else None)
         kernels = {
             "pri_fwd": lambda: srt.launch_pri_fwd_kernel(
-                c["pri"], chunk, c["cam"], c["dirs"], es, zs, *out, **pcull),
+                c["pri"], chunk, c["cam"], c["dirs"], es, zs, *out, **pcull,
+                scratch=fwd_scratch),
             "pri_bwd": lambda: srt.launch_pri_bwd_kernel(
                 c["pri"], chunk, c["cam"], c["dirs"], es, zs, m, cot, *pbuf,
                 **pcull, blocks=pg, scratch=pscratch),
@@ -5129,6 +5306,9 @@ def main() -> int:
         rt_k[name] = t
         del kernels, plain
         torch.cuda.empty_cache()
+    fwd_rules = {name: pri_fwd_rule_ms(c, False, FWD_RULES_UNMASKED, n=2)
+                 for name, c in (("stl500_cli", stl500_case),
+                                 ("stl_512_brute", rcases["stl_512_brute"]))}
     card = card_line()
     for name, t in rt_k.items():
         w = t["work"]
@@ -5141,7 +5321,12 @@ def main() -> int:
                 f"{t['bounds'][k][0]:.4f} ms, {t['bounds'][k][1]})"
                 for k in ("pri_fwd", "pri_bwd", "shw_fwd", "shw_bwd"))
             + f" ({card})")
+        say(f"  K10a on {name}: {pri_fwd_line(w)}")
         say(f"  K10c on {name}: {pri_work_line(w, t['items'])}")
+    for name, rows in fwd_rules.items():
+        say(f"K10a under other run rules (PRI_FWD_RUN_MIN/PRI_FWD_ITEMS, "
+            f"the rule in use first), {name}: {pri_fwd_rule_line(rows)} "
+            f"({card})")
     say(f"soft raytrace (CUDA events, median): frames 512^2 bench "
         f"{rt_ms['bench_frame']:.4f} ms, 500^2 fit {rt_ms['fit_frame']:.4f} "
         f"ms, 512^2 full-feature sources {rt_ms['full_frame']:.4f} ms, STL "
@@ -5163,7 +5348,8 @@ def main() -> int:
                   rt_serve=rt_serve, rfit_launches=rfit_launches,
                   rfit_losses=rfit_losses, rfit_s=rfit_s,
                   rfit_ms_step=rfit_ms_step, rt_train=rt_train, rt_ms=rt_ms,
-                  rt_k=rt_k, rt_busy=rt_busy, rt_peak=rt_peak)
+                  rt_k=rt_k, rt_busy=rt_busy, rt_peak=rt_peak,
+                  fwd_rules=fwd_rules)
     say("== phase 23: K5, K7d and K7a against their plain versions on the "
         "card")
     from raytpu_torch import load_stl
@@ -5664,6 +5850,8 @@ def main() -> int:
         require(all(bool(torch.isfinite(t).all()) for t in (*got, trans))
                 and 0.0 < keep[0] < 1.0 and 0.0 < keep[1] < 1.0,
                 f"{name}: finite, the masks drop pairs")
+        say(f"  K10b on {name}: "
+            f"{pri_fwd_line(pri_fwd_work(c, got[1], masked=True))}")
         srtm_err["k10b"] = max(srtm_err["k10b"], err_b)
         srtm_err["k10h"] = max(srtm_err["k10h"], err_h)
         srtm_out[name] = (got, world, trans)
@@ -5862,6 +6050,9 @@ def main() -> int:
         rtm_k[name] = t
         del kernels, plain
         torch.cuda.empty_cache()
+    fwdm_rules = {name: pri_fwd_rule_ms(mcases[name], True, FWD_RULES_MASKED,
+                                        n=5)
+                  for name in ("stl_step_512", "render_stl_512")}
     card = card_line()
     for name, t in rtm_k.items():
         w = t["work"]
@@ -5877,8 +6068,13 @@ def main() -> int:
                 f"{k} {t[k]:.4f} ms (plain {t[k + '_plain']:.4f}; bound "
                 f"{t['bounds'][k][0]:.4f} ms, {t['bounds'][k][1]})"
                 for k in parts) + f" ({card})")
+        say(f"  K10b on {name}: {pri_fwd_line(w)}")
         if "items" in t:
             say(f"  K10d on {name}: {pri_work_line(w, t['items'])}")
+    for name, rows in fwdm_rules.items():
+        say(f"K10b under other run rules (PRI_FWD_RUN_MIN/PRI_FWD_ITEMS, "
+            f"the rule in use first), {name}: {pri_fwd_rule_line(rows)} "
+            f"({card})")
     say(f"soft_raytrace_stl steps (CUDA events, median of 3): culled "
         f"{rtm_ms['culled_step']:.4f} ms, brute {rtm_ms['brute_step']:.4f} "
         f"ms; peak memory culled {rtm_peak['culled_step']:.3f} GB, brute "
@@ -5896,7 +6092,8 @@ def main() -> int:
     record.update(srtm_err=srtm_err, srtm_checks=srtm_checks,
                   srtm_keep=srtm_keep, rtm_serve=rtm_serve,
                   rtm_train=rtm_train, rtm_losses=losses, rtm_ms=rtm_ms,
-                  rtm_peak=rtm_peak, rtm_busy=rtm_busy, rtm_k=rtm_k)
+                  rtm_peak=rtm_peak, rtm_busy=rtm_busy, rtm_k=rtm_k,
+                  fwdm_rules=fwdm_rules)
 
     sharded_entries = sharded_phases(dev, stl_path, record)
     two_launch_entries = two_launch_phase(dev, record)
@@ -5915,6 +6112,12 @@ def main() -> int:
                 for label, check in soft_checks.items()
                 if label.startswith(prefix)}
 
+    def fwd_work(w) -> dict:
+        """The primary forward's counts of pri_fwd_work for the kernels
+        line."""
+        return {k: w[k] for k in ("pairs", "gated_p", "dead_pf", "live_p",
+                                  "fwd_run", "fwd_items", "fwd_merged")}
+
     def k10_entry(part: str, key: str, replaces: str) -> dict:
         """A soft raytrace kernel's entry: its launches in the raytrace fit
         CLI, its error (K10c/K10i: the largest group-scaled error against
@@ -5929,6 +6132,14 @@ def main() -> int:
                      plain_ms=t[f"{part}_plain"],
                      bound_ms=t["bounds"][part][0],
                      bound_by=t["bounds"][part][1], library_ms=None)
+        for case in ("fit_500", "stl_512_brute"):  # the other frames
+            f = rt_k[case]
+            entry[case] = dict(ms=f[part], plain_ms=f[f"{part}_plain"],
+                               bound_ms=f["bounds"][part][0],
+                               bound_by=f["bounds"][part][1])
+        if part == "pri_fwd":
+            entry["work"] = {case: fwd_work(f["work"])
+                             for case, f in rt_k.items()}
         if key in srt_checks:
             entry["checks"] = srt_checks[key]
         return entry
@@ -5955,6 +6166,9 @@ def main() -> int:
                 entry[case] = dict(ms=f[part], plain_ms=f[f"{part}_plain"],
                                    bound_ms=f["bounds"][part][0],
                                    bound_by=f["bounds"][part][1])
+        if part == "pri_fwd":
+            entry["work"] = {case: fwd_work(f["work"])
+                             for case, f in rtm_k.items()}
         # K10h and K10j on phase 32's culled steps (66,560 and 36,000
         # triangles): time, bound, keep rate and the triples skipped.
         for T, b in record["k10hj_big"].items():

@@ -2,9 +2,12 @@
 // K10g-K10j, unmasked and masked, and the two-launch backwards K10e, K10f,
 // K10k and K10l.
 //
-// K10a, soft_rt_pri_fwd_kernel<false>, replaces
+// K10a, soft_rt_pri_fwd_kernel<false> with the merge of its runs, replaces
 // raytpu/kernels/soft_raytrace_pallas.py::_pri_fwd_kernel and K10b,
-// soft_rt_pri_fwd_kernel<true>, ::_pri_fwd_kernel_masked; K10c,
+// soft_rt_pri_fwd_kernel<true> with its plan and merge,
+// ::_pri_fwd_kernel_masked (K10a and K10b redesigned for Hopper around the
+// pairs whose weight is exactly 0 at the running max and the few tiles
+// that hold the work, below); K10c,
 // soft_rt_pri_bwd_kernel<false>, the merge of its runs and its fixed-order
 // sums, replaces _pri_bwd_fused_kernel and K10d, soft_rt_pri_bwd_kernel<true>
 // with its plan, merge and sums, _pri_bwd_fused_kernel_masked (K10c and K10d
@@ -75,8 +78,8 @@
 // memory, and a block walks ray blocks g, g + groups, ...; the sum kernel
 // adds the groups' partials in a fixed order. The camera's and the
 // sources' gradients take the same two steps. No floating-point atomics:
-// two calls give the same bits. (The first design's backwards; K10c, K10d
-// and K10g-K10j have been redesigned since, below.)
+// two calls give the same bits. (The first design; K10a-K10d and K10g-K10j
+// have been redesigned since, below.)
 //
 // The masked kernels (K10b, K10d; K10h and K10j below) take a keep-mask
 // over the port's ray tiles (kernels/intersect.py::ray_tiles: th x 256 / th pixel
@@ -169,128 +172,6 @@ __device__ __forceinline__ TileRay tile_ray(int tile, int R, int H, int W,
   const int x = (tile % tiles_x) * tw + threadIdx.x % tw;
   const bool live = y < H && x < W;
   return {live ? y * W + x : 0, live};
-}
-
-// Stages chunk ch's rows (18 used columns) and their |n| and
-// log(active + 1e-20) in s_c; every thread of the block calls it.
-__device__ __forceinline__ void load_pri_chunk(const float* consts, int ch,
-                                               int chunk,
-                                               float (*s_c)[kPriRow]) {
-  const float* src = consts + static_cast<size_t>(ch) * chunk * kPriCols;
-  for (int k = threadIdx.x; k < chunk * kPriUsed; k += kThreads) {
-    s_c[k / kPriUsed][k % kPriUsed] = src[(k / kPriUsed) * kPriCols +
-                                          k % kPriUsed];
-  }
-  __syncthreads();
-  if (threadIdx.x < chunk) {
-    float* c = s_c[threadIdx.x];
-    c[18] = sqrtf((c[0] * c[0] + c[1] * c[1]) + c[2] * c[2]);
-    c[19] = logf(c[16] + 1e-20f);
-  }
-  __syncthreads();
-}
-
-// The primary logit and t of ray d (|d| = dn) against staged row c; false
-// for a gated pair (weight 0).
-__device__ __forceinline__ bool pri_logit(const float* c, const float* d,
-                                          float dn, float es, float zs,
-                                          float* logit, float* t_out) {
-  const float denom = -((d[0] * c[0] + d[1] * c[1]) + d[2] * c[2]);
-  const float safe = fabsf(denom) > 1e-12f ? denom : 1e-12f;
-  const float rec = 1.0f / safe;
-  const float t = c[9] * rec;
-  if (!(t > 1e-6f && fabsf(denom) > (1e-3f * dn) * c[18])) return false;
-  const float u = ((d[0] * c[3] + d[1] * c[4]) + d[2] * c[5]) * rec;
-  const float v = ((d[0] * c[6] + d[1] * c[7]) + d[2] * c[8]) * rec;
-  const float margin = fminf(fminf(u, v), (1.0f - u) - v);
-  const float zinv = 1.0f / fmaxf(fmaxf(t * dn, c[17]), kTNear);
-  const float xs = es * margin;
-  *logit = (zs * zinv + (fminf(xs, 0.0f) - log1pf(expf(-fabsf(xs))))) +
-           c[19];
-  *t_out = t;
-  return true;
-}
-
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-    soft_rt_pri_fwd_kernel(const float* __restrict__ consts, int n_chunks,
-                           int chunk, const float* __restrict__ cam,
-                           const float* __restrict__ dirs, int R,
-                           const int* __restrict__ mask, int H, int W,
-                           int th, float es, float zs,
-                           float* __restrict__ out,
-                           float* __restrict__ m_out,
-                           float* __restrict__ s_out) {
-  __shared__ float s_c[kMaxChunk][kPriRow];
-  const TileRay ray = tile_ray<kMasked>(blockIdx.x, R, H, W, th);
-  const int r = ray.r;
-  const bool live = ray.live;
-  const int* keep =
-      kMasked ? mask + static_cast<size_t>(blockIdx.x) * n_chunks : nullptr;
-  float d[3] = {0.0f, 0.0f, 0.0f};
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) d[j] = dirs[static_cast<size_t>(j) * R + r];
-  }
-  const float gp[3] = {cam[0], cam[1], cam[2]};
-  const float dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
-  // The background hypothesis: logit 0, zero values (`:244-251`).
-  float m = 0.0f, s = 1.0f;
-  float acc[9];
-#pragma unroll
-  for (int j = 0; j < 9; ++j) acc[j] = 0.0f;
-
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (kMasked && keep[ch] == 0) continue;  // the same bit for the block
-    __syncthreads();  // every thread is done with the previous chunk
-    load_pri_chunk(consts, ch, chunk, s_c);
-    float logit[kMaxChunk], tt[kMaxChunk];
-    float cmax = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < kMaxChunk; ++i) {
-      if (i < chunk) {
-        if (!pri_logit(s_c[i], d, dn, es, zs, &logit[i], &tt[i])) {
-          logit[i] = -1e30f;
-        }
-        cmax = fmaxf(cmax, logit[i]);
-      }
-    }
-    const float m_new = fmaxf(m, cmax);
-    const float scale = expf(m - m_new);
-    float wsum = 0.0f;
-    float vsum[9];
-#pragma unroll
-    for (int j = 0; j < 9; ++j) vsum[j] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMaxChunk; ++i) {
-      if (i < chunk) {
-        const float w = expf(logit[i] - m_new);
-        if (w != 0.0f) {  // a zero weight adds exactly nothing
-          const float* c = s_c[i];
-          const float tp = tt[i] < kBig ? tt[i] : 0.0f;
-          wsum += w;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            vsum[j] += w * c[13 + j];
-            vsum[3 + j] += w * (gp[j] + tp * d[j]);
-            vsum[6 + j] += w * c[10 + j];
-          }
-        }
-      }
-    }
-    m = m_new;
-    s = s * scale + wsum;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) acc[j] = acc[j] * scale + vsum[j];
-  }
-  if (live) {
-    const float rec = 1.0f / s;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) out[static_cast<size_t>(j) * R + r] =
-        acc[j] * rec;
-    m_out[r] = m;
-    s_out[r] = s;
-  }
 }
 
 // The per-point terms of the shadow ray from sp to w: d = w - sp, r2s
@@ -703,7 +584,8 @@ __device__ __forceinline__ void copy_async(float4* dst, const float4* src,
 // The row src (the table's 18 used columns) staged as six float4s:
 // q0 = (n, k0): columns 0-2, 9; q1 = (c2b, |n|): 3-5; q2 = (cb1, la): 6-8;
 // q3 = (zb, normal): 10-12; q4 = (albedo, active): 13-16; q5 = (dmin, 0, 0,
-// 0): 17. |n| and la = log(active + 1e-20) as load_pri_chunk computes them.
+// 0): 17. |n| = sqrt((n0 n0 + n1 n1) + n2 n2) and la = log(active +
+// 1e-20), the first design's per-chunk expressions.
 __device__ __forceinline__ void stage_pri_row(const float* src, float zs,
                                               float4* q) {
   float c[kPriUsed];
@@ -720,7 +602,7 @@ __device__ __forceinline__ void stage_pri_row(const float* src, float zs,
   q[5] = make_float4(c[17], 0.0f, 0.0f, 0.0f);
 }
 
-// A staged row back in load_pri_chunk's layout (18 columns, |n|, la), as
+// A staged row back in the table's layout (18 columns, |n|, la), as
 // pri_pair_bwd reads it.
 __device__ __forceinline__ void unstage_pri_row(const float4* q, float* c) {
   const float4 q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3], q4 = q[4];
@@ -1522,13 +1404,47 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) nk[p] = k;
 }
 
+// The run of K10a's and K10b's work items
+// (kernels/soft_raytrace.py::primary_fwd_run): the mean of `kept` chunks
+// over n_tiles tiles, rounded up, over `splits`, rounded up, at least
+// run_min.
+__host__ __device__ __forceinline__ int pri_fwd_run(long long kept,
+                                                    int n_tiles, int splits,
+                                                    int run_min) {
+  const long long mean = (kept + n_tiles - 1) / n_tiles;
+  const long long run = (mean + splits - 1) / splits;
+  return static_cast<int>(run > run_min ? run : run_min);
+}
+
+// K10b's run, one block: pri_fwd_run of the tiles' kept chunks (nk, the
+// sum in any order: integers), written to *run_out for shw_items_kernel and
+// the kernels, on the card, with no host sync.
+__global__ void __launch_bounds__(kScanThreads)
+    pri_fwd_run_kernel(const int* __restrict__ nk, int n_tiles, int splits,
+                       int run_min, int* __restrict__ run_out) {
+  __shared__ int s_sum[kScanThreads];
+  const int tid = threadIdx.x;
+  int kept = 0;  // at most n_tiles n_chunks < 2^31 (pri_fwd_shapes)
+  for (int p = tid; p < n_tiles; p += kScanThreads) kept += nk[p];
+  s_sum[tid] = kept;
+  __syncthreads();
+  for (int d = kScanThreads / 2; d > 0; d >>= 1) {
+    if (tid < d) s_sum[tid] += s_sum[tid + d];
+    __syncthreads();
+  }
+  if (tid == 0) *run_out = pri_fwd_run(s_sum[0], n_tiles, splits, run_min);
+}
+
 // The masked kernels' items, one block: pair p's ceil(nk[p] / run) runs are
 // items off[p] ... off[p + 1] - 1, in pair order; items[i] is the pair of
-// item i and off[n_pairs] the number of items.
+// item i and off[n_pairs] the number of items. run_dev, where not null
+// (K10b), holds the run in place of `run`.
 __global__ void __launch_bounds__(kScanThreads)
     shw_items_kernel(const int* __restrict__ nk, int n_pairs, int run,
-                     int* __restrict__ off, int* __restrict__ items) {
+                     const int* __restrict__ run_dev, int* __restrict__ off,
+                     int* __restrict__ items) {
   __shared__ int s_sum[kScanThreads];
+  if (run_dev != nullptr) run = *run_dev;
   const int tid = threadIdx.x;
   const int per = (n_pairs + kScanThreads - 1) / kScanThreads;
   const int lo = static_cast<int>(
@@ -1996,15 +1912,25 @@ __device__ __forceinline__ TileRay slot_ray(int tile, int slot, int R, int H,
   return {live ? y * W + x : 0, live};
 }
 
-// Issues stage k of item x (the chunk's staged rows) into ring[k %
-// kShwRing] and commits a cp.async group.
+// Issues stage k of item x into ring[k % kShwRing] and commits a cp.async
+// group: a cp.async of the chunk's rows as pack_pri_rows_kernel staged
+// them, or, where rows is null (K10a on a table of one chunk), the chunk's
+// rows staged here by the first `chunk` threads from consts (stage_pri_row,
+// the same bits).
 template <bool kMasked>
 __device__ __forceinline__ void issue_pri_stage(
     const ShwItem& x, int k, float4 (*ring)[kMaxChunk * kRowQ],
-    const float4* rows, int chunk) {
+    const float4* rows, int chunk, const float* consts = nullptr,
+    float zs = 0.0f) {
   if (k < x.n) {
     const size_t row0 = static_cast<size_t>(item_chunk<kMasked>(x, k)) * chunk;
-    copy_async(ring[k % kShwRing], rows + row0 * kRowQ, chunk * kRowQ);
+    float4* dst = ring[k % kShwRing];
+    if (rows != nullptr) {
+      copy_async(dst, rows + row0 * kRowQ, chunk * kRowQ);
+    } else if (threadIdx.x < chunk) {
+      stage_pri_row(consts + (row0 + threadIdx.x) * kPriCols, zs,
+                    dst + threadIdx.x * kRowQ);
+    }
   }
   cp_async_commit();
 }
@@ -2205,6 +2131,235 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < 3; ++c) dd[static_cast<size_t>(c) * R + ray.r] = acc[c];
 }
 
+// K10a and K10b, redesigned for Hopper. On the brute 9,216-triangle frame
+// (512^2) the first design, a block a 256-ray tile walking every chunk,
+// restaging each chunk's rows between two barriers in every block and
+// working out every pair's whole logit, ran 14.8x its bound, and on the
+// culled frames (K10b) a few tiles keep most of the chunks while the other
+// blocks finish at once: 13.5x on the culled step, 50x on the culled
+// render --stl frame. Four changes:
+//
+// - An exact dead-pair skip against the running max. The forward does not
+//   know the final max, but its carry m is enough: m starts at 0 (the
+//   background, or an item's start) and only grows (m' = fmaxf(m, cmax)).
+//   pri_dead's bound B is >= the pair's float32 logit (see K10e and K10f's
+//   note), so where B - m < kDeadBelow, logit - m' <= B - m < -110 and
+//   expf(logit - m') is exactly 0: the pair adds nothing to s or acc, and
+//   as its logit lies below m, leaving it out of cmax leaves m' as it was.
+//   A gated pair adds nothing either, and its -1e30 never passes m >= 0.
+//   So the skip moves no bit. A NaN in B falls through, as there. A pair
+//   that is not proved dead goes on from the test's own floats (pri_test:
+//   the first design's expressions in the same order, the same safe, rec,
+//   u, v and margin) to zinv, log1pf and its logit (fwd_logit): one
+//   reciprocal for a dead pair, no second one for a live pair.
+// - Live rows only. For each chunk a thread tests its rows and keeps a bit
+//   mask of those not proved dead, their logits and t, then takes the
+//   weight and the sums on those only, in row order; the loops are unrolled
+//   and predicated on the bit. A row no lane of a warp keeps costs the warp
+//   its test alone. The logits and t go to the thread's own column of
+//   shared memory (kFwdKeepBytes, no bank conflict, no barrier), which
+//   leaves 60 registers and three blocks an SM; kept in registers they took
+//   117-120 registers, two blocks an SM, and ran slower on every main-path
+//   frame (chip_smoke.py phases 22 and 28).
+// - Rows staged once a launch. The rows are read as pack_pri_rows_kernel
+//   stages them for K10c-K10f (six float4s a row; |n|, la and zb by the
+//   first design's expressions, the same bits) through a cp.async ring of
+//   kShwRing chunks, two ahead, one barrier a chunk; a table of one chunk
+//   (the Cornell box, 500 launches a fit) is staged into the ring by the
+//   kernel with the same expressions and saves the staging launch.
+// - Work items across the card. Each tile's kept chunks (unmasked: every
+//   chunk) are cut into runs of pri_fwd_run chunks, a work item each, from
+//   K10j's plan (shw_plan_kernel, shw_items_kernel with one source a tile;
+//   K10b's run is worked out before it by pri_fwd_run_kernel from the
+//   mask's kept count, on the card, with no host sync). The run is the mean kept chunks a tile over a split
+//   that gives about `items` items (kernels/soft_raytrace.py PRI_FWD_ITEMS),
+//   so the tiles that keep more than the mean are cut and the few that hold
+//   the work spread over the card; it depends on the shapes and the kept
+//   count only, so an all-ones mask and no mask split alike. Block b takes
+//   item b (grid: the most items; the blocks past the plan's count return),
+//   so the hardware hands the next item to the first free slot. An item
+//   keeps an online-softmax carry over its run from (m, s, acc) = (0, 0, 0)
+//   and writes it as a partial of 11 floats a ray; m >= 0 still, so the
+//   skip stays exact. A tile of one item starts from the background (0, 1,
+//   0) and writes out, m and s itself: the first design's order, bit for
+//   bit. pri_fwd_merge_kernel folds the other tiles' items in run order
+//   into the background (and writes the background where a tile keeps
+//   nothing): m, a max of the same logits and 0, keeps its bits; s and out
+//   move by the rounding of the fold. The partials take at most n_tiles
+//   (splits + 1) items, whatever the table's size.
+//
+// Two calls give the same bits (no atomics, every sum in a fixed order),
+// and an all-ones mask gives K10a's: the same items on each ray, the same
+// sums. The plain models are kernels/soft_raytrace.py::primary_fwd_walk
+// (the test at the running carry) and primary_agg_items (the items and the
+// merge).
+
+constexpr int kFwdPart = 11;  // floats a ray of an item's partial: m, s, acc
+// The forward's dynamic shared memory: a live row's t and logit in the
+// thread's own column, (2, kMaxChunk, kThreads) floats.
+constexpr int kFwdKeepBytes = 2 * kMaxChunk * kThreads * sizeof(float);
+
+// The rest of a pair's logit from its test's t and xs, the gate passed,
+// by the first design's expressions in its order: zinv = 1 / max(max(t
+// |d|, dmin), 0.1), then zs zinv + log_sigmoid(xs) + la.
+__device__ __forceinline__ float fwd_logit(float t, float xs, float dn,
+                                           float dmin, float la, float zs) {
+  const float zinv = 1.0f / fmaxf(fmaxf(t * dn, dmin), kTNear);
+  return (zs * zinv + (fminf(xs, 0.0f) - log1pf(expf(-fabsf(xs))))) + la;
+}
+
+// K10a (kMasked false) and K10b (true), replace _pri_fwd_kernel and
+// _pri_fwd_kernel_masked (see above): block b takes item b of the plan pl
+// (masked: its run at run_dev); a thread a ray of the item's tile. rows the
+// staged table, or null: staged here from consts. part (items, 11, 256)
+// the items' (m, s, acc) of tiles of more than one item. Dynamic shared
+// memory: kFwdKeepBytes.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 3)
+    soft_rt_pri_fwd_kernel(const float* __restrict__ consts,
+                           const float4* __restrict__ rows, int chunk,
+                           const float* __restrict__ cam,
+                           const float* __restrict__ dirs, int R, int H,
+                           int W, int th, float es, float zs, ShwPlan pl,
+                           const int* __restrict__ run_dev,
+                           float* __restrict__ part,
+                           float* __restrict__ out,
+                           float* __restrict__ m_out,
+                           float* __restrict__ s_out) {
+  __shared__ float4 s_ring[kShwRing][kMaxChunk * kRowQ];
+  extern __shared__ float s_keep[];  // kFwdKeepBytes: t, then logits
+  float* tt = s_keep + threadIdx.x;  // row i at tt[i * kThreads]
+  float* lg = s_keep + kMaxChunk * kThreads + threadIdx.x;
+  const int it = blockIdx.x;
+  if (it >= item_count<kMasked>(pl)) return;  // the same for the block
+  if (kMasked) pl.run = *run_dev;
+  const ShwItem x = shw_item<kMasked>(pl, it);
+  const TileRay ray = tile_ray<kMasked>(x.pair, R, H, W, th);
+  const bool one = pair_items<kMasked>(pl, x.pair).y == 1;
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  if (ray.live) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) d[j] = dirs[static_cast<size_t>(j) * R + ray.r];
+  }
+  const float gp[3] = {cam[0], cam[1], cam[2]};
+  const float dn = sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]);
+  const float4 r0 = make_float4(d[0], d[1], d[2], 1e-3f * dn);
+  // The background hypothesis (logit 0, zero values) where the tile has
+  // one item; else the item's own carry, folded into it by the merge.
+  float m = 0.0f, s = one ? 1.0f : 0.0f;
+  float acc[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) acc[j] = 0.0f;
+  issue_pri_stage<kMasked>(x, 0, s_ring, rows, chunk, consts, zs);
+  issue_pri_stage<kMasked>(x, 1, s_ring, rows, chunk, consts, zs);
+  for (int k = 0; k < x.n; ++k) {
+    cp_async_wait_one();
+    __syncthreads();  // stage k is in; every thread is done with k - 1
+    issue_pri_stage<kMasked>(x, k + 2, s_ring, rows, chunk, consts, zs);
+    const float4* q = s_ring[k % kShwRing];
+    unsigned bits = 0u;  // the rows not proved dead
+    float cmax = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < kMaxChunk; ++i) {
+      if (i < chunk) {
+        const float4* qi = q + i * kRowQ;
+        const float4 q1 = qi[1], q2 = qi[2];
+        const PriTest pt = pri_row_test(r0, qi[0], q1, q2, es);
+        if (ray.live & !pri_dead(pt, r0, q1.w, qi[3].x, q2.w, m)) {
+          const float l = fwd_logit(pt.t, pt.xs, dn, qi[5].x, q2.w, zs);
+          tt[i * kThreads] = pt.t;
+          lg[i * kThreads] = l;
+          cmax = fmaxf(cmax, l);
+          bits |= 1u << i;
+        }
+      }
+    }
+    const float m_new = fmaxf(m, cmax);
+    const float scale = expf(m - m_new);
+    float wsum = 0.0f;
+    float vsum[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) vsum[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunk; ++i) {
+      if ((bits >> i) & 1u) {
+        const float w = expf(lg[i * kThreads] - m_new);
+        if (w != 0.0f) {  // a zero weight adds exactly nothing
+          const float4 q3 = q[i * kRowQ + 3], q4 = q[i * kRowQ + 4];
+          const float alb[3] = {q4.x, q4.y, q4.z};
+          const float nrm[3] = {q3.y, q3.z, q3.w};
+          const float t = tt[i * kThreads];
+          const float tp = t < kBig ? t : 0.0f;
+          wsum += w;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            vsum[j] += w * alb[j];
+            vsum[3 + j] += w * (gp[j] + tp * d[j]);
+            vsum[6 + j] += w * nrm[j];
+          }
+        }
+      }
+    }
+    m = m_new;
+    s = s * scale + wsum;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) acc[j] = acc[j] * scale + vsum[j];
+  }
+  if (!ray.live) return;
+  if (one) {
+    const float rec = 1.0f / s;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      out[static_cast<size_t>(j) * R + ray.r] = acc[j] * rec;
+    }
+    m_out[ray.r] = m;
+    s_out[ray.r] = s;
+    return;
+  }
+  float* p = part + static_cast<size_t>(it) * kFwdPart * kThreads +
+             threadIdx.x;
+  p[0] = m;
+  p[kThreads] = s;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) p[(2 + j) * kThreads] = acc[j];
+}
+
+// K10a's and K10b's merge, a block a tile: a tile of one item was written
+// by the kernel; the others' rays fold their items' (m, s, acc) in run
+// order into the background (0, 1, 0): m' = max(m, m_j), s = s e^(m - m')
+// + s_j e^(m_j - m'), acc likewise; out = acc / s. A tile that keeps no
+// chunk gets the background.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    pri_fwd_merge_kernel(ShwPlan pl, int R, int H, int W, int th,
+                         const float* __restrict__ part,
+                         float* __restrict__ out, float* __restrict__ m_out,
+                         float* __restrict__ s_out) {
+  const TileRay ray = tile_ray<kMasked>(blockIdx.x, R, H, W, th);
+  const int2 at = pair_items<kMasked>(pl, blockIdx.x);
+  if (!ray.live || at.y == 1) return;
+  float m = 0.0f, s = 1.0f, acc[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) acc[j] = 0.0f;
+  for (int k = 0; k < at.y; ++k) {
+    const float* p = part + static_cast<size_t>(at.x + k) * kFwdPart *
+                                kThreads + threadIdx.x;
+    const float mj = p[0];
+    const float m_new = fmaxf(m, mj);
+    const float a = expf(m - m_new), b = expf(mj - m_new);
+    s = s * a + p[kThreads] * b;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) acc[j] = acc[j] * a + p[(2 + j) * kThreads] * b;
+    m = m_new;
+  }
+  const float rec = 1.0f / s;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) out[static_cast<size_t>(j) * R + ray.r] =
+      acc[j] * rec;
+  m_out[ray.r] = m;
+  s_out[ray.r] = s;
+}
+
 // dc (Tp, 32): entry (row, k < 18) the sum over blocks b, in order, of
 // partials[b, row, k] where b's bit of (row's chunk, row) is set (+0 where
 // none is), k >= 18 zero. Thread (x, y) adds blocks y, y + kSumSlices, ...
@@ -2395,7 +2550,7 @@ cudaError_t shw_prepare(const ShwCall& sc, const float* consts,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   shw_items_kernel<<<1, kScanThreads, 0, st>>>(sc.nk, sc.n_pairs, sc.run,
-                                               sc.off, sc.items);
+                                               nullptr, sc.off, sc.items);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   pack_shw_rows_kernel<<<dim3((sc.Tp + kThreads - 1) / kThreads, sc.S),
                          kThreads, 0, st>>>(consts, sc.Tp, srcs, sc.rows);
@@ -2473,30 +2628,159 @@ bool pri_layout(PriCall& pc, void* base, long long avail) {
 
 }  // namespace
 
+// A K10a/K10b call: its shapes (the first nine fields, from the caller),
+// what follows from them (pri_fwd_shapes) and where its scratch lies
+// (pri_fwd_layout), carved from one buffer in this order, each part aligned
+// to 16 bytes: masked, the plan (kept lists n_tiles n_chunks, nk n_tiles,
+// off n_tiles + 1, items max_items and the run, int32); the staged rows (Tp
+// kRowQ float4s) unless the kernel stages them (unmasked, one chunk); the
+// items' partials (max_items 11 256 floats) unless every tile has one item
+// (direct: unmasked, one run).
+struct PriFwdCall {
+  int Tp, chunk, R, H, W, th, run_min, items;
+  bool masked;
+  bool direct, packed;
+  int n_tiles, n_chunks, splits, run, runs;
+  long long max_items;
+  int* kept;
+  int* nk;
+  int* off;
+  int* item_tiles;
+  int* run_dev;
+  float4* rows;
+  float* part;
+  size_t bytes;
+};
+
+// The split is ceil(items / the tiles of 256 rays of R), the same with a
+// mask and without; unmasked, every tile keeps every chunk (mean n_chunks)
+// and has `runs` items. Masked, the run is worked out on the card, at least
+// run_min and the mean over the split, so a tile has at most ceil(n_chunks
+// / run_min) items and all of them at most n_tiles (splits + 1).
+bool pri_fwd_shapes(PriFwdCall& fc) {
+  if (bad_shape(fc.Tp, fc.chunk, fc.R) || fc.run_min < 1 || fc.items < 1) {
+    return false;
+  }
+  fc.n_tiles = ray_blocks(fc.masked, fc.R, fc.H, fc.W, fc.th);
+  fc.n_chunks = fc.Tp / fc.chunk;
+  const long long kept = static_cast<long long>(fc.n_tiles) * fc.n_chunks;
+  if (fc.n_tiles < 1 || kept > 0x7fffffffLL) return false;
+  const int tiles_ref = (fc.R + kThreads - 1) / kThreads;
+  fc.splits = (fc.items + tiles_ref - 1) / tiles_ref;
+  fc.run = pri_fwd_run(kept, fc.n_tiles, fc.splits, fc.run_min);
+  fc.runs = (fc.n_chunks + fc.run - 1) / fc.run;
+  const long long most = (fc.n_chunks + fc.run_min - 1) / fc.run_min;
+  const long long per_tile =
+      !fc.masked ? fc.runs : (fc.splits + 1LL < most ? fc.splits + 1LL : most);
+  fc.max_items = fc.n_tiles * per_tile;
+  fc.direct = !fc.masked && fc.runs == 1;
+  fc.packed = fc.masked || fc.n_chunks > 1;
+  return fc.max_items <= 0x7fffffffLL;
+}
+
+// Carves the scratch at base (null: sizes it only); false where base
+// holds fewer than the bytes the call needs.
+bool pri_fwd_layout(PriFwdCall& fc, void* base, long long avail) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    const uintptr_t q = n == 0 ? 0 : p + at;
+    at += align16(n);
+    return q;
+  };
+  const size_t items = static_cast<size_t>(fc.max_items);
+  const size_t m = fc.masked ? 1 : 0;
+  fc.kept = reinterpret_cast<int*>(
+      take(m * fc.n_tiles * static_cast<size_t>(fc.n_chunks) * sizeof(int)));
+  fc.nk = reinterpret_cast<int*>(take(m * fc.n_tiles * sizeof(int)));
+  fc.off = reinterpret_cast<int*>(take(m * (fc.n_tiles + 1) * sizeof(int)));
+  fc.item_tiles = reinterpret_cast<int*>(take(m * items * sizeof(int)));
+  fc.run_dev = reinterpret_cast<int*>(take(m * sizeof(int)));
+  fc.rows = reinterpret_cast<float4*>(take(
+      (fc.packed ? 1 : 0) * static_cast<size_t>(fc.Tp) * kRowQ *
+      sizeof(float4)));
+  fc.part = reinterpret_cast<float*>(take(
+      (fc.direct ? 0 : 1) * items * kFwdPart * kThreads * sizeof(float)));
+  fc.bytes = at;
+  return at == 0 || (base != nullptr && avail >= static_cast<long long>(at));
+}
+
 // consts (Tp, 32) float32 device pointer in chunks of `chunk` <= 32 rows;
 // cam (3,), dirs (3, R) float32; mask null (K10a) or the (n_tiles,
 // n_chunks) int32 keep-mask over the tiles of th x (256 / th) rays of the
-// H x W grid of the R rays (K10b); out (9, R), m and s (R,) float32
-// outputs. Launches the kernel on `stream` and returns the launch's
-// cudaError_t.
+// H x W grid of the R rays (K10b); run_min and items the run rule's
+// (pri_fwd_run); scratch (at least what raytpu_soft_rt_pri_fwd_scratch
+// gives for these shapes); out (9, R), m and s (R,) float32 outputs.
+// Launches the plan (masked), the rows' staging (unless the table is one
+// unmasked chunk), the kernel and the merge (masked, or more than one run
+// a tile) on `stream`; returns the first cudaError_t.
 extern "C" int raytpu_soft_rt_pri_fwd(const void* consts, int Tp, int chunk,
                                       const void* cam, const void* dirs,
                                       int R, const void* mask, int H, int W,
-                                      int th, float es, float zs, void* out,
+                                      int th, float es, float zs,
+                                      int run_min, int items, void* scratch,
+                                      long long scratch_bytes, void* out,
                                       void* m, void* s, void* stream) {
-  const int blocks = ray_blocks(mask != nullptr, R, H, W, th);
-  if (bad_shape(Tp, chunk, R) || blocks < 1) {
+  PriFwdCall fc{Tp, chunk, R, H, W, th, run_min, items, mask != nullptr};
+  if (!pri_fwd_shapes(fc) || !pri_fwd_layout(fc, scratch, scratch_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = mask ? soft_rt_pri_fwd_kernel<true>
-                     : soft_rt_pri_fwd_kernel<false>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(consts), Tp / chunk, chunk,
-      static_cast<const float*>(cam), static_cast<const float*>(dirs), R,
-      static_cast<const int*>(mask), H, W, th, es, zs,
-      static_cast<float*>(out), static_cast<float*>(m),
-      static_cast<float*>(s));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* tab = static_cast<const float*>(consts);
+  cudaError_t err;
+  if (fc.masked) {
+    shw_plan_kernel<<<(fc.n_tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        static_cast<const int*>(mask), fc.n_tiles, fc.n_chunks, fc.kept,
+        fc.nk);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    pri_fwd_run_kernel<<<1, kScanThreads, 0, st>>>(fc.nk, fc.n_tiles,
+                                                   fc.splits, run_min,
+                                                   fc.run_dev);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    shw_items_kernel<<<1, kScanThreads, 0, st>>>(
+        fc.nk, fc.n_tiles, 0, fc.run_dev, fc.off, fc.item_tiles);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (fc.packed) {
+    pack_pri_rows_kernel<<<(Tp + kThreads - 1) / kThreads, kThreads, 0,
+                           st>>>(tab, Tp, zs, fc.rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const ShwPlan pl{fc.kept, fc.nk, fc.off, fc.item_tiles, fc.n_tiles,
+                   fc.n_chunks, fc.run, fc.runs,
+                   static_cast<int>(fc.max_items)};
+  auto kernel = fc.masked ? soft_rt_pri_fwd_kernel<true>
+                          : soft_rt_pri_fwd_kernel<false>;
+  float* o = static_cast<float*>(out);
+  float* mo = static_cast<float*>(m);
+  float* so = static_cast<float*>(s);
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           kFwdKeepBytes)) != cudaSuccess) {
+    return (int)err;
+  }
+  kernel<<<static_cast<int>(fc.max_items), kThreads, kFwdKeepBytes, st>>>(
+      tab, fc.rows, chunk, static_cast<const float*>(cam),
+      static_cast<const float*>(dirs), R, H, W, th, es, zs, pl, fc.run_dev,
+      fc.part, o, mo, so);
+  if ((err = cudaGetLastError()) != cudaSuccess || fc.direct) return (int)err;
+  auto merge = fc.masked ? pri_fwd_merge_kernel<true>
+                         : pri_fwd_merge_kernel<false>;
+  merge<<<fc.n_tiles, kThreads, 0, st>>>(pl, R, H, W, th, fc.part, o, mo,
+                                         so);
   return (int)cudaGetLastError();
+}
+
+// The bytes of the scratch of a K10a/K10b call with these shapes (masked:
+// 1 with a mask) and run rule, or -1 where the kernels refuse them.
+extern "C" long long raytpu_soft_rt_pri_fwd_scratch(int Tp, int chunk, int R,
+                                                    int masked, int H, int W,
+                                                    int th, int run_min,
+                                                    int items) {
+  PriFwdCall fc{Tp, chunk, R, H, W, th, run_min, items, masked != 0};
+  if (!pri_fwd_shapes(fc)) return -1;
+  pri_fwd_layout(fc, nullptr, 0);
+  return static_cast<long long>(fc.bytes);
 }
 
 // consts, cam, dirs and mask (K10c without, K10d with) as for
@@ -2528,7 +2812,7 @@ extern "C" int raytpu_soft_rt_pri_bwd(const void* consts, int Tp, int chunk,
         pc.nk);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     shw_items_kernel<<<1, kScanThreads, 0, st>>>(pc.nk, pc.n_tiles, run,
-                                                 pc.off, pc.items);
+                                                 nullptr, pc.off, pc.items);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   pack_pri_rows_kernel<<<(Tp + kThreads - 1) / kThreads, kThreads, 0, st>>>(

@@ -81,9 +81,12 @@ SIGNATURES = {
     # Tp, chunk, H, W: the backward's scratch bytes (-1: refused)
     "raytpu_soft_raster_bwd_scratch": [_I, _I, _I, _I],
     # consts, Tp, chunk, cam, dirs, R, mask (or null), H, W, th, es, zs,
-    # out, m, s, stream
+    # run_min, items, scratch, scratch_bytes, out, m, s, stream
     "raytpu_soft_rt_pri_fwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
-                               _F, _P, _P, _P, _P],
+                               _F, _I, _I, _P, _L, _P, _P, _P, _P],
+    # Tp, chunk, R, masked, H, W, th, run_min, items: the scratch bytes of
+    # a K10a / K10b call (-1: refused)
+    "raytpu_soft_rt_pri_fwd_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I],
     # consts, Tp, chunk, cam, dirs, R, mask (or null), H, W, th, es, zs, m,
     # cot, run, blocks, scratch, scratch_bytes, dc, dcam, dd, stream
     "raytpu_soft_rt_pri_bwd": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F,
@@ -143,7 +146,8 @@ SIGNATURES = {
 RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L,
             "raytpu_soft_raster_bwd_scratch": _L,
             "raytpu_soft_rt_shw_scratch": _L,
-            "raytpu_soft_rt_pri_scratch": _L}
+            "raytpu_soft_rt_pri_scratch": _L,
+            "raytpu_soft_rt_pri_fwd_scratch": _L}
 
 _lib: ctypes.CDLL | None = None
 

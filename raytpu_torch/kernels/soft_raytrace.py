@@ -31,6 +31,13 @@ chunk's sums).
                     they prove of weight exactly 0 and skip.
   primary_bwd_items plain model of K10c's and K10d's work items: each
                     tile's kept chunks cut into runs of PRI_RUN.
+  primary_fwd_walk  the plain form of K10a's and K10b's early-out: the
+                    pairs they prove of weight exactly 0 against the
+                    running max of their work item, and skip.
+  primary_fwd_run, primary_fwd_items, primary_agg_items  plain models of
+                    K10a's and K10b's work items: the run, each tile's kept
+                    chunks cut into runs of it, and the forward folded item
+                    by item and merged in run order.
   shadow_dead_triples  the plain form of K10i's, K10j's, K10k's and K10l's
                     early-out: the triples whose sigmoid is exactly 0, which
                     they skip.
@@ -208,6 +215,141 @@ PARTIAL_BYTES = 1 << 30
 # partial d dirs (3 KB an item) for the most items and the blocks'
 # partials: 322 MB at Tp = 9,216 on 512^2 rays and 396 blocks.
 PRI_RUN = 16
+# K10a and K10b cut each tile's kept chunks (unmasked: every chunk) into
+# runs, a work item each, in (tile, run) order, from the same plan
+# (csrc/soft_raytrace.cu, "K10a and K10b, redesigned"; primary_fwd_run is
+# the rule, primary_fwd_items the plain model). The run is the mean kept
+# chunks a tile (rounded up) over ceil(PRI_FWD_ITEMS / ceil(R / THREADS)),
+# at least PRI_FWD_RUN_MIN: at 512^2 a tile of more than the mean is cut in
+# two or more, and a frame of fewer tiles is cut finer, so that about
+# PRI_FWD_ITEMS items spread over the card. It depends on the shapes and
+# the mask's kept count only, so an all-ones mask and no mask split alike.
+# An item carries 11 floats a ray (m, s, acc) to the merge: at most
+# n_tiles (ceil(PRI_FWD_ITEMS / tiles of R) + 1) items, 23 MB at 512^2,
+# whatever the table's size. chip_smoke.py::pri_fwd_rule_ms times other
+# values on the main path's frames: a floor of 4 ties 8 and 16 or 32 lose
+# where few tiles hold the work; more items help the brute frames by a few
+# percent and cost the culled step as much.
+PRI_FWD_ITEMS = 1024
+PRI_FWD_RUN_MIN = 8
+
+
+def primary_fwd_run(kept: int, n_tiles: int, R: int) -> int:
+    """The run of K10a's and K10b's work items (csrc/soft_raytrace.cu's
+    pri_fwd_run, pri_fwd_run_kernel for a mask): ``kept`` (tile, chunk)
+    pairs kept over n_tiles tiles of R rays."""
+    mean = -(-kept // n_tiles)
+    splits = max(1, -(-PRI_FWD_ITEMS // -(-R // THREADS)))
+    return max(PRI_FWD_RUN_MIN, -(-mean // splits))
+
+
+def _fwd_tiles(R: int, mask, tiles: RayTiles | None) -> tuple:
+    """The forward's tiles: each ray's tile (R,) and their count, the
+    mask's, or runs of THREADS consecutive rays where there is none."""
+    if mask is None:
+        return torch.arange(R) // THREADS, -(-R // THREADS)
+    return tiles.tile.cpu(), tiles.count
+
+
+def primary_fwd_items(mask, n_tiles: int, n_chunks: int, R: int) -> tuple:
+    """Plain model of K10a's and K10b's work items: the run
+    (primary_fwd_run) and each tile's kept chunks (mask (n_tiles,
+    n_chunks) != 0, or every chunk where mask is None) cut into runs of
+    it in order, a work item each, in (tile, run) order. Returns (run,
+    [(tile, [chunk, ...]), ...])."""
+    kept = n_tiles * n_chunks if mask is None else int((mask != 0).sum())
+    run = primary_fwd_run(kept, n_tiles, R)
+    return run, primary_bwd_items(mask, n_tiles, n_chunks, run)
+
+
+def _fwd_plan(consts, dirs, chunk: int, mask, tiles) -> tuple:
+    """Each ray's tile, whether chunk c starts a work item of tile t
+    (n_tiles, n_chunks) and each tile's items (n_tiles,), as the forward's
+    plan makes them."""
+    R, n_chunks = dirs.shape[1], consts.shape[0] // chunk
+    tile, n_tiles = _fwd_tiles(R, mask, tiles)
+    kept = (torch.ones((n_tiles, n_chunks), dtype=torch.bool)
+            if mask is None else mask.cpu() != 0)
+    run = primary_fwd_run(int(kept.sum()), n_tiles, R)
+    rank = torch.cumsum(kept.to(torch.int64), dim=1) - 1
+    start = kept & (rank % run == 0)
+    return tile, start, -(-kept.sum(dim=1) // run)
+
+
+def primary_fwd_walk(consts, cam, dirs, es: float, zs: float, chunk: int,
+                     mask=None, tiles: RayTiles = None):
+    """Plain form of K10a's and K10b's dead-pair test against the running
+    carry (csrc/soft_raytrace.cu::pri_dead at the item's m), for the tests
+    and chip_smoke.py; the kernels' route never calls it. Chunk by chunk,
+    yields (c, keep, logit, dead): the rays whose tile keeps chunk c (an
+    index tensor, or every ray), their logits (C, K) (primary_terms,
+    -1e30 where gated) and the pairs the test proves of weight exactly 0
+    (primary_dead_pairs at each ray's carry m: 0 at its work item's first
+    chunk, then the max of it and each chunk's logits)."""
+    tile, start, _ = _fwd_plan(consts, dirs, chunk, mask, tiles)
+    tile = tile.to(dirs.device)
+    start = start.to(dirs.device)
+    m = dirs.new_zeros(dirs.shape[1])
+    for c, rows in enumerate(_chunks(consts.shape[0], chunk)):
+        keep = _kept(mask, tiles, c)
+        m = torch.where(start[tile, c], 0.0, m)
+        d = dirs[:, keep]
+        logit, _ = primary_terms(consts[rows], cam, d[0:1], d[1:2], d[2:3],
+                                 es, zs)
+        dead = primary_dead_pairs(consts[rows], d, m[keep], es, zs)
+        yield c, keep, logit, dead
+        m[keep] = torch.maximum(m[keep], logit.max(dim=0).values)
+
+
+def primary_agg_items(consts, cam, dirs, es: float, zs: float, chunk: int,
+                      mask=None, tiles: RayTiles = None):
+    """Plain model of K10a's and K10b's order (primary_agg_reference's
+    result, its sums in the kernels' order): each tile's kept chunks cut
+    into work items (primary_fwd_items); a tile of one item carries (m, s,
+    acc) from the background (0, 1, 0) as primary_agg_reference does, an
+    item of a tile of several from (0, 0, 0), and the merge folds those
+    items in run order into the background: m = max(m, m_j), s = s e^(m -
+    m') + s_j e^(m_j - m'), acc likewise. Returns out (9, R), m, s."""
+    R = dirs.shape[1]
+    tile, start, n_items = _fwd_plan(consts, dirs, chunk, mask, tiles)
+    tile, start = tile.to(dirs.device), start.to(dirs.device)
+    split = (n_items > 1).to(dirs.device)[tile]
+    m = dirs.new_zeros(R)
+    s = torch.where(split, 0.0, 1.0).to(dirs.dtype)
+    acc = dirs.new_zeros(N_OUT, R)
+    fm, fs, facc = dirs.new_zeros(R), dirs.new_ones(R), dirs.new_zeros(N_OUT,
+                                                                        R)
+
+    def fold(rays):
+        m_new = torch.maximum(fm[rays], m[rays])
+        a, b = torch.exp(fm[rays] - m_new), torch.exp(m[rays] - m_new)
+        fs[rays] = fs[rays] * a + s[rays] * b
+        facc[:, rays] = facc[:, rays] * a + acc[:, rays] * b
+        fm[rays] = m_new
+
+    begun = torch.zeros(R, dtype=torch.bool, device=dirs.device)
+    for c, rows in enumerate(_chunks(consts.shape[0], chunk)):
+        new = start[tile, c] & split
+        fold(torch.nonzero(new & begun).squeeze(1))
+        m[new], s[new], acc[:, new] = 0.0, 0.0, 0.0
+        begun |= new
+        keep = _kept(mask, tiles, c)
+        d = dirs[:, keep]
+        logit, vals = primary_terms(consts[rows], cam, d[0:1], d[1:2],
+                                    d[2:3], es, zs)
+        m_old = m[keep]
+        m_new = torch.maximum(m_old, logit.max(dim=0).values)
+        scale = torch.exp(m_old - m_new)
+        w = torch.exp(logit - m_new)
+        m[keep] = m_new
+        s[keep] = s[keep] * scale + w.sum(dim=0)
+        acc[:, keep] = acc[:, keep] * scale + torch.stack(
+            [(w * v).sum(dim=0) for v in vals])
+    fold(torch.nonzero(begun).squeeze(1))
+    m = torch.where(split, fm, m)
+    s = torch.where(split, fs, s)
+    acc = torch.where(split, facc, acc)
+    return acc * (1.0 / s), m, s
 
 
 def pri_two_launch(Tp: int) -> bool:
@@ -856,15 +998,36 @@ def _tile_args(mask, tiles: RayTiles | None) -> tuple:
     return mask.data_ptr(), tiles.height, tiles.width, tiles.th
 
 
+def pri_fwd_scratch(consts, chunk: int, dirs, mask=None,
+                    tiles: RayTiles = None) -> torch.Tensor:
+    """A fresh scratch buffer (uint8, on consts' device) for one K10a/K10b
+    call on these inputs, sized by the kernels' library
+    (csrc/soft_raytrace.cu::PriFwdCall): the plan, the staged rows and the
+    items' partials."""
+    H, W, th = ((tiles.height, tiles.width, tiles.th) if mask is not None
+                else (0, 0, 0))
+    n = _build.load().raytpu_soft_rt_pri_fwd_scratch(
+        consts.shape[0], chunk, dirs.shape[1], int(mask is not None), H, W,
+        th, PRI_FWD_RUN_MIN, PRI_FWD_ITEMS)
+    if n < 0:
+        raise ValueError(f"the primary forward takes no table of "
+                         f"{consts.shape[0]} rows in chunks of {chunk} on "
+                         f"{dirs.shape[1]} rays")
+    return torch.empty((n,), dtype=torch.uint8, device=consts.device)
+
+
 def launch_pri_fwd_kernel(consts, chunk: int, cam, dirs, es: float,
                           zs: float, out, m, s, mask=None,
-                          tiles: RayTiles = None) -> None:
+                          tiles: RayTiles = None, *, scratch) -> None:
     """Launch K10a (mask None) or K10b (mask (n_tiles, n_chunks) over
-    ``tiles``) into the outputs the caller allocated. Checks nothing and
-    counts nothing; the wrapper does both."""
+    ``tiles``) with the scratch of pri_fwd_scratch: the plan, the rows'
+    staging, the kernel and the merge of its items into the outputs the
+    caller allocated. Checks nothing and counts nothing; the wrapper does
+    both."""
     _raise("soft_rt_pri_fwd", _build.load().raytpu_soft_rt_pri_fwd(
         consts.data_ptr(), consts.shape[0], chunk, cam.data_ptr(),
         dirs.data_ptr(), dirs.shape[1], *_tile_args(mask, tiles), es, zs,
+        PRI_FWD_RUN_MIN, PRI_FWD_ITEMS, scratch.data_ptr(), scratch.numel(),
         out.data_ptr(), m.data_ptr(), s.data_ptr(), _stream()))
 
 
@@ -1140,8 +1303,9 @@ def primary_agg_fwd(consts: torch.Tensor, cam: torch.Tensor,
     out = dirs.new_empty((N_OUT, R))
     m, s = dirs.new_empty(R), dirs.new_empty(R)
     with torch.cuda.device(consts.device):
-        launch_pri_fwd_kernel(consts, chunk, cam, dirs, es, zs, out, m, s,
-                              mask, tiles)
+        launch_pri_fwd_kernel(
+            consts, chunk, cam, dirs, es, zs, out, m, s, mask, tiles,
+            scratch=pri_fwd_scratch(consts, chunk, dirs, mask, tiles))
     if mask is None:
         LAUNCHES_SRT_PRI_FWD += 1
     else:

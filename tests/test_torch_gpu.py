@@ -1072,6 +1072,83 @@ def test_masked_soft_raytrace_forward_kernels_match_plain_versions(
     assert float((got[1] > 1.0).float().mean()) > 0.05
 
 
+@pytest.mark.parametrize("kind", ["one-tile", "thin"])
+def test_masked_primary_forward_on_crowded_and_thin_masks(cuda, kind):
+    """K10b on a mask whose kept chunks all sit in one tile (it keeps every
+    chunk, cut into several work items and merged; the others keep none)
+    and on a thin one (at most one chunk a tile): against the plain masked
+    forward (rtol 1e-5 / atol 1e-6), against the plain model of its items
+    and merge (primary_agg_items) with m bit for bit, two calls identical,
+    one launch a call, and with every bit set on the same tiles equal to
+    K10a bit for bit."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    c = _srt_culled_case(cuda, 64, 64)
+    n_tiles, n_chunks = c["mask"].shape
+    mask = torch.zeros_like(c["mask"])
+    if kind == "one-tile":
+        mask[5] = 1  # a tile of the torus's middle rows
+    else:
+        rng = np.random.default_rng(3)
+        mask[torch.arange(n_tiles), torch.tensor(
+            rng.integers(0, n_chunks, n_tiles))] = 1
+    pargs = (c["pri"], c["cam"], c["dirs"], c["es"], c["zs"], c["chunk"])
+    before = srt.LAUNCHES_SRT_PRI_FWD_MASKED
+    got = srt.primary_agg_fwd(*pargs, mask, c["tiles"])
+    again = srt.primary_agg_fwd(*pargs, mask, c["tiles"])
+    assert srt.LAUNCHES_SRT_PRI_FWD_MASKED == before + 2
+    want = srt.primary_agg_reference(*pargs, mask, c["tiles"])
+    model = srt.primary_agg_items(*pargs, mask, c["tiles"])
+    ones = srt.primary_agg_fwd(*pargs, torch.ones_like(mask), c["tiles"])
+    brute = srt.primary_agg_fwd(*pargs)
+    torch.cuda.synchronize()
+    run, items = srt.primary_fwd_items(mask.cpu(), n_tiles, n_chunks,
+                                       c["dirs"].shape[1])
+    if kind == "one-tile":
+        assert len(items) > 1 and {t for t, _ in items} == {5}
+    for g, a, w, d, o, b in zip(got, again, want, model, ones, brute):
+        assert torch.equal(g, a) and torch.equal(o, b)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(g, d, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1], model[1])
+    dropped = (mask[c["tiles"].tile] == 0).all(dim=1)
+    assert not got[0][:, dropped].any() and (got[2][dropped] == 1).all()
+    assert (got[1][~dropped] > 1.0).any()
+
+
+def test_primary_forward_on_the_largest_table(cuda, monkeypatch):
+    """K10a on phase 32's 66,560-triangle torus (2,080 chunks) at 64^2:
+    its 16 tiles cut into 64 work items each, with a scratch within the
+    bound of the design (the staged rows and n_tiles (splits + 1) partials
+    of 11 floats a ray, whatever the table's size); against the plain
+    forward (rtol 1e-5 / atol 1e-6); and against one item a tile (the
+    rule's split forced to 1, no merge): m bit for bit, out and s within
+    rtol 1e-5 / atol 1e-6."""
+    from raytpu_torch.kernels import soft_raytrace as srt
+    pargs = _two_launch_case(cuda, (256, 130), 64)[0]
+    consts, cam, dirs, _, _, es, zs, chunk = pargs
+    Tp, R = consts.shape[0], dirs.shape[1]
+    n_tiles, n_chunks = R // srt.THREADS, Tp // chunk
+    assert (Tp, n_chunks) == (66560, 2080)
+    run, items = srt.primary_fwd_items(None, n_tiles, n_chunks, R)
+    assert len(items) == n_tiles * 64
+    splits = -(-srt.PRI_FWD_ITEMS // n_tiles)
+    assert srt.pri_fwd_scratch(consts, chunk, dirs).numel() <= (
+        Tp * 96 + n_tiles * (splits + 1) * 11 * srt.THREADS * 4 + 64)
+    args = (consts, cam, dirs, es, zs, chunk)
+    got = srt.primary_agg_fwd(*args)
+    want = srt.primary_agg_reference(*args)
+    monkeypatch.setattr(srt, "PRI_FWD_ITEMS", 1)
+    assert srt.primary_fwd_items(None, n_tiles, n_chunks, R)[0] == n_chunks
+    whole = srt.primary_agg_fwd(*args)
+    torch.cuda.synchronize()
+    for g, w, o in zip(got, want, whole):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(g, o, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1], whole[1])
+    assert float((got[1] > 1.0).float().mean()) > 0.05
+
+
 @pytest.mark.parametrize("H,W,samples", [(64, 64, 1), (40, 72, 16)],
                          ids=["64x64-s1", "40x72-s16"])
 def test_masked_soft_raytrace_backward_kernels_match_plain_float64(
