@@ -209,13 +209,17 @@ nonzero without printing a result:
      and triples only).
  29. the sharded renderer's kernels against their plain versions on the
      card: K7b (occlusion of known points) on the 512^2 Cornell frame's
-     hit points toward the full-feature sources (S = 32); K7c (K7b with
-     kernels/intersect.py::position_mask) on the bench's stl_intersect
-     frame's hit points (the mesh padded to 9,216, 512^2, the rasteriser
-     camera) at S = 1 and S = 16, = K7b; K8a (the multi-chunk winner
-     without a mask) on the rasterize CLI's STL frame at 512^2 (9,028
-     triangles), the whole frame and its lower half (y0 = 256), = K8c.
-     Bits equal, two calls identical, exact launch counts.
+     hit points toward the full-feature sources (S = 32) and toward its
+     one light (S = 1); K7c (K7b with kernels/intersect.py::position_mask)
+     on the bench's stl_intersect frame's hit points (the mesh padded to
+     9,216, 512^2, the rasteriser camera) at S = 1 and S = 16, = K7b; K8a
+     (the multi-chunk winner without a mask) on the rasterize CLI's STL
+     frame at 512^2 (9,028 triangles), the whole frame and its lower half
+     (y0 = 256), = K8c. Bits equal, two calls identical, exact launch
+     counts; for each K7b/K7c case the work the plain forms count
+     (occlusion_work: tests to the first blocker, those the exact reject
+     decides, none of them blocking, misses included; the miss points'
+     share, the items and runs planned).
  30. sharded serving on a 1 x 1 NCCL mesh (init_distributed at world size
      1, make_mesh(1, 1)), each frame against its single-card frame:
      make_sharded_render at 512^2 clean Cornell, at full feature (AA 3,
@@ -223,7 +227,8 @@ nonzero without printing a result:
      (K7d + K7c); make_sharded_rasterize on Cornell (K8b) and on the mesh
      (K8a); make_sharded_soft_render at 512^2, 40 / 40, both renderers.
      Hard frames within atol 1e-6, soft within atol 1e-6 / rtol 1e-5;
-     exact launches; ms a frame beside the single-card frame's.
+     exact launches; ms a frame beside the single-card frame's; the
+     full-feature and STL frames under the profiler.
  31. the sharded train step on 1 x 1 (hard clean 512^2 against the
      single-card loop branch, both soft renderers against their frames):
      loss and every gradient within rtol 1e-4 / atol 1e-5 (soft leaves
@@ -1837,8 +1842,9 @@ def occlusion_case(dev, scene, camera, size: int, lights, samples: int,
     """K7b's or K7c's inputs as the sharded renderer's 1 x 1 block makes
     them for the first sub-ray of a size^2 frame: the single-card hit
     positions (K5 over the whole scene, the camera position on a miss),
-    the sources' constants (light-major, sample-minor) and, masked, the
-    port's 16 x 16 tiles and kernels/intersect.py::position_mask."""
+    the sources' constants (light-major, sample-minor), the miss points
+    and, masked, the port's 16 x 16 tiles and
+    kernels/intersect.py::position_mask."""
     from raytpu_torch import RenderConfig
     from raytpu_torch.core.types import pixel_grid
     from raytpu_torch.kernels import intersect as isect
@@ -1858,8 +1864,8 @@ def occlusion_case(dev, scene, camera, size: int, lights, samples: int,
         case = dict(pos=pos.contiguous(), m_s=cs.m, k0_s=cs.k0, src=src,
                     valid=scene.active, C=C, tri_chunk=cfg.tri_chunk,
                     table=source_table(cs.m, cs.k0, scene.active, C),
-                    mask=None, tiles=None, hit=float((idx >= 0).float()
-                                                     .mean()))
+                    mask=None, tiles=None, miss=idx < 0,
+                    hit=float((idx >= 0).float().mean()))
         if masked:
             case["tiles"] = isect.ray_tiles(size * size, (size, size), dev)
             case["mask"] = isect.position_mask(
@@ -1885,24 +1891,75 @@ def run_occlusion(case: dict, mask="own", plain: bool = False):
                                  c["tiles"])
 
 
-def occlusion_tests(case: dict) -> int:
-    """Plane tests K7b or K7c make on an occlusion_case: each point, for
-    each source, through the chunks its tile keeps (every chunk, K7b) in
-    order, up to its first blocker (t < 0.99)."""
+def occlusion_work(case: dict, run: int | None = None) -> dict:
+    """The tests K7b or K7c make on an occlusion_case, counted with the plain
+    forms on the case's tensors: each point (a miss's camera-origin point
+    too), for each source, through the chunks its tile keeps (every chunk,
+    K7b) in order, up to its first blocker (t < 0.99): ``tests``, of them
+    ``rejected`` the ones the exact reject decides (the plain
+    kernels/intersect.py::shadow_reject) and ``miss_tests`` those of miss
+    points; ``reject_wrong`` every test of the sweeps, to the end of each
+    chunk, that the reject rejects and plane_tests calls blocking (it must
+    be 0). On the items route (a mask, or several chunks) a work item sweeps
+    a run of ``run`` kept chunks of a (tile, source) pair afresh, so a point
+    blocked in an earlier run sweeps the next to its own first blocker:
+    ``item_tests`` counts those (the kernel stops a lane whose bit another
+    item has set, which this count cannot see), ``entries`` and ``items``
+    (8 warps an entry) what kernels/intersect.py::occlusion_plan lists, of
+    the kernel's ``grid`` of (runs, pairs, warps) slots; ``follower_tests``
+    the tests of the warps whose points all equal an earlier warp's of
+    their tile (kernels/intersect.py::occlusion_leaders), which the items
+    do not sweep. ``distinct_tests`` and ``distinct_rejected`` count each
+    tile's distinct points once (bit for bit; a miss's point is the camera
+    position): the work the points need (occlusion_bound). A warp runs
+    until its longest lane is done: ``warp_tests`` is 32 times the longest
+    lane's tests summed over the items (K7b on one chunk: over each warp's
+    sources), ``longest`` the most tests a lane makes in one item."""
     from raytpu_torch.kernels import intersect as isect
     from raytpu_torch.ops.intersect import plane_tests
     from raytpu_torch.ops.shade import SHADOW_T
     c = case
-    R, C = c["pos"].shape[0], c["C"]
+    run = isect.occlusion_run(c["src"].shape[0]) if run is None else run
+    R, C, S = c["pos"].shape[0], c["C"], c["src"].shape[0]
     n = c["table"].shape[1] // C
-    total = 0
-    for s in range(c["src"].shape[0]):
-        sweeping = torch.ones(R, dtype=torch.bool, device=c["pos"].device)
+    dev = c["pos"].device
+    items = isect.occlusion_items_route(c["table"].shape[1], C, c["mask"])
+    tiles = c["tiles"] or isect.ray_tiles(R, None, dev)
+    cols = torch.arange(C, device=dev)[None, :]
+    work = dict(tests=0, rejected=0, miss_tests=0, reject_wrong=0,
+                item_tests=0, entries=0, items=0, grid=0, warp_tests=0,
+                longest=0, follower_tests=0, distinct_tests=0,
+                distinct_rejected=0, run=run if items else None)
+    # The warp of each point (its tile's slot over 32), the points of
+    # follower warps, and each tile's first point of each bit pattern.
+    warp = torch.empty(R, dtype=torch.long, device=dev)
+    warp[tiles.rays] = torch.arange(tiles.rays.numel(), device=dev) // 32
+    lead = isect.occlusion_leaders(c["pos"], tiles).reshape(-1)
+    follower = lead[warp] != warp % (isect.TILE_RAYS // 32)
+    if not items:
+        follower[:] = False
+    key = torch.cat([tiles.tile[:, None],
+                     c["pos"].view(torch.int32).long()], dim=1)
+    _, group = torch.unique(key, dim=0, return_inverse=True)
+    at = torch.arange(R, device=dev)
+    first = torch.full((int(group.max()) + 1,), R, dtype=torch.long,
+                       device=dev).scatter_reduce_(0, group, at, "amin")
+    distinct = first[group] == at
+    n_runs = -(-n // run)
+    for s in range(S):
+        sweeping = torch.ones(R, dtype=torch.bool, device=dev)
+        in_run = torch.ones(R, dtype=torch.bool, device=dev)
+        rank = torch.zeros(R, dtype=torch.long, device=dev)
+        lane = torch.zeros((R, n_runs), dtype=torch.long, device=dev)
         for ch in range(n):
-            keep = sweeping
+            keep = torch.ones(R, dtype=torch.bool, device=dev)
             if c["mask"] is not None:
-                keep = keep & (c["mask"][c["tiles"].tile, s * n + ch] != 0)
-            rows = torch.nonzero(keep).squeeze(1)
+                keep = c["mask"][tiles.tile, s * n + ch] != 0
+            # A new run starts at every run-th kept chunk of the tile.
+            in_run |= keep & (rank % run == 0)
+            j = rank // run
+            rank += keep.long()
+            rows = torch.nonzero(keep & in_run).squeeze(1)
             if rows.numel() == 0:
                 continue
             ts, oks = plane_tests(c["pos"][rows] - c["src"][s][None, :],
@@ -1910,21 +1967,117 @@ def occlusion_tests(case: dict) -> int:
             blocked = oks & (ts < SHADOW_T)
             any_ = blocked.any(dim=1)
             first = blocked.float().argmax(dim=1) + 1
-            total += int(torch.where(any_, first, C).sum())
+            tests = torch.where(any_, first, C)
+            seq = sweeping[rows]
+            reject = isect.shadow_reject(
+                c["pos"][rows] - c["src"][s][None, :],
+                *isect._chunk(c["table"], s, ch, C))
+            work["item_tests"] += int(tests.sum())
+            lane[rows, j[rows]] += tests if items else torch.where(seq, tests,
+                                                                   0)
+            work["tests"] += int(tests[seq].sum())
+            work["miss_tests"] += int(tests[seq & c["miss"][rows]].sum())
+            decided = (reject & (cols < tests[:, None])).sum(dim=1)
+            work["rejected"] += int(decided[seq].sum())
+            one = seq & distinct[rows]
+            work["distinct_tests"] += int(tests[one].sum())
+            work["distinct_rejected"] += int(decided[one].sum())
+            work["follower_tests"] += int(tests[follower[rows]].sum())
+            work["reject_wrong"] += int((reject & blocked).sum())
             sweeping[rows[any_]] = False
-    return total
+            in_run[rows[any_]] = False
+        longest = torch.zeros((tiles.rays.numel() // 32, n_runs),
+                              dtype=torch.long, device=dev)
+        at = warp[:, None] * n_runs + torch.arange(n_runs, device=dev)
+        longest.view(-1).scatter_reduce_(0, at.reshape(-1), lane.reshape(-1),
+                                         "amax")
+        work["warp_tests"] += 32 * int(longest.sum())
+        work["longest"] = max(work["longest"], int(longest.max()))
+    if items:
+        plan = isect.occlusion_plan(c["mask"], tiles.count, S, n, run)
+        work.update(entries=int(plan.shape[0]),
+                    items=int(plan.shape[0]) * isect.TILE_RAYS // 32,
+                    grid=n_runs * tiles.count * S * isect.TILE_RAYS // 32)
+    else:
+        work["item_tests"] = work["tests"]
+    return work
 
 
-def occlusion_bound(case: dict) -> tuple[float, str]:
+def occlusion_work_line(w: dict) -> str:
+    t = max(1, w["tests"])
+    route = (f"{w['entries']} entries of runs of {w['run']} chunks, "
+             f"{w['items']} warp items of a grid of {w['grid']}, "
+             f"{w['item_tests']} tests in them at most"
+             if w["run"] is not None else "one chunk: a thread a point")
+    route += (f"; the warps' longest lanes {w['warp_tests']} tests (lane use "
+              f"{w['item_tests'] / max(1, w['warp_tests']):.4f}), the "
+              f"longest lane of an item {w['longest']}")
+    return (f"{w['tests']} tests to the first blocker, the reject decides "
+            f"{w['rejected']} ({w['rejected'] / t:.6f}), miss points' "
+            f"{w['miss_tests']} ({w['miss_tests'] / t:.4f}), each tile's "
+            f"distinct points' {w['distinct_tests']}, blocking tests "
+            f"rejected {w['reject_wrong']}; {route}, of them in warps that "
+            f"follow another {w['follower_tests']}")
+
+
+def occlusion_bound(case: dict, work: dict, reject: bool = True,
+                    distinct: bool = True) -> tuple[float, str]:
     """K7b's or K7c's bound: 12 B in and 4 S B out a point, the table, the
-    sources and the mask read once, FLOPS_PLANE_TEST a plane test of
-    occlusion_tests."""
+    sources and the mask read once; since their redesign FLOPS_REJECT a test
+    of each tile's distinct points (occlusion_work) and, where the reject
+    does not decide, a plane test's FLOPS_PLANE_TEST besides (``reject``
+    False: every point's every test a plane test, the count before the
+    redesign; ``distinct`` False: every point's tests with the reject)."""
     c = case
     R, S = c["pos"].shape[0], c["src"].shape[0]
     nbytes = R * (12 + 4 * S) + (c["table"].numel() + 3 * S) * 4
     if c["mask"] is not None:
         nbytes += c["mask"].numel() * 4
-    return bound_ms(nbytes, FLOPS_PLANE_TEST * occlusion_tests(c))
+    flops = FLOPS_PLANE_TEST * work["tests"]
+    if reject:
+        tests, rejected = ((work["distinct_tests"], work["distinct_rejected"])
+                           if distinct else (work["tests"], work["rejected"]))
+        flops = FLOPS_REJECT * tests + FLOPS_PLANE_TEST * (tests - rejected)
+    return bound_ms(nbytes, flops)
+
+
+def occlusion_cases(dev, mesh9028) -> dict:
+    """Phase 29's K7b and K7c cases (occlusion_case), on the 9,028-triangle
+    mesh ``mesh9028`` for K7c."""
+    from raytpu_torch import Camera, Lights, cornell_box
+    one = Lights.single(capacity=1, device=dev)
+    return {
+        # K7b: the 512^2 Cornell frame's hit points toward the bench's
+        # full-feature sources (2 lights x 16 samples, S = 32).
+        "cornell_512_s32": occlusion_case(
+            dev, cornell_box(pad_to=32, device=dev),
+            Camera.raytracer_default(device=dev), 512,
+            full_feature_lights(dev), 16, masked=False),
+        # K7b: the clean 512^2 Cornell frame's points toward its one light
+        # (S = 1): phase 30's clean sub-ray and phase 31's clean step.
+        "cornell_512_s1": occlusion_case(
+            dev, cornell_box(pad_to=32, device=dev),
+            Camera.raytracer_default(device=dev), 512, one, 1,
+            masked=False),
+        # K7c: the bench's stl_intersect frame (the mesh padded to 9,216 at
+        # 512^2, the rasteriser camera), S = 1 and S = 16.
+        "stl_512_s1": occlusion_case(
+            dev, mesh9028.pad_to(9216), Camera.rasterizer_default(device=dev),
+            512, one, 1, masked=True),
+        "stl_512_s16": occlusion_case(
+            dev, mesh9028.pad_to(9216), Camera.rasterizer_default(device=dev),
+            512, Lights.single(capacity=1, soft_samples=16, device=dev), 16,
+            masked=True),
+    }
+
+
+def stl_lit_frame(dev, mesh9028):
+    """Phase 30's sharded STL frame: the mesh at 512^2 clean from the render
+    CLI's STL camera, one light in front of it."""
+    from raytpu_torch import Lights, RenderConfig
+    return (mesh9028, stl_camera(dev),
+            Lights.single(capacity=1, position=(0.3, -1.5, -3.0), device=dev),
+            RenderConfig(width=512, height=512, mode="clean"))
 
 
 def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
@@ -1954,24 +2107,9 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
         "card")
     mesh9028 = load_stl(str(stl_path), device=dev)
     one = Lights.single(capacity=1, device=dev)
-    occ_cases = {
-        # K7b: the 512^2 Cornell frame's hit points toward the bench's
-        # full-feature sources (2 lights x 16 samples, S = 32).
-        "cornell_512_s32": occlusion_case(
-            dev, cornell_box(pad_to=32, device=dev),
-            Camera.raytracer_default(device=dev), 512,
-            full_feature_lights(dev), 16, masked=False),
-        # K7c: the bench's stl_intersect frame (the mesh padded to 9,216 at
-        # 512^2, the rasteriser camera), S = 1 and S = 16.
-        "stl_512_s1": occlusion_case(
-            dev, mesh9028.pad_to(9216), Camera.rasterizer_default(device=dev),
-            512, one, 1, masked=True),
-        "stl_512_s16": occlusion_case(
-            dev, mesh9028.pad_to(9216), Camera.rasterizer_default(device=dev),
-            512, Lights.single(capacity=1, soft_samples=16, device=dev), 16,
-            masked=True),
-    }
+    occ_cases = occlusion_cases(dev, mesh9028)
     err = {"k7b": 0.0, "k7c": 0.0, "k8a": 0.0}
+    occ_work = {}
     zero_counts()
     for name, c in occ_cases.items():
         key = "k7b" if c["mask"] is None else "k7c"
@@ -1999,6 +2137,11 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
         require(launched == want_l, f"{name}: exact launch counts")
         err[key] = max(err[key], float((got - want).abs().max()))
         del again, want, brute
+        occ_work[name] = occlusion_work(c)
+        say(f"  {name} work: {occlusion_work_line(occ_work[name])}")
+        require(occ_work[name]["reject_wrong"] == 0,
+                f"{name}: the reject rejects no blocking test, miss points "
+                f"included")
 
     k8_frame = stl_frame(dev, stl_path, 512)
     k8 = raster_case(k8_frame[0], k8_frame[1], k8_frame[3])
@@ -2038,13 +2181,9 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
         f"{state.process_id} on {state.device}; mesh {mesh}")
     require(state.backend == "nccl" and state.num_processes == 1,
             "one NCCL rank")
-    stl_lit = (mesh9028, stl_camera(dev),
-               Lights.single(capacity=1, position=(0.3, -1.5, -3.0),
-                             device=dev),
-               RenderConfig(width=512, height=512, mode="clean"))
     hard_frames = {"clean_512": bench_frame(dev, 512),
                    "full_feature_512": full_feature_frame(dev, 512),
-                   "stl_512": stl_lit}
+                   "stl_512": stl_lit_frame(dev, mesh9028)}
     raster_frames = {"raster_512": raster_bench_frame(dev, 512),
                      "raster_stl_512": k8_frame}
     soft40 = dict(mode="soft", soft_edge_sharpness=40.0,
@@ -2112,19 +2251,24 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
         say(f"{name}: max |sharded - single| {frame_err[name]:.3g}; "
             f"{t['sharded']:.4f} ms a sharded frame, {t['single']:.4f} ms "
             f"the single-card frame (CUDA events, median of 5; {card})")
-    # Where the full-feature frame's time goes, sharded and single-card.
-    fn, f = sharded["full_feature_512"]
-    with torch.no_grad():
-        frame_busy = {
-            "sharded": device_busy(lambda: fn(*f[:3]), steps=3),
-            "single": device_busy(
-                lambda: single("full_feature_512", f), steps=3)}
-    for side, b in frame_busy.items():
-        say(f"full_feature_512 {side} frame under the profiler: device busy "
-            f"{b['busy_ms']:.4f} ms a frame in {b['kernels']} events, "
-            f"{b['wall_ms']:.4f} ms on the host clock (share {b['share']})")
-        for kname, ms in b["by_name"][:6]:
-            say(f"  {ms:.5f} ms  {kname[:100]}")
+    # Where the full-feature and STL frames' time goes, sharded and
+    # single-card.
+    frame_busy = {}
+    for name in ("full_feature_512", "stl_512"):
+        fn, f = sharded[name]
+        with torch.no_grad():
+            frame_busy[name] = {
+                "sharded": device_busy(lambda fn=fn, f=f: fn(*f[:3]),
+                                       steps=3),
+                "single": device_busy(
+                    lambda name=name, f=f: single(name, f), steps=3)}
+        for side, b in frame_busy[name].items():
+            say(f"{name} {side} frame under the profiler: device busy "
+                f"{b['busy_ms']:.4f} ms a frame in {b['kernels']} events, "
+                f"{b['wall_ms']:.4f} ms on the host clock (share "
+                f"{b['share']})")
+            for kname, ms in b["by_name"][:6]:
+                say(f"  {ms:.5f} ms  {kname[:100]}")
 
     say("== phase 31: the sharded train step and fit on 1 x 1")
     rng = np.random.default_rng(31)
@@ -2285,7 +2429,12 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
         t.update(median_ms_in_turns(
             {"plain": lambda c=c: run_occlusion(c, plain=True)}, n=1,
             reps=1))
-        t["bound"] = occlusion_bound(c)
+        t["bound"] = occlusion_bound(c, occ_work[name])
+        t["bound_first_count"] = occlusion_bound(c, occ_work[name],
+                                                 reject=False)
+        t["bound_every_point"] = occlusion_bound(c, occ_work[name],
+                                                 distinct=False)
+        t["work"] = occ_work[name]
         timings[name] = t
     t = median_ms_in_turns(
         {"kernel": lambda: raster.raster_winner_chunked(consts, 512, 512,
@@ -2300,8 +2449,12 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
     timings["k8a_stl_512"] = t
     card = card_line()
     for name, t in timings.items():
+        first = (f", {t['bound_every_point'][0]:.4f} ms on every point's "
+                 f"tests, {t['bound_first_count'][0]:.4f} ms counting every "
+                 f"test a plane test" if "bound_first_count" in t else "")
         say(f"{name}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} "
-            f"ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) ({card})")
+            f"ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}){first} "
+            f"({card})")
     record["sharded_kernels"] = timings
 
     def entry(name, key, case, launches, replaces, extra=None):
@@ -2320,7 +2473,8 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
 
     return [
         entry("occlusion", "k7b", "cornell_512_s32", serve["occlusion"],
-              replaces="raytpu/kernels/intersect_pallas.py:912"),
+              replaces="raytpu/kernels/intersect_pallas.py:912",
+              extra="cornell_512_s1"),
         entry("occlusion_masked", "k7c", "stl_512_s1",
               serve["occlusion_masked"],
               replaces="raytpu/kernels/intersect_pallas.py:950",

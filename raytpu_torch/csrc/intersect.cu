@@ -115,35 +115,58 @@
 // - k7a_pack_tris_kernel copies the S shadow blocks triangle-major, 48
 //   bytes a triangle, so a test reads its constants in three loads (two of
 //   16 bytes, one of 8), not ten;
-// - k7a_shadow_kernel, persistent warps that take work items (a warp of a
-//   tile's hit rays, a source, a run of that source's kept chunks) from an
-//   atomic counter: no block-wide barrier, a lane stops at its first
-//   blocker, the warp leaves once no lane sweeps, and a test first takes
-//   the exact reject (shadow_reject), which decides nearly every test
-//   without the IEEE reciprocal; plane_test decides the rest. With few
-//   sources a (tile, source)'s kept chunks are split into SHADOW_RUNS / S
-//   runs, so the few tiles spread over every SM; the runs' bits OR into the
-//   zeroed occ (a store of 1), in any order.
+// - shadow_items_kernel<false>, persistent warps that take work items (a
+//   warp of a tile's hit rays, a source, a run of that source's kept
+//   chunks) from an atomic counter: no block-wide barrier, a lane stops at
+//   its first blocker, the warp leaves once no lane sweeps, and a test
+//   first takes the exact reject (shadow_reject), which decides nearly
+//   every test without the IEEE reciprocal; plane_test decides the rest.
+//   With few sources a (tile, source)'s kept chunks are split into
+//   SHADOW_RUNS / S runs, so the few tiles spread over every SM; the runs'
+//   bits OR into the zeroed occ (a store of 1), in any order.
 // Misses keep occ 0. The work lists are built on the card: no host sync.
 //
-// K7b and K7c, occlusion_points_kernel<false> and <true>, replace
-// intersect_pallas.py::_occlusion_multi_kernel (launched at :1078 by
-// occlusion_multi_pallas) and ::_occlusion_multi_kernel_masked (launched at
-// :1063 for a block of several chunks given its vertices): the any-hit
-// shadow test (t < 0.99) of S sources toward KNOWN points, with no primary
-// phase. The sharded renderer merges the primary closest hit across the
-// triangle shards before any shadow ray exists, so each shard runs these on
-// the merged hit positions against its own triangle block
-// (raytpu_torch/parallel/render.py::_merged_occlusion_rows). Block (tile,
-// s), one thread a point: the ray is pos - src[s], swept over source s's
-// chunks (K7c: the chunks its (tile, s) mask columns keep, skipped
-// block-uniformly), each chunk staged between two barriers, a point
-// stopping at its first blocker and the block leaving once none of its points still
-// sweeps. Unlike K7a every point is tested, a miss's camera-origin point
-// included, as the JAX kernels test every point; the masks of
+// K7b and K7c replace intersect_pallas.py::_occlusion_multi_kernel
+// (launched at :1078 by occlusion_multi_pallas) and
+// ::_occlusion_multi_kernel_masked (launched at :1063 for a block of
+// several chunks given its vertices): the any-hit shadow test (t < 0.99) of
+// S sources toward KNOWN points, with no primary phase. The sharded
+// renderer merges the primary closest hit across the triangle shards
+// before any shadow ray exists, so each shard runs these on the merged hit
+// positions against its own triangle block
+// (raytpu_torch/parallel/render.py::_merged_occlusion_rows). The ray is
+// pos - src[s]. Unlike K7a every point is tested, a miss's camera-origin
+// point included, as the JAX kernels test every point; the masks of
 // kernels/cull.py::position_shadow_mask are conservative for every point,
-// so K7c's bits equal K7b's. Bound: 20 float operations a plane test to the
-// first blocker against 12 B in and 4 S B out a point: operations.
+// so K7c's bits equal K7b's. Every test takes K7a's exact reject first
+// from k7a_pack_tris_kernel's triangle-major copy of the S blocks (block
+// offset 0), so the IEEE reciprocal is paid only where the reject leaves a
+// test open, and no block-wide barrier holds a warp whose points are done:
+// - K7b on one chunk (the sharded renderer's scenes, T <= 128) is K6's
+//   shadow half, occlusion_points_kernel<kStaged>: a thread a point, read
+//   once, swept toward the S sources in turn (shadow_sources, K6's own
+//   loop), the copy staged once a block in shared memory where it takes at
+//   most kOccStagedBytes (kernels/intersect.py::k6_staged's 96 KB) and
+//   read through the cache above; a lane stops at its first blocker, the warp moves to the next
+//   source once no lane sweeps, and occ (S, R) is written a row a source,
+//   coalesced.
+// - K7c, and K7b over several chunks, are K7a's shadow half on the tiles'
+//   own points, shadow_items_kernel<true>: occlusion_plan_kernel counts
+//   each (tile, source) pair's kept chunks (K7b keeps every chunk), a warp
+//   a pair, on the card; persistent warps take items (a warp of the tile's
+//   points, one run of `run` kept chunks of one pair, every pair's first
+//   run first) from a counter, so the few tiles holding most of the work
+//   spread over the card; a blocked point stores 1 over the zeroed occ, the
+//   runs' bits OR in any order, and a lane whose bit another item has set
+//   stops. A warp of points all equal, bit for bit, to an earlier warp's
+//   of its tile (occlusion_leaders_kernel; the points of misses, the camera
+//   position) sweeps nothing: the earlier warp's bit is its bit, written by
+//   that warp's items. Within a tile the mask row is one, so this is exact
+//   for any mask.
+// Bound: FLOPS_REJECT a test to the first blocker of each tile's distinct
+// points and a plane test's 20 more where the reject leaves it open,
+// against 12 B in and 4 S B out a point: operations
+// (chip_smoke.py::occlusion_bound).
 //
 // Bound of K5 at 512^2 x 9,216 triangles: 2.42 G plane tests of ~20 float
 // operations, 0.72 ms at 67 TFLOP/s against 12 + 8 B a ray and 0.37 MB of
@@ -170,20 +193,26 @@ constexpr int kMaxTris = 128;
 constexpr int kBlockRows = 10;  // n xyz | c2 xyz | c3 xyz | k0
 constexpr float kShadowT = 0x1.fae148p-1f;  // float32(0.99)
 
-// The ray of this thread in the masked kernels' tiles: block b is tile b,
+// The ray of slot k (0..255) of tile `tile` in the masked kernels' tiles,
 // row-major over tiles of th x (256 / th) rays of an H x W grid.
 struct TileRay {
   int r;
   bool valid;
 };
 
-__device__ __forceinline__ TileRay tile_ray(int H, int W, int th) {
+__device__ __forceinline__ TileRay tile_slot(int tile, int k, int H, int W,
+                                             int th) {
   const int tw = kThreads / th;
   const int tiles_x = (W + tw - 1) / tw;
-  const int y = (blockIdx.x / tiles_x) * th + threadIdx.x / tw;
-  const int x = (blockIdx.x % tiles_x) * tw + threadIdx.x % tw;
+  const int y = (tile / tiles_x) * th + k / tw;
+  const int x = (tile % tiles_x) * tw + k % tw;
   const bool valid = y < H && x < W;
   return {valid ? y * W + x : 0, valid};
+}
+
+// The ray of this thread: block b is tile b.
+__device__ __forceinline__ TileRay tile_ray(int H, int W, int th) {
+  return tile_slot(blockIdx.x, threadIdx.x, H, W, th);
 }
 
 // Copy chunk c of the 10-row constant block at `blk` (row stride Tp) into
@@ -248,7 +277,7 @@ __device__ __forceinline__ int closest(const float* blk, int C, float dx,
 }
 
 // Any hit at t < 0.99 against the block at `blk`, stopping at the first
-// blocker.
+// blocker (K4's shadow test).
 __device__ __forceinline__ bool blocked(const float* blk, int C, float ex,
                                         float ey, float ez) {
   for (int i = 0; i < C; ++i) {
@@ -396,18 +425,19 @@ __device__ __forceinline__ bool shadow_reject(float Dn, float U, float V,
   return (Dn == 0.0f) | (guard & miss);
 }
 
-// The kept chunks of one keep-mask row (n columns) with rank in [lo, hi)
-// among the kept ones, in order: fn(c) for each, until fn returns false
-// (warp-uniformly). Every lane of the warp calls it and sees the same
-// chunks.
+// The kept chunks of one keep-mask row (n columns; null: every chunk kept)
+// with rank in [lo, hi) among the kept ones, in order: fn(c) for each,
+// until fn returns false (warp-uniformly). Every lane of the warp calls it
+// and sees the same chunks.
 template <typename Fn>
 __device__ __forceinline__ void for_kept_run(const int* __restrict__ keep,
                                              int n, int lo, int hi, Fn fn) {
   const int lane = threadIdx.x & 31;
   int rank = 0;
   for (int base = 0; base < n && rank < hi; base += 32) {
-    unsigned bits =
-        __ballot_sync(kFullMask, base + lane < n && keep[base + lane] != 0);
+    unsigned bits = __ballot_sync(
+        kFullMask,
+        base + lane < n && (keep == nullptr || keep[base + lane] != 0));
     while (bits != 0u && rank < hi) {
       const int c = base + __ffs(bits) - 1;
       bits &= bits - 1u;
@@ -538,14 +568,16 @@ __global__ void __launch_bounds__(kThreads)
 
 // The shadow blocks of the table, triangle-major, 48 bytes a triangle:
 // tris[(s * Tp + i) * 3 + {0, 1, 2}] = (n, k0), (c2, c3.x), (c3.y, c3.z, 0,
-// 0) of triangle i for source s.
+// 0) of triangle i for source s, whose block is the table's block first + s
+// (K6, K7a: 1, after the primary block; K7b, K7c: 0).
 __global__ void k7a_pack_tris_kernel(const float* __restrict__ table, int Tp,
-                                     int S, float4* __restrict__ tris) {
+                                     int S, int first,
+                                     float4* __restrict__ tris) {
   const size_t n = static_cast<size_t>(S) * Tp;
   for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        k < n; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const size_t s = k / Tp, i = k % Tp;
-    const float* blk = table + (1 + s) * kBlockRows * Tp + i;
+    const float* blk = table + (first + s) * kBlockRows * Tp + i;
     tris[3 * k] = make_float4(blk[0], blk[Tp], blk[2 * Tp], blk[9 * Tp]);
     tris[3 * k + 1] = make_float4(blk[3 * Tp], blk[4 * Tp], blk[5 * Tp],
                                   blk[6 * Tp]);
@@ -560,6 +592,9 @@ constexpr int kShadowMinBlocks = 2;
 // K6's largest staged triangle-major copy: a block's shared memory less its
 // primary block and the slack the runtime keeps.
 constexpr long long kMaxStagedBytes = 200 * 1024;
+// K7b on one chunk stages its copy where it takes at most this many bytes,
+// K6's rule (kernels/intersect.py::k6_staged: two blocks an SM).
+constexpr long long kOccStagedBytes = 96 * 1024;
 
 // The reject on the triangle whose triangle-major constants are at t, in
 // device memory through the read-only cache or (kSmem) in shared memory.
@@ -599,6 +634,46 @@ __device__ __forceinline__ void shadow_group(const float4* __restrict__ tri,
       *occ = 1;
       return;
     }
+  }
+}
+
+// The shadow sweeps of one thread's point (px, py, pz) toward each of the S
+// sources in turn, over one chunk of C triangles (K6's and K7b's): source
+// s's triangle-major constants at tri_all + 3 C s (in shared memory where
+// kSmem), its table block at blocks + 10 C s. Each test takes the exact
+// reject first and plane_test only where the reject leaves it open
+// (shadow_group); a lane stops at its first blocker and the warp moves to
+// the next source once no lane sweeps. A lane that is not `active` sweeps
+// nothing (occ 0); a `valid` lane writes occ_out[s R + r] for each source.
+// Every lane of the warp calls it (the warp's votes).
+template <bool kSmem>
+__device__ __forceinline__ void shadow_sources(
+    const float4* __restrict__ tri_all, const float* __restrict__ blocks,
+    int C, const float* __restrict__ src, int S, float px, float py,
+    float pz, bool active, bool valid, int R, int r,
+    int* __restrict__ occ_out) {
+  for (int s = 0; s < S; ++s) {
+    bool sweeping = active;
+    int occ = 0;
+    if (__any_sync(kFullMask, sweeping)) {
+      const float ex = px - src[3 * s], ey = py - src[3 * s + 1],
+                  ez = pz - src[3 * s + 2];
+      const float4* tri = tri_all + static_cast<size_t>(s) * C * 3;
+      const float* blk = blocks + static_cast<size_t>(s) * kBlockRows * C;
+      for (int i0 = 0; i0 < C; i0 += 32) {
+        const int i1 = i0 + 32 < C ? i0 + 32 : C;
+        int g = i0;
+        for (; g + kShadowGroup <= i1; g += kShadowGroup)
+          shadow_group<kShadowGroup, kSmem>(tri, blk, C, g, ex, ey, ez,
+                                            sweeping, &occ);
+        for (; g + 8 <= i1; g += 8)
+          shadow_group<8, kSmem>(tri, blk, C, g, ex, ey, ez, sweeping, &occ);
+        for (; g < i1; ++g)
+          shadow_group<1, kSmem>(tri, blk, C, g, ex, ey, ez, sweeping, &occ);
+        if (!__any_sync(kFullMask, sweeping)) break;
+      }
+    }
+    if (valid) occ_out[static_cast<size_t>(s) * R + r] = occ;
   }
 }
 
@@ -650,101 +725,267 @@ __global__ void __launch_bounds__(kThreads)
     idx_out[r] = hit ? best_i : -1;
   }
   const float tz = hit ? best_t : 0.0f;
-  const float px = s_cam[0] + tz * dx;
-  const float py = s_cam[1] + tz * dy;
-  const float pz = s_cam[2] + tz * dz;
-  const float4* tri_all = kStaged ? s_tris : tris;
-  for (int s = 0; s < S; ++s) {
-    bool sweeping = hit;
-    int occ = 0;
-    if (__any_sync(kFullMask, sweeping)) {
-      const float ex = px - src[3 * s], ey = py - src[3 * s + 1],
-                  ez = pz - src[3 * s + 2];
-      const float4* tri = tri_all + static_cast<size_t>(s) * C * 3;
-      const float* blk = table + static_cast<size_t>(1 + s) * kBlockRows * C;
-      for (int i0 = 0; i0 < C; i0 += 32) {
-        const int i1 = i0 + 32 < C ? i0 + 32 : C;
-        int g = i0;
-        for (; g + kShadowGroup <= i1; g += kShadowGroup)
-          shadow_group<kShadowGroup, kStaged>(tri, blk, C, g, ex, ey, ez,
-                                              sweeping, &occ);
-        for (; g + 8 <= i1; g += 8)
-          shadow_group<8, kStaged>(tri, blk, C, g, ex, ey, ez, sweeping,
-                                   &occ);
-        for (; g < i1; ++g)
-          shadow_group<1, kStaged>(tri, blk, C, g, ex, ey, ez, sweeping,
-                                   &occ);
-        if (!__any_sync(kFullMask, sweeping)) break;
-      }
-    }
-    if (valid) occ_out[static_cast<size_t>(s) * R + r] = occ;
-  }
+  shadow_sources<kStaged>(kStaged ? s_tris : tris, table + kBlockRows * C, C,
+                          src, S, s_cam[0] + tz * dx, s_cam[1] + tz * dy,
+                          s_cam[2] + tz * dz, hit, valid, R, r, occ_out);
 }
 
-// K7a's shadow sweeps, a warp a work item (warp of hit rays w of a tile,
-// source s, run j of the source's kept chunks): items hw + n_hw (j + runs
-// s), taken in turn from counts[1] by persistent warps. Each lane takes one
-// packed hit ray, sweeps the run's chunks from the triangle-major copy
-// (warp-uniform loads through the read-only cache) with the reject first
-// and plane_test on the table where it does not decide, and stops at its
-// first blocker; the warp leaves the item once no lane sweeps. A blocked
-// ray writes occ = 1 over the zeroed output: the runs' bits OR in any
-// order.
+// K7b on one chunk (the sharded renderer's scenes of at most 128
+// triangles), K6's shadow half: a thread a point r < R, read once, swept
+// toward the S sources in turn (shadow_sources) from k7a_pack_tris_kernel's
+// copy of the table's S blocks, staged once a block in dynamic shared
+// memory (kStaged) or read through the read-only cache. Every point sweeps,
+// a miss's camera-origin point too, and writes its bit of each source's
+// row of occ (S, R), coalesced.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    occlusion_points_kernel(const float* __restrict__ pos,
+                            const float* __restrict__ table,
+                            const float* __restrict__ src,
+                            const float4* __restrict__ tris, int C, int S,
+                            int R, int* __restrict__ occ_out) {
+  extern __shared__ float4 s_tris[];
+  if (kStaged) {
+    for (int k = threadIdx.x; k < S * C * 3; k += kThreads)
+      s_tris[k] = tris[k];
+    __syncthreads();
+  }
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const bool valid = r < R;
+  float px = 0.0f, py = 0.0f, pz = 0.0f;
+  if (valid) {
+    px = pos[3 * r];
+    py = pos[3 * r + 1];
+    pz = pos[3 * r + 2];
+  }
+  shadow_sources<kStaged>(kStaged ? s_tris : tris, table, C, src, S, px, py,
+                          pz, valid, valid, R, r, occ_out);
+}
+
+// One lane's shadow sweep over chunk c of a source (triangles [c C, c C + C)
+// of its triangle-major copy `tri`, through the read-only cache, and of its
+// table block `blk`, row stride Tp), 32 triangles at a time in groups of
+// 16, 8 and 1, to its first blocker: false once no lane of the warp sweeps.
+__device__ __forceinline__ bool shadow_chunk(const float4* __restrict__ tri,
+                                             const float* __restrict__ blk,
+                                             int Tp, int C, int c, float ex,
+                                             float ey, float ez,
+                                             bool& sweeping, int* occ) {
+  const int end = (c + 1) * C;
+  for (int i0 = c * C; i0 < end; i0 += 32) {
+    const int i1 = i0 + 32 < end ? i0 + 32 : end;
+    int g = i0;
+    for (; g + kShadowGroup <= i1; g += kShadowGroup)
+      shadow_group<kShadowGroup>(tri, blk, Tp, g, ex, ey, ez, sweeping, occ);
+    for (; g + 8 <= i1; g += 8)
+      shadow_group<8>(tri, blk, Tp, g, ex, ey, ez, sweeping, occ);
+    for (; g < i1; ++g)
+      shadow_group<1>(tri, blk, Tp, g, ex, ey, ez, sweeping, occ);
+    if (!__any_sync(kFullMask, sweeping)) return false;
+  }
+  return true;
+}
+
+// Where the shadow work items find their points and chunks.
+// K7a (kTilePoints false): the packed hit rays of each tile (hits, n_hit)
+// and the list of the tiles' warps of them (warp_list, counted in
+// counts[0]); item hw + n_hw (j + runs s) is warp hw's rays toward source
+// s over run j of `runs` (run_edge) of the tile's kept chunks for s (mask
+// row stride (1 + S) n_chunks, source s's columns from (1 + s) n_chunks).
+// K7b and K7c (true): the points pos (R = H W, 3) on the tiles of th x
+// (256 / th); (tile, source) pair p = tile S + s is the mask's row p of
+// n_chunks columns (null: every chunk kept), nk[p] its kept chunks
+// (occlusion_plan_kernel), and its runs of `run` kept chunks: run j is the
+// chunks of rank [j run, j run + run). Item (j n_pairs + p) 8 + w is warp w
+// of the tile's points on run j of pair p (run-major: every pair's first
+// runs come first); an item past the pair's last run is empty. A lane
+// whose bit another item has already set stops (exact: the bits OR). A
+// warp whose points all equal an earlier warp's of the same tile, bit for
+// bit (lead, occlusion_leaders_kernel: a miss's camera-origin point, most
+// often), sweeps nothing: its leader writes its bits.
+struct ShadowItems {
+  const float4* hits;
+  const int* n_hit;
+  const int* warp_list;
+  int runs;
+  const float* pos;
+  const int* nk;
+  const int* lead;
+  int n_pairs, max_runs;
+  int H, W, th;
+  int run;
+};
+
+// Shadow sweeps a warp a work item (ShadowItems), the items taken in turn
+// from counts[1] by persistent warps (K7a's shadow half; K7b over several
+// chunks; K7c). Each lane takes one point, sweeps the item's chunks from
+// the triangle-major copy (warp-uniform loads through the read-only cache)
+// with the reject first and plane_test on the table (source s's block is
+// the table's first + s) where it does not decide, and stops at its first
+// blocker; the warp leaves the item once no lane sweeps. A blocked point
+// writes occ = 1 over the zeroed output: the runs' bits OR in any order.
+template <bool kTilePoints>
 __global__ void __launch_bounds__(kThreads, kShadowMinBlocks)
-    k7a_shadow_kernel(const float4* __restrict__ tris,
-                      const float* __restrict__ table, int Tp, int C,
-                      const float* __restrict__ src, int S, int runs,
-                      const int* __restrict__ mask, int R,
-                      const float4* __restrict__ hits,
-                      const int* __restrict__ n_hit,
-                      const int* __restrict__ warp_list,
-                      int* __restrict__ counts, int* __restrict__ occ_out) {
+    shadow_items_kernel(const float4* __restrict__ tris,
+                        const float* __restrict__ table, int Tp, int C,
+                        int first, const float* __restrict__ src, int S,
+                        const int* __restrict__ mask, int R, ShadowItems w,
+                        int* __restrict__ counts, int* __restrict__ occ_out) {
   const int lane = threadIdx.x & 31;
   const int n_chunks = Tp / C;
-  const int n_hw = counts[0];
-  const long long n_items = static_cast<long long>(n_hw) * S * runs;
+  const long long n_items =
+      kTilePoints ? static_cast<long long>(w.max_runs) * w.n_pairs * kTileWarps
+                  : static_cast<long long>(counts[0]) * S * w.runs;
   for (;;) {
     int item = 0;
     if (lane == 0) item = atomicAdd(&counts[1], 1);
     item = __shfl_sync(kFullMask, item, 0);
     if (item >= n_items) return;
-    const int hw = item % n_hw, q = item / n_hw;
-    const int j = q % runs, s = q / runs;
-    const int tile = warp_list[hw] / kTileWarps;
-    const int slot = (warp_list[hw] % kTileWarps) * 32 + lane;
-    bool sweeping = slot < n_hit[tile];
-    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
-    int r = 0;
-    if (sweeping) {
-      const float4 h = hits[static_cast<size_t>(tile) * kThreads + slot];
-      ex = h.x - src[3 * s];
-      ey = h.y - src[3 * s + 1];
-      ez = h.z - src[3 * s + 2];
-      r = __float_as_int(h.w);
-    }
-    const int* keep = mask +
-                      static_cast<size_t>(tile) * (1 + S) * n_chunks +
-                      static_cast<size_t>(1 + s) * n_chunks;
-    const float4* tri = tris + static_cast<size_t>(s) * Tp * 3;
-    const float* blk = table + static_cast<size_t>(1 + s) * kBlockRows * Tp;
-    const int k = kept_count(keep, n_chunks);
-    int* occ = occ_out + static_cast<size_t>(s) * R + r;
-    for_kept_run(keep, n_chunks, run_edge(k, j, runs),
-                 run_edge(k, j + 1, runs), [&](int c) {
-      const int end = (c + 1) * C;
-      for (int i0 = c * C; i0 < end; i0 += 32) {
-        const int i1 = i0 + 32 < end ? i0 + 32 : end;
-        int g = i0;
-        for (; g + kShadowGroup <= i1; g += kShadowGroup)
-          shadow_group<kShadowGroup>(tri, blk, Tp, g, ex, ey, ez, sweeping,
-                                     occ);
-        for (; g < i1; g += 8)  // C is a multiple of 8
-          shadow_group<8>(tri, blk, Tp, g, ex, ey, ez, sweeping, occ);
-        if (!__any_sync(kFullMask, sweeping)) return false;
+    int s, lo, hi, r = 0, tile = 0, cover = 0;
+    const int* keep;
+    bool sweeping;
+    float px = 0.0f, py = 0.0f, pz = 0.0f;
+    if (kTilePoints) {
+      const int q = item / kTileWarps;
+      const int p = q % w.n_pairs;
+      lo = (q / w.n_pairs) * w.run;
+      if (lo >= (mask == nullptr ? n_chunks : w.nk[p])) continue;  // empty
+      tile = p / S;
+      const int wi = item % kTileWarps;
+      const int ld = w.lead[tile * kTileWarps + wi];
+      if ((ld & 0xff) != wi) continue;  // a follower: its leader sweeps
+      cover = (ld >> 8) & ~(1 << wi);
+      hi = lo + w.run;
+      s = p % S;
+      keep = mask == nullptr ? nullptr
+                             : mask + static_cast<size_t>(p) * n_chunks;
+      const TileRay tr = tile_slot(tile, wi * 32 + lane, w.H, w.W, w.th);
+      sweeping = tr.valid;
+      if (sweeping) {
+        r = tr.r;
+        px = w.pos[3 * r];
+        py = w.pos[3 * r + 1];
+        pz = w.pos[3 * r + 2];
       }
-      return true;
+    } else {
+      const int n_hw = counts[0];
+      const int hw = item % n_hw, q = item / n_hw;
+      const int j = q % w.runs;
+      s = q / w.runs;
+      const int tile = w.warp_list[hw] / kTileWarps;
+      const int slot = (w.warp_list[hw] % kTileWarps) * 32 + lane;
+      sweeping = slot < w.n_hit[tile];
+      if (sweeping) {
+        const float4 h = w.hits[static_cast<size_t>(tile) * kThreads + slot];
+        px = h.x;
+        py = h.y;
+        pz = h.z;
+        r = __float_as_int(h.w);
+      }
+      keep = mask + static_cast<size_t>(tile) * (1 + S) * n_chunks +
+             static_cast<size_t>(1 + s) * n_chunks;
+      const int k = kept_count(keep, n_chunks);
+      lo = run_edge(k, j, w.runs);
+      hi = run_edge(k, j + 1, w.runs);
+    }
+    const float ex = px - src[3 * s], ey = py - src[3 * s + 1],
+                ez = pz - src[3 * s + 2];
+    const float4* tri = tris + static_cast<size_t>(s) * Tp * 3;
+    const float* blk =
+        table + static_cast<size_t>(first + s) * kBlockRows * Tp;
+    int* occ = occ_out + static_cast<size_t>(s) * R + r;
+    // K7b/K7c: the lane's bit as another item may have set it, read from
+    // L2 a chunk ahead of its use.
+    int seen = kTilePoints && sweeping ? __ldcg(occ) : 0;
+    const bool swept = sweeping;
+    bool by_seen = false;
+    for_kept_run(keep, n_chunks, lo, hi, [&](int c) {
+      if (kTilePoints) {
+        if (seen != 0) {
+          sweeping = false;
+          by_seen = true;
+        }
+        seen = sweeping ? __ldcg(occ) : 0;
+      }
+      return shadow_chunk(tri, blk, Tp, C, c, ex, ey, ez, sweeping, occ);
     });
+    // A leader's points are one point: lane 0's bit, if this item set it,
+    // goes to its followers' points.
+    if (kTilePoints && cover != 0 &&
+        __shfl_sync(kFullMask, swept && !sweeping && !by_seen, 0)) {
+      for (int f = 0; f < kTileWarps; ++f) {
+        if ((cover >> f & 1) == 0) continue;
+        const TileRay tf = tile_slot(tile, f * 32 + lane, w.H, w.W, w.th);
+        if (tf.valid) occ_out[static_cast<size_t>(s) * R + tf.r] = 1;
+      }
+    }
   }
+}
+
+// K7b's (several chunks) and K7c's warps of equal points, block b tile b
+// of the tiles of th x (256 / th) points pos (H W, 3): warp w is uniform
+// where its lane 0's point is valid and every valid point of it equals
+// that point bit for bit. A uniform warp's leader is the tile's first
+// uniform warp with the same point, any other warp its own: lead[8 b + w]
+// = its leader | (the warps it leads, itself included, as bits) << 8.
+__global__ void __launch_bounds__(kThreads)
+    occlusion_leaders_kernel(const float* __restrict__ pos, int H, int W,
+                             int th, int* __restrict__ lead) {
+  __shared__ int s_pt[kTileWarps][3];
+  __shared__ int s_uni[kTileWarps];
+  __shared__ int s_lead[kTileWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const TileRay tr = tile_ray(H, W, th);
+  int x = 0, y = 0, z = 0;
+  if (tr.valid) {
+    x = __float_as_int(pos[3 * tr.r]);
+    y = __float_as_int(pos[3 * tr.r + 1]);
+    z = __float_as_int(pos[3 * tr.r + 2]);
+  }
+  const int x0 = __shfl_sync(kFullMask, x, 0);
+  const int y0 = __shfl_sync(kFullMask, y, 0);
+  const int z0 = __shfl_sync(kFullMask, z, 0);
+  const bool v0 = __shfl_sync(kFullMask, tr.valid, 0);
+  const bool uni = __all_sync(
+      kFullMask, !tr.valid || (x == x0 && y == y0 && z == z0));
+  if (lane == 0) {
+    s_uni[warp] = v0 && uni;
+    s_pt[warp][0] = x0;
+    s_pt[warp][1] = y0;
+    s_pt[warp][2] = z0;
+  }
+  __syncthreads();
+  if (threadIdx.x < kTileWarps) {
+    const int wi = threadIdx.x;
+    int leader = wi;
+    for (int v = 0; v < wi && s_uni[wi]; ++v) {
+      if (s_uni[v] && s_pt[v][0] == s_pt[wi][0] &&
+          s_pt[v][1] == s_pt[wi][1] && s_pt[v][2] == s_pt[wi][2]) {
+        leader = v;
+        break;
+      }
+    }
+    s_lead[wi] = leader;
+  }
+  __syncthreads();
+  if (threadIdx.x < kTileWarps) {
+    const int wi = threadIdx.x;
+    int led = 0;
+    for (int v = 0; v < kTileWarps; ++v) led |= (s_lead[v] == wi) << v;
+    lead[blockIdx.x * kTileWarps + wi] = s_lead[wi] | (led << 8);
+  }
+}
+
+// K7c's plan, a warp a (tile, source) pair p < n_pairs (the mask's row p
+// of n_chunks columns): its kept chunks' count into nk[p].
+__global__ void __launch_bounds__(kThreads)
+    occlusion_plan_kernel(const int* __restrict__ mask, int n_pairs,
+                          int n_chunks, int* __restrict__ nk) {
+  const long long p =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (p >= n_pairs) return;  // the same for the warp
+  const int k = kept_count(mask + p * n_chunks, n_chunks);
+  if ((threadIdx.x & 31) == 0) nk[p] = k;
 }
 
 // The reject and plane_test's any-hit verdict on N (ray, triangle) pairs:
@@ -764,49 +1005,6 @@ __global__ void shadow_reject_probe_kernel(const float* __restrict__ e,
   reject[k] = shadow_reject(Dn, U, V, m[9]) ? 1 : 0;
   const PlaneHit p = plane_test(m, 1, 0, ex, ey, ez);
   blocked[k] = p.ok && p.t < kShadowT ? 1 : 0;
-}
-
-// K7b (Masked false) and K7c: block (tile, s) tests the tile's points
-// against source s's chunks (the kept ones, K7c), each point from the first
-// chunk to its first blocker.
-template <bool Masked>
-__global__ void __launch_bounds__(kThreads)
-    occlusion_points_kernel(const float* __restrict__ pos,
-                            const float* __restrict__ table, int Tp, int C,
-                            const float* __restrict__ src, int S,
-                            const int* __restrict__ mask, int H, int W,
-                            int th, int* __restrict__ occ_out) {
-  __shared__ float s_blk[kBlockRows * kMaxTris];
-  const TileRay ray = tile_ray(H, W, th);
-  const int s = blockIdx.y;
-  const int n_chunks = Tp / C;
-  const int* keep =
-      Masked ? mask + static_cast<size_t>(blockIdx.x) * S * n_chunks +
-                   static_cast<size_t>(s) * n_chunks
-             : nullptr;
-  const float* blk = table + static_cast<size_t>(s) * kBlockRows * Tp;
-  float ex = 0.0f, ey = 0.0f, ez = 0.0f;
-  if (ray.valid) {
-    ex = pos[3 * ray.r] - src[3 * s];
-    ey = pos[3 * ray.r + 1] - src[3 * s + 1];
-    ez = pos[3 * ray.r + 2] - src[3 * s + 2];
-  }
-  bool sweeping = ray.valid;
-  bool occ = false;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (Masked && keep[c] == 0) continue;  // block-uniform
-    // A barrier (the previous chunk is read) that also tells whether any
-    // point of the tile still sweeps.
-    if (!__syncthreads_or(sweeping)) break;
-    stage(s_blk, blk, Tp, C, c);
-    __syncthreads();
-    if (sweeping && blocked(s_blk, C, ex, ey, ez)) {
-      occ = true;
-      sweeping = false;
-    }
-  }
-  if (ray.valid)
-    occ_out[static_cast<size_t>(s) * H * W + ray.r] = occ ? 1 : 0;
 }
 
 }  // namespace
@@ -833,6 +1031,60 @@ extern "C" int raytpu_closest_hit_occluded(const void* dirs, const void* table,
   return (int)cudaGetLastError();
 }
 
+// Launches k7a_pack_tris_kernel on the S blocks of `table` from block
+// `first` on, into tris (S Tp 48 bytes).
+static cudaError_t pack_tris(const float* table, int Tp, int S, int first,
+                             float4* tris, cudaStream_t st) {
+  const size_t blocks = (static_cast<size_t>(S) * Tp + kThreads - 1) /
+                        kThreads;
+  k7a_pack_tris_kernel<<<static_cast<int>(blocks < 65535 ? blocks : 65535),
+                         kThreads, 0, st>>>(table, Tp, S, first, tris);
+  return cudaGetLastError();
+}
+
+// Devices whose per-device launch settings the entry points keep.
+constexpr int kMaxDevices = 64;
+
+// The persistent grid of shadow_items_kernel<kTilePoints>: as many blocks as
+// fit on the card at once, worked out on a device's first call and kept.
+template <bool kTilePoints>
+static cudaError_t persistent_blocks(int* blocks) {
+  static int kept[kMaxDevices];  // 0: not yet worked out
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev < kMaxDevices && kept[dev] > 0) {
+    *blocks = kept[dev];
+    return cudaSuccess;
+  }
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, shadow_items_kernel<kTilePoints>, kThreads, 0)) !=
+          cudaSuccess)
+    return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) kept[dev] = *blocks;
+  return cudaSuccess;
+}
+
+// Lets occlusion_points_kernel<true> take kOccStagedBytes of dynamic shared
+// memory, once a device.
+static cudaError_t occ_staged_limit() {
+  static bool set[kMaxDevices];
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev < kMaxDevices && set[dev]) return cudaSuccess;
+  if ((err = cudaFuncSetAttribute(
+           occlusion_points_kernel<true>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize,
+           static_cast<int>(kOccStagedBytes))) != cudaSuccess)
+    return err;
+  if (dev < kMaxDevices) set[dev] = true;
+  return cudaSuccess;
+}
+
 // dirs (R, 3), table ((1 + S) * 10, C), cam (3,), src (S, 3) float32 device
 // pointers; t (R,) float32, idx (R,) int32 and occ (S, R) int32 outputs;
 // tris scratch for the triangle-major copy (S C 48 bytes, scratch_bytes at
@@ -853,10 +1105,7 @@ extern "C" int raytpu_closest_hit_occluded_multi(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* tab = static_cast<const float*>(table);
   float4* tr = static_cast<float4*>(tris);
-  const int n_tris = S * C;
-  k7a_pack_tris_kernel<<<(n_tris + kThreads - 1) / kThreads, kThreads, 0,
-                         st>>>(tab, C, S, tr);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = pack_tris(tab, C, S, 1, tr, st);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (R + kThreads - 1) / kThreads;
   const float* d = static_cast<const float*>(dirs);
@@ -1023,25 +1272,18 @@ extern "C" int raytpu_closest_hit_occluded_masked(
         (err = cudaMemsetAsync(sc.counts + 1, 0, sizeof(int), st)) !=
             cudaSuccess)
       return (int)err;
-    const size_t n_tris = static_cast<size_t>(S) * Tp;
-    k7a_pack_tris_kernel<<<static_cast<int>(
-                               (n_tris + kThreads - 1) / kThreads < 65535
-                                   ? (n_tris + kThreads - 1) / kThreads
-                                   : 65535),
-                           kThreads, 0, st>>>(tab, Tp, S, sc.tris);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    // Persistent warps: as many blocks as fit on the card at once.
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, k7a_shadow_kernel, kThreads, 0)) != cudaSuccess)
+    int blocks = 0;
+    if ((err = pack_tris(tab, Tp, S, 1, sc.tris, st)) != cudaSuccess ||
+        (err = persistent_blocks<false>(&blocks)) != cudaSuccess)
       return (int)err;
-    k7a_shadow_kernel<<<sms * (per_sm > 0 ? per_sm : 1), kThreads, 0, st>>>(
-        sc.tris, tab, Tp, C, static_cast<const float*>(src), S, shw_runs,
-        msk, R, sc.hits, sc.n_hit, sc.warp_list, sc.counts,
-        static_cast<int*>(occ));
+    ShadowItems w{};
+    w.hits = sc.hits;
+    w.n_hit = sc.n_hit;
+    w.warp_list = sc.warp_list;
+    w.runs = shw_runs;
+    shadow_items_kernel<false><<<blocks, kThreads, 0, st>>>(
+        sc.tris, tab, Tp, C, 1, static_cast<const float*>(src), S, msk, R, w,
+        sc.counts, static_cast<int*>(occ));
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
@@ -1062,32 +1304,156 @@ extern "C" int raytpu_shadow_reject_probe(const void* e, const void* tri,
   return (int)cudaGetLastError();
 }
 
+// K7b's and K7c's scratch, carved from one buffer in this order, each part
+// aligned to 16 bytes: the triangle-major copy of the S sources' blocks (S
+// Tp triangles of 48 bytes); on the items route the plan's kept counts
+// (n_tiles S ints), the warps' leaders (n_tiles 8 ints) and counts (4
+// ints; counts[1] the next work item). `bytes` is the total.
+struct OccScratch {
+  float4* tris;
+  int* nk;
+  int* lead;
+  int* counts;
+  size_t bytes;
+};
+
+static OccScratch occ_scratch(void* base, int Tp, int S, int n_tiles,
+                              bool items) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    const uintptr_t q = p + at;
+    at += align16(n);
+    return q;
+  };
+  OccScratch sc{};
+  sc.tris = reinterpret_cast<float4*>(
+      take(static_cast<size_t>(S) * Tp * 3 * sizeof(float4)));
+  if (items) {
+    sc.nk = reinterpret_cast<int*>(
+        take(static_cast<size_t>(n_tiles) * S * sizeof(int)));
+    sc.lead = reinterpret_cast<int*>(
+        take(static_cast<size_t>(n_tiles) * kTileWarps * sizeof(int)));
+    sc.counts = reinterpret_cast<int*>(take(4 * sizeof(int)));
+  }
+  sc.bytes = at;
+  return sc;
+}
+
+// The runs of `run` chunks a (tile, source) pair has at most.
+static int occ_max_runs(int Tp, int C, int run) {
+  return (Tp / C + run - 1) / run;
+}
+
+// The work items (a warp of a tile, a run of a pair) fit the kernel's int
+// counter.
+static bool occ_shapes_ok(int Tp, int C, int S, int H, int W, int th,
+                          int run) {
+  return C >= 1 && C <= kMaxTris && Tp >= C && Tp % C == 0 && S >= 1 &&
+         H >= 0 && W >= 0 && th >= 1 && kThreads % th == 0 && run >= 1 &&
+         static_cast<long long>(k7a_tiles(H, W, th)) * S *
+                 occ_max_runs(Tp, C, run) * kTileWarps <
+             (1LL << 31);
+}
+
+// K7b takes one chunk of its own (the sharded renderer's scenes of at most
+// 128 triangles), every other call the items route.
+static bool occ_items_route(int Tp, int C, bool masked) {
+  return masked || Tp > C;
+}
+
+// The bytes of K7b's (masked 0) or K7c's scratch for these shapes (the
+// tiles as raytpu_occlusion_points takes them), or -1 if it refuses them.
+extern "C" long long raytpu_occlusion_points_scratch(int Tp, int C, int S,
+                                                     int H, int W, int th,
+                                                     int masked, int run) {
+  if (!occ_shapes_ok(Tp, C, S, H, W, th, run)) return -1;
+  return static_cast<long long>(
+      occ_scratch(nullptr, Tp, S, k7a_tiles(H, W, th),
+                  occ_items_route(Tp, C, masked != 0))
+          .bytes);
+}
+
 // pos (R = H * W, 3), table (S * 10, Tp), src (S, 3) float32 device
 // pointers, Tp a multiple of the chunk C <= 128; mask null (K7b: tiles of
 // 256 consecutive points, pass H = 1, W = R, th = 1) or the (n_tiles, S *
 // Tp / C) int32 keep-mask over the tiles of th x (256 / th) points of the
-// H x W grid (K7c); occ (S, R) int32 output. Launches a block a (tile,
-// source) on `stream` and returns the launch's cudaError_t.
+// H x W grid (K7c); occ (S, R) int32 output; scratch (scratch_bytes, at
+// least what raytpu_occlusion_points_scratch gives). K7b on one chunk
+// (Tp = C) launches the copy of the sources' blocks and
+// occlusion_points_kernel, the copy staged in shared memory where its S C
+// 48 bytes are at most kOccStagedBytes, else read through the cache. Every
+// other call zeroes occ, copies the blocks, counts each (tile, source)'s
+// kept chunks (K7c: occlusion_plan_kernel; K7b: every chunk), finds the
+// warps of equal points (occlusion_leaders_kernel) and sweeps the runs of
+// `run` in work items (shadow_items_kernel<true>). Launches on
+// `stream`, never synchronises, and returns the first launch error.
 extern "C" int raytpu_occlusion_points(const void* pos, const void* table,
                                        int Tp, int C, const void* src, int S,
                                        const void* mask, int H, int W, int th,
-                                       void* occ, void* stream) {
-  if (C < 1 || C > kMaxTris || Tp < C || Tp % C != 0 || S < 1 ||
-      S > 65535 || H < 0 || W < 0 || th < 1 || kThreads % th != 0)
+                                       void* occ, void* scratch,
+                                       long long scratch_bytes, int run,
+                                       void* stream) {
+  if (!occ_shapes_ok(Tp, C, S, H, W, th, run))
+    return (int)cudaErrorInvalidValue;
+  const bool items = occ_items_route(Tp, C, mask != nullptr);
+  const int n_tiles = k7a_tiles(H, W, th);
+  const OccScratch sc = occ_scratch(scratch, Tp, S, n_tiles, items);
+  if (scratch == nullptr || scratch_bytes < (long long)sc.bytes)
     return (int)cudaErrorInvalidValue;
   if (H == 0 || W == 0) return (int)cudaSuccess;
-  const int tw = kThreads / th;
-  const dim3 grid(((H + th - 1) / th) * ((W + tw - 1) / tw), S);
+  const int R = H * W;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pos);
   const float* tab = static_cast<const float*>(table);
   const float* sp = static_cast<const float*>(src);
+  const int* msk = static_cast<const int*>(mask);
   int* o = static_cast<int*>(occ);
-  if (mask == nullptr)
-    occlusion_points_kernel<false><<<grid, kThreads, 0, st>>>(
-        p, tab, Tp, C, sp, S, nullptr, H, W, th, o);
-  else
-    occlusion_points_kernel<true><<<grid, kThreads, 0, st>>>(
-        p, tab, Tp, C, sp, S, static_cast<const int*>(mask), H, W, th, o);
+  cudaError_t err;
+  if (!items) {
+    if ((err = pack_tris(tab, C, S, 0, sc.tris, st)) != cudaSuccess)
+      return (int)err;
+    const int blocks = (R + kThreads - 1) / kThreads;
+    const long long tri_bytes = 48LL * S * C;
+    if (tri_bytes <= kOccStagedBytes) {
+      if ((err = occ_staged_limit()) != cudaSuccess) return (int)err;
+      occlusion_points_kernel<true><<<blocks, kThreads,
+                                      static_cast<int>(tri_bytes), st>>>(
+          p, tab, sp, sc.tris, C, S, R, o);
+    } else {
+      occlusion_points_kernel<false><<<blocks, kThreads, 0, st>>>(
+          p, tab, sp, sc.tris, C, S, R, o);
+    }
+    return (int)cudaGetLastError();
+  }
+  const int n_pairs = n_tiles * S;
+  int blocks = 0;
+  if ((err = cudaMemsetAsync(o, 0, static_cast<size_t>(S) * R * 4, st)) !=
+          cudaSuccess ||
+      (err = cudaMemsetAsync(sc.counts, 0, 4 * sizeof(int), st)) !=
+          cudaSuccess ||
+      (err = pack_tris(tab, Tp, S, 0, sc.tris, st)) != cudaSuccess ||
+      (err = persistent_blocks<true>(&blocks)) != cudaSuccess)
+    return (int)err;
+  if (msk != nullptr) {
+    occlusion_plan_kernel<<<(n_pairs + kTileWarps - 1) / kTileWarps,
+                            kThreads, 0, st>>>(msk, n_pairs, Tp / C, sc.nk);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  occlusion_leaders_kernel<<<n_tiles, kThreads, 0, st>>>(p, H, W, th,
+                                                         sc.lead);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ShadowItems w{};
+  w.pos = p;
+  w.nk = sc.nk;
+  w.lead = sc.lead;
+  w.n_pairs = n_pairs;
+  w.max_runs = occ_max_runs(Tp, C, run);
+  w.H = H;
+  w.W = W;
+  w.th = th;
+  w.run = run;
+  shadow_items_kernel<true><<<blocks, kThreads, 0, st>>>(
+      sc.tris, tab, Tp, C, 0, sp, S, msk, R, w, sc.counts, o);
   return (int)cudaGetLastError();
 }

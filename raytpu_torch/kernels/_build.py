@@ -64,9 +64,13 @@ SIGNATURES = {
                                                    _I],
     # e, tri, N, reject, blocked, stream
     "raytpu_shadow_reject_probe": [_P, _P, _I, _P, _P, _P],
-    # pos, table, Tp, C, src, S, mask (or null), H, W, th, occ, stream
+    # pos, table, Tp, C, src, S, mask (or null), H, W, th, occ, scratch,
+    # scratch_bytes, run, stream
     "raytpu_occlusion_points": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
-                                _P],
+                                _P, _L, _I, _P],
+    # Tp, C, S, H, W, th, masked, run: K7b's or K7c's scratch bytes (-1:
+    # refused)
+    "raytpu_occlusion_points_scratch": [_I, _I, _I, _I, _I, _I, _I, _I],
     # consts, T, H, W, y0, idx, stream
     "raytpu_raster_winner": [_P, _I, _I, _I, _I, _P, _P],
     # consts, T, chunk, mask (or null), H, W, y0, idx, stream
@@ -144,6 +148,7 @@ SIGNATURES = {
 }
 
 RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L,
+            "raytpu_occlusion_points_scratch": _L,
             "raytpu_soft_raster_bwd_scratch": _L,
             "raytpu_soft_rt_shw_scratch": _L,
             "raytpu_soft_rt_pri_scratch": _L,

@@ -59,7 +59,12 @@ twin's results.
 Occlusion on a miss ray is 0 in K6 and K7a, and its shadow sweeps are
 skipped: that is the JAX package's contract for both. K7b and K7c know no
 primary hit and test every point, as the JAX kernels do; their masks
-(:func:`position_mask`) are conservative for every point. K4 sweeps every
+(:func:`position_mask`) are conservative for every point. K6, K7a, K7b and
+K7c decide nearly every shadow test with the exact reject
+(:func:`shadow_reject`) before the plane test; K7b on one chunk sweeps a
+thread a point, K7c and K7b over several chunks in the work items that
+:func:`occlusion_plan` and :func:`occlusion_leaders` model
+(:func:`occlusion_items_reference`). K4 sweeps every
 ray, a miss with tz = 0, and returns that raw bit (a shadow ray from the
 light to the camera) unmasked, as JAX's ``intersect_occluded_pallas``
 does; no consumer reads it (composite zeroes misses, and the AA record
@@ -224,7 +229,8 @@ def launch_occluded_kernel(dirs, table, cam, light, t, idx, occ, *,
 # K6 stages its triangle-major copy of the sources' constants (48 bytes a
 # triangle) in shared memory where it takes at most this many bytes, and
 # reads it from device memory through the read-only cache above
-# (csrc/intersect.cu). On the H100 at 512^2, C = 32, staging was the faster
+# (csrc/intersect.cu; K7b on one chunk keeps the same rule there,
+# kOccStagedBytes). On the H100 at 512^2, C = 32, staging was the faster
 # at 96 KB (S = 64), where two blocks share an SM, and the slower at 144
 # and 192 KB (chip_smoke.py::k6_staging_ms; times in PERF.md).
 K6_STAGED_MAX_BYTES = 96 * 1024
@@ -847,20 +853,188 @@ def occlusion_multi_masked_reference(pos, m_s, k0_s, src_pos, valid, mask,
         pos, source_table(m_s, k0_s, valid, C), C, src_pos, mask, tiles)
 
 
-def launch_occlusion_kernel(pos, table, C: int, src, mask, tiles, occ):
+# K7c and K7b over several chunks cut each (tile, source) pair's kept
+# chunks (every chunk, K7b) into runs of at most occlusion_run(S) chunks, a
+# work item each for each warp of the tile's points (csrc/intersect.cu::
+# shadow_items_kernel); K7b on one chunk (Tp = C) takes no items. With few
+# sources the few pairs need the cut to spread over the card; with many, a
+# point shadowed in one run sweeping the next afresh costs more than the cut
+# saves. On the H100 at 512^2 on the 9,216-triangle points (72 chunks):
+# S = 1 ran fastest with runs of 8, S = 16 with no cut (PERF.md, the
+# table of runs).
+OCC_RUN = 8
+
+
+def occlusion_run(S: int) -> int:
+    """Kept chunks a K7b / K7c work item holds with S sources: OCC_RUN at
+    S = 1, OCC_RUN * S above."""
+    return OCC_RUN * S
+
+
+def occlusion_items_route(Tp: int, C: int, mask) -> bool:
+    """Whether K7b / K7c take the work items (a mask, or several chunks)
+    rather than K7b's one-chunk kernel."""
+    return mask is not None or Tp > C
+
+
+def _occlusion_grid(R: int, mask, tiles):
+    """(H, W, th) of the occlusion kernels' tiles: the mask's tiles, else
+    runs of 256 consecutive points."""
+    return (1, R, 1) if mask is None else (tiles.height, tiles.width,
+                                           tiles.th)
+
+
+@functools.lru_cache(maxsize=64)
+def _occlusion_scratch_bytes(Tp: int, C: int, S: int, H: int, W: int,
+                             th: int, masked: bool, run: int) -> int:
+    """csrc/intersect.cu::raytpu_occlusion_points_scratch for these shapes,
+    asked once a shape."""
+    n = _build.load().raytpu_occlusion_points_scratch(Tp, C, S, H, W, th,
+                                                      int(masked), run)
+    if n < 0:
+        raise ValueError(f"K7b/K7c take no table of {Tp} columns in chunks "
+                         f"of {C} for {S} sources on {H} x {W} points (run "
+                         f"{run})")
+    return n
+
+
+def occlusion_scratch(pos, table, C: int, S: int, mask, tiles,
+                      run: int | None = None) -> torch.Tensor:
+    """A fresh scratch buffer for one K7b or K7c call (uint8, on pos'
+    device), sized by the kernel's library (csrc/intersect.cu::occ_scratch):
+    the triangle-major copy of the S sources' blocks, 48 S Tp bytes (7 MB at
+    S = 16, Tp = 9,216); on the items route also the plan's kept counts, 4
+    n_tiles S bytes (64 KB at 512^2, S = 16), the warps' leaders, 32 n_tiles
+    bytes, and 16 bytes of counters."""
+    H, W, th = _occlusion_grid(pos.shape[0], mask, tiles)
+    run = occlusion_run(S) if run is None else run
+    n = _occlusion_scratch_bytes(table.shape[1], C, S, H, W, th,
+                                 mask is not None, run)
+    return torch.empty((n,), dtype=torch.uint8, device=pos.device)
+
+
+def launch_occlusion_kernel(pos, table, C: int, src, mask, tiles, occ, *,
+                            scratch, run: int | None = None):
     """Launch K7b (mask None: every point in runs of 256) or K7c (mask
-    (n_tiles, S * n_chunks) over ``tiles``) on the (S, R) int32 output the
-    caller allocated. Checks nothing and counts nothing; the wrapper does
-    both."""
-    H, W, th = ((1, pos.shape[0], 1) if mask is None
-                else (tiles.height, tiles.width, tiles.th))
+    (n_tiles, S * n_chunks) over ``tiles``) on the (S, R) int32 output and
+    the scratch (:func:`occlusion_scratch`, for the same ``run``) the caller
+    allocated. ``run``: the kept chunks of an item, None occlusion_run's
+    (the same bits under any run). Checks nothing and counts nothing; the
+    wrapper does both."""
+    S = src.shape[0]
+    run = occlusion_run(S) if run is None else run
+    H, W, th = _occlusion_grid(pos.shape[0], mask, tiles)
     err = _build.load().raytpu_occlusion_points(
         pos.data_ptr(), table.data_ptr(), table.shape[1], C, src.data_ptr(),
-        src.shape[0], None if mask is None else mask.data_ptr(), H, W, th,
-        occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        S, None if mask is None else mask.data_ptr(), H, W, th,
+        occ.data_ptr(), scratch.data_ptr(), scratch.numel(), run,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"occlusion_points launch failed: CUDA error "
                            f"{err}")
+
+
+def occlusion_plan(mask, n_tiles: int, S: int, n_chunks: int,
+                   run: int) -> torch.Tensor:
+    """Plain model of K7b's and K7c's work items (csrc/intersect.cu::
+    shadow_items_kernel), on any device: (E, 2) int64 entries (p, j), pair
+    p = tile * S + s (the mask's row p of n_chunks columns; mask None:
+    every chunk kept) with k kept chunks making ceil(k / run) entries, entry
+    (p, j) the kept chunks of rank [j run, j run + run), in the kernel's
+    order: run-major (every pair's run 0 first), then pair. Each entry is
+    an item for each of the tile's 8 warps; the kernel skips the empty
+    slots (j past a pair's last run) of its (max runs, pairs) grid."""
+    device = "cpu" if mask is None else mask.device
+    n_pairs = n_tiles * S
+    if mask is None:
+        kept = torch.full((n_pairs,), n_chunks, dtype=torch.long,
+                          device=device)
+    else:
+        kept = (mask.reshape(n_pairs, n_chunks) != 0).sum(dim=1)
+    j = torch.arange(-(-n_chunks // run), device=device)[:, None]
+    pair = torch.arange(n_pairs, device=device)[None, :]
+    live = j * run < kept[None, :]
+    return torch.stack([pair.expand_as(live)[live], j.expand_as(live)[live]],
+                       dim=1)
+
+
+def occlusion_entry_chunks(mask, p: int, j: int, n_chunks: int,
+                           run: int) -> list[int]:
+    """The chunks of entry (p, j) of occlusion_plan, in order."""
+    if mask is None:
+        kept = list(range(n_chunks))
+    else:
+        row = mask.reshape(-1, n_chunks)[p]
+        kept = torch.nonzero(row).squeeze(1).tolist()
+    return kept[j * run:(j + 1) * run]
+
+
+def _tile_slots_valid(tiles: RayTiles) -> torch.Tensor:
+    """(n_tiles, TILE_RAYS) bool: the slots inside the H x W grid (the
+    others repeat a real ray of their tile)."""
+    tw = TILE_RAYS // tiles.th
+    tiles_x = -(-tiles.width // tw)
+    b = torch.arange(tiles.count, device=tiles.rays.device)[:, None]
+    k = torch.arange(TILE_RAYS, device=tiles.rays.device)[None, :]
+    return (((b // tiles_x) * tiles.th + k // tw < tiles.height)
+            & ((b % tiles_x) * tw + k % tw < tiles.width))
+
+
+def occlusion_leaders(pos, tiles: RayTiles) -> torch.Tensor:
+    """Plain model of csrc/intersect.cu::occlusion_leaders_kernel, on any
+    device: (n_tiles, 8) int64, each warp's leader. Warp w of a tile (slots
+    32 w ...) is uniform where its first slot is inside the grid and every
+    such slot's point equals that one bit for bit; a uniform warp's leader
+    is the tile's first uniform warp with the same point, any other warp
+    its own. K7b's and K7c's items sweep the leaders alone."""
+    W = TILE_RAYS // 32
+    valid = _tile_slots_valid(tiles).reshape(-1, W, 32)
+    bits = pos.contiguous().view(torch.int32)[tiles.rays].reshape(
+        -1, W, 32, 3)
+    first = bits[:, :, :1]
+    uniform = valid[:, :, 0] & ((bits == first).all(-1) | ~valid).all(-1)
+    w = torch.arange(W, device=pos.device)
+    same = ((first[:, :, None, 0] == first[:, None, :, 0]).all(-1)
+            & uniform[:, :, None] & uniform[:, None, :]
+            & (w[None, :] < w[:, None])[None])
+    return torch.where(same.any(-1), same.int().argmax(-1), w[None, :])
+
+
+def occlusion_items_reference(pos, table, C: int, src, mask,
+                              tiles: RayTiles | None, run: int):
+    """Plain model of K7b's and K7c's items route, on any device: for each
+    entry of occlusion_plan, its tile's points swept over its chunks in
+    order, each to its first blocker, their bits ORed into occ (S, R)
+    int32, the points of a warp that follows another (occlusion_leaders)
+    taking its leader's bit. mask None: every chunk, tiles of 256
+    consecutive points."""
+    S, R = src.shape[0], pos.shape[0]
+    n_chunks = table.shape[1] // C
+    if mask is None:
+        tiles = ray_tiles(R, None, pos.device)
+    n_tiles = tiles.count
+    occ = torch.zeros((S, R), dtype=torch.bool, device=pos.device)
+    lead = occlusion_leaders(pos, tiles)
+    slots = tiles.rays.reshape(n_tiles, -1, 32)
+    valid = _tile_slots_valid(tiles).reshape(n_tiles, -1, 32)
+    led = lead == torch.arange(lead.shape[1], device=pos.device)[None, :]
+    points = [torch.unique(slots[t][valid[t] & led[t][:, None]])
+              for t in range(n_tiles)]
+    for p, j in occlusion_plan(mask, n_tiles, S, n_chunks, run).tolist():
+        rows, s = points[p // S], p % S
+        sweeping = torch.ones(rows.shape[0], dtype=torch.bool,
+                              device=pos.device)
+        for c in occlusion_entry_chunks(mask, p, j, n_chunks, run):
+            live = rows[sweeping]
+            ts, oks = plane_tests(pos[live] - src[s][None, :],
+                                  *_chunk(table, s, c, C))
+            hit = (oks & (ts < SHADOW_T)).any(dim=1)
+            occ[s, live[hit]] = True
+            sweeping[torch.nonzero(sweeping).squeeze(1)[hit]] = False
+    for t, w in torch.nonzero(~led).tolist():
+        rows = slots[t, w][valid[t, w]]
+        occ[:, rows] = occ[:, int(slots[t, lead[t, w], 0])].clone()[:, None]
+    return occ.to(torch.int32)
 
 
 def occlusion_multi(pos, m_s, k0_s, src_pos, valid, tri_chunk: int = 512,
@@ -893,8 +1067,10 @@ def occlusion_multi(pos, m_s, k0_s, src_pos, valid, tri_chunk: int = 512,
             _require(pos, (("mask", mask, torch.int32,
                             (tiles.count, S * (table.shape[1] // C))),))
         occ = torch.empty((S, R), dtype=torch.int32, device=pos.device)
+        scratch = occlusion_scratch(pos, table, C, S, mask, tiles)
         with torch.cuda.device(pos.device):
-            launch_occlusion_kernel(pos, table, C, src, mask, tiles, occ)
+            launch_occlusion_kernel(pos, table, C, src, mask, tiles, occ,
+                                    scratch=scratch)
     if mask is None:
         LAUNCHES_OCCLUSION += 1
     else:

@@ -2039,6 +2039,170 @@ def test_occlusion_kernels_match_plain_version(cuda, size, quads, samples):
     assert 0.0 < float(c["mask"].float().mean()) < 1.0
 
 
+def _k7b_points(args, n_src=None):
+    """K7b's inputs from K6's arguments (_sweep_inputs, _k6_torus_inputs):
+    each ray's hit position from the plain closest hit, the camera position
+    on a miss, toward the first n_src sources; and the hit rays."""
+    from raytpu_torch.kernels import intersect as isect
+    dirs, m, k0, valid, m_s, k0_s, cam, src = args
+    n_src = src.shape[0] if n_src is None else n_src
+    t, idx = isect.closest_hit_reference(dirs, m, k0, valid)
+    pos = (cam + torch.where(idx >= 0, t, 0.0)[:, None] * dirs).contiguous()
+    return ((pos, m_s[:n_src], k0_s[:n_src], src[:n_src].contiguous(), valid),
+            idx >= 0)
+
+
+@pytest.mark.parametrize("case,n_src", [
+    ("cornell", 1), ("cornell", 32), ("torus", 4), ("torus", 48)])
+def test_k7b_on_one_chunk(cuda, case, n_src):
+    """K7b on one chunk (K6's shadow half): the 512^2 Cornell frame's points
+    (padded to 32) toward 1 and the bench's 32 sources (staged in shared
+    memory), and a torus of 128 triangles with misses at 96^2 toward 4
+    sources (staged) and 48 (288 KB of triangle-major constants, above
+    k6_staged's 96 KB: read through the cache). Bits equal to the plain
+    version, two calls identical, one launch a call."""
+    from raytpu_torch.kernels import intersect as isect
+    if case == "cornell":
+        args = _sweep_inputs(cuda, 512, 2, 16, (-0.5, -0.5))
+    else:
+        args = _k6_torus_inputs(cuda, (8, 8), 96, n_src)
+    (pos, m_s, k0_s, src, valid), hit = _k7b_points(args, n_src)
+    table = isect.source_table(m_s, k0_s, valid, 128 if case == "torus"
+                               else 32)
+    C = table.shape[1]
+    assert isect.k6_staged(n_src, C) == (n_src < 48)
+
+    def run():
+        before = isect.LAUNCHES_OCCLUSION
+        out = isect.occlusion_multi(pos, m_s, k0_s, src, valid)
+        assert isect.LAUNCHES_OCCLUSION == before + 1
+        return out
+
+    got, again = run(), run()
+    want = isect.occlusion_reference(pos, table, C, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert bool(got.any()) and not bool(got.all())
+    if case == "torus":
+        assert 0.05 < float(hit.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("kind", ["one_tile", "thin"])
+def test_k7c_on_crowded_and_thin_masks(cuda, kind):
+    """K7c on the 9,028 mesh's points at 512^2 (S = 1) with a mask that
+    keeps every chunk of one tile and nothing else, and with a thin mask (a
+    seeded 3% of the (tile, chunk) pairs): bits equal to the plain masked
+    version, two calls identical, under runs of 1, OCC_RUN and no split."""
+    from raytpu_torch.kernels import intersect as isect
+    c = _occlusion_case(cuda, 512, (74, 61), 1)
+    pos, m_s, k0_s, src, valid = c["args"]
+    table = isect.source_table(m_s, k0_s, valid, 128)
+    C, S = 128, 1
+    mask = torch.zeros_like(c["mask"])
+    if kind == "one_tile":
+        busy = int(torch.argmax(c["mask"].sum(dim=1)))
+        mask[busy] = 1
+    else:
+        rng = np.random.default_rng(20)
+        mask = torch.tensor((rng.uniform(size=mask.shape) < 0.03).astype(
+            np.int32), device=cuda)
+    want = isect.occlusion_masked_reference(pos, table, C, src, mask,
+                                            c["tiles"])
+    for run in (1, isect.OCC_RUN, 1024):
+        outs = []
+        for _ in range(2):
+            out = torch.empty((S, pos.shape[0]), dtype=torch.int32,
+                              device=cuda)
+            isect.launch_occlusion_kernel(
+                pos, table, C, src, mask, c["tiles"], out,
+                scratch=isect.occlusion_scratch(pos, table, C, S, mask,
+                                                c["tiles"], run), run=run)
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    assert bool(want.any())
+
+
+@pytest.mark.parametrize("chunk", [24, 20, 100])
+def test_k7b_k7c_chunks_of_any_size(cuda, chunk):
+    """K7b over several chunks and K7c with chunks of 24, 20 and 100
+    triangles (the sweep's groups of 16, then of 8, then of 1 at each
+    chunk's tail, no test reaching into the next chunk): the 800-triangle
+    torus at 96^2 toward 8 sources, bits equal to the plain versions (K7c
+    to the masked one), K7c = K7b, an all-ones mask = K7b."""
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, 96, (20, 20), 4, 2)
+    (pos, m_s, k0_s, src, valid), _ = _k7b_points(
+        (*case["args"], *case["src_args"]))
+    mask = isect.position_mask(pos, case["tiles"], case["geom"], valid, src,
+                               chunk)
+    args = (pos, m_s, k0_s, src, valid, chunk)
+    brute = isect.occlusion_multi(*args)
+    culled = isect.occlusion_multi(*args, mask, case["tiles"])
+    ones = isect.occlusion_multi(*args, torch.ones_like(mask), case["tiles"])
+    want = isect.occlusion_multi_reference(*args[:5], tri_chunk=chunk)
+    want_culled = isect.occlusion_multi_masked_reference(
+        *args[:5], mask, case["tiles"], tri_chunk=chunk)
+    torch.cuda.synchronize()
+    n_chunks = -(-800 // chunk)
+    assert mask.shape[1] == 8 * n_chunks
+    assert 0.0 < float(mask.float().mean()) < 1
+    assert torch.equal(brute, want) and torch.equal(culled, want_culled)
+    assert torch.equal(culled, brute) and torch.equal(ones, brute)
+    assert bool(brute.any())
+
+
+def test_occluded_masked_kernel_chunk_of_20(cuda):
+    """K7a bit for bit with chunks of 20 triangles (the shadow sweep's
+    groups of 16 then of 1 at each chunk's tail), the 800-triangle torus at
+    96^2 with 8 sources."""
+    from raytpu_torch.kernels import intersect as isect
+    case = _mesh_sweep(cuda, 96, (20, 20), 4, 2)
+    args = (*case["args"], *case["src_args"])
+    tiles = case["tiles"]
+    mask = isect.fused_mask(args[0], tiles, case["geom"], args[3], args[7],
+                            case["cam"], 20)
+    got = isect.closest_hit_occluded_multi_masked(*args, mask, tiles,
+                                                  tri_chunk=20)
+    want = isect.closest_hit_occluded_multi_masked_reference(
+        *args, mask, tiles, tri_chunk=20)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert mask.shape[1] == 9 * 40 and bool(got[2].any())
+
+
+def test_shadow_reject_probe_on_miss_point_rays(cuda):
+    """The device reject on the shadow rays of miss points (K7b and K7c test
+    every point, a miss's camera position too): the camera of the 9,028
+    mesh's frame toward 32 sources, against every triangle. It never
+    rejects a test plane_test calls blocking, equals its plain form bit for
+    bit, and decides nearly all the others."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.ops.intersect import plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
+    case = _mesh_sweep(cuda, 64, (74, 61), 16, 2)
+    cam, src = case["cam"], case["src_args"][3]
+    m_s, k0_s, valid = case["src_args"][0], case["src_args"][1], \
+        case["args"][3]
+    S, T = m_s.shape[:2]
+    m_v = m_s * valid[None, :, None, None]
+    k0_v = k0_s * valid[None, :]
+    delta = (cam[None, :] - src)[:, None, :].expand(-1, T, -1).reshape(-1, 3)
+    tri = torch.cat([m_v.reshape(S, T, 9), k0_v[..., None]], dim=2)
+    rej, blk = isect.shadow_reject_probe(delta.contiguous(),
+                                         tri.reshape(-1, 10).contiguous())
+    want_rej = torch.cat([isect.shadow_reject((cam - src[s])[None], m_v[s],
+                                              k0_v[s])[0] for s in range(S)])
+    want_blk = torch.cat([
+        (lambda ts, oks: (oks & (ts < SHADOW_T))[0])(
+            *plane_tests((cam - src[s])[None], m_v[s], k0_v[s]))
+        for s in range(S)])
+    torch.cuda.synchronize()
+    assert not bool((rej & blk).any())
+    assert torch.equal(rej, want_rej) and torch.equal(blk, want_blk)
+    assert float(rej.float().mean()) > 0.99
+
+
 @pytest.mark.parametrize("size,y0", [(257, 0), (512, 256), (129, 64)])
 def test_chunked_winner_kernel_matches_plain_version(cuda, size, y0):
     """K8a on rows [y0, size) of the 9,028-triangle mesh's frame at the STL

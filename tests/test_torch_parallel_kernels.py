@@ -13,7 +13,12 @@ called directly, on the same float32 inputs carried across as numpy:
     procedural mesh toward 2 sources, against JAX's unmasked and culled
     kernels: occlusion bits equal for every point, misses included;
     ``position_mask`` equal to JAX's ``position_shadow_mask`` on the same
-    tiles.
+    tiles. The plain model of K7b's and K7c's work items
+    (``occlusion_items_reference``: ``occlusion_plan``'s entries, each a
+    run of a (tile, source)'s kept chunks, their bits ORed) against the
+    plain versions and JAX's output on a crowded mask, position_mask, an
+    all-ones mask and no mask; the plan lists every kept (tile, source,
+    chunk) once, in order, and all ones plans what no mask does.
   * K8a (``raster_winner_chunked``) on the mesh at 32^2, the whole frame
     (y0 = 0) and its lower half (y0 = 16), from an off-grid camera (F4):
     winners equal.
@@ -114,12 +119,24 @@ def test_occlusion_plain_matches_pallas_on_cornell(n_src):
     assert want[:, hit].any() and not want[:, hit].all()
 
 
-def test_occlusion_plain_matches_pallas_on_mesh():
-    """K7b and K7c (7 chunks of 128) against JAX's unmasked and culled
-    kernels; the culled one on JAX's 2048-point tiles, the port's on its
-    16 x 16 tiles, and position_mask against JAX's mask on those."""
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+MESH_SIZE = 32
+
+
+@pytest.fixture(scope="module")
+def mesh_occlusion():
+    """The 800-triangle mesh's hit points at 32^2 (the camera position on a
+    miss) toward 2 sources, and JAX's unmasked and culled occlusion on
+    them (one interpret-mode compile each, shared by the tests below)."""
     scene = _mesh()
-    size = 32
+    size = MESH_SIZE
     pos, hit = _hit_points(scene, MESH_CAM, float(size), size)
     src = np.array([[0.0, -0.5, -0.7], [0.4, -0.5, -0.7]], np.float32)
     consts, jsrc = _occlusion_inputs(scene, src)
@@ -129,6 +146,19 @@ def test_occlusion_plain_matches_pallas_on_mesh():
     culled = np.asarray(occlusion_multi_pallas(
         pos, consts, jsrc, scene.active, tri_chunk=128, scene_geom=geom,
         image_hw=(size, size)))
+    return dict(scene=scene, pos=pos, hit=hit, src=src, consts=consts,
+                jsrc=jsrc, geom=geom, brute=brute, culled=culled)
+
+
+def test_occlusion_plain_matches_pallas_on_mesh(mesh_occlusion):
+    """K7b and K7c (7 chunks of 128) against JAX's unmasked and culled
+    kernels; the culled one on JAX's 2048-point tiles, the port's on its
+    16 x 16 tiles, and position_mask against JAX's mask on those."""
+    c = mesh_occlusion
+    scene, pos, hit, src = c["scene"], c["pos"], c["hit"], c["src"]
+    consts, jsrc, geom = c["consts"], c["jsrc"], c["geom"]
+    brute, culled = c["brute"], c["culled"]
+    size = MESH_SIZE
     np.testing.assert_array_equal(culled, brute)
 
     args = (_t(pos), _t(consts.m), _t(consts.k0), _t(src), _t(scene.active))
@@ -152,6 +182,123 @@ def test_occlusion_plain_matches_pallas_on_mesh():
     np.testing.assert_array_equal(mask.numpy(), want_mask)
     hit = np.asarray(hit)
     assert brute[:, hit].any() and 0.1 < hit.mean() < 0.9
+
+
+def _items_case(mesh_occlusion, kind: str, C: int):
+    """The port's K7b / K7c inputs on the mesh fixture's points with chunks
+    of C: the plain (pos, table, src), the tiles and a mask of ``kind``:
+    "position" (position_mask), "ones", "none", or "crowded" (the kept
+    chunks of both sources in three tiles: one keeping every chunk, two
+    keeping a seeded random half)."""
+    from raytpu_torch.kernels.tables import source_table
+    c = mesh_occlusion
+    pos, src, valid = _t(c["pos"]), _t(c["src"]), _t(c["scene"].active)
+    table = source_table(_t(c["consts"].m), _t(c["consts"].k0), valid, C)
+    tiles = ray_tiles(MESH_SIZE * MESH_SIZE, (MESH_SIZE, MESH_SIZE), "cpu")
+    n_chunks = table.shape[1] // C
+    shape = (tiles.count, 2 * n_chunks)
+    if kind == "position":
+        mask = isect.position_mask(pos, tiles, tuple(_t(v) for v in c["geom"]),
+                                   valid, src, C)
+    elif kind == "ones":
+        mask = torch.ones(shape, dtype=torch.int32)
+    elif kind == "none":
+        mask, tiles = None, None
+    else:
+        rng = np.random.default_rng(20)
+        mask = torch.zeros(shape, dtype=torch.int32)
+        mask[1] = 1
+        for t in (2, 3):
+            mask[t] = torch.tensor(rng.integers(0, 2, shape[1]),
+                                   dtype=torch.int32)
+    return pos, table, src, mask, tiles
+
+
+@pytest.mark.parametrize("kind", ["position", "ones", "none", "crowded"])
+@pytest.mark.parametrize("C,run", [(32, 3), (32, isect.OCC_RUN), (128, 2)])
+def test_occlusion_items_model_matches_plain_version(mesh_occlusion, kind, C,
+                                                     run):
+    """The plain model of K7b's and K7c's work items (occlusion_plan's
+    entries, each tile's points swept over its run of kept chunks to their
+    first blocker, the runs' bits ORed) gives the plain versions' bits
+    exactly: occlusion_masked_reference on a mask that crowds its kept
+    chunks into three tiles, on position_mask, and on an all-ones mask (=
+    occlusion_reference); with no mask occlusion_reference, and with
+    position_mask, all ones and no mask JAX's occlusion_multi_pallas."""
+    pos, table, src, mask, tiles = _items_case(mesh_occlusion, kind, C)
+    got = isect.occlusion_items_reference(pos, table, C, src, mask, tiles,
+                                          run)
+    brute = isect.occlusion_reference(pos, table, C, src)
+    if mask is None:
+        want = brute
+    else:
+        want = isect.occlusion_masked_reference(pos, table, C, src, mask,
+                                                tiles)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if kind == "crowded":
+        assert bool(got.any()) and not torch.equal(got, brute)
+    else:
+        np.testing.assert_array_equal(got.numpy().astype(bool),
+                                      mesh_occlusion["brute"])
+
+
+@pytest.mark.parametrize("kind", ["position", "ones", "crowded"])
+@pytest.mark.parametrize("run", [1, 3, isect.OCC_RUN, 100])
+def test_occlusion_plan_gives_each_kept_chunk_one_item(mesh_occlusion, kind,
+                                                       run):
+    """occlusion_plan lists every kept (tile, source, chunk) in exactly one
+    entry, a pair's entries in order holding its kept chunks in order, at
+    most ``run`` each; an all-ones mask plans the same entries as no
+    mask."""
+    C = 32
+    _, table, _, mask, tiles = _items_case(mesh_occlusion, kind, C)
+    n_chunks, S = table.shape[1] // C, 2
+    plan = isect.occlusion_plan(mask, tiles.count, S, n_chunks, run)
+    assert plan.shape[1] == 2
+    chunks = {}
+    for p, j in plan.tolist():
+        got = isect.occlusion_entry_chunks(mask, p, j, n_chunks, run)
+        assert 1 <= len(got) <= run
+        assert j == len(chunks.setdefault(p, [])) // run
+        chunks[p].extend(got)
+    rows = mask.reshape(tiles.count * S, n_chunks)
+    for p in range(tiles.count * S):
+        want = torch.nonzero(rows[p]).squeeze(1).tolist()
+        assert chunks.get(p, []) == want
+    if kind == "ones":
+        assert torch.equal(plan, isect.occlusion_plan(None, tiles.count, S,
+                                                      n_chunks, run))
+    assert plan.shape[0] == int((-(-(rows != 0).sum(dim=1) // run)).sum())
+
+
+def test_occlusion_leaders_follow_equal_warps(mesh_occlusion):
+    """occlusion_leaders on the mesh's points (a miss's point is the camera
+    position): some warps follow another, each follower's points equal its
+    leader's first point bit for bit, and a leader leads itself; on a 20 x
+    20 grid (tiles past the edge) the slots outside the grid take no part,
+    and a warp with none inside leads itself."""
+    pos = _t(mesh_occlusion["pos"])
+    for pts, hw in ((pos, (MESH_SIZE, MESH_SIZE)), (None, (20, 20))):
+        if pts is None:
+            rng = np.random.default_rng(21)
+            pts = _t(rng.normal(size=(400, 3)).astype(np.float32))
+            pts[:80] = pts[18 * 20:] = _t(np.float32([1.0, 2.0, 3.0]))
+        tiles = ray_tiles(pts.shape[0], hw, "cpu")
+        lead = isect.occlusion_leaders(pts, tiles)
+        w = torch.arange(8)[None, :]
+        assert bool((lead <= w).all())
+        assert bool((lead[torch.arange(tiles.count)[:, None], lead] ==
+                     lead).all())
+        slots = tiles.rays.reshape(tiles.count, 8, 32)
+        valid = isect._tile_slots_valid(tiles).reshape(tiles.count, 8, 32)
+        followers = torch.nonzero(lead != w).tolist()
+        assert followers
+        for t, f in followers:
+            want = pts[slots[t, lead[t, f], 0]]
+            got = pts[slots[t, f][valid[t, f]]]
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32).expand_as(got))
+    assert lead[:, 2:].eq(torch.arange(2, 8)).all()  # past the grid
 
 
 def _raster_consts(size):

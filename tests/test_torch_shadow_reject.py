@@ -12,7 +12,9 @@ of operations. These tests hold it to never reject a test that
 every (hit ray, source, triangle) test of the 800-triangle torus at 48^2
 with 8 sources, and on hand-built constants at each edge of the argument
 (D, U, V, K at +-0, subnormal, inf and NaN, the guard's ends, t at 0.99 and
-u + v at 1, each +- 1 ulp). K7a's plain version, ``occluded_masked_reference``
+u + v at 1, each +- 1 ulp); and, for K7b and K7c, which test every point,
+on every (point, source, triangle) of that frame with a miss's camera
+position as its point. K7a's plain version, ``occluded_masked_reference``
 (unchanged by the reject, which only the kernel takes), is held to JAX's
 interpret-mode route at the same frame, bit for bit in idx and occ.
 
@@ -116,6 +118,33 @@ def test_reject_on_every_shadow_test_of_the_torus(frame):
           f"test that do not block")
     assert int(hit.sum()) > 300 and blocking > 1000
     assert share > 0.99
+    assert rejected >= 0.999 * (tests - blocking)
+
+
+def test_reject_on_every_occlusion_test_of_the_torus_misses_included(frame):
+    """K7b's and K7c's tests: every (point, source, triangle) of the frame,
+    each point the hit position or, on a miss, the camera position (as the
+    sharded renderer forms them): the reject rejects no blocking test, a
+    miss point's included, and decides nearly all that do not block."""
+    c, cs = frame["consts"], frame["consts_src"]
+    t, idx = kernels.closest_hit_reference(frame["dirs"], c.m, c.k0, c.valid)
+    hit = idx >= 0
+    pos = frame["cam"][None, :] + torch.where(hit, t, 0.0)[:, None] * (
+        frame["dirs"])
+    m_s = cs.m * c.valid[None, :, None, None]
+    k0_s = cs.k0 * c.valid[None, :]
+    tests = rejected = blocking = miss_blocking = 0
+    for s in range(frame["src"].shape[0]):
+        delta = pos - frame["src"][s][None, :]
+        ts, oks = plane_tests(delta, m_s[s], k0_s[s])
+        blocked = oks & (ts < SHADOW_T)
+        reject = kernels.shadow_reject(delta, m_s[s], k0_s[s])
+        assert not bool((reject & blocked).any())
+        tests += reject.numel()
+        rejected += int(reject.sum())
+        blocking += int(blocked.sum())
+        miss_blocking += int(blocked[~hit].sum())
+    assert 0 < int((~hit).sum()) < hit.numel() and miss_blocking > 0
     assert rejected >= 0.999 * (tests - blocking)
 
 
