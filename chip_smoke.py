@@ -73,7 +73,12 @@ nonzero without printing a result:
      (raytpu_torch.core.stl.procedural_stl_text, written to
      build/chip_smoke/) at 500^2 clean, with its mask and with the mask
      forced to all ones. 0 winner mismatches, masked = all-ones, two calls
-     identical; the mask's keep rate.
+     identical; the mask's keep rate. K8c's per-tile row cull on its STL
+     frame: the pairs its plain form (kernels/raster.py::
+     raster_tile_reject) decides, and the card's probe
+     (raster_cull_probe: every rejected (tile, row) pair tested at every
+     pixel) counting 0 covered pixels and rejecting what the plain form
+     rejects.
  13. the rasterizer serving: rasterize at the CLI defaults (500^2 parity,
      plain torch, no kernel) against the port's copy of the rasterizer
      oracle (u8 within 1 everywhere, >= 99.99% exact, focal distances
@@ -98,7 +103,15 @@ nonzero without printing a result:
      the bench's soft_stl frame (the 9,028-triangle mesh padded to 9,216 at
      512^2, culled) with its keep-mask and with an all-ones mask. agg, m and
      s within rtol 1e-5 / atol 1e-6, the all-ones mask bit-identical to
-     K9a, two calls identical; the keep rate.
+     K9a, two calls identical; the keep rate. The kernels are held
+     against the whole plain version. The dead-row skip: the plain version
+     with each 8 x 4 pixel block's dead rows left out
+     (kernels/soft_raster.py::soft_row_dead) against it bit for bit on
+     every case (the mesh masked and brute), its counts, the card's probe (soft_row_dead_probe: every row
+     called dead evaluated at every pixel of its block) at the floors of
+     the saved max and at 0
+     counting 0 rows of weight not 0 and calling dead what the plain form
+     does, and the work items (soft_fwd_items).
  16. the soft raster backward kernels (K9c, K9d) on the same cases
      against the plain backward in float64 with the float32 branch
      decisions (kernels/soft_raster.py::Kinks), cotangents drawn from a
@@ -219,7 +232,8 @@ nonzero without printing a result:
      counts; for each K7b/K7c case the work the plain forms count
      (occlusion_work: tests to the first blocker, those the exact reject
      decides, none of them blocking, misses included; the miss points'
-     share, the items and runs planned).
+     share, the items and runs planned); K8a's cull: its plain form's
+     counts and the card's probe at y0 = 0 and 256 (0 covered pixels).
  30. sharded serving on a 1 x 1 NCCL mesh (init_distributed at world size
      1, make_mesh(1, 1)), each frame against its single-card frame:
      make_sharded_render at 512^2 clean Cornell, at full feature (AA 3,
@@ -378,6 +392,10 @@ FLOPS_REJECT = 15 + 3  # FLOPS_DOTS + 3
 # The raster kernels' pixel-triangle test (raster.cu::sweep): four planes
 # of two multiplies and two adds.
 FLOPS_RASTER_TEST = 16
+# K8a's and K8c's per-tile row cull (raster.cu::tile_reject), a (tile, row)
+# pair they walk: each of the four planes at one corner, two multiplies and
+# two adds (its comparisons and selects count not at all, as above).
+FLOPS_RASTER_CULL = 16
 # The soft raster kernels' float operations a (pixel, row) pair, counted
 # from raytpu_torch/csrc/soft_raster.cu for a pixel outside the triangle
 # (the three segment distances and one square root; most pairs), a divide,
@@ -396,6 +414,13 @@ FLOPS_SOFT_FWD, FLOPS_SOFT_BWD = 197, 378
 # distances and xs that its recompute held, 287 more.
 FLOPS_SOFT_DEAD = 21 + 5 + 64 + 1 + 1 + 4
 FLOPS_SOFT_BWD_REST = FLOPS_SOFT_BWD - (21 + 5 + 64 + 1)
+# K9a's and K9b's dead-row test since their redesign (soft_raster.cu::
+# soft_row_bound), a (8 x 4 pixel block, row) pair they walk, counted as
+# above: the tame check (32), zb (9), the three edges at their corners
+# (30), the distance bound of an outside row (43: the coordinates'
+# magnitude 15, the box 8, the gaps 14, the distance 5, cap 1), B, its log
+# and B - floor (4). A live pair then pays FLOPS_SOFT_FWD.
+FLOPS_SOFT_ROW_DEAD = 32 + 9 + 30 + 43 + 4
 # Column groups of the soft kernels' (Tp, 32) table
 # (kernels/soft_raster.py::soft_tri_constants), each of one kind and size:
 # the gradient of 1 / area is 1e2-1e6 times the vertices', so a rule scaled
@@ -1116,18 +1141,60 @@ def plain_winner(case: dict):
         c["consts"], c["H"], c["W"], c["mask"], c["chunk"])
 
 
-def winner_bound(case: dict) -> tuple[float, str]:
-    """K8b's or K8c's bound on a raster_case: the constants (and mask) read
-    once and 4 B of winner written a pixel, against FLOPS_RASTER_TEST a
-    test of a pixel against a valid row (valid = consts[:, 12] > 0; an
-    invalid row needs no test): every valid row for every pixel (K8b), or
-    for each (tile, chunk) pair the mask keeps, the tile's pixels inside
-    the image against the chunk's valid rows (K8c)."""
+def winner_work(consts, H: int, W: int, chunk: int | None = None,
+                mask=None, y0: int = 0) -> dict:
+    """What K8a (mask None: every row for every tile) or K8c (the rows of
+    the chunks each tile's mask keeps) must do since the cull, from its
+    plain form (kernels/raster.py::raster_tile_reject) on the card's
+    tensors: the (tile, row) pairs walked, those rejected and kept, the
+    (pixel, row) tests of the kept rows (each tile's pixels inside the
+    image), and the tests the kernels made before the cull (every valid
+    row walked, every pixel)."""
+    from raytpu_torch.kernels import raster
+    T = consts.shape[0]
+    xmin, xmax, ymin, ymax = raster.tile_rects(H, W, consts.device)
+    rej = raster.raster_tile_reject(consts, (xmin, xmax, ymin + y0,
+                                             ymax + y0))
+    pixels = ((xmax - xmin + 1) * (ymax - ymin + 1)).double()
+    walked = (torch.ones_like(rej) if mask is None else
+              (mask != 0).T.repeat_interleave(chunk, dim=0)[:T])
+    keep = walked & ~rej
+    valid = (consts[:, 12] > 0.0)[:, None]
+    w = dict(walked=int(walked.sum()), rejected=int((walked & rej).sum()),
+             kept=int(keep.sum()),
+             tests=int((keep.double() * pixels[None, :]).sum()),
+             tests_before=int(((walked & valid).double()
+                               * pixels[None, :]).sum()),
+             all_pairs=rej.numel(), all_rejected=int(rej.sum()))
+    return w
+
+
+def winner_work_line(w: dict) -> str:
+    return (f"{w['walked']} (tile, row) pairs walked, {w['rejected']} culled "
+            f"({w['rejected'] / max(1, w['walked']):.4%}), {w['kept']} kept; "
+            f"{w['tests']} pixel tests of kept rows (before the cull "
+            f"{w['tests_before']})")
+
+
+def winner_bound(case: dict, work: dict | None = None) -> tuple[float, str]:
+    """K8b's, K8c's or K8a's bound on a raster_case: the constants (and
+    mask) read once and 4 B of winner written a pixel, against
+    FLOPS_RASTER_TEST a test of a pixel against a valid row (valid =
+    consts[:, 12] > 0; an invalid row needs no test): every valid row for
+    every pixel (K8b), or for each (tile, chunk) pair the mask keeps, the
+    tile's pixels inside the image against the chunk's valid rows (K8c).
+    With ``work`` (winner_work) since the cull: FLOPS_RASTER_CULL a (tile,
+    row) pair walked and FLOPS_RASTER_TEST a test of a kept row."""
     from raytpu_torch.kernels import raster
     c = case
     T, H, W = c["consts"].shape[0], c["H"], c["W"]
     valid = (c["consts"][:, 12] > 0.0).long()
     nbytes = c["consts"].numel() * 4 + H * W * 4
+    if c["mask"] is not None:
+        nbytes += c["mask"].numel() * 4
+    if work is not None:
+        return bound_ms(nbytes, FLOPS_RASTER_CULL * work["walked"]
+                        + FLOPS_RASTER_TEST * work["tests"])
     if c["mask"] is None:
         return bound_ms(nbytes, FLOPS_RASTER_TEST * H * W * int(valid.sum()))
     pad = c["mask"].shape[1] * c["chunk"] - T
@@ -1137,7 +1204,7 @@ def winner_bound(case: dict) -> tuple[float, str]:
     tile_pixels = ((xmax - xmin + 1) * (ymax - ymin + 1)).long()
     tests = int((c["mask"].long() * tile_pixels[:, None]
                  * chunk_valid[None, :]).sum())
-    return bound_ms(nbytes + c["mask"].numel() * 4, FLOPS_RASTER_TEST * tests)
+    return bound_ms(nbytes, FLOPS_RASTER_TEST * tests)
 
 
 def raster_bench_frame(dev, size: int):
@@ -1202,12 +1269,40 @@ def soft_pixel_mask(case, mask="own"):
                                                     case["W"])
 
 
-def plain_soft_fwd(case, mask="own"):
+def plain_soft_fwd(case, mask="own", stats=None):
+    """The plain forward; with ``stats`` (a dict), the plain forward with
+    each pixel block's dead rows left out as the kernels leave them out
+    (the same bits), adding its counts to stats (soft_agg_reference)."""
     from raytpu_torch.kernels import soft_raster as sr
     c = case
+    dev = c["consts"].device
     return sr.soft_agg_reference(
-        c["consts"], sr.pixel_coords(c["H"], c["W"], c["consts"].device),
-        soft_pixel_mask(case, mask), c["es"], c["zs"], c["chunk"])
+        c["consts"], sr.pixel_coords(c["H"], c["W"], dev),
+        soft_pixel_mask(case, mask), c["es"], c["zs"], c["chunk"],
+        dead_rows=(None if stats is None
+                   else sr.tile_layout(c["H"], c["W"], dev)),
+        stats=stats)
+
+
+def soft_dead_probe(case, m) -> dict:
+    """The card's dead-row probe (kernels/soft_raster.py::
+    soft_row_dead_probe) at each pixel block's floor from the forward's
+    saved max m (the largest a block reaches) and at 0 (an item's first
+    chunk), beside the plain form's count at the same floors."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = case
+    block, rect = sr.tile_layout(c["H"], c["W"], m.device)
+    top = torch.full((rect[0].shape[0],), float("inf"),
+                     device=m.device).scatter_reduce(0, block, m, "amin")
+    held = (rect[0] <= rect[1]) & (rect[2] <= rect[3])  # blocks with pixels
+    out = {}
+    for name, floor in (("max", top), ("zero", torch.zeros_like(top))):
+        got = sr.soft_row_dead_probe(c["consts"], c["H"], c["W"], c["es"],
+                                     c["zs"], floor)
+        got["plain"] = int(sr.soft_row_dead(c["consts"], rect, c["es"],
+                                            c["zs"], floor)[:, held].sum())
+        out[name] = got
+    return out
 
 
 def plain_soft_bwd(case, m, cot, mask="own", dtype=torch.float32):
@@ -1288,7 +1383,9 @@ def soft_bound(case, backward: bool, mask="own",
     tile's pixels inside the image against the chunk's rows. Backward, with
     ``work`` (soft_pair_work) since the redesign: FLOPS_SOFT_DEAD a pair
     for its dead test and FLOPS_SOFT_BWD_REST more for a live one; without
-    it, FLOPS_SOFT_BWD a pair (the count before)."""
+    it, FLOPS_SOFT_BWD a pair (the count before). Forward, with ``work``
+    (plain_soft_fwd's stats) since the redesign: FLOPS_SOFT_ROW_DEAD a
+    (block, row) pair walked and FLOPS_SOFT_FWD a live (pixel, row) pair."""
     from raytpu_torch.kernels.raster import tile_rects
     c = case
     mask = own_mask(c, mask)
@@ -1304,6 +1401,9 @@ def soft_bound(case, backward: bool, mask="own",
     if backward and work is not None:
         return bound_ms(nbytes, FLOPS_SOFT_DEAD * pairs
                         + FLOPS_SOFT_BWD_REST * (pairs - work["dead"]))
+    if work is not None:
+        return bound_ms(nbytes, FLOPS_SOFT_ROW_DEAD * work["rows"]
+                        + FLOPS_SOFT_FWD * work["live_pairs"])
     return bound_ms(nbytes, (FLOPS_SOFT_BWD if backward else FLOPS_SOFT_FWD)
                     * pairs)
 
@@ -1477,75 +1577,6 @@ def pri_fwd_rule(run_min: int, items: int):
         yield
     finally:
         srt.PRI_FWD_RUN_MIN, srt.PRI_FWD_ITEMS = old
-
-
-# The run rules pri_fwd_rule_ms times, (PRI_FWD_RUN_MIN, PRI_FWD_ITEMS),
-# the rule in use first: the run's floor and the items the split aims at,
-# each moved alone, and (1024, 1), one item a tile (no split, no merge).
-FWD_RULES_UNMASKED = ((8, 1024), (8, 2048), (8, 4096), (1024, 1))
-FWD_RULES_MASKED = ((8, 1024), (4, 1024), (16, 1024), (32, 1024),
-                    (8, 2048), (8, 4096), (1024, 1))
-
-
-def pri_fwd_rule_ms(c, masked: bool, rules, n: int) -> list[dict]:
-    """K10a (masked: K10b) on a srt_case under each (run_min, items) of
-    rules: the plan's run, items and tiles of more than one item
-    (srt.primary_fwd_items) and the launcher's median device ms (held
-    stream, in turns, median of 5 of n calls). Requires every rule's m bit
-    for bit equal to the first rule's, and out and s within rtol 1e-5 /
-    atol 1e-6 of it: the split moves no max, only the rounding of the
-    sums. The launcher counts no launch. PERF.md §6 reads these
-    for the choice of PRI_FWD_RUN_MIN and PRI_FWD_ITEMS."""
-    from raytpu_torch.kernels import soft_raytrace as srt
-    pcull = _cull(c, masked, "mask")
-    R, n_chunks = c["dirs"].shape[1], c["pri"].shape[0] // c["chunk"]
-    n_tiles = c["tiles"].count if masked else -(-R // srt.THREADS)
-    mask = c["mask"].cpu() if masked else None
-    dev = c["dirs"].device
-    rows, outs, calls = [], [], {}
-    for run_min, items in rules:
-        with pri_fwd_rule(run_min, items):
-            run, plan = srt.primary_fwd_items(mask, n_tiles, n_chunks, R)
-            scratch = srt.pri_fwd_scratch(c["pri"], c["chunk"], c["dirs"],
-                                          **pcull)
-        out = (torch.empty((9, R), device=dev), torch.empty(R, device=dev),
-               torch.empty(R, device=dev))
-
-        def call(rule=(run_min, items), out=out, scratch=scratch):
-            with pri_fwd_rule(*rule):
-                srt.launch_pri_fwd_kernel(
-                    c["pri"], c["chunk"], c["cam"], c["dirs"], c["es"],
-                    c["zs"], *out, **pcull, scratch=scratch)
-
-        call()
-        per_tile = np.bincount([t for t, _ in plan], minlength=n_tiles)
-        rows.append(dict(run_min=run_min, items=items, run=run,
-                         n_items=len(plan),
-                         merged=int((per_tile > 1).sum()),
-                         scratch_mb=scratch.numel() / 1e6))
-        outs.append(out)
-        calls[f"{run_min}/{items}"] = call
-    torch.cuda.synchronize()
-    for row, out in zip(rows, outs):
-        errs = [(g - w).abs() for g, w in zip(out, outs[0])]
-        require(torch.equal(out[1], outs[0][1])
-                and all(bool((e <= 1e-6 + 1e-5 * w.abs()).all())
-                        for e, w in zip(errs, outs[0])),
-                f"rule {row['run_min']}/{row['items']}: m bitwise, out and "
-                f"s within rtol 1e-5 / atol 1e-6 of the rule in use")
-        row["max_abs_d"] = max(float(e.max()) for e in errs)
-    t = median_ms_in_turns(calls, n=n, reps=5, timer=held_ms)
-    for row in rows:
-        row["ms"] = t[f"{row['run_min']}/{row['items']}"]
-    return rows
-
-
-def pri_fwd_rule_line(rows) -> str:
-    """pri_fwd_rule_ms's rows as phases 22 and 28 print them."""
-    return "; ".join(
-        f"{r['run_min']}/{r['items']}: {r['ms']:.4f} ms, run {r['run']}, "
-        f"{r['n_items']} items, {r['merged']} merged, max |d| "
-        f"{r['max_abs_d']:.3g}" for r in rows)
 
 
 def srt_work(c, m, world, dl, masked: bool = False,
@@ -2172,6 +2203,19 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
     require(launched == {"raster_winner_chunked": 3},
             "exactly three K8a launches")
     require(bool((full >= 0).any()), "the mesh is in view")
+    k8a_work = winner_work(consts, 512, 512)
+    for y0 in (0, 256):
+        probe = raster.raster_cull_probe(consts, 512 - y0, 512, y0)
+        plain = (k8a_work if y0 == 0 else
+                 winner_work(consts, 256, 512, y0=256))["all_rejected"]
+        say(f"K8a's cull at y0 = {y0}: the card's probe rejects "
+            f"{probe['rejected']} of {probe['pairs']} (tile, row) pairs "
+            f"(plain form {plain}), covered pixels among them "
+            f"{probe['covered']}")
+        require(probe["covered"] == 0 and probe["rejected"] == plain,
+                "K8a's cull rejects no covering row, as its plain form")
+    say(f"K8a's work on the mesh: {winner_work_line(k8a_work)}")
+    record["k8a_cull"] = k8a_work
     del full_again, want_full, want_half, masked, half
 
     say("== phase 30: sharded serving on a 1 x 1 NCCL mesh")
@@ -2443,15 +2487,17 @@ def sharded_phases(dev, stl_path, record: dict) -> list[dict]:
     t.update(median_ms_in_turns(
         {"plain": lambda: raster.resolve_winner_chunked_reference(
             consts, 512, 512, 128)}, n=1, reps=1))
-    valid = int((consts[:, 12] > 0.0).sum())
-    t["bound"] = bound_ms(consts.numel() * 4 + 512 * 512 * 4,
-                          FLOPS_RASTER_TEST * 512 * 512 * valid)
+    k8_case = dict(consts=consts, H=512, W=512, mask=None, chunk=128)
+    t["bound"] = winner_bound(k8_case, k8a_work)
+    t["bound_before"] = winner_bound(k8_case)
     timings["k8a_stl_512"] = t
     card = card_line()
     for name, t in timings.items():
         first = (f", {t['bound_every_point'][0]:.4f} ms on every point's "
                  f"tests, {t['bound_first_count'][0]:.4f} ms counting every "
-                 f"test a plane test" if "bound_first_count" in t else "")
+                 f"test a plane test" if "bound_first_count" in t else
+                 f", before the cull {t['bound_before'][0]:.4f} ms"
+                 if "bound_before" in t else "")
         say(f"{name}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} "
             f"ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}){first} "
             f"({card})")
@@ -4322,6 +4368,20 @@ def main() -> int:
                               int((got.long() - want.long()).abs().max()))
         record[f"winner_{name}"] = dict(mismatch=mis, repeat_equal=same,
                                         covered=hits)
+    # K8c's per-tile row cull: its plain form's counts and the card's
+    # probe (every rejected (tile, row) pair tested at every pixel).
+    k8c_case = rcases["k8c_500_stl"]
+    k8c_work = winner_work(k8c_case["consts"], 500, 500, k8c_case["chunk"],
+                           k8c_case["mask"])
+    probe = raster.raster_cull_probe(k8c_case["consts"], 500, 500)
+    say(f"K8c's cull on k8c_500_stl: {winner_work_line(k8c_work)}; the "
+        f"card's probe rejects {probe['rejected']} of {probe['pairs']} "
+        f"(tile, row) pairs (plain form {k8c_work['all_rejected']}), "
+        f"covered pixels among them {probe['covered']}")
+    require(probe["covered"] == 0
+            and probe["rejected"] == k8c_work["all_rejected"],
+            "K8c's cull rejects no covering row, as its plain form")
+    record["k8c_cull"] = dict(work=k8c_work, probe=probe)
 
     say("== phase 13: the rasterizer serving (the CLI defaults against the "
         "oracle, the rasterize CLI, animate, the view server)")
@@ -4523,7 +4583,9 @@ def main() -> int:
     # stream holds while a sleep blocks it, so it is timed back to back.
     k8c_ms.update(median_ms_in_turns({"plain": lambda: plain_winner(
         k8c_case)}, n=1, reps=3))
-    k8b_bound, k8c_bound = winner_bound(k8b_case), winner_bound(k8c_case)
+    k8b_bound = winner_bound(k8b_case)
+    k8c_bound = winner_bound(k8c_case, k8c_work)
+    k8c_bound_before = winner_bound(k8c_case)
     card = card_line()
     def valid_rows(case):
         return int((case["consts"][:, 12] > 0.0).sum())
@@ -4536,7 +4598,8 @@ def main() -> int:
         f"({valid_rows(k8c_case)} valid), keep "
         f"rate {record['k8c_500_stl_keep_rate']:.4f}: {k8c_ms['kernel']:.4f} "
         f"ms device time (plain {k8c_ms['plain']:.4f} ms back to back; bound "
-        f"{k8c_bound[0]:.4f} ms, {k8c_bound[1]}) ({card})")
+        f"{k8c_bound[0]:.4f} ms, {k8c_bound[1]}; before the cull "
+        f"{k8c_bound_before[0]:.4f} ms) ({card})")
     say(f"raster 512^2 clean (CUDA events, median of 31): frame "
         f"{raster_ms['frame']:.4f} ms, train step {raster_ms['step']:.4f} ms;"
         f" 500^2 clean STL frame {raster_ms['stl_frame']:.4f} ms (median of "
@@ -4552,6 +4615,7 @@ def main() -> int:
                   raster_ms=raster_ms, raster_profile=busy_r,
                   raster_peak_gb=raster_peak_gb, k8b_ms=k8b_ms,
                   k8c_ms=k8c_ms, k8b_bound=k8b_bound, k8c_bound=k8c_bound,
+                  k8c_bound_before=k8c_bound_before,
                   winner_err=winner_err)
 
     say("== phase 15: K9a and K9b against their plain versions on the card")
@@ -4607,6 +4671,7 @@ def main() -> int:
             "the JAX rule culls the mesh at 512^2 and not the box")
     soft_err = {"k9a": 0.0, "k9b": 0.0, "k9c": 0.0, "k9d": 0.0}
     soft_m = {}
+    soft_rows = {}  # the dead-row walks' counts (plain_soft_fwd's stats)
 
     def agg_close(got, want) -> tuple[bool, float]:
         errs = [(g - w).abs() for g, w in zip(got, want)]
@@ -4617,7 +4682,15 @@ def main() -> int:
     for name, case in scases.items():
         t0 = time.perf_counter()
         got, again = soft_fwd(case), soft_fwd(case)
+        # The whole plain version holds the kernel; the plain version with
+        # each block's dead rows left out, as the kernels leave them out,
+        # counts the dead rows and must give the whole version's bits.
+        soft_rows[name] = {}
         want = plain_soft_fwd(case)
+        require(all(torch.equal(a, b) for a, b in zip(
+            plain_soft_fwd(case, stats=soft_rows[name]), want)),
+                f"{name}: the plain version without the dead rows gives its "
+                f"bits")
         torch.cuda.synchronize()
         ok, err = agg_close(got, want)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -4627,8 +4700,14 @@ def main() -> int:
             key = "k9b"
             ones = torch.ones_like(case["mask"])
             got_ones, got_none = soft_fwd(case, ones), soft_fwd(case, None)
-            ok_none, err_none = agg_close(got_none,
-                                          plain_soft_fwd(case, None))
+            brute = plain_soft_fwd(case, None)
+            soft_rows[name + "_brute"] = {}
+            require(all(torch.equal(a, b) for a, b in zip(plain_soft_fwd(
+                case, None, stats=soft_rows[name + "_brute"]), brute)),
+                    f"{name}: the brute plain version without the dead rows "
+                    f"gives its bits")
+            ok_none, err_none = agg_close(got_none, brute)
+            del brute
             torch.cuda.synchronize()
             same_ones = all(torch.equal(a, b)
                             for a, b in zip(got_ones, got_none))
@@ -4655,6 +4734,27 @@ def main() -> int:
         require(ok, f"{name}: agg, m, s within rtol 1e-5 / atol 1e-6")
         require(same, f"{name}: two kernel calls identical")
         require(all(bool(torch.isfinite(t).all()) for t in got), "finite")
+        # The dead-row test: the plain walk's counts, the card's probe and
+        # the work items.
+        rows = soft_rows[name]
+        probe = soft_dead_probe(case, got[1])
+        n_tiles = -(-case["H"] // 16) * -(-case["W"] // 16)
+        items = sr.soft_fwd_items(case["mask"], n_tiles,
+                                  case["consts"].shape[0] // case["chunk"])
+        say(f"  {name}: {rows['dead']} of {rows['rows']} (block, row) pairs "
+            f"dead ({rows['dead'] / max(1, rows['rows']):.4%}), "
+            f"{rows['live_pairs']} live (pixel, row) pairs; the card's probe "
+            f"at the saved max's floors {probe['max']['dead']} dead (plain "
+            f"{probe['max']['plain']}), weight not 0 among them "
+            f"{probe['max']['bad']}; at 0 {probe['zero']['dead']} "
+            f"({probe['zero']['plain']}), {probe['zero']['bad']}; items "
+            f"{items}")
+        require(all(p["bad"] == 0 and p["dead"] == p["plain"]
+                    for p in probe.values()),
+                f"{name}: the dead-row test calls no live row dead, as its "
+                f"plain form")
+        record[f"soft_rows_{name}"] = dict(rows=rows, probe=probe,
+                                           items=items)
         soft_err[key] = max(soft_err[key], err)
         soft_m[name] = got[1]
         record[f"soft_fwd_{name}"] = dict(max_abs_err=err, repeat_equal=same)
@@ -4982,10 +5082,12 @@ def main() -> int:
         cot = soft_cot(case, seed=5)
         m = soft_fwd(case, mk)[1]
         scratch = sr.bwd_scratch(c["consts"], c["H"], c["W"], c["chunk"])
+        scratch_f = sr.fwd_scratch(c["consts"], c["H"], c["W"], c["chunk"],
+                                   mk)
         dc = torch.empty_like(c["consts"])
         args = (c["consts"], c["H"], c["W"], c["chunk"], mk, c["es"],
                 c["zs"])
-        return (lambda: sr.launch_fwd_kernel(*args, *out),
+        return (lambda: sr.launch_fwd_kernel(*args, *out, scratch=scratch_f),
                 lambda: sr.launch_bwd_kernel(*args, m, cot, dc,
                                              scratch=scratch),
                 lambda: plain_soft_fwd(case, mask),
@@ -4995,6 +5097,8 @@ def main() -> int:
               "fit": (scases["k9a_500_fit"], "own"),
               "stl_culled": (scases["k9b_512_stl"], "own"),
               "stl_brute": (scases["k9b_512_stl"], None)}
+    krows = {"bench": "k9a_512_bench", "fit": "k9a_500_fit",
+             "stl_culled": "k9b_512_stl", "stl_brute": "k9b_512_stl_brute"}
     soft_k = {}
     for name, (case, mask) in kcases.items():
         fwd_k, bwd_k, fwd_p, bwd_p, m_k, cot_k = kernel_timers(case, mask)
@@ -5005,7 +5109,9 @@ def main() -> int:
         # back, as they overflow the queue a held stream takes.
         t.update({f"{k}_plain": v for k, v in median_ms_in_turns(
             {"fwd": fwd_p, "bwd": bwd_p}, n=1, reps=3).items()})
-        t["fwd_bound"] = soft_bound(case, False, mask)
+        t["fwd_bound"] = soft_bound(case, False, mask,
+                                    soft_rows[krows[name]])
+        t["fwd_bound_old"] = soft_bound(case, False, mask)
         t["work"] = soft_pair_work(case, m_k, cot_k, mask)
         require(t["work"]["wrong"] == 0,
                 f"{name}: no pair of weight not 0 found dead")
@@ -5018,7 +5124,8 @@ def main() -> int:
         say(f"K9{'b' if name == 'stl_culled' else 'a'} / "
             f"K9{'d' if name == 'stl_culled' else 'c'} alone, {name}: "
             f"forward {t['fwd']:.4f} ms (plain {t['fwd_plain']:.4f}; bound "
-            f"{t['fwd_bound'][0]:.4f} ms, {t['fwd_bound'][1]}), backward "
+            f"{t['fwd_bound'][0]:.4f} ms, {t['fwd_bound'][1]}; without the "
+            f"dead rows {t['fwd_bound_old'][0]:.4f} ms), backward "
             f"{t['bwd']:.4f} ms (plain {t['bwd_plain']:.4f}; bound "
             f"{t['bwd_bound'][0]:.4f} ms, {t['bwd_bound'][1]}; without the "
             f"dead test {t['bwd_bound_old'][0]:.4f} ms) ({card})")
@@ -5460,9 +5567,6 @@ def main() -> int:
         rt_k[name] = t
         del kernels, plain
         torch.cuda.empty_cache()
-    fwd_rules = {name: pri_fwd_rule_ms(c, False, FWD_RULES_UNMASKED, n=2)
-                 for name, c in (("stl500_cli", stl500_case),
-                                 ("stl_512_brute", rcases["stl_512_brute"]))}
     card = card_line()
     for name, t in rt_k.items():
         w = t["work"]
@@ -5477,10 +5581,6 @@ def main() -> int:
             + f" ({card})")
         say(f"  K10a on {name}: {pri_fwd_line(w)}")
         say(f"  K10c on {name}: {pri_work_line(w, t['items'])}")
-    for name, rows in fwd_rules.items():
-        say(f"K10a under other run rules (PRI_FWD_RUN_MIN/PRI_FWD_ITEMS, "
-            f"the rule in use first), {name}: {pri_fwd_rule_line(rows)} "
-            f"({card})")
     say(f"soft raytrace (CUDA events, median): frames 512^2 bench "
         f"{rt_ms['bench_frame']:.4f} ms, 500^2 fit {rt_ms['fit_frame']:.4f} "
         f"ms, 512^2 full-feature sources {rt_ms['full_frame']:.4f} ms, STL "
@@ -5502,8 +5602,7 @@ def main() -> int:
                   rt_serve=rt_serve, rfit_launches=rfit_launches,
                   rfit_losses=rfit_losses, rfit_s=rfit_s,
                   rfit_ms_step=rfit_ms_step, rt_train=rt_train, rt_ms=rt_ms,
-                  rt_k=rt_k, rt_busy=rt_busy, rt_peak=rt_peak,
-                  fwd_rules=fwd_rules)
+                  rt_k=rt_k, rt_busy=rt_busy, rt_peak=rt_peak)
     say("== phase 23: K5, K7d and K7a against their plain versions on the "
         "card")
     from raytpu_torch import load_stl
@@ -6204,9 +6303,6 @@ def main() -> int:
         rtm_k[name] = t
         del kernels, plain
         torch.cuda.empty_cache()
-    fwdm_rules = {name: pri_fwd_rule_ms(mcases[name], True, FWD_RULES_MASKED,
-                                        n=5)
-                  for name in ("stl_step_512", "render_stl_512")}
     card = card_line()
     for name, t in rtm_k.items():
         w = t["work"]
@@ -6225,10 +6321,6 @@ def main() -> int:
         say(f"  K10b on {name}: {pri_fwd_line(w)}")
         if "items" in t:
             say(f"  K10d on {name}: {pri_work_line(w, t['items'])}")
-    for name, rows in fwdm_rules.items():
-        say(f"K10b under other run rules (PRI_FWD_RUN_MIN/PRI_FWD_ITEMS, "
-            f"the rule in use first), {name}: {pri_fwd_rule_line(rows)} "
-            f"({card})")
     say(f"soft_raytrace_stl steps (CUDA events, median of 3): culled "
         f"{rtm_ms['culled_step']:.4f} ms, brute {rtm_ms['brute_step']:.4f} "
         f"ms; peak memory culled {rtm_peak['culled_step']:.3f} GB, brute "
@@ -6246,8 +6338,7 @@ def main() -> int:
     record.update(srtm_err=srtm_err, srtm_checks=srtm_checks,
                   srtm_keep=srtm_keep, rtm_serve=rtm_serve,
                   rtm_train=rtm_train, rtm_losses=losses, rtm_ms=rtm_ms,
-                  rtm_peak=rtm_peak, rtm_busy=rtm_busy, rtm_k=rtm_k,
-                  fwdm_rules=fwdm_rules)
+                  rtm_peak=rtm_peak, rtm_busy=rtm_busy, rtm_k=rtm_k)
 
     sharded_entries = sharded_phases(dev, stl_path, record)
     two_launch_entries = two_launch_phase(dev, record)

@@ -36,24 +36,22 @@
 // neither and give no gradient for them (JAX's is exactly zero).
 //
 // Layout and design. The TPU grid walked (1,024-pixel swizzled tile, chunk)
-// in order and carried (m, s, acc) in VMEM scratch. Here the forward runs one
-// thread a pixel, a block a 16 x 16 tile (ragged edges computed and not
-// stored), with the carry in registers. A block stages one chunk of <= 32
-// rows in shared memory (4 KB, read by warp-uniform broadcast) with four
-// per-row values derived once (log(valid + 1e-20) and the three segment
-// reciprocals), keeps the chunk's 32 logits in registers from the first pass
-// (the max), and in the second recomputes only the barycentrics for the
-// sums. The masked forward skips a chunk block-uniformly.
+// in order and carried (m, s, acc) in VMEM scratch. Here the forward (below,
+// "K9a and K9b, redesigned") runs one thread a pixel of a 16 x 16 tile
+// (ragged edges computed and not stored) with the carry in registers, skips
+// the rows it proves of weight exactly 0 at every pixel of the tile, and
+// cuts each tile's kept chunks into work items across the card.
 // The backward (below, "K9c and K9d, redesigned") works in items of a
 // chunk and a run of its kept tiles, a pixel a lane, and skips the pairs
 // whose weight it proves exactly 0; every sum has a fixed order, so two
 // calls give the same bits.
 //
-// Bound on the H100: ~200 float operations a (pixel, row) pair forward; a
+// Bound on the H100: ~200 float operations a live (pixel, row) pair
+// forward, plus ~150 for the dead test of each (tile, row) pair it walks; a
 // backward pair pays its dead test (soft_dist, B, the comparison) and, if
-// live, ~290 more (pair_bwd past soft_dist); against 48 B a pixel of output (forward) or input
-// (backward) and the table: bound by operations (chip_smoke.py counts
-// them on its inputs: FLOPS_SOFT_*).
+// live, ~290 more (pair_bwd past soft_dist); against 48 B a pixel of output
+// (forward) or input (backward) and the table: bound by operations
+// (chip_smoke.py counts them on its inputs: FLOPS_SOFT_*).
 //
 // Rounding. Built with -fmad=false and IEEE division and sqrt; every
 // expression in the JAX kernel's order, so the forward matches the plain
@@ -64,6 +62,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "work_items.cuh"
 
 namespace {
 
@@ -164,91 +164,6 @@ __device__ __forceinline__ float fwd_logit(const float* c, const float* d,
   float L[3];
   const float zpx = bary(c, r1, r2, L);
   return (zs * zpx + log_sigmoid(es * sd)) + d[0];
-}
-
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-    soft_raster_fwd_kernel(const float* __restrict__ consts, int n_chunks,
-                           int chunk, const int* __restrict__ mask, int H,
-                           int W, int y0, float es, float zs,
-                           float* __restrict__ agg,
-                           float* __restrict__ m_out,
-                           float* __restrict__ s_out) {
-  __shared__ float s_c[kMaxChunk * kCols];
-  __shared__ float s_d[kMaxChunk * kDerived];
-  const int x = blockIdx.x * kTile + threadIdx.x;
-  const int y = blockIdx.y * kTile + threadIdx.y;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const float px = static_cast<float>(x), py = static_cast<float>(y0 + y);
-  const int* keep =
-      kMasked ? mask + static_cast<size_t>(blockIdx.y * gridDim.x +
-                                           blockIdx.x) * n_chunks
-              : nullptr;
-  // The background hypothesis: logit 0, zero attributes (`:254-261`).
-  float m = 0.0f, s = 1.0f;
-  float acc[kCh];
-#pragma unroll
-  for (int j = 0; j < kCh; ++j) acc[j] = 0.0f;
-
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (kMasked && keep[ch] == 0) continue;  // the same bit for the block
-    __syncthreads();  // every thread is done with the previous chunk
-    const float* src = consts + static_cast<size_t>(ch) * chunk * kCols;
-    for (int k = tid; k < chunk * kCols; k += kThreads) s_c[k] = src[k];
-    __syncthreads();
-    if (tid < chunk) derive(s_c + tid * kCols, s_d + tid * kDerived);
-    __syncthreads();
-
-    float logit[kMaxChunk];
-    float cmax = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < kMaxChunk; ++i) {
-      if (i < chunk) {
-        logit[i] = fwd_logit(s_c + i * kCols, s_d + i * kDerived, px, py, es,
-                             zs);
-        cmax = fmaxf(cmax, logit[i]);
-      }
-    }
-    const float m_new = fmaxf(m, cmax);
-    const float scale = expf(m - m_new);
-    float wsum = 0.0f;
-    float vsum[kCh];
-#pragma unroll
-    for (int j = 0; j < kCh; ++j) vsum[j] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMaxChunk; ++i) {
-      if (i < chunk) {
-        const float* c = s_c + i * kCols;
-        const float r1 = edge_raw(c[2], c[3], c[4], c[5], px, py);
-        const float r2 = edge_raw(c[4], c[5], c[0], c[1], px, py);
-        float L[3];
-        const float zpx = bary(c, r1, r2, L);
-        const float w = expf(logit[i] - m_new);
-        wsum += w;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          vsum[j] += w * c[22 + j];
-          vsum[3 + j] +=
-              w * ((L[0] * c[13 + j] + L[1] * c[16 + j]) + L[2] * c[19 + j]);
-          vsum[7 + j] += w * c[25 + j];
-        }
-        vsum[6] += w * zpx;
-      }
-    }
-    m = m_new;
-    s = s * scale + wsum;
-#pragma unroll
-    for (int j = 0; j < kCh; ++j) acc[j] = acc[j] * scale + vsum[j];
-  }
-  if (x < W && y < H) {
-    const size_t R = static_cast<size_t>(H) * W;
-    const size_t r = static_cast<size_t>(y) * W + x;
-    const float rec = 1.0f / s;
-#pragma unroll
-    for (int j = 0; j < kCh; ++j) agg[j * R + r] = acc[j] * rec;
-    m_out[r] = m;
-    s_out[r] = s;
-  }
 }
 
 // Backward of edge_raw(x0, y0, x1, y1) with cotangent dr into the vertex
@@ -813,37 +728,521 @@ bool bad_shape(int Tp, int chunk, int H, int W) {
          H < 1 || W < 1;
 }
 
+// ---------------------------------------------------------------------------
+// K9a and K9b, redesigned for Hopper (one template,
+// soft_raster_fwd_kernel<kMasked>; K9a is every chunk kept).
+//
+// On the culled soft STL step (512^2, the 9,028-triangle mesh padded to
+// 9,216, es = zs = 40) a tile keeps a few chunks on average and the tiles
+// on the mesh dozens, and within a kept chunk most rows lie farther from
+// the tile than a logit bound 110 below the running max allows: their
+// weight exp(logit - m_new) is exactly 0 at every pixel of the tile.
+//
+// The dead-row test (soft_row_bound; kernels/soft_raster.py::soft_row_dead
+// is its plain form, op by op). A warp takes an 8 x 4 block of the 16 x 16
+// tile, a pixel a lane. When a chunk is staged, lane i of every warp forms
+// a bound B of row i's logit over every pixel of the warp's block (its
+// pixel corners clipped to the image):
+//   B = (zb + cap) + log(valid + 1e-20),
+// zb as soft_pair_dead's (>= fl(zs zpx) for any barycentrics of the row;
+// NaN where a used column, es or zs lies beyond kTame or valid + 1e-20 is 0:
+// such a row is never dead). cap is 0, or, where es > 0 and one edge k is
+// computed below 0 at every pixel of the block, fl(es (-d_lb)) with d_lb a
+// lower bound of the distance fwd_logit computes at any pixel:
+// - One edge below 0 everywhere. e_k = fl(fl(fl(ex fl(py - y0)) - fl(ey
+//   fl(px - x0))) s_k) is, operation by operation, monotone in px and in py
+//   (rounding to nearest is monotone in each operand; the direction is the
+//   signs of ey, ex and s_k), so its largest value over the block is its
+//   value at one corner, computed by the same expression (edge_max). Below
+//   0 there, every pixel's hp <= e_k < 0 takes the outside branch: sd =
+//   -sqrt(min q).
+// - d_lb. seg2's nearest point x0 + t ex, t in [0, 1] after clip01, lies
+//   within 8 K u (u = 2^-24, K the largest |vertex coordinate|, pixel
+//   coordinate or 1) of a point of the segment, hence of the triangle's
+//   bounding box; dx = fl(px - qx) then has |dx| >= (gap_x - 8 K u)(1 - u),
+//   gap_x the exact distance from the block's x range to the box's, and the
+//   sums, squares and square root lose at most 3u more relatively. The
+//   kernel's gap is rounded up by at most 2 K u and shortened by E = K 2^-19
+//   (32 K u), and the distance it forms is scaled by 1 - 2^-18 (64 u), which
+//   covers its own roundings: d_lb <= every pixel's computed sqrt(min q).
+//   With es > 0, fl(es (-d_lb)) >= fl(es sd) = xs at every pixel, so cap >=
+//   cap(xs) of soft_pair_dead's proof, and B >= the computed logit there
+//   (rounding is monotone in each operand of the two sums).
+// A row is dead for the warp where fl(B - floor) < kDeadBelow, floor the
+// smallest running max m of the block's pixels inside the image (a min over
+// the warp's lanes, 0 before an item's first chunk: m starts at 0, the
+// background's logit, and never falls). Every such pixel's m_new >= floor, so fl(logit - m_new) <=
+// fl(B - floor) < -110 and expf gives exactly +0; the logit lies below m, so
+// the row is not the chunk's max either. Skipping it leaves the max, the
+// rescale and every sum (w val adds +-0) as they were, bit for bit.
+// kTame keeps the products finite, so no logit of a tame row is NaN.
+//
+// The kernel. Each chunk's rows are staged with cp.async (one float4 a
+// thread, a chunk ahead, two buffers, nine float4s a row so that lane i
+// reading row i meets no bank conflict; one barrier a chunk). Every warp
+// tests the chunk's rows for its own block, a row a lane (live_rows: a
+// ballot gives the warp's live rows, whose four derived values the lanes
+// write to the warp's own shared memory), and runs the two passes (the
+// chunk's max, then the sums) over its live rows only, in triangle order,
+// each live logit kept in shared memory in the lane's own column. A block
+// of 8 x 4 pixels keeps ~2.8x fewer rows live than the whole tile (the
+// CPU's 64^2 torus), and no warp waits on another's test. The card's probe
+// (raytpu_soft_row_dead_probe) recomputes every pixel's logit for every
+// row the device test calls dead at a block's floor and counts those with
+// expf(logit - floor) != 0 or a logit not below it: 0.
+//
+// Work items (work_items.cuh, K10b's plan). Each tile's kept chunks (K9a:
+// every chunk) are cut into runs of pri_fwd_run chunks (the mean kept
+// chunks a tile over ceil(kSoftFwdItems / tiles), at least
+// kSoftFwdRunMin), a work item
+// each; with a mask the run is worked out on the card (shw_plan_kernel,
+// pri_fwd_run_kernel, shw_items_kernel), with no host sync. The run
+// depends on the shapes and the kept count only, so an all-ones mask and
+// no mask split alike: K9b with every bit set gives K9a's bits. Block b
+// takes item b. A tile of one item starts from the background (0, 1, 0)
+// and writes agg, m and s itself, in the chunk-by-chunk order of the plain
+// version; an item of a tile of several carries (m, s, acc) from (0, 0, 0)
+// (m >= 0 still, so the skip stays exact) and writes 12 floats a pixel,
+// which soft_fwd_merge_kernel folds in run order into the background. Two
+// calls give the same bits (no atomics, fixed orders). At 512^2 and above
+// K9a has one item a tile (one run of every chunk): no merge.
+
+// Waits until no committed cp.async group is in flight.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+constexpr int kFwdPart = 2 + kCh;  // floats a pixel of an item's partial
+// The run rule of K9a's and K9b's items (pri_fwd_run): K10a's and K10b's
+// (kernels/soft_raytrace.py PRI_FWD_ITEMS, PRI_FWD_RUN_MIN), measured on
+// K10b's step and taken over as they are; kernels/soft_raster.py
+// SOFT_FWD_ITEMS, SOFT_FWD_RUN_MIN mirror them.
+constexpr int kSoftFwdItems = 1024;
+constexpr int kSoftFwdRunMin = 8;
+constexpr int kFwdRowQ = 9;  // float4s a staged row: 8 and one of padding
+constexpr int kBlocksPerTile = kThreads / 32;  // a warp's 8 x 4 block each
+
+// The pixel corners of a warp's 8 x 4 block clipped to the image, in frame
+// coordinates; none (x0 > x1 or y0 > y1) where the block lies past the
+// image's edge.
+struct SoftRect {
+  float x0, x1, y0, y1;
+  bool any;
+};
+
+// Thread tid's pixel in its 16 x 16 tile: warp w takes the 8 x 4 block w
+// (two across, four down), a pixel a lane, row-major in the block.
+__device__ __forceinline__ int2 fwd_pixel(int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  return make_int2((warp % (kTile / kBlockColsPx)) * kBlockColsPx +
+                       lane % kBlockColsPx,
+                   (warp / (kTile / kBlockColsPx)) * kBlockRowsPx +
+                       lane / kBlockColsPx);
+}
+
+// Warp w's block of tile t of an H x W image at frame row y0.
+__device__ __forceinline__ SoftRect soft_rect(int t, int w, int H, int W,
+                                              int y0) {
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const int x = (t % tiles_x) * kTile + (w % (kTile / kBlockColsPx)) *
+                                            kBlockColsPx;
+  const int y = (t / tiles_x) * kTile + (w / (kTile / kBlockColsPx)) *
+                                            kBlockRowsPx;
+  return {static_cast<float>(x),
+          static_cast<float>(min(x + kBlockColsPx - 1, W - 1)),
+          static_cast<float>(y0 + y),
+          static_cast<float>(y0 + min(y + kBlockRowsPx - 1, H - 1)),
+          x < W && y < H};
+}
+
+// The largest half-plane value fl(edge_raw(x0, y0, x1, y1, px, py) s) over
+// the block: at the corner where each monotone step is largest (see above).
+__device__ __forceinline__ float edge_max(float x0, float y0, float x1,
+                                          float y1, float s,
+                                          const SoftRect& r) {
+  const float ex = x1 - x0, ey = y1 - y0;
+  const bool up = s >= 0.0f;
+  const float py = (ex >= 0.0f) == up ? r.y1 : r.y0;
+  const float px = (ey <= 0.0f) == up ? r.x1 : r.x0;
+  return edge_raw(x0, y0, x1, y1, px, py) * s;
+}
+
+// B >= every logit fwd_logit computes for row c at the pixels of r, ld =
+// log(valid + 1e-20) its first derived value; NaN where the row may not be
+// found dead (see above).
+__device__ __forceinline__ float soft_row_bound(const float* c, float ld,
+                                                float es, float zs,
+                                                const SoftRect& r) {
+  bool tame = fabsf(es) <= kTame && fabsf(zs) <= kTame;
+#pragma unroll
+  for (int k = 0; k < kUsed; ++k) tame &= fabsf(c[k]) <= kTame;
+  tame &= (c[28] + 1e-20f) != 0.0f;
+  const float zabs = fmaxf(fmaxf(fabsf(c[10]), fabsf(c[11])), fabsf(c[12]));
+  const float zb = fmaxf((fabsf(zs) * zabs) * kZSlack, kZFloor);
+  float cap = 0.0f;
+  const bool outside = edge_max(c[0], c[1], c[2], c[3], c[6], r) < 0.0f ||
+                       edge_max(c[2], c[3], c[4], c[5], c[7], r) < 0.0f ||
+                       edge_max(c[4], c[5], c[0], c[1], c[8], r) < 0.0f;
+  if (tame && es > 0.0f && outside) {
+    float k = fmaxf(fmaxf(r.x1, r.y1), 1.0f);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) k = fmaxf(k, fabsf(c[j]));
+    const float e = k * 0x1p-19f;
+    const float bx0 = fminf(fminf(c[0], c[2]), c[4]);
+    const float bx1 = fmaxf(fmaxf(c[0], c[2]), c[4]);
+    const float by0 = fminf(fminf(c[1], c[3]), c[5]);
+    const float by1 = fmaxf(fmaxf(c[1], c[3]), c[5]);
+    float gx = fmaxf(fmaxf(bx0 - r.x1, r.x0 - bx1), 0.0f);
+    float gy = fmaxf(fmaxf(by0 - r.y1, r.y0 - by1), 0.0f);
+    gx = fmaxf(gx - e, 0.0f);
+    gy = fmaxf(gy - e, 0.0f);
+    const float dlb = sqrtf(gx * gx + gy * gy) * (1.0f - 0x1p-18f);
+    cap = es * -dlb;
+  }
+  return tame ? (zb + cap) + ld : CUDART_NAN_F;
+}
+
+// The smallest m over the warp's lanes whose pixel lies in the image.
+__device__ __forceinline__ float warp_floor(float m, bool in) {
+  float v = in ? m : CUDART_INF_F;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+// Lane i < chunk tests row i of a staged chunk q (kFwdRowQ float4s a row)
+// for the warp's block r at its floor; where live it writes the row's four
+// derived values to d[i]. Returns the warp's live rows, bit i for row i.
+__device__ __forceinline__ unsigned live_rows(const float4* q, int chunk,
+                                              const SoftRect& r,
+                                              float m_floor, float es,
+                                              float zs, float (*d)[kDerived]) {
+  const int lane = threadIdx.x & 31;
+  bool live = false;
+  if (r.any && lane < chunk) {
+    float row[32];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 v = q[lane * kFwdRowQ + j];
+      row[4 * j] = v.x;
+      row[4 * j + 1] = v.y;
+      row[4 * j + 2] = v.z;
+      row[4 * j + 3] = v.w;
+    }
+    const float ld = logf(row[28] + 1e-20f);
+    live = !(soft_row_bound(row, ld, es, zs, r) - m_floor < kDeadBelow);
+    if (live) {
+      d[lane][0] = ld;
+      d[lane][1] = seg_rec(row[0], row[1], row[2], row[3]);
+      d[lane][2] = seg_rec(row[2], row[3], row[4], row[5]);
+      d[lane][3] = seg_rec(row[4], row[5], row[0], row[1]);
+    }
+  }
+  const unsigned bits = __ballot_sync(kFullMask, live);
+  __syncwarp();  // d is written
+  return bits;
+}
+
+// K9a (kMasked false) and K9b (true), replace _fwd_kernel and
+// _fwd_kernel_masked (see above): block b takes item b of the plan pl
+// (masked: its run at run_dev); a thread a pixel of the item's tile, warp w
+// its 8 x 4 block w. part (items, 12, 256) the items' (m, s, acc) of tiles
+// of more than one item.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 3)
+    soft_raster_fwd_kernel(const float* __restrict__ consts, int chunk,
+                           ShwPlan pl, const int* __restrict__ run_dev,
+                           int H, int W, int y0, float es, float zs,
+                           float* __restrict__ part, float* __restrict__ agg,
+                           float* __restrict__ m_out,
+                           float* __restrict__ s_out) {
+  __shared__ float4 s_rows[2][kMaxChunk * kFwdRowQ];
+  __shared__ float s_d[kBlocksPerTile][kMaxChunk][kDerived];
+  // A live row's logit in its lane's own column: (warp, row, lane).
+  __shared__ float s_lg[kBlocksPerTile][kMaxChunk][32];
+  const int it = blockIdx.x;
+  if (it >= item_count<kMasked>(pl)) return;  // the same for the block
+  if (kMasked) pl.run = *run_dev;
+  const ShwItem xi = shw_item<kMasked>(pl, it);
+  const bool one = pair_items<kMasked>(pl, xi.pair).y == 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const int2 at = fwd_pixel(tid);
+  const int x = (xi.pair % tiles_x) * kTile + at.x;
+  const int y = (xi.pair / tiles_x) * kTile + at.y;
+  const bool in = x < W && y < H;
+  const SoftRect rect = soft_rect(xi.pair, warp, H, W, y0);
+  const float px = static_cast<float>(x), py = static_cast<float>(y0 + y);
+  float* lg = &s_lg[warp][0][lane];
+  // The background hypothesis (logit 0, zero attributes) where the tile has
+  // one item; else the item's own carry, folded into it by the merge.
+  float m = 0.0f, s = one ? 1.0f : 0.0f;
+  float acc[kCh];
+#pragma unroll
+  for (int j = 0; j < kCh; ++j) acc[j] = 0.0f;
+  // Stage k of the item: its chunk's rows, a float4 a thread.
+  auto prefetch_chunk = [&](int k) {
+    if (k < xi.n && tid < chunk * 8) {
+      const float4* src = reinterpret_cast<const float4*>(
+          consts + static_cast<size_t>(item_chunk<kMasked>(xi, k)) * chunk *
+                       kCols);
+      cp_async16(&s_rows[k & 1][(tid >> 3) * kFwdRowQ + (tid & 7)],
+                 src + tid);
+    }
+    cp_async_commit();
+  };
+  prefetch_chunk(0);
+  for (int k = 0; k < xi.n; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk k is in; every warp is done with chunk k - 1
+    prefetch_chunk(k + 1);  // into chunk k - 1's buffer
+    const float4* q = s_rows[k & 1];
+    const unsigned bits = live_rows(q, chunk, rect, warp_floor(m, in), es,
+                                    zs, s_d[warp]);
+    float cmax = -CUDART_INF_F;
+    for (unsigned b = bits; b != 0u; b &= b - 1u) {
+      const int i = __ffs(b) - 1;
+      const float l =
+          fwd_logit(reinterpret_cast<const float*>(q + i * kFwdRowQ),
+                    s_d[warp][i], px, py, es, zs);
+      lg[i * 32] = l;
+      cmax = fmaxf(cmax, l);
+    }
+    const float m_new = fmaxf(m, cmax);
+    const float scale = expf(m - m_new);
+    float wsum = 0.0f;
+    float vsum[kCh];
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) vsum[j] = 0.0f;
+    for (unsigned b = bits; b != 0u; b &= b - 1u) {
+      const int i = __ffs(b) - 1;
+      const float* c = reinterpret_cast<const float*>(q + i * kFwdRowQ);
+      const float r1 = edge_raw(c[2], c[3], c[4], c[5], px, py);
+      const float r2 = edge_raw(c[4], c[5], c[0], c[1], px, py);
+      float L[3];
+      const float zpx = bary(c, r1, r2, L);
+      const float w = expf(lg[i * 32] - m_new);
+      wsum += w;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        vsum[j] += w * c[22 + j];
+        vsum[3 + j] +=
+            w * ((L[0] * c[13 + j] + L[1] * c[16 + j]) + L[2] * c[19 + j]);
+        vsum[7 + j] += w * c[25 + j];
+      }
+      vsum[6] += w * zpx;
+    }
+    m = m_new;
+    s = s * scale + wsum;
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) acc[j] = acc[j] * scale + vsum[j];
+  }
+  if (!in) return;
+  if (one) {
+    const size_t R = static_cast<size_t>(H) * W;
+    const size_t r = static_cast<size_t>(y) * W + x;
+    const float rec = 1.0f / s;
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) agg[j * R + r] = acc[j] * rec;
+    m_out[r] = m;
+    s_out[r] = s;
+    return;
+  }
+  float* p = part + static_cast<size_t>(it) * kFwdPart * kThreads + tid;
+  p[0] = m;
+  p[kThreads] = s;
+#pragma unroll
+  for (int j = 0; j < kCh; ++j) p[(2 + j) * kThreads] = acc[j];
+}
+
+// K9a's and K9b's merge, a block a tile (the kernel's pixels): a tile of
+// one item was written by the kernel; the others' pixels fold their items
+// in run order into the background (fold_items); agg = acc / s. A tile that
+// keeps no chunk gets the background.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    soft_fwd_merge_kernel(ShwPlan pl, int H, int W,
+                          const float* __restrict__ part,
+                          float* __restrict__ agg, float* __restrict__ m_out,
+                          float* __restrict__ s_out) {
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+  const int2 px = fwd_pixel(tid);
+  const int x = (blockIdx.x % tiles_x) * kTile + px.x;
+  const int y = (blockIdx.x / tiles_x) * kTile + px.y;
+  const int2 at = pair_items<kMasked>(pl, blockIdx.x);
+  if (x >= W || y >= H || at.y == 1) return;
+  float m, s, acc[kCh];
+  fold_items<kCh>(part + static_cast<size_t>(at.x) * kFwdPart * kThreads +
+                      tid,
+                  at.y, static_cast<size_t>(kFwdPart) * kThreads, kThreads,
+                  &m, &s, acc);
+  const size_t R = static_cast<size_t>(H) * W;
+  const size_t r = static_cast<size_t>(y) * W + x;
+  const float rec = 1.0f / s;
+#pragma unroll
+  for (int j = 0; j < kCh; ++j) agg[j * R + r] = acc[j] * rec;
+  m_out[r] = m;
+  s_out[r] = s;
+}
+
+// The card's check of the dead-row test, a block a tile as the kernel
+// runs it: each warp tests every row of the table for its 8 x 4 block at
+// that block's floor (floors[8 t + w]) with live_rows, and evaluates every
+// row it calls dead by fwd_logit at each of its pixels inside the image.
+// counts[0] += the dead (block, row) pairs of blocks inside the image,
+// counts[1] += the (pixel, row) pairs among them with expf(logit - floor)
+// != 0 or a logit not below the floor (0 where the test is exact),
+// counts[2] += every (block, row) pair of blocks inside the image.
+__global__ void __launch_bounds__(kThreads)
+    soft_row_dead_probe_kernel(const float* __restrict__ consts, int Tp,
+                               int H, int W, int y0, float es, float zs,
+                               const float* __restrict__ floors,
+                               unsigned long long* __restrict__ counts) {
+  __shared__ float4 s_rows[kMaxChunk * kFwdRowQ];
+  __shared__ float s_d[kBlocksPerTile][kMaxChunk][kDerived];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const int2 at = fwd_pixel(tid);
+  const int x = (blockIdx.x % tiles_x) * kTile + at.x;
+  const int y = (blockIdx.x / tiles_x) * kTile + at.y;
+  const bool in = x < W && y < H;
+  const SoftRect rect = soft_rect(blockIdx.x, warp, H, W, y0);
+  const float px = static_cast<float>(x), py = static_cast<float>(y0 + y);
+  const float f = floors[blockIdx.x * kBlocksPerTile + warp];
+  unsigned long long dead = 0, bad = 0, pairs = 0;
+  for (int lo = 0; lo < Tp; lo += kMaxChunk) {
+    const int n = min(kMaxChunk, Tp - lo);
+    __syncthreads();
+    if (tid < n * 8)
+      s_rows[(tid >> 3) * kFwdRowQ + (tid & 7)] = reinterpret_cast<
+          const float4*>(consts + static_cast<size_t>(lo) * kCols)[tid];
+    __syncthreads();
+    // Every row's derived values, for the dead ones too.
+    if (lane < n) {
+      const float* c = reinterpret_cast<const float*>(s_rows +
+                                                      lane * kFwdRowQ);
+      derive(c, s_d[warp][lane]);
+    }
+    __syncwarp();
+    const unsigned live = live_rows(s_rows, n, rect, f, es, zs, s_d[warp]);
+    if (!rect.any) continue;
+    const unsigned all = n == 32 ? 0xffffffffu : (1u << n) - 1u;
+    if (lane == 0) {
+      dead += __popc(all & ~live);
+      pairs += n;
+    }
+    for (unsigned b = all & ~live; b != 0u; b &= b - 1u) {
+      const int i = __ffs(b) - 1;
+      if (!in) continue;
+      const float l =
+          fwd_logit(reinterpret_cast<const float*>(s_rows + i * kFwdRowQ),
+                    s_d[warp][i], px, py, es, zs);
+      if (expf(l - f) != 0.0f || !(l < f)) ++bad;
+    }
+  }
+  atomicAdd(counts, dead);
+  atomicAdd(counts + 1, bad);
+  atomicAdd(counts + 2, pairs);
+}
+
+int n_tiles_of(int H, int W) {
+  return ((W + kTile - 1) / kTile) * ((H + kTile - 1) / kTile);
+}
+
+// A K9a/K9b call: its shapes (the first four fields, from the caller), its
+// plan (work_items.cuh::FwdPlan) by the run rule kSoftFwdRunMin,
+// kSoftFwdItems over its 16 x 16 tiles, carved from the scratch at base (0:
+// sized only; the items' partials kFwdPart floats a pixel), and the bytes
+// the scratch needs. False where the kernels refuse the shapes.
+struct SoftFwdCall {
+  int Tp, chunk, H, W;
+  FwdPlan plan;
+  size_t bytes;
+};
+
+bool soft_fwd_plan(SoftFwdCall& fc, bool masked, void* base) {
+  if (bad_shape(fc.Tp, fc.chunk, fc.H, fc.W)) return false;
+  const int n_tiles = n_tiles_of(fc.H, fc.W);
+  if (!fwd_plan_shapes(fc.plan, masked, n_tiles, n_tiles, fc.Tp / fc.chunk,
+                       kSoftFwdRunMin, kSoftFwdItems))
+    return false;
+  Carve c{reinterpret_cast<uintptr_t>(base), 0};
+  carve_fwd_plan(fc.plan, c, static_cast<size_t>(kFwdPart) * kThreads);
+  fc.bytes = c.at;
+  return true;
+}
+
 }  // namespace
 
-// consts (Tp, 32) float32 device pointer in chunks of `chunk` <= 32 rows;
-// mask (tiles_y * tiles_x, Tp / chunk) int32 over 16 x 16 tiles row-major,
-// or null for K9a; the image rows [y0, y0 + H) of the frame; agg (10, H * W),
-// m and s (H * W,) float32 outputs.
-// Launches K9a or K9b on `stream` and returns the launch's cudaError_t.
+// consts (Tp, 32) float32 device pointer (16-byte aligned) in chunks of
+// `chunk` <= 32 rows; mask (tiles_y * tiles_x, Tp / chunk) int32 over 16 x
+// 16 tiles row-major, or null for K9a; the image rows [y0, y0 + H) of the
+// frame; scratch (at least what raytpu_soft_raster_fwd_scratch gives for
+// these shapes; may be null where that is 0); agg (10, H * W), m and s
+// (H * W,) float32 outputs. Launches the plan (masked), K9a or K9b and the
+// merge (masked, or more than one run a tile) on `stream`, never
+// synchronises, and returns the first cudaError_t.
 extern "C" int raytpu_soft_raster_fwd(const void* consts, int Tp, int chunk,
                                       const void* mask, int H, int W, int y0,
-                                      float es, float zs, void* agg, void* m,
-                                      void* s, void* stream) {
-  if (bad_shape(Tp, chunk, H, W)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  const dim3 block(kTile, kTile);
+                                      float es, float zs, void* scratch,
+                                      long long scratch_bytes, void* agg,
+                                      void* m, void* s, void* stream) {
+  SoftFwdCall fc{Tp, chunk, H, W};
+  if (reinterpret_cast<uintptr_t>(consts) % 16 != 0 ||
+      !soft_fwd_plan(fc, mask != nullptr, scratch) ||
+      !scratch_fits(fc.bytes, scratch, scratch_bytes))
+    return (int)cudaErrorInvalidValue;
+  const FwdPlan& fp = fc.plan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_fwd_plan(fp, static_cast<const int*>(mask), st);
+  if (err != cudaSuccess) return (int)err;
+  const ShwPlan pl = fp.view();
   const float* c = static_cast<const float*>(consts);
-  const int* mk = static_cast<const int*>(mask);
   float *a = static_cast<float*>(agg), *mo = static_cast<float*>(m),
         *so = static_cast<float*>(s);
-  if (mk == nullptr) {
-    soft_raster_fwd_kernel<false><<<grid, block, 0, st>>>(
-        c, Tp / chunk, chunk, mk, H, W, y0, es, zs, a, mo, so);
-  } else {
-    soft_raster_fwd_kernel<true><<<grid, block, 0, st>>>(
-        c, Tp / chunk, chunk, mk, H, W, y0, es, zs, a, mo, so);
-  }
+  const dim3 block(kThreads);
+  auto kernel = fp.masked ? soft_raster_fwd_kernel<true>
+                          : soft_raster_fwd_kernel<false>;
+  kernel<<<static_cast<int>(fp.max_items), block, 0, st>>>(
+      c, chunk, pl, fp.run_dev, H, W, y0, es, zs, fp.part, a, mo, so);
+  if ((err = cudaGetLastError()) != cudaSuccess || fp.direct) return (int)err;
+  auto merge = fp.masked ? soft_fwd_merge_kernel<true>
+                         : soft_fwd_merge_kernel<false>;
+  merge<<<fp.n_tiles, block, 0, st>>>(pl, H, W, fp.part, a, mo, so);
   return (int)cudaGetLastError();
 }
 
-static int n_tiles_of(int H, int W) {
-  return ((W + kTile - 1) / kTile) * ((H + kTile - 1) / kTile);
+// The bytes of the scratch of a K9a/K9b call with these shapes (masked: 1
+// with a mask), or -1 where the kernels refuse them.
+extern "C" long long raytpu_soft_raster_fwd_scratch(int Tp, int chunk, int H,
+                                                    int W, int masked) {
+  SoftFwdCall fc{Tp, chunk, H, W};
+  if (!soft_fwd_plan(fc, masked != 0, nullptr)) return -1;
+  return static_cast<long long>(fc.bytes);
+}
+
+// consts (Tp, 32) float32 device pointer (16-byte aligned); floors
+// (n_tiles * 8,) float32, each 8 x 4 block's floor, tile by tile; counts
+// (3,) uint64, zeroed by the caller, to which the probe adds the dead
+// (block, row) pairs, the (pixel, row) pairs among them of weight not 0 at
+// the floor, and every (block, row) pair of the H x W image at frame row
+// y0. Launches on `stream` and returns the launch's
+// cudaError_t.
+extern "C" int raytpu_soft_row_dead_probe(const void* consts, int Tp, int H,
+                                          int W, int y0, float es, float zs,
+                                          const void* floors, void* counts,
+                                          void* stream) {
+  if (Tp < 1 || H < 1 || W < 1 ||
+      reinterpret_cast<uintptr_t>(consts) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  soft_row_dead_probe_kernel<<<n_tiles_of(H, W), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(consts), Tp, H, W, y0, es, zs,
+      static_cast<const float*>(floors),
+      static_cast<unsigned long long*>(counts));
+  return (int)cudaGetLastError();
 }
 
 // The bytes of the backward's scratch for these shapes, or -1 if the

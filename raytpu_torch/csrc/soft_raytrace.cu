@@ -112,6 +112,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "work_items.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;             // rays (or points) a block
@@ -559,21 +561,6 @@ constexpr int kRayQ = 4;               // float4s of a packed ray
 constexpr int kStages = 3;             // ring depth, two stages in flight
 constexpr int kStageRows = 128;        // rows (whole chunks) a K10f stage
 constexpr int kRayTile = 128;          // rays a K10e tile
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // Copies n float4s from src to dst, the block's threads in turn.
 __device__ __forceinline__ void copy_async(float4* dst, const float4* src,
@@ -1368,149 +1355,6 @@ __global__ void __launch_bounds__(kThreads)
 // unmasked kernels' bits.
 
 constexpr int kShwRing = 3;       // stages of a chunk's rows, two in flight
-constexpr int kScanThreads = 1024;  // shw_items_kernel's block
-
-// Where the kernels find their work items: masked, the plan's lists;
-// unmasked, `runs` runs of `run` chunks a (tile, source) pair, n_items in
-// all.
-struct ShwPlan {
-  const int* kept;   // (n_pairs, n_chunks): each pair's kept chunks
-  const int* nk;     // (n_pairs): their count
-  const int* off;    // (n_pairs + 1): each pair's first item; the items
-  const int* items;  // the pair of each item
-  int n_pairs, n_chunks, run, runs, n_items;
-};
-
-// The masked kernels' plan, a warp a (tile, source) pair p (the mask's row
-// p): the pair's kept chunks in order into kept[p n_chunks ...] and their
-// count into nk[p].
-__global__ void __launch_bounds__(kThreads)
-    shw_plan_kernel(const int* __restrict__ mask, int n_pairs, int n_chunks,
-                    int* __restrict__ kept, int* __restrict__ nk) {
-  const int lane = threadIdx.x & 31;
-  const long long p =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  if (p >= n_pairs) return;  // the same for the warp
-  const int* row = mask + p * n_chunks;
-  int* out = kept + p * n_chunks;
-  int k = 0;
-  for (int base = 0; base < n_chunks; base += 32) {
-    const int c = base + lane;
-    const bool on = c < n_chunks && row[c] != 0;
-    const unsigned bits = __ballot_sync(kFull, on);
-    if (on) out[k + __popc(bits & ((1u << lane) - 1u))] = c;
-    k += __popc(bits);
-  }
-  if (lane == 0) nk[p] = k;
-}
-
-// The run of K10a's and K10b's work items
-// (kernels/soft_raytrace.py::primary_fwd_run): the mean of `kept` chunks
-// over n_tiles tiles, rounded up, over `splits`, rounded up, at least
-// run_min.
-__host__ __device__ __forceinline__ int pri_fwd_run(long long kept,
-                                                    int n_tiles, int splits,
-                                                    int run_min) {
-  const long long mean = (kept + n_tiles - 1) / n_tiles;
-  const long long run = (mean + splits - 1) / splits;
-  return static_cast<int>(run > run_min ? run : run_min);
-}
-
-// K10b's run, one block: pri_fwd_run of the tiles' kept chunks (nk, the
-// sum in any order: integers), written to *run_out for shw_items_kernel and
-// the kernels, on the card, with no host sync.
-__global__ void __launch_bounds__(kScanThreads)
-    pri_fwd_run_kernel(const int* __restrict__ nk, int n_tiles, int splits,
-                       int run_min, int* __restrict__ run_out) {
-  __shared__ int s_sum[kScanThreads];
-  const int tid = threadIdx.x;
-  int kept = 0;  // at most n_tiles n_chunks < 2^31 (pri_fwd_shapes)
-  for (int p = tid; p < n_tiles; p += kScanThreads) kept += nk[p];
-  s_sum[tid] = kept;
-  __syncthreads();
-  for (int d = kScanThreads / 2; d > 0; d >>= 1) {
-    if (tid < d) s_sum[tid] += s_sum[tid + d];
-    __syncthreads();
-  }
-  if (tid == 0) *run_out = pri_fwd_run(s_sum[0], n_tiles, splits, run_min);
-}
-
-// The masked kernels' items, one block: pair p's ceil(nk[p] / run) runs are
-// items off[p] ... off[p + 1] - 1, in pair order; items[i] is the pair of
-// item i and off[n_pairs] the number of items. run_dev, where not null
-// (K10b), holds the run in place of `run`.
-__global__ void __launch_bounds__(kScanThreads)
-    shw_items_kernel(const int* __restrict__ nk, int n_pairs, int run,
-                     const int* __restrict__ run_dev, int* __restrict__ off,
-                     int* __restrict__ items) {
-  __shared__ int s_sum[kScanThreads];
-  if (run_dev != nullptr) run = *run_dev;
-  const int tid = threadIdx.x;
-  const int per = (n_pairs + kScanThreads - 1) / kScanThreads;
-  const int lo = static_cast<int>(
-      min(static_cast<long long>(n_pairs), static_cast<long long>(tid) * per));
-  const int hi = min(n_pairs, lo + per);
-  int sum = 0;
-  for (int p = lo; p < hi; ++p) sum += (nk[p] + run - 1) / run;
-  s_sum[tid] = sum;
-  __syncthreads();
-  for (int d = 1; d < kScanThreads; d <<= 1) {  // inclusive scan
-    const int v = tid >= d ? s_sum[tid - d] : 0;
-    __syncthreads();
-    s_sum[tid] += v;
-    __syncthreads();
-  }
-  int at = s_sum[tid] - sum;
-  for (int p = lo; p < hi; ++p) {
-    const int r = (nk[p] + run - 1) / run;
-    off[p] = at;
-    for (int j = 0; j < r; ++j) items[at + j] = p;
-    at += r;
-  }
-  if (tid == kScanThreads - 1) off[n_pairs] = s_sum[tid];
-}
-
-// Work item `it`: its (tile, source) pair and its n chunks, the k-th at
-// item_chunk(x, k).
-struct ShwItem {
-  int pair, n, c0;
-  const int* list;
-};
-
-template <bool kMasked>
-__device__ __forceinline__ ShwItem shw_item(const ShwPlan& pl, int it) {
-  ShwItem x;
-  if (kMasked) {
-    x.pair = pl.items[it];
-    const int k0 = (it - pl.off[x.pair]) * pl.run;
-    x.n = min(pl.run, pl.nk[x.pair] - k0);
-    x.list = pl.kept + static_cast<size_t>(x.pair) * pl.n_chunks + k0;
-    x.c0 = 0;
-  } else {
-    x.pair = it / pl.runs;
-    x.c0 = (it % pl.runs) * pl.run;
-    x.n = min(pl.run, pl.n_chunks - x.c0);
-    x.list = nullptr;
-  }
-  return x;
-}
-
-template <bool kMasked>
-__device__ __forceinline__ int item_chunk(const ShwItem& x, int k) {
-  return kMasked ? x.list[k] : x.c0 + k;
-}
-
-template <bool kMasked>
-__device__ __forceinline__ int item_count(const ShwPlan& pl) {
-  return kMasked ? pl.off[pl.n_pairs] : pl.n_items;
-}
-
-// Pair p's first item and its number of runs.
-template <bool kMasked>
-__device__ __forceinline__ int2 pair_items(const ShwPlan& pl, int p) {
-  if (kMasked) return make_int2(pl.off[p], pl.off[p + 1] - pl.off[p]);
-  return make_int2(p * pl.runs, pl.runs);
-}
 
 // Issues stage k of item x into ring[k % kShwRing] and commits a cp.async
 // group: masked, a cp.async of the chunk's rows as staged for source src
@@ -2338,20 +2182,11 @@ __global__ void __launch_bounds__(kThreads)
   const TileRay ray = tile_ray<kMasked>(blockIdx.x, R, H, W, th);
   const int2 at = pair_items<kMasked>(pl, blockIdx.x);
   if (!ray.live || at.y == 1) return;
-  float m = 0.0f, s = 1.0f, acc[9];
-#pragma unroll
-  for (int j = 0; j < 9; ++j) acc[j] = 0.0f;
-  for (int k = 0; k < at.y; ++k) {
-    const float* p = part + static_cast<size_t>(at.x + k) * kFwdPart *
-                                kThreads + threadIdx.x;
-    const float mj = p[0];
-    const float m_new = fmaxf(m, mj);
-    const float a = expf(m - m_new), b = expf(mj - m_new);
-    s = s * a + p[kThreads] * b;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) acc[j] = acc[j] * a + p[(2 + j) * kThreads] * b;
-    m = m_new;
-  }
+  float m, s, acc[9];
+  fold_items<9>(part + static_cast<size_t>(at.x) * kFwdPart * kThreads +
+                    threadIdx.x,
+                at.y, static_cast<size_t>(kFwdPart) * kThreads, kThreads, &m,
+                &s, acc);
   const float rec = 1.0f / s;
 #pragma unroll
   for (int j = 0; j < 9; ++j) out[static_cast<size_t>(j) * R + ray.r] =
@@ -2626,84 +2461,38 @@ bool pri_layout(PriCall& pc, void* base, long long avail) {
   return base != nullptr && avail >= static_cast<long long>(at);
 }
 
-}  // namespace
-
-// A K10a/K10b call: its shapes (the first nine fields, from the caller),
-// what follows from them (pri_fwd_shapes) and where its scratch lies
-// (pri_fwd_layout), carved from one buffer in this order, each part aligned
-// to 16 bytes: masked, the plan (kept lists n_tiles n_chunks, nk n_tiles,
-// off n_tiles + 1, items max_items and the run, int32); the staged rows (Tp
-// kRowQ float4s) unless the kernel stages them (unmasked, one chunk); the
-// items' partials (max_items 11 256 floats) unless every tile has one item
-// (direct: unmasked, one run).
+// A K10a/K10b call: its shapes (the first eight fields, from the caller),
+// its plan (work_items.cuh::FwdPlan) over the tiles of 256 rays (the
+// split over the tiles of all R rays, so a mask and none split alike; the
+// items' partials kFwdPart floats a ray), and the staged rows (Tp kRowQ
+// float4s) unless the kernel stages them (packed: masked, or more than one
+// chunk), carved from the scratch at base (0: sized only), and the bytes
+// the scratch needs. False where the kernels refuse the shapes.
 struct PriFwdCall {
   int Tp, chunk, R, H, W, th, run_min, items;
-  bool masked;
-  bool direct, packed;
-  int n_tiles, n_chunks, splits, run, runs;
-  long long max_items;
-  int* kept;
-  int* nk;
-  int* off;
-  int* item_tiles;
-  int* run_dev;
+  FwdPlan plan;
+  bool packed;
   float4* rows;
-  float* part;
   size_t bytes;
 };
 
-// The split is ceil(items / the tiles of 256 rays of R), the same with a
-// mask and without; unmasked, every tile keeps every chunk (mean n_chunks)
-// and has `runs` items. Masked, the run is worked out on the card, at least
-// run_min and the mean over the split, so a tile has at most ceil(n_chunks
-// / run_min) items and all of them at most n_tiles (splits + 1).
-bool pri_fwd_shapes(PriFwdCall& fc) {
-  if (bad_shape(fc.Tp, fc.chunk, fc.R) || fc.run_min < 1 || fc.items < 1) {
+bool pri_fwd_plan(PriFwdCall& fc, bool masked, void* base) {
+  if (bad_shape(fc.Tp, fc.chunk, fc.R)) return false;
+  if (!fwd_plan_shapes(fc.plan, masked,
+                       ray_blocks(masked, fc.R, fc.H, fc.W, fc.th),
+                       (fc.R + kThreads - 1) / kThreads, fc.Tp / fc.chunk,
+                       fc.run_min, fc.items))
     return false;
-  }
-  fc.n_tiles = ray_blocks(fc.masked, fc.R, fc.H, fc.W, fc.th);
-  fc.n_chunks = fc.Tp / fc.chunk;
-  const long long kept = static_cast<long long>(fc.n_tiles) * fc.n_chunks;
-  if (fc.n_tiles < 1 || kept > 0x7fffffffLL) return false;
-  const int tiles_ref = (fc.R + kThreads - 1) / kThreads;
-  fc.splits = (fc.items + tiles_ref - 1) / tiles_ref;
-  fc.run = pri_fwd_run(kept, fc.n_tiles, fc.splits, fc.run_min);
-  fc.runs = (fc.n_chunks + fc.run - 1) / fc.run;
-  const long long most = (fc.n_chunks + fc.run_min - 1) / fc.run_min;
-  const long long per_tile =
-      !fc.masked ? fc.runs : (fc.splits + 1LL < most ? fc.splits + 1LL : most);
-  fc.max_items = fc.n_tiles * per_tile;
-  fc.direct = !fc.masked && fc.runs == 1;
-  fc.packed = fc.masked || fc.n_chunks > 1;
-  return fc.max_items <= 0x7fffffffLL;
+  fc.packed = masked || fc.plan.n_chunks > 1;
+  Carve c{reinterpret_cast<uintptr_t>(base), 0};
+  carve_fwd_plan(fc.plan, c, static_cast<size_t>(kFwdPart) * kThreads);
+  fc.rows = c.take<float4>((fc.packed ? 1 : 0) * static_cast<size_t>(fc.Tp) *
+                           kRowQ);
+  fc.bytes = c.at;
+  return true;
 }
 
-// Carves the scratch at base (null: sizes it only); false where base
-// holds fewer than the bytes the call needs.
-bool pri_fwd_layout(PriFwdCall& fc, void* base, long long avail) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
-  size_t at = 0;
-  auto take = [&](size_t n) {
-    const uintptr_t q = n == 0 ? 0 : p + at;
-    at += align16(n);
-    return q;
-  };
-  const size_t items = static_cast<size_t>(fc.max_items);
-  const size_t m = fc.masked ? 1 : 0;
-  fc.kept = reinterpret_cast<int*>(
-      take(m * fc.n_tiles * static_cast<size_t>(fc.n_chunks) * sizeof(int)));
-  fc.nk = reinterpret_cast<int*>(take(m * fc.n_tiles * sizeof(int)));
-  fc.off = reinterpret_cast<int*>(take(m * (fc.n_tiles + 1) * sizeof(int)));
-  fc.item_tiles = reinterpret_cast<int*>(take(m * items * sizeof(int)));
-  fc.run_dev = reinterpret_cast<int*>(take(m * sizeof(int)));
-  fc.rows = reinterpret_cast<float4*>(take(
-      (fc.packed ? 1 : 0) * static_cast<size_t>(fc.Tp) * kRowQ *
-      sizeof(float4)));
-  fc.part = reinterpret_cast<float*>(take(
-      (fc.direct ? 0 : 1) * items * kFwdPart * kThreads * sizeof(float)));
-  fc.bytes = at;
-  return at == 0 || (base != nullptr && avail >= static_cast<long long>(at));
-}
+}  // namespace
 
 // consts (Tp, 32) float32 device pointer in chunks of `chunk` <= 32 rows;
 // cam (3,), dirs (3, R) float32; mask null (K10a) or the (n_tiles,
@@ -2721,35 +2510,23 @@ extern "C" int raytpu_soft_rt_pri_fwd(const void* consts, int Tp, int chunk,
                                       int run_min, int items, void* scratch,
                                       long long scratch_bytes, void* out,
                                       void* m, void* s, void* stream) {
-  PriFwdCall fc{Tp, chunk, R, H, W, th, run_min, items, mask != nullptr};
-  if (!pri_fwd_shapes(fc) || !pri_fwd_layout(fc, scratch, scratch_bytes)) {
+  PriFwdCall fc{Tp, chunk, R, H, W, th, run_min, items};
+  if (!pri_fwd_plan(fc, mask != nullptr, scratch) ||
+      !scratch_fits(fc.bytes, scratch, scratch_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
+  const FwdPlan& fp = fc.plan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* tab = static_cast<const float*>(consts);
-  cudaError_t err;
-  if (fc.masked) {
-    shw_plan_kernel<<<(fc.n_tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-        static_cast<const int*>(mask), fc.n_tiles, fc.n_chunks, fc.kept,
-        fc.nk);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    pri_fwd_run_kernel<<<1, kScanThreads, 0, st>>>(fc.nk, fc.n_tiles,
-                                                   fc.splits, run_min,
-                                                   fc.run_dev);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    shw_items_kernel<<<1, kScanThreads, 0, st>>>(
-        fc.nk, fc.n_tiles, 0, fc.run_dev, fc.off, fc.item_tiles);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = launch_fwd_plan(fp, static_cast<const int*>(mask), st);
+  if (err != cudaSuccess) return (int)err;
   if (fc.packed) {
     pack_pri_rows_kernel<<<(Tp + kThreads - 1) / kThreads, kThreads, 0,
                            st>>>(tab, Tp, zs, fc.rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  const ShwPlan pl{fc.kept, fc.nk, fc.off, fc.item_tiles, fc.n_tiles,
-                   fc.n_chunks, fc.run, fc.runs,
-                   static_cast<int>(fc.max_items)};
-  auto kernel = fc.masked ? soft_rt_pri_fwd_kernel<true>
+  const ShwPlan pl = fp.view();
+  auto kernel = fp.masked ? soft_rt_pri_fwd_kernel<true>
                           : soft_rt_pri_fwd_kernel<false>;
   float* o = static_cast<float*>(out);
   float* mo = static_cast<float*>(m);
@@ -2759,14 +2536,14 @@ extern "C" int raytpu_soft_rt_pri_fwd(const void* consts, int Tp, int chunk,
            kFwdKeepBytes)) != cudaSuccess) {
     return (int)err;
   }
-  kernel<<<static_cast<int>(fc.max_items), kThreads, kFwdKeepBytes, st>>>(
+  kernel<<<static_cast<int>(fp.max_items), kThreads, kFwdKeepBytes, st>>>(
       tab, fc.rows, chunk, static_cast<const float*>(cam),
-      static_cast<const float*>(dirs), R, H, W, th, es, zs, pl, fc.run_dev,
-      fc.part, o, mo, so);
-  if ((err = cudaGetLastError()) != cudaSuccess || fc.direct) return (int)err;
-  auto merge = fc.masked ? pri_fwd_merge_kernel<true>
+      static_cast<const float*>(dirs), R, H, W, th, es, zs, pl, fp.run_dev,
+      fp.part, o, mo, so);
+  if ((err = cudaGetLastError()) != cudaSuccess || fp.direct) return (int)err;
+  auto merge = fp.masked ? pri_fwd_merge_kernel<true>
                          : pri_fwd_merge_kernel<false>;
-  merge<<<fc.n_tiles, kThreads, 0, st>>>(pl, R, H, W, th, fc.part, o, mo,
+  merge<<<fp.n_tiles, kThreads, 0, st>>>(pl, R, H, W, th, fp.part, o, mo,
                                          so);
   return (int)cudaGetLastError();
 }
@@ -2777,9 +2554,8 @@ extern "C" long long raytpu_soft_rt_pri_fwd_scratch(int Tp, int chunk, int R,
                                                     int masked, int H, int W,
                                                     int th, int run_min,
                                                     int items) {
-  PriFwdCall fc{Tp, chunk, R, H, W, th, run_min, items, masked != 0};
-  if (!pri_fwd_shapes(fc)) return -1;
-  pri_fwd_layout(fc, nullptr, 0);
+  PriFwdCall fc{Tp, chunk, R, H, W, th, run_min, items};
+  if (!pri_fwd_plan(fc, masked != 0, nullptr)) return -1;
   return static_cast<long long>(fc.bytes);
 }
 

@@ -75,9 +75,16 @@ SIGNATURES = {
     "raytpu_raster_winner": [_P, _I, _I, _I, _I, _P, _P],
     # consts, T, chunk, mask (or null), H, W, y0, idx, stream
     "raytpu_raster_winner_chunked": [_P, _I, _I, _P, _I, _I, _I, _P, _P],
-    # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, agg, m, s, stream
-    "raytpu_soft_raster_fwd": [_P, _I, _I, _P, _I, _I, _I, _F, _F, _P, _P,
-                               _P, _P],
+    # consts, T, H, W, y0, counts, stream
+    "raytpu_raster_cull_probe": [_P, _I, _I, _I, _I, _P, _P],
+    # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, scratch (or
+    # null), scratch_bytes, agg, m, s, stream
+    "raytpu_soft_raster_fwd": [_P, _I, _I, _P, _I, _I, _I, _F, _F, _P, _L,
+                               _P, _P, _P, _P],
+    # Tp, chunk, H, W, masked: the forward's scratch bytes (-1: refused)
+    "raytpu_soft_raster_fwd_scratch": [_I, _I, _I, _I, _I],
+    # consts, Tp, H, W, y0, es, zs, floors, counts, stream
+    "raytpu_soft_row_dead_probe": [_P, _I, _I, _I, _I, _F, _F, _P, _P, _P],
     # consts, Tp, chunk, mask (or null), H, W, y0, es, zs, m, cot, scratch,
     # scratch_bytes, dc, stream
     "raytpu_soft_raster_bwd": [_P, _I, _I, _P, _I, _I, _I, _F, _F, _P, _P,
@@ -150,6 +157,7 @@ SIGNATURES = {
 RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L,
             "raytpu_occlusion_points_scratch": _L,
             "raytpu_soft_raster_bwd_scratch": _L,
+            "raytpu_soft_raster_fwd_scratch": _L,
             "raytpu_soft_rt_shw_scratch": _L,
             "raytpu_soft_rt_pri_scratch": _L,
             "raytpu_soft_rt_pri_fwd_scratch": _L}

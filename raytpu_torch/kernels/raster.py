@@ -21,6 +21,8 @@ covered where ``min(e0, e1, e2) >= 0``, ``zpx > 0`` and ``valid``.
   resolve_winner         the dispatch of ``resolve_winner_pallas``.
   chunk_screen_mask      the conservative keep-mask, as the JAX package's
                          but for tiles given as rectangles (tile_rects).
+  raster_tile_reject     the plain form of K8a's and K8c's exact per-tile
+                         row cull; raster_cull_probe runs the card's.
 
 On CUDA tensors the wrappers launch the hand-written kernels
 (raytpu_torch/csrc/raster.cu); on CPU tensors they run the plain versions.
@@ -154,9 +156,44 @@ def chunk_screen_mask(sx, sy, zinv, valid, rects: tuple,
     return keep.to(torch.int32)
 
 
-def _chunk_best(px, py, c: torch.Tensor):
+def _plane_below(a, b, c, rect, at_zero: bool):
+    """Where the plane (a, b, c) (each (T, 1)) is computed below 0 (below
+    or at 0 where ``at_zero``) at every pixel of each tile: its value at
+    the tile's largest corner by the sweep's expression ``(a x + b y) +
+    c``, as csrc/raster.cu::plane_below. Never where a coefficient is not
+    finite."""
+    xmin, xmax, ymin, ymax = (r[None, :] for r in rect)
+    x = torch.where(a >= 0.0, xmax, xmin)
+    y = torch.where(b >= 0.0, ymax, ymin)
+    v = (a * x + b * y) + c
+    finite = torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(c)
+    return finite & ((v <= 0.0) if at_zero else (v < 0.0))
+
+
+def raster_tile_reject(consts: torch.Tensor, rect: tuple) -> torch.Tensor:
+    """Plain form of K8a's and K8c's per-tile row cull
+    (csrc/raster.cu::tile_reject), op by op: (T, n_tiles) bool, True where
+    row t covers no pixel of tile j. consts (T, 16) float32; rect (xmin,
+    xmax, ymin, ymax), (n_tiles,) float32 each, the tiles' pixel corners
+    clipped to the image, in frame coordinates (tile_rects, ymin and ymax
+    plus y0). A row is rejected where its valid is not > 0, or where one of
+    its three edges or its zpx (at or below 0) is computed below 0 at the
+    tile's corner where the sweep's value is largest: rounding to nearest
+    is monotone in each operand, so no pixel of the tile computes more."""
+    def col(j):
+        return consts[:, j:j + 1]
+
+    rej = ~(col(12) > 0.0)
+    for k in range(3):
+        rej = rej | _plane_below(col(3 * k), col(3 * k + 1),
+                                 col(3 * k + 2), rect, False)
+    return rej | _plane_below(col(9), col(10), col(11), rect, True)
+
+
+def _chunk_best(px, py, c: torch.Tensor, drop=None):
     """Over the rows c (C, 16) of one chunk: each pixel's largest covered
-    zpx (NEG_INF where none) and the first row reaching it."""
+    zpx (NEG_INF where none) and the first row reaching it; ``drop`` None
+    or (P, C) bool pairs left out."""
     def plane(j):
         return (c[None, :, j] * px[:, None] + c[None, :, j + 1] * py[:, None]
                 ) + c[None, :, j + 2]
@@ -164,6 +201,8 @@ def _chunk_best(px, py, c: torch.Tensor):
     sdist = torch.minimum(torch.minimum(plane(0), plane(3)), plane(6))
     zpx = plane(9)
     covered = (sdist >= 0.0) & (zpx > 0.0) & (c[None, :, 12] > 0.0)
+    if drop is not None:
+        covered = covered & ~drop
     z = torch.where(covered, zpx, NEG_INF)
     best = z.max(dim=1).values
     rows = torch.arange(c.shape[0], dtype=torch.int32, device=c.device)
@@ -171,17 +210,26 @@ def _chunk_best(px, py, c: torch.Tensor):
     return best, first.values
 
 
-def _chunks_reference(consts, H: int, W: int, chunk: int, mask, y0: int):
+def _chunks_reference(consts, H: int, W: int, chunk: int, mask, y0: int,
+                      cull: bool = False):
     """The chunks of ``chunk`` rows in order, each skipped for the pixels
     of a tile whose mask bit is 0 (mask None: none skipped); a chunk
-    replaces the running winner only with a strictly larger zpx."""
+    replaces the running winner only with a strictly larger zpx. With
+    ``cull``, each tile's pixels leave out the rows raster_tile_reject
+    rejects for the tile, as the kernels do."""
     px, py = pixel_grid(H, W, consts.device, y0)
     row = py.long() - y0
     tile = (row // TILE) * -(-W // TILE) + px.long() // TILE
+    reject = None
+    if cull:
+        xmin, xmax, ymin, ymax = tile_rects(H, W, consts.device)
+        reject = raster_tile_reject(consts, (xmin, xmax, ymin + y0,
+                                             ymax + y0))
     best_z = torch.full_like(px, NEG_INF)
     best_i = torch.full(px.shape, -1, dtype=torch.int32, device=px.device)
     for c, lo in enumerate(range(0, consts.shape[0], chunk)):
-        z, first = _chunk_best(px, py, consts[lo:lo + chunk])
+        drop = None if reject is None else reject[lo:lo + chunk][:, tile].T
+        z, first = _chunk_best(px, py, consts[lo:lo + chunk], drop)
         upd = z > best_z
         if mask is not None:
             upd = upd & (mask[tile, c] != 0)
@@ -192,22 +240,25 @@ def _chunks_reference(consts, H: int, W: int, chunk: int, mask, y0: int):
 
 def resolve_winner_masked_reference(consts: torch.Tensor, H: int, W: int,
                                     mask: torch.Tensor, chunk: int,
-                                    y0: int = 0) -> torch.Tensor:
+                                    y0: int = 0,
+                                    cull: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K8c, on any device: the chunks of
     ``chunk`` rows in order, each skipped for the pixels of a tile whose
     mask bit is 0 (TILE x TILE tiles of the image, mask (n_tiles,
     n_chunks)); a chunk replaces the running winner only with a strictly
-    larger zpx. Returns (H*W,) int32."""
-    return _chunks_reference(consts, H, W, chunk, mask, y0)
+    larger zpx. ``cull`` leaves out the rows each tile rejects
+    (raster_tile_reject), as the kernel does: the same winners. Returns
+    (H*W,) int32."""
+    return _chunks_reference(consts, H, W, chunk, mask, y0, cull)
 
 
 def resolve_winner_chunked_reference(consts: torch.Tensor, H: int, W: int,
-                                     chunk: int,
-                                     y0: int = 0) -> torch.Tensor:
+                                     chunk: int, y0: int = 0,
+                                     cull: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K8a, on any device: K8c's with no chunk
     skipped (``_kernel``: each chunk's first row at its max, then a strict
-    ``>`` across chunks). Returns (H*W,) int32."""
-    return _chunks_reference(consts, H, W, chunk, None, y0)
+    ``>`` across chunks); ``cull`` as there. Returns (H*W,) int32."""
+    return _chunks_reference(consts, H, W, chunk, None, y0, cull)
 
 
 def resolve_winner_reference(consts: torch.Tensor, H: int, W: int,
@@ -235,6 +286,9 @@ def _check(consts, H: int, W: int, mask=None, chunk: int | None = None):
             raise ValueError(f"K8b takes at most {MAX_CHUNK} triangles, got "
                              f"{T}")
         return
+    if consts.data_ptr() % 16:
+        raise ValueError("consts: K8a and K8c read rows as float4s; the "
+                         "tensor must start on 16 bytes")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be 1..{MAX_CHUNK}, got {chunk}")
     if mask is None:
@@ -348,3 +402,25 @@ def resolve_winner(consts: torch.Tensor, H: int, W: int,
     mask = chunk_screen_mask(sx, sy, zinv, consts[:, 12],
                              (xmin, xmax, ymin + y0, ymax + y0), chunk)
     return raster_winner_masked(consts, H, W, mask, chunk, y0)
+
+
+def raster_cull_probe(consts: torch.Tensor, H: int, W: int,
+                      y0: int = 0) -> dict:
+    """The card's check of K8a's and K8c's cull (csrc/raster.cu::
+    raster_cull_probe_kernel): every row of the (T, 16) CUDA table decided
+    by the device's tile_reject for every 16 x 16 tile of rows [y0, y0 + H)
+    of a frame W wide, and each rejected row tested at every pixel of its
+    tile with the sweep's own test. Returns the counts: ``rejected`` (tile,
+    row) pairs, ``covered`` (pixel, row) pairs among them (0 where the cull
+    is exact) and ``pairs`` in all. Counts no launch."""
+    _check(consts, H, W, None, MAX_CHUNK)
+    counts = torch.zeros(3, dtype=torch.int64, device=consts.device)
+    with torch.cuda.device(consts.device):
+        err = _build.load().raytpu_raster_cull_probe(
+            consts.data_ptr(), consts.shape[0], H, W, y0, counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"raster_cull_probe launch failed: CUDA error "
+                           f"{err}")
+    rejected, covered, pairs = counts.tolist()
+    return dict(rejected=rejected, covered=covered, pairs=pairs)

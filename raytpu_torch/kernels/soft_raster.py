@@ -13,6 +13,9 @@ rescale of the carry, then the chunk's sums).
 
   soft_agg_fwd   K9a's wrapper (no mask) and K9b's (a (tile, chunk) keep
                  mask over 16 x 16 pixel tiles): agg (10, R), m, s.
+  soft_row_dead  the plain form of their exact dead-row test (a row of
+                 weight exactly 0 at every pixel of a warp's 8 x 4 block);
+                 soft_row_dead_probe runs the card's.
   soft_agg_bwd   K9c's and K9d's: d consts from the saved m and the 11
                  cotangent rows [d s, d acc_0..9].
   *_reference    their plain PyTorch versions.
@@ -36,13 +39,14 @@ depend on it (soft_raster_pallas.py:20-27).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from raytpu_torch.core.types import pixel_grid
 from raytpu_torch.kernels import _build
-from raytpu_torch.kernels.raster import TILE, _route
+from raytpu_torch.kernels.raster import TILE, _route, tile_rects
 
 # Launches of each CUDA kernel in this process, counted by its wrapper where
 # it launches the kernel and nowhere else. A backward launch is K9c's (or
@@ -59,6 +63,17 @@ MAX_CHUNK = 32
 # ln(1e-20): a culled (tile, chunk) pair's weight is at most exp(-46) of the
 # background hypothesis, the size the kernel already treats as zero.
 CULL_MARGIN = 46.0
+# K9a and K9b cut each tile's kept chunks (K9a: every chunk) into runs, a
+# work item each, by K10a's rule (csrc/work_items.cuh::pri_fwd_run;
+# soft_fwd_run below): the mean kept chunks a tile (rounded up) over
+# ceil(SOFT_FWD_ITEMS / tiles), at least SOFT_FWD_RUN_MIN. At 512^2 and
+# above K9a keeps one run a tile (no merge); K9b's tiles of more than the
+# mean are cut, so the few tiles that hold the mesh spread over the card.
+# The kernels hold the rule as constants (csrc/soft_raster.cu::
+# kSoftFwdItems, kSoftFwdRunMin, K10b's values); these two mirror them for
+# the plain count of the items.
+SOFT_FWD_ITEMS = 1024
+SOFT_FWD_RUN_MIN = 8
 # The JAX package decides whether to cull by whether the image blocks into
 # its 1,024-pixel tiles (trap: 500^2 does not, 512^2 does); the port keeps
 # that decision, though its own tiles are 16 x 16.
@@ -254,23 +269,52 @@ def _chunks_kept(mask, n_chunks: int) -> list:
 
 
 def soft_agg_reference(consts, coords, mask, es: float, zs: float,
-                       chunk: int):
+                       chunk: int, dead_rows=None, stats=None):
     """Plain PyTorch version of K9a (mask None) and K9b, on any device and
     in any float type: consts (Tp, 32) in chunks of ``chunk`` rows, coords
     (2, R) pixel x, y, mask None or (n_chunks, R) bool (the keep-mask
     expanded to pixels). A chunk a pixel does not keep leaves its carry
-    exactly as it was. Returns agg (10, R), m (R,), s (R,)."""
+    exactly as it was. Returns agg (10, R), m (R,), s (R,).
+
+    dead_rows: None, or tile_layout's (block, rect) for these pixels: each
+    chunk then leaves out, for each pixel block, the rows soft_row_dead
+    finds dead at the block's floor (the smallest running max of its
+    pixels), as the kernels do; the result is the same, bit for bit
+    (float32). stats: None, or a dict to which the walk adds ``rows`` (the
+    kept (block, row) pairs tested, blocks with pixels only), ``dead``
+    (those found dead) and ``live_pairs`` (each block's pixels times its
+    live rows)."""
     px, py = coords[0], coords[1]
     R = px.shape[0]
     m = px.new_zeros(R)
     s = px.new_ones(R)
     acc = px.new_zeros(N_CH, R)
     n_chunks = consts.shape[0] // chunk
+    if dead_rows is not None:
+        block, rect = dead_rows
+        n_blocks = rect[0].shape[0]
+        pixels = torch.bincount(block, minlength=n_blocks).to(px.dtype)
     for c, kept in enumerate(_chunks_kept(mask, n_chunks)):
         if not kept:
             continue
         logit, vals = chunk_terms(consts[c * chunk:(c + 1) * chunk], px, py,
                                   es, zs)
+        if dead_rows is not None:
+            floor = px.new_full((n_blocks,), math.inf).scatter_reduce(
+                0, block, m, "amin")
+            dead = soft_row_dead(consts[c * chunk:(c + 1) * chunk], rect, es,
+                                 zs, floor)
+            logit = torch.where(dead[:, block], -math.inf, logit)
+            if stats is not None:
+                on = pixels > 0
+                if mask is not None:
+                    on = torch.zeros_like(on).index_fill_(
+                        0, torch.unique(block[mask[c]]), True)
+                d = dead[:, on]
+                stats["rows"] = stats.get("rows", 0) + d.numel()
+                stats["dead"] = stats.get("dead", 0) + int(d.sum())
+                stats["live_pairs"] = stats.get("live_pairs", 0) + int(
+                    ((~d).to(px.dtype) * pixels[on][None, :]).sum())
         m_new = torch.maximum(m, logit.max(dim=0).values)
         scale = torch.exp(m - m_new)
         w = torch.exp(logit - m_new)
@@ -394,6 +438,128 @@ def soft_dead_pairs(cs, coords, m, cot, es: float,
     return soft_logit_bound(cs, coords, es, zs) - mt < DEAD_BELOW
 
 
+def _edge_max(x0, y0, x1, y1, s, rect):
+    """The largest half-plane value ``edge_raw(...) * s`` any pixel of each
+    block computes (csrc/soft_raster.cu::edge_max): the value at the corner
+    where each monotone step is largest. Rows (C, 1), rect (1, n_blocks)
+    each; returns (C, n_blocks)."""
+    xmin, xmax, ymin, ymax = rect
+    up = s >= 0.0
+    py = torch.where((x1 - x0 >= 0.0) == up, ymax, ymin)
+    px = torch.where((y1 - y0 <= 0.0) == up, xmax, xmin)
+    return ((x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)) * s
+
+
+def soft_row_dead(cs, rect: tuple, es: float, zs: float,
+                  m_floor) -> torch.Tensor:
+    """Plain form of K9a's and K9b's dead-row test
+    (csrc/soft_raster.cu::soft_row_bound) in its operations' order, for the
+    tests and chip_smoke.py; the kernels' route never calls it. cs (C, 32)
+    float32 rows; rect (xmin, xmax, ymin, ymax), (n_blocks,) each, pixel
+    blocks' corners clipped to the image in frame coordinates (the
+    kernels' blocks: tile_layout); m_floor (n_blocks,) the smallest running
+    max of each block's pixels. Returns (C, n_blocks) bool, True where the
+    bound ``B = (zb + cap) + log(valid + 1e-20)`` of the row's logit over
+    the block lies more than DEAD_BELOW below the floor: its weight is then
+    exactly 0 at every pixel of the block, and it is no pixel's max. zb is
+    soft_logit_bound's; cap is 0, or, where es > 0 and one edge is computed
+    below 0 at every pixel of the block (_edge_max), es times minus a lower
+    bound of the distance the kernels compute at any pixel: the gap between
+    the block and the row's bounding box, shortened by 2^-19 of the largest
+    coordinate and scaled by 1 - 2^-18 for rounding. NaN (never dead) on a
+    row that is not tame (soft_logit_bound)."""
+    def col(j):
+        return cs[:, j:j + 1]
+
+    f32 = cs.dtype
+    rect = tuple(r[None, :].to(f32) for r in rect)
+    xmin, xmax, ymin, ymax = rect
+    tame = math.isfinite(es) and math.isfinite(zs) and \
+        abs(es) <= TAME and abs(zs) <= TAME
+    row_ok = (cs[:, :29].abs() <= TAME).all(dim=1, keepdim=True) \
+        & ((col(28) + 1e-20) != 0.0) & tame
+    zabs = cs[:, 10:13].abs().max(dim=1, keepdim=True).values
+    zb = torch.fmax((abs(zs) * zabs) * Z_SLACK,
+                    torch.full_like(zabs, Z_FLOOR))
+    ax, ay, bx, by, cx, cy = (col(j) for j in range(6))
+    outside = ((_edge_max(ax, ay, bx, by, col(6), rect) < 0.0)
+               | (_edge_max(bx, by, cx, cy, col(7), rect) < 0.0)
+               | (_edge_max(cx, cy, ax, ay, col(8), rect) < 0.0))
+    k = torch.fmax(torch.fmax(torch.fmax(xmax, ymax),
+                              torch.ones((), dtype=f32)),
+                   cs[:, :6].abs().max(dim=1, keepdim=True).values)
+    e = k * 2.0 ** -19
+    zero = torch.zeros((), dtype=f32)
+    gx = torch.fmax(torch.fmax(torch.minimum(torch.minimum(ax, bx), cx)
+                               - xmax,
+                               xmin - torch.maximum(torch.maximum(ax, bx),
+                                                    cx)), zero)
+    gy = torch.fmax(torch.fmax(torch.minimum(torch.minimum(ay, by), cy)
+                               - ymax,
+                               ymin - torch.maximum(torch.maximum(ay, by),
+                                                    cy)), zero)
+    gx = torch.fmax(gx - e, zero)
+    gy = torch.fmax(gy - e, zero)
+    dlb = _sqrt_f32(gx * gx + gy * gy) * (1.0 - 2.0 ** -18)
+    cap = torch.where(row_ok & outside & (es > 0.0), es * -dlb, zero)
+    B = (zb + cap) + torch.log(col(28) + 1e-20)
+    B = torch.where(row_ok, B, float("nan"))
+    return B - m_floor[None, :].to(f32) < DEAD_BELOW
+
+
+# K9a's and K9b's pixel blocks: warp w of a 16 x 16 tile takes the
+# BLOCK_W x BLOCK_H block w, two across and four down, and tests each row of
+# a chunk for its own block (csrc/soft_raster.cu::fwd_pixel, soft_rect).
+BLOCK_W, BLOCK_H = 8, 4
+BLOCKS_PER_TILE = (TILE // BLOCK_W) * (TILE // BLOCK_H)
+
+
+def tile_layout(H: int, W: int, device, y0: int = 0) -> tuple:
+    """The kernels' pixel blocks of rows [y0, y0 + H) of a frame W wide
+    (BLOCKS_PER_TILE a 16 x 16 tile, tile by tile, then block by block):
+    each pixel's block (H*W,) int64, row-major, and the blocks' pixel
+    corners clipped to the image, in frame coordinates (xmin, xmax, ymin,
+    ymax), (n_blocks,) float32 each (a block past the image's edge holds
+    no pixel and has xmin > xmax or ymin > ymax): soft_agg_reference's
+    ``dead_rows`` and soft_row_dead_probe's floors' order."""
+    px, py = pixel_grid(H, W, device)
+    tiles_x = -(-W // TILE)
+    xl, yl = px.long(), py.long()
+    tile = (yl // TILE) * tiles_x + xl // TILE
+    block = (tile * BLOCKS_PER_TILE + ((yl % TILE) // BLOCK_H)
+             * (TILE // BLOCK_W) + (xl % TILE) // BLOCK_W)
+    t = torch.arange(-(-H // TILE) * tiles_x, device=device)
+    w = torch.arange(BLOCKS_PER_TILE, device=device)
+    x0 = ((t % tiles_x) * TILE)[:, None] + (w % (TILE // BLOCK_W))[None, :] \
+        * BLOCK_W
+    y0b = ((t // tiles_x) * TILE)[:, None] + (w // (TILE // BLOCK_W))[
+        None, :] * BLOCK_H
+    x0, y0b = x0.reshape(-1), y0b.reshape(-1)
+    x1 = torch.clamp_max(x0 + BLOCK_W - 1, W - 1)
+    y1 = torch.clamp_max(y0b + BLOCK_H - 1, H - 1)
+    return block, tuple(v.to(torch.float32) for v in (x0, x1, y0b + y0,
+                                                       y1 + y0))
+
+
+def soft_fwd_run(kept: int, n_tiles: int) -> int:
+    """The run of K9a's and K9b's work items (csrc/work_items.cuh::
+    pri_fwd_run): ``kept`` (tile, chunk) pairs over n_tiles tiles."""
+    mean = -(-kept // n_tiles)
+    splits = -(-SOFT_FWD_ITEMS // n_tiles)
+    return max(SOFT_FWD_RUN_MIN, -(-mean // splits))
+
+
+def soft_fwd_items(mask, n_tiles: int, n_chunks: int) -> dict:
+    """K9a's (mask None) or K9b's work items, as the card plans them: the
+    run, the items and the tiles of more than one item (merged)."""
+    nk = (torch.full((n_tiles,), n_chunks) if mask is None
+          else (mask != 0).sum(dim=1).cpu())
+    run = soft_fwd_run(int(nk.sum()), n_tiles)
+    per_tile = -(-nk // run)
+    return dict(run=run, items=int(per_tile.sum()),
+                merged=int((per_tile > 1).sum()))
+
+
 def pixel_coords(H: int, W: int, device, dtype=torch.float32, y0: int = 0):
     """(2, H*W) integer pixel coordinates x, y of rows [y0, y0 + H),
     row-major."""
@@ -421,6 +587,9 @@ def _check(consts, H: int, W: int, chunk: int, mask=None, m=None, cot=None):
                          f" got {chunk}")
     if H < 1 or W < 1:
         raise ValueError(f"empty image {H}x{W}")
+    if consts.data_ptr() % 16:
+        raise ValueError("consts: the kernels stage rows as float4s; the "
+                         "tensor must start on 16 bytes")
     R = H * W
     if mask is not None:
         shape = (-(-H // TILE) * -(-W // TILE), Tp // chunk)
@@ -442,17 +611,75 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=64)
+def _fwd_scratch_bytes(Tp: int, chunk: int, H: int, W: int,
+                       masked: bool) -> int:
+    """csrc/soft_raster.cu::raytpu_soft_raster_fwd_scratch for these shapes,
+    asked once a shape (the fit CLI calls K9a 501 times on one)."""
+    n = _build.load().raytpu_soft_raster_fwd_scratch(Tp, chunk, H, W,
+                                                     int(masked))
+    if n < 0:
+        raise ValueError(f"K9a/K9b take no table of {Tp} rows in chunks of "
+                         f"{chunk} on {H} x {W} pixels")
+    return n
+
+
+def fwd_scratch(consts, H: int, W: int, chunk: int,
+                mask) -> torch.Tensor | None:
+    """A fresh scratch buffer for one K9a or K9b call (uint8, on consts'
+    device), sized by the kernels' library (csrc/soft_raster.cu::
+    SoftFwdCall: the plan and the items' partials), or None where the call
+    needs none (K9a at one item a tile, as the fit's frames are)."""
+    n = _fwd_scratch_bytes(consts.shape[0], chunk, H, W, mask is not None)
+    return (torch.empty((n,), dtype=torch.uint8, device=consts.device)
+            if n else None)
+
+
 def launch_fwd_kernel(consts, H: int, W: int, chunk: int, mask, es: float,
-                      zs: float, agg, m, s, y0: int = 0) -> None:
-    """Launch K9a (mask None) or K9b into the outputs the caller allocated.
-    Checks nothing and counts nothing; the wrapper does both."""
+                      zs: float, agg, m, s, y0: int = 0, *,
+                      scratch) -> None:
+    """Launch K9a (mask None) or K9b, with ``scratch`` (fwd_scratch), into
+    the outputs the caller allocated: the plan (K9b), the kernel and the
+    merge of its items. Checks nothing and counts nothing; the wrapper
+    does both."""
     err = _build.load().raytpu_soft_raster_fwd(
         consts.data_ptr(), consts.shape[0], chunk, _ptr(mask), H, W, y0, es,
-        zs,
+        zs, _ptr(scratch), 0 if scratch is None else scratch.numel(),
         agg.data_ptr(), m.data_ptr(), s.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"soft_raster_fwd launch failed: CUDA error {err}")
+
+
+def soft_row_dead_probe(consts: torch.Tensor, H: int, W: int, es: float,
+                        zs: float, floors: torch.Tensor,
+                        y0: int = 0) -> dict:
+    """The card's check of K9a's and K9b's dead-row test
+    (csrc/soft_raster.cu::soft_row_dead_probe_kernel): every row of the
+    (Tp, 32) CUDA table tested by the device's test against each pixel
+    block's floor (floors (n_blocks,) float32, tile_layout's order), and
+    every row called dead evaluated by the kernels' fwd_logit at every
+    pixel of its block. Returns the counts, over the blocks that hold
+    pixels: ``dead`` (block, row) pairs, ``bad`` (pixel, row) pairs among
+    them whose expf(logit - floor) is not 0 or whose logit is not below the
+    floor (0 where the test is exact), and ``pairs`` in all. Counts no
+    launch."""
+    n_blocks = -(-H // TILE) * -(-W // TILE) * BLOCKS_PER_TILE
+    if floors.dtype != torch.float32 or tuple(floors.shape) != (n_blocks,) \
+            or floors.device != consts.device or consts.data_ptr() % 16:
+        raise ValueError(f"floors: expected float32 ({n_blocks},) on "
+                         f"{consts.device}, and consts on 16 bytes")
+    counts = torch.zeros(3, dtype=torch.int64, device=consts.device)
+    with torch.cuda.device(consts.device):
+        err = _build.load().raytpu_soft_row_dead_probe(
+            consts.data_ptr(), consts.shape[0], H, W, y0, es, zs,
+            floors.contiguous().data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"soft_row_dead_probe launch failed: CUDA error "
+                           f"{err}")
+    dead, bad, pairs = counts.tolist()
+    return dict(dead=dead, bad=bad, pairs=pairs)
 
 
 def bwd_scratch(consts, H: int, W: int, chunk: int) -> torch.Tensor:
@@ -500,8 +727,10 @@ def soft_agg_fwd(consts: torch.Tensor, H: int, W: int, chunk: int,
     agg = torch.empty((N_CH, R), dtype=torch.float32, device=consts.device)
     m = torch.empty((R,), dtype=torch.float32, device=consts.device)
     s = torch.empty((R,), dtype=torch.float32, device=consts.device)
+    scratch = fwd_scratch(consts, H, W, chunk, mask)
     with torch.cuda.device(consts.device):
-        launch_fwd_kernel(consts, H, W, chunk, mask, es, zs, agg, m, s, y0)
+        launch_fwd_kernel(consts, H, W, chunk, mask, es, zs, agg, m, s, y0,
+                          scratch=scratch)
     if mask is None:
         LAUNCHES_SOFT_FWD += 1
     else:

@@ -2203,6 +2203,196 @@ def test_shadow_reject_probe_on_miss_point_rays(cuda):
     assert float(rej.float().mean()) > 0.99
 
 
+@pytest.mark.parametrize("chunk,y0", [(128, 0), (100, 0), (128, 256)])
+def test_culled_winner_kernels_on_the_mesh(cuda, chunk, y0):
+    """K8a and K8c, redesigned around the exact per-tile row cull, on the
+    9,028-row mesh at 512^2 (rows [y0, 512)): the plain versions' winners
+    bit for bit, in chunks of 128 and of 100 (not a multiple of 32), two
+    calls identical, one launch a call."""
+    from raytpu_torch.kernels import raster
+    from raytpu_torch.ops.raster import cull_mask
+    from raytpu_torch.render.soft import _screen_vertices
+    consts, _ = _raster_case(cuda, "stl", 512)
+    H = 512 - y0
+    before = (raster.LAUNCHES_WINNER_CHUNKED, raster.LAUNCHES_WINNER_MASKED)
+    got_a = raster.raster_winner_chunked(consts, H, 512, chunk, y0)
+    again_a = raster.raster_winner_chunked(consts, H, 512, chunk, y0)
+    # K8c's mask for these rows and this chunk, as resolve_winner makes it.
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mesh.stl"
+        with open(path, "w") as f:
+            f.write(procedural_stl_text())
+        scene = load_stl(path, device=cuda)
+    camera = Camera.make((0.0, -0.5, -5.0), focal=512.0, device=cuda)
+    cfg = RenderConfig(width=512, height=512, mode="clean")
+    sx, sy, zinv, _ = _screen_vertices(scene, camera, cfg)
+    keep = cull_mask(scene, camera, cfg.replace(frustum_cull=False))
+    assert torch.equal(raster.raster_tri_constants(sx, sy, zinv, keep),
+                       consts)
+    xmin, xmax, ymin, ymax = raster.tile_rects(H, 512, cuda)
+    mask = raster.chunk_screen_mask(sx, sy, zinv, consts[:, 12],
+                                    (xmin, xmax, ymin + y0, ymax + y0), chunk)
+    got_c = raster.raster_winner_masked(consts, H, 512, mask, chunk, y0)
+    again_c = raster.raster_winner_masked(consts, H, 512, mask, chunk, y0)
+    assert (raster.LAUNCHES_WINNER_CHUNKED,
+            raster.LAUNCHES_WINNER_MASKED) == (before[0] + 2, before[1] + 2)
+    want_a = raster.resolve_winner_chunked_reference(consts, H, 512, chunk,
+                                                     y0)
+    want_c = raster.resolve_winner_masked_reference(consts, H, 512, mask,
+                                                    chunk, y0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a) and torch.equal(got_a, again_a)
+    assert torch.equal(got_c, want_c) and torch.equal(got_c, again_c)
+    assert torch.equal(got_a, got_c)
+    assert 0.05 < float((got_a >= 0).float().mean()) < 0.95
+
+
+def _random_raster_rows(device, n, seed, size):
+    """raster_tri_constants rows of random triangles a few pixels to a few
+    tens wide over and around a size^2 image, a fifth invalid, plus rows
+    with an edge through a column of pixel corners."""
+    from raytpu_torch.kernels import raster
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-0.2 * size, 1.2 * size, (n, 1, 2))
+    v = c + rng.normal(0.0, 8.0, (n, 3, 2))
+    sx = torch.tensor(v[..., 0], dtype=torch.float32)
+    sy = torch.tensor(v[..., 1], dtype=torch.float32)
+    zinv = torch.tensor(rng.uniform(-0.2, 1.0, (n, 3)), dtype=torch.float32)
+    keep = torch.tensor(rng.uniform(size=n) > 0.2, dtype=torch.float32)
+    rows = raster.raster_tri_constants(sx, sy, zinv, keep)
+    edge = torch.zeros((48, 16))
+    edge[:, 12] = 1.0
+    edge[:, 5] = edge[:, 8] = 1.0   # planes 1 and 2 >= 0 everywhere
+    edge[:, 11] = 0.5               # zpx > 0 everywhere
+    for i, x0 in enumerate(np.arange(0, size, size // 16)[:16]):
+        c0 = np.float32(-x0)
+        for j, cc in enumerate((np.nextafter(c0, np.float32(-1e9)), c0,
+                                np.nextafter(c0, np.float32(1e9)))):
+            edge[3 * i + j, 0] = 1.0
+            edge[3 * i + j, 2] = float(cc)
+    return torch.cat([rows, edge]).contiguous().to(device)
+
+
+@pytest.mark.parametrize("y0", [0, 256])
+def test_raster_cull_probe(cuda, y0):
+    """The card's cull (raytpu_raster_cull_probe) rejects no (tile, row)
+    pair with a pixel the sweep covers, on the 9,028-row mesh at 512^2 and
+    on random rows and edges through pixel corners, and rejects exactly
+    the pairs its plain form does."""
+    from raytpu_torch.kernels import raster
+    mesh, _ = _raster_case(cuda, "stl", 512)
+    H = 512 - y0
+    xmin, xmax, ymin, ymax = raster.tile_rects(H, 512, cuda)
+    rect = (xmin, xmax, ymin + y0, ymax + y0)
+    for consts in (mesh, _random_raster_rows(cuda, 2000, 7 + y0, 512)):
+        got = raster.raster_cull_probe(consts, H, 512, y0)
+        want = int(raster.raster_tile_reject(consts, rect).sum())
+        assert got["covered"] == 0
+        assert got["rejected"] == want
+        assert got["pairs"] == consts.shape[0] * rect[0].shape[0]
+        assert got["rejected"] > 0.9 * got["pairs"]
+
+
+def _soft_mesh_case(device, size):
+    """The 9,028-row mesh padded to 9,216 at size^2, the rasteriser camera,
+    sharpness 40 / 40 (bench.py's soft_stl frame), as rasterize_soft
+    builds its inputs."""
+    import tempfile
+
+    from raytpu_torch.core.stl import load_stl, procedural_stl_text
+    from raytpu_torch.render.soft import rasterize_soft_inputs
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mesh.stl"
+        with open(path, "w") as f:
+            f.write(procedural_stl_text())
+        scene = load_stl(path, device=device).pad_to(9216)
+    cfg = RenderConfig(width=size, height=size, mode="soft",
+                       soft_edge_sharpness=40.0, soft_z_sharpness=40.0)
+    with torch.no_grad():
+        inp = rasterize_soft_inputs(scene, Camera.rasterizer_default(
+            device=device), cfg)
+    return dict(consts=inp.consts.contiguous(), chunk=inp.chunk,
+                mask=inp.mask, es=inp.es, zs=inp.zs, H=size, W=size)
+
+
+def test_culled_soft_forward_on_the_mesh(cuda):
+    """K9b in work items across the card on the culled soft STL step's
+    table (512^2, 288 chunks): within rtol 1e-5 / atol 1e-6 of the plain
+    version, two calls bit for bit, all ones = K9a bit for bit, culled =
+    brute at 1e-6 / 1e-6, one launch a call."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = _soft_mesh_case(cuda, 512)
+    assert c["mask"] is not None
+    args = (c["consts"], 512, 512, c["chunk"])
+    before = (sr.LAUNCHES_SOFT_FWD, sr.LAUNCHES_SOFT_FWD_MASKED)
+    got = sr.soft_agg_fwd(*args, c["mask"], c["es"], c["zs"])
+    again = sr.soft_agg_fwd(*args, c["mask"], c["es"], c["zs"])
+    ones = sr.soft_agg_fwd(*args, torch.ones_like(c["mask"]), c["es"],
+                           c["zs"])
+    brute = sr.soft_agg_fwd(*args, None, c["es"], c["zs"])
+    assert (sr.LAUNCHES_SOFT_FWD, sr.LAUNCHES_SOFT_FWD_MASKED) == (
+        before[0] + 1, before[1] + 3)
+    items = sr.soft_fwd_items(c["mask"], c["mask"].shape[0],
+                              c["mask"].shape[1])
+    assert items["merged"] > 0  # the heavy tiles are split
+    want = sr.soft_agg_reference(
+        c["consts"], sr.pixel_coords(512, 512, cuda),
+        sr.expand_mask(c["mask"], 512, 512), c["es"], c["zs"], c["chunk"])
+    torch.cuda.synchronize()
+    for g, a, o, b, w in zip(got, again, ones, brute, want):
+        assert torch.equal(g, a)
+        assert torch.equal(o, b)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(g, b, rtol=1e-6, atol=1e-6)
+
+
+def test_soft_fwd_rule_mirrors_the_kernels(cuda):
+    """kernels/soft_raster.py SOFT_FWD_ITEMS and SOFT_FWD_RUN_MIN mirror
+    csrc/soft_raster.cu's kSoftFwdItems and kSoftFwdRunMin: K9a's scratch
+    holds the partials (12 floats a pixel) of as many items as
+    soft_fwd_items plans, where the run is the floor (64^2), where it is
+    the mean over the split (128^2), and none at one item a tile (512^2)."""
+    from raytpu_torch.kernels import soft_raster as sr
+    for Tp, chunk, size in ((9216, 32, 64), (9216, 32, 128), (2048, 8, 512)):
+        n_tiles = (-(-size // sr.TILE)) ** 2
+        items = sr.soft_fwd_items(None, n_tiles, Tp // chunk)["items"]
+        want = 0 if items == n_tiles else items * (2 + sr.N_CH) * 256 * 4
+        assert sr._fwd_scratch_bytes(Tp, chunk, size, size, False) == want
+        consts = torch.zeros((Tp, sr.CONST_COLS), device=cuda)
+        assert (sr.fwd_scratch(consts, size, size, chunk, None) is None) == (
+            want == 0)
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh", "mesh512"])
+def test_soft_row_dead_probe(cuda, name):
+    """The card's dead-row test (raytpu_soft_row_dead_probe) calls dead no
+    (block, row) pair with a pixel whose expf(logit - floor) is not 0 or
+    whose logit is not below the floor, at each pixel block's floor from
+    the forward's saved max and at 0, and calls dead exactly the pairs its
+    plain form does."""
+    from raytpu_torch.kernels import soft_raster as sr
+    c = (_soft_mesh_case(cuda, 512) if name == "mesh512"
+         else _soft_case(cuda, name))
+    H, W = c["H"], c["W"]
+    _, m, _ = sr.soft_agg_fwd(c["consts"], H, W, c["chunk"], c["mask"],
+                              c["es"], c["zs"])
+    block, rect = sr.tile_layout(H, W, cuda)
+    top = torch.full((rect[0].shape[0],), float("inf"),
+                     device=cuda).scatter_reduce(0, block, m, "amin")
+    held = (rect[0] <= rect[1]) & (rect[2] <= rect[3])  # blocks with pixels
+    for floor in (top, torch.zeros_like(top)):
+        got = sr.soft_row_dead_probe(c["consts"], H, W, c["es"], c["zs"],
+                                     floor)
+        want = sr.soft_row_dead(c["consts"], rect, c["es"], c["zs"], floor)
+        assert got["bad"] == 0
+        assert got["dead"] == int(want[:, held].sum())
+        assert got["pairs"] == c["consts"].shape[0] * int(held.sum())
+        assert got["dead"] > 0
+
+
 @pytest.mark.parametrize("size,y0", [(257, 0), (512, 256), (129, 64)])
 def test_chunked_winner_kernel_matches_plain_version(cuda, size, y0):
     """K8a on rows [y0, size) of the 9,028-triangle mesh's frame at the STL

@@ -20,55 +20,18 @@ TREE's wrapper (kernels/intersect.py::occlusion_multi):
   (median of 15), the device's busy ms a frame under the profiler
   (chip_smoke.py::device_busy) and a digest of the frame.
 
-``--frames`` measures the frames alone. It writes them to OUT.json. To compare two checkouts, run it once for each
-in turns (A, B, B, A) on the same card, and compare the digests (the same
-bits) and the medians.
+``--frames`` measures the frames alone. It writes what it measured to
+OUT.json; tools/ab_common.py says how two checkouts are compared.
 """
 
 from __future__ import annotations
 
-import hashlib
-import importlib.util
-import json
-import statistics
 import sys
-import time
 from pathlib import Path
 
 import torch
 
-
-def digest(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
-
-
-def host_us(fn, hold_cycles: int, n: int = 20, reps: int = 15) -> float:
-    """Median host time of one call of fn: n calls enqueued while a
-    device-side sleep holds the stream, so the host never waits on it."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(hold_cycles)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        times.append((time.perf_counter() - t0) / n)
-        torch.cuda.synchronize()
-    return statistics.median(times) * 1e6
-
-
-def wall_ms(fn, n: int = 15) -> tuple[float, float]:
-    """Median ms of one call of fn on the host's clock, from an idle device
-    to the call's return and to the device's end."""
-    back, done = [], []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        back.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        done.append(time.perf_counter() - t0)
-    return statistics.median(back) * 1e3, statistics.median(done) * 1e3
+from ab_common import digest, host_us, load, wall_ms, write
 
 
 def runs_ms(isect, c, smoke, runs=(4, 8, 16, 1024)) -> dict:
@@ -95,13 +58,7 @@ def runs_ms(isect, c, smoke, runs=(4, 8, 16, 1024)) -> dict:
 
 
 def main(tree: Path, out: Path, frames_only: bool) -> int:
-    sys.path.insert(0, str(tree))
-    here = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("smoke",
-                                                  here / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    import raytpu_torch
+    smoke = load(tree, "occlusion_ab")
     from raytpu_torch import load_stl
     from raytpu_torch.core.stl import procedural_stl_text
     from raytpu_torch.parallel import (
@@ -110,13 +67,7 @@ def main(tree: Path, out: Path, frames_only: bool) -> int:
         shutdown_distributed,
     )
     from raytpu_torch.parallel import render as pr
-    if not torch.cuda.is_available():
-        raise SystemExit("occlusion_ab: no CUDA device")
-    if not Path(raytpu_torch.__file__).resolve().is_relative_to(tree):
-        raise SystemExit(f"occlusion_ab: raytpu_torch is not {tree}'s")
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    smoke.OUT.mkdir(parents=True, exist_ok=True)
     stl_path = smoke.OUT / "occlusion_ab_torus.stl"
     stl_path.write_text(procedural_stl_text())
     mesh9028 = load_stl(str(stl_path), device=dev)
@@ -156,8 +107,7 @@ def main(tree: Path, out: Path, frames_only: bool) -> int:
                 share=busy["share"], img=digest(img))
             print(name, record["frames"][name], flush=True)
     shutdown_distributed()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(record, indent=1))
+    write(out, record)
     return 0
 
 
