@@ -389,6 +389,14 @@ FLOPS_PLANE_TEST, FLOPS_FWD_SHADE, FLOPS_BWD_HIT = 20, 50, 180
 # |D| kRejectUV and the sum U + V; its 8 comparisons count not at all, as
 # above, so a test it decides costs less than the plane test's 20.
 FLOPS_REJECT = 15 + 3  # FLOPS_DOTS + 3
+# The closest-hit sweeps' cull (csrc/intersect.cu::box_reject):
+# a (box, triangle) decision forms Dn, U and V at two corners of the box
+# (30) and one sum and one product; their comparisons count not at all. A
+# warp's survivor then costs each of its rays the reject without its t <
+# 0.99 clause (primary_reject: the 15 of the dot products, a sum, a
+# product) and, where that leaves the test open, a plane test besides.
+FLOPS_PRIMARY_CULL = 30 + 2
+FLOPS_PRIMARY_REJECT = 15 + 2
 # The raster kernels' pixel-triangle test (raster.cu::sweep): four planes
 # of two multiplies and two adds.
 FLOPS_RASTER_TEST = 16
@@ -915,12 +923,39 @@ def stl_case(dev, scene, camera, size: int, lights, samples: int,
     return case
 
 
+def hit_cases(dev, mesh9028) -> dict:
+    """The closest-hit kernels' main-path inputs (stl_case): the bench's
+    stl_intersect row, K5 and K7d (`bench.py:679-719`: 512^2, the mesh
+    padded to 9,216, the rasteriser camera); the sharded renderer's
+    Cornell sub-ray, K5 on one chunk (phase 30: 512^2, the box padded to
+    32, the raytracer's camera; no mask); the render --stl frame, K7a:
+    500^2, 9,028 triangles, one light (S = 1) at the AA sub-ray (-0.5,
+    0.5), and the full-feature sources, 2 lights x 16 samples (S = 32)."""
+    from raytpu_torch import Camera, Lights, cornell_box
+    cornell = stl_case(dev, cornell_box(pad_to=32, device=dev),
+                       Camera.raytracer_default(device=dev), 512, None, 1,
+                       (0.0, 0.0))
+    del cornell["mask"]
+    return {
+        "stl_intersect_512": stl_case(
+            dev, mesh9028.pad_to(9216), Camera.rasterizer_default(device=dev),
+            512, None, 1, (0.0, 0.0)),
+        "cornell_512": cornell,
+        "render_stl_500_s1": stl_case(
+            dev, mesh9028, stl_camera(dev), 500,
+            Lights.single(capacity=1, device=dev), 1, (-0.5, 0.5)),
+        "render_stl_500_s32": stl_case(
+            dev, mesh9028, stl_camera(dev), 500, full_feature_lights(dev), 16,
+            (-0.5, -0.5)),
+    }
+
+
 def run_stl(case: dict, kernel: str, mask=None, plain: bool = False):
     """K5, K7d or K7a (``kernel``) on an stl_case through its wrapper, or
     its plain version; ``mask`` overrides the case's keep-mask."""
     from raytpu_torch.kernels import intersect as isect
     c = case
-    mask = c["mask"] if mask is None else mask
+    mask = c.get("mask") if mask is None else mask
     table, C = c["table"], c["C"]
     if kernel == "k5":
         return (isect.closest_reference(c["dirs"], table[:10], C) if plain
@@ -941,6 +976,58 @@ def run_stl(case: dict, kernel: str, mask=None, plain: bool = False):
         c["cam"], c["src"], mask, c["tiles"])
 
 
+def primary_work(dirs, table, C: int, mask, tiles) -> dict:
+    """The closest-hit sweep's work under the cull (K5: mask None, its runs
+    of 256 rays; K7d and K7a's primary half: the mask's first Tp / C
+    columns over ``tiles``), from the plain forms on these tensors
+    (kernels/intersect.py::primary_cull_decisions, shadow_reject without
+    t < 0.99): ``walked`` the (tile, triangle) pairs of the kept chunks the
+    tiles of a valid ray decide, ``tile_kept`` those that survive,
+    ``warp_tests`` the (warp, survivor) pairs its warps of a valid ray
+    decide, ``warp_kept`` those that survive, ``tests`` the (ray, survivor
+    of its warp) tests, ``rejected`` those the reject decides; and
+    ``before``, the tests of the sweep before the cull (every ray of a
+    tile against every triangle of its kept chunks)."""
+    from raytpu_torch.kernels import intersect as isect
+    R, Tp = dirs.shape[0], table.shape[1]
+    if mask is None:
+        tiles = isect.ray_tiles(R, None, dirs.device)
+    dec = isect.primary_cull_decisions(dirs, table, tiles)
+    nt = tiles.count
+    kept = (torch.ones((nt, Tp), dtype=torch.bool, device=dirs.device)
+            if mask is None else
+            mask[:, :Tp // C].bool().repeat_interleave(C, dim=1))
+    lanes = isect._tile_slots_valid(tiles).reshape(nt, 8, 32).sum(dim=2)
+    walked = kept & (lanes.sum(dim=1) > 0)[:, None]
+    tile_kept = walked & ~dec[:, 0]
+    warp_kept = tile_kept[:, None, :] & ~dec[:, 1:] & (lanes > 0)[..., None]
+    n_tile = tile_kept.sum(dim=1)
+    warp = isect.ray_warps(tiles)
+    surv = warp_kept.reshape(nt * 8, Tp)
+    rejected = 0
+    for lo in range(0, Tp, C):
+        m, k0 = isect._chunk(table, 0, lo // C, C)
+        rej = isect.shadow_reject(dirs, m, k0, below_t=False)
+        rejected += int((rej & surv[warp, lo:lo + C]).sum())
+        del rej
+    return dict(walked=int(walked.sum()), tile_kept=int(n_tile.sum()),
+                warp_tests=int((n_tile[:, None] * (lanes > 0)).sum()),
+                warp_kept=int(warp_kept.sum()),
+                tests=int((warp_kept.sum(dim=2) * lanes).sum()),
+                rejected=rejected,
+                before=int((kept.sum(dim=1) * lanes.sum(dim=1)).sum()))
+
+
+def primary_work_line(w: dict) -> str:
+    return (f"the tiles decide {w['walked']} (tile, triangle) pairs and keep "
+            f"{w['tile_kept']} ({w['tile_kept'] / max(1, w['walked']):.5f}), "
+            f"the warps decide {w['warp_tests']} and keep {w['warp_kept']} "
+            f"({w['warp_kept'] / max(1, w['warp_tests']):.4f}); {w['tests']}"
+            f" ray tests of {w['before']} before the cull "
+            f"({w['tests'] / max(1, w['before']):.6f}), {w['rejected']} "
+            f"decided by the reject")
+
+
 def stl_work(case: dict, kernel: str) -> dict:
     """Plane tests K5, K7d or K7a make on an stl_case: every ray against
     every column (K5); each tile's real rays against its kept chunks'
@@ -958,11 +1045,15 @@ def stl_work(case: dict, kernel: str) -> dict:
     tiles, C, n = c["tiles"], c["C"], c["n_chunks"]
     R = c["dirs"].shape[0]
     if kernel == "k5":
-        return dict(primary=R * c["table"].shape[1], shadow=0, keep=1.0)
+        return dict(primary=R * c["table"].shape[1], shadow=0, keep=1.0,
+                    cull=primary_work(c["dirs"], c["table"][:10], C, None,
+                                      None))
     rays = torch.bincount(tiles.tile, minlength=tiles.count)
     pmask = c["mask"][:, :n].long()
     work = dict(primary=int((pmask.sum(dim=1) * rays).sum()) * C, shadow=0,
-                keep=float(pmask.float().mean()))
+                keep=float(pmask.float().mean()),
+                cull=primary_work(c["dirs"], c["table"][:10], C, c["mask"],
+                                  tiles))
     if kernel == "k7d":
         return work
     work["shadow_keep"] = float(c["mask"][:, n:].float().mean())
@@ -1018,25 +1109,38 @@ def stl_work(case: dict, kernel: str) -> dict:
     return work
 
 
-def stl_bound(case: dict, kernel: str, work: dict,
-              reject: bool = True) -> tuple[float, str]:
+def stl_bound(case: dict, kernel: str, work: dict, reject: bool = True,
+              cull: bool = True) -> tuple[float, str]:
     """K5's, K7d's or K7a's bound: 12 B in and 8 + 4 S B out a ray, the
-    table and the mask read once, FLOPS_PLANE_TEST a plane test of
-    stl_work; K7a's shadow tests FLOPS_REJECT each and, where the reject
-    does not decide, a plane test besides (``reject`` False: every test a
-    plane test, the count before K7a's reject)."""
+    table and the mask read once; the primary sweep's cull
+    (stl_work's ``cull``, primary_work): FLOPS_PRIMARY_CULL a (tile,
+    triangle) and a (warp, survivor) decision, FLOPS_PRIMARY_REJECT a
+    test of a warp's survivors and a plane test besides where the reject
+    leaves it open (``cull`` False: FLOPS_PLANE_TEST a test of every ray
+    against every triangle of its tile's kept chunks, the count before the
+    cull); K7a's shadow tests FLOPS_REJECT each and, where the reject does
+    not decide, a plane test besides (``reject`` False: every test of both
+    sweeps a plane test, the count before K7a's reject)."""
     c = case
     R, S = c["dirs"].shape[0], c["src"].shape[0]
     nbytes = R * (12 + 8 + 4 * S) + c["table"].numel() * 4 + (3 + 3 * S) * 4
     if kernel != "k5":
         nbytes += (c["mask"].numel() if kernel == "k7a"
                    else c["tiles"].count * c["n_chunks"]) * 4
-    flops = FLOPS_PLANE_TEST * (work["primary"] + work["shadow"])
-    if kernel == "k7a" and reject:
-        flops = (FLOPS_PLANE_TEST * (work["primary"] + work["shadow"]
-                                     - work["rejected"])
-                 + FLOPS_REJECT * work["shadow"])
-    return bound_ms(nbytes, flops)
+    if not reject:
+        return bound_ms(nbytes, FLOPS_PLANE_TEST * (work["primary"]
+                                                    + work["shadow"]))
+    primary = FLOPS_PLANE_TEST * work["primary"]
+    if cull:
+        w = work["cull"]
+        primary = (FLOPS_PRIMARY_CULL * (w["walked"] + w["warp_tests"])
+                   + FLOPS_PRIMARY_REJECT * w["tests"]
+                   + FLOPS_PLANE_TEST * (w["tests"] - w["rejected"]))
+    shadow = 0
+    if kernel == "k7a":
+        shadow = (FLOPS_PLANE_TEST * (work["shadow"] - work["rejected"])
+                  + FLOPS_REJECT * work["shadow"])
+    return bound_ms(nbytes, primary + shadow)
 
 
 def kernel_counts() -> dict:
@@ -5607,22 +5711,7 @@ def main() -> int:
         "card")
     from raytpu_torch import load_stl
     mesh = load_stl(str(stl_path), device=dev)  # 9,028 triangles
-    stl_cases = {
-        # The bench's stl_intersect row (`bench.py:679-719`): 512^2, the
-        # mesh padded to 9,216, the rasteriser camera: K5 and K7d.
-        "stl_intersect_512": stl_case(
-            dev, mesh.pad_to(9216), Camera.rasterizer_default(device=dev),
-            512, None, 1, (0.0, 0.0)),
-        # The render --stl frame: 500^2, 9,028 triangles, one light (S = 1)
-        # at the AA sub-ray (-0.5, 0.5): K7a.
-        "render_stl_500_s1": stl_case(
-            dev, mesh, stl_camera(dev), 500,
-            Lights.single(capacity=1, device=dev), 1, (-0.5, 0.5)),
-        # The full-feature sources, 2 lights x 16 samples (S = 32): K7a.
-        "render_stl_500_s32": stl_case(
-            dev, mesh, stl_camera(dev), 500, full_feature_lights(dev), 16,
-            (-0.5, -0.5)),
-    }
+    stl_cases = hit_cases(dev, mesh)
     stl_err = {"k5": 0.0, "k7d": 0.0, "k7a": 0.0}
     stl_keep = {}
 
@@ -5653,6 +5742,36 @@ def main() -> int:
         hit = want[1] >= 0
         stl_err[key] = float((got[0][hit] - want[0][hit]).abs().max())
     del k5_again, k7d_again, k7d_ones, p5, p7d
+
+    # The cull: the card's decisions on every (tile,
+    # triangle) and (warp, triangle) pair against their plain form on the
+    # same tensors, and plane_test on every ray of every culled pair (the
+    # probe kernel): K5's tiles and K7d's on the row, K7a's at 500^2.
+    cull_probe = {}
+    for name, tiled in (("stl_intersect_512", False),
+                        ("stl_intersect_512", True),
+                        ("render_stl_500_s1", True)):
+        c = stl_cases[name]
+        tiles = c["tiles"] if tiled else None
+        dec, counts = isect.primary_cull_probe(c["dirs"], c["table"][:10],
+                                               tiles)
+        want = isect.primary_cull_decisions(
+            c["dirs"], c["table"][:10], tiles if tiled else isect.ray_tiles(
+                c["dirs"].shape[0], None, dev))
+        torch.cuda.synchronize()
+        key = f"{name}_{'16x16' if tiled else 'runs'}"
+        cull_probe[key] = dict(
+            tile_culled=int(counts[0]), warp_culled=int(counts[1]),
+            tile_pairs=int(dec[:, 0].numel()),
+            warp_pairs=int(dec[:, 1:].numel()),
+            ok_culled=int(counts[2]) + int(counts[3]),
+            plain_equal=bool(torch.equal(dec, want)))
+        say(f"cull probe on the card, {key}: {cull_probe[key]}")
+        require(cull_probe[key]["ok_culled"] == 0,
+                f"{key}: the cull culls no pair plane_test calls ok")
+        require(cull_probe[key]["plain_equal"],
+                f"{key}: the card's cull decisions = their plain form")
+        del dec, want
 
     for name in ("render_stl_500_s1", "render_stl_500_s32"):
         c = stl_cases[name]
@@ -5704,6 +5823,7 @@ def main() -> int:
                 f"{name}: the reject rejects no blocking test")
         require(reject_share[name] > 0.99, f"{name}: the reject decides "
                                            f"nearly every shadow test")
+        say(f"K7a primary cull, {name}: {primary_work_line(w['cull'])}")
     c = stl_cases["render_stl_500_s32"]
     rng = np.random.default_rng(25)
     hit_rays = torch.nonzero(c["out"][1] >= 0).squeeze(1)
@@ -5764,6 +5884,7 @@ def main() -> int:
     say(f"VJP of t at T = 9,028 vs float64: {', '.join(stl_vjp)}; two "
         f"backward calls bit-identical True")
     record.update(stl_err=stl_err, stl_keep=stl_keep, stl_vjp=stl_vjp,
+                  cull_probe=cull_probe,
                   reject_share=reject_share, reject_probe=probe)
 
     say("== phase 24: the hard raytracer at STL scale serving (the render "
@@ -5942,6 +6063,7 @@ def main() -> int:
     stl_k = {}
     for name, kernel in (("stl_intersect_512", "k5"),
                          ("stl_intersect_512", "k7d"),
+                         ("cornell_512", "k5"),
                          ("render_stl_500_s1", "k7a"),
                          ("render_stl_500_s32", "k7a")):
         c = stl_cases[name]
@@ -5983,7 +6105,8 @@ def main() -> int:
                               c, k, plain=True)}, n=1, reps=3)["plain"])
         work = c["work"] if kernel == "k7a" else stl_work(c, kernel)
         t.update(work=work, bound=stl_bound(c, kernel, work),
-                 bound_old=stl_bound(c, kernel, work, reject=False))
+                 bound_old=stl_bound(c, kernel, work, reject=False),
+                 bound_pre_cull=stl_bound(c, kernel, work, cull=False))
         stl_k[f"{kernel}_{name}"] = t
         del outs
         torch.cuda.empty_cache()
@@ -5992,8 +6115,10 @@ def main() -> int:
         w = t["work"]
         say(f"{key} alone: {t['kernel']:.4f} ms device time (plain "
             f"{t['plain']:.4f} ms back to back; bound {t['bound'][0]:.4f} "
-            f"ms, {t['bound'][1]}: {w['primary']} primary and {w['shadow']} "
-            f"shadow plane tests, primary keep rate {w['keep']:.4f}) ({card})")
+            f"ms, {t['bound'][1]}; before the cull {t['bound_pre_cull'][0]:.4f}"
+            f" ms: {w['primary']} primary and {w['shadow']} shadow plane "
+            f"tests, primary keep rate {w['keep']:.4f}) ({card})")
+        say(f"{key} cull: {primary_work_line(w['cull'])}")
         if key.startswith("k7a"):
             say(f"{key} halves: primary {t['primary']:.4f} ms, shadow "
                 f"{t['shadow']:.4f} ms device time; {w['rejected']} shadow "
@@ -6433,18 +6558,26 @@ def main() -> int:
         return entry
 
     def stl_entry(name: str, key: str, case: str, launches: int,
-                  replaces: str, s32=None) -> dict:
+                  replaces: str, s32=None, t32=None) -> dict:
         """K5's, K7d's or K7a's entry: its launches on the main path (the
         stl_intersect row's call; K7a: phase 24's serving), its t error
-        against plain, its times and bound on its phase 25 case (K7a: the
-        render --stl sub-ray, S = 1, and the S = 32 sources beside)."""
+        against plain, its times and bounds on its phase 25 case (K7a: the
+        render --stl sub-ray, S = 1, and the S = 32 sources beside; K5:
+        ``t32``, phase 30's launches and the time on its Cornell sub-ray)."""
         t = stl_k[case]
         entry = dict(name=name, route="cuda",
                      source="raytpu_torch/csrc/intersect.cu",
                      replaces=replaces, launches=launches,
                      max_abs_err=stl_err[key], ms=t["kernel"],
                      plain_ms=t["plain"], bound_ms=t["bound"][0],
-                     bound_by=t["bound"][1], library_ms=None)
+                     bound_by=t["bound"][1], library_ms=None,
+                     bound_pre_cull_ms=t["bound_pre_cull"][0],
+                     cull=t["work"]["cull"])
+        if t32 is not None:
+            entry["t32"] = dict(launches=t32[0], ms=t32[1]["kernel"],
+                                plain_ms=t32[1]["plain"],
+                                bound_ms=t32[1]["bound"][0],
+                                bound_by=t32[1]["bound"][1])
         if s32 is not None:
             entry["s32"] = dict(ms=s32["kernel"], plain_ms=s32["plain"],
                                 bound_ms=s32["bound"][0],
@@ -6548,7 +6681,9 @@ def main() -> int:
                   replaces="raytpu/kernels/soft_raytrace_pallas.py:974"),
         stl_entry("closest_hit", "k5", "k5_stl_intersect_512",
                   row_launches["brute"][k5n],
-                  replaces="raytpu/kernels/intersect_pallas.py:89"),
+                  replaces="raytpu/kernels/intersect_pallas.py:89",
+                  t32=(record["sharded_serve"]["closest_hit"],
+                       stl_k["k5_cornell_512"])),
         stl_entry("closest_hit_masked", "k7d", "k7d_stl_intersect_512",
                   row_launches["culled"][k7dn],
                   replaces="raytpu/kernels/intersect_pallas.py:1128"),

@@ -85,33 +85,44 @@
 // closest_reference, closest_masked_reference, occluded_masked_reference)
 // on the card bit for bit.
 //
-// Several chunks (K5, K7d). The TPU kernels' (ray tile, chunk) grid,
-// whose VMEM scratch carries the running best from one grid step to the
-// next, becomes a loop inside the block: one thread a ray, one block of 256
-// rays a ray tile (16 x 16 pixels of an image, or 256 consecutive rays of a
-// list: the port's tiles, kernels/intersect.py::ray_tiles), and for each
-// chunk in order the block reads the tile's keep bit (block-uniform) and,
-// for a kept chunk, stages the chunk's 10 x C constants (5 KB) in shared
-// memory and runs the closest-hit update on them. The running best stays
-// in registers; `<=` over the triangles in order makes the last index win
-// ties, within a chunk and across chunks, as the JAX kernels' chunk min
-// with `upd = chunk_min <= best_t` does. A culled chunk holds no hit for
-// any ray of its tile (the mask is conservative), so t and idx equal the
-// brute sweep's.
+// Several chunks (K5, K7d), redesigned for Hopper. The TPU kernels'
+// (ray tile, chunk) grid, whose VMEM scratch carries the running best from
+// one grid step to the next, becomes closest_cull_kernel: one thread a ray,
+// a block of 256 rays for a ray tile (16 x 16 pixels of an image, or 256
+// consecutive rays of a list: the port's tiles,
+// kernels/intersect.py::ray_tiles) and a run of the chunks the tile keeps
+// (K5 every chunk, one run). On a mesh nearly every (ray, triangle) test
+// is a miss that no ray of a tile can pass, so the block first culls: it
+// bounds its rays' directions by a box, and each thread decides one
+// triangle of a pass of 256 against it exactly (box_reject: plane_test's
+// own sums at the box's corners, rounding being monotone); the survivors
+// are compacted in triangle order into shared memory, triangle-major (44
+// bytes each), and each warp then decides them again against its own
+// 32 rays' box and sweeps what stays, each test through the exact reject
+// (primary_reject, K7a's shadow reject without its t < 0.99 clause) and
+// plane_test's verdict from the same sums only where the reject leaves it
+// open. A culled or rejected test is one whose ok is false, so `<=` over
+// the survivors in order gives the brute sweep's t, and its idx wherever t
+// is not F32MAX (the last index wins ties within a chunk and across
+// chunks, as the JAX kernels' chunk min with `upd = chunk_min <= best_t`
+// does). A chunk the mask leaves out holds no hit for any ray of its tile
+// (the mask is conservative), so t and idx equal the brute sweep's. K7d's
+// few tiles that see a mesh hold nearly all its work, so a tile's kept
+// chunks are cut into runs of at most PRIMARY_RUN (kernels/intersect.py),
+// a block each; the block that finishes a tile's last run folds each ray's
+// runs in run order with `<=`, the sweep's own fold. A tile of few kept
+// chunks is one run and writes its outputs at once: no partials, no
+// second launch.
 //
 // K7a on Hopper. On an STL frame only the few tiles that see the mesh
 // hold work (on the 9,028-triangle mesh at 500^2, 7% of the rays hit), so
 // a block a tile would leave most of the card idle. K7a therefore runs
 // four kernels, one call:
-// - k7a_primary_kernel, a block a (tile, run): the tile's kept primary
-//   chunks are split into PRIMARY_RUNS runs by rank among the kept ones,
-//   each swept as above into partial (t, idx);
-// - k7a_merge_kernel, a block a tile: each ray folds its runs' partials in
-//   run order with `<=`, which is the sweep's own fold (the minimum, and the
-//   last index of it, since later runs hold later chunks); then the tile's
-//   hit rays are packed into full warps in ray order (ballot and prefix
-//   count) with their hit positions, and the tile's warps of hit rays are
-//   listed;
+// - closest_cull_kernel<true>, a block a (tile, run): K7d's sweep of the
+//   tile's kept primary chunks, and its fold, into t and idx;
+// - k7a_pack_kernel, a block a tile: the tile's hit rays are packed into
+//   full warps in ray order (ballot and prefix count) with their hit
+//   positions, and the tile's warps of hit rays are listed;
 // - k7a_pack_tris_kernel copies the S shadow blocks triangle-major, 48
 //   bytes a triangle, so a test reads its constants in three loads (two of
 //   16 bytes, one of 8), not ten;
@@ -168,18 +179,20 @@
 // against 12 B in and 4 S B out a point: operations
 // (chip_smoke.py::occlusion_bound).
 //
-// Bound of K5 at 512^2 x 9,216 triangles: 2.42 G plane tests of ~20 float
-// operations, 0.72 ms at 67 TFLOP/s against 12 + 8 B a ray and 0.37 MB of
-// table: bound by operations. The culled kernels do the kept (tile, chunk)
-// pairs' share of that. What the design does about it: the constants are
-// read from shared memory as broadcasts, two barriers a kept chunk, no
-// atomics, and a kept chunk costs one global read of 5 KB a block. K7a's
+// Bound of K5, K7d and K7a's primary sweep (chip_smoke.py::stl_bound):
+// FLOPS_PRIMARY_CULL (32: the three sums at two corners, a sum and a
+// product) a (tile, triangle) pair the tile decides and a (warp, triangle)
+// pair of the tile's survivors the warp decides, FLOPS_PRIMARY_REJECT (17)
+// a test of the warp's survivors by each of its valid rays, and a plane
+// test's 20 more where the reject leaves the test open, against 12 + 8 B
+// a ray and the table and mask read once. Before the cull K5 at 512^2 x
+// 9,216 triangles did 2.42 G plane tests, 0.72 ms at 67 TFLOP/s. K7a's
 // shadow tests that the reject decides cost its 18 operations (15 for the
 // dot products, 3 products and sums; its comparisons count not at all),
-// the others those and a plane test's 20: bound by operations
-// (chip_smoke.py::stl_bound).
+// the others those and a plane test's 20: bound by operations.
 
 #include <cfloat>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -213,49 +226,6 @@ __device__ __forceinline__ TileRay tile_slot(int tile, int k, int H, int W,
 // The ray of this thread: block b is tile b.
 __device__ __forceinline__ TileRay tile_ray(int H, int W, int th) {
   return tile_slot(blockIdx.x, threadIdx.x, H, W, th);
-}
-
-// Copy chunk c of the 10-row constant block at `blk` (row stride Tp) into
-// shared memory as a 10 x C block.
-__device__ __forceinline__ void stage(float* s_blk,
-                                      const float* __restrict__ blk, int Tp,
-                                      int C, int c) {
-  for (int k = threadIdx.x; k < kBlockRows * C; k += kThreads) {
-    const int row = k / C;
-    s_blk[k] = blk[static_cast<size_t>(row) * Tp +
-                   static_cast<size_t>(c) * C + (k - row * C)];
-  }
-}
-
-// The primary sweep over the chunks of the block at `table`: for each
-// chunk the tile keeps (keep == nullptr: every chunk), the running
-// closest hit with `<=`. Every thread of the block calls it (barriers).
-__device__ __forceinline__ void sweep_chunks(const float* __restrict__ table,
-                                             int Tp, int C,
-                                             const int* __restrict__ keep,
-                                             float* s_blk, bool valid,
-                                             float dx, float dy, float dz,
-                                             float* best_t, int* best_i) {
-  float bt = FLT_MAX;
-  int bi = -1;
-  const int n_chunks = Tp / C;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (keep != nullptr && keep[c] == 0) continue;  // block-uniform
-    __syncthreads();  // the previous chunk is read
-    stage(s_blk, table, Tp, C, c);
-    __syncthreads();
-    if (!valid) continue;
-    for (int i = 0; i < C; ++i) {
-      const PlaneHit p = plane_test(s_blk, C, i, dx, dy, dz);
-      const float tm = p.ok ? p.t : FLT_MAX;
-      if (tm <= bt) {
-        bt = tm;
-        bi = c * C + i;
-      }
-    }
-  }
-  *best_t = bt;
-  *best_i = bi;
 }
 
 // Primary closest hit over the block at `blk`; `<=` lets the last of equal
@@ -326,35 +296,10 @@ __global__ void __launch_bounds__(kThreads)
   occ_out[r] = occ ? 1 : 0;
 }
 
-template <bool Masked>
-__global__ void __launch_bounds__(kThreads)
-    closest_hit_kernel(const float* __restrict__ dirs,
-                       const float* __restrict__ table, int Tp, int C,
-                       const int* __restrict__ mask, int mask_stride, int H,
-                       int W, int th, float* __restrict__ t_out,
-                       int* __restrict__ idx_out) {
-  __shared__ float s_blk[kBlockRows * kMaxTris];
-  const TileRay ray = tile_ray(H, W, th);
-  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  if (ray.valid) {
-    dx = dirs[3 * ray.r];
-    dy = dirs[3 * ray.r + 1];
-    dz = dirs[3 * ray.r + 2];
-  }
-  const int* keep =
-      Masked ? mask + static_cast<size_t>(blockIdx.x) * mask_stride : nullptr;
-  float best_t;
-  int best_i;
-  sweep_chunks(table, Tp, C, keep, s_blk, ray.valid, dx, dy, dz, &best_t,
-               &best_i);
-  if (!ray.valid) return;
-  t_out[ray.r] = best_t;
-  idx_out[ray.r] = best_t < FLT_MAX ? best_i : -1;
-}
-
 // ---------------------------------------------------------------------------
-// K7a: the primary sweep in runs of kept chunks, their ordered merge and the
-// packing of each tile's hit rays, then the shadow sweeps a warp a work item.
+// K5, K7d and K7a: the exact reject, the culled primary sweep in runs of
+// kept chunks folded in order, K7a's packing of each tile's hit rays, then
+// its shadow sweeps a warp a work item.
 
 constexpr int kTileWarps = kThreads / 32;  // warps of a 256-ray tile
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -413,16 +358,29 @@ __device__ __forceinline__ float flip_by(float x, float Dn) {
 // guard) falls through to plane_test. kernels/intersect.py::shadow_reject
 // is the plain form; the card enumerates it against plane_test
 // (raytpu_shadow_reject_probe). It takes Dn = -D (shadow_dots), so that D
-// itself is never formed.
-__device__ __forceinline__ bool shadow_reject(float Dn, float U, float V,
-                                              float K) {
+// itself is never formed. kBelowT false drops the t >= 0.99 clause, which
+// only a shadow test fails by: every other clause implies plane_test's ok
+// is false, which is the primary sweep's reject (primary_reject).
+template <bool kBelowT>
+__device__ __forceinline__ bool reject_test(float Dn, float U, float V,
+                                            float K) {
   const float Ds = fabsf(Dn);
   const float Us = flip_by(U, Dn), Vs = flip_by(V, Dn), Ks = flip_by(K, Dn);
   const bool guard = (Ds >= kRejectMinD) & (Ds <= kRejectMaxD);
   const bool miss = (Us < -kRejectEps) | (Vs < -kRejectEps) |
-                    (Ks < -kRejectEps) | (Ks >= Ds * kRejectT) |
+                    (Ks < -kRejectEps) | (kBelowT & (Ks >= Ds * kRejectT)) |
                     (Us + Vs > Ds * kRejectUV);
   return (Dn == 0.0f) | (guard & miss);
+}
+
+__device__ __forceinline__ bool shadow_reject(float Dn, float U, float V,
+                                              float K) {
+  return reject_test<true>(Dn, U, V, K);
+}
+
+__device__ __forceinline__ bool primary_reject(float Dn, float U, float V,
+                                               float K) {
+  return reject_test<false>(Dn, U, V, K);
 }
 
 // The kept chunks of one keep-mask row (n columns; null: every chunk kept)
@@ -462,16 +420,253 @@ __device__ __forceinline__ int run_edge(int k, int j, int runs) {
   return static_cast<int>(static_cast<long long>(k) * j / runs);
 }
 
-// K7a's primary sweep: block (tile, j) sweeps run j of the tile's kept
-// primary chunks (the mask's first n_chunks columns) as sweep_chunks does,
-// and writes its (t, idx) to the partials of run j.
+// ---------------------------------------------------------------------------
+// K5, K7d and K7a's primary half: the exact per-tile triangle cull.
+
+// A box of ray directions: lo and hi of dx, dy and dz over the valid lanes
+// of a group (a warp, or the 256 rays of a tile); `any` where the group
+// holds a valid lane, `finite` where every valid lane's direction is.
+struct DirBox {
+  float lo[3], hi[3];
+  bool any, finite;
+};
+
+// The box of this warp's valid lanes, known to every lane.
+__device__ __forceinline__ DirBox warp_box(bool valid, float dx, float dy,
+                                           float dz) {
+  DirBox b;
+  const float d[3] = {dx, dy, dz};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float lo = valid ? d[k] : INFINITY, hi = valid ? d[k] : -INFINITY;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = fminf(lo, __shfl_xor_sync(kFullMask, lo, o));
+      hi = fmaxf(hi, __shfl_xor_sync(kFullMask, hi, o));
+    }
+    b.lo[k] = lo;
+    b.hi[k] = hi;
+  }
+  b.any = __any_sync(kFullMask, valid);
+  b.finite = __all_sync(kFullMask, !valid || (isfinite(dx) && isfinite(dy) &&
+                                              isfinite(dz)));
+  return b;
+}
+
+// The sum plane_test forms for the coefficient row (p, q, r),
+// fl(fl(fl(x p) + fl(y q)) + fl(z r)) in shadow_dots' order, at the corner
+// of the box where each product is largest (top) or smallest.
+__device__ __forceinline__ float corner_dot(const DirBox& b, float p, float q,
+                                            float r, bool top) {
+  const float x = (p >= 0.0f) == top ? b.hi[0] : b.lo[0];
+  const float y = (q >= 0.0f) == top ? b.hi[1] : b.lo[1];
+  const float z = (r >= 0.0f) == top ? b.hi[2] : b.lo[2];
+  return (x * p + y * q) + z * r;
+}
+
+// True where no ray of the box can pass plane_test on the triangle with
+// triangle-major constants a = (n, k0), b = (c2, c3.x), c = (c3.y, c3.z)
+// (kernels/intersect.py::primary_tile_reject is the plain form, op by op).
+//
+// Exact, with no margin. Rounding to nearest is monotone in each operand of
+// a product and of a sum, so over the box every lane's Dn, U and V (the
+// sums shadow_dots forms) lies between their values at the two corners
+// corner_dot picks, computed by the same expression. Where Dn keeps one
+// sign over the box and |Dn| lies in [2^-40, 2^40] at both ends, every
+// lane is inside the guard of reject_test with the same sign flip, and one
+// of its clauses holding at the bound holds at every lane: with Dn > 0
+// (Us = -U, Vs = -V, Ks = -K) min U > 2^-80, min V > 2^-80, K > 2^-80, or
+// fl(-max U - max V) > fl(max Dn kRejectUV), since each lane's fl(Us + Vs)
+// is at least the first and its fl(Ds kRejectUV) at most the second; with
+// Dn < 0 (Us = U) the mirror. Each of those clauses implies that
+// plane_test's ok is false (reject_test's argument; the t >= 0.99 clause
+// is a shadow test's and is not used). Where both bounds of Dn are 0,
+// every lane's Dn is 0 and plane_test's nonpar false: a zero (padding or
+// invalid) triangle, culled everywhere. A bound that overflows into an
+// infinity of the wrong sign, or a NaN, makes its comparison false. A box
+// with a non-finite component, or a non-finite coefficient, culls nothing;
+// a box of no valid lane culls everything.
+__device__ __forceinline__ bool box_reject(const DirBox& bx, float4 a,
+                                           float4 b, float2 c) {
+  if (!bx.any) return true;
+  if (!bx.finite ||
+      !(isfinite(a.x) && isfinite(a.y) && isfinite(a.z) && isfinite(a.w) &&
+        isfinite(b.x) && isfinite(b.y) && isfinite(b.z) && isfinite(b.w) &&
+        isfinite(c.x) && isfinite(c.y)))
+    return false;
+  const float d_hi = corner_dot(bx, a.x, a.y, a.z, true);
+  const float d_lo = corner_dot(bx, a.x, a.y, a.z, false);
+  if ((d_lo == 0.0f) & (d_hi == 0.0f)) return true;  // every Dn 0: nonpar
+  const bool pos = (d_lo >= kRejectMinD) & (d_hi <= kRejectMaxD);
+  const bool neg = (d_hi <= -kRejectMinD) & (d_lo >= -kRejectMaxD);
+  if (!(pos | neg)) return false;
+  const float u_hi = corner_dot(bx, b.x, b.y, b.z, true);
+  const float u_lo = corner_dot(bx, b.x, b.y, b.z, false);
+  const float v_hi = corner_dot(bx, b.w, c.x, c.y, true);
+  const float v_lo = corner_dot(bx, b.w, c.x, c.y, false);
+  if (pos)
+    return (u_lo > kRejectEps) | (v_lo > kRejectEps) | (a.w > kRejectEps) |
+           (-(u_hi + v_hi) > d_hi * kRejectUV);
+  return (u_hi < -kRejectEps) | (v_hi < -kRejectEps) | (a.w < -kRejectEps) |
+         (u_lo + v_lo > -d_lo * kRejectUV);
+}
+
+// The triangle-major constants of column i of a 10-row block at `blk` (row
+// stride Tp): (n, k0), (c2, c3.x), (c3.y, c3.z).
+__device__ __forceinline__ void load_tri(const float* __restrict__ blk,
+                                         int Tp, int i, float4* a, float4* b,
+                                         float2* c) {
+  const size_t s = static_cast<size_t>(Tp);
+  *a = make_float4(blk[i], blk[s + i], blk[2 * s + i], blk[9 * s + i]);
+  *b = make_float4(blk[3 * s + i], blk[4 * s + i], blk[5 * s + i],
+                   blk[6 * s + i]);
+  *c = make_float2(blk[7 * s + i], blk[8 * s + i]);
+}
+
+// Survivors of a tile's cull a block stages at most, and kept chunks of a
+// run it lists at once.
+constexpr int kCullCap = 768;
+constexpr int kListCap = 256;
+
+// The warps' boxes of a tile: lo and hi, and any | finite << 1.
+struct BoxSmem {
+  float box[kTileWarps][6];
+  int flags[kTileWarps];
+};
+
+struct CullSmem {
+  float4 a[kCullCap];
+  float4 b[kCullCap];
+  float2 c[kCullCap];
+  int tri[kCullCap];
+  int list[kListCap];
+  BoxSmem boxes;
+  int warp_n[2][kTileWarps];
+};
+
+// Each warp's box to shared memory (lane 0), to be combined after a
+// barrier by tile_box.
+__device__ __forceinline__ void put_box(BoxSmem& sm, const DirBox& b) {
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) != 0) return;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    sm.box[warp][k] = b.lo[k];
+    sm.box[warp][3 + k] = b.hi[k];
+  }
+  sm.flags[warp] = (b.any ? 1 : 0) | (b.finite ? 2 : 0);
+}
+
+// The tile's box, the union of its warps' (put_box).
+__device__ __forceinline__ DirBox tile_box(const BoxSmem& sm) {
+  DirBox t;
+  t.any = false;
+  t.finite = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    t.lo[k] = INFINITY;
+    t.hi[k] = -INFINITY;
+  }
+#pragma unroll
+  for (int w = 0; w < kTileWarps; ++w) {
+    t.any |= (sm.flags[w] & 1) != 0;
+    t.finite &= (sm.flags[w] & 2) != 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      t.lo[k] = fminf(t.lo[k], sm.box[w][k]);
+      t.hi[k] = fmaxf(t.hi[k], sm.box[w][3 + k]);
+    }
+  }
+  return t;
+}
+
+// One warp's sweep of the n survivors staged in sm, in triangle order: 32
+// at a time, lane i decides survivor g + i against the warp's own box, and
+// the warp then tests each that stays, every lane on its own ray (a
+// broadcast read): the exact reject first, plane_test's verdict from the
+// same sums where it leaves the test open, and `<=` (the last of equal t
+// wins). A test culled or rejected is one whose ok is false: leaving it out
+// moves idx only while t is still F32MAX, where idx ends as -1.
+__device__ __forceinline__ void sweep_survivors(const CullSmem& sm, int n,
+                                                const DirBox& wbox,
+                                                bool valid, float dx,
+                                                float dy, float dz,
+                                                float* bt, int* bi) {
+  if (!wbox.any) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  for (int g = 0; g < n; g += 32) {
+    const int e = g + lane;
+    const bool live = e < n && !box_reject(wbox, sm.a[e], sm.b[e], sm.c[e]);
+    unsigned bits = __ballot_sync(kFullMask, live);
+    while (bits != 0u) {
+      const int j = g + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const float4 a = sm.a[j];
+      float Dn, U, V;
+      shadow_dots(a, sm.b[j], sm.c[j], dx, dy, dz, &Dn, &U, &V);
+      if (valid && !primary_reject(Dn, U, V, a.w)) {
+        const PlaneHit p = plane_from_dots(Dn, U, V, a.w);
+        if (p.ok && p.t <= *bt) {
+          *bt = p.t;
+          *bi = sm.tri[j];
+        }
+      }
+    }
+  }
+}
+
+// Runs of a tile's k kept chunks with at most `run` chunks each: one where
+// k <= run, else ceil(k / run); run j holds the chunks of rank [j run,
+// j run + run).
+__host__ __device__ __forceinline__ int tile_runs(int k, int run) {
+  return k <= run ? 1 : (k + run - 1) / run;
+}
+
+// Where a tile of several runs leaves its runs' partial (t, idx), at
+// [j R + r] for run j and ray r, and counts its finished runs (done[tile],
+// zeroed before the launch).
+struct RunFold {
+  float* t_part;
+  int* i_part;
+  int* done;
+};
+
+// K5 (Masked false), K7d and K7a's primary sweep (true), a block a (tile,
+// run j): the rays of tile blockIdx.x (tile_ray: th x (256 / th) rays of
+// the H x W grid) against run j of the chunks the tile keeps (mask row
+// blockIdx.x, stride mask_stride, its first Tp / C columns; K5 every chunk,
+// one run): tile_runs' runs of at most `run` kept chunks, in order; a block
+// past the tile's runs leaves at once. The block walks the run's triangles
+// 256 a pass: each thread loads one (its 10 constants, coalesced) and
+// decides it against the tile's box (box_reject); a ballot and a popc
+// prefix over the warps append the survivors, in triangle order, to shared
+// memory (triangle-major, 44 bytes each); once kCullCap - 256 or more are
+// staged, and at the run's end, every warp sweeps them (sweep_survivors).
+// One barrier a pass, two a sweep. A tile of one run writes each ray's
+// best t and idx (-1 where t is F32MAX) to t_out, i_out. A tile of several
+// leaves each run's in `fold` and counts it done; the block that finishes
+// its tile's last run folds the runs of each ray in run order with `<=`
+// (the sweep's own fold: the last index keeps winning ties, later runs
+// holding later chunks) and writes t and idx: no second launch, and no
+// partial for the tiles of one run.
+template <bool Masked>
 __global__ void __launch_bounds__(kThreads)
-    k7a_primary_kernel(const float* __restrict__ dirs,
-                       const float* __restrict__ table, int Tp, int C,
-                       const int* __restrict__ mask, int mask_stride, int H,
-                       int W, int th, float* __restrict__ t_part,
-                       int* __restrict__ i_part) {
-  __shared__ float s_blk[kBlockRows * kMaxTris];
+    closest_cull_kernel(const float* __restrict__ dirs,
+                        const float* __restrict__ table, int Tp, int C,
+                        const int* __restrict__ mask, int mask_stride, int H,
+                        int W, int th, int run, RunFold fold,
+                        float* __restrict__ t_out, int* __restrict__ i_out) {
+  __shared__ CullSmem sm;
+  __shared__ int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_chunks = Tp / C;
+  const int* keep =
+      Masked ? mask + static_cast<size_t>(blockIdx.x) * mask_stride : nullptr;
+  const int k = Masked ? kept_count(keep, n_chunks) : n_chunks;
+  const int runs = Masked ? tile_runs(k, run) : 1;
+  if (static_cast<int>(blockIdx.y) >= runs) return;  // block-uniform
+  const int lo = blockIdx.y * run;
+  const int hi = runs == 1 ? k : min(k, lo + run);
   const TileRay ray = tile_ray(H, W, th);
   float dx = 0.0f, dy = 0.0f, dz = 0.0f;
   if (ray.valid) {
@@ -479,67 +674,126 @@ __global__ void __launch_bounds__(kThreads)
     dy = dirs[3 * ray.r + 1];
     dz = dirs[3 * ray.r + 2];
   }
-  const int n_chunks = Tp / C;
-  const int* keep = mask + static_cast<size_t>(blockIdx.x) * mask_stride;
-  const int k = kept_count(keep, n_chunks);
   float bt = FLT_MAX;
   int bi = -1;
-  // Every warp walks the same chunks, so the barriers are block-uniform.
-  for_kept_run(keep, n_chunks, run_edge(k, blockIdx.y, gridDim.y),
-               run_edge(k, blockIdx.y + 1, gridDim.y), [&](int c) {
-                 __syncthreads();  // the previous chunk is read
-                 stage(s_blk, table, Tp, C, c);
-                 __syncthreads();
-                 if (ray.valid) {
-                   for (int i = 0; i < C; ++i) {
-                     const PlaneHit p = plane_test(s_blk, C, i, dx, dy, dz);
-                     const float tm = p.ok ? p.t : FLT_MAX;
-                     if (tm <= bt) {
-                       bt = tm;
-                       bi = c * C + i;
-                     }
-                   }
-                 }
-                 return true;
-               });
-  if (!ray.valid) return;
-  const size_t at = static_cast<size_t>(blockIdx.y) * H * W + ray.r;
-  t_part[at] = bt;
-  i_part[at] = bi;
+  const DirBox wbox = warp_box(ray.valid, dx, dy, dz);
+  put_box(sm.boxes, wbox);
+  __syncthreads();
+  const DirBox tbox = tile_box(sm.boxes);
+  int n = 0, par = 0;     // survivors staged; warp_n's half this pass
+  int col = 0, rank = 0;  // Masked: the next mask column, kept chunks before
+  // Block-uniform: a tile of no valid ray, or an empty run, sweeps nothing.
+  for (bool more = tbox.any && lo < hi; more;) {
+    // This window's triangles: Masked, the next kListCap - 31 or fewer of
+    // the run's chunks, listed by every warp alike (warp 0 writes); else
+    // the run's chunks [lo, hi) at once.
+    int n_tri;
+    if (Masked) {
+      int n_list = 0;
+      while (col < n_chunks && rank < hi && n_list + 32 <= kListCap) {
+        const int cc = col + lane;
+        const bool kept = cc < n_chunks && keep[cc] != 0;
+        const unsigned bits = __ballot_sync(kFullMask, kept);
+        const int r = rank + __popc(bits & ((1u << lane) - 1u));
+        const int from = rank > lo ? rank : lo;
+        if (warp == 0 && kept && r >= lo && r < hi)
+          sm.list[n_list + r - from] = cc;
+        const int to = rank + __popc(bits) < hi ? rank + __popc(bits) : hi;
+        n_list += to > from ? to - from : 0;
+        rank += __popc(bits);
+        col += 32;
+      }
+      more = col < n_chunks && rank < hi;
+      __syncthreads();  // the list is in
+      n_tri = n_list * C;
+    } else {
+      more = false;
+      n_tri = (hi - lo) * C;
+    }
+    for (int q0 = 0; q0 < n_tri; q0 += kThreads) {
+      const int q = q0 + threadIdx.x;
+      bool surv = false;
+      float4 a, b;
+      float2 c;
+      int tri = 0;
+      if (q < n_tri) {
+        tri = Masked ? sm.list[q / C] * C + q % C : lo * C + q;
+        load_tri(table, Tp, tri, &a, &b, &c);
+        surv = !box_reject(tbox, a, b, c);
+      }
+      const unsigned bits = __ballot_sync(kFullMask, surv);
+      if (lane == 0) sm.warp_n[par][warp] = __popc(bits);
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < kTileWarps; ++w) {
+        const int m = sm.warp_n[par][w];
+        before += w < warp ? m : 0;
+        total += m;
+      }
+      if (surv) {
+        const int at = n + before + __popc(bits & ((1u << lane) - 1u));
+        sm.a[at] = a;
+        sm.b[at] = b;
+        sm.c[at] = c;
+        sm.tri[at] = tri;
+      }
+      n += total;
+      par ^= 1;
+      if (n > kCullCap - kThreads || q0 + kThreads >= n_tri) {
+        __syncthreads();  // the survivors are in
+        sweep_survivors(sm, n, wbox, ray.valid, dx, dy, dz, &bt, &bi);
+        __syncthreads();  // and read
+        n = 0;
+      }
+    }
+  }
+  if (runs == 1) {
+    if (ray.valid) {
+      t_out[ray.r] = bt;
+      i_out[ray.r] = bt < FLT_MAX ? bi : -1;
+    }
+    return;
+  }
+  const size_t R = static_cast<size_t>(H) * W;
+  if (ray.valid) {
+    fold.t_part[blockIdx.y * R + ray.r] = bt;
+    fold.i_part[blockIdx.y * R + ray.r] = bi;
+  }
+  __threadfence();  // the partials are seen before the count
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&fold.done[blockIdx.x], 1) == runs - 1;
+  __syncthreads();
+  if (!s_last || !ray.valid) return;
+  bt = FLT_MAX;
+  bi = -1;
+  for (int j = 0; j < runs; ++j) {
+    const float tj = __ldcg(&fold.t_part[j * R + ray.r]);
+    if (tj <= bt) {
+      bt = tj;
+      bi = __ldcg(&fold.i_part[j * R + ray.r]);
+    }
+  }
+  t_out[ray.r] = bt;
+  i_out[ray.r] = bt < FLT_MAX ? bi : -1;
 }
 
-// K7a's merge and packing, a block a tile: each ray folds its runs' (t,
-// idx) in run order with `<=` (the last index keeps winning ties), writes
-// t and idx, and the tile's hit rays are packed in ray order: hits[tile *
-// 256 + k] = (cam + t d, ray) for the k-th hit ray, n_hit[tile] their
-// count; the tile's warps of hit rays are appended to warp_list (tile * 8
-// + w, counted in counts[0]).
+// K7a's packing, a block a tile: the tile's hit rays (t < F32MAX) are
+// packed in ray order: hits[tile * 256 + k] = (cam + t d, ray) for the
+// k-th hit ray, n_hit[tile] their count, and the tile's warps of hit rays
+// are appended to warp_list (tile * 8 + w, counted in counts[0]).
 __global__ void __launch_bounds__(kThreads)
-    k7a_merge_kernel(const float* __restrict__ dirs,
-                     const float* __restrict__ cam, int H, int W, int th,
-                     int runs, const float* __restrict__ t_part,
-                     const int* __restrict__ i_part,
-                     float* __restrict__ t_out, int* __restrict__ idx_out,
-                     float4* __restrict__ hits, int* __restrict__ n_hit,
-                     int* __restrict__ warp_list, int* __restrict__ counts) {
+    k7a_pack_kernel(const float* __restrict__ dirs,
+                    const float* __restrict__ cam, int H, int W, int th,
+                    const float* __restrict__ t, float4* __restrict__ hits,
+                    int* __restrict__ n_hit, int* __restrict__ warp_list,
+                    int* __restrict__ counts) {
   __shared__ int s_warp[kTileWarps];
   const TileRay ray = tile_ray(H, W, th);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float bt = FLT_MAX;
-  int bi = -1;
-  if (ray.valid) {
-    for (int j = 0; j < runs; ++j) {
-      const size_t at = static_cast<size_t>(j) * H * W + ray.r;
-      const float tj = t_part[at];
-      if (tj <= bt) {
-        bt = tj;
-        bi = i_part[at];
-      }
-    }
-    t_out[ray.r] = bt;
-    idx_out[ray.r] = bt < FLT_MAX ? bi : -1;
-  }
-  const bool hit = ray.valid && bt < FLT_MAX;
+  const float bt = ray.valid ? t[ray.r] : FLT_MAX;
+  const bool hit = bt < FLT_MAX;
   const unsigned ballot = __ballot_sync(kFullMask, hit);
   if (lane == 0) s_warp[warp] = __popc(ballot);
   __syncthreads();
@@ -549,9 +803,9 @@ __global__ void __launch_bounds__(kThreads)
     total += s_warp[w];
   }
   if (hit) {
-    const int k = before + __popc(ballot & ((1u << lane) - 1u));
+    const int at = before + __popc(ballot & ((1u << lane) - 1u));
     // The hit position as the JAX kernel forms it, cam + tz * d.
-    hits[static_cast<size_t>(blockIdx.x) * kThreads + k] = make_float4(
+    hits[static_cast<size_t>(blockIdx.x) * kThreads + at] = make_float4(
         cam[0] + bt * dirs[3 * ray.r], cam[1] + bt * dirs[3 * ray.r + 1],
         cam[2] + bt * dirs[3 * ray.r + 2], __int_as_float(ray.r));
   }
@@ -564,6 +818,58 @@ __global__ void __launch_bounds__(kThreads)
         warp_list[at + w] = blockIdx.x * kTileWarps + w;
     }
   }
+}
+
+// The cull's probe, a block a tile (tile_ray's tiles): for every triangle
+// i of the block at `table` (10 rows, row stride Tp), the tile's and each
+// warp's decision (box_reject) to dec[(tile 9 + g) Tp + i] (g 0: the
+// tile, 1 + w: warp w), 1 where culled; counts[0] and [1] add the (tile,
+// triangle) and (warp, triangle) pairs culled, counts[2] and [3] the valid
+// lanes of those pairs whose plane_test on the table passes (ok): 0.
+__global__ void __launch_bounds__(kThreads)
+    primary_cull_probe_kernel(const float* __restrict__ dirs,
+                              const float* __restrict__ table, int Tp, int H,
+                              int W, int th, unsigned char* __restrict__ dec,
+                              unsigned long long* __restrict__ counts) {
+  __shared__ BoxSmem sm;
+  __shared__ unsigned long long s_n[4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const TileRay ray = tile_ray(H, W, th);
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (ray.valid) {
+    dx = dirs[3 * ray.r];
+    dy = dirs[3 * ray.r + 1];
+    dz = dirs[3 * ray.r + 2];
+  }
+  const DirBox wbox = warp_box(ray.valid, dx, dy, dz);
+  put_box(sm, wbox);
+  if (threadIdx.x < 4) s_n[threadIdx.x] = 0;
+  __syncthreads();
+  const DirBox tbox = tile_box(sm);
+  unsigned long long n[4] = {0, 0, 0, 0};
+  unsigned char* out = dec + static_cast<size_t>(blockIdx.x) * 9 * Tp;
+  for (int i = 0; i < Tp; ++i) {
+    float4 a, b;
+    float2 c;
+    load_tri(table, Tp, i, &a, &b, &c);
+    const bool t_rej = box_reject(tbox, a, b, c);
+    const bool w_rej = box_reject(wbox, a, b, c);
+    const bool ok = ray.valid && plane_test(table, Tp, i, dx, dy, dz).ok;
+    if (threadIdx.x == 0) {
+      out[i] = t_rej;
+      n[0] += t_rej;
+    }
+    if (lane == 0) {
+      out[static_cast<size_t>(1 + warp) * Tp + i] = w_rej;
+      n[1] += w_rej;
+    }
+    n[2] += t_rej && ok;
+    n[3] += w_rej && ok;
+  }
+  for (int j = 0; j < 4; ++j)
+    if (n[j] != 0) atomicAdd(&s_n[j], n[j]);
+  __syncthreads();
+  if (threadIdx.x < 4) atomicAdd(&counts[threadIdx.x], s_n[threadIdx.x]);
 }
 
 // The shadow blocks of the table, triangle-major, 48 bytes a triangle:
@@ -1129,55 +1435,135 @@ extern "C" int raytpu_closest_hit_occluded_multi(
   return (int)cudaGetLastError();
 }
 
+static size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+static int k7a_tiles(int H, int W, int th) {
+  const int tw = kThreads / th;
+  return ((H + th - 1) / th) * ((W + tw - 1) / tw);
+}
+
+static bool closest_shapes_ok(int Tp, int C, int H, int W, int th,
+                              int run) {
+  return C >= 1 && C <= kMaxTris && Tp >= C && Tp % C == 0 && H >= 0 &&
+         W >= 0 && th >= 1 && kThreads % th == 0 && run >= 1 &&
+         tile_runs(Tp / C, run) <= 65535;
+}
+
+// The fold's part of a scratch from `base` on (16-byte aligned parts): the
+// partials of a tile's runs (runs R each of t and of idx, runs the most a
+// tile of Tp / C chunks takes) and the tiles' counts of finished runs;
+// none where no tile takes two runs. Returns the bytes it takes.
+static size_t run_fold(void* base, int Tp, int C, int R, int n_tiles,
+                       int run, RunFold* fold) {
+  const int runs = tile_runs(Tp / C, run);
+  *fold = RunFold{nullptr, nullptr, nullptr};
+  if (runs == 1) return 0;
+  const size_t part = static_cast<size_t>(runs) * R;
+  char* p = static_cast<char*>(base);
+  const size_t t_bytes = align16(part * sizeof(float));
+  const size_t i_bytes = align16(part * sizeof(int));
+  if (p != nullptr) {
+    fold->t_part = reinterpret_cast<float*>(p);
+    fold->i_part = reinterpret_cast<int*>(p + t_bytes);
+    fold->done = reinterpret_cast<int*>(p + t_bytes + i_bytes);
+  }
+  return t_bytes + i_bytes + align16(n_tiles * sizeof(int));
+}
+
+// The bytes of K5's or K7d's scratch (the fold's, K7d's tiles cut into runs
+// of at most `run` kept chunks), -1 where refused.
+extern "C" long long raytpu_closest_hit_scratch(int Tp, int C, int H, int W,
+                                                int th, int masked,
+                                                int run) {
+  if (!closest_shapes_ok(Tp, C, H, W, th, run)) return -1;
+  if (masked == 0) return 0;
+  RunFold fold;
+  return static_cast<long long>(
+      run_fold(nullptr, Tp, C, H * W, k7a_tiles(H, W, th), run, &fold));
+}
+
 // dirs (R = H * W, 3) and table (10, Tp) float32 device pointers, Tp a
 // multiple of the chunk C <= 128; mask null (K5: every chunk, tiles of 256
 // consecutive rays, pass H = 1, W = R, th = 1) or the (n_tiles, Tp / C)
 // int32 keep-mask over the tiles of th x (256 / th) rays of the H x W grid
-// (K7d); t (R,) float32 and idx (R,) int32 outputs. Launches on `stream`
-// and returns the launch's cudaError_t.
+// (K7d); t (R,) float32 and idx (R,) int32 outputs. K5 sweeps a tile in one
+// block; K7d cuts each tile's kept chunks into runs of at most `run`
+// (closest_cull_kernel), a block each, folded in the kernel with the
+// scratch (scratch_bytes, at least what raytpu_closest_hit_scratch gives).
+// Launches on `stream` and returns the first launch error.
 extern "C" int raytpu_closest_hit(const void* dirs, const void* table, int Tp,
                                   int C, const void* mask, int H, int W,
-                                  int th, void* t, void* idx, void* stream) {
-  if (C < 1 || C > kMaxTris || Tp < C || Tp % C != 0 || H < 0 || W < 0 ||
-      th < 1 || kThreads % th != 0)
+                                  int th, int run, void* scratch,
+                                  long long scratch_bytes, void* t, void* idx,
+                                  void* stream) {
+  const long long need = raytpu_closest_hit_scratch(Tp, C, H, W, th,
+                                                    mask != nullptr, run);
+  if (need < 0 || (need > 0 && (scratch == nullptr || scratch_bytes < need)))
     return (int)cudaErrorInvalidValue;
   if (H == 0 || W == 0) return (int)cudaSuccess;
-  const int tw = kThreads / th;
-  const int blocks = ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  const int n_tiles = k7a_tiles(H, W, th);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask == nullptr)
-    closest_hit_kernel<false><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
-        C, nullptr, 0, H, W, th, static_cast<float*>(t),
-        static_cast<int*>(idx));
-  else
-    closest_hit_kernel<true><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
-        C, static_cast<const int*>(mask), Tp / C, H, W, th,
-        static_cast<float*>(t), static_cast<int*>(idx));
+  const float* d = static_cast<const float*>(dirs);
+  const float* tab = static_cast<const float*>(table);
+  float* to = static_cast<float*>(t);
+  int* io = static_cast<int*>(idx);
+  if (mask == nullptr) {
+    closest_cull_kernel<false><<<n_tiles, kThreads, 0, s>>>(
+        d, tab, Tp, C, nullptr, 0, H, W, th, Tp / C, RunFold{}, to, io);
+    return (int)cudaGetLastError();
+  }
+  RunFold fold;
+  run_fold(scratch, Tp, C, H * W, n_tiles, run, &fold);
+  cudaError_t err;
+  if (fold.done != nullptr &&
+      (err = cudaMemsetAsync(fold.done, 0, n_tiles * sizeof(int), s)) !=
+          cudaSuccess)
+    return (int)err;
+  closest_cull_kernel<true>
+      <<<dim3(n_tiles, tile_runs(Tp / C, run)), kThreads, 0, s>>>(
+          d, tab, Tp, C, static_cast<const int*>(mask), Tp / C, H, W, th,
+          run, fold, to, io);
+  return (int)cudaGetLastError();
+}
+
+// dirs (R = H * W, 3) and table (10, Tp) float32 device pointers; dec
+// (n_tiles, 9, Tp) uint8 and counts (4,) int64 outputs, counts zeroed by
+// the caller: primary_cull_probe_kernel on the tiles of th x (256 / th)
+// rays of the H x W grid (H = 1, W = R, th = 1: K5's). Launches on
+// `stream` and returns the launch's cudaError_t.
+extern "C" int raytpu_primary_cull_probe(const void* dirs, const void* table,
+                                         int Tp, int H, int W, int th,
+                                         void* dec, void* counts,
+                                         void* stream) {
+  if (!closest_shapes_ok(Tp, 1, H, W, th, 1))
+    return (int)cudaErrorInvalidValue;
+  if (H == 0 || W == 0) return (int)cudaSuccess;
+  primary_cull_probe_kernel<<<k7a_tiles(H, W, th), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dirs), static_cast<const float*>(table), Tp,
+      H, W, th, static_cast<unsigned char*>(dec),
+      static_cast<unsigned long long*>(counts));
   return (int)cudaGetLastError();
 }
 
 // K7a's scratch, carved from one buffer in this order, each part aligned to
 // 16 bytes: the triangle-major shadow constants (S Tp triangles of 48
-// bytes), the runs' partial t and idx (runs R each), the packed hits
-// (n_tiles 256 float4), n_hit (n_tiles), warp_list (n_tiles 8) and counts
-// (4 ints: warps of hit rays, next work item). `bytes` is the total.
+// bytes), the packed hits (n_tiles 256 float4), n_hit (n_tiles), warp_list
+// (n_tiles 8), counts (4 ints: warps of hit rays, next work item), and
+// the primary sweep's fold of its runs of at most pri_run kept chunks
+// (run_fold). `bytes` is the total.
 struct K7aScratch {
   float4* tris;
-  float* t_part;
-  int* i_part;
   float4* hits;
   int* n_hit;
   int* warp_list;
   int* counts;
+  RunFold fold;
   size_t bytes;
 };
 
-static size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
-static K7aScratch k7a_scratch(void* base, int Tp, int S, int R, int n_tiles,
-                              int runs) {
+static K7aScratch k7a_scratch(void* base, int Tp, int C, int S, int R,
+                              int n_tiles, int pri_run) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(base);
   size_t at = 0;
   auto take = [&](size_t n) {
@@ -1188,38 +1574,29 @@ static K7aScratch k7a_scratch(void* base, int Tp, int S, int R, int n_tiles,
   K7aScratch sc;
   sc.tris = reinterpret_cast<float4*>(
       take(static_cast<size_t>(S) * Tp * 3 * sizeof(float4)));
-  sc.t_part = reinterpret_cast<float*>(
-      take(static_cast<size_t>(runs) * R * sizeof(float)));
-  sc.i_part = reinterpret_cast<int*>(
-      take(static_cast<size_t>(runs) * R * sizeof(int)));
   sc.hits = reinterpret_cast<float4*>(
       take(static_cast<size_t>(n_tiles) * kThreads * sizeof(float4)));
   sc.n_hit = reinterpret_cast<int*>(take(n_tiles * sizeof(int)));
   sc.warp_list =
       reinterpret_cast<int*>(take(n_tiles * kTileWarps * sizeof(int)));
   sc.counts = reinterpret_cast<int*>(take(4 * sizeof(int)));
+  at += run_fold(base == nullptr ? nullptr : reinterpret_cast<void*>(p + at),
+                 Tp, C, R, n_tiles, pri_run, &sc.fold);
   sc.bytes = at;
   return sc;
 }
 
 static bool k7a_shapes_ok(int Tp, int C, int S, int H, int W, int th,
-                          int pri_runs) {
-  return C >= 1 && C <= kMaxTris && Tp >= C && Tp % C == 0 && S >= 1 &&
-         H >= 0 && W >= 0 && th >= 1 && kThreads % th == 0 &&
-         pri_runs >= 1 && pri_runs <= 65535;
-}
-
-static int k7a_tiles(int H, int W, int th) {
-  const int tw = kThreads / th;
-  return ((H + th - 1) / th) * ((W + tw - 1) / tw);
+                          int pri_run) {
+  return closest_shapes_ok(Tp, C, H, W, th, pri_run) && S >= 1;
 }
 
 // The bytes of K7a's scratch for these shapes, or -1 if K7a refuses them.
 extern "C" long long raytpu_closest_hit_occluded_masked_scratch(
-    int Tp, int C, int S, int H, int W, int th, int pri_runs) {
-  if (!k7a_shapes_ok(Tp, C, S, H, W, th, pri_runs)) return -1;
+    int Tp, int C, int S, int H, int W, int th, int pri_run) {
+  if (!k7a_shapes_ok(Tp, C, S, H, W, th, pri_run)) return -1;
   return static_cast<long long>(
-      k7a_scratch(nullptr, Tp, S, H * W, k7a_tiles(H, W, th), pri_runs)
+      k7a_scratch(nullptr, Tp, C, S, H * W, k7a_tiles(H, W, th), pri_run)
           .bytes);
 }
 
@@ -1228,24 +1605,26 @@ extern "C" long long raytpu_closest_hit_occluded_masked_scratch(
 // (n_tiles, (1 + S) * Tp / C) int32 keep-mask over the tiles of
 // th x (256 / th) rays of the H x W grid; t (R,) float32, idx (R,) int32
 // and occ (S, R) int32 outputs; scratch (scratch_bytes, at least what
-// raytpu_closest_hit_occluded_masked_scratch gives). pri_runs and shw_runs split
-// each tile's kept primary chunks, and each (tile, source)'s kept shadow
-// chunks, into that many runs. phases: 1 the primary sweep, merge and
-// packing (t, idx and the scratch's hits); 2 the shadow sweeps (occ, from
-// the hits a phase 1 left in the same scratch); 3 both, K7a. Launches on
-// `stream`, never synchronises, and returns the first launch error.
+// raytpu_closest_hit_occluded_masked_scratch gives). pri_run cuts each
+// tile's kept primary chunks into runs of at most that many (K7d's), and
+// shw_runs each (tile, source)'s kept shadow chunks into that many runs.
+// phases: 1 the primary sweep and packing (t, idx and the scratch's hits);
+// 2 the shadow sweeps (occ, from the hits a phase 1 left in the same
+// scratch); 3 both, K7a. Launches on `stream`, never synchronises, and
+// returns the first launch error.
 extern "C" int raytpu_closest_hit_occluded_masked(
     const void* dirs, const void* table, int Tp, int C, const void* cam,
     const void* src, int S, const void* mask, int H, int W, int th, void* t,
     void* idx, void* occ, void* scratch, long long scratch_bytes,
-    int pri_runs, int shw_runs, int phases, void* stream) {
-  if (!k7a_shapes_ok(Tp, C, S, H, W, th, pri_runs) || mask == nullptr ||
+    int pri_run, int shw_runs, int phases, void* stream) {
+  if (!k7a_shapes_ok(Tp, C, S, H, W, th, pri_run) || mask == nullptr ||
       shw_runs < 1 || phases < 1 || phases > 3)
     return (int)cudaErrorInvalidValue;
   if (H == 0 || W == 0) return (int)cudaSuccess;
   const int n_tiles = k7a_tiles(H, W, th);
   const int R = H * W;
-  const K7aScratch sc = k7a_scratch(scratch, Tp, S, R, n_tiles, pri_runs);
+  const K7aScratch sc =
+      k7a_scratch(scratch, Tp, C, S, R, n_tiles, pri_run);
   if (scratch == nullptr || scratch_bytes < (long long)sc.bytes)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1254,16 +1633,21 @@ extern "C" int raytpu_closest_hit_occluded_masked(
   const int* msk = static_cast<const int*>(mask);
   cudaError_t err;
   if (phases & 1) {
-    if ((err = cudaMemsetAsync(sc.counts, 0, sizeof(int), st)) != cudaSuccess)
+    if ((err = cudaMemsetAsync(sc.counts, 0, sizeof(int), st)) !=
+            cudaSuccess ||
+        (sc.fold.done != nullptr &&
+         (err = cudaMemsetAsync(sc.fold.done, 0, n_tiles * sizeof(int),
+                                st)) != cudaSuccess))
       return (int)err;
-    k7a_primary_kernel<<<dim3(n_tiles, pri_runs), kThreads, 0, st>>>(
-        d, tab, Tp, C, msk, (1 + S) * (Tp / C), H, W, th, sc.t_part,
-        sc.i_part);
+    closest_cull_kernel<true>
+        <<<dim3(n_tiles, tile_runs(Tp / C, pri_run)), kThreads, 0, st>>>(
+            d, tab, Tp, C, msk, (1 + S) * (Tp / C), H, W, th, pri_run,
+            sc.fold, static_cast<float*>(t), static_cast<int*>(idx));
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    k7a_merge_kernel<<<n_tiles, kThreads, 0, st>>>(
-        d, static_cast<const float*>(cam), H, W, th, pri_runs, sc.t_part,
-        sc.i_part, static_cast<float*>(t), static_cast<int*>(idx), sc.hits,
-        sc.n_hit, sc.warp_list, sc.counts);
+    k7a_pack_kernel<<<n_tiles, kThreads, 0, st>>>(
+        d, static_cast<const float*>(cam), H, W, th,
+        static_cast<const float*>(t), sc.hits, sc.n_hit, sc.warp_list,
+        sc.counts);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (phases & 2) {

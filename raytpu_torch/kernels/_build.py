@@ -52,14 +52,21 @@ SIGNATURES = {
     # staged, stream
     "raytpu_closest_hit_occluded_multi": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                           _P, _P, _L, _I, _P],
-    # dirs, table, Tp, C, mask (or null), H, W, th, t, idx, stream
-    "raytpu_closest_hit": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    # dirs, table, Tp, C, mask (or null), H, W, th, run, scratch (or
+    # null), scratch_bytes, t, idx, stream
+    "raytpu_closest_hit": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _L, _P,
+                           _P, _P],
+    # Tp, C, H, W, th, masked, run: K5's or K7d's scratch bytes (-1:
+    # refused)
+    "raytpu_closest_hit_scratch": [_I, _I, _I, _I, _I, _I, _I],
+    # dirs, table, Tp, H, W, th, dec, counts, stream
+    "raytpu_primary_cull_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # dirs, table, Tp, C, cam, src, S, mask, H, W, th, t, idx, occ, scratch,
-    # scratch_bytes, pri_runs, shw_runs, phases, stream
+    # scratch_bytes, pri_run, shw_runs, phases, stream
     "raytpu_closest_hit_occluded_masked": [_P, _P, _I, _I, _P, _P, _I, _P,
                                            _I, _I, _I, _P, _P, _P, _P, _L,
                                            _I, _I, _I, _P],
-    # Tp, C, S, H, W, th, pri_runs: K7a's scratch bytes (-1: refused)
+    # Tp, C, S, H, W, th, pri_run: K7a's scratch bytes (-1: refused)
     "raytpu_closest_hit_occluded_masked_scratch": [_I, _I, _I, _I, _I, _I,
                                                    _I],
     # e, tri, N, reject, blocked, stream
@@ -155,6 +162,7 @@ SIGNATURES = {
 }
 
 RESTYPES = {"raytpu_closest_hit_occluded_masked_scratch": _L,
+            "raytpu_closest_hit_scratch": _L,
             "raytpu_occlusion_points_scratch": _L,
             "raytpu_soft_raster_bwd_scratch": _L,
             "raytpu_soft_raster_fwd_scratch": _L,

@@ -34,6 +34,11 @@ test (t < 0.99) from each shadow source toward it:
                                (a test decided "not blocked" without the
                                reciprocal); shadow_reject_probe runs the
                                card's reject beside plane_test on pairs.
+  primary_tile_reject          the plain form of K5's, K7d's and K7a's
+                               exact per-box triangle cull (boxes of a
+                               tile's and a warp's ray directions,
+                               primary_boxes); primary_cull_probe runs the
+                               card's decisions beside plane_test.
   intersect_closest{,_culled}  Hits through K5 / K7d (``intersect_pallas``,
                                ``intersect_pallas_culled``).
   intersect_occluded{,_multi}  (Hits, occ bool) through K4 / K6, or K7a for
@@ -450,32 +455,126 @@ def _kept(mask, tiles: RayTiles, col: int) -> torch.Tensor:
     return torch.nonzero(mask[tiles.tile, col]).squeeze(1)
 
 
-def closest_reference(dirs, table, C: int):
+def closest_reference(dirs, table, C: int, cull: bool = False):
     """Plain PyTorch version of K5, on any device: the streamed
     ops/intersect.py::intersect over block 0 of table (10, Tp) in chunks of
-    C. Returns (t (R,), idx (R,) int32)."""
+    C. ``cull`` leaves out, for each ray, the triangles its warp's box of
+    K5's tiles (runs of 256 rays) rejects (:func:`primary_tile_reject`), as
+    the kernel does: the same t and idx. Returns (t (R,), idx (R,)
+    int32)."""
+    if cull:
+        return closest_masked_reference(
+            dirs, table, C, None, ray_tiles(dirs.shape[0], None, dirs.device),
+            cull=True)
     m, k0 = _block(table, 0)
     hits = intersect(dirs, TriConstants(m, k0, torch.ones_like(k0)),
                      tri_chunk=C)
     return hits.t, hits.idx
 
 
-def closest_masked_reference(dirs, table, C: int, mask, tiles: RayTiles):
+def closest_masked_reference(dirs, table, C: int, mask, tiles: RayTiles,
+                             cull: bool = False):
     """Plain PyTorch version of K7d, on any device: block 0 of table
     (10, Tp) chunk by chunk, each chunk on the rays whose tile keeps it
-    (mask (n_tiles, Tp / C)). Returns (t (R,), idx (R,) int32)."""
+    (mask (n_tiles, Tp / C); None: every chunk). ``cull`` leaves out, for
+    each ray, the triangles its warp's box rejects, as the kernel does
+    (:func:`closest_reference`). Returns (t (R,), idx (R,) int32)."""
     R = dirs.shape[0]
     best_t = dirs.new_full((R,), F32MAX)
     best_idx = torch.zeros((R,), dtype=torch.int32, device=dirs.device)
+    rows = torch.arange(R, device=dirs.device)
+    if cull:
+        lo, hi, any_, finite = primary_boxes(dirs, tiles, 32)
+        warp = ray_warps(tiles)
     for c in range(table.shape[1] // C):
-        rows = _kept(mask, tiles, c)
-        t, idx = closest(*plane_tests(dirs[rows], *_chunk(table, 0, c, C)))
+        if mask is not None:
+            rows = _kept(mask, tiles, c)
+        m, k0 = _chunk(table, 0, c, C)
+        ts, oks = plane_tests(dirs[rows], m, k0)
+        if cull:
+            w, inv = torch.unique(warp[rows], return_inverse=True)
+            oks = oks & ~primary_tile_reject(lo[w], hi[w], any_[w],
+                                             finite[w], m, k0)[inv]
+        t, idx = closest(ts, oks)
         bt = best_t[rows]
         upd = t <= bt  # a later chunk wins ties
         best_t[rows] = torch.where(upd, t, bt)
         best_idx[rows] = torch.where(upd, idx + c * C, best_idx[rows])
     hit = best_t < F32MAX
     return best_t, torch.where(hit, best_idx, -1)
+
+
+def primary_boxes(dirs, tiles: RayTiles, group: int):
+    """The boxes the closest-hit kernels cull with (csrc/intersect.cu::
+    warp_box, tile_box), on any device: for each run of ``group`` slots of
+    the tiles (256: a tile; 32: a warp, in the tile's slot order), over the
+    slots inside the grid, (lo (n, 3), hi (n, 3)) the least and largest dx,
+    dy and dz, any (n,) where the group holds such a slot and finite (n,)
+    where all their directions are finite."""
+    valid = _tile_slots_valid(tiles).reshape(-1, group)
+    d = dirs[tiles.rays].reshape(-1, group, 3)
+    inf = torch.tensor(float("inf"), dtype=dirs.dtype, device=dirs.device)
+    v = valid[..., None]
+    lo = torch.where(v, d, inf).amin(dim=1)
+    hi = torch.where(v, d, -inf).amax(dim=1)
+    finite = (torch.isfinite(d) | ~v).all(dim=2).all(dim=1)
+    return lo, hi, valid.any(dim=1), finite
+
+
+def ray_warps(tiles: RayTiles) -> torch.Tensor:
+    """(R,) int64: the warp (tile * 8 + slot // 32) that sweeps each ray."""
+    R = tiles.height * tiles.width
+    r = torch.arange(R, device=tiles.rays.device)
+    y, x = r // tiles.width, r % tiles.width
+    tw = TILE_RAYS // tiles.th
+    slot = (y % tiles.th) * tw + x % tw
+    return tiles.tile * (TILE_RAYS // 32) + slot // 32
+
+
+def primary_tile_reject(lo, hi, any_, finite, m, k0) -> torch.Tensor:
+    """Plain form of the closest-hit kernels' exact per-box cull
+    (csrc/intersect.cu::box_reject), op by op, on any device: (n, T) bool,
+    True where no ray whose direction lies in box j (lo, hi (n, 3); any_,
+    finite (n,), as :func:`primary_boxes` gives them) can pass
+    ``plane_tests`` on triangle i (m (T, 3, 3), k0 (T,)). plane_tests'
+    sums Dn = d . n, U = d . c2 and V = d . c3, each in its order of
+    operations, are bounded over the box by their values at the corners
+    where each product is largest or smallest (rounding to nearest is
+    monotone in each operand); where Dn keeps one sign with |Dn| inside
+    [REJECT_MIN_D, REJECT_MAX_D], one of :func:`shadow_reject`'s clauses
+    but t < 0.99's holding at the bound holds at every ray; where both
+    bounds of Dn are 0 (a zero triangle: padding, invalid), every ray's
+    denominator is 0. A box of no ray rejects everything; a non-finite box
+    or coefficient nothing."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=lo.device)
+
+    def corner(row, top: bool):
+        total = None
+        for j in range(3):
+            p = m[None, :, row, j]
+            x = torch.where((p >= 0.0) == top, hi[:, j:j + 1], lo[:, j:j + 1])
+            total = x * p if total is None else total + x * p
+        return total
+
+    eps = f32(REJECT_EPS)
+    d_hi, d_lo = corner(0, True), corner(0, False)
+    pos = (d_lo >= f32(REJECT_MIN_D)) & (d_hi <= f32(REJECT_MAX_D))
+    neg = (d_hi <= -f32(REJECT_MIN_D)) & (d_lo >= -f32(REJECT_MAX_D))
+    u_hi, u_lo = corner(1, True), corner(1, False)
+    v_hi, v_lo = corner(2, True), corner(2, False)
+    k = k0[None, :]
+    uv = f32(REJECT_UV)
+    rej_pos = ((u_lo > eps) | (v_lo > eps) | (k > eps)
+               | (-(u_hi + v_hi) > d_hi * uv))
+    rej_neg = ((u_hi < -eps) | (v_hi < -eps) | (k < -eps)
+               | (u_lo + v_lo > -d_lo * uv))
+    coef = (torch.isfinite(m).reshape(-1, 9).all(dim=1)
+            & torch.isfinite(k0))[None, :]
+    zero = (d_lo == 0.0) & (d_hi == 0.0)  # every Dn 0: nonpar is false
+    cull = (finite[:, None] & coef
+            & (zero | (pos & rej_pos) | (neg & rej_neg)))
+    return ~any_[:, None] | cull
 
 
 # K7a's exact any-hit reject (csrc/intersect.cu::shadow_reject, whose
@@ -489,13 +588,15 @@ REJECT_T = float.fromhex("0x1.fae168p-1")  # float32(0.99) + 2^-20
 REJECT_UV = 1.0 + 2.0 ** -20
 
 
-def shadow_reject(delta, m, k0) -> torch.Tensor:
+def shadow_reject(delta, m, k0, below_t: bool = True) -> torch.Tensor:
     """Plain form of K7a's any-hit reject, on any device: (R, C) bool,
     True where the shadow test of ray ``delta`` (R, 3) against triangle
     (m (C, 3, 3), k0 (C,)) surely fails (``plane_tests``' ok and t < 0.99
     false), decided from D, U, V and K alone, each formed by plane_tests'
     own expressions in its order. False leaves the test to plane_tests:
-    the reject never returns True for a blocking test."""
+    the reject never returns True for a blocking test. ``below_t`` False
+    drops the t >= 0.99 clause: the closest-hit sweeps' reject
+    (csrc/intersect.cu::primary_reject), True only where ok is false."""
     d = [delta[:, j:j + 1] for j in range(3)]
 
     def dot_rows(row):
@@ -514,7 +615,7 @@ def shadow_reject(delta, m, k0) -> torch.Tensor:
     eps = f32(-REJECT_EPS)
     guard = (Ds >= f32(REJECT_MIN_D)) & (Ds <= f32(REJECT_MAX_D))
     return (D == 0.0) | (guard & ((Us < eps) | (Vs < eps) | (Ks < eps)
-                                  | (Ks >= Ds * f32(REJECT_T))
+                                  | ((Ks >= Ds * f32(REJECT_T)) & below_t)
                                   | (Us + Vs > Ds * f32(REJECT_UV))))
 
 
@@ -606,32 +707,138 @@ def _check_chunked(dirs, table, C: int, mask, tiles) -> None:
     _require(dirs, checks)
 
 
-def launch_closest_kernel(dirs, table, C: int, mask, tiles, t, idx):
+def _closest_grid(R: int, mask, tiles):
+    """(H, W, th) of K5's tiles (runs of 256 rays) or K7d's (``tiles``)."""
+    return (1, R, 1) if mask is None else (tiles.height, tiles.width,
+                                           tiles.th)
+
+
+@functools.lru_cache(maxsize=64)
+def _closest_scratch_bytes(Tp: int, C: int, H: int, W: int, th: int,
+                           masked: bool, run: int) -> int:
+    """csrc/intersect.cu::raytpu_closest_hit_scratch, asked once a shape."""
+    n = _build.load().raytpu_closest_hit_scratch(Tp, C, H, W, th,
+                                                 int(masked), run)
+    if n < 0:
+        raise ValueError(f"K5/K7d take no table of {Tp} columns in chunks of "
+                         f"{C} on {H} x {W} rays in runs of {run}")
+    return n
+
+
+def closest_scratch(dirs, table, C: int, mask, tiles,
+                    run: int | None = None):
+    """A fresh scratch buffer for one K5 or K7d call (uint8, on dirs'
+    device), sized by the kernel's library: K7d's fold of the runs of its
+    tiles (the runs' partial t and idx, 8 R bytes a run a tile of every
+    chunk takes, 9 runs of 8 chunks at Tp / C = 72: 19 MB at 512^2, and a
+    count a tile); None where there is none (K5)."""
+    run = PRIMARY_RUN if run is None else run
+    n = _closest_scratch_bytes(table.shape[1], C,
+                               *_closest_grid(dirs.shape[0], mask, tiles),
+                               mask is not None, run)
+    return (None if n == 0
+            else torch.empty((n,), dtype=torch.uint8, device=dirs.device))
+
+
+def launch_closest_kernel(dirs, table, C: int, mask, tiles, t, idx, *,
+                          run: int | None = None, scratch=None):
     """Launch K5 (mask None: every ray in runs of 256) or K7d (mask
     (n_tiles, n_chunks) over ``tiles``) on outputs the caller allocated:
-    t (R,), idx (R,). Checks nothing and counts nothing; the wrappers do
-    both."""
-    H, W, th = ((1, dirs.shape[0], 1) if mask is None
-                else (tiles.height, tiles.width, tiles.th))
+    t (R,), idx (R,). ``run``: the most kept chunks a block of K7d sweeps,
+    None PRIMARY_RUN (the same bits under any); ``scratch`` from
+    :func:`closest_scratch` for the same run, None a fresh one. Checks
+    nothing and counts nothing; the wrappers do both."""
+    run = PRIMARY_RUN if run is None else run
+    if scratch is None:
+        scratch = closest_scratch(dirs, table, C, mask, tiles, run)
+    H, W, th = _closest_grid(dirs.shape[0], mask, tiles)
     err = _build.load().raytpu_closest_hit(
         dirs.data_ptr(), table.data_ptr(), table.shape[1], C,
-        None if mask is None else mask.data_ptr(), H, W, th, t.data_ptr(),
+        None if mask is None else mask.data_ptr(), H, W, th, run,
+        None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel(), t.data_ptr(),
         idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"closest_hit launch failed: CUDA error {err}")
 
 
-# K7a splits each tile's kept primary chunks into PRIMARY_RUNS runs (a
-# block each), and each (tile, source)'s kept shadow chunks into
-# SHADOW_RUNS // S runs (at least one): the few tiles that see a mesh then
-# fill the card when the sources are few.
-PRIMARY_RUNS = 8
+def primary_cull_decisions(dirs, table, tiles: RayTiles,
+                           boxes: int = 1024) -> torch.Tensor:
+    """The plain form of the cull's every decision, on any device: (n_tiles,
+    9, Tp) bool over block 0 of ``table``, [:, 0] each tile's box, [:, 1 +
+    w] its warp w's (:func:`primary_boxes`, :func:`primary_tile_reject`),
+    True where culled; ``boxes`` boxes at a time."""
+    m, k0 = _block(table, 0)
+    out = []
+    for group in (TILE_RAYS, 32):
+        lo, hi, any_, finite = primary_boxes(dirs, tiles, group)
+        out.append(torch.cat([
+            primary_tile_reject(lo[b:b + boxes], hi[b:b + boxes],
+                                any_[b:b + boxes], finite[b:b + boxes], m,
+                                k0)
+            for b in range(0, lo.shape[0], boxes)]))
+    return torch.cat([out[0][:, None],
+                      out[1].reshape(tiles.count, TILE_RAYS // 32, -1)],
+                     dim=1)
+
+
+def primary_cull_probe(dirs, table, tiles: RayTiles | None):
+    """The closest-hit kernels' cull decided for every triangle of block 0
+    of ``table`` (10, Tp) on the tiles (None: K5's runs of 256 rays) and
+    their warps. Returns (dec (n_tiles, 9, Tp) bool, 1 + w the warp w's
+    box, 0 the tile's, True where culled; counts (4,) int64: the culled
+    (tile, triangle) and (warp, triangle) pairs, and the rays of those
+    pairs that ``plane_tests`` finds ok, each 0). On CUDA tensors the card's
+    decisions and plane_test (the probe kernel), on CPU tensors the plain
+    forms (:func:`primary_tile_reject`)."""
+    R, Tp = dirs.shape[0], table.shape[1]
+    if tiles is None:
+        tiles = ray_tiles(R, None, dirs.device)
+    if _on_cuda(dirs):
+        _require(dirs, (("dirs", dirs, torch.float32, (R, 3)),
+                        ("table", table, torch.float32, (BLOCK_ROWS, Tp))))
+        dec = torch.empty((tiles.count, 9, Tp), dtype=torch.uint8,
+                          device=dirs.device)
+        counts = torch.zeros((4,), dtype=torch.int64, device=dirs.device)
+        with torch.cuda.device(dirs.device):
+            err = _build.load().raytpu_primary_cull_probe(
+                dirs.data_ptr(), table.data_ptr(), Tp, tiles.height,
+                tiles.width, tiles.th, dec.data_ptr(), counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"primary_cull_probe launch failed: CUDA "
+                               f"error {err}")
+        return dec.bool(), counts
+    m, k0 = _block(table, 0)
+    dec = primary_cull_decisions(dirs, table, tiles)
+    valid = _tile_slots_valid(tiles).reshape(-1)
+    rays = tiles.rays[valid]
+    slot = torch.nonzero(valid).squeeze(1)
+    oks = plane_tests(dirs[rays], m, k0)[1]
+    t_rej = dec[slot // TILE_RAYS, 0]
+    w_rej = dec[slot // TILE_RAYS, 1 + slot % TILE_RAYS // 32]
+    counts = torch.tensor([int(dec[:, 0].sum()), int(dec[:, 1:].sum()),
+                           int((t_rej & oks).sum()),
+                           int((w_rej & oks).sum())])
+    return dec, counts
+
+
+# K7d and K7a's primary sweep cut a tile's kept chunks into runs of at
+# most PRIMARY_RUN chunks, a block each, folded in the kernel
+# (csrc/intersect.cu::closest_cull_kernel): a tile of few kept chunks is
+# one block, the few tiles that see a mesh at its heart spread over the
+# card. K7a cuts each (tile, source)'s kept shadow chunks into SHADOW_RUNS
+# // S runs (at least one). PRIMARY_RUN is measured on the H100 (PERF.md
+# §6, K7d on the stl_intersect row and K7a's primary half at 500^2: runs of
+# 8 are the best of both together).
+PRIMARY_RUN = 8
 SHADOW_RUNS = 32
 
 
 def k7a_runs(S: int) -> tuple[int, int]:
-    """(primary runs, shadow runs) of K7a with S sources."""
-    return PRIMARY_RUNS, max(1, SHADOW_RUNS // S)
+    """(kept chunks a primary run holds at most, shadow runs) of K7a with S
+    sources."""
+    return PRIMARY_RUN, max(1, SHADOW_RUNS // S)
 
 
 def k7a_scratch(dirs, table, C: int, S: int, tiles: RayTiles):
@@ -656,12 +863,12 @@ def launch_occluded_masked_kernel(dirs, table, C: int, cam, src, mask,
     2 its shadow half alone on the hits a phase 1 left in the same scratch.
     Checks nothing and counts nothing; the wrapper does both."""
     S = src.shape[0]
-    pri_runs, shw_runs = k7a_runs(S)
+    pri_run, shw_runs = k7a_runs(S)
     err = _build.load().raytpu_closest_hit_occluded_masked(
         dirs.data_ptr(), table.data_ptr(), table.shape[1], C, cam.data_ptr(),
         src.data_ptr(), S, mask.data_ptr(), tiles.height, tiles.width,
         tiles.th, t.data_ptr(), idx.data_ptr(), occ.data_ptr(),
-        scratch.data_ptr(), scratch.numel(), pri_runs, shw_runs, phases,
+        scratch.data_ptr(), scratch.numel(), pri_run, shw_runs, phases,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"closest_hit_occluded_masked launch failed: CUDA "

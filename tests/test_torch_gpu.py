@@ -1719,20 +1719,27 @@ def test_two_launch_wrappers_check_their_inputs(cuda):
                             *sargs[4:])
 
 
-def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0),
-                zoom=1.0):
-    """The multi-chunk kernels' inputs: a size^2 frame of the procedural
-    torus (quads x quads, two triangles each; 74 x 61 is the 9,028 mesh),
-    the ``render --stl`` camera nudged off x = 0 at focal zoom * size, the
-    sources of n_lights lights with ``samples`` jittered positions each."""
+def _torus_tris(quads):
+    """The procedural torus of quads (two triangles each; 74 x 61 is the
+    9,028 mesh) as (T, 3, 3) float32 vertices, scaled as load_stl does."""
     from raytpu_torch.core import stl
+    tris = stl.parse_ascii_stl(stl.procedural_stl_text(*quads))
+    return tris * np.float32(-stl.DEFAULT_SCALE)
+
+
+def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0),
+                zoom=1.0, tris=None):
+    """The multi-chunk kernels' inputs: a size^2 frame of the procedural
+    torus of ``quads`` (or the (T, 3, 3) vertices ``tris``), the ``render
+    --stl`` camera nudged off x = 0 at focal zoom * size, the sources of
+    n_lights lights with ``samples`` jittered positions each."""
     from raytpu_torch.core.types import Scene, pixel_grid
     from raytpu_torch.kernels import intersect as isect
     from raytpu_torch.ops.intersect import tri_constants
     from raytpu_torch.ops.shade import source_positions
     from raytpu_torch.render.raytrace import camera_ray_dirs
-    tris = stl.parse_ascii_stl(stl.procedural_stl_text(*quads))
-    tris = tris * np.float32(-stl.DEFAULT_SCALE)
+    if tris is None:
+        tris = _torus_tris(quads)
     scene = Scene.from_vertices(tris[:, 0], tris[:, 1], tris[:, 2],
                                 np.full((tris.shape[0], 3), 0.5, np.float32),
                                 device=device)
@@ -1754,31 +1761,225 @@ def _mesh_sweep(device, size, quads, samples, n_lights, offset=(0.0, 0.0),
                 tiles=tiles, geom=geom, cam=camera.pos)
 
 
-@pytest.mark.parametrize("size,quads", [(512, (74, 61)), (200, (20, 20))],
-                         ids=["mesh9028-512", "mesh800-200"])
-def test_closest_hit_kernels_match_plain_version(cuda, size, quads):
+def _grazing_tris():
+    """The 800-triangle torus and an 800-triangle floor in the plane y =
+    -0.5 of the camera, which its rows near the middle graze: D = 0 on the
+    middle row, changing sign across the tiles that hold it."""
+    g = np.linspace(-2.0, 2.0, 21, dtype=np.float32)
+    z = np.linspace(-1.0, 3.0, 21, dtype=np.float32)
+    quads = []
+    for i in range(20):
+        for j in range(20):
+            a, b = (g[i], z[j]), (g[i + 1], z[j])
+            c, d = (g[i + 1], z[j + 1]), (g[i], z[j + 1])
+            quads += [(a, b, c), (a, c, d)]
+    floor = np.array([[[x, -0.5, zz] for x, zz in q] for q in quads],
+                     np.float32)
+    return np.concatenate([_torus_tris((20, 20)), floor])
+
+
+def _closest_case(device, case):
+    """(the multi-chunk kernels' inputs, tri_chunk) of one case of
+    test_closest_hit_kernels_match_plain_version."""
+    if case == "mesh9028-512":
+        return _mesh_sweep(device, 512, (74, 61), 1, 1), 128
+    if case.startswith("chunk"):
+        return _mesh_sweep(device, 200, (20, 20), 1, 1), int(case[5:])
+    if case == "duplicates":
+        # Every triangle twice, 800 apart, and the first 37 a third time:
+        # equal t across chunk (128) and pass (256) boundaries, where the
+        # last index must win.
+        t = _torus_tris((20, 20))
+        return _mesh_sweep(device, 200, None, 1, 1,
+                           tris=np.concatenate([t, t, t[:37]])), 128
+    if case == "grazing":
+        return _mesh_sweep(device, 200, None, 1, 1, tris=_grazing_tris()), 128
+    if case in ("specials", "permuted"):
+        c = _mesh_sweep(device, 64 if case == "specials" else 200, (74, 61),
+                        1, 1)
+        dirs = c["args"][0].clone()
+        if case == "specials":
+            # NaN, inf and zero directions: single lanes of some tiles, a
+            # whole 16 x 16 tile of zeros, and a K5 tile (rays 256-511)
+            # holding NaN, inf and -0 components.
+            dirs[5, 0] = float("nan")
+            dirs[300, 1] = float("inf")
+            dirs[400, 2] = -float("inf")
+            dirs[600] = 0.0
+            dirs[1000, 0] = -0.0
+            for y in range(16, 32):
+                dirs[y * 64 + 32:y * 64 + 48] = 0.0
+        else:
+            # Every ray permuted: K5's tiles and warps span the view.
+            gen = torch.Generator().manual_seed(3)
+            dirs = dirs[torch.randperm(dirs.shape[0], generator=gen).to(
+                dirs.device)]
+        c["args"] = (dirs.contiguous(), *c["args"][1:])
+        return c, 128
+    if case == "cornell32":
+        # The sharded renderer's sub-ray shape: the Cornell box padded to
+        # 32 triangles (one chunk), 512^2 at the raytracer's camera.
+        from raytpu_torch.core.types import pixel_grid
+        from raytpu_torch.kernels import intersect as isect
+        from raytpu_torch.ops.intersect import tri_constants
+        from raytpu_torch.ops.shade import source_positions
+        from raytpu_torch.render.raytrace import camera_ray_dirs
+        scene = cornell_box(pad_to=32, device=device)
+        camera = Camera.raytracer_default(device=device)
+        cfg = RenderConfig(width=512, height=512, mode="clean")
+        dirs = camera_ray_dirs(*pixel_grid(512, 512, device), camera, cfg)
+        c = tri_constants(scene, camera.pos)
+        src = source_positions(Lights.single(capacity=1, device=device), 1)
+        cs = tri_constants(scene, src)
+        return dict(args=(dirs, c.m, c.k0, c.valid),
+                    src_args=(cs.m, cs.k0, camera.pos, src),
+                    tiles=isect.ray_tiles(512 * 512, (512, 512), device),
+                    geom=(scene.v0, scene.v1, scene.v2),
+                    cam=camera.pos), 32
+    raise ValueError(case)
+
+
+CLOSEST_CASES = ["mesh9028-512", "mesh800-200", "chunk20", "chunk24",
+                 "chunk100", "duplicates", "grazing", "specials", "permuted",
+                 "cornell32"]
+
+
+@pytest.mark.parametrize("case", CLOSEST_CASES)
+def test_closest_hit_kernels_match_plain_version(cuda, case):
     """K5 and K7d bit for bit against their plain versions, K7d = K5,
-    K7d with an all-ones mask = K5, two calls identical."""
+    K7d with an all-ones mask = K5, two calls identical, and K7a's t and
+    idx = K5's: the meshes at chunks of 20, 24, 100 and 128, triangles
+    repeated across chunk and pass boundaries, a floor the rays graze, NaN,
+    inf and zero directions, permuted rays and the one-chunk Cornell box."""
     from raytpu_torch.kernels import intersect as isect
-    case = _mesh_sweep(cuda, size, quads, 1, 1)
-    args, tiles = case["args"], case["tiles"]
-    mask = isect.primary_mask(case["cam"], args[0], tiles, *case["geom"],
-                              args[3], 128)
+    if case == "mesh800-200":
+        c, chunk = _mesh_sweep(cuda, 200, (20, 20), 1, 1), 128
+    else:
+        c, chunk = _closest_case(cuda, case)
+    args, tiles = c["args"], c["tiles"]
+    mask = isect.primary_mask(c["cam"], args[0], tiles, *c["geom"],
+                              args[3], chunk)
+    kw = dict(tri_chunk=chunk)
     before = (isect.LAUNCHES_CLOSEST, isect.LAUNCHES_CLOSEST_MASKED)
-    k5 = isect.closest_hit(*args)
-    k7d = isect.closest_hit_masked(*args, mask, tiles)
-    ones = isect.closest_hit_masked(*args, torch.ones_like(mask), tiles)
-    again = isect.closest_hit_masked(*args, mask, tiles)
+    k5 = isect.closest_hit(*args, **kw)
+    k7d = isect.closest_hit_masked(*args, mask, tiles, **kw)
+    ones = isect.closest_hit_masked(*args, torch.ones_like(mask), tiles, **kw)
+    again = isect.closest_hit_masked(*args, mask, tiles, **kw)
     assert (isect.LAUNCHES_CLOSEST, isect.LAUNCHES_CLOSEST_MASKED) == (
         before[0] + 1, before[1] + 3)
-    want5 = isect.closest_hit_reference(*args)
-    want7 = isect.closest_hit_masked_reference(*args, mask, tiles)
+    want5 = isect.closest_hit_reference(*args, **kw)
+    want7 = isect.closest_hit_masked_reference(*args, mask, tiles, **kw)
+    fmask = isect.fused_mask(args[0], tiles, c["geom"], args[3],
+                             c["src_args"][3], c["cam"], chunk)
+    k7a = isect.closest_hit_occluded_multi_masked(*args, *c["src_args"],
+                                                  fmask, tiles, **kw)
     torch.cuda.synchronize()
-    for got, want in ((k5, want5), (k7d, want7), (k7d, k5), (ones, k5),
-                      (again, k7d)):
+    pairs = [(k5, want5), (k7d, want7), (ones, k5), (again, k7d),
+             (k7a[:2], k5)]
+    if case != "specials":  # a cone of NaN rays keeps no chunk
+        pairs.append((k7d, k5))
+    for got, want in pairs:
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert 0.05 < float((k5[1] >= 0).float().mean()) < 0.9
-    assert float(mask.float().mean()) < 0.6
+    hit = float((k5[1] >= 0).float().mean())
+    assert 0.05 < hit < (1.0 if case == "cornell32" else 0.9)
+    if case.startswith("mesh") or case.startswith("chunk"):
+        assert float(mask.float().mean()) < 0.6
+
+
+@pytest.mark.parametrize("case", ["mesh9028-512", "chunk20", "duplicates"])
+def test_closest_hit_runs_fold_in_order(cuda, case):
+    """K7d and K7a's primary half cut a tile's kept chunks into runs of at
+    most `run` chunks, a block each, the last block to finish folding them
+    in run order: the same bits at every run (1: every kept chunk its own
+    block; 3, which divides no chunk count evenly; PRIMARY_RUN; 1,000: one
+    run a tile), = K5's."""
+    from raytpu_torch.kernels import intersect as isect
+    c, chunk = _closest_case(cuda, case)
+    args, tiles = c["args"], c["tiles"]
+    table, C = isect.primary_table(*args[1:], chunk)
+    mask = isect.primary_mask(c["cam"], args[0], tiles, *c["geom"], args[3],
+                              C)
+    want = isect.closest_hit(*args, tri_chunk=chunk)
+    fmask = isect.fused_mask(args[0], tiles, c["geom"], args[3],
+                             c["src_args"][3], c["cam"], C)
+    ftable = isect.constant_table(args[1], args[2], args[3],
+                                  *c["src_args"][:2], C)
+    for run in (1, 3, isect.PRIMARY_RUN, 1000):
+        got = isect._outputs(args[0], 0)[:2]
+        isect.launch_closest_kernel(args[0], table, C, mask, tiles, *got,
+                                    run=run)
+        saved = isect.PRIMARY_RUN
+        isect.PRIMARY_RUN = run
+        try:
+            outs = isect._outputs(args[0], c["src_args"][3].shape[0])
+            isect.launch_occluded_masked_kernel(
+                args[0], ftable, C, c["cam"], c["src_args"][3], fmask,
+                tiles, *outs, phases=1, scratch=isect.k7a_scratch(
+                    args[0], ftable, C, c["src_args"][3].shape[0], tiles))
+        finally:
+            isect.PRIMARY_RUN = saved
+        torch.cuda.synchronize()
+        for pair in (got, outs[:2]):
+            assert torch.equal(pair[0], want[0]), (run, "t")
+            assert torch.equal(pair[1], want[1]), (run, "idx")
+
+
+def _probe_check(dirs, table, tiles):
+    """The card's cull decisions = their plain form (on the card), every
+    count of the probe = the plain decisions' and no ok ray culled."""
+    from raytpu_torch.kernels import intersect as isect
+    dec, counts = isect.primary_cull_probe(dirs, table, tiles)
+    want = isect.primary_cull_decisions(
+        dirs, table, tiles if tiles is not None
+        else isect.ray_tiles(dirs.shape[0], None, dirs.device))
+    torch.cuda.synchronize()
+    assert torch.equal(dec, want)
+    assert int(counts[0]) == int(want[:, 0].sum())
+    assert int(counts[1]) == int(want[:, 1:].sum())
+    assert int(counts[2]) == 0 and int(counts[3]) == 0
+    return dec
+
+
+@pytest.mark.parametrize("case", ["mesh9028-512", "specials", "grazing",
+                                  "permuted"])
+def test_primary_cull_probe(cuda, case):
+    """The closest-hit kernels' cull on the card (box_reject, in
+    raytpu_primary_cull_probe) decides every (tile, triangle) and (warp,
+    triangle) pair as its plain form (primary_tile_reject) does, on K5's
+    tiles (runs of 256 rays) and K7d's (16 x 16), and culls no pair that
+    plane_test calls ok."""
+    from raytpu_torch.kernels import intersect as isect
+    c, chunk = _closest_case(cuda, case)
+    table, _ = isect.primary_table(*c["args"][1:], chunk)
+    for tiles in (None, c["tiles"]):
+        dec = _probe_check(c["args"][0], table, tiles)
+        if case == "mesh9028-512":
+            assert float(dec[:, 1:].float().mean()) > 0.9
+
+
+def test_primary_cull_probe_edge_triangles(cuda):
+    """The card's decisions = the plain form's on constants at each edge of
+    the reject (kernels.reject_edge_pairs' D, U, V and K, their other
+    components 0, tiny or 1) and tiles of one direction, of directions
+    within 2^-30, of a grazing fan and of a NaN lane; no ok ray culled."""
+    from raytpu_torch.kernels import intersect as isect
+    _, tri = isect.reject_edge_pairs(cuda)
+    gen = np.random.default_rng(11)
+    tri = tri[torch.tensor(gen.choice(tri.shape[0], 8192, replace=False),
+                           device=cuda)].clone()
+    other = torch.tensor(gen.standard_normal((tri.shape[0], 6)),
+                         dtype=torch.float32, device=cuda)
+    kind = (torch.arange(tri.shape[0], device=cuda) % 3)[:, None]
+    tri[:, [1, 2, 4, 5, 7, 8]] = torch.where(
+        kind == 0, 0.0, torch.where(kind == 1, other * 2.0 ** -30, 1.0))
+    d = np.zeros((4, 256, 3), np.float32)
+    d[..., 0] = 1.0
+    d[1, :, 1:] = gen.uniform(-1, 1, (256, 2)) * 2.0 ** -30
+    d[2, :, 1] = np.linspace(-0.01, 0.01, 256)
+    d[3, 77, 1] = np.nan
+    dirs = torch.tensor(d.reshape(-1, 3), device=cuda)
+    dec = _probe_check(dirs, tri.T.contiguous(), None)
+    assert bool(dec[0, 0].any()) and not bool(dec[3, 0].any())
 
 
 @pytest.mark.parametrize("n_lights,samples", [(1, 1), (2, 16)],
