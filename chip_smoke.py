@@ -28,7 +28,12 @@ nonzero without printing a result:
      the path before the clock starts (JAX's ``compile_s``).
   6. card numbers: the 512^2 clean forward frame and the kernel alone, each
      through the kernel and through the plain version, timed with CUDA
-     events (median), beside the card's name and power limit.
+     events (median), beside the card's name and power limit; K1's bound
+     on its culled sweeps' work (sweep_cull_work) beside the bound before
+     the cull, and the cull's probe (sweep_probe_check: the card's
+     decisions on K1's warps = their plain form, no ok or blocking ray in
+     a culled pair) at 512^2 clean and 500^2 parity, over the image's
+     warps and over consecutive rays.
   7. the backward kernels (K2, the per-ray backward, and K3, the sums per
      triangle) against their plain version on the card, at 512^2 clean,
      500^2 parity and 1024^2 clean, with cotangents drawn from a numpy
@@ -49,9 +54,9 @@ nonzero without printing a result:
      several shadow sources) against their plain version on the card:
      512^2 clean with one light, the bench's full-feature sources (2
      lights x 16 samples, S = 32) and 500^2 parity (30 triangles) at an AA
-     sub-ray offset. t, idx and occ bit-identical, two calls identical,
-     and the VJP of t within rtol 1e-4 / atol 1e-5 of its float64
-     evaluation.
+     sub-ray offset. t, idx and occ bit-identical (K4 over the image's
+     warps and over consecutive rays), two calls identical, and the VJP of
+     t within rtol 1e-4 / atol 1e-5 of its float64 evaluation.
  10. the loop branch serving: raytrace at the CLI's ``--aa 3`` (exactly 9
      K4 launches) against the numpy oracle; the ``render`` CLI's
      full-feature frame (``--aa 3 --soft-shadows 16 --add-light ...
@@ -63,8 +68,10 @@ nonzero without printing a result:
      512^2 step (every float leaf of scene and lights, jittered positions
      included; exactly 9 K6 launches a step, no other kernel; finite
      gradients); then card numbers: the full-feature frame and step,
-     K4 and K6 alone beside their plain versions and bounds, the
-     device-busy share and event count of a step and its peak memory.
+     K4 and K6 alone beside their plain versions and bounds (K4's on its
+     culled sweeps' work, and before the cull), K4's cull probe on phase
+     9's two K4 cases, the device-busy share and event count of a step and
+     its peak memory.
  12. the hard rasterizer's winner kernels (K8b, one triangle chunk; K8c,
      several chunks skipped by a (pixel tile, chunk) mask) against their
      plain versions on the card: K8b at 512^2 clean (the bench's raster
@@ -397,6 +404,9 @@ FLOPS_REJECT = 15 + 3  # FLOPS_DOTS + 3
 # product) and, where that leaves the test open, a plane test besides.
 FLOPS_PRIMARY_CULL = 30 + 2
 FLOPS_PRIMARY_REJECT = 15 + 2
+# K4's, L2's and K1's shadow sweep decides its warp's box with the t >=
+# 0.99 clause besides (box_reject<true>: one more product).
+FLOPS_SHADOW_CULL = FLOPS_PRIMARY_CULL + 1
 # The raster kernels' pixel-triangle test (raster.cu::sweep): four planes
 # of two multiplies and two adds.
 FLOPS_RASTER_TEST = 16
@@ -763,12 +773,13 @@ def sweep_case(dev, size: int, mode: str, pad_to, lights, samples: int,
                            consts_src.k0, cfg.tri_chunk)
     return dict(dirs=dirs, m=consts.m, k0=consts.k0, valid=consts.valid,
                 m_s=consts_src.m, k0_s=consts_src.k0, cam=camera.pos, src=src,
-                table=table, tri_chunk=cfg.tri_chunk)
+                table=table, tri_chunk=cfg.tri_chunk, image_hw=(size, size))
 
 
-def run_sweeps(case: dict, multi: bool):
+def run_sweeps(case: dict, multi: bool, image_hw="case"):
     """The K4 (multi False, one source) or K6 wrapper on a sweep_case; occ
-    is (S, R) either way."""
+    is (S, R) either way. K4's warps over ``image_hw`` ("case": the case's
+    image, as raytrace_full passes it; None: consecutive rays)."""
     from raytpu_torch.kernels import intersect as isect
     c = case
     if multi:
@@ -777,7 +788,8 @@ def run_sweeps(case: dict, multi: bool):
             c["cam"], c["src"], tri_chunk=c["tri_chunk"])
     t, idx, occ = isect.closest_hit_occluded(
         c["dirs"], c["m"], c["k0"], c["valid"], c["m_s"][0], c["k0_s"][0],
-        c["cam"], c["src"][0], tri_chunk=c["tri_chunk"])
+        c["cam"], c["src"][0], tri_chunk=c["tri_chunk"],
+        image_hw=c["image_hw"] if image_hw == "case" else image_hw)
     return t, idx, occ[None]
 
 
@@ -808,6 +820,8 @@ def sweep_work(case: dict, multi: bool) -> dict:
         tests = tests_to_first_blocker(delta, m, k0)
         if not multi:
             work["shadow"] += int(tests.sum())
+            work["cull"] = sweep_cull_work(dirs, table, case["cam"], src[0],
+                                           case.get("image_hw"))
             continue
         tests = torch.where(hit, tests, 0)
         work["shadow"] += int(tests.sum())
@@ -818,14 +832,88 @@ def sweep_work(case: dict, multi: bool) -> dict:
     return work
 
 
+def sweep_cull_work(dirs, table, cam, light, image_hw=None) -> dict:
+    """The work of K4's, L2's and K1's culled sweeps (csrc/sweep_cull.cuh)
+    on one light, from the plain forms on these tensors
+    (kernels/intersect.py::sweep_cull_decisions, sweep_keep; table's first
+    two blocks, K1's 26-row table too), their warps over ``image_hw``:
+    ``pri_decided`` the (warp, triangle) pairs the warps of a valid ray
+    decide, ``pri_kept`` those that survive, ``pri_tests`` the (ray,
+    survivor of its warp) tests, ``pri_open`` those the reject leaves open;
+    the shadow sweep's ``shw_*`` likewise, its warp deciding a group of 32
+    triangles while a lane sweeps (a lane sweeps group g where its first
+    blocker is g or later) and a lane testing its survivors up to its first
+    blocker; ``before`` the tests of the brute sweeps (every ray's C and
+    its shadow tests to its first blocker), ``hits`` the hit rays."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.ops.intersect import F32MAX, closest, plane_tests
+    from raytpu_torch.ops.shade import SHADOW_T
+    R, C = dirs.shape[0], table.shape[1]
+    dec = isect.sweep_cull_decisions(dirs, table, cam, light, image_hw)
+    rays, valid = isect.sweep_warps(R, image_hw, dirs.device)
+    warp = isect.sweep_ray_warps(R, image_hw, dirs.device)
+    live = valid.any(dim=1)
+    pri, shw = isect.sweep_keep(dirs, table, cam, light, image_hw)
+    e = isect.sweep_shadow_rays(dirs, table, cam, light)
+    ts, oks = plane_tests(e, *isect._block(table, 1))
+    blocks = oks & (ts < SHADOW_T)
+    first = torch.where(blocks.any(dim=1),
+                        blocks.float().argmax(dim=1), C)  # C: none
+    cols = torch.arange(C, device=dirs.device)
+    swept = cols[None, :] <= first[:, None]  # a lane's tests to its blocker
+    # A warp decides group g (its triangles g .. g + 31) while a lane of it
+    # sweeps: while some valid lane's first blocker is g or later.
+    reach = torch.full((rays.shape[0],), -1, dtype=torch.long,
+                       device=dirs.device)
+    reach.scatter_reduce_(0, warp, first, "amax")
+    decided = (cols[None, :] // 32 * 32 <= reach[:, None]) & live[:, None]
+    pri_kept = ~dec[:, 0] & live[:, None]
+    t, _ = closest(*plane_tests(dirs, *isect._block(table, 0)))
+    return dict(
+        pri_decided=int(live.sum()) * C, pri_kept=int(pri_kept.sum()),
+        pri_tests=int(pri_kept.sum(dim=1)[warp].sum()),
+        pri_open=int(pri.sum()),
+        shw_decided=int(decided.sum()),
+        shw_kept=int((decided & ~dec[:, 1]).sum()),
+        shw_tests=int((~dec[warp, 1] & swept).sum()),
+        shw_open=int((shw & swept).sum()),
+        before=R * C + int(torch.where(first < C, first + 1, C).sum()),
+        hits=int((t < F32MAX).sum()))
+
+
+def sweep_cull_line(w: dict) -> str:
+    return (f"the warps decide {w['pri_decided']} primary (warp, triangle) "
+            f"pairs and keep {w['pri_kept']} "
+            f"({w['pri_kept'] / max(1, w['pri_decided']):.4f}), "
+            f"{w['shw_decided']} shadow pairs and keep {w['shw_kept']} "
+            f"({w['shw_kept'] / max(1, w['shw_decided']):.4f}); ray tests "
+            f"{w['pri_tests']} + {w['shw_tests']} of {w['before']} before "
+            f"the cull ({(w['pri_tests'] + w['shw_tests']) / max(1, w['before']):.5f}), "
+            f"{w['pri_open']} + {w['shw_open']} left open by the reject")
+
+
+def sweep_cull_flops(w: dict) -> int:
+    """The float operations of sweep_cull_work's counts: FLOPS_PRIMARY_CULL
+    a primary and FLOPS_SHADOW_CULL a shadow (warp, triangle) decision,
+    FLOPS_PRIMARY_REJECT a primary and FLOPS_REJECT a shadow ray test, a
+    plane test's more where the reject leaves one open."""
+    return (FLOPS_PRIMARY_CULL * w["pri_decided"]
+            + FLOPS_SHADOW_CULL * w["shw_decided"]
+            + FLOPS_PRIMARY_REJECT * w["pri_tests"]
+            + FLOPS_REJECT * w["shw_tests"]
+            + FLOPS_PLANE_TEST * (w["pri_open"] + w["shw_open"]))
+
+
 def sweep_bound(case: dict, multi: bool, work: dict | None = None,
                 reject: bool = True) -> tuple[float, str]:
     """K4's (multi False) or K6's bound on a sweep_case: 12 B in and
     8 + 4 S B out a ray, the table and positions once, and FLOPS_PLANE_TEST
     a test of sweep_work; since K6's redesign its shadow tests
     FLOPS_REJECT each and, where the reject does not decide, a plane test
-    besides (``reject`` False: every test a plane test, the count before
-    the redesign)."""
+    besides; since K4's, K4's culled sweeps' work on the warps of the
+    case's ``image_hw`` (none: consecutive rays, L2's), sweep_cull_flops
+    (``reject`` False: every test a plane test, the count before either
+    redesign)."""
     R, S = case["dirs"].shape[0], case["src"].shape[0]
     w = work or sweep_work(case, multi)
     flops = FLOPS_PLANE_TEST * (w["primary"] + w["shadow"])
@@ -833,8 +921,38 @@ def sweep_bound(case: dict, multi: bool, work: dict | None = None,
         flops = (FLOPS_PLANE_TEST * (w["primary"] + w["shadow"]
                                      - w["rejected"])
                  + FLOPS_REJECT * w["shadow"])
+    elif reject:
+        flops = sweep_cull_flops(w["cull"])
     return bound_ms(R * (12 + 8 + 4 * S)
                     + (case["table"].numel() + 3 + 3 * S) * 4, flops)
+
+
+def sweep_probe_check(dirs, table, cam, light, image_hw) -> dict:
+    """K4's and K1's cull on the card (kernels/intersect.py::
+    sweep_cull_probe: the kernels' own box_reject on their own warps)
+    against its plain form on the same tensors (sweep_cull_decisions):
+    every decision equal, the culled pairs counted alike, no culled pair
+    with an ok ray (primary) or a blocking one (shadow)."""
+    from raytpu_torch.kernels import intersect as isect
+    dec, counts = isect.sweep_cull_probe(dirs, table, cam, light, image_hw)
+    want = isect.sweep_cull_decisions(dirs, table, cam, light, image_hw)
+    torch.cuda.synchronize()
+    counts = [int(n) for n in counts]
+    out = dict(same=bool(torch.equal(dec, want)), counts=counts,
+               plain=[int(want[:, 0].sum()), int(want[:, 1].sum())],
+               pairs=int(dec[:, 0].numel()))
+    require(out["same"] and counts[:2] == out["plain"],
+            "the card's cull decisions = their plain form")
+    require(counts[2] == 0 and counts[3] == 0,
+            "no culled pair holds an ok (primary) or blocking (shadow) ray")
+    return out
+
+
+def sweep_probe_line(p: dict) -> str:
+    return (f"decisions = plain {p['same']}, culled {p['counts'][0]} "
+            f"primary and {p['counts'][1]} shadow (warp, triangle) pairs of "
+            f"{p['pairs']} each, ok rays culled {p['counts'][2]}, blocking "
+            f"rays culled {p['counts'][3]}")
 
 
 def k6_staging_ms(dev, sources=(64, 96, 128)) -> list[dict]:
@@ -3678,8 +3796,10 @@ def kernel_lab_phases(dev, record: dict) -> list[dict]:
         "l3_plain": lambda: labs.run_noop_reference(*a),
         "l4_plain": lambda: labs.run_tiny_reference(x_tiny)}, n=3, reps=5,
         timer=held_ms))
-    bounds["l2"] = sweep_bound(dict(dirs=dirs32, table=a[1], cam=a[2],
-                                    src=src32), False)
+    l2_case = dict(dirs=dirs32, table=a[1], cam=a[2], src=src32)
+    l2_work = sweep_work(l2_case, False)
+    bounds["l2"] = sweep_bound(l2_case, False, l2_work)
+    l2_bound_old = sweep_bound(l2_case, False, l2_work, reject=False)
     bounds["l3"] = bound_ms(R * 16 + (a[1].numel() + 6) * 4, 0)
     bounds["l4"] = bound_ms(2 * x_tiny.numel() * 4, x_tiny.numel())
     card = card_line()
@@ -3698,7 +3818,9 @@ def kernel_lab_phases(dev, record: dict) -> list[dict]:
         say(f"  {k.upper()} {t[k]:.4f} ms (plain {t[k + '_plain']:.4f}; "
             f"bound {bounds[k][0]:.5f} ms, {bounds[k][1]})")
     say(f"  K4 (same inputs as L2) {t['k4']:.4f} ms; x * 2 "
-        f"{t['l4_library']:.4f} ms")
+        f"{t['l4_library']:.4f} ms; L2's bound before the cull "
+        f"{l2_bound_old[0]:.5f} ms, {l2_bound_old[1]}; L2's cull on "
+        f"consecutive rays: {sweep_cull_line(l2_work['cull'])}")
     say(f"phase 35 took {time.perf_counter() - t_phase:.1f} s")
 
     say("== phase 36: labs 1, 2 and 3 as a user runs them (subprocesses)")
@@ -3833,7 +3955,12 @@ def main() -> int:
         args, kw = frame_args(size, mode, pad_to)
         got = render_fused.render_hard_fused(*args, **kw)
         want = render_fused.render_hard_fused_reference(*args, **kw)
+        # K1's warps as raytrace_full lays them over the image.
+        tiled = render_fused.render_hard_fused(*args, **kw,
+                                               image_hw=(size, size))
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, tiled)),
+                "K1 over the image's warps = over consecutive rays")
         idx_mis = int((got.idx != want.idx).sum())
         occ_mis = int((got.occ != want.occ).sum())
         dcolor = float((got.color - want.color).abs().max())
@@ -3932,7 +4059,8 @@ def main() -> int:
 
     def k1():
         return render_fused.fused_fwd(dirs, table, params,
-                                      ambient=kw["ambient"], parity=False)
+                                      ambient=kw["ambient"], parity=False,
+                                      image_hw=(512, 512))
 
     def k1_plain():
         return render_fused.fused_fwd_reference(
@@ -3962,26 +4090,47 @@ def main() -> int:
 
     frame_ms = median_ms_in_turns({"kernel": frame, "plain": plain_frame},
                                   n=1, reps=31)
-    # K1's work on this frame: 36 B a ray in and out plus the tables, and
-    # C plane tests a ray in the primary sweep, the shadow sweep's tests up
-    # to the first blocker, and the shading of each hit ray.
+    # K1's work on this frame: 36 B a ray in and out plus the tables, its
+    # culled sweeps' work on the image's warps (sweep_cull_work) and the
+    # shading of each hit ray; before the cull, C plane tests a ray in the
+    # primary sweep and the shadow sweep's tests up to the first blocker.
     out = k1_plain()
     R, C = dirs.shape[0], table.shape[1]
-    k1_bound = bound_ms(
-        R * 36 + (table.numel() + params.numel()) * 4,
-        FLOPS_PLANE_TEST * (R * C + shadow_tests(dirs, table, params))
-        + FLOPS_FWD_SHADE * int((out.idx >= 0).sum()))
+    k1_work = sweep_cull_work(dirs, table, params[0:3], params[3:6],
+                              (512, 512))
+    k1_bytes = R * 36 + (table.numel() + params.numel()) * 4
+    k1_shade = FLOPS_FWD_SHADE * int((out.idx >= 0).sum())
+    k1_bound = bound_ms(k1_bytes, sweep_cull_flops(k1_work) + k1_shade)
+    k1_bound_old = bound_ms(k1_bytes, FLOPS_PLANE_TEST * (
+        R * C + shadow_tests(dirs, table, params)) + k1_shade)
+    # The card's cull decisions on K1's inputs (the probe kernel) against
+    # their plain form, on the image's warps and on consecutive rays, here
+    # and on phase 3's 500^2 parity frame.
+    k1_probe = {}
+    for size, mode, pad_to in ((512, "clean", 32), (500, "parity", None)):
+        p_args, p_kw = frame_args(size, mode, pad_to)
+        p_table, p_params = render_fused.pack_inputs(*p_args[1:],
+                                                     p_kw["tri_chunk"])
+        for hw in ((size, size), None):
+            k1_probe[f"{size}_{mode}_{'image' if hw else 'rays'}"] = (
+                sweep_probe_check(p_args[0], p_table, p_params[0:3],
+                                  p_params[3:6], hw))
     card = card_line()
     say(f"K1 alone, 512^2 C={tight_chunk(32, 512)}: device time "
         f"{k1_ms['kernel']:.4f} ms kernel, {k1_ms['plain']:.4f} ms plain; "
         f"back to back (host included) {kernel_ms['kernel']:.4f} ms kernel, "
         f"{kernel_ms['plain']:.4f} ms plain; bound {k1_bound[0]:.4f} ms "
-        f"({k1_bound[1]}) ({card})")
+        f"({k1_bound[1]}; before the cull {k1_bound_old[0]:.4f} ms, "
+        f"{k1_bound_old[1]}) ({card})")
+    say(f"K1's cull, 512^2 clean on 8 x 4 warps: {sweep_cull_line(k1_work)}")
+    for name, pr in k1_probe.items():
+        say(f"K1's cull probe, {name}: {sweep_probe_line(pr)}")
     say(f"forward frame 512^2 clean: {frame_ms['kernel']:.4f} ms through the "
         f"kernel, {frame_ms['plain']:.4f} ms through the plain version "
         f"({card})")
     record.update(card=card, kernel_ms=kernel_ms, k1_device_ms=k1_ms,
-                  k1_bound=k1_bound, frame_ms=frame_ms,
+                  k1_bound=k1_bound, k1_bound_pre_cull=k1_bound_old,
+                  k1_cull=k1_work, k1_probe=k1_probe, frame_ms=frame_ms,
                   main_path_launches=launches, max_abs_err=max_err)
 
     say("== phase 7: backward kernels against their plain version")
@@ -4148,6 +4297,12 @@ def main() -> int:
         again = run_sweeps(case, multi)
         want = isect.sweeps_reference(case["dirs"], case["table"], case["cam"],
                                       case["src"], mask_misses=multi)
+        if not multi:
+            # K4's warps over consecutive rays (L2's) give the same bits.
+            rays = run_sweeps(case, multi, image_hw=None)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, rays)),
+                    f"{name}: K4 on consecutive rays = on the image's warps")
         torch.cuda.synchronize()
         idx_mis = int((got[1] != want[1]).sum())
         occ_mis = int((got[2] != want[2]).sum())
@@ -4344,7 +4499,7 @@ def main() -> int:
                 *outs[True], scratch=k6_scratch)
         return lambda: isect.launch_occluded_kernel(
             case["dirs"], case["table"], case["cam"], case["src"],
-            *outs[False])
+            *outs[False], image_hw=case["image_hw"])
 
     def plain(case, multi):
         return lambda: isect.sweeps_reference(case["dirs"], case["table"],
@@ -4372,14 +4527,30 @@ def main() -> int:
     k6_ms.update(median_ms_in_turns({"plain": plain(k6_case, True)}, n=2,
                                     reps=5))
     k6_staging = k6_staging_ms(dev)
-    k4_bound = sweep_bound(k4_case, False)
+    k4_work = sweep_work(k4_case, False)
+    k4_bound = sweep_bound(k4_case, False, k4_work)
+    k4_bound_old = sweep_bound(k4_case, False, k4_work, reject=False)
+    # The card's cull decisions on K4's inputs (the probe kernel) against
+    # their plain form, on the image's warps and on consecutive rays (L2's).
+    k4_probe = {}
+    for name in ("k4_512_clean", "k4_500_parity"):
+        c = cases[name][0]
+        for hw in (c["image_hw"], None):
+            k4_probe[f"{name}_{'image' if hw else 'rays'}"] = (
+                sweep_probe_check(c["dirs"], c["table"], c["cam"],
+                                  c["src"][0], hw))
     k6_work = sweep_works["k6_512_clean_s32"]
     k6_bound = sweep_bound(k6_case, True, k6_work)
     k6_bound_old = sweep_bound(k6_case, True, k6_work, reject=False)
     card = card_line()
     say(f"K4 alone, 512^2 clean, S=1: {k4_ms['kernel']:.4f} ms device time "
         f"(plain {k4_ms['plain']:.4f} ms; bound {k4_bound[0]:.4f} ms, "
-        f"{k4_bound[1]}) ({card})")
+        f"{k4_bound[1]}; before the cull {k4_bound_old[0]:.4f} ms, "
+        f"{k4_bound_old[1]}) ({card})")
+    say(f"K4's cull, 512^2 clean on 8 x 4 warps: "
+        f"{sweep_cull_line(k4_work['cull'])}")
+    for name, pr in k4_probe.items():
+        say(f"K4's cull probe, {name}: {sweep_probe_line(pr)}")
     say(f"K6 alone, 512^2 clean, S=32: {k6_ms['kernel']:.4f} ms device time "
         f"(staged {k6_ms['staged']:.4f} ms, read through the cache "
         f"{k6_ms['read']:.4f} ms; plain {k6_ms['plain']:.4f} ms back to "
@@ -4410,7 +4581,9 @@ def main() -> int:
                   full_ms=full_ms, full_profile=busy_full,
                   full_frame_profile=busy_frame,
                   step_peak_gb=step_peak_gb, k4_ms=k4_ms, k6_ms=k6_ms,
-                  k4_bound=k4_bound, k6_bound=k6_bound,
+                  k4_bound=k4_bound, k4_bound_pre_cull=k4_bound_old,
+                  k4_cull=k4_work["cull"], k4_probe=k4_probe,
+                  k6_bound=k6_bound,
                   k6_bound_without_reject=k6_bound_old,
                   k6_staging=k6_staging)
 
@@ -6597,7 +6770,8 @@ def main() -> int:
              replaces="raytpu/kernels/render_fused.py:228",
              launches=launches, max_abs_err=max_err, ms=k1_ms["kernel"],
              plain_ms=k1_ms["plain"], bound_ms=k1_bound[0],
-             bound_by=k1_bound[1], library_ms=None),
+             bound_by=k1_bound[1], library_ms=None,
+             bound_pre_cull_ms=k1_bound_old[0]),
         dict(name="render_fused_bwd", route="cuda",
              source="raytpu_torch/csrc/render_fused_bwd.cu",
              replaces="raytpu/kernels/render_fused.py:402",
@@ -6617,7 +6791,8 @@ def main() -> int:
              replaces="raytpu/kernels/intersect_pallas.py:288",
              launches=serve_launches[k4], max_abs_err=sweep_err[False],
              ms=k4_ms["kernel"], plain_ms=k4_ms["plain"],
-             bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None),
+             bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None,
+             bound_pre_cull_ms=k4_bound_old[0]),
         dict(name="closest_hit_occluded_multi", route="cuda",
              source="raytpu_torch/csrc/intersect.cu",
              replaces="raytpu/kernels/intersect_pallas.py:451",

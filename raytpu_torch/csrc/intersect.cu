@@ -35,11 +35,23 @@
 // scratch carried between grid steps are gone: one thread takes one ray
 // through every phase in registers.
 //
-// Design. One thread per ray, 256 a block. K4 copies both blocks (at most
-// 10 KB) into shared memory; every thread reads the same entry at the same
-// time, a broadcast without bank conflicts. K6 copies the primary block
-// into shared memory and runs the same primary sweep (it needs t, so it
-// keeps plane_test's reciprocal). Its shadow sweeps, ~250 M tests at 512^2
+// Design. One thread per ray, 256 a block. K4 (and L2) stages both blocks
+// triangle-major in shared memory (40 bytes a triangle, 10 KB at C = 128),
+// read by every lane of a warp at once, a broadcast without bank
+// conflicts. Its sweeps are sweep_cull.cuh's: a warp bounds its rays'
+// directions by a box and culls exactly the triangles no ray of it can hit
+// (box_reject: lane i decides triangles i, i + 32, ..., a ballot for each
+// 32), and its lanes test the survivors in order, primary_reject first and
+// the IEEE reciprocal only where it leaves a test open; then the shadow
+// sweep does the same on the warp's shadow rays (with the t >= 0.99 clause,
+// which culls the surface the hit points lie on and what lies beyond), a
+// lane stopping at its first blocker and the warp once no lane sweeps. Where
+// the rays are an image (kernels/intersect.py::closest_hit_occluded's
+// image_hw), a warp takes a block of SWEEP_WARP_ROWS x (32 /
+// SWEEP_WARP_ROWS) pixels, whose box is smaller than a row's strip of 32;
+// the outputs stay in ray order. K6 copies the primary block into shared
+// memory and runs the brute primary sweep (it needs t, so it keeps
+// plane_test's reciprocal). Its shadow sweeps, ~250 M tests at 512^2
 // and S = 32, nearly all misses, are where its time goes: a sweep that paid
 // plane_test's IEEE reciprocal and ten loads at stride C on each test ran
 // at 13x its bound. So K6 sweeps the sources as K7a does:
@@ -58,11 +70,15 @@
 // hit, so the misses are not packed out of the warps.
 //
 // Bound on the H100 (512^2 rays, C = 32). Memory: 12 B in and 8 + 4 S B
-// out a ray. Arithmetic: C plane tests a ray in the primary sweep (20
-// float operations each) and the shadow tests of a hit ray to its first
-// blocker (K4: of every ray); K6's cost FLOPS_REJECT each where the reject
-// decides them, and a plane test's 20 more elsewhere
-// (chip_smoke.py::sweep_bound). At S = 32: bound by operations.
+// out a ray. Arithmetic (chip_smoke.py::sweep_bound): K6, C plane tests a
+// ray in the primary sweep (20 float operations each) and the shadow tests
+// of a hit ray to its first blocker, FLOPS_REJECT each where the reject
+// decides them and a plane test's 20 more elsewhere; K4,
+// FLOPS_PRIMARY_CULL a (warp, triangle) decision of either sweep (one more
+// for the shadow sweep's t clause), FLOPS_PRIMARY_REJECT a ray's test of
+// its warp's primary survivors, FLOPS_REJECT one of its shadow survivors to
+// its first blocker, and a plane test's 20 more where the reject leaves a
+// test open (chip_smoke.py::sweep_cull_work). Bound by operations.
 //
 // K5 and K7d, closest_hit_kernel<false> and <true>, replace
 // intersect_pallas.py::_kernel (launched by _closest_hit_raw through
@@ -198,13 +214,13 @@
 #include <cuda_runtime.h>
 
 #include "plane_test.cuh"
+#include "sweep_cull.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxTris = 128;
 constexpr int kBlockRows = 10;  // n xyz | c2 xyz | c3 xyz | k0
-constexpr float kShadowT = 0x1.fae148p-1f;  // float32(0.99)
 
 // The ray of slot k (0..255) of tile `tile` in the masked kernels' tiles,
 // row-major over tiles of th x (256 / th) rays of an H x W grid.
@@ -246,142 +262,132 @@ __device__ __forceinline__ int closest(const float* blk, int C, float dx,
   return bi;
 }
 
-// Any hit at t < 0.99 against the block at `blk`, stopping at the first
-// blocker (K4's shadow test).
-__device__ __forceinline__ bool blocked(const float* blk, int C, float ex,
-                                        float ey, float ez) {
-  for (int i = 0; i < C; ++i) {
-    const PlaneHit p = plane_test(blk, C, i, ex, ey, ez);
-    if (p.ok && p.t < kShadowT) return true;
-  }
-  return false;
-}
-
 // K4 reads the rays as (R, 3) rows; L2 (Planar, lab 2's one-step kernel)
-// as the (3, R) planes of bench/megakernel_lab2.py's dirs_t.
+// as the (3, R) planes of bench/megakernel_lab2.py's dirs_t. A warp takes
+// sweep_ray's block of wh x (32 / wh) rays of the H x W grid (R = H W;
+// H = 1, W = R, wh = 1: consecutive rays). Each block stages both blocks
+// of the table triangle-major (thread k < C the camera's triangle k,
+// thread 128 + k the light's), then each warp runs the culled primary
+// sweep (warp_closest) and, from the hit position, the culled shadow sweep
+// (warp_blocked). A lane past the grid takes part in the warp's votes
+// only.
 template <bool Planar>
 __global__ void __launch_bounds__(kThreads)
     closest_hit_occluded_kernel(const float* __restrict__ dirs,
                                 const float* __restrict__ table,
                                 const float* __restrict__ cam,
-                                const float* __restrict__ light, int C, int R,
-                                float* __restrict__ t_out,
+                                const float* __restrict__ light, int C, int H,
+                                int W, int wh, float* __restrict__ t_out,
                                 int* __restrict__ idx_out,
                                 int* __restrict__ occ_out) {
-  __shared__ float s_tab[2 * kBlockRows * kMaxTris];
+  static_assert(kThreads >= 2 * kSweepMaxTris && kMaxTris == kSweepMaxTris,
+                "a thread stages each triangle of both blocks");
+  __shared__ TriBlock s_pri, s_shw;
   __shared__ float s_org[6];
-  for (int k = threadIdx.x; k < 2 * kBlockRows * C; k += kThreads)
-    s_tab[k] = table[k];
-  if (threadIdx.x < 3) s_org[threadIdx.x] = cam[threadIdx.x];
-  else if (threadIdx.x < 6) s_org[threadIdx.x] = light[threadIdx.x - 3];
+  const int k = threadIdx.x;
+  if (k < C) stage_tri(s_pri, table, C, k);
+  if (k >= kMaxTris && k - kMaxTris < C)
+    stage_tri(s_shw, table + kBlockRows * C, C, k - kMaxTris);
+  if (k < 3) s_org[k] = cam[k];
+  else if (k < 6) s_org[k] = light[k - 3];
   __syncthreads();
 
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= R) return;
-  const float dx = Planar ? dirs[r] : dirs[3 * r];
-  const float dy = Planar ? dirs[R + r] : dirs[3 * r + 1];
-  const float dz = Planar ? dirs[2 * R + r] : dirs[3 * r + 2];
-  float best_t;
-  const int best_i = closest(s_tab, C, dx, dy, dz, &best_t);
+  const size_t R = static_cast<size_t>(H) * W;
+  const SweepRay ray = sweep_ray(H, W, wh);
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (ray.valid) {
+    dx = Planar ? dirs[ray.r] : dirs[3 * ray.r];
+    dy = Planar ? dirs[R + ray.r] : dirs[3 * ray.r + 1];
+    dz = Planar ? dirs[2 * R + ray.r] : dirs[3 * ray.r + 2];
+  }
+  int best_i;
+  const float best_t = warp_closest(s_pri, C, ray.valid, dx, dy, dz, &best_i);
   const bool hit = best_t < FLT_MAX;
   // Shadow ray from the light toward pos = cam + tz * d, unnormalized: its
   // parameter is the fraction of the light distance. A miss sweeps too,
   // with tz = 0 (the raw bit of JAX's K4).
   const float tz = hit ? best_t : 0.0f;
-  const bool occ =
-      blocked(s_tab + kBlockRows * C, C, (s_org[0] + tz * dx) - s_org[3],
-              (s_org[1] + tz * dy) - s_org[4], (s_org[2] + tz * dz) - s_org[5]);
-  t_out[r] = best_t;
-  idx_out[r] = hit ? best_i : -1;
-  occ_out[r] = occ ? 1 : 0;
+  const bool occ = warp_blocked(s_shw, C, ray.valid,
+                                (s_org[0] + tz * dx) - s_org[3],
+                                (s_org[1] + tz * dy) - s_org[4],
+                                (s_org[2] + tz * dz) - s_org[5]);
+  if (!ray.valid) return;
+  t_out[ray.r] = best_t;
+  idx_out[ray.r] = hit ? best_i : -1;
+  occ_out[ray.r] = occ ? 1 : 0;
+}
+
+// The sweeps' cull probe (K4, L2 and K1), a warp a warp of sweep_ray's
+// grid: for every triangle i < C of the table's two 10-row blocks (row
+// stride C: the camera's, then the light's), the warp's primary decision
+// (box_reject on its valid lanes' directions) and its shadow decision
+// (box_reject<true> on their shadow rays, tz from the brute sweep,
+// closest) to dec[(2 g + {0, 1}) C + i] for warp g, 1 where culled;
+// counts[0] and [1] add the culled (warp, triangle) pairs of each sweep,
+// counts[2] the valid lanes of primary-culled pairs whose plane_test is ok,
+// counts[3] those of shadow-culled pairs whose test blocks (ok && t <
+// 0.99): both 0.
+__global__ void __launch_bounds__(kThreads)
+    sweep_cull_probe_kernel(const float* __restrict__ dirs,
+                            const float* __restrict__ table,
+                            const float* __restrict__ cam,
+                            const float* __restrict__ light, int C, int H,
+                            int W, int wh, unsigned char* __restrict__ dec,
+                            unsigned long long* __restrict__ counts) {
+  __shared__ unsigned long long s_n[4];
+  if (threadIdx.x < 4) s_n[threadIdx.x] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const size_t g = static_cast<size_t>(blockIdx.x) * (kThreads / 32) +
+                   (threadIdx.x >> 5);
+  const SweepRay ray = sweep_ray(H, W, wh);
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (ray.valid) {
+    dx = dirs[3 * ray.r];
+    dy = dirs[3 * ray.r + 1];
+    dz = dirs[3 * ray.r + 2];
+  }
+  float best_t;
+  closest(table, C, dx, dy, dz, &best_t);
+  const float tz = best_t < FLT_MAX ? best_t : 0.0f;
+  const float ex = (cam[0] + tz * dx) - light[0];
+  const float ey = (cam[1] + tz * dy) - light[1];
+  const float ez = (cam[2] + tz * dz) - light[2];
+  const DirBox pbox = warp_box(ray.valid, dx, dy, dz);
+  const DirBox sbox = warp_box(ray.valid, ex, ey, ez);
+  const float* shw = table + kBlockRows * C;
+  unsigned char* out = dec + 2 * g * C;
+  unsigned long long n[4] = {0, 0, 0, 0};
+  for (int i = 0; i < C; ++i) {
+    float4 a, b;
+    float2 c;
+    load_tri(table, C, i, &a, &b, &c);
+    const bool p_rej = box_reject(pbox, a, b, c);
+    load_tri(shw, C, i, &a, &b, &c);
+    const bool s_rej = box_reject<true>(sbox, a, b, c);
+    const PlaneHit pp = plane_test(table, C, i, dx, dy, dz);
+    const PlaneHit ps = plane_test(shw, C, i, ex, ey, ez);
+    if (lane == 0) {
+      out[i] = p_rej;
+      out[C + i] = s_rej;
+      n[0] += p_rej;
+      n[1] += s_rej;
+    }
+    n[2] += ray.valid && p_rej && pp.ok;
+    n[3] += ray.valid && s_rej && ps.ok && ps.t < kShadowT;
+  }
+  for (int j = 0; j < 4; ++j)
+    if (n[j] != 0) atomicAdd(&s_n[j], n[j]);
+  __syncthreads();
+  if (threadIdx.x < 4) atomicAdd(&counts[threadIdx.x], s_n[threadIdx.x]);
 }
 
 // ---------------------------------------------------------------------------
-// K5, K7d and K7a: the exact reject, the culled primary sweep in runs of
-// kept chunks folded in order, K7a's packing of each tile's hit rays, then
-// its shadow sweeps a warp a work item.
+// K5, K7d and K7a: the culled primary sweep in runs of kept chunks folded
+// in order (the exact reject and cull are sweep_cull.cuh's), K7a's packing
+// of each tile's hit rays, then its shadow sweeps a warp a work item.
 
 constexpr int kTileWarps = kThreads / 32;  // warps of a 256-ray tile
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// The reject's constants (kernels/intersect.py REJECT_*), float32 exactly.
-constexpr float kRejectMinD = 0x1p-40f;
-constexpr float kRejectMaxD = 0x1p40f;
-constexpr float kRejectEps = 0x1p-80f;
-constexpr float kRejectT = 0x1.fae168p-1f;  // kShadowT + 2^-20
-constexpr float kRejectUV = 0x1.00001p0f;   // 1 + 2^-20
-
-// The dot products of plane_test for the triangle-major constants
-// a = (n, k0), b = (c2, c3.x), c = (c3.y, c3.z), in plane_test's order:
-// Dn = -D (D is plane_test's denom, Dn the sum it negates), U (u's
-// numerator) and V (v's).
-__device__ __forceinline__ void shadow_dots(float4 a, float4 b, float2 c,
-                                            float ex, float ey, float ez,
-                                            float* Dn, float* U, float* V) {
-  *Dn = (ex * a.x + ey * a.y) + ez * a.z;
-  *U = (ex * b.x + ey * b.y) + ez * b.z;
-  *V = (ex * b.w + ey * c.x) + ez * c.y;
-}
-
-// x with D's sign bit XOR-ed in, from Dn = -D, whose sign bit is D's
-// complemented (one LOP3).
-__device__ __forceinline__ float flip_by(float x, float Dn) {
-  return __int_as_float(__float_as_int(x) ^
-                        (~__float_as_int(Dn) & static_cast<int>(0x80000000u)));
-}
-
-// The exact any-hit reject: true only where plane_test's ok && t < 0.99 is
-// surely false, decided from D, U, V and K (k0) without the reciprocal.
-//
-// plane_test forms r = fl(1 / D), u = fl(U r), v = fl(V r), t = fl(K r)
-// and fl(u + v). Round to nearest is symmetric, so with Ds = |D| and Us,
-// Vs, Ks the values with D's sign bit XOR-ed in (exact), u = fl(Us r'),
-// v = fl(Vs r'), t = fl(Ks r') for r' = fl(1 / Ds). Let e = 2^-24, and
-// take the guard 2^-40 <= Ds <= 2^40 (it fails for NaN, inf, 0 and every
-// subnormal D): then r' lies in [2^-40, 2^40] and fl(Ds c) = Ds c (1 + d),
-// |d| <= e, for c near 1. Each clause below implies the test fails:
-// - D = 0: plane_test's nonpar is false.
-// - Us < -2^-80: Us r' <= -2^-120, a normal number, so u < 0 (likewise
-//   Vs and v, Ks and t). A tiny or zero Us is left alone: fl(Us r') may
-//   round to -0, which passes u >= 0.
-// - Ks >= fl(Ds kRejectT): Ks r' >= kRejectT (1 - e)^2 > kShadowT, since
-//   kRejectT = kShadowT + 2^-20, so t = fl(Ks r') >= kShadowT (rounding is
-//   monotone and kShadowT a float; an overflow gives +inf).
-// - fl(Us + Vs) > fl(Ds kRejectUV), with Us, Vs >= -2^-80 (else a clause
-//   above holds): W = Us + Vs > Ds kRejectUV (1 - 2e), so r' W >
-//   kRejectUV (1 - e) (1 - 2e); |fl(x) - x| <= e |x| + 2^-150 gives
-//   u + v >= r' W - e r' (|Us| + |Vs|) - 2^-149, and |Us| + |Vs| <= W +
-//   4 2^-80, so u + v >= r' W (1 - e) - 2^-61 >= kRejectUV (1 - 4e) -
-//   2^-61 >= 1 + 2^-21 and fl(u + v) > 1 (kRejectUV = 1 + 2^-20).
-// A NaN makes every comparison that reads it false, so it never rejects.
-// Everything else (a test that blocks, a margin case, a D outside the
-// guard) falls through to plane_test. kernels/intersect.py::shadow_reject
-// is the plain form; the card enumerates it against plane_test
-// (raytpu_shadow_reject_probe). It takes Dn = -D (shadow_dots), so that D
-// itself is never formed. kBelowT false drops the t >= 0.99 clause, which
-// only a shadow test fails by: every other clause implies plane_test's ok
-// is false, which is the primary sweep's reject (primary_reject).
-template <bool kBelowT>
-__device__ __forceinline__ bool reject_test(float Dn, float U, float V,
-                                            float K) {
-  const float Ds = fabsf(Dn);
-  const float Us = flip_by(U, Dn), Vs = flip_by(V, Dn), Ks = flip_by(K, Dn);
-  const bool guard = (Ds >= kRejectMinD) & (Ds <= kRejectMaxD);
-  const bool miss = (Us < -kRejectEps) | (Vs < -kRejectEps) |
-                    (Ks < -kRejectEps) | (kBelowT & (Ks >= Ds * kRejectT)) |
-                    (Us + Vs > Ds * kRejectUV);
-  return (Dn == 0.0f) | (guard & miss);
-}
-
-__device__ __forceinline__ bool shadow_reject(float Dn, float U, float V,
-                                              float K) {
-  return reject_test<true>(Dn, U, V, K);
-}
-
-__device__ __forceinline__ bool primary_reject(float Dn, float U, float V,
-                                               float K) {
-  return reject_test<false>(Dn, U, V, K);
-}
 
 // The kept chunks of one keep-mask row (n columns; null: every chunk kept)
 // with rank in [lo, hi) among the kept ones, in order: fn(c) for each,
@@ -421,107 +427,8 @@ __device__ __forceinline__ int run_edge(int k, int j, int runs) {
 }
 
 // ---------------------------------------------------------------------------
-// K5, K7d and K7a's primary half: the exact per-tile triangle cull.
-
-// A box of ray directions: lo and hi of dx, dy and dz over the valid lanes
-// of a group (a warp, or the 256 rays of a tile); `any` where the group
-// holds a valid lane, `finite` where every valid lane's direction is.
-struct DirBox {
-  float lo[3], hi[3];
-  bool any, finite;
-};
-
-// The box of this warp's valid lanes, known to every lane.
-__device__ __forceinline__ DirBox warp_box(bool valid, float dx, float dy,
-                                           float dz) {
-  DirBox b;
-  const float d[3] = {dx, dy, dz};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float lo = valid ? d[k] : INFINITY, hi = valid ? d[k] : -INFINITY;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(kFullMask, lo, o));
-      hi = fmaxf(hi, __shfl_xor_sync(kFullMask, hi, o));
-    }
-    b.lo[k] = lo;
-    b.hi[k] = hi;
-  }
-  b.any = __any_sync(kFullMask, valid);
-  b.finite = __all_sync(kFullMask, !valid || (isfinite(dx) && isfinite(dy) &&
-                                              isfinite(dz)));
-  return b;
-}
-
-// The sum plane_test forms for the coefficient row (p, q, r),
-// fl(fl(fl(x p) + fl(y q)) + fl(z r)) in shadow_dots' order, at the corner
-// of the box where each product is largest (top) or smallest.
-__device__ __forceinline__ float corner_dot(const DirBox& b, float p, float q,
-                                            float r, bool top) {
-  const float x = (p >= 0.0f) == top ? b.hi[0] : b.lo[0];
-  const float y = (q >= 0.0f) == top ? b.hi[1] : b.lo[1];
-  const float z = (r >= 0.0f) == top ? b.hi[2] : b.lo[2];
-  return (x * p + y * q) + z * r;
-}
-
-// True where no ray of the box can pass plane_test on the triangle with
-// triangle-major constants a = (n, k0), b = (c2, c3.x), c = (c3.y, c3.z)
-// (kernels/intersect.py::primary_tile_reject is the plain form, op by op).
-//
-// Exact, with no margin. Rounding to nearest is monotone in each operand of
-// a product and of a sum, so over the box every lane's Dn, U and V (the
-// sums shadow_dots forms) lies between their values at the two corners
-// corner_dot picks, computed by the same expression. Where Dn keeps one
-// sign over the box and |Dn| lies in [2^-40, 2^40] at both ends, every
-// lane is inside the guard of reject_test with the same sign flip, and one
-// of its clauses holding at the bound holds at every lane: with Dn > 0
-// (Us = -U, Vs = -V, Ks = -K) min U > 2^-80, min V > 2^-80, K > 2^-80, or
-// fl(-max U - max V) > fl(max Dn kRejectUV), since each lane's fl(Us + Vs)
-// is at least the first and its fl(Ds kRejectUV) at most the second; with
-// Dn < 0 (Us = U) the mirror. Each of those clauses implies that
-// plane_test's ok is false (reject_test's argument; the t >= 0.99 clause
-// is a shadow test's and is not used). Where both bounds of Dn are 0,
-// every lane's Dn is 0 and plane_test's nonpar false: a zero (padding or
-// invalid) triangle, culled everywhere. A bound that overflows into an
-// infinity of the wrong sign, or a NaN, makes its comparison false. A box
-// with a non-finite component, or a non-finite coefficient, culls nothing;
-// a box of no valid lane culls everything.
-__device__ __forceinline__ bool box_reject(const DirBox& bx, float4 a,
-                                           float4 b, float2 c) {
-  if (!bx.any) return true;
-  if (!bx.finite ||
-      !(isfinite(a.x) && isfinite(a.y) && isfinite(a.z) && isfinite(a.w) &&
-        isfinite(b.x) && isfinite(b.y) && isfinite(b.z) && isfinite(b.w) &&
-        isfinite(c.x) && isfinite(c.y)))
-    return false;
-  const float d_hi = corner_dot(bx, a.x, a.y, a.z, true);
-  const float d_lo = corner_dot(bx, a.x, a.y, a.z, false);
-  if ((d_lo == 0.0f) & (d_hi == 0.0f)) return true;  // every Dn 0: nonpar
-  const bool pos = (d_lo >= kRejectMinD) & (d_hi <= kRejectMaxD);
-  const bool neg = (d_hi <= -kRejectMinD) & (d_lo >= -kRejectMaxD);
-  if (!(pos | neg)) return false;
-  const float u_hi = corner_dot(bx, b.x, b.y, b.z, true);
-  const float u_lo = corner_dot(bx, b.x, b.y, b.z, false);
-  const float v_hi = corner_dot(bx, b.w, c.x, c.y, true);
-  const float v_lo = corner_dot(bx, b.w, c.x, c.y, false);
-  if (pos)
-    return (u_lo > kRejectEps) | (v_lo > kRejectEps) | (a.w > kRejectEps) |
-           (-(u_hi + v_hi) > d_hi * kRejectUV);
-  return (u_hi < -kRejectEps) | (v_hi < -kRejectEps) | (a.w < -kRejectEps) |
-         (u_lo + v_lo > -d_lo * kRejectUV);
-}
-
-// The triangle-major constants of column i of a 10-row block at `blk` (row
-// stride Tp): (n, k0), (c2, c3.x), (c3.y, c3.z).
-__device__ __forceinline__ void load_tri(const float* __restrict__ blk,
-                                         int Tp, int i, float4* a, float4* b,
-                                         float2* c) {
-  const size_t s = static_cast<size_t>(Tp);
-  *a = make_float4(blk[i], blk[s + i], blk[2 * s + i], blk[9 * s + i]);
-  *b = make_float4(blk[3 * s + i], blk[4 * s + i], blk[5 * s + i],
-                   blk[6 * s + i]);
-  *c = make_float2(blk[7 * s + i], blk[8 * s + i]);
-}
+// K5, K7d and K7a's primary half: the exact per-tile triangle cull
+// (box_reject, sweep_cull.cuh).
 
 // Survivors of a tile's cull a block stages at most, and kept chunks of a
 // run it lists at once.
@@ -1316,24 +1223,50 @@ __global__ void shadow_reject_probe_kernel(const float* __restrict__ e,
 }  // namespace
 
 // dirs (R, 3) (planar 0: K4) or (3, R) (planar 1: L2), table (20, C),
-// cam (3,), light (3,) float32 device pointers; t (R,) float32, idx (R,)
-// int32 and occ (R,) int32 outputs. Launches on `stream` and returns the
-// launch's cudaError_t.
+// cam (3,), light (3,) float32 device pointers, the rays a row-major H x W
+// grid (R = H W) swept in warps of wh x (32 / wh) rays (H = 1, W = R,
+// wh = 1: 32 consecutive rays); t (R,) float32, idx (R,) int32 and occ
+// (R,) int32 outputs. Launches on `stream` and returns the launch's
+// cudaError_t.
 extern "C" int raytpu_closest_hit_occluded(const void* dirs, const void* table,
                                            const void* cam, const void* light,
-                                           int C, int R, int planar, void* t,
-                                           void* idx, void* occ,
-                                           void* stream) {
-  if (C < 1 || C > kMaxTris || R < 0 || (planar != 0 && planar != 1))
+                                           int C, int H, int W, int wh,
+                                           int planar, void* t, void* idx,
+                                           void* occ, void* stream) {
+  const long long blocks = sweep_blocks(C, H, W, wh, kThreads);
+  if (blocks < 0 || (planar != 0 && planar != 1))
     return (int)cudaErrorInvalidValue;
-  if (R == 0) return (int)cudaSuccess;
-  const int blocks = (R + kThreads - 1) / kThreads;
+  if (blocks == 0) return (int)cudaSuccess;
   auto kernel = planar ? closest_hit_occluded_kernel<true>
                        : closest_hit_occluded_kernel<false>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<int>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dirs), static_cast<const float*>(table),
-      static_cast<const float*>(cam), static_cast<const float*>(light), C, R,
-      static_cast<float*>(t), static_cast<int*>(idx), static_cast<int*>(occ));
+      static_cast<const float*>(cam), static_cast<const float*>(light), C, H,
+      W, wh, static_cast<float*>(t), static_cast<int*>(idx),
+      static_cast<int*>(occ));
+  return (int)cudaGetLastError();
+}
+
+// dirs (R = H W, 3), table (at least 20 rows, C columns: the camera's and
+// the light's 10-row blocks), cam (3,), light (3,) float32 device
+// pointers; dec (n_blocks 8, 2, C) uint8 and counts (4,) int64 outputs,
+// counts zeroed by the caller: sweep_cull_probe_kernel on sweep_ray's
+// warps. Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int raytpu_sweep_cull_probe(const void* dirs, const void* table,
+                                       const void* cam, const void* light,
+                                       int C, int H, int W, int wh,
+                                       void* dec, void* counts,
+                                       void* stream) {
+  const long long blocks = sweep_blocks(C, H, W, wh, kThreads);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return (int)cudaSuccess;
+  sweep_cull_probe_kernel<<<static_cast<int>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dirs), static_cast<const float*>(table),
+      static_cast<const float*>(cam), static_cast<const float*>(light), C, H,
+      W, wh, static_cast<unsigned char*>(dec),
+      static_cast<unsigned long long*>(counts));
   return (int)cudaGetLastError();
 }
 

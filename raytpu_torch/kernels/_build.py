@@ -36,18 +36,21 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # The C interface of every kernel: name -> argument types. Each returns the
 # cudaError_t of its launch as an int, but those in RESTYPES.
 SIGNATURES = {
-    # dirs, table, params, C, R, ambient, parity, color, fd, idx, occ, stream
-    "raytpu_render_fused_fwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
-                                _P],
+    # dirs, table, params, C, H, W, wh, ambient, parity, color, fd, idx,
+    # occ, stream
+    "raytpu_render_fused_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P,
+                                _P, _P, _P],
     # dirs, table, params, idx, occ, g_color, g_fd, C, R, ambient, parity,
     # g_dirs, partials, blocks, stream
     "raytpu_render_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
                                 _P, _P, _I, _P],
     # partials, blocks, C, g_table, g_params, stream
     "raytpu_render_fused_scatter": [_P, _I, _I, _P, _P, _P],
-    # dirs, table, cam, light, C, R, planar, t, idx, occ, stream
-    "raytpu_closest_hit_occluded": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                                    _P],
+    # dirs, table, cam, light, C, H, W, wh, planar, t, idx, occ, stream
+    "raytpu_closest_hit_occluded": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                    _P, _P, _P],
+    # dirs, table, cam, light, C, H, W, wh, dec, counts, stream
+    "raytpu_sweep_cull_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # dirs, table, cam, src, C, S, R, t, idx, occ, tris, scratch_bytes,
     # staged, stream
     "raytpu_closest_hit_occluded_multi": [_P, _P, _P, _P, _I, _I, _I, _P, _P,

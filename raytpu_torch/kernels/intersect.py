@@ -39,6 +39,14 @@ test (t < 0.99) from each shadow source toward it:
                                tile's and a warp's ray directions,
                                primary_boxes); primary_cull_probe runs the
                                card's decisions beside plane_test.
+  sweep_cull_decisions         the plain form of K4's, L2's and K1's
+                               per-warp cull of both sweeps (the warps of
+                               sweep_warps, 32 consecutive rays or, given
+                               image_hw, SWEEP_WARP_ROWS x (32 /
+                               SWEEP_WARP_ROWS) pixels); sweep_keep the
+                               tests their sweeps make; sweep_cull_probe
+                               runs the card's decisions beside
+                               plane_test.
   intersect_closest{,_culled}  Hits through K5 / K7d (``intersect_pallas``,
                                ``intersect_pallas_culled``).
   intersect_occluded{,_multi}  (Hits, occ bool) through K4 / K6, or K7a for
@@ -69,8 +77,9 @@ K7c decide nearly every shadow test with the exact reject
 (:func:`shadow_reject`) before the plane test; K7b on one chunk sweeps a
 thread a point, K7c and K7b over several chunks in the work items that
 :func:`occlusion_plan` and :func:`occlusion_leaders` model
-(:func:`occlusion_items_reference`). K4 sweeps every
-ray, a miss with tz = 0, and returns that raw bit (a shadow ray from the
+(:func:`occlusion_items_reference`). K4 culls each warp's
+triangles exactly in both sweeps and takes the reject first too
+(:func:`sweep_keep`). K4 sweeps every ray, a miss with tz = 0, and returns that raw bit (a shadow ray from the
 light to the camera) unmasked, as JAX's ``intersect_occluded_pallas``
 does; no consumer reads it (composite zeroes misses, and the AA record
 takes hits only).
@@ -163,20 +172,29 @@ def _block(table: torch.Tensor, b: int):
 
 def sweeps_reference(dirs: torch.Tensor, table: torch.Tensor,
                      cam: torch.Tensor, src: torch.Tensor, *,
-                     mask_misses: bool = True):
+                     mask_misses: bool = True, cull: bool = False,
+                     image_hw: tuple | None = None):
     """Plain PyTorch version of both kernels, on any device: dirs (R, 3),
     table ((1 + S) * 10, C), cam (3,), src (S, 3). Returns (t (R,),
     idx (R,) int32, occ (S, R) int32). A miss ray's occ is 0 with
     ``mask_misses`` (K6), else the raw bit of its shadow ray from the
-    camera position (K4)."""
-    best_t, best_idx = closest(*plane_tests(dirs, *_block(table, 0)))
+    camera position (K4). ``cull`` (one source) leaves out, for each ray,
+    the tests K4's culled sweeps leave out (:func:`sweep_keep` on the
+    warps of ``image_hw``), as the kernel does: the same t, idx and occ."""
+    if cull:
+        if src.shape[0] != 1:
+            raise ValueError("the culled sweeps take one source")
+        pri, shw = sweep_keep(dirs, table, cam, src[0], image_hw)
+    ts, oks = plane_tests(dirs, *_block(table, 0))
+    best_t, best_idx = closest(ts, oks & pri if cull else oks)
     hit = best_t < F32MAX
     tz = torch.where(hit, best_t, 0.0)
     pos = cam[None, :] + tz[:, None] * dirs
     occ = []
     for s in range(src.shape[0]):
         ts, oks = plane_tests(pos - src[s][None, :], *_block(table, 1 + s))
-        bit = (oks & (ts < SHADOW_T)).any(dim=1)
+        blocks = oks & (ts < SHADOW_T)
+        bit = (blocks & shw if cull else blocks).any(dim=1)
         occ.append(bit & hit if mask_misses else bit)
     return (best_t, torch.where(hit, best_idx, -1),
             torch.stack(occ).to(torch.int32))
@@ -216,16 +234,17 @@ def _outputs(dirs: torch.Tensor, S: int):
 
 
 def launch_occluded_kernel(dirs, table, cam, light, t, idx, occ, *,
-                           planar: bool = False):
+                           planar: bool = False, image_hw=None):
     """Launch K4 on outputs the caller allocated: t (R,), idx (R,) and occ
     (R,) or (1, R); dirs (R, 3), or (3, R) with ``planar`` (lab 2's L2,
-    kernels/labs.py::run_onestep). Checks nothing and counts nothing; the
-    wrappers do both."""
+    kernels/labs.py::run_onestep); its warps over ``image_hw`` as
+    :func:`sweep_grid` lays them out. Checks nothing and counts nothing;
+    the wrappers do both."""
+    H, W, wh = sweep_grid(dirs.shape[1 if planar else 0], image_hw)
     err = _build.load().raytpu_closest_hit_occluded(
         dirs.data_ptr(), table.data_ptr(), cam.data_ptr(), light.data_ptr(),
-        table.shape[1], dirs.shape[1 if planar else 0], int(planar),
-        t.data_ptr(), idx.data_ptr(), occ.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        table.shape[1], H, W, wh, int(planar), t.data_ptr(), idx.data_ptr(),
+        occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"closest_hit_occluded launch failed: CUDA error "
                            f"{err}")
@@ -294,6 +313,160 @@ def _sweeps(dirs, table, cam, src, launch, mask_misses: bool) -> tuple:
     return out
 
 
+# K4, L2 and K1 sweep a warp at a time (csrc/sweep_cull.cuh::sweep_ray):
+# 32 consecutive rays of a ray list, or, where the rays are an image of
+# ``image_hw`` = (H, W) pixels, a block of SWEEP_WARP_ROWS x (32 /
+# SWEEP_WARP_ROWS) pixels, whose box of directions is smaller than a row's
+# strip of 32 (the warp culls what no ray of its box can hit). Measured on
+# the H100 against consecutive rays and 1, 2 and 8 rows (PERF.md §6).
+SWEEP_WARP_ROWS = 4
+SWEEP_BLOCK_WARPS = 8  # the kernels' warps a block of 256 lanes
+
+
+def sweep_grid(R: int, image_hw=None) -> tuple[int, int, int]:
+    """(H, W, wh) of K4's, L2's and K1's warps over R rays: the grid 1 x R
+    in warps of 1 x 32 consecutive rays without ``image_hw``, else the
+    H x W image in warps of wh = SWEEP_WARP_ROWS x (32 / wh) pixels."""
+    if image_hw is None:
+        return 1, R, 1
+    H, W = image_hw
+    wh = SWEEP_WARP_ROWS
+    if H * W != R:
+        raise ValueError(f"image {H} x {W} does not hold {R} rays")
+    if wh < 1 or 32 % wh:
+        raise ValueError(f"a warp of {wh} rows does not divide 32 lanes")
+    return H, W, wh
+
+
+def sweep_warps(R: int, image_hw=None, device=None):
+    """The plain form of csrc/sweep_cull.cuh::sweep_ray, on any device:
+    (rays (n, 32) int64, valid (n, 32) bool), the ray of each lane of the n
+    warps of the kernels' whole blocks of SWEEP_BLOCK_WARPS (0 where the
+    lane lies past the grid, and is not valid); warp g takes the block of
+    wh x (32 / wh) rays at (g // warps_x, g % warps_x) of the grid of
+    :func:`sweep_grid`, row-major, lane k its ray (k // (32 / wh),
+    k % (32 / wh))."""
+    H, W, wh = sweep_grid(R, image_hw)
+    ww = 32 // wh
+    warps_x = -(-W // ww)
+    n = -(-(-(-H // wh) * warps_x) // SWEEP_BLOCK_WARPS) * SWEEP_BLOCK_WARPS
+    g = torch.arange(n, device=device)[:, None]
+    k = torch.arange(32, device=device)[None, :]
+    y = (g // warps_x) * wh + k // ww
+    x = (g % warps_x) * ww + k % ww
+    valid = (y < H) & (x < W)
+    return torch.where(valid, y * W + x, 0), valid
+
+
+def sweep_ray_warps(R: int, image_hw=None, device=None) -> torch.Tensor:
+    """(R,) int64: the warp of :func:`sweep_warps` that sweeps each ray."""
+    rays, valid = sweep_warps(R, image_hw, device)
+    g = torch.arange(rays.shape[0], device=rays.device)[:, None]
+    warp = torch.empty((R,), dtype=torch.int64, device=rays.device)
+    warp[rays[valid]] = g.expand_as(rays)[valid]
+    return warp
+
+
+def sweep_shadow_rays(dirs, table, cam, light) -> torch.Tensor:
+    """(R, 3): each ray's shadow vector e = (cam + tz d) - light as K4 and
+    K1 form it, tz the brute primary sweep's t on a hit and 0 on a miss."""
+    t, _ = closest(*plane_tests(dirs, *_block(table, 0)))
+    tz = torch.where(t < F32MAX, t, 0.0)
+    return (cam[None, :] + tz[:, None] * dirs) - light[None, :]
+
+
+def sweep_cull_decisions(dirs, table, cam, light, image_hw=None,
+                         boxes: int = 1024) -> torch.Tensor:
+    """The plain form of K4's, L2's and K1's per-warp cull
+    (csrc/sweep_cull.cuh::warp_closest, warp_blocked), every decision, on
+    any device: (n_warps, 2, C) bool over the first two 10-row blocks of
+    ``table`` (the camera's and the light's; K1's 26-row table too), for
+    the warps of :func:`sweep_warps`; [:, 0] each warp's primary decision
+    on its valid lanes' directions (:func:`primary_tile_reject`), [:, 1]
+    its shadow decision on their shadow vectors (:func:`sweep_shadow_rays`;
+    primary_tile_reject with the t >= 0.99 clause); True where culled.
+    The kernels decide the shadow sweep's triangles 32 at a time while a
+    lane of the warp sweeps; this decides every one. ``boxes`` warps at a
+    time."""
+    rays, valid = sweep_warps(dirs.shape[0], image_hw, dirs.device)
+    e = sweep_shadow_rays(dirs, table, cam, light)
+    out = []
+    for b, v in ((0, dirs), (1, e)):
+        m, k0 = _block(table, b)
+        lo, hi, any_, finite = lane_boxes(v[rays], valid)
+        out.append(torch.cat([
+            primary_tile_reject(lo[i:i + boxes], hi[i:i + boxes],
+                                any_[i:i + boxes], finite[i:i + boxes], m,
+                                k0, below_t=b == 1)
+            for i in range(0, lo.shape[0], boxes)]
+            or [torch.zeros((0, m.shape[0]), dtype=torch.bool,
+                            device=dirs.device)]))
+    return torch.stack(out, dim=1)
+
+
+def sweep_keep(dirs, table, cam, light, image_hw=None):
+    """The plain form of K4's, L2's and K1's culled sweeps, on any device:
+    (pri (R, C), shw (R, C)) bool, the (ray, triangle) tests each sweep
+    takes to the plane test: the ray's warp keeps the triangle
+    (:func:`sweep_cull_decisions`) and the exact reject
+    (:func:`shadow_reject`; without its t < 0.99 clause in the primary
+    sweep) leaves the test open, shw's on the shadow vectors of
+    :func:`sweep_shadow_rays`. The kernels' sweeps are the brute sweeps'
+    closest and any over these tests alone."""
+    dec = sweep_cull_decisions(dirs, table, cam, light, image_hw)
+    warp = sweep_ray_warps(dirs.shape[0], image_hw, dirs.device)
+    e = sweep_shadow_rays(dirs, table, cam, light)
+    keep = []
+    for b, v in ((0, dirs), (1, e)):
+        m, k0 = _block(table, b)
+        keep.append(~dec[warp, b] & ~shadow_reject(v, m, k0,
+                                                   below_t=b == 1))
+    return keep[0], keep[1]
+
+
+def sweep_cull_probe(dirs, table, cam, light, image_hw=None):
+    """K4's, L2's and K1's cull decided for every triangle of the first two
+    10-row blocks of ``table`` (C columns; K1's 26-row table too) on the
+    warps of :func:`sweep_warps`. Returns (dec (n_warps, 2, C) bool, [:, 0]
+    the primary and [:, 1] the shadow decision, True where culled; counts
+    (4,) int64: the culled (warp, triangle) pairs of each sweep, the valid
+    lanes of primary-culled pairs whose ``plane_tests`` is ok and of
+    shadow-culled pairs whose test blocks (ok and t < 0.99), both 0). On
+    CUDA tensors the card's decisions and plane_test (the probe kernel), on
+    CPU tensors the plain forms (:func:`sweep_cull_decisions`)."""
+    R, C = dirs.shape[0], table.shape[1]
+    if _on_cuda(dirs):
+        f32 = torch.float32
+        _require(dirs, (("dirs", dirs, f32, (R, 3)),
+                        ("table", table, f32, (table.shape[0], C)),
+                        ("cam", cam, f32, (3,)), ("light", light, f32, (3,))))
+        if table.shape[0] < 2 * BLOCK_ROWS:
+            raise ValueError("the table holds no light block")
+        H, W, wh = sweep_grid(R, image_hw)
+        n = sweep_warps(R, image_hw, "cpu")[0].shape[0]
+        dec = torch.empty((n, 2, C), dtype=torch.uint8, device=dirs.device)
+        counts = torch.zeros((4,), dtype=torch.int64, device=dirs.device)
+        with torch.cuda.device(dirs.device):
+            err = _build.load().raytpu_sweep_cull_probe(
+                dirs.data_ptr(), table.data_ptr(), cam.data_ptr(),
+                light.data_ptr(), C, H, W, wh, dec.data_ptr(),
+                counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"sweep_cull_probe launch failed: CUDA error "
+                               f"{err}")
+        return dec.bool(), counts
+    dec = sweep_cull_decisions(dirs, table, cam, light, image_hw)
+    warp = sweep_ray_warps(R, image_hw, dirs.device)
+    e = sweep_shadow_rays(dirs, table, cam, light)
+    oks = plane_tests(dirs, *_block(table, 0))[1]
+    ts, blocks = plane_tests(e, *_block(table, 1))
+    blocks = blocks & (ts < SHADOW_T)
+    counts = torch.tensor([int(dec[:, 0].sum()), int(dec[:, 1].sum()),
+                           int((dec[warp, 0] & oks).sum()),
+                           int((dec[warp, 1] & blocks).sum())])
+    return dec, counts
+
+
 def closest_hit_occluded_reference(dirs, m, k0, valid, m_l, k0_l, cam_pos,
                                    light_pos, *, tri_chunk: int = 512):
     """Plain PyTorch version of K4, on any device. dirs (R, 3); m, k0,
@@ -317,15 +490,21 @@ def closest_hit_occluded_multi_reference(dirs, m, k0, valid, m_s, k0_s,
 
 
 def closest_hit_occluded(dirs, m, k0, valid, m_l, k0_l, cam_pos, light_pos,
-                         *, tri_chunk: int = 512):
+                         *, tri_chunk: int = 512,
+                         image_hw: tuple | None = None):
     """K4's wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Arguments and result as for
-    closest_hit_occluded_reference."""
+    closest_hit_occluded_reference; image_hw = (H, W) where the rays are a
+    row-major pixel grid, whose warps the kernel takes as squarer blocks of
+    pixels (:func:`sweep_grid`; the same outputs)."""
     global LAUNCHES_OCCLUDED
+    sweep_grid(dirs.shape[0], image_hw)
     table = occluded_table(m, k0, valid, m_l[None], k0_l[None], tri_chunk)
     src = light_pos.reshape(1, 3).contiguous()
     t, idx, occ = _sweeps(dirs, table, cam_pos.contiguous(), src,
-                          launch_occluded_kernel, mask_misses=False)
+                          functools.partial(launch_occluded_kernel,
+                                            image_hw=image_hw),
+                          mask_misses=False)
     if dirs.is_cuda:
         LAUNCHES_OCCLUDED += 1
     return t, idx, occ[0]
@@ -511,13 +690,21 @@ def primary_boxes(dirs, tiles: RayTiles, group: int):
     slots inside the grid, (lo (n, 3), hi (n, 3)) the least and largest dx,
     dy and dz, any (n,) where the group holds such a slot and finite (n,)
     where all their directions are finite."""
-    valid = _tile_slots_valid(tiles).reshape(-1, group)
-    d = dirs[tiles.rays].reshape(-1, group, 3)
-    inf = torch.tensor(float("inf"), dtype=dirs.dtype, device=dirs.device)
-    v = valid[..., None]
-    lo = torch.where(v, d, inf).amin(dim=1)
-    hi = torch.where(v, d, -inf).amax(dim=1)
-    finite = (torch.isfinite(d) | ~v).all(dim=2).all(dim=1)
+    return lane_boxes(dirs[tiles.rays].reshape(-1, group, 3),
+                      _tile_slots_valid(tiles).reshape(-1, group))
+
+
+def lane_boxes(v: torch.Tensor, valid: torch.Tensor):
+    """csrc/sweep_cull.cuh::warp_box on any device, for n groups of lanes:
+    v (n, g, 3) their vectors, valid (n, g). Returns (lo (n, 3), hi (n, 3))
+    the least and largest of each component over the valid lanes, any (n,)
+    where a group holds a valid lane and finite (n,) where all its valid
+    lanes' vectors are finite."""
+    inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
+    m = valid[..., None]
+    lo = torch.where(m, v, inf).amin(dim=1)
+    hi = torch.where(m, v, -inf).amax(dim=1)
+    finite = (torch.isfinite(v) | ~m).all(dim=2).all(dim=1)
     return lo, hi, valid.any(dim=1), finite
 
 
@@ -531,7 +718,8 @@ def ray_warps(tiles: RayTiles) -> torch.Tensor:
     return tiles.tile * (TILE_RAYS // 32) + slot // 32
 
 
-def primary_tile_reject(lo, hi, any_, finite, m, k0) -> torch.Tensor:
+def primary_tile_reject(lo, hi, any_, finite, m, k0,
+                        below_t: bool = False) -> torch.Tensor:
     """Plain form of the closest-hit kernels' exact per-box cull
     (csrc/intersect.cu::box_reject), op by op, on any device: (n, T) bool,
     True where no ray whose direction lies in box j (lo, hi (n, 3); any_,
@@ -545,7 +733,10 @@ def primary_tile_reject(lo, hi, any_, finite, m, k0) -> torch.Tensor:
     but t < 0.99's holding at the bound holds at every ray; where both
     bounds of Dn are 0 (a zero triangle: padding, invalid), every ray's
     denominator is 0. A box of no ray rejects everything; a non-finite box
-    or coefficient nothing."""
+    or coefficient nothing. ``below_t`` adds the t >= 0.99 clause
+    (box_reject<true>: -k0 >= max Dn REJECT_T where Dn > 0, k0 >= -min Dn
+    REJECT_T where Dn < 0): True where no ray of the box can pass a shadow
+    test (ok and t < 0.99)."""
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=lo.device)
 
@@ -569,6 +760,9 @@ def primary_tile_reject(lo, hi, any_, finite, m, k0) -> torch.Tensor:
                | (-(u_hi + v_hi) > d_hi * uv))
     rej_neg = ((u_hi < -eps) | (v_hi < -eps) | (k < -eps)
                | (u_lo + v_lo > -d_lo * uv))
+    if below_t:
+        rej_pos = rej_pos | (-k >= d_hi * f32(REJECT_T))
+        rej_neg = rej_neg | (k >= -d_lo * f32(REJECT_T))
     coef = (torch.isfinite(m).reshape(-1, 9).all(dim=1)
             & torch.isfinite(k0))[None, :]
     zero = (d_lo == 0.0) & (d_hi == 0.0)  # every Dn 0: nonpar is false
@@ -1333,12 +1527,16 @@ def _hits(t: torch.Tensor, idx: torch.Tensor) -> Hits:
 
 def intersect_occluded(dirs: torch.Tensor, consts: TriConstants,
                        consts_light: TriConstants, cam_pos: torch.Tensor,
-                       light_pos: torch.Tensor, *, tri_chunk: int = 512):
+                       light_pos: torch.Tensor, *, tri_chunk: int = 512,
+                       image_hw: tuple | None = None):
     """Primary intersect and hard-shadow occlusion toward one light through
-    K4 (``intersect_occluded_pallas``). Returns (Hits, occ (R,) bool)."""
+    K4 (``intersect_occluded_pallas``); image_hw as for
+    closest_hit_occluded. Returns (Hits, occ (R,) bool)."""
     t, idx, occ = ClosestHitOccluded.apply(
         dirs, consts.m, consts.k0, consts.valid, consts_light.m,
-        consts_light.k0, cam_pos, light_pos, closest_hit_occluded, tri_chunk)
+        consts_light.k0, cam_pos, light_pos,
+        functools.partial(closest_hit_occluded, image_hw=image_hw),
+        tri_chunk)
     return _hits(t, idx), occ.bool()
 
 

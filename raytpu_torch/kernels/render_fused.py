@@ -38,6 +38,7 @@ hand-written derivative agrees with autograd's to rounding.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +47,7 @@ from torch.autograd.function import once_differentiable
 
 from raytpu_torch.core.types import dot3
 from raytpu_torch.kernels import _build
+from raytpu_torch.kernels.intersect import sweep_grid, sweep_keep
 from raytpu_torch.kernels.tables import (
     ALBEDO,
     GATHERED,
@@ -117,23 +119,32 @@ def _shade(delta, dirs, tz, hit, occ, nrm, alb, p_eff, dof, *,
 
 def fused_fwd_reference(dirs: torch.Tensor, table: torch.Tensor,
                         params: torch.Tensor, *, ambient: float,
-                        parity: bool) -> FusedOut:
+                        parity: bool, image_hw: tuple | None = None,
+                        cull: bool = False) -> FusedOut:
     """Plain PyTorch version of the forward kernel, on any device.
 
     dirs (R, 3) ray directions; table (TABLE_ROWS, C) from pack_tables;
-    params (PARAMS,) from pack_params.
+    params (PARAMS,) from pack_params. ``cull`` leaves out, for each ray,
+    the tests the kernel's culled sweeps leave out (its warps over
+    ``image_hw``: kernels/intersect.py::sweep_keep), as the kernel does:
+    the same outputs. image_hw is the kernel's warps' grid and changes
+    nothing else.
     """
+    cam, light, p_eff, dof = params[0:3], params[3:6], params[6:9], params[9]
+    if cull:
+        pri, shw = sweep_keep(dirs, table, cam, light, image_hw)
     m, k0 = _constants(table, PRIMARY)
-    best_t, best_idx = closest(*plane_tests(dirs, m, k0))
+    ts, oks = plane_tests(dirs, m, k0)
+    best_t, best_idx = closest(ts, oks & pri if cull else oks)
     hit = best_t < F32MAX
     tz = torch.where(hit, best_t, 0.0)
 
-    cam, light, p_eff, dof = params[0:3], params[3:6], params[6:9], params[9]
     # Shadow sweep from the light toward pos = cam + t*d, in that order.
     delta = (cam[None, :] + tz[:, None] * dirs) - light[None, :]
     m_l, k0_l = _constants(table, SHADOW)
     ts, oks = plane_tests(delta, m_l, k0_l)
-    occ = (oks & (ts < SHADOW_T)).any(dim=1)
+    blocks = oks & (ts < SHADOW_T)
+    occ = (blocks & shw if cull else blocks).any(dim=1)
 
     # Exactly one triangle is the winner, so indexing equals the JAX
     # kernel's select chain; misses (best_idx = C - 1) are masked below.
@@ -240,10 +251,15 @@ def _raise_on(err: int, what: str):
 
 
 def fused_fwd(dirs: torch.Tensor, table: torch.Tensor, params: torch.Tensor,
-              *, ambient: float, parity: bool) -> FusedOut:
+              *, ambient: float, parity: bool,
+              image_hw: tuple | None = None) -> FusedOut:
     """The forward kernel's wrapper: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Arguments as for fused_fwd_reference."""
+    plain version for CPU tensors. Arguments as for fused_fwd_reference;
+    image_hw = (H, W) where the rays are a row-major pixel grid, whose
+    warps the kernel takes as squarer blocks of pixels
+    (kernels/intersect.py::sweep_grid; the same outputs)."""
     global LAUNCHES
+    H, W, wh = sweep_grid(dirs.shape[0], image_hw)
     if dirs.device.type == "cpu":
         return fused_fwd_reference(dirs, table, params, ambient=ambient,
                                    parity=parity)
@@ -260,8 +276,8 @@ def fused_fwd(dirs: torch.Tensor, table: torch.Tensor, params: torch.Tensor,
     lib = _build.load()
     with torch.cuda.device(dirs.device):
         err = lib.raytpu_render_fused_fwd(
-            dirs.data_ptr(), table.data_ptr(), params.data_ptr(), C, R,
-            ctypes.c_float(ambient), int(parity),
+            dirs.data_ptr(), table.data_ptr(), params.data_ptr(), C, H, W,
+            wh, ctypes.c_float(ambient), int(parity),
             out.color.data_ptr(), out.fd.data_ptr(), out.idx.data_ptr(),
             out.occ.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -377,7 +393,8 @@ def pack_inputs(m, k0, valid, m_l, k0_l, nrm, alb, cam_pos, light_pos, p_eff,
 
 def render_hard_fused(dirs, m, k0, valid, m_l, k0_l, nrm, alb, cam_pos,
                       light_pos, p_eff, dof_focus, *, tri_chunk: int = 512,
-                      ambient: float = 0.2, parity: bool = False) -> FusedOut:
+                      ambient: float = 0.2, parity: bool = False,
+                      image_hw: tuple | None = None) -> FusedOut:
     """Fully fused hard render step (raytpu's ``render_hard_fused``),
     differentiable through the backward kernels.
 
@@ -390,14 +407,17 @@ def render_hard_fused(dirs, m, k0, valid, m_l, k0_l, nrm, alb, cam_pos,
       cam_pos, light_pos: (3,).
       p_eff: (3,) mask * color * intensity of the single light.
       dof_focus: () focal-plane distance.
+      image_hw: (H, W) where the rays are a row-major pixel grid (the
+        kernel's warps, fused_fwd; the same outputs).
     Returns FusedOut(color (R, 3), fd (R,), idx (R,), occ (R,)). The
     gradient reaches dirs, m[:, 0], k0, nrm, alb and the four parameters;
     valid and the shadow constants get none, as in the JAX package.
     """
     table, params = pack_inputs(m, k0, valid, m_l, k0_l, nrm, alb, cam_pos,
                                 light_pos, p_eff, dof_focus, tri_chunk)
-    return FusedOut(*RenderHardFused.apply(dirs, table, params, ambient,
-                                           parity, fused_fwd, fused_bwd))
+    return FusedOut(*RenderHardFused.apply(
+        dirs, table, params, ambient, parity,
+        functools.partial(fused_fwd, image_hw=image_hw), fused_bwd))
 
 
 def render_hard_fused_reference(dirs, m, k0, valid, m_l, k0_l, nrm, alb,

@@ -132,7 +132,7 @@ def raytrace_full(scene: Scene, camera: Camera, lights: Lights,
         out = render_fused.render_hard_fused(
             *fused_inputs(scene, camera, lights, cfg),
             tri_chunk=cfg.tri_chunk, ambient=cfg.ambient,
-            parity=cfg.mode == "parity")
+            parity=cfg.mode == "parity", image_hw=(cfg.height, cfg.width))
         img = out.color.reshape(cfg.height, cfg.width, 3)
         fd = out.fd.reshape(cfg.height, cfg.width)
         return RenderOut(image=dof_apply(img, fd, cfg), focal_distances=fd)
@@ -176,7 +176,7 @@ def _loop_branch(scene: Scene, camera: Camera, lights: Lights,
         if single:
             hits, occ = intersect_occluded(
                 dirs, consts, consts_src, camera.pos, src_pos[0],
-                tri_chunk=cfg.tri_chunk)
+                tri_chunk=cfg.tri_chunk, image_hw=(cfg.height, cfg.width))
             occ = occ[None, :]
         else:
             hits, occ = intersect_occluded_multi(

@@ -275,6 +275,139 @@ def test_intersect_wrapper_checks_its_inputs(cuda):
                                          cam.cpu(), src)
 
 
+def _one_chunk_case(device, size, chunk, mode="clean", yaw=0.0,
+                    pos=(0.0, 0.0, -2.0), offset=(0.0, 0.0), flat_y=False):
+    """K4's and K1's inputs on one size^2 frame of the Cornell box padded
+    to ``chunk`` triangles (30: unpadded, in a chunk of 30): K1's
+    (fused_inputs' arguments and keywords, its table and parameters) and
+    K4's (its wrapper's arguments and its table). ``flat_y`` zeroes every
+    ray's y component: rays parallel to the floor and ceiling."""
+    from raytpu_torch.core.types import pixel_grid
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.render.raytrace import camera_ray_dirs
+    cfg = RenderConfig(width=size, height=size, mode=mode, tri_chunk=chunk)
+    camera = Camera.make(pos, yaw=yaw, device=device)
+    args = list(fused_inputs(
+        cornell_box(pad_to=None if chunk == 30 else chunk, device=device),
+        camera, Lights.single(capacity=1, device=device), cfg))
+    xs, ys = pixel_grid(size, size, device)
+    args[0] = camera_ray_dirs(xs + offset[0], ys + offset[1], camera, cfg)
+    if flat_y:
+        args[0] = args[0] * torch.tensor([1.0, 0.0, 1.0], device=device)
+    kw = dict(tri_chunk=chunk, ambient=cfg.ambient, parity=mode == "parity")
+    table, params = render_fused.pack_inputs(*args[1:], chunk)
+    k4_args = (*args[:6], args[8], args[9])
+    k4_table = isect.occluded_table(*args[1:4], args[4][None], args[5][None],
+                                    chunk)
+    assert table.shape[1] == chunk and k4_table.shape[1] == chunk
+    return dict(args=args, kw=kw, table=table, params=params,
+                k4_args=k4_args, k4_table=k4_table, hw=(size, size))
+
+
+def _sweep_checks(c):
+    """K1 and K4 on case c (_one_chunk_case) over consecutive rays and over
+    the image's warps: bit for bit their plain versions, one launch a call;
+    and the card's cull decisions on both tables and both mappings = their
+    plain form, no ok (primary) or blocking (shadow) ray in a culled pair.
+    Returns K1's output and the hit share."""
+    from raytpu_torch.kernels import intersect as isect
+    args, kw = c["args"], c["kw"]
+    want = render_fused.render_hard_fused_reference(*args, **kw)
+    want4 = isect.closest_hit_occluded_reference(*c["k4_args"],
+                                                 tri_chunk=kw["tri_chunk"])
+    for hw in (None, c["hw"]):
+        before = (render_fused.LAUNCHES, isect.LAUNCHES_OCCLUDED)
+        got = render_fused.render_hard_fused(*args, **kw, image_hw=hw)
+        got4 = isect.closest_hit_occluded(*c["k4_args"],
+                                          tri_chunk=kw["tri_chunk"],
+                                          image_hw=hw)
+        assert (render_fused.LAUNCHES, isect.LAUNCHES_OCCLUDED) == (
+            before[0] + 1, before[1] + 1)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("color", "fd", "idx", "occ"), got, want):
+            assert torch.equal(a, b), (hw, name)
+        for a, b in zip(got4, want4):
+            assert torch.equal(a, b), hw
+        for table, cam, light in (
+                (c["table"], c["params"][0:3], c["params"][3:6]),
+                (c["k4_table"], c["k4_args"][6], c["k4_args"][7])):
+            dec, counts = isect.sweep_cull_probe(args[0], table, cam, light,
+                                                 hw)
+            plain = isect.sweep_cull_decisions(args[0], table, cam, light, hw)
+            torch.cuda.synchronize()
+            assert torch.equal(dec, plain)
+            assert int(counts[0]) == int(plain[:, 0].sum())
+            assert int(counts[1]) == int(plain[:, 1].sum())
+            assert int(counts[2]) == 0 and int(counts[3]) == 0
+    return want, float((want.idx >= 0).float().mean())
+
+
+@pytest.mark.parametrize("size", [500, 512])
+@pytest.mark.parametrize("chunk", [30, 32, 100, 128])
+def test_one_chunk_sweeps_match_plain_versions(cuda, size, chunk):
+    """K1 and K4 (csrc/sweep_cull.cuh's culled sweeps) on the Cornell box
+    in chunks of 30, 32, 100 and 128 (zero padding triangles) at 500^2
+    (ragged last warps and blocks) and 512^2, parity at the AA sub-ray
+    (0.5, 0) and clean: bit for bit their plain versions on consecutive
+    rays and on 4 x 8 warps; the probe = the plain decisions; the padding
+    triangles culled by every warp."""
+    from raytpu_torch.kernels import intersect as isect
+    mode, offset = (("parity", (0.5, 0.0)) if size == 500
+                    else ("clean", (0.0, 0.0)))
+    c = _one_chunk_case(cuda, size, chunk, mode, offset=offset)
+    _, hits = _sweep_checks(c)
+    assert hits > 0.9
+    dec = isect.sweep_cull_decisions(c["args"][0], c["table"],
+                                     c["params"][0:3], c["params"][3:6],
+                                     c["hw"])
+    assert bool(dec[:, :, 30:].all())
+
+
+@pytest.mark.parametrize("kind", ["misses", "parallel"])
+def test_one_chunk_sweeps_on_misses_and_parallel_rays(cuda, kind):
+    """K1 and K4 on a frame that looks away from the box (most rays miss:
+    K4's raw bit from the camera position) and on rays parallel to the
+    floor and ceiling (their denominators 0: culled by the Dn = 0 clause),
+    at 257^2 (ragged) in chunks of 128: bit for bit their plain versions
+    on both mappings, the probe = the plain decisions."""
+    from raytpu_torch.kernels import intersect as isect
+    if kind == "misses":
+        c = _one_chunk_case(cuda, 257, 128, yaw=0.9)
+    else:
+        c = _one_chunk_case(cuda, 257, 128, flat_y=True)
+    _, hits = _sweep_checks(c)
+    if kind == "misses":
+        assert 0.0 < hits < 0.4
+    else:
+        dec = isect.sweep_cull_decisions(c["args"][0], c["table"],
+                                         c["params"][0:3], c["params"][3:6])
+        m = c["args"][1][:30]
+        flat = (m[:, 0, 0] == 0.0) & (m[:, 0, 2] == 0.0)
+        assert bool(flat.any()) and bool(dec[:, 0, :30][:, flat].all())
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_l2_equals_k4_on_every_ray(cuda, chunk):
+    """L2 (K4's kernel on planar rays, consecutive warps) = K4 over
+    consecutive rays and over the image's warps = the plain version, t,
+    idx and occ, on every ray of a 512^2 frame with misses."""
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import labs
+    c = _one_chunk_case(cuda, 512, chunk, yaw=1.0, pos=(0.2, 0.1, -1.8))
+    dirs_t = c["args"][0].T.contiguous()
+    cam, light = c["k4_args"][6], c["k4_args"][7]
+    l2 = labs.run_onestep(dirs_t, c["k4_table"], cam, light, 2048, chunk)
+    want = isect.closest_hit_occluded_reference(*c["k4_args"],
+                                                tri_chunk=chunk)
+    for hw in (None, c["hw"]):
+        k4 = isect.closest_hit_occluded(*c["k4_args"], tri_chunk=chunk,
+                                        image_hw=hw)
+        torch.cuda.synchronize()
+        for a, b, w in zip(l2, k4, want):
+            assert torch.equal(a[0], b) and torch.equal(b, w)
+    assert 0.2 < float((want[1] >= 0).float().mean()) < 0.95
+
+
 def _k6_torus_inputs(device, quads, size, n_src, seed=3):
     """K6's arguments on the procedural torus of 2 x quads triangles at
     size^2 (the render --stl camera nudged off x = 0, focal size: rays

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times one checkout's occlusion of known points (K7b, K7c), or its
-closest-hit kernels (K5, K7d, K7a), on one card.
+"""Times one checkout's occlusion of known points (K7b, K7c), its
+closest-hit kernels (K5, K7d, K7a), or its one-chunk sweeps (K4, L2, K1),
+on one card.
 
-    python3 tools/occlusion_ab.py TREE OUT.json [--frames | --hits]
+    python3 tools/occlusion_ab.py TREE OUT.json [--frames | --hits | --sweeps]
 
 TREE is the root of a checkout of this repository: this one, or an earlier
 commit unpacked with ``git archive``. The script imports raytpu_torch from
@@ -33,7 +34,22 @@ a call and a digest of the outputs; where TREE's launch helpers cut K7d's
 and K7a's tiles into runs (kernels/intersect.py::PRIMARY_RUN), K7d's and
 K7a's primary half's device ms under runs of 2, 4, 8, 16 and 32 kept chunks
 and one run a tile (median of 5 in turns), the bits required equal under
-every run. It writes what it measured to
+every run.
+
+``--sweeps`` measures instead the one-chunk sweeps through TREE's launch
+helpers and wrappers: K4 (kernels/intersect.py::launch_occluded_kernel) on
+phase 9's 512^2 clean case and its 500^2 parity AA sub-ray
+(chip_smoke.py::sweep_case), K1 (kernels/render_fused.py::fused_fwd) on
+phase 3's 512^2 clean and 500^2 parity frames, L2
+(kernels/labs.py::launch_k4_probe) on lab 2's 512^2 planar rays: the
+device's ms a call (a held stream, median of 7, 20 calls a hold) and a
+digest of the outputs, over consecutive rays and, where TREE's kernels
+take an image's warps (kernels/intersect.py::sweep_grid), over warps of
+1, 2, 4 and 8 rows of pixels, the bits required equal under every
+mapping; then the default render frame (500^2 parity, one K1) and the
+--aa 3 frame (nine K4): ms a frame on the host's clock to the call's
+return and to the device's end (median of 15), the device's busy ms under
+the profiler and a digest of the image. It writes what it measured to
 OUT.json; tools/ab_common.py says how two checkouts are compared.
 """
 
@@ -162,6 +178,99 @@ def primary_runs_ms(isect, cases, smoke, runs=(2, 4, 8, 16, 32)) -> dict:
     return out
 
 
+def sweeps(smoke, dev) -> dict:
+    """K4, K1 and L2 through TREE's launch helpers on their main-path
+    inputs, every warp mapping TREE has, and the two frames that run them
+    (the module docstring)."""
+    from raytpu_torch import Camera, Lights, RenderConfig, cornell_box
+    from raytpu_torch.kernels import intersect as isect
+    from raytpu_torch.kernels import labs, render_fused
+    from raytpu_torch.kernels.tables import constant_table
+    from raytpu_torch.labs.common import lab_inputs
+    from raytpu_torch.render.raytrace import fused_inputs, raytrace_full
+    tiled = hasattr(isect, "sweep_grid")
+    rows = (1, 2, 4, 8) if tiled else ()
+    record, calls = {}, {}
+
+    def with_rows(wh, fn):
+        def call():
+            saved, isect.SWEEP_WARP_ROWS = isect.SWEEP_WARP_ROWS, wh
+            try:
+                return fn()
+            finally:
+                isect.SWEEP_WARP_ROWS = saved
+        return call
+
+    one = Lights.single(capacity=1, device=dev)
+    for name, size, mode, pad, off in (
+            ("k4_512_clean", 512, "clean", 32, (0.0, 0.0)),
+            ("k4_500_parity", 500, "parity", None, (0.5, 0.0))):
+        c = smoke.sweep_case(dev, size, mode, pad, one, 1, off)
+        outs = isect._outputs(c["dirs"], 1)
+        args = (c["dirs"], c["table"], c["cam"], c["src"], *outs)
+        calls[f"{name}_rays"] = (
+            lambda a=args: isect.launch_occluded_kernel(*a), outs)
+        for wh in rows:
+            calls[f"{name}_image{wh}"] = (with_rows(
+                wh, lambda a=args, hw=(size, size):
+                isect.launch_occluded_kernel(*a, image_hw=hw)), outs)
+    for size, mode, pad in ((512, "clean", 32), (500, "parity", None)):
+        cfg = RenderConfig(width=size, height=size, mode=mode)
+        fargs = fused_inputs(cornell_box(pad_to=pad, device=dev),
+                             Camera.raytracer_default(device=dev), one, cfg)
+        table, params = render_fused.pack_inputs(*fargs[1:], cfg.tri_chunk)
+        kw = dict(ambient=cfg.ambient, parity=mode == "parity")
+        held = {}
+
+        def k1(hw=None, a=(fargs[0], table, params), kw=kw, held=held):
+            extra = {} if hw is None else {"image_hw": hw}
+            held["out"] = render_fused.fused_fwd(*a, **kw, **extra)
+            return held["out"]
+        name = f"k1_{size}_{mode}"
+        calls[f"{name}_rays"] = (k1, held)
+        for wh in rows:
+            calls[f"{name}_image{wh}"] = (with_rows(
+                wh, lambda hw=(size, size), k1=k1: k1(hw)), held)
+    x = lab_inputs(one, 512, dev, pad_to=32)
+    m, k0, valid, m_l, k0_l = x["consts"][0:5]
+    t4 = constant_table(m, k0, valid, m_l[None], k0_l[None], x["C"])
+    R = x["dirs_t"].shape[1]
+    l2_out = (torch.empty((1, R), device=dev),
+              torch.empty((1, R), dtype=torch.int32, device=dev),
+              torch.empty((1, R), dtype=torch.int32, device=dev))
+    calls["l2_512_clean"] = (
+        lambda: labs.launch_k4_probe(x["dirs_t"], t4, x["cam_pos"],
+                                     x["light_pos"], False, *l2_out), l2_out)
+    ms = smoke.median_ms_in_turns({k: v[0] for k, v in calls.items()},
+                                  n=20, reps=7, timer=smoke.held_ms)
+    for key, (call, outs) in calls.items():
+        call()
+        torch.cuda.synchronize()
+        record[key] = dict(ms=ms[key], bits=digest(
+            tuple(outs["out"]) if isinstance(outs, dict) else outs))
+        print(key, record[key], flush=True)
+    for key in record:
+        base = key.rsplit("_", 1)[0]
+        if key.startswith(("k4", "k1")):
+            smoke.require(record[key]["bits"] == record[f"{base}_rays"]["bits"],
+                          f"{key}: the bits of consecutive rays")
+    for name, cfg in (("render_500_parity", RenderConfig()),
+                      ("aa3_500_parity", RenderConfig(aa_samples=3))):
+        scene = cornell_box(device=dev)
+        camera = Camera.raytracer_default(device=dev)
+
+        def frame(scene=scene, camera=camera, cfg=cfg):
+            return raytrace_full(scene, camera, one, cfg).image
+        img = frame()
+        busy = smoke.device_busy(frame, steps=3)
+        host_ms, done_ms = wall_ms(frame)
+        record[name] = dict(ms=done_ms, host_ms=host_ms,
+                            busy_ms=busy["busy_ms"], share=busy["share"],
+                            img=digest(img))
+        print(name, record[name], flush=True)
+    return record
+
+
 def main(tree: Path, out: Path, mode: str) -> int:
     smoke = load(tree, "occlusion_ab")
     from raytpu_torch import load_stl
@@ -173,6 +282,10 @@ def main(tree: Path, out: Path, mode: str) -> int:
     )
     from raytpu_torch.parallel import render as pr
     dev = torch.device("cuda", 0)
+    if mode == "--sweeps":
+        write(out, {"tree": str(tree), "card": smoke.card_line(),
+                    "kernels": sweeps(smoke, dev)})
+        return 0
     stl_path = smoke.OUT / "occlusion_ab_torus.stl"
     stl_path.write_text(procedural_stl_text())
     mesh9028 = load_stl(str(stl_path), device=dev)
@@ -222,7 +335,7 @@ def main(tree: Path, out: Path, mode: str) -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4) or sys.argv[3:] not in (
-            [], ["--frames"], ["--hits"]):
+            [], ["--frames"], ["--hits"], ["--sweeps"]):
         raise SystemExit(__doc__)
     sys.exit(main(Path(sys.argv[1]).resolve(), Path(sys.argv[2]),
                   "".join(sys.argv[3:])))
